@@ -6,15 +6,22 @@ From the root of a checkout, on a machine with one CUDA card and the CUDA
 toolkit (``nvcc``). Phases, each printed as it runs:
 
 1. the card: name, count, and ``nvidia-smi``'s name and power limit;
-2. builds the three flash-attention kernels from ``paddle_tpu_torch/csrc``
-   (``nvcc``, ``sm_90a``), printing build seconds and ptxas's register and
-   shared-memory lines;
-3. holds each kernel against its plain PyTorch version at the training
-   shape (``[8, 16, 1024, 64]`` bf16, causal) and at a cross shape
-   (sq 128, sk 256, causal, head_dim 32, fp32);
+2. builds the six flash-attention kernels (forward, dK/dV and dQ, each
+   fixed-length and varlen) from the three sources of
+   ``paddle_tpu_torch/csrc`` (``nvcc``, ``sm_90a``), printing build seconds
+   and ptxas's register and shared-memory lines;
+3. holds each kernel against its plain PyTorch version: the fixed-length
+   ones at the training shape (``[8, 16, 1024, 64]`` bf16, causal) and at
+   a cross shape (sq 128, sk 256, causal, head_dim 32, fp32); the varlen
+   ones at the packed shape (8192 tokens of ten documents, 16 heads,
+   head_dim 64, bf16, causal; the plain version one head at a time) and at
+   an edge shape (fp32, head_dim 128, cu_q != cu_k, an empty segment on
+   each side, padding rows; causal and not), where the rows that see no
+   key must give out, lse and dq of exactly 0;
 4. times each kernel, its plain version and, as a yardstick only,
-   ``scaled_dot_product_attention`` (which the port never calls), beside
-   the least time the card could take for the same work;
+   ``scaled_dot_product_attention`` (which the port never calls; for the
+   varlen kernels with the dense block-diagonal causal mask), beside the
+   least time the card could take for the same work;
 5. checks the training step on a small GPT against the port's CPU path
    (the path the CPU tests hold against the JAX package), then drives the
    main path: gpt2-medium at full width (24 layers, hidden 1024), batch 8,
@@ -23,7 +30,11 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    dK/dV and 24 dQ kernels;
    one more step under ``torch.profiler`` splits the device time by
    phase (forward, backward, optimizer) and by kernel group;
-6. prints the ``kernels`` JSON line, the card line, and last
+6. drives the varlen path: ``nn.functional.flash_attn_unpadded`` forward
+   and backward at the packed shape, checks that it launched each varlen
+   kernel exactly once and gave the checked kernels' results bit for bit,
+   and times it;
+7. prints the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. It never falls back
@@ -46,6 +57,12 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 BATCH, SEQ, HEADS, HEAD_DIM = 8, 1024, 16, 64
 TIMED_STEPS = 5
 PHASES = ("forward", "optimizer")  # the trainer's profiler ranges
+# the varlen path: one step's 8 x 1024 tokens packed as ten documents of
+# lengths that mostly straddle the kernels' 64-row tiles
+DOCS = [1024, 37, 611, 2048, 129, 1500, 700, 64, 300, 1779]
+# the varlen edge shape: query and key segment lengths (segment 1 has keys
+# and no query, segment 4 queries and no key), padding query and key rows
+EDGE = ([70, 0, 45, 130, 20], [90, 33, 60, 2, 0], 15, 5)
 # per kernel: (module source, TPU kernel it replaces)
 KERNELS = {
     "flash_fwd": ("paddle_tpu_torch/csrc/flash_fwd.cu",
@@ -54,6 +71,12 @@ KERNELS = {
                       "paddle_tpu/ops/pallas/flash_attention.py:156"),
     "flash_bwd_dq": ("paddle_tpu_torch/csrc/flash_bwd_dq.cu",
                      "paddle_tpu/ops/pallas/flash_attention.py:205"),
+    "varlen_fwd": ("paddle_tpu_torch/csrc/flash_fwd.cu",
+                   "paddle_tpu/ops/pallas/flash_varlen.py:117"),
+    "varlen_bwd_dkv": ("paddle_tpu_torch/csrc/flash_bwd_dkv.cu",
+                       "paddle_tpu/ops/pallas/flash_varlen.py:161"),
+    "varlen_bwd_dq": ("paddle_tpu_torch/csrc/flash_bwd_dq.cu",
+                      "paddle_tpu/ops/pallas/flash_varlen.py:207"),
 }
 
 
@@ -110,8 +133,9 @@ def build():
               f"{info.path.name}")
         for line in info.ptxas:
             print(f"  {line}")
-    print(f"build wall {wall:.1f} s (nvcc processes run in parallel)")
-    check(set(infos) == set(KERNELS), f"built {sorted(infos)}")
+    print(f"build wall {wall:.1f} s (nvcc processes run in parallel; each "
+          f"library holds a fixed-length and a varlen kernel)")
+    check(set(infos) == set(_build.SOURCES), f"built {sorted(infos)}")
 
 
 def _inputs(bh, sq, sk, d, dtype, seed):
@@ -189,12 +213,108 @@ def hold_against_plain(bh, sq, sk, d, dtype, causal, seed):
             "flash_bwd_dq": errs["dq"]}
 
 
+def _varlen_inputs(lens_q, lens_k, pad_q, pad_k, h, d, dtype, causal,
+                   seed):
+    """Packed q, k, v, dO from a seed, cu_seqlens and the kernels' plan."""
+    from paddle_tpu_torch.ops.cuda import flash_varlen as fv
+    tq, tk = sum(lens_q) + pad_q, sum(lens_k) + pad_k
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(t):
+        return torch.randn(t, h, d, generator=gen, device="cuda").to(dtype)
+
+    cu_q = torch.tensor([0] + lens_q, device="cuda").cumsum(0).int()
+    cu_k = torch.tensor([0] + lens_k, device="cuda").cumsum(0).int()
+    plan = fv.varlen_plan(cu_q, cu_k, tq, tk, causal)
+    return rnd(tq), rnd(tk), rnd(tk), rnd(tq), cu_q, cu_k, plan
+
+
+def _per_head(fn, *tensors):
+    """Runs a plain varlen version one head at a time (its dense
+    [H, Tq, Tk] scores at the packed shape would take 4.3 GB each) and
+    joins the heads again. ``tensors`` are [T, H, D] or [H, T, 1]."""
+    h = tensors[0].shape[1]
+    outs = []
+    for i in range(h):
+        outs.append(fn(*(t[:, i:i + 1] if t.shape[-1] != 1 else t[i:i + 1]
+                         for t in tensors)))
+    if isinstance(outs[0], tuple):
+        return tuple(_join(list(o)) for o in zip(*outs))
+    return _join(outs)
+
+
+def _join(parts):
+    return torch.cat(parts, dim=0 if parts[0].shape[-1] == 1 else 1)
+
+
+def hold_varlen_against_plain(lens_q, lens_k, pad_q, pad_k, h, d, dtype,
+                              causal, seed):
+    """Runs each varlen kernel and its plain version on the same inputs.
+    Returns the max abs error per kernel and the kernels' results (out, dq,
+    dk, dv). Rows that see no key (padding rows, the queries of a segment
+    without keys) must give out, lse and dq of exactly 0."""
+    from paddle_tpu_torch.ops.cuda import flash_varlen as fv
+    q, k, v, do, cu_q, cu_k, plan = _varlen_inputs(
+        lens_q, lens_k, pad_q, pad_k, h, d, dtype, causal, seed)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = fv.varlen_fwd(q, k, v, plan, scale)
+    delta = fv.varlen_delta(do, out)
+    dk, dv = fv.varlen_bwd_dkv(q, k, v, do, lse, delta, plan, scale)
+    dq = fv.varlen_bwd_dq(q, k, v, do, lse, delta, plan, scale)
+    torch.cuda.synchronize()
+
+    def plain(fn):
+        return lambda *t: fn(*t, plan, scale)
+
+    p_out, p_lse = _per_head(plain(fv.varlen_fwd_plain), q, k, v)
+    abs_v_out = _per_head(plain(fv.varlen_fwd_plain), q, k, v.abs())[0]
+    p_dk, p_dv = _per_head(plain(fv.varlen_bwd_dkv_plain), q, k, v, do,
+                           lse, delta)
+    p_dq = _per_head(plain(fv.varlen_bwd_dq_plain), q, k, v, do, lse, delta)
+    pairs = {"out": (out, p_out), "lse": (lse, p_lse), "dq": (dq, p_dq),
+             "dk": (dk, p_dk), "dv": (dv, p_dv)}
+    errs, ratios = {}, {}
+    for key, (got, want) in pairs.items():
+        errs[key], ratios[key] = within(
+            got, want, limit(dtype, key, want, abs_v_out))
+    shape = (f"varlen tq {q.shape[0]} tk {k.shape[0]} h {h} d {d} {dtype} "
+             f"causal {causal} segments {len(lens_q)}")
+    print(f"{shape}: max abs err " + " ".join(
+        f"{k} {v:.3g}" for k, v in errs.items()) + "; of the limit " +
+        " ".join(f"{k} {v:.3g}" for k, v in ratios.items()))
+    for key, ratio in ratios.items():
+        check(math.isfinite(ratio) and ratio <= 1.0,
+              f"{key} at {ratio:.3g} of its limit at {shape}")
+    for t in (out, lse, dq, dk, dv):
+        check(bool(torch.isfinite(t.float()).all()), f"non-finite at {shape}")
+    cu = cu_q.tolist()
+    blind = [i for s in range(len(lens_q)) if lens_k[s] == 0
+             for i in range(cu[s], cu[s + 1])]
+    blind += list(range(cu[-1], q.shape[0]))
+    if blind:
+        rows = torch.tensor(blind, device="cuda")
+        check(not out[rows].any() and not dq[rows].any()
+              and not lse[:, rows].any(),
+              f"rows that see no key are not 0 at {shape}")
+        print(f"  {len(blind)} rows that see no key: out, lse, dq exactly 0")
+    return ({"varlen_fwd": max(errs["out"], errs["lse"]),
+             "varlen_bwd_dkv": max(errs["dk"], errs["dv"]),
+             "varlen_bwd_dq": errs["dq"]},
+            (out, dq, dk, dv))
+
+
 def kernel_checks():
     phase("3 kernels against their plain versions")
-    path = hold_against_plain(BATCH * HEADS, SEQ, SEQ, HEAD_DIM,
+    errs = hold_against_plain(BATCH * HEADS, SEQ, SEQ, HEAD_DIM,
                               torch.bfloat16, True, seed=0)
     hold_against_plain(4, 128, 256, 32, torch.float32, True, seed=1)
-    return path
+    varlen_errs, varlen_results = hold_varlen_against_plain(
+        DOCS, DOCS, 0, 0, HEADS, HEAD_DIM, torch.bfloat16, True, seed=3)
+    errs.update(varlen_errs)
+    for causal in (False, True):
+        hold_varlen_against_plain(*EDGE, 4, 128, torch.float32, causal,
+                                  seed=4)
+    return errs, varlen_results
 
 
 def bounds(bh, s, d, io_bytes):
@@ -223,10 +343,112 @@ def bounds(bh, s, d, io_bytes):
     return out
 
 
+def kept_pairs(lens_q, lens_k, causal):
+    """(query, key) pairs a varlen mask keeps, per head: a query at
+    in-segment position p sees min(p + 1, Lk) keys when causal."""
+    if not causal:
+        return sum(a * b for a, b in zip(lens_q, lens_k))
+    return sum(min(p + 1, b) for a, b in zip(lens_q, lens_k)
+               for p in range(a))
+
+
+def varlen_bounds(h, lens_q, lens_k, tq, tk, d, io_bytes, causal):
+    """Least time (ms) for each varlen kernel's work, as ``bounds`` counts
+    it, over the pairs this run's segments keep. Bytes add the int32
+    segment and position arrays (padded to whole 64-row tiles) and the
+    per-tile bounds each kernel reads."""
+    pairs = h * kept_pairs(lens_q, lens_k, causal)
+    tq_pad, tk_pad = -(-tq // 64) * 64, -(-tk // 64) * 64
+    qt, kt = h * tq * d * io_bytes, h * tk * d * io_bytes
+    row = h * tq * 4
+    meta = 2 * 4 * (tq_pad + tk_pad)
+    work = {
+        "varlen_fwd": (2 * 2 * d * pairs,
+                       2 * qt + 2 * kt + row + meta + 2 * 4 * tq_pad // 64),
+        "varlen_bwd_dkv": (4 * 2 * d * pairs, 2 * qt + 4 * kt + 2 * row
+                           + meta + 2 * 4 * tk_pad // 64),
+        "varlen_bwd_dq": (3 * 2 * d * pairs, 3 * qt + 2 * kt + 2 * row
+                          + meta + 2 * 4 * tq_pad // 64),
+    }
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        out[name] = (max(t_ops, t_bytes),
+                     "operations" if t_ops >= t_bytes else "bytes",
+                     flops, nbytes)
+    return out
+
+
+def varlen_timings():
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import flash_varlen as fv
+    t = sum(DOCS)
+    q, k, v, do, cu, _, plan = _varlen_inputs(
+        DOCS, DOCS, 0, 0, HEADS, HEAD_DIM, torch.bfloat16, True, seed=5)
+    scale = 1.0 / math.sqrt(HEAD_DIM)
+    out, lse = fv.varlen_fwd(q, k, v, plan, scale)
+    delta = fv.varlen_delta(do, out)
+    ms = {
+        "varlen_fwd": cuda_ms(lambda: fv.varlen_fwd(q, k, v, plan, scale),
+                              20),
+        "varlen_bwd_dkv": cuda_ms(lambda: fv.varlen_bwd_dkv(
+            q, k, v, do, lse, delta, plan, scale), 20),
+        "varlen_bwd_dq": cuda_ms(lambda: fv.varlen_bwd_dq(
+            q, k, v, do, lse, delta, plan, scale), 20),
+    }
+
+    def plain(fn, *tensors):
+        return lambda: _per_head(lambda *x: fn(*x, plan, scale), *tensors)
+
+    plain_ms = {
+        "varlen_fwd": cuda_ms(plain(fv.varlen_fwd_plain, q, k, v), 3, 1),
+        "varlen_bwd_dkv": cuda_ms(plain(fv.varlen_bwd_dkv_plain, q, k, v,
+                                        do, lse, delta), 3, 1),
+        "varlen_bwd_dq": cuda_ms(plain(fv.varlen_bwd_dq_plain, q, k, v, do,
+                                       lse, delta), 3, 1),
+    }
+    plan_ms = cuda_ms(lambda: fv.varlen_plan(cu, cu, t, t, True), 20)
+    delta_ms = cuda_ms(lambda: fv.varlen_delta(do, out), 20)
+
+    # yardstick only: the library's attention over the dense block-diagonal
+    # causal mask, which does all T^2 pairs the kernels skip
+    seg = plan.seg_q[:t]
+    pos = plan.pos_q[:t]
+    mask = (seg[:, None] == seg[None, :]) & (pos[None, :] <= pos[:, None])
+    q4, k4, v4, do4 = (x.transpose(0, 1)[None] for x in (q, k, v, do))
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask, scale=scale), 10)
+    ql, kl, vl = (x.detach().clone().requires_grad_() for x in (q4, k4, v4))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
+                                             scale=scale)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), do4, retain_graph=True), 10)
+    library_ms = {"varlen_fwd": lib_fwd, "varlen_bwd_dkv": None,
+                  "varlen_bwd_dq": None}
+    bnd = varlen_bounds(HEADS, DOCS, DOCS, t, t, HEAD_DIM, 2, True)
+    print(f"varlen: T {t}, {len(DOCS)} documents, {HEADS} heads, d "
+          f"{HEAD_DIM}, bf16, causal; {kept_pairs(DOCS, DOCS, True)} kept "
+          f"pairs per head ({kept_pairs(DOCS, DOCS, True) / (t * (t + 1) / 2):.1%}"
+          f" of a dense causal mask)")
+    for name in library_ms:
+        b_ms, b_by, flops, nbytes = bnd[name]
+        print(f"{name}: {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms "
+              f"(one head at a time), bound {b_ms:.4f} ms ({b_by}; "
+              f"{flops:.3e} FLOP, {nbytes / 1e6:.1f} MB), "
+              f"{b_ms / ms[name]:.1%} of bound")
+    print(f"varlen_plan (plain torch, before the forward): {plan_ms:.4f} ms; "
+          f"varlen_delta (in the backward): {delta_ms:.4f} ms")
+    print(f"library sdpa, dense block-diagonal causal mask [{t}, {t}]: fwd "
+          f"{lib_fwd:.4f} ms, bwd (dq+dk+dv) {lib_bwd:.4f} ms; port bwd "
+          f"dkv+dq+delta {ms['varlen_bwd_dkv'] + ms['varlen_bwd_dq'] + delta_ms:.4f} ms")
+    return ms, plain_ms, library_ms, bnd
+
+
 def timings():
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
-    phase("4 timings at the training shape")
+    phase("4 timings at the path shapes")
     bh, s, d = BATCH * HEADS, SEQ, HEAD_DIM
     q, k, v, do = _inputs(bh, s, s, d, torch.bfloat16, seed=2)
     args = (True, 1.0 / math.sqrt(d), s, 0)
@@ -261,7 +483,7 @@ def timings():
     library_ms = {"flash_fwd": lib_fwd, "flash_bwd_dkv": None,
                   "flash_bwd_dq": None}
     bnd = bounds(bh, s, d, 2)
-    for name in KERNELS:
+    for name in library_ms:
         b_ms, b_by, flops, nbytes = bnd[name]
         print(f"{name}: {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}; {flops:.3e} FLOP, "
@@ -271,7 +493,9 @@ def timings():
     print(f"library sdpa causal: fwd {lib_fwd:.4f} ms, bwd (dq+dk+dv) "
           f"{lib_bwd:.4f} ms; port bwd dkv+dq+delta "
           f"{ms['flash_bwd_dkv'] + ms['flash_bwd_dq'] + delta_ms:.4f} ms")
-    return ms, plain_ms, library_ms, bnd
+    v_ms, v_plain, v_lib, v_bnd = varlen_timings()
+    return ({**ms, **v_ms}, {**plain_ms, **v_plain}, {**library_ms, **v_lib},
+            {**bnd, **v_bnd})
 
 
 def small_step_check():
@@ -427,17 +651,68 @@ def profile_step(step, state, tokens, labels, step_ms):
               f"x{e.count:<5d} {e.key[:110]}")
 
 
+def varlen_path(expected, smi):
+    """Forward and backward through ``nn.functional.flash_attn_unpadded``
+    at the packed shape, on the inputs of the full-width kernel check:
+    each varlen kernel launched once, and the results those kernels gave
+    there, bit for bit (the kernels write every element once, in a fixed
+    order)."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import flash_varlen as fv
+    phase("6 varlen path")
+    q, k, v, do, cu, _, _ = _varlen_inputs(
+        DOCS, DOCS, 0, 0, HEADS, HEAD_DIM, torch.bfloat16, True, seed=3)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    scale = 1.0 / math.sqrt(HEAD_DIM)
+
+    def fwd_bwd():
+        for t in (q, k, v):
+            t.grad = None
+        out, _ = F.flash_attn_unpadded(q, k, v, cu, cu, max(DOCS),
+                                       max(DOCS), scale, causal=True)
+        out.backward(do)
+        return out
+
+    torch.cuda.synchronize()
+    fv.reset_launches()
+    t0 = time.perf_counter()
+    out = fwd_bwd()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(fv.LAUNCHES)
+    print(f"launches in one forward and backward: {launches}")
+    for kname in launches:
+        check(launches[kname] == 1, f"{kname} launched {launches[kname]} "
+              f"times, want 1")
+    got = (out, q.grad, k.grad, v.grad)
+    for key, g, want in zip(("out", "dq", "dk", "dv"), got, expected):
+        check(bool(torch.isfinite(g.float()).all()), f"path {key} non-finite")
+        check(torch.equal(g, want), f"path {key} differs from the checked "
+              f"kernels' result (max {_err(g, want):.3g})")
+    print("out, dq, dk, dv finite and equal to the checked kernels' results")
+    ms = cuda_ms(fwd_bwd, 10)
+    t = sum(DOCS)
+    print(f"flash_attn_unpadded fwd+bwd, T {t} ({len(DOCS)} documents), "
+          f"{HEADS} heads, d {HEAD_DIM}, bf16, causal: {ms:.4f} ms "
+          f"({t / (ms / 1e3):.1f} tokens/s; first call {first_ms:.2f} ms "
+          f"host clock) on {smi}")
+    return launches, ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     name, count, smi = card()
     build()
-    errs = kernel_checks()
+    errs, varlen_results = kernel_checks()
     ms, plain_ms, library_ms, bnd = timings()
     torch.cuda.empty_cache()
     launches = main_path()
-    phase("6 results")
+    torch.cuda.empty_cache()
+    varlen_launches, _ = varlen_path(varlen_results, smi)
+    launches.update(varlen_launches)
+    phase("7 results")
     rows = []
     for kname, (source, replaces) in KERNELS.items():
         rows.append({

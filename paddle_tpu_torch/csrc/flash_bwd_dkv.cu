@@ -1,33 +1,44 @@
-// Causal flash-attention backward, dK and dV, for Hopper (sm_90a).
+// Flash-attention backward, dK and dV, for Hopper (sm_90a): fixed-length
+// causal batches and packed variable-length sequences, one kernel templated
+// on the mask.
 //
-// Replaces: paddle_tpu/ops/pallas/flash_attention.py `_dkv_kernel` (launched
-// from `_bwd`). Same function: for one key tile, loop over the query tiles
-// from the first one that reaches the diagonal; recompute p = exp(s - lse)
-// under the forward's mask, then dV += p^T dO, dP = dO V^T,
-// dS = p (dP - delta) scale, dK += dS^T Q, all in fp32; delta = rowsum(dO o)
-// comes in precomputed. dK and dV are written once, in the io type.
+// Replaces: paddle_tpu/ops/pallas/flash_attention.py `_dkv_kernel`
+// (launched from `_bwd`; entry `pt_flash_bwd_dkv`, CausalMask) and
+// paddle_tpu/ops/pallas/flash_varlen.py `_v_dkv_kernel` (launched from
+// `_varlen_bwd`; entry `pt_varlen_bwd_dkv`, SegmentMask). Same function: for
+// one key tile, loop over the query tiles the mask lets see it; recompute
+// p = exp(s - lse) under the forward's mask, then dV += p^T dO,
+// dP = dO V^T, dS = p (dP - delta) scale, dK += dS^T Q, all in fp32;
+// delta = rowsum(dO o) comes in precomputed. dK and dV are written once, in
+// the io type; a key no query sees gets 0.
 //
-// What bounds it on the H100 at the training shapes (BH = 128, S = 1024,
-// D = 64, bf16, causal): four products over the causal half, 3.4e10 FLOP
-// (35 us at 989 TFLOP/s), against 102 MB of q, k, v, dO, lse, delta, dk and
-// dv (30 us at 3.35 TB/s): the operations bound it, barely. This first
-// kernel does its products as fp32 FMAs from shared memory, so the FMA rate
-// and shared-memory reads bound it instead. What the design does: k and v
-// stay in shared memory for the whole block, dK and dV accumulate in
-// registers (a 4 x D/16 block each per thread) and never round-trip to
-// device memory, and query tiles above the diagonal are never loaded.
+// What bounds it on the H100: four products over the kept pairs. At the
+// fixed-length training shape (BH = 128, S = 1024, D = 64, bf16, causal)
+// 3.4e10 FLOP (35 us at 989 TFLOP/s) against 102 MB of q, k, v, dO, lse,
+// delta, dk and dv (30 us at 3.35 TB/s); at the packed shape (T = 8192,
+// H = 16, ten causal documents) 4.8e10 FLOP (48 us) against 102 MB
+// (30 us): the operations in both. This first kernel does its products as
+// fp32 FMAs from shared memory, so the FMA rate and shared-memory reads
+// bound it instead. What the design does: k and v stay in shared memory for
+// the whole block, dK and dV accumulate in registers (a 4 x D/16 block each
+// per thread) and never round-trip to device memory, and query tiles the
+// mask rules out (above the diagonal, or outside the key tile's segments)
+// are never loaded.
 //
-// Grid: (ceil(Sk / 64), BH); one block per (bh, 64-row key tile).
+// Grid: (ceil(Sk / 64), heads); one block per (head, 64-row key tile).
 #include "flash_common.cuh"
 
 namespace pt_flash {
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
+template <typename T, int D, typename Mask>
+// Shared memory allows two blocks per SM at head_dim <= 64 (one at 128):
+// saying so keeps ptxas from squeezing the kernel into 64 registers with
+// spills to reach an occupancy the shared memory rules out.
+__global__ void __launch_bounds__(NT, 2)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     int sq, int sk, int causal, float scale, int kv_len, int q_offset) {
+                     Layout lay, Mask mask, float scale) {
   constexpr int LD = D + 1;
   constexpr int DJ = D / 16;
   extern __shared__ float smem[];
@@ -41,35 +52,37 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   float* Dl = Ls + BQ;         // [BQ]
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BK;
-  const T* qb = q + (size_t)bh * sq * D;
-  const T* dob = dout + (size_t)bh * sq * D;
-  const float* lb = lse + (size_t)bh * sq;
-  const float* db = delta + (size_t)bh * sq;
+  const int h = blockIdx.y;
+  const int kt = blockIdx.x;
+  const int k0 = kt * BK;
+  const T* qb = q + h * lay.q_hs;
+  const T* dob = dout + h * lay.q_hs;
+  const float* lb = lse + (size_t)h * lay.sq;
+  const float* db = delta + (size_t)h * lay.sq;
 
-  load_tile<T, BK, D>(Ks, k + (size_t)bh * sk * D, k0, sk);
-  load_tile<T, BK, D>(Vs, v + (size_t)bh * sk * D, k0, sk);
+  load_tile<T, BK, D>(Ks, k + h * lay.k_hs, k0, lay.sk, lay.k_rs);
+  load_tile<T, BK, D>(Vs, v + h * lay.k_hs, k0, lay.sk, lay.k_rs);
 
   float dk_acc[4][DJ], dv_acc[4][DJ];
+  RowInfo ki[4];  // the keys tx + 16 b of every score tile
+#pragma unroll
+  for (int b = 0; b < 4; ++b) ki[b] = mask.k_row(k0 + tx + 16 * b);
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int c = 0; c < DJ; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
 
-  // query rows before this key tile's first diagonal see none of it; a tile
-  // wholly past kv_len is seen by no query
-  int qt_begin = 0;
-  if (causal && k0 - q_offset > 0) qt_begin = (k0 - q_offset) / BQ;
-  const int nqt = k0 < kv_len ? (sq + BQ - 1) / BQ : 0;
-
-  for (int it = qt_begin; it < nqt; ++it) {
+  const int2 tiles = mask.query_tiles(kt);
+  for (int it = tiles.x; it < tiles.y; ++it) {
     const int q0 = it * BQ;
+    RowInfo qi[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qi[i] = mask.q_row(q0 + ty + 16 * i);
     __syncthreads();  // the last tile's reads of Qs, dOs, Ps, dSs are done
-    load_tile<T, BQ, D>(Qs, qb, q0, sq);
-    load_tile<T, BQ, D>(dOs, dob, q0, sq);
-    load_rowvec(Ls, lb, q0, sq, BQ);
-    load_rowvec(Dl, db, q0, sq, BQ);
+    load_tile<T, BQ, D>(Qs, qb, q0, lay.sq, lay.q_rs);
+    load_tile<T, BQ, D>(dOs, dob, q0, lay.sq, lay.q_rs);
+    load_rowvec(Ls, lb, q0, lay.sq, BQ);
+    load_rowvec(Dl, db, q0, lay.sq, BQ);
     __syncthreads();
 
     // s = Q K^T and dP = dO V^T; thread holds query rows ty + 16 i, keys tx + 16 b
@@ -105,7 +118,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
         const int col = tx + 16 * b;
-        const bool ok = visible(q0 + r, k0 + col, sq, kv_len, causal, q_offset);
+        const bool ok = mask.visible(qi[i], ki[b]);
         const float p = ok ? expf(s[i][b] * scale - Ls[r]) : 0.f;
         Ps[r * LDP + col] = p;
         dSs[r * LDP + col] = p * (dp[i][b] - Dl[r]) * scale;
@@ -140,9 +153,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kp = k0 + ty + 16 * i;
-    if (kp >= sk) continue;
-    T* dkrow = dk + ((size_t)bh * sk + kp) * D;
-    T* dvrow = dv + ((size_t)bh * sk + kp) * D;
+    if (kp >= lay.sk) continue;
+    T* dkrow = dk + h * lay.k_hs + kp * lay.k_rs;
+    T* dvrow = dv + h * lay.k_hs + kp * lay.k_rs;
 #pragma unroll
     for (int c = 0; c < DJ; ++c) {
       dkrow[tx + 16 * c] = from_f<T>(dk_acc[i][c]);
@@ -151,41 +164,54 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, typename Mask>
 cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                const void* delta, void* dk, void* dv, int bh, int sq, int sk, int causal,
-                float scale, int kv_len, int q_offset, void* stream) {
+                const void* delta, void* dk, void* dv, int heads, Layout lay, Mask mask,
+                float scale, void* stream) {
   const size_t smem = sizeof(float) * (4 * 64 * (D + 1) + 2 * BQ * LDP + 2 * BQ);
-  const dim3 grid((sk + BK - 1) / BK, bh);
-  return launch(flash_bwd_dkv_kernel<T, D>, grid, smem, stream, (const T*)q, (const T*)k,
+  const dim3 grid((lay.sk + BK - 1) / BK, heads);
+  return launch(flash_bwd_dkv_kernel<T, D, Mask>, grid, smem, stream, (const T*)q, (const T*)k,
                 (const T*)v, (const T*)dout, (const float*)lse, (const float*)delta, (T*)dk,
-                (T*)dv, sq, sk, causal, scale, kv_len, q_offset);
+                (T*)dv, lay, mask, scale);
 }
 
-template <typename T>
-cudaError_t dkv_d(int d, const void* q, const void* k, const void* v, const void* dout,
-                  const void* lse, const void* delta, void* dk, void* dv, int bh, int sq, int sk,
-                  int causal, float scale, int kv_len, int q_offset, void* stream) {
-  switch (d) {
-    case 32: return dkv<T, 32>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, causal, scale, kv_len, q_offset, stream);
-    case 64: return dkv<T, 64>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, causal, scale, kv_len, q_offset, stream);
-    case 128: return dkv<T, 128>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, causal, scale, kv_len, q_offset, stream);
-    default: return cudaErrorInvalidValue;
+template <typename Mask>
+cudaError_t dkv_any(int d, int is_bf16, const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta, void* dk, void* dv,
+                    int heads, Layout lay, Mask mask, float scale, void* stream) {
+  if (is_bf16) {
+    PT_FLASH_SWITCH_D(d, return dkv<__nv_bfloat16, D>(q, k, v, dout, lse, delta, dk, dv, heads,
+                                                       lay, mask, scale, stream))
   }
+  PT_FLASH_SWITCH_D(d, return dkv<float, D>(q, k, v, dout, lse, delta, dk, dv, heads, lay, mask,
+                                            scale, stream))
 }
 
 }  // namespace pt_flash
 
-// q, dout [bh, sq, d] and k, v, dk, dv [bh, sk, d] in the io type; lse and
-// delta float [bh, sq]. Launches on `stream` and returns cudaGetLastError().
+// q, dout [bh, sq, d] and k, v, dk, dv [bh, sk, d] in the io type,
+// contiguous; lse and delta float [bh, sq]. Launches on `stream` and
+// returns cudaGetLastError().
 extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                 const void* lse, const void* delta, void* dk, void* dv, int bh,
                                 int sq, int sk, int d, int is_bf16, int causal, float scale,
                                 int kv_len, int q_offset, void* stream) {
-  cudaError_t err = is_bf16
-      ? pt_flash::dkv_d<__nv_bfloat16>(d, q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, causal,
-                                       scale, kv_len, q_offset, stream)
-      : pt_flash::dkv_d<float>(d, q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, causal, scale,
-                               kv_len, q_offset, stream);
-  return (int)err;
+  const pt_flash::CausalMask mask{sq, causal, kv_len, q_offset};
+  return (int)pt_flash::dkv_any(d, is_bf16, q, k, v, dout, lse, delta, dk, dv, bh,
+                                pt_flash::dense_layout(sq, sk, d), mask, scale, stream);
+}
+
+// q, dout [tq, h, d] and k, v, dk, dv [tk, h, d] in the io type, contiguous;
+// lse and delta float [h, tq]; seg/pos as for pt_varlen_fwd; lo/hi int32
+// [ceil(tk / 64)]: the query tiles each key tile visits. Launches on
+// `stream` and returns cudaGetLastError().
+extern "C" int pt_varlen_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                                 const void* lse, const void* delta, void* dk, void* dv,
+                                 const int* seg_q, const int* pos_q, const int* seg_k,
+                                 const int* pos_k, const int* lo, const int* hi, int h, int tq,
+                                 int tk, int d, int is_bf16, int causal, float scale,
+                                 void* stream) {
+  const pt_flash::SegmentMask mask{seg_q, pos_q, seg_k, pos_k, lo, hi, causal};
+  return (int)pt_flash::dkv_any(d, is_bf16, q, k, v, dout, lse, delta, dk, dv, h,
+                                pt_flash::packed_layout(tq, tk, h, d), mask, scale, stream);
 }

@@ -1,11 +1,19 @@
-// Shared pieces of the causal flash-attention kernels (forward, dK/dV, dQ).
+// Shared pieces of the flash-attention kernels (forward, dK/dV, dQ), for
+// fixed-length batches and for packed variable-length sequences.
 //
-// Layout: q, o, dO are [BH, Sq, D]; k, v are [BH, Sk, D]; all contiguous, in
-// the io type (float or bf16). lse and delta are [BH, Sq] float. Every block
-// runs NT = 256 threads as a 16 x 16 grid (tx = tid % 16, ty = tid / 16); a
-// thread owns rows {ty + 16 i} and columns {tx + 16 j} of each 64-row tile,
-// so the 16 threads that share a row sit in one half-warp and reduce a row
-// with four xor shuffles.
+// Layout: element (head, row, c) of a query-like tensor (q, o, dO, dQ) is at
+// `head * q_hs + row * q_rs + c`, of a key-like one (k, v, dK, dV) at
+// `head * k_hs + row * k_rs + c`: [BH, S, D] has row stride D and head
+// stride S * D, packed [T, H, D] row stride H * D and head stride D. Rows are
+// contiguous in the io type (float or bf16). lse and delta are float
+// [heads, Sq]. Every block runs NT = 256 threads as a 16 x 16 grid
+// (tx = tid % 16, ty = tid / 16); a thread owns rows {ty + 16 i} and columns
+// {tx + 16 j} of each 64-row tile, so the 16 threads that share a row sit
+// in one half-warp and reduce a row with four xor shuffles.
+//
+// What a kernel may see is a Mask policy (CausalMask, SegmentMask below):
+// which key a query row sees, which tiles a tile visits, and the lse of a
+// row that sees no key. The kernels are templates on it.
 //
 // Tiles live in shared memory as float with one word of padding per row
 // (stride D + 1), so a column read by 16 neighbouring threads hits 16
@@ -40,16 +48,27 @@ template <typename T> __device__ __forceinline__ float round_io(float x) {
   return to_f(from_f<T>(x));
 }
 
-// Rows [row0, row0 + ROWS) of a [rows, D] io-typed matrix into a float smem
-// tile of stride D + 1; rows past the end read as 0.
+// Row counts and element strides of the query-like and key-like tensors.
+// Row strides are 32-bit (a row offset inside one head stays below 2^31
+// elements; the varlen wrappers check it): with 64-bit ones the
+// fixed-length forward spills registers at head_dim 64.
+struct Layout {
+  int sq, sk;
+  int q_rs, k_rs;
+  long long q_hs, k_hs;
+};
+
+// Rows [row0, row0 + ROWS) of a [rows, D] io-typed matrix whose rows are
+// `rs` elements apart into a float smem tile of stride D + 1; rows past the
+// end read as 0.
 template <typename T, int ROWS, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int row0, int rows) {
+__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int row0,
+                                          int rows, int rs) {
   constexpr int LD = D + 1;
   for (int idx = threadIdx.x; idx < ROWS * D; idx += NT) {
     const int r = idx / D, c = idx % D;
     const int gr = row0 + r;
-    dst[r * LD + c] = gr < rows ? to_f(src[(size_t)gr * D + c]) : 0.f;
+    dst[r * LD + c] = gr < rows ? to_f(src[gr * rs + c]) : 0.f;
   }
 }
 
@@ -74,22 +93,72 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-// Key kp is seen by query qp: inside kv_len and, when causal, on or below the
-// bottom-right-aligned diagonal kp <= qp + q_offset (q_offset = Sk - Sq).
-__device__ __forceinline__ bool visible(int qp, int kp, int sq, int kv_len, int causal,
-                                        int q_offset) {
-  return qp < sq && kp < kv_len && (!causal || kp <= qp + q_offset);
-}
+// What a mask reads of one row: its index (CausalMask) or its segment and
+// in-segment position (SegmentMask). A kernel fetches it once per row.
+struct RowInfo {
+  int a, b;
+};
 
-// One past the last key that any query row of the tile starting at q0 sees.
-__device__ __forceinline__ int key_end(int q0, int sq, int kv_len, int causal, int q_offset) {
-  int end = kv_len;
-  if (causal) {
-    const int last_q = min(q0 + BQ, sq) - 1;
-    end = min(end, last_q + q_offset + 1);
+// Fixed-length rows (the TPU `_fwd_kernel` family): key kp is seen by query
+// qp when it lies inside kv_len and, when causal, on or below the
+// bottom-right-aligned diagonal kp <= qp + q_offset (q_offset = Sk - Sq).
+// Tiles past the diagonal are skipped; a row that sees no key keeps
+// m = -1e30 as its lse.
+struct CausalMask {
+  int sq, causal, kv_len, q_offset;
+
+  __device__ static float empty_lse() { return NEG_INF; }
+
+  __device__ RowInfo q_row(int qp) const { return {qp, 0}; }
+  __device__ RowInfo k_row(int kp) const { return {kp, 0}; }
+  __device__ bool visible(RowInfo q, RowInfo k) const {
+    return q.a < sq && k.a < kv_len && (!causal || k.a <= q.a + q_offset);
   }
-  return max(end, 0);
-}
+  // Key tiles [x, y) that query tile qt visits: up to one past the last key
+  // any of its rows sees.
+  __device__ int2 key_tiles(int qt) const {
+    int end = kv_len;
+    if (causal) end = min(end, min(qt * BQ + BQ, sq) - 1 + q_offset + 1);
+    end = max(end, 0);
+    return make_int2(0, (end + BK - 1) / BK);
+  }
+  // Query tiles [x, y) that key tile kt visits: from the first one that
+  // reaches the diagonal; none when the tile lies wholly past kv_len.
+  __device__ int2 query_tiles(int kt) const {
+    const int k0 = kt * BK;
+    int begin = 0;
+    if (causal && k0 - q_offset > 0) begin = (k0 - q_offset) / BQ;
+    return make_int2(begin, k0 < kv_len ? (sq + BQ - 1) / BQ : 0);
+  }
+};
+
+// Packed variable-length sequences (the TPU `_v_*_kernel` family): key kp
+// is seen by query qp when both lie in the same segment and, when causal,
+// pos_k <= pos_q (top-left aligned inside the segment). seg/pos are int32
+// per token, padded to a whole number of 64-row tiles; padding queries are
+// segment -1 and padding keys -2, so they never meet. The tiles a tile
+// visits come from per-tile [lo, hi) bounds worked out on the host side
+// (key tiles per query tile for the forward and dQ, query tiles per key
+// tile for dK/dV). A row that sees no key gets lse 0, as on the TPU.
+struct SegmentMask {
+  const int* seg_q;
+  const int* pos_q;
+  const int* seg_k;
+  const int* pos_k;
+  const int* lo;
+  const int* hi;
+  int causal;
+
+  __device__ static float empty_lse() { return 0.f; }
+
+  __device__ RowInfo q_row(int qp) const { return {seg_q[qp], pos_q[qp]}; }
+  __device__ RowInfo k_row(int kp) const { return {seg_k[kp], pos_k[kp]}; }
+  __device__ bool visible(RowInfo q, RowInfo k) const {
+    return q.a == k.a && (!causal || k.b <= q.b);
+  }
+  __device__ int2 key_tiles(int qt) const { return make_int2(lo[qt], hi[qt]); }
+  __device__ int2 query_tiles(int kt) const { return make_int2(lo[kt], hi[kt]); }
+};
 
 // Sets the block's dynamic shared memory limit, then launches.
 template <typename Kernel, typename... Args>
@@ -100,5 +169,24 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... 
   kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(args...);
   return cudaGetLastError();
 }
+
+// The fixed-length layout: [bh, sq, d] and [bh, sk, d], contiguous.
+inline Layout dense_layout(int sq, int sk, int d) {
+  return Layout{sq, sk, d, d, (long long)sq * d, (long long)sk * d};
+}
+
+// The packed layout: [tq, h, d] and [tk, h, d], contiguous.
+inline Layout packed_layout(int tq, int tk, int h, int d) {
+  return Layout{tq, tk, h * d, h * d, d, d};
+}
+
+// Instantiates `body` for head_dim 32, 64 or 128; anything else is refused.
+#define PT_FLASH_SWITCH_D(d, ...)                    \
+  switch (d) {                                       \
+    case 32: { constexpr int D = 32; __VA_ARGS__; }  \
+    case 64: { constexpr int D = 64; __VA_ARGS__; }  \
+    case 128: { constexpr int D = 128; __VA_ARGS__; } \
+    default: return cudaErrorInvalidValue;           \
+  }
 
 }  // namespace pt_flash

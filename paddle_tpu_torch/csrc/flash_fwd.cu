@@ -1,33 +1,41 @@
-// Causal flash-attention forward for Hopper (sm_90a).
+// Flash-attention forward for Hopper (sm_90a): fixed-length causal batches
+// and packed variable-length sequences, one kernel templated on the mask.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (reached
-// through `_fwd_call`). Same function: online-softmax attention, fp32 logits,
-// running max m, running sum l and fp32 accumulator, bottom-right causal mask
-// k <= q + (Sk - Sq), keys masked by kv_len, key tiles past the diagonal
-// skipped, P rounded to the io type before P.V, lse = m + log(l) in fp32 and
-// a row with l == 0 written as 0.
+// through `_fwd_call`; entry `pt_flash_fwd`, CausalMask) and
+// paddle_tpu/ops/pallas/flash_varlen.py `_v_fwd_kernel` (reached through
+// `_varlen_fwd`; entry `pt_varlen_fwd`, SegmentMask). Same function:
+// online-softmax attention, fp32 logits, running max m, running sum l and
+// fp32 accumulator, the mask applied before the max and again after exp,
+// only the key tiles the mask can reach visited, P rounded to the io type
+// before P.V, lse = m + log(l) in fp32, and a row with l == 0 written as 0
+// with the mask's empty-row lse (-1e30 fixed-length, 0 varlen).
 //
-// What bounds it on the H100 at the training shapes (BH = 128, S = 1024,
-// D = 64, bf16, causal): 1.7e10 FLOP (17 us at 989 TFLOP/s) against 67 MB
-// of q, k, v, o and lse (20 us at 3.35 TB/s), so device memory bounds the
-// function. This first kernel does its products as fp32 FMAs from shared
-// memory, not on the tensor cores, so it is bound by the FMA rate and by
-// shared-memory reads instead: each thread holds a 4 x 4 block of scores and
-// a 4 x D/16 block of the output in registers and reads 8 shared words per
-// 16 FMAs. What the design does about the memory bound: every q tile is read
-// once, k and v are streamed tile by tile and reused by the 64 query rows of
-// the block, and no score ever reaches device memory.
+// What bounds it on the H100: at the fixed-length training shape (BH = 128,
+// S = 1024, D = 64, bf16, causal) 1.7e10 FLOP (17 us at 989 TFLOP/s)
+// against 67 MB of q, k, v, o and lse (20 us at 3.35 TB/s): device memory.
+// At the packed shape (T = 8192, H = 16, D = 64, bf16, ten causal
+// documents, 5.8e6 kept pairs per head) 2.4e10 FLOP (24 us) against 68 MB
+// (20 us): the operations, barely. This first kernel does its products as
+// fp32 FMAs from shared memory, not on the tensor cores, so it is bound by
+// the FMA rate and by shared-memory reads instead: each thread holds a
+// 4 x 4 block of scores and a 4 x D/16 block of the output in registers
+// and reads 8 shared words per 16 FMAs. What the design does about the
+// memory bound: every q tile is read once, k and v are streamed tile by
+// tile and reused by the 64 query rows of the block, no score ever reaches
+// device memory, and packed rows are read in place through their strides
+// (no [H, T, D] copy).
 //
-// Grid: (ceil(Sq / 64), BH); one block per (bh, 64-row query tile).
+// Grid: (ceil(Sq / 64), heads); one block per (head, 64-row query tile).
 #include "flash_common.cuh"
 
 namespace pt_flash {
 
-template <typename T, int D>
+template <typename T, int D, typename Mask>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int sq, int sk, int causal,
-                 float scale, int kv_len, int q_offset) {
+                 T* __restrict__ o, float* __restrict__ lse, Layout lay, Mask mask,
+                 float scale) {
   constexpr int LD = D + 1;
   constexpr int DJ = D / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -37,30 +45,31 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float* Ps = Vs + BK * LD;  // [BQ][LDP]
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const T* qb = q + (size_t)bh * sq * D;
-  const T* kb = k + (size_t)bh * sk * D;
-  const T* vb = v + (size_t)bh * sk * D;
+  const int h = blockIdx.y;
+  const int qt = blockIdx.x;
+  const int q0 = qt * BQ;
+  const T* kb = k + h * lay.k_hs;
+  const T* vb = v + h * lay.k_hs;
 
-  load_tile<T, BQ, D>(Qs, qb, q0, sq);
+  load_tile<T, BQ, D>(Qs, q + h * lay.q_hs, q0, lay.sq, lay.q_rs);
 
   float m[4], l[4], acc[4][DJ];
+  RowInfo qi[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
+    qi[i] = mask.q_row(q0 + ty + 16 * i);
 #pragma unroll
     for (int c = 0; c < DJ; ++c) acc[i][c] = 0.f;
   }
 
-  const int kend = key_end(q0, sq, kv_len, causal, q_offset);
-  const int nkt = (kend + BK - 1) / BK;
-  for (int j = 0; j < nkt; ++j) {
+  const int2 tiles = mask.key_tiles(qt);
+  for (int j = tiles.x; j < tiles.y; ++j) {
     const int k0 = j * BK;
     __syncthreads();  // the last tile's reads of Ks, Vs and Ps are done
-    load_tile<T, BK, D>(Ks, kb, k0, sk);
-    load_tile<T, BK, D>(Vs, vb, k0, sk);
+    load_tile<T, BK, D>(Ks, kb, k0, lay.sk, lay.k_rs);
+    load_tile<T, BK, D>(Vs, vb, k0, lay.sk, lay.k_rs);
     __syncthreads();
 
     float s[4][4];
@@ -81,14 +90,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         for (int b = 0; b < 4; ++b) s[i][b] = fmaf(qa[i], kv[b], s[i][b]);
     }
 
+    RowInfo ki[4];  // fetched here, not kept live through the products
+#pragma unroll
+    for (int b = 0; b < 4; ++b) ki[b] = mask.k_row(k0 + tx + 16 * b);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty + 16 * i;
       bool ok[4];
       float mx = NEG_INF;
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
-        ok[b] = visible(qp, k0 + tx + 16 * b, sq, kv_len, causal, q_offset);
+        ok[b] = mask.visible(qi[i], ki[b]);
         s[i][b] = ok[b] ? s[i][b] * scale : NEG_INF;
         mx = fmaxf(mx, s[i][b]);
       }
@@ -125,47 +136,56 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + ty + 16 * i;
-    if (qp >= sq) continue;
+    if (qp >= lay.sq) continue;
     const float l_safe = l[i] == 0.f ? 1.f : l[i];
-    T* orow = o + ((size_t)bh * sq + qp) * D;
+    T* orow = o + h * lay.q_hs + qp * lay.q_rs;
 #pragma unroll
     for (int c = 0; c < DJ; ++c) orow[tx + 16 * c] = from_f<T>(acc[i][c] / l_safe);
-    if (tx == 0) lse[(size_t)bh * sq + qp] = m[i] + logf(l_safe);
+    if (tx == 0)
+      lse[(size_t)h * lay.sq + qp] = l[i] == 0.f ? Mask::empty_lse() : m[i] + logf(l[i]);
   }
 }
 
-template <typename T, int D>
-cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int sq,
-                int sk, int causal, float scale, int kv_len, int q_offset, void* stream) {
+template <typename T, int D, typename Mask>
+cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse, int heads,
+                Layout lay, Mask mask, float scale, void* stream) {
   const size_t smem = sizeof(float) * (3 * 64 * (D + 1) + BQ * LDP);
-  const dim3 grid((sq + BQ - 1) / BQ, bh);
-  return launch(flash_fwd_kernel<T, D>, grid, smem, stream, (const T*)q, (const T*)k,
-                (const T*)v, (T*)o, (float*)lse, sq, sk, causal, scale, kv_len, q_offset);
+  const dim3 grid((lay.sq + BQ - 1) / BQ, heads);
+  return launch(flash_fwd_kernel<T, D, Mask>, grid, smem, stream, (const T*)q, (const T*)k,
+                (const T*)v, (T*)o, (float*)lse, lay, mask, scale);
 }
 
-template <typename T>
-cudaError_t fwd_d(int d, const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                  int sq, int sk, int causal, float scale, int kv_len, int q_offset,
-                  void* stream) {
-  switch (d) {
-    case 32: return fwd<T, 32>(q, k, v, o, lse, bh, sq, sk, causal, scale, kv_len, q_offset, stream);
-    case 64: return fwd<T, 64>(q, k, v, o, lse, bh, sq, sk, causal, scale, kv_len, q_offset, stream);
-    case 128: return fwd<T, 128>(q, k, v, o, lse, bh, sq, sk, causal, scale, kv_len, q_offset, stream);
-    default: return cudaErrorInvalidValue;
+template <typename Mask>
+cudaError_t fwd_any(int d, int is_bf16, const void* q, const void* k, const void* v, void* o,
+                    void* lse, int heads, Layout lay, Mask mask, float scale, void* stream) {
+  if (is_bf16) {
+    PT_FLASH_SWITCH_D(d, return fwd<__nv_bfloat16, D>(q, k, v, o, lse, heads, lay, mask, scale,
+                                                       stream))
   }
+  PT_FLASH_SWITCH_D(d, return fwd<float, D>(q, k, v, o, lse, heads, lay, mask, scale, stream))
 }
 
 }  // namespace pt_flash
 
-// q, k, v, o in the io type (is_bf16 ? bf16 : float); lse float [bh, sq].
-// Launches on `stream` and returns cudaGetLastError().
+// q, k, v, o [bh, s, d] in the io type (is_bf16 ? bf16 : float), contiguous;
+// lse float [bh, sq]. Launches on `stream` and returns cudaGetLastError().
 extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                             int bh, int sq, int sk, int d, int is_bf16, int causal, float scale,
                             int kv_len, int q_offset, void* stream) {
-  cudaError_t err = is_bf16
-      ? pt_flash::fwd_d<__nv_bfloat16>(d, q, k, v, o, lse, bh, sq, sk, causal, scale, kv_len,
-                                       q_offset, stream)
-      : pt_flash::fwd_d<float>(d, q, k, v, o, lse, bh, sq, sk, causal, scale, kv_len, q_offset,
-                               stream);
-  return (int)err;
+  const pt_flash::CausalMask mask{sq, causal, kv_len, q_offset};
+  return (int)pt_flash::fwd_any(d, is_bf16, q, k, v, o, lse, bh,
+                                pt_flash::dense_layout(sq, sk, d), mask, scale, stream);
+}
+
+// q, o [tq, h, d] and k, v [tk, h, d] in the io type, contiguous; lse float
+// [h, tq]. seg_q/pos_q int32 [ceil(tq / 64) * 64], seg_k/pos_k int32
+// [ceil(tk / 64) * 64]; lo/hi int32 [ceil(tq / 64)]: the key tiles each
+// query tile visits. Launches on `stream` and returns cudaGetLastError().
+extern "C" int pt_varlen_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                             const int* seg_q, const int* pos_q, const int* seg_k,
+                             const int* pos_k, const int* lo, const int* hi, int h, int tq,
+                             int tk, int d, int is_bf16, int causal, float scale, void* stream) {
+  const pt_flash::SegmentMask mask{seg_q, pos_q, seg_k, pos_k, lo, hi, causal};
+  return (int)pt_flash::fwd_any(d, is_bf16, q, k, v, o, lse, h,
+                                pt_flash::packed_layout(tq, tk, h, d), mask, scale, stream);
 }

@@ -41,6 +41,7 @@ class BuildInfo:
 
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCS: Dict[str, ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -104,3 +105,15 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build([name])[name].path))
         _LIBS[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point ``symbol`` of one source's library, with its
+    argument types set (every entry returns a ``cudaError_t`` as int)."""
+    fn = _FUNCS.get(symbol)
+    if fn is None:
+        fn = getattr(library(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FUNCS[symbol] = fn
+    return fn

@@ -32,7 +32,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ._build import library
+from ._build import function
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
@@ -59,37 +59,25 @@ _SIGNATURES = {
     # q k v do lse delta dq | ...
     "flash_bwd_dq": ("pt_flash_bwd_dq", [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P]),
 }
-_FUNCS: Dict[str, ctypes._CFuncPtr] = {}
-
-
-def _cfunc(name: str):
-    fn = _FUNCS.get(name)
-    if fn is None:
-        symbol, argtypes = _SIGNATURES[name]
-        fn = getattr(library(name), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _FUNCS[name] = fn
-    return fn
-
 
 def _launch(name: str, tensors, bh, sq, sk, d, is_bf16, causal, scale,
             kv_len, q_offset) -> None:
     stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
     with torch.cuda.device(tensors[0].device):
-        err = _cfunc(name)(*[t.data_ptr() for t in tensors], bh, sq, sk, d,
-                           int(is_bf16), int(causal), float(scale),
-                           int(kv_len), int(q_offset), stream)
+        err = function(name, *_SIGNATURES[name])(
+            *[t.data_ptr() for t in tensors], bh, sq, sk, d, int(is_bf16),
+            int(causal), float(scale), int(kv_len), int(q_offset), stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed: "
                            f"{torch.cuda.CudaError(err)}")
     LAUNCHES[name] += 1
 
 
-def _check_cuda(name: str, io, stats=()) -> None:
+def _check_cuda(name: str, io, stats=(), heads: Optional[int] = None) -> None:
     """Raise on inputs the CUDA kernel does not take. ``io`` are the
-    ``[BH, S, D]`` tensors in the io type (q first), ``stats`` the fp32
-    ``[BH, Sq, 1]`` rows (lse, delta)."""
+    tensors in the io type (q first), ``stats`` the fp32 rows (lse, delta)
+    and ``heads`` the grid's second dimension (default ``q.shape[0]``, the
+    ``BH`` of ``[BH, S, D]``)."""
     q = io[0]
     if q.dtype not in _DTYPES:
         raise TypeError(f"{name}: dtype {q.dtype} not supported on CUDA "
@@ -107,8 +95,9 @@ def _check_cuda(name: str, io, stats=()) -> None:
     for t in io:
         if t.dtype != q.dtype:
             raise TypeError(f"{name}: mixed dtypes {q.dtype} and {t.dtype}")
-    if q.shape[0] > 65535:
-        raise ValueError(f"{name}: batch*heads {q.shape[0]} > 65535")
+    heads = q.shape[0] if heads is None else heads
+    if heads > 65535:
+        raise ValueError(f"{name}: {heads} heads (batch*heads) > 65535")
 
 
 def _check_shapes(q, k, v, kv_len) -> None:

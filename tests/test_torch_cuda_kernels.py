@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Marked ``cuda``: each test asks for the ``cuda`` fixture, which skips when
+The fixed-length kernels (``flash_attention.py``) and their varlen
+instantiations (``flash_varlen.py``). Marked ``cuda``: each test asks for the ``cuda`` fixture, which skips when
 there is no CUDA device (decided at run time, never at import). Imports
 neither JAX nor the JAX package, so it runs on a machine without them:
 
@@ -21,6 +22,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
+from paddle_tpu_torch.ops.cuda import flash_varlen as fv
 
 pytestmark = pytest.mark.cuda
 
@@ -117,3 +119,93 @@ def test_cuda_wrappers_raise_on_what_the_kernel_does_not_take(cuda, bad):
         q = q.transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises((TypeError, ValueError)):
         fa.flash_fwd(q, k, v, True, 0.125, 128, 0)
+
+
+# ------------------------------------------------------------------ varlen
+
+# (query segment lengths, key segment lengths, padding query rows, padding
+# key rows): segments straddling 64-row tiles; cross lengths with an empty
+# segment on each side and padding rows; a causal key-tile bound that ends
+# one past a key tile's first row, and a query-tile bound that starts on a
+# query tile's last row
+VARLEN_SHAPES = {
+    "straddle": ([100, 37, 150, 2], [100, 37, 150, 2], 0, 0),
+    "cross_empty_pad": ([70, 0, 45, 130, 20], [90, 33, 60, 2, 0], 15, 5),
+    "tile_edge": ([3, 1], [64, 65], 0, 0),
+    "tile_edge_k": ([3, 100], [4, 100], 0, 0),
+}
+
+
+def _varlen_inputs(device, shape, d, dtype, causal, seed=0):
+    lq, lk, pad_q, pad_k = VARLEN_SHAPES[shape]
+    tq, tk, h = sum(lq) + pad_q, sum(lk) + pad_k, 3
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(t):
+        return torch.randn(t, h, d, generator=gen, device=device).to(dtype)
+
+    cu_q = torch.tensor([0] + lq, device=device).cumsum(0).int()
+    cu_k = torch.tensor([0] + lk, device=device).cumsum(0).int()
+    plan = fv.varlen_plan(cu_q, cu_k, tq, tk, causal)
+    return rnd(tq), rnd(tk), rnd(tk), rnd(tq), cu_q, cu_k, plan
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("shape", sorted(VARLEN_SHAPES))
+def test_varlen_kernels_match_plain(cuda, shape, d, dtype, causal):
+    q, k, v, do, cu_q, _, plan = _varlen_inputs(cuda, shape, d, dtype, causal)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = fv.varlen_fwd(q, k, v, plan, scale)
+    p_out, p_lse = fv.varlen_fwd_plain(q, k, v, plan, scale)
+    abs_v_out = fv.varlen_fwd_plain(q, k, v.abs(), plan, scale)[0]
+    delta = fv.varlen_delta(do, out)
+    dk, dv = fv.varlen_bwd_dkv(q, k, v, do, lse, delta, plan, scale)
+    p_dk, p_dv = fv.varlen_bwd_dkv_plain(q, k, v, do, lse, delta, plan, scale)
+    dq = fv.varlen_bwd_dq(q, k, v, do, lse, delta, plan, scale)
+    p_dq = fv.varlen_bwd_dq_plain(q, k, v, do, lse, delta, plan, scale)
+    torch.cuda.synchronize()
+    for key, got, want in (("out", out, p_out), ("lse", lse, p_lse),
+                           ("dq", dq, p_dq), ("dk", dk, p_dk),
+                           ("dv", dv, p_dv)):
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= _limit(dtype, key, want, abs_v_out)).all()), \
+            (key, err.max().item())
+    # rows past cu_q[-1] see no key: out, lse and dq exactly 0
+    pad = int(cu_q[-1])
+    for t in (out, dq):
+        assert not t[pad:].any()
+    assert not lse[:, pad:].any()
+
+
+def test_varlen_autograd_counts_one_launch_each(cuda):
+    q, k, v, do, cu_q, cu_k, _ = _varlen_inputs(
+        cuda, "cross_empty_pad", 64, torch.bfloat16, True, seed=2)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    fv.reset_launches()
+    fv.flash_attn_varlen(q, k, v, cu_q, cu_k, causal=True).backward(do)
+    torch.cuda.synchronize()
+    assert fv.LAUNCHES == {"varlen_fwd": 1, "varlen_bwd_dkv": 1,
+                           "varlen_bwd_dq": 1}
+
+
+@pytest.mark.parametrize("bad", ["fp16", "head_dim_80", "cu_on_cpu",
+                                 "plan_on_cpu"])
+def test_varlen_wrappers_raise_on_what_the_kernel_does_not_take(cuda, bad):
+    q, k, v, _, cu_q, cu_k, plan = _varlen_inputs(
+        cuda, "straddle", 64, torch.float32, True)
+    if bad == "fp16":
+        q, k, v = q.half(), k.half(), v.half()
+    elif bad == "head_dim_80":
+        q, k, v = (torch.cat([t, t[..., :16]], -1) for t in (q, k, v))
+    if bad == "cu_on_cpu":
+        with pytest.raises(ValueError):
+            fv.flash_attn_varlen(q, k, v, cu_q.cpu(), cu_k, causal=True)
+        return
+    if bad == "plan_on_cpu":
+        plan = fv.varlen_plan(cu_q.cpu(), cu_k.cpu(), q.shape[0], k.shape[0],
+                              True)
+    with pytest.raises((TypeError, ValueError)):
+        fv.varlen_fwd(q, k, v, plan, 0.125)
