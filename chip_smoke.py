@@ -6,8 +6,8 @@ From the root of a checkout, on a machine with one CUDA card and the CUDA
 toolkit (``nvcc``). Phases, each printed as it runs:
 
 1. the card: name, count, and ``nvidia-smi``'s name and power limit;
-2. builds the six flash-attention kernels (forward, dK/dV and dQ, each
-   fixed-length and varlen) from the three sources of
+2. builds the nine flash-attention kernels (forward, dK/dV and dQ, each
+   fixed-length, varlen and flashmask) from the three sources of
    ``paddle_tpu_torch/csrc`` (``nvcc``, ``sm_90a``), printing build seconds
    and ptxas's register and shared-memory lines;
 3. holds each kernel against its plain PyTorch version: the fixed-length
@@ -16,11 +16,16 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    ones at the packed shape (8192 tokens of ten documents, 16 heads,
    head_dim 64, bf16, causal; the plain version one head at a time) and at
    an edge shape (fp32, head_dim 128, cu_q != cu_k, an empty segment on
-   each side, padding rows; causal and not), where the rows that see no
-   key must give out, lse and dq of exactly 0;
+   each side, padding rows; causal and not); the flashmask ones at their
+   path shape (batch 2 x seq 4096, 16 heads x 64, bf16, causal, a
+   share-question and a document mask shared by the heads; the plain
+   version one batch row and head at a time) and at an edge shape (fp32,
+   head_dim 128, per-head two-column start/end rows, sq 200 != sk 136;
+   causal and not). At the edge shapes the rows that see no key must give
+   out, lse and dq of exactly 0;
 4. times each kernel, its plain version and, as a yardstick only,
    ``scaled_dot_product_attention`` (which the port never calls; for the
-   varlen kernels with the dense block-diagonal causal mask), beside the
+   varlen and flashmask kernels with the dense bool mask), beside the
    least time the card could take for the same work;
 5. checks the training step on a small GPT against the port's CPU path
    (the path the CPU tests hold against the JAX package), then drives the
@@ -34,7 +39,12 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    and backward at the packed shape, checks that it launched each varlen
    kernel exactly once and gave the checked kernels' results bit for bit,
    and times it;
-7. prints the ``kernels`` JSON line, the card line, and last
+7. drives the flashmask path: ``nn.functional.flashmask_attention``
+   forward and backward at its path shape, checks that it launched each
+   flashmask kernel exactly once and gave the checked kernels' results bit
+   for bit, holds its document-mask batch row against
+   ``flash_attn_unpadded`` over the same documents, and times it;
+8. prints the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. It never falls back
@@ -63,6 +73,13 @@ DOCS = [1024, 37, 611, 2048, 129, 1500, 700, 64, 300, 1779]
 # the varlen edge shape: query and key segment lengths (segment 1 has keys
 # and no query, segment 4 queries and no key), padding query and key rows
 EDGE = ([70, 0, 45, 130, 20], [90, 33, 60, 2, 0], 15, 5)
+# the flashmask path: batch 2 x seq 4096 (one step's 8192 tokens), a
+# startend [2, 1, 4096, 1] shared by the heads, as PaddleNLP builds it.
+# Batch row 0: a share-question mask of three DPO-style groups (prompt,
+# answers); batch row 1: a causal document mask.
+FM_SEQ = 4096
+FM_GROUPS = [(512, [300, 180, 420]), (260, [700, 90]), (1000, [333, 301])]
+FM_DOCS = [1024, 37, 611, 2048, 129, 247]
 # per kernel: (module source, TPU kernel it replaces)
 KERNELS = {
     "flash_fwd": ("paddle_tpu_torch/csrc/flash_fwd.cu",
@@ -77,7 +94,44 @@ KERNELS = {
                        "paddle_tpu/ops/pallas/flash_varlen.py:161"),
     "varlen_bwd_dq": ("paddle_tpu_torch/csrc/flash_bwd_dq.cu",
                       "paddle_tpu/ops/pallas/flash_varlen.py:207"),
+    "flashmask_fwd": ("paddle_tpu_torch/csrc/flash_fwd.cu",
+                      "paddle_tpu/ops/pallas/flash_varlen.py:385"),
+    "flashmask_bwd_dkv": ("paddle_tpu_torch/csrc/flash_bwd_dkv.cu",
+                          "paddle_tpu/ops/pallas/flash_varlen.py:446"),
+    "flashmask_bwd_dq": ("paddle_tpu_torch/csrc/flash_bwd_dq.cu",
+                         "paddle_tpu/ops/pallas/flash_varlen.py:506"),
 }
+VARLEN = ("varlen_fwd", "varlen_bwd_dkv", "varlen_bwd_dq")
+FLASHMASK = ("flashmask_fwd", "flashmask_bwd_dkv", "flashmask_bwd_dq")
+
+
+def share_question_starts(groups) -> np.ndarray:
+    """Start row per key of a share-question mask (one column, the ban is
+    open-ended): a prompt key is hidden from its group's end on, an answer
+    key from its answer's end on, so each answer sees its prompt and
+    itself, causally."""
+    starts = []
+    for prompt, answers in groups:
+        starts += [len(starts) + prompt + sum(answers)] * prompt
+        for n in answers:
+            starts += [len(starts) + n] * n
+    return np.array(starts, np.int32)
+
+
+def document_starts(lens) -> np.ndarray:
+    """Start row per key of a causal document mask: a key is hidden from
+    its document's end on."""
+    starts = []
+    for n in lens:
+        starts += [len(starts) + n] * n
+    return np.array(starts, np.int32)
+
+
+def flashmask_startend() -> np.ndarray:
+    """The flashmask path's startend, int32 [2, 1, FM_SEQ, 1]."""
+    rows = [share_question_starts(FM_GROUPS), document_starts(FM_DOCS)]
+    assert all(len(r) == FM_SEQ for r in rows)
+    return np.stack(rows)[:, None, :, None]
 
 
 def check(ok: bool, what: str) -> None:
@@ -134,7 +188,7 @@ def build():
         for line in info.ptxas:
             print(f"  {line}")
     print(f"build wall {wall:.1f} s (nvcc processes run in parallel; each "
-          f"library holds a fixed-length and a varlen kernel)")
+          f"library holds a fixed-length, a varlen and a flashmask kernel)")
     check(set(infos) == set(_build.SOURCES), f"built {sorted(infos)}")
 
 
@@ -303,6 +357,104 @@ def hold_varlen_against_plain(lens_q, lens_k, pad_q, pad_k, h, d, dtype,
             (out, dq, dk, dv))
 
 
+def _flashmask_inputs(b, sq, sk, h, d, dtype, seed):
+    """q, k, v, dO in paddle's layout [B, S, H, D] from a seed."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(s):
+        return torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
+
+    return rnd(sq), rnd(sk), rnd(sk), rnd(sq)
+
+
+def _heads(x):
+    """[B, S, H, D] -> contiguous [B*H, S, D], the copy the flashmask
+    entry makes before its kernels."""
+    b, s, h, d = x.shape
+    return x.transpose(1, 2).reshape(b * h, s, d).contiguous()
+
+
+def _fm_edge_startend(b, h, sq, sk, seed):
+    """int32 [b, h, sk, 2] for the edge shape: even heads ban rows
+    [start, end) with start <= 120 and end >= 140 for every key (rows
+    120..139 see no key); odd heads are a document mask over keys
+    [50, 40, 46] (key j hidden from its document's end to sq + 1), so whole
+    tiles are skipped and the rows past sk see no key."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    start = torch.randint(0, 121, (b, h, sk), generator=gen, device="cuda")
+    end = torch.randint(140, sq + 31, (b, h, sk), generator=gen,
+                        device="cuda")
+    docs = torch.from_numpy(document_starts([50, 40, 46])).cuda()
+    start[:, 1::2] = docs
+    end[:, 1::2] = sq + 1
+    return torch.stack([start, end], -1).int()
+
+
+def hold_flashmask_against_plain(b, sq, sk, h, d, dtype, causal, startend,
+                                 seed):
+    """Runs each flashmask kernel and its plain version (one grid head at a
+    time) on the same inputs. Returns the max abs error per kernel, the
+    kernels' results (out, dq, dk, dv as [B*H, S, D]) and the plain output
+    with |V|. Rows that see no key must give out, lse and dq of exactly
+    0."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import flash_varlen as fv
+    q, k, v, do = (_heads(x) for x in _flashmask_inputs(
+        b, sq, sk, h, d, dtype, seed))
+    plan = fv.flashmask_plan(startend, h, causal)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = fv.flashmask_fwd(q, k, v, plan, scale)
+    delta = fa.attention_delta(do, out)
+    dk, dv = fv.flashmask_bwd_dkv(q, k, v, do, lse, delta, plan, scale)
+    dq = fv.flashmask_bwd_dq(q, k, v, do, lse, delta, plan, scale)
+    torch.cuda.synchronize()
+
+    def per_head(fn, *tensors):
+        outs = [fn(*(t[i:i + 1] for t in tensors), plan.select(i), scale)
+                for i in range(b * h)]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(o) for o in zip(*outs))
+        return torch.cat(outs)
+
+    p_out, p_lse = per_head(fv.flashmask_fwd_plain, q, k, v)
+    abs_v_out = per_head(fv.flashmask_fwd_plain, q, k, v.abs())[0]
+    p_dk, p_dv = per_head(fv.flashmask_bwd_dkv_plain, q, k, v, do, lse,
+                          delta)
+    p_dq = per_head(fv.flashmask_bwd_dq_plain, q, k, v, do, lse, delta)
+    pairs = {"out": (out, p_out), "lse": (lse, p_lse), "dq": (dq, p_dq),
+             "dk": (dk, p_dk), "dv": (dv, p_dv)}
+    errs, ratios = {}, {}
+    for key, (got, want) in pairs.items():
+        errs[key], ratios[key] = within(
+            got, want, limit(dtype, key, want, abs_v_out))
+    shape = (f"flashmask b {b} h {h} sq {sq} sk {sk} d {d} {dtype} causal "
+             f"{causal} startend {list(startend.shape)}")
+    print(f"{shape}: max abs err " + " ".join(
+        f"{k} {v:.3g}" for k, v in errs.items()) + "; of the limit " +
+        " ".join(f"{k} {v:.3g}" for k, v in ratios.items()))
+    for key, ratio in ratios.items():
+        check(math.isfinite(ratio) and ratio <= 1.0,
+              f"{key} at {ratio:.3g} of its limit at {shape}")
+    for t in (out, lse, dq, dk, dv):
+        check(bool(torch.isfinite(t.float()).all()), f"non-finite at {shape}")
+    blind = torch.cat([~fv.flashmask_mask(plan.select(i), 1, sq, sk).any(-1)
+                       for i in range(b * h)])
+    if blind.any():
+        check(not out[blind].any() and not dq[blind].any()
+              and not lse[blind].any(),
+              f"rows that see no key are not 0 at {shape}")
+        print(f"  {int(blind.sum())} rows that see no key: out, lse, dq "
+              f"exactly 0")
+    tiles = int(fv.flashmask_tiles(plan, sq).sum())
+    print(f"  64x64 tiles visited, summed over the {plan.st.shape[0]} "
+          f"start/end rows: {tiles} of "
+          f"{plan.st.shape[0] * -(-sq // 64) * -(-sk // 64)}")
+    return ({"flashmask_fwd": max(errs["out"], errs["lse"]),
+             "flashmask_bwd_dkv": max(errs["dk"], errs["dv"]),
+             "flashmask_bwd_dq": errs["dq"]},
+            (out, dq, dk, dv), abs_v_out)
+
+
 def kernel_checks():
     phase("3 kernels against their plain versions")
     errs = hold_against_plain(BATCH * HEADS, SEQ, SEQ, HEAD_DIM,
@@ -314,7 +466,15 @@ def kernel_checks():
     for causal in (False, True):
         hold_varlen_against_plain(*EDGE, 4, 128, torch.float32, causal,
                                   seed=4)
-    return errs, varlen_results
+    fm_errs, fm_results, fm_abs_v = hold_flashmask_against_plain(
+        2, FM_SEQ, FM_SEQ, HEADS, HEAD_DIM, torch.bfloat16, True,
+        torch.from_numpy(flashmask_startend()).cuda(), seed=6)
+    errs.update(fm_errs)
+    edge_startend = _fm_edge_startend(2, 4, 200, 136, seed=7)
+    for causal in (False, True):
+        hold_flashmask_against_plain(2, 200, 136, 4, 128, torch.float32,
+                                     causal, edge_startend, seed=8)
+    return errs, varlen_results, (fm_results, fm_abs_v)
 
 
 def bounds(bh, s, d, io_bytes):
@@ -333,14 +493,17 @@ def bounds(bh, s, d, io_bytes):
         # QK^T, dO V^T, dS K; q k v dO lse delta in, dq out
         "flash_bwd_dq": (3 * 2 * d * pairs, 5 * tile + 2 * row),
     }
-    out = {}
-    for name, (flops, nbytes) in work.items():
-        t_ops = flops / PEAK_BF16_FLOPS * 1e3
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        out[name] = (max(t_ops, t_bytes),
-                     "operations" if t_ops >= t_bytes else "bytes",
-                     flops, nbytes)
-    return out
+    return {name: _bound(*fb) for name, fb in work.items()}
+
+
+def _bound(flops, nbytes):
+    """(least ms, what bounds it, flops, bytes) for work of ``flops``
+    operations at the bf16 tensor-core peak and ``nbytes`` at the memory
+    rate."""
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, nbytes)
 
 
 def kept_pairs(lens_q, lens_k, causal):
@@ -370,14 +533,24 @@ def varlen_bounds(h, lens_q, lens_k, tq, tk, d, io_bytes, causal):
         "varlen_bwd_dq": (3 * 2 * d * pairs, 3 * qt + 2 * kt + 2 * row
                           + meta + 2 * 4 * tq_pad // 64),
     }
-    out = {}
-    for name, (flops, nbytes) in work.items():
-        t_ops = flops / PEAK_BF16_FLOPS * 1e3
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        out[name] = (max(t_ops, t_bytes),
-                     "operations" if t_ops >= t_bytes else "bytes",
-                     flops, nbytes)
-    return out
+    return {name: _bound(*fb) for name, fb in work.items()}
+
+
+def flashmask_bounds(pairs, bh, sq, sk, d, io_bytes, plan_bytes):
+    """Least time (ms) for each flashmask kernel's work, as ``bounds``
+    counts it, over ``pairs`` kept (query, key) pairs in all heads. Bytes
+    add the plan's int32 start/end rows and per-tile statistics."""
+    qt, kt = bh * sq * d * io_bytes, bh * sk * d * io_bytes
+    row = bh * sq * 4
+    work = {
+        "flashmask_fwd": (2 * 2 * d * pairs, 2 * qt + 2 * kt + row
+                          + plan_bytes),
+        "flashmask_bwd_dkv": (4 * 2 * d * pairs, 2 * qt + 4 * kt + 2 * row
+                              + plan_bytes),
+        "flashmask_bwd_dq": (3 * 2 * d * pairs, 3 * qt + 2 * kt + 2 * row
+                             + plan_bytes),
+    }
+    return {name: _bound(*fb) for name, fb in work.items()}
 
 
 def varlen_timings():
@@ -445,6 +618,79 @@ def varlen_timings():
     return ms, plain_ms, library_ms, bnd
 
 
+def flashmask_timings():
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import flash_varlen as fv
+    b, s, h, d = 2, FM_SEQ, HEADS, HEAD_DIM
+    q4, k4, v4, do4 = _flashmask_inputs(b, s, s, h, d, torch.bfloat16, seed=9)
+    q, k, v, do = (_heads(x) for x in (q4, k4, v4, do4))
+    startend = torch.from_numpy(flashmask_startend()).cuda()
+    plan = fv.flashmask_plan(startend, h, True)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = fv.flashmask_fwd(q, k, v, plan, scale)
+    delta = fa.attention_delta(do, out)
+    ms = {
+        "flashmask_fwd": cuda_ms(lambda: fv.flashmask_fwd(q, k, v, plan,
+                                                          scale), 20),
+        "flashmask_bwd_dkv": cuda_ms(lambda: fv.flashmask_bwd_dkv(
+            q, k, v, do, lse, delta, plan, scale), 20),
+        "flashmask_bwd_dq": cuda_ms(lambda: fv.flashmask_bwd_dq(
+            q, k, v, do, lse, delta, plan, scale), 20),
+    }
+
+    def plain(fn, *tensors):
+        return lambda: [fn(*(t[i:i + 1] for t in tensors), plan.select(i),
+                           scale) for i in range(b * h)]
+
+    plain_ms = {
+        "flashmask_fwd": cuda_ms(plain(fv.flashmask_fwd_plain, q, k, v), 3,
+                                 1),
+        "flashmask_bwd_dkv": cuda_ms(plain(fv.flashmask_bwd_dkv_plain, q, k,
+                                           v, do, lse, delta), 3, 1),
+        "flashmask_bwd_dq": cuda_ms(plain(fv.flashmask_bwd_dq_plain, q, k, v,
+                                          do, lse, delta), 3, 1),
+    }
+    plan_ms = cuda_ms(lambda: fv.flashmask_plan(startend, h, True), 20)
+
+    # yardstick only: the library's attention over the dense bool mask
+    # [b, 1, s, s], which does all s^2 pairs the kernels skip
+    mask = torch.cat([fv.flashmask_mask(plan.select(i * h), 1, s, s)
+                      for i in range(b)])[:, None]
+    qh, kh, vh, doh = (x.transpose(1, 2) for x in (q4, k4, v4, do4))
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, scale=scale), 10)
+    ql, kl, vl = (x.detach().clone().requires_grad_() for x in (qh, kh, vh))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
+                                             scale=scale)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), doh, retain_graph=True), 10)
+    library_ms = {"flashmask_fwd": lib_fwd, "flashmask_bwd_dkv": None,
+                  "flashmask_bwd_dq": None}
+    pairs_per_head = int(mask.sum())
+    plan_bytes = 4 * sum(t.numel() for t in (plan.st, plan.en, plan.st_max,
+                                             plan.en_min))
+    bnd = flashmask_bounds(h * pairs_per_head, b * h, s, s, d, 2, plan_bytes)
+    tiles = int(fv.flashmask_tiles(plan, s).sum())
+    print(f"flashmask: batch {b} x seq {s}, {h} heads, d {d}, bf16, causal, "
+          f"startend {list(startend.shape)}; {pairs_per_head} kept pairs per "
+          f"head ({pairs_per_head / (b * s * (s + 1) / 2):.1%} of a dense "
+          f"causal mask); {tiles} of {b * (s // 64) * (s // 64 + 1) // 2} "
+          f"causal 64x64 tiles visited per head")
+    for name in library_ms:
+        b_ms, b_by, flops, nbytes = bnd[name]
+        print(f"{name}: {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms "
+              f"(one head at a time), bound {b_ms:.4f} ms ({b_by}; "
+              f"{flops:.3e} FLOP, {nbytes / 1e6:.1f} MB), "
+              f"{b_ms / ms[name]:.1%} of bound")
+    print(f"flashmask_plan (plain torch, before the forward): "
+          f"{plan_ms:.4f} ms")
+    print(f"library sdpa, dense bool mask {list(mask.shape)}: fwd "
+          f"{lib_fwd:.4f} ms, bwd (dq+dk+dv) {lib_bwd:.4f} ms; port bwd "
+          f"dkv+dq {ms['flashmask_bwd_dkv'] + ms['flashmask_bwd_dq']:.4f} ms")
+    return ms, plain_ms, library_ms, bnd
+
+
 def timings():
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
@@ -494,8 +740,9 @@ def timings():
           f"{lib_bwd:.4f} ms; port bwd dkv+dq+delta "
           f"{ms['flash_bwd_dkv'] + ms['flash_bwd_dq'] + delta_ms:.4f} ms")
     v_ms, v_plain, v_lib, v_bnd = varlen_timings()
-    return ({**ms, **v_ms}, {**plain_ms, **v_plain}, {**library_ms, **v_lib},
-            {**bnd, **v_bnd})
+    f_ms, f_plain, f_lib, f_bnd = flashmask_timings()
+    return ({**ms, **v_ms, **f_ms}, {**plain_ms, **v_plain, **f_plain},
+            {**library_ms, **v_lib, **f_lib}, {**bnd, **v_bnd, **f_bnd})
 
 
 def small_step_check():
@@ -682,8 +929,10 @@ def varlen_path(expected, smi):
     launches = dict(fv.LAUNCHES)
     print(f"launches in one forward and backward: {launches}")
     for kname in launches:
-        check(launches[kname] == 1, f"{kname} launched {launches[kname]} "
-              f"times, want 1")
+        want = 1 if kname in VARLEN else 0
+        check(launches[kname] == want, f"{kname} launched "
+              f"{launches[kname]} times, want {want}")
+    launches = {kname: launches[kname] for kname in VARLEN}
     got = (out, q.grad, k.grad, v.grad)
     for key, g, want in zip(("out", "dq", "dk", "dv"), got, expected):
         check(bool(torch.isfinite(g.float()).all()), f"path {key} non-finite")
@@ -699,20 +948,99 @@ def varlen_path(expected, smi):
     return launches, ms
 
 
+def flashmask_path(expected, smi):
+    """Forward and backward through ``nn.functional.flashmask_attention``
+    at its path shape, on the inputs of the full-width kernel check: each
+    flashmask kernel launched once and nothing else, and the results those
+    kernels gave there, bit for bit. Then batch row 1 (the document mask)
+    against ``flash_attn_unpadded`` over the same documents: the same
+    pairs in the same 64-row tiles, held to phase 3's per-element limit."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import flash_varlen as fv
+    phase("7 flashmask path")
+    (e_out, e_dq, e_dk, e_dv), abs_v_out = expected
+    b, s, h, d = 2, FM_SEQ, HEADS, HEAD_DIM
+    q, k, v, do = _flashmask_inputs(b, s, s, h, d, torch.bfloat16, seed=6)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    startend = torch.from_numpy(flashmask_startend()).cuda()
+
+    def fwd_bwd():
+        for t in (q, k, v):
+            t.grad = None
+        out = F.flashmask_attention(q, k, v, startend, causal=True)
+        out.backward(do)
+        return out
+
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    fv.reset_launches()
+    t0 = time.perf_counter()
+    out = fwd_bwd()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = {**fa.LAUNCHES, **fv.LAUNCHES}
+    print(f"launches in one forward and backward: {launches}")
+    for kname, n in launches.items():
+        want = 1 if kname in FLASHMASK else 0
+        check(n == want, f"{kname} launched {n} times, want {want}")
+    launches = {kname: launches[kname] for kname in FLASHMASK}
+    got = (out, q.grad, k.grad, v.grad)
+    for key, g, want in zip(("out", "dq", "dk", "dv"), got,
+                            (e_out, e_dq, e_dk, e_dv)):
+        check(bool(torch.isfinite(g.float()).all()), f"path {key} non-finite")
+        check(torch.equal(_heads(g), want), f"path {key} differs from the "
+              f"checked kernels' result (max {_err(_heads(g), want):.3g})")
+    print("out, dq, dk, dv finite and equal to the checked kernels' results")
+
+    # batch row 1 through the varlen path, over its documents
+    qv, kv, vv = (t[1].detach().clone().requires_grad_() for t in (q, k, v))
+    cu = torch.tensor([0] + FM_DOCS, device="cuda").cumsum(0).int()
+    v_out, _ = F.flash_attn_unpadded(qv, kv, vv, cu, cu, max(FM_DOCS),
+                                     max(FM_DOCS), 1.0 / math.sqrt(d),
+                                     causal=True)
+    v_out.backward(do[1])
+    row1 = slice(h, 2 * h)  # grid heads of batch row 1
+    abs_v_row1 = abs_v_out[row1].transpose(0, 1)
+    parts = []
+    for key, fm, var in zip(("out", "dq", "dk", "dv"), got,
+                            (v_out, qv.grad, kv.grad, vv.grad)):
+        want = fm[1]
+        err, ratio = within(var, want, limit(torch.bfloat16, key, want,
+                                             abs_v_row1))
+        check(math.isfinite(ratio) and ratio <= 1.0, f"varlen cross-check "
+              f"{key} at {ratio:.3g} of its limit")
+        same = "bit-equal" if torch.equal(var, want) \
+            else f"{ratio:.3g} of the limit"
+        parts.append(f"{key} {err:.3g} ({same})")
+    print("batch row 1 against flash_attn_unpadded over its documents: "
+          + ", ".join(parts))
+
+    ms = cuda_ms(fwd_bwd, 10)
+    print(f"flashmask_attention fwd+bwd, batch {b} x seq {s} ({b * s} "
+          f"tokens), {h} heads, d {d}, bf16, causal, startend "
+          f"{list(startend.shape)}: {ms:.4f} ms ({b * s / (ms / 1e3):.1f} "
+          f"tokens/s; first call {first_ms:.2f} ms host clock) on {smi}")
+    return launches, ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     name, count, smi = card()
     build()
-    errs, varlen_results = kernel_checks()
+    errs, varlen_results, flashmask_expected = kernel_checks()
     ms, plain_ms, library_ms, bnd = timings()
     torch.cuda.empty_cache()
     launches = main_path()
     torch.cuda.empty_cache()
     varlen_launches, _ = varlen_path(varlen_results, smi)
     launches.update(varlen_launches)
-    phase("7 results")
+    torch.cuda.empty_cache()
+    flashmask_launches, _ = flashmask_path(flashmask_expected, smi)
+    launches.update(flashmask_launches)
+    phase("8 results")
     rows = []
     for kname, (source, replaces) in KERNELS.items():
         rows.append({

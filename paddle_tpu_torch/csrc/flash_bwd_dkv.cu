@@ -1,11 +1,13 @@
 // Flash-attention backward, dK and dV, for Hopper (sm_90a): fixed-length
-// causal batches and packed variable-length sequences, one kernel templated
-// on the mask.
+// causal batches, packed variable-length sequences and flashmask (start/end
+// row) masks, one kernel templated on the mask.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py `_dkv_kernel`
-// (launched from `_bwd`; entry `pt_flash_bwd_dkv`, CausalMask) and
+// (launched from `_bwd`; entry `pt_flash_bwd_dkv`, CausalMask),
 // paddle_tpu/ops/pallas/flash_varlen.py `_v_dkv_kernel` (launched from
-// `_varlen_bwd`; entry `pt_varlen_bwd_dkv`, SegmentMask). Same function: for
+// `_varlen_bwd`; entry `pt_varlen_bwd_dkv`, SegmentMask) and flash_varlen.py
+// `_fm_dkv_kernel` (launched from `_fm_bwd`; entry `pt_flashmask_bwd_dkv`,
+// StartEndMask). Same function: for
 // one key tile, loop over the query tiles the mask lets see it; recompute
 // p = exp(s - lse) under the forward's mask, then dV += p^T dO,
 // dP = dO V^T, dS = p (dP - delta) scale, dK += dS^T Q, all in fp32;
@@ -17,13 +19,15 @@
 // 3.4e10 FLOP (35 us at 989 TFLOP/s) against 102 MB of q, k, v, dO, lse,
 // delta, dk and dv (30 us at 3.35 TB/s); at the packed shape (T = 8192,
 // H = 16, ten causal documents) 4.8e10 FLOP (48 us) against 102 MB
-// (30 us): the operations in both. This first kernel does its products as
+// (30 us): the operations in both; at the flashmask shape (BH = 32,
+// S = 4096, 5.3e6 kept pairs per head) 4.4e10 FLOP (44 us) against 102 MB
+// (30 us): the operations. This first kernel does its products as
 // fp32 FMAs from shared memory, so the FMA rate and shared-memory reads
 // bound it instead. What the design does: k and v stay in shared memory for
 // the whole block, dK and dV accumulate in registers (a 4 x D/16 block each
 // per thread) and never round-trip to device memory, and query tiles the
-// mask rules out (above the diagonal, or outside the key tile's segments)
-// are never loaded.
+// mask rules out (above the diagonal, outside the key tile's segments, or
+// banned by every column of the key tile) are never loaded.
 //
 // Grid: (ceil(Sk / 64), heads); one block per (head, 64-row key tile).
 #include "flash_common.cuh"
@@ -38,7 +42,7 @@ __global__ void __launch_bounds__(NT, 2)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     Layout lay, Mask mask, float scale) {
+                     Layout lay, Mask heads_mask, float scale) {
   constexpr int LD = D + 1;
   constexpr int DJ = D / 16;
   extern __shared__ float smem[];
@@ -53,6 +57,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int h = blockIdx.y;
+  const Mask mask = heads_mask.at_head(h);
   const int kt = blockIdx.x;
   const int k0 = kt * BK;
   const T* qb = q + h * lay.q_hs;
@@ -74,6 +79,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
   const int2 tiles = mask.query_tiles(kt);
   for (int it = tiles.x; it < tiles.y; ++it) {
+    if (!mask.tile_open(it, kt)) continue;  // the same for the whole block
     const int q0 = it * BQ;
     RowInfo qi[4];
 #pragma unroll
@@ -214,4 +220,18 @@ extern "C" int pt_varlen_bwd_dkv(const void* q, const void* k, const void* v, co
   const pt_flash::SegmentMask mask{seg_q, pos_q, seg_k, pos_k, lo, hi, causal};
   return (int)pt_flash::dkv_any(d, is_bf16, q, k, v, dout, lse, delta, dk, dv, h,
                                 pt_flash::packed_layout(tq, tk, h, d), mask, scale, stream);
+}
+
+// q, dout [bh, sq, d] and k, v, dk, dv [bh, sk, d] in the io type,
+// contiguous; lse and delta float [bh, sq]; st/en/st_max/en_min as for
+// pt_flashmask_fwd. Launches on `stream` and returns cudaGetLastError().
+extern "C" int pt_flashmask_bwd_dkv(const void* q, const void* k, const void* v,
+                                    const void* dout, const void* lse, const void* delta,
+                                    void* dk, void* dv, const int* st, const int* en,
+                                    const int* st_max, const int* en_min, int bh, int h, int hs,
+                                    int sq, int sk, int d, int is_bf16, int causal, float scale,
+                                    void* stream) {
+  const pt_flash::StartEndMask mask{st, en, st_max, en_min, h, hs, sq, sk, causal};
+  return (int)pt_flash::dkv_any(d, is_bf16, q, k, v, dout, lse, delta, dk, dv, bh,
+                                pt_flash::dense_layout(sq, sk, d), mask, scale, stream);
 }

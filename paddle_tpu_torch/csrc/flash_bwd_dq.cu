@@ -1,11 +1,13 @@
 // Flash-attention backward, dQ, for Hopper (sm_90a): fixed-length causal
-// batches and packed variable-length sequences, one kernel templated on the
-// mask.
+// batches, packed variable-length sequences and flashmask (start/end row)
+// masks, one kernel templated on the mask.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py `_dq_kernel` (launched
-// from `_bwd`; entry `pt_flash_bwd_dq`, CausalMask) and
+// from `_bwd`; entry `pt_flash_bwd_dq`, CausalMask),
 // paddle_tpu/ops/pallas/flash_varlen.py `_v_dq_kernel` (launched from
-// `_varlen_bwd`; entry `pt_varlen_bwd_dq`, SegmentMask). Same function: for
+// `_varlen_bwd`; entry `pt_varlen_bwd_dq`, SegmentMask) and flash_varlen.py
+// `_fm_dq_kernel` (launched from `_fm_bwd`; entry `pt_flashmask_bwd_dq`,
+// StartEndMask). Same function: for
 // one query tile, loop over the key tiles the forward visits; recompute
 // p = exp(s - lse) under the forward's mask, dP = dO V^T,
 // dS = p (dP - delta) scale and dQ += dS K, all in fp32, written once in
@@ -16,12 +18,15 @@
 // 2.6e10 FLOP (26 us at 989 TFLOP/s) against 85 MB of q, k, v, dO, lse,
 // delta and dq (25 us at 3.35 TB/s), the two bounds nearly meet; at the
 // packed shape (T = 8192, H = 16, ten causal documents) 3.6e10 FLOP
-// (36 us) against 85 MB (25 us): the operations. This first kernel does
+// (36 us) against 85 MB (25 us): the operations; at the flashmask shape
+// (BH = 32, S = 4096, 5.3e6 kept pairs per head) 3.3e10 FLOP (33 us)
+// against 85 MB (25 us): the operations. This first kernel does
 // its products as fp32 FMAs from shared memory, so the FMA rate and
 // shared-memory reads bound it instead. What the design does: q, dO, lse
 // and delta stay in shared memory for the whole block, dQ accumulates in
 // registers, k and v are streamed once per query tile, and key tiles the
-// mask rules out are never loaded. Splitting dQ from dK/dV (as the TPU
+// mask rules out (past the diagonal, outside the segments, or fully
+// banned) are never loaded. Splitting dQ from dK/dV (as the TPU
 // kernel does) costs a second recompute of s and dP but needs no atomics.
 //
 // Grid: (ceil(Sq / 64), heads); one block per (head, 64-row query tile).
@@ -36,8 +41,8 @@ template <typename T, int D, typename Mask>
 __global__ void __launch_bounds__(NT, 2)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, Layout lay, Mask mask,
-                    float scale) {
+                    const float* __restrict__ delta, T* __restrict__ dq, Layout lay,
+                    Mask heads_mask, float scale) {
   constexpr int LD = D + 1;
   constexpr int DJ = D / 16;
   extern __shared__ float smem[];
@@ -51,6 +56,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int h = blockIdx.y;
+  const Mask mask = heads_mask.at_head(h);
   const int qt = blockIdx.x;
   const int q0 = qt * BQ;
   const T* kb = k + h * lay.k_hs;
@@ -72,6 +78,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   const int2 tiles = mask.key_tiles(qt);
   for (int j = tiles.x; j < tiles.y; ++j) {
+    if (!mask.tile_open(qt, j)) continue;  // the same for the whole block
     const int k0 = j * BK;
     RowInfo ki[4];
 #pragma unroll
@@ -194,4 +201,17 @@ extern "C" int pt_varlen_bwd_dq(const void* q, const void* k, const void* v, con
   const pt_flash::SegmentMask mask{seg_q, pos_q, seg_k, pos_k, lo, hi, causal};
   return (int)pt_flash::dq_any(d, is_bf16, q, k, v, dout, lse, delta, dq, h,
                                pt_flash::packed_layout(tq, tk, h, d), mask, scale, stream);
+}
+
+// q, dout, dq [bh, sq, d] and k, v [bh, sk, d] in the io type, contiguous;
+// lse and delta float [bh, sq]; st/en/st_max/en_min as for
+// pt_flashmask_fwd. Launches on `stream` and returns cudaGetLastError().
+extern "C" int pt_flashmask_bwd_dq(const void* q, const void* k, const void* v,
+                                   const void* dout, const void* lse, const void* delta,
+                                   void* dq, const int* st, const int* en, const int* st_max,
+                                   const int* en_min, int bh, int h, int hs, int sq, int sk,
+                                   int d, int is_bf16, int causal, float scale, void* stream) {
+  const pt_flash::StartEndMask mask{st, en, st_max, en_min, h, hs, sq, sk, causal};
+  return (int)pt_flash::dq_any(d, is_bf16, q, k, v, dout, lse, delta, dq, bh,
+                               pt_flash::dense_layout(sq, sk, d), mask, scale, stream);
 }

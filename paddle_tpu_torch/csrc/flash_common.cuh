@@ -11,9 +11,11 @@
 // {tx + 16 j} of each 64-row tile, so the 16 threads that share a row sit
 // in one half-warp and reduce a row with four xor shuffles.
 //
-// What a kernel may see is a Mask policy (CausalMask, SegmentMask below):
-// which key a query row sees, which tiles a tile visits, and the lse of a
-// row that sees no key. The kernels are templates on it.
+// What a kernel may see is a Mask policy (CausalMask, SegmentMask,
+// StartEndMask below): which key a query row sees, which tiles a tile
+// visits (a range, then a per-tile test), the lse of a row that sees no
+// key, and the policy of one grid head (`at_head`, for masks whose arrays
+// differ by head). The kernels are templates on it.
 //
 // Tiles live in shared memory as float with one word of padding per row
 // (stride D + 1), so a column read by 16 neighbouring threads hits 16
@@ -24,6 +26,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <climits>
 
 namespace pt_flash {
 
@@ -93,10 +96,11 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-// What a mask reads of one row: its index (CausalMask) or its segment and
-// in-segment position (SegmentMask). A kernel fetches it once per row.
+// What a mask reads of one row: its index (CausalMask), its segment and
+// in-segment position (SegmentMask), or for a key its banned query rows
+// [a, b) and its index c (StartEndMask). A kernel fetches it once per row.
 struct RowInfo {
-  int a, b;
+  int a, b, c;
 };
 
 // Fixed-length rows (the TPU `_fwd_kernel` family): key kp is seen by query
@@ -109,11 +113,13 @@ struct CausalMask {
 
   __device__ static float empty_lse() { return NEG_INF; }
 
+  __device__ CausalMask at_head(int) const { return *this; }
   __device__ RowInfo q_row(int qp) const { return {qp, 0}; }
   __device__ RowInfo k_row(int kp) const { return {kp, 0}; }
   __device__ bool visible(RowInfo q, RowInfo k) const {
     return q.a < sq && k.a < kv_len && (!causal || k.a <= q.a + q_offset);
   }
+  __device__ bool tile_open(int, int) const { return true; }
   // Key tiles [x, y) that query tile qt visits: up to one past the last key
   // any of its rows sees.
   __device__ int2 key_tiles(int qt) const {
@@ -151,6 +157,7 @@ struct SegmentMask {
 
   __device__ static float empty_lse() { return 0.f; }
 
+  __device__ SegmentMask at_head(int) const { return *this; }
   __device__ RowInfo q_row(int qp) const { return {seg_q[qp], pos_q[qp]}; }
   __device__ RowInfo k_row(int kp) const { return {seg_k[kp], pos_k[kp]}; }
   __device__ bool visible(RowInfo q, RowInfo k) const {
@@ -158,6 +165,60 @@ struct SegmentMask {
   }
   __device__ int2 key_tiles(int qt) const { return make_int2(lo[qt], hi[qt]); }
   __device__ int2 query_tiles(int kt) const { return make_int2(lo[kt], hi[kt]); }
+  __device__ bool tile_open(int, int) const { return true; }
+};
+
+// Flashmask (the TPU `_fm_*_kernel` family), [BH, S, D] rows: key kp bans
+// the query rows [st[kp], en[kp]); key kp is seen by query qp when qp is
+// not banned, kp < sk, and, when causal, kp <= qp (top-left aligned). st
+// and en are int32 [B * hs, sk] with hs = 1 (one row shared by the H heads
+// of a batch row, read in place) or hs = H; st_max and en_min are int32
+// [B * hs, ceil(sk / 64)], the largest start and the smallest end over each
+// 64-column key tile's real columns, worked out on the host side. A key
+// tile whose every column bans every row of a query tile is skipped, as the
+// TPU kernels skip a fully banned key block; the tile range is the causal
+// one ([0, diagonal] for a query tile, [diagonal, end) for a key tile).
+// Padding query rows (qp >= sq) need no test: their q, dO, lse and delta
+// are 0, so whatever they see adds exact zeros and is never written. A row
+// that sees no key gets lse 0, as on the TPU.
+struct StartEndMask {
+  const int* st;
+  const int* en;
+  const int* st_max;
+  const int* en_min;
+  int h, hs, sq, sk, causal;
+
+  __device__ static float empty_lse() { return 0.f; }
+
+  __device__ StartEndMask at_head(int bh) const {
+    const long long row = (long long)(bh / h) * hs + (hs == 1 ? 0 : bh % h);
+    const long long nkt = (sk + BK - 1) / BK;
+    StartEndMask m = *this;
+    m.st += row * sk;
+    m.en += row * sk;
+    m.st_max += row * nkt;
+    m.en_min += row * nkt;
+    return m;
+  }
+  __device__ RowInfo q_row(int qp) const { return {qp, 0, 0}; }
+  // a padding key (kp >= sk) bans every row
+  __device__ RowInfo k_row(int kp) const {
+    return kp < sk ? RowInfo{st[kp], en[kp], kp} : RowInfo{INT_MIN, INT_MAX, kp};
+  }
+  __device__ bool visible(RowInfo q, RowInfo k) const {
+    return !(q.a >= k.a && q.a < k.b) && (!causal || k.c <= q.a);
+  }
+  __device__ int2 key_tiles(int qt) const {
+    const int end = causal ? min(min(qt * BQ + BQ, sq), sk) : sk;
+    return make_int2(0, (end + BK - 1) / BK);
+  }
+  __device__ int2 query_tiles(int kt) const {
+    return make_int2(causal ? kt * BK / BQ : 0, (sq + BQ - 1) / BQ);
+  }
+  __device__ bool tile_open(int qt, int kt) const {
+    const int q0 = qt * BQ;
+    return !(st_max[kt] <= q0 && en_min[kt] >= min(q0 + BQ, sq));
+  }
 };
 
 // Sets the block's dynamic shared memory limit, then launches.

@@ -1,30 +1,38 @@
-// Flash-attention forward for Hopper (sm_90a): fixed-length causal batches
-// and packed variable-length sequences, one kernel templated on the mask.
+// Flash-attention forward for Hopper (sm_90a): fixed-length causal batches,
+// packed variable-length sequences and flashmask (start/end row) masks, one
+// kernel templated on the mask.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (reached
-// through `_fwd_call`; entry `pt_flash_fwd`, CausalMask) and
+// through `_fwd_call`; entry `pt_flash_fwd`, CausalMask),
 // paddle_tpu/ops/pallas/flash_varlen.py `_v_fwd_kernel` (reached through
-// `_varlen_fwd`; entry `pt_varlen_fwd`, SegmentMask). Same function:
-// online-softmax attention, fp32 logits, running max m, running sum l and
-// fp32 accumulator, the mask applied before the max and again after exp,
-// only the key tiles the mask can reach visited, P rounded to the io type
-// before P.V, lse = m + log(l) in fp32, and a row with l == 0 written as 0
-// with the mask's empty-row lse (-1e30 fixed-length, 0 varlen).
+// `_varlen_fwd`; entry `pt_varlen_fwd`, SegmentMask) and flash_varlen.py
+// `_fm_fwd_kernel` (reached through `_fm_fwd`; entry `pt_flashmask_fwd`,
+// StartEndMask). Same function: online-softmax attention, fp32 logits,
+// running max m, running sum l and fp32 accumulator, the mask applied
+// before the max and again after exp, only the key tiles the mask can reach
+// visited (and, for flashmask, fully banned tiles skipped), P rounded to the
+// io type before P.V, lse = m + log(l) in fp32, and a row with l == 0
+// written as 0 with the mask's empty-row lse (-1e30 fixed-length, 0 varlen
+// and flashmask).
 //
 // What bounds it on the H100: at the fixed-length training shape (BH = 128,
 // S = 1024, D = 64, bf16, causal) 1.7e10 FLOP (17 us at 989 TFLOP/s)
 // against 67 MB of q, k, v, o and lse (20 us at 3.35 TB/s): device memory.
 // At the packed shape (T = 8192, H = 16, D = 64, bf16, ten causal
 // documents, 5.8e6 kept pairs per head) 2.4e10 FLOP (24 us) against 68 MB
-// (20 us): the operations, barely. This first kernel does its products as
+// (20 us): the operations, barely. At the flashmask shape (BH = 32,
+// S = 4096, D = 64, bf16, causal, one batch row of share-question and one
+// of document masks, 5.3e6 kept pairs per head) 2.2e10 FLOP (22 us) against
+// 68 MB (20 us): the operations. This first kernel does its products as
 // fp32 FMAs from shared memory, not on the tensor cores, so it is bound by
 // the FMA rate and by shared-memory reads instead: each thread holds a
 // 4 x 4 block of scores and a 4 x D/16 block of the output in registers
 // and reads 8 shared words per 16 FMAs. What the design does about the
 // memory bound: every q tile is read once, k and v are streamed tile by
 // tile and reused by the 64 query rows of the block, no score ever reaches
-// device memory, and packed rows are read in place through their strides
-// (no [H, T, D] copy).
+// device memory, packed rows are read in place through their strides
+// (no [H, T, D] copy), and a flashmask start/end row shared by the heads is
+// read in place by each of them (no [B, H, S] copy).
 //
 // Grid: (ceil(Sq / 64), heads); one block per (head, 64-row query tile).
 #include "flash_common.cuh"
@@ -34,7 +42,7 @@ namespace pt_flash {
 template <typename T, int D, typename Mask>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, Layout lay, Mask mask,
+                 T* __restrict__ o, float* __restrict__ lse, Layout lay, Mask heads_mask,
                  float scale) {
   constexpr int LD = D + 1;
   constexpr int DJ = D / 16;  // output columns per thread
@@ -46,6 +54,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int h = blockIdx.y;
+  const Mask mask = heads_mask.at_head(h);
   const int qt = blockIdx.x;
   const int q0 = qt * BQ;
   const T* kb = k + h * lay.k_hs;
@@ -66,6 +75,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   const int2 tiles = mask.key_tiles(qt);
   for (int j = tiles.x; j < tiles.y; ++j) {
+    if (!mask.tile_open(qt, j)) continue;  // the same for the whole block
     const int k0 = j * BK;
     __syncthreads();  // the last tile's reads of Ks, Vs and Ps are done
     load_tile<T, BK, D>(Ks, kb, k0, lay.sk, lay.k_rs);
@@ -188,4 +198,19 @@ extern "C" int pt_varlen_fwd(const void* q, const void* k, const void* v, void* 
   const pt_flash::SegmentMask mask{seg_q, pos_q, seg_k, pos_k, lo, hi, causal};
   return (int)pt_flash::fwd_any(d, is_bf16, q, k, v, o, lse, h,
                                 pt_flash::packed_layout(tq, tk, h, d), mask, scale, stream);
+}
+
+// q, k, v, o [bh, sq or sk, d] in the io type, contiguous; lse float
+// [bh, sq]. st/en int32 [bh / h * hs, sk]: key kp bans query rows
+// [st, en) (hs = 1: one row per batch row, shared by its h heads; hs = h:
+// one per head); st_max/en_min int32 [bh / h * hs, ceil(sk / 64)]: their
+// max and min over each 64-column tile. Launches on `stream` and returns
+// cudaGetLastError().
+extern "C" int pt_flashmask_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                                const int* st, const int* en, const int* st_max,
+                                const int* en_min, int bh, int h, int hs, int sq, int sk, int d,
+                                int is_bf16, int causal, float scale, void* stream) {
+  const pt_flash::StartEndMask mask{st, en, st_max, en_min, h, hs, sq, sk, causal};
+  return (int)pt_flash::fwd_any(d, is_bf16, q, k, v, o, lse, bh,
+                                pt_flash::dense_layout(sq, sk, d), mask, scale, stream);
 }

@@ -1,22 +1,35 @@
 """Flash-attention functionals in paddle's signatures.
 
 Counterpart of ``paddle_tpu/nn/functional/flash_attention.py``:
-``flash_attention`` and ``flash_attn_qkvpacked`` go to the fixed-length
-kernels (``ops/cuda/flash_attention.py``), ``flash_attn_unpadded`` to the
-varlen kernels (``ops/cuda/flash_varlen.py``), and
-``flash_attn_unpadded_dense`` is the dense segment-mask oracle.
+
+=============================  ==========================================
+functional                     goes to
+=============================  ==========================================
+``flash_attention``,           the fixed-length kernels
+``flash_attn_qkvpacked``       (``ops/cuda/flash_attention.py``)
+``flash_attn_unpadded``        the varlen kernels
+                               (``ops/cuda/flash_varlen.py``)
+``flashmask_attention``        the flashmask kernels (same module); with
+                               ``startend_row_indices=None``, the
+                               fixed-length kernels, causal bottom-right
+``flash_attn_unpadded_dense``  dense segment-mask oracle (plain torch)
+``flashmask_attention_dense``  dense start/end-mask oracle (plain torch)
+=============================  ==========================================
 
 Unlike the reference, nothing here falls back: the kernels mask ragged
 edges themselves, so any sequence length runs on them, and a kernel error
-raises instead of switching to the dense path. Dropout and
-``return_softmax`` are not ported yet and raise ``NotImplementedError``.
+raises instead of switching to the dense path. Dropout,
+``return_softmax``, and flashmask's ``window_size``,
+``return_softmax_lse`` and ``return_seed_offset`` are not ported yet and
+raise ``NotImplementedError`` (the reference ignores the last three).
 """
 from __future__ import annotations
 
 import torch
 
 from ...ops.cuda.flash_attention import mha_forward
-from ...ops.cuda.flash_varlen import flash_attn_varlen
+from ...ops.cuda.flash_varlen import (flash_attn_varlen,
+                                      flashmask_attention_kernel)
 from .attention import scaled_dot_product_attention
 
 
@@ -85,3 +98,54 @@ def flash_attn_unpadded_dense(query, key, value, cu_seqlens_q, cu_seqlens_k,
         query.unsqueeze(0), key.unsqueeze(0), value.unsqueeze(0),
         mask[None, None], dropout, False, training, scale=scale)
     return out.squeeze(0), None
+
+
+def flashmask_attention(query, key, value, startend_row_indices=None,
+                        dropout=0.0, causal=True, window_size=None,
+                        return_softmax_lse=False, return_seed_offset=False,
+                        fixed_seed_offset=None, rng_name="", training=True,
+                        name=None):
+    """Sparse-mask attention (paddle's ``flashmask_attention``) on
+    ``[batch, seq, heads, head_dim]``; ``startend_row_indices`` ``[batch,
+    1 or heads, seq_k, 1 or 2]`` int32/int64 bans, for key column ``j``,
+    the query rows ``[start_j, end_j)`` (``end`` = no limit with one
+    column). Returns ``out`` alone, as the reference does."""
+    _not_ported(dropout, False, training)
+    for what, given in (("window_size", window_size is not None),
+                        ("return_softmax_lse=True", return_softmax_lse),
+                        ("return_seed_offset=True", return_seed_offset)):
+        if given:
+            raise NotImplementedError(f"flashmask_attention: {what} is not "
+                                      f"ported yet")
+    if startend_row_indices is None:
+        return flash_attention(query, key, value, causal=causal)[0]
+    return flashmask_attention_kernel(query, key, value,
+                                      startend_row_indices, causal=causal)
+
+
+def _flashmask_to_dense(startend, causal):
+    """[B, 1 or H, S, S] bool ``allow`` mask of the reference's dense path:
+    key column j is banned for query rows >= start_j (and < end_j with two
+    columns); causal bans k > q. Square: S is ``startend``'s key length."""
+    s = startend.shape[2]
+    q_idx = torch.arange(s, device=startend.device)[None, None, :, None]
+    k_idx = torch.arange(s, device=startend.device)[None, None, None, :]
+    ban = q_idx >= startend[..., 0][:, :, None, :]
+    if startend.shape[-1] > 1:
+        ban = ban & (q_idx < startend[..., 1][:, :, None, :])
+    if causal:
+        ban = ban | (k_idx > q_idx)
+    return ~ban
+
+
+def flashmask_attention_dense(query, key, value, startend_row_indices=None,
+                              dropout=0.0, causal=True, training=True,
+                              *unused, **unused_kw):
+    """Dense-mask path (O(S^2) memory: a test oracle). A row that sees no
+    key gets the mean of v here, where the kernels give 0."""
+    if startend_row_indices is None:
+        return scaled_dot_product_attention(query, key, value, None, dropout,
+                                            causal, training)
+    mask = _flashmask_to_dense(startend_row_indices, causal)
+    return scaled_dot_product_attention(query, key, value, mask, dropout,
+                                        False, training)

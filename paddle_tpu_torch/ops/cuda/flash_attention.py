@@ -137,44 +137,63 @@ def _scores(q, k, scale):
     return torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
 
 
-def flash_fwd_plain(q, k, v, causal: bool, scale: float, kv_len: int,
-                    q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel's function in plain PyTorch: fp32 logits, P
-    rounded to the io type before P.V, lse in fp32 ``[BH, Sq, 1]``."""
-    sq, sk = q.shape[1], k.shape[1]
-    mask = _mask(sq, sk, causal, kv_len, q_offset, q.device)
+def masked_fwd_plain(q, k, v, mask, scale: float):
+    """The forward kernels' arithmetic on ``[BH, S, D]`` under a bool mask
+    ``[BH or 1, Sq, Sk]``: fp32 logits, P rounded to the io type before
+    P.V. Returns out (io type; 0 on a row that sees no key) and the fp32
+    row max m and row sum l, ``[BH, Sq, 1]``."""
     s = _scores(q, k, scale).masked_fill(~mask, NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(-1, keepdim=True)
     l_safe = torch.where(l == 0.0, 1.0, l)
     acc = torch.einsum("bqk,bkd->bqd", p.to(q.dtype).float(), v.float())
-    return (acc / l_safe).to(q.dtype), m + torch.log(l_safe)
+    return (acc / l_safe).to(q.dtype), m, l
 
 
-def _p_ds(q, k, v, do, lse, delta, causal, scale, kv_len, q_offset):
-    sq, sk = q.shape[1], k.shape[1]
-    mask = _mask(sq, sk, causal, kv_len, q_offset, q.device)
-    s = _scores(q, k, scale)
-    p = torch.where(mask, torch.exp(s - lse), 0.0)
+def flash_fwd_plain(q, k, v, causal: bool, scale: float, kv_len: int,
+                    q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's function in plain PyTorch: fp32 logits, P
+    rounded to the io type before P.V, lse in fp32 ``[BH, Sq, 1]``."""
+    mask = _mask(q.shape[1], k.shape[1], causal, kv_len, q_offset, q.device)
+    out, m, l = masked_fwd_plain(q, k, v, mask, scale)
+    return out, m + torch.log(torch.where(l == 0.0, 1.0, l))
+
+
+def _p_ds(q, k, v, do, lse, delta, mask, scale):
+    p = torch.where(mask, torch.exp(_scores(q, k, scale) - lse), 0.0)
     dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
     return p, p * (dp - delta) * scale
 
 
-def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool, scale: float,
-                        kv_len: int, q_offset: int):
-    """dK, dV in plain PyTorch, fp32 throughout, written in the io type."""
-    p, ds = _p_ds(q, k, v, do, lse, delta, causal, scale, kv_len, q_offset)
+def masked_bwd_dkv_plain(q, k, v, do, lse, delta, mask, scale: float):
+    """The dK/dV kernels' arithmetic under a bool mask, fp32 throughout,
+    written in the io type."""
+    p, ds = _p_ds(q, k, v, do, lse, delta, mask, scale)
     dv = torch.einsum("bqk,bqd->bkd", p, do.float())
     dk = torch.einsum("bqk,bqd->bkd", ds, q.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def masked_bwd_dq_plain(q, k, v, do, lse, delta, mask, scale: float):
+    """The dQ kernels' arithmetic under a bool mask, fp32 throughout,
+    written in the io type."""
+    _, ds = _p_ds(q, k, v, do, lse, delta, mask, scale)
+    return torch.einsum("bqk,bkd->bqd", ds, k.float()).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool, scale: float,
+                        kv_len: int, q_offset: int):
+    """dK, dV in plain PyTorch, fp32 throughout, written in the io type."""
+    mask = _mask(q.shape[1], k.shape[1], causal, kv_len, q_offset, q.device)
+    return masked_bwd_dkv_plain(q, k, v, do, lse, delta, mask, scale)
+
+
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool, scale: float,
                        kv_len: int, q_offset: int):
     """dQ in plain PyTorch, fp32 throughout, written in the io type."""
-    _, ds = _p_ds(q, k, v, do, lse, delta, causal, scale, kv_len, q_offset)
-    return torch.einsum("bqk,bkd->bqd", ds, k.float()).to(q.dtype)
+    mask = _mask(q.shape[1], k.shape[1], causal, kv_len, q_offset, q.device)
+    return masked_bwd_dq_plain(q, k, v, do, lse, delta, mask, scale)
 
 
 def attention_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:

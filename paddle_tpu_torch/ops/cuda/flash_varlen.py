@@ -1,19 +1,27 @@
-"""Packed-sequence (varlen) flash attention: CUDA kernels and autograd glue.
+"""Packed-sequence (varlen) and flashmask attention: CUDA kernels and
+autograd glue.
 
-Counterpart of the varlen half of ``paddle_tpu/ops/pallas/flash_varlen.py``.
-Ragged batches are packed as ``[total_tokens, heads, head_dim]`` with
-``cu_seqlens`` (segment ``i`` owns tokens ``[cu[i], cu[i+1])``). The kernels
-are the fixed-length ones of ``csrc/`` instantiated with their segment mask:
+Counterpart of ``paddle_tpu/ops/pallas/flash_varlen.py``. Ragged batches
+are packed as ``[total_tokens, heads, head_dim]`` with ``cu_seqlens``
+(segment ``i`` owns tokens ``[cu[i], cu[i+1])``); flashmask batches are
+``[B*H, S, D]`` with per-key start/end rows. The kernels are the
+fixed-length ones of ``csrc/`` instantiated with their segment mask
+(varlen) or start/end mask (flashmask):
 
-==================  ====================================  =================
-wrapper             entry (source)                        replaces
-==================  ====================================  =================
-``varlen_fwd``      ``pt_varlen_fwd`` (``flash_fwd.cu``)  ``_v_fwd_kernel``
-``varlen_bwd_dkv``  ``pt_varlen_bwd_dkv``                 ``_v_dkv_kernel``
-                    (``flash_bwd_dkv.cu``)
-``varlen_bwd_dq``   ``pt_varlen_bwd_dq``                  ``_v_dq_kernel``
-                    (``flash_bwd_dq.cu``)
-==================  ====================================  =================
+=====================  =======================================  ==================
+wrapper                entry (source)                           replaces
+=====================  =======================================  ==================
+``varlen_fwd``         ``pt_varlen_fwd`` (``flash_fwd.cu``)     ``_v_fwd_kernel``
+``varlen_bwd_dkv``     ``pt_varlen_bwd_dkv``                    ``_v_dkv_kernel``
+                       (``flash_bwd_dkv.cu``)
+``varlen_bwd_dq``      ``pt_varlen_bwd_dq``                     ``_v_dq_kernel``
+                       (``flash_bwd_dq.cu``)
+``flashmask_fwd``      ``pt_flashmask_fwd`` (``flash_fwd.cu``)  ``_fm_fwd_kernel``
+``flashmask_bwd_dkv``  ``pt_flashmask_bwd_dkv``                 ``_fm_dkv_kernel``
+                       (``flash_bwd_dkv.cu``)
+``flashmask_bwd_dq``   ``pt_flashmask_bwd_dq``                  ``_fm_dq_kernel``
+                       (``flash_bwd_dq.cu``)
+=====================  =======================================  ==================
 
 Semantics, as on the TPU: key ``k`` is seen by query ``q`` when both lie in
 the same segment and, when causal, ``pos_k <= pos_q`` (top-left aligned
@@ -30,6 +38,16 @@ kernel path. Wrappers dispatch on the device of their tensors as in
 plain version, which builds the dense ``[Tq, Tk]`` mask from the same
 segment and position arrays and repeats the kernel's rounding points.
 ``LAUNCHES`` counts kernel launches per wrapper.
+
+Flashmask semantics, as on the TPU: ``startend`` ``[B, 1 or H, Sk, 1 or
+2]`` gives each key column ``j`` the query rows ``[start_j, end_j)`` it is
+hidden from (one column: ``end = INT32_MAX``); key ``k`` is seen by query
+``q`` when ``q`` is not banned and, when causal, ``k <= q`` (top-left
+aligned, unlike the fixed-length kernels' bottom-right). A row that sees no
+key gets output 0 and lse 0. :func:`flashmask_plan` turns ``startend`` into
+int32 start and end rows and, per 64-column key tile, the largest start and
+smallest end, with O(B*H*Sk) work: a kernel skips a key tile that bans its
+whole query tile, and no ``[S, S]`` mask is built on the kernel path.
 """
 from __future__ import annotations
 
@@ -40,13 +58,16 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from . import flash_attention as fa
 from ._build import function
 from .flash_attention import NEG_INF, _check_cuda, _dispatch
 
 TILE = 64  # rows of a kernel tile (BQ = BK in csrc/flash_common.cuh)
 
 LAUNCHES: Dict[str, int] = {"varlen_fwd": 0, "varlen_bwd_dkv": 0,
-                            "varlen_bwd_dq": 0}
+                            "varlen_bwd_dq": 0, "flashmask_fwd": 0,
+                            "flashmask_bwd_dkv": 0, "flashmask_bwd_dq": 0}
+INT32_MAX = 2 ** 31 - 1
 
 
 def reset_launches() -> None:
@@ -162,6 +183,8 @@ def varlen_plan(cu_q: torch.Tensor, cu_k: torch.Tensor, tq: int, tk: int,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _TAIL = [_I] * 6 + [_F, _P]  # h tq tk d is_bf16 causal | scale | stream
+# bh h hs sq sk d is_bf16 causal | scale | stream
+_FM_TAIL = [_I] * 8 + [_F, _P]
 _SIGNATURES = {
     # q k v o lse | seg_q pos_q seg_k pos_k lo hi | ...
     "varlen_fwd": ("flash_fwd", "pt_varlen_fwd", [_P] * 11 + _TAIL),
@@ -170,6 +193,14 @@ _SIGNATURES = {
                        [_P] * 14 + _TAIL),
     # q k v do lse delta dq | seg/pos lo hi | ...
     "varlen_bwd_dq": ("flash_bwd_dq", "pt_varlen_bwd_dq", [_P] * 13 + _TAIL),
+    # q k v o lse | st en st_max en_min | ...
+    "flashmask_fwd": ("flash_fwd", "pt_flashmask_fwd", [_P] * 9 + _FM_TAIL),
+    # q k v do lse delta dk dv | st en st_max en_min | ...
+    "flashmask_bwd_dkv": ("flash_bwd_dkv", "pt_flashmask_bwd_dkv",
+                          [_P] * 12 + _FM_TAIL),
+    # q k v do lse delta dq | st en st_max en_min | ...
+    "flashmask_bwd_dq": ("flash_bwd_dq", "pt_flashmask_bwd_dq",
+                         [_P] * 11 + _FM_TAIL),
 }
 
 
@@ -196,6 +227,11 @@ def _check_bwd(name, q, do, lse, delta):
                              f"{want}, got {t.dtype} {tuple(t.shape)}")
 
 
+def _varlen_sizes(q, k):
+    """h, tq, tk, d of packed [T, H, D] q and k."""
+    return q.shape[1], q.shape[0], k.shape[0], q.shape[2]
+
+
 def _plan_tensors(name, q, k, plan: VarlenPlan, lo, hi, tiles: int):
     """The plan's arrays for one kernel (``lo/hi`` with one entry per grid
     tile), checked against what the kernel indexes."""
@@ -211,13 +247,16 @@ def _plan_tensors(name, q, k, plan: VarlenPlan, lo, hi, tiles: int):
     return (plan.seg_q, plan.pos_q, plan.seg_k, plan.pos_k, lo, hi)
 
 
-def _launch(name: str, tensors, q, k, causal: bool, scale: float) -> None:
+def _launch(name: str, tensors, sizes, q, causal: bool,
+            scale: float) -> None:
+    """Launches entry ``name`` on ``tensors`` (pointers) and ``sizes``
+    (ints), then the io type, ``causal``, ``scale`` and the current
+    stream."""
     lib, symbol, argtypes = _SIGNATURES[name]
-    t, h, d = q.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = function(lib, symbol, argtypes)(
-            *[x.data_ptr() for x in tensors], h, t, k.shape[0], d,
+            *[x.data_ptr() for x in tensors], *sizes,
             int(q.dtype == torch.bfloat16), int(causal), float(scale), stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed: "
@@ -299,8 +338,8 @@ def varlen_fwd(q, k, v, plan: VarlenPlan,
     out = torch.empty_like(q)
     lse = torch.empty((q.shape[1], q.shape[0], 1), device=q.device,
                       dtype=torch.float32)
-    _launch("varlen_fwd", (q, k, v, out, lse) + meta, q, k, plan.causal,
-            scale)
+    _launch("varlen_fwd", (q, k, v, out, lse) + meta, _varlen_sizes(q, k),
+            q, plan.causal, scale)
     return out, lse
 
 
@@ -316,8 +355,8 @@ def varlen_bwd_dkv(q, k, v, do, lse, delta, plan: VarlenPlan, scale: float):
     meta = _plan_tensors("varlen_bwd_dkv", q, k, plan, plan.klo, plan.khi,
                          _cdiv(k.shape[0], TILE))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("varlen_bwd_dkv", (q, k, v, do, lse, delta, dk, dv) + meta, q, k,
-            plan.causal, scale)
+    _launch("varlen_bwd_dkv", (q, k, v, do, lse, delta, dk, dv) + meta,
+            _varlen_sizes(q, k), q, plan.causal, scale)
     return dk, dv
 
 
@@ -332,8 +371,8 @@ def varlen_bwd_dq(q, k, v, do, lse, delta, plan: VarlenPlan, scale: float):
     meta = _plan_tensors("varlen_bwd_dq", q, k, plan, plan.qlo, plan.qhi,
                          _cdiv(q.shape[0], TILE))
     dq = torch.empty_like(q)
-    _launch("varlen_bwd_dq", (q, k, v, do, lse, delta, dq) + meta, q, k,
-            plan.causal, scale)
+    _launch("varlen_bwd_dq", (q, k, v, do, lse, delta, dq) + meta,
+            _varlen_sizes(q, k), q, plan.causal, scale)
     return dq
 
 
@@ -386,3 +425,266 @@ def flash_attn_varlen(query, key, value, cu_seqlens_q, cu_seqlens_k,
                        key.shape[0], causal)
     return _Varlen.apply(query.contiguous(), key.contiguous(),
                          value.contiguous(), plan, float(scale))
+
+
+# ============================================================== flashmask
+
+@dataclasses.dataclass(frozen=True)
+class FlashmaskPlan:
+    """What the flashmask kernels need besides q, k and v: int32 start and
+    end rows ``st/en`` ``[B * col_heads, Sk]`` (key ``j`` bans query rows
+    ``[st[j], en[j])``), their largest start and smallest end over each
+    ``TILE``-column key tile's real columns ``st_max/en_min``
+    ``[B * col_heads, ceil(Sk / TILE)]``, the batch's head count ``heads``,
+    ``col_heads`` (1: one row per batch row, shared by its heads; else
+    ``heads``) and the causal flag."""
+    st: torch.Tensor
+    en: torch.Tensor
+    st_max: torch.Tensor
+    en_min: torch.Tensor
+    heads: int
+    col_heads: int
+    causal: bool
+
+    def row(self, bh):
+        """Index of the start/end row that grid head ``bh`` (an int or an
+        int tensor) reads, as the kernels' ``at_head`` works it out."""
+        return (bh // self.heads) * self.col_heads + (
+            bh % self.heads if self.col_heads > 1 else 0)
+
+    def select(self, bh: int) -> "FlashmaskPlan":
+        """The plan of grid head ``bh`` alone, as a batch of one head."""
+        r = self.row(bh)
+        return FlashmaskPlan(self.st[r:r + 1], self.en[r:r + 1],
+                             self.st_max[r:r + 1], self.en_min[r:r + 1], 1, 1,
+                             self.causal)
+
+
+def _check_startend(startend: torch.Tensor, b: int, h: int, sk: int,
+                   device) -> None:
+    """Raise unless ``startend`` is int32 or int64 ``[b, 1 or h, sk, 1 or
+    2]`` on ``device``. Four columns (a bidirectional mask's upper band)
+    are refused: the kernels, like the TPU's, read only start and end."""
+    if startend.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"startend_row_indices: int32 or int64, got "
+                        f"{startend.dtype}")
+    shape = tuple(startend.shape)
+    if len(shape) != 4 or shape[0] != b or shape[1] not in (1, h) \
+            or shape[2] != sk or shape[3] not in (1, 2):
+        raise ValueError(f"startend_row_indices: want [B, 1 or H, Sk, 1 or "
+                         f"2] = [{b}, 1 or {h}, {sk}, 1 or 2], got "
+                         f"{list(shape)} (four columns are not supported)")
+    if startend.device != device:
+        raise ValueError(f"startend_row_indices on {startend.device}, "
+                         f"query on {device}")
+
+
+def flashmask_plan(startend: torch.Tensor, heads: int,
+                   causal: bool) -> FlashmaskPlan:
+    """The plan for ``startend`` ``[B, 1 or heads, Sk, 1 or 2]`` (int32 or
+    int64, taken as int32 as the TPU kernels take it), on its device, in
+    O(B * heads * Sk) work. A one-column ``startend`` bans open-ended:
+    ``en = INT32_MAX``, not ``Sk``, so query rows past the keys (Sq > Sk)
+    stay banned."""
+    b, hs, sk, cols = startend.shape
+    idx = startend.to(torch.int32)
+    st = idx[..., 0].reshape(b * hs, sk).contiguous()
+    if cols > 1:
+        en = idx[..., 1].reshape(b * hs, sk).contiguous()
+    else:
+        en = torch.full_like(st, INT32_MAX)
+    nkt = _cdiv(sk, TILE)
+
+    def per_tile(x, fill):
+        # the padding columns past Sk take a value that moves neither
+        # statistic: the kernels ban those columns themselves
+        pad = x.new_full((x.shape[0], nkt * TILE - sk), fill)
+        return torch.cat([x, pad], 1).view(x.shape[0], nkt, TILE)
+
+    st_max = per_tile(st, -INT32_MAX - 1).amax(-1).contiguous()
+    en_min = per_tile(en, INT32_MAX).amin(-1).contiguous()
+    return FlashmaskPlan(st, en, st_max, en_min, int(heads), int(hs),
+                         bool(causal))
+
+
+def flashmask_tiles(plan: FlashmaskPlan, sq: int) -> torch.Tensor:
+    """bool ``[B * col_heads, ceil(sq / TILE), ceil(Sk / TILE)]``: the
+    (query tile, key tile) pairs every flashmask kernel visits for one
+    start/end row: those in the causal range (key tile <= query tile) that
+    some column of the key tile leaves open to some row of the query tile.
+    The kernels' ``key_tiles``, ``query_tiles`` and ``tile_open`` in plain
+    torch, for tests and for counting the work."""
+    dev = plan.st_max.device
+    q0 = torch.arange(_cdiv(sq, TILE), device=dev) * TILE
+    q1 = torch.clamp(q0 + TILE, max=sq)
+    banned = (plan.st_max[:, None, :] <= q0[None, :, None]) \
+        & (plan.en_min[:, None, :] >= q1[None, :, None])
+    tiles = ~banned
+    if plan.causal:
+        kt = torch.arange(plan.st_max.shape[1], device=dev)
+        tiles = tiles & (kt[None, None, :] <= (q0 // TILE)[None, :, None])
+    return tiles
+
+
+def flashmask_mask(plan: FlashmaskPlan, bh: int, sq: int,
+                   sk: int) -> torch.Tensor:
+    """[bh, sq, sk] bool: key k seen by query q, from the plan's rows."""
+    rows = plan.row(torch.arange(bh, device=plan.st.device))
+    st, en = plan.st[rows][:, None, :], plan.en[rows][:, None, :]
+    qp = torch.arange(sq, device=plan.st.device)[None, :, None]
+    mask = ~((qp >= st) & (qp < en))
+    if plan.causal:
+        kp = torch.arange(sk, device=plan.st.device)[None, None, :]
+        mask = mask & (kp <= qp)
+    return mask
+
+
+def _check_fm(name, q, k, v, plan: FlashmaskPlan) -> None:
+    fa._check_shapes(q, k, v, k.shape[1])
+    bh, sk = q.shape[0], k.shape[1]
+    if q.shape[1] == 0 or sk == 0:
+        raise ValueError(f"{name}: flashmask needs at least one query and "
+                         f"one key")
+    rows = bh // plan.heads * plan.col_heads
+    want = ((plan.st, (rows, sk)), (plan.en, (rows, sk)),
+            (plan.st_max, (rows, _cdiv(sk, TILE))),
+            (plan.en_min, (rows, _cdiv(sk, TILE))))
+    if bh % plan.heads or any(
+            t.dtype != torch.int32 or t.device != q.device
+            or not t.is_contiguous() or tuple(t.shape) != shape
+            for t, shape in want):
+        raise ValueError(f"{name}: the plan ({plan.heads} heads, "
+                         f"{plan.col_heads} start/end rows per batch row, "
+                         f"{tuple(plan.st.shape)} on {plan.st.device}) does "
+                         f"not fit q {tuple(q.shape)} and k {tuple(k.shape)} "
+                         f"on {q.device}")
+
+
+def _fm_args(q, k, plan: FlashmaskPlan):
+    """The plan's arrays, then bh, h, hs, sq, sk, d."""
+    bh, sq, d = q.shape
+    return ((plan.st, plan.en, plan.st_max, plan.en_min),
+            (bh, plan.heads, plan.col_heads, sq, k.shape[1], d))
+
+
+def flashmask_fwd_plain(q, k, v, plan: FlashmaskPlan,
+                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's function in plain PyTorch on ``[BH, S, D]``:
+    out (0 on rows that see no key) and fp32 lse ``[BH, Sq, 1]`` (0 on
+    those rows)."""
+    mask = flashmask_mask(plan, q.shape[0], q.shape[1], k.shape[1])
+    out, m, l = fa.masked_fwd_plain(q, k, v, mask, scale)
+    lse = torch.where(l == 0.0, 0.0,
+                      m + torch.log(torch.where(l == 0.0, 1.0, l)))
+    return out, lse
+
+
+def flashmask_bwd_dkv_plain(q, k, v, do, lse, delta, plan: FlashmaskPlan,
+                            scale: float):
+    """dK, dV in plain PyTorch, fp32 throughout, written in the io type."""
+    mask = flashmask_mask(plan, q.shape[0], q.shape[1], k.shape[1])
+    return fa.masked_bwd_dkv_plain(q, k, v, do, lse, delta, mask, scale)
+
+
+def flashmask_bwd_dq_plain(q, k, v, do, lse, delta, plan: FlashmaskPlan,
+                           scale: float):
+    """dQ in plain PyTorch, fp32 throughout, written in the io type."""
+    mask = flashmask_mask(plan, q.shape[0], q.shape[1], k.shape[1])
+    return fa.masked_bwd_dq_plain(q, k, v, do, lse, delta, mask, scale)
+
+
+def flashmask_fwd(q, k, v, plan: FlashmaskPlan,
+                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flashmask attention forward on ``[BH, S, D]``: returns ``out`` (io
+    type) and ``lse`` (fp32, ``[BH, Sq, 1]``)."""
+    _check_fm("flashmask_fwd", q, k, v, plan)
+    if not _dispatch(q):
+        return flashmask_fwd_plain(q, k, v, plan, scale)
+    _check_cuda("flashmask_fwd", (q, k, v))
+    arrays, sizes = _fm_args(q, k, plan)
+    out = torch.empty_like(q)
+    lse = torch.empty((q.shape[0], q.shape[1], 1), device=q.device,
+                      dtype=torch.float32)
+    _launch("flashmask_fwd", (q, k, v, out, lse) + arrays, sizes, q,
+            plan.causal, scale)
+    return out, lse
+
+
+def flashmask_bwd_dkv(q, k, v, do, lse, delta, plan: FlashmaskPlan,
+                      scale: float):
+    """dK and dV of flashmask attention, from the forward's lse and
+    ``delta = rowsum(dO * O)``."""
+    _check_fm("flashmask_bwd_dkv", q, k, v, plan)
+    fa._check_bwd("flashmask_bwd_dkv", q, do, lse, delta)
+    if not _dispatch(q):
+        return flashmask_bwd_dkv_plain(q, k, v, do, lse, delta, plan, scale)
+    _check_cuda("flashmask_bwd_dkv", (q, k, v, do), (lse, delta))
+    arrays, sizes = _fm_args(q, k, plan)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flashmask_bwd_dkv", (q, k, v, do, lse, delta, dk, dv) + arrays,
+            sizes, q, plan.causal, scale)
+    return dk, dv
+
+
+def flashmask_bwd_dq(q, k, v, do, lse, delta, plan: FlashmaskPlan,
+                     scale: float):
+    """dQ of flashmask attention, from the forward's lse and ``delta``."""
+    _check_fm("flashmask_bwd_dq", q, k, v, plan)
+    fa._check_bwd("flashmask_bwd_dq", q, do, lse, delta)
+    if not _dispatch(q):
+        return flashmask_bwd_dq_plain(q, k, v, do, lse, delta, plan, scale)
+    _check_cuda("flashmask_bwd_dq", (q, k, v, do), (lse, delta))
+    arrays, sizes = _fm_args(q, k, plan)
+    dq = torch.empty_like(q)
+    _launch("flashmask_bwd_dq", (q, k, v, do, lse, delta, dq) + arrays,
+            sizes, q, plan.causal, scale)
+    return dq
+
+
+class _FlashMask(torch.autograd.Function):
+    """The TPU package's ``_fmask`` custom VJP: the forward saves
+    ``(q, k, v, out, lse)`` and the plan; the backward launches dK/dV, then
+    dQ."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, plan: FlashmaskPlan, scale: float):
+        out, lse = flashmask_fwd(q, k, v, plan, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.plan, ctx.scale = plan, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = fa.attention_delta(do, out)
+        dk, dv = flashmask_bwd_dkv(q, k, v, do, lse, delta, ctx.plan,
+                                   ctx.scale)
+        dq = flashmask_bwd_dq(q, k, v, do, lse, delta, ctx.plan, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flashmask_attention_kernel(query, key, value, startend,
+                               scale: Optional[float] = None,
+                               causal: bool = True) -> torch.Tensor:
+    """Differentiable flashmask attention in paddle's layout: query
+    ``[B, Sq, H, D]``, key and value ``[B, Sk, H, D]``, ``startend``
+    ``[B, 1 or H, Sk, 1 or 2]`` on the query's device. Like the TPU
+    ``_flashmask_body``, moves the heads to ``[B*H, S, D]`` with one copy
+    per tensor; returns ``[B, Sq, H, D]``."""
+    if query.dim() != 4:
+        raise ValueError(f"flashmask attention takes [B, S, H, D] tensors, "
+                         f"got query {tuple(query.shape)}")
+    b, sq, h, d = query.shape
+    sk = key.shape[1]
+    if tuple(key.shape) != (b, sk, h, d) or value.shape != key.shape:
+        raise ValueError(f"shape mismatch: query {tuple(query.shape)}, key "
+                         f"{tuple(key.shape)}, value {tuple(value.shape)}")
+    _check_startend(startend, b, h, sk, query.device)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    plan = flashmask_plan(startend, h, causal)
+    q, k, v = (x.transpose(1, 2).reshape(b * h, x.shape[1], d).contiguous()
+               for x in (query, key, value))
+    out = _FlashMask.apply(q, k, v, plan, float(scale))
+    return out.view(b, h, sq, d).transpose(1, 2)

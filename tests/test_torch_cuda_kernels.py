@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-The fixed-length kernels (``flash_attention.py``) and their varlen
-instantiations (``flash_varlen.py``). Marked ``cuda``: each test asks for the ``cuda`` fixture, which skips when
+The fixed-length kernels (``flash_attention.py``) and their varlen and
+flashmask instantiations (``flash_varlen.py``). Marked ``cuda``: each test asks for the ``cuda`` fixture, which skips when
 there is no CUDA device (decided at run time, never at import). Imports
 neither JAX nor the JAX package, so it runs on a machine without them:
 
@@ -188,7 +188,8 @@ def test_varlen_autograd_counts_one_launch_each(cuda):
     fv.flash_attn_varlen(q, k, v, cu_q, cu_k, causal=True).backward(do)
     torch.cuda.synchronize()
     assert fv.LAUNCHES == {"varlen_fwd": 1, "varlen_bwd_dkv": 1,
-                           "varlen_bwd_dq": 1}
+                           "varlen_bwd_dq": 1, "flashmask_fwd": 0,
+                           "flashmask_bwd_dkv": 0, "flashmask_bwd_dq": 0}
 
 
 @pytest.mark.parametrize("bad", ["fp16", "head_dim_80", "cu_on_cpu",
@@ -209,3 +210,103 @@ def test_varlen_wrappers_raise_on_what_the_kernel_does_not_take(cuda, bad):
                               True)
     with pytest.raises((TypeError, ValueError)):
         fv.varlen_fwd(q, k, v, plan, 0.125)
+
+
+# --------------------------------------------------------------- flashmask
+
+def _flashmask_inputs(device, b, h, sq, sk, d, dtype, cols, hs, seed=0):
+    """[B*H, S, D] q, k, v, dO and a startend [b, hs, sk, cols] from a
+    seed: random two-column bans, plus rows [40, 50) banned by every
+    column (rows that see no key)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(s):
+        return torch.randn(b * h, s, d, generator=gen, device=device).to(dtype)
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, (b, hs, sk, 1), generator=gen,
+                             device=device)
+
+    if cols == 2:
+        startend = torch.cat([ints(0, 41), ints(50, sq + 30)], -1)
+    else:
+        startend = ints(1, sq + 2)
+    return rnd(sq), rnd(sk), rnd(sk), rnd(sq), startend.int()
+
+
+# (batch, heads, sq, sk, start/end rows per batch row, columns): per-head
+# two columns with sq != sk both ways (rows 40..49 see no key); shared
+# one-column (open-ended) bans with sq > sk
+FLASHMASK_SHAPES = {
+    "per_head_sq_gt_sk": (2, 3, 200, 136, 3, 2),
+    "per_head_sq_lt_sk": (1, 3, 100, 200, 3, 2),
+    "shared_start_only": (2, 3, 200, 72, 1, 1),
+}
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("shape", sorted(FLASHMASK_SHAPES))
+def test_flashmask_kernels_match_plain(cuda, shape, d, dtype, causal):
+    b, h, sq, sk, hs, cols = FLASHMASK_SHAPES[shape]
+    q, k, v, do, startend = _flashmask_inputs(cuda, b, h, sq, sk, d, dtype,
+                                              cols, hs)
+    plan = fv.flashmask_plan(startend, h, causal)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = fv.flashmask_fwd(q, k, v, plan, scale)
+    p_out, p_lse = fv.flashmask_fwd_plain(q, k, v, plan, scale)
+    abs_v_out = fv.flashmask_fwd_plain(q, k, v.abs(), plan, scale)[0]
+    delta = fa.attention_delta(do, out)
+    dk, dv = fv.flashmask_bwd_dkv(q, k, v, do, lse, delta, plan, scale)
+    p_dk, p_dv = fv.flashmask_bwd_dkv_plain(q, k, v, do, lse, delta, plan,
+                                            scale)
+    dq = fv.flashmask_bwd_dq(q, k, v, do, lse, delta, plan, scale)
+    p_dq = fv.flashmask_bwd_dq_plain(q, k, v, do, lse, delta, plan, scale)
+    torch.cuda.synchronize()
+    for key, got, want in (("out", out, p_out), ("lse", lse, p_lse),
+                           ("dq", dq, p_dq), ("dk", dk, p_dk),
+                           ("dv", dv, p_dv)):
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= _limit(dtype, key, want, abs_v_out)).all()), \
+            (key, err.max().item())
+    # rows that see no key: out, lse and dq exactly 0
+    blind = ~fv.flashmask_mask(plan, b * h, sq, sk).any(-1)
+    if cols == 2:
+        assert blind[:, 40:50].all()
+    assert not out[blind].any() and not dq[blind].any()
+    assert not lse[blind].any()
+
+
+def test_flashmask_autograd_counts_one_launch_each(cuda):
+    q, k, v, do, startend = _flashmask_inputs(cuda, 2, 3, 200, 200, 64,
+                                              torch.bfloat16, 1, 1, seed=2)
+    q, k, v, do = (t.view(2, 3, 200, 64).transpose(1, 2) for t in (q, k, v, do))
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    fv.reset_launches()
+    fv.flashmask_attention_kernel(q, k, v, startend).backward(do)
+    torch.cuda.synchronize()
+    assert fv.LAUNCHES == {"varlen_fwd": 0, "varlen_bwd_dkv": 0,
+                           "varlen_bwd_dq": 0, "flashmask_fwd": 1,
+                           "flashmask_bwd_dkv": 1, "flashmask_bwd_dq": 1}
+
+
+@pytest.mark.parametrize("bad", ["fp16", "head_dim_80", "startend_on_cpu",
+                                 "plan_on_cpu"])
+def test_flashmask_wrappers_raise_on_what_the_kernel_does_not_take(cuda, bad):
+    q, k, v, _, startend = _flashmask_inputs(cuda, 1, 2, 128, 128, 64,
+                                             torch.float32, 2, 2)
+    if bad == "startend_on_cpu":
+        x = q.view(1, 2, 128, 64).transpose(1, 2)
+        with pytest.raises(ValueError):
+            fv.flashmask_attention_kernel(x, x, x, startend.cpu())
+        return
+    plan = fv.flashmask_plan(startend.cpu() if bad == "plan_on_cpu"
+                             else startend, 2, True)
+    if bad == "fp16":
+        q, k, v = q.half(), k.half(), v.half()
+    elif bad == "head_dim_80":
+        q, k, v = (torch.cat([t, t[..., :16]], -1) for t in (q, k, v))
+    with pytest.raises((TypeError, ValueError)):
+        fv.flashmask_fwd(q, k, v, plan, 0.125)
