@@ -7,9 +7,10 @@ toolkit (``nvcc``). Phases, each printed as it runs:
 
 1. the card: name, count, and ``nvidia-smi``'s name and power limit;
 2. builds the nine flash-attention kernels (forward, dK/dV and dQ, each
-   fixed-length, varlen and flashmask) from the three sources of
-   ``paddle_tpu_torch/csrc`` (``nvcc``, ``sm_90a``), printing build seconds
-   and ptxas's register and shared-memory lines;
+   fixed-length, varlen and flashmask) and the RMSNorm and SwiGLU kernels
+   from the four sources of ``paddle_tpu_torch/csrc`` (``nvcc``,
+   ``sm_90a``, one process per source, all at once), printing build
+   seconds and ptxas's register and shared-memory lines;
 3. holds each kernel against its plain PyTorch version: the fixed-length
    ones at the training shape (``[8, 16, 1024, 64]`` bf16, causal) and at
    a cross shape (sq 128, sk 256, causal, head_dim 32, fp32); the varlen
@@ -22,11 +23,15 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    version one batch row and head at a time) and at an edge shape (fp32,
    head_dim 128, per-head two-column start/end rows, sq 200 != sk 136;
    causal and not). At the edge shapes the rows that see no key must give
-   out, lse and dq of exactly 0;
+   out, lse and dq of exactly 0. RMSNorm and SwiGLU at the fused-op path's
+   tensors (Llama-2-7B widths, 8192 tokens, bf16) and at edge shapes (fp32
+   and fp16, 37 rows, rows of 1000 and 1003, a float32 weight or gate
+   beside bf16 x, the split form with unaligned halves);
 4. times each kernel, its plain version and, as a yardstick only,
    ``scaled_dot_product_attention`` (which the port never calls; for the
-   varlen and flashmask kernels with the dense bool mask), beside the
-   least time the card could take for the same work;
+   varlen and flashmask kernels with the dense bool mask) and
+   ``torch.nn.functional.rms_norm``, beside the least time the card could
+   take for the same work;
 5. checks the training step on a small GPT against the port's CPU path
    (the path the CPU tests hold against the JAX package), then drives the
    main path: gpt2-medium at full width (24 layers, hidden 1024), batch 8,
@@ -44,7 +49,18 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    flashmask kernel exactly once and gave the checked kernels' results bit
    for bit, holds its document-mask batch row against
    ``flash_attn_unpadded`` over the same documents, and times it;
-8. prints the ``kernels`` JSON line, the card line, and last
+8. drives the fused-op path: the MLP half of a Llama-2-7B decoder layer
+   over 8192 tokens through ``incubate.nn.functional`` (``fused_rms_norm``
+   with a residual, the gate/up product, the split ``swiglu``, the down
+   product), forward and backward; checks one launch of each kernel, the
+   kernels' phase-3 results bit for bit, the output and gradients against
+   the same composition through the plain versions, and times it;
+9. drives the LLaMA path: a small fp32 LLaMA step against the port's CPU
+   path, then Llama-2-7B's widths with the depth cut to 8 layers, batch 4,
+   seq 2048, bf16, fp32 master, remat, AdamW, 1 warm-up and 5 timed steps;
+   checks that no port kernel launched (the reference's LLaMA calls
+   none), and profiles one step;
+10. prints the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. It never falls back
@@ -53,6 +69,7 @@ doing anything.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -63,7 +80,9 @@ import numpy as np
 import torch
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+DEVICE_BYTES = 80e9        # H100 SXM device memory
 BATCH, SEQ, HEADS, HEAD_DIM = 8, 1024, 16, 64
 TIMED_STEPS = 5
 PHASES = ("forward", "optimizer")  # the trainer's profiler ranges
@@ -80,6 +99,11 @@ EDGE = ([70, 0, 45, 130, 20], [90, 33, 60, 2, 0], 15, 5)
 FM_SEQ = 4096
 FM_GROUPS = [(512, [300, 180, 420]), (260, [700, 90]), (1000, [333, 301])]
 FM_DOCS = [1024, 37, 611, 2048, 129, 247]
+# the fused-op path: widths of this LLaMA config over one step's tokens
+FUSED_CFG, FUSED_TOKENS = "llama2-7b", (4, 2048)
+# the LLaMA path: this config with its depth cut to LLAMA_LAYERS (all 32
+# layers' weights, fp32 master and moments, 108 GB, exceed one card)
+LLAMA_CFG, LLAMA_LAYERS, LLAMA_BATCH, LLAMA_SEQ = "llama2-7b", 8, 4, 2048
 # per kernel: (module source, TPU kernel it replaces)
 KERNELS = {
     "flash_fwd": ("paddle_tpu_torch/csrc/flash_fwd.cu",
@@ -88,6 +112,10 @@ KERNELS = {
                       "paddle_tpu/ops/pallas/flash_attention.py:156"),
     "flash_bwd_dq": ("paddle_tpu_torch/csrc/flash_bwd_dq.cu",
                      "paddle_tpu/ops/pallas/flash_attention.py:205"),
+    "rms_norm": ("paddle_tpu_torch/csrc/fused.cu",
+                 "paddle_tpu/ops/pallas/fused.py:33"),
+    "swiglu": ("paddle_tpu_torch/csrc/fused.cu",
+               "paddle_tpu/ops/pallas/fused.py:108"),
     "varlen_fwd": ("paddle_tpu_torch/csrc/flash_fwd.cu",
                    "paddle_tpu/ops/pallas/flash_varlen.py:117"),
     "varlen_bwd_dkv": ("paddle_tpu_torch/csrc/flash_bwd_dkv.cu",
@@ -103,6 +131,7 @@ KERNELS = {
 }
 VARLEN = ("varlen_fwd", "varlen_bwd_dkv", "varlen_bwd_dq")
 FLASHMASK = ("flashmask_fwd", "flashmask_bwd_dkv", "flashmask_bwd_dq")
+FUSED = ("rms_norm", "swiglu")
 
 
 def share_question_starts(groups) -> np.ndarray:
@@ -188,7 +217,8 @@ def build():
         for line in info.ptxas:
             print(f"  {line}")
     print(f"build wall {wall:.1f} s (nvcc processes run in parallel; each "
-          f"library holds a fixed-length, a varlen and a flashmask kernel)")
+          f"flash library holds a fixed-length, a varlen and a flashmask "
+          f"kernel, the fused one RMSNorm and SwiGLU)")
     check(set(infos) == set(_build.SOURCES), f"built {sorted(infos)}")
 
 
@@ -455,6 +485,119 @@ def hold_flashmask_against_plain(b, sq, sk, h, d, dtype, causal, startend,
             (out, dq, dk, dv), abs_v_out)
 
 
+def fused_widths():
+    """(hidden, intermediate, eps) of the fused-op path's LLaMA config."""
+    from paddle_tpu_torch.models.llama import LLAMA_CONFIGS
+    cfg = LLAMA_CONFIGS[FUSED_CFG]
+    return cfg.hidden_size, cfg.intermediate_size, cfg.rms_norm_eps
+
+
+def fused_path_inputs(seed=10):
+    """The fused-op path's tensors from a seed, bf16: x and the residual r
+    ``[B, S, H]``, the norm weight w ``[H]`` (about 1), the gate/up weight
+    ``[H, 2F]`` and the down weight ``[F, H]`` (std 0.02, the config's
+    init), and the output's gradient dy ``[B, S, H]``."""
+    h, f, _ = fused_widths()
+    b, s = FUSED_TOKENS
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                + shift).to(torch.bfloat16)
+
+    return (rnd((b, s, h)), rnd((b, s, h)), rnd((h,), 0.1, 1.0),
+            rnd((h, 2 * f), 0.02), rnd((f, h), 0.02), rnd((b, s, h)))
+
+
+_MANTISSA = {torch.bfloat16: 7, torch.float16: 10}
+
+
+def fused_limit(want):
+    """Per-element bound on |kernel - plain| for RMSNorm and SwiGLU: both
+    compute in fp32 and round once, so in bf16 and fp16 an element may
+    land one ulp of itself away (plus 1e-6 of the largest element for the
+    fp32 sums); in fp32, 4e-6 relative (the order of the sums, ``expf``
+    against ``sigmoid``)."""
+    w = want.float().abs()
+    if want.dtype == torch.float32:
+        return 4e-6 * w + 1e-6 * w.max()
+    _, e = torch.frexp(w)
+    ulp = torch.ldexp(torch.ones_like(w), torch.clamp(
+        e - 1 - _MANTISSA[want.dtype], min=-14 - _MANTISSA[want.dtype]))
+    return ulp + 1e-6 * w.max()
+
+
+def hold_fused(name, got, want, shape):
+    """Checks one fused kernel's result against its plain version; returns
+    the max abs error."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{name} gave {got.dtype} {tuple(got.shape)} at {shape}")
+    check(bool(torch.isfinite(got.float()).all()), f"{name} non-finite at "
+          f"{shape}")
+    err, ratio = within(got, want, fused_limit(want))
+    print(f"{name} {shape}: max abs err {err:.3g}; {ratio:.3g} of the "
+          f"limit{' (bit-equal)' if torch.equal(got, want) else ''}")
+    check(math.isfinite(ratio) and ratio <= 1.0,
+          f"{name} at {ratio:.3g} of its limit at {shape}")
+    return err
+
+
+# the fused kernels' edge shapes: (rows, H, x type, w type) and (rows, F,
+# x type, g type, split form). 1000 = 8 * 125 takes the 16-byte path with
+# part of each block idle, 1003 and 1001 the scalar path; the split form at
+# F = 1001 reads unaligned halves in place
+RMS_EDGE = [(37, 1000, torch.float32, torch.float32),
+            (37, 1000, torch.float16, torch.float16),
+            (37, 1000, torch.bfloat16, torch.float32),
+            (37, 1003, torch.bfloat16, torch.bfloat16),
+            (37, 1003, torch.float16, torch.float32)]
+SWIGLU_EDGE = [(37, 1001, torch.bfloat16, torch.bfloat16, True),
+               (37, 1000, torch.bfloat16, torch.float32, False),
+               (37, 1001, torch.float32, torch.float32, False),
+               (37, 2000, torch.float16, torch.float16, True)]
+
+
+def fused_checks():
+    """RMSNorm and SwiGLU against their plain versions on the fused-op
+    path's tensors (the norm of ``x + r``, then the split SwiGLU of its
+    gate/up product, as phase 8 computes them), then at the edge shapes.
+    Returns the path-shape errors and the kernels' path results (on the
+    host, for phase 8's bit-for-bit check)."""
+    from paddle_tpu_torch.ops.cuda import fused as fu
+    h, f, eps = fused_widths()
+    x, r, w, w_gu, _, _ = fused_path_inputs()
+    hsum = (x + r).reshape(-1, h)
+    hn = fu.rms_norm_fwd(hsum, w, eps)
+    errs = {"rms_norm": hold_fused("rms_norm", hn, fu.rms_norm_fwd_plain(
+        hsum, w, eps), f"{list(hsum.shape)} bf16 w bf16")}
+    gu = (hn.reshape(x.shape) @ w_gu).reshape(-1, 2 * f)
+    a = fu.swiglu_fwd(gu[:, :f], gu[:, f:])
+    errs["swiglu"] = hold_fused("swiglu", a, fu.swiglu_fwd_plain(
+        gu[:, :f], gu[:, f:]), f"split {list(gu.shape)} bf16")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def rnd(shape, dtype, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                + shift).to(dtype)
+
+    for n, hh, xt, wt in RMS_EDGE:
+        xe, we = rnd((n, hh), xt, 2.0, 0.3), rnd((hh,), wt, 0.2, 1.0)
+        hold_fused("rms_norm", fu.rms_norm_fwd(xe, we, eps),
+                   fu.rms_norm_fwd_plain(xe, we, eps),
+                   f"[{n}, {hh}] {xt} w {wt}")
+    for n, ff, xt, gt, split in SWIGLU_EDGE:
+        if split:
+            xg = rnd((n, 2 * ff), xt, 3.0)
+            xe, ge = xg[:, :ff], xg[:, ff:]
+        else:
+            xe, ge = rnd((n, ff), xt, 3.0), rnd((n, ff), gt)
+        hold_fused("swiglu", fu.swiglu_fwd(xe, ge),
+                   fu.swiglu_fwd_plain(xe, ge),
+                   f"{'split ' if split else ''}[{n}, {ff}] {xt} g {gt}")
+    torch.cuda.synchronize()
+    return errs, (hn.cpu(), a.cpu())
+
+
 def kernel_checks():
     phase("3 kernels against their plain versions")
     errs = hold_against_plain(BATCH * HEADS, SEQ, SEQ, HEAD_DIM,
@@ -474,7 +617,9 @@ def kernel_checks():
     for causal in (False, True):
         hold_flashmask_against_plain(2, 200, 136, 4, 128, torch.float32,
                                      causal, edge_startend, seed=8)
-    return errs, varlen_results, (fm_results, fm_abs_v)
+    fused_errs, fused_results = fused_checks()
+    errs.update(fused_errs)
+    return errs, varlen_results, (fm_results, fm_abs_v), fused_results
 
 
 def bounds(bh, s, d, io_bytes):
@@ -496,11 +641,11 @@ def bounds(bh, s, d, io_bytes):
     return {name: _bound(*fb) for name, fb in work.items()}
 
 
-def _bound(flops, nbytes):
+def _bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
     """(least ms, what bounds it, flops, bytes) for work of ``flops``
-    operations at the bf16 tensor-core peak and ``nbytes`` at the memory
-    rate."""
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    operations at ``peak`` (default the bf16 tensor-core peak) and
+    ``nbytes`` at the memory rate."""
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
             else "bytes", flops, nbytes)
@@ -691,6 +836,46 @@ def flashmask_timings():
     return ms, plain_ms, library_ms, bnd
 
 
+def fused_timings():
+    """RMSNorm and SwiGLU at the fused-op path's shapes, each beside its
+    plain version, the library's ``rms_norm`` (a yardstick only; the port
+    never calls it; SwiGLU has no single library call) and its bound:
+    each input read once, each output written once, at the memory rate;
+    the fp32 operations (RMSNorm x*x, +, *r, *w; SwiGLU -x, exp, +, /, *g,
+    exp counted as one) at the fp32 peak outside the tensor cores."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import fused as fu
+    h, f, eps = fused_widths()
+    x, r, w, w_gu, _, _ = fused_path_inputs(seed=12)
+    hsum = (x + r).reshape(-1, h)
+    gu = (fu.rms_norm_fwd(hsum, w, eps).reshape(x.shape) @ w_gu).reshape(
+        -1, 2 * f)
+    xa, ga = gu[:, :f], gu[:, f:]
+    n = hsum.shape[0]
+    ms = {"rms_norm": cuda_ms(lambda: fu.rms_norm_fwd(hsum, w, eps), 20),
+          "swiglu": cuda_ms(lambda: fu.swiglu_fwd(xa, ga), 20)}
+    plain_ms = {
+        "rms_norm": cuda_ms(lambda: fu.rms_norm_fwd_plain(hsum, w, eps), 5),
+        "swiglu": cuda_ms(lambda: fu.swiglu_fwd_plain(xa, ga), 5)}
+    library_ms = {"rms_norm": cuda_ms(lambda: F.rms_norm(hsum, (h,), w, eps),
+                                      20),
+                  "swiglu": None}
+    bnd = {"rms_norm": _bound(4 * n * h, 2 * 2 * n * h + 2 * h,
+                              PEAK_FP32_FLOPS),
+           "swiglu": _bound(5 * n * f, 3 * 2 * n * f, PEAK_FP32_FLOPS)}
+    for name, shape in (("rms_norm", f"[{n}, {h}]"),
+                        ("swiglu", f"split [{n}, {2 * f}] -> [{n}, {f}]")):
+        b_ms, b_by, flops, nbytes = bnd[name]
+        lib = library_ms[name]
+        print(f"{name} {shape} bf16: {ms[name]:.4f} ms, plain "
+              f"{plain_ms[name]:.4f} ms, library "
+              f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+              f"{b_ms:.4f} ms ({b_by}; {flops:.3e} FLOP, "
+              f"{nbytes / 1e6:.1f} MB), {b_ms / ms[name]:.1%} of bound, "
+              f"{nbytes / (ms[name] / 1e3) / 1e12:.3f} TB/s")
+    return ms, plain_ms, library_ms, bnd
+
+
 def timings():
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
@@ -741,8 +926,11 @@ def timings():
           f"{ms['flash_bwd_dkv'] + ms['flash_bwd_dq'] + delta_ms:.4f} ms")
     v_ms, v_plain, v_lib, v_bnd = varlen_timings()
     f_ms, f_plain, f_lib, f_bnd = flashmask_timings()
-    return ({**ms, **v_ms, **f_ms}, {**plain_ms, **v_plain, **f_plain},
-            {**library_ms, **v_lib, **f_lib}, {**bnd, **v_bnd, **f_bnd})
+    u_ms, u_plain, u_lib, u_bnd = fused_timings()
+    return ({**ms, **v_ms, **f_ms, **u_ms},
+            {**plain_ms, **v_plain, **f_plain, **u_plain},
+            {**library_ms, **v_lib, **f_lib, **u_lib},
+            {**bnd, **v_bnd, **f_bnd, **u_bnd})
 
 
 def small_step_check():
@@ -840,12 +1028,14 @@ def main_path():
 def _kernel_group(name: str) -> str:
     if "pt_flash" in name:
         return "flash attention (port)"
+    if "pt_fused" in name:
+        return "RMSNorm / SwiGLU (port)"
     if any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass")):
         return "matmul (cuBLAS)"
     if "index" in name or "embedding" in name or "scatter" in name:
         return "embedding / index"
     if any(k in name for k in ("softmax", "log_softmax", "nll", "gather")):
-        return "loss"
+        return "softmax / loss"
     if "reduce" in name:
         return "reductions"
     return "elementwise / other"
@@ -896,6 +1086,21 @@ def profile_step(step, state, tokens, labels, step_ms):
     for e in top:
         print(f"  top: {e.self_device_time_total / 1e3:8.2f} ms "
               f"x{e.count:<5d} {e.key[:110]}")
+
+
+def _all_launches():
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import flash_varlen as fv
+    from paddle_tpu_torch.ops.cuda import fused as fu
+    return {**fa.LAUNCHES, **fv.LAUNCHES, **fu.LAUNCHES}
+
+
+def _reset_all_launches():
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import flash_varlen as fv
+    from paddle_tpu_torch.ops.cuda import fused as fu
+    for mod in (fa, fv, fu):
+        mod.reset_launches()
 
 
 def varlen_path(expected, smi):
@@ -956,8 +1161,6 @@ def flashmask_path(expected, smi):
     against ``flash_attn_unpadded`` over the same documents: the same
     pairs in the same 64-row tiles, held to phase 3's per-element limit."""
     import paddle_tpu_torch.nn.functional as F
-    from paddle_tpu_torch.ops.cuda import flash_attention as fa
-    from paddle_tpu_torch.ops.cuda import flash_varlen as fv
     phase("7 flashmask path")
     (e_out, e_dq, e_dk, e_dv), abs_v_out = expected
     b, s, h, d = 2, FM_SEQ, HEADS, HEAD_DIM
@@ -973,13 +1176,12 @@ def flashmask_path(expected, smi):
         return out
 
     torch.cuda.synchronize()
-    fa.reset_launches()
-    fv.reset_launches()
+    _reset_all_launches()
     t0 = time.perf_counter()
     out = fwd_bwd()
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
-    launches = {**fa.LAUNCHES, **fv.LAUNCHES}
+    launches = _all_launches()
     print(f"launches in one forward and backward: {launches}")
     for kname, n in launches.items():
         want = 1 if kname in FLASHMASK else 0
@@ -1024,13 +1226,199 @@ def flashmask_path(expected, smi):
     return launches, ms
 
 
+def path_limit(want):
+    """Per-element bound on |fused path - plain composition| for bf16
+    results that come out of products over thousands of terms whose
+    inputs may sit one bf16 ulp apart: one ulp of the element (2^-7 of
+    it) plus half an ulp of the largest element."""
+    w = want.float().abs()
+    return 2 ** -7 * w + 2 ** -8 * w.max()
+
+
+def fused_path(expected, smi):
+    """The MLP half of a decoder layer at the fused-op path's widths,
+    through ``incubate.nn.functional``, forward and backward:
+
+        h, res = fused_rms_norm(x, w, residual=r)
+        a = swiglu(h @ W_gu)        # the split form
+        y = a @ W_down
+
+    One RMSNorm and one SwiGLU launch in the forward and none in the
+    backward (its closed forms are plain torch); h and a equal bit for bit
+    the kernels' phase-3 results on the same tensors; y and the gradients
+    of x, r, w, W_gu and W_down within ``path_limit`` of the same
+    composition through the plain versions."""
+    import paddle_tpu_torch.incubate.nn.functional as IF
+    from paddle_tpu_torch.ops.cuda import fused as fu
+    phase("8 fused-op path")
+    e_h, e_a = expected
+    hid, f, eps = fused_widths()
+    x, r, w, w_gu, w_down, dy = fused_path_inputs()
+    leaves = (x, r, w, w_gu, w_down)
+    for t in leaves:
+        t.requires_grad_()
+
+    def forward():
+        h, res = IF.fused_rms_norm(x, w, epsilon=eps, residual=r)
+        a = IF.swiglu(h @ w_gu)
+        return h, res, a, a @ w_down
+
+    def fwd_bwd():
+        for t in leaves:
+            t.grad = None
+        y = forward()[3]
+        y.backward(dy)
+        return y
+
+    torch.cuda.synchronize()
+    _reset_all_launches()
+    t0 = time.perf_counter()
+    h, res, a, y = forward()
+    torch.cuda.synchronize()
+    fwd_launches = _all_launches()
+    y.backward(dy)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = _all_launches()
+    print(f"launches in the forward: {fwd_launches}; after the backward: "
+          f"{launches}")
+    for kname, n in launches.items():
+        want = 1 if kname in FUSED else 0
+        check(n == want and fwd_launches[kname] == want,
+              f"{kname} launched {n} times, want {want}, all in the forward")
+    check(torch.equal(res, (x + r).detach()), "residual output is not x + r")
+    for key, got, want in (("h", h.reshape(-1, hid), e_h),
+                           ("a", a.reshape(-1, f), e_a)):
+        check(torch.equal(got.detach().cpu(), want), f"path {key} differs "
+              f"from the checked kernel's result (max "
+              f"{_err(got.detach().cpu(), want):.3g})")
+    print("h and a equal to the checked kernels' results, bit for bit")
+
+    # the same composition through the plain versions, under autograd
+    plain = [t.detach().clone().requires_grad_() for t in leaves]
+    px, pr, pw, pgu, pdown = plain
+    ph = fu.rms_norm_fwd_plain(px + pr, pw, eps)
+    pg = ph @ pgu
+    py = fu.swiglu_fwd_plain(pg[..., :f], pg[..., f:]) @ pdown
+    py.backward(dy)
+    parts = []
+    for key, got, want in [("y", y, py)] + [
+            (f"d{k}", t.grad, p.grad) for k, t, p in zip(
+                ("x", "r", "w", "W_gu", "W_down"), leaves, plain)]:
+        check(bool(torch.isfinite(got.float()).all()), f"path {key} "
+              f"non-finite")
+        err, ratio = within(got.detach(), want.detach(), path_limit(want))
+        check(math.isfinite(ratio) and ratio <= 1.0,
+              f"path {key} at {ratio:.3g} of its limit")
+        parts.append(f"{key} {err:.3g} ({ratio:.3g} of the limit)")
+    print("against the plain composition: " + ", ".join(parts))
+    del plain, px, pr, pw, pgu, pdown, ph, pg, py
+
+    ms = cuda_ms(fwd_bwd, 10)
+    tokens = x.shape[0] * x.shape[1]
+    print(f"fused-op path ({FUSED_CFG} widths: hidden {hid}, intermediate "
+          f"{f}; {tokens} tokens, bf16) fwd+bwd: {ms:.4f} ms "
+          f"({tokens / (ms / 1e3):.1f} tokens/s; first call {first_ms:.2f} "
+          f"ms host clock) on {smi}")
+    return {kname: launches[kname] for kname in FUSED}, ms
+
+
+def small_llama_check():
+    """The CUDA LLaMA train step against the port's CPU path on a small
+    fp32 GQA config: two steps from the same state, held as
+    ``small_step_check`` holds the GPT."""
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.models.trainer import tree_leaves, tree_map
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=128,
+                            intermediate_size=352, num_layers=2, num_heads=4,
+                            num_kv_heads=2, max_position_embeddings=256,
+                            dtype="float32")
+    init_fn, cuda_step = llama.build_train_step(cfg, device="cuda")
+    _, cpu_step = llama.build_train_step(cfg, device="cpu")
+    state = init_fn(0)
+    cpu_state = tree_map(lambda t: t.cpu(), state)
+    rng = np.random.RandomState(1)
+    tokens = torch.from_numpy(rng.randint(0, 512, (2, 128)))
+    labels = torch.from_numpy(rng.randint(0, 512, (2, 128)))
+    for i in range(2):
+        state, loss = cuda_step(state, tokens.cuda(), labels.cuda())
+        cpu_state, cpu_loss = cpu_step(cpu_state, tokens, labels)
+        print(f"small llama step {i}: cuda loss {loss.item():.6f} "
+              f"cpu loss {cpu_loss.item():.6f}")
+        check(abs(loss.item() - cpu_loss.item())
+              <= 1e-5 * abs(cpu_loss.item()), "small llama step loss")
+    err = max(_err(a.cpu(), b) for a, b in zip(
+        tree_leaves(state["master"]), tree_leaves(cpu_state["master"])))
+    print(f"small llama step master max abs err {err:.3g}")
+    check(err <= 1e-4, f"small llama step master err {err}")
+
+
+def llama_path(smi):
+    """The LLaMA trainer at ``LLAMA_CFG``'s widths with the depth cut to
+    ``LLAMA_LAYERS``: bf16 params, fp32 master, remat per block, AdamW,
+    batch ``LLAMA_BATCH`` x seq ``LLAMA_SEQ``, 1 warm-up and 5 timed
+    steps. No port kernel may launch: the reference's LLaMA calls none."""
+    from paddle_tpu_torch.models import llama
+    phase("9 llama path")
+    small_llama_check()
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(llama.LLAMA_CONFIGS[LLAMA_CFG],
+                              num_layers=LLAMA_LAYERS)
+    b, s = LLAMA_BATCH, LLAMA_SEQ
+    init_fn, step = llama.build_train_step(cfg, lr=1e-4, remat=True,
+                                           device="cuda")
+    state = init_fn(0)
+    rng = np.random.RandomState(0)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).cuda()
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_launches()
+    losses, step_ms = [], []
+    for i in range(1 + TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, tokens, labels)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        losses.append(loss.item())
+        if i:
+            step_ms.append(dt)
+        print(f"step {i}{' (warm-up)' if not i else ''}: loss "
+              f"{losses[-1]:.5f} {dt:.1f} ms")
+    launches = _all_launches()
+    print(f"port kernel launches over {1 + TIMED_STEPS} steps: {launches}")
+    check(not any(launches.values()), "the LLaMA path launched a port "
+          "kernel; its reference calls none")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    print(f"losses fell at {sum(b_ < a_ for a_, b_ in zip(losses, losses[1:]))}"
+          f" of {len(losses) - 1} steps")
+    med_ms = float(np.median(step_ms))
+    tok_s = b * s / (med_ms / 1e3)
+    n_params = llama.num_params(cfg)
+    flops_per_token = 6 * n_params + 12 * cfg.num_layers * s \
+        * cfg.hidden_size
+    mfu = flops_per_token * tok_s / PEAK_BF16_FLOPS
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{LLAMA_CFG} widths, {cfg.num_layers} layers ({n_params} "
+          f"parameters, {flops_per_token / 1e9:.3f} GFLOP per token) b{b} "
+          f"s{s} bf16 remat adamw: median {med_ms:.2f} ms/step of "
+          f"{TIMED_STEPS} (steps {[round(x, 2) for x in step_ms]}), "
+          f"{tok_s:.1f} tokens/s, MFU {mfu:.4f} of 989 TFLOP/s, peak memory "
+          f"{peak / 2**30:.2f} GiB on {smi}")
+    check(peak < DEVICE_BYTES, f"peak memory {peak} >= {DEVICE_BYTES}")
+    profile_step(step, state, tokens, labels, med_ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     name, count, smi = card()
     build()
-    errs, varlen_results, flashmask_expected = kernel_checks()
+    errs, varlen_results, flashmask_expected, fused_expected = \
+        kernel_checks()
     ms, plain_ms, library_ms, bnd = timings()
     torch.cuda.empty_cache()
     launches = main_path()
@@ -1040,7 +1428,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     flashmask_launches, _ = flashmask_path(flashmask_expected, smi)
     launches.update(flashmask_launches)
-    phase("8 results")
+    torch.cuda.empty_cache()
+    fused_launches, _ = fused_path(fused_expected, smi)
+    launches.update(fused_launches)
+    torch.cuda.empty_cache()
+    llama_path(smi)
+    phase("10 results")
     rows = []
     for kname, (source, replaces) in KERNELS.items():
         rows.append({

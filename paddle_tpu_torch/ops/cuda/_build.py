@@ -3,9 +3,9 @@
 Each ``paddle_tpu_torch/csrc/<name>.cu`` is compiled on its own by ``nvcc``
 for Hopper (``sm_90a``) into ``paddle_tpu_torch/csrc/build/lib<name>-<hash>.so``,
 a library with a plain C interface that :mod:`ctypes` loads. The hash covers
-the source, the shared header and the flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is. Builds of several sources run as
-parallel ``nvcc`` processes. Nothing is built when this module is imported:
+the source, the port's headers it includes and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is. Builds of several
+sources run as parallel ``nvcc`` processes. Nothing is built when this module is imported:
 the first call that needs a kernel builds it.
 """
 from __future__ import annotations
@@ -22,11 +22,12 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
-HEADERS = ("flash_common.cuh",)
+# name -> (source, the port's headers it includes)
 SOURCES = {
-    "flash_fwd": "flash_fwd.cu",
-    "flash_bwd_dkv": "flash_bwd_dkv.cu",
-    "flash_bwd_dq": "flash_bwd_dq.cu",
+    "flash_fwd": ("flash_fwd.cu", ("flash_common.cuh",)),
+    "flash_bwd_dkv": ("flash_bwd_dkv.cu", ("flash_common.cuh",)),
+    "flash_bwd_dq": ("flash_bwd_dq.cu", ("flash_common.cuh",)),
+    "fused": ("fused.cu", ()),
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -55,8 +56,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    source, headers = SOURCES[name]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (SOURCES[name],) + HEADERS:
+    for f in (source,) + headers:
         h.update((CSRC / f).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -79,7 +81,8 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, BuildInfo]:
             out[name] = BuildInfo(name, target, 0.0, [])
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / SOURCES[name][0])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
         running.append((name, target, tmp, proc, time.perf_counter()))

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 The fixed-length kernels (``flash_attention.py``) and their varlen and
-flashmask instantiations (``flash_varlen.py``). Marked ``cuda``: each test asks for the ``cuda`` fixture, which skips when
+flashmask instantiations (``flash_varlen.py``); the RMSNorm and SwiGLU
+kernels (``fused.py``). Marked ``cuda``: each test asks for the ``cuda`` fixture, which skips when
 there is no CUDA device (decided at run time, never at import). Imports
 neither JAX nor the JAX package, so it runs on a machine without them:
 
@@ -14,7 +15,9 @@ running-max rescaling of the online softmax. fp32 io: 1e-5 absolute on
 unit-scale inputs; lse (fp32) 1e-4 in bf16. bf16 outputs are held per
 element (``_limit``): one bf16 ulp of the element itself plus fp32
 summation noise and, for the forward's output, the rounding of P against
-a running rather than the final max.
+a running rather than the final max. RMSNorm and SwiGLU (``_fused_limit``):
+bf16 and fp16 within one ulp of each element plus 1e-6 of the largest, fp32
+4e-6 relative; both sides compute in fp32 and round once.
 """
 import math
 
@@ -23,6 +26,7 @@ import torch
 
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda import flash_varlen as fv
+from paddle_tpu_torch.ops.cuda import fused as fu
 
 pytestmark = pytest.mark.cuda
 
@@ -310,3 +314,132 @@ def test_flashmask_wrappers_raise_on_what_the_kernel_does_not_take(cuda, bad):
         q, k, v = (torch.cat([t, t[..., :16]], -1) for t in (q, k, v))
     with pytest.raises((TypeError, ValueError)):
         fv.flashmask_fwd(q, k, v, plan, 0.125)
+
+
+# ------------------------------------------------------------ rms / swiglu
+
+_MANTISSA = {torch.bfloat16: 7, torch.float16: 10}
+
+
+def _fused_limit(want):
+    """Per-element bound on |kernel - plain| for the fused kernels: one ulp
+    of the element in bf16 and fp16 plus 1e-6 of the largest; fp32 4e-6
+    relative (the sums' order and ``expf`` against ``sigmoid``)."""
+    w = want.float().abs()
+    if want.dtype == torch.float32:
+        return 4e-6 * w + 1e-6 * w.max()
+    _, e = torch.frexp(w)
+    ulp = torch.ldexp(torch.ones_like(w), torch.clamp(
+        e - 1 - _MANTISSA[want.dtype], min=-14 - _MANTISSA[want.dtype]))
+    return ulp + 1e-6 * w.max()
+
+
+def _rand(device, shape, dtype, seed, scale=1.0, shift=0.0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(shape, generator=gen, device=device) * scale
+            + shift).to(dtype)
+
+
+# (rows, H, x type, w type): the path shape, a row not a multiple of the
+# 16-byte vector (1003), one that is (1000 = 8 * 125) with the block's
+# threads not all busy, and each weight type
+RMS_SHAPES = [
+    (64, 4096, torch.bfloat16, torch.bfloat16),
+    (37, 1000, torch.float32, torch.float32),
+    (37, 1000, torch.float16, torch.float16),
+    (37, 1000, torch.bfloat16, torch.float32),
+    (37, 1003, torch.bfloat16, torch.bfloat16),
+    (37, 1003, torch.float16, torch.float32),
+    (5, 1, torch.float32, torch.float32),
+]
+
+
+@pytest.mark.parametrize("n,h,xt,wt", RMS_SHAPES,
+                         ids=[f"{n}x{h}-{str(x)[6:]}-w{str(w)[6:]}"
+                              for n, h, x, w in RMS_SHAPES])
+def test_rms_norm_kernel_matches_plain(cuda, n, h, xt, wt):
+    x = _rand(cuda, (n, h), xt, 0, 2.0, 0.3)
+    w = _rand(cuda, (h,), wt, 1, 0.2, 1.0)
+    got = fu.rms_norm_fwd(x, w, 1e-6)
+    want = fu.rms_norm_fwd_plain(x, w, 1e-6)
+    torch.cuda.synchronize()
+    assert got.dtype == xt and got.shape == (n, h)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= _fused_limit(want)).all()), err.max().item()
+
+
+# (rows, F, x type, g type, split): the path shape (split, 11008), odd F
+# (split halves unaligned), mixed types, fp32 and fp16
+SWIGLU_SHAPES = [
+    (64, 11008, torch.bfloat16, torch.bfloat16, True),
+    (37, 1001, torch.bfloat16, torch.bfloat16, True),
+    (37, 1000, torch.bfloat16, torch.float32, False),
+    (37, 1000, torch.float32, torch.bfloat16, False),
+    (37, 1001, torch.float32, torch.float32, False),
+    (37, 2000, torch.float16, torch.float16, True),
+]
+
+
+@pytest.mark.parametrize("n,f,xt,gt,split", SWIGLU_SHAPES,
+                         ids=[f"{n}x{f}-{str(x)[6:]}-g{str(g)[6:]}"
+                              f"{'-split' if s else ''}"
+                              for n, f, x, g, s in SWIGLU_SHAPES])
+def test_swiglu_kernel_matches_plain(cuda, n, f, xt, gt, split):
+    if split:
+        xg = _rand(cuda, (n, 2 * f), xt, 2, 3.0)
+        x, g = xg[:, :f], xg[:, f:]
+    else:
+        x, g = _rand(cuda, (n, f), xt, 2, 3.0), _rand(cuda, (n, f), gt, 3)
+    got = fu.swiglu_fwd(x, g)
+    want = fu.swiglu_fwd_plain(x, g)
+    torch.cuda.synchronize()
+    assert got.dtype == xt and got.shape == (n, f) and got.is_contiguous()
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= _fused_limit(want)).all()), err.max().item()
+
+
+def test_fused_autograd_counts_one_launch_each(cuda):
+    x = _rand(cuda, (4, 16, 256), torch.bfloat16, 4).requires_grad_()
+    w = _rand(cuda, (256,), torch.bfloat16, 5, 0.1, 1.0).requires_grad_()
+    fu.reset_launches()
+    h = fu.rms_norm(x, w)
+    a = fu.swiglu(h)
+    assert fu.LAUNCHES == {"rms_norm": 1, "swiglu": 1}
+    a.float().sum().backward()
+    torch.cuda.synchronize()
+    assert fu.LAUNCHES == {"rms_norm": 1, "swiglu": 1}
+    assert x.grad.shape == x.shape and w.grad.shape == w.shape
+
+
+@pytest.mark.parametrize("bad", ["float64", "w_bf16_x_fp16",
+                                 "noncontiguous", "w_on_cpu"])
+def test_rms_norm_wrapper_raises_on_what_the_kernel_does_not_take(cuda, bad):
+    x = _rand(cuda, (8, 64), torch.float16, 6)
+    w = _rand(cuda, (64,), torch.float16, 7)
+    if bad == "float64":
+        x, w = x.double(), w.double()
+    elif bad == "w_bf16_x_fp16":
+        w = w.bfloat16()
+    elif bad == "noncontiguous":
+        x = _rand(cuda, (64, 8), torch.float16, 6).t()
+    else:
+        w = w.cpu()
+    with pytest.raises((TypeError, ValueError)):
+        fu.rms_norm_fwd(x, w, 1e-6)
+
+
+@pytest.mark.parametrize("bad", ["float64", "column_stride", "shape",
+                                 "g_on_cpu"])
+def test_swiglu_wrapper_raises_on_what_the_kernel_does_not_take(cuda, bad):
+    x = _rand(cuda, (8, 64), torch.bfloat16, 8)
+    g = _rand(cuda, (8, 64), torch.bfloat16, 9)
+    if bad == "float64":
+        x = x.double()
+    elif bad == "column_stride":
+        x = _rand(cuda, (64, 8), torch.bfloat16, 8).t()
+    elif bad == "shape":
+        g = g[:, :32]
+    else:
+        g = g.cpu()
+    with pytest.raises((TypeError, ValueError)):
+        fu.swiglu_fwd(x, g)
