@@ -10,7 +10,9 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    fixed-length, varlen and flashmask) and the RMSNorm and SwiGLU kernels
    from the four sources of ``paddle_tpu_torch/csrc`` (``nvcc``,
    ``sm_90a``, one process per source, all at once), printing build
-   seconds and ptxas's register and shared-memory lines;
+   seconds and ptxas's register and shared-memory lines, and counting the
+   ``HGMMA`` (tensor-core product) and ``UTMALDG`` (TMA load) instructions
+   in the SASS of each bf16 forward instantiation (``cuobjdump``);
 3. holds each kernel against its plain PyTorch version: the fixed-length
    ones at the training shape (``[8, 16, 1024, 64]`` bf16, causal) and at
    a cross shape (sq 128, sk 256, causal, head_dim 32, fp32); the varlen
@@ -26,7 +28,13 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    out, lse and dq of exactly 0. RMSNorm and SwiGLU at the fused-op path's
    tensors (Llama-2-7B widths, 8192 tokens, bf16) and at edge shapes (fp32
    and fp16, 37 rows, rows of 1000 and 1003, a float32 weight or gate
-   beside bf16 x, the split form with unaligned halves);
+   beside bf16 x, the split form with unaligned halves); and the bf16
+   forward (its own tensor-core kernel) at edge shapes, head_dim 32, 64
+   and 128: query tiles visiting more key tiles than its K/V ring has
+   stages, sq != sk both ways, kv_len cutting a tile, a varlen plan with an
+   empty segment and one-token segments, a flashmask row that leaves one
+   key tile open. Phases 3 and 4 each run under a watchdog that exits
+   non-zero if a kernel hangs;
 4. times each kernel, its plain version and, as a yardstick only,
    ``scaled_dot_product_attention`` (which the port never calls; for the
    varlen and flashmask kernels with the dense bool mask) and
@@ -69,11 +77,16 @@ doing anything.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -172,6 +185,25 @@ def phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
 
+@contextlib.contextmanager
+def watchdog(what: str, seconds: float):
+    """Ends the process with code 3 if the block runs past ``seconds``: a
+    kernel whose producer and consumer disagree on the tiles would wait on
+    the card forever, and the synchronize after it with it."""
+    def expire():
+        print(f"watchdog: {what} still running after {seconds:.0f} s; "
+              f"exiting", flush=True)
+        os._exit(3)
+
+    timer = threading.Timer(seconds, expire)
+    timer.daemon = True
+    timer.start()
+    try:
+        yield
+    finally:
+        timer.cancel()
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of ``fn`` over ``iters`` calls, by CUDA events."""
     for _ in range(warmup):
@@ -220,6 +252,37 @@ def build():
           f"flash library holds a fixed-length, a varlen and a flashmask "
           f"kernel, the fused one RMSNorm and SwiGLU)")
     check(set(infos) == set(_build.SOURCES), f"built {sorted(infos)}")
+    sass_counts(infos["flash_fwd"].path)
+
+
+def sass_counts(lib):
+    """Counts the tensor-core products (``HGMMA``) and TMA tile loads
+    (``UTMALDG``) in the SASS of each bf16 forward instantiation
+    (``flash_fwd_hopper``) of the built library; each must have both. The
+    toolkit's ``cuobjdump`` reads the SASS; without it the count is
+    skipped and said so."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        print("cuobjdump not found: SASS counts skipped")
+        return
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    funcs = re.split(r"\n\s*Function : ", sass)[1:]
+    hopper = [f for f in funcs if "flash_fwd_hopper" in f.split("\n", 1)[0]]
+    check(len(hopper) == 9, f"{len(hopper)} bf16 forward instantiations in "
+          f"the SASS, want 9 (3 masks x 3 head_dims)")
+    for f in hopper:
+        name = f.split("\n", 1)[0].strip()
+        mma = re.findall(r"HGMMA\.(\d+x\d+x\d+)\S* ([^;]*);", f)
+        # S = Q K^T reads both operands through descriptors; O += P V
+        # takes P from registers and V with the transpose bit (.tnspB)
+        n_pv = sum("tnspB" in ops for _, ops in mma)
+        n_s, n_tma = len(mma) - n_pv, f.count("UTMALDG")
+        shapes = sorted(set(shape for shape, _ in mma))
+        print(f"  SASS {name}: HGMMA {len(mma)} ({n_s} for S = QK^T, {n_pv} "
+              f"for O += PV; {', '.join(shapes)}), UTMALDG {n_tma}")
+        check(n_s > 0 and n_pv > 0 and n_tma > 0, f"{name}: HGMMA {n_s} + "
+              f"{n_pv}, UTMALDG {n_tma}")
 
 
 def _inputs(bh, sq, sk, d, dtype, seed):
@@ -598,6 +661,86 @@ def fused_checks():
     return errs, (hn.cpu(), a.cpu())
 
 
+def hold_forward(label, got, want, abs_v_out, blind=None):
+    """Holds a bf16 forward's (out, lse) against its plain version's with
+    ``limit``; ``blind`` (a bool row mask over out's leading dimensions)
+    marks rows that see no key, whose out must be exactly 0."""
+    errs, ratios = {}, {}
+    for key, g, w in zip(("out", "lse"), got, want):
+        errs[key], ratios[key] = within(
+            g, w, limit(torch.bfloat16, key, w, abs_v_out))
+        check(bool(torch.isfinite(g.float()).all()), f"{key} non-finite at "
+              f"{label}")
+    print(f"{label}: max abs err " + " ".join(
+        f"{k} {v:.3g}" for k, v in errs.items()) + "; of the limit " +
+        " ".join(f"{k} {v:.3g}" for k, v in ratios.items()))
+    for key, ratio in ratios.items():
+        check(math.isfinite(ratio) and ratio <= 1.0,
+              f"{key} at {ratio:.3g} of its limit at {label}")
+    if blind is not None and blind.any():
+        check(not got[0][blind].any(), f"rows that see no key are not 0 at "
+              f"{label}")
+
+
+# the bf16 forward's edge shapes: (bh, sq, sk, kv_len, causal): query tiles
+# that visit more key tiles than the K/V ring has stages, sq != sk both ways
+# under the bottom-right causal offset, kv_len cutting a key tile
+BF16_FWD_EDGE = [(2, 1000, 1000, 1000, True), (2, 1024, 1024, 1024, True),
+                 (2, 100, 300, 300, True), (2, 300, 100, 100, True),
+                 (2, 128, 256, 150, True), (2, 128, 256, 150, False)]
+# varlen: an empty segment and segments of one token
+BF16_VARLEN_EDGE = [1, 0, 130, 64, 1, 1]
+
+
+def bf16_forward_edges():
+    """The bf16 forward kernel (fixed-length, varlen, flashmask) at its edge
+    shapes, at head_dim 32, 64 and 128, against the plain versions."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import flash_varlen as fv
+    for d in (32, 64, 128):
+        scale = 1.0 / math.sqrt(d)
+        for bh, sq, sk, kv_len, causal in BF16_FWD_EDGE:
+            q, k, v, _ = _inputs(bh, sq, sk, d, torch.bfloat16, seed=20)
+            args = (causal, scale, kv_len, sk - sq)
+            got = fa.flash_fwd(q, k, v, *args)
+            want = fa.flash_fwd_plain(q, k, v, *args)
+            abs_v = fa.flash_fwd_plain(q, k, v.abs(), *args)[0]
+            blind = torch.zeros(bh, sq, dtype=torch.bool, device="cuda")
+            if causal and sq > sk:
+                blind[:, :sq - sk] = True
+            hold_forward(f"edge bh {bh} sq {sq} sk {sk} kv_len {kv_len} d {d} "
+                         f"bf16 causal {causal}", got, want, abs_v, blind)
+        lens = BF16_VARLEN_EDGE
+        for causal in (True, False):
+            q, k, v, _, _, _, plan = _varlen_inputs(
+                lens, lens, 0, 0, 3, d, torch.bfloat16, causal, seed=21)
+            got = fv.varlen_fwd(q, k, v, plan, scale)
+            want = fv.varlen_fwd_plain(q, k, v, plan, scale)
+            abs_v = fv.varlen_fwd_plain(q, k, v.abs(), plan, scale)[0]
+            hold_forward(f"edge varlen segments {lens} d {d} bf16 causal "
+                         f"{causal}", got, want, abs_v)
+            check(torch.equal(got[0][0], v[0]), "a one-token segment's "
+                  "output is not its own v")
+        # flashmask: every key tile but tile 3 bans every query row
+        s = 512
+        st = torch.zeros(s, dtype=torch.int32, device="cuda")
+        st[192:256] = s
+        en = torch.full((s,), s, dtype=torch.int32, device="cuda")
+        startend = torch.stack([st, en], -1).view(1, 1, s, 2)
+        for causal in (True, False):
+            plan = fv.flashmask_plan(startend, 2, causal)
+            check(int(fv.flashmask_tiles(plan, s)[0].sum(1).max()) == 1,
+                  "the one-open-tile mask visits more than one tile")
+            q, k, v, _ = _inputs(2, s, s, d, torch.bfloat16, seed=22)
+            got = fv.flashmask_fwd(q, k, v, plan, scale)
+            want = fv.flashmask_fwd_plain(q, k, v, plan, scale)
+            abs_v = fv.flashmask_fwd_plain(q, k, v.abs(), plan, scale)[0]
+            blind = ~fv.flashmask_mask(plan, 2, s, s).any(-1)
+            hold_forward(f"edge flashmask one open key tile s {s} d {d} bf16 "
+                         f"causal {causal}", got, want, abs_v, blind)
+    torch.cuda.synchronize()
+
+
 def kernel_checks():
     phase("3 kernels against their plain versions")
     errs = hold_against_plain(BATCH * HEADS, SEQ, SEQ, HEAD_DIM,
@@ -617,6 +760,7 @@ def kernel_checks():
     for causal in (False, True):
         hold_flashmask_against_plain(2, 200, 136, 4, 128, torch.float32,
                                      causal, edge_startend, seed=8)
+    bf16_forward_edges()
     fused_errs, fused_results = fused_checks()
     errs.update(fused_errs)
     return errs, varlen_results, (fm_results, fm_abs_v), fused_results
@@ -1417,9 +1561,11 @@ def main() -> int:
         return 1
     name, count, smi = card()
     build()
-    errs, varlen_results, flashmask_expected, fused_expected = \
-        kernel_checks()
-    ms, plain_ms, library_ms, bnd = timings()
+    with watchdog("phase 3 (kernel checks)", 300):
+        errs, varlen_results, flashmask_expected, fused_expected = \
+            kernel_checks()
+    with watchdog("phase 4 (timings)", 300):
+        ms, plain_ms, library_ms, bnd = timings()
     torch.cuda.empty_cache()
     launches = main_path()
     torch.cuda.empty_cache()

@@ -6,16 +6,19 @@
 // `head * k_hs + row * k_rs + c`: [BH, S, D] has row stride D and head
 // stride S * D, packed [T, H, D] row stride H * D and head stride D. Rows are
 // contiguous in the io type (float or bf16). lse and delta are float
-// [heads, Sq]. Every block runs NT = 256 threads as a 16 x 16 grid
-// (tx = tid % 16, ty = tid / 16); a thread owns rows {ty + 16 i} and columns
-// {tx + 16 j} of each 64-row tile, so the 16 threads that share a row sit
-// in one half-warp and reduce a row with four xor shuffles.
+// [heads, Sq]. Every block of the FMA kernels (all but the bf16 forward,
+// whose tensor-core layout `flash_fwd.cu` describes) runs NT = 256 threads
+// as a 16 x 16 grid (tx = tid % 16, ty = tid / 16); a thread owns rows
+// {ty + 16 i} and columns {tx + 16 j} of each 64-row tile, so the 16 threads
+// that share a row sit in one half-warp and reduce a row with four xor
+// shuffles.
 //
 // What a kernel may see is a Mask policy (CausalMask, SegmentMask,
 // StartEndMask below): which key a query row sees, which tiles a tile
-// visits (a range, then a per-tile test), the lse of a row that sees no
-// key, and the policy of one grid head (`at_head`, for masks whose arrays
-// differ by head). The kernels are templates on it.
+// visits (a range, then a per-tile test), whether a tile is kept whole
+// (`tile_full`, so the mask need not be tested element by element), the lse
+// of a row that sees no key, and the policy of one grid head (`at_head`, for
+// masks whose arrays differ by head). The kernels are templates on it.
 //
 // Tiles live in shared memory as float with one word of padding per row
 // (stride D + 1), so a column read by 16 neighbouring threads hits 16
@@ -120,6 +123,13 @@ struct CausalMask {
     return q.a < sq && k.a < kv_len && (!causal || k.a <= q.a + q_offset);
   }
   __device__ bool tile_open(int, int) const { return true; }
+  // Whether every key of key tile kt is seen by every row of query tile qt
+  // (rows past sq aside, which no kernel writes): the mask need not be
+  // applied element by element there.
+  __device__ bool tile_full(int qt, int kt) const {
+    const int k_last = kt * BK + BK - 1;
+    return k_last < kv_len && (!causal || k_last <= qt * BQ + q_offset);
+  }
   // Key tiles [x, y) that query tile qt visits: up to one past the last key
   // any of its rows sees.
   __device__ int2 key_tiles(int qt) const {
@@ -166,6 +176,14 @@ struct SegmentMask {
   __device__ int2 key_tiles(int qt) const { return make_int2(lo[qt], hi[qt]); }
   __device__ int2 query_tiles(int kt) const { return make_int2(lo[kt], hi[kt]); }
   __device__ bool tile_open(int, int) const { return true; }
+  // Both tiles inside one segment (segment ids never decrease along the
+  // tokens, padding comes last) and, when causal, the tile's last key at or
+  // before its first query.
+  __device__ bool tile_full(int qt, int kt) const {
+    const int q0 = qt * BQ, k0 = kt * BK, s = seg_q[q0];
+    return s >= 0 && seg_q[q0 + BQ - 1] == s && seg_k[k0] == s && seg_k[k0 + BK - 1] == s &&
+           (!causal || pos_k[k0 + BK - 1] <= pos_q[q0]);
+  }
 };
 
 // Flashmask (the TPU `_fm_*_kernel` family), [BH, S, D] rows: key kp bans
@@ -219,6 +237,8 @@ struct StartEndMask {
     const int q0 = qt * BQ;
     return !(st_max[kt] <= q0 && en_min[kt] >= min(q0 + BQ, sq));
   }
+  // The plan keeps no statistic that shows a tile free of bans.
+  __device__ bool tile_full(int, int) const { return false; }
 };
 
 // Sets the block's dynamic shared memory limit, then launches.

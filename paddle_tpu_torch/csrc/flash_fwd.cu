@@ -1,6 +1,10 @@
 // Flash-attention forward for Hopper (sm_90a): fixed-length causal batches,
-// packed variable-length sequences and flashmask (start/end row) masks, one
-// kernel templated on the mask.
+// packed variable-length sequences and flashmask (start/end row) masks, two
+// kernels templated on the mask: a tensor-core kernel for bf16 io
+// (`flash_fwd_hopper`) and an fp32 FMA kernel for float io
+// (`flash_fwd_kernel`). `fwd_any` sends bf16 to the first and float to the
+// second: the tensor cores have no fp32 product at fp32 accuracy (TF32 keeps
+// 10 mantissa bits), so float io stays on FMAs.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (reached
 // through `_fwd_call`; entry `pt_flash_fwd`, CausalMask),
@@ -23,19 +27,41 @@
 // (20 us): the operations, barely. At the flashmask shape (BH = 32,
 // S = 4096, D = 64, bf16, causal, one batch row of share-question and one
 // of document masks, 5.3e6 kept pairs per head) 2.2e10 FLOP (22 us) against
-// 68 MB (20 us): the operations. This first kernel does its products as
-// fp32 FMAs from shared memory, not on the tensor cores, so it is bound by
-// the FMA rate and by shared-memory reads instead: each thread holds a
-// 4 x 4 block of scores and a 4 x D/16 block of the output in registers
-// and reads 8 shared words per 16 FMAs. What the design does about the
-// memory bound: every q tile is read once, k and v are streamed tile by
-// tile and reused by the 64 query rows of the block, no score ever reaches
-// device memory, packed rows are read in place through their strides
-// (no [H, T, D] copy), and a flashmask start/end row shared by the heads is
-// read in place by each of them (no [B, H, S] copy).
+// 68 MB (20 us): the operations.
 //
-// Grid: (ceil(Sq / 64), heads); one block per (head, 64-row query tile).
+// The bf16 kernel (`flash_fwd_hopper`), one block per (head, 64-row query
+// tile), 160 threads: one consumer warpgroup and one producer warp.
+// - The producer's first lane loads the Q tile with one TMA load (two at
+//   D = 128) and streams K and V tiles through a ring of shared
+//   memory stages, each signalled on a "full" mbarrier by the TMA's byte
+//   count and handed back on an "empty" one by the 128 consumer threads.
+//   TMA zero-fills rows past the tensor's end and swizzles the tiles the way
+//   `wgmma` reads them (128 B rows, 64 B at D = 32). Producer and consumer
+//   walk the same tile list: `key_tiles(qt)`, then `tile_open(qt, j)`.
+// - S = Q K^T is D / 16 `wgmma` m64n64k16 from shared memory, both K-major;
+//   O += P V is four m64nDk16 with P from registers (the S accumulator
+//   rounded to bf16 in place, in its fragment order) and V as the
+//   MN-major B operand (the transpose bit). S of the next key tile and P V
+//   of this one are in flight together, and the next tile's softmax runs
+//   while the tensor cores do this tile's P V.
+// - The softmax runs on the accumulator: a thread holds 2 rows x 16
+//   columns of S, and the 4 threads of a quad share a row, so the row max
+//   takes two xor shuffles; each thread keeps its part of the row sum until
+//   the end. Tiles the mask keeps whole (`tile_full`) skip the mask.
+// - Query tiles run last to first, so under a causal mask the longest start
+//   first and the short early tiles fill the tail.
+// The float kernel (`flash_fwd_kernel`), 256 threads: products as fp32 FMAs
+// from shared memory (the same numbers the TPU kernel gets from
+// fp32-accumulating MXU products); each thread holds a 4 x 4 block of
+// scores and a 4 x D/16 block of the output and reads 8 shared words per
+// 16 FMAs. It serves the fp32 models and checks.
+//
+// Grid: float (ceil(Sq / 64), heads); bf16 the same for the fixed-length
+// mask and (heads, ceil(Sq / 64)) for the varlen and flashmask masks.
 #include "flash_common.cuh"
+#include "hopper.cuh"
+
+#include <type_traits>
 
 namespace pt_flash {
 
@@ -156,27 +182,404 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <typename T, int D, typename Mask>
+
+// ------------------------------------------------- the bf16 tensor-core kernel
+
+constexpr int HOP_CONSUMERS = 128;              // one warpgroup
+constexpr int HOP_NT = HOP_CONSUMERS + 32;      // and one producer warp
+constexpr float LOG2E = 1.4426950408889634f;
+
+// A 64-row bf16 tile of head_dim D in shared memory: BOXES boxes of W
+// columns (one TMA load each), each 64 rows of W * 2 bytes, swizzled. The
+// K/V ring holds STAGES tiles of each: 4 below D = 128, so that three
+// blocks (the most their registers allow) fit an SM's shared memory, and 2
+// at D = 128, so that two do.
+template <int D>
+struct HopTile {
+  static constexpr int W = D < 64 ? D : 64;
+  static constexpr int BOXES = D / W;
+  static constexpr int ROW_BYTES = W * 2;
+  static constexpr int BOX_BYTES = 64 * ROW_BYTES;
+  static constexpr int BYTES = BOXES * BOX_BYTES;
+  static constexpr int STAGES = D == 128 ? 2 : 4;
+  static constexpr pt_hopper::Swizzle SW = D < 64 ? pt_hopper::SWIZZLE_64B
+                                                  : pt_hopper::SWIZZLE_128B;
+  static constexpr size_t SMEM = 1024 + (size_t)BYTES * (1 + 2 * STAGES) +
+                                 sizeof(uint64_t) * (1 + 2 * STAGES);
+
+  // Q or K (K-major) for the k-th 16 columns of the reduction over D.
+  __device__ static uint64_t k_major(uint32_t base, int k) {
+    return pt_hopper::gmma_desc(base + (k * 16 / W) * BOX_BYTES + (k * 16 % W) * 2, 16,
+                                8 * ROW_BYTES, SW);
+  }
+  // V (MN-major) for the k-th 16 keys of the reduction over the key tile.
+  __device__ static uint64_t mn_major(uint32_t base, int k) {
+    return pt_hopper::gmma_desc(base + k * 16 * ROW_BYTES, BOX_BYTES, 8 * ROW_BYTES, SW);
+  }
+};
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (D == 32) pt_hopper::wgmma_rs_n32(acc, a, db);
+  if constexpr (D == 64) pt_hopper::wgmma_rs_n64(acc, a, db);
+  if constexpr (D == 128) pt_hopper::wgmma_rs_n128(acc, a, db);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Loads the BOXES boxes of one 64-row tile starting at `row` of head `h`;
+// packed [T, H, D] maps are (D, H, T), fixed [BH, S, D] ones (D, S, BH).
+template <int D>
+__device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int row, int h, int packed) {
+  using Tile = HopTile<D>;
+#pragma unroll
+  for (int b = 0; b < Tile::BOXES; ++b) {
+    if (packed)
+      pt_hopper::tma_load_3d(dst + b * Tile::BOX_BYTES, map, bar, b * Tile::W, h, row);
+    else
+      pt_hopper::tma_load_3d(dst + b * Tile::BOX_BYTES, map, bar, b * Tile::W, row, h);
+  }
+}
+
+// 2^x by the special-function unit (ex2.approx.ftz: about 2 ulp, results
+// below 2^-126 flushed to 0, far below what a bf16 P or an fp32 row sum
+// keeps); the library's exp2f adds range handling around the same unit.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One key tile's mask and online-softmax step on the S accumulator `sc`
+// (rows r and r + 8 of the tile: h2 = 0, 1): masks S, updates the running
+// max m of the scaled logits and this thread's part of the row sum l (the
+// four threads of a row add theirs at the end), leaves P (fp32, 0 where
+// masked) in `sc` and the factor by which the output rows must be rescaled
+// in `alpha`. FULL: the mask keeps every pair of the tile
+// (`Mask::tile_full`), so no element is tested. For scale > 0 the max is
+// taken before scaling (max(s) * scale is max(s * scale) exactly, rounding
+// being monotonic) and the scale folds into the exponent's FMA.
+template <bool FULL, typename Mask>
+__device__ __forceinline__ void softmax_tile(const Mask& mask, int j, const RowInfo (&qi)[2],
+                                             int cq, float scale, float (&sc)[32], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2]) {
+  const bool pre = !(scale > 0.f);  // a scale <= 0 is applied before the max
+  const float post = pre ? 1.f : scale;
+  if (pre) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] *= scale;
+  }
+  uint32_t vis = ~0u;  // bit i: S value i is seen
+  float mx[2] = {NEG_INF, NEG_INF};
+  if (FULL) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+  } else {
+    vis = 0;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const RowInfo ki = mask.k_row(j * BK + 8 * jj + cq + e);
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int i = 4 * jj + 2 * h2 + e;
+          const bool ok = mask.visible(qi[h2], ki);
+          vis |= (uint32_t)ok << i;
+          mx[h2] = fmaxf(mx[h2], ok ? sc[i] : NEG_INF);
+        }
+      }
+  }
+  const float post_log2 = post * LOG2E;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    // a row with nothing seen yet keeps a max at or below -1e30 * post; its
+    // alpha and p are then 0 and its l stays 0
+    const float m_new = fmaxf(m[h2], quad_max(mx[h2]) * post);
+    alpha[h2] = exp2_ftz((m[h2] - m_new) * LOG2E);
+    const float m_log2 = m_new * LOG2E;
+    float rs = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * jj + 2 * h2 + e;
+        const float e2 = exp2_ftz(fmaf(sc[i], post_log2, -m_log2));
+        const float p = FULL || ((vis >> i) & 1u) ? e2 : 0.f;
+        rs += p;
+        sc[i] = p;
+      }
+    l[h2] = alpha[h2] * l[h2] + rs;
+    m[h2] = m_new;
+  }
+}
+
+template <typename Mask>
+__device__ __forceinline__ void softmax_tile(const Mask& mask, int qt, int j,
+                                             const RowInfo (&qi)[2], int cq, float scale,
+                                             float (&sc)[32], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2]) {
+  if (mask.tile_full(qt, j))
+    softmax_tile<true>(mask, j, qi, cq, scale, sc, m, l, alpha);
+  else
+    softmax_tile<false>(mask, j, qi, cq, scale, sc, m, l, alpha);
+}
+
+// S = Q K^T of one key tile into `sc`: D / 16 products, started, not waited.
+template <int D>
+__device__ __forceinline__ void start_qk(float (&sc)[32], uint32_t q_addr, uint32_t k_addr) {
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k)
+    pt_hopper::wgmma_ss_n64(sc, HopTile<D>::k_major(q_addr, k), HopTile<D>::k_major(k_addr, k),
+                            k > 0);
+  pt_hopper::wgmma_commit();
+}
+
+template <int D, typename Mask>
+__global__ void __launch_bounds__(HOP_NT, D == 128 ? 2 : 3)
+flash_fwd_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                 float* __restrict__ lse, Layout lay, Mask heads_mask, float scale, int packed,
+                 int tiles_x) {
+  using Tile = HopTile<D>;
+  using namespace pt_hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* KVs = Qs + Tile::BYTES;  // stage s: K at 2 s tiles on, V one tile after
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(KVs + 2 * Tile::STAGES * Tile::BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + Tile::STAGES;
+
+  // the grid's x axis walks the heads or the query tiles (see fwd_hopper);
+  // query tiles run last to first, the longest first under a causal mask
+  const int h = tiles_x ? blockIdx.y : blockIdx.x;
+  const int qt = tiles_x ? gridDim.x - 1 - blockIdx.x : gridDim.y - 1 - blockIdx.y;
+  const int q0 = qt * BQ;
+  const Mask mask = heads_mask.at_head(h);
+  const int2 tiles = mask.key_tiles(qt);
+  // the key tiles visited, in order: producer and consumer walk the same list
+  auto next_tile = [&](int j) {
+    for (++j; j < tiles.y && !mask.tile_open(qt, j); ++j) {
+    }
+    return j;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < Tile::STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, HOP_CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= HOP_CONSUMERS) {  // the producer warp; its first lane works
+    if (threadIdx.x == HOP_CONSUMERS) {
+      tma_prefetch_map(&tm_q);
+      tma_prefetch_map(&tm_k);
+      tma_prefetch_map(&tm_v);
+      mbar_arrive_expect_tx(q_full, Tile::BYTES);
+      tma_tile<D>(Qs, &tm_q, q_full, q0, h, packed);
+      int it = 0;
+      for (int j = next_tile(tiles.x - 1); j < tiles.y; j = next_tile(j), ++it) {
+        const int s = it % Tile::STAGES;
+        mbar_wait(empty + s, ((it / Tile::STAGES) & 1) ^ 1);  // round 0 passes at once
+        mbar_arrive_expect_tx(full + s, 2 * Tile::BYTES);
+        uint8_t* Ks = KVs + 2 * s * Tile::BYTES;
+        tma_tile<D>(Ks, &tm_k, full + s, j * BK, h, packed);
+        tma_tile<D>(Ks + Tile::BYTES, &tm_v, full + s, j * BK, h, packed);
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup: thread t holds rows r and r + 8 of the tile and,
+  // of each 8 columns of S or O, the pair at 2 * (t % 4). Per key tile j
+  // (ring stage s) the products of two tiles are in flight together: S of
+  // the next tile and P V of this one, so the next tile's softmax runs
+  // while the tensor cores do this tile's P V.
+  const int t = threadIdx.x;
+  const int r = 16 * (t / 32) + (t % 32) / 4;
+  const int cq = 2 * (t % 4);
+  const uint32_t q_addr = smem_u32(Qs);
+  auto k_addr = [&](int s) { return smem_u32(KVs + 2 * s * Tile::BYTES); };
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const RowInfo qi[2] = {mask.q_row(q0 + r), mask.q_row(q0 + r + 8)};
+
+  mbar_wait(q_full, 0);
+  int j = next_tile(tiles.x - 1);
+  if (j < tiles.y) {
+    float sc[32], alpha[2];
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    // P of the tile whose softmax just ran, as the A operand: its k-th 16
+    // keys are S values 8k .. 8k + 7
+    auto pack_p = [&] {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) pa[k][x] = pack_bf16(sc[8 * k + 2 * x], sc[8 * k + 2 * x + 1]);
+    };
+    auto start_pv = [&](int s) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        wgmma_pv<D>(acc, pa[k], Tile::mn_major(k_addr(s) + Tile::BYTES, k));
+      wgmma_commit();
+    };
+    mbar_wait(full, 0);
+    fence_regs(sc);
+    wgmma_fence();
+    start_qk<D>(sc, q_addr, k_addr(0));
+    wgmma_wait<0>();
+    fence_regs(sc);
+    softmax_tile(mask, qt, j, qi, cq, scale, sc, m, l, alpha);  // acc is 0: no rescale
+    int it = 0;
+    // tile j (stage s) and the next one, jn (stage sn), each pass: S of jn
+    // and P V of j in flight together, the softmax of jn under P V of j
+    for (int jn = next_tile(j); jn < tiles.y; j = jn, jn = next_tile(j), ++it) {
+      const int s = it % Tile::STAGES, sn = (it + 1) % Tile::STAGES;
+      pack_p();
+      mbar_wait(full + sn, ((it + 1) / Tile::STAGES) & 1);
+      fence_regs(sc);
+      fence_regs(acc);
+      wgmma_fence();
+      start_qk<D>(sc, q_addr, k_addr(sn));
+      start_pv(s);
+      wgmma_wait<1>();  // S of jn; P V of j may still run
+      fence_regs(sc);
+      softmax_tile(mask, qt, jn, qi, cq, scale, sc, m, l, alpha);
+      wgmma_wait<0>();
+      fence_regs(acc);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) fence_regs(pa[k]);
+      mbar_arrive(empty + s);
+#pragma unroll
+      for (int jd = 0; jd < D / 8; ++jd)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          acc[4 * jd + 2 * h2] *= alpha[h2];
+          acc[4 * jd + 2 * h2 + 1] *= alpha[h2];
+        }
+    }
+    // the last tile's P V
+    pack_p();
+    fence_regs(acc);
+    wgmma_fence();
+    start_pv(it % Tile::STAGES);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(empty + it % Tile::STAGES);
+  }
+
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) l[h2] = quad_sum(l[h2]);
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int qp = q0 + r + 8 * h2;
+    if (qp >= lay.sq) continue;
+    const float inv_l = 1.f / (l[h2] == 0.f ? 1.f : l[h2]);  // one division a row
+    __nv_bfloat16* orow = o + h * lay.q_hs + (long long)qp * lay.q_rs + cq;
+#pragma unroll
+    for (int jd = 0; jd < D / 8; ++jd)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jd) = __floats2bfloat162_rn(
+          acc[4 * jd + 2 * h2] * inv_l, acc[4 * jd + 2 * h2 + 1] * inv_l);
+    if ((t & 3) == 0)
+      lse[(size_t)h * lay.sq + qp] = l[h2] == 0.f ? Mask::empty_lse() : m[h2] + logf(l[h2]);
+  }
+}
+
+// The tensor map of a q-like ([rows, D] per head) bf16 tensor: packed
+// [rows, heads, D] as (D, heads, rows), fixed [heads, rows, D] as
+// (D, rows, heads), with 64-row boxes of HopTile<D>::W columns.
+template <int D>
+int hop_map(CUtensorMap* map, const void* base, int rows, int heads, int rs, long long hs,
+            int packed) {
+  using Tile = HopTile<D>;
+  const uint64_t dims[3] = {(uint64_t)D, (uint64_t)(packed ? heads : rows),
+                            (uint64_t)(packed ? rows : heads)};
+  const uint64_t strides[2] = {2ull * (packed ? hs : rs), 2ull * (packed ? rs : hs)};
+  const uint32_t box[3] = {(uint32_t)Tile::W, packed ? 1u : 64u, packed ? 64u : 1u};
+  return pt_hopper::encode_bf16_3d(map, base, dims, strides, box, Tile::SW);
+}
+
+template <int D, typename Mask>
+cudaError_t fwd_hopper(const void* q, const void* k, const void* v, void* o, void* lse,
+                       int heads, Layout lay, Mask mask, float scale, int packed, void* stream) {
+  using Tile = HopTile<D>;
+  const int nqt = (lay.sq + BQ - 1) / BQ;
+  // Fixed-length causal tiles of one head run side by side (x = query
+  // tiles), so a head's K and V stay in L2 while its tiles read them; the
+  // varlen and flashmask tiles, whose work varies from tile to tile, run
+  // the heads side by side (x = heads), so every head's longest tiles start
+  // in the first wave.
+  const int tiles_x = std::is_same<Mask, CausalMask>::value;
+  const dim3 grid = tiles_x ? dim3(nqt, heads) : dim3(heads, nqt);
+  if (grid.y > 65535 || heads < 1 || nqt < 1) return cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  int err = hop_map<D>(&mq, q, lay.sq, heads, lay.q_rs, lay.q_hs, packed);
+  if (!err) err = hop_map<D>(&mk, k, lay.sk, heads, lay.k_rs, lay.k_hs, packed);
+  if (!err) err = hop_map<D>(&mv, v, lay.sk, heads, lay.k_rs, lay.k_hs, packed);
+  if (err) return (cudaError_t)err;
+  auto kernel = flash_fwd_hopper<D, Mask>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)Tile::SMEM);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, HOP_NT, Tile::SMEM, (cudaStream_t)stream>>>(
+      mq, mk, mv, (__nv_bfloat16*)o, (float*)lse, lay, mask, scale, packed, tiles_x);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------ launch and entries
+
+template <int D, typename Mask>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse, int heads,
                 Layout lay, Mask mask, float scale, void* stream) {
   const size_t smem = sizeof(float) * (3 * 64 * (D + 1) + BQ * LDP);
   const dim3 grid((lay.sq + BQ - 1) / BQ, heads);
-  return launch(flash_fwd_kernel<T, D, Mask>, grid, smem, stream, (const T*)q, (const T*)k,
-                (const T*)v, (T*)o, (float*)lse, lay, mask, scale);
+  return launch(flash_fwd_kernel<float, D, Mask>, grid, smem, stream, (const float*)q,
+                (const float*)k, (const float*)v, (float*)o, (float*)lse, lay, mask, scale);
 }
 
+// bf16 to the tensor-core kernel, float to the FMA kernel; `packed` says
+// the tensors are [T, H, D] (varlen) rather than [BH, S, D].
 template <typename Mask>
 cudaError_t fwd_any(int d, int is_bf16, const void* q, const void* k, const void* v, void* o,
-                    void* lse, int heads, Layout lay, Mask mask, float scale, void* stream) {
+                    void* lse, int heads, Layout lay, Mask mask, float scale, int packed,
+                    void* stream) {
   if (is_bf16) {
-    PT_FLASH_SWITCH_D(d, return fwd<__nv_bfloat16, D>(q, k, v, o, lse, heads, lay, mask, scale,
-                                                       stream))
+    PT_FLASH_SWITCH_D(d, return fwd_hopper<D>(q, k, v, o, lse, heads, lay, mask, scale, packed,
+                                              stream))
   }
-  PT_FLASH_SWITCH_D(d, return fwd<float, D>(q, k, v, o, lse, heads, lay, mask, scale, stream))
+  PT_FLASH_SWITCH_D(d, return fwd<D>(q, k, v, o, lse, heads, lay, mask, scale, stream))
 }
 
 }  // namespace pt_flash
 
+// Every entry: bf16 q, k and v start on 16-byte boundaries (their tensor
+// maps need it; the wrappers check); a failed tensor-map encode returns the
+// error code of libcuda, a refused launch cudaGetLastError().
+//
 // q, k, v, o [bh, s, d] in the io type (is_bf16 ? bf16 : float), contiguous;
 // lse float [bh, sq]. Launches on `stream` and returns cudaGetLastError().
 extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
@@ -184,7 +587,7 @@ extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v, void* o
                             int kv_len, int q_offset, void* stream) {
   const pt_flash::CausalMask mask{sq, causal, kv_len, q_offset};
   return (int)pt_flash::fwd_any(d, is_bf16, q, k, v, o, lse, bh,
-                                pt_flash::dense_layout(sq, sk, d), mask, scale, stream);
+                                pt_flash::dense_layout(sq, sk, d), mask, scale, 0, stream);
 }
 
 // q, o [tq, h, d] and k, v [tk, h, d] in the io type, contiguous; lse float
@@ -197,7 +600,8 @@ extern "C" int pt_varlen_fwd(const void* q, const void* k, const void* v, void* 
                              int tk, int d, int is_bf16, int causal, float scale, void* stream) {
   const pt_flash::SegmentMask mask{seg_q, pos_q, seg_k, pos_k, lo, hi, causal};
   return (int)pt_flash::fwd_any(d, is_bf16, q, k, v, o, lse, h,
-                                pt_flash::packed_layout(tq, tk, h, d), mask, scale, stream);
+                                pt_flash::packed_layout(tq, tk, h, d), mask, scale, 1,
+                                stream);
 }
 
 // q, k, v, o [bh, sq or sk, d] in the io type, contiguous; lse float
@@ -212,5 +616,5 @@ extern "C" int pt_flashmask_fwd(const void* q, const void* k, const void* v, voi
                                 int is_bf16, int causal, float scale, void* stream) {
   const pt_flash::StartEndMask mask{st, en, st_max, en_min, h, hs, sq, sk, causal};
   return (int)pt_flash::fwd_any(d, is_bf16, q, k, v, o, lse, bh,
-                                pt_flash::dense_layout(sq, sk, d), mask, scale, stream);
+                                pt_flash::dense_layout(sq, sk, d), mask, scale, 0, stream);
 }

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 # name -> (source, the port's headers it includes)
 SOURCES = {
-    "flash_fwd": ("flash_fwd.cu", ("flash_common.cuh",)),
+    "flash_fwd": ("flash_fwd.cu", ("flash_common.cuh", "hopper.cuh")),
     "flash_bwd_dkv": ("flash_bwd_dkv.cu", ("flash_common.cuh",)),
     "flash_bwd_dq": ("flash_bwd_dq.cu", ("flash_common.cuh",)),
     "fused": ("fused.cu", ()),
@@ -38,7 +38,7 @@ class BuildInfo:
     name: str
     path: Path
     seconds: float        # nvcc wall time; 0.0 when the library was cached
-    ptxas: List[str]      # ptxas's register / shared-memory / spill lines
+    ptxas: List[str]      # ptxas's register, shared-memory, spill and wgmma lines
 
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -64,7 +64,7 @@ def _target(name: str) -> Path:
 
 
 def _ptxas_lines(stderr: str) -> List[str]:
-    keep = ("registers", "spill", "smem", "Compiling entry")
+    keep = ("registers", "spill", "smem", "Compiling entry", "wgmma")
     return [ln.strip() for ln in stderr.splitlines() if any(k in ln for k in keep)]
 
 

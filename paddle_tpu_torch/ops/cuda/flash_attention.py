@@ -20,7 +20,11 @@ masked. A query row that sees no key at all gets output 0 and lse -1e30.
 Each wrapper dispatches on the device of its tensors: a CUDA tensor launches
 the kernel (or raises on a type, head_dim or layout the kernel does not
 take), a CPU tensor runs the plain PyTorch version beside it, which repeats
-the kernel's arithmetic. There is no fallback from one to the other.
+the kernel's arithmetic. There is no fallback from one to the other. The
+forward source holds two kernels: bf16 io runs on the tensor cores and reads
+q, k and v through TMA tensor maps, which need 16-byte-aligned base
+addresses and strides (:func:`check_tma` raises otherwise); float io runs
+fp32 FMAs.
 ``LAUNCHES`` counts kernel launches per wrapper; the plain versions do not
 count.
 """
@@ -98,6 +102,25 @@ def _check_cuda(name: str, io, stats=(), heads: Optional[int] = None) -> None:
     heads = q.shape[0] if heads is None else heads
     if heads > 65535:
         raise ValueError(f"{name}: {heads} heads (batch*heads) > 65535")
+
+
+def check_tma(name: str, *tensors: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless every tensor can be read through a TMA
+    tensor map, as the bf16 forward kernel reads q, k and v: its base
+    address and the byte strides of its outer dimensions multiples of 16
+    bytes. A plain check on the tensor's metadata, on any device."""
+    for t in tensors:
+        off = t.data_ptr() % 16
+        if off:
+            raise ValueError(f"{name}: the bf16 kernel reads through TMA, "
+                             f"which needs a 16-byte-aligned base address; "
+                             f"this tensor starts {off} bytes past one")
+        for dim, st in enumerate(t.stride()[:-1]):
+            if st * t.element_size() % 16:
+                raise ValueError(f"{name}: the bf16 kernel reads through "
+                                 f"TMA, which needs byte strides that are "
+                                 f"multiples of 16; dimension {dim} has "
+                                 f"{st * t.element_size()}")
 
 
 def _check_shapes(q, k, v, kv_len) -> None:
@@ -212,6 +235,8 @@ def flash_fwd(q, k, v, causal: bool, scale: float, kv_len: int,
     if not _dispatch(q):
         return flash_fwd_plain(q, k, v, causal, scale, kv_len, q_offset)
     _check_cuda("flash_fwd", (q, k, v))
+    if q.dtype == torch.bfloat16:
+        check_tma("flash_fwd", q, k, v)
     bh, sq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq, 1), device=q.device, dtype=torch.float32)

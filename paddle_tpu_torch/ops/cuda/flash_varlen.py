@@ -60,7 +60,7 @@ import torch
 
 from . import flash_attention as fa
 from ._build import function
-from .flash_attention import NEG_INF, _check_cuda, _dispatch
+from .flash_attention import NEG_INF, _check_cuda, _dispatch, check_tma
 
 TILE = 64  # rows of a kernel tile (BQ = BK in csrc/flash_common.cuh)
 
@@ -333,6 +333,8 @@ def varlen_fwd(q, k, v, plan: VarlenPlan,
     if not _dispatch(q):
         return varlen_fwd_plain(q, k, v, plan, scale)
     _check_cuda("varlen_fwd", (q, k, v), heads=q.shape[1])
+    if q.dtype == torch.bfloat16:
+        check_tma("varlen_fwd", q, k, v)
     meta = _plan_tensors("varlen_fwd", q, k, plan, plan.qlo, plan.qhi,
                          _cdiv(q.shape[0], TILE))
     out = torch.empty_like(q)
@@ -601,6 +603,8 @@ def flashmask_fwd(q, k, v, plan: FlashmaskPlan,
     if not _dispatch(q):
         return flashmask_fwd_plain(q, k, v, plan, scale)
     _check_cuda("flashmask_fwd", (q, k, v))
+    if q.dtype == torch.bfloat16:
+        check_tma("flashmask_fwd", q, k, v)
     arrays, sizes = _fm_args(q, k, plan)
     out = torch.empty_like(q)
     lse = torch.empty((q.shape[0], q.shape[1], 1), device=q.device,

@@ -125,6 +125,73 @@ def test_cuda_wrappers_raise_on_what_the_kernel_does_not_take(cuda, bad):
         fa.flash_fwd(q, k, v, True, 0.125, 128, 0)
 
 
+# The bf16 forward runs a tensor-core kernel of its own (TMA ring of K/V
+# tiles, wgmma products): edge shapes for it alone. (bh, sq, sk, kv_len,
+# causal): query tiles that visit more key tiles than the ring has stages
+# (1000 and 1024), sq != sk both ways with the bottom-right causal offset
+# (sq > sk leaves rows that see no key), and kv_len cutting a key tile.
+BF16_FWD_SHAPES = {
+    "long_1000": (2, 1000, 1000, 1000, True),
+    "long_1024": (2, 1024, 1024, 1024, True),
+    "sq_lt_sk": (2, 100, 300, 300, True),
+    "sq_gt_sk": (2, 300, 100, 100, True),
+    "kv_len_cut": (2, 128, 256, 150, True),
+    "kv_len_cut_full": (2, 128, 256, 150, False),
+}
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("shape", sorted(BF16_FWD_SHAPES))
+def test_bf16_forward_edges_match_plain(cuda, shape, d):
+    bh, sq, sk, kv_len, causal = BF16_FWD_SHAPES[shape]
+    q, k, v, _ = _inputs(cuda, bh, sq, sk, d, torch.bfloat16, seed=3)
+    args = (causal, 1.0 / math.sqrt(d), kv_len, sk - sq)
+    out, lse = fa.flash_fwd(q, k, v, *args)
+    p_out, p_lse = fa.flash_fwd_plain(q, k, v, *args)
+    abs_v_out = fa.flash_fwd_plain(q, k, v.abs(), *args)[0]
+    torch.cuda.synchronize()
+    for key, got, want in (("out", out, p_out), ("lse", lse, p_lse)):
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= _limit(torch.bfloat16, key, want,
+                                   abs_v_out)).all()), (key, err.max().item())
+    if sq > sk:  # rows q < sq - sk see no key: out 0 and lse -1e30
+        blind = sq - sk
+        assert not out[:, :blind].any()
+        assert bool((lse[:, :blind] == fa.NEG_INF).all())
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts one element past a 16-byte
+    boundary (a view at an odd offset of a flat buffer)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("entry", ["flash_fwd", "varlen_fwd",
+                                   "flashmask_fwd"])
+def test_bf16_forward_raises_on_a_misaligned_base(cuda, entry):
+    q, k, v, _ = _inputs(cuda, 2, 128, 128, 64, torch.bfloat16)
+    fa.reset_launches()
+    fv.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        if entry == "flash_fwd":
+            fa.flash_fwd(_misaligned(q), k, v, True, 0.125, 128, 0)
+        elif entry == "varlen_fwd":
+            cu = torch.tensor([0, 100, 256], device=cuda).int()
+            plan = fv.varlen_plan(cu, cu, 256, 256, True)
+            qp, kp, vp = (t.reshape(256, 1, 64) for t in (q, k, v))
+            fv.varlen_fwd(qp, _misaligned(kp), vp, plan, 0.125)
+        else:
+            startend = torch.full((2, 1, 128, 1), 128, dtype=torch.int32,
+                                  device=cuda)
+            plan = fv.flashmask_plan(startend, 1, True)
+            fv.flashmask_fwd(q, k, _misaligned(v), plan, 0.125)
+    torch.cuda.synchronize()
+    assert not any(fa.LAUNCHES.values()) and not any(fv.LAUNCHES.values())
+
+
 # ------------------------------------------------------------------ varlen
 
 # (query segment lengths, key segment lengths, padding query rows, padding
@@ -182,6 +249,35 @@ def test_varlen_kernels_match_plain(cuda, shape, d, dtype, causal):
     for t in (out, dq):
         assert not t[pad:].any()
     assert not lse[:, pad:].any()
+
+
+# bf16 forward only: a plan with an empty segment and segments of one token
+# (query tiles whose key-tile range is empty under a causal mask, and
+# tiles holding several segments)
+VARLEN_BF16_EDGE = ([1, 0, 130, 64, 1, 1], [1, 0, 130, 64, 1, 1], 0, 0)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_varlen_bf16_forward_empty_and_one_token_segments(cuda, d, causal):
+    lq, lk, _, _ = VARLEN_BF16_EDGE
+    tq, h = sum(lq), 3
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(tq, h, d, generator=gen, device=cuda).bfloat16()
+               for _ in range(3))
+    cu = torch.tensor([0] + lq, device=cuda).cumsum(0).int()
+    plan = fv.varlen_plan(cu, cu, tq, tq, causal)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = fv.varlen_fwd(q, k, v, plan, scale)
+    p_out, p_lse = fv.varlen_fwd_plain(q, k, v, plan, scale)
+    abs_v_out = fv.varlen_fwd_plain(q, k, v.abs(), plan, scale)[0]
+    torch.cuda.synchronize()
+    for key, got, want in (("out", out, p_out), ("lse", lse, p_lse)):
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= _limit(torch.bfloat16, key, want,
+                                   abs_v_out)).all()), (key, err.max().item())
+    # a one-token segment sees only itself: its output is its own v
+    assert torch.equal(out[0], v[0]) and torch.equal(out[-1], v[-1])
 
 
 def test_varlen_autograd_counts_one_launch_each(cuda):
@@ -281,6 +377,36 @@ def test_flashmask_kernels_match_plain(cuda, shape, d, dtype, causal):
         assert blind[:, 40:50].all()
     assert not out[blind].any() and not dq[blind].any()
     assert not lse[blind].any()
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flashmask_bf16_forward_one_open_key_tile(cuda, d, causal):
+    """A start/end row that bans every query row from every key tile but
+    tile 3: each query tile visits that tile alone (none before it under a
+    causal mask, whose rows then see no key: out 0 and lse 0)."""
+    b, h, s = 1, 2, 512
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn(b * h, s, d, generator=gen, device=cuda).bfloat16()
+               for _ in range(3))
+    st = torch.zeros(s, dtype=torch.int32, device=cuda)
+    en = torch.full((s,), s, dtype=torch.int32, device=cuda)
+    st[192:256] = s  # tile 3 bans nothing
+    startend = torch.stack([st, en], -1).view(1, 1, s, 2)
+    plan = fv.flashmask_plan(startend, h, causal)
+    tiles = fv.flashmask_tiles(plan, s)[0]
+    assert tiles.sum(1).max().item() == 1 and tiles[:, 3].sum() > 0
+    scale = 1.0 / math.sqrt(d)
+    out, lse = fv.flashmask_fwd(q, k, v, plan, scale)
+    p_out, p_lse = fv.flashmask_fwd_plain(q, k, v, plan, scale)
+    abs_v_out = fv.flashmask_fwd_plain(q, k, v.abs(), plan, scale)[0]
+    torch.cuda.synchronize()
+    for key, got, want in (("out", out, p_out), ("lse", lse, p_lse)):
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= _limit(torch.bfloat16, key, want,
+                                   abs_v_out)).all()), (key, err.max().item())
+    if causal:
+        assert not out[:, :192].any() and not lse[:, :192].any()
 
 
 def test_flashmask_autograd_counts_one_launch_each(cuda):

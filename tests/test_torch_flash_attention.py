@@ -195,3 +195,33 @@ def test_wrappers_reject_bad_inputs(bad):
         return
     with pytest.raises(ValueError):
         pt_fa.flash_fwd(q, k, v, True, 0.1, kv_len, 0)
+
+
+def _odd_offset(shape):
+    """A contiguous bf16 view one element past the start of a flat buffer:
+    its base sits 2 bytes past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, dtype=torch.bfloat16)[1:].view(shape)
+
+
+@pytest.mark.parametrize("layout", ["fixed", "packed", "odd_offset",
+                                    "odd_row_stride"])
+def test_check_tma_takes_aligned_layouts_and_refuses_the_rest(layout):
+    """The check the bf16 forward runs before a launch, on CPU tensors:
+    contiguous ``[BH, S, D]`` and packed ``[T, H, D]`` pass; a view at an
+    odd element offset (base not 16-byte aligned) and a row stride of 18
+    bytes raise ``ValueError`` with the reason."""
+    if layout == "fixed":
+        pt_fa.check_tma("t", torch.zeros(4, 100, 64, dtype=torch.bfloat16))
+        return
+    if layout == "packed":
+        for d in (32, 64, 128):
+            pt_fa.check_tma("t", torch.zeros(37, 3, d, dtype=torch.bfloat16))
+        return
+    if layout == "odd_offset":
+        t, why = _odd_offset((2, 64, 64)), "16-byte-aligned base"
+    else:
+        t, why = torch.zeros(2, 64, 9, dtype=torch.bfloat16), "strides"
+    assert t.is_contiguous()
+    with pytest.raises(ValueError, match=why):
+        pt_fa.check_tma("t", t)
