@@ -6,13 +6,16 @@ From the root of a checkout, on a machine with one CUDA card and the CUDA
 toolkit (``nvcc``). Phases, each printed as it runs:
 
 1. the card: name, count, and ``nvidia-smi``'s name and power limit;
-2. builds the nine flash-attention kernels (forward, dK/dV and dQ, each
-   fixed-length, varlen and flashmask) and the RMSNorm and SwiGLU kernels
-   from the four sources of ``paddle_tpu_torch/csrc`` (``nvcc``,
-   ``sm_90a``, one process per source, all at once), printing build
-   seconds and ptxas's register and shared-memory lines, and counting the
-   ``HGMMA`` (tensor-core product) and ``UTMALDG`` (TMA load) instructions
-   in the SASS of each bf16 forward instantiation (``cuobjdump``);
+2. builds the flash-attention kernels (forward, dK/dV and dQ, each
+   fixed-length, varlen and flashmask; each a bf16 tensor-core kernel and
+   an fp32/fp16 FMA kernel) and the RMSNorm and SwiGLU kernels from the
+   four sources of ``paddle_tpu_torch/csrc`` (``nvcc``, ``sm_90a``, one
+   process per source, all at once), printing build seconds and ptxas's
+   register and shared-memory lines (a spill in a tensor-core kernel at
+   head_dim 64 fails the run), and counting the ``HGMMA`` (tensor-core
+   product, split by product) and ``UTMALDG`` (TMA load) instructions in
+   the SASS of each bf16 forward, dQ and dK/dV instantiation
+   (``cuobjdump``);
 3. holds each kernel against its plain PyTorch version: the fixed-length
    ones at the training shape (``[8, 16, 1024, 64]`` bf16, causal) and at
    a cross shape (sq 128, sk 256, causal, head_dim 32, fp32); the varlen
@@ -25,16 +28,20 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    version one batch row and head at a time) and at an edge shape (fp32,
    head_dim 128, per-head two-column start/end rows, sq 200 != sk 136;
    causal and not). At the edge shapes the rows that see no key must give
-   out, lse and dq of exactly 0. RMSNorm and SwiGLU at the fused-op path's
-   tensors (Llama-2-7B widths, 8192 tokens, bf16) and at edge shapes (fp32
-   and fp16, 37 rows, rows of 1000 and 1003, a float32 weight or gate
-   beside bf16 x, the split form with unaligned halves); and the bf16
-   forward (its own tensor-core kernel) at edge shapes, head_dim 32, 64
-   and 128: query tiles visiting more key tiles than its K/V ring has
-   stages, sq != sk both ways, kv_len cutting a tile, a varlen plan with an
-   empty segment and one-token segments, a flashmask row that leaves one
-   key tile open. Phases 3 and 4 each run under a watchdog that exits
-   non-zero if a kernel hangs;
+   out, lse and dq of exactly 0. The bf16 tensor-core kernels, forward and
+   backward, at edge shapes, head_dim 32, 64 and 128: query tiles visiting
+   more key tiles than the ring has stages, sq != sk both ways, kv_len
+   cutting a tile, a varlen plan with an empty segment and one-token
+   segments, a flashmask row that leaves one key tile open (keys no query
+   sees must give dk and dv of exactly 0). fp16 io (the FMA kernels) and a
+   head_dim of 80 (run at 128 with zero columns) for the three masks,
+   forward and backward, and bf16 inputs on a misaligned base (the same
+   kernels on aligned copies, bit for bit). RMSNorm and SwiGLU at the
+   fused-op path's tensors (Llama-2-7B widths, 8192 tokens, bf16) and at
+   edge shapes (fp32 and fp16, 37 rows, rows of 1000 and 1003, a float32
+   weight or gate beside bf16 x, the split form with unaligned halves).
+   Phases 3 and 4 each run under a watchdog that exits non-zero if a
+   kernel hangs;
 4. times each kernel, its plain version and, as a yardstick only,
    ``scaled_dot_product_attention`` (which the port never calls; for the
    varlen and flashmask kernels with the dense bool mask) and
@@ -249,40 +256,77 @@ def build():
         for line in info.ptxas:
             print(f"  {line}")
     print(f"build wall {wall:.1f} s (nvcc processes run in parallel; each "
-          f"flash library holds a fixed-length, a varlen and a flashmask "
-          f"kernel, the fused one RMSNorm and SwiGLU)")
+          f"flash library holds a bf16 tensor-core kernel and an fp32/fp16 "
+          f"FMA kernel, each in a fixed-length, a varlen and a flashmask "
+          f"instantiation, the fused one RMSNorm and SwiGLU)")
     check(set(infos) == set(_build.SOURCES), f"built {sorted(infos)}")
-    sass_counts(infos["flash_fwd"].path)
+    for name in HOPPER_KERNELS:
+        for entry, stores, loads in hopper_spills(infos[name].ptxas):
+            check(stores == 0 and loads == 0, f"ptxas spills {stores} / "
+                  f"{loads} bytes in {entry} (head_dim 64)")
+    sass_counts(infos)
 
 
-def sass_counts(lib):
-    """Counts the tensor-core products (``HGMMA``) and TMA tile loads
-    (``UTMALDG``) in the SASS of each bf16 forward instantiation
-    (``flash_fwd_hopper``) of the built library; each must have both. The
+def hopper_spills(ptxas):
+    """(entry, spill store bytes, spill load bytes) of each bf16
+    tensor-core instantiation at head_dim 64 (the main path's) in
+    ptxas's ``-v`` lines: each entry's "Compiling entry" line comes
+    before its spill line."""
+    out, entry = [], None
+    for line in ptxas:
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry and "_hopperILi64E" in entry:
+            out.append((entry, int(m.group(1)), int(m.group(2))))
+            entry = None
+    return out
+
+
+# per library: the bf16 tensor-core kernel's name, and what its HGMMA
+# products from descriptors alone and with the transpose bit (.tnspB: the
+# A operand from registers, B MN-major) compute
+HOPPER_KERNELS = {
+    "flash_fwd": ("flash_fwd_hopper", "S = QK^T", "O += PV"),
+    "flash_bwd_dq": ("flash_bwd_dq_hopper", "S = QK^T and dP = dO V^T",
+                     "dQ += dS K, hi and lo"),
+    "flash_bwd_dkv": ("flash_bwd_dkv_hopper", "S^T = K Q^T and dP^T = V dO^T",
+                      "dV += P^T dO and dK += dS^T Q, hi and lo"),
+}
+
+
+def sass_counts(infos):
+    """Counts the tensor-core products (``HGMMA``, split by product) and
+    TMA tile loads (``UTMALDG``) in the SASS of each bf16 instantiation
+    (forward, dQ, dK/dV) of the built libraries; each must have both. The
     toolkit's ``cuobjdump`` reads the SASS; without it the count is
     skipped and said so."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         print("cuobjdump not found: SASS counts skipped")
         return
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True, timeout=120).stdout
-    funcs = re.split(r"\n\s*Function : ", sass)[1:]
-    hopper = [f for f in funcs if "flash_fwd_hopper" in f.split("\n", 1)[0]]
-    check(len(hopper) == 9, f"{len(hopper)} bf16 forward instantiations in "
-          f"the SASS, want 9 (3 masks x 3 head_dims)")
-    for f in hopper:
-        name = f.split("\n", 1)[0].strip()
-        mma = re.findall(r"HGMMA\.(\d+x\d+x\d+)\S* ([^;]*);", f)
-        # S = Q K^T reads both operands through descriptors; O += P V
-        # takes P from registers and V with the transpose bit (.tnspB)
-        n_pv = sum("tnspB" in ops for _, ops in mma)
-        n_s, n_tma = len(mma) - n_pv, f.count("UTMALDG")
-        shapes = sorted(set(shape for shape, _ in mma))
-        print(f"  SASS {name}: HGMMA {len(mma)} ({n_s} for S = QK^T, {n_pv} "
-              f"for O += PV; {', '.join(shapes)}), UTMALDG {n_tma}")
-        check(n_s > 0 and n_pv > 0 and n_tma > 0, f"{name}: HGMMA {n_s} + "
-              f"{n_pv}, UTMALDG {n_tma}")
+    for lib, (kernel, from_desc, from_regs) in HOPPER_KERNELS.items():
+        sass = subprocess.run([tool, "-sass", str(infos[lib].path)],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        funcs = re.split(r"\n\s*Function : ", sass)[1:]
+        hopper = [f for f in funcs if kernel in f.split("\n", 1)[0]]
+        check(len(hopper) == 9, f"{len(hopper)} {kernel} instantiations in "
+              f"the SASS, want 9 (3 masks x 3 head_dims)")
+        for f in hopper:
+            name = f.split("\n", 1)[0].strip()
+            mma = re.findall(r"HGMMA\.(\d+x\d+x\d+)\S* ([^;]*);", f)
+            n_regs = sum("tnspB" in ops for _, ops in mma)
+            n_desc, n_tma = len(mma) - n_regs, f.count("UTMALDG")
+            shapes = sorted(set(shape for shape, _ in mma))
+            print(f"  SASS {name}: HGMMA {len(mma)} ({n_desc} for "
+                  f"{from_desc}, {n_regs} for {from_regs}; "
+                  f"{', '.join(shapes)}), UTMALDG {n_tma}")
+            check(n_desc > 0 and n_regs > 0 and n_tma > 0, f"{name}: HGMMA "
+                  f"{n_desc} + {n_regs}, UTMALDG {n_tma}")
 
 
 def _inputs(bh, sq, sk, d, dtype, seed):
@@ -309,13 +353,16 @@ def limit(dtype, key, want, abs_v_out=None):
     largest element. The forward also rounds P to bf16 against a running
     rather than the final max, which moves each term of P.V by at most
     2^-8 p|v| and l by 2^-8 of itself: ``abs_v_out`` is the plain output
-    with |V| (sum_j p_j |v_j| / l)."""
+    with |V| (sum_j p_j |v_j| / l). fp16 outputs: the same at fp16's ulp
+    (2^-10 |x|, P's rounding 2^-11)."""
     if key == "lse" or dtype == torch.float32:
         return 1e-4 if key == "lse" and dtype == torch.bfloat16 else 1e-5
+    ulp, p_round = (2 ** -7, 2 ** -8) if dtype == torch.bfloat16 \
+        else (2 ** -10, 2 ** -11)
     want = want.float().abs()
-    lim = 2 ** -7 * want + 1e-4 * want.max()
+    lim = ulp * want + 1e-4 * want.max()
     if key == "out":
-        lim = lim + 2 ** -8 * (want + abs_v_out.float())
+        lim = lim + p_round * (want + abs_v_out.float())
     return lim
 
 
@@ -692,15 +739,40 @@ BF16_FWD_EDGE = [(2, 1000, 1000, 1000, True), (2, 1024, 1024, 1024, True),
 BF16_VARLEN_EDGE = [1, 0, 130, 64, 1, 1]
 
 
-def bf16_forward_edges():
-    """The bf16 forward kernel (fixed-length, varlen, flashmask) at its edge
-    shapes, at head_dim 32, 64 and 128, against the plain versions."""
+def hold_backward(label, got, want, unseen=None, blind=None):
+    """Holds a bf16 backward's (dq, dk, dv) against the plain versions'
+    with ``limit``; ``unseen`` (a bool mask over dk's leading dimensions)
+    marks keys that no query sees, whose dk and dv must be exactly 0, and
+    ``blind`` rows that see no key, whose dq must be 0."""
+    errs, ratios = {}, {}
+    for key, g, w in zip(("dq", "dk", "dv"), got, want):
+        errs[key], ratios[key] = within(g, w, limit(torch.bfloat16, key, w))
+        check(bool(torch.isfinite(g.float()).all()), f"{key} non-finite at "
+              f"{label}")
+    print(f"{label} backward: max abs err " + " ".join(
+        f"{k} {v:.3g}" for k, v in errs.items()) + "; of the limit " +
+        " ".join(f"{k} {v:.3g}" for k, v in ratios.items()))
+    for key, ratio in ratios.items():
+        check(math.isfinite(ratio) and ratio <= 1.0,
+              f"{key} at {ratio:.3g} of its limit at {label}")
+    if unseen is not None and unseen.any():
+        check(not got[1][unseen].any() and not got[2][unseen].any(),
+              f"keys that no query sees have dk or dv not 0 at {label}")
+    if blind is not None and blind.any():
+        check(not got[0][blind].any(), f"rows that see no key have dq not 0 "
+              f"at {label}")
+
+
+def bf16_edges():
+    """The bf16 tensor-core kernels (forward, dK/dV, dQ; fixed-length,
+    varlen, flashmask) at their edge shapes, at head_dim 32, 64 and 128,
+    against the plain versions."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import flash_varlen as fv
     for d in (32, 64, 128):
         scale = 1.0 / math.sqrt(d)
         for bh, sq, sk, kv_len, causal in BF16_FWD_EDGE:
-            q, k, v, _ = _inputs(bh, sq, sk, d, torch.bfloat16, seed=20)
+            q, k, v, do = _inputs(bh, sq, sk, d, torch.bfloat16, seed=20)
             args = (causal, scale, kv_len, sk - sq)
             got = fa.flash_fwd(q, k, v, *args)
             want = fa.flash_fwd_plain(q, k, v, *args)
@@ -708,19 +780,35 @@ def bf16_forward_edges():
             blind = torch.zeros(bh, sq, dtype=torch.bool, device="cuda")
             if causal and sq > sk:
                 blind[:, :sq - sk] = True
-            hold_forward(f"edge bh {bh} sq {sq} sk {sk} kv_len {kv_len} d {d} "
-                         f"bf16 causal {causal}", got, want, abs_v, blind)
+            label = (f"edge bh {bh} sq {sq} sk {sk} kv_len {kv_len} d {d} "
+                     f"bf16 causal {causal}")
+            hold_forward(label, got, want, abs_v, blind)
+            lse, delta = got[1], fa.attention_delta(do, got[0])
+            bwd = (q, k, v, do, lse, delta, *args)
+            unseen = torch.zeros(bh, sk, dtype=torch.bool, device="cuda")
+            unseen[:, kv_len:] = True
+            hold_backward(label, (fa.flash_bwd_dq(*bwd),
+                                  *fa.flash_bwd_dkv(*bwd)),
+                          (fa.flash_bwd_dq_plain(*bwd),
+                           *fa.flash_bwd_dkv_plain(*bwd)), unseen, blind)
         lens = BF16_VARLEN_EDGE
         for causal in (True, False):
-            q, k, v, _, _, _, plan = _varlen_inputs(
+            q, k, v, do, _, _, plan = _varlen_inputs(
                 lens, lens, 0, 0, 3, d, torch.bfloat16, causal, seed=21)
             got = fv.varlen_fwd(q, k, v, plan, scale)
             want = fv.varlen_fwd_plain(q, k, v, plan, scale)
             abs_v = fv.varlen_fwd_plain(q, k, v.abs(), plan, scale)[0]
-            hold_forward(f"edge varlen segments {lens} d {d} bf16 causal "
-                         f"{causal}", got, want, abs_v)
+            label = f"edge varlen segments {lens} d {d} bf16 causal {causal}"
+            hold_forward(label, got, want, abs_v)
             check(torch.equal(got[0][0], v[0]), "a one-token segment's "
                   "output is not its own v")
+            bwd = (q, k, v, do, got[1], fv.varlen_delta(do, got[0]), plan,
+                   scale)
+            dq, dk, dv = fv.varlen_bwd_dq(*bwd), *fv.varlen_bwd_dkv(*bwd)
+            hold_backward(label, (dq, dk, dv), (fv.varlen_bwd_dq_plain(*bwd),
+                                                *fv.varlen_bwd_dkv_plain(*bwd)))
+            check(torch.equal(dv[0], do[0]), "a one-token segment's dv is not "
+                  "its own query's dO")
         # flashmask: every key tile but tile 3 bans every query row
         s = 512
         st = torch.zeros(s, dtype=torch.int32, device="cuda")
@@ -731,14 +819,91 @@ def bf16_forward_edges():
             plan = fv.flashmask_plan(startend, 2, causal)
             check(int(fv.flashmask_tiles(plan, s)[0].sum(1).max()) == 1,
                   "the one-open-tile mask visits more than one tile")
-            q, k, v, _ = _inputs(2, s, s, d, torch.bfloat16, seed=22)
+            q, k, v, do = _inputs(2, s, s, d, torch.bfloat16, seed=22)
             got = fv.flashmask_fwd(q, k, v, plan, scale)
             want = fv.flashmask_fwd_plain(q, k, v, plan, scale)
             abs_v = fv.flashmask_fwd_plain(q, k, v.abs(), plan, scale)[0]
-            blind = ~fv.flashmask_mask(plan, 2, s, s).any(-1)
-            hold_forward(f"edge flashmask one open key tile s {s} d {d} bf16 "
-                         f"causal {causal}", got, want, abs_v, blind)
+            mask = fv.flashmask_mask(plan, 2, s, s)
+            label = (f"edge flashmask one open key tile s {s} d {d} bf16 "
+                     f"causal {causal}")
+            hold_forward(label, got, want, abs_v, ~mask.any(-1))
+            bwd = (q, k, v, do, got[1], fa.attention_delta(do, got[0]), plan,
+                   scale)
+            hold_backward(label, (fv.flashmask_bwd_dq(*bwd),
+                                  *fv.flashmask_bwd_dkv(*bwd)),
+                          (fv.flashmask_bwd_dq_plain(*bwd),
+                           *fv.flashmask_bwd_dkv_plain(*bwd)),
+                          ~mask.any(1), ~mask.any(-1))
     torch.cuda.synchronize()
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose base sits one element past a
+    16-byte boundary (a view at an odd offset of a flat buffer)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def misaligned_checks():
+    """bf16 inputs whose base is not 16-byte aligned (TMA refuses it) reach
+    the same kernels as fresh aligned copies: forward, dK/dV and dQ of the
+    three masks give, bit for bit, what they give on aligned inputs."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import flash_varlen as fv
+    q, k, v, do = _inputs(2, 256, 256, 64, torch.bfloat16, seed=40)
+    args = (True, 0.125, 256, 0)
+    cu = torch.tensor([0, 100, 300, 512], device="cuda").int()
+    vplan = fv.varlen_plan(cu, cu, 512, 512, True)
+    fplan = fv.flashmask_plan(torch.full((2, 1, 256, 1), 200,
+                                         dtype=torch.int32, device="cuda"),
+                              1, True)
+    paths = {
+        "fixed-length": (lambda *t: fa.flash_fwd(*t, *args),
+                         lambda *t: fa.flash_bwd_dkv(*t, *args),
+                         lambda *t: fa.flash_bwd_dq(*t, *args),
+                         fa.attention_delta, lambda t: t),
+        "varlen": (lambda *t: fv.varlen_fwd(*t, vplan, 0.125),
+                   lambda *t: fv.varlen_bwd_dkv(*t, vplan, 0.125),
+                   lambda *t: fv.varlen_bwd_dq(*t, vplan, 0.125),
+                   fv.varlen_delta, lambda t: t.reshape(512, 1, 64)),
+        "flashmask": (lambda *t: fv.flashmask_fwd(*t, fplan, 0.125),
+                      lambda *t: fv.flashmask_bwd_dkv(*t, fplan, 0.125),
+                      lambda *t: fv.flashmask_bwd_dq(*t, fplan, 0.125),
+                      fa.attention_delta, lambda t: t),
+    }
+    for name, (fwd, dkv, dq, delta_of, shape) in paths.items():
+        x = [shape(t) for t in (q, k, v, do)]
+        results = []
+        for ins in (x, [_misaligned(t) for t in x]):
+            out, lse = fwd(*ins[:3])
+            delta = delta_of(x[3], out)
+            results.append((out, lse, dq(*ins, lse, delta),
+                            *dkv(*ins, lse, delta)))
+        torch.cuda.synchronize()
+        for key, a, b in zip(("out", "lse", "dq", "dk", "dv"), *results):
+            check(torch.equal(a, b), f"{name} {key} on a misaligned base "
+                  f"differs from the aligned run (max {_err(a, b):.3g})")
+        print(f"misaligned bf16 base, {name}: out, lse, dq, dk, dv equal to "
+              f"the aligned run, bit for bit")
+
+
+def repairs():
+    """fp16 io (the FMA kernels) for the three masks, forward and
+    backward; a head_dim of 80, run at 128 with zero columns, in bf16 and
+    fp16; a misaligned bf16 base."""
+    hold_against_plain(4, 200, 200, 64, torch.float16, True, seed=30)
+    hold_against_plain(4, 128, 256, 80, torch.float16, False, seed=31)
+    hold_against_plain(4, 200, 200, 80, torch.bfloat16, True, seed=32)
+    for dtype, d, causal in ((torch.float16, 64, True),
+                             (torch.float16, 80, False),
+                             (torch.bfloat16, 80, True)):
+        hold_varlen_against_plain(*EDGE, 4, d, dtype, causal, seed=33)
+        hold_flashmask_against_plain(
+            2, 200, 136, 4, d, dtype, causal,
+            _fm_edge_startend(2, 4, 200, 136, seed=7), seed=34)
+    misaligned_checks()
 
 
 def kernel_checks():
@@ -760,7 +925,8 @@ def kernel_checks():
     for causal in (False, True):
         hold_flashmask_against_plain(2, 200, 136, 4, 128, torch.float32,
                                      causal, edge_startend, seed=8)
-    bf16_forward_edges()
+    bf16_edges()
+    repairs()
     fused_errs, fused_results = fused_checks()
     errs.update(fused_errs)
     return errs, varlen_results, (fm_results, fm_abs_v), fused_results

@@ -1,6 +1,8 @@
 // Flash-attention backward, dK and dV, for Hopper (sm_90a): fixed-length
 // causal batches, packed variable-length sequences and flashmask (start/end
-// row) masks, one kernel templated on the mask.
+// row) masks, two kernels templated on the mask: a tensor-core kernel for
+// bf16 io (`flash_bwd_dkv_hopper`) and an fp32 FMA kernel for float and
+// fp16 io (`flash_bwd_dkv_kernel`). `dkv_any` picks one by the io type.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py `_dkv_kernel`
 // (launched from `_bwd`; entry `pt_flash_bwd_dkv`, CausalMask),
@@ -10,9 +12,9 @@
 // StartEndMask). Same function: for
 // one key tile, loop over the query tiles the mask lets see it; recompute
 // p = exp(s - lse) under the forward's mask, then dV += p^T dO,
-// dP = dO V^T, dS = p (dP - delta) scale, dK += dS^T Q, all in fp32;
-// delta = rowsum(dO o) comes in precomputed. dK and dV are written once, in
-// the io type; a key no query sees gets 0.
+// dP = dO V^T, dS = p (dP - delta) scale, dK += dS^T Q, all with fp32 p
+// and dS; delta = rowsum(dO o) comes in precomputed. dK and dV are written
+// once, in the io type; a key no query sees gets 0.
 //
 // What bounds it on the H100: four products over the kept pairs. At the
 // fixed-length training shape (BH = 128, S = 1024, D = 64, bf16, causal)
@@ -21,16 +23,52 @@
 // H = 16, ten causal documents) 4.8e10 FLOP (48 us) against 102 MB
 // (30 us): the operations in both; at the flashmask shape (BH = 32,
 // S = 4096, 5.3e6 kept pairs per head) 4.4e10 FLOP (44 us) against 102 MB
-// (30 us): the operations. This first kernel does its products as
-// fp32 FMAs from shared memory, so the FMA rate and shared-memory reads
-// bound it instead. What the design does: k and v stay in shared memory for
-// the whole block, dK and dV accumulate in registers (a 4 x D/16 block each
-// per thread) and never round-trip to device memory, and query tiles the
-// mask rules out (above the diagonal, outside the key tile's segments, or
-// banned by every column of the key tile) are never loaded.
+// (30 us): the operations. k and v stay on chip for the whole block, dK
+// and dV accumulate in registers and never round-trip to device memory,
+// and query tiles the mask rules out (above the diagonal, outside the key
+// tile's segments, or banned by every column of the key tile) are never
+// loaded.
 //
-// Grid: (ceil(Sk / 64), heads); one block per (head, 64-row key tile).
+// The bf16 kernel (`flash_bwd_dkv_hopper`), one block per (head, 64-row
+// key tile), one warpgroup (128 threads).
+// - Thread 0 loads the K and V tiles by TMA and streams (Q, dO) tile
+//   pairs through a ring of STAGES shared-memory stages: the first STAGES
+//   at the start, then each into the stage the block has just finished (a
+//   block barrier says when). Beside each pair every thread stores one of
+//   the query tile's 64 lse (times log2 e) and 64 delta values, read from
+//   device memory a tile ahead, and arrives on the stage's "full" mbarrier
+//   (thread 0 with the TMA's byte count). Loads and products walk the same
+//   tiles, `query_tiles(kt)` then `tile_open`. No producer warp: a
+//   160-thread block is allotted registers as if it had 192 threads, which
+//   at two blocks an SM left D = 64 spilling.
+// - The block computes the scores transposed, S^T = K Q^T and
+//   dP^T = V dO^T (D / 16 `wgmma` m64n64k16 each, both operands K-major
+//   from shared memory), so that P^T and dS^T land in the A-operand layout
+//   of the next products: a thread holds key rows r and r + 8 and, of each
+//   8 query columns, the pair at 2 * (t % 4), whose lse and delta it reads
+//   from the stage. Tiles the mask keeps whole skip the mask.
+// - dV += P^T dO and dK += dS^T Q take P^T and dS^T from registers and dO
+//   and Q as MN-major operands (the transpose bit), as the forward's P V.
+//   P and dS are each split into two bf16 parts, hi = bf16(x) and
+//   lo = bf16(x - hi), each a product into the same fp32 accumulator:
+//   rounding them once to bf16 would leave each term off by up to 2^-9 of
+//   itself, which summed over a thousand queries is several times the card
+//   tests' limit on elements near 0; hi + lo keeps about 2^-17. So the
+//   kernel runs 6 products a tile where the TPU's runs 4, and holds the
+//   reference's fp32 P and dS.
+// - Registers: S^T and dP^T (32 each), dK and dV (D / 2 each) and the
+//   A operands (16 for each of P hi, P lo, dS hi, dS lo) a thread; D <= 64
+//   runs two blocks an SM (up to 255 registers a thread), D = 128 one.
+// The FMA kernel (`flash_bwd_dkv_kernel`), 256 threads: products as fp32
+// FMAs from shared memory, for the fp32 and fp16 models and checks.
+//
+// Grid: FMA (ceil(Sk / 64), heads); bf16 the same for the fixed-length
+// mask and (heads, ceil(Sk / 64)) for the varlen and flashmask masks, the
+// key tiles first to last (the longest first under a causal mask).
 #include "flash_common.cuh"
+#include "hopper.cuh"
+
+#include <type_traits>
 
 namespace pt_flash {
 
@@ -170,6 +208,245 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
+// ------------------------------------------------ the bf16 tensor-core kernel
+
+// The bf16 kernel's shared memory: the K and V tiles, then STAGES (Q, dO)
+// stages, then each stage's lse and delta rows (2 x 64 floats), then the
+// mbarriers (1024 bytes of slack to align the tiles).
+template <int D>
+struct DkvRing {
+  static constexpr int STAGES = D == 128 ? 2 : 3;
+  static constexpr size_t SMEM = 1024 + (size_t)HopTile<D>::BYTES * (2 + 2 * STAGES) +
+                                 sizeof(float) * 2 * BQ * STAGES +
+                                 sizeof(uint64_t) * (1 + STAGES);
+};
+
+// One query tile's P^T and dS^T on the S^T accumulator `st` (key rows r
+// and r + 8: h2 = 0, 1; query columns 8 jj + cq + e) and dP^T in `dpt`:
+// p = exp(s scale - lse) under the mask, left in `st`, and
+// dS = p (dP - delta) scale, left in `dpt`. `stats` holds the query tile's
+// lse * log2(e), then its delta. FULL: the mask keeps every pair of the
+// tile, so no element is tested.
+template <bool FULL, typename Mask>
+__device__ __forceinline__ void dkv_p_ds_tile(const Mask& mask, int i, const RowInfo (&ki)[2],
+                                              int cq, float scale, const float* stats,
+                                              float (&st)[32], float (&dpt)[32]) {
+  const float scale_log2 = scale * LOG2E;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * jj + cq + e;
+      const float lse2 = stats[col], dl = stats[BQ + col];
+      RowInfo qi{};
+      if (!FULL) qi = mask.q_row(i * BQ + col);
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int x = 4 * jj + 2 * h2 + e;
+        float p = exp2_ftz(fmaf(st[x], scale_log2, -lse2));
+        if (!FULL && !mask.visible(qi, ki[h2])) p = 0.f;
+        st[x] = p;
+        dpt[x] = p * (dpt[x] - dl) * scale;
+      }
+    }
+}
+
+template <int D, typename Mask>
+__global__ void __launch_bounds__(HOP_CONSUMERS, D == 128 ? 1 : 2)
+flash_bwd_dkv_hopper(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, Layout lay, Mask heads_mask, float scale,
+                     int packed, int tiles_x) {
+  using Tile = HopTile<D>;
+  constexpr int STAGES = DkvRing<D>::STAGES;
+  using namespace pt_hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Ks = align_1024(smem_raw);
+  uint8_t* Vs = Ks + Tile::BYTES;
+  uint8_t* QdOs = Vs + Tile::BYTES;  // stage s: Q at 2 s tiles on, dO one tile after
+  // stage s: the query tile's 64 lse * log2(e), then its 64 delta
+  float* stats = reinterpret_cast<float*>(QdOs + 2 * STAGES * Tile::BYTES);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(stats + 2 * BQ * STAGES);
+  uint64_t* full = kv_full + 1;
+
+  const int h = tiles_x ? blockIdx.y : blockIdx.x;
+  const int kt = tiles_x ? blockIdx.x : blockIdx.y;
+  const int k0 = kt * BK;
+  const Mask mask = heads_mask.at_head(h);
+  const int2 tiles = mask.query_tiles(kt);
+  // the query tiles visited, in order: the loads and the products walk the
+  // same list
+  auto next_tile = [&](int i) {
+    for (++i; i < tiles.y && !mask.tile_open(i, kt); ++i) {
+    }
+    return i;
+  };
+  const int t = threadIdx.x;
+  const float* lb = lse + (size_t)h * lay.sq;
+  const float* db = delta + (size_t)h * lay.sq;
+  // thread t's value of query tile i's stats: lse * log2(e) of row t, or
+  // delta of row t - 64; 0 past the last row
+  auto stat = [&](int i) {
+    const int qp = i * BQ + (t & (BQ - 1));
+    if (qp >= lay.sq) return 0.f;
+    return t < BQ ? lb[qp] * LOG2E : db[qp];
+  };
+  // query tile i into ring stage s: every thread stores its stats value and
+  // arrives, thread 0 with the TMA loads' byte count
+  auto load_stage = [&](int s, int i, float value) {
+    stats[2 * BQ * s + t] = value;
+    if (t == 0) {
+      mbar_arrive_expect_tx(full + s, 2 * Tile::BYTES);
+      uint8_t* Qs = QdOs + 2 * s * Tile::BYTES;
+      tma_tile<D>(Qs, &tm_q, full + s, i * BQ, h, packed);
+      tma_tile<D>(Qs + Tile::BYTES, &tm_do, full + s, i * BQ, h, packed);
+    } else {
+      mbar_arrive(full + s);
+    }
+  };
+
+  if (t == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) mbar_init(full + s, HOP_CONSUMERS);
+    mbar_fence_init();
+    tma_prefetch_map(&tm_k);
+    tma_prefetch_map(&tm_v);
+    tma_prefetch_map(&tm_q);
+    tma_prefetch_map(&tm_do);
+  }
+  __syncthreads();
+  if (t == 0) {
+    mbar_arrive_expect_tx(kv_full, 2 * Tile::BYTES);
+    tma_tile<D>(Ks, &tm_k, kv_full, k0, h, packed);
+    tma_tile<D>(Vs, &tm_v, kv_full, k0, h, packed);
+  }
+  int fill = next_tile(tiles.x - 1);  // the next query tile to load
+  for (int s = 0; s < STAGES && fill < tiles.y; ++s, fill = next_tile(fill))
+    load_stage(s, fill, stat(fill));
+
+  // Thread t holds key rows r and r + 8 of the tile and, of each 8 columns
+  // of S^T, dP^T, dK or dV, the pair at 2 * (t % 4).
+  const int r = 16 * (t / 32) + (t % 32) / 4;
+  const int cq = 2 * (t % 4);
+  const uint32_t k_addr = smem_u32(Ks), v_addr = smem_u32(Vs);
+  auto q_addr = [&](int s) { return smem_u32(QdOs + 2 * s * Tile::BYTES); };
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  const RowInfo ki[2] = {mask.k_row(k0 + r), mask.k_row(k0 + r + 8)};
+
+  mbar_wait(kv_full, 0);
+  int it = 0;
+  for (int i = next_tile(tiles.x - 1); i < tiles.y; i = next_tile(i), ++it) {
+    const int s = it % STAGES;
+    // the stats of the tile that will refill this stage, read now so that
+    // the load's latency passes under the products
+    const float next_stat = fill < tiles.y ? stat(fill) : 0.f;
+    // S^T and dP^T are this tile's alone: set here, so that no value of
+    // them stays live across the loop (the products' operands read them)
+    float st[32], dpt[32];
+#pragma unroll
+    for (int x = 0; x < 32; ++x) st[x] = dpt[x] = 0.f;
+    mbar_wait(full + s, (it / STAGES) & 1);
+    fence_regs(st);
+    fence_regs(dpt);
+    wgmma_fence();
+    wgmma_nt<D>(st, k_addr, q_addr(s));                  // S^T = K Q^T
+    wgmma_nt<D>(dpt, v_addr, q_addr(s) + Tile::BYTES);   // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+    const float* stats_s = stats + 2 * BQ * s;
+    if (mask.tile_full(i, kt))
+      dkv_p_ds_tile<true>(mask, i, ki, cq, scale, stats_s, st, dpt);
+    else
+      dkv_p_ds_tile<false>(mask, i, ki, cq, scale, stats_s, st, dpt);
+    // P^T and dS^T as A operands, hi and lo parts: their k-th 16 queries
+    // are values 8k .. 8k + 7
+    uint32_t ph[4][4], pl[4][4], sh[4][4], sl[4][4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        pack_bf16_split(st[8 * k + 2 * x], st[8 * k + 2 * x + 1], ph[k][x], pl[k][x]);
+        pack_bf16_split(dpt[8 * k + 2 * x], dpt[8 * k + 2 * x + 1], sh[k][x], sl[k][x]);
+      }
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {  // dV += P^T dO
+      wgmma_rs_d<D>(dv_acc, ph[k], Tile::mn_major(q_addr(s) + Tile::BYTES, k));
+      wgmma_rs_d<D>(dv_acc, pl[k], Tile::mn_major(q_addr(s) + Tile::BYTES, k));
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {  // dK += dS^T Q
+      wgmma_rs_d<D>(dk_acc, sh[k], Tile::mn_major(q_addr(s), k));
+      wgmma_rs_d<D>(dk_acc, sl[k], Tile::mn_major(q_addr(s), k));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      fence_regs(ph[k]);
+      fence_regs(pl[k]);
+      fence_regs(sh[k]);
+      fence_regs(sl[k]);
+    }
+    if (fill < tiles.y) {  // the same for the whole block
+      __syncthreads();       // every thread's products and stats reads are done
+      load_stage(s, fill, next_stat);
+      fill = next_tile(fill);
+    }
+  }
+
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int kp = k0 + r + 8 * h2;
+    if (kp >= lay.sk) continue;
+    const long long off = h * lay.k_hs + (long long)kp * lay.k_rs + cq;
+#pragma unroll
+    for (int jd = 0; jd < D / 8; ++jd) {
+      const int x = 4 * jd + 2 * h2;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * jd) =
+          __floats2bfloat162_rn(dk_acc[x], dk_acc[x + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * jd) =
+          __floats2bfloat162_rn(dv_acc[x], dv_acc[x + 1]);
+    }
+  }
+}
+
+template <int D, typename Mask>
+cudaError_t dkv_hopper(const void* q, const void* k, const void* v, const void* dout,
+                       const void* lse, const void* delta, void* dk, void* dv, int heads,
+                       Layout lay, Mask mask, float scale, int packed, void* stream) {
+  const int nkt = (lay.sk + BK - 1) / BK;
+  // as the forward's grid (fwd_hopper): one head's tiles side by side for
+  // the fixed-length mask, the heads side by side for the others
+  const int tiles_x = std::is_same<Mask, CausalMask>::value;
+  const dim3 grid = tiles_x ? dim3(nkt, heads) : dim3(heads, nkt);
+  if (grid.y > 65535 || heads < 1 || nkt < 1) return cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mdo;
+  int err = hop_map<D>(&mq, q, lay.sq, heads, lay.q_rs, lay.q_hs, packed);
+  if (!err) err = hop_map<D>(&mdo, dout, lay.sq, heads, lay.q_rs, lay.q_hs, packed);
+  if (!err) err = hop_map<D>(&mk, k, lay.sk, heads, lay.k_rs, lay.k_hs, packed);
+  if (!err) err = hop_map<D>(&mv, v, lay.sk, heads, lay.k_rs, lay.k_hs, packed);
+  if (err) return (cudaError_t)err;
+  return launch_nt(flash_bwd_dkv_hopper<D, Mask>, grid, HOP_CONSUMERS, DkvRing<D>::SMEM, stream,
+                   mq,
+                   mk, mv, mdo, (const float*)lse, (const float*)delta, (__nv_bfloat16*)dk,
+                   (__nv_bfloat16*)dv, lay, mask, scale, packed, tiles_x);
+}
+
+// ------------------------------------------------------ launch and entries
+
 template <typename T, int D, typename Mask>
 cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                 const void* delta, void* dk, void* dv, int heads, Layout lay, Mask mask,
@@ -181,30 +458,39 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout, c
                 (T*)dv, lay, mask, scale);
 }
 
+// bf16 to the tensor-core kernel, float and fp16 to the FMA kernel (io:
+// see Io); `packed` says the tensors are [T, H, D] (varlen) rather than
+// [BH, S, D].
 template <typename Mask>
-cudaError_t dkv_any(int d, int is_bf16, const void* q, const void* k, const void* v,
+cudaError_t dkv_any(int d, int io, const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta, void* dk, void* dv,
-                    int heads, Layout lay, Mask mask, float scale, void* stream) {
-  if (is_bf16) {
-    PT_FLASH_SWITCH_D(d, return dkv<__nv_bfloat16, D>(q, k, v, dout, lse, delta, dk, dv, heads,
-                                                       lay, mask, scale, stream))
+                    int heads, Layout lay, Mask mask, float scale, int packed, void* stream) {
+  if (io == IO_BF16) {
+    PT_FLASH_SWITCH_D(d, return dkv_hopper<D>(q, k, v, dout, lse, delta, dk, dv, heads, lay, mask,
+                                              scale, packed, stream))
   }
-  PT_FLASH_SWITCH_D(d, return dkv<float, D>(q, k, v, dout, lse, delta, dk, dv, heads, lay, mask,
-                                            scale, stream))
+  PT_FLASH_SWITCH_D(d, PT_FLASH_SWITCH_FMA_IO(io, return dkv<T, D>(q, k, v, dout, lse, delta, dk,
+                                                                   dv, heads, lay, mask, scale,
+                                                                   stream)))
 }
 
 }  // namespace pt_flash
 
+// Every entry: io 0 float, 1 bf16, 2 fp16 (pt_flash::Io); bf16 q, k, v and
+// dout start on 16-byte boundaries (their tensor maps need it; the
+// wrappers see to it); a failed tensor-map encode returns the error code
+// of libcuda, a refused launch cudaGetLastError().
+//
 // q, dout [bh, sq, d] and k, v, dk, dv [bh, sk, d] in the io type,
 // contiguous; lse and delta float [bh, sq]. Launches on `stream` and
 // returns cudaGetLastError().
 extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                 const void* lse, const void* delta, void* dk, void* dv, int bh,
-                                int sq, int sk, int d, int is_bf16, int causal, float scale,
+                                int sq, int sk, int d, int io, int causal, float scale,
                                 int kv_len, int q_offset, void* stream) {
   const pt_flash::CausalMask mask{sq, causal, kv_len, q_offset};
-  return (int)pt_flash::dkv_any(d, is_bf16, q, k, v, dout, lse, delta, dk, dv, bh,
-                                pt_flash::dense_layout(sq, sk, d), mask, scale, stream);
+  return (int)pt_flash::dkv_any(d, io, q, k, v, dout, lse, delta, dk, dv, bh,
+                                pt_flash::dense_layout(sq, sk, d), mask, scale, 0, stream);
 }
 
 // q, dout [tq, h, d] and k, v, dk, dv [tk, h, d] in the io type, contiguous;
@@ -215,11 +501,11 @@ extern "C" int pt_varlen_bwd_dkv(const void* q, const void* k, const void* v, co
                                  const void* lse, const void* delta, void* dk, void* dv,
                                  const int* seg_q, const int* pos_q, const int* seg_k,
                                  const int* pos_k, const int* lo, const int* hi, int h, int tq,
-                                 int tk, int d, int is_bf16, int causal, float scale,
+                                 int tk, int d, int io, int causal, float scale,
                                  void* stream) {
   const pt_flash::SegmentMask mask{seg_q, pos_q, seg_k, pos_k, lo, hi, causal};
-  return (int)pt_flash::dkv_any(d, is_bf16, q, k, v, dout, lse, delta, dk, dv, h,
-                                pt_flash::packed_layout(tq, tk, h, d), mask, scale, stream);
+  return (int)pt_flash::dkv_any(d, io, q, k, v, dout, lse, delta, dk, dv, h,
+                                pt_flash::packed_layout(tq, tk, h, d), mask, scale, 1, stream);
 }
 
 // q, dout [bh, sq, d] and k, v, dk, dv [bh, sk, d] in the io type,
@@ -229,9 +515,9 @@ extern "C" int pt_flashmask_bwd_dkv(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,
                                     void* dk, void* dv, const int* st, const int* en,
                                     const int* st_max, const int* en_min, int bh, int h, int hs,
-                                    int sq, int sk, int d, int is_bf16, int causal, float scale,
+                                    int sq, int sk, int d, int io, int causal, float scale,
                                     void* stream) {
   const pt_flash::StartEndMask mask{st, en, st_max, en_min, h, hs, sq, sk, causal};
-  return (int)pt_flash::dkv_any(d, is_bf16, q, k, v, dout, lse, delta, dk, dv, bh,
-                                pt_flash::dense_layout(sq, sk, d), mask, scale, stream);
+  return (int)pt_flash::dkv_any(d, io, q, k, v, dout, lse, delta, dk, dv, bh,
+                                pt_flash::dense_layout(sq, sk, d), mask, scale, 0, stream);
 }

@@ -1,6 +1,8 @@
 // Flash-attention backward, dQ, for Hopper (sm_90a): fixed-length causal
 // batches, packed variable-length sequences and flashmask (start/end row)
-// masks, one kernel templated on the mask.
+// masks, two kernels templated on the mask: a tensor-core kernel for bf16
+// io (`flash_bwd_dq_hopper`) and an fp32 FMA kernel for float and fp16 io
+// (`flash_bwd_dq_kernel`). `dq_any` picks one by the io type.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py `_dq_kernel` (launched
 // from `_bwd`; entry `pt_flash_bwd_dq`, CausalMask),
@@ -10,8 +12,8 @@
 // StartEndMask). Same function: for
 // one query tile, loop over the key tiles the forward visits; recompute
 // p = exp(s - lse) under the forward's mask, dP = dO V^T,
-// dS = p (dP - delta) scale and dQ += dS K, all in fp32, written once in
-// the io type; a row that sees no key gets 0.
+// dS = p (dP - delta) scale and dQ += dS K, all with fp32 p and dS,
+// written once in the io type; a row that sees no key gets 0.
 //
 // What bounds it on the H100: three products over the kept pairs. At the
 // fixed-length training shape (BH = 128, S = 1024, D = 64, bf16, causal)
@@ -20,17 +22,50 @@
 // packed shape (T = 8192, H = 16, ten causal documents) 3.6e10 FLOP
 // (36 us) against 85 MB (25 us): the operations; at the flashmask shape
 // (BH = 32, S = 4096, 5.3e6 kept pairs per head) 3.3e10 FLOP (33 us)
-// against 85 MB (25 us): the operations. This first kernel does
-// its products as fp32 FMAs from shared memory, so the FMA rate and
-// shared-memory reads bound it instead. What the design does: q, dO, lse
-// and delta stay in shared memory for the whole block, dQ accumulates in
-// registers, k and v are streamed once per query tile, and key tiles the
-// mask rules out (past the diagonal, outside the segments, or fully
-// banned) are never loaded. Splitting dQ from dK/dV (as the TPU
-// kernel does) costs a second recompute of s and dP but needs no atomics.
+// against 85 MB (25 us): the operations. q, dO, lse and delta stay on
+// chip for the whole block, dQ accumulates in registers, k and v are
+// streamed once per query tile, and key tiles the mask rules out (past
+// the diagonal, outside the segments, or fully banned) are never loaded.
+// Splitting dQ from dK/dV (as the TPU kernel does) costs a second
+// recompute of s and dP but needs no atomics.
 //
-// Grid: (ceil(Sq / 64), heads); one block per (head, 64-row query tile).
+// The bf16 kernel (`flash_bwd_dq_hopper`), one block per (head, 64-row
+// query tile), one warpgroup (128 threads), four blocks an SM below
+// D = 128 (at most 128 registers a thread), two at 128.
+// - Thread 0 loads the Q and dO tiles by TMA and streams K and V tiles
+//   through a ring of STAGES shared-memory stages, each signalled on a
+//   "full" mbarrier by the TMA's byte count: the first STAGES tiles at the
+//   start, then each tile into the stage the block has just finished (a
+//   block barrier says when). Loads and products walk the same tiles,
+//   `key_tiles(qt)` then `tile_open`. Two stages, so that four blocks fit
+//   an SM's shared memory: more blocks hide more of each block's waits
+//   than a deeper ring (3 stages at three blocks an SM was 3-13% slower).
+//   No producer warp: a 160-thread block is allotted registers as if it
+//   had 192 threads, which at three blocks an SM left the masked
+//   instantiations spilling.
+// - S = Q K^T and dP = dO V^T are D / 16 `wgmma` m64n64k16 each, from
+//   shared memory with both operands K-major. p and dS are computed on the
+//   accumulator fragment: a thread holds rows r and r + 8, whose lse and
+//   delta it reads once. Tiles the mask keeps whole skip the mask.
+// - dQ += dS K takes dS from registers, packed in the accumulator's own
+//   order (as the forward packs P), and K as the MN-major operand (the
+//   transpose bit), as the forward reads V. dS is split into two bf16
+//   parts, hi = bf16(dS) and lo = bf16(dS - hi), each a product into the
+//   same fp32 accumulator: rounding dS once to bf16 would leave each term
+//   off by up to 2^-9 of itself, which summed over a thousand keys is
+//   several times the card tests' limit on elements near 0; hi + lo keeps
+//   about 2^-17. So the kernel runs 4 products a tile where the TPU's runs
+//   3, and holds the reference's fp32 dS.
+// The FMA kernel (`flash_bwd_dq_kernel`), 256 threads: products as fp32
+// FMAs from shared memory, for the fp32 and fp16 models and checks.
+//
+// Grid: FMA (ceil(Sq / 64), heads); bf16 the same for the fixed-length
+// mask and (heads, ceil(Sq / 64)) for the varlen and flashmask masks, the
+// query tiles last to first (the longest first under a causal mask).
 #include "flash_common.cuh"
+#include "hopper.cuh"
+
+#include <type_traits>
 
 namespace pt_flash {
 
@@ -153,6 +188,209 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
+// ------------------------------------------------ the bf16 tensor-core kernel
+
+// The bf16 kernel's shared memory: the Q and dO tiles, then STAGES (K, V)
+// stages, then the mbarriers (1024 bytes of slack to align the tiles).
+template <int D>
+struct DqRing {
+  static constexpr int STAGES = 2;
+  static constexpr size_t SMEM = 1024 + (size_t)HopTile<D>::BYTES * (2 + 2 * STAGES) +
+                                 sizeof(uint64_t) * (1 + STAGES);
+};
+
+// One key tile's dS on the S accumulator `sc` (rows r and r + 8 of the
+// tile: h2 = 0, 1), from dP in `dp`: p = exp(s scale - lse) under the mask,
+// dS = p (dP - delta) scale, left in `sc`. lse2 is lse * log2(e). FULL:
+// the mask keeps every pair of the tile, so no element is tested.
+template <bool FULL, typename Mask>
+__device__ __forceinline__ void dq_ds_tile(const Mask& mask, int j, const RowInfo (&qi)[2],
+                                           int cq, float scale, const float (&lse2)[2],
+                                           const float (&dl)[2], float (&sc)[32],
+                                           const float (&dp)[32]) {
+  const float scale_log2 = scale * LOG2E;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      RowInfo ki{};
+      if (!FULL) ki = mask.k_row(j * BK + 8 * jj + cq + e);
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int i = 4 * jj + 2 * h2 + e;
+        float p = exp2_ftz(fmaf(sc[i], scale_log2, -lse2[h2]));
+        if (!FULL && !mask.visible(qi[h2], ki)) p = 0.f;
+        sc[i] = p * (dp[i] - dl[h2]) * scale;
+      }
+    }
+}
+
+template <int D, typename Mask>
+__global__ void __launch_bounds__(HOP_CONSUMERS, D == 128 ? 2 : 4)
+flash_bwd_dq_hopper(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, Layout lay,
+                    Mask heads_mask, float scale, int packed, int tiles_x) {
+  using Tile = HopTile<D>;
+  constexpr int STAGES = DqRing<D>::STAGES;
+  using namespace pt_hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = align_1024(smem_raw);
+  uint8_t* dOs = Qs + Tile::BYTES;
+  uint8_t* KVs = dOs + Tile::BYTES;  // stage s: K at 2 s tiles on, V one tile after
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(KVs + 2 * STAGES * Tile::BYTES);
+  uint64_t* full = q_full + 1;
+
+  const int h = tiles_x ? blockIdx.y : blockIdx.x;
+  const int qt = tiles_x ? gridDim.x - 1 - blockIdx.x : gridDim.y - 1 - blockIdx.y;
+  const int q0 = qt * BQ;
+  const Mask mask = heads_mask.at_head(h);
+  const int2 tiles = mask.key_tiles(qt);
+  // the key tiles visited, in order: the loads and the products walk the
+  // same list
+  auto next_tile = [&](int j) {
+    for (++j; j < tiles.y && !mask.tile_open(qt, j); ++j) {
+    }
+    return j;
+  };
+  const int t = threadIdx.x;
+  // key tile j into ring stage s: thread 0 issues the TMA loads
+  auto load_stage = [&](int s, int j) {
+    if (t == 0) {
+      mbar_arrive_expect_tx(full + s, 2 * Tile::BYTES);
+      uint8_t* Ks = KVs + 2 * s * Tile::BYTES;
+      tma_tile<D>(Ks, &tm_k, full + s, j * BK, h, packed);
+      tma_tile<D>(Ks + Tile::BYTES, &tm_v, full + s, j * BK, h, packed);
+    }
+  };
+
+  if (t == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) mbar_init(full + s, 1);
+    mbar_fence_init();
+    tma_prefetch_map(&tm_q);
+    tma_prefetch_map(&tm_do);
+    tma_prefetch_map(&tm_k);
+    tma_prefetch_map(&tm_v);
+  }
+  __syncthreads();
+  if (t == 0) {
+    mbar_arrive_expect_tx(q_full, 2 * Tile::BYTES);
+    tma_tile<D>(Qs, &tm_q, q_full, q0, h, packed);
+    tma_tile<D>(dOs, &tm_do, q_full, q0, h, packed);
+  }
+  int fill = next_tile(tiles.x - 1);  // the next key tile to load
+  for (int s = 0; s < STAGES && fill < tiles.y; ++s, fill = next_tile(fill)) load_stage(s, fill);
+
+  // Thread t holds rows r and r + 8 of the tile and, of each 8 columns of
+  // S, dP or dQ, the pair at 2 * (t % 4).
+  const int r = 16 * (t / 32) + (t % 32) / 4;
+  const int cq = 2 * (t % 4);
+  const uint32_t q_addr = smem_u32(Qs), do_addr = smem_u32(dOs);
+  auto k_addr = [&](int s) { return smem_u32(KVs + 2 * s * Tile::BYTES); };
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const RowInfo qi[2] = {mask.q_row(q0 + r), mask.q_row(q0 + r + 8)};
+  float lse2[2], dl[2];  // 0 past the last row, which is never written
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int qp = q0 + r + 8 * h2;
+    lse2[h2] = qp < lay.sq ? lse[(size_t)h * lay.sq + qp] * LOG2E : 0.f;
+    dl[h2] = qp < lay.sq ? delta[(size_t)h * lay.sq + qp] : 0.f;
+  }
+
+  mbar_wait(q_full, 0);
+  int it = 0;
+  for (int j = next_tile(tiles.x - 1); j < tiles.y; j = next_tile(j), ++it) {
+    const int s = it % STAGES;
+    // S and dP are this tile's alone: set here, so that no value of them
+    // stays live across the loop (the products' operands read them)
+    float sc[32], dp[32];
+#pragma unroll
+    for (int x = 0; x < 32; ++x) sc[x] = dp[x] = 0.f;
+    mbar_wait(full + s, (it / STAGES) & 1);
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
+    wgmma_nt<D>(sc, q_addr, k_addr(s));                 // S = Q K^T
+    wgmma_nt<D>(dp, do_addr, k_addr(s) + Tile::BYTES);  // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    if (mask.tile_full(qt, j))
+      dq_ds_tile<true>(mask, j, qi, cq, scale, lse2, dl, sc, dp);
+    else
+      dq_ds_tile<false>(mask, j, qi, cq, scale, lse2, dl, sc, dp);
+    // dS as the A operand, hi and lo parts: its k-th 16 keys are values
+    // 8k .. 8k + 7
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        pack_bf16_split(sc[8 * k + 2 * x], sc[8 * k + 2 * x + 1], ah[k][x], al[k][x]);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {  // dQ += dS K
+      wgmma_rs_d<D>(acc, ah[k], Tile::mn_major(k_addr(s), k));
+      wgmma_rs_d<D>(acc, al[k], Tile::mn_major(k_addr(s), k));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      fence_regs(ah[k]);
+      fence_regs(al[k]);
+    }
+    if (fill < tiles.y) {  // the same for the whole block
+      __syncthreads();       // every thread's products have read stage s
+      load_stage(s, fill);
+      fill = next_tile(fill);
+    }
+  }
+
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int qp = q0 + r + 8 * h2;
+    if (qp >= lay.sq) continue;
+    __nv_bfloat16* row = dq + h * lay.q_hs + (long long)qp * lay.q_rs + cq;
+#pragma unroll
+    for (int jd = 0; jd < D / 8; ++jd)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * jd) =
+          __floats2bfloat162_rn(acc[4 * jd + 2 * h2], acc[4 * jd + 2 * h2 + 1]);
+  }
+}
+
+template <int D, typename Mask>
+cudaError_t dq_hopper(const void* q, const void* k, const void* v, const void* dout,
+                      const void* lse, const void* delta, void* dq, int heads, Layout lay,
+                      Mask mask, float scale, int packed, void* stream) {
+  const int nqt = (lay.sq + BQ - 1) / BQ;
+  // as the forward's grid (fwd_hopper): one head's tiles side by side for
+  // the fixed-length mask, the heads side by side for the others
+  const int tiles_x = std::is_same<Mask, CausalMask>::value;
+  const dim3 grid = tiles_x ? dim3(nqt, heads) : dim3(heads, nqt);
+  if (grid.y > 65535 || heads < 1 || nqt < 1) return cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mdo;
+  int err = hop_map<D>(&mq, q, lay.sq, heads, lay.q_rs, lay.q_hs, packed);
+  if (!err) err = hop_map<D>(&mdo, dout, lay.sq, heads, lay.q_rs, lay.q_hs, packed);
+  if (!err) err = hop_map<D>(&mk, k, lay.sk, heads, lay.k_rs, lay.k_hs, packed);
+  if (!err) err = hop_map<D>(&mv, v, lay.sk, heads, lay.k_rs, lay.k_hs, packed);
+  if (err) return (cudaError_t)err;
+  return launch_nt(flash_bwd_dq_hopper<D, Mask>, grid, HOP_CONSUMERS, DqRing<D>::SMEM, stream, mq, mk,
+                   mv, mdo, (const float*)lse, (const float*)delta, (__nv_bfloat16*)dq, lay, mask,
+                   scale, packed, tiles_x);
+}
+
+// ------------------------------------------------------ launch and entries
+
 template <typename T, int D, typename Mask>
 cudaError_t dq_launch(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int heads, Layout lay,
@@ -164,30 +402,39 @@ cudaError_t dq_launch(const void* q, const void* k, const void* v, const void* d
                 mask, scale);
 }
 
+// bf16 to the tensor-core kernel, float and fp16 to the FMA kernel (io:
+// see Io); `packed` says the tensors are [T, H, D] (varlen) rather than
+// [BH, S, D].
 template <typename Mask>
-cudaError_t dq_any(int d, int is_bf16, const void* q, const void* k, const void* v,
+cudaError_t dq_any(int d, int io, const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta, void* dq, int heads,
-                   Layout lay, Mask mask, float scale, void* stream) {
-  if (is_bf16) {
-    PT_FLASH_SWITCH_D(d, return dq_launch<__nv_bfloat16, D>(q, k, v, dout, lse, delta, dq, heads,
-                                                             lay, mask, scale, stream))
+                   Layout lay, Mask mask, float scale, int packed, void* stream) {
+  if (io == IO_BF16) {
+    PT_FLASH_SWITCH_D(d, return dq_hopper<D>(q, k, v, dout, lse, delta, dq, heads, lay, mask,
+                                             scale, packed, stream))
   }
-  PT_FLASH_SWITCH_D(d, return dq_launch<float, D>(q, k, v, dout, lse, delta, dq, heads, lay, mask,
-                                                  scale, stream))
+  PT_FLASH_SWITCH_D(d, PT_FLASH_SWITCH_FMA_IO(io, return dq_launch<T, D>(
+                                                      q, k, v, dout, lse, delta, dq, heads, lay,
+                                                      mask, scale, stream)))
 }
 
 }  // namespace pt_flash
 
+// Every entry: io 0 float, 1 bf16, 2 fp16 (pt_flash::Io); bf16 q, k, v and
+// dout start on 16-byte boundaries (their tensor maps need it; the
+// wrappers see to it); a failed tensor-map encode returns the error code
+// of libcuda, a refused launch cudaGetLastError().
+//
 // q, dout, dq [bh, sq, d] and k, v [bh, sk, d] in the io type, contiguous;
 // lse and delta float [bh, sq]. Launches on `stream` and returns
 // cudaGetLastError().
 extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                const void* lse, const void* delta, void* dq, int bh, int sq,
-                               int sk, int d, int is_bf16, int causal, float scale, int kv_len,
+                               int sk, int d, int io, int causal, float scale, int kv_len,
                                int q_offset, void* stream) {
   const pt_flash::CausalMask mask{sq, causal, kv_len, q_offset};
-  return (int)pt_flash::dq_any(d, is_bf16, q, k, v, dout, lse, delta, dq, bh,
-                               pt_flash::dense_layout(sq, sk, d), mask, scale, stream);
+  return (int)pt_flash::dq_any(d, io, q, k, v, dout, lse, delta, dq, bh,
+                               pt_flash::dense_layout(sq, sk, d), mask, scale, 0, stream);
 }
 
 // q, dout, dq [tq, h, d] and k, v [tk, h, d] in the io type, contiguous; lse
@@ -197,10 +444,10 @@ extern "C" int pt_varlen_bwd_dq(const void* q, const void* k, const void* v, con
                                 const void* lse, const void* delta, void* dq, const int* seg_q,
                                 const int* pos_q, const int* seg_k, const int* pos_k,
                                 const int* lo, const int* hi, int h, int tq, int tk, int d,
-                                int is_bf16, int causal, float scale, void* stream) {
+                                int io, int causal, float scale, void* stream) {
   const pt_flash::SegmentMask mask{seg_q, pos_q, seg_k, pos_k, lo, hi, causal};
-  return (int)pt_flash::dq_any(d, is_bf16, q, k, v, dout, lse, delta, dq, h,
-                               pt_flash::packed_layout(tq, tk, h, d), mask, scale, stream);
+  return (int)pt_flash::dq_any(d, io, q, k, v, dout, lse, delta, dq, h,
+                               pt_flash::packed_layout(tq, tk, h, d), mask, scale, 1, stream);
 }
 
 // q, dout, dq [bh, sq, d] and k, v [bh, sk, d] in the io type, contiguous;
@@ -210,8 +457,8 @@ extern "C" int pt_flashmask_bwd_dq(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse, const void* delta,
                                    void* dq, const int* st, const int* en, const int* st_max,
                                    const int* en_min, int bh, int h, int hs, int sq, int sk,
-                                   int d, int is_bf16, int causal, float scale, void* stream) {
+                                   int d, int io, int causal, float scale, void* stream) {
   const pt_flash::StartEndMask mask{st, en, st_max, en_min, h, hs, sq, sk, causal};
-  return (int)pt_flash::dq_any(d, is_bf16, q, k, v, dout, lse, delta, dq, bh,
-                               pt_flash::dense_layout(sq, sk, d), mask, scale, stream);
+  return (int)pt_flash::dq_any(d, io, q, k, v, dout, lse, delta, dq, bh,
+                               pt_flash::dense_layout(sq, sk, d), mask, scale, 0, stream);
 }

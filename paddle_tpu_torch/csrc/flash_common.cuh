@@ -5,9 +5,10 @@
 // `head * q_hs + row * q_rs + c`, of a key-like one (k, v, dK, dV) at
 // `head * k_hs + row * k_rs + c`: [BH, S, D] has row stride D and head
 // stride S * D, packed [T, H, D] row stride H * D and head stride D. Rows are
-// contiguous in the io type (float or bf16). lse and delta are float
-// [heads, Sq]. Every block of the FMA kernels (all but the bf16 forward,
-// whose tensor-core layout `flash_fwd.cu` describes) runs NT = 256 threads
+// contiguous in the io type (float, bf16 or fp16). lse and delta are float
+// [heads, Sq]. Every block of the FMA kernels (fp32 and fp16 io; the bf16
+// tensor-core kernels' layout is described with their pieces at the end of
+// this file and in their sources) runs NT = 256 threads
 // as a 16 x 16 grid (tx = tid % 16, ty = tid / 16); a thread owns rows
 // {ty + 16 i} and columns {tx + 16 j} of each 64-row tile, so the 16 threads
 // that share a row sit in one half-warp and reduce a row with four xor
@@ -24,12 +25,16 @@
 // (stride D + 1), so a column read by 16 neighbouring threads hits 16
 // different banks. Products are fp32 FMAs from shared memory: the same
 // numbers the TPU kernel gets from fp32-accumulating MXU products of
-// io-typed inputs, since a product of two bf16 values is exact in fp32.
+// io-typed inputs, since a product of two bf16 or fp16 values is exact in
+// fp32.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <climits>
+
+#include "hopper.cuh"
 
 namespace pt_flash {
 
@@ -41,12 +46,14 @@ constexpr float NEG_INF = -1e30f; // the TPU kernel's mask fill
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half_rn(x); }
 
 // x rounded to the io type and widened again (P before P.V, as the TPU
 // kernel casts p to v's dtype before its second product).
@@ -241,15 +248,25 @@ struct StartEndMask {
   __device__ bool tile_full(int, int) const { return false; }
 };
 
-// Sets the block's dynamic shared memory limit, then launches.
+// Sets the block's dynamic shared memory limit, then launches `threads`
+// threads a block (the FMA kernels' NT by default).
 template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... args) {
+cudaError_t launch_nt(Kernel kernel, dim3 grid, int threads, size_t smem, void* stream,
+                      Args... args) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(args...);
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(args...);
   return cudaGetLastError();
 }
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... args) {
+  return launch_nt(kernel, grid, NT, smem, stream, args...);
+}
+
+// The io type of a C entry's tensors: 0 float, 1 bf16 (the tensor-core
+// kernels), 2 fp16.
+enum Io : int { IO_F32 = 0, IO_BF16 = 1, IO_F16 = 2 };
 
 // The fixed-length layout: [bh, sq, d] and [bh, sk, d], contiguous.
 inline Layout dense_layout(int sq, int sk, int d) {
@@ -269,5 +286,126 @@ inline Layout packed_layout(int tq, int tk, int h, int d) {
     case 128: { constexpr int D = 128; __VA_ARGS__; } \
     default: return cudaErrorInvalidValue;           \
   }
+
+// Instantiates `body` for the FMA kernels' io type T: float or fp16 (bf16
+// goes to the tensor-core kernels); anything else is refused.
+#define PT_FLASH_SWITCH_FMA_IO(io, ...)                  \
+  switch (io) {                                          \
+    case IO_F32: { using T = float; __VA_ARGS__; }       \
+    case IO_F16: { using T = __half; __VA_ARGS__; }      \
+    default: return cudaErrorInvalidValue;               \
+  }
+
+// ------------------------------------------------ the tensor-core kernels
+//
+// Pieces shared by the bf16 kernels (`flash_fwd_hopper`,
+// `flash_bwd_dq_hopper`, `flash_bwd_dkv_hopper`): 64-row bf16 tiles loaded
+// by TMA and read with `wgmma` by one warpgroup of consumers.
+
+constexpr int HOP_CONSUMERS = 128;  // one warpgroup
+constexpr float LOG2E = 1.4426950408889634f;
+
+// A 64-row bf16 tile of head_dim D in shared memory: BOXES boxes of W
+// columns (one TMA load each), each 64 rows of W * 2 bytes, swizzled (128 B
+// rows, 64 B at D = 32). One layout serves as either operand form, so one
+// TMA-loaded tile of Q, K, V or dO serves every product that reads it.
+template <int D>
+struct HopTile {
+  static constexpr int W = D < 64 ? D : 64;
+  static constexpr int BOXES = D / W;
+  static constexpr int ROW_BYTES = W * 2;
+  static constexpr int BOX_BYTES = 64 * ROW_BYTES;
+  static constexpr int BYTES = BOXES * BOX_BYTES;
+  static constexpr pt_hopper::Swizzle SW = D < 64 ? pt_hopper::SWIZZLE_64B
+                                                  : pt_hopper::SWIZZLE_128B;
+
+  // The tile as a K-major operand (its rows along M or N, the reduction
+  // along D): the k-th 16 columns of the reduction over D.
+  __device__ static uint64_t k_major(uint32_t base, int k) {
+    return pt_hopper::gmma_desc(base + (k * 16 / W) * BOX_BYTES + (k * 16 % W) * 2, 16,
+                                8 * ROW_BYTES, SW);
+  }
+  // The tile as an MN-major operand (its rows along the reduction, D along
+  // N, read with the transpose bit): the k-th 16 rows of the reduction.
+  __device__ static uint64_t mn_major(uint32_t base, int k) {
+    return pt_hopper::gmma_desc(base + k * 16 * ROW_BYTES, BOX_BYTES, 8 * ROW_BYTES, SW);
+  }
+};
+
+// The first 1024-byte boundary at or after `p` (a swizzled tile's start).
+__device__ __forceinline__ uint8_t* align_1024(void* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// acc[64 x D] += A[64 x 16] (registers) * B[16 x D] (an MN-major tile).
+template <int D>
+__device__ __forceinline__ void wgmma_rs_d(float (&acc)[D / 2], const uint32_t (&a)[4],
+                                           uint64_t db) {
+  if constexpr (D == 32) pt_hopper::wgmma_rs_n32(acc, a, db);
+  if constexpr (D == 64) pt_hopper::wgmma_rs_n64(acc, a, db);
+  if constexpr (D == 128) pt_hopper::wgmma_rs_n128(acc, a, db);
+}
+
+// D = A B^T over D: the D / 16 products of one 64 x 64 tile, both operands
+// K-major tiles; started, not committed or waited.
+template <int D>
+__device__ __forceinline__ void wgmma_nt(float (&d)[32], uint32_t a_addr, uint32_t b_addr) {
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k)
+    pt_hopper::wgmma_ss_n64(d, HopTile<D>::k_major(a_addr, k), HopTile<D>::k_major(b_addr, k),
+                            k > 0);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// x and y as bf16 pairs hi + lo: hi = bf16(x), lo = bf16(x - hi), so that
+// hi + lo keeps 16 of x's bits (a relative error of about 2^-17) where hi
+// alone keeps 8 (2^-9).
+__device__ __forceinline__ void pack_bf16_split(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x - __low2float(h), y - __high2float(h));
+}
+
+// Loads the BOXES boxes of one 64-row tile starting at `row` of head `h`;
+// packed [T, H, D] maps are (D, H, T), fixed [BH, S, D] ones (D, S, BH).
+template <int D>
+__device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int row, int h, int packed) {
+  using Tile = HopTile<D>;
+#pragma unroll
+  for (int b = 0; b < Tile::BOXES; ++b) {
+    if (packed)
+      pt_hopper::tma_load_3d(dst + b * Tile::BOX_BYTES, map, bar, b * Tile::W, h, row);
+    else
+      pt_hopper::tma_load_3d(dst + b * Tile::BOX_BYTES, map, bar, b * Tile::W, row, h);
+  }
+}
+
+// 2^x by the special-function unit (ex2.approx.ftz: about 2 ulp, results
+// below 2^-126 flushed to 0, far below what a bf16 P or an fp32 row sum
+// keeps); the library's exp2f adds range handling around the same unit.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The tensor map of a q-like ([rows, D] per head) bf16 tensor: packed
+// [rows, heads, D] as (D, heads, rows), fixed [heads, rows, D] as
+// (D, rows, heads), with 64-row boxes of HopTile<D>::W columns.
+template <int D>
+int hop_map(CUtensorMap* map, const void* base, int rows, int heads, int rs, long long hs,
+            int packed) {
+  using Tile = HopTile<D>;
+  const uint64_t dims[3] = {(uint64_t)D, (uint64_t)(packed ? heads : rows),
+                            (uint64_t)(packed ? rows : heads)};
+  const uint64_t strides[2] = {2ull * (packed ? hs : rs), 2ull * (packed ? rs : hs)};
+  const uint32_t box[3] = {(uint32_t)Tile::W, packed ? 1u : 64u, packed ? 64u : 1u};
+  return pt_hopper::encode_bf16_3d(map, base, dims, strides, box, Tile::SW);
+}
 
 }  // namespace pt_flash

@@ -1,10 +1,11 @@
 // Flash-attention forward for Hopper (sm_90a): fixed-length causal batches,
 // packed variable-length sequences and flashmask (start/end row) masks, two
 // kernels templated on the mask: a tensor-core kernel for bf16 io
-// (`flash_fwd_hopper`) and an fp32 FMA kernel for float io
-// (`flash_fwd_kernel`). `fwd_any` sends bf16 to the first and float to the
-// second: the tensor cores have no fp32 product at fp32 accuracy (TF32 keeps
-// 10 mantissa bits), so float io stays on FMAs.
+// (`flash_fwd_hopper`) and an fp32 FMA kernel for float and fp16 io
+// (`flash_fwd_kernel`). `fwd_any` sends bf16 to the first and float and
+// fp16 to the second: the tensor cores have no fp32 product at fp32
+// accuracy (TF32 keeps 10 mantissa bits), so float io stays on FMAs; fp16
+// io shares the FMA kernel until it has `wgmma` instantiations of its own.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (reached
 // through `_fwd_call`; entry `pt_flash_fwd`, CausalMask),
@@ -50,13 +51,13 @@
 //   the end. Tiles the mask keeps whole (`tile_full`) skip the mask.
 // - Query tiles run last to first, so under a causal mask the longest start
 //   first and the short early tiles fill the tail.
-// The float kernel (`flash_fwd_kernel`), 256 threads: products as fp32 FMAs
+// The FMA kernel (`flash_fwd_kernel`), 256 threads: products as fp32 FMAs
 // from shared memory (the same numbers the TPU kernel gets from
 // fp32-accumulating MXU products); each thread holds a 4 x 4 block of
 // scores and a 4 x D/16 block of the output and reads 8 shared words per
-// 16 FMAs. It serves the fp32 models and checks.
+// 16 FMAs. It serves the fp32 and fp16 models and checks.
 //
-// Grid: float (ceil(Sq / 64), heads); bf16 the same for the fixed-length
+// Grid: FMA (ceil(Sq / 64), heads); bf16 the same for the fixed-length
 // mask and (heads, ceil(Sq / 64)) for the varlen and flashmask masks.
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -185,46 +186,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 // ------------------------------------------------- the bf16 tensor-core kernel
 
-constexpr int HOP_CONSUMERS = 128;              // one warpgroup
-constexpr int HOP_NT = HOP_CONSUMERS + 32;      // and one producer warp
-constexpr float LOG2E = 1.4426950408889634f;
+constexpr int HOP_NT = HOP_CONSUMERS + 32;  // the consumers and one producer warp
 
-// A 64-row bf16 tile of head_dim D in shared memory: BOXES boxes of W
-// columns (one TMA load each), each 64 rows of W * 2 bytes, swizzled. The
-// K/V ring holds STAGES tiles of each: 4 below D = 128, so that three
+// The K/V ring of the bf16 forward: 4 stages below D = 128, so that three
 // blocks (the most their registers allow) fit an SM's shared memory, and 2
-// at D = 128, so that two do.
+// at D = 128, so that two do; the Q tile, then stage s's K and V tiles,
+// then the mbarriers.
 template <int D>
-struct HopTile {
-  static constexpr int W = D < 64 ? D : 64;
-  static constexpr int BOXES = D / W;
-  static constexpr int ROW_BYTES = W * 2;
-  static constexpr int BOX_BYTES = 64 * ROW_BYTES;
-  static constexpr int BYTES = BOXES * BOX_BYTES;
+struct FwdRing {
   static constexpr int STAGES = D == 128 ? 2 : 4;
-  static constexpr pt_hopper::Swizzle SW = D < 64 ? pt_hopper::SWIZZLE_64B
-                                                  : pt_hopper::SWIZZLE_128B;
-  static constexpr size_t SMEM = 1024 + (size_t)BYTES * (1 + 2 * STAGES) +
+  static constexpr size_t SMEM = 1024 + (size_t)HopTile<D>::BYTES * (1 + 2 * STAGES) +
                                  sizeof(uint64_t) * (1 + 2 * STAGES);
-
-  // Q or K (K-major) for the k-th 16 columns of the reduction over D.
-  __device__ static uint64_t k_major(uint32_t base, int k) {
-    return pt_hopper::gmma_desc(base + (k * 16 / W) * BOX_BYTES + (k * 16 % W) * 2, 16,
-                                8 * ROW_BYTES, SW);
-  }
-  // V (MN-major) for the k-th 16 keys of the reduction over the key tile.
-  __device__ static uint64_t mn_major(uint32_t base, int k) {
-    return pt_hopper::gmma_desc(base + k * 16 * ROW_BYTES, BOX_BYTES, 8 * ROW_BYTES, SW);
-  }
 };
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (D == 32) pt_hopper::wgmma_rs_n32(acc, a, db);
-  if constexpr (D == 64) pt_hopper::wgmma_rs_n64(acc, a, db);
-  if constexpr (D == 128) pt_hopper::wgmma_rs_n128(acc, a, db);
-}
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -233,35 +206,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Loads the BOXES boxes of one 64-row tile starting at `row` of head `h`;
-// packed [T, H, D] maps are (D, H, T), fixed [BH, S, D] ones (D, S, BH).
-template <int D>
-__device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int row, int h, int packed) {
-  using Tile = HopTile<D>;
-#pragma unroll
-  for (int b = 0; b < Tile::BOXES; ++b) {
-    if (packed)
-      pt_hopper::tma_load_3d(dst + b * Tile::BOX_BYTES, map, bar, b * Tile::W, h, row);
-    else
-      pt_hopper::tma_load_3d(dst + b * Tile::BOX_BYTES, map, bar, b * Tile::W, row, h);
-  }
-}
-
-// 2^x by the special-function unit (ex2.approx.ftz: about 2 ulp, results
-// below 2^-126 flushed to 0, far below what a bf16 P or an fp32 row sum
-// keeps); the library's exp2f adds range handling around the same unit.
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // One key tile's mask and online-softmax step on the S accumulator `sc`
@@ -339,13 +283,10 @@ __device__ __forceinline__ void softmax_tile(const Mask& mask, int qt, int j,
     softmax_tile<false>(mask, j, qi, cq, scale, sc, m, l, alpha);
 }
 
-// S = Q K^T of one key tile into `sc`: D / 16 products, started, not waited.
+// S = Q K^T of one key tile into `sc`: started and committed, not waited.
 template <int D>
 __device__ __forceinline__ void start_qk(float (&sc)[32], uint32_t q_addr, uint32_t k_addr) {
-#pragma unroll
-  for (int k = 0; k < D / 16; ++k)
-    pt_hopper::wgmma_ss_n64(sc, HopTile<D>::k_major(q_addr, k), HopTile<D>::k_major(k_addr, k),
-                            k > 0);
+  wgmma_nt<D>(sc, q_addr, k_addr);
   pt_hopper::wgmma_commit();
 }
 
@@ -356,14 +297,14 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
                  float* __restrict__ lse, Layout lay, Mask heads_mask, float scale, int packed,
                  int tiles_x) {
   using Tile = HopTile<D>;
+  constexpr int STAGES = FwdRing<D>::STAGES;
   using namespace pt_hopper;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* Qs = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* Qs = align_1024(smem_raw);
   uint8_t* KVs = Qs + Tile::BYTES;  // stage s: K at 2 s tiles on, V one tile after
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(KVs + 2 * Tile::STAGES * Tile::BYTES);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(KVs + 2 * STAGES * Tile::BYTES);
   uint64_t* full = q_full + 1;
-  uint64_t* empty = full + Tile::STAGES;
+  uint64_t* empty = full + STAGES;
 
   // the grid's x axis walks the heads or the query tiles (see fwd_hopper);
   // query tiles run last to first, the longest first under a causal mask
@@ -381,7 +322,7 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < Tile::STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + s, 1);
       mbar_init(empty + s, HOP_CONSUMERS);
     }
@@ -398,8 +339,8 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       tma_tile<D>(Qs, &tm_q, q_full, q0, h, packed);
       int it = 0;
       for (int j = next_tile(tiles.x - 1); j < tiles.y; j = next_tile(j), ++it) {
-        const int s = it % Tile::STAGES;
-        mbar_wait(empty + s, ((it / Tile::STAGES) & 1) ^ 1);  // round 0 passes at once
+        const int s = it % STAGES;
+        mbar_wait(empty + s, ((it / STAGES) & 1) ^ 1);  // round 0 passes at once
         mbar_arrive_expect_tx(full + s, 2 * Tile::BYTES);
         uint8_t* Ks = KVs + 2 * s * Tile::BYTES;
         tma_tile<D>(Ks, &tm_k, full + s, j * BK, h, packed);
@@ -444,7 +385,7 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     auto start_pv = [&](int s) {
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        wgmma_pv<D>(acc, pa[k], Tile::mn_major(k_addr(s) + Tile::BYTES, k));
+        wgmma_rs_d<D>(acc, pa[k], Tile::mn_major(k_addr(s) + Tile::BYTES, k));
       wgmma_commit();
     };
     mbar_wait(full, 0);
@@ -458,9 +399,9 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     // tile j (stage s) and the next one, jn (stage sn), each pass: S of jn
     // and P V of j in flight together, the softmax of jn under P V of j
     for (int jn = next_tile(j); jn < tiles.y; j = jn, jn = next_tile(j), ++it) {
-      const int s = it % Tile::STAGES, sn = (it + 1) % Tile::STAGES;
+      const int s = it % STAGES, sn = (it + 1) % STAGES;
       pack_p();
-      mbar_wait(full + sn, ((it + 1) / Tile::STAGES) & 1);
+      mbar_wait(full + sn, ((it + 1) / STAGES) & 1);
       fence_regs(sc);
       fence_regs(acc);
       wgmma_fence();
@@ -486,10 +427,10 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     pack_p();
     fence_regs(acc);
     wgmma_fence();
-    start_pv(it % Tile::STAGES);
+    start_pv(it % STAGES);
     wgmma_wait<0>();
     fence_regs(acc);
-    mbar_arrive(empty + it % Tile::STAGES);
+    mbar_arrive(empty + it % STAGES);
   }
 
 #pragma unroll
@@ -509,24 +450,10 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   }
 }
 
-// The tensor map of a q-like ([rows, D] per head) bf16 tensor: packed
-// [rows, heads, D] as (D, heads, rows), fixed [heads, rows, D] as
-// (D, rows, heads), with 64-row boxes of HopTile<D>::W columns.
-template <int D>
-int hop_map(CUtensorMap* map, const void* base, int rows, int heads, int rs, long long hs,
-            int packed) {
-  using Tile = HopTile<D>;
-  const uint64_t dims[3] = {(uint64_t)D, (uint64_t)(packed ? heads : rows),
-                            (uint64_t)(packed ? rows : heads)};
-  const uint64_t strides[2] = {2ull * (packed ? hs : rs), 2ull * (packed ? rs : hs)};
-  const uint32_t box[3] = {(uint32_t)Tile::W, packed ? 1u : 64u, packed ? 64u : 1u};
-  return pt_hopper::encode_bf16_3d(map, base, dims, strides, box, Tile::SW);
-}
-
 template <int D, typename Mask>
 cudaError_t fwd_hopper(const void* q, const void* k, const void* v, void* o, void* lse,
                        int heads, Layout lay, Mask mask, float scale, int packed, void* stream) {
-  using Tile = HopTile<D>;
+  using Ring = FwdRing<D>;
   const int nqt = (lay.sq + BQ - 1) / BQ;
   // Fixed-length causal tiles of one head run side by side (x = query
   // tiles), so a head's K and V stay in L2 while its tiles read them; the
@@ -541,52 +468,51 @@ cudaError_t fwd_hopper(const void* q, const void* k, const void* v, void* o, voi
   if (!err) err = hop_map<D>(&mk, k, lay.sk, heads, lay.k_rs, lay.k_hs, packed);
   if (!err) err = hop_map<D>(&mv, v, lay.sk, heads, lay.k_rs, lay.k_hs, packed);
   if (err) return (cudaError_t)err;
-  auto kernel = flash_fwd_hopper<D, Mask>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)Tile::SMEM);
-  if (e != cudaSuccess) return e;
-  kernel<<<grid, HOP_NT, Tile::SMEM, (cudaStream_t)stream>>>(
-      mq, mk, mv, (__nv_bfloat16*)o, (float*)lse, lay, mask, scale, packed, tiles_x);
-  return cudaGetLastError();
+  return launch_nt(flash_fwd_hopper<D, Mask>, grid, HOP_NT, Ring::SMEM, stream, mq, mk, mv,
+                   (__nv_bfloat16*)o, (float*)lse, lay, mask, scale, packed, tiles_x);
 }
 
 // ------------------------------------------------------ launch and entries
 
-template <int D, typename Mask>
+template <typename T, int D, typename Mask>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse, int heads,
                 Layout lay, Mask mask, float scale, void* stream) {
   const size_t smem = sizeof(float) * (3 * 64 * (D + 1) + BQ * LDP);
   const dim3 grid((lay.sq + BQ - 1) / BQ, heads);
-  return launch(flash_fwd_kernel<float, D, Mask>, grid, smem, stream, (const float*)q,
-                (const float*)k, (const float*)v, (float*)o, (float*)lse, lay, mask, scale);
+  return launch(flash_fwd_kernel<T, D, Mask>, grid, smem, stream, (const T*)q, (const T*)k,
+                (const T*)v, (T*)o, (float*)lse, lay, mask, scale);
 }
 
-// bf16 to the tensor-core kernel, float to the FMA kernel; `packed` says
-// the tensors are [T, H, D] (varlen) rather than [BH, S, D].
+// bf16 to the tensor-core kernel, float and fp16 to the FMA kernel (io:
+// see Io); `packed` says the tensors are [T, H, D] (varlen) rather than
+// [BH, S, D].
 template <typename Mask>
-cudaError_t fwd_any(int d, int is_bf16, const void* q, const void* k, const void* v, void* o,
+cudaError_t fwd_any(int d, int io, const void* q, const void* k, const void* v, void* o,
                     void* lse, int heads, Layout lay, Mask mask, float scale, int packed,
                     void* stream) {
-  if (is_bf16) {
+  if (io == IO_BF16) {
     PT_FLASH_SWITCH_D(d, return fwd_hopper<D>(q, k, v, o, lse, heads, lay, mask, scale, packed,
                                               stream))
   }
-  PT_FLASH_SWITCH_D(d, return fwd<D>(q, k, v, o, lse, heads, lay, mask, scale, stream))
+  PT_FLASH_SWITCH_D(d, PT_FLASH_SWITCH_FMA_IO(io, return fwd<T, D>(q, k, v, o, lse, heads, lay,
+                                                                   mask, scale, stream)))
 }
 
 }  // namespace pt_flash
 
 // Every entry: bf16 q, k and v start on 16-byte boundaries (their tensor
-// maps need it; the wrappers check); a failed tensor-map encode returns the
+// maps need it; the wrappers see to it); a failed tensor-map encode returns the
 // error code of libcuda, a refused launch cudaGetLastError().
 //
-// q, k, v, o [bh, s, d] in the io type (is_bf16 ? bf16 : float), contiguous;
+// io: 0 float, 1 bf16, 2 fp16 (pt_flash::Io).
+//
+// q, k, v, o [bh, s, d] in the io type, contiguous;
 // lse float [bh, sq]. Launches on `stream` and returns cudaGetLastError().
 extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                            int bh, int sq, int sk, int d, int is_bf16, int causal, float scale,
+                            int bh, int sq, int sk, int d, int io, int causal, float scale,
                             int kv_len, int q_offset, void* stream) {
   const pt_flash::CausalMask mask{sq, causal, kv_len, q_offset};
-  return (int)pt_flash::fwd_any(d, is_bf16, q, k, v, o, lse, bh,
+  return (int)pt_flash::fwd_any(d, io, q, k, v, o, lse, bh,
                                 pt_flash::dense_layout(sq, sk, d), mask, scale, 0, stream);
 }
 
@@ -597,9 +523,9 @@ extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v, void* o
 extern "C" int pt_varlen_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                              const int* seg_q, const int* pos_q, const int* seg_k,
                              const int* pos_k, const int* lo, const int* hi, int h, int tq,
-                             int tk, int d, int is_bf16, int causal, float scale, void* stream) {
+                             int tk, int d, int io, int causal, float scale, void* stream) {
   const pt_flash::SegmentMask mask{seg_q, pos_q, seg_k, pos_k, lo, hi, causal};
-  return (int)pt_flash::fwd_any(d, is_bf16, q, k, v, o, lse, h,
+  return (int)pt_flash::fwd_any(d, io, q, k, v, o, lse, h,
                                 pt_flash::packed_layout(tq, tk, h, d), mask, scale, 1,
                                 stream);
 }
@@ -613,8 +539,8 @@ extern "C" int pt_varlen_fwd(const void* q, const void* k, const void* v, void* 
 extern "C" int pt_flashmask_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                                 const int* st, const int* en, const int* st_max,
                                 const int* en_min, int bh, int h, int hs, int sq, int sk, int d,
-                                int is_bf16, int causal, float scale, void* stream) {
+                                int io, int causal, float scale, void* stream) {
   const pt_flash::StartEndMask mask{st, en, st_max, en_min, h, hs, sq, sk, causal};
-  return (int)pt_flash::fwd_any(d, is_bf16, q, k, v, o, lse, bh,
+  return (int)pt_flash::fwd_any(d, io, q, k, v, o, lse, bh,
                                 pt_flash::dense_layout(sq, sk, d), mask, scale, 0, stream);
 }

@@ -25,8 +25,8 @@ BUILD_DIR = CSRC / "build"
 # name -> (source, the port's headers it includes)
 SOURCES = {
     "flash_fwd": ("flash_fwd.cu", ("flash_common.cuh", "hopper.cuh")),
-    "flash_bwd_dkv": ("flash_bwd_dkv.cu", ("flash_common.cuh",)),
-    "flash_bwd_dq": ("flash_bwd_dq.cu", ("flash_common.cuh",)),
+    "flash_bwd_dkv": ("flash_bwd_dkv.cu", ("flash_common.cuh", "hopper.cuh")),
+    "flash_bwd_dq": ("flash_bwd_dq.cu", ("flash_common.cuh", "hopper.cuh")),
     "fused": ("fused.cu", ()),
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -12,19 +12,24 @@ wrapper             source                         replaces
 ==================  =============================  ===================
 
 Inside the kernels the layout is ``[B*H, S, D]``. Logits, softmax statistics
-and accumulators are fp32; the io type is float32 or bfloat16; head_dim is
-32, 64 or 128. The causal mask is bottom-right aligned (key ``k`` is seen by
-query ``q`` when ``k <= q + (Sk - Sq)``) and keys at or past ``kv_len`` are
-masked. A query row that sees no key at all gets output 0 and lse -1e30.
+and accumulators are fp32; the io type is float32, bfloat16 or float16.
+The kernels are built for head_dim 32, 64 and 128 (``HEAD_DIMS``); a smaller
+head_dim runs at the next of those sizes, its q, k, v (and dO) padded with
+zero columns and the results sliced back (:func:`_pad_head_dim`), which is
+exact. A head_dim above 128 is refused: the FMA kernels' tiles would not fit
+in shared memory. The causal mask is bottom-right aligned (key ``k`` is seen
+by query ``q`` when ``k <= q + (Sk - Sq)``) and keys at or past ``kv_len``
+are masked. A query row that sees no key at all gets output 0 and lse -1e30.
 
 Each wrapper dispatches on the device of its tensors: a CUDA tensor launches
 the kernel (or raises on a type, head_dim or layout the kernel does not
 take), a CPU tensor runs the plain PyTorch version beside it, which repeats
-the kernel's arithmetic. There is no fallback from one to the other. The
-forward source holds two kernels: bf16 io runs on the tensor cores and reads
-q, k and v through TMA tensor maps, which need 16-byte-aligned base
-addresses and strides (:func:`check_tma` raises otherwise); float io runs
-fp32 FMAs.
+the kernel's arithmetic. There is no fallback from one to the other. Each
+source holds two kernels: bf16 io runs on the tensor cores and reads q, k,
+v and dO through TMA tensor maps, which need 16-byte-aligned base addresses
+and strides (:func:`check_tma`; a tensor that fails it is handed to the
+kernel as a fresh contiguous copy, :func:`_tma_inputs`); float and float16
+io run fp32 FMAs.
 ``LAUNCHES`` counts kernel launches per wrapper; the plain versions do not
 count.
 """
@@ -39,8 +44,9 @@ import torch
 from ._build import function
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
-_DTYPES = (torch.float32, torch.bfloat16)
+HEAD_DIMS = (32, 64, 128)  # the head_dims the kernels are built for
+# the io code of each dtype in the C entries (csrc/flash_common.cuh `Io`)
+_IO_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dkv": 0,
                             "flash_bwd_dq": 0}
@@ -55,7 +61,7 @@ def reset_launches() -> None:
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # q k v o lse | bh sq sk d is_bf16 causal scale kv_len q_offset | stream
+    # q k v o lse | bh sq sk d io causal scale kv_len q_offset | stream
     "flash_fwd": ("pt_flash_fwd", [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P]),
     # q k v do lse delta dk dv | ...
     "flash_bwd_dkv": ("pt_flash_bwd_dkv",
@@ -64,13 +70,19 @@ _SIGNATURES = {
     "flash_bwd_dq": ("pt_flash_bwd_dq", [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P]),
 }
 
-def _launch(name: str, tensors, bh, sq, sk, d, is_bf16, causal, scale,
-            kv_len, q_offset) -> None:
+def io_code(dtype: torch.dtype) -> int:
+    """The C entries' io argument for tensors of ``dtype``."""
+    return _IO_CODES[dtype]
+
+
+def _launch(name: str, tensors, bh, sq, sk, d, causal, scale, kv_len,
+            q_offset) -> None:
     stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
     with torch.cuda.device(tensors[0].device):
         err = function(name, *_SIGNATURES[name])(
-            *[t.data_ptr() for t in tensors], bh, sq, sk, d, int(is_bf16),
-            int(causal), float(scale), int(kv_len), int(q_offset), stream)
+            *[t.data_ptr() for t in tensors], bh, sq, sk, d,
+            io_code(tensors[0].dtype), int(causal), float(scale),
+            int(kv_len), int(q_offset), stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed: "
                            f"{torch.cuda.CudaError(err)}")
@@ -83,13 +95,13 @@ def _check_cuda(name: str, io, stats=(), heads: Optional[int] = None) -> None:
     and ``heads`` the grid's second dimension (default ``q.shape[0]``, the
     ``BH`` of ``[BH, S, D]``)."""
     q = io[0]
-    if q.dtype not in _DTYPES:
+    if q.dtype not in _IO_CODES:
         raise TypeError(f"{name}: dtype {q.dtype} not supported on CUDA "
-                        f"(float32 or bfloat16)")
+                        f"(float32, bfloat16 or float16)")
     d = q.shape[-1]
-    if d not in HEAD_DIMS:
+    if not 0 < d <= HEAD_DIMS[-1]:
         raise ValueError(f"{name}: head_dim {d} not supported on CUDA "
-                         f"(one of {HEAD_DIMS})")
+                         f"(1 to {HEAD_DIMS[-1]})")
     for t in tuple(io) + tuple(stats):
         if t.device != q.device:
             raise ValueError(f"{name}: tensors on {q.device} and {t.device}")
@@ -104,23 +116,57 @@ def _check_cuda(name: str, io, stats=(), heads: Optional[int] = None) -> None:
         raise ValueError(f"{name}: {heads} heads (batch*heads) > 65535")
 
 
-def check_tma(name: str, *tensors: torch.Tensor) -> None:
-    """Raise ``ValueError`` unless every tensor can be read through a TMA
-    tensor map, as the bf16 forward kernel reads q, k and v: its base
-    address and the byte strides of its outer dimensions multiples of 16
-    bytes. A plain check on the tensor's metadata, on any device."""
+def check_tma(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor can be read through a TMA tensor map, as the
+    bf16 kernels read q, k, v and dO: its base address and the byte
+    strides of its outer dimensions multiples of 16 bytes. A plain check
+    on the tensor's metadata, on any device."""
     for t in tensors:
-        off = t.data_ptr() % 16
-        if off:
-            raise ValueError(f"{name}: the bf16 kernel reads through TMA, "
-                             f"which needs a 16-byte-aligned base address; "
-                             f"this tensor starts {off} bytes past one")
-        for dim, st in enumerate(t.stride()[:-1]):
-            if st * t.element_size() % 16:
-                raise ValueError(f"{name}: the bf16 kernel reads through "
-                                 f"TMA, which needs byte strides that are "
-                                 f"multiples of 16; dimension {dim} has "
-                                 f"{st * t.element_size()}")
+        if t.data_ptr() % 16:
+            return False
+        if any(st * t.element_size() % 16 for st in t.stride()[:-1]):
+            return False
+    return True
+
+
+def _tma_inputs(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The tensors a kernel reads, each as it is unless it is bf16 and
+    :func:`check_tma` refuses it; then a fresh contiguous copy, whose
+    storage PyTorch allocates aligned. Inputs reach the kernels contiguous
+    with a head_dim of 32, 64 or 128, so every stride is a multiple of 16
+    bytes and the base address is the only case left: the same kernel
+    runs on the copy."""
+    return tuple(t if t.dtype != torch.bfloat16 or check_tma(t)
+                 else t.clone(memory_format=torch.contiguous_format)
+                 for t in tensors)
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head_dim the kernels run at for a caller's ``d``: the smallest
+    of ``HEAD_DIMS`` at or above it."""
+    for size in HEAD_DIMS:
+        if d <= size:
+            return size
+    raise ValueError(f"head_dim {d} not supported on CUDA (1 to "
+                     f"{HEAD_DIMS[-1]})")
+
+
+def _pad_head_dim(run, *io: torch.Tensor):
+    """``run(*io)`` at the kernels' head_dim: each tensor of ``io`` (q-like
+    and k-like, head_dim last) padded with zero columns up to
+    :func:`kernel_head_dim`, and each result whose last dimension is that
+    size sliced back to the caller's head_dim (lse and delta rows pass as
+    they are). Exact: zero columns change no product of ``Q K^T`` or
+    ``dO V^T`` and leave ``rowsum(dO * O)`` as it is, the scale is the
+    caller's, and the padded columns of out, dQ, dK and dV come out 0. A
+    plain function: the CPU tests run it around the plain versions."""
+    d = io[0].shape[-1]
+    size = kernel_head_dim(d)
+    if size == d:
+        return run(*io)
+    out = run(*(torch.nn.functional.pad(t, (0, size - d)) for t in io))
+    cut = lambda t: t[..., :d].contiguous() if t.shape[-1] == size else t
+    return tuple(cut(t) for t in out) if isinstance(out, tuple) else cut(out)
 
 
 def _check_shapes(q, k, v, kv_len) -> None:
@@ -235,14 +281,17 @@ def flash_fwd(q, k, v, causal: bool, scale: float, kv_len: int,
     if not _dispatch(q):
         return flash_fwd_plain(q, k, v, causal, scale, kv_len, q_offset)
     _check_cuda("flash_fwd", (q, k, v))
-    if q.dtype == torch.bfloat16:
-        check_tma("flash_fwd", q, k, v)
-    bh, sq, d = q.shape
-    out = torch.empty_like(q)
-    lse = torch.empty((bh, sq, 1), device=q.device, dtype=torch.float32)
-    _launch("flash_fwd", (q, k, v, out, lse), bh, sq, k.shape[1], d,
-            q.dtype == torch.bfloat16, causal, scale, kv_len, q_offset)
-    return out, lse
+
+    def run(q, k, v):
+        q, k, v = _tma_inputs(q, k, v)
+        bh, sq, d = q.shape
+        out = torch.empty_like(q)
+        lse = torch.empty((bh, sq, 1), device=q.device, dtype=torch.float32)
+        _launch("flash_fwd", (q, k, v, out, lse), bh, sq, k.shape[1], d,
+                causal, scale, kv_len, q_offset)
+        return out, lse
+
+    return _pad_head_dim(run, q, k, v)
 
 
 def _check_bwd(name, q, do, lse, delta):
@@ -264,12 +313,16 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale,
                                    kv_len, q_offset)
     _check_cuda("flash_bwd_dkv", (q, k, v, do), (lse, delta))
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    bh, sq, d = q.shape
-    _launch("flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv), bh, sq,
-            k.shape[1], d, q.dtype == torch.bfloat16, causal, scale, kv_len,
-            q_offset)
-    return dk, dv
+
+    def run(q, k, v, do):
+        q, k, v, do = _tma_inputs(q, k, v, do)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        bh, sq, d = q.shape
+        _launch("flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv), bh, sq,
+                k.shape[1], d, causal, scale, kv_len, q_offset)
+        return dk, dv
+
+    return _pad_head_dim(run, q, k, v, do)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
@@ -281,12 +334,16 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale,
                                   kv_len, q_offset)
     _check_cuda("flash_bwd_dq", (q, k, v, do), (lse, delta))
-    dq = torch.empty_like(q)
-    bh, sq, d = q.shape
-    _launch("flash_bwd_dq", (q, k, v, do, lse, delta, dq), bh, sq,
-            k.shape[1], d, q.dtype == torch.bfloat16, causal, scale, kv_len,
-            q_offset)
-    return dq
+
+    def run(q, k, v, do):
+        q, k, v, do = _tma_inputs(q, k, v, do)
+        dq = torch.empty_like(q)
+        bh, sq, d = q.shape
+        _launch("flash_bwd_dq", (q, k, v, do, lse, delta, dq), bh, sq,
+                k.shape[1], d, causal, scale, kv_len, q_offset)
+        return dq
+
+    return _pad_head_dim(run, q, k, v, do)
 
 
 # --------------------------------------------------------------- public

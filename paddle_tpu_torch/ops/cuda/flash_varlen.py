@@ -60,7 +60,8 @@ import torch
 
 from . import flash_attention as fa
 from ._build import function
-from .flash_attention import NEG_INF, _check_cuda, _dispatch, check_tma
+from .flash_attention import (NEG_INF, _check_cuda, _dispatch, _pad_head_dim,
+                              _tma_inputs)
 
 TILE = 64  # rows of a kernel tile (BQ = BK in csrc/flash_common.cuh)
 
@@ -182,8 +183,8 @@ def varlen_plan(cu_q: torch.Tensor, cu_k: torch.Tensor, tq: int, tk: int,
 # ------------------------------------------------------------ C interface
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_TAIL = [_I] * 6 + [_F, _P]  # h tq tk d is_bf16 causal | scale | stream
-# bh h hs sq sk d is_bf16 causal | scale | stream
+_TAIL = [_I] * 6 + [_F, _P]  # h tq tk d io causal | scale | stream
+# bh h hs sq sk d io causal | scale | stream
 _FM_TAIL = [_I] * 8 + [_F, _P]
 _SIGNATURES = {
     # q k v o lse | seg_q pos_q seg_k pos_k lo hi | ...
@@ -212,6 +213,11 @@ def _check_shapes(q, k, v) -> None:
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if q.shape[0] == 0 or k.shape[0] == 0:
         raise ValueError("varlen attention needs at least one token")
+
+
+def _check_offsets(q, k) -> None:
+    """The kernels index a packed tensor with 32-bit row offsets: checked
+    at the head_dim they run at."""
     if max(q.numel(), k.numel()) >= 2 ** 31:
         raise ValueError("varlen attention: the kernels index a packed "
                          "tensor with 32-bit row offsets (< 2^31 elements)")
@@ -250,14 +256,14 @@ def _plan_tensors(name, q, k, plan: VarlenPlan, lo, hi, tiles: int):
 def _launch(name: str, tensors, sizes, q, causal: bool,
             scale: float) -> None:
     """Launches entry ``name`` on ``tensors`` (pointers) and ``sizes``
-    (ints), then the io type, ``causal``, ``scale`` and the current
-    stream."""
+    (ints), then the io code of ``q``'s type, ``causal``, ``scale`` and the
+    current stream."""
     lib, symbol, argtypes = _SIGNATURES[name]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = function(lib, symbol, argtypes)(
-            *[x.data_ptr() for x in tensors], *sizes,
-            int(q.dtype == torch.bfloat16), int(causal), float(scale), stream)
+            *[x.data_ptr() for x in tensors], *sizes, fa.io_code(q.dtype),
+            int(causal), float(scale), stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed: "
                            f"{torch.cuda.CudaError(err)}")
@@ -333,16 +339,20 @@ def varlen_fwd(q, k, v, plan: VarlenPlan,
     if not _dispatch(q):
         return varlen_fwd_plain(q, k, v, plan, scale)
     _check_cuda("varlen_fwd", (q, k, v), heads=q.shape[1])
-    if q.dtype == torch.bfloat16:
-        check_tma("varlen_fwd", q, k, v)
     meta = _plan_tensors("varlen_fwd", q, k, plan, plan.qlo, plan.qhi,
                          _cdiv(q.shape[0], TILE))
-    out = torch.empty_like(q)
-    lse = torch.empty((q.shape[1], q.shape[0], 1), device=q.device,
-                      dtype=torch.float32)
-    _launch("varlen_fwd", (q, k, v, out, lse) + meta, _varlen_sizes(q, k),
-            q, plan.causal, scale)
-    return out, lse
+
+    def run(q, k, v):
+        _check_offsets(q, k)
+        q, k, v = _tma_inputs(q, k, v)
+        out = torch.empty_like(q)
+        lse = torch.empty((q.shape[1], q.shape[0], 1), device=q.device,
+                          dtype=torch.float32)
+        _launch("varlen_fwd", (q, k, v, out, lse) + meta,
+                _varlen_sizes(q, k), q, plan.causal, scale)
+        return out, lse
+
+    return _pad_head_dim(run, q, k, v)
 
 
 def varlen_bwd_dkv(q, k, v, do, lse, delta, plan: VarlenPlan, scale: float):
@@ -356,10 +366,16 @@ def varlen_bwd_dkv(q, k, v, do, lse, delta, plan: VarlenPlan, scale: float):
                 heads=q.shape[1])
     meta = _plan_tensors("varlen_bwd_dkv", q, k, plan, plan.klo, plan.khi,
                          _cdiv(k.shape[0], TILE))
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("varlen_bwd_dkv", (q, k, v, do, lse, delta, dk, dv) + meta,
-            _varlen_sizes(q, k), q, plan.causal, scale)
-    return dk, dv
+
+    def run(q, k, v, do):
+        _check_offsets(q, k)
+        q, k, v, do = _tma_inputs(q, k, v, do)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        _launch("varlen_bwd_dkv", (q, k, v, do, lse, delta, dk, dv) + meta,
+                _varlen_sizes(q, k), q, plan.causal, scale)
+        return dk, dv
+
+    return _pad_head_dim(run, q, k, v, do)
 
 
 def varlen_bwd_dq(q, k, v, do, lse, delta, plan: VarlenPlan, scale: float):
@@ -372,10 +388,16 @@ def varlen_bwd_dq(q, k, v, do, lse, delta, plan: VarlenPlan, scale: float):
                 heads=q.shape[1])
     meta = _plan_tensors("varlen_bwd_dq", q, k, plan, plan.qlo, plan.qhi,
                          _cdiv(q.shape[0], TILE))
-    dq = torch.empty_like(q)
-    _launch("varlen_bwd_dq", (q, k, v, do, lse, delta, dq) + meta,
-            _varlen_sizes(q, k), q, plan.causal, scale)
-    return dq
+
+    def run(q, k, v, do):
+        _check_offsets(q, k)
+        q, k, v, do = _tma_inputs(q, k, v, do)
+        dq = torch.empty_like(q)
+        _launch("varlen_bwd_dq", (q, k, v, do, lse, delta, dq) + meta,
+                _varlen_sizes(q, k), q, plan.causal, scale)
+        return dq
+
+    return _pad_head_dim(run, q, k, v, do)
 
 
 # --------------------------------------------------------------- public
@@ -603,15 +625,18 @@ def flashmask_fwd(q, k, v, plan: FlashmaskPlan,
     if not _dispatch(q):
         return flashmask_fwd_plain(q, k, v, plan, scale)
     _check_cuda("flashmask_fwd", (q, k, v))
-    if q.dtype == torch.bfloat16:
-        check_tma("flashmask_fwd", q, k, v)
-    arrays, sizes = _fm_args(q, k, plan)
-    out = torch.empty_like(q)
-    lse = torch.empty((q.shape[0], q.shape[1], 1), device=q.device,
-                      dtype=torch.float32)
-    _launch("flashmask_fwd", (q, k, v, out, lse) + arrays, sizes, q,
-            plan.causal, scale)
-    return out, lse
+
+    def run(q, k, v):
+        q, k, v = _tma_inputs(q, k, v)
+        arrays, sizes = _fm_args(q, k, plan)
+        out = torch.empty_like(q)
+        lse = torch.empty((q.shape[0], q.shape[1], 1), device=q.device,
+                          dtype=torch.float32)
+        _launch("flashmask_fwd", (q, k, v, out, lse) + arrays,
+                sizes, q, plan.causal, scale)
+        return out, lse
+
+    return _pad_head_dim(run, q, k, v)
 
 
 def flashmask_bwd_dkv(q, k, v, do, lse, delta, plan: FlashmaskPlan,
@@ -623,11 +648,16 @@ def flashmask_bwd_dkv(q, k, v, do, lse, delta, plan: FlashmaskPlan,
     if not _dispatch(q):
         return flashmask_bwd_dkv_plain(q, k, v, do, lse, delta, plan, scale)
     _check_cuda("flashmask_bwd_dkv", (q, k, v, do), (lse, delta))
-    arrays, sizes = _fm_args(q, k, plan)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flashmask_bwd_dkv", (q, k, v, do, lse, delta, dk, dv) + arrays,
-            sizes, q, plan.causal, scale)
-    return dk, dv
+
+    def run(q, k, v, do):
+        q, k, v, do = _tma_inputs(q, k, v, do)
+        arrays, sizes = _fm_args(q, k, plan)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        _launch("flashmask_bwd_dkv", (q, k, v, do, lse, delta, dk, dv)
+                + arrays, sizes, q, plan.causal, scale)
+        return dk, dv
+
+    return _pad_head_dim(run, q, k, v, do)
 
 
 def flashmask_bwd_dq(q, k, v, do, lse, delta, plan: FlashmaskPlan,
@@ -638,11 +668,16 @@ def flashmask_bwd_dq(q, k, v, do, lse, delta, plan: FlashmaskPlan,
     if not _dispatch(q):
         return flashmask_bwd_dq_plain(q, k, v, do, lse, delta, plan, scale)
     _check_cuda("flashmask_bwd_dq", (q, k, v, do), (lse, delta))
-    arrays, sizes = _fm_args(q, k, plan)
-    dq = torch.empty_like(q)
-    _launch("flashmask_bwd_dq", (q, k, v, do, lse, delta, dq) + arrays,
-            sizes, q, plan.causal, scale)
-    return dq
+
+    def run(q, k, v, do):
+        q, k, v, do = _tma_inputs(q, k, v, do)
+        arrays, sizes = _fm_args(q, k, plan)
+        dq = torch.empty_like(q)
+        _launch("flashmask_bwd_dq", (q, k, v, do, lse, delta, dq) + arrays,
+                sizes, q, plan.causal, scale)
+        return dq
+
+    return _pad_head_dim(run, q, k, v, do)
 
 
 class _FlashMask(torch.autograd.Function):

@@ -12,8 +12,8 @@ neither JAX nor the JAX package, so it runs on a machine without them:
 Tolerances: the kernels and the plain versions both compute in fp32 from
 io-typed inputs and differ in summation order and, in the forward, in the
 running-max rescaling of the online softmax. fp32 io: 1e-5 absolute on
-unit-scale inputs; lse (fp32) 1e-4 in bf16. bf16 outputs are held per
-element (``_limit``): one bf16 ulp of the element itself plus fp32
+unit-scale inputs; lse (fp32) 1e-4 in bf16. bf16 and fp16 outputs are held
+per element (``_limit``): one ulp of the element itself plus fp32
 summation noise and, for the forward's output, the rounding of P against
 a running rather than the final max. RMSNorm and SwiGLU (``_fused_limit``):
 bf16 and fp16 within one ulp of each element plus 1e-6 of the largest, fp32
@@ -42,13 +42,16 @@ def _limit(dtype, key, want, abs_v_out):
     """Per-element bound on |kernel - plain|. bf16: one ulp of the element
     (2^-7 |x|) plus summation noise (1e-4 of the largest element); the
     forward's output adds 2^-8 of |out| and of sum_j p_j |v_j| / l
-    (``abs_v_out``), as P is rounded to bf16 against a running max."""
+    (``abs_v_out``), as P is rounded to bf16 against a running max. fp16:
+    the same at fp16's ulp, 2^-10 |x| and 2^-11 for P's rounding."""
     if key == "lse" or dtype == torch.float32:
         return 1e-4 if key == "lse" and dtype == torch.bfloat16 else 1e-5
+    ulp, p_round = (2 ** -7, 2 ** -8) if dtype == torch.bfloat16 \
+        else (2 ** -10, 2 ** -11)
     want = want.float().abs()
-    lim = 2 ** -7 * want + 1e-4 * want.max()
+    lim = ulp * want + 1e-4 * want.max()
     if key == "out":
-        lim = lim + 2 ** -8 * (want + abs_v_out.float())
+        lim = lim + p_round * (want + abs_v_out.float())
     return lim
 
 
@@ -65,9 +68,14 @@ def _err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["fp32", "bf16"])
-@pytest.mark.parametrize("d", [32, 64, 128])
+DTYPES = dict(argvalues=[torch.float32, torch.bfloat16, torch.float16],
+              ids=["fp32", "bf16", "fp16"])
+# the kernels' head_dims and two that run padded to the next of them
+HEAD_DIMS = [32, 48, 64, 80, 128]
+
+
+@pytest.mark.parametrize("dtype", **DTYPES)
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("shape", [(3, 200, 200, True), (3, 200, 200, False),
                                    (2, 128, 256, True), (2, 256, 128, False)],
                          ids=["ragged-causal", "ragged-full", "cross-causal",
@@ -112,13 +120,13 @@ def test_autograd_counts_one_launch_each(cuda):
                            "flash_bwd_dq": 1}
 
 
-@pytest.mark.parametrize("bad", ["fp16", "head_dim_80", "noncontiguous"])
+@pytest.mark.parametrize("bad", ["integer", "head_dim_160", "noncontiguous"])
 def test_cuda_wrappers_raise_on_what_the_kernel_does_not_take(cuda, bad):
     q, k, v, _ = _inputs(cuda, 2, 128, 128, 64, torch.float32)
-    if bad == "fp16":
-        q, k, v = q.half(), k.half(), v.half()
-    elif bad == "head_dim_80":
-        q, k, v = (torch.cat([t, t[..., :16]], -1) for t in (q, k, v))
+    if bad == "integer":
+        q, k, v = (t.to(torch.int32) for t in (q, k, v))
+    elif bad == "head_dim_160":
+        q, k, v = (torch.cat([t, t, t[..., :32]], -1) for t in (q, k, v))
     else:
         q = q.transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises((TypeError, ValueError)):
@@ -160,6 +168,32 @@ def test_bf16_forward_edges_match_plain(cuda, shape, d):
         assert bool((lse[:, :blind] == fa.NEG_INF).all())
 
 
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("shape", sorted(BF16_FWD_SHAPES))
+def test_bf16_backward_edges_match_plain(cuda, shape, d):
+    """The bf16 backward kernels (tensor cores, a TMA ring of (Q, dO) or
+    (K, V) tiles) at the forward's edge shapes; keys past kv_len (no query
+    sees them) get dK and dV of exactly 0, rows that see no key dQ of 0."""
+    bh, sq, sk, kv_len, causal = BF16_FWD_SHAPES[shape]
+    q, k, v, do = _inputs(cuda, bh, sq, sk, d, torch.bfloat16, seed=4)
+    args = (causal, 1.0 / math.sqrt(d), kv_len, sk - sq)
+    out, lse = fa.flash_fwd(q, k, v, *args)
+    delta = fa.attention_delta(do, out)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, *args)
+    p_dk, p_dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, *args)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, *args)
+    p_dq = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, *args)
+    torch.cuda.synchronize()
+    for key, got, want in (("dq", dq, p_dq), ("dk", dk, p_dk),
+                           ("dv", dv, p_dv)):
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= _limit(torch.bfloat16, key, want, None)).all()), \
+            (key, err.max().item())
+    assert not dk[:, kv_len:].any() and not dv[:, kv_len:].any()
+    if causal and sq > sk:
+        assert not dq[:, :sq - sk].any()
+
+
 def _misaligned(t: torch.Tensor) -> torch.Tensor:
     """A contiguous copy of ``t`` that starts one element past a 16-byte
     boundary (a view at an odd offset of a flat buffer)."""
@@ -171,25 +205,68 @@ def _misaligned(t: torch.Tensor) -> torch.Tensor:
 
 @pytest.mark.parametrize("entry", ["flash_fwd", "varlen_fwd",
                                    "flashmask_fwd"])
-def test_bf16_forward_raises_on_a_misaligned_base(cuda, entry):
-    q, k, v, _ = _inputs(cuda, 2, 128, 128, 64, torch.bfloat16)
+def test_bf16_misaligned_base_matches_plain(cuda, entry):
+    """A bf16 input whose base is not 16-byte aligned (TMA refuses it)
+    reaches the same kernels as a fresh aligned copy: the forward and both
+    backward kernels launch once each and match their plain versions."""
+    q, k, v, do = _inputs(cuda, 2, 128, 128, 64, torch.bfloat16)
     fa.reset_launches()
     fv.reset_launches()
-    with pytest.raises(ValueError, match="16-byte"):
-        if entry == "flash_fwd":
-            fa.flash_fwd(_misaligned(q), k, v, True, 0.125, 128, 0)
-        elif entry == "varlen_fwd":
-            cu = torch.tensor([0, 100, 256], device=cuda).int()
-            plan = fv.varlen_plan(cu, cu, 256, 256, True)
-            qp, kp, vp = (t.reshape(256, 1, 64) for t in (q, k, v))
-            fv.varlen_fwd(qp, _misaligned(kp), vp, plan, 0.125)
-        else:
-            startend = torch.full((2, 1, 128, 1), 128, dtype=torch.int32,
-                                  device=cuda)
-            plan = fv.flashmask_plan(startend, 1, True)
-            fv.flashmask_fwd(q, k, _misaligned(v), plan, 0.125)
+    if entry == "flash_fwd":
+        args = (True, 0.125, 128, 0)
+        fwd = lambda q, k, v: fa.flash_fwd(q, k, v, *args)
+        fwd_plain = lambda q, k, v: fa.flash_fwd_plain(q, k, v, *args)
+        dkv = lambda *t: fa.flash_bwd_dkv(*t, *args)
+        dkv_plain = lambda *t: fa.flash_bwd_dkv_plain(*t, *args)
+        dq = lambda *t: fa.flash_bwd_dq(*t, *args)
+        dq_plain = lambda *t: fa.flash_bwd_dq_plain(*t, *args)
+        delta_of = fa.attention_delta
+        mis = [_misaligned(q), k, v, _misaligned(do)]
+    elif entry == "varlen_fwd":
+        cu = torch.tensor([0, 100, 256], device=cuda).int()
+        plan = fv.varlen_plan(cu, cu, 256, 256, True)
+        q, k, v, do = (t.reshape(256, 1, 64) for t in (q, k, v, do))
+        fwd = lambda q, k, v: fv.varlen_fwd(q, k, v, plan, 0.125)
+        fwd_plain = lambda q, k, v: fv.varlen_fwd_plain(q, k, v, plan, 0.125)
+        dkv = lambda *t: fv.varlen_bwd_dkv(*t, plan, 0.125)
+        dkv_plain = lambda *t: fv.varlen_bwd_dkv_plain(*t, plan, 0.125)
+        dq = lambda *t: fv.varlen_bwd_dq(*t, plan, 0.125)
+        dq_plain = lambda *t: fv.varlen_bwd_dq_plain(*t, plan, 0.125)
+        delta_of = fv.varlen_delta
+        mis = [q, _misaligned(k), v, _misaligned(do)]
+    else:
+        startend = torch.full((2, 1, 128, 1), 100, dtype=torch.int32,
+                              device=cuda)
+        plan = fv.flashmask_plan(startend, 1, True)
+        fwd = lambda q, k, v: fv.flashmask_fwd(q, k, v, plan, 0.125)
+        fwd_plain = lambda q, k, v: fv.flashmask_fwd_plain(q, k, v, plan,
+                                                           0.125)
+        dkv = lambda *t: fv.flashmask_bwd_dkv(*t, plan, 0.125)
+        dkv_plain = lambda *t: fv.flashmask_bwd_dkv_plain(*t, plan, 0.125)
+        dq = lambda *t: fv.flashmask_bwd_dq(*t, plan, 0.125)
+        dq_plain = lambda *t: fv.flashmask_bwd_dq_plain(*t, plan, 0.125)
+        delta_of = fa.attention_delta
+        mis = [q, k, _misaligned(v), _misaligned(do)]
+    assert any(t.data_ptr() % 16 for t in mis)
+    out, lse = fwd(*mis[:3])
+    p_out, p_lse = fwd_plain(q, k, v)
+    abs_v_out = fwd_plain(q, k, v.abs())[0]
+    delta = delta_of(do, out)
+    g_dk, g_dv = dkv(*mis, lse, delta)
+    g_dq = dq(*mis, lse, delta)
+    p_dk, p_dv = dkv_plain(q, k, v, do, lse, delta)
+    p_dq = dq_plain(q, k, v, do, lse, delta)
     torch.cuda.synchronize()
-    assert not any(fa.LAUNCHES.values()) and not any(fv.LAUNCHES.values())
+    for key, got, want in (("out", out, p_out), ("lse", lse, p_lse),
+                           ("dq", g_dq, p_dq), ("dk", g_dk, p_dk),
+                           ("dv", g_dv, p_dv)):
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= _limit(torch.bfloat16, key, want,
+                                   abs_v_out)).all()), (key, err.max().item())
+    counts = dict(fa.LAUNCHES) if entry == "flash_fwd" else {
+        n: c for n, c in fv.LAUNCHES.items()
+        if n.startswith(entry.split("_")[0])}
+    assert sorted(counts.values()) == [1, 1, 1], counts
 
 
 # ------------------------------------------------------------------ varlen
@@ -222,9 +299,8 @@ def _varlen_inputs(device, shape, d, dtype, causal, seed=0):
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["fp32", "bf16"])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("dtype", **DTYPES)
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("shape", sorted(VARLEN_SHAPES))
 def test_varlen_kernels_match_plain(cuda, shape, d, dtype, causal):
     q, k, v, do, cu_q, _, plan = _varlen_inputs(cuda, shape, d, dtype, causal)
@@ -280,6 +356,35 @@ def test_varlen_bf16_forward_empty_and_one_token_segments(cuda, d, causal):
     assert torch.equal(out[0], v[0]) and torch.equal(out[-1], v[-1])
 
 
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_varlen_bf16_backward_empty_and_one_token_segments(cuda, d, causal):
+    """The bf16 backward kernels on the plan with an empty segment and
+    one-token segments: a one-token segment's key is seen by its query
+    alone, so its dV is that query's dO, as the plain version gives it."""
+    lq, lk, _, _ = VARLEN_BF16_EDGE
+    tq, h = sum(lq), 3
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, do = (torch.randn(tq, h, d, generator=gen, device=cuda)
+                   .bfloat16() for _ in range(4))
+    cu = torch.tensor([0] + lq, device=cuda).cumsum(0).int()
+    plan = fv.varlen_plan(cu, cu, tq, tq, causal)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = fv.varlen_fwd(q, k, v, plan, scale)
+    delta = fv.varlen_delta(do, out)
+    dk, dv = fv.varlen_bwd_dkv(q, k, v, do, lse, delta, plan, scale)
+    p_dk, p_dv = fv.varlen_bwd_dkv_plain(q, k, v, do, lse, delta, plan, scale)
+    dq = fv.varlen_bwd_dq(q, k, v, do, lse, delta, plan, scale)
+    p_dq = fv.varlen_bwd_dq_plain(q, k, v, do, lse, delta, plan, scale)
+    torch.cuda.synchronize()
+    for key, got, want in (("dq", dq, p_dq), ("dk", dk, p_dk),
+                           ("dv", dv, p_dv)):
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= _limit(torch.bfloat16, key, want, None)).all()), \
+            (key, err.max().item())
+    assert torch.equal(dv[0], do[0]) and torch.equal(dv[-1], do[-1])
+
+
 def test_varlen_autograd_counts_one_launch_each(cuda):
     q, k, v, do, cu_q, cu_k, _ = _varlen_inputs(
         cuda, "cross_empty_pad", 64, torch.bfloat16, True, seed=2)
@@ -292,15 +397,15 @@ def test_varlen_autograd_counts_one_launch_each(cuda):
                            "flashmask_bwd_dkv": 0, "flashmask_bwd_dq": 0}
 
 
-@pytest.mark.parametrize("bad", ["fp16", "head_dim_80", "cu_on_cpu",
+@pytest.mark.parametrize("bad", ["integer", "head_dim_160", "cu_on_cpu",
                                  "plan_on_cpu"])
 def test_varlen_wrappers_raise_on_what_the_kernel_does_not_take(cuda, bad):
     q, k, v, _, cu_q, cu_k, plan = _varlen_inputs(
         cuda, "straddle", 64, torch.float32, True)
-    if bad == "fp16":
-        q, k, v = q.half(), k.half(), v.half()
-    elif bad == "head_dim_80":
-        q, k, v = (torch.cat([t, t[..., :16]], -1) for t in (q, k, v))
+    if bad == "integer":
+        q, k, v = (t.to(torch.int32) for t in (q, k, v))
+    elif bad == "head_dim_160":
+        q, k, v = (torch.cat([t, t, t[..., :32]], -1) for t in (q, k, v))
     if bad == "cu_on_cpu":
         with pytest.raises(ValueError):
             fv.flash_attn_varlen(q, k, v, cu_q.cpu(), cu_k, causal=True)
@@ -345,9 +450,8 @@ FLASHMASK_SHAPES = {
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["fp32", "bf16"])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("dtype", **DTYPES)
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("shape", sorted(FLASHMASK_SHAPES))
 def test_flashmask_kernels_match_plain(cuda, shape, d, dtype, causal):
     b, h, sq, sk, hs, cols = FLASHMASK_SHAPES[shape]
@@ -409,6 +513,42 @@ def test_flashmask_bf16_forward_one_open_key_tile(cuda, d, causal):
         assert not out[:, :192].any() and not lse[:, :192].any()
 
 
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flashmask_bf16_backward_one_open_key_tile(cuda, d, causal):
+    """The bf16 backward kernels on the start/end row that leaves one key
+    tile open: every key outside tile 3 is banned from every row, so its
+    dK and dV are exactly 0, and under a causal mask the rows before the
+    tile (which see no key) get dQ of 0."""
+    b, h, s = 1, 2, 512
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v, do = (torch.randn(b * h, s, d, generator=gen, device=cuda)
+                   .bfloat16() for _ in range(4))
+    st = torch.zeros(s, dtype=torch.int32, device=cuda)
+    en = torch.full((s,), s, dtype=torch.int32, device=cuda)
+    st[192:256] = s  # tile 3 bans nothing
+    startend = torch.stack([st, en], -1).view(1, 1, s, 2)
+    plan = fv.flashmask_plan(startend, h, causal)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = fv.flashmask_fwd(q, k, v, plan, scale)
+    delta = fa.attention_delta(do, out)
+    dk, dv = fv.flashmask_bwd_dkv(q, k, v, do, lse, delta, plan, scale)
+    p_dk, p_dv = fv.flashmask_bwd_dkv_plain(q, k, v, do, lse, delta, plan,
+                                            scale)
+    dq = fv.flashmask_bwd_dq(q, k, v, do, lse, delta, plan, scale)
+    p_dq = fv.flashmask_bwd_dq_plain(q, k, v, do, lse, delta, plan, scale)
+    torch.cuda.synchronize()
+    for key, got, want in (("dq", dq, p_dq), ("dk", dk, p_dk),
+                           ("dv", dv, p_dv)):
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= _limit(torch.bfloat16, key, want, None)).all()), \
+            (key, err.max().item())
+    for t in (dk, dv):
+        assert not t[:, :192].any() and not t[:, 256:].any()
+    if causal:
+        assert not dq[:, :192].any()
+
+
 def test_flashmask_autograd_counts_one_launch_each(cuda):
     q, k, v, do, startend = _flashmask_inputs(cuda, 2, 3, 200, 200, 64,
                                               torch.bfloat16, 1, 1, seed=2)
@@ -422,8 +562,8 @@ def test_flashmask_autograd_counts_one_launch_each(cuda):
                            "flashmask_bwd_dkv": 1, "flashmask_bwd_dq": 1}
 
 
-@pytest.mark.parametrize("bad", ["fp16", "head_dim_80", "startend_on_cpu",
-                                 "plan_on_cpu"])
+@pytest.mark.parametrize("bad", ["integer", "head_dim_160",
+                                 "startend_on_cpu", "plan_on_cpu"])
 def test_flashmask_wrappers_raise_on_what_the_kernel_does_not_take(cuda, bad):
     q, k, v, _, startend = _flashmask_inputs(cuda, 1, 2, 128, 128, 64,
                                              torch.float32, 2, 2)
@@ -434,10 +574,10 @@ def test_flashmask_wrappers_raise_on_what_the_kernel_does_not_take(cuda, bad):
         return
     plan = fv.flashmask_plan(startend.cpu() if bad == "plan_on_cpu"
                              else startend, 2, True)
-    if bad == "fp16":
-        q, k, v = q.half(), k.half(), v.half()
-    elif bad == "head_dim_80":
-        q, k, v = (torch.cat([t, t[..., :16]], -1) for t in (q, k, v))
+    if bad == "integer":
+        q, k, v = (t.to(torch.int32) for t in (q, k, v))
+    elif bad == "head_dim_160":
+        q, k, v = (torch.cat([t, t, t[..., :32]], -1) for t in (q, k, v))
     with pytest.raises((TypeError, ValueError)):
         fv.flashmask_fwd(q, k, v, plan, 0.125)
 

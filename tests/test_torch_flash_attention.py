@@ -185,10 +185,10 @@ def test_wrappers_reject_bad_inputs(bad):
     if bad in ("dtype", "head_dim"):
         # the CPU path takes any type; the CUDA checks run before a launch
         if bad == "dtype":
-            q, k, v = q.half(), k.half(), v.half()
+            q, k, v = (t.to(torch.int32) for t in (q, k, v))
             err = TypeError
-        else:
-            q, k, v = (t[..., :24] for t in (q, k, v))
+        else:  # above the largest kernel head_dim, 128
+            q, k, v = (torch.cat([t] * 5, -1) for t in (q, k, v))
             err = ValueError
         with pytest.raises(err):
             pt_fa._check_cuda("flash_fwd", (q, k, v))
@@ -207,21 +207,115 @@ def _odd_offset(shape):
 @pytest.mark.parametrize("layout", ["fixed", "packed", "odd_offset",
                                     "odd_row_stride"])
 def test_check_tma_takes_aligned_layouts_and_refuses_the_rest(layout):
-    """The check the bf16 forward runs before a launch, on CPU tensors:
-    contiguous ``[BH, S, D]`` and packed ``[T, H, D]`` pass; a view at an
-    odd element offset (base not 16-byte aligned) and a row stride of 18
-    bytes raise ``ValueError`` with the reason."""
+    """The predicate the bf16 kernels' wrappers run before a launch, on
+    CPU tensors: contiguous ``[BH, S, D]`` and packed ``[T, H, D]`` pass; a
+    view at an odd element offset (base not 16-byte aligned) and a row
+    stride of 18 bytes do not. A refused bf16 tensor reaches the kernel as
+    a fresh contiguous copy, which passes."""
     if layout == "fixed":
-        pt_fa.check_tma("t", torch.zeros(4, 100, 64, dtype=torch.bfloat16))
+        assert pt_fa.check_tma(torch.zeros(4, 100, 64, dtype=torch.bfloat16))
         return
     if layout == "packed":
         for d in (32, 64, 128):
-            pt_fa.check_tma("t", torch.zeros(37, 3, d, dtype=torch.bfloat16))
+            assert pt_fa.check_tma(torch.zeros(37, 3, d,
+                                               dtype=torch.bfloat16))
         return
     if layout == "odd_offset":
-        t, why = _odd_offset((2, 64, 64)), "16-byte-aligned base"
+        t = _odd_offset((2, 64, 64))
     else:
-        t, why = torch.zeros(2, 64, 9, dtype=torch.bfloat16), "strides"
-    assert t.is_contiguous()
-    with pytest.raises(ValueError, match=why):
-        pt_fa.check_tma("t", t)
+        t = torch.zeros(2, 64, 9, dtype=torch.bfloat16)
+    assert t.is_contiguous() and not pt_fa.check_tma(t)
+    if layout == "odd_offset":
+        (copy,) = pt_fa._tma_inputs(t)
+        assert copy.data_ptr() != t.data_ptr() and torch.equal(copy, t)
+        assert pt_fa.check_tma(copy)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [48, 80])
+def test_padded_head_dim_matches_reference(d, causal):
+    """On the card a head_dim of 48 or 80 runs at 64 or 128: the wrappers
+    pad q, k, v and dO with zero columns and slice the results back
+    (``_pad_head_dim``). The same pad and slice around the plain versions
+    matches the reference at the caller's head_dim, forward and
+    gradients, at the fp32 tolerances above."""
+    q, k, v = _qkv(11, (2, 256, d), (2, 256, d))
+    do = np.random.RandomState(12).randn(2, 256, d).astype(np.float32)
+    scale = 1.0 / np.sqrt(d)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    ref_out, ref_lse = ref_fa._fwd(jq, jk, jv, causal, scale, 128, 128, 256,
+                                   0)
+    ref_dq, ref_dk, ref_dv = ref_fa._bwd(jq, jk, jv, ref_out, ref_lse, jdo,
+                                         causal, scale, 128, 128, 256, 0)
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    args = (causal, scale, 256, 0)
+    out, lse = pt_fa._pad_head_dim(
+        lambda *t: pt_fa.flash_fwd_plain(*t, *args), tq, tk, tv)
+    assert out.shape == (2, 256, d) and lse.shape == (2, 256, 1)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), rtol=2e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), rtol=2e-5,
+                               atol=2e-5)
+    delta = pt_fa.attention_delta(tdo, out)
+    dk, dv = pt_fa._pad_head_dim(lambda *t: pt_fa.flash_bwd_dkv_plain(
+        *t, lse, delta, *args), tq, tk, tv, tdo)
+    dq = pt_fa._pad_head_dim(lambda *t: pt_fa.flash_bwd_dq_plain(
+        *t, lse, delta, *args), tq, tk, tv, tdo)
+    for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert got.shape == (2, 256, d) and got.is_contiguous()
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_pad_head_dim_is_exact_and_keeps_kernel_sizes():
+    """Zero columns leave every product as it was: the padded plain
+    forward equals the unpadded one bit for bit at d = 80, and a head_dim
+    the kernels are built for passes through without a copy."""
+    q, k, v = _t(*_qkv(13, (2, 64, 80), (2, 64, 80)))
+    args = (True, 0.11, 64, 0)
+    padded = pt_fa._pad_head_dim(
+        lambda *t: pt_fa.flash_fwd_plain(*t, *args), q, k, v)
+    plain = pt_fa.flash_fwd_plain(q, k, v, *args)
+    assert pt_fa.kernel_head_dim(80) == 128 and pt_fa.kernel_head_dim(1) == 32
+    np.testing.assert_allclose(padded[0].numpy(), plain[0].numpy(),
+                               rtol=1e-6, atol=1e-6)
+    q64 = q[..., :64].contiguous()
+    assert pt_fa._pad_head_dim(lambda t: t, q64) is q64
+    with pytest.raises(ValueError, match="head_dim 160"):
+        pt_fa.kernel_head_dim(160)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_fp16_plain_path_matches_reference(causal):
+    """fp16 io on both sides (the card runs it on the FMA kernels), compute
+    in fp32: each output is rounded once to fp16, and P is rounded to fp16
+    against the running max in the reference and against the final max in
+    the plain version; gradients take out through delta. Held at one fp16
+    ulp of the element (2^-10 relative) plus 2e-3 absolute, about an ulp
+    at 2..4 where the largest values lie; lse (fp32 from fp16 q and k) at
+    1e-5."""
+    q, k, v = _qkv(14, (2, 256, 32), (2, 256, 32))
+    do = np.random.RandomState(15).randn(2, 256, 32).astype(np.float32)
+    q, k, v, do = (x.astype(np.float16) for x in (q, k, v, do))
+    scale = 1.0 / np.sqrt(32)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    ref_out, ref_lse = ref_fa._fwd(jq, jk, jv, causal, scale, 128, 128, 256,
+                                   0)
+    ref_grads = ref_fa._bwd(jq, jk, jv, ref_out, ref_lse, jdo, causal, scale,
+                            128, 128, 256, 0)
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    args = (causal, scale, 256, 0)
+    out, lse = pt_fa.flash_fwd(tq, tk, tv, *args)
+    assert out.dtype == torch.float16
+    delta = pt_fa.attention_delta(tdo, out)
+    dk, dv = pt_fa.flash_bwd_dkv(tq, tk, tv, tdo, lse, delta, *args)
+    dq = pt_fa.flash_bwd_dq(tq, tk, tv, tdo, lse, delta, *args)
+    fp16 = dict(rtol=2 ** -10, atol=2e-3)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref_out).astype(np.float32), **fp16)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), rtol=1e-5,
+                               atol=1e-5)
+    for got, ref in zip((dq, dk, dv), ref_grads):
+        assert got.dtype == torch.float16
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(ref).astype(np.float32), **fp16)

@@ -41,11 +41,11 @@ CASES = {
 HEADS, HEAD_DIM, SCALE = 2, 32, 0.2
 
 
-def _case(name, seed=0):
+def _case(name, seed=0, d=HEAD_DIM):
     lq, lk, pad_q, pad_k = CASES[name]
     tq, tk = sum(lq) + pad_q, sum(lk) + pad_k
     rng = np.random.RandomState(seed)
-    q, k, v, do = (rng.randn(t, HEADS, HEAD_DIM).astype(np.float32)
+    q, k, v, do = (rng.randn(t, HEADS, d).astype(np.float32)
                    for t in (tq, tk, tk, tq))
     cu_q = np.cumsum([0] + lq).astype(np.int32)
     cu_k = np.cumsum([0] + lk).astype(np.int32)
@@ -171,6 +171,61 @@ def test_bf16_matches_reference():
     for t, want in zip((tq, tk, tv), ref_grads):
         np.testing.assert_allclose(t.grad.float().numpy(),
                                    want.astype(np.float32), **bf16)
+
+
+def test_fp16_matches_reference():
+    """fp16 io on both sides (the card runs it on the FMA kernels), compute
+    in fp32, as the bf16 test above: one fp16 ulp of the element (2^-10
+    relative) plus 2e-3 absolute, about an ulp at 2..4 where the largest
+    values lie; lse (fp32 from fp16 q and k) at 1e-5."""
+    q, k, v, do, cu_q, cu_k = _case("spanning", seed=5)
+    q, k, v, do = (x.astype(np.float16) for x in (q, k, v, do))
+    ref_out, ref_lse, ref_grads = _ref_run(q, k, v, do, cu_q, cu_k, True)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    cq, ck = torch.from_numpy(cu_q), torch.from_numpy(cu_k)
+    out = pt_fv.flash_attn_varlen(tq, tk, tv, cq, ck, SCALE, True)
+    assert out.dtype == torch.float16
+    out.backward(torch.from_numpy(do))
+    plan = pt_fv.varlen_plan(cq, ck, q.shape[0], k.shape[0], True)
+    _, lse = pt_fv.varlen_fwd(tq.detach(), tk.detach(), tv.detach(), plan,
+                              SCALE)
+    fp16 = dict(rtol=2 ** -10, atol=2e-3)
+    np.testing.assert_allclose(out.detach().float().numpy(),
+                               ref_out.astype(np.float32), **fp16)
+    _close(lse.numpy(), ref_lse, 1e-5)
+    for t, want in zip((tq, tk, tv), ref_grads):
+        assert t.grad.dtype == torch.float16
+        np.testing.assert_allclose(t.grad.float().numpy(),
+                                   want.astype(np.float32), **fp16)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("d", [48, 80])
+def test_padded_head_dim_matches_reference(d, causal):
+    """On the card a head_dim of 48 or 80 runs at 64 or 128
+    (``_pad_head_dim``: zero columns in, results sliced back). The same
+    pad and slice around the plain versions matches the reference at the
+    caller's head_dim, at the fp32 tolerances above."""
+    q, k, v, do, cu_q, cu_k = _case("empty_pad", seed=6, d=d)
+    scale = 1.0 / np.sqrt(d)
+    ref_out, ref_lse, ref_grads = _ref_run(q, k, v, do, cu_q, cu_k, causal,
+                                           scale)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    plan = pt_fv.varlen_plan(torch.from_numpy(cu_q), torch.from_numpy(cu_k),
+                             q.shape[0], k.shape[0], causal)
+    out, lse = pt_fa._pad_head_dim(
+        lambda *t: pt_fv.varlen_fwd_plain(*t, plan, scale), tq, tk, tv)
+    assert out.shape == q.shape
+    _close(out.numpy(), ref_out, 2e-5)
+    _close(lse.numpy(), ref_lse, 2e-5)
+    delta = pt_fv.varlen_delta(tdo, out)
+    dk, dv = pt_fa._pad_head_dim(lambda *t: pt_fv.varlen_bwd_dkv_plain(
+        *t, lse, delta, plan, scale), tq, tk, tv, tdo)
+    dq = pt_fa._pad_head_dim(lambda *t: pt_fv.varlen_bwd_dq_plain(
+        *t, lse, delta, plan, scale), tq, tk, tv, tdo)
+    for got, want in zip((dq, dk, dv), ref_grads):
+        assert got.shape == want.shape
+        _close(got.numpy(), want, 1e-4)
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])

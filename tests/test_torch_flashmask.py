@@ -61,13 +61,11 @@ def _startend(kind, b, hs, sq, sk, cols, rng):
     return np.ascontiguousarray(idx).astype(np.int32)
 
 
-def _case(name, seed=0):
+def _case(name, seed=0, d=HEAD_DIM):
     b, sq, sk, h, hs, cols, kind = CASES[name]
     rng = np.random.RandomState(seed)
-    q, do = (rng.randn(b, sq, h, HEAD_DIM).astype(np.float32)
-             for _ in range(2))
-    k, v = (rng.randn(b, sk, h, HEAD_DIM).astype(np.float32)
-            for _ in range(2))
+    q, do = (rng.randn(b, sq, h, d).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(b, sk, h, d).astype(np.float32) for _ in range(2))
     return q, k, v, do, _startend(kind, b, hs, sq, sk, cols, rng)
 
 
@@ -187,6 +185,56 @@ def test_bf16_matches_reference():
     for t, want in zip((tq, tk, tv), ref_grads):
         np.testing.assert_allclose(t.grad.float().numpy(),
                                    want.astype(np.float32), **bf16)
+
+
+def test_fp16_matches_reference():
+    """fp16 io on both sides (the card runs it on the FMA kernels), as the
+    bf16 test above at fp16's ulp: 2^-10 relative plus 2e-3 absolute,
+    about an ulp at 2..4; lse (fp32 from fp16 q and k) at 1e-5."""
+    q, k, v, do, idx = _case("random_2col_per_head", seed=4)
+    q, k, v, do = (x.astype(np.float16) for x in (q, k, v, do))
+    ref_out, ref_lse, ref_grads = _ref_run(q, k, v, do, idx, True)
+    out, lse, grads = _port_run(q, k, v, do, idx, True)
+    assert out.dtype == np.float16
+    fp16 = dict(rtol=2 ** -10, atol=2e-3)
+    np.testing.assert_allclose(out.astype(np.float32),
+                               ref_out.astype(np.float32), **fp16)
+    _close(lse, ref_lse, 1e-5)
+    for got, want in zip(grads, ref_grads):
+        assert got.dtype == np.float16
+        np.testing.assert_allclose(got.astype(np.float32),
+                                   want.astype(np.float32), **fp16)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("d", [48, 80])
+def test_padded_head_dim_matches_reference(d, causal):
+    """On the card a head_dim of 48 or 80 runs at 64 or 128
+    (``_pad_head_dim``: zero columns in, results sliced back). The same
+    pad and slice around the plain versions matches the reference at the
+    caller's head_dim, at the fp32 tolerances above."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as pt_fa
+    q, k, v, do, idx = _case("band_2col_per_head", seed=5, d=d)
+    scale = 1.0 / np.sqrt(d)
+    ref_out, ref_lse, ref_grads = _ref_run(q, k, v, do, idx, causal, scale)
+    b, sq, h, _ = q.shape
+    tq, tk, tv, tdo = (torch.from_numpy(x).transpose(1, 2)
+                       .reshape(b * h, -1, d).contiguous()
+                       for x in (q, k, v, do))
+    plan = pt_fv.flashmask_plan(torch.from_numpy(idx), h, causal)
+    out, lse = pt_fa._pad_head_dim(
+        lambda *t: pt_fv.flashmask_fwd_plain(*t, plan, scale), tq, tk, tv)
+    assert out.shape == tq.shape
+    back = lambda x: x.view(b, h, -1, d).transpose(1, 2).numpy()
+    _close(back(out), ref_out, 2e-5)
+    _close(lse.numpy(), ref_lse, 2e-5)
+    delta = pt_fa.attention_delta(tdo, out)
+    dk, dv = pt_fa._pad_head_dim(lambda *t: pt_fv.flashmask_bwd_dkv_plain(
+        *t, lse, delta, plan, scale), tq, tk, tv, tdo)
+    dq = pt_fa._pad_head_dim(lambda *t: pt_fv.flashmask_bwd_dq_plain(
+        *t, lse, delta, plan, scale), tq, tk, tv, tdo)
+    for got, want in zip((dq, dk, dv), ref_grads):
+        _close(back(got), want, 1e-4)
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
