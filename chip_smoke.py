@@ -40,13 +40,18 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    fused-op path's tensors (Llama-2-7B widths, 8192 tokens, bf16) and at
    edge shapes (fp32 and fp16, 37 rows, rows of 1000 and 1003, a float32
    weight or gate beside bf16 x, the split form with unaligned halves).
+   head_dim 256 and 160 (run at 256) for the three masks in fp32, bf16 and
+   fp16, forward and backward (the FMA kernels at 256); and rows that see
+   no key under ``mha_forward`` (causal, sq > sk) against the CPU path.
    Phases 3 and 4 each run under a watchdog that exits non-zero if a
    kernel hangs;
 4. times each kernel, its plain version and, as a yardstick only,
    ``scaled_dot_product_attention`` (which the port never calls; for the
    varlen and flashmask kernels with the dense bool mask) and
    ``torch.nn.functional.rms_norm``, beside the least time the card could
-   take for the same work;
+   take for the same work; then the three masks' kernels again at
+   head_dim 256 (16 heads, bf16, the same tokens), with the FMA kernels'
+   shared memory per block;
 5. checks the training step on a small GPT against the port's CPU path
    (the path the CPU tests hold against the JAX package), then drives the
    main path: gpt2-medium at full width (24 layers, hidden 1024), batch 8,
@@ -75,8 +80,16 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    seq 2048, bf16, fp32 master, remat, AdamW, 1 warm-up and 5 timed steps;
    checks that no port kernel launched (the reference's LLaMA calls
    none), and profiles one step;
-10. prints the ``kernels`` JSON line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+10. drives the eager API: a small fp32 eager GPT step on the card against
+   the port's CPU eager path, then ``GPTForPretraining`` at gpt2-medium's
+   full width and depth through ``paddle_tpu_torch`` as a user writes it
+   (fp32 parameters, ``amp.auto_cast`` bf16 O1, ``optimizer.AdamW`` lr
+   1e-4, no recompute, batch 8 x seq 1024), 1 warm-up and 5 timed steps;
+   checks 24 launches each of the forward, dK/dV and dQ kernels a step,
+   all bf16 at head_dim 64, and no other port kernel; compares its median
+   with phase 5's and profiles one step;
+11. prints the head_dim 256 timings, the ``kernels`` JSON line, the card
+   line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. It never falls back
 to the CPU or to a plain version: with no CUDA device it exits 1 before
@@ -424,10 +437,16 @@ def _varlen_inputs(lens_q, lens_k, pad_q, pad_k, h, d, dtype, causal,
 
 
 def _per_head(fn, *tensors):
-    """Runs a plain varlen version one head at a time (its dense
-    [H, Tq, Tk] scores at the packed shape would take 4.3 GB each) and
-    joins the heads again. ``tensors`` are [T, H, D] or [H, T, 1]."""
+    """Runs a plain varlen version over all heads in one call or, where
+    its dense [H, Tq, Tk] fp32 scores would pass 1 GiB (4.3 GB each at the
+    packed shape), one head at a time, joining the heads again.
+    ``tensors`` are [T, H, D] or [H, T, 1]. The FMA kernels sum in the
+    order of the one call; a head at a time, cuBLAS sums in another, which
+    at fp32 can move an element of a sum over a hundred rows by several
+    ulps."""
     h = tensors[0].shape[1]
+    if h * tensors[0].shape[0] * tensors[1].shape[0] * 4 <= 2 ** 30:
+        return fn(*tensors)
     outs = []
     for i in range(h):
         outs.append(fn(*(t[:, i:i + 1] if t.shape[-1] != 1 else t[i:i + 1]
@@ -906,6 +925,42 @@ def repairs():
     misaligned_checks()
 
 
+def head_dim_256_checks():
+    """head_dim 256 and 160 (run at 256 with zero columns), fp32, bf16 and
+    fp16 (all on the FMA kernels at 256, whose backward works on 32-row
+    halves of its 64-row tiles), the three masks, forward and backward,
+    against the plain versions with ``limit``; the fixed-length mask at
+    sq > sk causal (rows that see no key) and sq < sk."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for d, causal, (sq, sk) in ((256, True, (200, 136)),
+                                    (160, False, (136, 200))):
+            hold_against_plain(4, sq, sk, d, dtype, causal, seed=50)
+            hold_varlen_against_plain(*EDGE, 2, d, dtype, causal, seed=51)
+            hold_flashmask_against_plain(
+                2, 200, 136, 2, d, dtype, causal,
+                _fm_edge_startend(2, 2, 200, 136, seed=7), seed=52)
+
+
+def keyless_rows_check():
+    """Causal sq > sk through ``mha_forward``: the rows that see no key
+    get the reference's output (the mean of v over the key blocks the
+    reference visits), on the card as on the CPU path the CPU tests hold
+    against the reference; fp32, 1e-5."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    for sq, sk in ((576, 512), (1536, 1280)):
+        q, k, v, _ = _inputs(2, sq, sk, 32, torch.float32, seed=53)
+        got = fa.mha_forward(q, k, v, causal=True)
+        want = fa.mha_forward(q.cpu(), k.cpu(), v.cpu(), causal=True)
+        err = _err(got.cpu(), want)
+        keyless = got[:, :sq - sk]
+        print(f"keyless rows sq {sq} sk {sk}: max abs err against the CPU "
+              f"path {err:.3g}; {int((keyless != 0).any(-1).sum())} of "
+              f"{keyless.shape[0] * keyless.shape[1]} keyless rows take "
+              f"the reference's mean of v")
+        check(err <= 1e-5, f"keyless rows: err {err} at sq {sq} sk {sk}")
+        check(bool(keyless.any()), "keyless rows all 0")
+
+
 def kernel_checks():
     phase("3 kernels against their plain versions")
     errs = hold_against_plain(BATCH * HEADS, SEQ, SEQ, HEAD_DIM,
@@ -927,6 +982,8 @@ def kernel_checks():
                                      causal, edge_startend, seed=8)
     bf16_edges()
     repairs()
+    head_dim_256_checks()
+    keyless_rows_check()
     fused_errs, fused_results = fused_checks()
     errs.update(fused_errs)
     return errs, varlen_results, (fm_results, fm_abs_v), fused_results
@@ -1008,13 +1065,13 @@ def flashmask_bounds(pairs, bh, sq, sk, d, io_bytes, plan_bytes):
     return {name: _bound(*fb) for name, fb in work.items()}
 
 
-def varlen_timings():
+def varlen_timings(h, d, seed):
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.cuda import flash_varlen as fv
     t = sum(DOCS)
     q, k, v, do, cu, _, plan = _varlen_inputs(
-        DOCS, DOCS, 0, 0, HEADS, HEAD_DIM, torch.bfloat16, True, seed=5)
-    scale = 1.0 / math.sqrt(HEAD_DIM)
+        DOCS, DOCS, 0, 0, h, d, torch.bfloat16, True, seed=seed)
+    scale = 1.0 / math.sqrt(d)
     out, lse = fv.varlen_fwd(q, k, v, plan, scale)
     delta = fv.varlen_delta(do, out)
     ms = {
@@ -1054,9 +1111,9 @@ def varlen_timings():
         lib_out, (ql, kl, vl), do4, retain_graph=True), 10)
     library_ms = {"varlen_fwd": lib_fwd, "varlen_bwd_dkv": None,
                   "varlen_bwd_dq": None}
-    bnd = varlen_bounds(HEADS, DOCS, DOCS, t, t, HEAD_DIM, 2, True)
-    print(f"varlen: T {t}, {len(DOCS)} documents, {HEADS} heads, d "
-          f"{HEAD_DIM}, bf16, causal; {kept_pairs(DOCS, DOCS, True)} kept "
+    bnd = varlen_bounds(h, DOCS, DOCS, t, t, d, 2, True)
+    print(f"varlen: T {t}, {len(DOCS)} documents, {h} heads, d "
+          f"{d}, bf16, causal; {kept_pairs(DOCS, DOCS, True)} kept "
           f"pairs per head ({kept_pairs(DOCS, DOCS, True) / (t * (t + 1) / 2):.1%}"
           f" of a dense causal mask)")
     for name in library_ms:
@@ -1073,12 +1130,13 @@ def varlen_timings():
     return ms, plain_ms, library_ms, bnd
 
 
-def flashmask_timings():
+def flashmask_timings(h, d, seed):
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import flash_varlen as fv
-    b, s, h, d = 2, FM_SEQ, HEADS, HEAD_DIM
-    q4, k4, v4, do4 = _flashmask_inputs(b, s, s, h, d, torch.bfloat16, seed=9)
+    b, s = 2, FM_SEQ
+    q4, k4, v4, do4 = _flashmask_inputs(b, s, s, h, d, torch.bfloat16,
+                                        seed=seed)
     q, k, v, do = (_heads(x) for x in (q4, k4, v4, do4))
     startend = torch.from_numpy(flashmask_startend()).cuda()
     plan = fv.flashmask_plan(startend, h, True)
@@ -1186,12 +1244,15 @@ def fused_timings():
     return ms, plain_ms, library_ms, bnd
 
 
-def timings():
+def fixed_timings(b, h, s, d, seed):
+    """The fixed-length kernels at a causal [b * h, s, d] bf16 shape: each
+    kernel's and its plain version's ms, the library's (SDPA forward; its
+    backward computes dq, dk and dv in one call, so it stands beside no
+    single backward kernel) and the bounds."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
-    phase("4 timings at the path shapes")
-    bh, s, d = BATCH * HEADS, SEQ, HEAD_DIM
-    q, k, v, do = _inputs(bh, s, s, d, torch.bfloat16, seed=2)
+    bh = b * h
+    q, k, v, do = _inputs(bh, s, s, d, torch.bfloat16, seed=seed)
     args = (True, 1.0 / math.sqrt(d), s, 0)
     out, lse = fa.flash_fwd(q, k, v, *args)
     delta = fa.attention_delta(do, out)
@@ -1210,11 +1271,7 @@ def timings():
             q, k, v, do, lse, delta, *args), 5),
     }
     delta_ms = cuda_ms(lambda: fa.attention_delta(do, out), 20)
-
-    # yardstick only: the library's fused attention on the same inputs in
-    # the [B, H, S, D] layout (its backward computes dq, dk and dv in one
-    # call, so it stands beside no single backward kernel)
-    q4, k4, v4, do4 = (t.view(BATCH, HEADS, s, d) for t in (q, k, v, do))
+    q4, k4, v4, do4 = (t.view(b, h, s, d) for t in (q, k, v, do))
     lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
         q4, k4, v4, is_causal=True), 20)
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
@@ -1224,6 +1281,8 @@ def timings():
     library_ms = {"flash_fwd": lib_fwd, "flash_bwd_dkv": None,
                   "flash_bwd_dq": None}
     bnd = bounds(bh, s, d, 2)
+    print(f"fixed-length: batch {b} x {h} heads, seq {s}, d {d}, bf16, "
+          f"causal")
     for name in library_ms:
         b_ms, b_by, flops, nbytes = bnd[name]
         print(f"{name}: {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms, "
@@ -1234,8 +1293,43 @@ def timings():
     print(f"library sdpa causal: fwd {lib_fwd:.4f} ms, bwd (dq+dk+dv) "
           f"{lib_bwd:.4f} ms; port bwd dkv+dq+delta "
           f"{ms['flash_bwd_dkv'] + ms['flash_bwd_dq'] + delta_ms:.4f} ms")
-    v_ms, v_plain, v_lib, v_bnd = varlen_timings()
-    f_ms, f_plain, f_lib, f_bnd = flashmask_timings()
+    return ms, plain_ms, library_ms, bnd
+
+
+# the head_dim 256 timings: a Gemma-7B-like attention (16 heads of 256) in
+# place of gpt2-medium's 16 x 64, over the same tokens per mask
+D256_HEADS = 16
+# the FMA kernels' shared memory at head_dim 256, as their launchers size
+# it (flash_common.cuh: 64-row tiles of D + 1 floats, score tiles of 65;
+# the backward in 32-row passes): Q, K, V tiles and P; dQ: 32 rows of Q and
+# dO, 64 of K and V, 32 x 65 dS, 32 lse and delta; dK/dV: 32 rows of K and
+# V, 64 of Q and dO, 64 x 33 P and dS, 64 lse and delta
+D256_SMEM = {"flash_fwd": 4 * (3 * 64 * 257 + 64 * 65),
+             "flash_bwd_dq": 4 * (2 * 32 * 257 + 2 * 64 * 257 + 32 * 65
+                                  + 2 * 32),
+             "flash_bwd_dkv": 4 * (2 * 32 * 257 + 2 * 64 * 257 + 2 * 64 * 33
+                                   + 2 * 64)}
+
+
+def d256_timings():
+    """The three masks' kernels at head_dim 256, bf16 (the FMA kernels),
+    beside their bounds, plain versions and the library's forward."""
+    print(f"head_dim 256 (the FMA kernels at every io type), shared memory "
+          f"per block: " + ", ".join(f"{k} {v} B" for k, v in
+                                     D256_SMEM.items()) + " of 232448")
+    results = [fixed_timings(BATCH, D256_HEADS, SEQ, 256, seed=60),
+               varlen_timings(D256_HEADS, 256, seed=61),
+               flashmask_timings(D256_HEADS, 256, seed=62)]
+    return tuple({k: v for r in results for k, v in r[i].items()}
+                 for i in range(4))
+
+
+def timings():
+    phase("4 timings at the path shapes")
+    ms, plain_ms, library_ms, bnd = fixed_timings(BATCH, HEADS, SEQ,
+                                                  HEAD_DIM, seed=2)
+    v_ms, v_plain, v_lib, v_bnd = varlen_timings(HEADS, HEAD_DIM, seed=5)
+    f_ms, f_plain, f_lib, f_bnd = flashmask_timings(HEADS, HEAD_DIM, seed=9)
     u_ms, u_plain, u_lib, u_bnd = fused_timings()
     return ({**ms, **v_ms, **f_ms, **u_ms},
             {**plain_ms, **v_plain, **f_plain, **u_plain},
@@ -1321,10 +1415,7 @@ def main_path():
 
     med_ms = float(np.median(step_ms))
     tok_s = BATCH * SEQ / (med_ms / 1e3)
-    h, L, v = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
-    n_params = 12 * L * h * h + v * h + cfg.max_position_embeddings * h
-    flops_per_token = 6 * n_params + 12 * L * SEQ * h
-    mfu = flops_per_token * tok_s / PEAK_BF16_FLOPS
+    mfu = gpt_flops_per_token(cfg) * tok_s / PEAK_BF16_FLOPS
     peak = torch.cuda.max_memory_allocated()
     print(f"gpt2-medium b{BATCH} s{SEQ} bf16 remat adamw: "
           f"median {med_ms:.2f} ms/step of {TIMED_STEPS} "
@@ -1332,7 +1423,139 @@ def main_path():
           f"{tok_s:.1f} tokens/s, MFU {mfu:.4f} of 989 TFLOP/s, "
           f"peak memory {peak / 2**30:.2f} GiB")
     profile_step(step, state, tokens, labels, med_ms)
-    return launches
+    return launches, med_ms
+
+
+def gpt_flops_per_token(cfg) -> float:
+    """6 N + 12 L s h, as ``bench.py`` counts a GPT step (no recompute)."""
+    h, L, v = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
+    n_params = 12 * L * h * h + v * h + cfg.max_position_embeddings * h
+    return 6 * n_params + 12 * L * SEQ * h
+
+
+def _eager_step(paddle, model, crit, opt, x, y):
+    """One eager training step under bf16 O1, in the trainer's profiler
+    ranges (forward, backward, optimizer)."""
+    from torch.profiler import record_function
+    with record_function("forward"):
+        with paddle.amp.auto_cast(dtype="bfloat16"):
+            loss = crit(model(x), y)
+    loss.backward()
+    with record_function("optimizer"):
+        opt.step()
+        opt.clear_grad()
+    return loss
+
+
+def small_eager_check():
+    """One fp32 eager step of a small GPT on the card against the same
+    step on the port's CPU eager path (the path the CPU tests hold against
+    the JAX package), from the same weights: loss 1e-5 relative, parameters
+    after one AdamW step 1e-4 (an Adam step moves each by about lr)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import gpt
+    cfg = gpt.GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                        num_heads=4, max_position_embeddings=256,
+                        dtype="float32")
+    rng = np.random.RandomState(1)
+    x_np, y_np = (rng.randint(0, 512, (2, 256)) for _ in range(2))
+    results = []
+    for dev in ("gpu", "cpu"):
+        paddle.set_device(dev)
+        paddle.seed(0)
+        model = gpt.GPTForPretraining(cfg)
+        if results:
+            model.set_state_dict(results[0][2])
+        opt = paddle.optimizer.AdamW(1e-3, parameters=model.parameters())
+        crit = gpt.GPTPretrainingCriterion()
+        state = {k: v.numpy() for k, v in model.state_dict().items()}
+        loss = crit(model(paddle.to_tensor(x_np)), paddle.to_tensor(y_np))
+        loss.backward()
+        opt.step()
+        results.append((float(loss), [p.numpy() for p in model.parameters()],
+                        state))
+    paddle.set_device("gpu")
+    (g_loss, g_params, _), (c_loss, c_params, _) = results
+    err = max(float(np.abs(a - b).max()) for a, b in zip(g_params, c_params))
+    print(f"small eager step: cuda loss {g_loss:.6f} cpu loss {c_loss:.6f}; "
+          f"parameters after one AdamW step max abs err {err:.3g}")
+    check(abs(g_loss - c_loss) <= 1e-5 * abs(c_loss), "small eager loss")
+    check(err <= 1e-4, f"small eager parameters err {err}")
+
+
+def eager_path(smi, compiled_ms):
+    """The eager API's training loop on gpt2-medium at full width and
+    depth: fp32 parameters, bf16 O1 ``auto_cast``, AdamW lr 1e-4, no
+    recompute, batch ``BATCH`` x seq ``SEQ``, 1 warm-up and 5 timed
+    steps. Each step must launch 24 bf16 forward, dK/dV and dQ kernels at
+    head_dim 64 and no other port kernel."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    phase("10 eager path")
+    small_eager_check()
+    torch.cuda.empty_cache()
+
+    cfg = gpt.GPT_CONFIGS["gpt2-medium"]
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    model = gpt.GPTForPretraining(cfg)
+    crit = gpt.GPTPretrainingCriterion()
+    opt = paddle.optimizer.AdamW(1e-4, parameters=model.parameters())
+    rng = np.random.RandomState(0)
+    x = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (BATCH, SEQ)))
+    y = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (BATCH, SEQ)))
+    n_params = sum(p.size for p in model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    seen = set()  # (kernel, io type, head_dim) of each launch
+    launch = fa._launch
+
+    def spy(name, tensors, *args):
+        seen.add((name, tensors[0].dtype, tensors[0].shape[-1]))
+        return launch(name, tensors, *args)
+
+    _reset_all_launches()
+    losses, step_ms = [], []
+    for i in range(1 + TIMED_STEPS):
+        fa._launch = spy if i == 0 else launch
+        t0 = time.perf_counter()
+        loss = _eager_step(paddle, model, crit, opt, x, y)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        losses.append(float(loss))
+        if i:
+            step_ms.append(dt)
+        print(f"eager step {i}{' (warm-up)' if not i else ''}: loss "
+              f"{losses[-1]:.5f} {dt:.1f} ms")
+    fa._launch = launch
+    launches = _all_launches()
+    n_steps = 1 + TIMED_STEPS
+    print(f"port kernel launches over {n_steps} steps: {launches}; launched "
+          f"in the warm-up step: {sorted((n, str(t), d) for n, t, d in seen)}")
+    for name, n in launches.items():
+        want = cfg.num_layers * n_steps if name in fa.LAUNCHES else 0
+        check(n == want, f"{name} launched {n} times, want {want}")
+    check(seen == {(n, torch.bfloat16, cfg.head_dim) for n in fa.LAUNCHES},
+          f"launches not all bf16 at head_dim {cfg.head_dim}: {seen}")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+
+    med_ms = float(np.median(step_ms))
+    tok_s = BATCH * SEQ / (med_ms / 1e3)
+    mfu = gpt_flops_per_token(cfg) * tok_s / PEAK_BF16_FLOPS
+    peak = torch.cuda.max_memory_allocated()
+    print(f"eager gpt2-medium ({n_params} parameters, fp32) b{BATCH} "
+          f"s{SEQ} bf16 O1 adamw, no recompute: median {med_ms:.2f} ms/step "
+          f"of {TIMED_STEPS} (steps {[round(v, 2) for v in step_ms]}), "
+          f"{tok_s:.1f} tokens/s, MFU {mfu:.4f} of 989 TFLOP/s, peak memory "
+          f"{peak / 2**30:.2f} GiB on {smi}; the compiled functional step "
+          f"(phase 5, bf16 params, remat) {compiled_ms:.2f} ms, "
+          f"{med_ms / compiled_ms:.3f}x")
+    check(peak < DEVICE_BYTES, f"peak memory {peak} >= {DEVICE_BYTES}")
+    profile_step(lambda *_: _eager_step(paddle, model, crit, opt, x, y),
+                 None, None, None, med_ms)
 
 
 def _kernel_group(name: str) -> str:
@@ -1732,8 +1955,10 @@ def main() -> int:
             kernel_checks()
     with watchdog("phase 4 (timings)", 300):
         ms, plain_ms, library_ms, bnd = timings()
+    with watchdog("phase 4 (head_dim 256 timings)", 300):
+        d256 = d256_timings()
     torch.cuda.empty_cache()
-    launches = main_path()
+    launches, compiled_ms = main_path()
     torch.cuda.empty_cache()
     varlen_launches, _ = varlen_path(varlen_results, smi)
     launches.update(varlen_launches)
@@ -1745,7 +1970,16 @@ def main() -> int:
     launches.update(fused_launches)
     torch.cuda.empty_cache()
     llama_path(smi)
-    phase("10 results")
+    torch.cuda.empty_cache()
+    eager_path(smi, compiled_ms)
+    phase("11 results")
+    d_ms, d_plain, d_lib, d_bnd = d256
+    for kname in d_ms:
+        lib = d_lib[kname]
+        print(f"head_dim 256 {kname}: {d_ms[kname]:.4f} ms, plain "
+              f"{d_plain[kname]:.4f} ms, bound {d_bnd[kname][0]:.4f} ms "
+              f"({d_bnd[kname][1]}), library "
+              f"{'none' if lib is None else f'{lib:.4f} ms'}")
     rows = []
     for kname, (source, replaces) in KERNELS.items():
         rows.append({

@@ -60,7 +60,8 @@
 //   A operands (16 for each of P hi, P lo, dS hi, dS lo) a thread; D <= 64
 //   runs two blocks an SM (up to 255 registers a thread), D = 128 one.
 // The FMA kernel (`flash_bwd_dkv_kernel`), 256 threads: products as fp32
-// FMAs from shared memory, for the fp32 and fp16 models and checks.
+// FMAs from shared memory, for the fp32 and fp16 models and checks, and for
+// every io type at head_dim 256 (in two 32-key passes, DkvFma).
 //
 // Grid: FMA (ceil(Sk / 64), heads); bf16 the same for the fixed-length
 // mask and (heads, ceil(Sk / 64)) for the varlen and flashmask masks, the
@@ -72,138 +73,156 @@
 
 namespace pt_flash {
 
+// Key rows a pass of the FMA dK/dV kernel holds: the whole 64-row tile up to
+// D = 128; at D = 256 two passes of 32 rows, so that the fp32 K, V, Q and dO
+// tiles fit one block's shared memory (64-row ones would take 296,960
+// bytes of the 232,448 a block may have) and the dK and dV sums fit the
+// registers. The mask still works on 64-row tiles: a pass visits every
+// query tile its key tile visits.
+template <int D>
+struct DkvFma {
+  static constexpr int KI = D > 128 ? 2 : 4;  // 16-key groups a pass
+  static constexpr int KR = 16 * KI;          // keys a pass
+  static constexpr int LDS = KR + 1;          // stride of a [64 x KR] score tile
+  static constexpr size_t SMEM =
+      sizeof(float) * (2 * KR * (D + 1) + 2 * BQ * (D + 1) + 2 * BQ * LDS + 2 * BQ);
+};
+
 template <typename T, int D, typename Mask>
-// Shared memory allows two blocks per SM at head_dim <= 64 (one at 128):
-// saying so keeps ptxas from squeezing the kernel into 64 registers with
-// spills to reach an occupancy the shared memory rules out.
-__global__ void __launch_bounds__(NT, 2)
+// Shared memory allows two blocks per SM at head_dim <= 64 (one at 128 and
+// 256): saying so keeps ptxas from squeezing the kernel into 64 registers
+// with spills to reach an occupancy the shared memory rules out.
+__global__ void __launch_bounds__(NT, D > 128 ? 1 : 2)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                      Layout lay, Mask heads_mask, float scale) {
   constexpr int LD = D + 1;
   constexpr int DJ = D / 16;
+  constexpr int KI = DkvFma<D>::KI, KR = DkvFma<D>::KR, LDS = DkvFma<D>::LDS;
   extern __shared__ float smem[];
-  float* Ks = smem;            // [BK][LD]
-  float* Vs = Ks + BK * LD;    // [BK][LD]
-  float* Qs = Vs + BK * LD;    // [BQ][LD]
+  float* Ks = smem;            // [KR][LD]
+  float* Vs = Ks + KR * LD;    // [KR][LD]
+  float* Qs = Vs + KR * LD;    // [BQ][LD]
   float* dOs = Qs + BQ * LD;   // [BQ][LD]
-  float* Ps = dOs + BQ * LD;   // [BQ][LDP]
-  float* dSs = Ps + BQ * LDP;  // [BQ][LDP]
-  float* Ls = dSs + BQ * LDP;  // [BQ]
+  float* Ps = dOs + BQ * LD;   // [BQ][LDS]
+  float* dSs = Ps + BQ * LDS;  // [BQ][LDS]
+  float* Ls = dSs + BQ * LDS;  // [BQ]
   float* Dl = Ls + BQ;         // [BQ]
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int h = blockIdx.y;
   const Mask mask = heads_mask.at_head(h);
   const int kt = blockIdx.x;
-  const int k0 = kt * BK;
   const T* qb = q + h * lay.q_hs;
   const T* dob = dout + h * lay.q_hs;
   const float* lb = lse + (size_t)h * lay.sq;
   const float* db = delta + (size_t)h * lay.sq;
-
-  load_tile<T, BK, D>(Ks, k + h * lay.k_hs, k0, lay.sk, lay.k_rs);
-  load_tile<T, BK, D>(Vs, v + h * lay.k_hs, k0, lay.sk, lay.k_rs);
-
-  float dk_acc[4][DJ], dv_acc[4][DJ];
-  RowInfo ki[4];  // the keys tx + 16 b of every score tile
-#pragma unroll
-  for (int b = 0; b < 4; ++b) ki[b] = mask.k_row(k0 + tx + 16 * b);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DJ; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
   const int2 tiles = mask.query_tiles(kt);
-  for (int it = tiles.x; it < tiles.y; ++it) {
-    if (!mask.tile_open(it, kt)) continue;  // the same for the whole block
-    const int q0 = it * BQ;
-    RowInfo qi[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) qi[i] = mask.q_row(q0 + ty + 16 * i);
-    __syncthreads();  // the last tile's reads of Qs, dOs, Ps, dSs are done
-    load_tile<T, BQ, D>(Qs, qb, q0, lay.sq, lay.q_rs);
-    load_tile<T, BQ, D>(dOs, dob, q0, lay.sq, lay.q_rs);
-    load_rowvec(Ls, lb, q0, lay.sq, BQ);
-    load_rowvec(Dl, db, q0, lay.sq, BQ);
-    __syncthreads();
 
-    // s = Q K^T and dP = dO V^T; thread holds query rows ty + 16 i, keys tx + 16 b
-    float s[4][4], dp[4][4];
+  for (int k0 = kt * BK; k0 < min(kt * BK + BK, lay.sk); k0 += KR) {
+    __syncthreads();  // the last pass's reads of Ks and Vs are done
+    load_tile<T, KR, D>(Ks, k + h * lay.k_hs, k0, lay.sk, lay.k_rs);
+    load_tile<T, KR, D>(Vs, v + h * lay.k_hs, k0, lay.sk, lay.k_rs);
+
+    float dk_acc[KI][DJ], dv_acc[KI][DJ];
+    RowInfo ki[KI];  // the keys tx + 16 b of every score tile
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int b = 0; b < KI; ++b) ki[b] = mask.k_row(k0 + tx + 16 * b);
 #pragma unroll
-      for (int b = 0; b < 4; ++b) s[i][b] = dp[i][b] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qa[4], oa[4], kv[4], vv[4];
+    for (int i = 0; i < KI; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qa[i] = Qs[(ty + 16 * i) * LD + d];
-        oa[i] = dOs[(ty + 16 * i) * LD + d];
-      }
+      for (int c = 0; c < DJ; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+
+    for (int it = tiles.x; it < tiles.y; ++it) {
+      if (!mask.tile_open(it, kt)) continue;  // the same for the whole block
+      const int q0 = it * BQ;
+      RowInfo qi[4];
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        kv[b] = Ks[(tx + 16 * b) * LD + d];
-        vv[b] = Vs[(tx + 16 * b) * LD + d];
-      }
+      for (int i = 0; i < 4; ++i) qi[i] = mask.q_row(q0 + ty + 16 * i);
+      __syncthreads();  // the last tile's reads of Qs, dOs, Ps, dSs are done
+      load_tile<T, BQ, D>(Qs, qb, q0, lay.sq, lay.q_rs);
+      load_tile<T, BQ, D>(dOs, dob, q0, lay.sq, lay.q_rs);
+      load_rowvec(Ls, lb, q0, lay.sq, BQ);
+      load_rowvec(Dl, db, q0, lay.sq, BQ);
+      __syncthreads();
+
+      // s = Q K^T and dP = dO V^T; thread holds query rows ty + 16 i, keys tx + 16 b
+      float s[4][KI], dp[4][KI];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          s[i][b] = fmaf(qa[i], kv[b], s[i][b]);
-          dp[i][b] = fmaf(oa[i], vv[b], dp[i][b]);
+        for (int b = 0; b < KI; ++b) s[i][b] = dp[i][b] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float qa[4], oa[4], kv[KI], vv[KI];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          qa[i] = Qs[(ty + 16 * i) * LD + d];
+          oa[i] = dOs[(ty + 16 * i) * LD + d];
         }
-    }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
+        for (int b = 0; b < KI; ++b) {
+          kv[b] = Ks[(tx + 16 * b) * LD + d];
+          vv[b] = Vs[(tx + 16 * b) * LD + d];
+        }
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int col = tx + 16 * b;
-        const bool ok = mask.visible(qi[i], ki[b]);
-        const float p = ok ? expf(s[i][b] * scale - Ls[r]) : 0.f;
-        Ps[r * LDP + col] = p;
-        dSs[r * LDP + col] = p * (dp[i][b] - Dl[r]) * scale;
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int b = 0; b < KI; ++b) {
+            s[i][b] = fmaf(qa[i], kv[b], s[i][b]);
+            dp[i][b] = fmaf(oa[i], vv[b], dp[i][b]);
+          }
       }
-    }
-    __syncthreads();
-
-    // dV += P^T dO and dK += dS^T Q; thread holds key rows ty + 16 i, dims tx + 16 c
-#pragma unroll 4
-    for (int qq = 0; qq < BQ; ++qq) {
-      float pa[4], sa[4], ob[DJ], qv[DJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        pa[i] = Ps[qq * LDP + ty + 16 * i];
-        sa[i] = dSs[qq * LDP + ty + 16 * i];
-      }
+        const int r = ty + 16 * i;
 #pragma unroll
-      for (int c = 0; c < DJ; ++c) {
-        ob[c] = dOs[qq * LD + tx + 16 * c];
-        qv[c] = Qs[qq * LD + tx + 16 * c];
+        for (int b = 0; b < KI; ++b) {
+          const int col = tx + 16 * b;
+          const bool ok = mask.visible(qi[i], ki[b]);
+          const float p = ok ? expf(s[i][b] * scale - Ls[r]) : 0.f;
+          Ps[r * LDS + col] = p;
+          dSs[r * LDS + col] = p * (dp[i][b] - Dl[r]) * scale;
+        }
       }
+      __syncthreads();
+
+      // dV += P^T dO and dK += dS^T Q; thread holds key rows ty + 16 i, dims tx + 16 c
+#pragma unroll 4
+      for (int qq = 0; qq < BQ; ++qq) {
+        float pa[KI], sa[KI], ob[DJ], qv[DJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < KI; ++i) {
+          pa[i] = Ps[qq * LDS + ty + 16 * i];
+          sa[i] = dSs[qq * LDS + ty + 16 * i];
+        }
 #pragma unroll
         for (int c = 0; c < DJ; ++c) {
-          dv_acc[i][c] = fmaf(pa[i], ob[c], dv_acc[i][c]);
-          dk_acc[i][c] = fmaf(sa[i], qv[c], dk_acc[i][c]);
+          ob[c] = dOs[qq * LD + tx + 16 * c];
+          qv[c] = Qs[qq * LD + tx + 16 * c];
         }
+#pragma unroll
+        for (int i = 0; i < KI; ++i)
+#pragma unroll
+          for (int c = 0; c < DJ; ++c) {
+            dv_acc[i][c] = fmaf(pa[i], ob[c], dv_acc[i][c]);
+            dk_acc[i][c] = fmaf(sa[i], qv[c], dk_acc[i][c]);
+          }
+      }
     }
-  }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kp = k0 + ty + 16 * i;
-    if (kp >= lay.sk) continue;
-    T* dkrow = dk + h * lay.k_hs + kp * lay.k_rs;
-    T* dvrow = dv + h * lay.k_hs + kp * lay.k_rs;
+    for (int i = 0; i < KI; ++i) {
+      const int kp = k0 + ty + 16 * i;
+      if (kp >= lay.sk) continue;
+      T* dkrow = dk + h * lay.k_hs + kp * lay.k_rs;
+      T* dvrow = dv + h * lay.k_hs + kp * lay.k_rs;
 #pragma unroll
-    for (int c = 0; c < DJ; ++c) {
-      dkrow[tx + 16 * c] = from_f<T>(dk_acc[i][c]);
-      dvrow[tx + 16 * c] = from_f<T>(dv_acc[i][c]);
+      for (int c = 0; c < DJ; ++c) {
+        dkrow[tx + 16 * c] = from_f<T>(dk_acc[i][c]);
+        dvrow[tx + 16 * c] = from_f<T>(dv_acc[i][c]);
+      }
     }
   }
 }
@@ -451,20 +470,23 @@ template <typename T, int D, typename Mask>
 cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                 const void* delta, void* dk, void* dv, int heads, Layout lay, Mask mask,
                 float scale, void* stream) {
-  const size_t smem = sizeof(float) * (4 * 64 * (D + 1) + 2 * BQ * LDP + 2 * BQ);
   const dim3 grid((lay.sk + BK - 1) / BK, heads);
-  return launch(flash_bwd_dkv_kernel<T, D, Mask>, grid, smem, stream, (const T*)q, (const T*)k,
+  return launch(flash_bwd_dkv_kernel<T, D, Mask>, grid, DkvFma<D>::SMEM, stream, (const T*)q, (const T*)k,
                 (const T*)v, (const T*)dout, (const float*)lse, (const float*)delta, (T*)dk,
                 (T*)dv, lay, mask, scale);
 }
 
 // bf16 to the tensor-core kernel, float and fp16 to the FMA kernel (io:
-// see Io); `packed` says the tensors are [T, H, D] (varlen) rather than
-// [BH, S, D].
+// see Io); head_dim 256 to the FMA kernel at every io type. `packed` says
+// the tensors are [T, H, D] (varlen) rather than [BH, S, D].
 template <typename Mask>
 cudaError_t dkv_any(int d, int io, const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta, void* dk, void* dv,
                     int heads, Layout lay, Mask mask, float scale, int packed, void* stream) {
+  if (d == 256) {
+    PT_FLASH_SWITCH_IO(io, return dkv<T, 256>(q, k, v, dout, lse, delta, dk, dv, heads, lay,
+                                              mask, scale, stream))
+  }
   if (io == IO_BF16) {
     PT_FLASH_SWITCH_D(d, return dkv_hopper<D>(q, k, v, dout, lse, delta, dk, dv, heads, lay, mask,
                                               scale, packed, stream))

@@ -57,7 +57,8 @@
 //   about 2^-17. So the kernel runs 4 products a tile where the TPU's runs
 //   3, and holds the reference's fp32 dS.
 // The FMA kernel (`flash_bwd_dq_kernel`), 256 threads: products as fp32
-// FMAs from shared memory, for the fp32 and fp16 models and checks.
+// FMAs from shared memory, for the fp32 and fp16 models and checks, and for
+// every io type at head_dim 256 (in two 32-row passes, DqFma).
 //
 // Grid: FMA (ceil(Sq / 64), heads); bf16 the same for the fixed-length
 // mask and (heads, ceil(Sq / 64)) for the varlen and flashmask masks, the
@@ -69,122 +70,138 @@
 
 namespace pt_flash {
 
+// Query rows a pass of the FMA dQ kernel holds: the whole 64-row tile up to
+// D = 128; at D = 256 two passes of 32 rows, so that the fp32 Q, dO, K and V
+// tiles fit one block's shared memory (64-row ones would take 280,320
+// bytes of the 232,448 a block may have). The mask still works on 64-row
+// tiles: a pass visits every key tile its query tile visits.
+template <int D>
+struct DqFma {
+  static constexpr int RI = D > 128 ? 2 : 4;  // 16-row groups a pass
+  static constexpr int QR = 16 * RI;          // query rows a pass
+  static constexpr size_t SMEM =
+      sizeof(float) * (2 * QR * (D + 1) + 2 * BK * (D + 1) + QR * LDP + 2 * QR);
+};
+
 template <typename T, int D, typename Mask>
-// Shared memory allows two blocks per SM at head_dim <= 64 (one at 128):
-// saying so keeps ptxas from squeezing the kernel into 64 registers with
-// spills to reach an occupancy the shared memory rules out.
-__global__ void __launch_bounds__(NT, 2)
+// Shared memory allows two blocks per SM at head_dim <= 64 (one at 128 and
+// 256): saying so keeps ptxas from squeezing the kernel into 64 registers
+// with spills to reach an occupancy the shared memory rules out.
+__global__ void __launch_bounds__(NT, D > 128 ? 1 : 2)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq, Layout lay,
                     Mask heads_mask, float scale) {
   constexpr int LD = D + 1;
   constexpr int DJ = D / 16;
+  constexpr int RI = DqFma<D>::RI, QR = DqFma<D>::QR;
   extern __shared__ float smem[];
-  float* Qs = smem;            // [BQ][LD]
-  float* dOs = Qs + BQ * LD;   // [BQ][LD]
-  float* Ks = dOs + BQ * LD;   // [BK][LD]
+  float* Qs = smem;            // [QR][LD]
+  float* dOs = Qs + QR * LD;   // [QR][LD]
+  float* Ks = dOs + QR * LD;   // [BK][LD]
   float* Vs = Ks + BK * LD;    // [BK][LD]
-  float* dSs = Vs + BK * LD;   // [BQ][LDP]
-  float* Ls = dSs + BQ * LDP;  // [BQ]
-  float* Dl = Ls + BQ;         // [BQ]
+  float* dSs = Vs + BK * LD;   // [QR][LDP]
+  float* Ls = dSs + QR * LDP;  // [QR]
+  float* Dl = Ls + QR;         // [QR]
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int h = blockIdx.y;
   const Mask mask = heads_mask.at_head(h);
   const int qt = blockIdx.x;
-  const int q0 = qt * BQ;
   const T* kb = k + h * lay.k_hs;
   const T* vb = v + h * lay.k_hs;
-
-  load_tile<T, BQ, D>(Qs, q + h * lay.q_hs, q0, lay.sq, lay.q_rs);
-  load_tile<T, BQ, D>(dOs, dout + h * lay.q_hs, q0, lay.sq, lay.q_rs);
-  load_rowvec(Ls, lse + (size_t)h * lay.sq, q0, lay.sq, BQ);
-  load_rowvec(Dl, delta + (size_t)h * lay.sq, q0, lay.sq, BQ);
-
-  float dq_acc[4][DJ];
-  RowInfo qi[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    qi[i] = mask.q_row(q0 + ty + 16 * i);
-#pragma unroll
-    for (int c = 0; c < DJ; ++c) dq_acc[i][c] = 0.f;
-  }
-
   const int2 tiles = mask.key_tiles(qt);
-  for (int j = tiles.x; j < tiles.y; ++j) {
-    if (!mask.tile_open(qt, j)) continue;  // the same for the whole block
-    const int k0 = j * BK;
-    RowInfo ki[4];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) ki[b] = mask.k_row(k0 + tx + 16 * b);
-    __syncthreads();  // the last tile's reads of Ks and dSs are done
-    load_tile<T, BK, D>(Ks, kb, k0, lay.sk, lay.k_rs);
-    load_tile<T, BK, D>(Vs, vb, k0, lay.sk, lay.k_rs);
-    __syncthreads();
 
-    // s = Q K^T and dP = dO V^T; thread holds query rows ty + 16 i, keys tx + 16 b
-    float s[4][4], dp[4][4];
+  for (int q0 = qt * BQ; q0 < min(qt * BQ + BQ, lay.sq); q0 += QR) {
+    __syncthreads();  // the last pass's reads of Qs, dOs, Ls and Dl are done
+    load_tile<T, QR, D>(Qs, q + h * lay.q_hs, q0, lay.sq, lay.q_rs);
+    load_tile<T, QR, D>(dOs, dout + h * lay.q_hs, q0, lay.sq, lay.q_rs);
+    load_rowvec(Ls, lse + (size_t)h * lay.sq, q0, lay.sq, QR);
+    load_rowvec(Dl, delta + (size_t)h * lay.sq, q0, lay.sq, QR);
+
+    float dq_acc[RI][DJ];
+    RowInfo qi[RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i) {
+      qi[i] = mask.q_row(q0 + ty + 16 * i);
 #pragma unroll
-      for (int b = 0; b < 4; ++b) s[i][b] = dp[i][b] = 0.f;
+      for (int c = 0; c < DJ; ++c) dq_acc[i][c] = 0.f;
+    }
+
+    for (int j = tiles.x; j < tiles.y; ++j) {
+      if (!mask.tile_open(qt, j)) continue;  // the same for the whole block
+      const int k0 = j * BK;
+      RowInfo ki[4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) ki[b] = mask.k_row(k0 + tx + 16 * b);
+      __syncthreads();  // the last tile's reads of Ks and dSs are done
+      load_tile<T, BK, D>(Ks, kb, k0, lay.sk, lay.k_rs);
+      load_tile<T, BK, D>(Vs, vb, k0, lay.sk, lay.k_rs);
+      __syncthreads();
+
+      // s = Q K^T and dP = dO V^T; thread holds query rows ty + 16 i, keys tx + 16 b
+      float s[RI][4], dp[RI][4];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) s[i][b] = dp[i][b] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qa[4], oa[4], kv[4], vv[4];
+      for (int d = 0; d < D; ++d) {
+        float qa[RI], oa[RI], kv[4], vv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qa[i] = Qs[(ty + 16 * i) * LD + d];
-        oa[i] = dOs[(ty + 16 * i) * LD + d];
-      }
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        kv[b] = Ks[(tx + 16 * b) * LD + d];
-        vv[b] = Vs[(tx + 16 * b) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < RI; ++i) {
+          qa[i] = Qs[(ty + 16 * i) * LD + d];
+          oa[i] = dOs[(ty + 16 * i) * LD + d];
+        }
 #pragma unroll
         for (int b = 0; b < 4; ++b) {
-          s[i][b] = fmaf(qa[i], kv[b], s[i][b]);
-          dp[i][b] = fmaf(oa[i], vv[b], dp[i][b]);
+          kv[b] = Ks[(tx + 16 * b) * LD + d];
+          vv[b] = Vs[(tx + 16 * b) * LD + d];
         }
-    }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
+        for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int col = tx + 16 * b;
-        const bool ok = mask.visible(qi[i], ki[b]);
-        const float p = ok ? expf(s[i][b] * scale - Ls[r]) : 0.f;
-        dSs[r * LDP + col] = p * (dp[i][b] - Dl[r]) * scale;
+          for (int b = 0; b < 4; ++b) {
+            s[i][b] = fmaf(qa[i], kv[b], s[i][b]);
+            dp[i][b] = fmaf(oa[i], vv[b], dp[i][b]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const int r = ty + 16 * i;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int col = tx + 16 * b;
+          const bool ok = mask.visible(qi[i], ki[b]);
+          const float p = ok ? expf(s[i][b] * scale - Ls[r]) : 0.f;
+          dSs[r * LDP + col] = p * (dp[i][b] - Dl[r]) * scale;
+        }
+      }
+      __syncthreads();
+
+      // dQ += dS K; thread holds query rows ty + 16 i, dims tx + 16 c
+#pragma unroll 4
+      for (int kk = 0; kk < BK; ++kk) {
+        float sa[RI], kr[DJ];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) sa[i] = dSs[(ty + 16 * i) * LDP + kk];
+#pragma unroll
+        for (int c = 0; c < DJ; ++c) kr[c] = Ks[kk * LD + tx + 16 * c];
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int c = 0; c < DJ; ++c) dq_acc[i][c] = fmaf(sa[i], kr[c], dq_acc[i][c]);
       }
     }
-    __syncthreads();
 
-    // dQ += dS K; thread holds query rows ty + 16 i, dims tx + 16 c
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float sa[4], kr[DJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sa[i] = dSs[(ty + 16 * i) * LDP + kk];
+    for (int i = 0; i < RI; ++i) {
+      const int qp = q0 + ty + 16 * i;
+      if (qp >= lay.sq) continue;
+      T* row = dq + h * lay.q_hs + qp * lay.q_rs;
 #pragma unroll
-      for (int c = 0; c < DJ; ++c) kr[c] = Ks[kk * LD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < DJ; ++c) dq_acc[i][c] = fmaf(sa[i], kr[c], dq_acc[i][c]);
+      for (int c = 0; c < DJ; ++c) row[tx + 16 * c] = from_f<T>(dq_acc[i][c]);
     }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty + 16 * i;
-    if (qp >= lay.sq) continue;
-    T* row = dq + h * lay.q_hs + qp * lay.q_rs;
-#pragma unroll
-    for (int c = 0; c < DJ; ++c) row[tx + 16 * c] = from_f<T>(dq_acc[i][c]);
   }
 }
 
@@ -395,20 +412,23 @@ template <typename T, int D, typename Mask>
 cudaError_t dq_launch(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int heads, Layout lay,
                       Mask mask, float scale, void* stream) {
-  const size_t smem = sizeof(float) * (4 * 64 * (D + 1) + BQ * LDP + 2 * BQ);
   const dim3 grid((lay.sq + BQ - 1) / BQ, heads);
-  return launch(flash_bwd_dq_kernel<T, D, Mask>, grid, smem, stream, (const T*)q, (const T*)k,
+  return launch(flash_bwd_dq_kernel<T, D, Mask>, grid, DqFma<D>::SMEM, stream, (const T*)q, (const T*)k,
                 (const T*)v, (const T*)dout, (const float*)lse, (const float*)delta, (T*)dq, lay,
                 mask, scale);
 }
 
 // bf16 to the tensor-core kernel, float and fp16 to the FMA kernel (io:
-// see Io); `packed` says the tensors are [T, H, D] (varlen) rather than
-// [BH, S, D].
+// see Io); head_dim 256 to the FMA kernel at every io type. `packed` says
+// the tensors are [T, H, D] (varlen) rather than [BH, S, D].
 template <typename Mask>
 cudaError_t dq_any(int d, int io, const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta, void* dq, int heads,
                    Layout lay, Mask mask, float scale, int packed, void* stream) {
+  if (d == 256) {
+    PT_FLASH_SWITCH_IO(io, return dq_launch<T, 256>(q, k, v, dout, lse, delta, dq, heads, lay,
+                                                    mask, scale, stream))
+  }
   if (io == IO_BF16) {
     PT_FLASH_SWITCH_D(d, return dq_hopper<D>(q, k, v, dout, lse, delta, dq, heads, lay, mask,
                                              scale, packed, stream))

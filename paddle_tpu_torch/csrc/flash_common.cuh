@@ -12,7 +12,9 @@
 // as a 16 x 16 grid (tx = tid % 16, ty = tid / 16); a thread owns rows
 // {ty + 16 i} and columns {tx + 16 j} of each 64-row tile, so the 16 threads
 // that share a row sit in one half-warp and reduce a row with four xor
-// shuffles.
+// shuffles. At head_dim 256 (the FMA kernels at every io type) the
+// backward holds its block's own 64-row tile as two 32-row passes, so that
+// its fp32 tiles fit shared memory (DqFma, DkvFma).
 //
 // What a kernel may see is a Mask policy (CausalMask, SegmentMask,
 // StartEndMask below): which key a query row sees, which tiles a tile
@@ -285,6 +287,17 @@ inline Layout packed_layout(int tq, int tk, int h, int d) {
     case 64: { constexpr int D = 64; __VA_ARGS__; }  \
     case 128: { constexpr int D = 128; __VA_ARGS__; } \
     default: return cudaErrorInvalidValue;           \
+  }
+
+// Instantiates `body` for every io type T: float, bf16 or fp16 (the FMA
+// kernels at head_dim 256, which has no tensor-core instantiation yet);
+// anything else is refused.
+#define PT_FLASH_SWITCH_IO(io, ...)                          \
+  switch (io) {                                              \
+    case IO_F32: { using T = float; __VA_ARGS__; }           \
+    case IO_BF16: { using T = __nv_bfloat16; __VA_ARGS__; }  \
+    case IO_F16: { using T = __half; __VA_ARGS__; }          \
+    default: return cudaErrorInvalidValue;                   \
   }
 
 // Instantiates `body` for the FMA kernels' io type T: float or fp16 (bf16

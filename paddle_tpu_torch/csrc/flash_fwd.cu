@@ -6,6 +6,8 @@
 // fp16 to the second: the tensor cores have no fp32 product at fp32
 // accuracy (TF32 keeps 10 mantissa bits), so float io stays on FMAs; fp16
 // io shares the FMA kernel until it has `wgmma` instantiations of its own.
+// head_dim 256 goes to the FMA kernel at every io type (214,016 bytes of
+// shared memory a block); it has no tensor-core instantiation yet.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (reached
 // through `_fwd_call`; entry `pt_flash_fwd`, CausalMask),
@@ -484,12 +486,15 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse,
 }
 
 // bf16 to the tensor-core kernel, float and fp16 to the FMA kernel (io:
-// see Io); `packed` says the tensors are [T, H, D] (varlen) rather than
-// [BH, S, D].
+// see Io); head_dim 256 to the FMA kernel at every io type. `packed` says
+// the tensors are [T, H, D] (varlen) rather than [BH, S, D].
 template <typename Mask>
 cudaError_t fwd_any(int d, int io, const void* q, const void* k, const void* v, void* o,
                     void* lse, int heads, Layout lay, Mask mask, float scale, int packed,
                     void* stream) {
+  if (d == 256) {
+    PT_FLASH_SWITCH_IO(io, return fwd<T, 256>(q, k, v, o, lse, heads, lay, mask, scale, stream))
+  }
   if (io == IO_BF16) {
     PT_FLASH_SWITCH_D(d, return fwd_hopper<D>(q, k, v, o, lse, heads, lay, mask, scale, packed,
                                               stream))

@@ -1,8 +1,17 @@
-"""GPT compiled-trainer path in PyTorch.
+"""GPT in PyTorch: the eager Layer path and the compiled-trainer path.
 
-Counterpart of the functional half of ``paddle_tpu/models/gpt.py``
-(``init_gpt_params`` → ``_block`` → ``gpt_forward`` → ``gpt_loss`` →
-``build_train_step``). Parameters are a nested dict with the reference's
+Counterpart of ``paddle_tpu/models/gpt.py``, both halves:
+
+1. the eager Layer path (``GPTEmbeddings``, ``GPTDecoderLayer``,
+   ``GPTModel``, ``GPTForPretraining``, ``GPTPretrainingCriterion``), built
+   from the port's ``nn`` layers and its degree-1 tensor-parallel layers,
+   with the reference's parameter names: the reference's ``state_dict``, as
+   numpy arrays, loads into it with ``set_state_dict``. As in the
+   reference, attention always calls ``F.flash_attention`` (the config's
+   ``use_flash_attention`` is not read on this path), which reaches the
+   port's kernels through ``ops/cuda/flash_attention.py`` ``mha_forward``;
+2. the functional trainer (``init_gpt_params`` → ``_block`` →
+   ``gpt_forward`` → ``gpt_loss`` → ``build_train_step``). Parameters are a nested dict with the reference's
 key names and its stacked ``[L, ...]`` per-block layout, so a parameter
 tree moves between the two packages leaf for leaf (``models/convert.py``).
 
@@ -29,8 +38,16 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .. import nn
 from .._core.device import DeviceLike, resolve_device
+from ..distributed.fleet.mp_layers import (ColumnParallelLinear,
+                                           RowParallelLinear,
+                                           VocabParallelEmbedding)
+from ..nn import functional as PF
+from ..ops.creation import arange
 from ..ops.cuda.flash_attention import mha_forward
+from ..ops.linalg import matmul
+from ..ops.reduction import mean as pmean, sum as psum
 
 
 @dataclasses.dataclass
@@ -41,9 +58,12 @@ class GPTConfig:
     num_heads: int = 12
     intermediate_size: Optional[int] = None
     max_position_embeddings: int = 1024
+    hidden_dropout_prob: float = 0.0
+    attention_dropout_prob: float = 0.0
     layer_norm_eps: float = 1e-5
     initializer_range: float = 0.02
     use_flash_attention: bool = True
+    use_recompute: bool = False
     dtype: str = "bfloat16"
 
     @property
@@ -72,6 +92,106 @@ GPT_CONFIGS = {
 BLOCK_KEYS = ("ln1_g", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
               "ln2_g", "ln2_b", "fc_w", "fc_b", "fo_w", "fo_b")
 
+
+# =====================================================================
+# Eager Layer path
+# =====================================================================
+
+class GPTEmbeddings(nn.Layer):
+    def __init__(self, config: GPTConfig):
+        super().__init__()
+        self.word_embeddings = VocabParallelEmbedding(
+            config.vocab_size, config.hidden_size)
+        self.position_embeddings = nn.Embedding(
+            config.max_position_embeddings, config.hidden_size)
+        self.dropout = nn.Dropout(config.hidden_dropout_prob)
+
+    def forward(self, input_ids, position_ids=None):
+        if position_ids is None:
+            position_ids = arange(input_ids.shape[1], dtype="int64")
+        h = self.word_embeddings(input_ids) \
+            + self.position_embeddings(position_ids)
+        return self.dropout(h)
+
+
+class GPTDecoderLayer(nn.Layer):
+    def __init__(self, config: GPTConfig):
+        super().__init__()
+        h = config.hidden_size
+        self.ln_1 = nn.LayerNorm(h, config.layer_norm_eps)
+        self.qkv_proj = ColumnParallelLinear(h, 3 * h, gather_output=False)
+        self.out_proj = RowParallelLinear(h, h)
+        self.ln_2 = nn.LayerNorm(h, config.layer_norm_eps)
+        self.mlp_in = ColumnParallelLinear(h, config.ffn,
+                                           gather_output=False)
+        self.mlp_out = RowParallelLinear(config.ffn, h)
+        self.config = config
+        self.attn_dropout = nn.Dropout(config.attention_dropout_prob)
+        self.dropout = nn.Dropout(config.hidden_dropout_prob)
+
+    def forward(self, x, attn_mask=None):
+        c = self.config
+        residual = x
+        y = self.ln_1(x)
+        qkv = self.qkv_proj(y)
+        b, s = qkv.shape[0], qkv.shape[1]
+        qkv = qkv.reshape([b, s, 3, c.num_heads, c.head_dim])
+        q, k, v = qkv.unbind(axis=2)
+        attn, _ = PF.flash_attention(q, k, v,
+                                     dropout=c.attention_dropout_prob,
+                                     causal=True, training=self.training)
+        attn = attn.reshape([b, s, c.hidden_size])
+        x = residual + self.dropout(self.out_proj(attn))
+        residual = x
+        y = self.ln_2(x)
+        y = self.mlp_out(PF.gelu(self.mlp_in(y), approximate=True))
+        return residual + self.dropout(y)
+
+
+class GPTModel(nn.Layer):
+    def __init__(self, config: GPTConfig):
+        super().__init__()
+        self.config = config
+        self.embeddings = GPTEmbeddings(config)
+        self.layers = nn.LayerList(
+            [GPTDecoderLayer(config) for _ in range(config.num_layers)])
+        self.ln_f = nn.LayerNorm(config.hidden_size, config.layer_norm_eps)
+
+    def forward(self, input_ids, position_ids=None, attention_mask=None):
+        x = self.embeddings(input_ids, position_ids)
+        for layer in self.layers:
+            if self.config.use_recompute and self.training:
+                from ..distributed.fleet.recompute import recompute
+                x = recompute(layer, x)
+            else:
+                x = layer(x)
+        return self.ln_f(x)
+
+
+class GPTForPretraining(nn.Layer):
+    def __init__(self, config: GPTConfig):
+        super().__init__()
+        self.gpt = GPTModel(config)
+
+    def forward(self, input_ids, position_ids=None):
+        h = self.gpt(input_ids, position_ids)
+        # tied head: logits = h @ W_emb^T
+        w = self.gpt.embeddings.word_embeddings.weight
+        return matmul(h, w, transpose_y=True)
+
+
+class GPTPretrainingCriterion(nn.Layer):
+    def forward(self, logits, labels, loss_mask=None):
+        loss = PF.cross_entropy(logits, labels, reduction="none")
+        if loss_mask is not None:
+            flat = loss_mask.reshape(loss.shape)
+            return psum(loss * flat) / psum(flat)
+        return pmean(loss)
+
+
+# =====================================================================
+# Compiled functional trainer
+# =====================================================================
 
 def init_gpt_params(config: GPTConfig, seed: int = 0,
                     device: DeviceLike = None) -> Dict[str, Any]:

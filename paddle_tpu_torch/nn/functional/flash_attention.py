@@ -16,7 +16,10 @@ functional                     goes to
 ``flashmask_attention_dense``  dense start/end-mask oracle (plain torch)
 =============================  ==========================================
 
-Unlike the reference, nothing here falls back: the kernels mask ragged
+``flash_attention`` and ``flash_attn_qkvpacked`` take the eager API's
+``Tensor``s through the dispatch (op ``flash_attention``, on no AMP list:
+q, k and v keep the type they come in). Unlike the reference, nothing here
+falls back: the kernels mask ragged
 edges themselves, so any sequence length runs on them, and a kernel error
 raises instead of switching to the dense path. Dropout,
 ``return_softmax``, and flashmask's ``window_size``,
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from ..._core.dispatch import apply
 from ...ops.cuda.flash_attention import mha_forward
 from ...ops.cuda.flash_varlen import (flash_attn_varlen,
                                       flashmask_attention_kernel)
@@ -41,15 +45,20 @@ def _not_ported(dropout: float, return_softmax: bool,
         raise NotImplementedError("return_softmax=True is not ported yet")
 
 
+def _flash_attention(q, k, v, causal):
+    return mha_forward(q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), causal).transpose(1, 2)
+
+
 def flash_attention(query, key, value, dropout=0.0, causal=False,
                     return_softmax=False, fixed_seed_offset=None,
                     rng_name="", training=True, name=None):
-    """Inputs ``[batch, seq, heads, head_dim]``; returns ``(out, None)``
-    like the reference."""
+    """Inputs ``[batch, seq, heads, head_dim]`` (``Tensor``s or torch
+    tensors); returns ``(out, None)`` like the reference. Any sequence
+    length goes to the kernels."""
     _not_ported(dropout, return_softmax, training)
-    out = mha_forward(query.transpose(1, 2), key.transpose(1, 2),
-                      value.transpose(1, 2), causal)
-    return out.transpose(1, 2), None
+    return apply("flash_attention", _flash_attention, query, key, value,
+                 causal=bool(causal)), None
 
 
 def flash_attn_qkvpacked(qkv, dropout=0.0, causal=False,

@@ -11,7 +11,9 @@ which are plain jnp in the reference. Each rounds where its reference does:
 The RMSNorm kernel (``ops/cuda/fused.py`` ``rms_norm``, the reference's
 ``ops.pallas.rms_norm``) rounds once, after the weight, and LLaMA's own
 ``_rms`` (``models/llama.py``) rounds before the weight: three RMSNorms,
-kept apart as the reference keeps them.
+kept apart as the reference keeps them. Both go through the dispatch
+under the reference's op names (``layer_norm``, ``rms_norm``: AMP's black
+list), so they take the eager API's ``Tensor``s as well as torch tensors.
 """
 from __future__ import annotations
 
@@ -19,14 +21,21 @@ from typing import Optional, Sequence, Union
 
 import torch
 
+from ..._core.dispatch import apply
 
-def layer_norm(x: torch.Tensor, normalized_shape: Union[int, Sequence[int]],
-               weight: Optional[torch.Tensor] = None,
-               bias: Optional[torch.Tensor] = None, epsilon: float = 1e-05,
-               name=None) -> torch.Tensor:
+
+def layer_norm(x, normalized_shape: Union[int, Sequence[int]], weight=None,
+               bias=None, epsilon: float = 1e-05, name=None):
     """Normalises the trailing ``len(normalized_shape)`` axes of x."""
     norm_ndim = 1 if isinstance(normalized_shape, int) \
         else len(tuple(normalized_shape))
+    return apply("layer_norm", _layer_norm, x, weight, bias,
+                 norm_ndim=norm_ndim, epsilon=float(epsilon))
+
+
+def _layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
+                bias: Optional[torch.Tensor], norm_ndim: int,
+                epsilon: float) -> torch.Tensor:
     axes = tuple(range(x.dim() - norm_ndim, x.dim()))
     mean = x.mean(axes, keepdim=True)
     var = ((x - mean) ** 2).mean(axes, keepdim=True)
@@ -38,11 +47,15 @@ def layer_norm(x: torch.Tensor, normalized_shape: Union[int, Sequence[int]],
     return out
 
 
-def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
-             bias: Optional[torch.Tensor] = None, epsilon: float = 1e-6,
-             name=None) -> torch.Tensor:
+def rms_norm(x, weight=None, bias=None, epsilon: float = 1e-6, name=None):
     """RMSNorm over the last axis: fp32 statistics, the normalised value
     rounded to x's type before ``* weight + bias``."""
+    return apply("rms_norm", _rms_norm, x, weight, bias,
+                 epsilon=float(epsilon))
+
+
+def _rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
+              bias: Optional[torch.Tensor], epsilon: float) -> torch.Tensor:
     xf = x.float()
     var = (xf * xf).mean(-1, keepdim=True)
     out = (xf / torch.sqrt(var + epsilon)).to(x.dtype)

@@ -13,19 +13,23 @@ wrapper             source                         replaces
 
 Inside the kernels the layout is ``[B*H, S, D]``. Logits, softmax statistics
 and accumulators are fp32; the io type is float32, bfloat16 or float16.
-The kernels are built for head_dim 32, 64 and 128 (``HEAD_DIMS``); a smaller
-head_dim runs at the next of those sizes, its q, k, v (and dO) padded with
-zero columns and the results sliced back (:func:`_pad_head_dim`), which is
-exact. A head_dim above 128 is refused: the FMA kernels' tiles would not fit
-in shared memory. The causal mask is bottom-right aligned (key ``k`` is seen
+The kernels are built for head_dim 32, 64, 128 and 256 (``HEAD_DIMS``); a
+smaller head_dim runs at the next of those sizes, its q, k, v (and dO)
+padded with zero columns and the results sliced back (:func:`_pad_head_dim`),
+which is exact. A head_dim above 256 is refused. At 256 every io type runs
+the FMA kernels (bf16 too: there is no tensor-core instantiation at 256
+yet), whose backward then works on 32-row halves of its 64-row tiles so
+that the fp32 tiles fit in shared memory. The causal mask is bottom-right aligned (key ``k`` is seen
 by query ``q`` when ``k <= q + (Sk - Sq)``) and keys at or past ``kv_len``
-are masked. A query row that sees no key at all gets output 0 and lse -1e30.
+are masked. A query row that sees no key at all gets output 0 and lse -1e30
+from the kernel; :func:`mha_forward` then gives such rows what the
+reference gives them (:func:`reference_keyless_rows`).
 
 Each wrapper dispatches on the device of its tensors: a CUDA tensor launches
 the kernel (or raises on a type, head_dim or layout the kernel does not
 take), a CPU tensor runs the plain PyTorch version beside it, which repeats
 the kernel's arithmetic. There is no fallback from one to the other. Each
-source holds two kernels: bf16 io runs on the tensor cores and reads q, k,
+source holds two kernels: bf16 io up to head_dim 128 runs on the tensor cores and reads q, k,
 v and dO through TMA tensor maps, which need 16-byte-aligned base addresses
 and strides (:func:`check_tma`; a tensor that fails it is handed to the
 kernel as a fresh contiguous copy, :func:`_tma_inputs`); float and float16
@@ -44,7 +48,7 @@ import torch
 from ._build import function
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)  # the head_dims the kernels are built for
+HEAD_DIMS = (32, 64, 128, 256)  # the head_dims the kernels are built for
 # the io code of each dtype in the C entries (csrc/flash_common.cuh `Io`)
 _IO_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -133,8 +137,8 @@ def _tma_inputs(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """The tensors a kernel reads, each as it is unless it is bf16 and
     :func:`check_tma` refuses it; then a fresh contiguous copy, whose
     storage PyTorch allocates aligned. Inputs reach the kernels contiguous
-    with a head_dim of 32, 64 or 128, so every stride is a multiple of 16
-    bytes and the base address is the only case left: the same kernel
+    with a head_dim of 32, 64, 128 or 256, so every stride is a multiple of
+    16 bytes and the base address is the only case left: the same kernel
     runs on the copy."""
     return tuple(t if t.dtype != torch.bfloat16 or check_tma(t)
                  else t.clone(memory_format=torch.contiguous_format)
@@ -346,17 +350,59 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
     return _pad_head_dim(run, q, k, v, do)
 
 
+# ---------------------------------------------- the reference's keyless rows
+
+# the reference's default FLAGS_flash_block_q / FLAGS_flash_block_k
+REF_BLOCK_CAP = 512
+
+
+def reference_block_sizes(sq: int, sk: int, cap: int = REF_BLOCK_CAP):
+    """The reference's query and key block sizes (``_block_sizes`` in
+    ``paddle_tpu/ops/pallas/flash_attention.py``) at its default caps: a
+    function of the shapes alone."""
+    bq = min(cap, sq) if sq % cap == 0 else min(128, sq)
+    bk = min(cap, sk) if sk % cap == 0 else min(128, sk)
+    return (bq if sq % bq == 0 else sq), (bk if sk % bk == 0 else sk)
+
+
+@torch.no_grad()
+def reference_keyless_rows(out: torch.Tensor, v: torch.Tensor) -> None:
+    """Gives the rows of a causal ``[BH, Sq, D]`` output with Sq > Sk that
+    see no key (the first Sq - Sk) what the reference gives them, in place.
+
+    The kernels write those rows 0. The reference runs its key loop over
+    every key block the query block reaches, with the mask fill -1e30
+    finite: on a row whose logits are all masked, ``exp(s - m)`` is 1 for
+    every key it visits, so the row comes out as the mean of v over the
+    visited blocks, ``n = min((qi bq + bq - 1 + Sk - Sq) // bk + 1, Sk //
+    bk)`` of them for query block ``qi``, rounded to the io type as its
+    ``acc / l`` is; a block where n <= 0 stays 0. The lse is -1e30 on both
+    sides, and the reference's backward masks p to 0 on those rows, so
+    gradients are the kernels' as they are: this runs outside autograd."""
+    sq, sk = out.shape[1], v.shape[1]
+    bq, bk = reference_block_sizes(sq, sk)
+    for qi in range((sq - sk + bq - 1) // bq):
+        n = min((qi * bq + bq - 1 + sk - sq) // bk + 1, sk // bk)
+        if n > 0:
+            mean = v[:, :n * bk].float().mean(1, keepdim=True)
+            out[:, qi * bq:min(qi * bq + bq, sq - sk)] = mean.to(out.dtype)
+
+
 # --------------------------------------------------------------- public
 
 class _MHA(torch.autograd.Function):
-    """The TPU package's ``_mha`` custom VJP: the forward saves
-    ``(q, k, v, out, lse)``; the backward launches dK/dV, then dQ."""
+    """The TPU package's ``_mha`` custom VJP: the forward launches the
+    forward kernel, gives rows that see no key the reference's output
+    (:func:`reference_keyless_rows`) and saves ``(q, k, v, out, lse)``; the
+    backward launches dK/dV, then dQ."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
         sq, sk = q.shape[1], k.shape[1]
         out, lse = flash_fwd(q, k, v, causal, scale, kv_len=sk,
                              q_offset=sk - sq)
+        if causal and sq > sk:
+            reference_keyless_rows(out, v)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale
         return out

@@ -70,8 +70,9 @@ def _err(a, b):
 
 DTYPES = dict(argvalues=[torch.float32, torch.bfloat16, torch.float16],
               ids=["fp32", "bf16", "fp16"])
-# the kernels' head_dims and two that run padded to the next of them
-HEAD_DIMS = [32, 48, 64, 80, 128]
+# the kernels' head_dims and three that run padded to the next of them
+# (256, and 160 padded to it, run the FMA kernels at every io type)
+HEAD_DIMS = [32, 48, 64, 80, 128, 160, 256]
 
 
 @pytest.mark.parametrize("dtype", **DTYPES)
@@ -120,13 +121,13 @@ def test_autograd_counts_one_launch_each(cuda):
                            "flash_bwd_dq": 1}
 
 
-@pytest.mark.parametrize("bad", ["integer", "head_dim_160", "noncontiguous"])
+@pytest.mark.parametrize("bad", ["integer", "head_dim_288", "noncontiguous"])
 def test_cuda_wrappers_raise_on_what_the_kernel_does_not_take(cuda, bad):
     q, k, v, _ = _inputs(cuda, 2, 128, 128, 64, torch.float32)
     if bad == "integer":
         q, k, v = (t.to(torch.int32) for t in (q, k, v))
-    elif bad == "head_dim_160":
-        q, k, v = (torch.cat([t, t, t[..., :32]], -1) for t in (q, k, v))
+    elif bad == "head_dim_288":  # above the largest kernel head_dim, 256
+        q, k, v = (torch.cat([t] * 4 + [t[..., :32]], -1) for t in (q, k, v))
     else:
         q = q.transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises((TypeError, ValueError)):
@@ -397,15 +398,15 @@ def test_varlen_autograd_counts_one_launch_each(cuda):
                            "flashmask_bwd_dkv": 0, "flashmask_bwd_dq": 0}
 
 
-@pytest.mark.parametrize("bad", ["integer", "head_dim_160", "cu_on_cpu",
+@pytest.mark.parametrize("bad", ["integer", "head_dim_288", "cu_on_cpu",
                                  "plan_on_cpu"])
 def test_varlen_wrappers_raise_on_what_the_kernel_does_not_take(cuda, bad):
     q, k, v, _, cu_q, cu_k, plan = _varlen_inputs(
         cuda, "straddle", 64, torch.float32, True)
     if bad == "integer":
         q, k, v = (t.to(torch.int32) for t in (q, k, v))
-    elif bad == "head_dim_160":
-        q, k, v = (torch.cat([t, t, t[..., :32]], -1) for t in (q, k, v))
+    elif bad == "head_dim_288":  # above the largest kernel head_dim, 256
+        q, k, v = (torch.cat([t] * 4 + [t[..., :32]], -1) for t in (q, k, v))
     if bad == "cu_on_cpu":
         with pytest.raises(ValueError):
             fv.flash_attn_varlen(q, k, v, cu_q.cpu(), cu_k, causal=True)
@@ -562,7 +563,7 @@ def test_flashmask_autograd_counts_one_launch_each(cuda):
                            "flashmask_bwd_dkv": 1, "flashmask_bwd_dq": 1}
 
 
-@pytest.mark.parametrize("bad", ["integer", "head_dim_160",
+@pytest.mark.parametrize("bad", ["integer", "head_dim_288",
                                  "startend_on_cpu", "plan_on_cpu"])
 def test_flashmask_wrappers_raise_on_what_the_kernel_does_not_take(cuda, bad):
     q, k, v, _, startend = _flashmask_inputs(cuda, 1, 2, 128, 128, 64,
@@ -576,8 +577,8 @@ def test_flashmask_wrappers_raise_on_what_the_kernel_does_not_take(cuda, bad):
                              else startend, 2, True)
     if bad == "integer":
         q, k, v = (t.to(torch.int32) for t in (q, k, v))
-    elif bad == "head_dim_160":
-        q, k, v = (torch.cat([t, t, t[..., :32]], -1) for t in (q, k, v))
+    elif bad == "head_dim_288":  # above the largest kernel head_dim, 256
+        q, k, v = (torch.cat([t] * 4 + [t[..., :32]], -1) for t in (q, k, v))
     with pytest.raises((TypeError, ValueError)):
         fv.flashmask_fwd(q, k, v, plan, 0.125)
 

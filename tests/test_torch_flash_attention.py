@@ -128,13 +128,15 @@ def test_mha_forward_and_grads_match_reference(shapes, causal):
 
 
 def test_rows_that_see_no_key_differ_from_reference():
-    """A known divergence, pinned. With a causal mask and sq > sk, the
-    first sq - sk query rows see no key. The port gives them output 0 and
-    lse -1e30 (the ``l == 0`` rule). The reference does too when no row of
-    the query block sees a key, but in a block where other rows do, it
-    runs the key loop, and for a row whose logits are all -1e30 its
+    """The kernels' contract, as the forward wrapper gives it. With a
+    causal mask and sq > sk, the first sq - sk query rows see no key: the
+    forward kernel (and its plain version) gives them output 0 and lse
+    -1e30 (the ``l == 0`` rule). The reference's ``_fwd`` does too when no
+    row of the query block sees a key, but in a block where other rows do,
+    it runs the key loop, and for a row whose logits are all -1e30 its
     ``exp(s - m_new)`` is exp(0) = 1 for every masked key: that row comes
-    out as the mean of v. Rows that see keys agree."""
+    out as the mean of v. Rows that see keys agree. ``mha_forward`` gives
+    those rows the reference's output (the test below)."""
     q, k, v = _qkv(10, (1, 256, 32), (1, 192, 32))
     ref_out, ref_lse = ref_fa._fwd(jnp.asarray(q), jnp.asarray(k),
                                    jnp.asarray(v), True, 0.2, 128, 192,
@@ -148,6 +150,66 @@ def test_rows_that_see_no_key_differ_from_reference():
     np.testing.assert_allclose(ref_out[0, :64],
                                np.broadcast_to(v[0].mean(0), (64, 32)),
                                rtol=1e-5, atol=1e-5)
+
+
+# (q shape, k shape) with sq > sk, causal, at the reference's default
+# 512-row block caps: one query block of 576 rows whose first 64 see no key
+# (mixed: those rows take the mean of v over the one key block); query
+# blocks of 128 rows whose first block sees no key at all (0 on both
+# sides); 512-row query blocks over 128-row key blocks, whose first block
+# mixes 256 keyless rows with rows that reach two key blocks; and the
+# [B, H, S, D] entry.
+KEYLESS_CASES = {
+    "mixed_block": ((1, 576, 32), (1, 512, 32)),
+    "empty_block": ((1, 640, 32), (1, 512, 32)),
+    "multi_block": ((1, 1536, 32), (1, 1280, 32)),
+    "bhsd": ((1, 2, 576, 32), (1, 2, 512, 32)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(KEYLESS_CASES))
+def test_rows_that_see_no_key_match_reference(case):
+    """``mha_forward`` against the reference's public ``mha_forward`` at
+    its own default blocks (512): output, lse and the three gradients. Rows
+    that see no key come out as the reference's (mean of v over its
+    visited key blocks, or 0) at fp32 2e-5; lse -1e30 on both sides; the
+    gradients at 1e-4 (neither side gives those rows a gradient)."""
+    set_flags({n: 512 for n in _BLOCK_FLAGS})  # the reference's defaults
+    assert pt_fa.REF_BLOCK_CAP == 512
+    q_shape, k_shape = KEYLESS_CASES[case]
+    q, k, v = _qkv(16, q_shape, k_shape)
+    w = np.random.RandomState(17).randn(*q_shape).astype(np.float32)
+    scale = 0.2
+
+    def ref_loss(q, k, v):
+        out = ref_fa.mha_forward(q, k, v, causal=True, scale=scale)
+        return jnp.sum(out * jnp.asarray(w)), out
+
+    (_, ref_out), ref_grads = jax.value_and_grad(
+        ref_loss, argnums=(0, 1, 2), has_aux=True)(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    out = pt_fa.mha_forward(tq, tk, tv, causal=True, scale=scale)
+    (out * torch.from_numpy(w)).sum().backward()
+    sq, sk = q_shape[-2], k_shape[-2]
+    keyless = out.detach().reshape(-1, sq, q_shape[-1])[:, :sq - sk]
+    if case == "empty_block":
+        assert not keyless.any()
+    else:
+        assert keyless.abs().sum() > 0
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_out),
+                               rtol=2e-5, atol=2e-5)
+    for t, ref in zip((tq, tk, tv), ref_grads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(ref),
+                                   rtol=1e-4, atol=1e-4)
+    bh = int(np.prod(q_shape[:-2]))
+    jq, jk, jv = (jnp.asarray(x.reshape(bh, -1, q_shape[-1]))
+                  for x in (q, k, v))
+    _, (_, _, _, _, ref_lse) = ref_fa._mha_fwd(jq, jk, jv, True, scale)
+    _, lse = pt_fa.flash_fwd(*_t(*(np.asarray(x) for x in (jq, jk, jv))),
+                             True, scale, sk, sk - sq)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), rtol=1e-6)
+    assert (lse[:, :sq - sk] == -1e30).all()
 
 
 def test_flash_attention_paddle_layout_matches_reference():
@@ -187,8 +249,8 @@ def test_wrappers_reject_bad_inputs(bad):
         if bad == "dtype":
             q, k, v = (t.to(torch.int32) for t in (q, k, v))
             err = TypeError
-        else:  # above the largest kernel head_dim, 128
-            q, k, v = (torch.cat([t] * 5, -1) for t in (q, k, v))
+        else:  # above the largest kernel head_dim, 256
+            q, k, v = (torch.cat([t] * 9, -1) for t in (q, k, v))
             err = ValueError
         with pytest.raises(err):
             pt_fa._check_cuda("flash_fwd", (q, k, v))
@@ -232,11 +294,11 @@ def test_check_tma_takes_aligned_layouts_and_refuses_the_rest(layout):
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("d", [48, 80])
+@pytest.mark.parametrize("d", [48, 80, 160, 256])
 def test_padded_head_dim_matches_reference(d, causal):
-    """On the card a head_dim of 48 or 80 runs at 64 or 128: the wrappers
-    pad q, k, v and dO with zero columns and slice the results back
-    (``_pad_head_dim``). The same pad and slice around the plain versions
+    """On the card a head_dim of 48, 80 or 160 runs at 64, 128 or 256: the
+    wrappers pad q, k, v and dO with zero columns and slice the results back
+    (``_pad_head_dim``; 256 is a kernel size and passes as it is). The same pad and slice around the plain versions
     matches the reference at the caller's head_dim, forward and
     gradients, at the fp32 tolerances above."""
     q, k, v = _qkv(11, (2, 256, d), (2, 256, d))
@@ -277,12 +339,13 @@ def test_pad_head_dim_is_exact_and_keeps_kernel_sizes():
         lambda *t: pt_fa.flash_fwd_plain(*t, *args), q, k, v)
     plain = pt_fa.flash_fwd_plain(q, k, v, *args)
     assert pt_fa.kernel_head_dim(80) == 128 and pt_fa.kernel_head_dim(1) == 32
+    assert pt_fa.kernel_head_dim(160) == 256
     np.testing.assert_allclose(padded[0].numpy(), plain[0].numpy(),
                                rtol=1e-6, atol=1e-6)
     q64 = q[..., :64].contiguous()
     assert pt_fa._pad_head_dim(lambda t: t, q64) is q64
-    with pytest.raises(ValueError, match="head_dim 160"):
-        pt_fa.kernel_head_dim(160)
+    with pytest.raises(ValueError, match="head_dim 288"):
+        pt_fa.kernel_head_dim(288)
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])

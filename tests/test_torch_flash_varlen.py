@@ -200,10 +200,11 @@ def test_fp16_matches_reference():
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("d", [48, 80])
+@pytest.mark.parametrize("d", [48, 80, 160, 256])
 def test_padded_head_dim_matches_reference(d, causal):
-    """On the card a head_dim of 48 or 80 runs at 64 or 128
-    (``_pad_head_dim``: zero columns in, results sliced back). The same
+    """On the card a head_dim of 48, 80 or 160 runs at 64, 128 or 256
+    (``_pad_head_dim``: zero columns in, results sliced back; 256 is a
+    kernel size and passes as it is). The same
     pad and slice around the plain versions matches the reference at the
     caller's head_dim, at the fp32 tolerances above."""
     q, k, v, do, cu_q, cu_k = _case("empty_pad", seed=6, d=d)
