@@ -41,8 +41,11 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    edge shapes (fp32 and fp16, 37 rows, rows of 1000 and 1003, a float32
    weight or gate beside bf16 x, the split form with unaligned halves).
    head_dim 256 and 160 (run at 256) for the three masks in fp32, bf16 and
-   fp16, forward and backward (the FMA kernels at 256); and rows that see
-   no key under ``mha_forward`` (causal, sq > sk) against the CPU path.
+   fp16, forward and backward (the FMA kernels at 256); head_dim 288 (run
+   at 512) and 512 the same way (the FMA kernels split over 256-column
+   chunks); 65600 fixed-length heads (more than the grid's 65535 on its y
+   axis) in bf16 and fp32; and rows that see no key under ``mha_forward``
+   (causal, sq > sk) against the CPU path.
    Phases 3 and 4 each run under a watchdog that exits non-zero if a
    kernel hangs;
 4. times each kernel, its plain version and, as a yardstick only,
@@ -50,8 +53,8 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    varlen and flashmask kernels with the dense bool mask) and
    ``torch.nn.functional.rms_norm``, beside the least time the card could
    take for the same work; then the three masks' kernels again at
-   head_dim 256 (16 heads, bf16, the same tokens), with the FMA kernels'
-   shared memory per block;
+   head_dim 256 and at 512 (16 heads, bf16, the same tokens), with the
+   FMA kernels' shared memory per block;
 5. checks the training step on a small GPT against the port's CPU path
    (the path the CPU tests hold against the JAX package), then drives the
    main path: gpt2-medium at full width (24 layers, hidden 1024), batch 8,
@@ -88,8 +91,19 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    checks 24 launches each of the forward, dK/dV and dQ kernels a step,
    all bf16 at head_dim 64, and no other port kernel; compares its median
    with phase 5's and profiles one step;
-11. prints the head_dim 256 timings, the ``kernels`` JSON line, the card
-   line, and last ``{"ok": true, "device": {...}}``.
+11. drives the eager vision path: ``resnet18(num_classes=10)`` on 4 x 3 x
+   64 x 64, three Momentum steps on the card against the port's CPU path
+   in float64 and in fp32; then ``bench_suite.py``'s ResNet-50 workload
+   eagerly (``resnet50()``, fp32 parameters, batch 64 x 3 x 224 x 224,
+   O1 bf16, ``optimizer.Momentum(0.1)``), 1 warm-up and 5 timed steps;
+   checks finite losses that fall below the first, every BN buffer moved
+   and finite, and no port kernel launched (the path has no TPU kernel);
+   prints ms/step, images/s, MFU from the model's own conv and linear
+   shapes, peak memory, and one profiled step's idle share and split by
+   phase and by kernel group (convolution, layout transposes, BN
+   statistics, pooling, elementwise and casts, optimizer);
+12. prints the head_dim 256 and 512 timings, the ``kernels`` JSON line,
+   the card line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. It never falls back
 to the CPU or to a plain version: with no CUDA device it exits 1 before
@@ -355,11 +369,14 @@ def _err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def limit(dtype, key, want, abs_v_out=None):
+def limit(dtype, key, want, abs_v_out=None, d=64):
     """Per-element bound on |kernel - plain| for output ``key``.
 
     fp32 io: the two differ only in summation order, 1e-5 absolute on
-    unit-scale inputs; lse is fp32 at either io type (1e-4 in bf16, whose
+    unit-scale inputs up to head_dim 256; above it the logits sum over
+    ``kernel_head_dim(d)`` columns (512 for 288 and 512), in chunks, and
+    the bound grows with the sum: 1e-5 per 256 columns. lse is fp32 at
+    either io type (1e-4 in bf16, whose
     logits come from bf16 q and k). bf16 outputs: both sides compute in
     fp32 and round once, so an element may sit one bf16 ulp of itself
     apart (2^-7 |x|), plus fp32 summation noise, held at 1e-4 of the
@@ -369,7 +386,10 @@ def limit(dtype, key, want, abs_v_out=None):
     with |V| (sum_j p_j |v_j| / l). fp16 outputs: the same at fp16's ulp
     (2^-10 |x|, P's rounding 2^-11)."""
     if key == "lse" or dtype == torch.float32:
-        return 1e-4 if key == "lse" and dtype == torch.bfloat16 else 1e-5
+        if key == "lse" and dtype == torch.bfloat16:
+            return 1e-4
+        from paddle_tpu_torch.ops.cuda import flash_attention as fa
+        return 1e-5 * max(1, fa.kernel_head_dim(d) // 256)
     ulp, p_round = (2 ** -7, 2 ** -8) if dtype == torch.bfloat16 \
         else (2 ** -10, 2 ** -11)
     want = want.float().abs()
@@ -405,7 +425,7 @@ def hold_against_plain(bh, sq, sk, d, dtype, causal, seed):
     errs, ratios = {}, {}
     for key, (got, want) in pairs.items():
         errs[key], ratios[key] = within(
-            got, want, limit(dtype, key, want, abs_v_out))
+            got, want, limit(dtype, key, want, abs_v_out, d))
     shape = f"bh {bh} sq {sq} sk {sk} d {d} {dtype} causal {causal}"
     print(f"{shape}: max abs err " + " ".join(
         f"{k} {v:.3g}" for k, v in errs.items()) + "; of the limit " +
@@ -489,7 +509,7 @@ def hold_varlen_against_plain(lens_q, lens_k, pad_q, pad_k, h, d, dtype,
     errs, ratios = {}, {}
     for key, (got, want) in pairs.items():
         errs[key], ratios[key] = within(
-            got, want, limit(dtype, key, want, abs_v_out))
+            got, want, limit(dtype, key, want, abs_v_out, d))
     shape = (f"varlen tq {q.shape[0]} tk {k.shape[0]} h {h} d {d} {dtype} "
              f"causal {causal} segments {len(lens_q)}")
     print(f"{shape}: max abs err " + " ".join(
@@ -585,7 +605,7 @@ def hold_flashmask_against_plain(b, sq, sk, h, d, dtype, causal, startend,
     errs, ratios = {}, {}
     for key, (got, want) in pairs.items():
         errs[key], ratios[key] = within(
-            got, want, limit(dtype, key, want, abs_v_out))
+            got, want, limit(dtype, key, want, abs_v_out, d))
     shape = (f"flashmask b {b} h {h} sq {sq} sk {sk} d {d} {dtype} causal "
              f"{causal} startend {list(startend.shape)}")
     print(f"{shape}: max abs err " + " ".join(
@@ -941,6 +961,34 @@ def head_dim_256_checks():
                 _fm_edge_startend(2, 2, 200, 136, seed=7), seed=52)
 
 
+def head_dims_above_256_checks():
+    """head_dim 288 (run at 512 with zero columns) and 512, fp32, bf16 and
+    fp16 (the FMA kernels split over two 256-column chunks), the three
+    masks, forward and backward, against the plain versions with
+    ``limit``; the fixed-length mask at sq > sk causal and sq < sk."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for d, causal, (sq, sk) in ((288, True, (200, 136)),
+                                    (512, False, (136, 200))):
+            hold_against_plain(4, sq, sk, d, dtype, causal, seed=54)
+            hold_varlen_against_plain(*EDGE, 2, d, dtype, causal, seed=55)
+            hold_flashmask_against_plain(
+                2, 200, 136, 2, d, dtype, causal,
+                _fm_edge_startend(2, 2, 200, 136, seed=7), seed=56)
+
+
+# more than 65535 batch*heads: the fixed-length kernels put the heads on
+# the grid's y axis, whose limit is 65535; the C entries launch slices
+MANY_HEADS = 65535 + 65
+
+
+def many_heads_checks():
+    """``MANY_HEADS`` fixed-length heads of 70 x 70 at head_dim 32, bf16
+    (the tensor-core kernels) and fp32 (the FMA kernels), causal, against
+    the plain versions with ``limit`` (the plain scores: 1.3 GB)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        hold_against_plain(MANY_HEADS, 70, 70, 32, dtype, True, seed=57)
+
+
 def keyless_rows_check():
     """Causal sq > sk through ``mha_forward``: the rows that see no key
     get the reference's output (the mean of v over the key blocks the
@@ -983,6 +1031,8 @@ def kernel_checks():
     bf16_edges()
     repairs()
     head_dim_256_checks()
+    head_dims_above_256_checks()
+    many_heads_checks()
     keyless_rows_check()
     fused_errs, fused_results = fused_checks()
     errs.update(fused_errs)
@@ -1324,6 +1374,19 @@ def d256_timings():
                  for i in range(4))
 
 
+def d512_timings():
+    """The three masks' kernels at head_dim 512, bf16 (the FMA kernels at
+    256 split over two chunks: the same shared memory a block as at 256),
+    beside their bounds, plain versions and the library's forward."""
+    print("head_dim 512 (the FMA kernels split over two 256-column "
+          "chunks, one block per chunk; shared memory per block as at 256)")
+    results = [fixed_timings(BATCH, D256_HEADS, SEQ, 512, seed=63),
+               varlen_timings(D256_HEADS, 512, seed=64),
+               flashmask_timings(D256_HEADS, 512, seed=65)]
+    return tuple({k: v for r in results for k, v in r[i].items()}
+                 for i in range(4))
+
+
 def timings():
     phase("4 timings at the path shapes")
     ms, plain_ms, library_ms, bnd = fixed_timings(BATCH, HEADS, SEQ,
@@ -1558,6 +1621,29 @@ def eager_path(smi, compiled_ms):
                  None, None, None, med_ms)
 
 
+def _vision_group(name: str) -> str:
+    """The ResNet step's kernels by what they do. The batch norm's
+    statistics are its reductions (``var_mean``'s Welford kernels and
+    their backward sums); its normalisation, the ReLUs, the residual adds
+    and the casts are elementwise kernels, by name indistinguishable."""
+    low = name.lower()
+    if "nchwtonhwc" in low or "nhwctonchw" in low or "transpose" in low:
+        return "layout transposes (NCHW <-> NHWC)"
+    if any(k in low for k in ("conv", "cudnn", "implicit", "xmma", "wgrad",
+                              "dgrad", "fprop", "gemm", "nvjet", "cutlass",
+                              "sm90_")):
+        return "convolution and matmul (cuDNN / cuBLAS)"
+    if "multi_tensor" in low or "foreach" in low:
+        return "optimizer (foreach)"
+    if "pool" in low:
+        return "pooling"
+    if "welford" in low or "reduce" in low or "norm" in low:
+        return "batch norm statistics (reductions)"
+    if any(k in low for k in ("softmax", "nll", "gather", "cross")):
+        return "softmax / loss"
+    return "elementwise and casts"
+
+
 def _kernel_group(name: str) -> str:
     if "pt_flash" in name:
         return "flash attention (port)"
@@ -1574,7 +1660,7 @@ def _kernel_group(name: str) -> str:
     return "elementwise / other"
 
 
-def profile_step(step, state, tokens, labels, step_ms):
+def profile_step(step, state, tokens, labels, step_ms, group=None):
     """One more step under ``torch.profiler``: device time by phase and by
     kernel group, and the device's idle share of ``step_ms`` (the median
     step without the profiler, whose own cost inflates the traced step's
@@ -1611,7 +1697,7 @@ def profile_step(step, state, tokens, labels, step_ms):
         print(f"  phase {name}: {t:.2f} ms ({t / total_ms:.1%})")
     groups = {}
     for e in kernels:
-        g = _kernel_group(e.key)
+        g = (group or _kernel_group)(e.key)
         groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
     for g, t in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {g}: {t:.2f} ms ({t / total_ms:.1%})")
@@ -1944,6 +2030,196 @@ def llama_path(smi):
     profile_step(step, state, tokens, labels, med_ms)
 
 
+# the ResNet path: bench_suite.py's ResNet-50 workload (resnet.py as
+# built, 1000 classes, batch 64 x 3 x 224 x 224, O1 bf16, Momentum 0.1),
+# trained eagerly
+RESNET_BATCH, RESNET_SIZE = 64, 224
+
+
+def conv_linear_macs(model, x) -> int:
+    """Multiply-adds of one forward of ``model`` on ``x``, counted from the
+    shapes its ``Conv2D`` and ``Linear`` layers see: each output element
+    of a convolution takes in / groups x kh x kw of them, of a linear
+    layer its input width."""
+    import paddle_tpu_torch as paddle
+    total = [0]
+
+    def hook(layer, args, out):
+        w = layer.weight.shape
+        per = w[1] * w[2] * w[3] if isinstance(layer, paddle.nn.Conv2D) \
+            else w[0]
+        total[0] += out.size * per
+
+    handles = [m.register_forward_post_hook(hook)
+               for m in model.sublayers(include_self=True)
+               if isinstance(m, (paddle.nn.Conv2D, paddle.nn.Linear))]
+    model.eval()  # leaves the BN buffers as they are
+    with paddle.no_grad():
+        model(x)
+    model.train()
+    for h in handles:
+        h.remove()
+    return total[0]
+
+
+def _resnet_steps(paddle, model, opt, x, y, steps, dev):
+    """``steps`` Momentum steps in fp32 on ``dev``; the losses and the
+    final state as numpy."""
+    import paddle_tpu_torch.nn.functional as F
+    xs = paddle.to_tensor(x, dtype=x.dtype.name, place=dev)
+    ys = paddle.to_tensor(y, place=dev)
+    losses = []
+    for _ in range(steps):
+        loss = F.cross_entropy(model(xs), ys)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.numpy().astype(np.float64))
+    return losses, {k: v.numpy().astype(np.float64)
+                    for k, v in model.state_dict().items()}
+
+
+def small_resnet_check():
+    """``resnet18(num_classes=10)`` on 4 x 3 x 64 x 64, three Momentum
+    steps (lr 0.1) on the card against the port's CPU path from the same
+    weights: in float64 the losses, parameters and BN buffers agree to
+    1e-9 of each tensor's largest element (cuDNN's and the CPU's
+    convolutions, the same batch norm, pooling and update); in fp32 (TF32
+    off) to 1e-4 of it, train-mode batch norm over 16 values per channel
+    in layer4 amplifying summation-order rounding through 18 layers and
+    three updates (7.9e-6 of it measured on an H100)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.models import resnet18
+    rng = np.random.RandomState(3)
+    x = rng.randn(4, 3, 64, 64).astype(np.float32)
+    y = rng.randint(0, 10, (4,)).astype(np.int64)
+    paddle.set_device("cpu")
+    paddle.seed(0)
+    init = {k: v.numpy() for k, v in resnet18(num_classes=10)
+            .state_dict().items()}
+    runs = {}
+    for dtype, tol in (("float64", 1e-9), ("float32", 1e-4)):
+        for dev in ("gpu", "cpu"):
+            paddle.set_device(dev)
+            model = resnet18(num_classes=10)
+            model.set_state_dict(init)
+            model.astype(dtype)
+            opt = paddle.optimizer.Momentum(0.1,
+                                            parameters=model.parameters())
+            runs[dev] = _resnet_steps(paddle, model, opt,
+                                      x.astype(dtype), y, 3, dev)
+        (g_loss, g_state), (c_loss, c_state) = runs["gpu"], runs["cpu"]
+        worst = 0.0
+        for k in c_state:
+            scale = max(1.0, float(np.abs(c_state[k]).max()))
+            worst = max(worst, float(np.abs(g_state[k] - c_state[k]).max())
+                        / scale)
+        loss_err = max(abs(float(a - b)) / max(1.0, abs(float(b)))
+                       for a, b in zip(g_loss, c_loss))
+        print(f"small resnet18 {dtype}: losses cuda "
+              f"{[round(float(v), 6) for v in g_loss]} cpu "
+              f"{[round(float(v), 6) for v in c_loss]}; parameters and BN "
+              f"buffers after 3 Momentum steps, max abs err over the "
+              f"tensor's scale {worst:.3g}, losses {loss_err:.3g} (limit "
+              f"{tol:g})")
+        check(worst <= tol and loss_err <= tol,
+              f"small resnet18 {dtype}: state {worst}, loss {loss_err}")
+    paddle.set_device("gpu")
+
+
+def _resnet_step(paddle, F, model, opt, x, y):
+    """One eager ResNet step under bf16 O1, in the profiler ranges
+    (forward, backward, optimizer)."""
+    from torch.profiler import record_function
+    with record_function("forward"):
+        with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = F.cross_entropy(model(x), y)
+    loss.backward()
+    with record_function("optimizer"):
+        opt.step()
+        opt.clear_grad()
+    return loss
+
+
+def resnet_path(smi):
+    """``bench_suite.py``'s ResNet-50 workload trained eagerly through the
+    port: ``resnet50()`` (fp32 parameters, 1000 classes), batch
+    ``RESNET_BATCH`` x 3 x ``RESNET_SIZE``^2, ``amp.auto_cast`` O1 bf16,
+    ``optimizer.Momentum(0.1)``, ``F.cross_entropy``; 1 warm-up and 5
+    timed steps on the host clock, each ending in a synchronize. The
+    losses must be finite and fall below the first; every BN running
+    buffer must move and stay finite. The path has no TPU kernel: no port
+    kernel may launch. ``cudnn.benchmark`` is left off (its default)."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.vision.models import resnet50
+    phase("11 resnet path")
+    small_resnet_check()
+    torch.cuda.empty_cache()
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    model = resnet50()
+    opt = paddle.optimizer.Momentum(0.1, parameters=model.parameters())
+    rng = np.random.RandomState(0)
+    x = paddle.to_tensor(rng.randn(RESNET_BATCH, 3, RESNET_SIZE,
+                                   RESNET_SIZE).astype("float32"))
+    y = paddle.to_tensor(rng.randint(0, 1000, (RESNET_BATCH,))
+                         .astype("int64"))
+    macs = conv_linear_macs(model, x[:1])
+    flops_step = 3 * 2 * macs * RESNET_BATCH
+    n_params = sum(p.size for p in model.parameters())
+    bn = [(n, b) for n, b in model.named_buffers()]
+    before = {n: b.numpy().copy() for n, b in bn}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_launches()
+    losses, step_ms = [], []
+    for i in range(1 + TIMED_STEPS):
+        t0 = time.perf_counter()
+        loss = _resnet_step(paddle, F, model, opt, x, y)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        losses.append(float(loss))
+        if i:
+            step_ms.append(dt)
+        print(f"resnet step {i}{' (warm-up)' if not i else ''}: loss "
+              f"{losses[-1]:.5f} {dt:.1f} ms")
+    launches = _all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"port kernel launches over {1 + TIMED_STEPS} steps: {launches}")
+    check(not any(launches.values()), f"a port kernel launched on the "
+          f"ResNet path (it runs no TPU kernel): {launches}")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    # Momentum 0.1 from scratch, no warm-up, one fixed batch of random
+    # labels: the first update lowers the loss and later ones may
+    # overshoot (the reference's arithmetic, which the CPU tests hold
+    # equal to the port's in float64)
+    check(min(losses[1:]) < losses[0], f"loss never fell below the first "
+          f"step's: {losses}")
+    moved = 0
+    for n, b in bn:
+        after = b.numpy()
+        check(bool(np.isfinite(after).all()), f"BN buffer {n} not finite")
+        moved += int(not np.array_equal(after, before[n]))
+    print(f"BN running buffers: {moved} of {len(bn)} moved, all finite")
+    check(moved == len(bn), f"only {moved} of {len(bn)} BN buffers moved")
+    med_ms = float(np.median(step_ms))
+    img_s = RESNET_BATCH / (med_ms / 1e3)
+    mfu = flops_step / (med_ms / 1e3) / PEAK_BF16_FLOPS
+    print(f"resnet50 forward: {macs / 1e9:.4f} GMAC per {RESNET_SIZE}^2 "
+          f"image (its Conv2D and Linear shapes); training "
+          f"{flops_step:.4e} FLOP a step (3 x 2 x MACs x batch)")
+    print(f"eager resnet50 ({n_params} parameters, fp32) b{RESNET_BATCH} "
+          f"{RESNET_SIZE}^2 bf16 O1 momentum: median {med_ms:.2f} ms/step "
+          f"of {TIMED_STEPS} (steps {[round(v, 2) for v in step_ms]}), "
+          f"{img_s:.1f} images/s, MFU {mfu:.4f} of 989 TFLOP/s, peak "
+          f"memory {peak / 2**30:.2f} GiB on {smi}")
+    check(peak < DEVICE_BYTES, f"peak memory {peak} >= {DEVICE_BYTES}")
+    profile_step(lambda *_: _resnet_step(paddle, F, model, opt, x, y),
+                 None, None, None, med_ms, group=_vision_group)
+    return med_ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1957,6 +2233,8 @@ def main() -> int:
         ms, plain_ms, library_ms, bnd = timings()
     with watchdog("phase 4 (head_dim 256 timings)", 300):
         d256 = d256_timings()
+    with watchdog("phase 4 (head_dim 512 timings)", 300):
+        d512 = d512_timings()
     torch.cuda.empty_cache()
     launches, compiled_ms = main_path()
     torch.cuda.empty_cache()
@@ -1972,14 +2250,17 @@ def main() -> int:
     llama_path(smi)
     torch.cuda.empty_cache()
     eager_path(smi, compiled_ms)
-    phase("11 results")
-    d_ms, d_plain, d_lib, d_bnd = d256
-    for kname in d_ms:
-        lib = d_lib[kname]
-        print(f"head_dim 256 {kname}: {d_ms[kname]:.4f} ms, plain "
-              f"{d_plain[kname]:.4f} ms, bound {d_bnd[kname][0]:.4f} ms "
-              f"({d_bnd[kname][1]}), library "
-              f"{'none' if lib is None else f'{lib:.4f} ms'}")
+    torch.cuda.empty_cache()
+    with watchdog("phase 11 (resnet path)", 400):
+        resnet_path(smi)
+    phase("12 results")
+    for hd, (d_ms, d_plain, d_lib, d_bnd) in ((256, d256), (512, d512)):
+        for kname in d_ms:
+            lib = d_lib[kname]
+            print(f"head_dim {hd} {kname}: {d_ms[kname]:.4f} ms, plain "
+                  f"{d_plain[kname]:.4f} ms, bound {d_bnd[kname][0]:.4f} ms "
+                  f"({d_bnd[kname][1]}), library "
+                  f"{'none' if lib is None else f'{lib:.4f} ms'}")
     rows = []
     for kname, (source, replaces) in KERNELS.items():
         rows.append({

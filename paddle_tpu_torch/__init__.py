@@ -6,7 +6,8 @@ written by hand for Hopper (``sm_90a``), built from ``csrc/`` at first use.
 This package never imports JAX or ``paddle_tpu``.
 
 ``import paddle_tpu_torch as paddle`` gives the eager (dygraph) API:
-``Tensor``, ``to_tensor``, the ops, ``nn``, ``optimizer``, ``amp``.
+``Tensor``, ``to_tensor``, the ops, ``nn``, ``optimizer``, ``amp``, ``io``
+and ``vision``.
 Tensors are created on the card unless ``set_device('cpu')`` was called;
 with no card and no ``set_device('cpu')`` creation raises (see
 :func:`resolve_device`). Nothing imported here needs a card or ``nvcc``.
@@ -21,7 +22,7 @@ from ._core.dtype import (DType, bfloat16, bool_, complex64,  # noqa: F401
 from ._core.random import get_seed, seed  # noqa: F401
 from ._core.tensor import Tensor, to_tensor  # noqa: F401
 from .ops import *  # noqa: F401,F403
-from . import amp, nn, optimizer  # noqa: F401,E402
+from . import amp, io, nn, optimizer, vision  # noqa: F401,E402
 from .nn.layer import create_parameter  # noqa: F401,E402
 
 bool = bool_  # paddle.bool

@@ -61,11 +61,13 @@
 //   runs two blocks an SM (up to 255 registers a thread), D = 128 one.
 // The FMA kernel (`flash_bwd_dkv_kernel`), 256 threads: products as fp32
 // FMAs from shared memory, for the fp32 and fp16 models and checks, and for
-// every io type at head_dim 256 (in two 32-key passes, DkvFma).
+// every io type at head_dim 256 (in two 32-key passes, DkvFma) and, split
+// over the head_dim in 256-column chunks of dK and dV (SPLIT), above it.
 //
-// Grid: FMA (ceil(Sk / 64), heads); bf16 the same for the fixed-length
-// mask and (heads, ceil(Sk / 64)) for the varlen and flashmask masks, the
-// key tiles first to last (the longest first under a causal mask).
+// Grid: FMA (ceil(Sk / 64), heads, head_dim / 256 above 256); bf16 the
+// same for the fixed-length mask and (heads, ceil(Sk / 64)) for the varlen
+// and flashmask masks, the key tiles first to last (the longest first
+// under a causal mask); at most 65535 heads a launch (by_head_slices).
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -88,7 +90,12 @@ struct DkvFma {
       sizeof(float) * (2 * KR * (D + 1) + 2 * BQ * (D + 1) + 2 * BQ * LDS + 2 * BQ);
 };
 
-template <typename T, int D, typename Mask>
+// SPLIT (head_dim above 256, D = 256): the tensors' head_dim is
+// gridDim.z * D and the block writes the D-column chunk blockIdx.z of dK
+// and dV. S and dP still take the whole head_dim: for each query tile the
+// block streams K, V, Q and dO through their tiles chunk by chunk, its own
+// chunk last, so that Qs and dOs hold the chunks the dK and dV products read.
+template <typename T, int D, typename Mask, bool SPLIT = false>
 // Shared memory allows two blocks per SM at head_dim <= 64 (one at 128 and
 // 256): saying so keeps ptxas from squeezing the kernel into 64 registers
 // with spills to reach an occupancy the shared memory rules out.
@@ -114,16 +121,22 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int h = blockIdx.y;
   const Mask mask = heads_mask.at_head(h);
   const int kt = blockIdx.x;
+  const int cz = SPLIT ? blockIdx.z : 0;  // the output chunk
+  const int nch = SPLIT ? gridDim.z : 1;
   const T* qb = q + h * lay.q_hs;
   const T* dob = dout + h * lay.q_hs;
+  const T* kb = k + h * lay.k_hs;
+  const T* vb = v + h * lay.k_hs;
   const float* lb = lse + (size_t)h * lay.sq;
   const float* db = delta + (size_t)h * lay.sq;
   const int2 tiles = mask.query_tiles(kt);
 
   for (int k0 = kt * BK; k0 < min(kt * BK + BK, lay.sk); k0 += KR) {
-    __syncthreads();  // the last pass's reads of Ks and Vs are done
-    load_tile<T, KR, D>(Ks, k + h * lay.k_hs, k0, lay.sk, lay.k_rs);
-    load_tile<T, KR, D>(Vs, v + h * lay.k_hs, k0, lay.sk, lay.k_rs);
+    if (!SPLIT) {
+      __syncthreads();  // the last pass's reads of Ks and Vs are done
+      load_tile<T, KR, D>(Ks, kb, k0, lay.sk, lay.k_rs);
+      load_tile<T, KR, D>(Vs, vb, k0, lay.sk, lay.k_rs);
+    }
 
     float dk_acc[KI][DJ], dv_acc[KI][DJ];
     RowInfo ki[KI];  // the keys tx + 16 b of every score tile
@@ -140,39 +153,48 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       RowInfo qi[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) qi[i] = mask.q_row(q0 + ty + 16 * i);
-      __syncthreads();  // the last tile's reads of Qs, dOs, Ps, dSs are done
-      load_tile<T, BQ, D>(Qs, qb, q0, lay.sq, lay.q_rs);
-      load_tile<T, BQ, D>(dOs, dob, q0, lay.sq, lay.q_rs);
-      load_rowvec(Ls, lb, q0, lay.sq, BQ);
-      load_rowvec(Dl, db, q0, lay.sq, BQ);
-      __syncthreads();
-
       // s = Q K^T and dP = dO V^T; thread holds query rows ty + 16 i, keys tx + 16 b
       float s[4][KI], dp[4][KI];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int b = 0; b < KI; ++b) s[i][b] = dp[i][b] = 0.f;
+      // one pass over the head_dim unless SPLIT: then chunk cc, this block's last
+      for (int n = 1; n <= nch; ++n) {
+        const int cc = SPLIT ? (cz + n) % nch : 0;
+        __syncthreads();  // the last reads of Ks, Vs, Qs, dOs, Ps and dSs are done
+        if (SPLIT) {
+          load_tile<T, KR, D>(Ks, kb + cc * D, k0, lay.sk, lay.k_rs);
+          load_tile<T, KR, D>(Vs, vb + cc * D, k0, lay.sk, lay.k_rs);
+        }
+        load_tile<T, BQ, D>(Qs, qb + cc * D, q0, lay.sq, lay.q_rs);
+        load_tile<T, BQ, D>(dOs, dob + cc * D, q0, lay.sq, lay.q_rs);
+        if (n == 1) {
+          load_rowvec(Ls, lb, q0, lay.sq, BQ);
+          load_rowvec(Dl, db, q0, lay.sq, BQ);
+        }
+        __syncthreads();
 #pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float qa[4], oa[4], kv[KI], vv[KI];
+        for (int d = 0; d < D; ++d) {
+          float qa[4], oa[4], kv[KI], vv[KI];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          qa[i] = Qs[(ty + 16 * i) * LD + d];
-          oa[i] = dOs[(ty + 16 * i) * LD + d];
-        }
-#pragma unroll
-        for (int b = 0; b < KI; ++b) {
-          kv[b] = Ks[(tx + 16 * b) * LD + d];
-          vv[b] = Vs[(tx + 16 * b) * LD + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < 4; ++i) {
+            qa[i] = Qs[(ty + 16 * i) * LD + d];
+            oa[i] = dOs[(ty + 16 * i) * LD + d];
+          }
 #pragma unroll
           for (int b = 0; b < KI; ++b) {
-            s[i][b] = fmaf(qa[i], kv[b], s[i][b]);
-            dp[i][b] = fmaf(oa[i], vv[b], dp[i][b]);
+            kv[b] = Ks[(tx + 16 * b) * LD + d];
+            vv[b] = Vs[(tx + 16 * b) * LD + d];
           }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int b = 0; b < KI; ++b) {
+              s[i][b] = fmaf(qa[i], kv[b], s[i][b]);
+              dp[i][b] = fmaf(oa[i], vv[b], dp[i][b]);
+            }
+        }
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -216,8 +238,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int i = 0; i < KI; ++i) {
       const int kp = k0 + ty + 16 * i;
       if (kp >= lay.sk) continue;
-      T* dkrow = dk + h * lay.k_hs + kp * lay.k_rs;
-      T* dvrow = dv + h * lay.k_hs + kp * lay.k_rs;
+      T* dkrow = dk + h * lay.k_hs + kp * lay.k_rs + cz * D;
+      T* dvrow = dv + h * lay.k_hs + kp * lay.k_rs + cz * D;
 #pragma unroll
       for (int c = 0; c < DJ; ++c) {
         dkrow[tx + 16 * c] = from_f<T>(dk_acc[i][c]);
@@ -466,23 +488,32 @@ cudaError_t dkv_hopper(const void* q, const void* k, const void* v, const void* 
 
 // ------------------------------------------------------ launch and entries
 
-template <typename T, int D, typename Mask>
+// `chunks` > 1: the SPLIT kernel, one block per 256-column chunk of dK, dV.
+template <typename T, int D, typename Mask, bool SPLIT = false>
 cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                 const void* delta, void* dk, void* dv, int heads, Layout lay, Mask mask,
-                float scale, void* stream) {
-  const dim3 grid((lay.sk + BK - 1) / BK, heads);
-  return launch(flash_bwd_dkv_kernel<T, D, Mask>, grid, DkvFma<D>::SMEM, stream, (const T*)q, (const T*)k,
-                (const T*)v, (const T*)dout, (const float*)lse, (const float*)delta, (T*)dk,
-                (T*)dv, lay, mask, scale);
+                float scale, void* stream, int chunks = 1) {
+  const dim3 grid((lay.sk + BK - 1) / BK, heads, chunks);
+  return launch(flash_bwd_dkv_kernel<T, D, Mask, SPLIT>, grid, DkvFma<D>::SMEM, stream,
+                (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
+                (const float*)delta, (T*)dk, (T*)dv, lay, mask, scale);
 }
 
 // bf16 to the tensor-core kernel, float and fp16 to the FMA kernel (io:
-// see Io); head_dim 256 to the FMA kernel at every io type. `packed` says
-// the tensors are [T, H, D] (varlen) rather than [BH, S, D].
+// see Io); head_dim 256 to the FMA kernel at every io type, and a head_dim
+// above 256 (a multiple of 256: the wrappers pad to it) to the FMA kernel
+// split over it. `packed` says the tensors are [T, H, D] (varlen) rather
+// than [BH, S, D]. One slice of at most MAX_GRID_Y heads.
 template <typename Mask>
-cudaError_t dkv_any(int d, int io, const void* q, const void* k, const void* v,
-                    const void* dout, const void* lse, const void* delta, void* dk, void* dv,
-                    int heads, Layout lay, Mask mask, float scale, int packed, void* stream) {
+cudaError_t dkv_heads(int d, int io, const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta, void* dk, void* dv,
+                      int heads, Layout lay, Mask mask, float scale, int packed, void* stream) {
+  if (d > 256) {
+    if (d % 256) return cudaErrorInvalidValue;
+    PT_FLASH_SWITCH_IO(io, return dkv<T, 256, Mask, true>(q, k, v, dout, lse, delta, dk, dv,
+                                                          heads, lay, mask, scale, stream,
+                                                          d / 256))
+  }
   if (d == 256) {
     PT_FLASH_SWITCH_IO(io, return dkv<T, 256>(q, k, v, dout, lse, delta, dk, dv, heads, lay,
                                               mask, scale, stream))
@@ -494,6 +525,21 @@ cudaError_t dkv_any(int d, int io, const void* q, const void* k, const void* v,
   PT_FLASH_SWITCH_D(d, PT_FLASH_SWITCH_FMA_IO(io, return dkv<T, D>(q, k, v, dout, lse, delta, dk,
                                                                    dv, heads, lay, mask, scale,
                                                                    stream)))
+}
+
+// dkv_heads over every slice of the heads (by_head_slices).
+template <typename Mask>
+cudaError_t dkv_any(int d, int io, const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta, void* dk, void* dv,
+                    int heads, Layout lay, Mask mask, float scale, int packed, void* stream) {
+  const long long e = io_bytes(io);
+  return by_head_slices(heads, [&](int h0, int n) {
+    const long long rows = (long long)h0 * lay.sq;
+    return dkv_heads(d, io, at(q, h0 * lay.q_hs, e), at(k, h0 * lay.k_hs, e),
+                     at(v, h0 * lay.k_hs, e), at(dout, h0 * lay.q_hs, e), at(lse, rows, 4),
+                     at(delta, rows, 4), at(dk, h0 * lay.k_hs, e), at(dv, h0 * lay.k_hs, e), n,
+                     lay, mask.from_head(h0), scale, packed, stream);
+  });
 }
 
 }  // namespace pt_flash

@@ -58,11 +58,13 @@
 //   3, and holds the reference's fp32 dS.
 // The FMA kernel (`flash_bwd_dq_kernel`), 256 threads: products as fp32
 // FMAs from shared memory, for the fp32 and fp16 models and checks, and for
-// every io type at head_dim 256 (in two 32-row passes, DqFma).
+// every io type at head_dim 256 (in two 32-row passes, DqFma) and, split
+// over the head_dim in 256-column chunks of dQ (SPLIT), above it.
 //
-// Grid: FMA (ceil(Sq / 64), heads); bf16 the same for the fixed-length
-// mask and (heads, ceil(Sq / 64)) for the varlen and flashmask masks, the
-// query tiles last to first (the longest first under a causal mask).
+// Grid: FMA (ceil(Sq / 64), heads, head_dim / 256 above 256); bf16 the
+// same for the fixed-length mask and (heads, ceil(Sq / 64)) for the varlen
+// and flashmask masks, the query tiles last to first (the longest first
+// under a causal mask); at most 65535 heads a launch (by_head_slices).
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -83,7 +85,12 @@ struct DqFma {
       sizeof(float) * (2 * QR * (D + 1) + 2 * BK * (D + 1) + QR * LDP + 2 * QR);
 };
 
-template <typename T, int D, typename Mask>
+// SPLIT (head_dim above 256, D = 256): the tensors' head_dim is
+// gridDim.z * D and the block writes the D-column chunk blockIdx.z of dQ.
+// S and dP still take the whole head_dim: for each key tile the block
+// streams Q, dO, K and V through their tiles chunk by chunk, its own chunk
+// last, so that Ks holds the chunk of K that dQ's product reads.
+template <typename T, int D, typename Mask, bool SPLIT = false>
 // Shared memory allows two blocks per SM at head_dim <= 64 (one at 128 and
 // 256): saying so keeps ptxas from squeezing the kernel into 64 registers
 // with spills to reach an occupancy the shared memory rules out.
@@ -108,14 +115,20 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int h = blockIdx.y;
   const Mask mask = heads_mask.at_head(h);
   const int qt = blockIdx.x;
+  const int cz = SPLIT ? blockIdx.z : 0;  // the output chunk
+  const int nch = SPLIT ? gridDim.z : 1;
+  const T* qb = q + h * lay.q_hs;
+  const T* dob = dout + h * lay.q_hs;
   const T* kb = k + h * lay.k_hs;
   const T* vb = v + h * lay.k_hs;
   const int2 tiles = mask.key_tiles(qt);
 
   for (int q0 = qt * BQ; q0 < min(qt * BQ + BQ, lay.sq); q0 += QR) {
     __syncthreads();  // the last pass's reads of Qs, dOs, Ls and Dl are done
-    load_tile<T, QR, D>(Qs, q + h * lay.q_hs, q0, lay.sq, lay.q_rs);
-    load_tile<T, QR, D>(dOs, dout + h * lay.q_hs, q0, lay.sq, lay.q_rs);
+    if (!SPLIT) {
+      load_tile<T, QR, D>(Qs, qb, q0, lay.sq, lay.q_rs);
+      load_tile<T, QR, D>(dOs, dob, q0, lay.sq, lay.q_rs);
+    }
     load_rowvec(Ls, lse + (size_t)h * lay.sq, q0, lay.sq, QR);
     load_rowvec(Dl, delta + (size_t)h * lay.sq, q0, lay.sq, QR);
 
@@ -134,37 +147,44 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       RowInfo ki[4];
 #pragma unroll
       for (int b = 0; b < 4; ++b) ki[b] = mask.k_row(k0 + tx + 16 * b);
-      __syncthreads();  // the last tile's reads of Ks and dSs are done
-      load_tile<T, BK, D>(Ks, kb, k0, lay.sk, lay.k_rs);
-      load_tile<T, BK, D>(Vs, vb, k0, lay.sk, lay.k_rs);
-      __syncthreads();
-
       // s = Q K^T and dP = dO V^T; thread holds query rows ty + 16 i, keys tx + 16 b
       float s[RI][4], dp[RI][4];
 #pragma unroll
       for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int b = 0; b < 4; ++b) s[i][b] = dp[i][b] = 0.f;
+      // one pass over the head_dim unless SPLIT: then chunk cc, this block's last
+      for (int n = 1; n <= nch; ++n) {
+        const int cc = SPLIT ? (cz + n) % nch : 0;
+        __syncthreads();  // the last reads of Qs, dOs, Ks, Vs and dSs are done
+        if (SPLIT) {
+          load_tile<T, QR, D>(Qs, qb + cc * D, q0, lay.sq, lay.q_rs);
+          load_tile<T, QR, D>(dOs, dob + cc * D, q0, lay.sq, lay.q_rs);
+        }
+        load_tile<T, BK, D>(Ks, kb + cc * D, k0, lay.sk, lay.k_rs);
+        load_tile<T, BK, D>(Vs, vb + cc * D, k0, lay.sk, lay.k_rs);
+        __syncthreads();
 #pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float qa[RI], oa[RI], kv[4], vv[4];
+        for (int d = 0; d < D; ++d) {
+          float qa[RI], oa[RI], kv[4], vv[4];
 #pragma unroll
-        for (int i = 0; i < RI; ++i) {
-          qa[i] = Qs[(ty + 16 * i) * LD + d];
-          oa[i] = dOs[(ty + 16 * i) * LD + d];
-        }
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          kv[b] = Ks[(tx + 16 * b) * LD + d];
-          vv[b] = Vs[(tx + 16 * b) * LD + d];
-        }
-#pragma unroll
-        for (int i = 0; i < RI; ++i)
+          for (int i = 0; i < RI; ++i) {
+            qa[i] = Qs[(ty + 16 * i) * LD + d];
+            oa[i] = dOs[(ty + 16 * i) * LD + d];
+          }
 #pragma unroll
           for (int b = 0; b < 4; ++b) {
-            s[i][b] = fmaf(qa[i], kv[b], s[i][b]);
-            dp[i][b] = fmaf(oa[i], vv[b], dp[i][b]);
+            kv[b] = Ks[(tx + 16 * b) * LD + d];
+            vv[b] = Vs[(tx + 16 * b) * LD + d];
           }
+#pragma unroll
+          for (int i = 0; i < RI; ++i)
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+              s[i][b] = fmaf(qa[i], kv[b], s[i][b]);
+              dp[i][b] = fmaf(oa[i], vv[b], dp[i][b]);
+            }
+        }
       }
 #pragma unroll
       for (int i = 0; i < RI; ++i) {
@@ -198,7 +218,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     for (int i = 0; i < RI; ++i) {
       const int qp = q0 + ty + 16 * i;
       if (qp >= lay.sq) continue;
-      T* row = dq + h * lay.q_hs + qp * lay.q_rs;
+      T* row = dq + h * lay.q_hs + qp * lay.q_rs + cz * D;
 #pragma unroll
       for (int c = 0; c < DJ; ++c) row[tx + 16 * c] = from_f<T>(dq_acc[i][c]);
     }
@@ -408,23 +428,32 @@ cudaError_t dq_hopper(const void* q, const void* k, const void* v, const void* d
 
 // ------------------------------------------------------ launch and entries
 
-template <typename T, int D, typename Mask>
+// `chunks` > 1: the SPLIT kernel, one block per 256-column chunk of dQ.
+template <typename T, int D, typename Mask, bool SPLIT = false>
 cudaError_t dq_launch(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int heads, Layout lay,
-                      Mask mask, float scale, void* stream) {
-  const dim3 grid((lay.sq + BQ - 1) / BQ, heads);
-  return launch(flash_bwd_dq_kernel<T, D, Mask>, grid, DqFma<D>::SMEM, stream, (const T*)q, (const T*)k,
-                (const T*)v, (const T*)dout, (const float*)lse, (const float*)delta, (T*)dq, lay,
-                mask, scale);
+                      Mask mask, float scale, void* stream, int chunks = 1) {
+  const dim3 grid((lay.sq + BQ - 1) / BQ, heads, chunks);
+  return launch(flash_bwd_dq_kernel<T, D, Mask, SPLIT>, grid, DqFma<D>::SMEM, stream,
+                (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
+                (const float*)delta, (T*)dq, lay, mask, scale);
 }
 
 // bf16 to the tensor-core kernel, float and fp16 to the FMA kernel (io:
-// see Io); head_dim 256 to the FMA kernel at every io type. `packed` says
-// the tensors are [T, H, D] (varlen) rather than [BH, S, D].
+// see Io); head_dim 256 to the FMA kernel at every io type, and a head_dim
+// above 256 (a multiple of 256: the wrappers pad to it) to the FMA kernel
+// split over it. `packed` says the tensors are [T, H, D] (varlen) rather
+// than [BH, S, D]. One slice of at most MAX_GRID_Y heads.
 template <typename Mask>
-cudaError_t dq_any(int d, int io, const void* q, const void* k, const void* v,
-                   const void* dout, const void* lse, const void* delta, void* dq, int heads,
-                   Layout lay, Mask mask, float scale, int packed, void* stream) {
+cudaError_t dq_heads(int d, int io, const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta, void* dq, int heads,
+                     Layout lay, Mask mask, float scale, int packed, void* stream) {
+  if (d > 256) {
+    if (d % 256) return cudaErrorInvalidValue;
+    PT_FLASH_SWITCH_IO(io, return dq_launch<T, 256, Mask, true>(q, k, v, dout, lse, delta, dq,
+                                                                heads, lay, mask, scale, stream,
+                                                                d / 256))
+  }
   if (d == 256) {
     PT_FLASH_SWITCH_IO(io, return dq_launch<T, 256>(q, k, v, dout, lse, delta, dq, heads, lay,
                                                     mask, scale, stream))
@@ -436,6 +465,21 @@ cudaError_t dq_any(int d, int io, const void* q, const void* k, const void* v,
   PT_FLASH_SWITCH_D(d, PT_FLASH_SWITCH_FMA_IO(io, return dq_launch<T, D>(
                                                       q, k, v, dout, lse, delta, dq, heads, lay,
                                                       mask, scale, stream)))
+}
+
+// dq_heads over every slice of the heads (by_head_slices).
+template <typename Mask>
+cudaError_t dq_any(int d, int io, const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta, void* dq, int heads,
+                   Layout lay, Mask mask, float scale, int packed, void* stream) {
+  const long long e = io_bytes(io);
+  return by_head_slices(heads, [&](int h0, int n) {
+    const long long rows = (long long)h0 * lay.sq;
+    return dq_heads(d, io, at(q, h0 * lay.q_hs, e), at(k, h0 * lay.k_hs, e),
+                    at(v, h0 * lay.k_hs, e), at(dout, h0 * lay.q_hs, e), at(lse, rows, 4),
+                    at(delta, rows, 4), at(dq, h0 * lay.q_hs, e), n, lay, mask.from_head(h0),
+                    scale, packed, stream);
+  });
 }
 
 }  // namespace pt_flash

@@ -126,6 +126,7 @@ struct CausalMask {
   __device__ static float empty_lse() { return NEG_INF; }
 
   __device__ CausalMask at_head(int) const { return *this; }
+  CausalMask from_head(int) const { return *this; }
   __device__ RowInfo q_row(int qp) const { return {qp, 0}; }
   __device__ RowInfo k_row(int kp) const { return {kp, 0}; }
   __device__ bool visible(RowInfo q, RowInfo k) const {
@@ -177,6 +178,7 @@ struct SegmentMask {
   __device__ static float empty_lse() { return 0.f; }
 
   __device__ SegmentMask at_head(int) const { return *this; }
+  SegmentMask from_head(int) const { return *this; }
   __device__ RowInfo q_row(int qp) const { return {seg_q[qp], pos_q[qp]}; }
   __device__ RowInfo k_row(int kp) const { return {seg_k[kp], pos_k[kp]}; }
   __device__ bool visible(RowInfo q, RowInfo k) const {
@@ -199,7 +201,8 @@ struct SegmentMask {
 // the query rows [st[kp], en[kp]); key kp is seen by query qp when qp is
 // not banned, kp < sk, and, when causal, kp <= qp (top-left aligned). st
 // and en are int32 [B * hs, sk] with hs = 1 (one row shared by the H heads
-// of a batch row, read in place) or hs = H; st_max and en_min are int32
+// of a batch row, read in place) or hs = H, for grid head bh + head0 (a
+// launch over a slice of the heads starts at head0); st_max and en_min are int32
 // [B * hs, ceil(sk / 64)], the largest start and the smallest end over each
 // 64-column key tile's real columns, worked out on the host side. A key
 // tile whose every column bans every row of a query tile is skipped, as the
@@ -214,10 +217,17 @@ struct StartEndMask {
   const int* st_max;
   const int* en_min;
   int h, hs, sq, sk, causal;
+  int head0 = 0;
 
   __device__ static float empty_lse() { return 0.f; }
 
-  __device__ StartEndMask at_head(int bh) const {
+  StartEndMask from_head(int h0) const {
+    StartEndMask m = *this;
+    m.head0 = head0 + h0;
+    return m;
+  }
+  __device__ StartEndMask at_head(int grid_head) const {
+    const int bh = grid_head + head0;
     const long long row = (long long)(bh / h) * hs + (hs == 1 ? 0 : bh % h);
     const long long nkt = (sk + BK - 1) / BK;
     StartEndMask m = *this;
@@ -270,6 +280,33 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... 
 // kernels), 2 fp16.
 enum Io : int { IO_F32 = 0, IO_BF16 = 1, IO_F16 = 2 };
 
+inline long long io_bytes(int io) { return io == IO_F32 ? 4 : 2; }
+
+// A grid's y axis holds at most 65535 blocks, and the FMA kernels and the
+// fixed-length bf16 kernels put the heads there. So every launch runs over
+// slices of at most MAX_GRID_Y heads: `run(h0, n)` launches heads
+// [h0, h0 + n), its tensors' pointers moved to head h0 (`at`) and its mask
+// told where its heads start (`from_head`). One slice below 65536 heads.
+constexpr int MAX_GRID_Y = 65535;
+
+template <typename Run>
+cudaError_t by_head_slices(int heads, Run run) {
+  if (heads < 1) return cudaErrorInvalidValue;
+  for (int h0 = 0; h0 < heads; h0 += MAX_GRID_Y) {
+    const cudaError_t err = run(h0, heads - h0 < MAX_GRID_Y ? heads - h0 : MAX_GRID_Y);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// `p` moved on by `elems` elements of `bytes` bytes each.
+inline const void* at(const void* p, long long elems, long long bytes) {
+  return static_cast<const char*>(p) + elems * bytes;
+}
+inline void* at(void* p, long long elems, long long bytes) {
+  return static_cast<char*>(p) + elems * bytes;
+}
+
 // The fixed-length layout: [bh, sq, d] and [bh, sk, d], contiguous.
 inline Layout dense_layout(int sq, int sk, int d) {
   return Layout{sq, sk, d, d, (long long)sq * d, (long long)sk * d};
@@ -290,8 +327,8 @@ inline Layout packed_layout(int tq, int tk, int h, int d) {
   }
 
 // Instantiates `body` for every io type T: float, bf16 or fp16 (the FMA
-// kernels at head_dim 256, which has no tensor-core instantiation yet);
-// anything else is refused.
+// kernels at head_dim 256 and above, which have no tensor-core
+// instantiation yet); anything else is refused.
 #define PT_FLASH_SWITCH_IO(io, ...)                          \
   switch (io) {                                              \
     case IO_F32: { using T = float; __VA_ARGS__; }           \

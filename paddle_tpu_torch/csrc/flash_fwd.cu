@@ -7,7 +7,10 @@
 // accuracy (TF32 keeps 10 mantissa bits), so float io stays on FMAs; fp16
 // io shares the FMA kernel until it has `wgmma` instantiations of its own.
 // head_dim 256 goes to the FMA kernel at every io type (214,016 bytes of
-// shared memory a block); it has no tensor-core instantiation yet.
+// shared memory a block); it has no tensor-core instantiation yet. A
+// head_dim above 256 runs the same kernel split over it (SPLIT): one block
+// per 256-column chunk of the output, the scores over the whole head_dim
+// recomputed by every chunk's block.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (reached
 // through `_fwd_call`; entry `pt_flash_fwd`, CausalMask),
@@ -59,8 +62,9 @@
 // scores and a 4 x D/16 block of the output and reads 8 shared words per
 // 16 FMAs. It serves the fp32 and fp16 models and checks.
 //
-// Grid: FMA (ceil(Sq / 64), heads); bf16 the same for the fixed-length
-// mask and (heads, ceil(Sq / 64)) for the varlen and flashmask masks.
+// Grid: FMA (ceil(Sq / 64), heads, head_dim / 256 above 256); bf16 the
+// same for the fixed-length mask and (heads, ceil(Sq / 64)) for the varlen
+// and flashmask masks; at most 65535 heads a launch (by_head_slices).
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -68,7 +72,12 @@
 
 namespace pt_flash {
 
-template <typename T, int D, typename Mask>
+// SPLIT (head_dim above 256, D = 256): the tensors' head_dim is
+// gridDim.z * D and the block writes the D-column chunk blockIdx.z of O.
+// The scores still take the whole head_dim: for each key tile the block
+// streams Q and K through Qs and Ks chunk by chunk, and V's own chunk once.
+// Only chunk 0 writes lse.
+template <typename T, int D, typename Mask, bool SPLIT = false>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse, Layout lay, Mask heads_mask,
@@ -86,10 +95,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const Mask mask = heads_mask.at_head(h);
   const int qt = blockIdx.x;
   const int q0 = qt * BQ;
+  const int cz = SPLIT ? blockIdx.z : 0;  // the output chunk
+  const T* qb = q + h * lay.q_hs;
   const T* kb = k + h * lay.k_hs;
-  const T* vb = v + h * lay.k_hs;
+  const T* vb = v + h * lay.k_hs + cz * D;
 
-  load_tile<T, BQ, D>(Qs, q + h * lay.q_hs, q0, lay.sq, lay.q_rs);
+  if (!SPLIT) load_tile<T, BQ, D>(Qs, qb, q0, lay.sq, lay.q_rs);
 
   float m[4], l[4], acc[4][DJ];
   RowInfo qi[4];
@@ -106,27 +117,30 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int j = tiles.x; j < tiles.y; ++j) {
     if (!mask.tile_open(qt, j)) continue;  // the same for the whole block
     const int k0 = j * BK;
-    __syncthreads();  // the last tile's reads of Ks, Vs and Ps are done
-    load_tile<T, BK, D>(Ks, kb, k0, lay.sk, lay.k_rs);
-    load_tile<T, BK, D>(Vs, vb, k0, lay.sk, lay.k_rs);
-    __syncthreads();
-
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int b = 0; b < 4; ++b) s[i][b] = 0.f;
+    // chunk cc of Q K^T (one pass unless SPLIT); V is loaded with chunk 0
+    for (int cc = 0; cc < (SPLIT ? (int)gridDim.z : 1); ++cc) {
+      __syncthreads();  // the last reads of Qs, Ks, Vs and Ps are done
+      if (SPLIT) load_tile<T, BQ, D>(Qs, qb + cc * D, q0, lay.sq, lay.q_rs);
+      load_tile<T, BK, D>(Ks, kb + cc * D, k0, lay.sk, lay.k_rs);
+      if (cc == 0) load_tile<T, BK, D>(Vs, vb, k0, lay.sk, lay.k_rs);
+      __syncthreads();
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qa[4], kv[4];
+      for (int d = 0; d < D; ++d) {
+        float qa[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = Qs[(ty + 16 * i) * LD + d];
+        for (int i = 0; i < 4; ++i) qa[i] = Qs[(ty + 16 * i) * LD + d];
 #pragma unroll
-      for (int b = 0; b < 4; ++b) kv[b] = Ks[(tx + 16 * b) * LD + d];
+        for (int b = 0; b < 4; ++b) kv[b] = Ks[(tx + 16 * b) * LD + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int b = 0; b < 4; ++b) s[i][b] = fmaf(qa[i], kv[b], s[i][b]);
+          for (int b = 0; b < 4; ++b) s[i][b] = fmaf(qa[i], kv[b], s[i][b]);
+      }
     }
 
     RowInfo ki[4];  // fetched here, not kept live through the products
@@ -177,10 +191,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int qp = q0 + ty + 16 * i;
     if (qp >= lay.sq) continue;
     const float l_safe = l[i] == 0.f ? 1.f : l[i];
-    T* orow = o + h * lay.q_hs + qp * lay.q_rs;
+    T* orow = o + h * lay.q_hs + qp * lay.q_rs + cz * D;
 #pragma unroll
     for (int c = 0; c < DJ; ++c) orow[tx + 16 * c] = from_f<T>(acc[i][c] / l_safe);
-    if (tx == 0)
+    if (tx == 0 && cz == 0)
       lse[(size_t)h * lay.sq + qp] = l[i] == 0.f ? Mask::empty_lse() : m[i] + logf(l[i]);
   }
 }
@@ -476,22 +490,30 @@ cudaError_t fwd_hopper(const void* q, const void* k, const void* v, void* o, voi
 
 // ------------------------------------------------------ launch and entries
 
-template <typename T, int D, typename Mask>
+// `chunks` > 1: the SPLIT kernel, one block per 256-column chunk of O.
+template <typename T, int D, typename Mask, bool SPLIT = false>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse, int heads,
-                Layout lay, Mask mask, float scale, void* stream) {
+                Layout lay, Mask mask, float scale, void* stream, int chunks = 1) {
   const size_t smem = sizeof(float) * (3 * 64 * (D + 1) + BQ * LDP);
-  const dim3 grid((lay.sq + BQ - 1) / BQ, heads);
-  return launch(flash_fwd_kernel<T, D, Mask>, grid, smem, stream, (const T*)q, (const T*)k,
-                (const T*)v, (T*)o, (float*)lse, lay, mask, scale);
+  const dim3 grid((lay.sq + BQ - 1) / BQ, heads, chunks);
+  return launch(flash_fwd_kernel<T, D, Mask, SPLIT>, grid, smem, stream, (const T*)q,
+                (const T*)k, (const T*)v, (T*)o, (float*)lse, lay, mask, scale);
 }
 
 // bf16 to the tensor-core kernel, float and fp16 to the FMA kernel (io:
-// see Io); head_dim 256 to the FMA kernel at every io type. `packed` says
-// the tensors are [T, H, D] (varlen) rather than [BH, S, D].
+// see Io); head_dim 256 to the FMA kernel at every io type, and a head_dim
+// above 256 (a multiple of 256: the wrappers pad to it) to the FMA kernel
+// split over it. `packed` says the tensors are [T, H, D] (varlen) rather
+// than [BH, S, D]. One slice of at most MAX_GRID_Y heads.
 template <typename Mask>
-cudaError_t fwd_any(int d, int io, const void* q, const void* k, const void* v, void* o,
-                    void* lse, int heads, Layout lay, Mask mask, float scale, int packed,
-                    void* stream) {
+cudaError_t fwd_heads(int d, int io, const void* q, const void* k, const void* v, void* o,
+                      void* lse, int heads, Layout lay, Mask mask, float scale, int packed,
+                      void* stream) {
+  if (d > 256) {
+    if (d % 256) return cudaErrorInvalidValue;
+    PT_FLASH_SWITCH_IO(io, return fwd<T, 256, Mask, true>(q, k, v, o, lse, heads, lay, mask,
+                                                          scale, stream, d / 256))
+  }
   if (d == 256) {
     PT_FLASH_SWITCH_IO(io, return fwd<T, 256>(q, k, v, o, lse, heads, lay, mask, scale, stream))
   }
@@ -501,6 +523,20 @@ cudaError_t fwd_any(int d, int io, const void* q, const void* k, const void* v, 
   }
   PT_FLASH_SWITCH_D(d, PT_FLASH_SWITCH_FMA_IO(io, return fwd<T, D>(q, k, v, o, lse, heads, lay,
                                                                    mask, scale, stream)))
+}
+
+// fwd_heads over every slice of the heads (by_head_slices).
+template <typename Mask>
+cudaError_t fwd_any(int d, int io, const void* q, const void* k, const void* v, void* o,
+                    void* lse, int heads, Layout lay, Mask mask, float scale, int packed,
+                    void* stream) {
+  const long long e = io_bytes(io);
+  return by_head_slices(heads, [&](int h0, int n) {
+    return fwd_heads(d, io, at(q, h0 * lay.q_hs, e), at(k, h0 * lay.k_hs, e),
+                     at(v, h0 * lay.k_hs, e), at(o, h0 * lay.q_hs, e),
+                     at(lse, (long long)h0 * lay.sq, 4), n, lay, mask.from_head(h0), scale,
+                     packed, stream);
+  });
 }
 
 }  // namespace pt_flash

@@ -54,3 +54,20 @@ def state_from_numpy(state: Dict[str, Any],
            for k in ("params", "master", "m", "v")}
     out["step"] = tensor_from_numpy(state["step"], dev, torch.int32)
     return out
+
+
+def optimizer_state_renamed(state: Dict[str, Any], src_names,
+                            dst_names) -> Dict[str, Any]:
+    """An eager optimizer's ``state_dict`` (keys ``<param name>.<state>``,
+    ``step``, ``LR_Scheduler``) with each parameter's name in ``src_names``
+    replaced by the one at the same position in ``dst_names``: the two
+    packages name parameters from counters of their own, so a state
+    crosses by the order of the parameters, as the model's weights cross
+    by their attribute paths. Values are passed through as they are
+    (numpy arrays go into ``set_state_dict``)."""
+    rename = dict(zip(src_names, dst_names))
+    out = {}
+    for key, value in state.items():
+        name, dot, rest = key.rpartition(".")
+        out[f"{rename.get(name, name)}.{rest}" if dot else key] = value
+    return out

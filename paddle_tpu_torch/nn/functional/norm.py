@@ -1,12 +1,20 @@
 """Normalisation functionals in plain PyTorch.
 
-Counterpart of ``layer_norm`` and ``rms_norm`` in
-``paddle_tpu/nn/functional/norm.py`` (``_ln_kernel``, ``_rms_norm_kernel``),
-which are plain jnp in the reference. Each rounds where its reference does:
+Counterpart of ``paddle_tpu/nn/functional/norm.py`` (``batch_norm``,
+``layer_norm``, ``rms_norm``, ``group_norm``, ``instance_norm``), which is
+plain jnp in the reference. Each rounds where its reference does:
 
 - ``layer_norm`` works in x's own type throughout;
 - ``rms_norm`` takes fp32 statistics, rounds ``x / sqrt(var + eps)`` to x's
-  type, then multiplies by the weight and adds the bias in that type.
+  type, then multiplies by the weight and adds the bias in that type;
+- ``batch_norm`` is two ops, as there: ``bn_stats`` (the batch mean and
+  the *biased* variance, differentiable) and ``bn_apply``
+  (``(x - mean) * (1 / sqrt(var + eps)) * w + b``), both on AMP's black
+  list, so under O1 batch norm runs in float32. Its running buffers take
+  ``m * running + (1 - m) * batch`` with the biased batch variance, m =
+  0.9 by default: torch's own running update is not that one (it takes
+  the unbiased variance and weighs the new batch by its momentum), so the
+  update is written out here, on the card, with no read on the host.
 
 The RMSNorm kernel (``ops/cuda/fused.py`` ``rms_norm``, the reference's
 ``ops.pallas.rms_norm``) rounds once, after the weight, and LLaMA's own
@@ -64,3 +72,84 @@ def _rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
     if bias is not None:
         out = out + bias
     return out
+
+
+def _channel_axis(x: torch.Tensor, fmt: str) -> int:
+    return 1 if fmt.startswith("NC") and x.dim() > 1 else x.dim() - 1
+
+
+def _bn_stats(x: torch.Tensor, fmt: str):
+    """The batch mean and biased variance over every axis but the
+    channel's."""
+    c = 1 if fmt.startswith("NC") else x.dim() - 1
+    axes = tuple(i for i in range(x.dim()) if i != c)
+    var, mean = torch.var_mean(x, axes, correction=0)
+    return mean, var
+
+
+def _bn_apply(x, mean, var, w, b, eps: float, fmt: str):
+    shape = [1] * x.dim()
+    shape[_channel_axis(x, fmt)] = x.shape[_channel_axis(x, fmt)]
+    inv = (1.0 / torch.sqrt(var + eps)).reshape(shape)
+    out = (x - mean.reshape(shape)) * inv
+    if w is not None:
+        out = out * w.reshape(shape)
+    if b is not None:
+        out = out + b.reshape(shape)
+    return out
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-05,
+               data_format="NCHW", use_global_stats=None, name=None):
+    """Batch norm over the channel axis of ``data_format``. In training
+    (and unless ``use_global_stats``) the batch's statistics normalise x
+    and ``running_mean`` / ``running_var`` (``Tensor``s or torch tensors)
+    are updated in place; otherwise the running statistics normalise."""
+    if training and not use_global_stats:
+        mean, var = apply("bn_stats", _bn_stats, x, fmt=data_format)
+        m = float(momentum)
+        with torch.no_grad():
+            for run, stat in ((running_mean, mean), (running_var, var)):
+                run_t = run._t if hasattr(run, "_t") else run
+                stat_t = stat._t if hasattr(stat, "_t") else stat
+                run_t.copy_(m * run_t + (1.0 - m) * stat_t)
+    else:
+        mean, var = running_mean, running_var
+    return apply("bn_apply", _bn_apply, x, mean, var, weight, bias,
+                 eps=float(epsilon), fmt=data_format)
+
+
+def _group_norm(x, w, b, groups: int, eps: float, fmt: str):
+    if fmt == "NHWC":
+        x = x.movedim(-1, 1)
+    n, c = x.shape[0], x.shape[1]
+    spatial = x.shape[2:]
+    xg = x.reshape(n, groups, c // groups, *spatial)
+    axes = tuple(range(2, xg.dim()))
+    var, mean = torch.var_mean(xg, axes, correction=0, keepdim=True)
+    out = ((xg - mean) / torch.sqrt(var + eps)).reshape(x.shape)
+    shape = [1, c] + [1] * len(spatial)
+    if w is not None:
+        out = out * w.reshape(shape)
+    if b is not None:
+        out = out + b.reshape(shape)
+    return out.movedim(1, -1) if fmt == "NHWC" else out
+
+
+def group_norm(x, num_groups, epsilon=1e-05, weight=None, bias=None,
+               data_format="NCHW", name=None):
+    """Normalises each of ``num_groups`` channel groups of each sample."""
+    return apply("group_norm", _group_norm, x, weight, bias,
+                 groups=int(num_groups), eps=float(epsilon),
+                 fmt=data_format)
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-05,
+                  data_format="NCHW", name=None):
+    """Group norm with one group per channel, as the reference computes
+    it (the running statistics are taken and not used)."""
+    c = x.shape[-1] if data_format == "NHWC" else x.shape[1]
+    return apply("group_norm", _group_norm, x, weight, bias,
+                 groups=int(c), eps=float(eps), fmt=data_format)

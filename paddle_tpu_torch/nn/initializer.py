@@ -83,3 +83,19 @@ class XavierUniform(Initializer):
         fo = self._fan_out if self._fan_out is not None else fo
         limit = self.gain * math.sqrt(6.0 / (fi + fo))
         return self._draw("uniform_", shape, dtype, -limit, limit)
+
+
+class KaimingNormal(Initializer):
+    """Normal with std ``gain / sqrt(fan_in)``, gain sqrt(2) for ReLU."""
+
+    def __init__(self, fan_in=None, negative_slope=0.0, nonlinearity="relu"):
+        self._fan_in = fan_in
+        self.negative_slope = negative_slope
+        self.nonlinearity = nonlinearity
+
+    def __call__(self, shape, dtype="float32"):
+        fi = self._fan_in if self._fan_in is not None \
+            else _fan_in_out(shape)[0]
+        gain = math.sqrt(2.0) if self.nonlinearity == "relu" else \
+            math.sqrt(2.0 / (1 + self.negative_slope ** 2))
+        return self._draw("normal_", shape, dtype, 0.0, gain / math.sqrt(fi))

@@ -7,8 +7,9 @@ import torch
 from .._core.tensor import Tensor
 from .creation import arange, full, ones, to_tensor, zeros  # noqa: F401
 from .linalg import matmul
-from .manipulation import (astype, cast, concat, reshape,  # noqa: F401
-                           split, transpose, unbind)
+from .manipulation import (astype, cast, concat, flatten,  # noqa: F401
+                           reshape, split, squeeze, transpose, unbind,
+                           unsqueeze)
 from .math import (abs, add, divide, equal, exp, floor_divide,  # noqa: F401
                    greater_equal, greater_than, less_equal, less_than, log,
                    mod, multiply, neg, not_equal, pow, remainder, subtract,
@@ -17,7 +18,8 @@ from .reduction import max, mean, sum  # noqa: F401
 
 __all__ = [
     "arange", "full", "ones", "to_tensor", "zeros", "matmul", "astype",
-    "cast", "concat", "reshape", "split", "transpose", "unbind", "abs",
+    "cast", "concat", "flatten", "reshape", "split", "squeeze", "transpose",
+    "unbind", "unsqueeze", "abs",
     "add", "divide", "equal", "exp", "floor_divide", "greater_equal",
     "greater_than", "less_equal", "less_than", "log", "mod", "multiply",
     "neg", "not_equal", "pow", "remainder", "subtract", "tanh", "max",
@@ -39,6 +41,7 @@ def _reflected(fn):
 
 
 for _name in ("reshape", "astype", "cast", "transpose", "split", "unbind",
+              "flatten", "squeeze", "unsqueeze",
               "matmul", "sum", "mean", "max", "exp", "log", "tanh", "abs",
               "add", "subtract", "multiply", "divide", "pow"):
     setattr(Tensor, _name, globals()[_name])

@@ -16,14 +16,18 @@ and accumulators are fp32; the io type is float32, bfloat16 or float16.
 The kernels are built for head_dim 32, 64, 128 and 256 (``HEAD_DIMS``); a
 smaller head_dim runs at the next of those sizes, its q, k, v (and dO)
 padded with zero columns and the results sliced back (:func:`_pad_head_dim`),
-which is exact. A head_dim above 256 is refused. At 256 every io type runs
-the FMA kernels (bf16 too: there is no tensor-core instantiation at 256
-yet), whose backward then works on 32-row halves of its 64-row tiles so
-that the fp32 tiles fit in shared memory. The causal mask is bottom-right aligned (key ``k`` is seen
-by query ``q`` when ``k <= q + (Sk - Sq)``) and keys at or past ``kv_len``
-are masked. A query row that sees no key at all gets output 0 and lse -1e30
-from the kernel; :func:`mha_forward` then gives such rows what the
-reference gives them (:func:`reference_keyless_rows`).
+which is exact. At 256 every io type runs the FMA kernels (bf16 too: there
+is no tensor-core instantiation at 256 yet), whose backward then works on
+32-row halves of its 64-row tiles so that the fp32 tiles fit in shared
+memory. A head_dim above 256 runs padded to a multiple of 256 on the same
+FMA kernels split over it: one block per 256-column chunk of each output,
+the scores over the whole head_dim recomputed by each. Any number of heads
+(``B*H``) runs: the C entries launch at most 65535 of them at a time. The
+causal mask is bottom-right aligned (key ``k`` is seen by query ``q`` when
+``k <= q + (Sk - Sq)``) and keys at or past ``kv_len`` are masked. A query
+row that sees no key at all gets output 0 and lse -1e30 from the kernel;
+:func:`mha_forward` then gives such rows what the reference gives them
+(:func:`reference_keyless_rows`).
 
 Each wrapper dispatches on the device of its tensors: a CUDA tensor launches
 the kernel (or raises on a type, head_dim or layout the kernel does not
@@ -93,19 +97,16 @@ def _launch(name: str, tensors, bh, sq, sk, d, causal, scale, kv_len,
     LAUNCHES[name] += 1
 
 
-def _check_cuda(name: str, io, stats=(), heads: Optional[int] = None) -> None:
+def _check_cuda(name: str, io, stats=()) -> None:
     """Raise on inputs the CUDA kernel does not take. ``io`` are the
-    tensors in the io type (q first), ``stats`` the fp32 rows (lse, delta)
-    and ``heads`` the grid's second dimension (default ``q.shape[0]``, the
-    ``BH`` of ``[BH, S, D]``)."""
+    tensors in the io type (q first), ``stats`` the fp32 rows (lse,
+    delta)."""
     q = io[0]
     if q.dtype not in _IO_CODES:
         raise TypeError(f"{name}: dtype {q.dtype} not supported on CUDA "
                         f"(float32, bfloat16 or float16)")
-    d = q.shape[-1]
-    if not 0 < d <= HEAD_DIMS[-1]:
-        raise ValueError(f"{name}: head_dim {d} not supported on CUDA "
-                         f"(1 to {HEAD_DIMS[-1]})")
+    if q.shape[-1] < 1:
+        raise ValueError(f"{name}: head_dim 0")
     for t in tuple(io) + tuple(stats):
         if t.device != q.device:
             raise ValueError(f"{name}: tensors on {q.device} and {t.device}")
@@ -115,9 +116,6 @@ def _check_cuda(name: str, io, stats=(), heads: Optional[int] = None) -> None:
     for t in io:
         if t.dtype != q.dtype:
             raise TypeError(f"{name}: mixed dtypes {q.dtype} and {t.dtype}")
-    heads = q.shape[0] if heads is None else heads
-    if heads > 65535:
-        raise ValueError(f"{name}: {heads} heads (batch*heads) > 65535")
 
 
 def check_tma(*tensors: torch.Tensor) -> bool:
@@ -137,9 +135,9 @@ def _tma_inputs(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """The tensors a kernel reads, each as it is unless it is bf16 and
     :func:`check_tma` refuses it; then a fresh contiguous copy, whose
     storage PyTorch allocates aligned. Inputs reach the kernels contiguous
-    with a head_dim of 32, 64, 128 or 256, so every stride is a multiple of
-    16 bytes and the base address is the only case left: the same kernel
-    runs on the copy."""
+    with a head_dim of 32, 64, 128 or a multiple of 256, so every stride is
+    a multiple of 16 bytes and the base address is the only case left: the
+    same kernel runs on the copy."""
     return tuple(t if t.dtype != torch.bfloat16 or check_tma(t)
                  else t.clone(memory_format=torch.contiguous_format)
                  for t in tensors)
@@ -147,12 +145,12 @@ def _tma_inputs(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
 
 def kernel_head_dim(d: int) -> int:
     """The head_dim the kernels run at for a caller's ``d``: the smallest
-    of ``HEAD_DIMS`` at or above it."""
+    of ``HEAD_DIMS`` at or above it, and above 256 the next multiple of
+    256 (the FMA kernels split over it in 256-column chunks)."""
     for size in HEAD_DIMS:
         if d <= size:
             return size
-    raise ValueError(f"head_dim {d} not supported on CUDA (1 to "
-                     f"{HEAD_DIMS[-1]})")
+    return -(-d // HEAD_DIMS[-1]) * HEAD_DIMS[-1]
 
 
 def _pad_head_dim(run, *io: torch.Tensor):

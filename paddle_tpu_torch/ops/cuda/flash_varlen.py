@@ -338,7 +338,7 @@ def varlen_fwd(q, k, v, plan: VarlenPlan,
     _check_shapes(q, k, v)
     if not _dispatch(q):
         return varlen_fwd_plain(q, k, v, plan, scale)
-    _check_cuda("varlen_fwd", (q, k, v), heads=q.shape[1])
+    _check_cuda("varlen_fwd", (q, k, v))
     meta = _plan_tensors("varlen_fwd", q, k, plan, plan.qlo, plan.qhi,
                          _cdiv(q.shape[0], TILE))
 
@@ -362,8 +362,7 @@ def varlen_bwd_dkv(q, k, v, do, lse, delta, plan: VarlenPlan, scale: float):
     _check_bwd("varlen_bwd_dkv", q, do, lse, delta)
     if not _dispatch(q):
         return varlen_bwd_dkv_plain(q, k, v, do, lse, delta, plan, scale)
-    _check_cuda("varlen_bwd_dkv", (q, k, v, do), (lse, delta),
-                heads=q.shape[1])
+    _check_cuda("varlen_bwd_dkv", (q, k, v, do), (lse, delta))
     meta = _plan_tensors("varlen_bwd_dkv", q, k, plan, plan.klo, plan.khi,
                          _cdiv(k.shape[0], TILE))
 
@@ -384,8 +383,7 @@ def varlen_bwd_dq(q, k, v, do, lse, delta, plan: VarlenPlan, scale: float):
     _check_bwd("varlen_bwd_dq", q, do, lse, delta)
     if not _dispatch(q):
         return varlen_bwd_dq_plain(q, k, v, do, lse, delta, plan, scale)
-    _check_cuda("varlen_bwd_dq", (q, k, v, do), (lse, delta),
-                heads=q.shape[1])
+    _check_cuda("varlen_bwd_dq", (q, k, v, do), (lse, delta))
     meta = _plan_tensors("varlen_bwd_dq", q, k, plan, plan.qlo, plan.qhi,
                          _cdiv(q.shape[0], TILE))
 

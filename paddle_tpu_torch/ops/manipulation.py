@@ -54,3 +54,36 @@ def split(x, num_or_sections, axis=0, name=None):
 
 def unbind(x, axis=0):
     return apply("unbind_", lambda t: list(torch.unbind(t, int(axis))), x)
+
+
+def flatten(x, start_axis=0, stop_axis=-1, name=None):
+    """Axes ``start_axis .. stop_axis`` merged into one."""
+    nd = max(len(x.shape), 1)
+    start, stop = int(start_axis) % nd, int(stop_axis) % nd
+    return apply("flatten_", lambda t: t.flatten(start, stop) if t.dim()
+                 else t.reshape(1), x)
+
+
+def squeeze(x, axis=None, name=None):
+    """Drops the given axes of size 1 (all of them for ``None``); an axis
+    that is not of size 1 stays, as in the reference."""
+    nd = len(x.shape)
+    if axis is None:
+        axes = tuple(i for i, s in enumerate(x.shape) if s == 1)
+    else:
+        axes = (axis,) if isinstance(axis, numbers.Integral) else \
+            tuple(axis)
+        axes = tuple(a % nd for a in axes if x.shape[a % nd] == 1)
+    return apply("squeeze", lambda t: t.squeeze(axes) if axes else t, x)
+
+
+def unsqueeze(x, axis, name=None):
+    """Inserts axes of size 1 at the given positions of the result."""
+    axes = (axis,) if isinstance(axis, numbers.Integral) else tuple(axis)
+
+    def body(t):
+        nd = t.dim() + len(axes)
+        for a in sorted(int(a) % nd for a in axes):
+            t = t.unsqueeze(a)
+        return t
+    return apply("unsqueeze", body, x)

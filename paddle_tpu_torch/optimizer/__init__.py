@@ -1,2 +1,4 @@
-"""Counterpart of ``paddle_tpu/optimizer``: SGD, Adam and AdamW."""
-from .optimizer import SGD, Adam, AdamW, Optimizer  # noqa: F401
+"""Counterpart of ``paddle_tpu/optimizer``: SGD, Momentum, Adam, AdamW and
+the learning-rate schedulers (``optimizer.lr``)."""
+from . import lr  # noqa: F401
+from .optimizer import SGD, Adam, AdamW, Momentum, Optimizer  # noqa: F401

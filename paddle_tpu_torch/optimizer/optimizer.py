@@ -1,14 +1,17 @@
 """Optimizers: the counterpart of ``paddle_tpu/optimizer/optimizer.py``
-(``Optimizer``, ``SGD``, ``Adam``, ``AdamW``).
+(``Optimizer``, ``SGD``, ``Momentum``, ``Adam``, ``AdamW``).
 
 Plain PyTorch, as the reference's update is plain XLA: one ``step`` runs
 ``torch._foreach_*`` ops over each (parameter group, type) bucket and
 updates the parameters in place. The arithmetic is the reference's
 ``_update_one``: the bias corrections are computed in float32 and cast to
 the parameter's type, AdamW's decay sits inside the learning-rate product
-(``p - lr * (upd + wd * p)``), and the learning rate is a float32 scalar.
-With ``multi_precision`` a bf16 or fp16 parameter is updated through a
-float32 master copy and float32 moments.
+(``p - lr * (upd + wd * p)``), Momentum adds L2 decay into the gradient
+before ``v = mu v + g``, and the learning rate is a float32 scalar: a
+float, or an ``LRScheduler`` read at every step. A ``grad_clip``
+(``nn/clip.py``) rewrites the gradients first. With ``multi_precision`` a
+bf16 or fp16 parameter is updated through a float32 master copy and
+float32 state.
 """
 from __future__ import annotations
 
@@ -19,8 +22,9 @@ import numpy as np
 import torch
 
 from .._core.tensor import Tensor
+from .lr import LRScheduler
 
-__all__ = ["Optimizer", "SGD", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW"]
 
 _LOW = (torch.bfloat16, torch.float16)
 
@@ -37,12 +41,9 @@ class Optimizer:
                  name=None):
         if parameters is None:
             raise ValueError("parameters must be provided in dygraph mode")
-        if grad_clip is not None:
-            raise NotImplementedError("grad_clip is not ported yet")
-        if not isinstance(learning_rate, (int, float)):
-            raise NotImplementedError("learning-rate schedulers are not "
-                                      "ported yet: pass a float")
-        self._lr = float(learning_rate)
+        self._grad_clip = grad_clip
+        self._lr = learning_rate if isinstance(learning_rate, LRScheduler) \
+            else float(learning_rate)
         self._multi_precision = multi_precision
         self._step_count = 0
         self._states: Dict[int, Dict[str, torch.Tensor]] = {}
@@ -61,10 +62,17 @@ class Optimizer:
 
     # -------------------------------------------------------------- lr
     def get_lr(self) -> float:
+        if isinstance(self._lr, LRScheduler):
+            return self._lr()
         return self._lr
 
     def set_lr(self, value) -> None:
+        if isinstance(self._lr, LRScheduler):
+            raise RuntimeError("cannot set_lr when using an LRScheduler")
         self._lr = float(value)
+
+    def set_lr_scheduler(self, scheduler) -> None:
+        self._lr = scheduler
 
     # -------------------------------------------------------------- step
     def _all_params(self) -> List[Tensor]:
@@ -78,21 +86,29 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> None:
-        buckets = collections.defaultdict(list)
+        pairs, groups = [], []
         for gi, g in enumerate(self._param_groups):
             for p in g["params"]:
                 if p.stop_gradient or p._t.grad is None:
                     continue
-                buckets[(gi, p._t.dtype, p._t.device)].append(p)
-        if not buckets:
+                pairs.append((p, p._t.grad))
+                groups.append(gi)
+        if not pairs:
             return
+        if self._grad_clip is not None:
+            pairs = self._grad_clip(pairs)
+        buckets = collections.defaultdict(list)
+        for gi, (p, g) in zip(groups, pairs):
+            g = g._t if isinstance(g, Tensor) else g
+            buckets[(gi, p._t.dtype, p._t.device)].append((p, g))
         self._step_count += 1
-        lr32 = np.float32(self._lr)
-        for (gi, dtype, _), params in buckets.items():
+        lr32 = np.float32(self.get_lr())
+        for (gi, dtype, _), items in buckets.items():
             group = self._param_groups[gi]
             master = self._multi_precision and dtype in _LOW
+            params = [p for p, _ in items]
             ps, gs, states = [], [], []
-            for p in params:
+            for p, g in items:
                 pid = id(p)
                 if pid not in self._states:
                     if master:
@@ -100,7 +116,6 @@ class Optimizer:
                     self._states[pid] = self._init_state(
                         self._master.get(pid, p._t))
                 ps.append(self._master.get(pid, p._t))
-                g = p._t.grad
                 gs.append(g if g.dtype == ps[-1].dtype else g.to(ps[-1].dtype))
                 states.append(self._states[pid])
             lr = float(lr32 * np.float32(group["learning_rate"]))
@@ -128,6 +143,8 @@ class Optimizer:
                 out[f"{key}.{k}"] = Tensor(v)
             if id(p) in self._master:
                 out[f"{key}.master"] = Tensor(self._master[id(p)])
+        if isinstance(self._lr, LRScheduler):
+            out["LR_Scheduler"] = self._lr.state_dict()
         return out
 
     def set_state_dict(self, state) -> None:
@@ -143,6 +160,8 @@ class Optimizer:
                 st[k] = _as_torch(state[f"{key}.{k}"], st[k])
             if found:
                 self._states[id(p)] = st
+        if isinstance(self._lr, LRScheduler) and "LR_Scheduler" in state:
+            self._lr.set_state_dict(state["LR_Scheduler"])
 
 
 class SGD(Optimizer):
@@ -150,6 +169,32 @@ class SGD(Optimizer):
         if wd:
             gs = torch._foreach_add(gs, ps, alpha=wd)
         torch._foreach_add_(ps, gs, alpha=-lr)
+
+
+class Momentum(Optimizer):
+    """``v = mu v + g`` (L2 decay added into g first) and ``p -= lr v``;
+    with ``use_nesterov`` ``p -= lr (g + mu v)``. State ``velocity``."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False, name=None):
+        self._momentum = float(momentum)
+        self._nesterov = bool(use_nesterov)
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision, name)
+
+    def _init_state(self, p):
+        return {"velocity": torch.zeros_like(p)}
+
+    def _update(self, ps, gs, states, lr, wd):
+        if wd:
+            gs = torch._foreach_add(gs, ps, alpha=wd)
+        vs = [s["velocity"] for s in states]
+        torch._foreach_mul_(vs, self._momentum)
+        torch._foreach_add_(vs, gs)
+        upd = torch._foreach_add(gs, vs, alpha=self._momentum) \
+            if self._nesterov else vs
+        torch._foreach_add_(ps, upd, alpha=-lr)
 
 
 class Adam(Optimizer):

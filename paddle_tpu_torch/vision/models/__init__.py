@@ -1,0 +1,7 @@
+"""Counterpart of ``paddle_tpu/vision/models``: LeNet, ResNet, VGG and
+MobileNet."""
+from .lenet import LeNet  # noqa: F401
+from .mobilenet import MobileNetV1, MobileNetV2  # noqa: F401
+from .resnet import (BasicBlock, BottleneckBlock, ResNet,  # noqa: F401
+                     resnet18, resnet34, resnet50, resnet101, resnet152)
+from .vgg import VGG, vgg11, vgg13, vgg16, vgg19  # noqa: F401

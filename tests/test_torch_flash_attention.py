@@ -244,16 +244,19 @@ def test_wrappers_reject_bad_inputs(bad):
         k = k[:, :, :16]
     elif bad == "kv_len":
         kv_len = 129
-    if bad in ("dtype", "head_dim"):
+    if bad == "dtype":
         # the CPU path takes any type; the CUDA checks run before a launch
-        if bad == "dtype":
-            q, k, v = (t.to(torch.int32) for t in (q, k, v))
-            err = TypeError
-        else:  # above the largest kernel head_dim, 256
-            q, k, v = (torch.cat([t] * 9, -1) for t in (q, k, v))
-            err = ValueError
-        with pytest.raises(err):
+        q, k, v = (t.to(torch.int32) for t in (q, k, v))
+        with pytest.raises(TypeError):
             pt_fa._check_cuda("flash_fwd", (q, k, v))
+        return
+    if bad == "head_dim":
+        # a head_dim above 256 is no longer refused: the CUDA checks take
+        # 288 and 512 (the FMA kernels split over them)
+        for d in (288, 512):
+            wide = [torch.cat([t] * (d // 32), -1) for t in (q, k, v)]
+            pt_fa._check_cuda("flash_fwd", wide)
+            assert pt_fa.kernel_head_dim(d) == 512
         return
     with pytest.raises(ValueError):
         pt_fa.flash_fwd(q, k, v, True, 0.1, kv_len, 0)
@@ -294,11 +297,12 @@ def test_check_tma_takes_aligned_layouts_and_refuses_the_rest(layout):
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("d", [48, 80, 160, 256])
+@pytest.mark.parametrize("d", [48, 80, 160, 256, 288, 512])
 def test_padded_head_dim_matches_reference(d, causal):
-    """On the card a head_dim of 48, 80 or 160 runs at 64, 128 or 256: the
-    wrappers pad q, k, v and dO with zero columns and slice the results back
-    (``_pad_head_dim``; 256 is a kernel size and passes as it is). The same pad and slice around the plain versions
+    """On the card a head_dim of 48, 80, 160 or 288 runs at 64, 128, 256 or
+    512: the wrappers pad q, k, v and dO with zero columns and slice the
+    results back (``_pad_head_dim``; 256 and 512 are kernel sizes and pass
+    as they are). The same pad and slice around the plain versions
     matches the reference at the caller's head_dim, forward and
     gradients, at the fp32 tolerances above."""
     q, k, v = _qkv(11, (2, 256, d), (2, 256, d))
@@ -340,12 +344,15 @@ def test_pad_head_dim_is_exact_and_keeps_kernel_sizes():
     plain = pt_fa.flash_fwd_plain(q, k, v, *args)
     assert pt_fa.kernel_head_dim(80) == 128 and pt_fa.kernel_head_dim(1) == 32
     assert pt_fa.kernel_head_dim(160) == 256
+    assert pt_fa.kernel_head_dim(257) == 512
     np.testing.assert_allclose(padded[0].numpy(), plain[0].numpy(),
                                rtol=1e-6, atol=1e-6)
     q64 = q[..., :64].contiguous()
     assert pt_fa._pad_head_dim(lambda t: t, q64) is q64
-    with pytest.raises(ValueError, match="head_dim 288"):
-        pt_fa.kernel_head_dim(288)
+    # above 256 the kernels run at the next multiple of 256
+    assert pt_fa.kernel_head_dim(288) == 512
+    assert pt_fa.kernel_head_dim(512) == 512
+    assert pt_fa.kernel_head_dim(513) == 768
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
@@ -382,3 +389,69 @@ def test_fp16_plain_path_matches_reference(causal):
         assert got.dtype == torch.float16
         np.testing.assert_allclose(got.float().numpy(),
                                    np.asarray(ref).astype(np.float32), **fp16)
+
+
+@pytest.mark.parametrize("entry", ["mha_forward", "flash_attn_unpadded",
+                                   "flashmask_attention"])
+def test_head_dim_288_public_entries_match_reference(entry):
+    """A head_dim above 256, which the card runs on the FMA kernels split
+    over 512 columns: each public entry at head_dim 288 against the
+    reference's, forward and gradients, at the fp32 tolerances above."""
+    import paddle_tpu as paddle
+    import paddle_tpu.nn.functional as RF
+    import paddle_tpu_torch.nn.functional as F
+    d, rng = 288, np.random.RandomState(21)
+    if entry == "mha_forward":
+        shapes = [(2, 256, d)] * 4
+    elif entry == "flash_attn_unpadded":
+        shapes = [(60, 2, d)] * 4
+        cu = np.array([0, 25, 60], np.int32)
+    else:
+        shapes = [(1, 128, 2, d)] * 4
+        idx = rng.randint(40, 129, size=(1, 1, 128, 1)).astype(np.int32)
+    q, k, v, w = (rng.randn(*s).astype(np.float32) for s in shapes)
+
+    def ref_fn(q, k, v):
+        if entry == "mha_forward":
+            return ref_fa.mha_forward(q, k, v, causal=True, scale=0.06)
+        if entry == "flash_attn_unpadded":
+            c = paddle.to_tensor(cu)
+            return RF.flash_attn_unpadded(q, k, v, c, c, 35, 35, 0.06,
+                                          causal=True)[0]
+        return RF.flashmask_attention(q, k, v, paddle.to_tensor(idx),
+                                      causal=True)
+
+    def port_fn(q, k, v):
+        if entry == "mha_forward":
+            return pt_fa.mha_forward(q, k, v, causal=True, scale=0.06)
+        if entry == "flash_attn_unpadded":
+            c = torch.from_numpy(cu)
+            return F.flash_attn_unpadded(q, k, v, c, c, 35, 35, 0.06,
+                                         causal=True)[0]
+        return F.flashmask_attention(q, k, v, torch.from_numpy(idx),
+                                     causal=True)
+
+    if entry == "mha_forward":
+        def ref_loss(q, k, v):
+            out = ref_fn(q, k, v)
+            return jnp.sum(out * jnp.asarray(w)), out
+
+        (_, ref_out), ref_grads = jax.value_and_grad(
+            ref_loss, argnums=(0, 1, 2), has_aux=True)(
+                jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        ref_out = np.asarray(ref_out)
+        ref_grads = [np.asarray(g) for g in ref_grads]
+    else:
+        rq, rk, rv = (paddle.to_tensor(x, stop_gradient=False)
+                      for x in (q, k, v))
+        out_r = ref_fn(rq, rk, rv)
+        (out_r * paddle.to_tensor(w)).sum().backward()
+        ref_out = np.asarray(out_r.numpy())
+        ref_grads = [np.asarray(t.grad.numpy()) for t in (rq, rk, rv)]
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    out = port_fn(tq, tk, tv)
+    (out * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), ref_out, rtol=2e-5,
+                               atol=2e-5)
+    for t, ref in zip((tq, tk, tv), ref_grads):
+        np.testing.assert_allclose(t.grad.numpy(), ref, rtol=1e-4, atol=1e-4)
