@@ -44,8 +44,10 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    fp16, forward and backward (the FMA kernels at 256); head_dim 288 (run
    at 512) and 512 the same way (the FMA kernels split over 256-column
    chunks); 65600 fixed-length heads (more than the grid's 65535 on its y
-   axis) in bf16 and fp32; and rows that see no key under ``mha_forward``
-   (causal, sq > sk) against the CPU path.
+   axis) in bf16 and fp32; a bf16 varlen pack and a bf16 flashmask row of
+   65,537 query tiles (more than the grid's 65535 on its y axis: the
+   tiles then go on x), held document by document; and rows that see no
+   key under ``mha_forward`` (causal, sq > sk) against the CPU path.
    Phases 3 and 4 each run under a watchdog that exits non-zero if a
    kernel hangs;
 4. times each kernel, its plain version and, as a yardstick only,
@@ -102,7 +104,19 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    shapes, peak memory, and one profiled step's idle share and split by
    phase and by kernel group (convolution, layout transposes, BN
    statistics, pooling, elementwise and casts, optimizer);
-12. prints the head_dim 256 and 512 timings, the ``kernels`` JSON line,
+12. holds the op surface at full width: every case of
+   ``paddle_tpu_torch/testing/op_cases.py`` (every registered op) on the
+   card at ``FULL`` ([8, 1024, 1024]; batched products of two such;
+   decompositions at 1024 x 1024), in fp32 and, where the reference
+   takes it, bf16, forward and the gradient of sum(out * r), against the
+   port's CPU path on the same inputs at ``op_cases.limit`` (the special
+   functions' CPU side on the first 64 rows of the first batch row);
+   every output on the card; under ``torch.cuda.set_sync_debug_mode
+   ("error")`` only the data-dependent cases and ``LIBRARY_SYNCS`` may
+   synchronise; each forward timed (CUDA events, median of 10) beside
+   its byte bound, with the ten largest ratios; the random ops held by
+   their statistics on the card; prints its time;
+13. prints the head_dim 256 and 512 timings, the ``kernels`` JSON line,
    the card line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. It never falls back
@@ -989,6 +1003,101 @@ def many_heads_checks():
         hold_against_plain(MANY_HEADS, 70, 70, 32, dtype, True, seed=57)
 
 
+# more than 65535 query tiles of 64 rows in one head: the varlen and
+# flashmask bf16 kernels, which put the heads on the grid's x axis, put the
+# tiles there instead past MAX_GRID_Y (y holds at most 65535 blocks)
+LONG_TILES = 65535 + 2
+LONG_DOC = 4000  # the last document straddles tile 65535
+
+
+def _long_hold(label, got, want, abs_v_out):
+    """``got`` against ``want`` (dicts by output) with ``limit``; returns
+    the largest error / limit."""
+    worst = 0.0
+    for key in want:
+        lim = limit(torch.bfloat16, key, want[key], abs_v_out)
+        err, ratio = within(got[key], want[key], lim)
+        check(math.isfinite(ratio) and ratio <= 1.0,
+              f"{label} {key} at {ratio:.3g} of its limit (err {err:.3g})")
+        worst = max(worst, ratio)
+    return worst
+
+
+def many_tiles_checks():
+    """A bf16 varlen pack and a bf16 flashmask row of ``LONG_TILES * 64``
+    tokens (one head, head_dim 64, causal documents of ``LONG_DOC``
+    tokens; for flashmask each key's start row is its document's end),
+    forward, dK/dV and dQ. The first document, one in the middle and the
+    last (past tile 65535) are held against the plain versions one
+    document at a time, with ``limit``."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import flash_varlen as fv
+    t = LONG_TILES * 64
+    cu = list(range(0, t, LONG_DOC)) + [t]
+    gen = torch.Generator(device="cuda").manual_seed(58)
+    q, k, v, do = (torch.randn(t, 1, 64, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = 0.125
+    docs = (0, (len(cu) - 1) // 2, len(cu) - 2)
+    check((cu[-2] // 64) <= 65535 < (cu[-1] - 1) // 64,
+          "the last document does not straddle tile 65535")
+    cu_t = torch.tensor(cu, device="cuda", dtype=torch.int32)
+    plan = fv.varlen_plan(cu_t, cu_t, t, t, True)
+    out, lse = fv.varlen_fwd(q, k, v, plan, scale)
+    delta = fv.varlen_delta(do, out)
+    dk, dv = fv.varlen_bwd_dkv(q, k, v, do, lse, delta, plan, scale)
+    dq = fv.varlen_bwd_dq(q, k, v, do, lse, delta, plan, scale)
+    worst = 0.0
+    for i in docs:
+        a, b = cu[i], cu[i + 1]
+        n, sl = b - a, slice(a, b)
+        one = torch.tensor([0, n], device="cuda", dtype=torch.int32)
+        sub = fv.varlen_plan(one, one, n, n, True)
+        args = (q[sl], k[sl], v[sl])
+        p_out, p_lse = fv.varlen_fwd_plain(*args, sub, scale)
+        abs_v = fv.varlen_fwd_plain(q[sl], k[sl], v[sl].abs(), sub,
+                                    scale)[0]
+        bw = (do[sl], lse[:, sl], delta[:, sl], sub, scale)
+        p_dk, p_dv = fv.varlen_bwd_dkv_plain(*args, *bw)
+        p_dq = fv.varlen_bwd_dq_plain(*args, *bw)
+        worst = max(worst, _long_hold(
+            f"varlen {t} tokens, document {i} [{a}, {b})",
+            {"out": out[sl], "lse": lse[:, sl], "dq": dq[sl], "dk": dk[sl],
+             "dv": dv[sl]},
+            {"out": p_out, "lse": p_lse, "dq": p_dq, "dk": p_dk,
+             "dv": p_dv}, abs_v))
+    del out, lse, delta, dk, dv, dq, plan
+    q, k, v, do = (x.view(1, t, 64) for x in (q, k, v, do))
+    ends = torch.tensor(cu[1:], device="cuda", dtype=torch.int32)
+    start = ends.repeat_interleave(torch.diff(cu_t)).view(1, 1, t, 1)
+    plan = fv.flashmask_plan(start, 1, True)
+    out, lse = fv.flashmask_fwd(q, k, v, plan, scale)
+    delta = fa.attention_delta(do, out)
+    dk, dv = fv.flashmask_bwd_dkv(q, k, v, do, lse, delta, plan, scale)
+    dq = fv.flashmask_bwd_dq(q, k, v, do, lse, delta, plan, scale)
+    for i in docs:
+        a, b = cu[i], cu[i + 1]
+        n, sl = b - a, slice(a, b)
+        sub = fv.flashmask_plan(torch.full((1, 1, n, 1), n, device="cuda",
+                                           dtype=torch.int32), 1, True)
+        args = (q[:, sl], k[:, sl], v[:, sl])
+        p_out, p_lse = fv.flashmask_fwd_plain(*args, sub, scale)
+        abs_v = fv.flashmask_fwd_plain(q[:, sl], k[:, sl], v[:, sl].abs(),
+                                       sub, scale)[0]
+        bw = (do[:, sl], lse[:, sl], delta[:, sl], sub, scale)
+        p_dk, p_dv = fv.flashmask_bwd_dkv_plain(*args, *bw)
+        p_dq = fv.flashmask_bwd_dq_plain(*args, *bw)
+        worst = max(worst, _long_hold(
+            f"flashmask {t} rows, document {i} [{a}, {b})",
+            {"out": out[:, sl], "lse": lse[:, sl], "dq": dq[:, sl],
+             "dk": dk[:, sl], "dv": dv[:, sl]},
+            {"out": p_out, "lse": p_lse, "dq": p_dq, "dk": p_dk,
+             "dv": p_dv}, abs_v))
+    print(f"{LONG_TILES} query tiles ({t} tokens, bf16, varlen and "
+          f"flashmask, forward and backward): documents {docs} within "
+          f"the limit, worst at {worst:.3g} of it")
+
+
 def keyless_rows_check():
     """Causal sq > sk through ``mha_forward``: the rows that see no key
     get the reference's output (the mean of v over the key blocks the
@@ -1033,6 +1142,7 @@ def kernel_checks():
     head_dim_256_checks()
     head_dims_above_256_checks()
     many_heads_checks()
+    many_tiles_checks()
     keyless_rows_check()
     fused_errs, fused_results = fused_checks()
     errs.update(fused_errs)
@@ -2220,6 +2330,357 @@ def resnet_path(smi):
     return med_ms
 
 
+# ------------------------------------------------------------ phase 12
+
+# the CPU side of the special functions (Bessel, gamma and their
+# gradients; the incomplete gamma's first-argument gradient sums 400 series
+# terms) reads the first 64 rows of the first batch row: 65,536 elements
+OPS_ROWS = (slice(0, 1), slice(0, 64))
+OPS_ITERS = 10
+# cases whose torch calls read back on the host although their outputs'
+# shapes are fixed: torch.linalg's SVD, eigh, eig and the SVD-based norms,
+# rank, condition number, pseudo-inverse and least squares check
+# cuSOLVER's info on the host and have no check-free (_ex) form
+LIBRARY_SYNCS = frozenset({"svd", "svd_grad", "svd_recon", "pinv",
+                           "svd_norms", "eigh", "eigh_grad", "eigh_recon",
+                           "eig", "lstsq"})
+
+
+def cuda_median_ms(fn, iters: int = OPS_ITERS, warmup: int = 2) -> float:
+    """Median device time of ``fn`` over ``iters`` calls, each between
+    its own pair of CUDA events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _flat_out(out):
+    if isinstance(out, (list, tuple)):
+        return [o for x in out for o in _flat_out(x)]
+    return [out]
+
+
+def _op_inputs(oc, case, cache):
+    """The case's inputs at ``oc.FULL`` from ``np.random.RandomState``,
+    each (spec, position) made once."""
+    import zlib
+    arrays = []
+    for i, spec in enumerate(case.inputs):
+        key = (spec, i)
+        if key not in cache:
+            seed = zlib.crc32(repr(key).encode()) % (2 ** 31)
+            cache[key] = spec.make(np.random.RandomState(seed), oc.FULL)
+        arrays.append(cache[key])
+    return arrays
+
+
+def _side_run(paddle, case, arrays, dtype, device, rs, mode):
+    paddle.set_device(device)
+    grads = case.grad if dtype == "float32" or case.low_grad else ()
+    ts = [paddle.to_tensor(a, dtype=dtype if a.dtype == np.float32
+                           and dtype != "float32" else None,
+                           stop_gradient=i not in grads)
+          for i, a in enumerate(arrays)]
+    dev = ts[0]._t.device if ts else torch.device("cpu")
+    on_card = dev.type == "cuda"
+    gen = torch.Generator(device=dev).manual_seed(1000)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode(mode)
+    made_rs = []
+    try:
+        outs = _flat_out(case.fn(paddle, *ts))
+        if grads:
+            loss = None
+            for o in outs:
+                if o.dtype.name not in ("float32", "bfloat16", "float16",
+                                        "float64") or o.stop_gradient:
+                    continue
+                r = rs[len(made_rs)] if rs is not None else \
+                    torch.rand(o._t.shape, generator=gen,
+                               device=o._t.device) * 2 - 1
+                made_rs.append(r)
+                term = (o._t.float() * r).sum()
+                loss = term if loss is None else loss + term
+            if loss is not None:
+                loss.backward()
+    finally:
+        if on_card:
+            torch.cuda.set_sync_debug_mode("default")
+    g = [None if ts[i].grad is None else ts[i].grad._t for i in grads]
+    return [o._t.detach() for o in outs], g, made_rs
+
+
+def _side(paddle, case, arrays, dtype, device, rs=None, sync_ok=True):
+    """Runs ``case`` on ``device``: (outputs, gradients, the r of each
+    differentiated output, whether it synchronised with the host). On the
+    card the run is under ``torch.cuda.set_sync_debug_mode('error')``
+    unless the case may sync (a run that syncs is run again without it);
+    the r are drawn there and handed to the CPU side."""
+    if device != "cpu" and not sync_ok:
+        try:
+            return _side_run(paddle, case, arrays, dtype, device, rs,
+                             "error") + (False,)
+        except RuntimeError as e:
+            if "synchroniz" not in str(e):
+                raise
+        return _side_run(paddle, case, arrays, dtype, device, rs,
+                         "default") + (True,)
+    return _side_run(paddle, case, arrays, dtype, device, rs,
+                     "default") + (False,)
+
+
+def _op_compare(oc, what, got, want, family, terms, grad=False):
+    """(worst error / limit, problem or None) of one output (both on the
+    card, where the comparison is quick at full width)."""
+    if tuple(got.shape) != tuple(want.shape) or got.dtype != want.dtype:
+        return math.inf, (f"{what}: {tuple(got.shape)} {got.dtype} against "
+                          f"{tuple(want.shape)} {want.dtype}")
+    if not (got.is_floating_point() or got.is_complex()):
+        return 0.0, None if torch.equal(got, want) else f"{what}: differs"
+    if got.is_complex():
+        g, w = torch.view_as_real(got).double(), torch.view_as_real(
+            want).double()
+    else:
+        g, w = got.double(), want.double()
+    nan = torch.isnan(w)
+    if not torch.equal(torch.isnan(g), nan):
+        return math.inf, f"{what}: NaN positions differ"
+    inf = torch.isinf(w)
+    if not torch.equal(g[inf], w[inf]):
+        return math.inf, f"{what}: infinities differ"
+    ok = ~(nan | inf)
+    if not ok.any():
+        return 0.0, None
+    dt = {torch.bfloat16: "bfloat16", torch.float16: "float16",
+          torch.float64: "float64"}.get(got.dtype, "float32")
+    # one ulp of the larger of the two (they may straddle a binade)
+    lim = oc.limit(family, dt, torch.maximum(g[ok].abs(), w[ok].abs()),
+                   terms, grad)
+    ratio = float(((g[ok] - w[ok]).abs() / lim.clamp(min=1e-300)).max())
+    return ratio, None if ratio <= 1.0 else \
+        f"{what}: {ratio:.3g} of its limit"
+
+
+def _terms(case, arrays, out):
+    """The values each output element sums (the CPU tests' rule)."""
+    n_in = max((a.size for a in arrays), default=1)
+    if case.scan:
+        return n_in
+    ratio = max(1, n_in // max(1, out.numel()))
+    if case.family in ("matmul", "linalg") and arrays and arrays[0].ndim:
+        return max(ratio, arrays[0].shape[-1])  # the contraction length
+    return ratio
+
+
+def _nbytes(x):
+    return x.numel() * x.element_size()
+
+
+def random_checks(paddle, shape):
+    """The random ops on the card at full width, held by statistics of
+    their draws (moments at five standard errors; Kolmogorov-Smirnov
+    against the law on 200,000 of the draws, limit 0.01 where the 0.999
+    quantile is 0.0044); the same seed gives the same draw."""
+    from scipy import stats
+    shape = list(shape)
+    n = int(np.prod(shape))
+    out = []
+
+    def ks(x, cdf, what):
+        s = x._t.flatten()[:200_000].double().cpu().numpy()
+        d = stats.kstest(s, cdf).statistic
+        out.append((what, d))
+        check(d < 0.01, f"{what}: KS statistic {d:.4g}")
+        check(x._t.is_cuda, f"{what} not on the card")
+
+    def mean_near(x, mu, var, what):
+        m = float(x._t.double().mean())
+        out.append((what, m))
+        check(abs(m - mu) < 5 * math.sqrt(var / x._t.numel()),
+              f"{what}: mean {m} against {mu}")
+        check(x._t.is_cuda, f"{what} not on the card")
+
+    paddle.seed(5)
+    ks(paddle.rand(shape), stats.uniform(0, 1).cdf, "rand")
+    ks(paddle.uniform(shape, min=-2.0, max=3.0), stats.uniform(-2, 5).cdf,
+       "uniform")
+    ks(paddle.randn(shape), stats.norm().cdf, "randn")
+    ks(paddle.normal(1.5, 2.0, shape), stats.norm(1.5, 2.0).cdf, "normal")
+    ks(paddle.standard_gamma(paddle.full(shape, 2.5)), stats.gamma(2.5).cdf,
+       "standard_gamma")
+    ks(paddle.exponential_(paddle.zeros(shape), 2.0),
+       stats.expon(scale=0.5).cdf, "exponential_")
+    ri = paddle.randint(0, 10, shape)
+    counts = torch.bincount(ri._t.flatten(), minlength=10).cpu().numpy()
+    p = stats.chisquare(counts).pvalue
+    out.append(("randint chi-square p", p))
+    check(p > 1e-4, f"randint: chi-square p {p}")
+    perm = paddle.randperm(n)
+    check(torch.equal(torch.sort(perm._t).values,
+                      torch.arange(n, device="cuda")), "randperm")
+    mean_near(paddle.bernoulli(paddle.full(shape, 0.3)), 0.3, 0.21,
+              "bernoulli")
+    mean_near(paddle.poisson(paddle.full(shape, 4.0)), 4.0, 4.0, "poisson")
+    mean_near(paddle.binomial(paddle.full(shape, 10.0),
+                              paddle.full(shape, 0.25)), 2.5, 1.875,
+              "binomial")
+    d = paddle.dirichlet(paddle.full([n // 4, 4], 2.0))
+    mean_near(d[:, 0], 0.25, 0.25 * 0.75 / 9, "dirichlet")
+    mn = paddle.multinomial(paddle.to_tensor(np.array(
+        [0.1, 0.2, 0.7], np.float32)), 100_000, replacement=True)
+    freq = torch.bincount(mn._t, minlength=3).double() / 100_000
+    check(float((freq - torch.tensor([0.1, 0.2, 0.7], device="cuda",
+                                     dtype=torch.float64)).abs().max())
+          < 0.01, f"multinomial frequencies {freq.tolist()}")
+    x = paddle.ones(shape)
+    f = paddle.fused_dropout_add(x, paddle.zeros(shape), p=0.25)
+    mean_near((f != 0).astype("float32"), 0.75, 0.1875, "fused_dropout_add")
+    dr = paddle.nn.functional.dropout(x, 0.4)
+    mean_near((dr != 0).astype("float32"), 0.6, 0.24, "dropout")
+    g = paddle.ops.parity.gumbel_softmax(paddle.zeros([n // 4, 4]))
+    check(bool(((g.sum(-1) - 1).abs() < 1e-6).all()), "gumbel_softmax sums")
+    rr = paddle.ops.parity.random_routing(
+        paddle.ones([n // 2, 2]).astype("int64"), paddle.zeros([n // 2, 2]),
+        paddle.full([n // 2, 2], 0.4))
+    mean_near((rr != -1).astype("float32"), 0.4, 0.24, "random_routing")
+    probs = paddle.to_tensor(np.tile(np.array(
+        [[0.5, 0.3, 0.15, 0.05]], np.float32), (100_000, 1)))
+    _, ids = paddle.top_p_sampling(probs, paddle.full([100_000], 0.7))
+    check(bool((ids < 2).all()), "top_p_sampling left its nucleus")
+    mean_near((ids == 0).astype("float32"), 0.625, 0.234, "top_p_sampling")
+    for make in (lambda: paddle.rand([4096]), lambda: paddle.randn([4096]),
+                 lambda: paddle.randint(0, 100, [4096])):
+        paddle.seed(11)
+        a = make()._t.clone()
+        paddle.seed(11)
+        b = make()._t
+        check(torch.equal(a, b), "the same seed gave another draw")
+    print("random ops on the card: " + ", ".join(
+        f"{w} {v:.4g}" for w, v in out))
+
+
+def op_surface_path(smi):
+    """Phase 12: every case of ``paddle_tpu_torch/testing/op_cases.py``
+    (every registered op of the op surface) at full width: the eager
+    gpt2-medium's activation shape [8, 1024, 1024] for the elementwise,
+    reduction, cumulative, manipulation, search, sort and indexing ops,
+    [8, 1024, 1024] @ [8, 1024, 1024] for the batched products, 1024 x 1024
+    for the decompositions and solves. Each runs on the card in fp32 and,
+    where the reference takes bf16, in bf16, forward and the gradient of
+    sum(out * r), and on the port's CPU path on the same inputs; outputs
+    and gradients are held to ``op_cases.limit`` (the CPU tests' limits,
+    the reductions' growing with the reduced length). Every output must
+    lie on the card, and under ``set_sync_debug_mode('error')`` only the
+    data-dependent cases (and ``LIBRARY_SYNCS``) may synchronise. Each
+    forward is timed (CUDA events, median of 10) beside its byte bound.
+    The random ops are held by their statistics on the card."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.testing import op_cases as oc
+    phase("12 the op surface at full width")
+    t0 = time.perf_counter()
+    cache, rows, misses, synced = {}, [], [], []
+    n_runs = 0
+    spent = {"inputs": 0.0, "card": 0.0, "cpu": 0.0, "compare": 0.0,
+             "timing": 0.0}
+    for case in oc.CASES:
+        tick = time.perf_counter()
+        arrays = _op_inputs(oc, case, cache)
+        spent["inputs"] += time.perf_counter() - tick
+        for dtype in ["float32"] + (["bfloat16"] if case.low else []):
+            label = f"{case.name} {dtype}"
+            sync_ok = case.sync or case.name in LIBRARY_SYNCS
+            tick = time.perf_counter()
+            try:
+                outs, grads, rs, did_sync = _side(
+                    paddle, case, arrays, dtype, "gpu", sync_ok=sync_ok)
+            except Exception as e:  # noqa: BLE001 (every miss is listed)
+                misses.append(f"{label}: card run raised {e!r:.200}")
+                continue
+            if did_sync:
+                synced.append(label)
+                misses.append(f"{label}: synchronised with the host")
+            for k, o in enumerate(outs):
+                if not o.is_cuda:
+                    misses.append(f"{label}: output {k} not on the card")
+            spent["card"] += time.perf_counter() - tick
+            tick = time.perf_counter()
+            cpu_arrays = [a[OPS_ROWS] for a in arrays] if case.rows \
+                else arrays
+            cut = (lambda t: t[OPS_ROWS]) if case.rows else (lambda t: t)
+            try:
+                c_outs, c_grads, _, _ = _side(
+                    paddle, case, cpu_arrays, dtype, "cpu",
+                    rs=[cut(r).cpu() for r in rs])
+            except Exception as e:  # noqa: BLE001
+                misses.append(f"{label}: CPU run raised {e!r:.200}")
+                continue
+            spent["cpu"] += time.perf_counter() - tick
+            tick = time.perf_counter()
+            worst = 0.0
+            for k, (g, w) in enumerate(zip(outs, c_outs)):
+                ratio, bad = _op_compare(oc, f"{label} out {k}", cut(g),
+                                         w.cuda(), case.family,
+                                         _terms(case, cpu_arrays, w))
+                worst = max(worst, ratio)
+                if bad:
+                    misses.append(bad)
+            for i, g, w in zip(case.grad, grads, c_grads):
+                if (g is None) != (w is None):
+                    misses.append(f"{label} grad {i}: present on one side")
+                elif g is not None:
+                    ratio, bad = _op_compare(
+                        oc, f"{label} grad {i}", cut(g), w.cuda(),
+                        case.family, _terms(case, cpu_arrays, w), grad=True)
+                    worst = max(worst, ratio)
+                    if bad:
+                        misses.append(bad)
+            spent["compare"] += time.perf_counter() - tick
+            tick = time.perf_counter()
+            paddle.set_device("gpu")
+            ts = [paddle.to_tensor(a, dtype=dtype if a.dtype == np.float32
+                                   and dtype != "float32" else None)
+                  for a in arrays]
+            with torch.no_grad():
+                ms = cuda_median_ms(lambda: case.fn(paddle, *ts))
+            nbytes = sum(_nbytes(t._t) for t in ts) + sum(
+                _nbytes(o) for o in outs)
+            bound = nbytes / PEAK_BYTES * 1e3
+            spent["timing"] += time.perf_counter() - tick
+            rows.append((label, ms, bound, worst))
+            print(f"op {label}: {ms:.4f} ms, byte bound {bound:.4f} ms "
+                  f"({ms / bound:.1f}x), worst {worst:.3g} of its limit"
+                  + (" (synchronised: data-dependent)" if sync_ok else ""),
+                  flush=True)
+            n_runs += 1
+            del outs, grads, c_outs, c_grads, ts
+        torch.cuda.empty_cache()
+    top = sorted(rows, key=lambda r: r[1] / r[2], reverse=True)[:10]
+    print("largest time/bound ratios: " + "; ".join(
+        f"{lab} {ms:.4f}/{b:.4f} ms = {ms / b:.1f}x"
+        for lab, ms, b, _ in top))
+    for m in misses:
+        print(f"miss: {m}")
+    print("op surface wall time by part: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in spent.items()))
+    random_checks(paddle, oc.FULL.x)
+    dt = time.perf_counter() - t0
+    print(f"op surface: {n_runs} runs of {len(oc.CASES)} cases, "
+          f"{len(synced)} unexpected syncs, {len(misses)} misses, "
+          f"{dt:.1f} s on {smi}", flush=True)
+    check(not misses, f"{len(misses)} op-surface misses (listed above)")
+    return dt
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2253,7 +2714,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     with watchdog("phase 11 (resnet path)", 400):
         resnet_path(smi)
-    phase("12 results")
+    torch.cuda.empty_cache()
+    with watchdog("phase 12 (op surface)", 600):
+        op_surface_path(smi)
+    phase("13 results")
     for hd, (d_ms, d_plain, d_lib, d_bnd) in ((256, d256), (512, d512)):
         for kname in d_ms:
             lib = d_lib[kname]

@@ -6,16 +6,19 @@ written by hand for Hopper (``sm_90a``), built from ``csrc/`` at first use.
 This package never imports JAX or ``paddle_tpu``.
 
 ``import paddle_tpu_torch as paddle`` gives the eager (dygraph) API:
-``Tensor``, ``to_tensor``, the ops, ``nn``, ``optimizer``, ``amp``, ``io``
-and ``vision``.
+``Tensor``, ``to_tensor``, the ops (registered by name in
+``_core/op_registry.py`` against the schema ``ops/yaml/ops.yaml``),
+``linalg``, ``nn``, ``optimizer``, ``amp``, ``io`` and ``vision``.
 Tensors are created on the card unless ``set_device('cpu')`` was called;
 with no card and no ``set_device('cpu')`` creation raises (see
 :func:`resolve_device`). Nothing imported here needs a card or ``nvcc``.
 """
 from ._core.autograd import (enable_grad, grad, is_grad_enabled,  # noqa: F401
                              no_grad, set_grad_enabled)
-from ._core.device import (CPUPlace, CUDAPlace, get_device,  # noqa: F401
-                           resolve_device, set_device)
+from ._core.device import (CPUPlace, CUDAPlace, device_count,  # noqa: F401
+                           get_device, in_dynamic_mode,
+                           is_compiled_with_cuda, is_compiled_with_tpu,
+                           is_compiled_with_xpu, resolve_device, set_device)
 from ._core.dtype import (DType, bfloat16, bool_, complex64,  # noqa: F401
                           complex128, float16, float32, float64, int8, int16,
                           int32, int64, uint8)
@@ -23,6 +26,15 @@ from ._core.random import get_seed, seed  # noqa: F401
 from ._core.tensor import Tensor, to_tensor  # noqa: F401
 from .ops import *  # noqa: F401,F403
 from . import amp, io, nn, optimizer, vision  # noqa: F401,E402
+# "from . import linalg" would find the ops.linalg module that the star
+# import above bound to this name
+import importlib as _importlib  # noqa: E402
+linalg = _importlib.import_module(".linalg", __name__)
+from ._core.op_registry import call as apply, register_op  # noqa: F401,E402
 from .nn.layer import create_parameter  # noqa: F401,E402
+from .ops import _helper as _ops_helper  # noqa: E402
+
+_ops_helper.attach_tensor_methods()  # with the activations nn registered
+is_grad_enabled_ = is_grad_enabled
 
 bool = bool_  # paddle.bool

@@ -102,3 +102,24 @@ def to_device(place) -> torch.device:
         return resolve_device("cpu" if isinstance(place, CPUPlace)
                               else f"cuda:{place.device_id}")
     return resolve_device(place)
+
+
+def device_count() -> int:
+    """The number of CUDA cards (0 without one)."""
+    return torch.cuda.device_count()
+
+
+def is_compiled_with_cuda() -> bool:
+    return True  # the port's kernels are CUDA
+
+
+def is_compiled_with_tpu() -> bool:
+    return False
+
+
+def is_compiled_with_xpu() -> bool:
+    return False
+
+
+def in_dynamic_mode() -> bool:
+    return True  # the port has no static mode

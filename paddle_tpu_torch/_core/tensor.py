@@ -58,6 +58,10 @@ class Tensor:
         return place_of(self._t.device)
 
     @property
+    def rank(self) -> int:
+        return self._t.dim()
+
+    @property
     def is_leaf(self) -> bool:
         return self._t.grad_fn is None
 
@@ -99,6 +103,13 @@ class Tensor:
     def detach(self) -> "Tensor":
         return Tensor(self._t.detach(), name=self.name)
 
+    def detach_(self) -> "Tensor":
+        """Cut from the graph in place (``stop_gradient`` set)."""
+        self._t = self._t.detach()
+        return self
+
+    clear_gradient = clear_grad
+
     # ------------------------------------------------------------ transfer
     def numpy(self) -> np.ndarray:
         t = self._t.detach().cpu()
@@ -125,6 +136,35 @@ class Tensor:
                              f"vs {tuple(self._t.shape)}")
         with torch.no_grad():
             self._t.copy_(src)
+        return self
+
+    def copy_(self, other) -> "Tensor":
+        return self.set_value(other)
+
+    def get_tensor(self) -> "Tensor":
+        return self
+
+    def to(self, *args, **kwargs) -> "Tensor":
+        """``.to(dtype)`` casts, ``.to(device)`` (``'cpu'``, ``'gpu'``,
+        ``'gpu:N'``, a place) moves; the first argument that reads as a
+        dtype wins, as in the reference."""
+        for a in list(args) + list(kwargs.values()):
+            try:
+                d = dtypes.to_dtype(a)
+            except (TypeError, KeyError):
+                d = None
+            if d is not None:
+                return Tensor(self._t.to(d.torch_dtype),
+                              stop_gradient=self.stop_gradient)
+        for a in list(args) + list(kwargs.values()):
+            if isinstance(a, (str, torch.device)) or hasattr(a, "device_type"):
+                return Tensor(self._t.to(to_device(a)),
+                              stop_gradient=self.stop_gradient)
+        return self
+
+    def block_until_ready(self) -> "Tensor":
+        if self._t.is_cuda:
+            torch.cuda.current_stream(self._t.device).synchronize()
         return self
 
     # ------------------------------------------------------------ misc

@@ -412,9 +412,11 @@ cudaError_t dq_hopper(const void* q, const void* k, const void* v, const void* d
   const int nqt = (lay.sq + BQ - 1) / BQ;
   // as the forward's grid (fwd_hopper): one head's tiles side by side for
   // the fixed-length mask, the heads side by side for the others
-  const int tiles_x = std::is_same<Mask, CausalMask>::value;
+  // More than MAX_GRID_Y tiles go on x whatever the mask (x holds 2^31 - 1
+  // blocks; by_head_slices keeps the heads on y within MAX_GRID_Y).
+  const int tiles_x = std::is_same<Mask, CausalMask>::value || nqt > MAX_GRID_Y;
   const dim3 grid = tiles_x ? dim3(nqt, heads) : dim3(heads, nqt);
-  if (grid.y > 65535 || heads < 1 || nqt < 1) return cudaErrorInvalidValue;
+  if (heads < 1 || heads > MAX_GRID_Y || nqt < 1) return cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv, mdo;
   int err = hop_map<D>(&mq, q, lay.sq, heads, lay.q_rs, lay.q_hs, packed);
   if (!err) err = hop_map<D>(&mdo, dout, lay.sq, heads, lay.q_rs, lay.q_hs, packed);

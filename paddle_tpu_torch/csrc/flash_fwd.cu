@@ -476,9 +476,11 @@ cudaError_t fwd_hopper(const void* q, const void* k, const void* v, void* o, voi
   // varlen and flashmask tiles, whose work varies from tile to tile, run
   // the heads side by side (x = heads), so every head's longest tiles start
   // in the first wave.
-  const int tiles_x = std::is_same<Mask, CausalMask>::value;
+  // More than MAX_GRID_Y tiles go on x whatever the mask (x holds 2^31 - 1
+  // blocks; by_head_slices keeps the heads on y within MAX_GRID_Y).
+  const int tiles_x = std::is_same<Mask, CausalMask>::value || nqt > MAX_GRID_Y;
   const dim3 grid = tiles_x ? dim3(nqt, heads) : dim3(heads, nqt);
-  if (grid.y > 65535 || heads < 1 || nqt < 1) return cudaErrorInvalidValue;
+  if (heads < 1 || heads > MAX_GRID_Y || nqt < 1) return cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
   int err = hop_map<D>(&mq, q, lay.sq, heads, lay.q_rs, lay.q_hs, packed);
   if (!err) err = hop_map<D>(&mk, k, lay.sk, heads, lay.k_rs, lay.k_hs, packed);

@@ -3,7 +3,8 @@ pooling, normalisation, linear, dropout, activations, embedding and
 losses."""
 from .activation import (elu, gelu, hardsigmoid, hardswish,  # noqa: F401
                          leaky_relu, log_softmax, mish, relu, relu6, sigmoid,
-                         silu, softmax, softplus, swish, tanh)
+                         silu, softmax, softplus, softsign, swish,
+                         tanh, tanhshrink)
 from .attention import scaled_dot_product_attention  # noqa: F401
 from .common import dropout, linear  # noqa: F401
 from .conv import conv1d, conv2d, conv2d_transpose  # noqa: F401

@@ -1,42 +1,40 @@
 """Activations: the counterpart of
 ``paddle_tpu/nn/functional/activation.py`` (its op names, so that AMP's
 lists apply as there: ``log_softmax`` and ``softmax`` are on the black
-list, the rest on neither)."""
+list, the rest on neither). The one-input activations are registered ops
+(``def_unary``) and ``Tensor`` methods, as the reference's are."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as tF
 
 from ..._core.dispatch import apply
+from ..._core.op_registry import register_op
+from ...ops._helper import def_unary
 from ...ops.manipulation import cast
 
 
+@register_op("gelu")
+def _gelu(x, approximate):
+    return tF.gelu(x, approximate="tanh" if approximate else "none")
+
+
 def gelu(x, approximate=False, name=None):
-    mode = "tanh" if approximate else "none"
-    return apply("gelu", lambda t: tF.gelu(t, approximate=mode), x)
+    return apply("gelu", _gelu, x, approximate=bool(approximate))
 
 
-def relu(x, name=None):
-    return apply("relu", torch.relu, x)
-
-
-def relu6(x, name=None):
-    return apply("relu6", lambda t: torch.clamp(t, 0.0, 6.0), x)
-
-
-def sigmoid(x, name=None):
-    return apply("sigmoid_f", torch.sigmoid, x)
+relu = def_unary("relu", torch.relu)
+relu6 = def_unary("relu6", lambda t: torch.clamp(t, 0.0, 6.0))
+sigmoid = def_unary("sigmoid_f", torch.sigmoid)
+_tanh = def_unary("tanh_f", torch.tanh)
+silu = def_unary("silu", tF.silu)
+swish = silu
+softsign = def_unary("softsign", tF.softsign)
+tanhshrink = def_unary("tanhshrink", lambda t: t - torch.tanh(t))
 
 
 def tanh(x, name=None):
-    return apply("tanh_f", torch.tanh, x)
-
-
-def silu(x, name=None):
-    return apply("silu", tF.silu, x)
-
-
-swish = silu
+    return _tanh(x)
 
 
 def leaky_relu(x, negative_slope=0.01, name=None):
@@ -48,13 +46,9 @@ def elu(x, alpha=1.0, name=None):
     return apply("elu", tF.elu, x, alpha=float(alpha))
 
 
-def hardswish(x, name=None):
-    return apply("hardswish", tF.hardswish, x)
-
-
-def hardsigmoid(x, name=None):
-    return apply("hardsigmoid",
-                 lambda t: torch.clamp(t / 6.0 + 0.5, 0.0, 1.0), x)
+hardswish = def_unary("hardswish", tF.hardswish)
+hardsigmoid = def_unary("hardsigmoid",
+                        lambda t: torch.clamp(t / 6.0 + 0.5, 0.0, 1.0))
 
 
 def softplus(x, beta=1.0, threshold=20.0, name=None):
@@ -62,14 +56,18 @@ def softplus(x, beta=1.0, threshold=20.0, name=None):
                  threshold=float(threshold))
 
 
-def mish(x, name=None):
-    return apply("mish", tF.mish, x)
+mish = def_unary("mish", tF.mish)
+
+
+@register_op("softmax")
+def _softmax(x, axis):
+    return torch.softmax(x, axis)
 
 
 def softmax(x, axis=-1, dtype=None, name=None):
     if dtype is not None:
         x = cast(x, dtype)
-    return apply("softmax", lambda t: torch.softmax(t, int(axis)), x)
+    return apply("softmax", _softmax, x, axis=int(axis))
 
 
 def log_softmax(x, axis=-1, dtype=None, name=None):

@@ -6,9 +6,11 @@ import torch
 
 from ..._core import random as rnd
 from ..._core.dispatch import apply
+from ..._core.op_registry import register_op
 from ...ops.linalg import promote
 
 
+@register_op("linear")
 def _linear(x, w, b):
     x, w = promote(x, w)
     out = torch.matmul(x, w)  # weight [in, out], as paddle lays it out
@@ -21,6 +23,7 @@ def linear(x, weight, bias=None, name=None):
     return apply("linear", _linear, x, weight, bias)
 
 
+@register_op("dropout_k")
 def _dropout(x, p, axis, mode):
     shape = list(x.shape)
     if axis is not None:  # the mask broadcasts along the other axes

@@ -4,8 +4,10 @@ from __future__ import annotations
 import torch.nn.functional as tF
 
 from ..._core.dispatch import apply
+from ..._core.op_registry import register_op
 
 
+@register_op("embedding")
 def _embedding(w, ids, padding_idx):
     out = tF.embedding(ids, w)
     if padding_idx >= 0:  # as the reference: the row reads as 0

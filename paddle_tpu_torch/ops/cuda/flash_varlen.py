@@ -48,6 +48,15 @@ key gets output 0 and lse 0. :func:`flashmask_plan` turns ``startend`` into
 int32 start and end rows and, per 64-column key tile, the largest start and
 smallest end, with O(B*H*Sk) work: a kernel skips a key tile that bans its
 whole query tile, and no ``[S, S]`` mask is built on the kernel path.
+
+Sizes: any number of tiles runs. The bf16 kernels put the heads on the
+grid's x axis and the tiles on y, and past 65535 tiles (4,194,240 rows)
+the tiles on x (at most 2^31 - 1) and the heads on y; the C entries launch
+the heads in slices of at most 65535 either way. What a launch refuses
+(``RuntimeError`` naming the CUDA error) is only what cannot be launched
+at all: a tensor map the driver will not encode (a row stride that is not
+a multiple of 16 bytes after the wrappers' copies, or a dimension past
+2^32), or no memory for the launch.
 """
 from __future__ import annotations
 

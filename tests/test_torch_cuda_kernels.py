@@ -646,6 +646,78 @@ def test_more_than_65535_heads_match_plain(cuda, mask, dtype):
             (key, err.max().item())
 
 
+# more than 65535 query tiles of 64 rows in one head: the varlen and
+# flashmask bf16 kernels put the tiles on the grid's x axis past 65535 (y
+# holds at most 65535 blocks). One head, head_dim 64, causal documents of
+# 4000 tokens (flashmask: each key's start row is its document's end); the
+# last document straddles tile 65535. The first, a middle and the last
+# document are held against the plain versions one at a time.
+LONG_TOKENS = (65535 + 2) * 64
+LONG_DOC = 4000
+
+
+@pytest.mark.parametrize("mask", ["varlen", "flashmask"])
+def test_more_than_65535_query_tiles_match_plain(cuda, mask):
+    t, scale = LONG_TOKENS, 0.125
+    cu = list(range(0, t, LONG_DOC)) + [t]
+    assert cu[-2] // 64 <= 65535 < (t - 1) // 64
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v, do = (torch.randn(t, 1, 64, generator=gen, device=cuda)
+                   .to(torch.bfloat16) for _ in range(4))
+    cu_t = torch.tensor(cu, device=cuda, dtype=torch.int32)
+    if mask == "varlen":
+        plan = fv.varlen_plan(cu_t, cu_t, t, t, True)
+        fwd, dkv, dq_fn = fv.varlen_fwd, fv.varlen_bwd_dkv, fv.varlen_bwd_dq
+        plain = (fv.varlen_fwd_plain, fv.varlen_bwd_dkv_plain,
+                 fv.varlen_bwd_dq_plain)
+        delta_of = fv.varlen_delta
+
+        def doc(x, a, b):
+            return x[a:b] if x.shape[0] == t else x[:, a:b]
+
+        def doc_plan(n):
+            one = torch.tensor([0, n], device=cuda, dtype=torch.int32)
+            return fv.varlen_plan(one, one, n, n, True)
+    else:
+        q, k, v, do = (x.view(1, t, 64) for x in (q, k, v, do))
+        start = cu_t[1:].repeat_interleave(torch.diff(cu_t))
+        plan = fv.flashmask_plan(start.view(1, 1, t, 1), 1, True)
+        fwd, dkv, dq_fn = (fv.flashmask_fwd, fv.flashmask_bwd_dkv,
+                           fv.flashmask_bwd_dq)
+        plain = (fv.flashmask_fwd_plain, fv.flashmask_bwd_dkv_plain,
+                 fv.flashmask_bwd_dq_plain)
+        delta_of = fa.attention_delta
+
+        def doc(x, a, b):
+            return x[:, a:b]
+
+        def doc_plan(n):
+            return fv.flashmask_plan(torch.full(
+                (1, 1, n, 1), n, device=cuda, dtype=torch.int32), 1, True)
+    out, lse = fwd(q, k, v, plan, scale)
+    delta = delta_of(do, out)
+    dk, dv = dkv(q, k, v, do, lse, delta, plan, scale)
+    dq = dq_fn(q, k, v, do, lse, delta, plan, scale)
+    torch.cuda.synchronize()
+    for i in (0, (len(cu) - 1) // 2, len(cu) - 2):
+        a, b = cu[i], cu[i + 1]
+        sub = doc_plan(b - a)
+        qs, ks, vs, dos = (doc(x, a, b) for x in (q, k, v, do))
+        p_out, p_lse = plain[0](qs, ks, vs, sub, scale)
+        abs_v_out = plain[0](qs, ks, vs.abs(), sub, scale)[0]
+        bw = (dos, doc(lse, a, b), doc(delta, a, b), sub, scale)
+        p_dk, p_dv = plain[1](qs, ks, vs, *bw)
+        p_dq = plain[2](qs, ks, vs, *bw)
+        for key, got, want in (("out", doc(out, a, b), p_out),
+                               ("lse", doc(lse, a, b), p_lse),
+                               ("dq", doc(dq, a, b), p_dq),
+                               ("dk", doc(dk, a, b), p_dk),
+                               ("dv", doc(dv, a, b), p_dv)):
+            err = (got.float() - want.float()).abs()
+            lim = _limit(torch.bfloat16, key, want, abs_v_out, 64)
+            assert bool((err <= lim).all()), (i, key, err.max().item())
+
+
 # ------------------------------------------------------------ rms / swiglu
 
 _MANTISSA = {torch.bfloat16: 7, torch.float16: 10}
