@@ -11,11 +11,12 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    an fp32/fp16 FMA kernel) and the RMSNorm and SwiGLU kernels from the
    four sources of ``paddle_tpu_torch/csrc`` (``nvcc``, ``sm_90a``, one
    process per source, all at once), printing build seconds and ptxas's
-   register and shared-memory lines (a spill in a tensor-core kernel at
-   head_dim 64 fails the run), and counting the ``HGMMA`` (tensor-core
-   product, split by product) and ``UTMALDG`` (TMA load) instructions in
-   the SASS of each bf16 forward, dQ and dK/dV instantiation
-   (``cuobjdump``);
+   register and shared-memory lines (a spill in any bf16 forward
+   instantiation, head_dim 256 and its SPLIT form included, or in a bf16
+   backward one at head_dim 64 fails the run), and counting the ``HGMMA``
+   (tensor-core product, split by product) and ``UTMALDG`` (TMA load)
+   instructions in the SASS of each bf16 forward, dQ and dK/dV
+   instantiation (``cuobjdump``; ``HOPPER_INSTANTIATIONS`` of each);
 3. holds each kernel against its plain PyTorch version: the fixed-length
    ones at the training shape (``[8, 16, 1024, 64]`` bf16, causal) and at
    a cross shape (sq 128, sk 256, causal, head_dim 32, fp32); the varlen
@@ -41,13 +42,17 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    edge shapes (fp32 and fp16, 37 rows, rows of 1000 and 1003, a float32
    weight or gate beside bf16 x, the split form with unaligned halves).
    head_dim 256 and 160 (run at 256) for the three masks in fp32, bf16 and
-   fp16, forward and backward (the FMA kernels at 256); head_dim 288 (run
-   at 512) and 512 the same way (the FMA kernels split over 256-column
-   chunks); 65600 fixed-length heads (more than the grid's 65535 on its y
-   axis) in bf16 and fp32; a bf16 varlen pack and a bf16 flashmask row of
-   65,537 query tiles (more than the grid's 65535 on its y axis: the
-   tiles then go on x), held document by document; and rows that see no
-   key under ``mha_forward`` (causal, sq > sk) against the CPU path.
+   fp16, forward and backward (the bf16 forward on the tensor cores, two
+   warpgroups a block; the rest on the FMA kernels at 256, the backward
+   reading the bf16 forward's lse and out); head_dim 288 (run at 512) and
+   512 the same way (each 256 form split over 256-column chunks); the
+   bf16 forward's edge shapes at head_dim 256 and 512 and a misaligned
+   bf16 base at 256; 65600 fixed-length heads (more than the grid's 65535
+   on its y axis) in bf16 and fp32; a bf16 varlen pack and a bf16
+   flashmask row of 65,537 query tiles (more than the grid's 65535 on its
+   y axis: the tiles then go on x), forward and backward at head_dim 64
+   and the forward at 256, held document by document; and rows that see
+   no key under ``mha_forward`` (causal, sq > sk) against the CPU path.
    Phases 3 and 4 each run under a watchdog that exits non-zero if a
    kernel hangs;
 4. times each kernel, its plain version and, as a yardstick only,
@@ -55,8 +60,16 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    varlen and flashmask kernels with the dense bool mask) and
    ``torch.nn.functional.rms_norm``, beside the least time the card could
    take for the same work; then the three masks' kernels again at
-   head_dim 256 and at 512 (16 heads, bf16, the same tokens), with the
-   FMA kernels' shared memory per block;
+   head_dim 256 and at 512 (16 heads, bf16, the same tokens; the forward
+   on the tensor cores, the backward on the FMA kernels), with each
+   kernel's shared memory per block; then #1-#3 with fp16 io at the path
+   shape (the FMA kernels) beside SDPA's fp16 forward;
+4b. drives ``nn.functional.flash_attention`` at ``[8, 1024, 16, 256]``
+   bf16 causal (Gemma-7B's heads at gpt2-medium's tokens), forward and
+   backward: one launch of each fixed-length kernel, out and gradients
+   against the plain versions with ``limit``, a ``torch.profiler`` pass
+   that finds ``flash_fwd_hopper`` and no ``flash_fwd_kernel``, and its
+   times;
 5. checks the training step on a small GPT against the port's CPU path
    (the path the CPU tests hold against the JAX package), then drives the
    main path: gpt2-medium at full width (24 layers, hidden 1024), batch 8,
@@ -116,8 +129,8 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    synchronise; each forward timed (CUDA events, median of 10) beside
    its byte bound, with the ten largest ratios; the random ops held by
    their statistics on the card; prints its time;
-13. prints the head_dim 256 and 512 timings, the ``kernels`` JSON line,
-   the card line, and last ``{"ok": true, "device": {...}}``.
+13. prints the head_dim 256 and 512 and fp16 timings, the ``kernels``
+   JSON line, the card line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. It never falls back
 to the CPU or to a plain version: with no CUDA device it exits 1 before
@@ -301,18 +314,19 @@ def build():
           f"FMA kernel, each in a fixed-length, a varlen and a flashmask "
           f"instantiation, the fused one RMSNorm and SwiGLU)")
     check(set(infos) == set(_build.SOURCES), f"built {sorted(infos)}")
-    for name in HOPPER_KERNELS:
-        for entry, stores, loads in hopper_spills(infos[name].ptxas):
-            check(stores == 0 and loads == 0, f"ptxas spills {stores} / "
-                  f"{loads} bytes in {entry} (head_dim 64)")
+    for lib in HOPPER_KERNELS:
+        if infos[lib].ptxas:
+            check_spills(lib, infos[lib].ptxas)
+        else:  # built by an earlier process: ptxas said nothing this time
+            print(f"{lib}: cached library, no ptxas lines to read")
     sass_counts(infos)
 
 
-def hopper_spills(ptxas):
-    """(entry, spill store bytes, spill load bytes) of each bf16
-    tensor-core instantiation at head_dim 64 (the main path's) in
-    ptxas's ``-v`` lines: each entry's "Compiling entry" line comes
-    before its spill line."""
+def hopper_spills(ptxas, kernel, head_dim=None):
+    """(entry, spill store bytes, spill load bytes) of each instantiation
+    of ``kernel`` (of those at ``head_dim`` only, when given) in ptxas's
+    ``-v`` lines: each entry's "Compiling entry" line comes before its
+    spill line."""
     out, entry = [], None
     for line in ptxas:
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -321,12 +335,39 @@ def hopper_spills(ptxas):
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
-        if m and entry and "_hopperILi64E" in entry:
+        if m and entry and kernel in entry and (
+                head_dim is None or f"ILi{head_dim}E" in entry):
             out.append((entry, int(m.group(1)), int(m.group(2))))
             entry = None
     return out
 
 
+def check_spills(lib, ptxas):
+    """Fails unless every bf16 tensor-core instantiation of ``lib`` that
+    ``SPILL_FREE`` names (each forward one; the backward ones at the main
+    path's head_dim 64, one per mask) has a spill line, and it says 0
+    bytes stored and loaded."""
+    kernel, head_dim = HOPPER_KERNELS[lib][0], SPILL_FREE[lib]
+    found = hopper_spills(ptxas, kernel, head_dim)
+    want = HOPPER_INSTANTIATIONS[lib] if head_dim is None else len(MASKS)
+    check(len(found) == want, f"{len(found)} {kernel} spill lines in ptxas's "
+          f"output, want {want}")
+    for entry, stores, loads in found:
+        check(stores == 0 and loads == 0, f"ptxas spills {stores} / {loads} "
+              f"bytes in {entry}")
+
+
+# the three masks every flash kernel is instantiated with
+MASKS = ("CausalMask", "SegmentMask", "StartEndMask")
+# bf16 tensor-core instantiations per library: the forward at head_dim 32,
+# 64, 128 and 256 and the SPLIT form (256-column chunks of a wider
+# head_dim), the backward at 32, 64 and 128; each for the three masks
+HOPPER_INSTANTIATIONS = {"flash_fwd": 15, "flash_bwd_dq": 9,
+                         "flash_bwd_dkv": 9}
+# the head_dim whose instantiations must not spill (None: every one)
+SPILL_FREE = {"flash_fwd": None, "flash_bwd_dq": 64, "flash_bwd_dkv": 64}
+# P V at head_dim 256: one m64n256k16 or two m64n128k16 a 16-key step
+WIDE_PV_SHAPES = ("64x256x16", "64x128x16")
 # per library: the bf16 tensor-core kernel's name, and what its HGMMA
 # products from descriptors alone and with the transpose bit (.tnspB: the
 # A operand from registers, B MN-major) compute
@@ -339,35 +380,65 @@ HOPPER_KERNELS = {
 }
 
 
+def sass_split(sass, kernel):
+    """Per instantiation of ``kernel`` in a ``cuobjdump -sass`` text: its
+    name, the ``HGMMA`` products from descriptors alone and those with the
+    transpose bit (.tnspB: A from registers, B MN-major), the ``UTMALDG``
+    TMA loads, and the product shapes of each kind."""
+    out = []
+    for f in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = f.split("\n", 1)[0].strip()
+        if kernel not in name:
+            continue
+        mma = re.findall(r"HGMMA\.(\d+x\d+x\d+)\S* ([^;]*);", f)
+        regs = [shape for shape, ops in mma if "tnspB" in ops]
+        desc = [shape for shape, ops in mma if "tnspB" not in ops]
+        out.append({"name": name, "desc": len(desc), "regs": len(regs),
+                    "tma": f.count("UTMALDG"),
+                    "desc_shapes": sorted(set(desc)),
+                    "regs_shapes": sorted(set(regs))})
+    return out
+
+
+def check_sass(lib, sass):
+    """Fails unless the SASS holds every bf16 tensor-core instantiation of
+    ``lib`` (``HOPPER_INSTANTIATIONS``), each with products of both kinds
+    and TMA loads, and the head_dim-256 forms' P V at a shape of
+    ``WIDE_PV_SHAPES``; prints each instantiation's counts."""
+    kernel, from_desc, from_regs = HOPPER_KERNELS[lib]
+    found = sass_split(sass, kernel)
+    want = HOPPER_INSTANTIATIONS[lib]
+    check(len(found) == want, f"{len(found)} {kernel} instantiations in the "
+          f"SASS, want {want}")
+    for f in found:
+        print(f"  SASS {f['name']}: HGMMA {f['desc'] + f['regs']} "
+              f"({f['desc']} for {from_desc}: {', '.join(f['desc_shapes'])}; "
+              f"{f['regs']} for {from_regs}: {', '.join(f['regs_shapes'])}), "
+              f"UTMALDG {f['tma']}")
+        check(f["desc"] > 0 and f["regs"] > 0 and f["tma"] > 0,
+              f"{f['name']}: HGMMA {f['desc']} + {f['regs']}, UTMALDG "
+              f"{f['tma']}")
+        if "ILi256E" in f["name"]:
+            check(any(s in f["regs_shapes"] for s in WIDE_PV_SHAPES),
+                  f"{f['name']}: P V shapes {f['regs_shapes']}, want one of "
+                  f"{WIDE_PV_SHAPES}")
+
+
 def sass_counts(infos):
     """Counts the tensor-core products (``HGMMA``, split by product) and
     TMA tile loads (``UTMALDG``) in the SASS of each bf16 instantiation
-    (forward, dQ, dK/dV) of the built libraries; each must have both. The
+    (forward, dQ, dK/dV) of the built libraries (``check_sass``). The
     toolkit's ``cuobjdump`` reads the SASS; without it the count is
     skipped and said so."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         print("cuobjdump not found: SASS counts skipped")
         return
-    for lib, (kernel, from_desc, from_regs) in HOPPER_KERNELS.items():
+    for lib in HOPPER_KERNELS:
         sass = subprocess.run([tool, "-sass", str(infos[lib].path)],
                               capture_output=True, text=True, check=True,
                               timeout=120).stdout
-        funcs = re.split(r"\n\s*Function : ", sass)[1:]
-        hopper = [f for f in funcs if kernel in f.split("\n", 1)[0]]
-        check(len(hopper) == 9, f"{len(hopper)} {kernel} instantiations in "
-              f"the SASS, want 9 (3 masks x 3 head_dims)")
-        for f in hopper:
-            name = f.split("\n", 1)[0].strip()
-            mma = re.findall(r"HGMMA\.(\d+x\d+x\d+)\S* ([^;]*);", f)
-            n_regs = sum("tnspB" in ops for _, ops in mma)
-            n_desc, n_tma = len(mma) - n_regs, f.count("UTMALDG")
-            shapes = sorted(set(shape for shape, _ in mma))
-            print(f"  SASS {name}: HGMMA {len(mma)} ({n_desc} for "
-                  f"{from_desc}, {n_regs} for {from_regs}; "
-                  f"{', '.join(shapes)}), UTMALDG {n_tma}")
-            check(n_desc > 0 and n_regs > 0 and n_tma > 0, f"{name}: HGMMA "
-                  f"{n_desc} + {n_regs}, UTMALDG {n_tma}")
+        check_sass(lib, sass)
 
 
 def _inputs(bh, sq, sk, d, dtype, seed):
@@ -816,13 +887,24 @@ def hold_backward(label, got, want, unseen=None, blind=None):
               f"at {label}")
 
 
+# head_dims of the bf16 tensor-core kernels' edge checks: forward and
+# backward at 32, 64 and 128; the forward alone at 256 and at 512 (the
+# head_dim-256 form and its SPLIT form; the backward there is the FMA
+# kernels', held by head_dim_256_checks and head_dims_above_256_checks)
+BF16_EDGE_DIMS = (32, 64, 128, 256, 512)
+
+
 def bf16_edges():
     """The bf16 tensor-core kernels (forward, dK/dV, dQ; fixed-length,
-    varlen, flashmask) at their edge shapes, at head_dim 32, 64 and 128,
-    against the plain versions."""
+    varlen, flashmask) at their edge shapes, at each of
+    ``BF16_EDGE_DIMS`` (the backward up to 128), against the plain
+    versions: rows that see no key give out of exactly 0, a fully banned
+    flashmask tile is skipped, documents shorter than a tile, kv_len
+    cutting a key tile."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import flash_varlen as fv
-    for d in (32, 64, 128):
+    for d in BF16_EDGE_DIMS:
+        backward = d <= 128
         scale = 1.0 / math.sqrt(d)
         for bh, sq, sk, kv_len, causal in BF16_FWD_EDGE:
             q, k, v, do = _inputs(bh, sq, sk, d, torch.bfloat16, seed=20)
@@ -836,6 +918,8 @@ def bf16_edges():
             label = (f"edge bh {bh} sq {sq} sk {sk} kv_len {kv_len} d {d} "
                      f"bf16 causal {causal}")
             hold_forward(label, got, want, abs_v, blind)
+            if not backward:
+                continue
             lse, delta = got[1], fa.attention_delta(do, got[0])
             bwd = (q, k, v, do, lse, delta, *args)
             unseen = torch.zeros(bh, sk, dtype=torch.bool, device="cuda")
@@ -855,6 +939,8 @@ def bf16_edges():
             hold_forward(label, got, want, abs_v)
             check(torch.equal(got[0][0], v[0]), "a one-token segment's "
                   "output is not its own v")
+            if not backward:
+                continue
             bwd = (q, k, v, do, got[1], fv.varlen_delta(do, got[0]), plan,
                    scale)
             dq, dk, dv = fv.varlen_bwd_dq(*bwd), *fv.varlen_bwd_dkv(*bwd)
@@ -880,6 +966,8 @@ def bf16_edges():
             label = (f"edge flashmask one open key tile s {s} d {d} bf16 "
                      f"causal {causal}")
             hold_forward(label, got, want, abs_v, ~mask.any(-1))
+            if not backward:
+                continue
             bwd = (q, k, v, do, got[1], fa.attention_delta(do, got[0]), plan,
                    scale)
             hold_backward(label, (fv.flashmask_bwd_dq(*bwd),
@@ -899,13 +987,14 @@ def _misaligned(t):
     return view
 
 
-def misaligned_checks():
+def misaligned_checks(d=64):
     """bf16 inputs whose base is not 16-byte aligned (TMA refuses it) reach
     the same kernels as fresh aligned copies: forward, dK/dV and dQ of the
-    three masks give, bit for bit, what they give on aligned inputs."""
+    three masks give, bit for bit, what they give on aligned inputs, at
+    head_dim ``d``."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import flash_varlen as fv
-    q, k, v, do = _inputs(2, 256, 256, 64, torch.bfloat16, seed=40)
+    q, k, v, do = _inputs(2, 256, 256, d, torch.bfloat16, seed=40)
     args = (True, 0.125, 256, 0)
     cu = torch.tensor([0, 100, 300, 512], device="cuda").int()
     vplan = fv.varlen_plan(cu, cu, 512, 512, True)
@@ -920,7 +1009,7 @@ def misaligned_checks():
         "varlen": (lambda *t: fv.varlen_fwd(*t, vplan, 0.125),
                    lambda *t: fv.varlen_bwd_dkv(*t, vplan, 0.125),
                    lambda *t: fv.varlen_bwd_dq(*t, vplan, 0.125),
-                   fv.varlen_delta, lambda t: t.reshape(512, 1, 64)),
+                   fv.varlen_delta, lambda t: t.reshape(512, 1, d)),
         "flashmask": (lambda *t: fv.flashmask_fwd(*t, fplan, 0.125),
                       lambda *t: fv.flashmask_bwd_dkv(*t, fplan, 0.125),
                       lambda *t: fv.flashmask_bwd_dq(*t, fplan, 0.125),
@@ -938,8 +1027,8 @@ def misaligned_checks():
         for key, a, b in zip(("out", "lse", "dq", "dk", "dv"), *results):
             check(torch.equal(a, b), f"{name} {key} on a misaligned base "
                   f"differs from the aligned run (max {_err(a, b):.3g})")
-        print(f"misaligned bf16 base, {name}: out, lse, dq, dk, dv equal to "
-              f"the aligned run, bit for bit")
+        print(f"misaligned bf16 base, {name}, d {d}: out, lse, dq, dk, dv "
+              f"equal to the aligned run, bit for bit")
 
 
 def repairs():
@@ -956,15 +1045,18 @@ def repairs():
         hold_flashmask_against_plain(
             2, 200, 136, 4, d, dtype, causal,
             _fm_edge_startend(2, 4, 200, 136, seed=7), seed=34)
-    misaligned_checks()
+    misaligned_checks(64)
+    misaligned_checks(256)
 
 
 def head_dim_256_checks():
     """head_dim 256 and 160 (run at 256 with zero columns), fp32, bf16 and
-    fp16 (all on the FMA kernels at 256, whose backward works on 32-row
-    halves of its 64-row tiles), the three masks, forward and backward,
-    against the plain versions with ``limit``; the fixed-length mask at
-    sq > sk causal (rows that see no key) and sq < sk."""
+    fp16 (the bf16 forward on the tensor cores, two warpgroups a block;
+    the rest on the FMA kernels at 256, whose backward works on 32-row
+    halves of its 64-row tiles and reads the bf16 forward's lse and out),
+    the three masks, forward and backward, against the plain versions with
+    ``limit``; the fixed-length mask at sq > sk causal (rows that see no
+    key) and sq < sk."""
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for d, causal, (sq, sk) in ((256, True, (200, 136)),
                                     (160, False, (136, 200))):
@@ -977,8 +1069,9 @@ def head_dim_256_checks():
 
 def head_dims_above_256_checks():
     """head_dim 288 (run at 512 with zero columns) and 512, fp32, bf16 and
-    fp16 (the FMA kernels split over two 256-column chunks), the three
-    masks, forward and backward, against the plain versions with
+    fp16 (each kernel's 256 form split over two 256-column chunks: the
+    bf16 forward on the tensor cores, the rest on the FMA kernels), the
+    three masks, forward and backward, against the plain versions with
     ``limit``; the fixed-length mask at sq > sk causal and sq < sk."""
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for d, causal, (sq, sk) in ((288, True, (200, 136)),
@@ -1096,6 +1189,61 @@ def many_tiles_checks():
     print(f"{LONG_TILES} query tiles ({t} tokens, bf16, varlen and "
           f"flashmask, forward and backward): documents {docs} within "
           f"the limit, worst at {worst:.3g} of it")
+    del q, k, v, do, out, lse, delta, dk, dv, dq, plan
+    torch.cuda.empty_cache()
+    many_tiles_d256_forward(cu, docs)
+
+
+def many_tiles_d256_forward(cu, docs):
+    """The bf16 varlen and flashmask forwards at head_dim 256 (the
+    two-warpgroup form, 128 query rows a block) over the same ``LONG_TILES
+    * 64`` tokens of one head, held document by document against the plain
+    versions with ``limit``."""
+    from paddle_tpu_torch.ops.cuda import flash_varlen as fv
+    t, d = cu[-1], 256
+    gen = torch.Generator(device="cuda").manual_seed(59)
+    q, k, v = (torch.randn(t, 1, d, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    scale = 1.0 / math.sqrt(d)
+    cu_t = torch.tensor(cu, device="cuda", dtype=torch.int32)
+    worst = 0.0
+    plan = fv.varlen_plan(cu_t, cu_t, t, t, True)
+    out, lse = fv.varlen_fwd(q, k, v, plan, scale)
+    for i in docs:
+        a, b = cu[i], cu[i + 1]
+        sl = slice(a, b)
+        one = torch.tensor([0, b - a], device="cuda", dtype=torch.int32)
+        sub = fv.varlen_plan(one, one, b - a, b - a, True)
+        p_out, p_lse = fv.varlen_fwd_plain(q[sl], k[sl], v[sl], sub, scale)
+        abs_v = fv.varlen_fwd_plain(q[sl], k[sl], v[sl].abs(), sub,
+                                    scale)[0]
+        worst = max(worst, _long_hold(
+            f"varlen {t} tokens d {d}, document {i} [{a}, {b})",
+            {"out": out[sl], "lse": lse[:, sl]},
+            {"out": p_out, "lse": p_lse}, abs_v))
+    del out, lse, plan
+    q, k, v = (x.view(1, t, d) for x in (q, k, v))
+    ends = torch.tensor(cu[1:], device="cuda", dtype=torch.int32)
+    start = ends.repeat_interleave(torch.diff(cu_t)).view(1, 1, t, 1)
+    plan = fv.flashmask_plan(start, 1, True)
+    out, lse = fv.flashmask_fwd(q, k, v, plan, scale)
+    for i in docs:
+        a, b = cu[i], cu[i + 1]
+        sl = slice(a, b)
+        sub = fv.flashmask_plan(torch.full((1, 1, b - a, 1), b - a,
+                                           device="cuda", dtype=torch.int32),
+                                1, True)
+        p_out, p_lse = fv.flashmask_fwd_plain(q[:, sl], k[:, sl], v[:, sl],
+                                              sub, scale)
+        abs_v = fv.flashmask_fwd_plain(q[:, sl], k[:, sl], v[:, sl].abs(),
+                                       sub, scale)[0]
+        worst = max(worst, _long_hold(
+            f"flashmask {t} rows d {d}, document {i} [{a}, {b})",
+            {"out": out[:, sl], "lse": lse[:, sl]},
+            {"out": p_out, "lse": p_lse}, abs_v))
+    print(f"{LONG_TILES} query tiles ({t} tokens, bf16, head_dim {d}, "
+          f"varlen and flashmask forward): documents {docs} within the "
+          f"limit, worst at {worst:.3g} of it")
 
 
 def keyless_rows_check():
@@ -1404,15 +1552,16 @@ def fused_timings():
     return ms, plain_ms, library_ms, bnd
 
 
-def fixed_timings(b, h, s, d, seed):
-    """The fixed-length kernels at a causal [b * h, s, d] bf16 shape: each
-    kernel's and its plain version's ms, the library's (SDPA forward; its
-    backward computes dq, dk and dv in one call, so it stands beside no
-    single backward kernel) and the bounds."""
+def fixed_timings(b, h, s, d, seed, dtype=torch.bfloat16):
+    """The fixed-length kernels at a causal [b * h, s, d] shape in
+    ``dtype`` (bf16 or fp16): each kernel's and its plain version's ms,
+    the library's (SDPA forward; its backward computes dq, dk and dv in
+    one call, so it stands beside no single backward kernel and is
+    printed apart) and the bounds."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     bh = b * h
-    q, k, v, do = _inputs(bh, s, s, d, torch.bfloat16, seed=seed)
+    q, k, v, do = _inputs(bh, s, s, d, dtype, seed=seed)
     args = (True, 1.0 / math.sqrt(d), s, 0)
     out, lse = fa.flash_fwd(q, k, v, *args)
     delta = fa.attention_delta(do, out)
@@ -1441,8 +1590,8 @@ def fixed_timings(b, h, s, d, seed):
     library_ms = {"flash_fwd": lib_fwd, "flash_bwd_dkv": None,
                   "flash_bwd_dq": None}
     bnd = bounds(bh, s, d, 2)
-    print(f"fixed-length: batch {b} x {h} heads, seq {s}, d {d}, bf16, "
-          f"causal")
+    print(f"fixed-length: batch {b} x {h} heads, seq {s}, d {d}, "
+          f"{str(dtype).replace('torch.', '')}, causal")
     for name in library_ms:
         b_ms, b_by, flops, nbytes = bnd[name]
         print(f"{name}: {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms, "
@@ -1459,12 +1608,15 @@ def fixed_timings(b, h, s, d, seed):
 # the head_dim 256 timings: a Gemma-7B-like attention (16 heads of 256) in
 # place of gpt2-medium's 16 x 64, over the same tokens per mask
 D256_HEADS = 16
-# the FMA kernels' shared memory at head_dim 256, as their launchers size
-# it (flash_common.cuh: 64-row tiles of D + 1 floats, score tiles of 65;
-# the backward in 32-row passes): Q, K, V tiles and P; dQ: 32 rows of Q and
-# dO, 64 of K and V, 32 x 65 dS, 32 lse and delta; dK/dV: 32 rows of K and
-# V, 64 of Q and dO, 64 x 33 P and dS, 64 lse and delta
-D256_SMEM = {"flash_fwd": 4 * (3 * 64 * 257 + 64 * 65),
+# shared memory a block at head_dim 256, as the launchers size it. The
+# bf16 forward (flash_fwd.cu WideSmem): seven 64 x 256 bf16 tiles, 1024
+# bytes of alignment, 15 mbarriers. The FMA kernels (flash_common.cuh:
+# 64-row tiles of D + 1 floats, score tiles of 65; the backward in 32-row
+# passes): the forward's Q, K, V tiles and P (fp32 and fp16 io); dQ: 32
+# rows of Q and dO, 64 of K and V, 32 x 65 dS, 32 lse and delta; dK/dV: 32
+# rows of K and V, 64 of Q and dO, 64 x 33 P and dS, 64 lse and delta
+D256_SMEM = {"flash_fwd bf16": 1024 + 7 * 64 * 256 * 2 + 8 * 15,
+             "flash_fwd fp32/fp16": 4 * (3 * 64 * 257 + 64 * 65),
              "flash_bwd_dq": 4 * (2 * 32 * 257 + 2 * 64 * 257 + 32 * 65
                                   + 2 * 32),
              "flash_bwd_dkv": 4 * (2 * 32 * 257 + 2 * 64 * 257 + 2 * 64 * 33
@@ -1472,11 +1624,14 @@ D256_SMEM = {"flash_fwd": 4 * (3 * 64 * 257 + 64 * 65),
 
 
 def d256_timings():
-    """The three masks' kernels at head_dim 256, bf16 (the FMA kernels),
-    beside their bounds, plain versions and the library's forward."""
-    print(f"head_dim 256 (the FMA kernels at every io type), shared memory "
-          f"per block: " + ", ".join(f"{k} {v} B" for k, v in
-                                     D256_SMEM.items()) + " of 232448")
+    """The three masks' kernels at head_dim 256, bf16 (the forward on the
+    tensor cores, two warpgroups a block; the backward on the FMA
+    kernels), beside their bounds, plain versions and the library's
+    forward."""
+    print(f"head_dim 256 (bf16: the forward on the tensor cores, the "
+          f"backward on the FMA kernels), shared memory per block: " +
+          ", ".join(f"{k} {v} B" for k, v in D256_SMEM.items()) +
+          " of 232448")
     results = [fixed_timings(BATCH, D256_HEADS, SEQ, 256, seed=60),
                varlen_timings(D256_HEADS, 256, seed=61),
                flashmask_timings(D256_HEADS, 256, seed=62)]
@@ -1485,16 +1640,106 @@ def d256_timings():
 
 
 def d512_timings():
-    """The three masks' kernels at head_dim 512, bf16 (the FMA kernels at
-    256 split over two chunks: the same shared memory a block as at 256),
-    beside their bounds, plain versions and the library's forward."""
-    print("head_dim 512 (the FMA kernels split over two 256-column "
-          "chunks, one block per chunk; shared memory per block as at 256)")
+    """The three masks' kernels at head_dim 512, bf16 (each kernel's 256
+    form split over two 256-column chunks, one block per chunk: the
+    forward on the tensor cores with Q's two chunks resident, the backward
+    on the FMA kernels), beside their bounds, plain versions and the
+    library's forward."""
+    print("head_dim 512 (bf16: each kernel's 256 form split over two "
+          "256-column chunks, one block per chunk; the forward on the "
+          "tensor cores, the backward on the FMA kernels; shared memory "
+          "per block as at 256)")
     results = [fixed_timings(BATCH, D256_HEADS, SEQ, 512, seed=63),
                varlen_timings(D256_HEADS, 512, seed=64),
                flashmask_timings(D256_HEADS, 512, seed=65)]
     return tuple({k: v for r in results for k, v in r[i].items()}
                  for i in range(4))
+
+
+def fp16_timings():
+    """#1-#3 with fp16 io at the path shape (``[8, 16, 1024, 64]``,
+    causal; the FMA kernels, fp16 having no tensor-core instantiation
+    yet), beside their bounds, plain versions and SDPA's fp16 forward."""
+    print("fp16 io at the path shape (the FMA kernels)")
+    return fixed_timings(BATCH, HEADS, SEQ, HEAD_DIM, seed=66,
+                         dtype=torch.float16)
+
+
+# the public-entry run at head_dim 256: [batch, seq, heads, head_dim] of
+# Gemma-7B's attention (16 heads of 256) at gpt2-medium's tokens
+D256_ENTRY = (BATCH, SEQ, D256_HEADS, 256)
+
+
+def d256_entry_path():
+    """Drives ``nn.functional.flash_attention`` at ``D256_ENTRY``, bf16,
+    causal, forward and backward, as a user calls it: checks one launch of
+    each fixed-length kernel, holds out, dq, dk and dv against the plain
+    versions with ``limit`` (the plain backward from the kernel's own lse,
+    as in phase 3), shows under ``torch.profiler`` that the forward ran
+    ``flash_fwd_hopper`` and no ``flash_fwd_kernel``, and times the
+    forward and forward + backward."""
+    import paddle_tpu_torch.nn.functional as PF
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from torch.profiler import ProfilerActivity, profile
+    phase("4b head_dim 256 through the public entry")
+    b, s, h, d = D256_ENTRY
+    gen = torch.Generator(device="cuda").manual_seed(67)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+    fa.reset_launches()
+    out, _ = PF.flash_attention(ql, kl, vl, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    print(f"flash_attention [{b}, {s}, {h}, {d}] bf16 causal, forward and "
+          f"backward: launches {launches}")
+    check(launches == {"flash_fwd": 1, "flash_bwd_dkv": 1,
+                       "flash_bwd_dq": 1}, f"entry launches {launches}")
+
+    def heads(t):
+        return t.transpose(1, 2).reshape(b * h, s, d)
+
+    q3, k3, v3, do3 = (heads(t) for t in (q, k, v, do))
+    args = (True, 1.0 / math.sqrt(d), s, 0)
+    out3, lse = fa.flash_fwd(q3, k3, v3, *args)
+    check(torch.equal(out3, heads(out.detach())), "the entry's out differs "
+          "from the forward kernel's")
+    p_out, p_lse = fa.flash_fwd_plain(q3, k3, v3, *args)
+    abs_v = fa.flash_fwd_plain(q3, k3, v3.abs(), *args)[0]
+    delta = fa.attention_delta(do3, out3)
+    p_dk, p_dv = fa.flash_bwd_dkv_plain(q3, k3, v3, do3, lse, delta, *args)
+    p_dq = fa.flash_bwd_dq_plain(q3, k3, v3, do3, lse, delta, *args)
+    pairs = {"out": (out3, p_out), "lse": (lse, p_lse),
+             "dq": (heads(ql.grad), p_dq), "dk": (heads(kl.grad), p_dk),
+             "dv": (heads(vl.grad), p_dv)}
+    ratios = {}
+    for key, (got, want) in pairs.items():
+        err, ratios[key] = within(got, want,
+                                  limit(torch.bfloat16, key, want, abs_v, d))
+        check(bool(torch.isfinite(got.float()).all()), f"entry {key} "
+              f"non-finite")
+        check(math.isfinite(ratios[key]) and ratios[key] <= 1.0,
+              f"entry {key} at {ratios[key]:.3g} of its limit")
+    print("entry against the plain versions, of the limit: " + " ".join(
+        f"{k} {r:.3g}" for k, r in ratios.items()))
+    del p_out, p_lse, abs_v, p_dk, p_dv, p_dq, pairs
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        PF.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages() if "flash" in e.key})
+    print(f"profiled forward, kernels: {names}")
+    check(any("flash_fwd_hopper" in n for n in names)
+          and not any("flash_fwd_kernel" in n for n in names),
+          f"the entry's forward ran {names}, want flash_fwd_hopper alone")
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: PF.flash_attention(q, k, v, causal=True),
+                         10)
+    step_ms = cuda_ms(lambda: PF.flash_attention(
+        ql, kl, vl, causal=True)[0].backward(do), 5)
+    print(f"flash_attention [{b}, {s}, {h}, {d}] bf16 causal: forward "
+          f"{fwd_ms:.4f} ms, forward + backward {step_ms:.4f} ms")
+    return launches
 
 
 def timings():
@@ -2696,6 +2941,10 @@ def main() -> int:
         d256 = d256_timings()
     with watchdog("phase 4 (head_dim 512 timings)", 300):
         d512 = d512_timings()
+    with watchdog("phase 4 (fp16 timings)", 300):
+        fp16 = fp16_timings()
+    with watchdog("phase 4b (head_dim 256 public entry)", 300):
+        d256_entry_path()
     torch.cuda.empty_cache()
     launches, compiled_ms = main_path()
     torch.cuda.empty_cache()
@@ -2718,12 +2967,15 @@ def main() -> int:
     with watchdog("phase 12 (op surface)", 600):
         op_surface_path(smi)
     phase("13 results")
-    for hd, (d_ms, d_plain, d_lib, d_bnd) in ((256, d256), (512, d512)):
+    for label, (d_ms, d_plain, d_lib, d_bnd) in (
+            ("head_dim 256", d256), ("head_dim 512", d512),
+            ("fp16 head_dim 64", fp16)):
         for kname in d_ms:
             lib = d_lib[kname]
-            print(f"head_dim {hd} {kname}: {d_ms[kname]:.4f} ms, plain "
+            print(f"{label} {kname}: {d_ms[kname]:.4f} ms, plain "
                   f"{d_plain[kname]:.4f} ms, bound {d_bnd[kname][0]:.4f} ms "
-                  f"({d_bnd[kname][1]}), library "
+                  f"({d_bnd[kname][1]}), {d_bnd[kname][0] / d_ms[kname]:.1%} "
+                  f"of bound, library "
                   f"{'none' if lib is None else f'{lib:.4f} ms'}")
     rows = []
     for kname, (source, replaces) in KERNELS.items():

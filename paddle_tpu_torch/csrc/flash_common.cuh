@@ -12,9 +12,10 @@
 // as a 16 x 16 grid (tx = tid % 16, ty = tid / 16); a thread owns rows
 // {ty + 16 i} and columns {tx + 16 j} of each 64-row tile, so the 16 threads
 // that share a row sit in one half-warp and reduce a row with four xor
-// shuffles. At head_dim 256 (the FMA kernels at every io type) the
-// backward holds its block's own 64-row tile as two 32-row passes, so that
-// its fp32 tiles fit shared memory (DqFma, DkvFma).
+// shuffles. At head_dim 256 (the FMA backward at every io type, the FMA
+// forward for float and fp16 io) the backward holds its block's own 64-row
+// tile as two 32-row passes, so that its fp32 tiles fit shared memory
+// (DqFma, DkvFma).
 //
 // What a kernel may see is a Mask policy (CausalMask, SegmentMask,
 // StartEndMask below): which key a query row sees, which tiles a tile
@@ -327,7 +328,7 @@ inline Layout packed_layout(int tq, int tk, int h, int d) {
   }
 
 // Instantiates `body` for every io type T: float, bf16 or fp16 (the FMA
-// kernels at head_dim 256 and above, which have no tensor-core
+// backward kernels at head_dim 256 and above, which have no tensor-core
 // instantiation yet); anything else is refused.
 #define PT_FLASH_SWITCH_IO(io, ...)                          \
   switch (io) {                                              \
@@ -350,7 +351,8 @@ inline Layout packed_layout(int tq, int tk, int h, int d) {
 //
 // Pieces shared by the bf16 kernels (`flash_fwd_hopper`,
 // `flash_bwd_dq_hopper`, `flash_bwd_dkv_hopper`): 64-row bf16 tiles loaded
-// by TMA and read with `wgmma` by one warpgroup of consumers.
+// by TMA and read with `wgmma` by warpgroups of consumers (one, or two in
+// the forward at head_dim 256).
 
 constexpr int HOP_CONSUMERS = 128;  // one warpgroup
 constexpr float LOG2E = 1.4426950408889634f;
@@ -394,16 +396,19 @@ __device__ __forceinline__ void wgmma_rs_d(float (&acc)[D / 2], const uint32_t (
   if constexpr (D == 32) pt_hopper::wgmma_rs_n32(acc, a, db);
   if constexpr (D == 64) pt_hopper::wgmma_rs_n64(acc, a, db);
   if constexpr (D == 128) pt_hopper::wgmma_rs_n128(acc, a, db);
+  if constexpr (D == 256) pt_hopper::wgmma_rs_n256(acc, a, db);
 }
 
-// D = A B^T over D: the D / 16 products of one 64 x 64 tile, both operands
-// K-major tiles; started, not committed or waited.
+// D = A B^T over D (D += A B^T with `add`): the D / 16 products of one
+// 64 x 64 tile, both operands K-major tiles; started, not committed or
+// waited.
 template <int D>
-__device__ __forceinline__ void wgmma_nt(float (&d)[32], uint32_t a_addr, uint32_t b_addr) {
+__device__ __forceinline__ void wgmma_nt(float (&d)[32], uint32_t a_addr, uint32_t b_addr,
+                                         bool add = false) {
 #pragma unroll
   for (int k = 0; k < D / 16; ++k)
     pt_hopper::wgmma_ss_n64(d, HopTile<D>::k_major(a_addr, k), HopTile<D>::k_major(b_addr, k),
-                            k > 0);
+                            add || k > 0);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -420,18 +425,19 @@ __device__ __forceinline__ void pack_bf16_split(float x, float y, uint32_t& hi, 
   lo = pack_bf16(x - __low2float(h), y - __high2float(h));
 }
 
-// Loads the BOXES boxes of one 64-row tile starting at `row` of head `h`;
-// packed [T, H, D] maps are (D, H, T), fixed [BH, S, D] ones (D, S, BH).
+// Loads the BOXES boxes of one 64-row tile starting at `row` of head `h`
+// and at column `col` (a D-column chunk of a wider row); packed [T, H, D]
+// maps are (D, H, T), fixed [BH, S, D] ones (D, S, BH).
 template <int D>
 __device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int row, int h, int packed) {
+                                         int row, int h, int packed, int col = 0) {
   using Tile = HopTile<D>;
 #pragma unroll
   for (int b = 0; b < Tile::BOXES; ++b) {
     if (packed)
-      pt_hopper::tma_load_3d(dst + b * Tile::BOX_BYTES, map, bar, b * Tile::W, h, row);
+      pt_hopper::tma_load_3d(dst + b * Tile::BOX_BYTES, map, bar, col + b * Tile::W, h, row);
     else
-      pt_hopper::tma_load_3d(dst + b * Tile::BOX_BYTES, map, bar, b * Tile::W, row, h);
+      pt_hopper::tma_load_3d(dst + b * Tile::BOX_BYTES, map, bar, col + b * Tile::W, row, h);
   }
 }
 
@@ -444,14 +450,15 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-// The tensor map of a q-like ([rows, D] per head) bf16 tensor: packed
-// [rows, heads, D] as (D, heads, rows), fixed [heads, rows, D] as
-// (D, rows, heads), with 64-row boxes of HopTile<D>::W columns.
+// The tensor map of a q-like ([rows, cols] per head, cols = D unless the
+// kernel reads a wider row in D-column chunks) bf16 tensor: packed
+// [rows, heads, cols] as (cols, heads, rows), fixed [heads, rows, cols] as
+// (cols, rows, heads), with 64-row boxes of HopTile<D>::W columns.
 template <int D>
 int hop_map(CUtensorMap* map, const void* base, int rows, int heads, int rs, long long hs,
-            int packed) {
+            int packed, int cols = D) {
   using Tile = HopTile<D>;
-  const uint64_t dims[3] = {(uint64_t)D, (uint64_t)(packed ? heads : rows),
+  const uint64_t dims[3] = {(uint64_t)cols, (uint64_t)(packed ? heads : rows),
                             (uint64_t)(packed ? rows : heads)};
   const uint64_t strides[2] = {2ull * (packed ? hs : rs), 2ull * (packed ? rs : hs)};
   const uint32_t box[3] = {(uint32_t)Tile::W, packed ? 1u : 64u, packed ? 64u : 1u};

@@ -3,14 +3,15 @@
 // kernels templated on the mask: a tensor-core kernel for bf16 io
 // (`flash_fwd_hopper`) and an fp32 FMA kernel for float and fp16 io
 // (`flash_fwd_kernel`). `fwd_any` sends bf16 to the first and float and
-// fp16 to the second: the tensor cores have no fp32 product at fp32
-// accuracy (TF32 keeps 10 mantissa bits), so float io stays on FMAs; fp16
-// io shares the FMA kernel until it has `wgmma` instantiations of its own.
-// head_dim 256 goes to the FMA kernel at every io type (214,016 bytes of
-// shared memory a block); it has no tensor-core instantiation yet. A
-// head_dim above 256 runs the same kernel split over it (SPLIT): one block
-// per 256-column chunk of the output, the scores over the whole head_dim
-// recomputed by every chunk's block.
+// fp16 to the second, at every head_dim: the tensor cores have no fp32
+// product at fp32 accuracy (TF32 keeps 10 mantissa bits), so float io stays
+// on FMAs; fp16 io shares the FMA kernel until it has `wgmma`
+// instantiations of its own. The bf16 kernel has two forms: head_dim 32,
+// 64 and 128 (one warpgroup, 64 query rows a block) and head_dim 256 (two
+// warpgroups, 128 rows a block, `fwd_wide`). A head_dim above 256 (a
+// multiple of 256: the wrappers pad to it) runs either kernel's 256 form
+// split over it (SPLIT): one block per 256-column chunk of the output, the
+// scores over the whole head_dim recomputed by every chunk's block.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (reached
 // through `_fwd_call`; entry `pt_flash_fwd`, CausalMask),
@@ -35,8 +36,9 @@
 // of document masks, 5.3e6 kept pairs per head) 2.2e10 FLOP (22 us) against
 // 68 MB (20 us): the operations.
 //
-// The bf16 kernel (`flash_fwd_hopper`), one block per (head, 64-row query
-// tile), 160 threads: one consumer warpgroup and one producer warp.
+// The bf16 kernel's one-warpgroup form (`fwd_narrow`, head_dim 32, 64 and
+// 128), one block per (head, 64-row query tile), 160 threads: one consumer
+// warpgroup and one producer warp.
 // - The producer's first lane loads the Q tile with one TMA load (two at
 //   D = 128) and streams K and V tiles through a ring of shared
 //   memory stages, each signalled on a "full" mbarrier by the TMA's byte
@@ -62,9 +64,42 @@
 // scores and a 4 x D/16 block of the output and reads 8 shared words per
 // 16 FMAs. It serves the fp32 and fp16 models and checks.
 //
-// Grid: FMA (ceil(Sq / 64), heads, head_dim / 256 above 256); bf16 the
-// same for the fixed-length mask and (heads, ceil(Sq / 64)) for the varlen
-// and flashmask masks; at most 65535 heads a launch (by_head_slices).
+// The bf16 kernel at head_dim 256 (`fwd_wide`), one block per (head,
+// 128-row query block, 256-column output chunk), 256 threads: two consumer
+// warpgroups, one per 64-row query tile. What bounds it at the fixed-length
+// shape (BH = 128, S = 1024, D = 256, causal): 6.9e10 FLOP (69 us) against
+// 268 MB (80 us): device memory, barely; the design keeps the tensor cores
+// fed rather than saving bytes.
+// - Registers: a consumer thread holds 64 x 256 / 128 = 128 fp32 of O, 32
+//   of S and 16 of P (about 210 in all), so one block a SM; no second S is
+//   in flight inside a warpgroup. The two warpgroups take turns on the
+//   tensor cores instead: one's softmax runs while the other's products
+//   run. There is no producer warp: Hopper allocates registers a warpgroup
+//   at a time, so one more warp would cost a third warpgroup's registers
+//   (168 a thread, and the accumulators spill). Thread 0 issues the TMA
+//   loads between its own products, in the order both warpgroups take
+//   them, as far ahead as the ring has free slots.
+// - Shared memory: seven 32 KB buffers of 64 rows x 256 columns (four
+//   64-column boxes, 128 B swizzle). Q's chunks stay resident where they
+//   fit (two tiles a chunk, the rest a ring: 5 ring slots at D = 256, 3 at
+//   D = 512); above D = 512 all seven are the ring and Q's chunks stream
+//   through it beside K's (L2 holds them). Per key tile the ring takes
+//   [Q_c, Q_c',] K_c for each chunk c, then V's own chunk; each slot has a
+//   "full" and an "empty" mbarrier (all 256 threads arrive).
+// - The two query tiles visit different key tiles (a causal diagonal, a
+//   document boundary, a banned flashmask tile): the ring holds every key
+//   tile either visits, from the lower of their first tiles to the higher
+//   of their ends, and a warpgroup that does not visit one still waits for
+//   it and hands it back, so both walk the one list.
+// - Products: S = Q K^T is 16 `wgmma` m64n64k16 from shared memory per
+//   chunk; O += P V is 4 `wgmma` m64n256k16 with P from registers and V
+//   MN-major. The softmax (`softmax_tile`) is the one-warpgroup kernel's.
+//
+// Grid: FMA (ceil(Sq / 64), heads, head_dim / 256 above 256); bf16 below
+// 256 the same for the fixed-length mask and (heads, ceil(Sq / 64)) for the
+// varlen and flashmask masks; bf16 at 256 and above (ceil(Sq / 128) *
+// chunks, heads) or (heads, ceil(Sq / 128) * chunks), the chunk varying
+// fastest; at most 65535 heads a launch (by_head_slices).
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -306,12 +341,13 @@ __device__ __forceinline__ void start_qk(float (&sc)[32], uint32_t q_addr, uint3
   pt_hopper::wgmma_commit();
 }
 
+// The one-warpgroup form (head_dim 32, 64, 128).
 template <int D, typename Mask>
-__global__ void __launch_bounds__(HOP_NT, D == 128 ? 2 : 3)
-flash_fwd_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                 const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-                 float* __restrict__ lse, Layout lay, Mask heads_mask, float scale, int packed,
-                 int tiles_x) {
+__device__ __forceinline__ void fwd_narrow(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
+                                           const CUtensorMap* tm_v, __nv_bfloat16* __restrict__ o,
+                                           float* __restrict__ lse, const Layout& lay,
+                                           const Mask& heads_mask, float scale, int packed,
+                                           int tiles_x) {
   using Tile = HopTile<D>;
   constexpr int STAGES = FwdRing<D>::STAGES;
   using namespace pt_hopper;
@@ -348,19 +384,19 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 
   if (threadIdx.x >= HOP_CONSUMERS) {  // the producer warp; its first lane works
     if (threadIdx.x == HOP_CONSUMERS) {
-      tma_prefetch_map(&tm_q);
-      tma_prefetch_map(&tm_k);
-      tma_prefetch_map(&tm_v);
+      tma_prefetch_map(tm_q);
+      tma_prefetch_map(tm_k);
+      tma_prefetch_map(tm_v);
       mbar_arrive_expect_tx(q_full, Tile::BYTES);
-      tma_tile<D>(Qs, &tm_q, q_full, q0, h, packed);
+      tma_tile<D>(Qs, tm_q, q_full, q0, h, packed);
       int it = 0;
       for (int j = next_tile(tiles.x - 1); j < tiles.y; j = next_tile(j), ++it) {
         const int s = it % STAGES;
         mbar_wait(empty + s, ((it / STAGES) & 1) ^ 1);  // round 0 passes at once
         mbar_arrive_expect_tx(full + s, 2 * Tile::BYTES);
         uint8_t* Ks = KVs + 2 * s * Tile::BYTES;
-        tma_tile<D>(Ks, &tm_k, full + s, j * BK, h, packed);
-        tma_tile<D>(Ks + Tile::BYTES, &tm_v, full + s, j * BK, h, packed);
+        tma_tile<D>(Ks, tm_k, full + s, j * BK, h, packed);
+        tma_tile<D>(Ks + Tile::BYTES, tm_v, full + s, j * BK, h, packed);
       }
     }
     return;
@@ -466,6 +502,276 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   }
 }
 
+// ----------------------------------- the bf16 tensor-core kernel, head_dim 256
+
+// Two consumer warpgroups and nothing else: Hopper allocates registers a
+// warpgroup at a time, so a producer warp would cost a third warpgroup's
+// registers and cap every thread at 168 (the accumulators then spill);
+// thread 0 issues the TMA loads between its own products instead.
+constexpr int WIDE_NT = 2 * HOP_CONSUMERS;
+constexpr int WIDE_BQ = 2 * BQ;  // query rows a block
+
+// Shared memory of the head_dim-256 form: BUFS tiles of 64 rows x 256
+// columns (Q's resident chunks first, the ring after them), then the
+// mbarriers: Q's, and a "full" and an "empty" one per buffer.
+struct WideSmem {
+  static constexpr int TILE = HopTile<256>::BYTES;
+  static constexpr int BUFS = 7;
+  static constexpr size_t SMEM = 1024 + (size_t)TILE * BUFS + sizeof(uint64_t) * (1 + 2 * BUFS);
+};
+
+// A position in the ring: the slot and the parity of its round.
+struct RingPos {
+  int slot, phase, slots;
+  __device__ void next() {
+    if (++slot == slots) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// The head_dim-256 form: 128 query rows (two 64-row tiles, one per
+// consumer warpgroup) of head h and the 256-column output chunk cz of
+// `chunks` (SPLIT; 1 otherwise). See the notes at the top of the file.
+template <typename Mask, bool SPLIT>
+__device__ __forceinline__ void fwd_wide(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
+                                         const CUtensorMap* tm_v, __nv_bfloat16* __restrict__ o,
+                                         float* __restrict__ lse, const Layout& lay,
+                                         const Mask& heads_mask, float scale, int packed,
+                                         int tiles_x, int chunks) {
+  using Tile = HopTile<256>;
+  using namespace pt_hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* bufs = align_1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(bufs + WideSmem::BUFS * Tile::BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + WideSmem::BUFS;
+
+  const int n = SPLIT ? chunks : 1;
+  const bool q_res = n <= 2;  // Q's chunks resident, two tiles each; else streamed
+  const int q_bufs = q_res ? 2 * n : 0;
+  uint8_t* ring = bufs + q_bufs * Tile::BYTES;
+  const int slots = WideSmem::BUFS - q_bufs;
+  const int per_chunk = q_res ? 1 : 3;     // fills a chunk of S: [Q_c, Q_c',] K_c
+  const int per_tile = per_chunk * n + 1;  // and V's own chunk
+
+  // the grid's tile axis holds (query block, chunk), the chunk fastest, so
+  // the chunks of one block, which read the same Q and K, run side by side;
+  // query blocks run last to first, the longest first under a causal mask
+  const int h = tiles_x ? blockIdx.y : blockIdx.x;
+  const int tile = tiles_x ? blockIdx.x : blockIdx.y;
+  const int ext = tiles_x ? gridDim.x : gridDim.y;
+  const int cz = SPLIT ? tile % n : 0;
+  const int qb = ext / n - 1 - tile / n;
+  const int q0 = qb * WIDE_BQ;
+  const int nqt = (lay.sq + BQ - 1) / BQ;
+  const Mask mask = heads_mask.at_head(h);
+
+  // key tiles [x, y) of query tiles 2 qb and 2 qb + 1 (none past the end),
+  // and the block's list: every key tile either visits, in order
+  const int2 rng0 = 2 * qb < nqt ? mask.key_tiles(2 * qb) : make_int2(0, 0);
+  const int2 rng1 = 2 * qb + 1 < nqt ? mask.key_tiles(2 * qb + 1) : make_int2(0, 0);
+  const bool none0 = rng0.x >= rng0.y, none1 = rng1.x >= rng1.y;
+  const int lo = none0 ? rng1.x : none1 ? rng0.x : min(rng0.x, rng1.x);
+  const int hi = none0 ? rng1.y : none1 ? rng0.y : max(rng0.y, rng1.y);
+  auto visits = [&](int w, int j) {
+    const int2 rw = w ? rng1 : rng0;
+    return j >= rw.x && j < rw.y && mask.tile_open(2 * qb + w, j);
+  };
+  auto next_tile = [&](int j) {
+    for (++j; j < hi && !visits(0, j) && !visits(1, j); ++j) {
+    }
+    return j;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < WideSmem::BUFS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, WIDE_NT);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // The loads, issued by thread 0 in the order both warpgroups take them:
+  // per key tile of the list, [Q_c, Q_c',] K_c for each chunk c, then V's
+  // own chunk. `issue(need)` issues every fill up to index `need` (waiting
+  // for its slot to be handed back by both warpgroups if it must) and, past
+  // it, as many more as have a free slot.
+  int iss_tile = next_tile(lo - 1), iss_fill = 0, issued = 0;
+  RingPos ip{0, 0, slots};
+  auto issue = [&](int need) {
+    while (iss_tile < hi) {
+      if (!mbar_test(empty + ip.slot, ip.phase ^ 1)) {  // round 0 passes at once
+        if (issued > need) return;
+        mbar_wait(empty + ip.slot, ip.phase ^ 1);
+      }
+      const int c = iss_fill / per_chunk, sub = iss_fill % per_chunk;
+      const bool is_v = iss_fill == per_tile - 1;
+      const CUtensorMap* map = is_v ? tm_v : sub + 1 < per_chunk ? tm_q : tm_k;
+      const int row = is_v || sub + 1 == per_chunk ? iss_tile * BK : q0 + sub * BQ;
+      mbar_arrive_expect_tx(full + ip.slot, Tile::BYTES);
+      tma_tile<256>(ring + ip.slot * Tile::BYTES, map, full + ip.slot, row, h, packed,
+                    (is_v ? cz : c) * 256);
+      ip.next();
+      ++issued;
+      if (++iss_fill == per_tile) {
+        iss_fill = 0;
+        iss_tile = next_tile(iss_tile);
+      }
+    }
+  };
+  if (threadIdx.x == 0) {
+    tma_prefetch_map(tm_q);
+    tma_prefetch_map(tm_k);
+    tma_prefetch_map(tm_v);
+    if (q_res) {
+      mbar_arrive_expect_tx(q_full, q_bufs * Tile::BYTES);
+      for (int c = 0; c < n; ++c)
+        for (int w = 0; w < 2; ++w)
+          tma_tile<256>(bufs + (2 * c + w) * Tile::BYTES, tm_q, q_full, q0 + w * BQ, h, packed,
+                        c * 256);
+    }
+  }
+
+  // A consumer warpgroup: query tile qt = 2 qb + w. Thread t holds rows r
+  // and r + 8 of the tile and, of each 8 columns of S or O, the pair at
+  // 2 * (t % 4).
+  const int w = threadIdx.x / HOP_CONSUMERS;
+  const int t = threadIdx.x % HOP_CONSUMERS;
+  const int qt = 2 * qb + w;
+  const int r = 16 * (t / 32) + (t % 32) / 4;
+  const int cq = 2 * (t % 4);
+  const int row0 = q0 + w * BQ;
+
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  RowInfo qi[2] = {};
+  if (qt < nqt) {
+    qi[0] = mask.q_row(row0 + r);
+    qi[1] = mask.q_row(row0 + r + 8);
+  }
+  uint32_t pa[4][4];
+
+  if (q_res) mbar_wait(q_full, 0);
+  RingPos p{0, 0, slots};
+  int taken = 0;
+  auto take = [&] {  // the next fill, once it has arrived
+    if (threadIdx.x == 0) issue(taken);
+    mbar_wait(full + p.slot, p.phase);
+    const int s = p.slot;
+    p.next();
+    ++taken;
+    return s;
+  };
+  auto slot_addr = [&](int s) { return smem_u32(ring + s * Tile::BYTES); };
+#pragma unroll 1
+  for (int j = next_tile(lo - 1); j < hi; j = next_tile(j)) {
+    const bool mine = visits(w, j);
+    // S, a fresh accumulator each tile: no S lives through the P V below
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    // S = sum over chunks c of Q_c K_c^T; each chunk's slots handed back
+    // as soon as its products are done
+#pragma unroll 1
+    for (int c = 0; c < n; ++c) {
+      int qs0 = 0, qs1 = 0;
+      if (!q_res) {
+        qs0 = take();
+        qs1 = take();
+      }
+      const int ks = take();
+      if (mine) {
+        uint32_t q_addr = q_res ? smem_u32(bufs + (2 * c + w) * Tile::BYTES)
+                                : slot_addr(w ? qs1 : qs0);
+        // recomputed each tile: Q's 16 descriptors kept across the loop
+        // would hold 16 registers the accumulators need
+        asm volatile("" : "+r"(q_addr));
+        fence_regs(sc);
+        wgmma_fence();
+        wgmma_nt<256>(sc, q_addr, slot_addr(ks), c > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+      }
+      if (!q_res) {
+        mbar_arrive(empty + qs0);
+        mbar_arrive(empty + qs1);
+      }
+      mbar_arrive(empty + ks);
+    }
+    if (mine) {
+      float alpha[2];
+      softmax_tile(mask, qt, j, qi, cq, scale, sc, m, l, alpha);
+#pragma unroll
+      for (int jd = 0; jd < 32; ++jd)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          acc[4 * jd + 2 * h2] *= alpha[h2];
+          acc[4 * jd + 2 * h2 + 1] *= alpha[h2];
+        }
+      // P as the A operand: its k-th 16 keys are S values 8k .. 8k + 7
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) pa[k][x] = pack_bf16(sc[8 * k + 2 * x], sc[8 * k + 2 * x + 1]);
+    }
+    const int vs = take();
+    if (mine) {
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wgmma_rs_d<256>(acc, pa[k], Tile::mn_major(slot_addr(vs), k));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) fence_regs(pa[k]);
+    }
+    mbar_arrive(empty + vs);
+  }
+  // the fills the other warpgroup still takes
+  if (threadIdx.x == 0) issue(INT_MAX);
+
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) l[h2] = quad_sum(l[h2]);
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int qp = row0 + r + 8 * h2;
+    if (qp >= lay.sq) continue;
+    const float inv_l = 1.f / (l[h2] == 0.f ? 1.f : l[h2]);
+    __nv_bfloat16* orow = o + h * lay.q_hs + (long long)qp * lay.q_rs + cz * 256 + cq;
+#pragma unroll
+    for (int jd = 0; jd < 32; ++jd)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jd) = __floats2bfloat162_rn(
+          acc[4 * jd + 2 * h2] * inv_l, acc[4 * jd + 2 * h2 + 1] * inv_l);
+    if ((t & 3) == 0 && cz == 0)
+      lse[(size_t)h * lay.sq + qp] = l[h2] == 0.f ? Mask::empty_lse() : m[h2] + logf(l[h2]);
+  }
+}
+
+// The bf16 tensor-core kernel: the one-warpgroup form below head_dim 256,
+// the two-warpgroup form at 256 (SPLIT: one 256-column chunk of a wider
+// head_dim, `chunks` of them).
+template <int D, typename Mask, bool SPLIT = false>
+__global__ void __launch_bounds__(D == 256 ? WIDE_NT : HOP_NT, D == 256 ? 1 : D == 128 ? 2 : 3)
+flash_fwd_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                 float* __restrict__ lse, Layout lay, Mask heads_mask, float scale, int packed,
+                 int tiles_x, int chunks) {
+  static_assert(D == 256 || !SPLIT, "SPLIT is the head_dim-256 form's");
+  if constexpr (D == 256)
+    fwd_wide<Mask, SPLIT>(&tm_q, &tm_k, &tm_v, o, lse, lay, heads_mask, scale, packed, tiles_x,
+                          chunks);
+  else
+    fwd_narrow<D, Mask>(&tm_q, &tm_k, &tm_v, o, lse, lay, heads_mask, scale, packed, tiles_x);
+}
+
 template <int D, typename Mask>
 cudaError_t fwd_hopper(const void* q, const void* k, const void* v, void* o, void* lse,
                        int heads, Layout lay, Mask mask, float scale, int packed, void* stream) {
@@ -487,7 +793,32 @@ cudaError_t fwd_hopper(const void* q, const void* k, const void* v, void* o, voi
   if (!err) err = hop_map<D>(&mv, v, lay.sk, heads, lay.k_rs, lay.k_hs, packed);
   if (err) return (cudaError_t)err;
   return launch_nt(flash_fwd_hopper<D, Mask>, grid, HOP_NT, Ring::SMEM, stream, mq, mk, mv,
-                   (__nv_bfloat16*)o, (float*)lse, lay, mask, scale, packed, tiles_x);
+                   (__nv_bfloat16*)o, (float*)lse, lay, mask, scale, packed, tiles_x, 1);
+}
+
+// The head_dim-256 form over `chunks` 256-column chunks of the head_dim
+// (SPLIT when more than one).
+template <typename Mask, bool SPLIT>
+cudaError_t fwd_wide_launch(const void* q, const void* k, const void* v, void* o, void* lse,
+                            int heads, Layout lay, Mask mask, float scale, int packed,
+                            void* stream, int chunks) {
+  const long long nqb = (lay.sq + WIDE_BQ - 1) / WIDE_BQ;
+  const long long ext = nqb * chunks;
+  // as fwd_hopper: fixed-length blocks of one head side by side, the
+  // varlen and flashmask heads side by side, more than MAX_GRID_Y on x
+  const int tiles_x = std::is_same<Mask, CausalMask>::value || ext > MAX_GRID_Y;
+  if (heads < 1 || heads > MAX_GRID_Y || nqb < 1 || ext > INT_MAX || (chunks > 1) != SPLIT)
+    return cudaErrorInvalidValue;
+  const dim3 grid = tiles_x ? dim3((unsigned)ext, heads) : dim3(heads, (unsigned)ext);
+  const int d = 256 * chunks;
+  CUtensorMap mq, mk, mv;
+  int err = hop_map<256>(&mq, q, lay.sq, heads, lay.q_rs, lay.q_hs, packed, d);
+  if (!err) err = hop_map<256>(&mk, k, lay.sk, heads, lay.k_rs, lay.k_hs, packed, d);
+  if (!err) err = hop_map<256>(&mv, v, lay.sk, heads, lay.k_rs, lay.k_hs, packed, d);
+  if (err) return (cudaError_t)err;
+  return launch_nt(flash_fwd_hopper<256, Mask, SPLIT>, grid, WIDE_NT, WideSmem::SMEM, stream, mq,
+                   mk, mv, (__nv_bfloat16*)o, (float*)lse, lay, mask, scale, packed, tiles_x,
+                   chunks);
 }
 
 // ------------------------------------------------------ launch and entries
@@ -503,21 +834,27 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse,
 }
 
 // bf16 to the tensor-core kernel, float and fp16 to the FMA kernel (io:
-// see Io); head_dim 256 to the FMA kernel at every io type, and a head_dim
-// above 256 (a multiple of 256: the wrappers pad to it) to the FMA kernel
-// split over it. `packed` says the tensors are [T, H, D] (varlen) rather
-// than [BH, S, D]. One slice of at most MAX_GRID_Y heads.
+// see Io), chosen by io type at every head_dim; head_dim 256 to either
+// kernel's 256 form, and a head_dim above 256 (a multiple of 256: the
+// wrappers pad to it) to the same form split over it. `packed` says the
+// tensors are [T, H, D] (varlen) rather than [BH, S, D]. One slice of at
+// most MAX_GRID_Y heads.
 template <typename Mask>
 cudaError_t fwd_heads(int d, int io, const void* q, const void* k, const void* v, void* o,
                       void* lse, int heads, Layout lay, Mask mask, float scale, int packed,
                       void* stream) {
-  if (d > 256) {
+  if (d >= 256) {
     if (d % 256) return cudaErrorInvalidValue;
-    PT_FLASH_SWITCH_IO(io, return fwd<T, 256, Mask, true>(q, k, v, o, lse, heads, lay, mask,
-                                                          scale, stream, d / 256))
-  }
-  if (d == 256) {
-    PT_FLASH_SWITCH_IO(io, return fwd<T, 256>(q, k, v, o, lse, heads, lay, mask, scale, stream))
+    const int chunks = d / 256;
+    if (io == IO_BF16)
+      return chunks == 1 ? fwd_wide_launch<Mask, false>(q, k, v, o, lse, heads, lay, mask, scale,
+                                                        packed, stream, 1)
+                         : fwd_wide_launch<Mask, true>(q, k, v, o, lse, heads, lay, mask, scale,
+                                                       packed, stream, chunks);
+    PT_FLASH_SWITCH_FMA_IO(io, return chunks == 1
+                                   ? fwd<T, 256>(q, k, v, o, lse, heads, lay, mask, scale, stream)
+                                   : fwd<T, 256, Mask, true>(q, k, v, o, lse, heads, lay, mask,
+                                                             scale, stream, chunks))
   }
   if (io == IO_BF16) {
     PT_FLASH_SWITCH_D(d, return fwd_hopper<D>(q, k, v, o, lse, heads, lay, mask, scale, packed,

@@ -16,12 +16,16 @@ and accumulators are fp32; the io type is float32, bfloat16 or float16.
 The kernels are built for head_dim 32, 64, 128 and 256 (``HEAD_DIMS``); a
 smaller head_dim runs at the next of those sizes, its q, k, v (and dO)
 padded with zero columns and the results sliced back (:func:`_pad_head_dim`),
-which is exact. At 256 every io type runs the FMA kernels (bf16 too: there
-is no tensor-core instantiation at 256 yet), whose backward then works on
-32-row halves of its 64-row tiles so that the fp32 tiles fit in shared
-memory. A head_dim above 256 runs padded to a multiple of 256 on the same
-FMA kernels split over it: one block per 256-column chunk of each output,
-the scores over the whole head_dim recomputed by each. Any number of heads
+which is exact. The route is chosen by io type, at every head_dim: the bf16
+forward runs on the tensor cores, at 256 in a form of its own (two
+warpgroups, 128 query rows a block); float32 and float16 io, and the
+backward at 256 in every io type, run the FMA kernels, whose backward then
+works on 32-row halves of its 64-row tiles so that the fp32 tiles fit in
+shared memory. A head_dim above 256 runs padded to a multiple of 256 on
+the same 256 forms split over it: one block per 256-column chunk of each
+output, the scores over the whole head_dim recomputed by each. A bf16
+launch that fails raises; nothing routes bf16 back to the FMA kernels.
+Any number of heads
 (``B*H``) runs: the C entries launch at most 65535 of them at a time. The
 causal mask is bottom-right aligned (key ``k`` is seen by query ``q`` when
 ``k <= q + (Sk - Sq)``) and keys at or past ``kv_len`` are masked. A query
@@ -33,8 +37,9 @@ Each wrapper dispatches on the device of its tensors: a CUDA tensor launches
 the kernel (or raises on a type, head_dim or layout the kernel does not
 take), a CPU tensor runs the plain PyTorch version beside it, which repeats
 the kernel's arithmetic. There is no fallback from one to the other. Each
-source holds two kernels: bf16 io up to head_dim 128 runs on the tensor cores and reads q, k,
-v and dO through TMA tensor maps, which need 16-byte-aligned base addresses
+source holds two kernels: bf16 io (the forward at every head_dim, the
+backward up to head_dim 128) runs on the tensor cores and reads q, k, v
+and dO through TMA tensor maps, which need 16-byte-aligned base addresses
 and strides (:func:`check_tma`; a tensor that fails it is handed to the
 kernel as a fresh contiguous copy, :func:`_tma_inputs`); float and float16
 io run fp32 FMAs.
@@ -146,7 +151,7 @@ def _tma_inputs(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
 def kernel_head_dim(d: int) -> int:
     """The head_dim the kernels run at for a caller's ``d``: the smallest
     of ``HEAD_DIMS`` at or above it, and above 256 the next multiple of
-    256 (the FMA kernels split over it in 256-column chunks)."""
+    256 (the kernels' 256 forms split over it in 256-column chunks)."""
     for size in HEAD_DIMS:
         if d <= size:
             return size

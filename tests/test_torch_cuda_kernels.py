@@ -76,9 +76,14 @@ def _err(a, b):
 DTYPES = dict(argvalues=[torch.float32, torch.bfloat16, torch.float16],
               ids=["fp32", "bf16", "fp16"])
 # the kernels' head_dims and three that run padded to the next of them
-# (256, and 160 padded to it, run the FMA kernels at every io type); 512,
-# and 288 padded to it, run them split over two 256-column chunks
+# (256, and 160 padded to it, run the bf16 forward's two-warpgroup form and
+# the FMA kernels otherwise); 512, and 288 padded to it, run the same 256
+# forms split over two 256-column chunks
 HEAD_DIMS = [32, 48, 64, 80, 128, 160, 256, 288, 512]
+# the bf16 forward's edge checks: the one-warpgroup form at 32, 64 and 128,
+# the two-warpgroup form at 256 and its SPLIT form at 512 (forward only:
+# the backward there is the FMA kernels', held by the tests above)
+BF16_FWD_DIMS = [32, 64, 128, 256, 512]
 
 
 @pytest.mark.parametrize("dtype", **DTYPES)
@@ -153,7 +158,7 @@ BF16_FWD_SHAPES = {
 }
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", BF16_FWD_DIMS)
 @pytest.mark.parametrize("shape", sorted(BF16_FWD_SHAPES))
 def test_bf16_forward_edges_match_plain(cuda, shape, d):
     bh, sq, sk, kv_len, causal = BF16_FWD_SHAPES[shape]
@@ -214,7 +219,19 @@ def test_bf16_misaligned_base_matches_plain(cuda, entry):
     """A bf16 input whose base is not 16-byte aligned (TMA refuses it)
     reaches the same kernels as a fresh aligned copy: the forward and both
     backward kernels launch once each and match their plain versions."""
-    q, k, v, do = _inputs(cuda, 2, 128, 128, 64, torch.bfloat16)
+    _misaligned_matches_plain(cuda, entry, 64)
+
+
+@pytest.mark.parametrize("entry", ["flash_fwd", "varlen_fwd",
+                                   "flashmask_fwd"])
+def test_bf16_misaligned_base_at_head_dim_256_matches_plain(cuda, entry):
+    """The same at head_dim 256, where the bf16 forward runs its
+    two-warpgroup form (and the backward the FMA kernels)."""
+    _misaligned_matches_plain(cuda, entry, 256)
+
+
+def _misaligned_matches_plain(cuda, entry, d):
+    q, k, v, do = _inputs(cuda, 2, 128, 128, d, torch.bfloat16)
     fa.reset_launches()
     fv.reset_launches()
     if entry == "flash_fwd":
@@ -230,7 +247,7 @@ def test_bf16_misaligned_base_matches_plain(cuda, entry):
     elif entry == "varlen_fwd":
         cu = torch.tensor([0, 100, 256], device=cuda).int()
         plan = fv.varlen_plan(cu, cu, 256, 256, True)
-        q, k, v, do = (t.reshape(256, 1, 64) for t in (q, k, v, do))
+        q, k, v, do = (t.reshape(256, 1, d) for t in (q, k, v, do))
         fwd = lambda q, k, v: fv.varlen_fwd(q, k, v, plan, 0.125)
         fwd_plain = lambda q, k, v: fv.varlen_fwd_plain(q, k, v, plan, 0.125)
         dkv = lambda *t: fv.varlen_bwd_dkv(*t, plan, 0.125)
@@ -272,6 +289,47 @@ def test_bf16_misaligned_base_matches_plain(cuda, entry):
         n: c for n, c in fv.LAUNCHES.items()
         if n.startswith(entry.split("_")[0])}
     assert sorted(counts.values()) == [1, 1, 1], counts
+
+
+@pytest.mark.parametrize("d", [256, 512])
+@pytest.mark.parametrize("mask", ["fixed", "varlen", "flashmask"])
+def test_bf16_forward_at_256_and_above_runs_the_tensor_core_kernel(cuda, mask,
+                                                                   d):
+    """bf16 at head_dim 256 and 512 takes the tensor-core forward for each
+    mask: one ``torch.profiler`` pass names ``flash_fwd_hopper`` and no
+    ``flash_fwd_kernel`` (the FMA kernel), and the result matches the
+    plain version."""
+    from torch.profiler import ProfilerActivity, profile
+    scale = 1.0 / math.sqrt(d)
+    q, k, v, _ = _inputs(cuda, 2, 256, 256, d, torch.bfloat16, seed=9)
+    if mask == "fixed":
+        args = (True, scale, 256, 0)
+        run = lambda v: fa.flash_fwd(q, k, v, *args)
+        plain = lambda v: fa.flash_fwd_plain(q, k, v, *args)
+    elif mask == "varlen":
+        cu = torch.tensor([0, 100, 300, 512], device=cuda).int()
+        plan = fv.varlen_plan(cu, cu, 512, 512, True)
+        q, k, v = (t.reshape(512, 1, d) for t in (q, k, v))
+        run = lambda v: fv.varlen_fwd(q, k, v, plan, scale)
+        plain = lambda v: fv.varlen_fwd_plain(q, k, v, plan, scale)
+    else:
+        plan = fv.flashmask_plan(torch.full((2, 1, 256, 1), 200,
+                                            dtype=torch.int32, device=cuda),
+                                 1, True)
+        run = lambda v: fv.flashmask_fwd(q, k, v, plan, scale)
+        plain = lambda v: fv.flashmask_fwd_plain(q, k, v, plan, scale)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, lse = run(v)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    assert any("flash_fwd_hopper" in n for n in names), names
+    assert not any("flash_fwd_kernel" in n for n in names), names
+    p_out, p_lse = plain(v)
+    abs_v_out = plain(v.abs())[0]
+    for key, got, want in (("out", out, p_out), ("lse", lse, p_lse)):
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= _limit(torch.bfloat16, key, want,
+                                   abs_v_out)).all()), (key, err.max().item())
 
 
 # ------------------------------------------------------------------ varlen
@@ -339,7 +397,7 @@ VARLEN_BF16_EDGE = ([1, 0, 130, 64, 1, 1], [1, 0, 130, 64, 1, 1], 0, 0)
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", BF16_FWD_DIMS)
 def test_varlen_bf16_forward_empty_and_one_token_segments(cuda, d, causal):
     lq, lk, _, _ = VARLEN_BF16_EDGE
     tq, h = sum(lq), 3
@@ -486,7 +544,7 @@ def test_flashmask_kernels_match_plain(cuda, shape, d, dtype, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", BF16_FWD_DIMS)
 def test_flashmask_bf16_forward_one_open_key_tile(cuda, d, causal):
     """A start/end row that bans every query row from every key tile but
     tile 3: each query tile visits that tile alone (none before it under a

@@ -1,8 +1,9 @@
 """Rules of the PyTorch port, as tests.
 
-- ``paddle_tpu_torch/`` and ``chip_smoke.py`` import neither JAX nor the JAX
-  package (``paddle_tpu``), not even a module of it that does not import
-  JAX: the port keeps its own copy of what it needs.
+- ``paddle_tpu_torch/``, ``chip_smoke.py`` and ``chip_fwd_wide.py`` import
+  neither JAX nor the JAX package (``paddle_tpu``), not even a module of
+  it that does not import JAX: the port keeps its own copy of what it
+  needs.
 - The port's entry points run on the card unless the caller asks for the
   CPU; with no card they raise instead of carrying on on the CPU.
 - The port's parameter tree and weight-decay mask are the reference's, key
@@ -23,7 +24,7 @@ from paddle_tpu_torch.models.convert import params_from_numpy
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_fwd_wide.py"]
 
 
 def _imported_modules(path: Path):
