@@ -1,6 +1,6 @@
-"""Measurements of the bf16 flash forward at head_dim 256 and 512 on one card.
+"""Measurements of the bf16 flash kernels at head_dim 256 and 512 on one card.
 
-    python3 chip_fwd_wide.py [--parent DIR] [--variants a,b,...]
+    python3 chip_fwd_wide.py [--parent DIR [--steps]] [--variants a,b,...]
 
 From the root of a checkout, on a machine with one CUDA card and ``nvcc``.
 Two measurements, each optional (both run when neither flag is given):
@@ -10,16 +10,21 @@ Two measurements, each optional (both run when neither flag is given):
   bf16) on another checkout (the parent commit, unpacked with ``git
   archive``) and on this one, in turns: parent, this, this, parent, each
   in a process of its own (the two trees build their kernels apart).
-  Prints each run's forward times beside SDPA's.
-- ``--variants``: builds variants of ``paddle_tpu_torch/csrc/flash_fwd.cu``
-  (text changes of this checkout's source, listed in ``VARIANTS``),
-  prints ptxas's registers and spills for the head_dim-256
-  instantiations, holds each variant that computes the same function
-  against the plain versions (in a process of its own), and times the
-  three bf16 forwards at D 256 and 512 at the phase-4 shapes, variants in
-  turns and then in reverse. The variants whose names start with ``x_``
-  leave a part of the work out (their results are wrong): they show what
-  each part costs.
+  Prints each run's times of the forward (#1, #6, #9; beside SDPA's
+  forward), dK/dV (#2, #7, #10) and dQ (#3, #8, #11). With ``--steps``
+  each turn also runs ``chip_smoke.py``'s phases 5 and 10 (the compiled
+  and the eager gpt2-medium step, head_dim 64) and prints their median
+  ms/step and device-busy ms beside the kernels'.
+- ``--variants``: builds variants of ``paddle_tpu_torch/csrc``'s
+  ``flash_fwd.cu``, ``flash_bwd_dq.cu`` or ``flash_bwd_dkv.cu`` (text
+  changes of this checkout's sources, listed in ``VARIANTS``; ``lib_of``
+  names the source), prints ptxas's registers and spills for the
+  head_dim-256 instantiations, holds each variant that computes the same
+  function against the plain versions (in a process of its own), and
+  times the source's three bf16 kernels at D 256 and 512 at the phase-4
+  shapes, variants in turns and then in reverse. The variants whose names
+  start with ``x_`` leave a part of the work out (their results are
+  wrong): they show what each part costs.
 
 Exits non-zero with no CUDA device.
 """
@@ -41,8 +46,9 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "paddle_tpu_torch", "csrc", "build", "variants")
 
-# O += P V at head_dim 256 as two m64n128k16 a 16-key step, over V's two
-# 128-column halves, in place of one m64n256k16
+# the products from registers at head_dim 256 (O += P V, dQ += dS K,
+# dV += P^T dO, dK += dS^T Q) as two m64n128k16 a 16-row step, over the B
+# operand's two 128-column halves, in place of one m64n256k16
 N128 = ("  if constexpr (D == 256) pt_hopper::wgmma_rs_n256(acc, a, db);",
         "  if constexpr (D == 256) {\n"
         "    pt_hopper::wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&acc[0]), a, db);\n"
@@ -50,6 +56,18 @@ N128 = ("  if constexpr (D == 256) pt_hopper::wgmma_rs_n256(acc, a, db);",
         "                             db + (2 * HopTile<256>::BOX_BYTES >> 4));\n  }")
 Q_LOADS = ("          tma_tile<256>(bufs + (2 * c + w) * Tile::BYTES, tm_q, q_full, "
            "q0 + w * BQ, h, packed,\n                        c * 256);\n    }\n  }\n")
+# no TMA load: the ring's "full" barrier completes on thread 0's arrival
+NO_EXPECT = ("      mbar_arrive_expect_tx(full + st.pos.slot, WideSmem::TILE);\n", "")
+
+
+def _no_loads(call):
+    return [NO_EXPECT, (call, "(void)map;\n    pt_hopper::mbar_arrive(bar);")]
+
+
+# A variant's library is the first word of its name (after "x_"): "dq" and
+# "dkv" build flash_bwd_dq.cu and flash_bwd_dkv.cu and time the three masks'
+# dQ or dK/dV kernels; every other name builds flash_fwd.cu and times the
+# forwards.
 VARIANTS = {
     "base": [],
     "n128": [N128],
@@ -82,7 +100,47 @@ VARIANTS = {
                      "      if (acc[4 * jd + 2 * h2] == 1.2345f) "
                      "*reinterpret_cast<__nv_bfloat162*>(orow + 8 * jd) = "
                      "__floats2bfloat162_rn(")],
+    # the backward's: as built, the products from registers as 2 x n128,
+    # and breakdowns: no lo products (dS or P rounded once to bf16), no dS
+    # arithmetic (dQ: no P either; dK/dV: both warpgroups compute P alone),
+    # no S and dP products, no TMA loads
+    "dq_base": [],
+    "dq_n128": [N128],
+    "x_dq_no_lo": [("        wgmma_rs_d<256>(acc, al[k], Tile::mn_major(ring.addr(ks), k));\n",
+                    "")],
+    "x_dq_no_ds": [("      if (mask.tile_full(qt, j))\n        dq_ds_tile<true>",
+                    "      if (lse2[0] == 1.2345f)\n        dq_ds_tile<true>"),
+                   ("      else\n        dq_ds_tile<false>(mask, j, qi, cq, scale, lse2, dl, "
+                    "sc, dp);", "")],
+    "x_dq_no_s": [("        wgmma_nt<256>(sc, q_addr, ring.addr(ks), ci > 0);  "
+                   "// S += Q_c K_c^T\n        wgmma_nt<256>(dp, do_addr, ring.addr(vs), "
+                   "ci > 0);  // dP += dO_c V_c^T\n", "")],
+    "x_dq_no_loads": _no_loads("tma_tile<256>(dst, map, bar, kv ? is.tile * BK : q0 + "
+                               "(sub & 1) * BQ, h, packed, c * 256);"),
+    "dkv_base": [],
+    "dkv_n128": [N128],
+    "x_dkv_no_lo": [("      wgmma_rs_d<256>(acc, al[k], Tile::mn_major(b_addr, k));\n", "")],
+    "x_dkv_no_ds": [("    const bool whole = mask.tile_full(i, kt);\n    if (w) {",
+                      "    const bool whole = mask.tile_full(i, kt);\n    if (stat == 1.2345f) {")],
+    "x_dkv_no_s": [("        wgmma_nt<256>(st, k_addr, ring.addr(qs), ci > 0);   // S^T += "
+                    "K_c Q_c^T\n        wgmma_nt<256>(dpt, v_addr, ring.addr(ds), ci > 0);  "
+                    "// dP^T += V_c dO_c^T\n", ""),
+                   ("        wgmma_nt<256>(st, k_addr, ring.addr(qs), ci > 0);  // S^T += "
+                    "K_c Q_c^T\n", "")],
+    "x_dkv_no_loads": _no_loads("tma_tile<256>(dst, map, bar, qo ? is.tile * BQ : k0, h, "
+                                "packed, c * 256);"),
 }
+# per library: its source and the kernels (wrapper names) a variant times
+LIBS = {"fwd": ("flash_fwd.cu", ("flash_fwd", "varlen_fwd", "flashmask_fwd")),
+        "dq": ("flash_bwd_dq.cu", ("flash_bwd_dq", "varlen_bwd_dq",
+                                   "flashmask_bwd_dq")),
+        "dkv": ("flash_bwd_dkv.cu", ("flash_bwd_dkv", "varlen_bwd_dkv",
+                                     "flashmask_bwd_dkv"))}
+
+
+def lib_of(name):
+    word = (name[2:] if name.startswith("x_") else name).split("_")[0]
+    return word if word in LIBS else "fwd"
 
 
 def _cs():
@@ -92,16 +150,17 @@ def _cs():
 
 
 def build(names):
-    """Builds each variant's flash_fwd.cu into WORK/<name>/lib.so, nvcc
-    processes in parallel; prints ptxas's head_dim-256 lines."""
+    """Builds each variant's source into WORK/<name>/lib.so, nvcc processes
+    in parallel; prints ptxas's head_dim-256 lines."""
     from paddle_tpu_torch.ops.cuda import _build
     procs = {}
     for name in names:
+        source = LIBS[lib_of(name)][0]
         d = os.path.join(WORK, name)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(_build.CSRC, d, ignore=shutil.ignore_patterns("build"))
         for a, b in VARIANTS[name]:
-            for f in ("flash_fwd.cu", "flash_common.cuh"):
+            for f in (source, "flash_common.cuh"):
                 path = os.path.join(d, f)
                 text = open(path).read()
                 if a in text:
@@ -112,7 +171,7 @@ def build(names):
         lib = os.path.join(d, "lib.so")
         procs[name] = (lib, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib,
-             os.path.join(d, "flash_fwd.cu")], stdout=subprocess.PIPE,
+             os.path.join(d, source)], stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True))
     libs = {}
     for name, (lib, proc) in procs.items():
@@ -124,7 +183,7 @@ def build(names):
             m = re.search(r"Compiling entry function '(\S+)'", ln)
             if m:
                 entry = m.group(1)
-            elif entry and "flash_fwd_hopperILi256" in entry:
+            elif entry and "_hopperILi256" in entry:
                 tag = re.search(r"ILi256ENS_\d+(\w+?Mask)ELb(\d)", entry)
                 print(f"  {name} {tag.group(1)} SPLIT {tag.group(2)}: {ln}")
             elif "wgmma" in ln:
@@ -133,26 +192,26 @@ def build(names):
     return libs
 
 
-def use(lib_path):
-    """Points the three forward wrappers at a variant's library."""
+def use(lib_path, lib_name):
+    """Points the wrappers of one library's three kernels at a variant's
+    build of it."""
     from paddle_tpu_torch.ops.cuda import _build
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import flash_varlen as fv
     lib = ctypes.CDLL(lib_path)
-    for sym, argtypes in (
-            ("pt_flash_fwd", fa._SIGNATURES["flash_fwd"][1]),
-            ("pt_varlen_fwd", fv._SIGNATURES["varlen_fwd"][2]),
-            ("pt_flashmask_fwd", fv._SIGNATURES["flashmask_fwd"][2])):
+    fixed, varlen, flashmask = LIBS[lib_name][1]
+    for sym, argtypes in (fa._SIGNATURES[fixed], fv._SIGNATURES[varlen][1:],
+                          fv._SIGNATURES[flashmask][1:]):
         fn = getattr(lib, sym)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         _build._FUNCS[sym] = fn
 
 
 def check_variant(name):
-    """The variant's bf16 forwards against the plain versions (chip_smoke's
+    """The variant's bf16 kernels against the plain versions (chip_smoke's
     limits), at head_dim 256, 512 and 768, the three masks."""
     cs = _cs()
-    use(os.path.join(WORK, name, "lib.so"))
+    use(os.path.join(WORK, name, "lib.so"), lib_of(name))
     cs.card()
     with cs.watchdog("variant check", 300):
         for d in (256, 512, 768):
@@ -166,33 +225,42 @@ def check_variant(name):
         torch.cuda.synchronize()
 
 
-def forwards():
-    """The three bf16 forwards at the phase-4 shapes, D 256 and 512."""
+def kernels(lib_name):
+    """One library's three bf16 kernels at the phase-4 shapes, D 256 and
+    512 (the backward from the forward's lse and out)."""
     cs = _cs()
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import flash_varlen as fv
     out = {}
     for d in (256, 512):
         scale = 1 / math.sqrt(d)
-        q, k, v, _ = cs._inputs(cs.BATCH * cs.D256_HEADS, cs.SEQ, cs.SEQ, d,
-                                torch.bfloat16, seed=60)
+        q, k, v, do = cs._inputs(cs.BATCH * cs.D256_HEADS, cs.SEQ, cs.SEQ, d,
+                                 torch.bfloat16, seed=60)
         args = (True, scale, cs.SEQ, 0)
-        out[f"fixed {d}"] = lambda q=q, k=k, v=v, a=args: fa.flash_fwd(
-            q, k, v, *a)
-        vq, vk, vv, _, _, _, plan = cs._varlen_inputs(
+        o, lse = fa.flash_fwd(q, k, v, *args)
+        fixed = (q, k, v, do, lse, fa.attention_delta(do, o))
+        vq, vk, vv, vdo, _, _, plan = cs._varlen_inputs(
             cs.DOCS, cs.DOCS, 0, 0, cs.D256_HEADS, d, torch.bfloat16, True,
             seed=61)
-        out[f"varlen {d}"] = lambda q=vq, k=vk, v=vv, p=plan, s=scale: \
-            fv.varlen_fwd(q, k, v, p, s)
-        q4, k4, v4, _ = cs._flashmask_inputs(2, cs.FM_SEQ, cs.FM_SEQ,
-                                             cs.D256_HEADS, d, torch.bfloat16,
-                                             seed=62)
-        fq, fk, fvv = (cs._heads(x) for x in (q4, k4, v4))
+        o, vlse = fv.varlen_fwd(vq, vk, vv, plan, scale)
+        varlen = (vq, vk, vv, vdo, vlse, fv.varlen_delta(vdo, o))
+        q4, k4, v4, do4 = cs._flashmask_inputs(
+            2, cs.FM_SEQ, cs.FM_SEQ, cs.D256_HEADS, d, torch.bfloat16,
+            seed=62)
+        fq, fk, fvv, fdo = (cs._heads(x) for x in (q4, k4, v4, do4))
         fplan = fv.flashmask_plan(
             torch.from_numpy(cs.flashmask_startend()).cuda(), cs.D256_HEADS,
             True)
-        out[f"flashmask {d}"] = lambda q=fq, k=fk, v=fvv, p=fplan, s=scale: \
-            fv.flashmask_fwd(q, k, v, p, s)
+        o, flse = fv.flashmask_fwd(fq, fk, fvv, fplan, scale)
+        fm = (fq, fk, fvv, fdo, flse, fa.attention_delta(fdo, o))
+        n_in = 3 if lib_name == "fwd" else 6
+        calls = {"fixed": (getattr(fa, LIBS[lib_name][1][0]), fixed, args),
+                 "varlen": (getattr(fv, LIBS[lib_name][1][1]), varlen,
+                            (plan, scale)),
+                 "flashmask": (getattr(fv, LIBS[lib_name][1][2]), fm,
+                               (fplan, scale))}
+        for mask, (fn, ins, extra) in calls.items():
+            out[f"{mask} {d}"] = lambda f=fn, t=ins[:n_in], x=extra: f(*t, *x)
     return out
 
 
@@ -210,41 +278,64 @@ def variants(names):
               f"{rc.returncode} {' | '.join(bad)[:400]}", flush=True)
         if rc.returncode:
             del libs[name]
-    fns = forwards()
-    times = {}
-    with cs.watchdog("variant timings", 600):
-        for name in list(libs) + list(libs)[::-1]:
-            use(libs[name])
-            for key, fn in fns.items():
-                times.setdefault((name, key), []).append(cs.cuda_ms(fn, 20))
-    for key in fns:
-        print(f"{key}: " + ", ".join(
-            f"{n} {' / '.join(f'{t:.4f}' for t in times[(n, key)])}"
-            for n in libs) + " ms", flush=True)
+    for lib_name in LIBS:
+        group = [n for n in libs if lib_of(n) == lib_name]
+        if not group:
+            continue
+        fns = kernels(lib_name)
+        times = {}
+        with cs.watchdog("variant timings", 600):
+            for name in group + group[::-1]:
+                use(libs[name], lib_name)
+                for key, fn in fns.items():
+                    times.setdefault((name, key), []).append(
+                        cs.cuda_ms(fn, 20))
+        for key in fns:
+            print(f"{lib_name} {key}: " + ", ".join(
+                f"{n} {' / '.join(f'{t:.4f}' for t in times[(n, key)])}"
+                for n in group) + " ms", flush=True)
+        del fns
+        torch.cuda.empty_cache()
 
 
 # one turn of the parent comparison, run with ``python -c`` in a checkout
-# (its own chip_smoke.py and package, first on sys.path)
+# (its own chip_smoke.py and package, first on sys.path); argv[1] "1" adds
+# the gpt2-medium steps, whose median ms and device-busy ms it reads from
+# the arguments of chip_smoke's ``profile_step`` and the profiler's line
 TURN = """
-import json, chip_smoke as cs
-cs.card()
+import json, sys, chip_smoke as cs
+_, _, smi = cs.card()
 cs.build()
 rows = {}
 with cs.watchdog("timings", 600):
     for hd, fn in ((256, cs.d256_timings), (512, cs.d512_timings)):
         ms, _, lib, bnd = fn()
-        for k in ("flash_fwd", "varlen_fwd", "flashmask_fwd"):
+        for k in ms:
             rows[f"{k} {hd}"] = (ms[k], lib[k], bnd[k][0])
+if sys.argv[1] == "1":
+    medians = []
+    profile = cs.profile_step
+    def profiled(step, state, tokens, labels, step_ms, group=None):
+        medians.append(step_ms)
+        return profile(step, state, tokens, labels, step_ms, group)
+    cs.profile_step = profiled
+    torch = cs.torch
+    torch.cuda.empty_cache()
+    _, compiled = cs.main_path()
+    torch.cuda.empty_cache()
+    cs.eager_path(smi, compiled)
+    rows["compiled gpt2-medium step"] = (medians[0], None, None)
+    rows["eager gpt2-medium step"] = (medians[1], None, None)
 print("TIMINGS " + json.dumps(rows))
 """
 
 
-def parent(other):
+def parent(other, steps):
     results = []
     for tree in (other, ROOT, ROOT, other):
         t0 = time.time()
-        rc = subprocess.run([sys.executable, "-c", TURN], cwd=tree,
-                            capture_output=True, text=True)
+        rc = subprocess.run([sys.executable, "-c", TURN, str(int(steps))],
+                            cwd=tree, capture_output=True, text=True)
         line = [ln for ln in rc.stdout.splitlines()
                 if ln.startswith("TIMINGS ")]
         if rc.returncode or not line:
@@ -253,16 +344,24 @@ def parent(other):
         label = "parent" if tree == other else "this"
         results.append((label, json.loads(line[0][len("TIMINGS "):])))
         print(f"{label} ({tree}) in {time.time() - t0:.1f} s", flush=True)
+        for ln in rc.stdout.splitlines():
+            if "device busy" in ln or "median" in ln and "ms/step" in ln:
+                print(f"  {label}: {ln}", flush=True)
     for key in results[0][1]:
+        lib = [r[key][1] for _, r in results]
+        sdpa = "" if None in lib else \
+            f"; sdpa {' / '.join(f'{t:.4f}' for t in lib)} ms"
+        bound = results[0][1][key][2]
         print(f"{key}: " + ", ".join(
             f"{label} {r[key][0]:.4f}" for label, r in results) +
-            f" ms; sdpa {' / '.join(f'{r[key][1]:.4f}' for _, r in results)}"
-            f" ms; bound {results[0][1][key][2]:.4f} ms", flush=True)
+            f" ms{sdpa}" + ("" if bound is None else
+                            f"; bound {bound:.4f} ms"), flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent")
+    ap.add_argument("--steps", action="store_true")
     ap.add_argument("--variants")
     ap.add_argument("--check")
     a = ap.parse_args()
@@ -277,7 +376,7 @@ def main():
                          text=True, timeout=60).stdout.strip()
     print(f"card: {smi}", flush=True)
     if a.parent:
-        parent(os.path.abspath(a.parent))
+        parent(os.path.abspath(a.parent), a.steps)
     if a.variants or not a.parent:
         variants((a.variants or ",".join(VARIANTS)).split(","))
     print(f"card: {smi}")

@@ -13,7 +13,8 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    process per source, all at once), printing build seconds and ptxas's
    register and shared-memory lines (a spill in any bf16 forward
    instantiation, head_dim 256 and its SPLIT form included, or in a bf16
-   backward one at head_dim 64 fails the run), and counting the ``HGMMA``
+   backward one at head_dim 64, 256 or SPLIT fails the run), and counting
+   the ``HGMMA``
    (tensor-core product, split by product) and ``UTMALDG`` (TMA load)
    instructions in the SASS of each bf16 forward, dQ and dK/dV
    instantiation (``cuobjdump``; ``HOPPER_INSTANTIATIONS`` of each);
@@ -34,7 +35,9 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    more key tiles than the ring has stages, sq != sk both ways, kv_len
    cutting a tile, a varlen plan with an empty segment and one-token
    segments, a flashmask row that leaves one key tile open (keys no query
-   sees must give dk and dv of exactly 0). fp16 io (the FMA kernels) and a
+   sees must give dk and dv of exactly 0), the same at head_dim 256 and
+   512 (the two-warpgroup forms and their SPLIT forms). fp16 io (the FMA
+   kernels) and a
    head_dim of 80 (run at 128 with zero columns) for the three masks,
    forward and backward, and bf16 inputs on a misaligned base (the same
    kernels on aligned copies, bit for bit). RMSNorm and SwiGLU at the
@@ -42,16 +45,15 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    edge shapes (fp32 and fp16, 37 rows, rows of 1000 and 1003, a float32
    weight or gate beside bf16 x, the split form with unaligned halves).
    head_dim 256 and 160 (run at 256) for the three masks in fp32, bf16 and
-   fp16, forward and backward (the bf16 forward on the tensor cores, two
-   warpgroups a block; the rest on the FMA kernels at 256, the backward
-   reading the bf16 forward's lse and out); head_dim 288 (run at 512) and
-   512 the same way (each 256 form split over 256-column chunks); the
-   bf16 forward's edge shapes at head_dim 256 and 512 and a misaligned
-   bf16 base at 256; 65600 fixed-length heads (more than the grid's 65535
-   on its y axis) in bf16 and fp32; a bf16 varlen pack and a bf16
-   flashmask row of 65,537 query tiles (more than the grid's 65535 on its
-   y axis: the tiles then go on x), forward and backward at head_dim 64
-   and the forward at 256, held document by document; and rows that see
+   fp16, forward and backward (bf16 on the tensor cores, two warpgroups a
+   block; fp32 and fp16 on the FMA kernels at 256); head_dim 288 (run at
+   512) and 512 the same way (each 256 form split over 256-column
+   chunks); a misaligned bf16 base at 256; 65600 fixed-length heads (more
+   than the grid's 65535 on its y axis) in bf16 and fp32; a bf16 varlen
+   pack and a bf16 flashmask row of 65,537 query tiles (more than the
+   grid's 65535 on its y axis: the tiles then go on x), forward and
+   backward at head_dim 64 and the varlen forward and backward and the
+   flashmask forward at 256, held document by document; and rows that see
    no key under ``mha_forward`` (causal, sq > sk) against the CPU path.
    Phases 3 and 4 each run under a watchdog that exits non-zero if a
    kernel hangs;
@@ -60,16 +62,17 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    varlen and flashmask kernels with the dense bool mask) and
    ``torch.nn.functional.rms_norm``, beside the least time the card could
    take for the same work; then the three masks' kernels again at
-   head_dim 256 and at 512 (16 heads, bf16, the same tokens; the forward
-   on the tensor cores, the backward on the FMA kernels), with each
-   kernel's shared memory per block; then #1-#3 with fp16 io at the path
+   head_dim 256 and at 512 (16 heads, bf16, the same tokens, on the
+   tensor cores), with each kernel's shared memory per block and SDPA's
+   forward and whole backward; then #1-#3 with fp16 io at the path
    shape (the FMA kernels) beside SDPA's fp16 forward;
 4b. drives ``nn.functional.flash_attention`` at ``[8, 1024, 16, 256]``
    bf16 causal (Gemma-7B's heads at gpt2-medium's tokens), forward and
    backward: one launch of each fixed-length kernel, out and gradients
-   against the plain versions with ``limit``, a ``torch.profiler`` pass
-   that finds ``flash_fwd_hopper`` and no ``flash_fwd_kernel``, and its
-   times;
+   against the plain versions with ``limit``, ``torch.profiler`` passes
+   that find ``flash_fwd_hopper``, ``flash_bwd_dq_hopper`` and
+   ``flash_bwd_dkv_hopper`` and no FMA kernel, and its times beside the
+   FMA backward's;
 5. checks the training step on a small GPT against the port's CPU path
    (the path the CPU tests hold against the JAX package), then drives the
    main path: gpt2-medium at full width (24 layers, hidden 1024), batch 8,
@@ -322,9 +325,9 @@ def build():
     sass_counts(infos)
 
 
-def hopper_spills(ptxas, kernel, head_dim=None):
+def hopper_spills(ptxas, kernel, head_dims=None):
     """(entry, spill store bytes, spill load bytes) of each instantiation
-    of ``kernel`` (of those at ``head_dim`` only, when given) in ptxas's
+    of ``kernel`` (of those at ``head_dims`` only, when given) in ptxas's
     ``-v`` lines: each entry's "Compiling entry" line comes before its
     spill line."""
     out, entry = [], None
@@ -336,7 +339,8 @@ def hopper_spills(ptxas, kernel, head_dim=None):
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and entry and kernel in entry and (
-                head_dim is None or f"ILi{head_dim}E" in entry):
+                head_dims is None
+                or any(f"ILi{d}E" in entry for d in head_dims)):
             out.append((entry, int(m.group(1)), int(m.group(2))))
             entry = None
     return out
@@ -345,11 +349,12 @@ def hopper_spills(ptxas, kernel, head_dim=None):
 def check_spills(lib, ptxas):
     """Fails unless every bf16 tensor-core instantiation of ``lib`` that
     ``SPILL_FREE`` names (each forward one; the backward ones at the main
-    path's head_dim 64, one per mask) has a spill line, and it says 0
-    bytes stored and loaded."""
-    kernel, head_dim = HOPPER_KERNELS[lib][0], SPILL_FREE[lib]
-    found = hopper_spills(ptxas, kernel, head_dim)
-    want = HOPPER_INSTANTIATIONS[lib] if head_dim is None else len(MASKS)
+    path's head_dim 64, one per mask, and at 256, the SPLIT form's too) has
+    a spill line, and it says 0 bytes stored and loaded."""
+    kernel, head_dims = HOPPER_KERNELS[lib][0], SPILL_FREE[lib]
+    found = hopper_spills(ptxas, kernel, head_dims)
+    want = HOPPER_INSTANTIATIONS[lib] if head_dims is None else sum(
+        len(MASKS) * (2 if d == 256 else 1) for d in head_dims)
     check(len(found) == want, f"{len(found)} {kernel} spill lines in ptxas's "
           f"output, want {want}")
     for entry, stores, loads in found:
@@ -359,14 +364,17 @@ def check_spills(lib, ptxas):
 
 # the three masks every flash kernel is instantiated with
 MASKS = ("CausalMask", "SegmentMask", "StartEndMask")
-# bf16 tensor-core instantiations per library: the forward at head_dim 32,
+# bf16 tensor-core instantiations per library: each kernel at head_dim 32,
 # 64, 128 and 256 and the SPLIT form (256-column chunks of a wider
-# head_dim), the backward at 32, 64 and 128; each for the three masks
-HOPPER_INSTANTIATIONS = {"flash_fwd": 15, "flash_bwd_dq": 9,
-                         "flash_bwd_dkv": 9}
-# the head_dim whose instantiations must not spill (None: every one)
-SPILL_FREE = {"flash_fwd": None, "flash_bwd_dq": 64, "flash_bwd_dkv": 64}
-# P V at head_dim 256: one m64n256k16 or two m64n128k16 a 16-key step
+# head_dim); each for the three masks
+HOPPER_INSTANTIATIONS = {"flash_fwd": 15, "flash_bwd_dq": 15,
+                         "flash_bwd_dkv": 15}
+# the head_dims whose instantiations must not spill (None: every one; 256
+# names the SPLIT form too): a spill serializes the wgmma products
+SPILL_FREE = {"flash_fwd": None, "flash_bwd_dq": (64, 256),
+              "flash_bwd_dkv": (64, 256)}
+# the products from registers at head_dim 256 (P V; dQ += dS K; dV += P^T
+# dO and dK += dS^T Q): one m64n256k16 or two m64n128k16 a 16-row step
 WIDE_PV_SHAPES = ("64x256x16", "64x128x16")
 # per library: the bf16 tensor-core kernel's name, and what its HGMMA
 # products from descriptors alone and with the transpose bit (.tnspB: the
@@ -887,24 +895,22 @@ def hold_backward(label, got, want, unseen=None, blind=None):
               f"at {label}")
 
 
-# head_dims of the bf16 tensor-core kernels' edge checks: forward and
-# backward at 32, 64 and 128; the forward alone at 256 and at 512 (the
-# head_dim-256 form and its SPLIT form; the backward there is the FMA
-# kernels', held by head_dim_256_checks and head_dims_above_256_checks)
+# head_dims of the bf16 tensor-core kernels' edge checks, forward and
+# backward: the one-warpgroup forms at 32, 64 and 128, the two-warpgroup
+# form at 256 and its SPLIT form at 512
 BF16_EDGE_DIMS = (32, 64, 128, 256, 512)
 
 
 def bf16_edges():
     """The bf16 tensor-core kernels (forward, dK/dV, dQ; fixed-length,
     varlen, flashmask) at their edge shapes, at each of
-    ``BF16_EDGE_DIMS`` (the backward up to 128), against the plain
-    versions: rows that see no key give out of exactly 0, a fully banned
-    flashmask tile is skipped, documents shorter than a tile, kv_len
-    cutting a key tile."""
+    ``BF16_EDGE_DIMS``, against the plain versions: rows that see no key
+    give out and dq of exactly 0, keys no query sees dk and dv of exactly
+    0, a fully banned flashmask tile is skipped, documents shorter than a
+    tile, kv_len cutting a key tile."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import flash_varlen as fv
     for d in BF16_EDGE_DIMS:
-        backward = d <= 128
         scale = 1.0 / math.sqrt(d)
         for bh, sq, sk, kv_len, causal in BF16_FWD_EDGE:
             q, k, v, do = _inputs(bh, sq, sk, d, torch.bfloat16, seed=20)
@@ -918,8 +924,6 @@ def bf16_edges():
             label = (f"edge bh {bh} sq {sq} sk {sk} kv_len {kv_len} d {d} "
                      f"bf16 causal {causal}")
             hold_forward(label, got, want, abs_v, blind)
-            if not backward:
-                continue
             lse, delta = got[1], fa.attention_delta(do, got[0])
             bwd = (q, k, v, do, lse, delta, *args)
             unseen = torch.zeros(bh, sk, dtype=torch.bool, device="cuda")
@@ -939,8 +943,6 @@ def bf16_edges():
             hold_forward(label, got, want, abs_v)
             check(torch.equal(got[0][0], v[0]), "a one-token segment's "
                   "output is not its own v")
-            if not backward:
-                continue
             bwd = (q, k, v, do, got[1], fv.varlen_delta(do, got[0]), plan,
                    scale)
             dq, dk, dv = fv.varlen_bwd_dq(*bwd), *fv.varlen_bwd_dkv(*bwd)
@@ -966,8 +968,6 @@ def bf16_edges():
             label = (f"edge flashmask one open key tile s {s} d {d} bf16 "
                      f"causal {causal}")
             hold_forward(label, got, want, abs_v, ~mask.any(-1))
-            if not backward:
-                continue
             bwd = (q, k, v, do, got[1], fa.attention_delta(do, got[0]), plan,
                    scale)
             hold_backward(label, (fv.flashmask_bwd_dq(*bwd),
@@ -1191,37 +1191,47 @@ def many_tiles_checks():
           f"the limit, worst at {worst:.3g} of it")
     del q, k, v, do, out, lse, delta, dk, dv, dq, plan
     torch.cuda.empty_cache()
-    many_tiles_d256_forward(cu, docs)
+    many_tiles_d256(cu, docs)
 
 
-def many_tiles_d256_forward(cu, docs):
-    """The bf16 varlen and flashmask forwards at head_dim 256 (the
-    two-warpgroup form, 128 query rows a block) over the same ``LONG_TILES
-    * 64`` tokens of one head, held document by document against the plain
+def many_tiles_d256(cu, docs):
+    """The bf16 varlen forward, dK/dV and dQ and the flashmask forward at
+    head_dim 256 (the two-warpgroup forms: 128 query rows a forward or dQ
+    block, one 64-key tile a dK/dV block) over the same ``LONG_TILES *
+    64`` tokens of one head, held document by document against the plain
     versions with ``limit``."""
     from paddle_tpu_torch.ops.cuda import flash_varlen as fv
     t, d = cu[-1], 256
     gen = torch.Generator(device="cuda").manual_seed(59)
-    q, k, v = (torch.randn(t, 1, d, generator=gen, device="cuda")
-               .to(torch.bfloat16) for _ in range(3))
+    q, k, v, do = (torch.randn(t, 1, d, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
     scale = 1.0 / math.sqrt(d)
     cu_t = torch.tensor(cu, device="cuda", dtype=torch.int32)
     worst = 0.0
     plan = fv.varlen_plan(cu_t, cu_t, t, t, True)
     out, lse = fv.varlen_fwd(q, k, v, plan, scale)
+    delta = fv.varlen_delta(do, out)
+    dk, dv = fv.varlen_bwd_dkv(q, k, v, do, lse, delta, plan, scale)
+    dq = fv.varlen_bwd_dq(q, k, v, do, lse, delta, plan, scale)
     for i in docs:
         a, b = cu[i], cu[i + 1]
         sl = slice(a, b)
         one = torch.tensor([0, b - a], device="cuda", dtype=torch.int32)
         sub = fv.varlen_plan(one, one, b - a, b - a, True)
-        p_out, p_lse = fv.varlen_fwd_plain(q[sl], k[sl], v[sl], sub, scale)
+        args = (q[sl], k[sl], v[sl])
+        p_out, p_lse = fv.varlen_fwd_plain(*args, sub, scale)
         abs_v = fv.varlen_fwd_plain(q[sl], k[sl], v[sl].abs(), sub,
                                     scale)[0]
+        bw = (do[sl], lse[:, sl], delta[:, sl], sub, scale)
+        p_dk, p_dv = fv.varlen_bwd_dkv_plain(*args, *bw)
+        p_dq = fv.varlen_bwd_dq_plain(*args, *bw)
         worst = max(worst, _long_hold(
             f"varlen {t} tokens d {d}, document {i} [{a}, {b})",
-            {"out": out[sl], "lse": lse[:, sl]},
-            {"out": p_out, "lse": p_lse}, abs_v))
-    del out, lse, plan
+            {"out": out[sl], "lse": lse[:, sl], "dq": dq[sl], "dk": dk[sl],
+             "dv": dv[sl]},
+            {"out": p_out, "lse": p_lse, "dq": p_dq, "dk": p_dk,
+             "dv": p_dv}, abs_v))
+    del out, lse, delta, dk, dv, dq, plan, do
     q, k, v = (x.view(1, t, d) for x in (q, k, v))
     ends = torch.tensor(cu[1:], device="cuda", dtype=torch.int32)
     start = ends.repeat_interleave(torch.diff(cu_t)).view(1, 1, t, 1)
@@ -1242,8 +1252,8 @@ def many_tiles_d256_forward(cu, docs):
             {"out": out[:, sl], "lse": lse[:, sl]},
             {"out": p_out, "lse": p_lse}, abs_v))
     print(f"{LONG_TILES} query tiles ({t} tokens, bf16, head_dim {d}, "
-          f"varlen and flashmask forward): documents {docs} within the "
-          f"limit, worst at {worst:.3g} of it")
+          f"varlen forward and backward, flashmask forward): documents "
+          f"{docs} within the limit, worst at {worst:.3g} of it")
 
 
 def keyless_rows_check():
@@ -1609,27 +1619,31 @@ def fixed_timings(b, h, s, d, seed, dtype=torch.bfloat16):
 # place of gpt2-medium's 16 x 64, over the same tokens per mask
 D256_HEADS = 16
 # shared memory a block at head_dim 256, as the launchers size it. The
-# bf16 forward (flash_fwd.cu WideSmem): seven 64 x 256 bf16 tiles, 1024
-# bytes of alignment, 15 mbarriers. The FMA kernels (flash_common.cuh:
-# 64-row tiles of D + 1 floats, score tiles of 65; the backward in 32-row
-# passes): the forward's Q, K, V tiles and P (fp32 and fp16 io); dQ: 32
+# bf16 kernels (flash_common.cuh WideSmem): seven 64 x 256 bf16 tiles, 1024
+# bytes of alignment, 15 mbarriers, 32 bytes of thread 0's ring state and
+# 1 KB of dK/dV's lse and delta rows. The FMA kernels of fp32 and fp16 io
+# (flash_common.cuh: 64-row tiles of D + 1 floats, score tiles of 65; the
+# backward in 32-row passes): the forward's Q, K, V tiles and P; dQ: 32
 # rows of Q and dO, 64 of K and V, 32 x 65 dS, 32 lse and delta; dK/dV: 32
 # rows of K and V, 64 of Q and dO, 64 x 33 P and dS, 64 lse and delta
-D256_SMEM = {"flash_fwd bf16": 1024 + 7 * 64 * 256 * 2 + 8 * 15,
+_WIDE_SMEM = 1024 + 7 * 64 * 256 * 2 + 8 * 15 + 32 + 4 * 256
+D256_SMEM = {"flash_fwd bf16": _WIDE_SMEM,
+             "flash_bwd_dq bf16": _WIDE_SMEM,
+             "flash_bwd_dkv bf16": _WIDE_SMEM,
              "flash_fwd fp32/fp16": 4 * (3 * 64 * 257 + 64 * 65),
-             "flash_bwd_dq": 4 * (2 * 32 * 257 + 2 * 64 * 257 + 32 * 65
-                                  + 2 * 32),
-             "flash_bwd_dkv": 4 * (2 * 32 * 257 + 2 * 64 * 257 + 2 * 64 * 33
-                                   + 2 * 64)}
+             "flash_bwd_dq fp32/fp16": 4 * (2 * 32 * 257 + 2 * 64 * 257
+                                            + 32 * 65 + 2 * 32),
+             "flash_bwd_dkv fp32/fp16": 4 * (2 * 32 * 257 + 2 * 64 * 257
+                                             + 2 * 64 * 33 + 2 * 64)}
 
 
 def d256_timings():
-    """The three masks' kernels at head_dim 256, bf16 (the forward on the
-    tensor cores, two warpgroups a block; the backward on the FMA
-    kernels), beside their bounds, plain versions and the library's
-    forward."""
-    print(f"head_dim 256 (bf16: the forward on the tensor cores, the "
-          f"backward on the FMA kernels), shared memory per block: " +
+    """The three masks' kernels at head_dim 256, bf16 (forward, dQ and
+    dK/dV on the tensor cores, two warpgroups a block), beside their
+    bounds, plain versions and the library's forward and whole
+    backward."""
+    print(f"head_dim 256 (bf16: every kernel on the tensor cores, two "
+          f"warpgroups a block), shared memory per block: " +
           ", ".join(f"{k} {v} B" for k, v in D256_SMEM.items()) +
           " of 232448")
     results = [fixed_timings(BATCH, D256_HEADS, SEQ, 256, seed=60),
@@ -1641,14 +1655,14 @@ def d256_timings():
 
 def d512_timings():
     """The three masks' kernels at head_dim 512, bf16 (each kernel's 256
-    form split over two 256-column chunks, one block per chunk: the
-    forward on the tensor cores with Q's two chunks resident, the backward
-    on the FMA kernels), beside their bounds, plain versions and the
-    library's forward."""
-    print("head_dim 512 (bf16: each kernel's 256 form split over two "
-          "256-column chunks, one block per chunk; the forward on the "
-          "tensor cores, the backward on the FMA kernels; shared memory "
-          "per block as at 256)")
+    form on the tensor cores split over two 256-column chunks, one block
+    per chunk: the forward with Q's two chunks resident, dQ with Q and dO
+    streamed, dK/dV with K's and V's two chunks resident), beside their
+    bounds, plain versions and the library's forward and whole
+    backward."""
+    print("head_dim 512 (bf16: each kernel's 256 form on the tensor "
+          "cores split over two 256-column chunks, one block per chunk; "
+          "shared memory per block as at 256)")
     results = [fixed_timings(BATCH, D256_HEADS, SEQ, 512, seed=63),
                varlen_timings(D256_HEADS, 512, seed=64),
                flashmask_timings(D256_HEADS, 512, seed=65)]
@@ -1668,6 +1682,9 @@ def fp16_timings():
 # the public-entry run at head_dim 256: [batch, seq, heads, head_dim] of
 # Gemma-7B's attention (16 heads of 256) at gpt2-medium's tokens
 D256_ENTRY = (BATCH, SEQ, D256_HEADS, 256)
+# its forward + backward ms when the backward ran the FMA kernels
+# (chip_smoke.py phase 4b, NVIDIA H100 80GB HBM3 at 700 W)
+D256_ENTRY_FMA_MS = 20.49
 
 
 def d256_entry_path():
@@ -1676,8 +1693,10 @@ def d256_entry_path():
     each fixed-length kernel, holds out, dq, dk and dv against the plain
     versions with ``limit`` (the plain backward from the kernel's own lse,
     as in phase 3), shows under ``torch.profiler`` that the forward ran
-    ``flash_fwd_hopper`` and no ``flash_fwd_kernel``, and times the
-    forward and forward + backward."""
+    ``flash_fwd_hopper`` and no ``flash_fwd_kernel`` and the backward
+    ``flash_bwd_dq_hopper`` and ``flash_bwd_dkv_hopper`` and no
+    ``flash_bwd_*_kernel``, and times the forward and forward + backward
+    (beside ``D256_ENTRY_FMA_MS``)."""
     import paddle_tpu_torch.nn.functional as PF
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from torch.profiler import ProfilerActivity, profile
@@ -1732,13 +1751,25 @@ def d256_entry_path():
     check(any("flash_fwd_hopper" in n for n in names)
           and not any("flash_fwd_kernel" in n for n in names),
           f"the entry's forward ran {names}, want flash_fwd_hopper alone")
+    out, _ = PF.flash_attention(ql, kl, vl, causal=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out.backward(do)
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages() if "flash" in e.key})
+    print(f"profiled backward, kernels: {names}")
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        check(any(f"{kernel}_hopper" in n for n in names)
+              and not any(f"{kernel}_kernel" in n for n in names),
+              f"the entry's backward ran {names}, want {kernel}_hopper "
+              f"and no {kernel}_kernel")
     with torch.no_grad():
         fwd_ms = cuda_ms(lambda: PF.flash_attention(q, k, v, causal=True),
                          10)
     step_ms = cuda_ms(lambda: PF.flash_attention(
         ql, kl, vl, causal=True)[0].backward(do), 5)
     print(f"flash_attention [{b}, {s}, {h}, {d}] bf16 causal: forward "
-          f"{fwd_ms:.4f} ms, forward + backward {step_ms:.4f} ms")
+          f"{fwd_ms:.4f} ms, forward + backward {step_ms:.4f} ms (with the "
+          f"FMA backward: {D256_ENTRY_FMA_MS} ms)")
     return launches
 
 

@@ -5,7 +5,11 @@ payloads, ``body(*tensors, **attrs)``, returning a tensor or (for a
 ``multi_output`` op) a tuple of them. ``register_op`` records it; ``call``
 runs it by name through the port's one dispatch path
 (``dispatch.apply(name, body, ...)``), so AMP's per-name rules apply to a
-call by name as they do to a direct ``apply``. Autograd is torch's.
+call by name as they do to a direct ``apply``. Autograd is torch's, unless
+the op was registered with a ``bwd``: then ``call`` runs the body inside
+a ``torch.autograd.Function`` whose backward is
+``bwd(saved_inputs, gouts, **attrs)``, as the reference's dispatcher runs
+it in place of autodiff.
 
 The schema of record is the port's own ``ops/yaml/ops.yaml``: an op that
 is not declared there cannot be registered, except through the escape
@@ -16,23 +20,31 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
+
+import torch
 
 from .dispatch import apply
 
 
 class OpDef:
-    """One registered op: ``fn`` its body, ``multi_output`` whether it
-    returns a tuple, ``custom`` whether it was registered outside the
-    schema."""
+    """One registered op: ``fn`` its body, ``bwd`` its gradient where it
+    replaces autodiff (``bwd(saved_inputs, gouts, **attrs)`` -> a tuple of
+    input gradients, None allowed), ``multi_output`` whether it returns a
+    tuple, ``spmd_rule`` the reference's sharding rule (stored; the port
+    has no SPMD use for it yet), ``custom`` whether it was registered
+    outside the schema."""
 
-    __slots__ = ("name", "fn", "multi_output", "custom")
+    __slots__ = ("name", "fn", "bwd", "multi_output", "spmd_rule", "custom")
 
-    def __init__(self, name: str, fn: Callable, multi_output: bool = False,
+    def __init__(self, name: str, fn: Callable, bwd: Optional[Callable] = None,
+                 multi_output: bool = False, spmd_rule=None,
                  custom: bool = False):
         self.name = name
         self.fn = fn
+        self.bwd = bwd
         self.multi_output = multi_output
+        self.spmd_rule = spmd_rule
         self.custom = custom
 
 
@@ -54,10 +66,13 @@ def schema_names():
     return _SCHEMA_NAMES
 
 
-def register_op(name: str, fn: Callable = None, *, multi_output=False,
-                custom=False):
-    """Registers ``fn`` as op ``name`` (also as a decorator). A framework
-    op needs an ``ops.yaml`` entry; ``custom=True`` registers one without."""
+def register_op(name: str, fn: Callable = None, *, bwd: Callable = None,
+                multi_output=False, spmd_rule=None, custom=False):
+    """Registers ``fn`` as op ``name`` (also as a decorator), with ``bwd``
+    and ``spmd_rule`` as the reference's ``register_op`` takes them. A
+    framework op needs an ``ops.yaml`` entry; ``custom=True`` registers one
+    without. Returns ``fn``, so that a decorated body stays a function
+    (the reference returns the ``OpDef``; ``get_op`` gives it here)."""
     def _do(f):
         if name in _OPS:
             raise ValueError(f"op '{name}' already registered")
@@ -66,7 +81,8 @@ def register_op(name: str, fn: Callable = None, *, multi_output=False,
                 f"op '{name}' has no ops.yaml entry: the schema "
                 f"(paddle_tpu_torch/ops/yaml/ops.yaml) is the system of "
                 f"record; add an entry or register with custom=True")
-        _OPS[name] = OpDef(name, f, multi_output, custom)
+        _OPS[name] = OpDef(name, f, bwd=bwd, multi_output=multi_output,
+                           spmd_rule=spmd_rule, custom=custom)
         return f
     return _do if fn is None else _do(fn)
 
@@ -82,7 +98,38 @@ def all_ops() -> Dict[str, OpDef]:
     return dict(_OPS)
 
 
+_SAVED = object()  # an input kept by save_for_backward
+
+
+class _CustomGrad(torch.autograd.Function):
+    """An op whose gradient is its ``bwd``: the body runs without a graph,
+    the inputs are kept, and the backward hands ``bwd`` the inputs and the
+    output gradients (zeros for outputs that got none)."""
+
+    @staticmethod
+    def forward(ctx, op, attrs, *args):
+        ctx.op, ctx.attrs = op, attrs
+        tensors = [a for a in args if isinstance(a, torch.Tensor)]
+        ctx.save_for_backward(*tensors)
+        ctx.args = [_SAVED if isinstance(a, torch.Tensor) else a for a in args]
+        return op.fn(*args, **attrs)
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        saved = iter(ctx.saved_tensors)
+        inputs = tuple(next(saved) if a is _SAVED else a for a in ctx.args)
+        grads = tuple(ctx.op.bwd(inputs, gouts, **ctx.attrs))
+        grads = grads + (None,) * (len(inputs) - len(grads))
+        return (None, None, *(g if isinstance(x, torch.Tensor) else None
+                              for g, x in zip(grads, inputs)))
+
+
 def call(name: str, *inputs, **attrs):
     """Runs the registered op ``name`` on ``inputs`` (``Tensor``s, torch
-    tensors or other values) with ``attrs``."""
-    return apply(name, get_op(name).fn, *inputs, **attrs)
+    tensors or other values) with ``attrs``; through its ``bwd`` where it
+    has one."""
+    op = get_op(name)
+    if op.bwd is None:
+        return apply(name, op.fn, *inputs, **attrs)
+    return apply(name, lambda *args, **kw: _CustomGrad.apply(op, kw, *args),
+                 *inputs, **attrs)

@@ -128,14 +128,24 @@ class Tensor:
         return a if dtype is None else a.astype(dtype)
 
     def set_value(self, value) -> "Tensor":
-        """Overwrite the payload in place (shape kept, dtype cast)."""
+        """Takes ``value``'s contents as a fresh payload (shape kept, dtype
+        and device this tensor's), as the reference replaces its buffer:
+        the old payload is not written, so a reshape, slice or view taken
+        before keeps its values. A leaf keeps its ``stop_gradient`` and its
+        ``grad``, and a parameter stays the same object (optimizers hold
+        the wrapper, not the payload)."""
         src = value._t if isinstance(value, Tensor) else \
             to_tensor(value, place=self._t.device)._t
         if tuple(src.shape) != tuple(self._t.shape):
             raise ValueError(f"set_value shape mismatch: {tuple(src.shape)} "
                              f"vs {tuple(self._t.shape)}")
-        with torch.no_grad():
-            self._t.copy_(src)
+        old = self._t
+        new = src.detach().to(device=old.device, dtype=old.dtype, copy=True)
+        if old.requires_grad:
+            new.requires_grad_()
+            if old.grad_fn is None:
+                new.grad = old.grad
+        self._t = new
         return self
 
     def copy_(self, other) -> "Tensor":

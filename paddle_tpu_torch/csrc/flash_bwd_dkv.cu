@@ -2,7 +2,12 @@
 // causal batches, packed variable-length sequences and flashmask (start/end
 // row) masks, two kernels templated on the mask: a tensor-core kernel for
 // bf16 io (`flash_bwd_dkv_hopper`) and an fp32 FMA kernel for float and
-// fp16 io (`flash_bwd_dkv_kernel`). `dkv_any` picks one by the io type.
+// fp16 io (`flash_bwd_dkv_kernel`). `dkv_any` picks one by the io type. The
+// bf16 kernel has two forms: head_dim 32, 64 and 128 (one warpgroup) and
+// head_dim 256 (two warpgroups, `dkv_wide`); a head_dim above 256 (a
+// multiple of 256: the wrappers pad to it) runs either kernel's 256 form
+// split over it (SPLIT): one block per 256-column chunk of dK and dV, S and
+// dP over the whole head_dim recomputed by every chunk's block.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py `_dkv_kernel`
 // (launched from `_bwd`; entry `pt_flash_bwd_dkv`, CausalMask),
@@ -60,14 +65,44 @@
 //   A operands (16 for each of P hi, P lo, dS hi, dS lo) a thread; D <= 64
 //   runs two blocks an SM (up to 255 registers a thread), D = 128 one.
 // The FMA kernel (`flash_bwd_dkv_kernel`), 256 threads: products as fp32
-// FMAs from shared memory, for the fp32 and fp16 models and checks, and for
-// every io type at head_dim 256 (in two 32-key passes, DkvFma) and, split
-// over the head_dim in 256-column chunks of dK and dV (SPLIT), above it.
+// FMAs from shared memory, for the fp32 and fp16 models and checks, at
+// head_dim 256 in two 32-key passes (DkvFma) and, split over the head_dim
+// in 256-column chunks of dK and dV (SPLIT), above it.
 //
-// Grid: FMA (ceil(Sk / 64), heads, head_dim / 256 above 256); bf16 the
-// same for the fixed-length mask and (heads, ceil(Sk / 64)) for the varlen
-// and flashmask masks, the key tiles first to last (the longest first
-// under a causal mask); at most 65535 heads a launch (by_head_slices).
+// The bf16 kernel at head_dim 256 (`dkv_wide`), one block per (head,
+// 64-row key tile, 256-column chunk of dK and dV), 256 threads: two
+// consumer warpgroups on the same key tile. What bounds it at the
+// fixed-length shape (BH = 128, S = 1024, D = 256, causal): 1.4e11 FLOP
+// (139 us) against 404 MB (121 us): the operations.
+// - Registers decide the split. dK and dV are 128 fp32 a thread each at
+//   D = 256, so one warpgroup cannot hold both: warpgroup 0 computes
+//   S^T = K Q^T, P^T and dV += P^T dO (hi, lo); warpgroup 1 computes S^T,
+//   dP^T = V dO^T, dS^T and dK += dS^T Q (hi, lo). S^T is computed twice:
+//   7 products a query tile where 6 would do, but each thread holds one
+//   accumulator (128), S^T and dP^T (64) and then 32 of packed A operand.
+//   The alternatives cost more products: each warpgroup owning 128 columns
+//   of both dK and dV recomputes S^T and dP^T in both (8), and a grid
+//   split of the columns recomputes them per block. ptxas gives 229-254
+//   registers, no spill, one block an SM; the query tile's lse and delta
+//   go through 1 KB of shared memory (each warpgroup stores them between
+//   two of its own barriers), not 16 registers a thread.
+// - Shared memory, the forward's seven 32 KB buffers (WideSmem): K's and
+//   V's chunks resident up to D = 512 (two buffers a chunk), the rest a
+//   ring of (Q, dO) tiles (5 slots at D = 256, 3 at 512); above 512 all
+//   seven are the ring and K and V stream beside Q and dO. Per query tile
+//   the fills are, chunk by chunk with the block's own chunk last,
+//   [K_c, V_c,] Q_c, dO_c; Q and dO of the own chunk stay until the dK and
+//   dV products are done. Thread 0 (the dV warpgroup, which has the fewer
+//   products) issues them, as in the dQ kernel.
+// - Products a query tile: S^T (and dP^T) as 16 `wgmma` m64n64k16 per
+//   chunk, then 4 m64n256k16 for hi and 4 for lo, dO or Q MN-major.
+//
+// Grid: FMA (ceil(Sk / 64), heads, head_dim / 256 above 256); bf16 below
+// 256 the same for the fixed-length mask and (heads, ceil(Sk / 64)) for
+// the varlen and flashmask masks, the key tiles first to last (the longest
+// first under a causal mask); bf16 at 256 and above
+// (ceil(Sk / 64) * chunks, heads) or (heads, ceil(Sk / 64) * chunks), the
+// chunk varying fastest; at most 65535 heads a launch (by_head_slices).
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -292,15 +327,16 @@ __device__ __forceinline__ void dkv_p_ds_tile(const Mask& mask, int i, const Row
     }
 }
 
+// The one-warpgroup form (head_dim 32, 64, 128).
 template <int D, typename Mask>
-__global__ void __launch_bounds__(HOP_CONSUMERS, D == 128 ? 1 : 2)
-flash_bwd_dkv_hopper(const __grid_constant__ CUtensorMap tm_q,
-                     const __grid_constant__ CUtensorMap tm_k,
-                     const __grid_constant__ CUtensorMap tm_v,
-                     const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
-                     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, Layout lay, Mask heads_mask, float scale,
-                     int packed, int tiles_x) {
+__device__ __forceinline__ void dkv_narrow(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                                           const CUtensorMap& tm_v, const CUtensorMap& tm_do,
+                                           const float* __restrict__ lse,
+                                           const float* __restrict__ delta,
+                                           __nv_bfloat16* __restrict__ dk,
+                                           __nv_bfloat16* __restrict__ dv, const Layout& lay,
+                                           const Mask& heads_mask, float scale, int packed,
+                                           int tiles_x) {
   using Tile = HopTile<D>;
   constexpr int STAGES = DkvRing<D>::STAGES;
   using namespace pt_hopper;
@@ -464,6 +500,257 @@ flash_bwd_dkv_hopper(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// dkv_p_ds_tile's P^T alone (the dV warpgroup of the head_dim-256 form),
+// left in `st`.
+template <bool FULL, typename Mask>
+__device__ __forceinline__ void dkv_p_tile(const Mask& mask, int i, const RowInfo (&ki)[2],
+                                           int cq, float scale, const float* stats,
+                                           float (&st)[32]) {
+  const float scale_log2 = scale * LOG2E;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * jj + cq + e;
+      const float lse2 = stats[col];
+      RowInfo qi{};
+      if (!FULL) qi = mask.q_row(i * BQ + col);
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int x = 4 * jj + 2 * h2 + e;
+        const float p = exp2_ftz(fmaf(st[x], scale_log2, -lse2));
+        st[x] = FULL || mask.visible(qi, ki[h2]) ? p : 0.f;
+      }
+    }
+}
+
+// The head_dim-256 form: one 64-row key tile kt of head h and the
+// 256-column chunk cz of dK and dV of `chunks` (SPLIT; 1 otherwise);
+// warpgroup 0 computes dV, warpgroup 1 dK. See the notes at the top of the
+// file.
+template <typename Mask, bool SPLIT>
+__device__ __forceinline__ void dkv_wide(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
+                                         const CUtensorMap* tm_v, const CUtensorMap* tm_do,
+                                         const float* __restrict__ lse,
+                                         const float* __restrict__ delta,
+                                         __nv_bfloat16* __restrict__ dk,
+                                         __nv_bfloat16* __restrict__ dv, const Layout& lay,
+                                         const Mask& heads_mask, float scale, int packed,
+                                         int tiles_x, int chunks) {
+  using Tile = HopTile<256>;
+  using namespace pt_hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* bufs = align_1024(smem_raw);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(bufs + WideSmem::BARRIERS);
+
+  const int n = SPLIT ? chunks : 1;
+  const bool kv_res = n <= 2;  // K's and V's chunks resident; else streamed
+  const int kv_bufs = kv_res ? 2 * n : 0;
+  const int per_chunk = kv_res ? 2 : 4;  // fills of a chunk: [K_c, V_c,] Q_c, dO_c
+
+  // the grid's tile axis holds (key tile, chunk), the chunk fastest; key
+  // tiles first to last, the longest first under a causal mask
+  const int h = tiles_x ? blockIdx.y : blockIdx.x;
+  const int tile = tiles_x ? blockIdx.x : blockIdx.y;
+  const int cz = SPLIT ? tile % n : 0;
+  const int kt = tile / n;
+  const int k0 = kt * BK;
+  const Mask mask = heads_mask.at_head(h);
+  const int2 tiles = mask.query_tiles(kt);
+  // the query tiles visited, in order: the loads and the products walk the
+  // same list
+  auto next_tile = [&](int i) {
+    for (++i; i < tiles.y && !mask.tile_open(i, kt); ++i) {
+    }
+    return i;
+  };
+
+  // The fills, per query tile of the list and per chunk, this block's own
+  // chunk last (its Q and dO stay for the dK and dV products): [K_c, V_c,]
+  // Q_c, dO_c.
+  auto more = [&](const RingIssuer& is) { return is.tile < tiles.y; };
+  auto load = [&](RingIssuer& is, uint8_t* dst, uint64_t* bar) {
+    const int c = (cz + 1 + is.fill / per_chunk) % n, sub = is.fill % per_chunk;
+    const bool qo = sub + 2 >= per_chunk;
+    const CUtensorMap* map = qo ? (sub + 2 == per_chunk ? tm_q : tm_do) : sub ? tm_v : tm_k;
+    tma_tile<256>(dst, map, bar, qo ? is.tile * BQ : k0, h, packed, c * 256);
+    if (++is.fill == per_chunk * n) {
+      is.fill = 0;
+      is.tile = next_tile(is.tile);
+    }
+  };
+  auto ring = wide_ring(bufs, kv_bufs, next_tile(tiles.x - 1), more, load);
+  if (threadIdx.x == 0) {
+    tma_prefetch_map(tm_k);
+    tma_prefetch_map(tm_v);
+    tma_prefetch_map(tm_q);
+    tma_prefetch_map(tm_do);
+    if (kv_res) {  // buffers 2 c and 2 c + 1: K's and V's chunk c
+      mbar_arrive_expect_tx(kv_full, kv_bufs * Tile::BYTES);
+      for (int x = 0; x < kv_bufs; ++x)
+        tma_tile<256>(bufs + x * Tile::BYTES, x & 1 ? tm_v : tm_k, kv_full, k0, h, packed,
+                      (x >> 1) * 256);
+    }
+  }
+
+  // A consumer warpgroup: w = 0 computes dV, w = 1 dK. Thread t holds key
+  // rows r and r + 8 of the tile and, of each 8 columns of S^T, dP^T, dK or
+  // dV, the pair at 2 * (t % 4).
+  const int w = threadIdx.x / HOP_CONSUMERS;
+  const int t = threadIdx.x % HOP_CONSUMERS;
+  const int r = 16 * (t / 32) + (t % 32) / 4;
+  const int cq = 2 * (t % 4);
+  const float* lb = lse + (size_t)h * lay.sq;
+  const float* db = delta + (size_t)h * lay.sq;
+  // this warpgroup's query tile's 64 lse * log2(e), then its 64 delta
+  float* stats = reinterpret_cast<float*>(bufs + WideSmem::STATS) + w * HOP_CONSUMERS;
+
+  float acc[128];
+#pragma unroll
+  for (int x = 0; x < 128; ++x) acc[x] = 0.f;
+  const RowInfo ki[2] = {mask.k_row(k0 + r), mask.k_row(k0 + r + 8)};
+
+  if (kv_res) mbar_wait(kv_full, 0);
+#pragma unroll 1
+  for (int i = next_tile(tiles.x - 1); i < tiles.y; i = next_tile(i)) {
+    // thread t's value of the tile's stats: lse * log2(e) of row t, or
+    // delta of row t - 64; 0 past the last row (whose q and dO are 0, so it
+    // adds exact zeros). Read now, stored after the products, so that the
+    // load's latency passes under them.
+    const int qp = i * BQ + (t & (BQ - 1));
+    const float stat = qp >= lay.sq ? 0.f : t < BQ ? lb[qp] * LOG2E : db[qp];
+    // S^T and dP^T (the dK warpgroup's), fresh each tile
+    float st[32], dpt[32];
+#pragma unroll
+    for (int x = 0; x < 32; ++x) st[x] = dpt[x] = 0.f;
+    int qs = 0, ds = 0;  // the slots of this block's chunk of Q and dO
+#pragma unroll 1
+    for (int ci = 0; ci < n; ++ci) {
+      const int c = (cz + 1 + ci) % n;
+      int ks = 0, vs = 0;
+      if (!kv_res) {
+        ks = ring.take();
+        vs = ring.take();
+      }
+      qs = ring.take();
+      ds = ring.take();
+      uint32_t k_addr = kv_res ? smem_u32(bufs + 2 * c * Tile::BYTES) : ring.addr(ks);
+      uint32_t v_addr = kv_res ? smem_u32(bufs + (2 * c + 1) * Tile::BYTES) : ring.addr(vs);
+      asm volatile("" : "+r"(k_addr), "+r"(v_addr));
+      if (w) {
+        fence_regs(st);
+        fence_regs(dpt);
+        wgmma_fence();
+        wgmma_nt<256>(st, k_addr, ring.addr(qs), ci > 0);   // S^T += K_c Q_c^T
+        wgmma_nt<256>(dpt, v_addr, ring.addr(ds), ci > 0);  // dP^T += V_c dO_c^T
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
+      } else {
+        fence_regs(st);
+        wgmma_fence();
+        wgmma_nt<256>(st, k_addr, ring.addr(qs), ci > 0);  // S^T += K_c Q_c^T
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+      }
+      if (!kv_res) {
+        ring.release(ks);
+        ring.release(vs);
+      }
+      if (ci + 1 < n) {
+        ring.release(qs);
+        ring.release(ds);
+      }
+    }
+    // the warpgroup's stats of this tile: every thread has read the last
+    // tile's before the first barrier, and stored its value before the
+    // second
+    warpgroup_sync(w);
+    stats[t] = stat;
+    warpgroup_sync(w);
+    // P^T (dV), or P^T and dS^T (dK): the dV warpgroup reads no dS^T
+    const bool whole = mask.tile_full(i, kt);
+    if (w) {
+      if (whole)
+        dkv_p_ds_tile<true>(mask, i, ki, cq, scale, stats, st, dpt);
+      else
+        dkv_p_ds_tile<false>(mask, i, ki, cq, scale, stats, st, dpt);
+    } else {
+      if (whole)
+        dkv_p_tile<true>(mask, i, ki, cq, scale, stats, st);
+      else
+        dkv_p_tile<false>(mask, i, ki, cq, scale, stats, st);
+    }
+    // P^T (dV, in st) or dS^T (dK, in dpt) as the A operand, hi and lo
+    // parts: its k-th 16 queries are values 8k .. 8k + 7; the B operand dO
+    // or Q, MN-major
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int y = 8 * k + 2 * x;
+        pack_bf16_split(w ? dpt[y] : st[y], w ? dpt[y + 1] : st[y + 1], ah[k][x], al[k][x]);
+      }
+    const uint32_t b_addr = ring.addr(w ? qs : ds);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {  // dV += P^T dO_cz, dK += dS^T Q_cz
+      wgmma_rs_d<256>(acc, ah[k], Tile::mn_major(b_addr, k));
+      wgmma_rs_d<256>(acc, al[k], Tile::mn_major(b_addr, k));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      fence_regs(ah[k]);
+      fence_regs(al[k]);
+    }
+    ring.release(qs);
+    ring.release(ds);
+  }
+  // the fills the other warpgroup still takes
+  if (threadIdx.x == 0) ring.issue(INT_MAX);
+
+  __nv_bfloat16* out = w ? dk : dv;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int kp = k0 + r + 8 * h2;
+    if (kp >= lay.sk) continue;
+    __nv_bfloat16* row = out + h * lay.k_hs + (long long)kp * lay.k_rs + cz * 256 + cq;
+#pragma unroll
+    for (int jd = 0; jd < 32; ++jd)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * jd) =
+          __floats2bfloat162_rn(acc[4 * jd + 2 * h2], acc[4 * jd + 2 * h2 + 1]);
+  }
+}
+
+// The bf16 tensor-core kernel: the one-warpgroup form below head_dim 256,
+// the two-warpgroup form at 256 (SPLIT: one 256-column chunk of a wider
+// head_dim, `chunks` of them).
+template <int D, typename Mask, bool SPLIT = false>
+__global__ void __launch_bounds__(D == 256 ? WIDE_NT : HOP_CONSUMERS,
+                                  D == 256 || D == 128 ? 1 : 2)
+flash_bwd_dkv_hopper(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, Layout lay, Mask heads_mask, float scale,
+                     int packed, int tiles_x, int chunks) {
+  static_assert(D == 256 || !SPLIT, "SPLIT is the head_dim-256 form's");
+  if constexpr (D == 256)
+    dkv_wide<Mask, SPLIT>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, lay, heads_mask,
+                          scale, packed, tiles_x, chunks);
+  else
+    dkv_narrow<D, Mask>(tm_q, tm_k, tm_v, tm_do, lse, delta, dk, dv, lay, heads_mask, scale,
+                        packed, tiles_x);
+}
+
 template <int D, typename Mask>
 cudaError_t dkv_hopper(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int heads,
@@ -483,9 +770,36 @@ cudaError_t dkv_hopper(const void* q, const void* k, const void* v, const void* 
   if (!err) err = hop_map<D>(&mv, v, lay.sk, heads, lay.k_rs, lay.k_hs, packed);
   if (err) return (cudaError_t)err;
   return launch_nt(flash_bwd_dkv_hopper<D, Mask>, grid, HOP_CONSUMERS, DkvRing<D>::SMEM, stream,
-                   mq,
-                   mk, mv, mdo, (const float*)lse, (const float*)delta, (__nv_bfloat16*)dk,
-                   (__nv_bfloat16*)dv, lay, mask, scale, packed, tiles_x);
+                   mq, mk, mv, mdo, (const float*)lse, (const float*)delta, (__nv_bfloat16*)dk,
+                   (__nv_bfloat16*)dv, lay, mask, scale, packed, tiles_x, 1);
+}
+
+// The head_dim-256 form over `chunks` 256-column chunks of the head_dim
+// (SPLIT when more than one).
+template <typename Mask, bool SPLIT>
+cudaError_t dkv_wide_launch(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* delta, void* dk, void* dv, int heads,
+                            Layout lay, Mask mask, float scale, int packed, void* stream,
+                            int chunks) {
+  const long long nkt = (lay.sk + BK - 1) / BK;
+  const long long ext = nkt * chunks;
+  // as dkv_hopper: fixed-length tiles of one head side by side, the varlen
+  // and flashmask heads side by side, more than MAX_GRID_Y on x
+  const int tiles_x = std::is_same<Mask, CausalMask>::value || ext > MAX_GRID_Y;
+  if (heads < 1 || heads > MAX_GRID_Y || nkt < 1 || ext > INT_MAX || (chunks > 1) != SPLIT)
+    return cudaErrorInvalidValue;
+  const dim3 grid = tiles_x ? dim3((unsigned)ext, heads) : dim3(heads, (unsigned)ext);
+  const int d = 256 * chunks;
+  CUtensorMap mq, mk, mv, mdo;
+  int err = hop_map<256>(&mq, q, lay.sq, heads, lay.q_rs, lay.q_hs, packed, d);
+  if (!err) err = hop_map<256>(&mdo, dout, lay.sq, heads, lay.q_rs, lay.q_hs, packed, d);
+  if (!err) err = hop_map<256>(&mk, k, lay.sk, heads, lay.k_rs, lay.k_hs, packed, d);
+  if (!err) err = hop_map<256>(&mv, v, lay.sk, heads, lay.k_rs, lay.k_hs, packed, d);
+  if (err) return (cudaError_t)err;
+  return launch_nt(flash_bwd_dkv_hopper<256, Mask, SPLIT>, grid, WIDE_NT, WideSmem::SMEM,
+                   stream,
+                   mq, mk, mv, mdo, (const float*)lse, (const float*)delta, (__nv_bfloat16*)dk,
+                   (__nv_bfloat16*)dv, lay, mask, scale, packed, tiles_x, chunks);
 }
 
 // ------------------------------------------------------ launch and entries
@@ -502,23 +816,30 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout, c
 }
 
 // bf16 to the tensor-core kernel, float and fp16 to the FMA kernel (io:
-// see Io); head_dim 256 to the FMA kernel at every io type, and a head_dim
-// above 256 (a multiple of 256: the wrappers pad to it) to the FMA kernel
-// split over it. `packed` says the tensors are [T, H, D] (varlen) rather
-// than [BH, S, D]. One slice of at most MAX_GRID_Y heads.
+// see Io), chosen by io type at every head_dim; head_dim 256 to either
+// kernel's 256 form, and a head_dim above 256 (a multiple of 256: the
+// wrappers pad to it) to the same form split over it. `packed` says the
+// tensors are [T, H, D] (varlen) rather than [BH, S, D]. One slice of at
+// most MAX_GRID_Y heads.
 template <typename Mask>
 cudaError_t dkv_heads(int d, int io, const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta, void* dk, void* dv,
                       int heads, Layout lay, Mask mask, float scale, int packed, void* stream) {
-  if (d > 256) {
+  if (d >= 256) {
     if (d % 256) return cudaErrorInvalidValue;
-    PT_FLASH_SWITCH_IO(io, return dkv<T, 256, Mask, true>(q, k, v, dout, lse, delta, dk, dv,
-                                                          heads, lay, mask, scale, stream,
-                                                          d / 256))
-  }
-  if (d == 256) {
-    PT_FLASH_SWITCH_IO(io, return dkv<T, 256>(q, k, v, dout, lse, delta, dk, dv, heads, lay,
-                                              mask, scale, stream))
+    const int chunks = d / 256;
+    if (io == IO_BF16)
+      return chunks == 1
+                 ? dkv_wide_launch<Mask, false>(q, k, v, dout, lse, delta, dk, dv, heads, lay,
+                                                mask, scale, packed, stream, 1)
+                 : dkv_wide_launch<Mask, true>(q, k, v, dout, lse, delta, dk, dv, heads, lay,
+                                               mask, scale, packed, stream, chunks);
+    PT_FLASH_SWITCH_FMA_IO(
+        io, return chunks == 1 ? dkv<T, 256>(q, k, v, dout, lse, delta, dk, dv, heads, lay, mask,
+                                             scale, stream)
+                               : dkv<T, 256, Mask, true>(q, k, v, dout, lse, delta, dk, dv,
+                                                         heads, lay, mask, scale, stream,
+                                                         chunks))
   }
   if (io == IO_BF16) {
     PT_FLASH_SWITCH_D(d, return dkv_hopper<D>(q, k, v, dout, lse, delta, dk, dv, heads, lay, mask,

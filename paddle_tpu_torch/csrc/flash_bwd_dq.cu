@@ -2,7 +2,13 @@
 // batches, packed variable-length sequences and flashmask (start/end row)
 // masks, two kernels templated on the mask: a tensor-core kernel for bf16
 // io (`flash_bwd_dq_hopper`) and an fp32 FMA kernel for float and fp16 io
-// (`flash_bwd_dq_kernel`). `dq_any` picks one by the io type.
+// (`flash_bwd_dq_kernel`). `dq_any` picks one by the io type. The bf16
+// kernel has two forms: head_dim 32, 64 and 128 (one warpgroup, 64 query
+// rows a block) and head_dim 256 (two warpgroups, 128 rows a block,
+// `dq_wide`); a head_dim above 256 (a multiple of 256: the wrappers pad to
+// it) runs either kernel's 256 form split over it (SPLIT): one block per
+// 256-column chunk of dQ, S and dP over the whole head_dim recomputed by
+// every chunk's block.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py `_dq_kernel` (launched
 // from `_bwd`; entry `pt_flash_bwd_dq`, CausalMask),
@@ -57,14 +63,43 @@
 //   about 2^-17. So the kernel runs 4 products a tile where the TPU's runs
 //   3, and holds the reference's fp32 dS.
 // The FMA kernel (`flash_bwd_dq_kernel`), 256 threads: products as fp32
-// FMAs from shared memory, for the fp32 and fp16 models and checks, and for
-// every io type at head_dim 256 (in two 32-row passes, DqFma) and, split
-// over the head_dim in 256-column chunks of dQ (SPLIT), above it.
+// FMAs from shared memory, for the fp32 and fp16 models and checks, at
+// head_dim 256 in two 32-row passes (DqFma) and, split over the head_dim
+// in 256-column chunks of dQ (SPLIT), above it.
 //
-// Grid: FMA (ceil(Sq / 64), heads, head_dim / 256 above 256); bf16 the
-// same for the fixed-length mask and (heads, ceil(Sq / 64)) for the varlen
-// and flashmask masks, the query tiles last to first (the longest first
-// under a causal mask); at most 65535 heads a launch (by_head_slices).
+// The bf16 kernel at head_dim 256 (`dq_wide`), one block per (head,
+// 128-row query block, 256-column chunk of dQ), 256 threads: two consumer
+// warpgroups, one per 64-row query tile, the forward's `fwd_wide` shape.
+// What bounds it at the fixed-length shape (BH = 128, S = 1024, D = 256,
+// causal): 1.0e11 FLOP (104 us) against 337 MB (100 us): the operations,
+// barely; with dS's hi and lo it runs 4 products a tile where the bound
+// counts 3.
+// - Registers: a consumer thread holds dQ (128 fp32), S and dP (32 each)
+//   at the S and dP products, then dS packed as hi and lo A fragments (32);
+//   ptxas gives 232-244 registers, no spill, one block an SM. No producer
+//   warp (flash_common.cuh: a third warpgroup's worth of registers);
+//   thread 0 issues the TMA loads from `take` (WideRing), its issuing
+//   state in shared memory so that no thread holds it in registers.
+// - Shared memory, the forward's seven 32 KB buffers (WideSmem): Q and dO
+//   of both query tiles resident at D = 256 (four buffers), K and V
+//   through a 3-slot ring; above 256 all seven are the ring, and per key
+//   tile and chunk Q and dO of both tiles stream beside K and V (L2 holds
+//   them). Per key tile the fills are, chunk by chunk with the block's own
+//   chunk last, [Q_c, Q_c', dO_c, dO_c',] V_c, K_c: K of the own chunk
+//   stays in its slot until dQ += dS K is done, V goes after dP.
+// - The two query tiles visit different key tiles: the ring holds the
+//   union, as in `fwd_wide`, and a warpgroup that does not visit a tile
+//   still takes it and hands it back.
+// - Products a key tile and warpgroup: S and dP (16 `wgmma` m64n64k16
+//   each per chunk), then dQ += dS K as 4 m64n256k16 for hi and 4 for lo,
+//   K MN-major.
+//
+// Grid: FMA (ceil(Sq / 64), heads, head_dim / 256 above 256); bf16 below
+// 256 the same for the fixed-length mask and (heads, ceil(Sq / 64)) for
+// the varlen and flashmask masks, the query tiles last to first (the
+// longest first under a causal mask); bf16 at 256 and above
+// (ceil(Sq / 128) * chunks, heads) or (heads, ceil(Sq / 128) * chunks), the
+// chunk varying fastest; at most 65535 heads a launch (by_head_slices).
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -262,14 +297,15 @@ __device__ __forceinline__ void dq_ds_tile(const Mask& mask, int j, const RowInf
     }
 }
 
+// The one-warpgroup form (head_dim 32, 64, 128).
 template <int D, typename Mask>
-__global__ void __launch_bounds__(HOP_CONSUMERS, D == 128 ? 2 : 4)
-flash_bwd_dq_hopper(const __grid_constant__ CUtensorMap tm_q,
-                    const __grid_constant__ CUtensorMap tm_k,
-                    const __grid_constant__ CUtensorMap tm_v,
-                    const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
-                    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, Layout lay,
-                    Mask heads_mask, float scale, int packed, int tiles_x) {
+__device__ __forceinline__ void dq_narrow(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                                          const CUtensorMap& tm_v, const CUtensorMap& tm_do,
+                                          const float* __restrict__ lse,
+                                          const float* __restrict__ delta,
+                                          __nv_bfloat16* __restrict__ dq, const Layout& lay,
+                                          const Mask& heads_mask, float scale, int packed,
+                                          int tiles_x) {
   using Tile = HopTile<D>;
   constexpr int STAGES = DqRing<D>::STAGES;
   using namespace pt_hopper;
@@ -405,6 +441,223 @@ flash_bwd_dq_hopper(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// The head_dim-256 form: 128 query rows (two 64-row tiles, one per
+// consumer warpgroup) of head h and the 256-column chunk cz of dQ of
+// `chunks` (SPLIT; 1 otherwise). See the notes at the top of the file.
+template <typename Mask, bool SPLIT>
+__device__ __forceinline__ void dq_wide(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
+                                        const CUtensorMap* tm_v, const CUtensorMap* tm_do,
+                                        const float* __restrict__ lse,
+                                        const float* __restrict__ delta,
+                                        __nv_bfloat16* __restrict__ dq, const Layout& lay,
+                                        const Mask& heads_mask, float scale, int packed,
+                                        int tiles_x, int chunks) {
+  using Tile = HopTile<256>;
+  using namespace pt_hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* bufs = align_1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(bufs + WideSmem::BARRIERS);
+
+  const int n = SPLIT ? chunks : 1;
+  const bool q_res = n == 1;  // Q and dO of both tiles resident; else streamed
+  const int q_bufs = q_res ? 4 : 0;
+  const int per_chunk = q_res ? 2 : 6;  // fills of a chunk: [Q, Q', dO, dO',] V, K
+
+  // as fwd_wide: the grid's tile axis holds (query block, chunk), the chunk
+  // fastest; query blocks last to first, the longest first under a causal
+  // mask
+  const int h = tiles_x ? blockIdx.y : blockIdx.x;
+  const int tile = tiles_x ? blockIdx.x : blockIdx.y;
+  const int ext = tiles_x ? gridDim.x : gridDim.y;
+  const int cz = SPLIT ? tile % n : 0;
+  const int qb = ext / n - 1 - tile / n;
+  const int q0 = qb * WIDE_BQ;
+  const int nqt = (lay.sq + BQ - 1) / BQ;
+  const Mask mask = heads_mask.at_head(h);
+
+  // key tiles [x, y) of query tiles 2 qb and 2 qb + 1 (none past the end),
+  // and the block's list: every key tile either visits, in order (as in
+  // fwd_wide)
+  const int2 rng0 = 2 * qb < nqt ? mask.key_tiles(2 * qb) : make_int2(0, 0);
+  const int2 rng1 = 2 * qb + 1 < nqt ? mask.key_tiles(2 * qb + 1) : make_int2(0, 0);
+  const bool none0 = rng0.x >= rng0.y, none1 = rng1.x >= rng1.y;
+  const int lo = none0 ? rng1.x : none1 ? rng0.x : min(rng0.x, rng1.x);
+  const int hi = none0 ? rng1.y : none1 ? rng0.y : max(rng0.y, rng1.y);
+  auto visits = [&](int w, int j) {
+    const int2 rw = w ? rng1 : rng0;
+    return j >= rw.x && j < rw.y && mask.tile_open(2 * qb + w, j);
+  };
+  auto next_tile = [&](int j) {
+    for (++j; j < hi && !visits(0, j) && !visits(1, j); ++j) {
+    }
+    return j;
+  };
+
+  // The fills, per key tile of the list and per chunk, this block's own
+  // chunk last (its K stays for dQ += dS K): [Q_c and dO_c of both query
+  // tiles,] V_c, K_c.
+  auto more = [&](const RingIssuer& is) { return is.tile < hi; };
+  auto load = [&](RingIssuer& is, uint8_t* dst, uint64_t* bar) {
+    const int c = (cz + 1 + is.fill / per_chunk) % n, sub = is.fill % per_chunk;
+    const bool kv = sub + 2 >= per_chunk;
+    const CUtensorMap* map = kv ? (sub + 2 == per_chunk ? tm_v : tm_k) : sub < 2 ? tm_q : tm_do;
+    tma_tile<256>(dst, map, bar, kv ? is.tile * BK : q0 + (sub & 1) * BQ, h, packed, c * 256);
+    if (++is.fill == per_chunk * n) {
+      is.fill = 0;
+      is.tile = next_tile(is.tile);
+    }
+  };
+  auto ring = wide_ring(bufs, q_bufs, next_tile(lo - 1), more, load);
+  if (threadIdx.x == 0) {
+    tma_prefetch_map(tm_q);
+    tma_prefetch_map(tm_do);
+    tma_prefetch_map(tm_k);
+    tma_prefetch_map(tm_v);
+    if (q_res) {  // buffers: Q of tiles 0 and 1, then dO of tiles 0 and 1
+      mbar_arrive_expect_tx(q_full, 4 * Tile::BYTES);
+      for (int x = 0; x < 4; ++x)
+        tma_tile<256>(bufs + x * Tile::BYTES, x < 2 ? tm_q : tm_do, q_full, q0 + (x & 1) * BQ, h,
+                      packed);
+    }
+  }
+
+  // A consumer warpgroup: query tile qt = 2 qb + w. Thread t holds rows r
+  // and r + 8 of the tile and, of each 8 columns of S, dP or dQ, the pair
+  // at 2 * (t % 4).
+  const int w = threadIdx.x / HOP_CONSUMERS;
+  const int t = threadIdx.x % HOP_CONSUMERS;
+  const int qt = 2 * qb + w;
+  const int r = 16 * (t / 32) + (t % 32) / 4;
+  const int cq = 2 * (t % 4);
+  const int row0 = q0 + w * BQ;
+
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  RowInfo qi[2] = {};
+  float lse2[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};  // 0 past the last row, never written
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int qp = row0 + r + 8 * h2;
+    if (qt < nqt) qi[h2] = mask.q_row(qp);
+    if (qp < lay.sq) {
+      lse2[h2] = lse[(size_t)h * lay.sq + qp] * LOG2E;
+      dl[h2] = delta[(size_t)h * lay.sq + qp];
+    }
+  }
+
+  if (q_res) mbar_wait(q_full, 0);
+#pragma unroll 1
+  for (int j = next_tile(lo - 1); j < hi; j = next_tile(j)) {
+    const bool mine = visits(w, j);
+    // S and dP, fresh each tile: no value of them lives through dQ += dS K
+    float sc[32], dp[32];
+#pragma unroll
+    for (int x = 0; x < 32; ++x) sc[x] = dp[x] = 0.f;
+    int ks = 0;  // the slot of this block's chunk of K
+#pragma unroll 1
+    for (int ci = 0; ci < n; ++ci) {
+      int qs = 0, ds = 0;
+      if (!q_res) {
+        const int q0s = ring.take(), q1s = ring.take();
+        const int d0s = ring.take(), d1s = ring.take();
+        qs = w ? q1s : q0s;
+        ds = w ? d1s : d0s;
+        ring.release(w ? q0s : q1s);  // the other tile's: not read here
+        ring.release(w ? d0s : d1s);
+      }
+      const int vs = ring.take();
+      ks = ring.take();
+      if (mine) {
+        uint32_t q_addr = q_res ? smem_u32(bufs + w * Tile::BYTES) : ring.addr(qs);
+        uint32_t do_addr = q_res ? smem_u32(bufs + (2 + w) * Tile::BYTES) : ring.addr(ds);
+        // recomputed each tile: 32 descriptors kept across the loop would
+        // hold registers the accumulators need
+        asm volatile("" : "+r"(q_addr), "+r"(do_addr));
+        fence_regs(sc);
+        fence_regs(dp);
+        wgmma_fence();
+        wgmma_nt<256>(sc, q_addr, ring.addr(ks), ci > 0);  // S += Q_c K_c^T
+        wgmma_nt<256>(dp, do_addr, ring.addr(vs), ci > 0);  // dP += dO_c V_c^T
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+      }
+      if (!q_res) {
+        ring.release(qs);
+        ring.release(ds);
+      }
+      ring.release(vs);
+      if (ci + 1 < n) ring.release(ks);
+    }
+    if (mine) {
+      if (mask.tile_full(qt, j))
+        dq_ds_tile<true>(mask, j, qi, cq, scale, lse2, dl, sc, dp);
+      else
+        dq_ds_tile<false>(mask, j, qi, cq, scale, lse2, dl, sc, dp);
+      // dS as the A operand, hi and lo parts: its k-th 16 keys are values
+      // 8k .. 8k + 7
+      uint32_t ah[4][4], al[4][4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          pack_bf16_split(sc[8 * k + 2 * x], sc[8 * k + 2 * x + 1], ah[k][x], al[k][x]);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {  // dQ += dS K_cz
+        wgmma_rs_d<256>(acc, ah[k], Tile::mn_major(ring.addr(ks), k));
+        wgmma_rs_d<256>(acc, al[k], Tile::mn_major(ring.addr(ks), k));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        fence_regs(ah[k]);
+        fence_regs(al[k]);
+      }
+    }
+    ring.release(ks);
+  }
+  // the fills the other warpgroup still takes
+  if (threadIdx.x == 0) ring.issue(INT_MAX);
+
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int qp = row0 + r + 8 * h2;
+    if (qp >= lay.sq) continue;
+    __nv_bfloat16* row = dq + h * lay.q_hs + (long long)qp * lay.q_rs + cz * 256 + cq;
+#pragma unroll
+    for (int jd = 0; jd < 32; ++jd)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * jd) =
+          __floats2bfloat162_rn(acc[4 * jd + 2 * h2], acc[4 * jd + 2 * h2 + 1]);
+  }
+}
+
+// The bf16 tensor-core kernel: the one-warpgroup form below head_dim 256,
+// the two-warpgroup form at 256 (SPLIT: one 256-column chunk of a wider
+// head_dim, `chunks` of them).
+template <int D, typename Mask, bool SPLIT = false>
+__global__ void __launch_bounds__(D == 256 ? WIDE_NT : HOP_CONSUMERS,
+                                  D == 256 ? 1 : D == 128 ? 2 : 4)
+flash_bwd_dq_hopper(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, Layout lay,
+                    Mask heads_mask, float scale, int packed, int tiles_x, int chunks) {
+  static_assert(D == 256 || !SPLIT, "SPLIT is the head_dim-256 form's");
+  if constexpr (D == 256)
+    dq_wide<Mask, SPLIT>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dq, lay, heads_mask, scale,
+                         packed, tiles_x, chunks);
+  else
+    dq_narrow<D, Mask>(tm_q, tm_k, tm_v, tm_do, lse, delta, dq, lay, heads_mask, scale, packed,
+                       tiles_x);
+}
+
 template <int D, typename Mask>
 cudaError_t dq_hopper(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int heads, Layout lay,
@@ -425,7 +678,33 @@ cudaError_t dq_hopper(const void* q, const void* k, const void* v, const void* d
   if (err) return (cudaError_t)err;
   return launch_nt(flash_bwd_dq_hopper<D, Mask>, grid, HOP_CONSUMERS, DqRing<D>::SMEM, stream, mq, mk,
                    mv, mdo, (const float*)lse, (const float*)delta, (__nv_bfloat16*)dq, lay, mask,
-                   scale, packed, tiles_x);
+                   scale, packed, tiles_x, 1);
+}
+
+// The head_dim-256 form over `chunks` 256-column chunks of the head_dim
+// (SPLIT when more than one).
+template <typename Mask, bool SPLIT>
+cudaError_t dq_wide_launch(const void* q, const void* k, const void* v, const void* dout,
+                           const void* lse, const void* delta, void* dq, int heads, Layout lay,
+                           Mask mask, float scale, int packed, void* stream, int chunks) {
+  const long long nqb = (lay.sq + WIDE_BQ - 1) / WIDE_BQ;
+  const long long ext = nqb * chunks;
+  // as fwd_wide_launch: fixed-length blocks of one head side by side, the
+  // varlen and flashmask heads side by side, more than MAX_GRID_Y on x
+  const int tiles_x = std::is_same<Mask, CausalMask>::value || ext > MAX_GRID_Y;
+  if (heads < 1 || heads > MAX_GRID_Y || nqb < 1 || ext > INT_MAX || (chunks > 1) != SPLIT)
+    return cudaErrorInvalidValue;
+  const dim3 grid = tiles_x ? dim3((unsigned)ext, heads) : dim3(heads, (unsigned)ext);
+  const int d = 256 * chunks;
+  CUtensorMap mq, mk, mv, mdo;
+  int err = hop_map<256>(&mq, q, lay.sq, heads, lay.q_rs, lay.q_hs, packed, d);
+  if (!err) err = hop_map<256>(&mdo, dout, lay.sq, heads, lay.q_rs, lay.q_hs, packed, d);
+  if (!err) err = hop_map<256>(&mk, k, lay.sk, heads, lay.k_rs, lay.k_hs, packed, d);
+  if (!err) err = hop_map<256>(&mv, v, lay.sk, heads, lay.k_rs, lay.k_hs, packed, d);
+  if (err) return (cudaError_t)err;
+  return launch_nt(flash_bwd_dq_hopper<256, Mask, SPLIT>, grid, WIDE_NT, WideSmem::SMEM, stream,
+                   mq, mk, mv, mdo, (const float*)lse, (const float*)delta, (__nv_bfloat16*)dq,
+                   lay, mask, scale, packed, tiles_x, chunks);
 }
 
 // ------------------------------------------------------ launch and entries
@@ -442,23 +721,30 @@ cudaError_t dq_launch(const void* q, const void* k, const void* v, const void* d
 }
 
 // bf16 to the tensor-core kernel, float and fp16 to the FMA kernel (io:
-// see Io); head_dim 256 to the FMA kernel at every io type, and a head_dim
-// above 256 (a multiple of 256: the wrappers pad to it) to the FMA kernel
-// split over it. `packed` says the tensors are [T, H, D] (varlen) rather
-// than [BH, S, D]. One slice of at most MAX_GRID_Y heads.
+// see Io), chosen by io type at every head_dim; head_dim 256 to either
+// kernel's 256 form, and a head_dim above 256 (a multiple of 256: the
+// wrappers pad to it) to the same form split over it. `packed` says the
+// tensors are [T, H, D] (varlen) rather than [BH, S, D]. One slice of at
+// most MAX_GRID_Y heads.
 template <typename Mask>
 cudaError_t dq_heads(int d, int io, const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta, void* dq, int heads,
                      Layout lay, Mask mask, float scale, int packed, void* stream) {
-  if (d > 256) {
+  if (d >= 256) {
     if (d % 256) return cudaErrorInvalidValue;
-    PT_FLASH_SWITCH_IO(io, return dq_launch<T, 256, Mask, true>(q, k, v, dout, lse, delta, dq,
-                                                                heads, lay, mask, scale, stream,
-                                                                d / 256))
-  }
-  if (d == 256) {
-    PT_FLASH_SWITCH_IO(io, return dq_launch<T, 256>(q, k, v, dout, lse, delta, dq, heads, lay,
-                                                    mask, scale, stream))
+    const int chunks = d / 256;
+    if (io == IO_BF16)
+      return chunks == 1
+                 ? dq_wide_launch<Mask, false>(q, k, v, dout, lse, delta, dq, heads, lay, mask,
+                                               scale, packed, stream, 1)
+                 : dq_wide_launch<Mask, true>(q, k, v, dout, lse, delta, dq, heads, lay, mask,
+                                              scale, packed, stream, chunks);
+    PT_FLASH_SWITCH_FMA_IO(
+        io, return chunks == 1 ? dq_launch<T, 256>(q, k, v, dout, lse, delta, dq, heads, lay,
+                                                   mask, scale, stream)
+                               : dq_launch<T, 256, Mask, true>(q, k, v, dout, lse, delta, dq,
+                                                               heads, lay, mask, scale, stream,
+                                                               chunks))
   }
   if (io == IO_BF16) {
     PT_FLASH_SWITCH_D(d, return dq_hopper<D>(q, k, v, dout, lse, delta, dq, heads, lay, mask,

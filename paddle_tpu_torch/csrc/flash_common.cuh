@@ -12,10 +12,9 @@
 // as a 16 x 16 grid (tx = tid % 16, ty = tid / 16); a thread owns rows
 // {ty + 16 i} and columns {tx + 16 j} of each 64-row tile, so the 16 threads
 // that share a row sit in one half-warp and reduce a row with four xor
-// shuffles. At head_dim 256 (the FMA backward at every io type, the FMA
-// forward for float and fp16 io) the backward holds its block's own 64-row
-// tile as two 32-row passes, so that its fp32 tiles fit shared memory
-// (DqFma, DkvFma).
+// shuffles. At head_dim 256 (the FMA kernels serve float and fp16 io) the
+// backward holds its block's own 64-row tile as two 32-row passes, so that
+// its fp32 tiles fit shared memory (DqFma, DkvFma).
 //
 // What a kernel may see is a Mask policy (CausalMask, SegmentMask,
 // StartEndMask below): which key a query row sees, which tiles a tile
@@ -327,17 +326,6 @@ inline Layout packed_layout(int tq, int tk, int h, int d) {
     default: return cudaErrorInvalidValue;           \
   }
 
-// Instantiates `body` for every io type T: float, bf16 or fp16 (the FMA
-// backward kernels at head_dim 256 and above, which have no tensor-core
-// instantiation yet); anything else is refused.
-#define PT_FLASH_SWITCH_IO(io, ...)                          \
-  switch (io) {                                              \
-    case IO_F32: { using T = float; __VA_ARGS__; }           \
-    case IO_BF16: { using T = __nv_bfloat16; __VA_ARGS__; }  \
-    case IO_F16: { using T = __half; __VA_ARGS__; }          \
-    default: return cudaErrorInvalidValue;                   \
-  }
-
 // Instantiates `body` for the FMA kernels' io type T: float or fp16 (bf16
 // goes to the tensor-core kernels); anything else is refused.
 #define PT_FLASH_SWITCH_FMA_IO(io, ...)                  \
@@ -463,6 +451,130 @@ int hop_map(CUtensorMap* map, const void* base, int rows, int heads, int rs, lon
   const uint64_t strides[2] = {2ull * (packed ? hs : rs), 2ull * (packed ? rs : hs)};
   const uint32_t box[3] = {(uint32_t)Tile::W, packed ? 1u : 64u, packed ? 64u : 1u};
   return pt_hopper::encode_bf16_3d(map, base, dims, strides, box, Tile::SW);
+}
+
+// ------------------------------------- the tensor-core kernels at head_dim 256
+//
+// The bf16 forward and backward at head_dim 256 (and their SPLIT forms over
+// 256-column chunks of a wider head_dim) run two consumer warpgroups a
+// block and nothing else: Hopper allocates registers a warpgroup at a time,
+// so a producer warp would cost a third warpgroup's registers and cap every
+// thread at 168 (the 128-register accumulators then spill); thread 0
+// issues the TMA loads between its own products instead.
+constexpr int WIDE_NT = 2 * HOP_CONSUMERS;
+constexpr int WIDE_BQ = 2 * BQ;  // query rows a forward or dQ block
+
+// Their shared memory: BUFS tiles of 64 rows x 256 columns (the resident
+// tiles first, the ring after them), then the mbarriers (the resident
+// tiles' one, and a "full" and an "empty" one per buffer), thread 0's
+// issuing state (RingIssuer), and 1 KB in which each dK/dV warpgroup keeps
+// its query tile's 64 lse and 64 delta values (unused by the others).
+struct WideSmem {
+  static constexpr int TILE = HopTile<256>::BYTES;
+  static constexpr int BUFS = 7;
+  static constexpr size_t BARRIERS = (size_t)TILE * BUFS;
+  static constexpr size_t ISSUER = BARRIERS + sizeof(uint64_t) * (1 + 2 * BUFS);
+  static constexpr size_t STATS = ISSUER + 32;
+  static constexpr size_t SMEM = 1024 + STATS + sizeof(float) * WIDE_NT;
+};
+
+// A position in the ring: the slot and the parity of its round.
+struct RingPos {
+  int slot, phase, slots;
+  __device__ void next() {
+    if (++slot == slots) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// Thread 0's side of the backward's ring, in shared memory (in registers,
+// every thread would hold it beside the accumulators): the position of
+// the next fill to issue (`tile`, and `fill` within it: the kernel's own
+// cursor), the fills issued and taken, and the slot.
+struct RingIssuer {
+  int tile, fill, issued, taken;
+  RingPos pos;
+};
+
+// The backward's ring of `slots` WideSmem tiles at `base` (the forward
+// keeps the same logic in `fwd_wide`, its issuing state in registers):
+// fills are numbered in the order both warpgroups take them, every thread
+// takes every fill (waiting on its "full" barrier, which the TMA's byte
+// count completes) and hands it back (its "empty" barrier counts all
+// WIDE_NT threads). Thread 0 issues the fills from `take`: `more(is)` says
+// whether one is left, `load(is, dst, bar)` issues the next one's TMA
+// loads and moves the cursor on.
+template <typename More, typename Load>
+struct WideRing {
+  uint8_t* base;
+  uint64_t* full;
+  uint64_t* empty;
+  RingIssuer* is;
+  More more;
+  Load load;
+  RingPos p;  // where this thread takes next
+
+  __device__ uint32_t addr(int s) const {
+    return pt_hopper::smem_u32(base + s * WideSmem::TILE);
+  }
+  // Thread 0: every fill up to index `need` (waiting for its slot to be
+  // handed back by both warpgroups if it must) and, past it, as many more
+  // as have a free slot.
+  __device__ void issue(int need) {
+    using namespace pt_hopper;
+    RingIssuer& st = *is;
+    while (more(st)) {
+      if (!mbar_test(empty + st.pos.slot, st.pos.phase ^ 1)) {  // round 0 passes at once
+        if (st.issued > need) return;
+        mbar_wait(empty + st.pos.slot, st.pos.phase ^ 1);
+      }
+      mbar_arrive_expect_tx(full + st.pos.slot, WideSmem::TILE);
+      load(st, base + st.pos.slot * WideSmem::TILE, full + st.pos.slot);
+      st.pos.next();
+      ++st.issued;
+    }
+  }
+  // The next fill's slot, once it has arrived.
+  __device__ int take() {
+    if (threadIdx.x == 0) issue(is->taken++);
+    pt_hopper::mbar_wait(full + p.slot, p.phase);
+    const int s = p.slot;
+    p.next();
+    return s;
+  }
+  __device__ void release(int s) { pt_hopper::mbar_arrive(empty + s); }
+};
+
+// The ring over the `slots` buffers from `first` of the WideSmem block at
+// `bufs`, its cursor starting at key or query tile `tile`. Thread 0
+// initialises its issuer and every mbarrier (the resident tiles' one
+// first), then the whole block waits.
+template <typename More, typename Load>
+__device__ __forceinline__ WideRing<More, Load> wide_ring(uint8_t* bufs, int first, int tile,
+                                                        More more, Load load) {
+  using namespace pt_hopper;
+  uint64_t* res_full = reinterpret_cast<uint64_t*>(bufs + WideSmem::BARRIERS);
+  RingIssuer* is = reinterpret_cast<RingIssuer*>(bufs + WideSmem::ISSUER);
+  const int slots = WideSmem::BUFS - first;
+  if (threadIdx.x == 0) {
+    *is = RingIssuer{tile, 0, 0, 0, {0, 0, slots}};
+    mbar_init(res_full, 1);
+    for (int s = 0; s < WideSmem::BUFS; ++s) {
+      mbar_init(res_full + 1 + s, 1);
+      mbar_init(res_full + 1 + WideSmem::BUFS + s, WIDE_NT);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  return WideRing<More, Load>{bufs + first * WideSmem::TILE,
+                              res_full + 1,
+                              res_full + 1 + WideSmem::BUFS,
+                              is,
+                              more,
+                              load,
+                              {0, 0, slots}};
 }
 
 }  // namespace pt_flash

@@ -504,36 +504,10 @@ __device__ __forceinline__ void fwd_narrow(const CUtensorMap* tm_q, const CUtens
 
 // ----------------------------------- the bf16 tensor-core kernel, head_dim 256
 
-// Two consumer warpgroups and nothing else: Hopper allocates registers a
-// warpgroup at a time, so a producer warp would cost a third warpgroup's
-// registers and cap every thread at 168 (the accumulators then spill);
-// thread 0 issues the TMA loads between its own products instead.
-constexpr int WIDE_NT = 2 * HOP_CONSUMERS;
-constexpr int WIDE_BQ = 2 * BQ;  // query rows a block
-
-// Shared memory of the head_dim-256 form: BUFS tiles of 64 rows x 256
-// columns (Q's resident chunks first, the ring after them), then the
-// mbarriers: Q's, and a "full" and an "empty" one per buffer.
-struct WideSmem {
-  static constexpr int TILE = HopTile<256>::BYTES;
-  static constexpr int BUFS = 7;
-  static constexpr size_t SMEM = 1024 + (size_t)TILE * BUFS + sizeof(uint64_t) * (1 + 2 * BUFS);
-};
-
-// A position in the ring: the slot and the parity of its round.
-struct RingPos {
-  int slot, phase, slots;
-  __device__ void next() {
-    if (++slot == slots) {
-      slot = 0;
-      phase ^= 1;
-    }
-  }
-};
-
-// The head_dim-256 form: 128 query rows (two 64-row tiles, one per
-// consumer warpgroup) of head h and the 256-column output chunk cz of
-// `chunks` (SPLIT; 1 otherwise). See the notes at the top of the file.
+// The head_dim-256 form (WIDE_NT threads, WideSmem and RingPos in
+// flash_common.cuh): 128 query rows (two 64-row tiles, one per consumer
+// warpgroup) of head h and the 256-column output chunk cz of `chunks`
+// (SPLIT; 1 otherwise). See the notes at the top of the file.
 template <typename Mask, bool SPLIT>
 __device__ __forceinline__ void fwd_wide(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
                                          const CUtensorMap* tm_v, __nv_bfloat16* __restrict__ o,
@@ -544,7 +518,7 @@ __device__ __forceinline__ void fwd_wide(const CUtensorMap* tm_q, const CUtensor
   using namespace pt_hopper;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* bufs = align_1024(smem_raw);
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(bufs + WideSmem::BUFS * Tile::BYTES);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(bufs + WideSmem::BARRIERS);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + WideSmem::BUFS;
 
@@ -599,7 +573,10 @@ __device__ __forceinline__ void fwd_wide(const CUtensorMap* tm_q, const CUtensor
   // per key tile of the list, [Q_c, Q_c',] K_c for each chunk c, then V's
   // own chunk. `issue(need)` issues every fill up to index `need` (waiting
   // for its slot to be handed back by both warpgroups if it must) and, past
-  // it, as many more as have a free slot.
+  // it, as many more as have a free slot. Its state stays in registers:
+  // the backward's WideRing (flash_common.cuh) keeps it in shared memory to
+  // free registers, and the forward, which has registers to spare, ran
+  // 4-9% slower that way on the H100.
   int iss_tile = next_tile(lo - 1), iss_fill = 0, issued = 0;
   RingPos ip{0, 0, slots};
   auto issue = [&](int need) {

@@ -90,6 +90,12 @@ __device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
   return done != 0;
 }
 
+// Waits for the 128 threads of warpgroup `w` (named barrier 1 + w; 0 is
+// __syncthreads').
+__device__ __forceinline__ void warpgroup_sync(int w) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + w) : "memory");
+}
+
 // ------------------------------------------------------------------ TMA
 
 // One box of a 3-D tensor map at element coordinates (c0, c1, c2),

@@ -16,12 +16,12 @@ and accumulators are fp32; the io type is float32, bfloat16 or float16.
 The kernels are built for head_dim 32, 64, 128 and 256 (``HEAD_DIMS``); a
 smaller head_dim runs at the next of those sizes, its q, k, v (and dO)
 padded with zero columns and the results sliced back (:func:`_pad_head_dim`),
-which is exact. The route is chosen by io type, at every head_dim: the bf16
-forward runs on the tensor cores, at 256 in a form of its own (two
-warpgroups, 128 query rows a block); float32 and float16 io, and the
-backward at 256 in every io type, run the FMA kernels, whose backward then
-works on 32-row halves of its 64-row tiles so that the fp32 tiles fit in
-shared memory. A head_dim above 256 runs padded to a multiple of 256 on
+which is exact. The route is chosen by io type, at every head_dim: bf16
+runs on the tensor cores, at 256 in forms of their own (two warpgroups a
+block: 128 query rows a forward or dQ block, one 64-row key tile a dK/dV
+block, one warpgroup computing dV and the other dK); float32 and float16
+io run the FMA kernels, whose backward at 256 works on 32-row halves of
+its 64-row tiles so that the fp32 tiles fit in shared memory. A head_dim above 256 runs padded to a multiple of 256 on
 the same 256 forms split over it: one block per 256-column chunk of each
 output, the scores over the whole head_dim recomputed by each. A bf16
 launch that fails raises; nothing routes bf16 back to the FMA kernels.
@@ -37,8 +37,8 @@ Each wrapper dispatches on the device of its tensors: a CUDA tensor launches
 the kernel (or raises on a type, head_dim or layout the kernel does not
 take), a CPU tensor runs the plain PyTorch version beside it, which repeats
 the kernel's arithmetic. There is no fallback from one to the other. Each
-source holds two kernels: bf16 io (the forward at every head_dim, the
-backward up to head_dim 128) runs on the tensor cores and reads q, k, v
+source holds two kernels: bf16 io (at every head_dim) runs on the tensor
+cores and reads q, k, v
 and dO through TMA tensor maps, which need 16-byte-aligned base addresses
 and strides (:func:`check_tma`; a tensor that fails it is handed to the
 kernel as a fresh contiguous copy, :func:`_tma_inputs`); float and float16

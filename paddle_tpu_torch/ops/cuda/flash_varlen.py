@@ -50,16 +50,17 @@ smallest end, with O(B*H*Sk) work: a kernel skips a key tile that bans its
 whole query tile, and no ``[S, S]`` mask is built on the kernel path.
 
 Head dims run as in ``flash_attention.py`` (``kernel_head_dim``), by io
-type: the bf16 forward on the tensor cores at every head_dim (at 256 and,
-split over 256-column chunks, above it, two warpgroups a block of 128
-query rows, the ring holding every key tile either 64-row tile visits);
-float32 and float16, and the backward at 256 and above, on the FMA
+type: bf16 on the tensor cores at every head_dim (at 256 and, split over
+256-column chunks, above it, two warpgroups a block: the forward and dQ
+over 128 query rows, the ring holding every key tile either 64-row tile
+visits; dK/dV over one 64-row key tile); float32 and float16 on the FMA
 kernels. A bf16 launch that fails raises.
 
 Sizes: any number of tiles runs. The bf16 kernels put the heads on the
 grid's x axis and the tiles on y, and past 65535 tiles (4,194,240 rows;
-65535 blocks of 128 rows at head_dim 256 and above, counted with their
-chunks) the tiles on x (at most 2^31 - 1) and the heads on y; the C entries
+at head_dim 256 and above 65535 blocks, counted with their chunks, of 128
+query rows for the forward and dQ and of 64 key rows for dK/dV) the tiles
+on x (at most 2^31 - 1) and the heads on y; the C entries
 launch the heads in slices of at most 65535 either way. What a launch refuses
 (``RuntimeError`` naming the CUDA error) is only what cannot be launched
 at all: a tensor map the driver will not encode (a row stride that is not

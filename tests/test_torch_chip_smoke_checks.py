@@ -4,10 +4,11 @@ Phase 2 of ``chip_smoke.py`` reads ptxas's ``-v`` lines and the SASS that
 ``cuobjdump -sass`` prints for each bf16 tensor-core instantiation of the
 flash kernels. Here those readers run on texts written in the same formats,
 so that a spill in any forward instantiation (head_dim 256 and its SPLIT
-form included), a missing instantiation or a missing product fails the
-check on the card. The instantiation counts are tied to the sources: the
-head dims ``PT_FLASH_SWITCH_D`` instantiates and the head_dim-256 forms
-``fwd_heads`` launches.
+form included) or in a backward one at head_dim 64 or 256 (SPLIT
+included), a missing instantiation or a missing product fails the check
+on the card. The instantiation counts are tied to the sources: the head
+dims ``PT_FLASH_SWITCH_D`` instantiates and the head_dim-256 forms
+``fwd_heads``, ``dq_heads`` and ``dkv_heads`` launch.
 """
 import re
 from pathlib import Path
@@ -30,15 +31,12 @@ def _entries(lib):
     as nvcc names them."""
     kernel = KERNEL_TAGS[lib]
     names = []
+    args = ("S2_S2_P13__nv_bfloat16Pf" if lib == "flash_fwd"
+            else "S2_S2_S2_PKfS4_P13__nv_bfloat16")
     for mask, tag in MASK_TAGS.items():
-        if lib == "flash_fwd":
-            for d, split in ((32, 0), (64, 0), (128, 0), (256, 0), (256, 1)):
-                names.append(f"_ZN8pt_flash{kernel}ILi{d}ENS_{tag}ELb{split}"
-                             f"EEEv14CUtensorMap_stS2_S2_P13__nv_bfloat16Pf")
-        else:
-            for d in (32, 64, 128):
-                names.append(f"_ZN8pt_flash{kernel}ILi{d}ENS_{tag}EEEv14"
-                             f"CUtensorMap_stS2_S2_S2_PKfS4_P13__nv_bfloat16")
+        for d, split in ((32, 0), (64, 0), (128, 0), (256, 0), (256, 1)):
+            names.append(f"_ZN8pt_flash{kernel}ILi{d}ENS_{tag}ELb{split}"
+                         f"EEEv14CUtensorMap_st{args}")
     return names
 
 
@@ -89,17 +87,16 @@ def _switch_dims():
 
 def test_instantiation_counts_follow_the_sources():
     dims = _switch_dims()
-    fwd = (CSRC / "flash_fwd.cu").read_text()
-    wide = {m for m in re.findall(r"fwd_wide_launch<Mask, (true|false)>",
-                                  fwd)}
     assert dims == [32, 64, 128]
-    assert wide == {"true", "false"}
     masks = len(cs.MASKS)
-    assert cs.HOPPER_INSTANTIATIONS == {
-        "flash_fwd": masks * (len(dims) + len(wide)),
-        "flash_bwd_dq": masks * len(dims),
-        "flash_bwd_dkv": masks * len(dims)}
-    assert cs.HOPPER_INSTANTIATIONS["flash_fwd"] == 15
+    for lib, launch in (("flash_fwd", "fwd_wide_launch"),
+                        ("flash_bwd_dq", "dq_wide_launch"),
+                        ("flash_bwd_dkv", "dkv_wide_launch")):
+        src = (CSRC / f"{lib}.cu").read_text()
+        wide = set(re.findall(launch + r"<Mask, (true|false)>", src))
+        assert wide == {"true", "false"}, lib
+        assert cs.HOPPER_INSTANTIATIONS[lib] == masks * (len(dims) + len(wide))
+    assert set(cs.HOPPER_INSTANTIATIONS.values()) == {15}
 
 
 @pytest.mark.parametrize("lib", sorted(KERNEL_TAGS))
@@ -126,10 +123,26 @@ def test_backward_spills_are_read_at_head_dim_64(lib):
     at64 = [n for n in names if "ILi64E" in n]
     at128 = [n for n in names if "ILi128E" in n]
     assert len(cs.hopper_spills(_ptxas(names), cs.HOPPER_KERNELS[lib][0],
-                                64)) == 3
+                                (64,))) == 3
+    assert len(cs.hopper_spills(_ptxas(names), cs.HOPPER_KERNELS[lib][0],
+                                cs.SPILL_FREE[lib])) == 9
     cs.check_spills(lib, _ptxas(names, {at128[0]: (8, 8)}))
     with pytest.raises(RuntimeError, match="spills"):
         cs.check_spills(lib, _ptxas(names, {at64[1]: (8, 8)}))
+
+
+@pytest.mark.parametrize("split", [0, 1])
+@pytest.mark.parametrize("mask", sorted(MASK_TAGS))
+@pytest.mark.parametrize("lib", ["flash_bwd_dq", "flash_bwd_dkv"])
+def test_a_spilling_wide_backward_instantiation_fails(lib, mask, split):
+    names = _entries(lib)
+    bad = next(n for n in names if f"ILi256ENS_{MASK_TAGS[mask]}ELb{split}"
+               in n)
+    found = cs.hopper_spills(_ptxas(names, {bad: (168, 172)}),
+                             cs.HOPPER_KERNELS[lib][0], cs.SPILL_FREE[lib])
+    assert (bad, 168, 172) in found
+    with pytest.raises(RuntimeError, match="spills 168 / 172"):
+        cs.check_spills(lib, _ptxas(names, {bad: (168, 172)}))
 
 
 @pytest.mark.parametrize("lib", sorted(KERNEL_TAGS))
@@ -163,6 +176,20 @@ def test_sass_split_reads_the_wide_pv_shape():
     cs.check_sass("flash_fwd", _sass(names, pv_shape="64x128x16"))
 
 
+@pytest.mark.parametrize("lib", ["flash_bwd_dq", "flash_bwd_dkv"])
+def test_sass_split_reads_the_wide_backward_product_shapes(lib):
+    names = _entries(lib)
+    found = {f["name"]: f for f in cs.sass_split(
+        _sass(names), cs.HOPPER_KERNELS[lib][0])}
+    wide = [n for n in names if "ILi256E" in n]
+    assert len(wide) == 6
+    for n in wide:
+        assert found[n]["regs_shapes"] == ["64x256x16"]
+    cs.check_sass(lib, _sass(names))
+    with pytest.raises(RuntimeError, match="P V shapes"):
+        cs.check_sass(lib, _sass(names, pv_shape="64x64x16"))
+
+
 @pytest.mark.parametrize("lib", sorted(KERNEL_TAGS))
 def test_a_missing_sass_instantiation_fails(lib):
     names = _entries(lib)[1:]
@@ -184,9 +211,11 @@ def test_a_wide_pv_of_another_shape_fails():
 
 
 def test_wide_forward_shared_memory_fits_a_block():
-    fwd = (CSRC / "flash_fwd.cu").read_text()
-    bufs = int(re.search(r"BUFS = (\d+);", fwd).group(1))
+    common = (CSRC / "flash_common.cuh").read_text()
+    bufs = int(re.search(r"BUFS = (\d+);", common).group(1))
     tile = 64 * 256 * 2
-    want = 1024 + bufs * tile + 8 * (1 + 2 * bufs)
-    assert cs.D256_SMEM["flash_fwd bf16"] == want
+    want = 1024 + bufs * tile + 8 * (1 + 2 * bufs) + 32 + 4 * 256
+    for lib in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert cs.D256_SMEM[f"{lib} bf16"] == want
     assert want <= 232448
+    assert all(v <= 232448 for v in cs.D256_SMEM.values())

@@ -76,13 +76,13 @@ def _err(a, b):
 DTYPES = dict(argvalues=[torch.float32, torch.bfloat16, torch.float16],
               ids=["fp32", "bf16", "fp16"])
 # the kernels' head_dims and three that run padded to the next of them
-# (256, and 160 padded to it, run the bf16 forward's two-warpgroup form and
+# (256, and 160 padded to it, run the bf16 kernels' two-warpgroup forms and
 # the FMA kernels otherwise); 512, and 288 padded to it, run the same 256
 # forms split over two 256-column chunks
 HEAD_DIMS = [32, 48, 64, 80, 128, 160, 256, 288, 512]
-# the bf16 forward's edge checks: the one-warpgroup form at 32, 64 and 128,
-# the two-warpgroup form at 256 and its SPLIT form at 512 (forward only:
-# the backward there is the FMA kernels', held by the tests above)
+# the bf16 tensor-core kernels' edge checks, forward and backward: the
+# one-warpgroup forms at 32, 64 and 128, the two-warpgroup forms at 256 and
+# their SPLIT forms at 512
 BF16_FWD_DIMS = [32, 64, 128, 256, 512]
 
 
@@ -178,12 +178,13 @@ def test_bf16_forward_edges_match_plain(cuda, shape, d):
         assert bool((lse[:, :blind] == fa.NEG_INF).all())
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", BF16_FWD_DIMS)
 @pytest.mark.parametrize("shape", sorted(BF16_FWD_SHAPES))
 def test_bf16_backward_edges_match_plain(cuda, shape, d):
     """The bf16 backward kernels (tensor cores, a TMA ring of (Q, dO) or
-    (K, V) tiles) at the forward's edge shapes; keys past kv_len (no query
-    sees them) get dK and dV of exactly 0, rows that see no key dQ of 0."""
+    (K, V) tiles; two warpgroups a block at 256 and above) at the
+    forward's edge shapes; keys past kv_len (no query sees them) get dK
+    and dV of exactly 0, rows that see no key dQ of 0."""
     bh, sq, sk, kv_len, causal = BF16_FWD_SHAPES[shape]
     q, k, v, do = _inputs(cuda, bh, sq, sk, d, torch.bfloat16, seed=4)
     args = (causal, 1.0 / math.sqrt(d), kv_len, sk - sq)
@@ -225,8 +226,8 @@ def test_bf16_misaligned_base_matches_plain(cuda, entry):
 @pytest.mark.parametrize("entry", ["flash_fwd", "varlen_fwd",
                                    "flashmask_fwd"])
 def test_bf16_misaligned_base_at_head_dim_256_matches_plain(cuda, entry):
-    """The same at head_dim 256, where the bf16 forward runs its
-    two-warpgroup form (and the backward the FMA kernels)."""
+    """The same at head_dim 256, where the bf16 forward and backward run
+    their two-warpgroup forms."""
     _misaligned_matches_plain(cuda, entry, 256)
 
 
@@ -332,6 +333,61 @@ def test_bf16_forward_at_256_and_above_runs_the_tensor_core_kernel(cuda, mask,
                                    abs_v_out)).all()), (key, err.max().item())
 
 
+@pytest.mark.parametrize("d", [256, 512])
+@pytest.mark.parametrize("mask", ["fixed", "varlen", "flashmask"])
+def test_bf16_backward_at_256_and_above_runs_the_tensor_core_kernels(cuda,
+                                                                     mask, d):
+    """bf16 at head_dim 256 and 512 takes the tensor-core backward for each
+    mask: one ``torch.profiler`` pass names ``flash_bwd_dq_hopper`` and
+    ``flash_bwd_dkv_hopper`` and no ``flash_bwd_dq_kernel`` or
+    ``flash_bwd_dkv_kernel`` (the FMA kernels), and dq, dk and dv match
+    the plain versions."""
+    from torch.profiler import ProfilerActivity, profile
+    scale = 1.0 / math.sqrt(d)
+    q, k, v, do = _inputs(cuda, 2, 256, 256, d, torch.bfloat16, seed=10)
+    if mask == "fixed":
+        args = (True, scale, 256, 0)
+        fwd = lambda: fa.flash_fwd(q, k, v, *args)
+        delta_of = fa.attention_delta
+        bwd = lambda *t: (fa.flash_bwd_dq(*t, *args),
+                          *fa.flash_bwd_dkv(*t, *args))
+        plain = lambda *t: (fa.flash_bwd_dq_plain(*t, *args),
+                            *fa.flash_bwd_dkv_plain(*t, *args))
+    elif mask == "varlen":
+        cu = torch.tensor([0, 100, 300, 512], device=cuda).int()
+        plan = fv.varlen_plan(cu, cu, 512, 512, True)
+        q, k, v, do = (t.reshape(512, 1, d) for t in (q, k, v, do))
+        fwd = lambda: fv.varlen_fwd(q, k, v, plan, scale)
+        delta_of = fv.varlen_delta
+        bwd = lambda *t: (fv.varlen_bwd_dq(*t, plan, scale),
+                          *fv.varlen_bwd_dkv(*t, plan, scale))
+        plain = lambda *t: (fv.varlen_bwd_dq_plain(*t, plan, scale),
+                            *fv.varlen_bwd_dkv_plain(*t, plan, scale))
+    else:
+        plan = fv.flashmask_plan(torch.full((2, 1, 256, 1), 200,
+                                            dtype=torch.int32, device=cuda),
+                                 1, True)
+        fwd = lambda: fv.flashmask_fwd(q, k, v, plan, scale)
+        delta_of = fa.attention_delta
+        bwd = lambda *t: (fv.flashmask_bwd_dq(*t, plan, scale),
+                          *fv.flashmask_bwd_dkv(*t, plan, scale))
+        plain = lambda *t: (fv.flashmask_bwd_dq_plain(*t, plan, scale),
+                            *fv.flashmask_bwd_dkv_plain(*t, plan, scale))
+    out, lse = fwd()
+    ins = (q, k, v, do, lse, delta_of(do, out))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = bwd(*ins)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert any(f"{kernel}_hopper" in n for n in names), names
+        assert not any(f"{kernel}_kernel" in n for n in names), names
+    for key, g, want in zip(("dq", "dk", "dv"), got, plain(*ins)):
+        err = (g.float() - want.float()).abs()
+        assert bool((err <= _limit(torch.bfloat16, key, want, None)).all()), \
+            (key, err.max().item())
+
+
 # ------------------------------------------------------------------ varlen
 
 # (query segment lengths, key segment lengths, padding query rows, padding
@@ -420,7 +476,7 @@ def test_varlen_bf16_forward_empty_and_one_token_segments(cuda, d, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", BF16_FWD_DIMS)
 def test_varlen_bf16_backward_empty_and_one_token_segments(cuda, d, causal):
     """The bf16 backward kernels on the plan with an empty segment and
     one-token segments: a one-token segment's key is seen by its query
@@ -574,7 +630,7 @@ def test_flashmask_bf16_forward_one_open_key_tile(cuda, d, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", BF16_FWD_DIMS)
 def test_flashmask_bf16_backward_one_open_key_tile(cuda, d, causal):
     """The bf16 backward kernels on the start/end row that leaves one key
     tile open: every key outside tile 3 is banned from every row, so its

@@ -14,7 +14,11 @@ naive torch call gives another answer.
   (``overwrite=True``) or the sum (``overwrite=False``);
 - every index output is int64;
 - ``as_strided``, ``view_dtype`` and ``view_slice`` are copies, and an
-  in-place op replaces its tensor's payload: no earlier result changes;
+  in-place op, ``set_value`` and ``copy_`` replace their tensor's
+  payload: no earlier result changes;
+- ``register_op(..., bwd=...)`` runs ``bwd`` in place of autodiff; the
+  port's ``register_op`` returns the body where the reference's returns
+  the ``OpDef`` (a filed decision);
 - the decompositions refuse bf16 and fp16 as the reference does;
 - the in-place variants and the bitwise operators match.
 """
@@ -180,7 +184,7 @@ def test_view_ops_are_copies():
     for o, b in zip(outs, before):
         np.testing.assert_array_equal(o.numpy(), b)
     view = torch.as_strided(x._t, (2, 3), (3, 1))
-    x.set_value(np.ones(12, np.float32))
+    x._t.fill_(1.0)  # torch code writing the payload in place
     assert view.sum().item() == 6.0  # the naive torch view sees the write
 
 
@@ -197,6 +201,108 @@ def test_inplace_ops_leave_earlier_results_alone():
         return x, y, z
     for a, b in zip(*_both(run)):
         np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("method", ["set_value", "copy_"])
+def test_set_value_and_copy_leave_earlier_results_alone(method):
+    """``set_value`` and ``copy_`` replace the payload as the in-place ops
+    do: a reshape, a basic slice and an unsqueeze taken before the write
+    keep the old values, as in the reference, and the tensor reads the
+    new ones."""
+    new = np.array([[5., 6., 7.], [8., 9., 10.]], np.float32)
+
+    def run(P):
+        x = P.to_tensor(np.arange(6, dtype=np.float32).reshape(2, 3))
+        views = [P.reshape(x, [6]), x[0:1], P.unsqueeze(x, 0)]
+        getattr(x, method)(P.to_tensor(new))
+        return x, views
+    (rx, rv), (tx, tv) = _both(run)
+    np.testing.assert_array_equal(tx.numpy(), new)
+    np.testing.assert_array_equal(rx.numpy(), new)
+    for r, t in zip(rv, tv):
+        np.testing.assert_array_equal(t.numpy(), r.numpy())
+    np.testing.assert_array_equal(tv[0].numpy(), np.arange(6))
+
+
+def test_set_value_keeps_a_leaf_parameter_and_its_grad():
+    """A parameter written by ``set_value`` stays the optimizer's
+    parameter, keeps ``stop_gradient=False`` and its gradient, and the
+    optimizer's next step updates the new value."""
+    lin = pt.nn.Linear(3, 2)
+    opt = pt.optimizer.Momentum(0.5, parameters=lin.parameters())
+    lin(pt.to_tensor(np.ones((1, 3), np.float32))).sum().backward()
+    w = lin.weight
+    grad = w.grad.numpy().copy()
+    w.set_value(np.full((3, 2), 2.0, np.float32))
+    assert lin.weight is w and not w.stop_gradient
+    np.testing.assert_array_equal(w.grad.numpy(), grad)
+    opt.step()
+    np.testing.assert_allclose(w.numpy(), 2.0 - 0.5 * grad, rtol=1e-6)
+
+
+def _twice_square_grad(saved, gouts, scale):
+    """Twice the true gradient of ``scale * x * x``: a ``bwd`` that differs
+    from autodiff, so the test sees which one ran."""
+    (x,), (g,) = saved, gouts
+    return (2 * (2 * scale * x * g),)
+
+
+def test_register_op_bwd_replaces_autodiff():
+    """``register_op(name, fn, bwd=...)`` runs ``bwd(saved_inputs, gouts,
+    **attrs)`` for the gradient, as the reference does op by op (its
+    ambient fusion window, on by default, differentiates the recorded
+    segment and never reads ``bwd``: the reference runs with it off
+    here), and stores the ``spmd_rule``."""
+    from paddle_tpu._core import executor as ref_exec
+    from paddle_tpu._core import op_registry as ref_reg
+    from paddle_tpu_torch._core import op_registry as pt_reg
+    x_np = np.array([0.5, -1.0, 2.0], np.float32)
+    rule = object()
+    name = "bwd_probe_square"
+    ref_reg.register_op(name, lambda x, scale: scale * x * x,
+                        bwd=lambda s, g, scale: (2 * (2 * scale * s[0] * g[0]),),
+                        spmd_rule=rule, custom=True)
+    pt_reg.register_op(name, lambda x, scale: scale * x * x,
+                       bwd=_twice_square_grad, spmd_rule=rule, custom=True)
+    try:
+        assert pt_reg.get_op(name).spmd_rule is rule
+        assert ref_reg.get_op(name).spmd_rule is rule
+        fusion = ref.get_flags(["FLAGS_eager_fusion"])["FLAGS_eager_fusion"]
+        ref.set_flags({"FLAGS_eager_fusion": False})
+        grads = []
+        for P, call in ((ref, ref_exec.apply), (pt, pt_reg.call)):
+            x = P.to_tensor(x_np, stop_gradient=False)
+            y = call(name, x, scale=3.0)
+            np.testing.assert_allclose(y.numpy(), 3.0 * x_np * x_np,
+                                       rtol=1e-6)
+            y.sum().backward()
+            grads.append(np.array(x.grad.numpy()))
+        np.testing.assert_allclose(grads[1], grads[0], rtol=1e-6)
+        np.testing.assert_allclose(grads[1], 2 * 6.0 * x_np, rtol=1e-6)
+    finally:
+        ref.set_flags({"FLAGS_eager_fusion": fusion})
+        ref_reg._OPS.pop(name, None)
+        pt_reg._OPS.pop(name, None)
+
+
+def test_register_op_returns_the_function_where_the_reference_returns_the_opdef():
+    """A filed decision: the port's ``register_op`` returns the body, so
+    that its ``@register_op`` uses stay plain functions; the reference
+    returns the ``OpDef``, which the port's ``get_op`` gives."""
+    from paddle_tpu._core import op_registry as ref_reg
+    from paddle_tpu_torch._core import op_registry as pt_reg
+
+    def body(x):
+        return x + 1.0
+    name = "return_probe_op"
+    try:
+        assert isinstance(ref_reg.register_op(name, body, custom=True),
+                          ref_reg.OpDef)
+        assert pt_reg.register_op(name, body, custom=True) is body
+        assert pt_reg.get_op(name).fn is body
+    finally:
+        ref_reg._OPS.pop(name, None)
+        pt_reg._OPS.pop(name, None)
 
 
 def test_inplace_on_a_graph_keeps_the_gradient():
