@@ -1,6 +1,7 @@
 """Measurements of the bf16 flash kernels at head_dim 256 and 512 on one card.
 
-    python3 chip_fwd_wide.py [--parent DIR [--steps]] [--variants a,b,...]
+    python3 chip_fwd_wide.py [--parent DIR [--steps] [--paths]
+                             [--dtype float16]] [--variants a,b,...]
 
 From the root of a checkout, on a machine with one CUDA card and ``nvcc``.
 Two measurements, each optional (both run when neither flag is given):
@@ -11,7 +12,14 @@ Two measurements, each optional (both run when neither flag is given):
   archive``) and on this one, in turns: parent, this, this, parent, each
   in a process of its own (the two trees build their kernels apart).
   Prints each run's times of the forward (#1, #6, #9; beside SDPA's
-  forward), dK/dV (#2, #7, #10) and dQ (#3, #8, #11). With ``--steps``
+  forward), dK/dV (#2, #7, #10) and dQ (#3, #8, #11), and of the three
+  masks' kernels (with RMSNorm and SwiGLU) at the path shapes, head_dim 64
+  (phase 4's ``timings``). With ``--dtype float16`` the turns time the
+  fixed-length kernels with fp16 io at the path shape and at head_dim 256
+  instead (``fixed_timings``, beside SDPA's fp16 forward). With ``--paths``
+  each turn also times phases 6 and 7's calls (``flash_attn_unpadded``
+  and ``flashmask_attention`` forward + backward, bf16, at their path
+  shapes; the median of 7 samples of 10 calls). With ``--steps``
   each turn also runs ``chip_smoke.py``'s phases 5 and 10 (the compiled
   and the eager gpt2-medium step, head_dim 64) and prints their median
   ms/step and device-busy ms beside the kernels'.
@@ -49,10 +57,10 @@ WORK = os.path.join(ROOT, "paddle_tpu_torch", "csrc", "build", "variants")
 # the products from registers at head_dim 256 (O += P V, dQ += dS K,
 # dV += P^T dO, dK += dS^T Q) as two m64n128k16 a 16-row step, over the B
 # operand's two 128-column halves, in place of one m64n256k16
-N128 = ("  if constexpr (D == 256) pt_hopper::wgmma_rs_n256(acc, a, db);",
+N128 = ("  if constexpr (D == 256) pt_hopper::wgmma_rs_n256<T>(acc, a, db);",
         "  if constexpr (D == 256) {\n"
-        "    pt_hopper::wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&acc[0]), a, db);\n"
-        "    pt_hopper::wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&acc[64]), a,\n"
+        "    pt_hopper::wgmma_rs_n128<T>(*reinterpret_cast<float(*)[64]>(&acc[0]), a, db);\n"
+        "    pt_hopper::wgmma_rs_n128<T>(*reinterpret_cast<float(*)[64]>(&acc[64]), a,\n"
         "                             db + (2 * HopTile<256>::BOX_BYTES >> 4));\n  }")
 Q_LOADS = ("          tma_tile<256>(bufs + (2 * c + w) * Tile::BYTES, tm_q, q_full, "
            "q0 + w * BQ, h, packed,\n                        c * 256);\n    }\n  }\n")
@@ -86,20 +94,18 @@ VARIANTS = {
                       "#pragma unroll\n      for (int jd = 0; jd < 32; ++jd)",
                       "      alpha[0] = alpha[1] = 1.f;\n"
                       "#pragma unroll\n      for (int jd = 0; jd < 32; ++jd)")],
-    "x_no_pv": [("      for (int k = 0; k < 4; ++k) wgmma_rs_d<256>(acc, pa[k], "
+    "x_no_pv": [("      for (int k = 0; k < 4; ++k)\n        wgmma_rs_d<256, T>(acc, pa[k], "
                  "Tile::mn_major(slot_addr(vs), k));",
                  "      for (int k = 0; k < 4; ++k) fence_regs(pa[k]);")],
-    "x_no_s": [("        wgmma_nt<256>(sc, q_addr, slot_addr(ks), c > 0);\n", "")],
+    "x_no_s": [("        wgmma_nt<256, T>(sc, q_addr, slot_addr(ks), c > 0);\n", "")],
     "x_no_loads": [("      mbar_arrive_expect_tx(full + ip.slot, Tile::BYTES);\n"
                     "      tma_tile<256>(ring + ip.slot * Tile::BYTES, map, full + ip.slot, "
                     "row, h, packed,\n                    (is_v ? cz : c) * 256);",
                     "      (void)map;\n      (void)row;\n      (void)c;\n"
                     "      mbar_arrive(full + ip.slot);")],
-    "x_no_stores": [("      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jd) = "
-                     "__floats2bfloat162_rn(",
+    "x_no_stores": [("      *reinterpret_cast<uint32_t*>(orow + 8 * jd) =\n",
                      "      if (acc[4 * jd + 2 * h2] == 1.2345f) "
-                     "*reinterpret_cast<__nv_bfloat162*>(orow + 8 * jd) = "
-                     "__floats2bfloat162_rn(")],
+                     "*reinterpret_cast<uint32_t*>(orow + 8 * jd) =\n")],
     # the backward's: as built, the products from registers as 2 x n128,
     # and breakdowns: no lo products (dS or P rounded once to bf16), no dS
     # arithmetic (dQ: no P either; dK/dV: both warpgroups compute P alone),
@@ -119,13 +125,14 @@ VARIANTS = {
                                "(sub & 1) * BQ, h, packed, c * 256);"),
     "dkv_base": [],
     "dkv_n128": [N128],
-    "x_dkv_no_lo": [("      wgmma_rs_d<256>(acc, al[k], Tile::mn_major(b_addr, k));\n", "")],
+    "x_dkv_no_lo": [("      wgmma_rs_d<256, T>(acc, al[k], Tile::mn_major(b_addr, k));\n",
+                     "")],
     "x_dkv_no_ds": [("    const bool whole = mask.tile_full(i, kt);\n    if (w) {",
                       "    const bool whole = mask.tile_full(i, kt);\n    if (stat == 1.2345f) {")],
-    "x_dkv_no_s": [("        wgmma_nt<256>(st, k_addr, ring.addr(qs), ci > 0);   // S^T += "
-                    "K_c Q_c^T\n        wgmma_nt<256>(dpt, v_addr, ring.addr(ds), ci > 0);  "
+    "x_dkv_no_s": [("        wgmma_nt<256, T>(st, k_addr, ring.addr(qs), ci > 0);   // S^T += "
+                    "K_c Q_c^T\n        wgmma_nt<256, T>(dpt, v_addr, ring.addr(ds), ci > 0);  "
                     "// dP^T += V_c dO_c^T\n", ""),
-                   ("        wgmma_nt<256>(st, k_addr, ring.addr(qs), ci > 0);  // S^T += "
+                   ("        wgmma_nt<256, T>(st, k_addr, ring.addr(qs), ci > 0);  // S^T += "
                     "K_c Q_c^T\n", "")],
     "x_dkv_no_loads": _no_loads("tma_tile<256>(dst, map, bar, qo ? is.tile * BQ : k0, h, "
                                 "packed, c * 256);"),
@@ -184,8 +191,11 @@ def build(names):
             if m:
                 entry = m.group(1)
             elif entry and "_hopperILi256" in entry:
-                tag = re.search(r"ILi256ENS_\d+(\w+?Mask)ELb(\d)", entry)
-                print(f"  {name} {tag.group(1)} SPLIT {tag.group(2)}: {ln}")
+                tag = re.search(r"ILi256E(\d+\w+?)?NS_\d+(\w+?Mask)ELb(\d)",
+                                entry)
+                io = "fp16" if tag.group(1) == "6__half" else "bf16"
+                print(f"  {name} {io} {tag.group(2)} SPLIT {tag.group(3)}: "
+                      f"{ln}")
             elif "wgmma" in ln:
                 print(f"  {name}: {ln}")
         libs[name] = lib
@@ -308,10 +318,36 @@ _, _, smi = cs.card()
 cs.build()
 rows = {}
 with cs.watchdog("timings", 600):
-    for hd, fn in ((256, cs.d256_timings), (512, cs.d512_timings)):
+    if sys.argv[2] == "float16":
+        runs = [(hd, lambda hd=hd: cs.fixed_timings(
+            cs.BATCH, cs.HEADS if hd == 64 else cs.D256_HEADS, cs.SEQ, hd,
+            seed=66, dtype=cs.torch.float16)) for hd in (64, 256)]
+    else:
+        runs = ((64, cs.timings), (256, cs.d256_timings),
+                (512, cs.d512_timings))
+    for hd, fn in runs:
         ms, _, lib, bnd = fn()
         for k in ms:
             rows[f"{k} {hd}"] = (ms[k], lib[k], bnd[k][0])
+if sys.argv[3] == "1":
+    import math, statistics
+    import paddle_tpu_torch.nn.functional as F
+    vq, vk, vv, vdo, cu, _, _ = cs._varlen_inputs(
+        cs.DOCS, cs.DOCS, 0, 0, cs.HEADS, cs.HEAD_DIM, cs.torch.bfloat16, True, seed=3)
+    fq, fk, fv, fdo = cs._flashmask_inputs(
+        2, cs.FM_SEQ, cs.FM_SEQ, cs.HEADS, cs.HEAD_DIM, cs.torch.bfloat16, seed=6)
+    startend = cs.torch.from_numpy(cs.flashmask_startend()).cuda()
+    for t in (vq, vk, vv, fq, fk, fv):
+        t.requires_grad_()
+    def varlen():
+        F.flash_attn_unpadded(vq, vk, vv, cu, cu, max(cs.DOCS), max(cs.DOCS),
+                              1.0 / math.sqrt(cs.HEAD_DIM), causal=True)[0].backward(vdo)
+    def flashmask():
+        F.flashmask_attention(fq, fk, fv, startend, causal=True).backward(fdo)
+    for name, fn in (("varlen path", varlen), ("flashmask path", flashmask)):
+        ms = [cs.cuda_ms(fn, 10) for _ in range(7)]
+        print(name, "samples", " ".join(f"{m:.4f}" for m in ms))
+        rows[f"{name} fwd+bwd"] = (statistics.median(ms), None, None)
 if sys.argv[1] == "1":
     medians = []
     profile = cs.profile_step
@@ -330,12 +366,13 @@ print("TIMINGS " + json.dumps(rows))
 """
 
 
-def parent(other, steps):
+def parent(other, steps, dtype, paths):
     results = []
     for tree in (other, ROOT, ROOT, other):
         t0 = time.time()
-        rc = subprocess.run([sys.executable, "-c", TURN, str(int(steps))],
-                            cwd=tree, capture_output=True, text=True)
+        rc = subprocess.run([sys.executable, "-c", TURN, str(int(steps)),
+                             dtype, str(int(paths))], cwd=tree,
+                            capture_output=True, text=True)
         line = [ln for ln in rc.stdout.splitlines()
                 if ln.startswith("TIMINGS ")]
         if rc.returncode or not line:
@@ -345,7 +382,8 @@ def parent(other, steps):
         results.append((label, json.loads(line[0][len("TIMINGS "):])))
         print(f"{label} ({tree}) in {time.time() - t0:.1f} s", flush=True)
         for ln in rc.stdout.splitlines():
-            if "device busy" in ln or "median" in ln and "ms/step" in ln:
+            if ("device busy" in ln or "median" in ln and "ms/step" in ln
+                    or "path samples" in ln):
                 print(f"  {label}: {ln}", flush=True)
     for key in results[0][1]:
         lib = [r[key][1] for _, r in results]
@@ -362,6 +400,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent")
     ap.add_argument("--steps", action="store_true")
+    ap.add_argument("--paths", action="store_true")
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float16"))
     ap.add_argument("--variants")
     ap.add_argument("--check")
     a = ap.parse_args()
@@ -376,7 +417,7 @@ def main():
                          text=True, timeout=60).stdout.strip()
     print(f"card: {smi}", flush=True)
     if a.parent:
-        parent(os.path.abspath(a.parent), a.steps)
+        parent(os.path.abspath(a.parent), a.steps, a.dtype, a.paths)
     if a.variants or not a.parent:
         variants((a.variants or ",".join(VARIANTS)).split(","))
     print(f"card: {smi}")

@@ -7,17 +7,19 @@ toolkit (``nvcc``). Phases, each printed as it runs:
 
 1. the card: name, count, and ``nvidia-smi``'s name and power limit;
 2. builds the flash-attention kernels (forward, dK/dV and dQ, each
-   fixed-length, varlen and flashmask; each a bf16 tensor-core kernel and
-   an fp32/fp16 FMA kernel) and the RMSNorm and SwiGLU kernels from the
-   four sources of ``paddle_tpu_torch/csrc`` (``nvcc``, ``sm_90a``, one
-   process per source, all at once), printing build seconds and ptxas's
-   register and shared-memory lines (a spill in any bf16 forward
-   instantiation, head_dim 256 and its SPLIT form included, or in a bf16
-   backward one at head_dim 64, 256 or SPLIT fails the run), and counting
-   the ``HGMMA``
-   (tensor-core product, split by product) and ``UTMALDG`` (TMA load)
-   instructions in the SASS of each bf16 forward, dQ and dK/dV
-   instantiation (``cuobjdump``; ``HOPPER_INSTANTIATIONS`` of each);
+   fixed-length, varlen and flashmask; each a tensor-core kernel, bf16 for
+   all three and fp16 for the forward and dK/dV, and an FMA kernel, fp32
+   for all three and fp16 for dQ) and the RMSNorm and SwiGLU kernels from
+   the four sources of ``paddle_tpu_torch/csrc`` (``nvcc``, ``sm_90a``,
+   one process per source, all at once), printing build seconds and
+   ptxas's register and shared-memory lines (a spill in any tensor-core
+   forward instantiation, head_dim 256 and its SPLIT form included, or in
+   a tensor-core backward one at head_dim 64, 256 or SPLIT, bf16 or fp16,
+   fails the run), and counting the ``HGMMA`` (tensor-core product, split
+   by product, its operand type read from the suffix) and ``UTMALDG``
+   (TMA load) instructions in the SASS of each tensor-core forward, dQ and
+   dK/dV instantiation (``cuobjdump``; ``HOPPER_INSTANTIATIONS`` of each,
+   15 per io type);
 3. holds each kernel against its plain PyTorch version: the fixed-length
    ones at the training shape (``[8, 16, 1024, 64]`` bf16, causal) and at
    a cross shape (sq 128, sk 256, causal, head_dim 32, fp32); the varlen
@@ -36,17 +38,19 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    cutting a tile, a varlen plan with an empty segment and one-token
    segments, a flashmask row that leaves one key tile open (keys no query
    sees must give dk and dv of exactly 0), the same at head_dim 256 and
-   512 (the two-warpgroup forms and their SPLIT forms). fp16 io (the FMA
-   kernels) and a
+   512 (the two-warpgroup forms and their SPLIT forms), in bf16 and again
+   in fp16. fp16 io (the tensor-core forward and dK/dV, the FMA dQ) and a
    head_dim of 80 (run at 128 with zero columns) for the three masks,
-   forward and backward, and bf16 inputs on a misaligned base (the same
-   kernels on aligned copies, bit for bit). RMSNorm and SwiGLU at the
+   forward and backward, and bf16 and fp16 inputs on a misaligned base
+   (the same kernels on aligned copies, bit for bit); fp16 at the path
+   shapes of the three masks, the fixed-length one with dO at unit scale,
+   2^-12 and 2^8 (and at head_dim 256 the last two). RMSNorm and SwiGLU at the
    fused-op path's tensors (Llama-2-7B widths, 8192 tokens, bf16) and at
    edge shapes (fp32 and fp16, 37 rows, rows of 1000 and 1003, a float32
    weight or gate beside bf16 x, the split form with unaligned halves).
    head_dim 256 and 160 (run at 256) for the three masks in fp32, bf16 and
    fp16, forward and backward (bf16 on the tensor cores, two warpgroups a
-   block; fp32 and fp16 on the FMA kernels at 256); head_dim 288 (run at
+   block, fp16 the same but for dQ; fp32 on the FMA kernels at 256); head_dim 288 (run at
    512) and 512 the same way (each 256 form split over 256-column
    chunks); a misaligned bf16 base at 256; 65600 fixed-length heads (more
    than the grid's 65535 on its y axis) in bf16 and fp32; a bf16 varlen
@@ -54,7 +58,8 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    grid's 65535 on its y axis: the tiles then go on x), forward and
    backward at head_dim 64 and the varlen forward and backward and the
    flashmask forward at 256, held document by document; and rows that see
-   no key under ``mha_forward`` (causal, sq > sk) against the CPU path.
+   no key under ``mha_forward`` (causal, sq > sk) against the CPU path,
+   20 times on the card, each repeat bit-equal to the first.
    Phases 3 and 4 each run under a watchdog that exits non-zero if a
    kernel hangs;
 4. times each kernel, its plain version and, as a yardstick only,
@@ -64,14 +69,17 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    take for the same work; then the three masks' kernels again at
    head_dim 256 and at 512 (16 heads, bf16, the same tokens, on the
    tensor cores), with each kernel's shared memory per block and SDPA's
-   forward and whole backward; then #1-#3 with fp16 io at the path
-   shape (the FMA kernels) beside SDPA's fp16 forward;
+   forward and whole backward; then the kernels with fp16 io (#1-#3 at
+   the path shape and at head_dim 256, #6-#11 at their path shapes)
+   beside SDPA's fp16 forward and whole backward;
 4b. drives ``nn.functional.flash_attention`` at ``[8, 1024, 16, 256]``
-   bf16 causal (Gemma-7B's heads at gpt2-medium's tokens), forward and
+   bf16 and fp16 and at ``[8, 1024, 16, 64]`` fp16, causal (Gemma-7B's
+   heads and gpt2-medium's at gpt2-medium's tokens), forward and
    backward: one launch of each fixed-length kernel, out and gradients
    against the plain versions with ``limit``, ``torch.profiler`` passes
-   that find ``flash_fwd_hopper``, ``flash_bwd_dq_hopper`` and
-   ``flash_bwd_dkv_hopper`` and no FMA kernel, and its times beside the
+   that find ``flash_fwd_hopper`` and ``flash_bwd_dkv_hopper`` of the io
+   type, ``flash_bwd_dq_hopper`` (bf16) or the FMA ``flash_bwd_dq_kernel``
+   (fp16), and no FMA forward or dK/dV kernel, and its times beside the
    FMA backward's;
 5. checks the training step on a small GPT against the port's CPU path
    (the path the CPU tests hold against the JAX package), then drives the
@@ -108,7 +116,11 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    1e-4, no recompute, batch 8 x seq 1024), 1 warm-up and 5 timed steps;
    checks 24 launches each of the forward, dK/dV and dQ kernels a step,
    all bf16 at head_dim 64, and no other port kernel; compares its median
-   with phase 5's and profiles one step;
+   with phase 5's and profiles one step; then the same model from the
+   same seed under ``amp.auto_cast(level="O1", dtype="float16")`` with
+   ``amp.GradScaler()``, checked the same way (24 fp16 launches of each
+   kernel a step), profiled, and its ms/step and tokens/s printed beside
+   the bf16 step's;
 11. drives the eager vision path: ``resnet18(num_classes=10)`` on 4 x 3 x
    64 x 64, three Momentum steps on the card against the port's CPU path
    in float64 and in fp32; then ``bench_suite.py``'s ResNet-50 workload
@@ -132,7 +144,7 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    synchronise; each forward timed (CUDA events, median of 10) beside
    its byte bound, with the ten largest ratios; the random ops held by
    their statistics on the card; prints its time;
-13. prints the head_dim 256 and 512 and fp16 timings, the ``kernels``
+13. prints the head_dim 256 and 512 and fp16 (64 and 256) timings, the ``kernels``
    JSON line, the card line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. It never falls back
@@ -143,6 +155,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -269,17 +282,26 @@ def watchdog(what: str, seconds: float):
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events."""
+    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events,
+    with Python's garbage collector run before and kept off during the
+    calls (as ``timeit`` does): a collection landing in the timed loop
+    holds the host, and a ~0.07 ms kernel launched back to back is then
+    timed at the host's pace."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    gc.collect()
+    gc.disable()
+    try:
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        gc.enable()
     return start.elapsed_time(end) / iters
 
 
@@ -313,9 +335,10 @@ def build():
         for line in info.ptxas:
             print(f"  {line}")
     print(f"build wall {wall:.1f} s (nvcc processes run in parallel; each "
-          f"flash library holds a bf16 tensor-core kernel and an fp32/fp16 "
-          f"FMA kernel, each in a fixed-length, a varlen and a flashmask "
-          f"instantiation, the fused one RMSNorm and SwiGLU)")
+          f"flash library holds a tensor-core kernel (bf16; fp16 too in the "
+          f"forward and dK/dV) and an FMA kernel (fp32; fp16 too in dQ), each "
+          f"in a fixed-length, a varlen and a flashmask instantiation, the "
+          f"fused one RMSNorm and SwiGLU)")
     check(set(infos) == set(_build.SOURCES), f"built {sorted(infos)}")
     for lib in HOPPER_KERNELS:
         if infos[lib].ptxas:
@@ -347,14 +370,16 @@ def hopper_spills(ptxas, kernel, head_dims=None):
 
 
 def check_spills(lib, ptxas):
-    """Fails unless every bf16 tensor-core instantiation of ``lib`` that
+    """Fails unless every tensor-core instantiation of ``lib`` that
     ``SPILL_FREE`` names (each forward one; the backward ones at the main
-    path's head_dim 64, one per mask, and at 256, the SPLIT form's too) has
-    a spill line, and it says 0 bytes stored and loaded."""
+    path's head_dim 64, one per mask, and at 256, the SPLIT form's too;
+    each for every io type of ``HOPPER_IO``) has a spill line, and it says
+    0 bytes stored and loaded."""
     kernel, head_dims = HOPPER_KERNELS[lib][0], SPILL_FREE[lib]
     found = hopper_spills(ptxas, kernel, head_dims)
-    want = HOPPER_INSTANTIATIONS[lib] if head_dims is None else sum(
-        len(MASKS) * (2 if d == 256 else 1) for d in head_dims)
+    want = HOPPER_INSTANTIATIONS[lib] if head_dims is None else len(
+        HOPPER_IO[lib]) * sum(len(MASKS) * (2 if d == 256 else 1)
+                              for d in head_dims)
     check(len(found) == want, f"{len(found)} {kernel} spill lines in ptxas's "
           f"output, want {want}")
     for entry, stores, loads in found:
@@ -364,11 +389,16 @@ def check_spills(lib, ptxas):
 
 # the three masks every flash kernel is instantiated with
 MASKS = ("CausalMask", "SegmentMask", "StartEndMask")
-# bf16 tensor-core instantiations per library: each kernel at head_dim 32,
-# 64, 128 and 256 and the SPLIT form (256-column chunks of a wider
-# head_dim); each for the three masks
-HOPPER_INSTANTIATIONS = {"flash_fwd": 15, "flash_bwd_dq": 15,
-                         "flash_bwd_dkv": 15}
+# the io types of each library's tensor-core kernel, as their mangled
+# names spell them (the kernel's second template argument): bf16 for all
+# three, fp16 for the forward and dK/dV (fp16 dQ runs the FMA kernel)
+IO_TAGS = {"bf16": "13__nv_bfloat16", "fp16": "6__half"}
+HOPPER_IO = {"flash_fwd": ("bf16", "fp16"), "flash_bwd_dq": ("bf16",),
+             "flash_bwd_dkv": ("bf16", "fp16")}
+# tensor-core instantiations per library: each kernel at head_dim 32, 64,
+# 128 and 256 and the SPLIT form (256-column chunks of a wider head_dim);
+# each for the three masks and each io type of HOPPER_IO
+HOPPER_INSTANTIATIONS = {lib: 15 * len(io) for lib, io in HOPPER_IO.items()}
 # the head_dims whose instantiations must not spill (None: every one; 256
 # names the SPLIT form too): a spill serializes the wgmma products
 SPILL_FREE = {"flash_fwd": None, "flash_bwd_dq": (64, 256),
@@ -376,7 +406,7 @@ SPILL_FREE = {"flash_fwd": None, "flash_bwd_dq": (64, 256),
 # the products from registers at head_dim 256 (P V; dQ += dS K; dV += P^T
 # dO and dK += dS^T Q): one m64n256k16 or two m64n128k16 a 16-row step
 WIDE_PV_SHAPES = ("64x256x16", "64x128x16")
-# per library: the bf16 tensor-core kernel's name, and what its HGMMA
+# per library: the tensor-core kernel's name, and what its HGMMA
 # products from descriptors alone and with the transpose bit (.tnspB: the
 # A operand from registers, B MN-major) compute
 HOPPER_KERNELS = {
@@ -388,44 +418,70 @@ HOPPER_KERNELS = {
 }
 
 
+def io_of(name):
+    """The io type (a key of ``IO_TAGS``) of a tensor-core instantiation,
+    from its mangled name: the template argument after the head_dim
+    (forward, dK/dV), else a concrete bf16 pointer parameter (dQ, bf16
+    alone); None if neither."""
+    for io, tag in IO_TAGS.items():
+        if re.search(r"ILi\d+E" + re.escape(tag), name):
+            return io
+    return "bf16" if "P" + IO_TAGS["bf16"] in name else None
+
+
 def sass_split(sass, kernel):
     """Per instantiation of ``kernel`` in a ``cuobjdump -sass`` text: its
-    name, the ``HGMMA`` products from descriptors alone and those with the
-    transpose bit (.tnspB: A from registers, B MN-major), the ``UTMALDG``
-    TMA loads, and the product shapes of each kind."""
+    name and io type, the ``HGMMA`` products from descriptors alone and
+    those with the transpose bit (.tnspB: A from registers, B MN-major),
+    the ``UTMALDG`` TMA loads, the product shapes of each kind and the
+    products' type suffixes (``.F32.BF16`` for bf16 operands; fp16 ones
+    carry no ``BF16``)."""
     out = []
     for f in re.split(r"\n\s*Function : ", sass)[1:]:
         name = f.split("\n", 1)[0].strip()
         if kernel not in name:
             continue
-        mma = re.findall(r"HGMMA\.(\d+x\d+x\d+)\S* ([^;]*);", f)
-        regs = [shape for shape, ops in mma if "tnspB" in ops]
-        desc = [shape for shape, ops in mma if "tnspB" not in ops]
-        out.append({"name": name, "desc": len(desc), "regs": len(regs),
-                    "tma": f.count("UTMALDG"),
+        mma = re.findall(r"HGMMA\.(\d+x\d+x\d+)(\S*) ([^;]*);", f)
+        regs = [shape for shape, _, ops in mma if "tnspB" in ops]
+        desc = [shape for shape, _, ops in mma if "tnspB" not in ops]
+        out.append({"name": name, "io": io_of(name), "desc": len(desc),
+                    "regs": len(regs), "tma": f.count("UTMALDG"),
                     "desc_shapes": sorted(set(desc)),
-                    "regs_shapes": sorted(set(regs))})
+                    "regs_shapes": sorted(set(regs)),
+                    "types": sorted({t for _, t, _ in mma})})
     return out
 
 
 def check_sass(lib, sass):
-    """Fails unless the SASS holds every bf16 tensor-core instantiation of
-    ``lib`` (``HOPPER_INSTANTIATIONS``), each with products of both kinds
-    and TMA loads, and the head_dim-256 forms' P V at a shape of
-    ``WIDE_PV_SHAPES``; prints each instantiation's counts."""
+    """Fails unless the SASS holds every tensor-core instantiation of
+    ``lib`` (``HOPPER_INSTANTIATIONS``: 15 of each io type of
+    ``HOPPER_IO``), each with products of both kinds, of its io type
+    (``.BF16`` for bf16, none for fp16), and TMA loads, and the
+    head_dim-256 forms' P V at a shape of ``WIDE_PV_SHAPES``; prints each
+    instantiation's counts."""
     kernel, from_desc, from_regs = HOPPER_KERNELS[lib]
     found = sass_split(sass, kernel)
     want = HOPPER_INSTANTIATIONS[lib]
     check(len(found) == want, f"{len(found)} {kernel} instantiations in the "
           f"SASS, want {want}")
+    for io in HOPPER_IO[lib]:
+        n = sum(f["io"] == io for f in found)
+        check(n == want // len(HOPPER_IO[lib]), f"{n} {io} {kernel} "
+              f"instantiations in the SASS, want "
+              f"{want // len(HOPPER_IO[lib])}")
     for f in found:
         print(f"  SASS {f['name']}: HGMMA {f['desc'] + f['regs']} "
               f"({f['desc']} for {from_desc}: {', '.join(f['desc_shapes'])}; "
-              f"{f['regs']} for {from_regs}: {', '.join(f['regs_shapes'])}), "
-              f"UTMALDG {f['tma']}")
+              f"{f['regs']} for {from_regs}: {', '.join(f['regs_shapes'])}; "
+              f"types {' '.join(f['types'])}), UTMALDG {f['tma']}")
         check(f["desc"] > 0 and f["regs"] > 0 and f["tma"] > 0,
               f"{f['name']}: HGMMA {f['desc']} + {f['regs']}, UTMALDG "
               f"{f['tma']}")
+        bf16_products = ["BF16" in t for t in f["types"]]
+        check(all(bf16_products) if f["io"] == "bf16"
+              else not any(bf16_products),
+              f"{f['name']}: {f['io']} instantiation with HGMMA types "
+              f"{f['types']}")
         if "ILi256E" in f["name"]:
             check(any(s in f["regs_shapes"] for s in WIDE_PV_SHAPES),
                   f"{f['name']}: P V shapes {f['regs_shapes']}, want one of "
@@ -434,8 +490,8 @@ def check_sass(lib, sass):
 
 def sass_counts(infos):
     """Counts the tensor-core products (``HGMMA``, split by product) and
-    TMA tile loads (``UTMALDG``) in the SASS of each bf16 instantiation
-    (forward, dQ, dK/dV) of the built libraries (``check_sass``). The
+    TMA tile loads (``UTMALDG``) in the SASS of each tensor-core
+    instantiation (forward, dQ, dK/dV; bf16 and fp16) of the built libraries (``check_sass``). The
     toolkit's ``cuobjdump`` reads the SASS; without it the count is
     skipped and said so."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -498,11 +554,13 @@ def within(got, want, lim):
     return err.max().item(), (err / lim).max().item()
 
 
-def hold_against_plain(bh, sq, sk, d, dtype, causal, seed):
-    """Runs each kernel and its plain version on the same inputs; returns
-    the max abs error per kernel (over all its outputs)."""
+def hold_against_plain(bh, sq, sk, d, dtype, causal, seed, do_scale=1.0):
+    """Runs each kernel and its plain version on the same inputs (dO times
+    ``do_scale``, a power of two: a loss scaler's range); returns the max
+    abs error per kernel (over all its outputs)."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     q, k, v, do = _inputs(bh, sq, sk, d, dtype, seed)
+    do = do * do_scale
     args = (causal, 1.0 / math.sqrt(d), sk, sk - sq)
     out, lse = fa.flash_fwd(q, k, v, *args)
     p_out, p_lse = fa.flash_fwd_plain(q, k, v, *args)
@@ -519,7 +577,8 @@ def hold_against_plain(bh, sq, sk, d, dtype, causal, seed):
     for key, (got, want) in pairs.items():
         errs[key], ratios[key] = within(
             got, want, limit(dtype, key, want, abs_v_out, d))
-    shape = f"bh {bh} sq {sq} sk {sk} d {d} {dtype} causal {causal}"
+    shape = f"bh {bh} sq {sq} sk {sk} d {d} {dtype} causal {causal}" + (
+        f" dO x {do_scale:g}" if do_scale != 1.0 else "")
     print(f"{shape}: max abs err " + " ".join(
         f"{k} {v:.3g}" for k, v in errs.items()) + "; of the limit " +
         " ".join(f"{k} {v:.3g}" for k, v in ratios.items()))
@@ -841,13 +900,15 @@ def fused_checks():
 
 
 def hold_forward(label, got, want, abs_v_out, blind=None):
-    """Holds a bf16 forward's (out, lse) against its plain version's with
-    ``limit``; ``blind`` (a bool row mask over out's leading dimensions)
-    marks rows that see no key, whose out must be exactly 0."""
+    """Holds a tensor-core forward's (out, lse) against its plain
+    version's with ``limit`` at out's io type; ``blind`` (a bool row mask
+    over out's leading dimensions) marks rows that see no key, whose out
+    must be exactly 0."""
     errs, ratios = {}, {}
+    dtype = got[0].dtype
     for key, g, w in zip(("out", "lse"), got, want):
         errs[key], ratios[key] = within(
-            g, w, limit(torch.bfloat16, key, w, abs_v_out))
+            g, w, limit(dtype, key, w, abs_v_out))
         check(bool(torch.isfinite(g.float()).all()), f"{key} non-finite at "
               f"{label}")
     print(f"{label}: max abs err " + " ".join(
@@ -861,24 +922,26 @@ def hold_forward(label, got, want, abs_v_out, blind=None):
               f"{label}")
 
 
-# the bf16 forward's edge shapes: (bh, sq, sk, kv_len, causal): query tiles
-# that visit more key tiles than the K/V ring has stages, sq != sk both ways
-# under the bottom-right causal offset, kv_len cutting a key tile
-BF16_FWD_EDGE = [(2, 1000, 1000, 1000, True), (2, 1024, 1024, 1024, True),
+# the tensor-core forward's edge shapes: (bh, sq, sk, kv_len, causal):
+# query tiles that visit more key tiles than the K/V ring has stages,
+# sq != sk both ways under the bottom-right causal offset, kv_len cutting a
+# key tile
+TC_FWD_EDGE = [(2, 1000, 1000, 1000, True), (2, 1024, 1024, 1024, True),
                  (2, 100, 300, 300, True), (2, 300, 100, 100, True),
                  (2, 128, 256, 150, True), (2, 128, 256, 150, False)]
 # varlen: an empty segment and segments of one token
-BF16_VARLEN_EDGE = [1, 0, 130, 64, 1, 1]
+TC_VARLEN_EDGE = [1, 0, 130, 64, 1, 1]
 
 
 def hold_backward(label, got, want, unseen=None, blind=None):
-    """Holds a bf16 backward's (dq, dk, dv) against the plain versions'
-    with ``limit``; ``unseen`` (a bool mask over dk's leading dimensions)
-    marks keys that no query sees, whose dk and dv must be exactly 0, and
-    ``blind`` rows that see no key, whose dq must be 0."""
+    """Holds a backward's (dq, dk, dv) against the plain versions' with
+    ``limit`` at dq's io type; ``unseen`` (a bool mask over dk's leading
+    dimensions) marks keys that no query sees, whose dk and dv must be
+    exactly 0, and ``blind`` rows that see no key, whose dq must be 0."""
     errs, ratios = {}, {}
+    dtype = got[0].dtype
     for key, g, w in zip(("dq", "dk", "dv"), got, want):
-        errs[key], ratios[key] = within(g, w, limit(torch.bfloat16, key, w))
+        errs[key], ratios[key] = within(g, w, limit(dtype, key, w))
         check(bool(torch.isfinite(g.float()).all()), f"{key} non-finite at "
               f"{label}")
     print(f"{label} backward: max abs err " + " ".join(
@@ -895,25 +958,27 @@ def hold_backward(label, got, want, unseen=None, blind=None):
               f"at {label}")
 
 
-# head_dims of the bf16 tensor-core kernels' edge checks, forward and
-# backward: the one-warpgroup forms at 32, 64 and 128, the two-warpgroup
-# form at 256 and its SPLIT form at 512
-BF16_EDGE_DIMS = (32, 64, 128, 256, 512)
+# head_dims of the tensor-core kernels' edge checks, forward and backward:
+# the one-warpgroup forms at 32, 64 and 128, the two-warpgroup form at 256
+# and its SPLIT form at 512
+TC_EDGE_DIMS = (32, 64, 128, 256, 512)
 
 
-def bf16_edges():
-    """The bf16 tensor-core kernels (forward, dK/dV, dQ; fixed-length,
-    varlen, flashmask) at their edge shapes, at each of
-    ``BF16_EDGE_DIMS``, against the plain versions: rows that see no key
-    give out and dq of exactly 0, keys no query sees dk and dv of exactly
-    0, a fully banned flashmask tile is skipped, documents shorter than a
-    tile, kv_len cutting a key tile."""
+def tensor_core_edges(dtype):
+    """The tensor-core kernels in ``dtype`` (bf16: forward, dK/dV, dQ;
+    fp16: forward and dK/dV, dQ on the FMA kernel; fixed-length, varlen,
+    flashmask) at their edge shapes, at each of ``TC_EDGE_DIMS``, against
+    the plain versions: rows that see no key give out and dq of exactly 0,
+    keys no query sees dk and dv of exactly 0, a fully banned flashmask
+    tile is skipped, documents shorter than a tile, kv_len cutting a key
+    tile."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import flash_varlen as fv
-    for d in BF16_EDGE_DIMS:
+    name = str(dtype).replace("torch.", "")
+    for d in TC_EDGE_DIMS:
         scale = 1.0 / math.sqrt(d)
-        for bh, sq, sk, kv_len, causal in BF16_FWD_EDGE:
-            q, k, v, do = _inputs(bh, sq, sk, d, torch.bfloat16, seed=20)
+        for bh, sq, sk, kv_len, causal in TC_FWD_EDGE:
+            q, k, v, do = _inputs(bh, sq, sk, d, dtype, seed=20)
             args = (causal, scale, kv_len, sk - sq)
             got = fa.flash_fwd(q, k, v, *args)
             want = fa.flash_fwd_plain(q, k, v, *args)
@@ -922,7 +987,7 @@ def bf16_edges():
             if causal and sq > sk:
                 blind[:, :sq - sk] = True
             label = (f"edge bh {bh} sq {sq} sk {sk} kv_len {kv_len} d {d} "
-                     f"bf16 causal {causal}")
+                     f"{name} causal {causal}")
             hold_forward(label, got, want, abs_v, blind)
             lse, delta = got[1], fa.attention_delta(do, got[0])
             bwd = (q, k, v, do, lse, delta, *args)
@@ -932,14 +997,14 @@ def bf16_edges():
                                   *fa.flash_bwd_dkv(*bwd)),
                           (fa.flash_bwd_dq_plain(*bwd),
                            *fa.flash_bwd_dkv_plain(*bwd)), unseen, blind)
-        lens = BF16_VARLEN_EDGE
+        lens = TC_VARLEN_EDGE
         for causal in (True, False):
             q, k, v, do, _, _, plan = _varlen_inputs(
-                lens, lens, 0, 0, 3, d, torch.bfloat16, causal, seed=21)
+                lens, lens, 0, 0, 3, d, dtype, causal, seed=21)
             got = fv.varlen_fwd(q, k, v, plan, scale)
             want = fv.varlen_fwd_plain(q, k, v, plan, scale)
             abs_v = fv.varlen_fwd_plain(q, k, v.abs(), plan, scale)[0]
-            label = f"edge varlen segments {lens} d {d} bf16 causal {causal}"
+            label = f"edge varlen segments {lens} d {d} {name} causal {causal}"
             hold_forward(label, got, want, abs_v)
             check(torch.equal(got[0][0], v[0]), "a one-token segment's "
                   "output is not its own v")
@@ -960,12 +1025,12 @@ def bf16_edges():
             plan = fv.flashmask_plan(startend, 2, causal)
             check(int(fv.flashmask_tiles(plan, s)[0].sum(1).max()) == 1,
                   "the one-open-tile mask visits more than one tile")
-            q, k, v, do = _inputs(2, s, s, d, torch.bfloat16, seed=22)
+            q, k, v, do = _inputs(2, s, s, d, dtype, seed=22)
             got = fv.flashmask_fwd(q, k, v, plan, scale)
             want = fv.flashmask_fwd_plain(q, k, v, plan, scale)
             abs_v = fv.flashmask_fwd_plain(q, k, v.abs(), plan, scale)[0]
             mask = fv.flashmask_mask(plan, 2, s, s)
-            label = (f"edge flashmask one open key tile s {s} d {d} bf16 "
+            label = (f"edge flashmask one open key tile s {s} d {d} {name} "
                      f"causal {causal}")
             hold_forward(label, got, want, abs_v, ~mask.any(-1))
             bwd = (q, k, v, do, got[1], fa.attention_delta(do, got[0]), plan,
@@ -987,14 +1052,14 @@ def _misaligned(t):
     return view
 
 
-def misaligned_checks(d=64):
-    """bf16 inputs whose base is not 16-byte aligned (TMA refuses it) reach
-    the same kernels as fresh aligned copies: forward, dK/dV and dQ of the
-    three masks give, bit for bit, what they give on aligned inputs, at
-    head_dim ``d``."""
+def misaligned_checks(d=64, dtype=torch.bfloat16):
+    """bf16 or fp16 inputs whose base is not 16-byte aligned (TMA refuses
+    it) reach the same kernels as fresh aligned copies: forward, dK/dV and
+    dQ of the three masks give, bit for bit, what they give on aligned
+    inputs, at head_dim ``d``."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import flash_varlen as fv
-    q, k, v, do = _inputs(2, 256, 256, d, torch.bfloat16, seed=40)
+    q, k, v, do = _inputs(2, 256, 256, d, dtype, seed=40)
     args = (True, 0.125, 256, 0)
     cu = torch.tensor([0, 100, 300, 512], device="cuda").int()
     vplan = fv.varlen_plan(cu, cu, 512, 512, True)
@@ -1027,14 +1092,15 @@ def misaligned_checks(d=64):
         for key, a, b in zip(("out", "lse", "dq", "dk", "dv"), *results):
             check(torch.equal(a, b), f"{name} {key} on a misaligned base "
                   f"differs from the aligned run (max {_err(a, b):.3g})")
-        print(f"misaligned bf16 base, {name}, d {d}: out, lse, dq, dk, dv "
-              f"equal to the aligned run, bit for bit")
+        print(f"misaligned {str(dtype).replace('torch.', '')} base, {name}, "
+              f"d {d}: out, lse, dq, dk, dv equal to the aligned run, bit "
+              f"for bit")
 
 
 def repairs():
-    """fp16 io (the FMA kernels) for the three masks, forward and
-    backward; a head_dim of 80, run at 128 with zero columns, in bf16 and
-    fp16; a misaligned bf16 base."""
+    """fp16 io (the tensor-core forward and dK/dV, the FMA dQ) for the
+    three masks, forward and backward; a head_dim of 80, run at 128 with
+    zero columns, in bf16 and fp16; misaligned bf16 and fp16 bases."""
     hold_against_plain(4, 200, 200, 64, torch.float16, True, seed=30)
     hold_against_plain(4, 128, 256, 80, torch.float16, False, seed=31)
     hold_against_plain(4, 200, 200, 80, torch.bfloat16, True, seed=32)
@@ -1045,15 +1111,42 @@ def repairs():
         hold_flashmask_against_plain(
             2, 200, 136, 4, d, dtype, causal,
             _fm_edge_startend(2, 4, 200, 136, seed=7), seed=34)
-    misaligned_checks(64)
-    misaligned_checks(256)
+    for dtype in (torch.bfloat16, torch.float16):
+        misaligned_checks(64, dtype)
+        misaligned_checks(256, dtype)
+
+
+# dO scales of the fp16 checks at the path shape: unit scale, and a loss
+# scaler's range on either side (GradScaler starts at 2^16 and halves on
+# overflow; gradients far below 1 reach the attention as small dO)
+FP16_DO_SCALES = (1.0, 2.0 ** -12, 2.0 ** 8)
+
+
+def fp16_path_checks():
+    """fp16 io at the path shapes, the tensor-core forward and dK/dV and
+    the FMA dQ against the plain versions with ``limit``: the fixed-length
+    mask at ``[8, 16, 1024, 64]`` causal with dO at each of
+    ``FP16_DO_SCALES`` and at head_dim 256 (16 heads x 1024) with the
+    smallest and largest, the varlen mask over ``DOCS`` and the flashmask
+    mask at its path shape, unit scale."""
+    for scale in FP16_DO_SCALES:
+        hold_against_plain(BATCH * HEADS, SEQ, SEQ, HEAD_DIM, torch.float16,
+                           True, seed=35, do_scale=scale)
+    for scale in FP16_DO_SCALES[1:]:
+        hold_against_plain(D256_HEADS, SEQ, SEQ, 256, torch.float16, True,
+                           seed=36, do_scale=scale)
+    hold_varlen_against_plain(DOCS, DOCS, 0, 0, HEADS, HEAD_DIM,
+                              torch.float16, True, seed=37)
+    hold_flashmask_against_plain(
+        2, FM_SEQ, FM_SEQ, HEADS, HEAD_DIM, torch.float16, True,
+        torch.from_numpy(flashmask_startend()).cuda(), seed=38)
 
 
 def head_dim_256_checks():
     """head_dim 256 and 160 (run at 256 with zero columns), fp32, bf16 and
-    fp16 (the bf16 forward on the tensor cores, two warpgroups a block;
-    the rest on the FMA kernels at 256, whose backward works on 32-row
-    halves of its 64-row tiles and reads the bf16 forward's lse and out),
+    fp16 (bf16 on the tensor cores, two warpgroups a block, fp16 the same
+    but for dQ; fp32 and fp16 dQ on the FMA kernels at 256, whose backward
+    works on 32-row halves of its 64-row tiles),
     the three masks, forward and backward, against the plain versions with
     ``limit``; the fixed-length mask at sq > sk causal (rows that see no
     key) and sq < sk."""
@@ -1069,8 +1162,8 @@ def head_dim_256_checks():
 
 def head_dims_above_256_checks():
     """head_dim 288 (run at 512 with zero columns) and 512, fp32, bf16 and
-    fp16 (each kernel's 256 form split over two 256-column chunks: the
-    bf16 forward on the tensor cores, the rest on the FMA kernels), the
+    fp16 (each kernel's 256 form split over two 256-column chunks: bf16
+    on the tensor cores, fp16 too but for dQ, fp32 on the FMA kernels), the
     three masks, forward and backward, against the plain versions with
     ``limit``; the fixed-length mask at sq > sk causal and sq < sk."""
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
@@ -1256,22 +1349,39 @@ def many_tiles_d256(cu, docs):
           f"{docs} within the limit, worst at {worst:.3g} of it")
 
 
+# the card's repeats of the keyless-rows check, each bit-equal to the first
+KEYLESS_REPEATS = 20
+
+
 def keyless_rows_check():
-    """Causal sq > sk through ``mha_forward``: the rows that see no key
-    get the reference's output (the mean of v over the key blocks the
+    """Causal sq > sk through ``mha_forward``, ``KEYLESS_REPEATS`` times
+    on the card, every repeat bit-equal to the first: the rows that see no
+    key get the reference's output (the mean of v over the key blocks the
     reference visits), on the card as on the CPU path the CPU tests hold
-    against the reference; fp32, 1e-5."""
+    against the reference; fp32, 1e-5. Prints where the largest error sits
+    and whether its row sees no key."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     for sq, sk in ((576, 512), (1536, 1280)):
         q, k, v, _ = _inputs(2, sq, sk, 32, torch.float32, seed=53)
-        got = fa.mha_forward(q, k, v, causal=True)
+        runs = [fa.mha_forward(q, k, v, causal=True)
+                for _ in range(KEYLESS_REPEATS)]
+        differ = [i for i, r in enumerate(runs) if not torch.equal(r, runs[0])]
+        got = runs[0]
         want = fa.mha_forward(q.cpu(), k.cpu(), v.cpu(), causal=True)
-        err = _err(got.cpu(), want)
+        diff = (got.cpu() - want).abs()
+        err = diff.max().item()
+        b, row, col = (int(i) for i in np.unravel_index(int(diff.argmax()),
+                                                        diff.shape))
         keyless = got[:, :sq - sk]
-        print(f"keyless rows sq {sq} sk {sk}: max abs err against the CPU "
-              f"path {err:.3g}; {int((keyless != 0).any(-1).sum())} of "
+        print(f"keyless rows sq {sq} sk {sk}: {len(differ)} of "
+              f"{KEYLESS_REPEATS - 1} card repeats differ from the first "
+              f"{differ}; max abs err against the CPU path {err:.3g} at "
+              f"(b {b}, row {row}, col {col}, a row that sees no key: "
+              f"{row < sq - sk}); {int((keyless != 0).any(-1).sum())} of "
               f"{keyless.shape[0] * keyless.shape[1]} keyless rows take "
               f"the reference's mean of v")
+        check(not differ, f"keyless rows: card repeats {differ} differ from "
+              f"the first at sq {sq} sk {sk}")
         check(err <= 1e-5, f"keyless rows: err {err} at sq {sq} sk {sk}")
         check(bool(keyless.any()), "keyless rows all 0")
 
@@ -1295,8 +1405,10 @@ def kernel_checks():
     for causal in (False, True):
         hold_flashmask_against_plain(2, 200, 136, 4, 128, torch.float32,
                                      causal, edge_startend, seed=8)
-    bf16_edges()
+    for dtype in (torch.bfloat16, torch.float16):
+        tensor_core_edges(dtype)
     repairs()
+    fp16_path_checks()
     head_dim_256_checks()
     head_dims_above_256_checks()
     many_heads_checks()
@@ -1383,12 +1495,12 @@ def flashmask_bounds(pairs, bh, sq, sk, d, io_bytes, plan_bytes):
     return {name: _bound(*fb) for name, fb in work.items()}
 
 
-def varlen_timings(h, d, seed):
+def varlen_timings(h, d, seed, dtype=torch.bfloat16):
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.cuda import flash_varlen as fv
     t = sum(DOCS)
     q, k, v, do, cu, _, plan = _varlen_inputs(
-        DOCS, DOCS, 0, 0, h, d, torch.bfloat16, True, seed=seed)
+        DOCS, DOCS, 0, 0, h, d, dtype, True, seed=seed)
     scale = 1.0 / math.sqrt(d)
     out, lse = fv.varlen_fwd(q, k, v, plan, scale)
     delta = fv.varlen_delta(do, out)
@@ -1431,7 +1543,7 @@ def varlen_timings(h, d, seed):
                   "varlen_bwd_dq": None}
     bnd = varlen_bounds(h, DOCS, DOCS, t, t, d, 2, True)
     print(f"varlen: T {t}, {len(DOCS)} documents, {h} heads, d "
-          f"{d}, bf16, causal; {kept_pairs(DOCS, DOCS, True)} kept "
+          f"{d}, {str(dtype).replace('torch.', '')}, causal; {kept_pairs(DOCS, DOCS, True)} kept "
           f"pairs per head ({kept_pairs(DOCS, DOCS, True) / (t * (t + 1) / 2):.1%}"
           f" of a dense causal mask)")
     for name in library_ms:
@@ -1448,13 +1560,12 @@ def varlen_timings(h, d, seed):
     return ms, plain_ms, library_ms, bnd
 
 
-def flashmask_timings(h, d, seed):
+def flashmask_timings(h, d, seed, dtype=torch.bfloat16):
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import flash_varlen as fv
     b, s = 2, FM_SEQ
-    q4, k4, v4, do4 = _flashmask_inputs(b, s, s, h, d, torch.bfloat16,
-                                        seed=seed)
+    q4, k4, v4, do4 = _flashmask_inputs(b, s, s, h, d, dtype, seed=seed)
     q, k, v, do = (_heads(x) for x in (q4, k4, v4, do4))
     startend = torch.from_numpy(flashmask_startend()).cuda()
     plan = fv.flashmask_plan(startend, h, True)
@@ -1503,7 +1614,8 @@ def flashmask_timings(h, d, seed):
                                              plan.en_min))
     bnd = flashmask_bounds(h * pairs_per_head, b * h, s, s, d, 2, plan_bytes)
     tiles = int(fv.flashmask_tiles(plan, s).sum())
-    print(f"flashmask: batch {b} x seq {s}, {h} heads, d {d}, bf16, causal, "
+    print(f"flashmask: batch {b} x seq {s}, {h} heads, d {d}, "
+          f"{str(dtype).replace('torch.', '')}, causal, "
           f"startend {list(startend.shape)}; {pairs_per_head} kept pairs per "
           f"head ({pairs_per_head / (b * s * (s + 1) / 2):.1%} of a dense "
           f"causal mask); {tiles} of {b * (s // 64) * (s // 64 + 1) // 2} "
@@ -1619,22 +1731,23 @@ def fixed_timings(b, h, s, d, seed, dtype=torch.bfloat16):
 # place of gpt2-medium's 16 x 64, over the same tokens per mask
 D256_HEADS = 16
 # shared memory a block at head_dim 256, as the launchers size it. The
-# bf16 kernels (flash_common.cuh WideSmem): seven 64 x 256 bf16 tiles, 1024
-# bytes of alignment, 15 mbarriers, 32 bytes of thread 0's ring state and
-# 1 KB of dK/dV's lse and delta rows. The FMA kernels of fp32 and fp16 io
-# (flash_common.cuh: 64-row tiles of D + 1 floats, score tiles of 65; the
+# tensor-core kernels (flash_common.cuh WideSmem; bf16, and fp16 for the
+# forward and dK/dV): seven 64 x 256 tiles of 2-byte elements, 1024 bytes
+# of alignment, 15 mbarriers, 32 bytes of thread 0's ring state and 1 KB
+# of dK/dV's lse and delta rows. The FMA kernels (fp32, and fp16 for dQ;
+# flash_common.cuh: 64-row tiles of D + 1 floats, score tiles of 65; the
 # backward in 32-row passes): the forward's Q, K, V tiles and P; dQ: 32
 # rows of Q and dO, 64 of K and V, 32 x 65 dS, 32 lse and delta; dK/dV: 32
 # rows of K and V, 64 of Q and dO, 64 x 33 P and dS, 64 lse and delta
 _WIDE_SMEM = 1024 + 7 * 64 * 256 * 2 + 8 * 15 + 32 + 4 * 256
-D256_SMEM = {"flash_fwd bf16": _WIDE_SMEM,
+D256_SMEM = {"flash_fwd bf16/fp16": _WIDE_SMEM,
              "flash_bwd_dq bf16": _WIDE_SMEM,
-             "flash_bwd_dkv bf16": _WIDE_SMEM,
-             "flash_fwd fp32/fp16": 4 * (3 * 64 * 257 + 64 * 65),
+             "flash_bwd_dkv bf16/fp16": _WIDE_SMEM,
+             "flash_fwd fp32": 4 * (3 * 64 * 257 + 64 * 65),
              "flash_bwd_dq fp32/fp16": 4 * (2 * 32 * 257 + 2 * 64 * 257
                                             + 32 * 65 + 2 * 32),
-             "flash_bwd_dkv fp32/fp16": 4 * (2 * 32 * 257 + 2 * 64 * 257
-                                             + 2 * 64 * 33 + 2 * 64)}
+             "flash_bwd_dkv fp32": 4 * (2 * 32 * 257 + 2 * 64 * 257
+                                        + 2 * 64 * 33 + 2 * 64)}
 
 
 def d256_timings():
@@ -1671,48 +1784,69 @@ def d512_timings():
 
 
 def fp16_timings():
-    """#1-#3 with fp16 io at the path shape (``[8, 16, 1024, 64]``,
-    causal; the FMA kernels, fp16 having no tensor-core instantiation
-    yet), beside their bounds, plain versions and SDPA's fp16 forward."""
-    print("fp16 io at the path shape (the FMA kernels)")
-    return fixed_timings(BATCH, HEADS, SEQ, HEAD_DIM, seed=66,
+    """The kernels with fp16 io (forward and dK/dV on the tensor cores, dQ
+    on the FMA kernel): #1-#3 at the path shape (``[8, 16, 1024, 64]``,
+    causal) and at head_dim 256 (16 heads), #6-#11 at their path shapes,
+    each beside its bound, plain version and SDPA's fp16 forward and whole
+    backward. Returns (path shapes, head_dim 256), each as
+    ``d256_timings`` returns its results."""
+    print("fp16 io (forward and dK/dV on the tensor cores, dQ on the FMA "
+          "kernel) at the path shapes and at head_dim 256")
+    path = [fixed_timings(BATCH, HEADS, SEQ, HEAD_DIM, seed=66,
+                          dtype=torch.float16),
+            varlen_timings(HEADS, HEAD_DIM, seed=68, dtype=torch.float16),
+            flashmask_timings(HEADS, HEAD_DIM, seed=69, dtype=torch.float16)]
+    wide = fixed_timings(BATCH, D256_HEADS, SEQ, 256, seed=70,
                          dtype=torch.float16)
+    return (tuple({k: v for r in path for k, v in r[i].items()}
+                  for i in range(4)), wide)
 
 
-# the public-entry run at head_dim 256: [batch, seq, heads, head_dim] of
-# Gemma-7B's attention (16 heads of 256) at gpt2-medium's tokens
-D256_ENTRY = (BATCH, SEQ, D256_HEADS, 256)
-# its forward + backward ms when the backward ran the FMA kernels
-# (chip_smoke.py phase 4b, NVIDIA H100 80GB HBM3 at 700 W)
+# the public-entry runs: [batch, seq, heads, head_dim] and io type; head_dim
+# 256 is Gemma-7B's attention (16 heads of 256) at gpt2-medium's tokens
+ENTRY_RUNS = ((BATCH, SEQ, D256_HEADS, 256, torch.bfloat16),
+              (BATCH, SEQ, HEADS, HEAD_DIM, torch.float16),
+              (BATCH, SEQ, D256_HEADS, 256, torch.float16))
+# the bf16 head_dim-256 run's forward + backward ms when the backward ran
+# the FMA kernels (chip_smoke.py phase 4b, NVIDIA H100 80GB HBM3 at 700 W)
 D256_ENTRY_FMA_MS = 20.49
 
 
-def d256_entry_path():
-    """Drives ``nn.functional.flash_attention`` at ``D256_ENTRY``, bf16,
-    causal, forward and backward, as a user calls it: checks one launch of
-    each fixed-length kernel, holds out, dq, dk and dv against the plain
-    versions with ``limit`` (the plain backward from the kernel's own lse,
-    as in phase 3), shows under ``torch.profiler`` that the forward ran
-    ``flash_fwd_hopper`` and no ``flash_fwd_kernel`` and the backward
-    ``flash_bwd_dq_hopper`` and ``flash_bwd_dkv_hopper`` and no
-    ``flash_bwd_*_kernel``, and times the forward and forward + backward
-    (beside ``D256_ENTRY_FMA_MS``)."""
+def entry_paths():
+    """``entry_path`` at each of ``ENTRY_RUNS``."""
+    phase("4b the public entry: bf16 and fp16 at head_dim 256, fp16 at 64")
+    for run in ENTRY_RUNS:
+        entry_path(*run)
+
+
+def entry_path(b, s, h, d, dtype):
+    """Drives ``nn.functional.flash_attention`` at ``[b, s, h, d]`` in
+    ``dtype``, causal, forward and backward, as a user calls it: checks one
+    launch of each fixed-length kernel, holds out, dq, dk and dv against
+    the plain versions with ``limit`` (the plain backward from the
+    kernel's own lse, as in phase 3), shows under ``torch.profiler`` that
+    the forward ran ``flash_fwd_hopper`` of the io type and no
+    ``flash_fwd_kernel``, and the backward ``flash_bwd_dkv_hopper`` of the
+    io type and no ``flash_bwd_dkv_kernel``, and dQ on
+    ``flash_bwd_dq_hopper`` (bf16) or the FMA ``flash_bwd_dq_kernel``
+    (fp16), and times the forward and forward + backward (the bf16 run at
+    256 beside ``D256_ENTRY_FMA_MS``)."""
     import paddle_tpu_torch.nn.functional as PF
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from torch.profiler import ProfilerActivity, profile
-    phase("4b head_dim 256 through the public entry")
-    b, s, h, d = D256_ENTRY
+    io = "__half" if dtype == torch.float16 else "__nv_bfloat16"
+    name = str(dtype).replace("torch.", "")
     gen = torch.Generator(device="cuda").manual_seed(67)
     q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device="cuda")
-                   .to(torch.bfloat16) for _ in range(4))
+                   .to(dtype) for _ in range(4))
     ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
     fa.reset_launches()
     out, _ = PF.flash_attention(ql, kl, vl, causal=True)
     out.backward(do)
     torch.cuda.synchronize()
     launches = dict(fa.LAUNCHES)
-    print(f"flash_attention [{b}, {s}, {h}, {d}] bf16 causal, forward and "
-          f"backward: launches {launches}")
+    print(f"flash_attention [{b}, {s}, {h}, {d}] {name} causal, forward "
+          f"and backward: launches {launches}")
     check(launches == {"flash_fwd": 1, "flash_bwd_dkv": 1,
                        "flash_bwd_dq": 1}, f"entry launches {launches}")
 
@@ -1734,13 +1868,14 @@ def d256_entry_path():
              "dv": (heads(vl.grad), p_dv)}
     ratios = {}
     for key, (got, want) in pairs.items():
-        err, ratios[key] = within(got, want,
-                                  limit(torch.bfloat16, key, want, abs_v, d))
+        err, ratios[key] = within(got, want, limit(dtype, key, want, abs_v,
+                                                   d))
         check(bool(torch.isfinite(got.float()).all()), f"entry {key} "
               f"non-finite")
         check(math.isfinite(ratios[key]) and ratios[key] <= 1.0,
               f"entry {key} at {ratios[key]:.3g} of its limit")
-    print("entry against the plain versions, of the limit: " + " ".join(
+    print(f"entry {name} d {d} against the plain versions, of the "
+          f"limit: " + " ".join(
         f"{k} {r:.3g}" for k, r in ratios.items()))
     del p_out, p_lse, abs_v, p_dk, p_dv, p_dq, pairs
     with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1748,28 +1883,35 @@ def d256_entry_path():
         torch.cuda.synchronize()
     names = sorted({e.key for e in prof.key_averages() if "flash" in e.key})
     print(f"profiled forward, kernels: {names}")
-    check(any("flash_fwd_hopper" in n for n in names)
+    check(any("flash_fwd_hopper" in n and io in n for n in names)
           and not any("flash_fwd_kernel" in n for n in names),
-          f"the entry's forward ran {names}, want flash_fwd_hopper alone")
+          f"the entry's forward ran {names}, want flash_fwd_hopper at {io} "
+          f"alone")
     out, _ = PF.flash_attention(ql, kl, vl, causal=True)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out.backward(do)
         torch.cuda.synchronize()
     names = sorted({e.key for e in prof.key_averages() if "flash" in e.key})
     print(f"profiled backward, kernels: {names}")
-    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
-        check(any(f"{kernel}_hopper" in n for n in names)
-              and not any(f"{kernel}_kernel" in n for n in names),
-              f"the entry's backward ran {names}, want {kernel}_hopper "
-              f"and no {kernel}_kernel")
+    # fp16 dQ still runs the FMA kernel
+    want = {"flash_bwd_dkv": "hopper",
+            "flash_bwd_dq": "kernel" if dtype == torch.float16 else "hopper"}
+    for kernel, form in want.items():
+        other = "kernel" if form == "hopper" else "hopper"
+        check(any(f"{kernel}_{form}" in n and (form == "kernel" or io in n)
+                  for n in names)
+              and not any(f"{kernel}_{other}" in n for n in names),
+              f"the entry's backward ran {names}, want {kernel}_{form} "
+              f"({io}) and no {kernel}_{other}")
     with torch.no_grad():
         fwd_ms = cuda_ms(lambda: PF.flash_attention(q, k, v, causal=True),
                          10)
     step_ms = cuda_ms(lambda: PF.flash_attention(
         ql, kl, vl, causal=True)[0].backward(do), 5)
-    print(f"flash_attention [{b}, {s}, {h}, {d}] bf16 causal: forward "
-          f"{fwd_ms:.4f} ms, forward + backward {step_ms:.4f} ms (with the "
-          f"FMA backward: {D256_ENTRY_FMA_MS} ms)")
+    before = (f" (with the FMA backward: {D256_ENTRY_FMA_MS} ms)"
+              if dtype == torch.bfloat16 and d == 256 else "")
+    print(f"flash_attention [{b}, {s}, {h}, {d}] {name} causal: forward "
+          f"{fwd_ms:.4f} ms, forward + backward {step_ms:.4f} ms{before}")
     return launches
 
 
@@ -1882,16 +2024,23 @@ def gpt_flops_per_token(cfg) -> float:
     return 6 * n_params + 12 * L * SEQ * h
 
 
-def _eager_step(paddle, model, crit, opt, x, y):
-    """One eager training step under bf16 O1, in the trainer's profiler
-    ranges (forward, backward, optimizer)."""
+def _eager_step(paddle, model, crit, opt, x, y, dtype="bfloat16",
+                scaler=None):
+    """One eager training step under O1 ``dtype``, in the trainer's
+    profiler ranges (forward, backward, optimizer); with a ``GradScaler``
+    the loss is scaled before the backward and the step goes through the
+    scaler (unscale, skip on overflow)."""
     from torch.profiler import record_function
     with record_function("forward"):
-        with paddle.amp.auto_cast(dtype="bfloat16"):
+        with paddle.amp.auto_cast(level="O1", dtype=dtype):
             loss = crit(model(x), y)
-    loss.backward()
+    (loss if scaler is None else scaler.scale(loss)).backward()
     with record_function("optimizer"):
-        opt.step()
+        if scaler is None:
+            opt.step()
+        else:
+            scaler.step(opt)
+            scaler.update()
         opt.clear_grad()
     return loss
 
@@ -1934,23 +2083,40 @@ def small_eager_check():
 
 def eager_path(smi, compiled_ms):
     """The eager API's training loop on gpt2-medium at full width and
-    depth: fp32 parameters, bf16 O1 ``auto_cast``, AdamW lr 1e-4, no
+    depth: fp32 parameters, O1 ``auto_cast``, AdamW lr 1e-4, no
     recompute, batch ``BATCH`` x seq ``SEQ``, 1 warm-up and 5 timed
-    steps. Each step must launch 24 bf16 forward, dK/dV and dQ kernels at
-    head_dim 64 and no other port kernel."""
-    import paddle_tpu_torch as paddle
-    from paddle_tpu_torch.models import gpt
-    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    steps, first in bf16, then from the same seed in fp16 with a
+    ``GradScaler`` (what upstream Paddle's AMP defaults to). Each step must
+    launch 24 forward, dK/dV and dQ kernels at head_dim 64 in the run's io
+    type and no other port kernel."""
     phase("10 eager path")
     small_eager_check()
     torch.cuda.empty_cache()
+    bf16_ms = eager_gpt(smi, compiled_ms, "bfloat16")
+    torch.cuda.empty_cache()
+    fp16_ms = eager_gpt(smi, compiled_ms, "float16")
+    print(f"eager gpt2-medium O1: fp16 with GradScaler {fp16_ms:.2f} ms/step "
+          f"({BATCH * SEQ / (fp16_ms / 1e3):.1f} tokens/s) against bf16 "
+          f"{bf16_ms:.2f} ms/step ({BATCH * SEQ / (bf16_ms / 1e3):.1f} "
+          f"tokens/s), {fp16_ms / bf16_ms:.3f}x, on {smi}")
 
+
+def eager_gpt(smi, compiled_ms, dtype):
+    """One eager gpt2-medium run of ``eager_path`` under O1 ``dtype``
+    ("bfloat16", or "float16" with a ``GradScaler``): checks its launches,
+    losses and memory, prints its steps, profiles one and returns the
+    median ms/step."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    io = {"bfloat16": torch.bfloat16, "float16": torch.float16}[dtype]
     cfg = gpt.GPT_CONFIGS["gpt2-medium"]
     paddle.set_device("gpu")
     paddle.seed(0)
     model = gpt.GPTForPretraining(cfg)
     crit = gpt.GPTPretrainingCriterion()
     opt = paddle.optimizer.AdamW(1e-4, parameters=model.parameters())
+    scaler = paddle.amp.GradScaler() if io == torch.float16 else None
     rng = np.random.RandomState(0)
     x = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (BATCH, SEQ)))
     y = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (BATCH, SEQ)))
@@ -1970,14 +2136,16 @@ def eager_path(smi, compiled_ms):
     for i in range(1 + TIMED_STEPS):
         fa._launch = spy if i == 0 else launch
         t0 = time.perf_counter()
-        loss = _eager_step(paddle, model, crit, opt, x, y)
+        loss = _eager_step(paddle, model, crit, opt, x, y, dtype, scaler)
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) * 1e3
         losses.append(float(loss))
         if i:
             step_ms.append(dt)
-        print(f"eager step {i}{' (warm-up)' if not i else ''}: loss "
-              f"{losses[-1]:.5f} {dt:.1f} ms")
+        print(f"eager {dtype} step {i}{' (warm-up)' if not i else ''}: loss "
+              f"{losses[-1]:.5f} {dt:.1f} ms" + (
+                  "" if scaler is None else
+                  f", loss scale {scaler._scale:g}"))
     fa._launch = launch
     launches = _all_launches()
     n_steps = 1 + TIMED_STEPS
@@ -1986,8 +2154,8 @@ def eager_path(smi, compiled_ms):
     for name, n in launches.items():
         want = cfg.num_layers * n_steps if name in fa.LAUNCHES else 0
         check(n == want, f"{name} launched {n} times, want {want}")
-    check(seen == {(n, torch.bfloat16, cfg.head_dim) for n in fa.LAUNCHES},
-          f"launches not all bf16 at head_dim {cfg.head_dim}: {seen}")
+    check(seen == {(n, io, cfg.head_dim) for n in fa.LAUNCHES},
+          f"launches not all {dtype} at head_dim {cfg.head_dim}: {seen}")
     check(all(math.isfinite(v) for v in losses), f"losses {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
 
@@ -1996,15 +2164,18 @@ def eager_path(smi, compiled_ms):
     mfu = gpt_flops_per_token(cfg) * tok_s / PEAK_BF16_FLOPS
     peak = torch.cuda.max_memory_allocated()
     print(f"eager gpt2-medium ({n_params} parameters, fp32) b{BATCH} "
-          f"s{SEQ} bf16 O1 adamw, no recompute: median {med_ms:.2f} ms/step "
+          f"s{SEQ} {dtype} O1 adamw"
+          f"{'' if scaler is None else ' GradScaler'}, no recompute: median "
+          f"{med_ms:.2f} ms/step "
           f"of {TIMED_STEPS} (steps {[round(v, 2) for v in step_ms]}), "
           f"{tok_s:.1f} tokens/s, MFU {mfu:.4f} of 989 TFLOP/s, peak memory "
           f"{peak / 2**30:.2f} GiB on {smi}; the compiled functional step "
           f"(phase 5, bf16 params, remat) {compiled_ms:.2f} ms, "
           f"{med_ms / compiled_ms:.3f}x")
     check(peak < DEVICE_BYTES, f"peak memory {peak} >= {DEVICE_BYTES}")
-    profile_step(lambda *_: _eager_step(paddle, model, crit, opt, x, y),
-                 None, None, None, med_ms)
+    profile_step(lambda *_: _eager_step(paddle, model, crit, opt, x, y, dtype,
+                                        scaler), None, None, None, med_ms)
+    return med_ms
 
 
 def _vision_group(name: str) -> str:
@@ -2973,9 +3144,9 @@ def main() -> int:
     with watchdog("phase 4 (head_dim 512 timings)", 300):
         d512 = d512_timings()
     with watchdog("phase 4 (fp16 timings)", 300):
-        fp16 = fp16_timings()
-    with watchdog("phase 4b (head_dim 256 public entry)", 300):
-        d256_entry_path()
+        fp16, fp16_d256 = fp16_timings()
+    with watchdog("phase 4b (the public entry)", 300):
+        entry_paths()
     torch.cuda.empty_cache()
     launches, compiled_ms = main_path()
     torch.cuda.empty_cache()
@@ -3000,7 +3171,7 @@ def main() -> int:
     phase("13 results")
     for label, (d_ms, d_plain, d_lib, d_bnd) in (
             ("head_dim 256", d256), ("head_dim 512", d512),
-            ("fp16 head_dim 64", fp16)):
+            ("fp16 head_dim 64", fp16), ("fp16 head_dim 256", fp16_d256)):
         for kname in d_ms:
             lib = d_lib[kname]
             print(f"{label} {kname}: {d_ms[kname]:.4f} ms, plain "

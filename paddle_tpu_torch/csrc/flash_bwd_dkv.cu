@@ -1,9 +1,9 @@
 // Flash-attention backward, dK and dV, for Hopper (sm_90a): fixed-length
 // causal batches, packed variable-length sequences and flashmask (start/end
 // row) masks, two kernels templated on the mask: a tensor-core kernel for
-// bf16 io (`flash_bwd_dkv_hopper`) and an fp32 FMA kernel for float and
-// fp16 io (`flash_bwd_dkv_kernel`). `dkv_any` picks one by the io type. The
-// bf16 kernel has two forms: head_dim 32, 64 and 128 (one warpgroup) and
+// bf16 and fp16 io (`flash_bwd_dkv_hopper`, templated on the 2-byte io type
+// too) and an fp32 FMA kernel for float io (`flash_bwd_dkv_kernel`).
+// `dkv_any` picks one by the io type. The tensor-core kernel has two forms: head_dim 32, 64 and 128 (one warpgroup) and
 // head_dim 256 (two warpgroups, `dkv_wide`); a head_dim above 256 (a
 // multiple of 256: the wrappers pad to it) runs either kernel's 256 form
 // split over it (SPLIT): one block per 256-column chunk of dK and dV, S and
@@ -34,8 +34,8 @@
 // tile's segments, or banned by every column of the key tile) are never
 // loaded.
 //
-// The bf16 kernel (`flash_bwd_dkv_hopper`), one block per (head, 64-row
-// key tile), one warpgroup (128 threads).
+// The tensor-core kernel (`flash_bwd_dkv_hopper`), one block per (head,
+// 64-row key tile), one warpgroup (128 threads).
 // - Thread 0 loads the K and V tiles by TMA and streams (Q, dO) tile
 //   pairs through a ring of STAGES shared-memory stages: the first STAGES
 //   at the start, then each into the stage the block has just finished (a
@@ -54,22 +54,31 @@
 //   from the stage. Tiles the mask keeps whole skip the mask.
 // - dV += P^T dO and dK += dS^T Q take P^T and dS^T from registers and dO
 //   and Q as MN-major operands (the transpose bit), as the forward's P V.
-//   P and dS are each split into two bf16 parts, hi = bf16(x) and
-//   lo = bf16(x - hi), each a product into the same fp32 accumulator:
+//   P and dS are each split into two parts of the io type, hi = T(x) and
+//   lo = T(x - hi), each a product into the same fp32 accumulator:
 //   rounding them once to bf16 would leave each term off by up to 2^-9 of
 //   itself, which summed over a thousand queries is several times the card
 //   tests' limit on elements near 0; hi + lo keeps about 2^-17. So the
 //   kernel runs 6 products a tile where the TPU's runs 4, and holds the
 //   reference's fp32 P and dS.
+// - fp16 io: the same design and products (f16 operands, same rate). One
+//   fp16 rounding misses the fp16 limit (8x tighter) as bf16's misses its
+//   own, so the split stays; but fp16's range is small: below 2^-14 it is
+//   subnormal, and hi + lo then keeps only an absolute 2^-25. So P is split
+//   at 2^14 times itself (folded into the stats' lse, P_EXP; p <= 1, so no
+//   overflow), and each key row of dS at a power of two of its own that
+//   puts the row's largest |dS| in [2^14, 2^15) (`ds_rows`: dS follows dO's
+//   scale, 2^-12 and 2^8 of unit scale alike under a loss scaler); the
+//   epilogue divides both out, exactly.
 // - Registers: S^T and dP^T (32 each), dK and dV (D / 2 each) and the
 //   A operands (16 for each of P hi, P lo, dS hi, dS lo) a thread; D <= 64
 //   runs two blocks an SM (up to 255 registers a thread), D = 128 one.
 // The FMA kernel (`flash_bwd_dkv_kernel`), 256 threads: products as fp32
-// FMAs from shared memory, for the fp32 and fp16 models and checks, at
+// FMAs from shared memory, for the fp32 models and checks, at
 // head_dim 256 in two 32-key passes (DkvFma) and, split over the head_dim
 // in 256-column chunks of dK and dV (SPLIT), above it.
 //
-// The bf16 kernel at head_dim 256 (`dkv_wide`), one block per (head,
+// The tensor-core kernel at head_dim 256 (`dkv_wide`), one block per (head,
 // 64-row key tile, 256-column chunk of dK and dV), 256 threads: two
 // consumer warpgroups on the same key tile. What bounds it at the
 // fixed-length shape (BH = 128, S = 1024, D = 256, causal): 1.4e11 FLOP
@@ -97,10 +106,10 @@
 // - Products a query tile: S^T (and dP^T) as 16 `wgmma` m64n64k16 per
 //   chunk, then 4 m64n256k16 for hi and 4 for lo, dO or Q MN-major.
 //
-// Grid: FMA (ceil(Sk / 64), heads, head_dim / 256 above 256); bf16 below
-// 256 the same for the fixed-length mask and (heads, ceil(Sk / 64)) for
-// the varlen and flashmask masks, the key tiles first to last (the longest
-// first under a causal mask); bf16 at 256 and above
+// Grid: FMA (ceil(Sk / 64), heads, head_dim / 256 above 256); tensor cores
+// below 256 the same for the fixed-length mask and (heads, ceil(Sk / 64))
+// for the varlen and flashmask masks, the key tiles first to last (the
+// longest first under a causal mask); tensor cores at 256 and above
 // (ceil(Sk / 64) * chunks, heads) or (heads, ceil(Sk / 64) * chunks), the
 // chunk varying fastest; at most 65535 heads a launch (by_head_slices).
 #include "flash_common.cuh"
@@ -130,15 +139,16 @@ struct DkvFma {
 // and dV. S and dP still take the whole head_dim: for each query tile the
 // block streams K, V, Q and dO through their tiles chunk by chunk, its own
 // chunk last, so that Qs and dOs hold the chunks the dK and dV products read.
-template <typename T, int D, typename Mask, bool SPLIT = false>
+template <int D, typename Mask, bool SPLIT = false>
 // Shared memory allows two blocks per SM at head_dim <= 64 (one at 128 and
 // 256): saying so keeps ptxas from squeezing the kernel into 64 registers
 // with spills to reach an occupancy the shared memory rules out.
 __global__ void __launch_bounds__(NT, D > 128 ? 1 : 2)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     Layout lay, Mask heads_mask, float scale) {
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dk, float* __restrict__ dv, Layout lay, Mask heads_mask,
+                     float scale) {
   constexpr int LD = D + 1;
   constexpr int DJ = D / 16;
   constexpr int KI = DkvFma<D>::KI, KR = DkvFma<D>::KR, LDS = DkvFma<D>::LDS;
@@ -158,10 +168,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int kt = blockIdx.x;
   const int cz = SPLIT ? blockIdx.z : 0;  // the output chunk
   const int nch = SPLIT ? gridDim.z : 1;
-  const T* qb = q + h * lay.q_hs;
-  const T* dob = dout + h * lay.q_hs;
-  const T* kb = k + h * lay.k_hs;
-  const T* vb = v + h * lay.k_hs;
+  const float* qb = q + h * lay.q_hs;
+  const float* dob = dout + h * lay.q_hs;
+  const float* kb = k + h * lay.k_hs;
+  const float* vb = v + h * lay.k_hs;
   const float* lb = lse + (size_t)h * lay.sq;
   const float* db = delta + (size_t)h * lay.sq;
   const int2 tiles = mask.query_tiles(kt);
@@ -169,8 +179,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   for (int k0 = kt * BK; k0 < min(kt * BK + BK, lay.sk); k0 += KR) {
     if (!SPLIT) {
       __syncthreads();  // the last pass's reads of Ks and Vs are done
-      load_tile<T, KR, D>(Ks, kb, k0, lay.sk, lay.k_rs);
-      load_tile<T, KR, D>(Vs, vb, k0, lay.sk, lay.k_rs);
+      load_tile<float, KR, D>(Ks, kb, k0, lay.sk, lay.k_rs);
+      load_tile<float, KR, D>(Vs, vb, k0, lay.sk, lay.k_rs);
     }
 
     float dk_acc[KI][DJ], dv_acc[KI][DJ];
@@ -199,11 +209,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         const int cc = SPLIT ? (cz + n) % nch : 0;
         __syncthreads();  // the last reads of Ks, Vs, Qs, dOs, Ps and dSs are done
         if (SPLIT) {
-          load_tile<T, KR, D>(Ks, kb + cc * D, k0, lay.sk, lay.k_rs);
-          load_tile<T, KR, D>(Vs, vb + cc * D, k0, lay.sk, lay.k_rs);
+          load_tile<float, KR, D>(Ks, kb + cc * D, k0, lay.sk, lay.k_rs);
+          load_tile<float, KR, D>(Vs, vb + cc * D, k0, lay.sk, lay.k_rs);
         }
-        load_tile<T, BQ, D>(Qs, qb + cc * D, q0, lay.sq, lay.q_rs);
-        load_tile<T, BQ, D>(dOs, dob + cc * D, q0, lay.sq, lay.q_rs);
+        load_tile<float, BQ, D>(Qs, qb + cc * D, q0, lay.sq, lay.q_rs);
+        load_tile<float, BQ, D>(dOs, dob + cc * D, q0, lay.sq, lay.q_rs);
         if (n == 1) {
           load_rowvec(Ls, lb, q0, lay.sq, BQ);
           load_rowvec(Dl, db, q0, lay.sq, BQ);
@@ -273,20 +283,20 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int i = 0; i < KI; ++i) {
       const int kp = k0 + ty + 16 * i;
       if (kp >= lay.sk) continue;
-      T* dkrow = dk + h * lay.k_hs + kp * lay.k_rs + cz * D;
-      T* dvrow = dv + h * lay.k_hs + kp * lay.k_rs + cz * D;
+      float* dkrow = dk + h * lay.k_hs + kp * lay.k_rs + cz * D;
+      float* dvrow = dv + h * lay.k_hs + kp * lay.k_rs + cz * D;
 #pragma unroll
       for (int c = 0; c < DJ; ++c) {
-        dkrow[tx + 16 * c] = from_f<T>(dk_acc[i][c]);
-        dvrow[tx + 16 * c] = from_f<T>(dv_acc[i][c]);
+        dkrow[tx + 16 * c] = dk_acc[i][c];
+        dvrow[tx + 16 * c] = dv_acc[i][c];
       }
     }
   }
 }
 
-// ------------------------------------------------ the bf16 tensor-core kernel
+// ------------------------------------------ the bf16 and fp16 tensor-core kernel
 
-// The bf16 kernel's shared memory: the K and V tiles, then STAGES (Q, dO)
+// The tensor-core kernel's shared memory: the K and V tiles, then STAGES (Q, dO)
 // stages, then each stage's lse and delta rows (2 x 64 floats), then the
 // mbarriers (1024 bytes of slack to align the tiles).
 template <int D>
@@ -297,16 +307,25 @@ struct DkvRing {
                                  sizeof(uint64_t) * (1 + STAGES);
 };
 
+// fp16 io: P is split at 2^P_EXP times itself (P_EXP is subtracted from
+// the stats' lse * log2(e)); bf16 at itself.
+template <typename T>
+constexpr float P_EXP = pt_hopper::is_f16<T> ? 14.f : 0.f;
+template <typename T>
+constexpr float P_MUL = pt_hopper::is_f16<T> ? 16384.f : 1.f;
+
 // One query tile's P^T and dS^T on the S^T accumulator `st` (key rows r
 // and r + 8: h2 = 0, 1; query columns 8 jj + cq + e) and dP^T in `dpt`:
 // p = exp(s scale - lse) under the mask, left in `st`, and
-// dS = p (dP - delta) scale, left in `dpt`. `stats` holds the query tile's
-// lse * log2(e), then its delta. FULL: the mask keeps every pair of the
-// tile, so no element is tested.
+// dS = p (dP - delta) ds_scale, left in `dpt` (ds_scale: the scale over
+// P_MUL, so that dS comes out unscaled). `stats` holds the query tile's
+// lse * log2(e) - P_EXP, then its delta. FULL: the mask keeps every pair of
+// the tile, so no element is tested.
 template <bool FULL, typename Mask>
 __device__ __forceinline__ void dkv_p_ds_tile(const Mask& mask, int i, const RowInfo (&ki)[2],
-                                              int cq, float scale, const float* stats,
-                                              float (&st)[32], float (&dpt)[32]) {
+                                              int cq, float scale, float ds_scale,
+                                              const float* stats, float (&st)[32],
+                                              float (&dpt)[32]) {
   const float scale_log2 = scale * LOG2E;
 #pragma unroll
   for (int jj = 0; jj < 8; ++jj)
@@ -322,21 +341,56 @@ __device__ __forceinline__ void dkv_p_ds_tile(const Mask& mask, int i, const Row
         float p = exp2_ftz(fmaf(st[x], scale_log2, -lse2));
         if (!FULL && !mask.visible(qi, ki[h2])) p = 0.f;
         st[x] = p;
-        dpt[x] = p * (dpt[x] - dl) * scale;
+        dpt[x] = p * (dpt[x] - dl) * ds_scale;
       }
     }
 }
 
-// The one-warpgroup form (head_dim 32, 64, 128).
-template <int D, typename Mask>
+// fp16 io: scales key rows r and r + 8 of dS^T (`dpt`) by a power of two
+// each (`mul`, kept over the query tiles and only ever lowered), so that a
+// row's largest |dS| lies in [2^14, 2^15) when it is first reached: the
+// hi/lo split then keeps 22 bits of it. When a row's power falls, the dK
+// rows already summed in `acc` fall by the same ratio (exact: powers of
+// two); the epilogue divides by `mul`.
+template <int N>
+__device__ __forceinline__ void ds_rows(float (&dpt)[32], float (&mul)[2], float (&acc)[N]) {
+  float mx[2] = {0.f, 0.f};
+#pragma unroll
+  for (int x = 0; x < 32; ++x) mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], fabsf(dpt[x]));
+  float ratio[2];
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    // 2^(14 - floor(log2 max)), at most 2^100 (a row of zeros keeps its power)
+    const int e = min(14 - ((__float_as_int(quad_max(mx[h2])) >> 23) - 127), 100);
+    const float want = __int_as_float((127 + e) << 23);
+    ratio[h2] = want < mul[h2] ? want / mul[h2] : 1.f;
+    mul[h2] = fminf(mul[h2], want);
+  }
+  if (ratio[0] != 1.f || ratio[1] != 1.f) {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        acc[4 * j + 2 * h2] *= ratio[h2];
+        acc[4 * j + 2 * h2 + 1] *= ratio[h2];
+      }
+  }
+#pragma unroll
+  for (int x = 0; x < 32; ++x) dpt[x] *= mul[(x >> 1) & 1];
+}
+
+// The largest power ds_rows starts from.
+constexpr float DS_MUL_MAX = 0x1p100f;
+
+// The one-warpgroup form (head_dim 32, 64, 128), io type T.
+template <int D, typename T, typename Mask>
 __device__ __forceinline__ void dkv_narrow(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                                            const CUtensorMap& tm_v, const CUtensorMap& tm_do,
                                            const float* __restrict__ lse,
                                            const float* __restrict__ delta,
-                                           __nv_bfloat16* __restrict__ dk,
-                                           __nv_bfloat16* __restrict__ dv, const Layout& lay,
-                                           const Mask& heads_mask, float scale, int packed,
-                                           int tiles_x) {
+                                           T* __restrict__ dk, T* __restrict__ dv,
+                                           const Layout& lay, const Mask& heads_mask, float scale,
+                                           int packed, int tiles_x) {
   using Tile = HopTile<D>;
   constexpr int STAGES = DkvRing<D>::STAGES;
   using namespace pt_hopper;
@@ -364,12 +418,12 @@ __device__ __forceinline__ void dkv_narrow(const CUtensorMap& tm_q, const CUtens
   const int t = threadIdx.x;
   const float* lb = lse + (size_t)h * lay.sq;
   const float* db = delta + (size_t)h * lay.sq;
-  // thread t's value of query tile i's stats: lse * log2(e) of row t, or
-  // delta of row t - 64; 0 past the last row
+  // thread t's value of query tile i's stats: lse * log2(e) - P_EXP of
+  // row t, or delta of row t - 64; 0 past the last row
   auto stat = [&](int i) {
     const int qp = i * BQ + (t & (BQ - 1));
     if (qp >= lay.sq) return 0.f;
-    return t < BQ ? lb[qp] * LOG2E : db[qp];
+    return t < BQ ? lb[qp] * LOG2E - P_EXP<T> : db[qp];
   };
   // query tile i into ring stage s: every thread stores its stats value and
   // arrives, thread 0 with the TMA loads' byte count
@@ -415,6 +469,7 @@ __device__ __forceinline__ void dkv_narrow(const CUtensorMap& tm_q, const CUtens
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   const RowInfo ki[2] = {mask.k_row(k0 + r), mask.k_row(k0 + r + 8)};
+  float ds_mul[2] = {DS_MUL_MAX, DS_MUL_MAX};  // fp16: ds_rows' powers
 
   mbar_wait(kv_full, 0);
   int it = 0;
@@ -432,17 +487,19 @@ __device__ __forceinline__ void dkv_narrow(const CUtensorMap& tm_q, const CUtens
     fence_regs(st);
     fence_regs(dpt);
     wgmma_fence();
-    wgmma_nt<D>(st, k_addr, q_addr(s));                  // S^T = K Q^T
-    wgmma_nt<D>(dpt, v_addr, q_addr(s) + Tile::BYTES);   // dP^T = V dO^T
+    wgmma_nt<D, T>(st, k_addr, q_addr(s));                 // S^T = K Q^T
+    wgmma_nt<D, T>(dpt, v_addr, q_addr(s) + Tile::BYTES);  // dP^T = V dO^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(st);
     fence_regs(dpt);
     const float* stats_s = stats + 2 * BQ * s;
+    const float ds_scale = scale / P_MUL<T>;
     if (mask.tile_full(i, kt))
-      dkv_p_ds_tile<true>(mask, i, ki, cq, scale, stats_s, st, dpt);
+      dkv_p_ds_tile<true>(mask, i, ki, cq, scale, ds_scale, stats_s, st, dpt);
     else
-      dkv_p_ds_tile<false>(mask, i, ki, cq, scale, stats_s, st, dpt);
+      dkv_p_ds_tile<false>(mask, i, ki, cq, scale, ds_scale, stats_s, st, dpt);
+    if constexpr (pt_hopper::is_f16<T>) ds_rows(dpt, ds_mul, dk_acc);
     // P^T and dS^T as A operands, hi and lo parts: their k-th 16 queries
     // are values 8k .. 8k + 7
     uint32_t ph[4][4], pl[4][4], sh[4][4], sl[4][4];
@@ -450,21 +507,21 @@ __device__ __forceinline__ void dkv_narrow(const CUtensorMap& tm_q, const CUtens
     for (int k = 0; k < 4; ++k)
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
-        pack_bf16_split(st[8 * k + 2 * x], st[8 * k + 2 * x + 1], ph[k][x], pl[k][x]);
-        pack_bf16_split(dpt[8 * k + 2 * x], dpt[8 * k + 2 * x + 1], sh[k][x], sl[k][x]);
+        pack_split<T>(st[8 * k + 2 * x], st[8 * k + 2 * x + 1], ph[k][x], pl[k][x]);
+        pack_split<T>(dpt[8 * k + 2 * x], dpt[8 * k + 2 * x + 1], sh[k][x], sl[k][x]);
       }
     fence_regs(dv_acc);
     fence_regs(dk_acc);
     wgmma_fence();
 #pragma unroll
     for (int k = 0; k < 4; ++k) {  // dV += P^T dO
-      wgmma_rs_d<D>(dv_acc, ph[k], Tile::mn_major(q_addr(s) + Tile::BYTES, k));
-      wgmma_rs_d<D>(dv_acc, pl[k], Tile::mn_major(q_addr(s) + Tile::BYTES, k));
+      wgmma_rs_d<D, T>(dv_acc, ph[k], Tile::mn_major(q_addr(s) + Tile::BYTES, k));
+      wgmma_rs_d<D, T>(dv_acc, pl[k], Tile::mn_major(q_addr(s) + Tile::BYTES, k));
     }
 #pragma unroll
     for (int k = 0; k < 4; ++k) {  // dK += dS^T Q
-      wgmma_rs_d<D>(dk_acc, sh[k], Tile::mn_major(q_addr(s), k));
-      wgmma_rs_d<D>(dk_acc, sl[k], Tile::mn_major(q_addr(s), k));
+      wgmma_rs_d<D, T>(dk_acc, sh[k], Tile::mn_major(q_addr(s), k));
+      wgmma_rs_d<D, T>(dk_acc, sl[k], Tile::mn_major(q_addr(s), k));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -489,13 +546,19 @@ __device__ __forceinline__ void dkv_narrow(const CUtensorMap& tm_q, const CUtens
     const int kp = k0 + r + 8 * h2;
     if (kp >= lay.sk) continue;
     const long long off = h * lay.k_hs + (long long)kp * lay.k_rs + cq;
+    // fp16: the powers the products were scaled by, divided out
+    float dk_mul = 1.f, dv_mul = 1.f;
+    if constexpr (pt_hopper::is_f16<T>) {
+      dk_mul = 1.f / ds_mul[h2];
+      dv_mul = 1.f / P_MUL<T>;
+    }
 #pragma unroll
     for (int jd = 0; jd < D / 8; ++jd) {
       const int x = 4 * jd + 2 * h2;
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * jd) =
-          __floats2bfloat162_rn(dk_acc[x], dk_acc[x + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * jd) =
-          __floats2bfloat162_rn(dv_acc[x], dv_acc[x + 1]);
+      *reinterpret_cast<uint32_t*>(dk + off + 8 * jd) =
+          pack2<T>(dk_acc[x] * dk_mul, dk_acc[x + 1] * dk_mul);
+      *reinterpret_cast<uint32_t*>(dv + off + 8 * jd) =
+          pack2<T>(dv_acc[x] * dv_mul, dv_acc[x + 1] * dv_mul);
     }
   }
 }
@@ -525,16 +588,15 @@ __device__ __forceinline__ void dkv_p_tile(const Mask& mask, int i, const RowInf
 }
 
 // The head_dim-256 form: one 64-row key tile kt of head h and the
-// 256-column chunk cz of dK and dV of `chunks` (SPLIT; 1 otherwise);
-// warpgroup 0 computes dV, warpgroup 1 dK. See the notes at the top of the
-// file.
-template <typename Mask, bool SPLIT>
+// 256-column chunk cz of dK and dV of `chunks` (SPLIT; 1 otherwise), io
+// type T; warpgroup 0 computes dV, warpgroup 1 dK. See the notes at the top
+// of the file.
+template <typename T, typename Mask, bool SPLIT>
 __device__ __forceinline__ void dkv_wide(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
                                          const CUtensorMap* tm_v, const CUtensorMap* tm_do,
                                          const float* __restrict__ lse,
-                                         const float* __restrict__ delta,
-                                         __nv_bfloat16* __restrict__ dk,
-                                         __nv_bfloat16* __restrict__ dv, const Layout& lay,
+                                         const float* __restrict__ delta, T* __restrict__ dk,
+                                         T* __restrict__ dv, const Layout& lay,
                                          const Mask& heads_mask, float scale, int packed,
                                          int tiles_x, int chunks) {
   using Tile = HopTile<256>;
@@ -609,16 +671,17 @@ __device__ __forceinline__ void dkv_wide(const CUtensorMap* tm_q, const CUtensor
 #pragma unroll
   for (int x = 0; x < 128; ++x) acc[x] = 0.f;
   const RowInfo ki[2] = {mask.k_row(k0 + r), mask.k_row(k0 + r + 8)};
+  float ds_mul[2] = {DS_MUL_MAX, DS_MUL_MAX};  // fp16, the dK warpgroup: ds_rows' powers
 
   if (kv_res) mbar_wait(kv_full, 0);
 #pragma unroll 1
   for (int i = next_tile(tiles.x - 1); i < tiles.y; i = next_tile(i)) {
-    // thread t's value of the tile's stats: lse * log2(e) of row t, or
-    // delta of row t - 64; 0 past the last row (whose q and dO are 0, so it
-    // adds exact zeros). Read now, stored after the products, so that the
-    // load's latency passes under them.
+    // thread t's value of the tile's stats: lse * log2(e) - P_EXP of row t,
+    // or delta of row t - 64; 0 past the last row (whose q and dO are 0, so
+    // it adds exact zeros). Read now, stored after the products, so that
+    // the load's latency passes under them.
     const int qp = i * BQ + (t & (BQ - 1));
-    const float stat = qp >= lay.sq ? 0.f : t < BQ ? lb[qp] * LOG2E : db[qp];
+    const float stat = qp >= lay.sq ? 0.f : t < BQ ? lb[qp] * LOG2E - P_EXP<T> : db[qp];
     // S^T and dP^T (the dK warpgroup's), fresh each tile
     float st[32], dpt[32];
 #pragma unroll
@@ -641,8 +704,8 @@ __device__ __forceinline__ void dkv_wide(const CUtensorMap* tm_q, const CUtensor
         fence_regs(st);
         fence_regs(dpt);
         wgmma_fence();
-        wgmma_nt<256>(st, k_addr, ring.addr(qs), ci > 0);   // S^T += K_c Q_c^T
-        wgmma_nt<256>(dpt, v_addr, ring.addr(ds), ci > 0);  // dP^T += V_c dO_c^T
+        wgmma_nt<256, T>(st, k_addr, ring.addr(qs), ci > 0);   // S^T += K_c Q_c^T
+        wgmma_nt<256, T>(dpt, v_addr, ring.addr(ds), ci > 0);  // dP^T += V_c dO_c^T
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(st);
@@ -650,7 +713,7 @@ __device__ __forceinline__ void dkv_wide(const CUtensorMap* tm_q, const CUtensor
       } else {
         fence_regs(st);
         wgmma_fence();
-        wgmma_nt<256>(st, k_addr, ring.addr(qs), ci > 0);  // S^T += K_c Q_c^T
+        wgmma_nt<256, T>(st, k_addr, ring.addr(qs), ci > 0);  // S^T += K_c Q_c^T
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(st);
@@ -673,10 +736,12 @@ __device__ __forceinline__ void dkv_wide(const CUtensorMap* tm_q, const CUtensor
     // P^T (dV), or P^T and dS^T (dK): the dV warpgroup reads no dS^T
     const bool whole = mask.tile_full(i, kt);
     if (w) {
+      const float ds_scale = scale / P_MUL<T>;
       if (whole)
-        dkv_p_ds_tile<true>(mask, i, ki, cq, scale, stats, st, dpt);
+        dkv_p_ds_tile<true>(mask, i, ki, cq, scale, ds_scale, stats, st, dpt);
       else
-        dkv_p_ds_tile<false>(mask, i, ki, cq, scale, stats, st, dpt);
+        dkv_p_ds_tile<false>(mask, i, ki, cq, scale, ds_scale, stats, st, dpt);
+      if constexpr (pt_hopper::is_f16<T>) ds_rows(dpt, ds_mul, acc);
     } else {
       if (whole)
         dkv_p_tile<true>(mask, i, ki, cq, scale, stats, st);
@@ -692,15 +757,15 @@ __device__ __forceinline__ void dkv_wide(const CUtensorMap* tm_q, const CUtensor
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
         const int y = 8 * k + 2 * x;
-        pack_bf16_split(w ? dpt[y] : st[y], w ? dpt[y + 1] : st[y + 1], ah[k][x], al[k][x]);
+        pack_split<T>(w ? dpt[y] : st[y], w ? dpt[y + 1] : st[y + 1], ah[k][x], al[k][x]);
       }
     const uint32_t b_addr = ring.addr(w ? qs : ds);
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
     for (int k = 0; k < 4; ++k) {  // dV += P^T dO_cz, dK += dS^T Q_cz
-      wgmma_rs_d<256>(acc, ah[k], Tile::mn_major(b_addr, k));
-      wgmma_rs_d<256>(acc, al[k], Tile::mn_major(b_addr, k));
+      wgmma_rs_d<256, T>(acc, ah[k], Tile::mn_major(b_addr, k));
+      wgmma_rs_d<256, T>(acc, al[k], Tile::mn_major(b_addr, k));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -716,42 +781,45 @@ __device__ __forceinline__ void dkv_wide(const CUtensorMap* tm_q, const CUtensor
   // the fills the other warpgroup still takes
   if (threadIdx.x == 0) ring.issue(INT_MAX);
 
-  __nv_bfloat16* out = w ? dk : dv;
+  T* out = w ? dk : dv;
 #pragma unroll
   for (int h2 = 0; h2 < 2; ++h2) {
     const int kp = k0 + r + 8 * h2;
     if (kp >= lay.sk) continue;
-    __nv_bfloat16* row = out + h * lay.k_hs + (long long)kp * lay.k_rs + cz * 256 + cq;
+    T* row = out + h * lay.k_hs + (long long)kp * lay.k_rs + cz * 256 + cq;
+    // fp16: the power the products were scaled by, divided out
+    float mul = 1.f;
+    if constexpr (pt_hopper::is_f16<T>) mul = w ? 1.f / ds_mul[h2] : 1.f / P_MUL<T>;
 #pragma unroll
     for (int jd = 0; jd < 32; ++jd)
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * jd) =
-          __floats2bfloat162_rn(acc[4 * jd + 2 * h2], acc[4 * jd + 2 * h2 + 1]);
+      *reinterpret_cast<uint32_t*>(row + 8 * jd) =
+          pack2<T>(acc[4 * jd + 2 * h2] * mul, acc[4 * jd + 2 * h2 + 1] * mul);
   }
 }
 
-// The bf16 tensor-core kernel: the one-warpgroup form below head_dim 256,
-// the two-warpgroup form at 256 (SPLIT: one 256-column chunk of a wider
-// head_dim, `chunks` of them).
-template <int D, typename Mask, bool SPLIT = false>
+// The tensor-core kernel, io type T (bf16 or fp16): the one-warpgroup form
+// below head_dim 256, the two-warpgroup form at 256 (SPLIT: one 256-column
+// chunk of a wider head_dim, `chunks` of them).
+template <int D, typename T, typename Mask, bool SPLIT = false>
 __global__ void __launch_bounds__(D == 256 ? WIDE_NT : HOP_CONSUMERS,
                                   D == 256 || D == 128 ? 1 : 2)
 flash_bwd_dkv_hopper(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
                      const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
-                     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, Layout lay, Mask heads_mask, float scale,
-                     int packed, int tiles_x, int chunks) {
+                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                     Layout lay, Mask heads_mask, float scale, int packed, int tiles_x,
+                     int chunks) {
   static_assert(D == 256 || !SPLIT, "SPLIT is the head_dim-256 form's");
   if constexpr (D == 256)
-    dkv_wide<Mask, SPLIT>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, lay, heads_mask,
-                          scale, packed, tiles_x, chunks);
+    dkv_wide<T, Mask, SPLIT>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dk, dv, lay, heads_mask,
+                             scale, packed, tiles_x, chunks);
   else
-    dkv_narrow<D, Mask>(tm_q, tm_k, tm_v, tm_do, lse, delta, dk, dv, lay, heads_mask, scale,
-                        packed, tiles_x);
+    dkv_narrow<D, T, Mask>(tm_q, tm_k, tm_v, tm_do, lse, delta, dk, dv, lay, heads_mask, scale,
+                           packed, tiles_x);
 }
 
-template <int D, typename Mask>
+template <int D, typename T, typename Mask>
 cudaError_t dkv_hopper(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int heads,
                        Layout lay, Mask mask, float scale, int packed, void* stream) {
@@ -764,19 +832,19 @@ cudaError_t dkv_hopper(const void* q, const void* k, const void* v, const void* 
   const dim3 grid = tiles_x ? dim3(nkt, heads) : dim3(heads, nkt);
   if (heads < 1 || heads > MAX_GRID_Y || nkt < 1) return cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv, mdo;
-  int err = hop_map<D>(&mq, q, lay.sq, heads, lay.q_rs, lay.q_hs, packed);
-  if (!err) err = hop_map<D>(&mdo, dout, lay.sq, heads, lay.q_rs, lay.q_hs, packed);
-  if (!err) err = hop_map<D>(&mk, k, lay.sk, heads, lay.k_rs, lay.k_hs, packed);
-  if (!err) err = hop_map<D>(&mv, v, lay.sk, heads, lay.k_rs, lay.k_hs, packed);
+  int err = hop_map<D, T>(&mq, q, lay.sq, heads, lay.q_rs, lay.q_hs, packed);
+  if (!err) err = hop_map<D, T>(&mdo, dout, lay.sq, heads, lay.q_rs, lay.q_hs, packed);
+  if (!err) err = hop_map<D, T>(&mk, k, lay.sk, heads, lay.k_rs, lay.k_hs, packed);
+  if (!err) err = hop_map<D, T>(&mv, v, lay.sk, heads, lay.k_rs, lay.k_hs, packed);
   if (err) return (cudaError_t)err;
-  return launch_nt(flash_bwd_dkv_hopper<D, Mask>, grid, HOP_CONSUMERS, DkvRing<D>::SMEM, stream,
-                   mq, mk, mv, mdo, (const float*)lse, (const float*)delta, (__nv_bfloat16*)dk,
-                   (__nv_bfloat16*)dv, lay, mask, scale, packed, tiles_x, 1);
+  return launch_nt(flash_bwd_dkv_hopper<D, T, Mask>, grid, HOP_CONSUMERS, DkvRing<D>::SMEM,
+                   stream, mq, mk, mv, mdo, (const float*)lse, (const float*)delta, (T*)dk,
+                   (T*)dv, lay, mask, scale, packed, tiles_x, 1);
 }
 
 // The head_dim-256 form over `chunks` 256-column chunks of the head_dim
 // (SPLIT when more than one).
-template <typename Mask, bool SPLIT>
+template <typename T, typename Mask, bool SPLIT>
 cudaError_t dkv_wide_launch(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dk, void* dv, int heads,
                             Layout lay, Mask mask, float scale, int packed, void* stream,
@@ -791,31 +859,31 @@ cudaError_t dkv_wide_launch(const void* q, const void* k, const void* v, const v
   const dim3 grid = tiles_x ? dim3((unsigned)ext, heads) : dim3(heads, (unsigned)ext);
   const int d = 256 * chunks;
   CUtensorMap mq, mk, mv, mdo;
-  int err = hop_map<256>(&mq, q, lay.sq, heads, lay.q_rs, lay.q_hs, packed, d);
-  if (!err) err = hop_map<256>(&mdo, dout, lay.sq, heads, lay.q_rs, lay.q_hs, packed, d);
-  if (!err) err = hop_map<256>(&mk, k, lay.sk, heads, lay.k_rs, lay.k_hs, packed, d);
-  if (!err) err = hop_map<256>(&mv, v, lay.sk, heads, lay.k_rs, lay.k_hs, packed, d);
+  int err = hop_map<256, T>(&mq, q, lay.sq, heads, lay.q_rs, lay.q_hs, packed, d);
+  if (!err) err = hop_map<256, T>(&mdo, dout, lay.sq, heads, lay.q_rs, lay.q_hs, packed, d);
+  if (!err) err = hop_map<256, T>(&mk, k, lay.sk, heads, lay.k_rs, lay.k_hs, packed, d);
+  if (!err) err = hop_map<256, T>(&mv, v, lay.sk, heads, lay.k_rs, lay.k_hs, packed, d);
   if (err) return (cudaError_t)err;
-  return launch_nt(flash_bwd_dkv_hopper<256, Mask, SPLIT>, grid, WIDE_NT, WideSmem::SMEM,
-                   stream,
-                   mq, mk, mv, mdo, (const float*)lse, (const float*)delta, (__nv_bfloat16*)dk,
-                   (__nv_bfloat16*)dv, lay, mask, scale, packed, tiles_x, chunks);
+  return launch_nt(flash_bwd_dkv_hopper<256, T, Mask, SPLIT>, grid, WIDE_NT, WideSmem::SMEM,
+                   stream, mq, mk, mv, mdo, (const float*)lse, (const float*)delta, (T*)dk,
+                   (T*)dv, lay, mask, scale, packed, tiles_x, chunks);
 }
 
 // ------------------------------------------------------ launch and entries
 
-// `chunks` > 1: the SPLIT kernel, one block per 256-column chunk of dK, dV.
-template <typename T, int D, typename Mask, bool SPLIT = false>
+// The FMA kernel (float io); `chunks` > 1: the SPLIT kernel, one block per
+// 256-column chunk of dK, dV.
+template <int D, typename Mask, bool SPLIT = false>
 cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                 const void* delta, void* dk, void* dv, int heads, Layout lay, Mask mask,
                 float scale, void* stream, int chunks = 1) {
   const dim3 grid((lay.sk + BK - 1) / BK, heads, chunks);
-  return launch(flash_bwd_dkv_kernel<T, D, Mask, SPLIT>, grid, DkvFma<D>::SMEM, stream,
-                (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-                (const float*)delta, (T*)dk, (T*)dv, lay, mask, scale);
+  return launch(flash_bwd_dkv_kernel<D, Mask, SPLIT>, grid, DkvFma<D>::SMEM, stream,
+                (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+                (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, lay, mask, scale);
 }
 
-// bf16 to the tensor-core kernel, float and fp16 to the FMA kernel (io:
+// bf16 and fp16 to the tensor-core kernel, float to the FMA kernel (io:
 // see Io), chosen by io type at every head_dim; head_dim 256 to either
 // kernel's 256 form, and a head_dim above 256 (a multiple of 256: the
 // wrappers pad to it) to the same form split over it. `packed` says the
@@ -828,26 +896,26 @@ cudaError_t dkv_heads(int d, int io, const void* q, const void* k, const void* v
   if (d >= 256) {
     if (d % 256) return cudaErrorInvalidValue;
     const int chunks = d / 256;
-    if (io == IO_BF16)
-      return chunks == 1
-                 ? dkv_wide_launch<Mask, false>(q, k, v, dout, lse, delta, dk, dv, heads, lay,
-                                                mask, scale, packed, stream, 1)
-                 : dkv_wide_launch<Mask, true>(q, k, v, dout, lse, delta, dk, dv, heads, lay,
-                                               mask, scale, packed, stream, chunks);
-    PT_FLASH_SWITCH_FMA_IO(
-        io, return chunks == 1 ? dkv<T, 256>(q, k, v, dout, lse, delta, dk, dv, heads, lay, mask,
-                                             scale, stream)
-                               : dkv<T, 256, Mask, true>(q, k, v, dout, lse, delta, dk, dv,
-                                                         heads, lay, mask, scale, stream,
-                                                         chunks))
+    if (io == IO_F32)
+      return chunks == 1 ? dkv<256>(q, k, v, dout, lse, delta, dk, dv, heads, lay, mask, scale,
+                                    stream)
+                         : dkv<256, Mask, true>(q, k, v, dout, lse, delta, dk, dv, heads, lay,
+                                                mask, scale, stream, chunks);
+    PT_FLASH_SWITCH_HOP_IO(
+        io, return chunks == 1
+                       ? dkv_wide_launch<T, Mask, false>(q, k, v, dout, lse, delta, dk, dv, heads,
+                                                         lay, mask, scale, packed, stream, 1)
+                       : dkv_wide_launch<T, Mask, true>(q, k, v, dout, lse, delta, dk, dv, heads,
+                                                        lay, mask, scale, packed, stream, chunks))
   }
-  if (io == IO_BF16) {
-    PT_FLASH_SWITCH_D(d, return dkv_hopper<D>(q, k, v, dout, lse, delta, dk, dv, heads, lay, mask,
-                                              scale, packed, stream))
+  if (io == IO_F32) {
+    PT_FLASH_SWITCH_D(d, return dkv<D>(q, k, v, dout, lse, delta, dk, dv, heads, lay, mask,
+                                       scale, stream))
   }
-  PT_FLASH_SWITCH_D(d, PT_FLASH_SWITCH_FMA_IO(io, return dkv<T, D>(q, k, v, dout, lse, delta, dk,
-                                                                   dv, heads, lay, mask, scale,
-                                                                   stream)))
+  PT_FLASH_SWITCH_D(d, PT_FLASH_SWITCH_HOP_IO(io, return dkv_hopper<D, T>(q, k, v, dout, lse,
+                                                                          delta, dk, dv, heads,
+                                                                          lay, mask, scale,
+                                                                          packed, stream)))
 }
 
 // dkv_heads over every slice of the heads (by_head_slices).
@@ -867,8 +935,8 @@ cudaError_t dkv_any(int d, int io, const void* q, const void* k, const void* v,
 
 }  // namespace pt_flash
 
-// Every entry: io 0 float, 1 bf16, 2 fp16 (pt_flash::Io); bf16 q, k, v and
-// dout start on 16-byte boundaries (their tensor maps need it; the
+// Every entry: io 0 float, 1 bf16, 2 fp16 (pt_flash::Io); bf16 and fp16 q,
+// k, v and dout start on 16-byte boundaries (their tensor maps need it; the
 // wrappers see to it); a failed tensor-map encode returns the error code
 // of libcuda, a refused launch cudaGetLastError().
 //

@@ -406,7 +406,7 @@ __device__ __forceinline__ void dq_narrow(const CUtensorMap& tm_q, const CUtenso
     for (int k = 0; k < 4; ++k)
 #pragma unroll
       for (int x = 0; x < 4; ++x)
-        pack_bf16_split(sc[8 * k + 2 * x], sc[8 * k + 2 * x + 1], ah[k][x], al[k][x]);
+        pack_split(sc[8 * k + 2 * x], sc[8 * k + 2 * x + 1], ah[k][x], al[k][x]);
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
@@ -603,7 +603,7 @@ __device__ __forceinline__ void dq_wide(const CUtensorMap* tm_q, const CUtensorM
       for (int k = 0; k < 4; ++k)
 #pragma unroll
         for (int x = 0; x < 4; ++x)
-          pack_bf16_split(sc[8 * k + 2 * x], sc[8 * k + 2 * x + 1], ah[k][x], al[k][x]);
+          pack_split(sc[8 * k + 2 * x], sc[8 * k + 2 * x + 1], ah[k][x], al[k][x]);
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll

@@ -6,15 +6,15 @@
 // `head * k_hs + row * k_rs + c`: [BH, S, D] has row stride D and head
 // stride S * D, packed [T, H, D] row stride H * D and head stride D. Rows are
 // contiguous in the io type (float, bf16 or fp16). lse and delta are float
-// [heads, Sq]. Every block of the FMA kernels (fp32 and fp16 io; the bf16
-// tensor-core kernels' layout is described with their pieces at the end of
-// this file and in their sources) runs NT = 256 threads
+// [heads, Sq]. Every block of the FMA kernels (fp32 io, and fp16 io for
+// dQ; the bf16 and fp16 tensor-core kernels' layout is described with their
+// pieces at the end of this file and in their sources) runs NT = 256 threads
 // as a 16 x 16 grid (tx = tid % 16, ty = tid / 16); a thread owns rows
 // {ty + 16 i} and columns {tx + 16 j} of each 64-row tile, so the 16 threads
 // that share a row sit in one half-warp and reduce a row with four xor
-// shuffles. At head_dim 256 (the FMA kernels serve float and fp16 io) the
-// backward holds its block's own 64-row tile as two 32-row passes, so that
-// its fp32 tiles fit shared memory (DqFma, DkvFma).
+// shuffles. At head_dim 256 the FMA backward holds its block's own 64-row
+// tile as two 32-row passes, so that its fp32 tiles fit shared memory
+// (DqFma, DkvFma).
 //
 // What a kernel may see is a Mask policy (CausalMask, SegmentMask,
 // StartEndMask below): which key a query row sees, which tiles a tile
@@ -56,12 +56,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half_rn(x); }
-
-// x rounded to the io type and widened again (P before P.V, as the TPU
-// kernel casts p to v's dtype before its second product).
-template <typename T> __device__ __forceinline__ float round_io(float x) {
-  return to_f(from_f<T>(x));
-}
 
 // Row counts and element strides of the query-like and key-like tensors.
 // Row strides are 32-bit (a row offset inside one head stays below 2^31
@@ -276,14 +270,14 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... 
   return launch_nt(kernel, grid, NT, smem, stream, args...);
 }
 
-// The io type of a C entry's tensors: 0 float, 1 bf16 (the tensor-core
-// kernels), 2 fp16.
+// The io type of a C entry's tensors: 0 float (the FMA kernels), 1 bf16 and
+// 2 fp16 (the tensor-core kernels; fp16 dQ still the FMA kernel).
 enum Io : int { IO_F32 = 0, IO_BF16 = 1, IO_F16 = 2 };
 
 inline long long io_bytes(int io) { return io == IO_F32 ? 4 : 2; }
 
 // A grid's y axis holds at most 65535 blocks, and the FMA kernels and the
-// fixed-length bf16 kernels put the heads there. So every launch runs over
+// fixed-length tensor-core kernels put the heads there. So every launch runs over
 // slices of at most MAX_GRID_Y heads: `run(h0, n)` launches heads
 // [h0, h0 + n), its tensors' pointers moved to head h0 (`at`) and its mask
 // told where its heads start (`from_head`). One slice below 65536 heads.
@@ -326,7 +320,7 @@ inline Layout packed_layout(int tq, int tk, int h, int d) {
     default: return cudaErrorInvalidValue;           \
   }
 
-// Instantiates `body` for the FMA kernels' io type T: float or fp16 (bf16
+// Instantiates `body` for the FMA dQ kernel's io type T: float or fp16 (bf16
 // goes to the tensor-core kernels); anything else is refused.
 #define PT_FLASH_SWITCH_FMA_IO(io, ...)                  \
   switch (io) {                                          \
@@ -335,17 +329,28 @@ inline Layout packed_layout(int tq, int tk, int h, int d) {
     default: return cudaErrorInvalidValue;               \
   }
 
+// Instantiates `body` for the tensor-core kernels' io type T: bf16 or fp16;
+// anything else is refused.
+#define PT_FLASH_SWITCH_HOP_IO(io, ...)                    \
+  switch (io) {                                            \
+    case IO_BF16: { using T = __nv_bfloat16; __VA_ARGS__; } \
+    case IO_F16: { using T = __half; __VA_ARGS__; }         \
+    default: return cudaErrorInvalidValue;                 \
+  }
+
 // ------------------------------------------------ the tensor-core kernels
 //
-// Pieces shared by the bf16 kernels (`flash_fwd_hopper`,
-// `flash_bwd_dq_hopper`, `flash_bwd_dkv_hopper`): 64-row bf16 tiles loaded
-// by TMA and read with `wgmma` by warpgroups of consumers (one, or two in
-// the forward at head_dim 256).
+// Pieces shared by the tensor-core kernels (`flash_fwd_hopper`,
+// `flash_bwd_dq_hopper`, `flash_bwd_dkv_hopper`): 64-row tiles of a 2-byte
+// io type T (bf16, or fp16: the same sizes, descriptors and swizzle; only
+// the products' PTX type and the tensor maps' element type differ) loaded
+// by TMA and read with `wgmma` by warpgroups of consumers (one, or two at
+// head_dim 256). Each kernel takes T as its second template argument.
 
 constexpr int HOP_CONSUMERS = 128;  // one warpgroup
 constexpr float LOG2E = 1.4426950408889634f;
 
-// A 64-row bf16 tile of head_dim D in shared memory: BOXES boxes of W
+// A 64-row tile of head_dim D (2-byte elements) in shared memory: BOXES boxes of W
 // columns (one TMA load each), each 64 rows of W * 2 bytes, swizzled (128 B
 // rows, 64 B at D = 32). One layout serves as either operand form, so one
 // TMA-loaded tile of Q, K, V or dO serves every product that reads it.
@@ -377,40 +382,72 @@ __device__ __forceinline__ uint8_t* align_1024(void* p) {
   return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
-// acc[64 x D] += A[64 x 16] (registers) * B[16 x D] (an MN-major tile).
-template <int D>
+// acc[64 x D] += A[64 x 16] (registers) * B[16 x D] (an MN-major tile), in
+// elements of type T.
+template <int D, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_d(float (&acc)[D / 2], const uint32_t (&a)[4],
                                            uint64_t db) {
-  if constexpr (D == 32) pt_hopper::wgmma_rs_n32(acc, a, db);
-  if constexpr (D == 64) pt_hopper::wgmma_rs_n64(acc, a, db);
-  if constexpr (D == 128) pt_hopper::wgmma_rs_n128(acc, a, db);
-  if constexpr (D == 256) pt_hopper::wgmma_rs_n256(acc, a, db);
+  if constexpr (D == 32) pt_hopper::wgmma_rs_n32<T>(acc, a, db);
+  if constexpr (D == 64) pt_hopper::wgmma_rs_n64<T>(acc, a, db);
+  if constexpr (D == 128) pt_hopper::wgmma_rs_n128<T>(acc, a, db);
+  if constexpr (D == 256) pt_hopper::wgmma_rs_n256<T>(acc, a, db);
 }
 
 // D = A B^T over D (D += A B^T with `add`): the D / 16 products of one
 // 64 x 64 tile, both operands K-major tiles; started, not committed or
 // waited.
-template <int D>
+template <int D, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_nt(float (&d)[32], uint32_t a_addr, uint32_t b_addr,
                                          bool add = false) {
 #pragma unroll
   for (int k = 0; k < D / 16; ++k)
-    pt_hopper::wgmma_ss_n64(d, HopTile<D>::k_major(a_addr, k), HopTile<D>::k_major(b_addr, k),
-                            add || k > 0);
+    pt_hopper::wgmma_ss_n64<T>(d, HopTile<D>::k_major(a_addr, k),
+                               HopTile<D>::k_major(b_addr, k), add || k > 0);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// (lo, hi) rounded to a pair of T (bf16 or fp16), as 32 bits: an A-operand
+// register, or two adjacent outputs.
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (pt_hopper::is_f16<T>) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
 }
 
-// x and y as bf16 pairs hi + lo: hi = bf16(x), lo = bf16(x - hi), so that
-// hi + lo keeps 16 of x's bits (a relative error of about 2^-17) where hi
-// alone keeps 8 (2^-9).
-__device__ __forceinline__ void pack_bf16_split(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x - __low2float(h), y - __high2float(h));
+// x and y as pairs of T, hi + lo: hi = T(x), lo = T(x - hi). In bf16 hi + lo
+// keeps 16 of x's bits (a relative error of about 2^-17) where hi alone
+// keeps 8 (2^-9). In fp16 it keeps 22 while lo is a normal number (|x| at
+// or above 2^-3), else an absolute 2^-25 (fp16's subnormal spacing, 2^-24,
+// halved): the fp16 backward scales what it splits into [2^14, 2^15) of
+// its row's largest value first (flash_bwd_dkv.cu).
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void pack_split(float x, float y, uint32_t& hi, uint32_t& lo) {
+  hi = pack2<T>(x, y);
+  float hx, hy;
+  if constexpr (pt_hopper::is_f16<T>) {
+    const __half2 h = *reinterpret_cast<const __half2*>(&hi);
+    hx = __low2float(h);
+    hy = __high2float(h);
+  } else {
+    const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hi);
+    hx = __low2float(h);
+    hy = __high2float(h);
+  }
+  lo = pack2<T>(x - hx, y - hy);
+}
+
+// Max and sum over the 4 threads of a quad (one row of an accumulator).
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // Loads the BOXES boxes of one 64-row tile starting at `row` of head `h`
@@ -439,10 +476,11 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 }
 
 // The tensor map of a q-like ([rows, cols] per head, cols = D unless the
-// kernel reads a wider row in D-column chunks) bf16 tensor: packed
-// [rows, heads, cols] as (cols, heads, rows), fixed [heads, rows, cols] as
-// (cols, rows, heads), with 64-row boxes of HopTile<D>::W columns.
-template <int D>
+// kernel reads a wider row in D-column chunks) tensor of T (bf16 or fp16):
+// packed [rows, heads, cols] as (cols, heads, rows), fixed
+// [heads, rows, cols] as (cols, rows, heads), with 64-row boxes of
+// HopTile<D>::W columns.
+template <int D, typename T = __nv_bfloat16>
 int hop_map(CUtensorMap* map, const void* base, int rows, int heads, int rs, long long hs,
             int packed, int cols = D) {
   using Tile = HopTile<D>;
@@ -450,12 +488,13 @@ int hop_map(CUtensorMap* map, const void* base, int rows, int heads, int rs, lon
                             (uint64_t)(packed ? rows : heads)};
   const uint64_t strides[2] = {2ull * (packed ? hs : rs), 2ull * (packed ? rs : hs)};
   const uint32_t box[3] = {(uint32_t)Tile::W, packed ? 1u : 64u, packed ? 64u : 1u};
-  return pt_hopper::encode_bf16_3d(map, base, dims, strides, box, Tile::SW);
+  return pt_hopper::encode_3d(map, pt_hopper::tma_type<T>(), base, dims, strides, box,
+                              Tile::SW);
 }
 
 // ------------------------------------- the tensor-core kernels at head_dim 256
 //
-// The bf16 forward and backward at head_dim 256 (and their SPLIT forms over
+// The tensor-core forward and backward at head_dim 256 (and their SPLIT forms over
 // 256-column chunks of a wider head_dim) run two consumer warpgroups a
 // block and nothing else: Hopper allocates registers a warpgroup at a time,
 // so a producer warp would cost a third warpgroup's registers and cap every
@@ -464,7 +503,7 @@ int hop_map(CUtensorMap* map, const void* base, int rows, int heads, int rs, lon
 constexpr int WIDE_NT = 2 * HOP_CONSUMERS;
 constexpr int WIDE_BQ = 2 * BQ;  // query rows a forward or dQ block
 
-// Their shared memory: BUFS tiles of 64 rows x 256 columns (the resident
+// Their shared memory: BUFS tiles of 64 rows x 256 2-byte columns (the resident
 // tiles first, the ring after them), then the mbarriers (the resident
 // tiles' one, and a "full" and an "empty" one per buffer), thread 0's
 // issuing state (RingIssuer), and 1 KB in which each dK/dV warpgroup keeps

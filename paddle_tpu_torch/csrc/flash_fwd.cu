@@ -1,12 +1,11 @@
 // Flash-attention forward for Hopper (sm_90a): fixed-length causal batches,
 // packed variable-length sequences and flashmask (start/end row) masks, two
-// kernels templated on the mask: a tensor-core kernel for bf16 io
-// (`flash_fwd_hopper`) and an fp32 FMA kernel for float and fp16 io
-// (`flash_fwd_kernel`). `fwd_any` sends bf16 to the first and float and
-// fp16 to the second, at every head_dim: the tensor cores have no fp32
-// product at fp32 accuracy (TF32 keeps 10 mantissa bits), so float io stays
-// on FMAs; fp16 io shares the FMA kernel until it has `wgmma`
-// instantiations of its own. The bf16 kernel has two forms: head_dim 32,
+// kernels templated on the mask: a tensor-core kernel for bf16 and fp16 io
+// (`flash_fwd_hopper`, templated on the 2-byte io type too) and an fp32 FMA
+// kernel for float io (`flash_fwd_kernel`). `fwd_any` sends bf16 and fp16
+// to the first and float to the second, at every head_dim: the tensor cores
+// have no fp32 product at fp32 accuracy (TF32 keeps 10 mantissa bits), so
+// float io stays on FMAs. The tensor-core kernel has two forms: head_dim 32,
 // 64 and 128 (one warpgroup, 64 query rows a block) and head_dim 256 (two
 // warpgroups, 128 rows a block, `fwd_wide`). A head_dim above 256 (a
 // multiple of 256: the wrappers pad to it) runs either kernel's 256 form
@@ -27,7 +26,7 @@
 // and flashmask).
 //
 // What bounds it on the H100: at the fixed-length training shape (BH = 128,
-// S = 1024, D = 64, bf16, causal) 1.7e10 FLOP (17 us at 989 TFLOP/s)
+// S = 1024, D = 64, bf16 or fp16, causal) 1.7e10 FLOP (17 us at 989 TFLOP/s)
 // against 67 MB of q, k, v, o and lse (20 us at 3.35 TB/s): device memory.
 // At the packed shape (T = 8192, H = 16, D = 64, bf16, ten causal
 // documents, 5.8e6 kept pairs per head) 2.4e10 FLOP (24 us) against 68 MB
@@ -36,8 +35,8 @@
 // of document masks, 5.3e6 kept pairs per head) 2.2e10 FLOP (22 us) against
 // 68 MB (20 us): the operations.
 //
-// The bf16 kernel's one-warpgroup form (`fwd_narrow`, head_dim 32, 64 and
-// 128), one block per (head, 64-row query tile), 160 threads: one consumer
+// The tensor-core kernel's one-warpgroup form (`fwd_narrow`, head_dim 32,
+// 64 and 128), one block per (head, 64-row query tile), 160 threads: one consumer
 // warpgroup and one producer warp.
 // - The producer's first lane loads the Q tile with one TMA load (two at
 //   D = 128) and streams K and V tiles through a ring of shared
@@ -48,7 +47,7 @@
 //   walk the same tile list: `key_tiles(qt)`, then `tile_open(qt, j)`.
 // - S = Q K^T is D / 16 `wgmma` m64n64k16 from shared memory, both K-major;
 //   O += P V is four m64nDk16 with P from registers (the S accumulator
-//   rounded to bf16 in place, in its fragment order) and V as the
+//   rounded to the io type in place, in its fragment order) and V as the
 //   MN-major B operand (the transpose bit). S of the next key tile and P V
 //   of this one are in flight together, and the next tile's softmax runs
 //   while the tensor cores do this tile's P V.
@@ -62,9 +61,14 @@
 // from shared memory (the same numbers the TPU kernel gets from
 // fp32-accumulating MXU products); each thread holds a 4 x 4 block of
 // scores and a 4 x D/16 block of the output and reads 8 shared words per
-// 16 FMAs. It serves the fp32 and fp16 models and checks.
+// 16 FMAs. It serves the fp32 models and checks.
 //
-// The bf16 kernel at head_dim 256 (`fwd_wide`), one block per (head,
+// fp16 runs the bf16 design unchanged: `wgmma` takes f16 operands from the
+// same descriptors at the same rate, TMA loads them with the same boxes and
+// swizzle, and P is rounded to fp16 before P V as the TPU kernel rounds it
+// to the io type (no scaling: p <= 1 and fp16 keeps 11 bits down to 2^-14).
+//
+// The tensor-core kernel at head_dim 256 (`fwd_wide`), one block per (head,
 // 128-row query block, 256-column output chunk), 256 threads: two consumer
 // warpgroups, one per 64-row query tile. What bounds it at the fixed-length
 // shape (BH = 128, S = 1024, D = 256, causal): 6.9e10 FLOP (69 us) against
@@ -95,9 +99,9 @@
 //   chunk; O += P V is 4 `wgmma` m64n256k16 with P from registers and V
 //   MN-major. The softmax (`softmax_tile`) is the one-warpgroup kernel's.
 //
-// Grid: FMA (ceil(Sq / 64), heads, head_dim / 256 above 256); bf16 below
-// 256 the same for the fixed-length mask and (heads, ceil(Sq / 64)) for the
-// varlen and flashmask masks; bf16 at 256 and above (ceil(Sq / 128) *
+// Grid: FMA (ceil(Sq / 64), heads, head_dim / 256 above 256); tensor cores
+// below 256 the same for the fixed-length mask and (heads, ceil(Sq / 64))
+// for the varlen and flashmask masks; tensor cores at 256 and above (ceil(Sq / 128) *
 // chunks, heads) or (heads, ceil(Sq / 128) * chunks), the chunk varying
 // fastest; at most 65535 heads a launch (by_head_slices).
 #include "flash_common.cuh"
@@ -112,11 +116,11 @@ namespace pt_flash {
 // The scores still take the whole head_dim: for each key tile the block
 // streams Q and K through Qs and Ks chunk by chunk, and V's own chunk once.
 // Only chunk 0 writes lse.
-template <typename T, int D, typename Mask, bool SPLIT = false>
+template <int D, typename Mask, bool SPLIT = false>
 __global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, Layout lay, Mask heads_mask,
-                 float scale) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                 Layout lay, Mask heads_mask, float scale) {
   constexpr int LD = D + 1;
   constexpr int DJ = D / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -131,11 +135,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int qt = blockIdx.x;
   const int q0 = qt * BQ;
   const int cz = SPLIT ? blockIdx.z : 0;  // the output chunk
-  const T* qb = q + h * lay.q_hs;
-  const T* kb = k + h * lay.k_hs;
-  const T* vb = v + h * lay.k_hs + cz * D;
+  const float* qb = q + h * lay.q_hs;
+  const float* kb = k + h * lay.k_hs;
+  const float* vb = v + h * lay.k_hs + cz * D;
 
-  if (!SPLIT) load_tile<T, BQ, D>(Qs, qb, q0, lay.sq, lay.q_rs);
+  if (!SPLIT) load_tile<float, BQ, D>(Qs, qb, q0, lay.sq, lay.q_rs);
 
   float m[4], l[4], acc[4][DJ];
   RowInfo qi[4];
@@ -160,9 +164,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     // chunk cc of Q K^T (one pass unless SPLIT); V is loaded with chunk 0
     for (int cc = 0; cc < (SPLIT ? (int)gridDim.z : 1); ++cc) {
       __syncthreads();  // the last reads of Qs, Ks, Vs and Ps are done
-      if (SPLIT) load_tile<T, BQ, D>(Qs, qb + cc * D, q0, lay.sq, lay.q_rs);
-      load_tile<T, BK, D>(Ks, kb + cc * D, k0, lay.sk, lay.k_rs);
-      if (cc == 0) load_tile<T, BK, D>(Vs, vb, k0, lay.sk, lay.k_rs);
+      if (SPLIT) load_tile<float, BQ, D>(Qs, qb + cc * D, q0, lay.sq, lay.q_rs);
+      load_tile<float, BK, D>(Ks, kb + cc * D, k0, lay.sk, lay.k_rs);
+      if (cc == 0) load_tile<float, BK, D>(Vs, vb, k0, lay.sk, lay.k_rs);
       __syncthreads();
 #pragma unroll 8
       for (int d = 0; d < D; ++d) {
@@ -198,7 +202,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int b = 0; b < 4; ++b) {
         const float p = ok[b] ? expf(s[i][b] - m_new) : 0.f;
         rs += p;
-        Ps[(ty + 16 * i) * LDP + tx + 16 * b] = round_io<T>(p);
+        Ps[(ty + 16 * i) * LDP + tx + 16 * b] = p;
       }
       l[i] = alpha * l[i] + half_warp_sum(rs);
       m[i] = m_new;
@@ -226,20 +230,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int qp = q0 + ty + 16 * i;
     if (qp >= lay.sq) continue;
     const float l_safe = l[i] == 0.f ? 1.f : l[i];
-    T* orow = o + h * lay.q_hs + qp * lay.q_rs + cz * D;
+    float* orow = o + h * lay.q_hs + qp * lay.q_rs + cz * D;
 #pragma unroll
-    for (int c = 0; c < DJ; ++c) orow[tx + 16 * c] = from_f<T>(acc[i][c] / l_safe);
+    for (int c = 0; c < DJ; ++c) orow[tx + 16 * c] = acc[i][c] / l_safe;
     if (tx == 0 && cz == 0)
       lse[(size_t)h * lay.sq + qp] = l[i] == 0.f ? Mask::empty_lse() : m[i] + logf(l[i]);
   }
 }
 
 
-// ------------------------------------------------- the bf16 tensor-core kernel
+// ------------------------------------------- the bf16 and fp16 tensor-core kernel
 
 constexpr int HOP_NT = HOP_CONSUMERS + 32;  // the consumers and one producer warp
 
-// The K/V ring of the bf16 forward: 4 stages below D = 128, so that three
+// The K/V ring of the tensor-core forward: 4 stages below D = 128, so that three
 // blocks (the most their registers allow) fit an SM's shared memory, and 2
 // at D = 128, so that two do; the Q tile, then stage s's K and V tiles,
 // then the mbarriers.
@@ -249,15 +253,6 @@ struct FwdRing {
   static constexpr size_t SMEM = 1024 + (size_t)HopTile<D>::BYTES * (1 + 2 * STAGES) +
                                  sizeof(uint64_t) * (1 + 2 * STAGES);
 };
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 // One key tile's mask and online-softmax step on the S accumulator `sc`
 // (rows r and r + 8 of the tile: h2 = 0, 1): masks S, updates the running
@@ -335,16 +330,16 @@ __device__ __forceinline__ void softmax_tile(const Mask& mask, int qt, int j,
 }
 
 // S = Q K^T of one key tile into `sc`: started and committed, not waited.
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void start_qk(float (&sc)[32], uint32_t q_addr, uint32_t k_addr) {
-  wgmma_nt<D>(sc, q_addr, k_addr);
+  wgmma_nt<D, T>(sc, q_addr, k_addr);
   pt_hopper::wgmma_commit();
 }
 
-// The one-warpgroup form (head_dim 32, 64, 128).
-template <int D, typename Mask>
+// The one-warpgroup form (head_dim 32, 64, 128), io type T.
+template <int D, typename T, typename Mask>
 __device__ __forceinline__ void fwd_narrow(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
-                                           const CUtensorMap* tm_v, __nv_bfloat16* __restrict__ o,
+                                           const CUtensorMap* tm_v, T* __restrict__ o,
                                            float* __restrict__ lse, const Layout& lay,
                                            const Mask& heads_mask, float scale, int packed,
                                            int tiles_x) {
@@ -432,18 +427,18 @@ __device__ __forceinline__ void fwd_narrow(const CUtensorMap* tm_q, const CUtens
 #pragma unroll
       for (int k = 0; k < 4; ++k)
 #pragma unroll
-        for (int x = 0; x < 4; ++x) pa[k][x] = pack_bf16(sc[8 * k + 2 * x], sc[8 * k + 2 * x + 1]);
+        for (int x = 0; x < 4; ++x) pa[k][x] = pack2<T>(sc[8 * k + 2 * x], sc[8 * k + 2 * x + 1]);
     };
     auto start_pv = [&](int s) {
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        wgmma_rs_d<D>(acc, pa[k], Tile::mn_major(k_addr(s) + Tile::BYTES, k));
+        wgmma_rs_d<D, T>(acc, pa[k], Tile::mn_major(k_addr(s) + Tile::BYTES, k));
       wgmma_commit();
     };
     mbar_wait(full, 0);
     fence_regs(sc);
     wgmma_fence();
-    start_qk<D>(sc, q_addr, k_addr(0));
+    start_qk<D, T>(sc, q_addr, k_addr(0));
     wgmma_wait<0>();
     fence_regs(sc);
     softmax_tile(mask, qt, j, qi, cq, scale, sc, m, l, alpha);  // acc is 0: no rescale
@@ -457,7 +452,7 @@ __device__ __forceinline__ void fwd_narrow(const CUtensorMap* tm_q, const CUtens
       fence_regs(sc);
       fence_regs(acc);
       wgmma_fence();
-      start_qk<D>(sc, q_addr, k_addr(sn));
+      start_qk<D, T>(sc, q_addr, k_addr(sn));
       start_pv(s);
       wgmma_wait<1>();  // S of jn; P V of j may still run
       fence_regs(sc);
@@ -492,25 +487,25 @@ __device__ __forceinline__ void fwd_narrow(const CUtensorMap* tm_q, const CUtens
     const int qp = q0 + r + 8 * h2;
     if (qp >= lay.sq) continue;
     const float inv_l = 1.f / (l[h2] == 0.f ? 1.f : l[h2]);  // one division a row
-    __nv_bfloat16* orow = o + h * lay.q_hs + (long long)qp * lay.q_rs + cq;
+    T* orow = o + h * lay.q_hs + (long long)qp * lay.q_rs + cq;
 #pragma unroll
     for (int jd = 0; jd < D / 8; ++jd)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jd) = __floats2bfloat162_rn(
-          acc[4 * jd + 2 * h2] * inv_l, acc[4 * jd + 2 * h2 + 1] * inv_l);
+      *reinterpret_cast<uint32_t*>(orow + 8 * jd) =
+          pack2<T>(acc[4 * jd + 2 * h2] * inv_l, acc[4 * jd + 2 * h2 + 1] * inv_l);
     if ((t & 3) == 0)
       lse[(size_t)h * lay.sq + qp] = l[h2] == 0.f ? Mask::empty_lse() : m[h2] + logf(l[h2]);
   }
 }
 
-// ----------------------------------- the bf16 tensor-core kernel, head_dim 256
+// ----------------------------- the bf16 and fp16 tensor-core kernel, head_dim 256
 
 // The head_dim-256 form (WIDE_NT threads, WideSmem and RingPos in
 // flash_common.cuh): 128 query rows (two 64-row tiles, one per consumer
 // warpgroup) of head h and the 256-column output chunk cz of `chunks`
-// (SPLIT; 1 otherwise). See the notes at the top of the file.
-template <typename Mask, bool SPLIT>
+// (SPLIT; 1 otherwise), io type T. See the notes at the top of the file.
+template <typename T, typename Mask, bool SPLIT>
 __device__ __forceinline__ void fwd_wide(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
-                                         const CUtensorMap* tm_v, __nv_bfloat16* __restrict__ o,
+                                         const CUtensorMap* tm_v, T* __restrict__ o,
                                          float* __restrict__ lse, const Layout& lay,
                                          const Mask& heads_mask, float scale, int packed,
                                          int tiles_x, int chunks) {
@@ -671,7 +666,7 @@ __device__ __forceinline__ void fwd_wide(const CUtensorMap* tm_q, const CUtensor
         asm volatile("" : "+r"(q_addr));
         fence_regs(sc);
         wgmma_fence();
-        wgmma_nt<256>(sc, q_addr, slot_addr(ks), c > 0);
+        wgmma_nt<256, T>(sc, q_addr, slot_addr(ks), c > 0);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(sc);
@@ -696,14 +691,15 @@ __device__ __forceinline__ void fwd_wide(const CUtensorMap* tm_q, const CUtensor
 #pragma unroll
       for (int k = 0; k < 4; ++k)
 #pragma unroll
-        for (int x = 0; x < 4; ++x) pa[k][x] = pack_bf16(sc[8 * k + 2 * x], sc[8 * k + 2 * x + 1]);
+        for (int x = 0; x < 4; ++x) pa[k][x] = pack2<T>(sc[8 * k + 2 * x], sc[8 * k + 2 * x + 1]);
     }
     const int vs = take();
     if (mine) {
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
-      for (int k = 0; k < 4; ++k) wgmma_rs_d<256>(acc, pa[k], Tile::mn_major(slot_addr(vs), k));
+      for (int k = 0; k < 4; ++k)
+        wgmma_rs_d<256, T>(acc, pa[k], Tile::mn_major(slot_addr(vs), k));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -722,34 +718,34 @@ __device__ __forceinline__ void fwd_wide(const CUtensorMap* tm_q, const CUtensor
     const int qp = row0 + r + 8 * h2;
     if (qp >= lay.sq) continue;
     const float inv_l = 1.f / (l[h2] == 0.f ? 1.f : l[h2]);
-    __nv_bfloat16* orow = o + h * lay.q_hs + (long long)qp * lay.q_rs + cz * 256 + cq;
+    T* orow = o + h * lay.q_hs + (long long)qp * lay.q_rs + cz * 256 + cq;
 #pragma unroll
     for (int jd = 0; jd < 32; ++jd)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jd) = __floats2bfloat162_rn(
-          acc[4 * jd + 2 * h2] * inv_l, acc[4 * jd + 2 * h2 + 1] * inv_l);
+      *reinterpret_cast<uint32_t*>(orow + 8 * jd) =
+          pack2<T>(acc[4 * jd + 2 * h2] * inv_l, acc[4 * jd + 2 * h2 + 1] * inv_l);
     if ((t & 3) == 0 && cz == 0)
       lse[(size_t)h * lay.sq + qp] = l[h2] == 0.f ? Mask::empty_lse() : m[h2] + logf(l[h2]);
   }
 }
 
-// The bf16 tensor-core kernel: the one-warpgroup form below head_dim 256,
-// the two-warpgroup form at 256 (SPLIT: one 256-column chunk of a wider
-// head_dim, `chunks` of them).
-template <int D, typename Mask, bool SPLIT = false>
+// The tensor-core kernel, io type T (bf16 or fp16): the one-warpgroup form
+// below head_dim 256, the two-warpgroup form at 256 (SPLIT: one 256-column
+// chunk of a wider head_dim, `chunks` of them).
+template <int D, typename T, typename Mask, bool SPLIT = false>
 __global__ void __launch_bounds__(D == 256 ? WIDE_NT : HOP_NT, D == 256 ? 1 : D == 128 ? 2 : 3)
 flash_fwd_hopper(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                 const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                 const __grid_constant__ CUtensorMap tm_v, T* __restrict__ o,
                  float* __restrict__ lse, Layout lay, Mask heads_mask, float scale, int packed,
                  int tiles_x, int chunks) {
   static_assert(D == 256 || !SPLIT, "SPLIT is the head_dim-256 form's");
   if constexpr (D == 256)
-    fwd_wide<Mask, SPLIT>(&tm_q, &tm_k, &tm_v, o, lse, lay, heads_mask, scale, packed, tiles_x,
-                          chunks);
+    fwd_wide<T, Mask, SPLIT>(&tm_q, &tm_k, &tm_v, o, lse, lay, heads_mask, scale, packed,
+                             tiles_x, chunks);
   else
-    fwd_narrow<D, Mask>(&tm_q, &tm_k, &tm_v, o, lse, lay, heads_mask, scale, packed, tiles_x);
+    fwd_narrow<D, T, Mask>(&tm_q, &tm_k, &tm_v, o, lse, lay, heads_mask, scale, packed, tiles_x);
 }
 
-template <int D, typename Mask>
+template <int D, typename T, typename Mask>
 cudaError_t fwd_hopper(const void* q, const void* k, const void* v, void* o, void* lse,
                        int heads, Layout lay, Mask mask, float scale, int packed, void* stream) {
   using Ring = FwdRing<D>;
@@ -765,17 +761,17 @@ cudaError_t fwd_hopper(const void* q, const void* k, const void* v, void* o, voi
   const dim3 grid = tiles_x ? dim3(nqt, heads) : dim3(heads, nqt);
   if (heads < 1 || heads > MAX_GRID_Y || nqt < 1) return cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
-  int err = hop_map<D>(&mq, q, lay.sq, heads, lay.q_rs, lay.q_hs, packed);
-  if (!err) err = hop_map<D>(&mk, k, lay.sk, heads, lay.k_rs, lay.k_hs, packed);
-  if (!err) err = hop_map<D>(&mv, v, lay.sk, heads, lay.k_rs, lay.k_hs, packed);
+  int err = hop_map<D, T>(&mq, q, lay.sq, heads, lay.q_rs, lay.q_hs, packed);
+  if (!err) err = hop_map<D, T>(&mk, k, lay.sk, heads, lay.k_rs, lay.k_hs, packed);
+  if (!err) err = hop_map<D, T>(&mv, v, lay.sk, heads, lay.k_rs, lay.k_hs, packed);
   if (err) return (cudaError_t)err;
-  return launch_nt(flash_fwd_hopper<D, Mask>, grid, HOP_NT, Ring::SMEM, stream, mq, mk, mv,
-                   (__nv_bfloat16*)o, (float*)lse, lay, mask, scale, packed, tiles_x, 1);
+  return launch_nt(flash_fwd_hopper<D, T, Mask>, grid, HOP_NT, Ring::SMEM, stream, mq, mk, mv,
+                   (T*)o, (float*)lse, lay, mask, scale, packed, tiles_x, 1);
 }
 
 // The head_dim-256 form over `chunks` 256-column chunks of the head_dim
 // (SPLIT when more than one).
-template <typename Mask, bool SPLIT>
+template <typename T, typename Mask, bool SPLIT>
 cudaError_t fwd_wide_launch(const void* q, const void* k, const void* v, void* o, void* lse,
                             int heads, Layout lay, Mask mask, float scale, int packed,
                             void* stream, int chunks) {
@@ -789,28 +785,28 @@ cudaError_t fwd_wide_launch(const void* q, const void* k, const void* v, void* o
   const dim3 grid = tiles_x ? dim3((unsigned)ext, heads) : dim3(heads, (unsigned)ext);
   const int d = 256 * chunks;
   CUtensorMap mq, mk, mv;
-  int err = hop_map<256>(&mq, q, lay.sq, heads, lay.q_rs, lay.q_hs, packed, d);
-  if (!err) err = hop_map<256>(&mk, k, lay.sk, heads, lay.k_rs, lay.k_hs, packed, d);
-  if (!err) err = hop_map<256>(&mv, v, lay.sk, heads, lay.k_rs, lay.k_hs, packed, d);
+  int err = hop_map<256, T>(&mq, q, lay.sq, heads, lay.q_rs, lay.q_hs, packed, d);
+  if (!err) err = hop_map<256, T>(&mk, k, lay.sk, heads, lay.k_rs, lay.k_hs, packed, d);
+  if (!err) err = hop_map<256, T>(&mv, v, lay.sk, heads, lay.k_rs, lay.k_hs, packed, d);
   if (err) return (cudaError_t)err;
-  return launch_nt(flash_fwd_hopper<256, Mask, SPLIT>, grid, WIDE_NT, WideSmem::SMEM, stream, mq,
-                   mk, mv, (__nv_bfloat16*)o, (float*)lse, lay, mask, scale, packed, tiles_x,
-                   chunks);
+  return launch_nt(flash_fwd_hopper<256, T, Mask, SPLIT>, grid, WIDE_NT, WideSmem::SMEM, stream,
+                   mq, mk, mv, (T*)o, (float*)lse, lay, mask, scale, packed, tiles_x, chunks);
 }
 
 // ------------------------------------------------------ launch and entries
 
-// `chunks` > 1: the SPLIT kernel, one block per 256-column chunk of O.
-template <typename T, int D, typename Mask, bool SPLIT = false>
+// The FMA kernel (float io); `chunks` > 1: the SPLIT kernel, one block per
+// 256-column chunk of O.
+template <int D, typename Mask, bool SPLIT = false>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse, int heads,
                 Layout lay, Mask mask, float scale, void* stream, int chunks = 1) {
   const size_t smem = sizeof(float) * (3 * 64 * (D + 1) + BQ * LDP);
   const dim3 grid((lay.sq + BQ - 1) / BQ, heads, chunks);
-  return launch(flash_fwd_kernel<T, D, Mask, SPLIT>, grid, smem, stream, (const T*)q,
-                (const T*)k, (const T*)v, (T*)o, (float*)lse, lay, mask, scale);
+  return launch(flash_fwd_kernel<D, Mask, SPLIT>, grid, smem, stream, (const float*)q,
+                (const float*)k, (const float*)v, (float*)o, (float*)lse, lay, mask, scale);
 }
 
-// bf16 to the tensor-core kernel, float and fp16 to the FMA kernel (io:
+// bf16 and fp16 to the tensor-core kernel, float to the FMA kernel (io:
 // see Io), chosen by io type at every head_dim; head_dim 256 to either
 // kernel's 256 form, and a head_dim above 256 (a multiple of 256: the
 // wrappers pad to it) to the same form split over it. `packed` says the
@@ -823,22 +819,24 @@ cudaError_t fwd_heads(int d, int io, const void* q, const void* k, const void* v
   if (d >= 256) {
     if (d % 256) return cudaErrorInvalidValue;
     const int chunks = d / 256;
-    if (io == IO_BF16)
-      return chunks == 1 ? fwd_wide_launch<Mask, false>(q, k, v, o, lse, heads, lay, mask, scale,
-                                                        packed, stream, 1)
-                         : fwd_wide_launch<Mask, true>(q, k, v, o, lse, heads, lay, mask, scale,
-                                                       packed, stream, chunks);
-    PT_FLASH_SWITCH_FMA_IO(io, return chunks == 1
-                                   ? fwd<T, 256>(q, k, v, o, lse, heads, lay, mask, scale, stream)
-                                   : fwd<T, 256, Mask, true>(q, k, v, o, lse, heads, lay, mask,
-                                                             scale, stream, chunks))
+    if (io == IO_F32)
+      return chunks == 1 ? fwd<256>(q, k, v, o, lse, heads, lay, mask, scale, stream)
+                         : fwd<256, Mask, true>(q, k, v, o, lse, heads, lay, mask, scale, stream,
+                                                chunks);
+    PT_FLASH_SWITCH_HOP_IO(io, return chunks == 1
+                                   ? fwd_wide_launch<T, Mask, false>(q, k, v, o, lse, heads, lay,
+                                                                     mask, scale, packed, stream,
+                                                                     1)
+                                   : fwd_wide_launch<T, Mask, true>(q, k, v, o, lse, heads, lay,
+                                                                    mask, scale, packed, stream,
+                                                                    chunks))
   }
-  if (io == IO_BF16) {
-    PT_FLASH_SWITCH_D(d, return fwd_hopper<D>(q, k, v, o, lse, heads, lay, mask, scale, packed,
-                                              stream))
+  if (io == IO_F32) {
+    PT_FLASH_SWITCH_D(d, return fwd<D>(q, k, v, o, lse, heads, lay, mask, scale, stream))
   }
-  PT_FLASH_SWITCH_D(d, PT_FLASH_SWITCH_FMA_IO(io, return fwd<T, D>(q, k, v, o, lse, heads, lay,
-                                                                   mask, scale, stream)))
+  PT_FLASH_SWITCH_D(d, PT_FLASH_SWITCH_HOP_IO(io, return fwd_hopper<D, T>(q, k, v, o, lse, heads,
+                                                                          lay, mask, scale,
+                                                                          packed, stream)))
 }
 
 // fwd_heads over every slice of the heads (by_head_slices).
@@ -857,8 +855,8 @@ cudaError_t fwd_any(int d, int io, const void* q, const void* k, const void* v, 
 
 }  // namespace pt_flash
 
-// Every entry: bf16 q, k and v start on 16-byte boundaries (their tensor
-// maps need it; the wrappers see to it); a failed tensor-map encode returns the
+// Every entry: bf16 and fp16 q, k and v start on 16-byte boundaries (their
+// tensor maps need it; the wrappers see to it); a failed tensor-map encode returns the
 // error code of libcuda, a refused launch cudaGetLastError().
 //
 // io: 0 float, 1 bf16, 2 fp16 (pt_flash::Io).

@@ -17,14 +17,17 @@ The kernels are built for head_dim 32, 64, 128 and 256 (``HEAD_DIMS``); a
 smaller head_dim runs at the next of those sizes, its q, k, v (and dO)
 padded with zero columns and the results sliced back (:func:`_pad_head_dim`),
 which is exact. The route is chosen by io type, at every head_dim: bf16
-runs on the tensor cores, at 256 in forms of their own (two warpgroups a
-block: 128 query rows a forward or dQ block, one 64-row key tile a dK/dV
-block, one warpgroup computing dV and the other dK); float32 and float16
-io run the FMA kernels, whose backward at 256 works on 32-row halves of
-its 64-row tiles so that the fp32 tiles fit in shared memory. A head_dim above 256 runs padded to a multiple of 256 on
-the same 256 forms split over it: one block per 256-column chunk of each
-output, the scores over the whole head_dim recomputed by each. A bf16
-launch that fails raises; nothing routes bf16 back to the FMA kernels.
+runs all three kernels on the tensor cores, at 256 in forms of their own
+(two warpgroups a block: 128 query rows a forward or dQ block, one 64-row
+key tile a dK/dV block, one warpgroup computing dV and the other dK);
+float16 runs the forward and dK/dV on the same tensor-core kernels
+(instantiated for fp16) and dQ on the FMA kernel; float32 runs the FMA
+kernels, whose backward at 256 works on 32-row halves of its 64-row tiles
+so that the fp32 tiles fit in shared memory. A head_dim above 256 runs
+padded to a multiple of 256 on the same 256 forms split over it: one
+block per 256-column chunk of each output, the scores over the whole
+head_dim recomputed by each. A bf16 or fp16 launch that fails raises;
+nothing routes either back to an FMA kernel.
 Any number of heads
 (``B*H``) runs: the C entries launch at most 65535 of them at a time. The
 causal mask is bottom-right aligned (key ``k`` is seen by query ``q`` when
@@ -37,12 +40,11 @@ Each wrapper dispatches on the device of its tensors: a CUDA tensor launches
 the kernel (or raises on a type, head_dim or layout the kernel does not
 take), a CPU tensor runs the plain PyTorch version beside it, which repeats
 the kernel's arithmetic. There is no fallback from one to the other. Each
-source holds two kernels: bf16 io (at every head_dim) runs on the tensor
-cores and reads q, k, v
-and dO through TMA tensor maps, which need 16-byte-aligned base addresses
-and strides (:func:`check_tma`; a tensor that fails it is handed to the
-kernel as a fresh contiguous copy, :func:`_tma_inputs`); float and float16
-io run fp32 FMAs.
+source holds two kernels: the tensor-core one reads q, k, v and dO through
+TMA tensor maps, which need 16-byte-aligned base addresses and strides
+(:func:`check_tma`; a bf16 or float16 tensor that fails it is handed to the
+kernel as a fresh contiguous copy, :func:`_tma_inputs`); the FMA one
+(float32 io, and float16 dQ) runs fp32 FMAs.
 ``LAUNCHES`` counts kernel launches per wrapper; the plain versions do not
 count.
 """
@@ -125,7 +127,7 @@ def _check_cuda(name: str, io, stats=()) -> None:
 
 def check_tma(*tensors: torch.Tensor) -> bool:
     """Whether every tensor can be read through a TMA tensor map, as the
-    bf16 kernels read q, k, v and dO: its base address and the byte
+    tensor-core kernels read q, k, v and dO: its base address and the byte
     strides of its outer dimensions multiples of 16 bytes. A plain check
     on the tensor's metadata, on any device."""
     for t in tensors:
@@ -136,14 +138,19 @@ def check_tma(*tensors: torch.Tensor) -> bool:
     return True
 
 
+# the io types the tensor-core kernels read through TMA tensor maps
+TMA_DTYPES = (torch.bfloat16, torch.float16)
+
+
 def _tma_inputs(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """The tensors a kernel reads, each as it is unless it is bf16 and
-    :func:`check_tma` refuses it; then a fresh contiguous copy, whose
-    storage PyTorch allocates aligned. Inputs reach the kernels contiguous
-    with a head_dim of 32, 64, 128 or a multiple of 256, so every stride is
-    a multiple of 16 bytes and the base address is the only case left: the
-    same kernel runs on the copy."""
-    return tuple(t if t.dtype != torch.bfloat16 or check_tma(t)
+    """The tensors a kernel reads, each as it is unless it is bf16 or
+    float16 (``TMA_DTYPES``) and :func:`check_tma` refuses it; then a fresh
+    contiguous copy, whose storage PyTorch allocates aligned. Inputs reach
+    the kernels contiguous with a head_dim of 32, 64, 128 or a multiple of
+    256, so every stride is a multiple of 16 bytes and the base address is
+    the only case left: the same kernel runs on the copy. (fp16 dQ still
+    runs the FMA kernel, which would read the original as well.)"""
+    return tuple(t if t.dtype not in TMA_DTYPES or check_tma(t)
                  else t.clone(memory_format=torch.contiguous_format)
                  for t in tensors)
 

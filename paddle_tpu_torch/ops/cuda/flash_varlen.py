@@ -53,10 +53,11 @@ Head dims run as in ``flash_attention.py`` (``kernel_head_dim``), by io
 type: bf16 on the tensor cores at every head_dim (at 256 and, split over
 256-column chunks, above it, two warpgroups a block: the forward and dQ
 over 128 query rows, the ring holding every key tile either 64-row tile
-visits; dK/dV over one 64-row key tile); float32 and float16 on the FMA
-kernels. A bf16 launch that fails raises.
+visits; dK/dV over one 64-row key tile); float16 the forward and dK/dV on
+the same tensor-core kernels and dQ on the FMA kernel; float32 on the FMA
+kernels. A bf16 or float16 launch that fails raises.
 
-Sizes: any number of tiles runs. The bf16 kernels put the heads on the
+Sizes: any number of tiles runs. The tensor-core kernels put the heads on the
 grid's x axis and the tiles on y, and past 65535 tiles (4,194,240 rows;
 at head_dim 256 and above 65535 blocks, counted with their chunks, of 128
 query rows for the forward and dQ and of 64 key rows for dK/dV) the tiles

@@ -161,8 +161,20 @@ BF16_FWD_SHAPES = {
 @pytest.mark.parametrize("d", BF16_FWD_DIMS)
 @pytest.mark.parametrize("shape", sorted(BF16_FWD_SHAPES))
 def test_bf16_forward_edges_match_plain(cuda, shape, d):
+    _forward_edge_matches_plain(cuda, shape, d, torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", BF16_FWD_DIMS)
+@pytest.mark.parametrize("shape", sorted(BF16_FWD_SHAPES))
+def test_fp16_forward_edges_match_plain(cuda, shape, d):
+    """fp16 runs the same tensor-core forward (its fp16 instantiation) at
+    the same edge shapes."""
+    _forward_edge_matches_plain(cuda, shape, d, torch.float16)
+
+
+def _forward_edge_matches_plain(cuda, shape, d, dtype):
     bh, sq, sk, kv_len, causal = BF16_FWD_SHAPES[shape]
-    q, k, v, _ = _inputs(cuda, bh, sq, sk, d, torch.bfloat16, seed=3)
+    q, k, v, _ = _inputs(cuda, bh, sq, sk, d, dtype, seed=3)
     args = (causal, 1.0 / math.sqrt(d), kv_len, sk - sq)
     out, lse = fa.flash_fwd(q, k, v, *args)
     p_out, p_lse = fa.flash_fwd_plain(q, k, v, *args)
@@ -170,7 +182,7 @@ def test_bf16_forward_edges_match_plain(cuda, shape, d):
     torch.cuda.synchronize()
     for key, got, want in (("out", out, p_out), ("lse", lse, p_lse)):
         err = (got.float() - want.float()).abs()
-        assert bool((err <= _limit(torch.bfloat16, key, want,
+        assert bool((err <= _limit(dtype, key, want,
                                    abs_v_out)).all()), (key, err.max().item())
     if sq > sk:  # rows q < sq - sk see no key: out 0 and lse -1e30
         blind = sq - sk
@@ -185,8 +197,21 @@ def test_bf16_backward_edges_match_plain(cuda, shape, d):
     (K, V) tiles; two warpgroups a block at 256 and above) at the
     forward's edge shapes; keys past kv_len (no query sees them) get dK
     and dV of exactly 0, rows that see no key dQ of 0."""
+    _backward_edge_matches_plain(cuda, shape, d, torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", BF16_FWD_DIMS)
+@pytest.mark.parametrize("shape", sorted(BF16_FWD_SHAPES))
+def test_fp16_backward_edges_match_plain(cuda, shape, d):
+    """fp16 at the same edge shapes: dK/dV on the tensor-core kernel (its
+    fp16 instantiation, P and dS scaled before their hi/lo split), dQ on
+    the FMA kernel; unseen keys give dK = dV = 0 exactly."""
+    _backward_edge_matches_plain(cuda, shape, d, torch.float16)
+
+
+def _backward_edge_matches_plain(cuda, shape, d, dtype):
     bh, sq, sk, kv_len, causal = BF16_FWD_SHAPES[shape]
-    q, k, v, do = _inputs(cuda, bh, sq, sk, d, torch.bfloat16, seed=4)
+    q, k, v, do = _inputs(cuda, bh, sq, sk, d, dtype, seed=4)
     args = (causal, 1.0 / math.sqrt(d), kv_len, sk - sq)
     out, lse = fa.flash_fwd(q, k, v, *args)
     delta = fa.attention_delta(do, out)
@@ -198,7 +223,7 @@ def test_bf16_backward_edges_match_plain(cuda, shape, d):
     for key, got, want in (("dq", dq, p_dq), ("dk", dk, p_dk),
                            ("dv", dv, p_dv)):
         err = (got.float() - want.float()).abs()
-        assert bool((err <= _limit(torch.bfloat16, key, want, None)).all()), \
+        assert bool((err <= _limit(dtype, key, want, None)).all()), \
             (key, err.max().item())
     assert not dk[:, kv_len:].any() and not dv[:, kv_len:].any()
     if causal and sq > sk:
@@ -231,8 +256,19 @@ def test_bf16_misaligned_base_at_head_dim_256_matches_plain(cuda, entry):
     _misaligned_matches_plain(cuda, entry, 256)
 
 
-def _misaligned_matches_plain(cuda, entry, d):
-    q, k, v, do = _inputs(cuda, 2, 128, 128, d, torch.bfloat16)
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("entry", ["flash_fwd", "varlen_fwd",
+                                   "flashmask_fwd"])
+def test_fp16_misaligned_base_matches_plain(cuda, entry, d):
+    """An fp16 input on a misaligned base reaches the fp16 tensor-core
+    forward and dK/dV as a fresh aligned copy (and dQ, on the FMA kernel,
+    the same copy): one launch each, each within the plain version's
+    limit."""
+    _misaligned_matches_plain(cuda, entry, d, torch.float16)
+
+
+def _misaligned_matches_plain(cuda, entry, d, dtype=torch.bfloat16):
+    q, k, v, do = _inputs(cuda, 2, 128, 128, d, dtype)
     fa.reset_launches()
     fv.reset_launches()
     if entry == "flash_fwd":
@@ -284,7 +320,7 @@ def _misaligned_matches_plain(cuda, entry, d):
                            ("dq", g_dq, p_dq), ("dk", g_dk, p_dk),
                            ("dv", g_dv, p_dv)):
         err = (got.float() - want.float()).abs()
-        assert bool((err <= _limit(torch.bfloat16, key, want,
+        assert bool((err <= _limit(dtype, key, want,
                                    abs_v_out)).all()), (key, err.max().item())
     counts = dict(fa.LAUNCHES) if entry == "flash_fwd" else {
         n: c for n, c in fv.LAUNCHES.items()
@@ -385,6 +421,91 @@ def test_bf16_backward_at_256_and_above_runs_the_tensor_core_kernels(cuda,
     for key, g, want in zip(("dq", "dk", "dv"), got, plain(*ins)):
         err = (g.float() - want.float()).abs()
         assert bool((err <= _limit(torch.bfloat16, key, want, None)).all()), \
+            (key, err.max().item())
+
+
+@pytest.mark.parametrize("d", BF16_FWD_DIMS)
+@pytest.mark.parametrize("mask", ["fixed", "varlen", "flashmask"])
+def test_fp16_runs_the_tensor_core_forward_and_dkv(cuda, mask, d):
+    """fp16 at every head_dim takes the tensor-core forward and dK/dV (their
+    ``__half`` instantiations) for each mask and dQ on the FMA kernel: the
+    profiler names ``flash_fwd_hopper`` and ``flash_bwd_dkv_hopper`` at
+    ``__half`` and ``flash_bwd_dq_kernel``, no ``flash_fwd_kernel`` or
+    ``flash_bwd_dkv_kernel``; out, lse, dq, dk and dv match the plain
+    versions with the fp16 limit."""
+    from torch.profiler import ProfilerActivity, profile
+    scale = 1.0 / math.sqrt(d)
+    q, k, v, do = _inputs(cuda, 2, 256, 256, d, torch.float16, seed=11)
+    if mask == "fixed":
+        args = (True, scale, 256, 0)
+        fwd = lambda v: fa.flash_fwd(q, k, v, *args)
+        fwd_plain = lambda v: fa.flash_fwd_plain(q, k, v, *args)
+        delta_of = fa.attention_delta
+        bwd = lambda *t: (fa.flash_bwd_dq(*t, *args),
+                          *fa.flash_bwd_dkv(*t, *args))
+        plain = lambda *t: (fa.flash_bwd_dq_plain(*t, *args),
+                            *fa.flash_bwd_dkv_plain(*t, *args))
+    elif mask == "varlen":
+        cu = torch.tensor([0, 100, 300, 512], device=cuda).int()
+        plan = fv.varlen_plan(cu, cu, 512, 512, True)
+        q, k, v, do = (t.reshape(512, 1, d) for t in (q, k, v, do))
+        fwd = lambda v: fv.varlen_fwd(q, k, v, plan, scale)
+        fwd_plain = lambda v: fv.varlen_fwd_plain(q, k, v, plan, scale)
+        delta_of = fv.varlen_delta
+        bwd = lambda *t: (fv.varlen_bwd_dq(*t, plan, scale),
+                          *fv.varlen_bwd_dkv(*t, plan, scale))
+        plain = lambda *t: (fv.varlen_bwd_dq_plain(*t, plan, scale),
+                            *fv.varlen_bwd_dkv_plain(*t, plan, scale))
+    else:
+        plan = fv.flashmask_plan(torch.full((2, 1, 256, 1), 200,
+                                            dtype=torch.int32, device=cuda),
+                                 1, True)
+        fwd = lambda v: fv.flashmask_fwd(q, k, v, plan, scale)
+        fwd_plain = lambda v: fv.flashmask_fwd_plain(q, k, v, plan, scale)
+        delta_of = fa.attention_delta
+        bwd = lambda *t: (fv.flashmask_bwd_dq(*t, plan, scale),
+                          *fv.flashmask_bwd_dkv(*t, plan, scale))
+        plain = lambda *t: (fv.flashmask_bwd_dq_plain(*t, plan, scale),
+                            *fv.flashmask_bwd_dkv_plain(*t, plan, scale))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, lse = fwd(v)
+        ins = (q, k, v, do, lse, delta_of(do, out))
+        got = bwd(*ins)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    for kernel in ("flash_fwd", "flash_bwd_dkv"):
+        assert any(f"{kernel}_hopper" in n and "__half" in n
+                   for n in names), names
+        assert not any(f"{kernel}_kernel" in n for n in names), names
+    assert any("flash_bwd_dq_kernel" in n for n in names), names
+    p_out, p_lse = fwd_plain(v)
+    abs_v_out = fwd_plain(v.abs())[0]
+    for key, g, want in (("out", out, p_out), ("lse", lse, p_lse),
+                         *zip(("dq", "dk", "dv"), got, plain(*ins))):
+        err = (g.float() - want.float()).abs()
+        assert bool((err <= _limit(torch.float16, key, want, abs_v_out,
+                                   d)).all()), (key, err.max().item())
+
+
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("do_scale", [2.0 ** -12, 2.0 ** 8],
+                         ids=["2^-12", "2^8"])
+def test_fp16_dkv_holds_scaled_do(cuda, do_scale, d):
+    """fp16 dK/dV with dO far from unit scale (a loss scaler's range): the
+    kernel scales each key row of dS into fp16's normal range before its
+    hi/lo split, so dk and dv stay within the fp16 limit at either end."""
+    q, k, v, do = _inputs(cuda, 4, 512, 512, d, torch.float16, seed=12)
+    do = do * do_scale
+    args = (True, 1.0 / math.sqrt(d), 512, 0)
+    out, lse = fa.flash_fwd(q, k, v, *args)
+    delta = fa.attention_delta(do, out)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, *args)
+    p_dk, p_dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, *args)
+    torch.cuda.synchronize()
+    for key, got, want in (("dk", dk, p_dk), ("dv", dv, p_dv)):
+        assert bool(torch.isfinite(got).all()), key
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= _limit(torch.float16, key, want, None)).all()), \
             (key, err.max().item())
 
 

@@ -18,6 +18,11 @@ logits) moves by rounding noise on both sides, by up to lr a step (about
 bf16, each output rounded to 8 bits at places that differ between the two
 frameworks (the port's gelu and bias add round once from fp32), so the
 loss is held at 2e-3 relative (about 2^-9, bf16's half ulp; 3e-5 seen).
+fp16 ``auto_cast`` (O1, as upstream Paddle defaults): the same rounding
+points at fp16's 11 bits, the loss held at 5e-4 relative (about 2^-11,
+fp16's half ulp; 1.5e-6 seen); the gradients of a ``GradScaler``-scaled
+loss, unscaled, within 1e-2 of each tensor's largest (about 20 fp16
+roundings along the chain; 2e-3 seen).
 """
 import numpy as np
 import pytest
@@ -115,6 +120,34 @@ def test_bf16_auto_cast_loss_matches_reference():
     for p in pm.parameters():  # fp32 parameters get fp32 gradients
         assert p.grad.dtype == pt.float32
         assert bool(torch.isfinite(p.grad._t).all())
+
+
+def test_fp16_auto_cast_with_grad_scaler_matches_reference():
+    rm, pm = _pair()
+    rc, pc = ref_gpt.GPTPretrainingCriterion(), pt_gpt.GPTPretrainingCriterion()
+    x, y = _batch(1)
+    with ref.amp.auto_cast(level="O1", dtype="float16"):
+        rlogits = rm(ref.to_tensor(x))
+        rl = rc(rlogits, ref.to_tensor(y))
+    with pt.amp.auto_cast(level="O1", dtype="float16"):
+        plogits = pm(pt.to_tensor(x))
+        pl = pc(plogits, pt.to_tensor(y))
+    assert plogits.dtype.name == rlogits.dtype.name == "float16"
+    assert pl.dtype.name == rl.dtype.name == "float32"
+    assert _rel(float(pl), float(rl.numpy())) <= 5e-4
+    rs, ps = ref.amp.GradScaler(), pt.amp.GradScaler()
+    assert ps._scale == 65536.0
+    rs.scale(rl).backward()
+    ps.scale(pl).backward()
+    for (name, rp), (_, pp) in zip(rm.named_parameters(),
+                                   pm.named_parameters()):
+        assert pp.grad.dtype == pt.float32
+        want = np.asarray(rp.grad.numpy(), np.float64) / 65536.0
+        got = pp.grad.numpy().astype(np.float64) / 65536.0
+        assert np.isfinite(got).all(), name
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-2 * np.abs(want).max(),
+                                   err_msg=name)
 
 
 def test_attention_reaches_the_flash_wrappers_plain_path(monkeypatch):

@@ -296,6 +296,26 @@ def test_check_tma_takes_aligned_layouts_and_refuses_the_rest(layout):
         assert pt_fa.check_tma(copy)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_tma_inputs_copy_a_misaligned_two_byte_tensor_alone(dtype):
+    """bf16 and fp16 both reach the tensor-core kernels (forward and dK/dV
+    at fp16) through TMA: a misaligned tensor of either is handed on as a
+    fresh aligned copy with the same values, an aligned one as it is; a
+    misaligned float32 tensor (the FMA kernels) is not copied."""
+    n = 2 * 64 * 64
+    odd = torch.zeros(n + 1, dtype=dtype)[1:].view(2, 64, 64)
+    aligned = torch.zeros(2, 64, 64, dtype=dtype)
+    odd.copy_(torch.randn(2, 64, 64))
+    assert not pt_fa.check_tma(odd) and pt_fa.check_tma(aligned)
+    copy, same = pt_fa._tma_inputs(odd, aligned)
+    assert copy.data_ptr() != odd.data_ptr() and torch.equal(copy, odd)
+    assert copy.dtype == dtype and pt_fa.check_tma(copy)
+    assert same is aligned
+    f32 = torch.zeros(n + 1)[1:].view(2, 64, 64)
+    assert pt_fa._tma_inputs(f32)[0] is f32
+
+
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("d", [48, 80, 160, 256, 288, 512])
 def test_padded_head_dim_matches_reference(d, causal):
