@@ -15,14 +15,16 @@ Two measurements, each optional (both run when neither flag is given):
   forward), dK/dV (#2, #7, #10) and dQ (#3, #8, #11), and of the three
   masks' kernels (with RMSNorm and SwiGLU) at the path shapes, head_dim 64
   (phase 4's ``timings``). With ``--dtype float16`` the turns time the
-  fixed-length kernels with fp16 io at the path shape and at head_dim 256
-  instead (``fixed_timings``, beside SDPA's fp16 forward). With ``--paths``
-  each turn also times phases 6 and 7's calls (``flash_attn_unpadded``
-  and ``flashmask_attention`` forward + backward, bf16, at their path
-  shapes; the median of 7 samples of 10 calls). With ``--steps``
-  each turn also runs ``chip_smoke.py``'s phases 5 and 10 (the compiled
-  and the eager gpt2-medium step, head_dim 64) and prints their median
-  ms/step and device-busy ms beside the kernels'.
+  kernels with fp16 io instead: the fixed-length ones at the path shape
+  and at head_dim 256 and 512 (``fixed_timings``, beside SDPA's fp16
+  forward), the varlen and flashmask ones at their path shapes. With
+  ``--paths`` each turn also times phases 6 and 7's calls
+  (``flash_attn_unpadded`` and ``flashmask_attention`` forward +
+  backward, bf16, at their path shapes; the median of 7 samples of 10
+  calls). With ``--steps`` each turn also runs ``chip_smoke.py``'s phases 5 and 10 (the compiled
+  and the eager gpt2-medium step, head_dim 64, the eager one in bf16 and
+  in fp16) and prints their median ms/step and device-busy ms beside the
+  kernels'.
 - ``--variants``: builds variants of ``paddle_tpu_torch/csrc``'s
   ``flash_fwd.cu``, ``flash_bwd_dq.cu`` or ``flash_bwd_dkv.cu`` (text
   changes of this checkout's sources, listed in ``VARIANTS``; ``lib_of``
@@ -112,14 +114,14 @@ VARIANTS = {
     # no S and dP products, no TMA loads
     "dq_base": [],
     "dq_n128": [N128],
-    "x_dq_no_lo": [("        wgmma_rs_d<256>(acc, al[k], Tile::mn_major(ring.addr(ks), k));\n",
+    "x_dq_no_lo": [("        wgmma_rs_d<256, T>(acc, al[k], Tile::mn_major(ring.addr(ks), k));\n",
                     "")],
     "x_dq_no_ds": [("      if (mask.tile_full(qt, j))\n        dq_ds_tile<true>",
                     "      if (lse2[0] == 1.2345f)\n        dq_ds_tile<true>"),
                    ("      else\n        dq_ds_tile<false>(mask, j, qi, cq, scale, lse2, dl, "
                     "sc, dp);", "")],
-    "x_dq_no_s": [("        wgmma_nt<256>(sc, q_addr, ring.addr(ks), ci > 0);  "
-                   "// S += Q_c K_c^T\n        wgmma_nt<256>(dp, do_addr, ring.addr(vs), "
+    "x_dq_no_s": [("        wgmma_nt<256, T>(sc, q_addr, ring.addr(ks), ci > 0);  "
+                   "// S += Q_c K_c^T\n        wgmma_nt<256, T>(dp, do_addr, ring.addr(vs), "
                    "ci > 0);  // dP += dO_c V_c^T\n", "")],
     "x_dq_no_loads": _no_loads("tma_tile<256>(dst, map, bar, kv ? is.tile * BK : q0 + "
                                "(sub & 1) * BQ, h, packed, c * 256);"),
@@ -319,9 +321,14 @@ cs.build()
 rows = {}
 with cs.watchdog("timings", 600):
     if sys.argv[2] == "float16":
+        f16 = cs.torch.float16
         runs = [(hd, lambda hd=hd: cs.fixed_timings(
             cs.BATCH, cs.HEADS if hd == 64 else cs.D256_HEADS, cs.SEQ, hd,
-            seed=66, dtype=cs.torch.float16)) for hd in (64, 256)]
+            seed=66, dtype=f16)) for hd in (64, 256, 512)]
+        runs += [(64, lambda: cs.varlen_timings(cs.HEADS, 64, seed=68,
+                                                dtype=f16)),
+                 (64, lambda: cs.flashmask_timings(cs.HEADS, 64, seed=69,
+                                                   dtype=f16))]
     else:
         runs = ((64, cs.timings), (256, cs.d256_timings),
                 (512, cs.d512_timings))
@@ -362,6 +369,7 @@ if sys.argv[1] == "1":
     cs.eager_path(smi, compiled)
     rows["compiled gpt2-medium step"] = (medians[0], None, None)
     rows["eager gpt2-medium step"] = (medians[1], None, None)
+    rows["eager fp16 gpt2-medium step"] = (medians[2], None, None)
 print("TIMINGS " + json.dumps(rows))
 """
 

@@ -7,9 +7,8 @@ toolkit (``nvcc``). Phases, each printed as it runs:
 
 1. the card: name, count, and ``nvidia-smi``'s name and power limit;
 2. builds the flash-attention kernels (forward, dK/dV and dQ, each
-   fixed-length, varlen and flashmask; each a tensor-core kernel, bf16 for
-   all three and fp16 for the forward and dK/dV, and an FMA kernel, fp32
-   for all three and fp16 for dQ) and the RMSNorm and SwiGLU kernels from
+   fixed-length, varlen and flashmask; each a tensor-core kernel, bf16 and
+   fp16, and an FMA kernel, fp32) and the RMSNorm and SwiGLU kernels from
    the four sources of ``paddle_tpu_torch/csrc`` (``nvcc``, ``sm_90a``,
    one process per source, all at once), printing build seconds and
    ptxas's register and shared-memory lines (a spill in any tensor-core
@@ -39,19 +38,23 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    segments, a flashmask row that leaves one key tile open (keys no query
    sees must give dk and dv of exactly 0), the same at head_dim 256 and
    512 (the two-warpgroup forms and their SPLIT forms), in bf16 and again
-   in fp16. fp16 io (the tensor-core forward and dK/dV, the FMA dQ) and a
-   head_dim of 80 (run at 128 with zero columns) for the three masks,
-   forward and backward, and bf16 and fp16 inputs on a misaligned base
-   (the same kernels on aligned copies, bit for bit); fp16 at the path
+   in fp16. fp16 io (all three on the tensor cores) and a head_dim of 80
+   (run at 128 with zero columns) for the three masks, forward and
+   backward, and bf16 and fp16 inputs on a misaligned base (the same
+   kernels on aligned copies, bit for bit); fp16 at the path
    shapes of the three masks, the fixed-length one with dO at unit scale,
-   2^-12 and 2^8 (and at head_dim 256 the last two). RMSNorm and SwiGLU at the
+   2^-12 and 2^8 (and at head_dim 256 the last two); fp16 dQ alone for
+   the three masks at head_dim 32-512 with dO at unit scale, 2^-12 and
+   2^8, rows that see no key giving dq of exactly 0, and rows whose |dS|
+   grows by more than 2^20 from their first key tile to their last (v's
+   rows growing along the keys; the per-row power of two falls mid-row). RMSNorm and SwiGLU at the
    fused-op path's tensors (Llama-2-7B widths, 8192 tokens, bf16) and at
    edge shapes (fp32 and fp16, 37 rows, rows of 1000 and 1003, a float32
    weight or gate beside bf16 x, the split form with unaligned halves).
    head_dim 256 and 160 (run at 256) for the three masks in fp32, bf16 and
    fp16, forward and backward (bf16 on the tensor cores, two warpgroups a
-   block, fp16 the same but for dQ; fp32 on the FMA kernels at 256); head_dim 288 (run at
-   512) and 512 the same way (each 256 form split over 256-column
+   block, fp16 the same; fp32 on the FMA kernels at 256); head_dim 288
+   (run at 512) and 512 the same way (each 256 form split over 256-column
    chunks); a misaligned bf16 base at 256; 65600 fixed-length heads (more
    than the grid's 65535 on its y axis) in bf16 and fp32; a bf16 varlen
    pack and a bf16 flashmask row of 65,537 query tiles (more than the
@@ -70,17 +73,17 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    head_dim 256 and at 512 (16 heads, bf16, the same tokens, on the
    tensor cores), with each kernel's shared memory per block and SDPA's
    forward and whole backward; then the kernels with fp16 io (#1-#3 at
-   the path shape and at head_dim 256, #6-#11 at their path shapes)
-   beside SDPA's fp16 forward and whole backward;
+   the path shape and at head_dim 256 and 512, #6-#11 at their path
+   shapes) beside SDPA's fp16 forward and whole backward, and fp16 dQ
+   (#3, #8, #11) beside bf16's;
 4b. drives ``nn.functional.flash_attention`` at ``[8, 1024, 16, 256]``
    bf16 and fp16 and at ``[8, 1024, 16, 64]`` fp16, causal (Gemma-7B's
    heads and gpt2-medium's at gpt2-medium's tokens), forward and
    backward: one launch of each fixed-length kernel, out and gradients
    against the plain versions with ``limit``, ``torch.profiler`` passes
-   that find ``flash_fwd_hopper`` and ``flash_bwd_dkv_hopper`` of the io
-   type, ``flash_bwd_dq_hopper`` (bf16) or the FMA ``flash_bwd_dq_kernel``
-   (fp16), and no FMA forward or dK/dV kernel, and its times beside the
-   FMA backward's;
+   that find ``flash_fwd_hopper``, ``flash_bwd_dkv_hopper`` and
+   ``flash_bwd_dq_hopper`` of the io type and no FMA kernel, and its times
+   beside the FMA backward's;
 5. checks the training step on a small GPT against the port's CPU path
    (the path the CPU tests hold against the JAX package), then drives the
    main path: gpt2-medium at full width (24 layers, hidden 1024), batch 8,
@@ -119,8 +122,9 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    with phase 5's and profiles one step; then the same model from the
    same seed under ``amp.auto_cast(level="O1", dtype="float16")`` with
    ``amp.GradScaler()``, checked the same way (24 fp16 launches of each
-   kernel a step), profiled, and its ms/step and tokens/s printed beside
-   the bf16 step's;
+   kernel a step), profiled, its ``GradScaler.unscale_`` timed alone on
+   one more step, and its ms/step, tokens/s, device busy, idle share and
+   attention share printed beside the bf16 step's;
 11. drives the eager vision path: ``resnet18(num_classes=10)`` on 4 x 3 x
    64 x 64, three Momentum steps on the card against the port's CPU path
    in float64 and in fp32; then ``bench_suite.py``'s ResNet-50 workload
@@ -144,8 +148,8 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    synchronise; each forward timed (CUDA events, median of 10) beside
    its byte bound, with the ten largest ratios; the random ops held by
    their statistics on the card; prints its time;
-13. prints the head_dim 256 and 512 and fp16 (64 and 256) timings, the ``kernels``
-   JSON line, the card line, and last ``{"ok": true, "device": {...}}``.
+13. prints the head_dim 256 and 512 and fp16 (64, 256 and 512) timings,
+   the ``kernels`` JSON line, the card line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. It never falls back
 to the CPU or to a plain version: with no CUDA device it exits 1 before
@@ -335,10 +339,9 @@ def build():
         for line in info.ptxas:
             print(f"  {line}")
     print(f"build wall {wall:.1f} s (nvcc processes run in parallel; each "
-          f"flash library holds a tensor-core kernel (bf16; fp16 too in the "
-          f"forward and dK/dV) and an FMA kernel (fp32; fp16 too in dQ), each "
-          f"in a fixed-length, a varlen and a flashmask instantiation, the "
-          f"fused one RMSNorm and SwiGLU)")
+          f"flash library holds a tensor-core kernel (bf16 and fp16) and an "
+          f"FMA kernel (fp32), each in a fixed-length, a varlen and a "
+          f"flashmask instantiation, the fused one RMSNorm and SwiGLU)")
     check(set(infos) == set(_build.SOURCES), f"built {sorted(infos)}")
     for lib in HOPPER_KERNELS:
         if infos[lib].ptxas:
@@ -390,10 +393,10 @@ def check_spills(lib, ptxas):
 # the three masks every flash kernel is instantiated with
 MASKS = ("CausalMask", "SegmentMask", "StartEndMask")
 # the io types of each library's tensor-core kernel, as their mangled
-# names spell them (the kernel's second template argument): bf16 for all
-# three, fp16 for the forward and dK/dV (fp16 dQ runs the FMA kernel)
+# names spell them (the kernel's second template argument): bf16 and fp16
+# for all three
 IO_TAGS = {"bf16": "13__nv_bfloat16", "fp16": "6__half"}
-HOPPER_IO = {"flash_fwd": ("bf16", "fp16"), "flash_bwd_dq": ("bf16",),
+HOPPER_IO = {"flash_fwd": ("bf16", "fp16"), "flash_bwd_dq": ("bf16", "fp16"),
              "flash_bwd_dkv": ("bf16", "fp16")}
 # tensor-core instantiations per library: each kernel at head_dim 32, 64,
 # 128 and 256 and the SPLIT form (256-column chunks of a wider head_dim);
@@ -420,13 +423,12 @@ HOPPER_KERNELS = {
 
 def io_of(name):
     """The io type (a key of ``IO_TAGS``) of a tensor-core instantiation,
-    from its mangled name: the template argument after the head_dim
-    (forward, dK/dV), else a concrete bf16 pointer parameter (dQ, bf16
-    alone); None if neither."""
+    from its mangled name: the template argument after the head_dim; None
+    if there is none."""
     for io, tag in IO_TAGS.items():
         if re.search(r"ILi\d+E" + re.escape(tag), name):
             return io
-    return "bf16" if "P" + IO_TAGS["bf16"] in name else None
+    return None
 
 
 def sass_split(sass, kernel):
@@ -557,7 +559,8 @@ def within(got, want, lim):
 def hold_against_plain(bh, sq, sk, d, dtype, causal, seed, do_scale=1.0):
     """Runs each kernel and its plain version on the same inputs (dO times
     ``do_scale``, a power of two: a loss scaler's range); returns the max
-    abs error per kernel (over all its outputs)."""
+    abs error per kernel (over all its outputs). At a scaled dO, dq is held
+    against the plain version's unrounded fp32 result (``fp32_inputs``)."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     q, k, v, do = _inputs(bh, sq, sk, d, dtype, seed)
     do = do * do_scale
@@ -569,7 +572,8 @@ def hold_against_plain(bh, sq, sk, d, dtype, causal, seed, do_scale=1.0):
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, *args)
     p_dk, p_dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, *args)
     dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, *args)
-    p_dq = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, *args)
+    dq_ins = (q, k, v, do) if do_scale == 1.0 else fp32_inputs(q, k, v, do)
+    p_dq = fa.flash_bwd_dq_plain(*dq_ins, lse, delta, *args)
     torch.cuda.synchronize()
     pairs = {"out": (out, p_out), "lse": (lse, p_lse), "dq": (dq, p_dq),
              "dk": (dk, p_dk), "dv": (dv, p_dv)}
@@ -965,10 +969,9 @@ TC_EDGE_DIMS = (32, 64, 128, 256, 512)
 
 
 def tensor_core_edges(dtype):
-    """The tensor-core kernels in ``dtype`` (bf16: forward, dK/dV, dQ;
-    fp16: forward and dK/dV, dQ on the FMA kernel; fixed-length, varlen,
-    flashmask) at their edge shapes, at each of ``TC_EDGE_DIMS``, against
-    the plain versions: rows that see no key give out and dq of exactly 0,
+    """The tensor-core kernels in ``dtype`` (bf16 or fp16: forward, dK/dV,
+    dQ; fixed-length, varlen, flashmask) at their edge shapes, at each of
+    ``TC_EDGE_DIMS``, against the plain versions: rows that see no key give out and dq of exactly 0,
     keys no query sees dk and dv of exactly 0, a fully banned flashmask
     tile is skipped, documents shorter than a tile, kv_len cutting a key
     tile."""
@@ -1098,9 +1101,9 @@ def misaligned_checks(d=64, dtype=torch.bfloat16):
 
 
 def repairs():
-    """fp16 io (the tensor-core forward and dK/dV, the FMA dQ) for the
-    three masks, forward and backward; a head_dim of 80, run at 128 with
-    zero columns, in bf16 and fp16; misaligned bf16 and fp16 bases."""
+    """fp16 io (the tensor-core kernels) for the three masks, forward and
+    backward; a head_dim of 80, run at 128 with zero columns, in bf16 and
+    fp16; misaligned bf16 and fp16 bases."""
     hold_against_plain(4, 200, 200, 64, torch.float16, True, seed=30)
     hold_against_plain(4, 128, 256, 80, torch.float16, False, seed=31)
     hold_against_plain(4, 200, 200, 80, torch.bfloat16, True, seed=32)
@@ -1123,8 +1126,8 @@ FP16_DO_SCALES = (1.0, 2.0 ** -12, 2.0 ** 8)
 
 
 def fp16_path_checks():
-    """fp16 io at the path shapes, the tensor-core forward and dK/dV and
-    the FMA dQ against the plain versions with ``limit``: the fixed-length
+    """fp16 io at the path shapes, the tensor-core forward, dK/dV and dQ
+    against the plain versions with ``limit``: the fixed-length
     mask at ``[8, 16, 1024, 64]`` causal with dO at each of
     ``FP16_DO_SCALES`` and at head_dim 256 (16 heads x 1024) with the
     smallest and largest, the varlen mask over ``DOCS`` and the flashmask
@@ -1142,11 +1145,159 @@ def fp16_path_checks():
         torch.from_numpy(flashmask_startend()).cuda(), seed=38)
 
 
+def fp32_inputs(*tensors):
+    """fp32 copies of io-typed inputs. The plain backward versions compute
+    in fp32 from their inputs and round once, at the end, to the inputs'
+    type: on these copies they return that fp32 result unrounded. fp16 dq
+    at a scaled dO is held against it: at dO x 2^-12 many dq elements are
+    fp16 subnormals, spaced 2^-24 apart, above ``limit``'s floor there (1e-4
+    of the largest |dq|), so two results a hair apart can round to
+    neighbouring subnormals: the exact dq rounded once misses the rounded
+    plain version by up to 1.26x the limit and sits within 0.67x of the
+    unrounded one (``tests/test_torch_fp16_split.py``)."""
+    return tuple(t.float() for t in tensors)
+
+
+def _hold_dq(label, got, want, blind=None):
+    """One fp16 dQ result against its plain version's fp32 result
+    (``fp32_inputs``) with ``limit``: finite, within the limit, and exactly
+    0 on the ``blind`` rows (rows that see no key)."""
+    _, ratio = within(got, want, limit(torch.float16, "dq", want))
+    check(bool(torch.isfinite(got.float()).all()), f"dq non-finite at "
+          f"{label}")
+    check(math.isfinite(ratio) and ratio <= 1.0, f"dq at {ratio:.3g} of its "
+          f"limit at {label}")
+    if blind is not None:
+        check(bool(blind.any()) and not got[blind].any(), f"rows that see no "
+              f"key have dq not 0 at {label}")
+    return ratio
+
+
+def fp16_dq_checks():
+    """fp16 dQ on the tensor cores (``flash_bwd_dq_hopper`` at ``__half``)
+    against the plain versions with ``limit``, for the three masks at each
+    of ``TC_EDGE_DIMS`` with dO at each of ``FP16_DO_SCALES``: the
+    fixed-length mask at sq 320 > sk 256, causal; the varlen mask over
+    ``EDGE`` (a segment with queries and no key, padding rows); the
+    flashmask mask over ``_fm_edge_startend`` (rows banned by every key,
+    rows past sk). Each against the plain version's unrounded fp32 result
+    (``fp32_inputs``). Rows that see no key must give dq of exactly 0.
+    Then ``dq_growth_check``."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import flash_varlen as fv
+    f16 = torch.float16
+    for d in TC_EDGE_DIMS:
+        sc = 1.0 / math.sqrt(d)
+        q, k, v, do = _inputs(4, 320, 256, d, f16, seed=71)
+        args = (True, sc, 256, -64)
+        out, lse = fa.flash_fwd(q, k, v, *args)
+        fixed_blind = torch.zeros(4, 320, dtype=torch.bool, device="cuda")
+        fixed_blind[:, :64] = True
+        vq, vk, vv, vdo, cu_q, _, vplan = _varlen_inputs(*EDGE, 2, d, f16,
+                                                        True, seed=72)
+        v_out, v_lse = fv.varlen_fwd(vq, vk, vv, vplan, sc)
+        cu = cu_q.tolist()
+        v_blind = torch.zeros(vq.shape[0], dtype=torch.bool, device="cuda")
+        v_blind[cu[-1]:] = True  # padding rows
+        for seg, n_k in enumerate(EDGE[1]):
+            if n_k == 0:
+                v_blind[cu[seg]:cu[seg + 1]] = True
+        fq, fk, fvv, fdo = (_heads(x) for x in _flashmask_inputs(
+            2, 200, 136, 2, d, f16, seed=73))
+        fplan = fv.flashmask_plan(_fm_edge_startend(2, 2, 200, 136, seed=7),
+                                  2, True)
+        f_out, f_lse = fv.flashmask_fwd(fq, fk, fvv, fplan, sc)
+        f_blind = torch.cat([~fv.flashmask_mask(fplan.select(i), 1, 200,
+                                                136).any(-1)
+                             for i in range(4)])
+        ratios = []
+        for do_scale in FP16_DO_SCALES:
+            ido = (do * do_scale, vdo * do_scale, fdo * do_scale)
+            delta = fa.attention_delta(ido[0], out)
+            ratios.append(_hold_dq(
+                f"fp16 dq fixed d {d} dO x {do_scale:g}",
+                fa.flash_bwd_dq(q, k, v, ido[0], lse, delta, *args),
+                fa.flash_bwd_dq_plain(*fp32_inputs(q, k, v, ido[0]), lse,
+                                      delta, *args),
+                fixed_blind))
+            v_delta = fv.varlen_delta(ido[1], v_out)
+            ratios.append(_hold_dq(
+                f"fp16 dq varlen d {d} dO x {do_scale:g}",
+                fv.varlen_bwd_dq(vq, vk, vv, ido[1], v_lse, v_delta, vplan,
+                                 sc),
+                fv.varlen_bwd_dq_plain(*fp32_inputs(vq, vk, vv, ido[1]),
+                                       v_lse, v_delta, vplan, sc),
+                v_blind))
+            fdelta = fa.attention_delta(ido[2], f_out)
+            got = fv.flashmask_bwd_dq(fq, fk, fvv, ido[2], f_lse, fdelta,
+                                      fplan, sc)
+            f32 = fp32_inputs(fq, fk, fvv, ido[2])
+            want = torch.cat([fv.flashmask_bwd_dq_plain(
+                *(t[i:i + 1] for t in f32), f_lse[i:i + 1],
+                fdelta[i:i + 1], fplan.select(i), sc) for i in range(4)])
+            ratios.append(_hold_dq(f"fp16 dq flashmask d {d} dO x "
+                                   f"{do_scale:g}", got, want, f_blind))
+        print(f"fp16 dQ d {d}, fixed / varlen / flashmask at dO x "
+              f"{' / '.join(f'{x:g}' for x in FP16_DO_SCALES)}: of the "
+              f"limit {' '.join(f'{r:.3g}' for r in ratios)}; rows that see "
+              f"no key ({int(fixed_blind.sum())} / {int(v_blind.sum())} / "
+              f"{int(f_blind.sum())}) dq exactly 0")
+    torch.cuda.synchronize()
+    dq_growth_check()
+
+
+# the span, in powers of two, over which dq_growth_check's rows of v grow
+# along the keys: every row's largest |dS| grows by more than 2^20 over its
+# key tiles
+GROWTH_BITS = 26
+
+
+def dq_growth_check():
+    """fp16 dQ where each query row's largest |dS| grows by more than 2^20
+    from its first 64-key tile to its last (not causal; q = 0, so every
+    key gets the same p; v's rows in +- pairs, so that O and delta lie
+    near 0, growing by 2^GROWTH_BITS along the keys, so that
+    dS = p (dP - delta) scale grows with them): the kernel's per-row power
+    of two falls tile by tile and the dQ rows summed so far are rescaled
+    with it; at head_dim 64, 256 and 512, against the plain version's fp32
+    result with ``limit``. (Scores rising along the keys would grow dS as
+    well, but recomputing large scores moves p by 1e-5 of itself, which
+    that construction amplifies past the limit in any kernel:
+    ``tests/test_torch_fp16_split.py``.)"""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    bh, sq, sk = 2, 128, 1024
+    for d in (64, 256, 512):
+        sc = 1.0 / math.sqrt(d)
+        gen = torch.Generator(device="cuda").manual_seed(74)
+        k, v, do = (torch.randn(bh, n, d, generator=gen, device="cuda")
+                    for n in (sk, sk, sq))
+        v[:, 1::2] = -v[:, 0::2]
+        pos = torch.arange(sk, device="cuda") // 2 * 2 / sk
+        v = v * (2.0 ** (GROWTH_BITS * (pos - 0.5)))[None, :, None]
+        q = torch.zeros(bh, sq, d, device="cuda")
+        q, k, v, do = (t.half() for t in (q, k, v, do))
+        args = (False, sc, sk, sk - sq)
+        out, lse = fa.flash_fwd(q, k, v, *args)
+        delta = fa.attention_delta(do, out)
+        mask = fa._mask(sq, sk, False, sk, sk - sq, "cuda")
+        _, ds = fa._p_ds(q, k, v, do, lse, delta, mask, sc)
+        tile_max = ds.abs().view(bh, sq, sk // 64, 64).amax(-1)
+        growth = (tile_max[..., -1] / tile_max[..., 0]).log2().min().item()
+        check(growth > 20, f"dS grows by 2^{growth:.3g} along a row, want "
+              f"more than 2^20")
+        ratio = _hold_dq(f"fp16 dq growth d {d}",
+                         fa.flash_bwd_dq(q, k, v, do, lse, delta, *args),
+                         fa.flash_bwd_dq_plain(*fp32_inputs(q, k, v, do),
+                                               lse, delta, *args))
+        print(f"fp16 dQ, |dS| growing by at least 2^{growth:.3g} along each "
+              f"row, d {d}: {ratio:.3g} of the limit")
+
+
 def head_dim_256_checks():
     """head_dim 256 and 160 (run at 256 with zero columns), fp32, bf16 and
-    fp16 (bf16 on the tensor cores, two warpgroups a block, fp16 the same
-    but for dQ; fp32 and fp16 dQ on the FMA kernels at 256, whose backward
-    works on 32-row halves of its 64-row tiles),
+    fp16 (bf16 and fp16 on the tensor cores, two warpgroups a block; fp32
+    on the FMA kernels at 256, whose backward works on 32-row halves of
+    its 64-row tiles),
     the three masks, forward and backward, against the plain versions with
     ``limit``; the fixed-length mask at sq > sk causal (rows that see no
     key) and sq < sk."""
@@ -1163,7 +1314,7 @@ def head_dim_256_checks():
 def head_dims_above_256_checks():
     """head_dim 288 (run at 512 with zero columns) and 512, fp32, bf16 and
     fp16 (each kernel's 256 form split over two 256-column chunks: bf16
-    on the tensor cores, fp16 too but for dQ, fp32 on the FMA kernels), the
+    and fp16 on the tensor cores, fp32 on the FMA kernels), the
     three masks, forward and backward, against the plain versions with
     ``limit``; the fixed-length mask at sq > sk causal and sq < sk."""
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
@@ -1409,6 +1560,7 @@ def kernel_checks():
         tensor_core_edges(dtype)
     repairs()
     fp16_path_checks()
+    fp16_dq_checks()
     head_dim_256_checks()
     head_dims_above_256_checks()
     many_heads_checks()
@@ -1731,20 +1883,20 @@ def fixed_timings(b, h, s, d, seed, dtype=torch.bfloat16):
 # place of gpt2-medium's 16 x 64, over the same tokens per mask
 D256_HEADS = 16
 # shared memory a block at head_dim 256, as the launchers size it. The
-# tensor-core kernels (flash_common.cuh WideSmem; bf16, and fp16 for the
-# forward and dK/dV): seven 64 x 256 tiles of 2-byte elements, 1024 bytes
-# of alignment, 15 mbarriers, 32 bytes of thread 0's ring state and 1 KB
-# of dK/dV's lse and delta rows. The FMA kernels (fp32, and fp16 for dQ;
-# flash_common.cuh: 64-row tiles of D + 1 floats, score tiles of 65; the
+# tensor-core kernels (flash_common.cuh WideSmem; bf16 and fp16): seven
+# 64 x 256 tiles of 2-byte elements, 1024 bytes of alignment, 15
+# mbarriers, 32 bytes of thread 0's ring state and 1 KB of dK/dV's lse and
+# delta rows. The FMA kernels (fp32; flash_common.cuh: 64-row tiles of
+# D + 1 floats, score tiles of 65; the
 # backward in 32-row passes): the forward's Q, K, V tiles and P; dQ: 32
 # rows of Q and dO, 64 of K and V, 32 x 65 dS, 32 lse and delta; dK/dV: 32
 # rows of K and V, 64 of Q and dO, 64 x 33 P and dS, 64 lse and delta
 _WIDE_SMEM = 1024 + 7 * 64 * 256 * 2 + 8 * 15 + 32 + 4 * 256
 D256_SMEM = {"flash_fwd bf16/fp16": _WIDE_SMEM,
-             "flash_bwd_dq bf16": _WIDE_SMEM,
+             "flash_bwd_dq bf16/fp16": _WIDE_SMEM,
              "flash_bwd_dkv bf16/fp16": _WIDE_SMEM,
              "flash_fwd fp32": 4 * (3 * 64 * 257 + 64 * 65),
-             "flash_bwd_dq fp32/fp16": 4 * (2 * 32 * 257 + 2 * 64 * 257
+             "flash_bwd_dq fp32": 4 * (2 * 32 * 257 + 2 * 64 * 257
                                             + 32 * 65 + 2 * 32),
              "flash_bwd_dkv fp32": 4 * (2 * 32 * 257 + 2 * 64 * 257
                                         + 2 * 64 * 33 + 2 * 64)}
@@ -1783,23 +1935,35 @@ def d512_timings():
                  for i in range(4))
 
 
-def fp16_timings():
-    """The kernels with fp16 io (forward and dK/dV on the tensor cores, dQ
-    on the FMA kernel): #1-#3 at the path shape (``[8, 16, 1024, 64]``,
-    causal) and at head_dim 256 (16 heads), #6-#11 at their path shapes,
-    each beside its bound, plain version and SDPA's fp16 forward and whole
-    backward. Returns (path shapes, head_dim 256), each as
-    ``d256_timings`` returns its results."""
-    print("fp16 io (forward and dK/dV on the tensor cores, dQ on the FMA "
-          "kernel) at the path shapes and at head_dim 256")
+def fp16_timings(bf16_dq):
+    """The kernels with fp16 io (all three on the tensor cores): #1-#3 at
+    the path shape (``[8, 16, 1024, 64]``, causal) and at head_dim 256 and
+    512 (16 heads), #6-#11 at their path shapes, each beside its bound,
+    plain version and SDPA's fp16 forward and whole backward; then each
+    fp16 dQ time beside bf16's at the same shape (``bf16_dq``: label ->
+    ms, from the bf16 timings of this run). Returns (path shapes, head_dim
+    256, head_dim 512), each as ``d256_timings`` returns its results."""
+    print("fp16 io (all three kernels on the tensor cores) at the path "
+          "shapes and at head_dim 256 and 512")
     path = [fixed_timings(BATCH, HEADS, SEQ, HEAD_DIM, seed=66,
                           dtype=torch.float16),
             varlen_timings(HEADS, HEAD_DIM, seed=68, dtype=torch.float16),
             flashmask_timings(HEADS, HEAD_DIM, seed=69, dtype=torch.float16)]
-    wide = fixed_timings(BATCH, D256_HEADS, SEQ, 256, seed=70,
+    d256 = fixed_timings(BATCH, D256_HEADS, SEQ, 256, seed=70,
                          dtype=torch.float16)
-    return (tuple({k: v for r in path for k, v in r[i].items()}
-                  for i in range(4)), wide)
+    d512 = fixed_timings(BATCH, D256_HEADS, SEQ, 512, seed=75,
+                         dtype=torch.float16)
+    path = tuple({k: v for r in path for k, v in r[i].items()}
+                 for i in range(4))
+    fp16_dq = {"#3 dq, path shape": path[0]["flash_bwd_dq"],
+               "#8 varlen dq, path shape": path[0]["varlen_bwd_dq"],
+               "#11 flashmask dq, path shape": path[0]["flashmask_bwd_dq"],
+               "#3 dq, head_dim 256": d256[0]["flash_bwd_dq"],
+               "#3 dq, head_dim 512": d512[0]["flash_bwd_dq"]}
+    for label, ms in fp16_dq.items():
+        print(f"fp16 {label}: {ms:.4f} ms, bf16 {bf16_dq[label]:.4f} ms, "
+              f"{ms / bf16_dq[label]:.3f}x")
+    return path, d256, d512
 
 
 # the public-entry runs: [batch, seq, heads, head_dim] and io type; head_dim
@@ -1828,9 +1992,9 @@ def entry_path(b, s, h, d, dtype):
     the forward ran ``flash_fwd_hopper`` of the io type and no
     ``flash_fwd_kernel``, and the backward ``flash_bwd_dkv_hopper`` of the
     io type and no ``flash_bwd_dkv_kernel``, and dQ on
-    ``flash_bwd_dq_hopper`` (bf16) or the FMA ``flash_bwd_dq_kernel``
-    (fp16), and times the forward and forward + backward (the bf16 run at
-    256 beside ``D256_ENTRY_FMA_MS``)."""
+    ``flash_bwd_dq_hopper`` of the io type and no ``flash_bwd_dq_kernel``,
+    and times the forward and forward + backward (the bf16 run at 256
+    beside ``D256_ENTRY_FMA_MS``)."""
     import paddle_tpu_torch.nn.functional as PF
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from torch.profiler import ProfilerActivity, profile
@@ -1893,16 +2057,11 @@ def entry_path(b, s, h, d, dtype):
         torch.cuda.synchronize()
     names = sorted({e.key for e in prof.key_averages() if "flash" in e.key})
     print(f"profiled backward, kernels: {names}")
-    # fp16 dQ still runs the FMA kernel
-    want = {"flash_bwd_dkv": "hopper",
-            "flash_bwd_dq": "kernel" if dtype == torch.float16 else "hopper"}
-    for kernel, form in want.items():
-        other = "kernel" if form == "hopper" else "hopper"
-        check(any(f"{kernel}_{form}" in n and (form == "kernel" or io in n)
-                  for n in names)
-              and not any(f"{kernel}_{other}" in n for n in names),
-              f"the entry's backward ran {names}, want {kernel}_{form} "
-              f"({io}) and no {kernel}_{other}")
+    for kernel in ("flash_bwd_dkv", "flash_bwd_dq"):
+        check(any(f"{kernel}_hopper" in n and io in n for n in names)
+              and not any(f"{kernel}_kernel" in n for n in names),
+              f"the entry's backward ran {names}, want {kernel}_hopper "
+              f"({io}) and no {kernel}_kernel")
     with torch.no_grad():
         fwd_ms = cuda_ms(lambda: PF.flash_attention(q, k, v, causal=True),
                          10)
@@ -2092,20 +2251,35 @@ def eager_path(smi, compiled_ms):
     phase("10 eager path")
     small_eager_check()
     torch.cuda.empty_cache()
-    bf16_ms = eager_gpt(smi, compiled_ms, "bfloat16")
-    torch.cuda.empty_cache()
-    fp16_ms = eager_gpt(smi, compiled_ms, "float16")
+    runs = {}
+    for dtype in ("bfloat16", "float16"):
+        torch.cuda.empty_cache()
+        runs[dtype] = eager_gpt(smi, compiled_ms, dtype)
+    attention = "flash attention (port)"
+    for dtype, (med_ms, prof, _) in runs.items():
+        if prof is None:
+            continue
+        att = prof["groups"].get(attention, 0.0)
+        print(f"eager {dtype}: {med_ms:.2f} ms/step, device busy "
+              f"{prof['busy']:.1f} ms, idle share {prof['idle']:.3f}, "
+              f"attention {att:.2f} ms ({att / prof['busy']:.1%} of busy)")
+    bf16_ms, fp16_ms = runs["bfloat16"][0], runs["float16"][0]
+    unscale_ms = runs["float16"][2]
     print(f"eager gpt2-medium O1: fp16 with GradScaler {fp16_ms:.2f} ms/step "
           f"({BATCH * SEQ / (fp16_ms / 1e3):.1f} tokens/s) against bf16 "
           f"{bf16_ms:.2f} ms/step ({BATCH * SEQ / (bf16_ms / 1e3):.1f} "
-          f"tokens/s), {fp16_ms / bf16_ms:.3f}x, on {smi}")
+          f"tokens/s), {fp16_ms / bf16_ms:.3f}x; fp16's GradScaler.unscale_ "
+          f"alone {unscale_ms:.2f} ms ({unscale_ms / fp16_ms:.1%} of its "
+          f"step), on {smi}")
 
 
 def eager_gpt(smi, compiled_ms, dtype):
     """One eager gpt2-medium run of ``eager_path`` under O1 ``dtype``
     ("bfloat16", or "float16" with a ``GradScaler``): checks its launches,
-    losses and memory, prints its steps, profiles one and returns the
-    median ms/step."""
+    losses and memory, prints its steps and profiles one. With the scaler,
+    one more step times ``GradScaler.unscale_`` alone (the card drained
+    before and after it): one host read per parameter. Returns the median
+    ms/step, ``profile_step``'s summary and that time (None for bf16)."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.models import gpt
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
@@ -2173,9 +2347,30 @@ def eager_gpt(smi, compiled_ms, dtype):
           f"(phase 5, bf16 params, remat) {compiled_ms:.2f} ms, "
           f"{med_ms / compiled_ms:.3f}x")
     check(peak < DEVICE_BYTES, f"peak memory {peak} >= {DEVICE_BYTES}")
-    profile_step(lambda *_: _eager_step(paddle, model, crit, opt, x, y, dtype,
-                                        scaler), None, None, None, med_ms)
-    return med_ms
+    prof = profile_step(lambda *_: _eager_step(paddle, model, crit, opt, x, y,
+                                               dtype, scaler),
+                        None, None, None, med_ms)
+    if scaler is None:
+        return med_ms, prof, None
+    unscale = scaler.unscale_
+    unscale_ms = []
+
+    def timed_unscale(optimizer):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        unscale(optimizer)
+        torch.cuda.synchronize()
+        unscale_ms.append((time.perf_counter() - t0) * 1e3)
+
+    scaler.unscale_ = timed_unscale
+    _eager_step(paddle, model, crit, opt, x, y, dtype, scaler)
+    torch.cuda.synchronize()
+    scaler.unscale_ = unscale
+    n_grads = sum(1 for _ in opt._all_params())
+    print(f"GradScaler.unscale_ alone: {unscale_ms[0]:.2f} ms over {n_grads} "
+          f"parameters (one isfinite read to the host each), "
+          f"{unscale_ms[0] / med_ms:.1%} of the {med_ms:.2f} ms median step")
+    return med_ms, prof, unscale_ms[0]
 
 
 def _vision_group(name: str) -> str:
@@ -2222,7 +2417,9 @@ def profile_step(step, state, tokens, labels, step_ms, group=None):
     kernel group, and the device's idle share of ``step_ms`` (the median
     step without the profiler, whose own cost inflates the traced step's
     wall time). A breakdown, not a check: the launches it makes come after
-    the counts were read."""
+    the counts were read. Returns the device busy ms, the idle share and
+    the ms of each kernel group (None if the profiler saw no device
+    time)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2240,9 +2437,10 @@ def profile_step(step, state, tokens, labels, step_ms, group=None):
     total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if total_ms <= 0:
         print("profile: the profiler saw no device time")
-        return
+        return None
+    idle = max(0.0, 1 - total_ms / step_ms)
     print(f"profile of one step: device busy {total_ms:.1f} ms; idle share "
-          f"{max(0.0, 1 - total_ms / step_ms):.3f} of the {step_ms:.1f} ms "
+          f"{idle:.3f} of the {step_ms:.1f} ms "
           f"median step (traced step wall {wall_ms:.1f} ms, profiler on)")
     phase_ms = {}
     for name in PHASES:
@@ -2262,6 +2460,7 @@ def profile_step(step, state, tokens, labels, step_ms, group=None):
     for e in top:
         print(f"  top: {e.self_device_time_total / 1e3:8.2f} ms "
               f"x{e.count:<5d} {e.key[:110]}")
+    return {"busy": total_ms, "idle": idle, "groups": groups}
 
 
 def _all_launches():
@@ -3144,7 +3343,12 @@ def main() -> int:
     with watchdog("phase 4 (head_dim 512 timings)", 300):
         d512 = d512_timings()
     with watchdog("phase 4 (fp16 timings)", 300):
-        fp16, fp16_d256 = fp16_timings()
+        fp16, fp16_d256, fp16_d512 = fp16_timings({
+            "#3 dq, path shape": ms["flash_bwd_dq"],
+            "#8 varlen dq, path shape": ms["varlen_bwd_dq"],
+            "#11 flashmask dq, path shape": ms["flashmask_bwd_dq"],
+            "#3 dq, head_dim 256": d256[0]["flash_bwd_dq"],
+            "#3 dq, head_dim 512": d512[0]["flash_bwd_dq"]})
     with watchdog("phase 4b (the public entry)", 300):
         entry_paths()
     torch.cuda.empty_cache()
@@ -3171,7 +3375,8 @@ def main() -> int:
     phase("13 results")
     for label, (d_ms, d_plain, d_lib, d_bnd) in (
             ("head_dim 256", d256), ("head_dim 512", d512),
-            ("fp16 head_dim 64", fp16), ("fp16 head_dim 256", fp16_d256)):
+            ("fp16 head_dim 64", fp16), ("fp16 head_dim 256", fp16_d256),
+            ("fp16 head_dim 512", fp16_d512)):
         for kname in d_ms:
             lib = d_lib[kname]
             print(f"{label} {kname}: {d_ms[kname]:.4f} ms, plain "

@@ -179,8 +179,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int k0 = kt * BK; k0 < min(kt * BK + BK, lay.sk); k0 += KR) {
     if (!SPLIT) {
       __syncthreads();  // the last pass's reads of Ks and Vs are done
-      load_tile<float, KR, D>(Ks, kb, k0, lay.sk, lay.k_rs);
-      load_tile<float, KR, D>(Vs, vb, k0, lay.sk, lay.k_rs);
+      load_tile<KR, D>(Ks, kb, k0, lay.sk, lay.k_rs);
+      load_tile<KR, D>(Vs, vb, k0, lay.sk, lay.k_rs);
     }
 
     float dk_acc[KI][DJ], dv_acc[KI][DJ];
@@ -209,11 +209,11 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int cc = SPLIT ? (cz + n) % nch : 0;
         __syncthreads();  // the last reads of Ks, Vs, Qs, dOs, Ps and dSs are done
         if (SPLIT) {
-          load_tile<float, KR, D>(Ks, kb + cc * D, k0, lay.sk, lay.k_rs);
-          load_tile<float, KR, D>(Vs, vb + cc * D, k0, lay.sk, lay.k_rs);
+          load_tile<KR, D>(Ks, kb + cc * D, k0, lay.sk, lay.k_rs);
+          load_tile<KR, D>(Vs, vb + cc * D, k0, lay.sk, lay.k_rs);
         }
-        load_tile<float, BQ, D>(Qs, qb + cc * D, q0, lay.sq, lay.q_rs);
-        load_tile<float, BQ, D>(dOs, dob + cc * D, q0, lay.sq, lay.q_rs);
+        load_tile<BQ, D>(Qs, qb + cc * D, q0, lay.sq, lay.q_rs);
+        load_tile<BQ, D>(dOs, dob + cc * D, q0, lay.sq, lay.q_rs);
         if (n == 1) {
           load_rowvec(Ls, lb, q0, lay.sq, BQ);
           load_rowvec(Dl, db, q0, lay.sq, BQ);
@@ -345,42 +345,6 @@ __device__ __forceinline__ void dkv_p_ds_tile(const Mask& mask, int i, const Row
       }
     }
 }
-
-// fp16 io: scales key rows r and r + 8 of dS^T (`dpt`) by a power of two
-// each (`mul`, kept over the query tiles and only ever lowered), so that a
-// row's largest |dS| lies in [2^14, 2^15) when it is first reached: the
-// hi/lo split then keeps 22 bits of it. When a row's power falls, the dK
-// rows already summed in `acc` fall by the same ratio (exact: powers of
-// two); the epilogue divides by `mul`.
-template <int N>
-__device__ __forceinline__ void ds_rows(float (&dpt)[32], float (&mul)[2], float (&acc)[N]) {
-  float mx[2] = {0.f, 0.f};
-#pragma unroll
-  for (int x = 0; x < 32; ++x) mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], fabsf(dpt[x]));
-  float ratio[2];
-#pragma unroll
-  for (int h2 = 0; h2 < 2; ++h2) {
-    // 2^(14 - floor(log2 max)), at most 2^100 (a row of zeros keeps its power)
-    const int e = min(14 - ((__float_as_int(quad_max(mx[h2])) >> 23) - 127), 100);
-    const float want = __int_as_float((127 + e) << 23);
-    ratio[h2] = want < mul[h2] ? want / mul[h2] : 1.f;
-    mul[h2] = fminf(mul[h2], want);
-  }
-  if (ratio[0] != 1.f || ratio[1] != 1.f) {
-#pragma unroll
-    for (int j = 0; j < N / 4; ++j)
-#pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        acc[4 * j + 2 * h2] *= ratio[h2];
-        acc[4 * j + 2 * h2 + 1] *= ratio[h2];
-      }
-  }
-#pragma unroll
-  for (int x = 0; x < 32; ++x) dpt[x] *= mul[(x >> 1) & 1];
-}
-
-// The largest power ds_rows starts from.
-constexpr float DS_MUL_MAX = 0x1p100f;
 
 // The one-warpgroup form (head_dim 32, 64, 128), io type T.
 template <int D, typename T, typename Mask>

@@ -1,12 +1,13 @@
 // Flash-attention backward, dQ, for Hopper (sm_90a): fixed-length causal
 // batches, packed variable-length sequences and flashmask (start/end row)
 // masks, two kernels templated on the mask: a tensor-core kernel for bf16
-// io (`flash_bwd_dq_hopper`) and an fp32 FMA kernel for float and fp16 io
-// (`flash_bwd_dq_kernel`). `dq_any` picks one by the io type. The bf16
-// kernel has two forms: head_dim 32, 64 and 128 (one warpgroup, 64 query
-// rows a block) and head_dim 256 (two warpgroups, 128 rows a block,
-// `dq_wide`); a head_dim above 256 (a multiple of 256: the wrappers pad to
-// it) runs either kernel's 256 form split over it (SPLIT): one block per
+// and fp16 io (`flash_bwd_dq_hopper`, templated on the 2-byte io type too)
+// and an fp32 FMA kernel for float io (`flash_bwd_dq_kernel`). `dq_any`
+// picks one by the io type. The tensor-core kernel has two forms: head_dim
+// 32, 64 and 128 (one warpgroup, 64 query rows a block) and head_dim 256
+// (two warpgroups, 128 rows a block, `dq_wide`); a head_dim above 256 (a
+// multiple of 256: the wrappers pad to it) runs either kernel's 256 form
+// split over it (SPLIT): one block per
 // 256-column chunk of dQ, S and dP over the whole head_dim recomputed by
 // every chunk's block.
 //
@@ -35,8 +36,8 @@
 // Splitting dQ from dK/dV (as the TPU kernel does) costs a second
 // recompute of s and dP but needs no atomics.
 //
-// The bf16 kernel (`flash_bwd_dq_hopper`), one block per (head, 64-row
-// query tile), one warpgroup (128 threads), four blocks an SM below
+// The tensor-core kernel (`flash_bwd_dq_hopper`), one block per (head,
+// 64-row query tile), one warpgroup (128 threads), four blocks an SM below
 // D = 128 (at most 128 registers a thread), two at 128.
 // - Thread 0 loads the Q and dO tiles by TMA and streams K and V tiles
 //   through a ring of STAGES shared-memory stages, each signalled on a
@@ -55,19 +56,29 @@
 //   delta it reads once. Tiles the mask keeps whole skip the mask.
 // - dQ += dS K takes dS from registers, packed in the accumulator's own
 //   order (as the forward packs P), and K as the MN-major operand (the
-//   transpose bit), as the forward reads V. dS is split into two bf16
-//   parts, hi = bf16(dS) and lo = bf16(dS - hi), each a product into the
+//   transpose bit), as the forward reads V. dS is split into two parts of
+//   the io type, hi = T(dS) and lo = T(dS - hi), each a product into the
 //   same fp32 accumulator: rounding dS once to bf16 would leave each term
 //   off by up to 2^-9 of itself, which summed over a thousand keys is
 //   several times the card tests' limit on elements near 0; hi + lo keeps
 //   about 2^-17. So the kernel runs 4 products a tile where the TPU's runs
 //   3, and holds the reference's fp32 dS.
+// - fp16 io: the same design and products (f16 operands, same rate). One
+//   fp16 rounding of dS misses the fp16 limit (8x tighter) as bf16's misses
+//   its own, so the split stays; but below 2^-14 fp16 is subnormal and
+//   hi + lo then keeps only an absolute 2^-25. So each query row of dS is
+//   scaled by a power of two of its own that puts the row's largest |dS|
+//   in [2^14, 2^15) (`ds_rows`, shared with dK/dV: dS follows dO's scale,
+//   2^-12 and 2^8 of unit scale alike under a loss scaler), lowered as
+//   larger values come and the dQ rows summed so far rescaled with it; the
+//   epilogue divides it out, exactly. dQ reads no P, so nothing else is
+//   scaled.
 // The FMA kernel (`flash_bwd_dq_kernel`), 256 threads: products as fp32
-// FMAs from shared memory, for the fp32 and fp16 models and checks, at
+// FMAs from shared memory, for the fp32 models and checks, at
 // head_dim 256 in two 32-row passes (DqFma) and, split over the head_dim
 // in 256-column chunks of dQ (SPLIT), above it.
 //
-// The bf16 kernel at head_dim 256 (`dq_wide`), one block per (head,
+// The tensor-core kernel at head_dim 256 (`dq_wide`), one block per (head,
 // 128-row query block, 256-column chunk of dQ), 256 threads: two consumer
 // warpgroups, one per 64-row query tile, the forward's `fwd_wide` shape.
 // What bounds it at the fixed-length shape (BH = 128, S = 1024, D = 256,
@@ -94,10 +105,10 @@
 //   each per chunk), then dQ += dS K as 4 m64n256k16 for hi and 4 for lo,
 //   K MN-major.
 //
-// Grid: FMA (ceil(Sq / 64), heads, head_dim / 256 above 256); bf16 below
-// 256 the same for the fixed-length mask and (heads, ceil(Sq / 64)) for
-// the varlen and flashmask masks, the query tiles last to first (the
-// longest first under a causal mask); bf16 at 256 and above
+// Grid: FMA (ceil(Sq / 64), heads, head_dim / 256 above 256); tensor cores
+// below 256 the same for the fixed-length mask and (heads, ceil(Sq / 64))
+// for the varlen and flashmask masks, the query tiles last to first (the
+// longest first under a causal mask); tensor cores at 256 and above
 // (ceil(Sq / 128) * chunks, heads) or (heads, ceil(Sq / 128) * chunks), the
 // chunk varying fastest; at most 65535 heads a launch (by_head_slices).
 #include "flash_common.cuh"
@@ -125,15 +136,15 @@ struct DqFma {
 // S and dP still take the whole head_dim: for each key tile the block
 // streams Q, dO, K and V through their tiles chunk by chunk, its own chunk
 // last, so that Ks holds the chunk of K that dQ's product reads.
-template <typename T, int D, typename Mask, bool SPLIT = false>
+template <int D, typename Mask, bool SPLIT = false>
 // Shared memory allows two blocks per SM at head_dim <= 64 (one at 128 and
 // 256): saying so keeps ptxas from squeezing the kernel into 64 registers
 // with spills to reach an occupancy the shared memory rules out.
 __global__ void __launch_bounds__(NT, D > 128 ? 1 : 2)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, Layout lay,
-                    Mask heads_mask, float scale) {
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, Layout lay, Mask heads_mask, float scale) {
   constexpr int LD = D + 1;
   constexpr int DJ = D / 16;
   constexpr int RI = DqFma<D>::RI, QR = DqFma<D>::QR;
@@ -152,17 +163,17 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int qt = blockIdx.x;
   const int cz = SPLIT ? blockIdx.z : 0;  // the output chunk
   const int nch = SPLIT ? gridDim.z : 1;
-  const T* qb = q + h * lay.q_hs;
-  const T* dob = dout + h * lay.q_hs;
-  const T* kb = k + h * lay.k_hs;
-  const T* vb = v + h * lay.k_hs;
+  const float* qb = q + h * lay.q_hs;
+  const float* dob = dout + h * lay.q_hs;
+  const float* kb = k + h * lay.k_hs;
+  const float* vb = v + h * lay.k_hs;
   const int2 tiles = mask.key_tiles(qt);
 
   for (int q0 = qt * BQ; q0 < min(qt * BQ + BQ, lay.sq); q0 += QR) {
     __syncthreads();  // the last pass's reads of Qs, dOs, Ls and Dl are done
     if (!SPLIT) {
-      load_tile<T, QR, D>(Qs, qb, q0, lay.sq, lay.q_rs);
-      load_tile<T, QR, D>(dOs, dob, q0, lay.sq, lay.q_rs);
+      load_tile<QR, D>(Qs, qb, q0, lay.sq, lay.q_rs);
+      load_tile<QR, D>(dOs, dob, q0, lay.sq, lay.q_rs);
     }
     load_rowvec(Ls, lse + (size_t)h * lay.sq, q0, lay.sq, QR);
     load_rowvec(Dl, delta + (size_t)h * lay.sq, q0, lay.sq, QR);
@@ -193,11 +204,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         const int cc = SPLIT ? (cz + n) % nch : 0;
         __syncthreads();  // the last reads of Qs, dOs, Ks, Vs and dSs are done
         if (SPLIT) {
-          load_tile<T, QR, D>(Qs, qb + cc * D, q0, lay.sq, lay.q_rs);
-          load_tile<T, QR, D>(dOs, dob + cc * D, q0, lay.sq, lay.q_rs);
+          load_tile<QR, D>(Qs, qb + cc * D, q0, lay.sq, lay.q_rs);
+          load_tile<QR, D>(dOs, dob + cc * D, q0, lay.sq, lay.q_rs);
         }
-        load_tile<T, BK, D>(Ks, kb + cc * D, k0, lay.sk, lay.k_rs);
-        load_tile<T, BK, D>(Vs, vb + cc * D, k0, lay.sk, lay.k_rs);
+        load_tile<BK, D>(Ks, kb + cc * D, k0, lay.sk, lay.k_rs);
+        load_tile<BK, D>(Vs, vb + cc * D, k0, lay.sk, lay.k_rs);
         __syncthreads();
 #pragma unroll 4
         for (int d = 0; d < D; ++d) {
@@ -253,16 +264,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     for (int i = 0; i < RI; ++i) {
       const int qp = q0 + ty + 16 * i;
       if (qp >= lay.sq) continue;
-      T* row = dq + h * lay.q_hs + qp * lay.q_rs + cz * D;
+      float* row = dq + h * lay.q_hs + qp * lay.q_rs + cz * D;
 #pragma unroll
-      for (int c = 0; c < DJ; ++c) row[tx + 16 * c] = from_f<T>(dq_acc[i][c]);
+      for (int c = 0; c < DJ; ++c) row[tx + 16 * c] = dq_acc[i][c];
     }
   }
 }
 
-// ------------------------------------------------ the bf16 tensor-core kernel
+// ------------------------------------------ the bf16 and fp16 tensor-core kernel
 
-// The bf16 kernel's shared memory: the Q and dO tiles, then STAGES (K, V)
+// The tensor-core kernel's shared memory: the Q and dO tiles, then STAGES (K, V)
 // stages, then the mbarriers (1024 bytes of slack to align the tiles).
 template <int D>
 struct DqRing {
@@ -297,13 +308,13 @@ __device__ __forceinline__ void dq_ds_tile(const Mask& mask, int j, const RowInf
     }
 }
 
-// The one-warpgroup form (head_dim 32, 64, 128).
-template <int D, typename Mask>
+// The one-warpgroup form (head_dim 32, 64, 128), io type T.
+template <int D, typename T, typename Mask>
 __device__ __forceinline__ void dq_narrow(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                                           const CUtensorMap& tm_v, const CUtensorMap& tm_do,
                                           const float* __restrict__ lse,
                                           const float* __restrict__ delta,
-                                          __nv_bfloat16* __restrict__ dq, const Layout& lay,
+                                          T* __restrict__ dq, const Layout& lay,
                                           const Mask& heads_mask, float scale, int packed,
                                           int tiles_x) {
   using Tile = HopTile<D>;
@@ -375,6 +386,7 @@ __device__ __forceinline__ void dq_narrow(const CUtensorMap& tm_q, const CUtenso
     lse2[h2] = qp < lay.sq ? lse[(size_t)h * lay.sq + qp] * LOG2E : 0.f;
     dl[h2] = qp < lay.sq ? delta[(size_t)h * lay.sq + qp] : 0.f;
   }
+  float ds_mul[2] = {DS_MUL_MAX, DS_MUL_MAX};  // fp16: ds_rows' powers
 
   mbar_wait(q_full, 0);
   int it = 0;
@@ -389,8 +401,8 @@ __device__ __forceinline__ void dq_narrow(const CUtensorMap& tm_q, const CUtenso
     fence_regs(sc);
     fence_regs(dp);
     wgmma_fence();
-    wgmma_nt<D>(sc, q_addr, k_addr(s));                 // S = Q K^T
-    wgmma_nt<D>(dp, do_addr, k_addr(s) + Tile::BYTES);  // dP = dO V^T
+    wgmma_nt<D, T>(sc, q_addr, k_addr(s));                 // S = Q K^T
+    wgmma_nt<D, T>(dp, do_addr, k_addr(s) + Tile::BYTES);  // dP = dO V^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -399,6 +411,7 @@ __device__ __forceinline__ void dq_narrow(const CUtensorMap& tm_q, const CUtenso
       dq_ds_tile<true>(mask, j, qi, cq, scale, lse2, dl, sc, dp);
     else
       dq_ds_tile<false>(mask, j, qi, cq, scale, lse2, dl, sc, dp);
+    if constexpr (pt_hopper::is_f16<T>) ds_rows(sc, ds_mul, acc);
     // dS as the A operand, hi and lo parts: its k-th 16 keys are values
     // 8k .. 8k + 7
     uint32_t ah[4][4], al[4][4];
@@ -406,13 +419,13 @@ __device__ __forceinline__ void dq_narrow(const CUtensorMap& tm_q, const CUtenso
     for (int k = 0; k < 4; ++k)
 #pragma unroll
       for (int x = 0; x < 4; ++x)
-        pack_split(sc[8 * k + 2 * x], sc[8 * k + 2 * x + 1], ah[k][x], al[k][x]);
+        pack_split<T>(sc[8 * k + 2 * x], sc[8 * k + 2 * x + 1], ah[k][x], al[k][x]);
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
     for (int k = 0; k < 4; ++k) {  // dQ += dS K
-      wgmma_rs_d<D>(acc, ah[k], Tile::mn_major(k_addr(s), k));
-      wgmma_rs_d<D>(acc, al[k], Tile::mn_major(k_addr(s), k));
+      wgmma_rs_d<D, T>(acc, ah[k], Tile::mn_major(k_addr(s), k));
+      wgmma_rs_d<D, T>(acc, al[k], Tile::mn_major(k_addr(s), k));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -433,23 +446,27 @@ __device__ __forceinline__ void dq_narrow(const CUtensorMap& tm_q, const CUtenso
   for (int h2 = 0; h2 < 2; ++h2) {
     const int qp = q0 + r + 8 * h2;
     if (qp >= lay.sq) continue;
-    __nv_bfloat16* row = dq + h * lay.q_hs + (long long)qp * lay.q_rs + cq;
+    T* row = dq + h * lay.q_hs + (long long)qp * lay.q_rs + cq;
+    // fp16: the power the products were scaled by, divided out
+    float mul = 1.f;
+    if constexpr (pt_hopper::is_f16<T>) mul = 1.f / ds_mul[h2];
 #pragma unroll
     for (int jd = 0; jd < D / 8; ++jd)
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * jd) =
-          __floats2bfloat162_rn(acc[4 * jd + 2 * h2], acc[4 * jd + 2 * h2 + 1]);
+      *reinterpret_cast<uint32_t*>(row + 8 * jd) =
+          pack2<T>(acc[4 * jd + 2 * h2] * mul, acc[4 * jd + 2 * h2 + 1] * mul);
   }
 }
 
 // The head_dim-256 form: 128 query rows (two 64-row tiles, one per
 // consumer warpgroup) of head h and the 256-column chunk cz of dQ of
-// `chunks` (SPLIT; 1 otherwise). See the notes at the top of the file.
-template <typename Mask, bool SPLIT>
+// `chunks` (SPLIT; 1 otherwise), io type T. See the notes at the top of
+// the file.
+template <typename T, typename Mask, bool SPLIT>
 __device__ __forceinline__ void dq_wide(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
                                         const CUtensorMap* tm_v, const CUtensorMap* tm_do,
                                         const float* __restrict__ lse,
                                         const float* __restrict__ delta,
-                                        __nv_bfloat16* __restrict__ dq, const Layout& lay,
+                                        T* __restrict__ dq, const Layout& lay,
                                         const Mask& heads_mask, float scale, int packed,
                                         int tiles_x, int chunks) {
   using Tile = HopTile<256>;
@@ -545,6 +562,7 @@ __device__ __forceinline__ void dq_wide(const CUtensorMap* tm_q, const CUtensorM
       dl[h2] = delta[(size_t)h * lay.sq + qp];
     }
   }
+  float ds_mul[2] = {DS_MUL_MAX, DS_MUL_MAX};  // fp16: ds_rows' powers
 
   if (q_res) mbar_wait(q_full, 0);
 #pragma unroll 1
@@ -577,8 +595,8 @@ __device__ __forceinline__ void dq_wide(const CUtensorMap* tm_q, const CUtensorM
         fence_regs(sc);
         fence_regs(dp);
         wgmma_fence();
-        wgmma_nt<256>(sc, q_addr, ring.addr(ks), ci > 0);  // S += Q_c K_c^T
-        wgmma_nt<256>(dp, do_addr, ring.addr(vs), ci > 0);  // dP += dO_c V_c^T
+        wgmma_nt<256, T>(sc, q_addr, ring.addr(ks), ci > 0);  // S += Q_c K_c^T
+        wgmma_nt<256, T>(dp, do_addr, ring.addr(vs), ci > 0);  // dP += dO_c V_c^T
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(sc);
@@ -596,6 +614,7 @@ __device__ __forceinline__ void dq_wide(const CUtensorMap* tm_q, const CUtensorM
         dq_ds_tile<true>(mask, j, qi, cq, scale, lse2, dl, sc, dp);
       else
         dq_ds_tile<false>(mask, j, qi, cq, scale, lse2, dl, sc, dp);
+      if constexpr (pt_hopper::is_f16<T>) ds_rows(sc, ds_mul, acc);
       // dS as the A operand, hi and lo parts: its k-th 16 keys are values
       // 8k .. 8k + 7
       uint32_t ah[4][4], al[4][4];
@@ -603,13 +622,13 @@ __device__ __forceinline__ void dq_wide(const CUtensorMap* tm_q, const CUtensorM
       for (int k = 0; k < 4; ++k)
 #pragma unroll
         for (int x = 0; x < 4; ++x)
-          pack_split(sc[8 * k + 2 * x], sc[8 * k + 2 * x + 1], ah[k][x], al[k][x]);
+          pack_split<T>(sc[8 * k + 2 * x], sc[8 * k + 2 * x + 1], ah[k][x], al[k][x]);
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < 4; ++k) {  // dQ += dS K_cz
-        wgmma_rs_d<256>(acc, ah[k], Tile::mn_major(ring.addr(ks), k));
-        wgmma_rs_d<256>(acc, al[k], Tile::mn_major(ring.addr(ks), k));
+        wgmma_rs_d<256, T>(acc, ah[k], Tile::mn_major(ring.addr(ks), k));
+        wgmma_rs_d<256, T>(acc, al[k], Tile::mn_major(ring.addr(ks), k));
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -629,36 +648,39 @@ __device__ __forceinline__ void dq_wide(const CUtensorMap* tm_q, const CUtensorM
   for (int h2 = 0; h2 < 2; ++h2) {
     const int qp = row0 + r + 8 * h2;
     if (qp >= lay.sq) continue;
-    __nv_bfloat16* row = dq + h * lay.q_hs + (long long)qp * lay.q_rs + cz * 256 + cq;
+    T* row = dq + h * lay.q_hs + (long long)qp * lay.q_rs + cz * 256 + cq;
+    // fp16: the power the products were scaled by, divided out
+    float mul = 1.f;
+    if constexpr (pt_hopper::is_f16<T>) mul = 1.f / ds_mul[h2];
 #pragma unroll
     for (int jd = 0; jd < 32; ++jd)
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * jd) =
-          __floats2bfloat162_rn(acc[4 * jd + 2 * h2], acc[4 * jd + 2 * h2 + 1]);
+      *reinterpret_cast<uint32_t*>(row + 8 * jd) =
+          pack2<T>(acc[4 * jd + 2 * h2] * mul, acc[4 * jd + 2 * h2 + 1] * mul);
   }
 }
 
-// The bf16 tensor-core kernel: the one-warpgroup form below head_dim 256,
-// the two-warpgroup form at 256 (SPLIT: one 256-column chunk of a wider
-// head_dim, `chunks` of them).
-template <int D, typename Mask, bool SPLIT = false>
+// The tensor-core kernel, io type T (bf16 or fp16): the one-warpgroup form
+// below head_dim 256, the two-warpgroup form at 256 (SPLIT: one 256-column
+// chunk of a wider head_dim, `chunks` of them).
+template <int D, typename T, typename Mask, bool SPLIT = false>
 __global__ void __launch_bounds__(D == 256 ? WIDE_NT : HOP_CONSUMERS,
                                   D == 256 ? 1 : D == 128 ? 2 : 4)
 flash_bwd_dq_hopper(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
                     const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
-                    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, Layout lay,
+                    const float* __restrict__ delta, T* __restrict__ dq, Layout lay,
                     Mask heads_mask, float scale, int packed, int tiles_x, int chunks) {
   static_assert(D == 256 || !SPLIT, "SPLIT is the head_dim-256 form's");
   if constexpr (D == 256)
-    dq_wide<Mask, SPLIT>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dq, lay, heads_mask, scale,
-                         packed, tiles_x, chunks);
+    dq_wide<T, Mask, SPLIT>(&tm_q, &tm_k, &tm_v, &tm_do, lse, delta, dq, lay, heads_mask, scale,
+                            packed, tiles_x, chunks);
   else
-    dq_narrow<D, Mask>(tm_q, tm_k, tm_v, tm_do, lse, delta, dq, lay, heads_mask, scale, packed,
-                       tiles_x);
+    dq_narrow<D, T, Mask>(tm_q, tm_k, tm_v, tm_do, lse, delta, dq, lay, heads_mask, scale,
+                          packed, tiles_x);
 }
 
-template <int D, typename Mask>
+template <int D, typename T, typename Mask>
 cudaError_t dq_hopper(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int heads, Layout lay,
                       Mask mask, float scale, int packed, void* stream) {
@@ -671,19 +693,19 @@ cudaError_t dq_hopper(const void* q, const void* k, const void* v, const void* d
   const dim3 grid = tiles_x ? dim3(nqt, heads) : dim3(heads, nqt);
   if (heads < 1 || heads > MAX_GRID_Y || nqt < 1) return cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv, mdo;
-  int err = hop_map<D>(&mq, q, lay.sq, heads, lay.q_rs, lay.q_hs, packed);
-  if (!err) err = hop_map<D>(&mdo, dout, lay.sq, heads, lay.q_rs, lay.q_hs, packed);
-  if (!err) err = hop_map<D>(&mk, k, lay.sk, heads, lay.k_rs, lay.k_hs, packed);
-  if (!err) err = hop_map<D>(&mv, v, lay.sk, heads, lay.k_rs, lay.k_hs, packed);
+  int err = hop_map<D, T>(&mq, q, lay.sq, heads, lay.q_rs, lay.q_hs, packed);
+  if (!err) err = hop_map<D, T>(&mdo, dout, lay.sq, heads, lay.q_rs, lay.q_hs, packed);
+  if (!err) err = hop_map<D, T>(&mk, k, lay.sk, heads, lay.k_rs, lay.k_hs, packed);
+  if (!err) err = hop_map<D, T>(&mv, v, lay.sk, heads, lay.k_rs, lay.k_hs, packed);
   if (err) return (cudaError_t)err;
-  return launch_nt(flash_bwd_dq_hopper<D, Mask>, grid, HOP_CONSUMERS, DqRing<D>::SMEM, stream, mq, mk,
-                   mv, mdo, (const float*)lse, (const float*)delta, (__nv_bfloat16*)dq, lay, mask,
+  return launch_nt(flash_bwd_dq_hopper<D, T, Mask>, grid, HOP_CONSUMERS, DqRing<D>::SMEM, stream,
+                   mq, mk, mv, mdo, (const float*)lse, (const float*)delta, (T*)dq, lay, mask,
                    scale, packed, tiles_x, 1);
 }
 
 // The head_dim-256 form over `chunks` 256-column chunks of the head_dim
 // (SPLIT when more than one).
-template <typename Mask, bool SPLIT>
+template <typename T, typename Mask, bool SPLIT>
 cudaError_t dq_wide_launch(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, void* dq, int heads, Layout lay,
                            Mask mask, float scale, int packed, void* stream, int chunks) {
@@ -697,30 +719,31 @@ cudaError_t dq_wide_launch(const void* q, const void* k, const void* v, const vo
   const dim3 grid = tiles_x ? dim3((unsigned)ext, heads) : dim3(heads, (unsigned)ext);
   const int d = 256 * chunks;
   CUtensorMap mq, mk, mv, mdo;
-  int err = hop_map<256>(&mq, q, lay.sq, heads, lay.q_rs, lay.q_hs, packed, d);
-  if (!err) err = hop_map<256>(&mdo, dout, lay.sq, heads, lay.q_rs, lay.q_hs, packed, d);
-  if (!err) err = hop_map<256>(&mk, k, lay.sk, heads, lay.k_rs, lay.k_hs, packed, d);
-  if (!err) err = hop_map<256>(&mv, v, lay.sk, heads, lay.k_rs, lay.k_hs, packed, d);
+  int err = hop_map<256, T>(&mq, q, lay.sq, heads, lay.q_rs, lay.q_hs, packed, d);
+  if (!err) err = hop_map<256, T>(&mdo, dout, lay.sq, heads, lay.q_rs, lay.q_hs, packed, d);
+  if (!err) err = hop_map<256, T>(&mk, k, lay.sk, heads, lay.k_rs, lay.k_hs, packed, d);
+  if (!err) err = hop_map<256, T>(&mv, v, lay.sk, heads, lay.k_rs, lay.k_hs, packed, d);
   if (err) return (cudaError_t)err;
-  return launch_nt(flash_bwd_dq_hopper<256, Mask, SPLIT>, grid, WIDE_NT, WideSmem::SMEM, stream,
-                   mq, mk, mv, mdo, (const float*)lse, (const float*)delta, (__nv_bfloat16*)dq,
-                   lay, mask, scale, packed, tiles_x, chunks);
+  return launch_nt(flash_bwd_dq_hopper<256, T, Mask, SPLIT>, grid, WIDE_NT, WideSmem::SMEM, stream,
+                   mq, mk, mv, mdo, (const float*)lse, (const float*)delta, (T*)dq, lay, mask,
+                   scale, packed, tiles_x, chunks);
 }
 
 // ------------------------------------------------------ launch and entries
 
-// `chunks` > 1: the SPLIT kernel, one block per 256-column chunk of dQ.
-template <typename T, int D, typename Mask, bool SPLIT = false>
-cudaError_t dq_launch(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* delta, void* dq, int heads, Layout lay,
-                      Mask mask, float scale, void* stream, int chunks = 1) {
+// The FMA kernel (float io); `chunks` > 1: the SPLIT kernel, one block per
+// 256-column chunk of dQ.
+template <int D, typename Mask, bool SPLIT = false>
+cudaError_t dq_fma(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dq, int heads, Layout lay, Mask mask,
+                   float scale, void* stream, int chunks = 1) {
   const dim3 grid((lay.sq + BQ - 1) / BQ, heads, chunks);
-  return launch(flash_bwd_dq_kernel<T, D, Mask, SPLIT>, grid, DqFma<D>::SMEM, stream,
-                (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-                (const float*)delta, (T*)dq, lay, mask, scale);
+  return launch(flash_bwd_dq_kernel<D, Mask, SPLIT>, grid, DqFma<D>::SMEM, stream,
+                (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+                (const float*)lse, (const float*)delta, (float*)dq, lay, mask, scale);
 }
 
-// bf16 to the tensor-core kernel, float and fp16 to the FMA kernel (io:
+// bf16 and fp16 to the tensor-core kernel, float to the FMA kernel (io:
 // see Io), chosen by io type at every head_dim; head_dim 256 to either
 // kernel's 256 form, and a head_dim above 256 (a multiple of 256: the
 // wrappers pad to it) to the same form split over it. `packed` says the
@@ -733,26 +756,26 @@ cudaError_t dq_heads(int d, int io, const void* q, const void* k, const void* v,
   if (d >= 256) {
     if (d % 256) return cudaErrorInvalidValue;
     const int chunks = d / 256;
-    if (io == IO_BF16)
-      return chunks == 1
-                 ? dq_wide_launch<Mask, false>(q, k, v, dout, lse, delta, dq, heads, lay, mask,
-                                               scale, packed, stream, 1)
-                 : dq_wide_launch<Mask, true>(q, k, v, dout, lse, delta, dq, heads, lay, mask,
-                                              scale, packed, stream, chunks);
-    PT_FLASH_SWITCH_FMA_IO(
-        io, return chunks == 1 ? dq_launch<T, 256>(q, k, v, dout, lse, delta, dq, heads, lay,
-                                                   mask, scale, stream)
-                               : dq_launch<T, 256, Mask, true>(q, k, v, dout, lse, delta, dq,
-                                                               heads, lay, mask, scale, stream,
-                                                               chunks))
+    if (io == IO_F32)
+      return chunks == 1 ? dq_fma<256>(q, k, v, dout, lse, delta, dq, heads, lay, mask, scale,
+                                       stream)
+                         : dq_fma<256, Mask, true>(q, k, v, dout, lse, delta, dq, heads, lay,
+                                                   mask, scale, stream, chunks);
+    PT_FLASH_SWITCH_HOP_IO(
+        io, return chunks == 1
+                       ? dq_wide_launch<T, Mask, false>(q, k, v, dout, lse, delta, dq, heads, lay,
+                                                        mask, scale, packed, stream, 1)
+                       : dq_wide_launch<T, Mask, true>(q, k, v, dout, lse, delta, dq, heads, lay,
+                                                       mask, scale, packed, stream, chunks))
   }
-  if (io == IO_BF16) {
-    PT_FLASH_SWITCH_D(d, return dq_hopper<D>(q, k, v, dout, lse, delta, dq, heads, lay, mask,
-                                             scale, packed, stream))
+  if (io == IO_F32) {
+    PT_FLASH_SWITCH_D(d, return dq_fma<D>(q, k, v, dout, lse, delta, dq, heads, lay, mask,
+                                          scale, stream))
   }
-  PT_FLASH_SWITCH_D(d, PT_FLASH_SWITCH_FMA_IO(io, return dq_launch<T, D>(
-                                                      q, k, v, dout, lse, delta, dq, heads, lay,
-                                                      mask, scale, stream)))
+  PT_FLASH_SWITCH_D(d, PT_FLASH_SWITCH_HOP_IO(io, return dq_hopper<D, T>(q, k, v, dout, lse,
+                                                                         delta, dq, heads, lay,
+                                                                         mask, scale, packed,
+                                                                         stream)))
 }
 
 // dq_heads over every slice of the heads (by_head_slices).
@@ -772,8 +795,8 @@ cudaError_t dq_any(int d, int io, const void* q, const void* k, const void* v,
 
 }  // namespace pt_flash
 
-// Every entry: io 0 float, 1 bf16, 2 fp16 (pt_flash::Io); bf16 q, k, v and
-// dout start on 16-byte boundaries (their tensor maps need it; the
+// Every entry: io 0 float, 1 bf16, 2 fp16 (pt_flash::Io); bf16 and fp16 q,
+// k, v and dout start on 16-byte boundaries (their tensor maps need it; the
 // wrappers see to it); a failed tensor-map encode returns the error code
 // of libcuda, a refused launch cudaGetLastError().
 //

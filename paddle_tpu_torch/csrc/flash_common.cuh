@@ -6,9 +6,9 @@
 // `head * k_hs + row * k_rs + c`: [BH, S, D] has row stride D and head
 // stride S * D, packed [T, H, D] row stride H * D and head stride D. Rows are
 // contiguous in the io type (float, bf16 or fp16). lse and delta are float
-// [heads, Sq]. Every block of the FMA kernels (fp32 io, and fp16 io for
-// dQ; the bf16 and fp16 tensor-core kernels' layout is described with their
-// pieces at the end of this file and in their sources) runs NT = 256 threads
+// [heads, Sq]. Every block of the FMA kernels (fp32 io; the bf16 and fp16
+// tensor-core kernels' layout is described with their pieces at the end of
+// this file and in their sources) runs NT = 256 threads
 // as a 16 x 16 grid (tx = tid % 16, ty = tid / 16); a thread owns rows
 // {ty + 16 i} and columns {tx + 16 j} of each 64-row tile, so the 16 threads
 // that share a row sit in one half-warp and reduce a row with four xor
@@ -23,12 +23,10 @@
 // of a row that sees no key, and the policy of one grid head (`at_head`, for
 // masks whose arrays differ by head). The kernels are templates on it.
 //
-// Tiles live in shared memory as float with one word of padding per row
-// (stride D + 1), so a column read by 16 neighbouring threads hits 16
-// different banks. Products are fp32 FMAs from shared memory: the same
-// numbers the TPU kernel gets from fp32-accumulating MXU products of
-// io-typed inputs, since a product of two bf16 or fp16 values is exact in
-// fp32.
+// The FMA kernels' tiles live in shared memory as float with one word of
+// padding per row (stride D + 1), so a column read by 16 neighbouring
+// threads hits 16 different banks; their products are fp32 FMAs from
+// shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -46,17 +44,6 @@ constexpr int NT = 256;           // threads per block
 constexpr int LDP = BK + 1;       // stride of a [64 x 64] score tile in smem
 constexpr float NEG_INF = -1e30f; // the TPU kernel's mask fill
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half_rn(x); }
-
 // Row counts and element strides of the query-like and key-like tensors.
 // Row strides are 32-bit (a row offset inside one head stays below 2^31
 // elements; the varlen wrappers check it): with 64-bit ones the
@@ -67,17 +54,17 @@ struct Layout {
   long long q_hs, k_hs;
 };
 
-// Rows [row0, row0 + ROWS) of a [rows, D] io-typed matrix whose rows are
-// `rs` elements apart into a float smem tile of stride D + 1; rows past the
-// end read as 0.
-template <typename T, int ROWS, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int row0,
+// Rows [row0, row0 + ROWS) of a [rows, D] float matrix whose rows are `rs`
+// elements apart into a smem tile of stride D + 1; rows past the end read
+// as 0.
+template <int ROWS, int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int row0,
                                           int rows, int rs) {
   constexpr int LD = D + 1;
   for (int idx = threadIdx.x; idx < ROWS * D; idx += NT) {
     const int r = idx / D, c = idx % D;
     const int gr = row0 + r;
-    dst[r * LD + c] = gr < rows ? to_f(src[gr * rs + c]) : 0.f;
+    dst[r * LD + c] = gr < rows ? src[gr * rs + c] : 0.f;
   }
 }
 
@@ -271,7 +258,7 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... 
 }
 
 // The io type of a C entry's tensors: 0 float (the FMA kernels), 1 bf16 and
-// 2 fp16 (the tensor-core kernels; fp16 dQ still the FMA kernel).
+// 2 fp16 (the tensor-core kernels).
 enum Io : int { IO_F32 = 0, IO_BF16 = 1, IO_F16 = 2 };
 
 inline long long io_bytes(int io) { return io == IO_F32 ? 4 : 2; }
@@ -318,15 +305,6 @@ inline Layout packed_layout(int tq, int tk, int h, int d) {
     case 64: { constexpr int D = 64; __VA_ARGS__; }  \
     case 128: { constexpr int D = 128; __VA_ARGS__; } \
     default: return cudaErrorInvalidValue;           \
-  }
-
-// Instantiates `body` for the FMA dQ kernel's io type T: float or fp16 (bf16
-// goes to the tensor-core kernels); anything else is refused.
-#define PT_FLASH_SWITCH_FMA_IO(io, ...)                  \
-  switch (io) {                                          \
-    case IO_F32: { using T = float; __VA_ARGS__; }       \
-    case IO_F16: { using T = __half; __VA_ARGS__; }      \
-    default: return cudaErrorInvalidValue;               \
   }
 
 // Instantiates `body` for the tensor-core kernels' io type T: bf16 or fp16;
@@ -384,7 +362,7 @@ __device__ __forceinline__ uint8_t* align_1024(void* p) {
 
 // acc[64 x D] += A[64 x 16] (registers) * B[16 x D] (an MN-major tile), in
 // elements of type T.
-template <int D, typename T = __nv_bfloat16>
+template <int D, typename T>
 __device__ __forceinline__ void wgmma_rs_d(float (&acc)[D / 2], const uint32_t (&a)[4],
                                            uint64_t db) {
   if constexpr (D == 32) pt_hopper::wgmma_rs_n32<T>(acc, a, db);
@@ -396,7 +374,7 @@ __device__ __forceinline__ void wgmma_rs_d(float (&acc)[D / 2], const uint32_t (
 // D = A B^T over D (D += A B^T with `add`): the D / 16 products of one
 // 64 x 64 tile, both operands K-major tiles; started, not committed or
 // waited.
-template <int D, typename T = __nv_bfloat16>
+template <int D, typename T>
 __device__ __forceinline__ void wgmma_nt(float (&d)[32], uint32_t a_addr, uint32_t b_addr,
                                          bool add = false) {
 #pragma unroll
@@ -407,7 +385,7 @@ __device__ __forceinline__ void wgmma_nt(float (&d)[32], uint32_t a_addr, uint32
 
 // (lo, hi) rounded to a pair of T (bf16 or fp16), as 32 bits: an A-operand
 // register, or two adjacent outputs.
-template <typename T = __nv_bfloat16>
+template <typename T>
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   if constexpr (pt_hopper::is_f16<T>) {
     const __half2 v = __floats2half2_rn(lo, hi);
@@ -423,8 +401,8 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
 // keeps 8 (2^-9). In fp16 it keeps 22 while lo is a normal number (|x| at
 // or above 2^-3), else an absolute 2^-25 (fp16's subnormal spacing, 2^-24,
 // halved): the fp16 backward scales what it splits into [2^14, 2^15) of
-// its row's largest value first (flash_bwd_dkv.cu).
-template <typename T = __nv_bfloat16>
+// its row's largest value first (ds_rows).
+template <typename T>
 __device__ __forceinline__ void pack_split(float x, float y, uint32_t& hi, uint32_t& lo) {
   hi = pack2<T>(x, y);
   float hx, hy;
@@ -449,6 +427,46 @@ __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
+
+// fp16 io, the backward's dS: scales rows r and r + 8 of a dS tile on an
+// accumulator fragment (`ds`; a thread's value x lies in row (x >> 1) & 1:
+// key rows of dK/dV's dS^T, query rows of dQ's dS) by a power of two each
+// (`mul`, kept over the tiles and only ever lowered), so that a row's
+// largest |dS| lies in [2^14, 2^15) when it is first reached: the hi/lo
+// split then keeps 22 bits of it (dS follows dO's scale, 2^-12 and 2^8 of
+// unit scale alike under a loss scaler). When a row's power falls, the
+// output rows already summed in `acc` (dK or dQ, the same fragment layout)
+// fall by the same ratio (exact: powers of two); the epilogue divides by
+// `mul`.
+template <int N>
+__device__ __forceinline__ void ds_rows(float (&ds)[32], float (&mul)[2], float (&acc)[N]) {
+  float mx[2] = {0.f, 0.f};
+#pragma unroll
+  for (int x = 0; x < 32; ++x) mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], fabsf(ds[x]));
+  float ratio[2];
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    // 2^(14 - floor(log2 max)), at most 2^100 (a row of zeros keeps its power)
+    const int e = min(14 - ((__float_as_int(quad_max(mx[h2])) >> 23) - 127), 100);
+    const float want = __int_as_float((127 + e) << 23);
+    ratio[h2] = want < mul[h2] ? want / mul[h2] : 1.f;
+    mul[h2] = fminf(mul[h2], want);
+  }
+  if (ratio[0] != 1.f || ratio[1] != 1.f) {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        acc[4 * j + 2 * h2] *= ratio[h2];
+        acc[4 * j + 2 * h2 + 1] *= ratio[h2];
+      }
+  }
+#pragma unroll
+  for (int x = 0; x < 32; ++x) ds[x] *= mul[(x >> 1) & 1];
+}
+
+// The largest power ds_rows starts from.
+constexpr float DS_MUL_MAX = 0x1p100f;
 
 // Loads the BOXES boxes of one 64-row tile starting at `row` of head `h`
 // and at column `col` (a D-column chunk of a wider row); packed [T, H, D]
@@ -480,7 +498,7 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 // packed [rows, heads, cols] as (cols, heads, rows), fixed
 // [heads, rows, cols] as (cols, rows, heads), with 64-row boxes of
 // HopTile<D>::W columns.
-template <int D, typename T = __nv_bfloat16>
+template <int D, typename T>
 int hop_map(CUtensorMap* map, const void* base, int rows, int heads, int rs, long long hs,
             int packed, int cols = D) {
   using Tile = HopTile<D>;

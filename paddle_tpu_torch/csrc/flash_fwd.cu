@@ -139,7 +139,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + h * lay.k_hs;
   const float* vb = v + h * lay.k_hs + cz * D;
 
-  if (!SPLIT) load_tile<float, BQ, D>(Qs, qb, q0, lay.sq, lay.q_rs);
+  if (!SPLIT) load_tile<BQ, D>(Qs, qb, q0, lay.sq, lay.q_rs);
 
   float m[4], l[4], acc[4][DJ];
   RowInfo qi[4];
@@ -164,9 +164,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // chunk cc of Q K^T (one pass unless SPLIT); V is loaded with chunk 0
     for (int cc = 0; cc < (SPLIT ? (int)gridDim.z : 1); ++cc) {
       __syncthreads();  // the last reads of Qs, Ks, Vs and Ps are done
-      if (SPLIT) load_tile<float, BQ, D>(Qs, qb + cc * D, q0, lay.sq, lay.q_rs);
-      load_tile<float, BK, D>(Ks, kb + cc * D, k0, lay.sk, lay.k_rs);
-      if (cc == 0) load_tile<float, BK, D>(Vs, vb, k0, lay.sk, lay.k_rs);
+      if (SPLIT) load_tile<BQ, D>(Qs, qb + cc * D, q0, lay.sq, lay.q_rs);
+      load_tile<BK, D>(Ks, kb + cc * D, k0, lay.sk, lay.k_rs);
+      if (cc == 0) load_tile<BK, D>(Vs, vb, k0, lay.sk, lay.k_rs);
       __syncthreads();
 #pragma unroll 8
       for (int d = 0; d < D; ++d) {

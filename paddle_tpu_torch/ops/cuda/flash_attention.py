@@ -17,11 +17,10 @@ The kernels are built for head_dim 32, 64, 128 and 256 (``HEAD_DIMS``); a
 smaller head_dim runs at the next of those sizes, its q, k, v (and dO)
 padded with zero columns and the results sliced back (:func:`_pad_head_dim`),
 which is exact. The route is chosen by io type, at every head_dim: bf16
-runs all three kernels on the tensor cores, at 256 in forms of their own
-(two warpgroups a block: 128 query rows a forward or dQ block, one 64-row
-key tile a dK/dV block, one warpgroup computing dV and the other dK);
-float16 runs the forward and dK/dV on the same tensor-core kernels
-(instantiated for fp16) and dQ on the FMA kernel; float32 runs the FMA
+and float16 run all three kernels on the tensor cores (each instantiated
+for both), at 256 in forms of their own (two warpgroups a block: 128
+query rows a forward or dQ block, one 64-row key tile a dK/dV block, one
+warpgroup computing dV and the other dK); float32 alone runs the FMA
 kernels, whose backward at 256 works on 32-row halves of its 64-row tiles
 so that the fp32 tiles fit in shared memory. A head_dim above 256 runs
 padded to a multiple of 256 on the same 256 forms split over it: one
@@ -44,7 +43,7 @@ source holds two kernels: the tensor-core one reads q, k, v and dO through
 TMA tensor maps, which need 16-byte-aligned base addresses and strides
 (:func:`check_tma`; a bf16 or float16 tensor that fails it is handed to the
 kernel as a fresh contiguous copy, :func:`_tma_inputs`); the FMA one
-(float32 io, and float16 dQ) runs fp32 FMAs.
+(float32 io) runs fp32 FMAs.
 ``LAUNCHES`` counts kernel launches per wrapper; the plain versions do not
 count.
 """
@@ -148,8 +147,7 @@ def _tma_inputs(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     contiguous copy, whose storage PyTorch allocates aligned. Inputs reach
     the kernels contiguous with a head_dim of 32, 64, 128 or a multiple of
     256, so every stride is a multiple of 16 bytes and the base address is
-    the only case left: the same kernel runs on the copy. (fp16 dQ still
-    runs the FMA kernel, which would read the original as well.)"""
+    the only case left: the same kernel runs on the copy."""
     return tuple(t if t.dtype not in TMA_DTYPES or check_tma(t)
                  else t.clone(memory_format=torch.contiguous_format)
                  for t in tensors)

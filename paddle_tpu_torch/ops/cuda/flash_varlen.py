@@ -50,11 +50,10 @@ smallest end, with O(B*H*Sk) work: a kernel skips a key tile that bans its
 whole query tile, and no ``[S, S]`` mask is built on the kernel path.
 
 Head dims run as in ``flash_attention.py`` (``kernel_head_dim``), by io
-type: bf16 on the tensor cores at every head_dim (at 256 and, split over
-256-column chunks, above it, two warpgroups a block: the forward and dQ
-over 128 query rows, the ring holding every key tile either 64-row tile
-visits; dK/dV over one 64-row key tile); float16 the forward and dK/dV on
-the same tensor-core kernels and dQ on the FMA kernel; float32 on the FMA
+type: bf16 and float16 on the tensor cores at every head_dim (at 256 and,
+split over 256-column chunks, above it, two warpgroups a block: the
+forward and dQ over 128 query rows, the ring holding every key tile either
+64-row tile visits; dK/dV over one 64-row key tile); float32 on the FMA
 kernels. A bf16 or float16 launch that fails raises.
 
 Sizes: any number of tiles runs. The tensor-core kernels put the heads on the

@@ -2,7 +2,7 @@
 
 Phase 2 of ``chip_smoke.py`` reads ptxas's ``-v`` lines and the SASS that
 ``cuobjdump -sass`` prints for each tensor-core instantiation of the flash
-kernels: bf16 for all three, fp16 for the forward and dK/dV. Here those
+kernels: bf16 and fp16 for all three. Here those
 readers run on texts written in the same formats, so that a spill in any
 forward instantiation (head_dim 256 and its SPLIT form included) or in a
 backward one at head_dim 64 or 256 (SPLIT included), a missing
@@ -28,26 +28,24 @@ KERNEL_TAGS = {"flash_fwd": "16flash_fwd_hopper",
                "flash_bwd_dkv": "20flash_bwd_dkv_hopper"}
 
 
-# each kernel's parameters as nvcc mangles them: the forward's and dK/dV's
-# outputs are of the template's io type (T0_), dQ's a concrete bf16 pointer
+# each kernel's parameters as nvcc mangles them: the outputs are of the
+# template's io type (T0_)
 ARGS = {"flash_fwd": "S3_S3_PT0_PfNS_6LayoutET1_fiii",
         "flash_bwd_dkv": "S3_S3_S3_PKfS5_PT0_S7_NS_6LayoutET1_fiii",
-        "flash_bwd_dq": "S2_S2_S2_PKfS4_P13__nv_bfloat16NS_6LayoutET0_fiii"}
+        "flash_bwd_dq": "S3_S3_S3_PKfS5_PT0_NS_6LayoutET1_fiii"}
 
 
 def _entries(lib, ios=None):
     """Mangled names of every tensor-core instantiation of ``lib`` (of the
     io types ``ios``, by default all of ``cs.HOPPER_IO[lib]``), as nvcc
-    names them: the forward's and dK/dV's io type is their second template
-    argument; dQ is bf16 alone and has none."""
+    names them: the io type is each kernel's second template argument."""
     kernel = KERNEL_TAGS[lib]
     names = []
     for io in ios or cs.HOPPER_IO[lib]:
-        tag_io = "" if lib == "flash_bwd_dq" else cs.IO_TAGS[io]
         for mask, tag in MASK_TAGS.items():
             for d, split in ((32, 0), (64, 0), (128, 0), (256, 0), (256, 1)):
-                names.append(f"_ZN8pt_flash{kernel}ILi{d}E{tag_io}NS_{tag}ELb"
-                             f"{split}EEEv14CUtensorMap_st{ARGS[lib]}")
+                names.append(f"_ZN8pt_flash{kernel}ILi{d}E{cs.IO_TAGS[io]}NS_"
+                             f"{tag}ELb{split}EEEv14CUtensorMap_st{ARGS[lib]}")
     return names
 
 
@@ -119,7 +117,7 @@ def test_instantiation_counts_follow_the_sources():
         "bf16": "__nv_bfloat16", "fp16": "__half"}
     masks = len(cs.MASKS)
     for lib, launch in (("flash_fwd", "fwd_wide_launch<T, Mask, "),
-                        ("flash_bwd_dq", "dq_wide_launch<Mask, "),
+                        ("flash_bwd_dq", "dq_wide_launch<T, Mask, "),
                         ("flash_bwd_dkv", "dkv_wide_launch<T, Mask, ")):
         src = (CSRC / f"{lib}.cu").read_text()
         wide = set(re.findall(re.escape(launch) + r"(true|false)>", src))
@@ -131,7 +129,7 @@ def test_instantiation_counts_follow_the_sources():
         assert cs.HOPPER_IO[lib] == (("bf16", "fp16") if both else ("bf16",))
         assert cs.HOPPER_INSTANTIATIONS[lib] == (
             len(cs.HOPPER_IO[lib]) * masks * (len(dims) + len(wide)))
-    assert cs.HOPPER_INSTANTIATIONS == {"flash_fwd": 30, "flash_bwd_dq": 15,
+    assert cs.HOPPER_INSTANTIATIONS == {"flash_fwd": 30, "flash_bwd_dq": 30,
                                         "flash_bwd_dkv": 30}
 
 
@@ -172,6 +170,7 @@ def test_backward_spills_are_read_at_head_dim_64(lib):
 @pytest.mark.parametrize("split", [0, 1])
 @pytest.mark.parametrize("mask", sorted(MASK_TAGS))
 @pytest.mark.parametrize("lib, io", [("flash_bwd_dq", "bf16"),
+                                     ("flash_bwd_dq", "fp16"),
                                      ("flash_bwd_dkv", "bf16"),
                                      ("flash_bwd_dkv", "fp16")])
 def test_a_spilling_wide_backward_instantiation_fails(lib, io, mask, split):
@@ -192,12 +191,13 @@ def test_a_missing_instantiation_fails_the_spill_count(lib):
         cs.check_spills(lib, _ptxas(names))
 
 
-@pytest.mark.parametrize("lib", ["flash_fwd", "flash_bwd_dkv"])
+@pytest.mark.parametrize("lib", ["flash_fwd", "flash_bwd_dkv",
+                                 "flash_bwd_dq"])
 def test_a_build_without_fp16_instantiations_fails(lib):
-    """The forward and dK/dV must hold fp16 tensor-core instantiations: a
-    build with the bf16 ones alone (fp16 still on an FMA kernel) fails the
-    spill count and the SASS count; one fp16 instantiation missing fails
-    the SASS count by io type."""
+    """All three libraries must hold fp16 tensor-core instantiations: a
+    build with the bf16 ones alone (fp16 on an FMA kernel) fails the spill
+    count and the SASS count; one fp16 instantiation missing fails the SASS
+    count by io type."""
     bf16_only = _entries(lib, ("bf16",))
     with pytest.raises(RuntimeError, match="spill lines"):
         cs.check_spills(lib, _ptxas(bf16_only))
@@ -228,25 +228,37 @@ def test_sass_split_reads_an_fp16_hgmma_line():
     """An fp16 instantiation's products as ``cuobjdump`` spells them
     (``.F32`` with no ``BF16``) count as products of its io type; bf16
     products in an fp16 instantiation, or fp16 ones in a bf16 one, fail."""
-    name = _pick(_entries("flash_fwd"), 64, "CausalMask", 0, "fp16")
+    _reads_an_fp16_hgmma_line("flash_fwd")
+
+
+def test_sass_split_reads_an_fp16_dq_hgmma_line():
+    """The same for an fp16 dQ instantiation, whose io type is its second
+    template argument as the forward's is."""
+    _reads_an_fp16_hgmma_line("flash_bwd_dq")
+
+
+def _reads_an_fp16_hgmma_line(lib):
+    kernel = cs.HOPPER_KERNELS[lib][0]
+    name = _pick(_entries(lib), 64, "CausalMask", 0, "fp16")
     text = ("\n\t\tFunction : " + name + "\n"
             "        /*0090*/  UTMALDG.3D [UR8], [UR4] ;\n"
             "        /*0100*/  HGMMA.64x64x16.F32 R24, gdesc[UR4], RZ, !UPT, "
             "gsb0 ;\n"
             "        /*0200*/  HGMMA.64x64x16.F32 R24, R152, gdesc[UR8].tnspB, "
             "R24, gsb0 ;\n")
-    (f,) = cs.sass_split(text, "flash_fwd_hopper")
+    (f,) = cs.sass_split(text, kernel)
     assert f["io"] == "fp16" and f["desc"] == 1 and f["regs"] == 1
     assert f["types"] == [".F32"]
-    names = _entries("flash_fwd")
+    names = _entries(lib)
     good = _sass(names)
+    cs.check_sass(lib, good)
     swapped = good.replace("HGMMA.64x64x16.F32 R24, gdesc",
                            "HGMMA.64x64x16.F32.BF16 R24, gdesc")
     with pytest.raises(RuntimeError, match="fp16 instantiation with HGMMA"):
-        cs.check_sass("flash_fwd", swapped)
+        cs.check_sass(lib, swapped)
     only_f16 = good.replace(".F32.BF16", ".F32")
     with pytest.raises(RuntimeError, match="bf16 instantiation with HGMMA"):
-        cs.check_sass("flash_fwd", only_f16)
+        cs.check_sass(lib, only_f16)
 
 
 def test_sass_split_reads_the_wide_pv_shape():

@@ -203,9 +203,10 @@ def test_bf16_backward_edges_match_plain(cuda, shape, d):
 @pytest.mark.parametrize("d", BF16_FWD_DIMS)
 @pytest.mark.parametrize("shape", sorted(BF16_FWD_SHAPES))
 def test_fp16_backward_edges_match_plain(cuda, shape, d):
-    """fp16 at the same edge shapes: dK/dV on the tensor-core kernel (its
-    fp16 instantiation, P and dS scaled before their hi/lo split), dQ on
-    the FMA kernel; unseen keys give dK = dV = 0 exactly."""
+    """fp16 at the same edge shapes: dK/dV and dQ on the tensor-core
+    kernels (their fp16 instantiations; dK/dV scales P and dS, dQ scales
+    dS, before their hi/lo split); unseen keys give dK = dV = 0 exactly,
+    rows that see no key dQ = 0."""
     _backward_edge_matches_plain(cuda, shape, d, torch.float16)
 
 
@@ -261,9 +262,8 @@ def test_bf16_misaligned_base_at_head_dim_256_matches_plain(cuda, entry):
                                    "flashmask_fwd"])
 def test_fp16_misaligned_base_matches_plain(cuda, entry, d):
     """An fp16 input on a misaligned base reaches the fp16 tensor-core
-    forward and dK/dV as a fresh aligned copy (and dQ, on the FMA kernel,
-    the same copy): one launch each, each within the plain version's
-    limit."""
+    forward, dK/dV and dQ as a fresh aligned copy: one launch each, each
+    within the plain version's limit."""
     _misaligned_matches_plain(cuda, entry, d, torch.float16)
 
 
@@ -427,12 +427,12 @@ def test_bf16_backward_at_256_and_above_runs_the_tensor_core_kernels(cuda,
 @pytest.mark.parametrize("d", BF16_FWD_DIMS)
 @pytest.mark.parametrize("mask", ["fixed", "varlen", "flashmask"])
 def test_fp16_runs_the_tensor_core_forward_and_dkv(cuda, mask, d):
-    """fp16 at every head_dim takes the tensor-core forward and dK/dV (their
-    ``__half`` instantiations) for each mask and dQ on the FMA kernel: the
-    profiler names ``flash_fwd_hopper`` and ``flash_bwd_dkv_hopper`` at
-    ``__half`` and ``flash_bwd_dq_kernel``, no ``flash_fwd_kernel`` or
-    ``flash_bwd_dkv_kernel``; out, lse, dq, dk and dv match the plain
-    versions with the fp16 limit."""
+    """fp16 at every head_dim takes the tensor-core forward, dK/dV and dQ
+    (their ``__half`` instantiations) for each mask: the profiler names
+    ``flash_fwd_hopper``, ``flash_bwd_dkv_hopper`` and
+    ``flash_bwd_dq_hopper`` at ``__half`` and no ``flash_fwd_kernel``,
+    ``flash_bwd_dkv_kernel`` or ``flash_bwd_dq_kernel``; out, lse, dq, dk
+    and dv match the plain versions with the fp16 limit."""
     from torch.profiler import ProfilerActivity, profile
     scale = 1.0 / math.sqrt(d)
     q, k, v, do = _inputs(cuda, 2, 256, 256, d, torch.float16, seed=11)
@@ -473,11 +473,10 @@ def test_fp16_runs_the_tensor_core_forward_and_dkv(cuda, mask, d):
         got = bwd(*ins)
         torch.cuda.synchronize()
     names = {e.key for e in prof.key_averages()}
-    for kernel in ("flash_fwd", "flash_bwd_dkv"):
+    for kernel in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
         assert any(f"{kernel}_hopper" in n and "__half" in n
                    for n in names), names
         assert not any(f"{kernel}_kernel" in n for n in names), names
-    assert any("flash_bwd_dq_kernel" in n for n in names), names
     p_out, p_lse = fwd_plain(v)
     abs_v_out = fwd_plain(v.abs())[0]
     for key, g, want in (("out", out, p_out), ("lse", lse, p_lse),
@@ -507,6 +506,68 @@ def test_fp16_dkv_holds_scaled_do(cuda, do_scale, d):
         err = (got.float() - want.float()).abs()
         assert bool((err <= _limit(torch.float16, key, want, None)).all()), \
             (key, err.max().item())
+
+
+@pytest.mark.parametrize("d", BF16_FWD_DIMS)
+@pytest.mark.parametrize("do_scale", [2.0 ** -12, 2.0 ** 8],
+                         ids=["2^-12", "2^8"])
+def test_fp16_dq_holds_scaled_do(cuda, do_scale, d):
+    """fp16 dQ with dO far from unit scale (a loss scaler's range), at
+    every head_dim form (32, 64, 128: one warpgroup; 256; 512: SPLIT): the
+    kernel scales each query row of dS into fp16's normal range before its
+    hi/lo split, so dq stays within the fp16 limit at either end. Held
+    against the plain version's unrounded fp32 result (its arithmetic on
+    fp32 copies of the inputs): at 2^-12 many dq elements are fp16
+    subnormals, spaced more widely than the limit's floor, so the exact
+    dq rounded once can sit a subnormal away from the rounded plain
+    version (``tests/test_torch_fp16_split.py``)."""
+    q, k, v, do = _inputs(cuda, 4, 512, 512, d, torch.float16, seed=13)
+    do = do * do_scale
+    args = (True, 1.0 / math.sqrt(d), 512, 0)
+    out, lse = fa.flash_fwd(q, k, v, *args)
+    delta = fa.attention_delta(do, out)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, *args)
+    p_dq = fa.flash_bwd_dq_plain(q.float(), k.float(), v.float(), do.float(),
+                                 lse, delta, *args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dq).all())
+    err = (dq.float() - p_dq.float()).abs()
+    assert bool((err <= _limit(torch.float16, "dq", p_dq, None)).all()), \
+        err.max().item()
+
+
+@pytest.mark.parametrize("d", [64, 256, 512])
+@pytest.mark.parametrize("mask", ["fixed", "varlen", "flashmask"])
+def test_an_fp16_backward_launches_no_fma_dq_kernel(cuda, mask, d):
+    """The public entries' fp16 backward, under ``torch.profiler``: dQ runs
+    ``flash_bwd_dq_hopper`` at ``__half`` and no ``flash_bwd_dq_kernel``
+    (the FMA kernel, fp32 alone) is launched."""
+    import paddle_tpu_torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    b, s, h = 2, 256, 2
+    q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=cuda)
+                   .half() for _ in range(4))
+    ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+    if mask == "fixed":
+        out = F.flash_attention(ql, kl, vl, causal=True)[0]
+    elif mask == "varlen":
+        cu = torch.tensor([0, 100, 300, 512], device=cuda).int()
+        out = F.flash_attn_unpadded(
+            *(t.reshape(b * s, h, d) for t in (ql, kl, vl)), cu, cu, 300,
+            300, 1.0 / math.sqrt(d), causal=True)[0].reshape(b, s, h, d)
+    else:
+        startend = torch.full((b, 1, s, 1), 200, dtype=torch.int32,
+                              device=cuda)
+        out = F.flashmask_attention(ql, kl, vl, startend, causal=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out.backward(do)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    assert any("flash_bwd_dq_hopper" in n and "__half" in n
+               for n in names), names
+    assert not any("flash_bwd_dq_kernel" in n for n in names), names
+    assert all(bool(torch.isfinite(t.grad).all()) for t in (ql, kl, vl))
 
 
 # ------------------------------------------------------------------ varlen

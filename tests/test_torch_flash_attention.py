@@ -299,8 +299,8 @@ def test_check_tma_takes_aligned_layouts_and_refuses_the_rest(layout):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
                          ids=["bf16", "fp16"])
 def test_tma_inputs_copy_a_misaligned_two_byte_tensor_alone(dtype):
-    """bf16 and fp16 both reach the tensor-core kernels (forward and dK/dV
-    at fp16) through TMA: a misaligned tensor of either is handed on as a
+    """bf16 and fp16 both reach the tensor-core kernels (all three, at
+    either type) through TMA: a misaligned tensor of either is handed on as a
     fresh aligned copy with the same values, an aligned one as it is; a
     misaligned float32 tensor (the FMA kernels) is not copied."""
     n = 2 * 64 * 64
@@ -377,13 +377,13 @@ def test_pad_head_dim_is_exact_and_keeps_kernel_sizes():
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_fp16_plain_path_matches_reference(causal):
-    """fp16 io on both sides (the card runs it on the FMA kernels), compute
-    in fp32: each output is rounded once to fp16, and P is rounded to fp16
-    against the running max in the reference and against the final max in
-    the plain version; gradients take out through delta. Held at one fp16
-    ulp of the element (2^-10 relative) plus 2e-3 absolute, about an ulp
-    at 2..4 where the largest values lie; lse (fp32 from fp16 q and k) at
-    1e-5."""
+    """fp16 io on both sides (the card runs it on the tensor-core
+    kernels), compute in fp32: each output is rounded once to fp16, and P
+    is rounded to fp16 against the running max in the reference and
+    against the final max in the plain version; gradients take out through
+    delta. Held at one fp16 ulp of the element (2^-10 relative) plus 2e-3
+    absolute, about an ulp at 2..4 where the largest values lie; lse (fp32
+    from fp16 q and k) at 1e-5."""
     q, k, v = _qkv(14, (2, 256, 32), (2, 256, 32))
     do = np.random.RandomState(15).randn(2, 256, 32).astype(np.float32)
     q, k, v, do = (x.astype(np.float16) for x in (q, k, v, do))

@@ -174,10 +174,10 @@ def test_bf16_matches_reference():
 
 
 def test_fp16_matches_reference():
-    """fp16 io on both sides (the card runs it on the FMA kernels), compute
-    in fp32, as the bf16 test above: one fp16 ulp of the element (2^-10
-    relative) plus 2e-3 absolute, about an ulp at 2..4 where the largest
-    values lie; lse (fp32 from fp16 q and k) at 1e-5."""
+    """fp16 io on both sides (the card runs it on the tensor-core
+    kernels), compute in fp32, as the bf16 test above: one fp16 ulp of the
+    element (2^-10 relative) plus 2e-3 absolute, about an ulp at 2..4 where
+    the largest values lie; lse (fp32 from fp16 q and k) at 1e-5."""
     q, k, v, do, cu_q, cu_k = _case("spanning", seed=5)
     q, k, v, do = (x.astype(np.float16) for x in (q, k, v, do))
     ref_out, ref_lse, ref_grads = _ref_run(q, k, v, do, cu_q, cu_k, True)

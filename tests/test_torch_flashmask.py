@@ -188,9 +188,10 @@ def test_bf16_matches_reference():
 
 
 def test_fp16_matches_reference():
-    """fp16 io on both sides (the card runs it on the FMA kernels), as the
-    bf16 test above at fp16's ulp: 2^-10 relative plus 2e-3 absolute,
-    about an ulp at 2..4; lse (fp32 from fp16 q and k) at 1e-5."""
+    """fp16 io on both sides (the card runs it on the tensor-core
+    kernels), as the bf16 test above at fp16's ulp: 2^-10 relative plus
+    2e-3 absolute, about an ulp at 2..4; lse (fp32 from fp16 q and k) at
+    1e-5."""
     q, k, v, do, idx = _case("random_2col_per_head", seed=4)
     q, k, v, do = (x.astype(np.float16) for x in (q, k, v, do))
     ref_out, ref_lse, ref_grads = _ref_run(q, k, v, do, idx, True)
