@@ -110,6 +110,16 @@ class Tensor:
 
     clear_gradient = clear_grad
 
+    def register_hook(self, hook):
+        """Calls ``hook(grad)`` with this tensor's gradient when backward
+        reaches it; a ``Tensor`` it returns replaces the gradient. Returns
+        a handle whose ``remove()`` takes the hook off."""
+        def run(g):
+            res = hook(Tensor(g))
+            return None if res is None else \
+                (res._t if isinstance(res, Tensor) else res)
+        return self._t.register_hook(run)
+
     # ------------------------------------------------------------ transfer
     def numpy(self) -> np.ndarray:
         t = self._t.detach().cpu()

@@ -29,6 +29,7 @@ import numbers
 import torch.nn.functional as tF
 
 from ..._core.dispatch import apply
+from ..._core.op_registry import register_op
 
 CONV_DATA_FORMAT = "NCHW"  # the reference's FLAGS_conv_data_format default
 
@@ -95,11 +96,12 @@ def _bias(out, b, dims):
     return out if b is None else out + b.reshape((1, -1) + (1,) * dims)
 
 
+@register_op("conv2d")
 def _conv(x, w, b, stride, padding, dilation, groups, dims, fmt):
     x = _to_nc(x, fmt)
     pads = _conv_pads(x, w, padding, stride, dilation, dims)
     x, sym = _padded(x, pads)
-    conv = tF.conv2d if dims == 2 else tF.conv1d
+    conv = {1: tF.conv1d, 2: tF.conv2d, 3: tF.conv3d}[dims]
     out = conv(x, w, None, stride, sym, dilation, groups)
     return _from_nc(_bias(out, b, dims), fmt)
 
@@ -124,8 +126,9 @@ def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
                  fmt="NCHW" if data_format == "NCL" else "NHWC")
 
 
+@register_op("conv2d_transpose")
 def _conv_transpose(x, w, b, stride, padding, output_padding, dilation,
-                    groups, fmt):
+                    groups, dims, fmt):
     """The reference builds a fractionally strided convolution with the
     per-group in/out-swapped, spatially flipped weight, padded
     ``(k - 1 - lo, k - 1 - hi + output_padding)`` per dim (k dilated):
@@ -138,11 +141,11 @@ def _conv_transpose(x, w, b, stride, padding, output_padding, dilation,
     # dim, whose output holds the reference's, and cut the rest off each
     # side (output_padding extends the high side in both)
     sym = tuple(min(lo, hi) for lo, hi in padding)
-    out = tF.conv_transpose2d(x, w, None, stride, sym, output_padding,
-                              groups, dilation)
+    conv = tF.conv_transpose2d if dims == 2 else tF.conv_transpose3d
+    out = conv(x, w, None, stride, sym, output_padding, groups, dilation)
     cut = tuple(slice(lo - p, out.shape[2 + i] - (hi - p))
                 for i, ((lo, hi), p) in enumerate(zip(padding, sym)))
-    return _from_nc(_bias(out[(Ellipsis,) + cut], b, 2), fmt)
+    return _from_nc(_bias(out[(Ellipsis,) + cut], b, dims), fmt)
 
 
 def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
@@ -153,5 +156,24 @@ def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
     return apply("conv2d_transpose", _conv_transpose, x, weight, bias,
                  stride=_pair(stride), padding=_norm_padding(padding),
                  output_padding=_pair(output_padding),
-                 dilation=_pair(dilation), groups=int(groups),
+                 dilation=_pair(dilation), groups=int(groups), dims=2,
                  fmt=data_format)
+
+
+@register_op("conv3d")
+def _conv3d(x, w, b, stride, padding, dilation, groups):
+    return _conv(x, w, b, stride, padding, dilation, groups, 3, "NCDHW")
+
+
+def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCDHW", name=None):
+    """3-D convolution, ``x`` NCDHW, weight ``[out, in / groups, kd, kh,
+    kw]``: the reference's op ``conv3d`` (AMP's white list). The reference
+    convolves NCDHW whatever ``data_format`` says; the port refuses
+    another layout rather than read it as NCDHW."""
+    if data_format != "NCDHW":
+        raise NotImplementedError(
+            "conv3d: the reference convolves NCDHW only")
+    return apply("conv3d", _conv3d, x, weight, bias, stride=_pair(stride, 3),
+                 padding=_norm_padding(padding, 3),
+                 dilation=_pair(dilation, 3), groups=int(groups))

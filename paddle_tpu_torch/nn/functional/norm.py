@@ -1,7 +1,8 @@
 """Normalisation functionals in plain PyTorch.
 
 Counterpart of ``paddle_tpu/nn/functional/norm.py`` (``batch_norm``,
-``layer_norm``, ``rms_norm``, ``group_norm``, ``instance_norm``), which is
+``layer_norm``, ``rms_norm``, ``group_norm``, ``instance_norm``,
+``local_response_norm``), which is
 plain jnp in the reference. Each rounds where its reference does:
 
 - ``layer_norm`` works in x's own type throughout;
@@ -30,6 +31,7 @@ from typing import Optional, Sequence, Union
 import torch
 
 from ..._core.dispatch import apply
+from ..._core.op_registry import register_op
 
 
 def layer_norm(x, normalized_shape: Union[int, Sequence[int]], weight=None,
@@ -38,20 +40,21 @@ def layer_norm(x, normalized_shape: Union[int, Sequence[int]], weight=None,
     norm_ndim = 1 if isinstance(normalized_shape, int) \
         else len(tuple(normalized_shape))
     return apply("layer_norm", _layer_norm, x, weight, bias,
-                 norm_ndim=norm_ndim, epsilon=float(epsilon))
+                 norm_ndim=norm_ndim, eps=float(epsilon))
 
 
-def _layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
-                bias: Optional[torch.Tensor], norm_ndim: int,
-                epsilon: float) -> torch.Tensor:
+@register_op("layer_norm")
+def _layer_norm(x: torch.Tensor, w: Optional[torch.Tensor],
+                b: Optional[torch.Tensor], eps: float,
+                norm_ndim: int) -> torch.Tensor:
     axes = tuple(range(x.dim() - norm_ndim, x.dim()))
     mean = x.mean(axes, keepdim=True)
     var = ((x - mean) ** 2).mean(axes, keepdim=True)
-    out = (x - mean) / torch.sqrt(var + epsilon)
-    if weight is not None:
-        out = out * weight
-    if bias is not None:
-        out = out + bias
+    out = (x - mean) / torch.sqrt(var + eps)
+    if w is not None:
+        out = out * w
+    if b is not None:
+        out = out + b
     return out
 
 
@@ -59,18 +62,19 @@ def rms_norm(x, weight=None, bias=None, epsilon: float = 1e-6, name=None):
     """RMSNorm over the last axis: fp32 statistics, the normalised value
     rounded to x's type before ``* weight + bias``."""
     return apply("rms_norm", _rms_norm, x, weight, bias,
-                 epsilon=float(epsilon))
+                 eps=float(epsilon))
 
 
-def _rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
-              bias: Optional[torch.Tensor], epsilon: float) -> torch.Tensor:
+@register_op("rms_norm")
+def _rms_norm(x: torch.Tensor, w: Optional[torch.Tensor],
+              b: Optional[torch.Tensor], eps: float) -> torch.Tensor:
     xf = x.float()
     var = (xf * xf).mean(-1, keepdim=True)
-    out = (xf / torch.sqrt(var + epsilon)).to(x.dtype)
-    if weight is not None:
-        out = out * weight
-    if bias is not None:
-        out = out + bias
+    out = (xf / torch.sqrt(var + eps)).to(x.dtype)
+    if w is not None:
+        out = out * w
+    if b is not None:
+        out = out + b
     return out
 
 
@@ -78,6 +82,7 @@ def _channel_axis(x: torch.Tensor, fmt: str) -> int:
     return 1 if fmt.startswith("NC") and x.dim() > 1 else x.dim() - 1
 
 
+@register_op("bn_stats", multi_output=True)
 def _bn_stats(x: torch.Tensor, fmt: str):
     """The batch mean and biased variance over every axis but the
     channel's."""
@@ -87,6 +92,7 @@ def _bn_stats(x: torch.Tensor, fmt: str):
     return mean, var
 
 
+@register_op("bn_apply")
 def _bn_apply(x, mean, var, w, b, eps: float, fmt: str):
     shape = [1] * x.dim()
     shape[_channel_axis(x, fmt)] = x.shape[_channel_axis(x, fmt)]
@@ -120,6 +126,7 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                  eps=float(epsilon), fmt=data_format)
 
 
+@register_op("group_norm")
 def _group_norm(x, w, b, groups: int, eps: float, fmt: str):
     if fmt == "NHWC":
         x = x.movedim(-1, 1)
@@ -153,3 +160,21 @@ def instance_norm(x, running_mean=None, running_var=None, weight=None,
     c = x.shape[-1] if data_format == "NHWC" else x.shape[1]
     return apply("group_norm", _group_norm, x, weight, bias,
                  groups=int(c), eps=float(eps), fmt=data_format)
+
+
+@register_op("local_response_norm_k")
+def _local_response_norm(x, size, alpha, beta, k, fmt):
+    """``x / (k + alpha * mean(x^2 over the channel window))^beta``, the
+    window padded ``size // 2`` before and ``(size - 1) // 2`` after."""
+    ax = 1 if fmt.startswith("NC") else x.dim() - 1
+    sq = (x * x).movedim(ax, -1)
+    sq = torch.nn.functional.pad(sq, (size // 2, (size - 1) // 2))
+    ssum = sq.unfold(-1, size, 1).sum(-1).movedim(-1, ax)
+    return x / (k + alpha * ssum / size) ** beta
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW", name=None):
+    return apply("local_response_norm_k", _local_response_norm, x,
+                 size=int(size), alpha=float(alpha), beta=float(beta),
+                 k=float(k), fmt=data_format)

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as tF
 
 from ..._core.dispatch import apply
+from ..._core.op_registry import register_op
 from ...ops.manipulation import squeeze, unsqueeze
 from .conv import _pair
 
@@ -96,31 +97,46 @@ def _windows(x, ksize, stride, padding, ceil_mode):
     return padding, extras, full
 
 
+_MAX_POOL = {2: tF.max_pool2d, 3: tF.max_pool3d}
+_AVG_POOL = {2: tF.avg_pool2d, 3: tF.avg_pool3d}
+
+
+@register_op("max_pool_nd")
 def _max_pool_nd(x, ksize, stride, padding, ceil_mode, fmt, with_index):
     x = _nchw(x, fmt)
     _, _, full = _windows(x, ksize, stride, padding, ceil_mode)
     neg = float("-inf") if x.is_floating_point() \
         else torch.iinfo(x.dtype).min
     xp = _spatial_pad(x, full, neg)
+    pool = _MAX_POOL[len(ksize)]
     if not with_index:
-        return _undo(tF.max_pool2d(xp, ksize, stride), fmt)
-    out, idx = tF.max_pool2d(xp, ksize, stride, return_indices=True)
-    # an index into the padded plane -> into the unpadded H x W plane
-    h, w = x.shape[2:]
-    wp = xp.shape[3]
-    row = torch.clamp(idx // wp - full[0][0], 0, h - 1)
-    col = torch.clamp(idx % wp - full[1][0], 0, w - 1)
-    flat = (row * w + col).to(torch.int32)
-    return _undo(out, fmt), _undo(flat, fmt)
+        return _undo(pool(xp, ksize, stride), fmt)
+    out, idx = pool(xp, ksize, stride, return_indices=True)
+    # an index into the padded plane -> into the unpadded one
+    flat = torch.zeros_like(idx)
+    for d in range(len(ksize)):
+        inner = 1
+        for size in xp.shape[3 + d:]:
+            inner *= size
+        at = (idx // inner) % xp.shape[2 + d] - full[d][0]
+        flat = flat * x.shape[2 + d] + torch.clamp(at, 0, x.shape[2 + d] - 1)
+    return _undo(out, fmt), _undo(flat.to(torch.int32), fmt)
 
 
+@register_op("max_pool_nd_index", multi_output=True)
+def _max_pool_nd_index(*a, **k):
+    return _max_pool_nd(*a, **k)
+
+
+@register_op("avg_pool_nd")
 def _avg_pool_nd(x, ksize, stride, padding, ceil_mode, fmt, exclusive,
                  divisor):
     x = _nchw(x, fmt)
     padding, extras, full = _windows(x, ksize, stride, padding, ceil_mode)
+    avg = _AVG_POOL[len(ksize)]
     # window sums: divisor_override=1 sums without dividing
-    summed = tF.avg_pool2d(_spatial_pad(x, full, 0.0), ksize, stride,
-                           divisor_override=1)
+    summed = avg(_spatial_pad(x, full, 0.0), ksize, stride,
+                 divisor_override=1)
     if divisor is not None:
         return _undo(summed / divisor, fmt)
     ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
@@ -130,7 +146,7 @@ def _avg_pool_nd(x, ksize, stride, padding, ceil_mode, fmt, exclusive,
     else:  # real and symmetric-pad cells count, the ceil extension not
         onesp = _spatial_pad(_spatial_pad(ones, padding, 1.0),
                              tuple((0, e) for e in extras), 0.0)
-    counts = tF.avg_pool2d(onesp, ksize, stride, divisor_override=1)
+    counts = avg(onesp, ksize, stride, divisor_override=1)
     return _undo(summed / torch.clamp(counts, min=1), fmt)
 
 
@@ -139,7 +155,8 @@ def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
     ksize = _pair(kernel_size)
     stride = ksize if stride is None else _pair(stride)
     op = "max_pool_nd_index" if return_mask else "max_pool_nd"
-    return apply(op, _max_pool_nd, x, ksize=ksize, stride=stride,
+    body = _max_pool_nd_index if return_mask else _max_pool_nd
+    return apply(op, body, x, ksize=ksize, stride=stride,
                  padding=_pool_pads(padding), ceil_mode=bool(ceil_mode),
                  fmt=data_format, with_index=bool(return_mask))
 
@@ -170,7 +187,8 @@ def max_pool1d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                return_mask=False, name=None):
     ksize, stride, pad = _lift_1d(kernel_size, stride, padding)
     op = "max_pool_nd_index" if return_mask else "max_pool_nd"
-    out = apply(op, _max_pool_nd, unsqueeze(x, 3), ksize=ksize,
+    body = _max_pool_nd_index if return_mask else _max_pool_nd
+    out = apply(op, body, unsqueeze(x, 3), ksize=ksize,
                 stride=stride, padding=pad, ceil_mode=bool(ceil_mode),
                 fmt="NCHW", with_index=bool(return_mask))
     if return_mask:
@@ -187,22 +205,37 @@ def avg_pool1d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
     return squeeze(out, 3)
 
 
-def _adaptive(pool):
-    def run(x, out_hw, fmt):
-        return _undo(pool(_nchw(x, fmt), out_hw), fmt)
-    return run
+@register_op("adaptive_avg_pool2d")
+def _adaptive_avg(x, out_hw, fmt):
+    return _undo(tF.adaptive_avg_pool2d(_nchw(x, fmt), out_hw), fmt)
+
+
+@register_op("adaptive_max_pool2d")
+def _adaptive_max(x, out_hw, fmt):
+    return _undo(tF.adaptive_max_pool2d(_nchw(x, fmt), out_hw), fmt)
 
 
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
-    return apply("adaptive_avg_pool2d", _adaptive(tF.adaptive_avg_pool2d),
-                 x, out_hw=_pair(output_size), fmt=data_format)
+    return apply("adaptive_avg_pool2d", _adaptive_avg, x,
+                 out_hw=_pair(output_size), fmt=data_format)
 
 
 def adaptive_max_pool2d(x, output_size, return_mask=False, name=None):
     """The maxima alone: ``return_mask`` is taken and ignored, as in the
     reference."""
-    return apply("adaptive_max_pool2d", _adaptive(tF.adaptive_max_pool2d),
-                 x, out_hw=_pair(output_size), fmt="NCHW")
+    return apply("adaptive_max_pool2d", _adaptive_max, x,
+                 out_hw=_pair(output_size), fmt="NCHW")
+
+
+@register_op("max_unpool2d")
+def _max_unpool2d(x, indices, out_h, out_w):
+    """Each pooled value back at its flat index in the ``out_h * out_w``
+    plane, zeros elsewhere."""
+    n, c = x.shape[0], x.shape[1]
+    out = x.new_zeros(n, c, out_h * out_w)
+    out = out.scatter(2, indices.reshape(n, c, -1).long(),
+                      x.reshape(n, c, -1))
+    return out.reshape(n, c, out_h, out_w)
 
 
 def adaptive_avg_pool1d(x, output_size, name=None):

@@ -61,6 +61,14 @@ class Normal(Initializer):
         return self._draw("normal_", shape, dtype, self.mean, self.std)
 
 
+class Uniform(Initializer):
+    def __init__(self, low=-1.0, high=1.0):
+        self.low, self.high = low, high
+
+    def __call__(self, shape, dtype="float32"):
+        return self._draw("uniform_", shape, dtype, self.low, self.high)
+
+
 class XavierNormal(Initializer):
     def __init__(self, fan_in=None, fan_out=None, gain=1.0):
         self._fan_in, self._fan_out, self.gain = fan_in, fan_out, gain

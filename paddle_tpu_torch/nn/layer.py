@@ -16,7 +16,7 @@ import torch
 from .._core import dtype as dtypes
 from .._core.tensor import Tensor, to_tensor
 
-__all__ = ["Layer", "Parameter", "create_parameter"]
+__all__ = ["Layer", "Parameter", "create_parameter", "functional_call"]
 
 
 class Parameter(Tensor):
@@ -116,6 +116,16 @@ class Layer:
         object.__setattr__(self, str(name), sublayer)
         return sublayer
 
+    def add_parameter(self, name, parameter):
+        self.register_parameter(name, parameter)
+        return parameter
+
+    def create_parameter(self, shape, attr=None, dtype="float32",
+                         is_bias=False, default_initializer=None):
+        return create_parameter(shape, dtype=dtype, attr=attr,
+                                is_bias=is_bias,
+                                default_initializer=default_initializer)
+
     # ---------------------------------------------------------- traversal
     def named_sublayers(self, prefix="", include_self=False,
                         layers_set=None) -> Iterator[Tuple[str, "Layer"]]:
@@ -134,6 +144,17 @@ class Layer:
 
     def sublayers(self, include_self=False) -> List["Layer"]:
         return [l for _, l in self.named_sublayers(include_self=include_self)]
+
+    def children(self):
+        return iter(l for l in self._sub_layers.values() if l is not None)
+
+    def named_children(self):
+        return iter((n, l) for n, l in self._sub_layers.items()
+                    if l is not None)
+
+    def clear_gradients(self):
+        for p in self.parameters():
+            p.clear_grad()
 
     def _named(self, kind, prefix):
         seen = set()
@@ -257,3 +278,30 @@ class _HookHandle:
 
     def remove(self):
         self._hooks.pop(self.id, None)
+
+
+def functional_call(layer: Layer, state: Dict[str, object], *args,
+                    return_buffers=False, **kwargs):
+    """Runs ``layer`` with the payloads of ``state`` (name -> ``Tensor``,
+    torch tensor or array) in place of its own, and puts its own back
+    after. With ``return_buffers``, also the buffers' payloads as the run
+    left them (a batch norm's running statistics)."""
+    own = layer.state_dict()
+    originals = {}
+    try:
+        for name, t in own.items():
+            if name in state:
+                new = state[name]
+                raw = new._t if isinstance(new, Tensor) else new \
+                    if isinstance(new, torch.Tensor) else \
+                    to_tensor(new, place=t._t.device)._t
+                originals[name] = (t, t._t)
+                t._t = raw
+        out = layer(*args, **kwargs)
+        if return_buffers:
+            return out, {name: t._t for name, t in layer.state_dict().items()
+                         if not isinstance(t, Parameter)}
+        return out
+    finally:
+        for name, (t, old) in originals.items():
+            t._t = old

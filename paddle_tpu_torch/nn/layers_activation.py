@@ -3,12 +3,16 @@
 from __future__ import annotations
 
 from . import functional as F
-from .layer import Layer
+from . import initializer as I
+from .layer import Layer, create_parameter
 
 __all__ = ["ReLU", "ReLU6", "GELU", "Sigmoid", "Tanh", "Silu", "Swish",
-           "Mish", "LeakyReLU", "ELU", "Hardswish", "Hardsigmoid",
-           "Softplus", "LogSoftmax", "Softmax", "CrossEntropyLoss",
-           "MSELoss", "L1Loss", "NLLLoss", "BCEWithLogitsLoss"]
+           "Mish", "LeakyReLU", "ELU", "CELU", "SELU", "Hardswish",
+           "Hardsigmoid", "Hardtanh", "Hardshrink", "Softshrink", "Softplus",
+           "Softsign", "Tanhshrink", "ThresholdedReLU", "LogSoftmax", "GLU",
+           "Softmax", "PReLU", "CrossEntropyLoss", "MSELoss", "L1Loss",
+           "NLLLoss", "BCELoss", "BCEWithLogitsLoss", "SmoothL1Loss",
+           "KLDivLoss", "MarginRankingLoss"]
 
 
 def _act_layer(name, fn):
@@ -36,10 +40,19 @@ Swish = Silu
 Mish = _act_layer("Mish", F.mish)
 LeakyReLU = _act_layer("LeakyReLU", F.leaky_relu)
 ELU = _act_layer("ELU", F.elu)
+CELU = _act_layer("CELU", F.celu)
+SELU = _act_layer("SELU", F.selu)
 Hardswish = _act_layer("Hardswish", F.hardswish)
 Hardsigmoid = _act_layer("Hardsigmoid", F.hardsigmoid)
+Hardtanh = _act_layer("Hardtanh", F.hardtanh)
+Hardshrink = _act_layer("Hardshrink", F.hardshrink)
+Softshrink = _act_layer("Softshrink", F.softshrink)
 Softplus = _act_layer("Softplus", F.softplus)
+Softsign = _act_layer("Softsign", F.softsign)
+Tanhshrink = _act_layer("Tanhshrink", F.tanhshrink)
+ThresholdedReLU = _act_layer("ThresholdedReLU", F.thresholded_relu)
 LogSoftmax = _act_layer("LogSoftmax", F.log_softmax)
+GLU = _act_layer("GLU", F.glu)
 
 
 class Softmax(Layer):
@@ -49,6 +62,22 @@ class Softmax(Layer):
 
     def forward(self, x):
         return F.softmax(x, self.axis)
+
+
+class PReLU(Layer):
+    """``F.prelu`` with a learned slope (``num_parameters`` of them, one
+    per channel when more than one), initialised to ``init``."""
+
+    def __init__(self, num_parameters=1, init=0.25, weight_attr=None,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self._data_format = data_format
+        self.weight = create_parameter(
+            [num_parameters], attr=weight_attr,
+            default_initializer=I.Constant(init))
+
+    def forward(self, x):
+        return F.prelu(x, self.weight, self._data_format)
 
 
 # ------------------------------------------------------------------ losses
@@ -116,3 +145,45 @@ class BCEWithLogitsLoss(Layer):
     def forward(self, logit, label):
         return F.binary_cross_entropy_with_logits(
             logit, label, self.weight, self.reduction, self.pos_weight)
+
+
+class BCELoss(Layer):
+    def __init__(self, weight=None, reduction="mean", name=None):
+        super().__init__()
+        self.weight = weight
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.binary_cross_entropy(input, label, self.weight,
+                                      self.reduction)
+
+
+class SmoothL1Loss(Layer):
+    def __init__(self, reduction="mean", delta=1.0, name=None):
+        super().__init__()
+        self.reduction = reduction
+        self.delta = delta
+
+    def forward(self, input, label):
+        return F.smooth_l1_loss(input, label, self.reduction, self.delta)
+
+
+class KLDivLoss(Layer):
+    def __init__(self, reduction="mean", log_target=False):
+        super().__init__()
+        self.reduction = reduction
+        self.log_target = log_target
+
+    def forward(self, input, label):
+        return F.kl_div(input, label, self.reduction, self.log_target)
+
+
+class MarginRankingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input, other, label):
+        return F.margin_ranking_loss(input, other, label, self.margin,
+                                     self.reduction)

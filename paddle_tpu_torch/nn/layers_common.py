@@ -14,12 +14,15 @@ from . import functional as F
 from . import initializer as I
 from .layer import Layer, create_parameter
 
-__all__ = ["Linear", "Embedding", "Dropout", "Flatten", "Identity",
-           "Conv1D", "Conv2D", "Conv2DTranspose", "BatchNorm1D",
+__all__ = ["Linear", "Embedding", "Dropout", "Dropout2D", "Flatten",
+           "Identity", "Conv1D", "Conv2D", "Conv2DTranspose", "BatchNorm1D",
            "BatchNorm2D", "BatchNorm3D", "BatchNorm", "SyncBatchNorm",
-           "LayerNorm", "GroupNorm", "InstanceNorm2D", "MaxPool2D",
-           "AvgPool2D", "MaxPool1D", "AvgPool1D", "AdaptiveAvgPool2D",
-           "AdaptiveMaxPool2D", "LayerList", "Sequential"]
+           "LayerNorm", "RMSNorm", "GroupNorm", "InstanceNorm2D",
+           "MaxPool2D", "AvgPool2D", "MaxPool1D", "AvgPool1D",
+           "AdaptiveAvgPool2D", "AdaptiveMaxPool2D", "LayerList",
+           "Sequential", "LayerDict", "ParameterList", "Upsample",
+           "UpsamplingBilinear2D", "Pad2D", "CosineSimilarity", "Bilinear",
+           "Unfold"]
 
 
 class Linear(Layer):
@@ -409,3 +412,150 @@ class LayerList(Layer):
 
     def __iter__(self):
         return iter(self._sub_layers.values())
+
+
+class Dropout2D(Layer):
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout2d(x, self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class RMSNorm(Layer):
+    """``F.rms_norm`` with a weight (ones) and, unless ``bias_attr`` is
+    False (the default), a bias."""
+
+    def __init__(self, hidden_size, epsilon=1e-6, weight_attr=None,
+                 bias_attr=False, name=None):
+        super().__init__()
+        self._epsilon = epsilon
+        self.weight = create_parameter(
+            [hidden_size], attr=weight_attr,
+            default_initializer=I.Constant(1.0))
+        self.bias = None if bias_attr is False else create_parameter(
+            [hidden_size], attr=bias_attr, is_bias=True)
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, self.bias, self._epsilon)
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size, self.scale_factor = size, scale_factor
+        self.mode, self.align_corners = mode, align_corners
+        self.align_mode, self.data_format = align_mode, data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.align_mode,
+                             data_format=self.data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", True,
+                         data_format=data_format)
+
+
+class Pad2D(Layer):
+    """``F.pad`` of the last two axes of an NCHW input (the reference pads
+    those whatever ``data_format`` says: the port refuses NHWC)."""
+
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        if data_format != "NCHW":
+            raise NotImplementedError("Pad2D: the reference pads NCHW only")
+        self.padding, self.mode, self.value = padding, mode, value
+
+    def forward(self, x):
+        return F.pad(x, self.padding, self.mode, self.value)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis, self.eps = axis, eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, self.axis, self.eps)
+
+
+class Bilinear(Layer):
+    """``x1^T W_o x2 + b``; weight ``[out, in1, in2]``, bias ``[1, out]``."""
+
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None):
+        super().__init__()
+        self.weight = create_parameter(
+            [out_features, in1_features, in2_features], attr=weight_attr)
+        self.bias = None if bias_attr is False else create_parameter(
+            [1, out_features], attr=bias_attr, is_bias=True)
+
+    def forward(self, x1, x2):
+        return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.unfold(x, *self.args)
+
+
+class LayerDict(Layer):
+    def __init__(self, sublayers=None):
+        super().__init__()
+        if sublayers:
+            for k, v in (sublayers.items() if isinstance(sublayers, dict)
+                         else sublayers):
+                self.add_sublayer(k, v)
+
+    def __getitem__(self, key):
+        return self._sub_layers[key]
+
+    def __setitem__(self, key, layer):
+        self.add_sublayer(key, layer)
+
+    def __len__(self):
+        return len(self._sub_layers)
+
+    def keys(self):
+        return self._sub_layers.keys()
+
+    def items(self):
+        return self._sub_layers.items()
+
+    def values(self):
+        return self._sub_layers.values()
+
+
+class ParameterList(Layer):
+    def __init__(self, parameters=None):
+        super().__init__()
+        for i, p in enumerate(parameters or ()):
+            self.register_parameter(str(i), p)
+
+    def append(self, parameter):
+        self.register_parameter(str(len(self._parameters)), parameter)
+        return self
+
+    def __getitem__(self, idx):
+        return self._parameters[str(idx)]
+
+    def __len__(self):
+        return len(self._parameters)
+
+    def __iter__(self):
+        return iter(self._parameters.values())

@@ -66,6 +66,11 @@ def gelu(x, *, approximate=False, name=None):
     return call('gelu', x, approximate=approximate)
 
 
+def log_sigmoid(x, name=None):
+    """Generated from ops.yaml (op: log_sigmoid)."""
+    return call('log_sigmoid', x)
+
+
 def flip(x, *, axes, name=None):
     """Generated from ops.yaml (op: flip)."""
     return call('flip', x, axes=axes)
@@ -76,9 +81,24 @@ def tile(x, *, reps, name=None):
     return call('tile', x, reps=reps)
 
 
+def one_hot_k(x, *, num_classes, name=None):
+    """Generated from ops.yaml (op: one_hot_k)."""
+    return call('one_hot_k', x, num_classes=num_classes)
+
+
+def gather_tree(ids, parents, name=None):
+    """Generated from ops.yaml (op: gather_tree)."""
+    return call('gather_tree', ids, parents)
+
+
 def top_p_sampling(x, ps, *, seed, name=None):
     """Generated from ops.yaml (op: top_p_sampling)."""
     return call('top_p_sampling', x, ps, seed=seed)
+
+
+def margin_cross_entropy(logits, label, *, margin1=1.0, margin2=0.5, margin3=0.0, scale=64.0, name=None):
+    """Generated from ops.yaml (op: margin_cross_entropy)."""
+    return call('margin_cross_entropy', logits, label, margin1=margin1, margin2=margin2, margin3=margin3, scale=scale)
 
 
 def gammainc_(a, x, name=None):
@@ -151,9 +171,336 @@ def linalg_vector_norm(x, *, p=2.0, axis=None, keepdim=False, name=None):
     return call('linalg_vector_norm', x, p=p, axis=axis, keepdim=keepdim)
 
 
+def celu(x, *, alpha, name=None):
+    """Generated from ops.yaml (op: celu)."""
+    return call('celu', x, alpha=alpha)
+
+
+def elu(x, *, alpha, name=None):
+    """Generated from ops.yaml (op: elu)."""
+    return call('elu', x, alpha=alpha)
+
+
+def glu_k(x, *, axis, name=None):
+    """Generated from ops.yaml (op: glu_k)."""
+    return call('glu_k', x, axis=axis)
+
+
+def hardshrink(x, *, threshold, name=None):
+    """Generated from ops.yaml (op: hardshrink)."""
+    return call('hardshrink', x, threshold=threshold)
+
+
+def hardtanh(x, *, mn, mx, name=None):
+    """Generated from ops.yaml (op: hardtanh)."""
+    return call('hardtanh', x, mn=mn, mx=mx)
+
+
+def leaky_relu(x, *, negative_slope, name=None):
+    """Generated from ops.yaml (op: leaky_relu)."""
+    return call('leaky_relu', x, negative_slope=negative_slope)
+
+
+def log_softmax(x, *, axis, name=None):
+    """Generated from ops.yaml (op: log_softmax)."""
+    return call('log_softmax', x, axis=axis)
+
+
+def prelu_k(x, w, name=None):
+    """Generated from ops.yaml (op: prelu_k)."""
+    return call('prelu_k', x, w)
+
+
+def selu(x, *, scale, alpha, name=None):
+    """Generated from ops.yaml (op: selu)."""
+    return call('selu', x, scale=scale, alpha=alpha)
+
+
+def softplus(x, *, beta, threshold, name=None):
+    """Generated from ops.yaml (op: softplus)."""
+    return call('softplus', x, beta=beta, threshold=threshold)
+
+
+def softshrink(x, *, threshold, name=None):
+    """Generated from ops.yaml (op: softshrink)."""
+    return call('softshrink', x, threshold=threshold)
+
+
+def thresholded_relu(x, *, threshold, value, name=None):
+    """Generated from ops.yaml (op: thresholded_relu)."""
+    return call('thresholded_relu', x, threshold=threshold, value=value)
+
+
+def sdpa(q, k, v, mask=None, dropout_key=_REQUIRED, *, dropout_p, causal, scale, training, name=None):
+    """Generated from ops.yaml (op: sdpa)."""
+    if dropout_key is _REQUIRED:
+        raise TypeError("sdpa() missing required argument: 'dropout_key'")
+    return call('sdpa', q, k, v, mask, dropout_key, dropout_p=dropout_p, causal=causal, scale=scale, training=training)
+
+
+def bilinear_k(x1, x2, w, b=None, name=None):
+    """Generated from ops.yaml (op: bilinear_k)."""
+    return call('bilinear_k', x1, x2, w, b)
+
+
+def cosine_similarity_k(x, y, *, axis, eps, name=None):
+    """Generated from ops.yaml (op: cosine_similarity_k)."""
+    return call('cosine_similarity_k', x, y, axis=axis, eps=eps)
+
+
 def dropout_k(x, key, *, p, mode, name=None):
     """Generated from ops.yaml (op: dropout_k)."""
     return call('dropout_k', x, key, p=p, mode=mode)
+
+
+def interpolate_k(x, *, size, mode, align_corners, data_format, name=None):
+    """Generated from ops.yaml (op: interpolate_k)."""
+    return call('interpolate_k', x, size=size, mode=mode, align_corners=align_corners, data_format=data_format)
+
+
+def normalize_k(x, *, p, axis, eps, name=None):
+    """Generated from ops.yaml (op: normalize_k)."""
+    return call('normalize_k', x, p=p, axis=axis, eps=eps)
+
+
+def unfold_k(x, *, ks, st, pd, dl, name=None):
+    """Generated from ops.yaml (op: unfold_k)."""
+    return call('unfold_k', x, ks=ks, st=st, pd=pd, dl=dl)
+
+
+def conv2d(x, w, b=None, *, stride, padding, dilation, groups, dims, fmt, name=None):
+    """Generated from ops.yaml (op: conv2d)."""
+    return call('conv2d', x, w, b, stride=stride, padding=padding, dilation=dilation, groups=groups, dims=dims, fmt=fmt)
+
+
+def conv2d_transpose(x, w, b=None, *, stride, padding, output_padding, dilation, groups, dims, fmt, name=None):
+    """Generated from ops.yaml (op: conv2d_transpose)."""
+    return call('conv2d_transpose', x, w, b, stride=stride, padding=padding, output_padding=output_padding, dilation=dilation, groups=groups, dims=dims, fmt=fmt)
+
+
+def affine_grid_k(theta, *, oshape, align_corners, name=None):
+    """Generated from ops.yaml (op: affine_grid_k)."""
+    return call('affine_grid_k', theta, oshape=oshape, align_corners=align_corners)
+
+
+def channel_shuffle_k(x, *, g, name=None):
+    """Generated from ops.yaml (op: channel_shuffle_k)."""
+    return call('channel_shuffle_k', x, g=g)
+
+
+def conv3d_transpose_k(x, w, b=None, *, stride, padding, output_padding, dilation, groups, name=None):
+    """Generated from ops.yaml (op: conv3d_transpose_k)."""
+    return call('conv3d_transpose_k', x, w, b, stride=stride, padding=padding, output_padding=output_padding, dilation=dilation, groups=groups)
+
+
+def ctc_loss_k(log_probs, labels, input_lengths, label_lengths, *, blank, reduction, name=None):
+    """Generated from ops.yaml (op: ctc_loss_k)."""
+    return call('ctc_loss_k', log_probs, labels, input_lengths, label_lengths, blank=blank, reduction=reduction)
+
+
+def dice_loss_k(input, label, *, epsilon, name=None):
+    """Generated from ops.yaml (op: dice_loss_k)."""
+    return call('dice_loss_k', input, label, epsilon=epsilon)
+
+
+def fold_k(x, *, oshape, ksizes, strides, pads, dilations, name=None):
+    """Generated from ops.yaml (op: fold_k)."""
+    return call('fold_k', x, oshape=oshape, ksizes=ksizes, strides=strides, pads=pads, dilations=dilations)
+
+
+def gaussian_nll_loss_k(x, y, var, *, full, epsilon, reduction, name=None):
+    """Generated from ops.yaml (op: gaussian_nll_loss_k)."""
+    return call('gaussian_nll_loss_k', x, y, var, full=full, epsilon=epsilon, reduction=reduction)
+
+
+def grid_sample_k(x, grid, *, mode, padding_mode, align_corners, name=None):
+    """Generated from ops.yaml (op: grid_sample_k)."""
+    return call('grid_sample_k', x, grid, mode=mode, padding_mode=padding_mode, align_corners=align_corners)
+
+
+def hinge_loss_k(logit, label, name=None):
+    """Generated from ops.yaml (op: hinge_loss_k)."""
+    return call('hinge_loss_k', logit, label)
+
+
+def hsigmoid_loss_k(x, lbl_in, w, bias, *, num_classes, name=None):
+    """Generated from ops.yaml (op: hsigmoid_loss_k)."""
+    return call('hsigmoid_loss_k', x, lbl_in, w, bias, num_classes=num_classes)
+
+
+def huber_loss_k(x, y, *, delta, reduction, name=None):
+    """Generated from ops.yaml (op: huber_loss_k)."""
+    return call('huber_loss_k', x, y, delta=delta, reduction=reduction)
+
+
+def log_loss_k(input, label, *, epsilon, name=None):
+    """Generated from ops.yaml (op: log_loss_k)."""
+    return call('log_loss_k', input, label, epsilon=epsilon)
+
+
+def max_unpool2d_k(x, indices, *, oh, ow, name=None):
+    """Generated from ops.yaml (op: max_unpool2d_k)."""
+    return call('max_unpool2d_k', x, indices, oh=oh, ow=ow)
+
+
+def maxout_k(x, *, groups, axis, name=None):
+    """Generated from ops.yaml (op: maxout_k)."""
+    return call('maxout_k', x, groups=groups, axis=axis)
+
+
+def multi_label_soft_margin_loss_k(x, y, w=None, *, reduction, name=None):
+    """Generated from ops.yaml (op: multi_label_soft_margin_loss_k)."""
+    return call('multi_label_soft_margin_loss_k', x, y, w, reduction=reduction)
+
+
+def npair_loss_k(a, p, lbl, *, l2_reg, name=None):
+    """Generated from ops.yaml (op: npair_loss_k)."""
+    return call('npair_loss_k', a, p, lbl, l2_reg=l2_reg)
+
+
+def pairwise_distance_k(x, y, *, p, epsilon, keepdim, name=None):
+    """Generated from ops.yaml (op: pairwise_distance_k)."""
+    return call('pairwise_distance_k', x, y, p=p, epsilon=epsilon, keepdim=keepdim)
+
+
+def pixel_shuffle_k(x, *, r, name=None):
+    """Generated from ops.yaml (op: pixel_shuffle_k)."""
+    return call('pixel_shuffle_k', x, r=r)
+
+
+def pixel_unshuffle_k(x, *, r, name=None):
+    """Generated from ops.yaml (op: pixel_unshuffle_k)."""
+    return call('pixel_unshuffle_k', x, r=r)
+
+
+def poisson_nll_loss_k(x, y, *, log_input, full, epsilon, reduction, name=None):
+    """Generated from ops.yaml (op: poisson_nll_loss_k)."""
+    return call('poisson_nll_loss_k', x, y, log_input=log_input, full=full, epsilon=epsilon, reduction=reduction)
+
+
+def soft_margin_loss_k(x, y, *, reduction, name=None):
+    """Generated from ops.yaml (op: soft_margin_loss_k)."""
+    return call('soft_margin_loss_k', x, y, reduction=reduction)
+
+
+def square_error_cost_k(input, label, name=None):
+    """Generated from ops.yaml (op: square_error_cost_k)."""
+    return call('square_error_cost_k', input, label)
+
+
+def temporal_shift_k(x, *, seg_num, shift_ratio, name=None):
+    """Generated from ops.yaml (op: temporal_shift_k)."""
+    return call('temporal_shift_k', x, seg_num=seg_num, shift_ratio=shift_ratio)
+
+
+def triplet_margin_loss_k(x, pos_, neg, *, margin, p, epsilon, swap, reduction, name=None):
+    """Generated from ops.yaml (op: triplet_margin_loss_k)."""
+    return call('triplet_margin_loss_k', x, pos_, neg, margin=margin, p=p, epsilon=epsilon, swap=swap, reduction=reduction)
+
+
+def bce_k(x, y, weight=None, *, use_weight, reduction, name=None):
+    """Generated from ops.yaml (op: bce_k)."""
+    return call('bce_k', x, y, weight, use_weight=use_weight, reduction=reduction)
+
+
+def bce_logits_k(x, y, weight=None, pos_weight=None, *, use_weight, use_pos, reduction, name=None):
+    """Generated from ops.yaml (op: bce_logits_k)."""
+    return call('bce_logits_k', x, y, weight, pos_weight, use_weight=use_weight, use_pos=use_pos, reduction=reduction)
+
+
+def kl_div_k(x, y, *, reduction, log_target, name=None):
+    """Generated from ops.yaml (op: kl_div_k)."""
+    return call('kl_div_k', x, y, reduction=reduction, log_target=log_target)
+
+
+def l1_loss_k(x, y, *, reduction, name=None):
+    """Generated from ops.yaml (op: l1_loss_k)."""
+    return call('l1_loss_k', x, y, reduction=reduction)
+
+
+def mse_loss_k(x, y, *, reduction, name=None):
+    """Generated from ops.yaml (op: mse_loss_k)."""
+    return call('mse_loss_k', x, y, reduction=reduction)
+
+
+def nll_loss_k(logp, label, weight=None, *, use_weight, ignore_index, reduction, name=None):
+    """Generated from ops.yaml (op: nll_loss_k)."""
+    return call('nll_loss_k', logp, label, weight, use_weight=use_weight, ignore_index=ignore_index, reduction=reduction)
+
+
+def sigmoid_focal_k(x, y, norm, *, alpha, gamma, use_norm, name=None):
+    """Generated from ops.yaml (op: sigmoid_focal_k)."""
+    return call('sigmoid_focal_k', x, y, norm, alpha=alpha, gamma=gamma, use_norm=use_norm)
+
+
+def smooth_l1_k(x, y, *, reduction, delta, name=None):
+    """Generated from ops.yaml (op: smooth_l1_k)."""
+    return call('smooth_l1_k', x, y, reduction=reduction, delta=delta)
+
+
+def softmax_ce(logits, label, weight=None, *, soft_label, ignore_index, axis, reduction, label_smoothing, use_weight, name=None):
+    """Generated from ops.yaml (op: softmax_ce)."""
+    return call('softmax_ce', logits, label, weight, soft_label=soft_label, ignore_index=ignore_index, axis=axis, reduction=reduction, label_smoothing=label_smoothing, use_weight=use_weight)
+
+
+def bn_apply(x, mean, var, w, b, *, eps, fmt, name=None):
+    """Generated from ops.yaml (op: bn_apply)."""
+    return call('bn_apply', x, mean, var, w, b, eps=eps, fmt=fmt)
+
+
+def bn_stats(x, *, fmt, name=None):
+    """Generated from ops.yaml (op: bn_stats)."""
+    return call('bn_stats', x, fmt=fmt)
+
+
+def group_norm(x, w=None, b=None, *, groups, eps, fmt, name=None):
+    """Generated from ops.yaml (op: group_norm)."""
+    return call('group_norm', x, w, b, groups=groups, eps=eps, fmt=fmt)
+
+
+def layer_norm(x, w, b, *, eps, norm_ndim, name=None):
+    """Generated from ops.yaml (op: layer_norm)."""
+    return call('layer_norm', x, w, b, eps=eps, norm_ndim=norm_ndim)
+
+
+def local_response_norm_k(x, *, size, alpha, beta, k, fmt, name=None):
+    """Generated from ops.yaml (op: local_response_norm_k)."""
+    return call('local_response_norm_k', x, size=size, alpha=alpha, beta=beta, k=k, fmt=fmt)
+
+
+def rms_norm(x, w, b=None, *, eps, name=None):
+    """Generated from ops.yaml (op: rms_norm)."""
+    return call('rms_norm', x, w, b, eps=eps)
+
+
+def adaptive_avg_pool2d(x, *, out_hw, fmt, name=None):
+    """Generated from ops.yaml (op: adaptive_avg_pool2d)."""
+    return call('adaptive_avg_pool2d', x, out_hw=out_hw, fmt=fmt)
+
+
+def adaptive_max_pool2d(x, *, out_hw, fmt, name=None):
+    """Generated from ops.yaml (op: adaptive_max_pool2d)."""
+    return call('adaptive_max_pool2d', x, out_hw=out_hw, fmt=fmt)
+
+
+def avg_pool_nd(x, *, ksize, stride, padding, ceil_mode, fmt, exclusive, divisor, name=None):
+    """Generated from ops.yaml (op: avg_pool_nd)."""
+    return call('avg_pool_nd', x, ksize=ksize, stride=stride, padding=padding, ceil_mode=ceil_mode, fmt=fmt, exclusive=exclusive, divisor=divisor)
+
+
+def max_pool_nd(x, *, ksize, stride, padding, ceil_mode, fmt, with_index, name=None):
+    """Generated from ops.yaml (op: max_pool_nd)."""
+    return call('max_pool_nd', x, ksize=ksize, stride=stride, padding=padding, ceil_mode=ceil_mode, fmt=fmt, with_index=with_index)
+
+
+def max_pool_nd_index(*a, name=None):
+    """Generated from ops.yaml (op: max_pool_nd_index)."""
+    return call('max_pool_nd_index', *a)
+
+
+def max_unpool2d(x, indices, *, out_h, out_w, name=None):
+    """Generated from ops.yaml (op: max_unpool2d)."""
+    return call('max_unpool2d', x, indices, out_h=out_h, out_w=out_w)
 
 
 def abs(x, name=None):
@@ -1169,6 +1516,11 @@ def take_along_axis_(x, idx, *, axis, name=None):
 def where_(c, x, y, name=None):
     """Generated from ops.yaml (op: where_)."""
     return call('where_', c, x, y)
+
+
+def conv3d(x, w, b=None, *, stride, padding, dilation, groups, name=None):
+    """Generated from ops.yaml (op: conv3d)."""
+    return call('conv3d', x, w, b, stride=stride, padding=padding, dilation=dilation, groups=groups)
 
 
 def accuracy_k(pred_idx, label, name=None):

@@ -934,6 +934,272 @@ case("top_p_sampling_seeded", lambda P, p, ps: P.top_p_sampling(
                                                         (S.x[0],))],
      ops=("top_p_sampling",), group="search")
 
+# ---- nn.functional: the activations, attention, common, conv, pooling,
+# norm, loss and extended ops (their shapes at FULL chosen for phase 12's
+# CPU side, which runs each on the host)
+_GROUP[0] = "nn"
+
+
+def _by(small, full):
+    """A shape: ``small`` at SMALL, ``full`` at any other size."""
+    return lambda S: small if S == SMALL else full
+
+
+_CHW = _by((2, 4, 6, 8), (8, 32, 64, 64))          # NCHW images
+_VOL = _by((2, 2, 4, 5, 6), (4, 8, 16, 32, 32))    # NCDHW volumes
+_ROWS = _by((6, 5), (4096, 1024))                  # [N, C] logits
+_ATT = _by((2, 6, 2, 8), (8, 256, 8, 64))          # [B, S, H, D]
+_PAIRS = _by((6, 8), (4096, 128))                  # [N, D] embeddings
+_UNIT = U(0.05, 0.95)
+_ACTS = [
+    ("celu", lambda F, x: F.celu(x, 1.3), ("celu",)),
+    ("elu", lambda F, x: F.elu(x, 0.7), ("elu",)),
+    ("selu", lambda F, x: F.selu(x), ("selu",)),
+    ("hardtanh", lambda F, x: F.hardtanh(x, -0.5, 0.7), ("hardtanh",)),
+    ("hardshrink", lambda F, x: F.hardshrink(x, 0.3), ("hardshrink",)),
+    ("softshrink", lambda F, x: F.softshrink(x, 0.3), ("softshrink",)),
+    ("thresholded_relu", lambda F, x: F.thresholded_relu(x, 0.2, 0.1),
+     ("thresholded_relu",)),
+    ("leaky_relu", lambda F, x: F.leaky_relu(x, 0.05), ("leaky_relu",)),
+    ("softplus", lambda F, x: (F.softplus(x), F.softplus(x, 2.0, 5.0)),
+     ("softplus",)),
+    ("log_sigmoid", lambda F, x: F.log_sigmoid(x), ("log_sigmoid",)),
+    ("log_softmax", lambda F, x: F.log_softmax(x, -1), ("log_softmax",)),
+    ("glu", lambda F, x: F.glu(x, -1), ("glu_k",)),
+]
+for _n, _f, _ops in _ACTS:
+    case(f"nn_{_n}", (lambda f: lambda P, x: f(F(P), x))(_f), [U(-3, 3)],
+         ops=_ops, grad=(0,), low=True,
+         family="composite" if _n in ("log_softmax", "glu", "selu",
+                                      "celu", "elu", "softplus",
+                                      "log_sigmoid") else "exact")
+case("nn_prelu", lambda P, x, w: (F(P).prelu(x, w),
+                                  F(P).prelu(x, w[:1])),
+     [U(-3, 3), U(0.0, 0.5, lambda S: (S.x[1],))], ops=("prelu_k",),
+     grad=(0, 1))
+case("nn_sdpa", lambda P, q, k, v, m: (
+    F(P).scaled_dot_product_attention(q, k, v, is_causal=True),
+    F(P).scaled_dot_product_attention(q, k, v, m)),
+     [Spec("n", _ATT), Spec("n", _ATT), Spec("n", _ATT),
+      Spec("n", lambda S: (1, _ATT(S)[2], _ATT(S)[1], _ATT(S)[1]))],
+     ops=("sdpa",), grad=(0, 1, 2), family="matmul")
+case("nn_common", lambda P, x, y: (
+    F(P).cosine_similarity(x, y, axis=1), F(P).normalize(x, 2, 1),
+    F(P).normalize(x, 1, -1), F(P).label_smooth(F(P).softmax(y, -1))),
+     [N, N], ops=("cosine_similarity_k", "normalize_k", "softmax"),
+     grad=(0, 1))
+case("nn_bilinear", lambda P, a, b, w, bias: F(P).bilinear(a, b, w, bias),
+     [Spec("n", _by((5, 4), (4096, 32))), Spec("n", _by((5, 3), (4096, 32))),
+      Spec("n", _by((6, 4, 3), (64, 32, 32))),
+      Spec("n", _by((1, 6), (1, 64)))],
+     ops=("bilinear_k",), grad=(0, 1, 2, 3), family="matmul")
+case("nn_interpolate", lambda P, x: tuple(
+    F(P).interpolate(x, size=s, mode=m, align_corners=a)
+    for m, a, s in (("nearest", False, (11, 5)),
+                    ("bilinear", False, (11, 13)),
+                    ("bilinear", False, (3, 5)),
+                    ("bicubic", False, (9, 15)),
+                    ("area", False, (3, 4)),
+                    ("bilinear", True, (11, 13)),
+                    ("bicubic", True, (4, 10)))),
+     [Spec("n", _CHW)], ops=("interpolate_k",), grad=(0,), family="matmul")
+case("nn_fold", lambda P, x, c: (
+    F(P).unfold(x, 3, 1, 1), F(P).unfold(x, [2, 3], 2, 0, [1, 2]),
+    F(P).fold(c, x.shape[2:], 3, 1, 1)),
+     [Spec("n", _CHW), Spec("n", lambda S: (
+         _CHW(S)[0], _CHW(S)[1] * 9, _CHW(S)[2] * _CHW(S)[3]))],
+     ops=("unfold_k", "fold_k"), grad=(0, 1))
+case("nn_conv", lambda P, x, w, b, wt: (
+    F(P).conv2d(x, w, b, padding=1), F(P).conv2d(x, w, None, stride=2),
+    F(P).conv2d(P.transpose(x, [0, 2, 3, 1]), w, b, padding="SAME",
+                data_format="NHWC"),
+    F(P).conv2d_transpose(x, wt, None, stride=2, padding=1)),
+     [Spec("n", _CHW), Spec("n", lambda S: (6, _CHW(S)[1], 3, 3)),
+      Spec("n", (6,)), Spec("n", lambda S: (_CHW(S)[1], 5, 3, 3))],
+     ops=("conv2d", "conv2d_transpose"), grad=(0, 1, 2, 3),
+     family="matmul")
+case("nn_conv3d", lambda P, x, w, b, wt: (
+    F(P).conv3d(x, w, b, padding=1), F(P).conv3d(x, w, None, stride=2),
+    F(P).conv3d_transpose(x, wt, None, stride=2, padding=1)),
+     [Spec("n", _VOL), Spec("n", lambda S: (4, _VOL(S)[1], 3, 3, 3)),
+      Spec("n", (4,)), Spec("n", lambda S: (_VOL(S)[1], 3, 3, 3, 3))],
+     ops=("conv3d", "conv3d_transpose_k"), grad=(0, 1, 2, 3),
+     family="matmul")
+
+
+def _pools(P, x):
+    f = F(P)
+    out, idx = f.max_pool2d(x, 2, return_mask=True)
+    return (f.max_pool2d(x, 3, 2, 1), out, idx,
+            f.avg_pool2d(x, 3, 2, 1, ceil_mode=True, exclusive=False),
+            f.adaptive_avg_pool2d(x, (3, 5)), f.adaptive_max_pool2d(x, 3),
+            f.max_unpool2d(out, idx, 2), f.lp_pool2d(P.abs(x) + 0.1, 2, 2),
+            # the reference's op max_unpool2d (nn/functional/pooling.py)
+            # raises NameError (it calls jax unimported): its extended
+            # max_unpool2d_k, the same function, stands in on its side
+            gen(P).max_unpool2d(out, idx, out_h=x.shape[2],
+                                out_w=x.shape[3])
+            if P.__name__ == "paddle_tpu_torch" else
+            f.max_unpool2d(out, idx, 2))
+
+
+case("nn_pool", _pools, [Spec("n", _CHW)],
+     ops=("max_pool_nd", "max_pool_nd_index", "avg_pool_nd",
+          "adaptive_avg_pool2d", "adaptive_max_pool2d", "max_unpool2d_k",
+          "max_unpool2d"), grad=(0,))
+case("nn_pool3d", lambda P, x: (
+    F(P).max_pool3d(x, 2), F(P).max_pool3d(x, 2, return_mask=True),
+    F(P).avg_pool3d(x, 3, 2, 1), F(P).avg_pool3d(x, 2, exclusive=False)),
+     [Spec("n", _VOL)], ops=("max_pool_nd", "max_pool_nd_index",
+                             "avg_pool_nd"), grad=(0,))
+
+
+def _norms(P, x, w, b, rm, rv):
+    f = F(P)
+    c = x.shape[1]
+    return (f.layer_norm(x, x.shape[-1], w, b), f.rms_norm(x, w, b),
+            f.group_norm(x, 2, 1e-5, w[:c], b[:c]),
+            # the running statistics normalise before the training call
+            # updates them: the reference's update (a set_value under
+            # no_grad in its fusion window) leaks the batch statistics'
+            # gradient into a later call's, which the port does not
+            f.batch_norm(x, rm, rv, w[:c], b[:c], training=False),
+            f.batch_norm(x, rm, rv, w[:c], b[:c], training=True),
+            f.instance_norm(x), f.local_response_norm(x, 3),
+            f.local_response_norm(P.transpose(x, [0, 2, 3, 1]), 2,
+                                  data_format="NHWC"))
+
+
+case("nn_norm", _norms,
+     [Spec("n", _CHW), Spec("n", lambda S: (_CHW(S)[3],)),
+      Spec("n", lambda S: (_CHW(S)[3],)),
+      Spec("n", lambda S: (_CHW(S)[1],)),
+      Spec("u", lambda S: (_CHW(S)[1],), 0.5, 2.0)],
+     ops=("layer_norm", "rms_norm", "group_norm", "bn_stats", "bn_apply",
+          "local_response_norm_k"), grad=(0, 1, 2), family="reduce")
+
+
+def _ce(P, x, lbl, soft, w):
+    f = F(P)
+    return (f.cross_entropy(x, lbl), f.cross_entropy(x, lbl, w),
+            f.cross_entropy(x, lbl, label_smoothing=0.1),
+            f.cross_entropy(x, lbl, ignore_index=1, reduction="sum"),
+            f.cross_entropy(x, f.softmax(soft, -1), soft_label=True),
+            f.cross_entropy(f.softmax(x, -1), lbl, use_softmax=False),
+            f.softmax_with_cross_entropy(x, P.unsqueeze(lbl, -1)),
+            f.nll_loss(f.log_softmax(x, -1), lbl, w, reduction="none"),
+            f.one_hot(lbl, x.shape[-1]))
+
+
+case("nn_cross_entropy", _ce,
+     [Spec("n", _ROWS), I(0, 5, lambda S: _ROWS(S)[:1]), Spec("n", _ROWS),
+      U(0.5, 2.0, lambda S: _ROWS(S)[1:])],
+     ops=("softmax_ce", "nll_loss_k", "one_hot_k", "log"),
+     grad=(0, 2, 3), family="reduce")
+
+
+def _pointwise_losses(P, x, y, p, t):
+    f = F(P)
+    return (f.mse_loss(x, y), f.l1_loss(x, y, "sum"),
+            f.smooth_l1_loss(x, y, delta=0.5),
+            f.binary_cross_entropy(p, t), f.binary_cross_entropy(p, t, y * y),
+            f.binary_cross_entropy_with_logits(x, t, pos_weight=y * y),
+            f.kl_div(f.log_softmax(x, -1), f.softmax(y, -1), "batchmean"),
+            f.kl_div(x, y, "sum", log_target=True),
+            f.sigmoid_focal_loss(x, t),
+            f.huber_loss(x, y, 0.5), f.hinge_loss(x, t),
+            f.log_loss(p, t), f.square_error_cost(x, y),
+            f.soft_margin_loss(x, 2 * t - 1),
+            f.multi_label_soft_margin_loss(x, t),
+            f.gaussian_nll_loss(x, y, p), f.poisson_nll_loss(x, y * y),
+            f.poisson_nll_loss(p, t + 1.5, log_input=False, full=True),
+            f.margin_ranking_loss(x, y, 2 * t - 1, 0.1),
+            f.dice_loss(p, t))
+
+
+case("nn_losses", _pointwise_losses,
+     [N, N, _UNIT, Spec("t", "x", 0, 2)],
+     ops=("mse_loss_k", "l1_loss_k", "smooth_l1_k", "bce_k", "bce_logits_k",
+          "kl_div_k", "sigmoid_focal_k", "huber_loss_k", "hinge_loss_k",
+          "log_loss_k", "square_error_cost_k", "soft_margin_loss_k",
+          "multi_label_soft_margin_loss_k", "gaussian_nll_loss_k",
+          "poisson_nll_loss_k", "dice_loss_k"),
+     grad=(0, 1, 2), family="reduce")
+
+
+def _pair_losses(P, a, p, n, lbl):
+    f = F(P)
+    return (f.npair_loss(a, p, lbl), f.pairwise_distance(a, p),
+            f.pairwise_distance(a, p, 1.0, keepdim=True),
+            f.triplet_margin_loss(a, p, n), f.triplet_margin_loss(
+                a, p, n, swap=True, reduction="none"),
+            f.triplet_margin_with_distance_loss(a, p, n),
+            f.cosine_embedding_loss(a, p, 2 * lbl - 1),
+            f.hsigmoid_loss(a, lbl, 5, n[:4], p[:4, 0]))
+
+
+case("nn_pair_losses", _pair_losses,
+     [Spec("n", _PAIRS), Spec("n", _PAIRS), Spec("n", _PAIRS),
+      I(0, 2, lambda S: _PAIRS(S)[:1])],
+     ops=("npair_loss_k", "pairwise_distance_k", "triplet_margin_loss_k",
+          "cosine_similarity_k", "hsigmoid_loss_k"),
+     grad=(0, 1, 2), family="reduce")
+case("nn_margin_ce", lambda P, x, lbl: F(P).margin_cross_entropy(
+    x, lbl, return_softmax=True, reduction=None),
+     [U(-0.9, 0.9, _ROWS), I(0, 5, lambda S: _ROWS(S)[:1])],
+     ops=("margin_cross_entropy",), grad=(0,), family="reduce")
+
+
+def _ctc(P, logits, labels, in_off, lab_off):
+    f = F(P)
+    in_len = in_off * -1 + logits.shape[0]
+    lab_len = lab_off * -1 + labels.shape[1]
+    return (f.ctc_loss(logits, labels, in_len, lab_len),
+            f.ctc_loss(logits, labels, in_len, lab_len, reduction="sum"),
+            f.ctc_loss(logits, labels, in_len, lab_len, blank=2,
+                       reduction="none"))
+
+
+_CTC = _by((12, 3, 5, 4), (128, 64, 32, 24))  # T, N, C, S
+case("nn_ctc", _ctc,
+     [Spec("n", lambda S: _CTC(S)[:3]),
+      I(1, 5, lambda S: (_CTC(S)[1], _CTC(S)[3])),
+      I(0, 3, lambda S: (_CTC(S)[1],)), I(0, 3, lambda S: (_CTC(S)[1],))],
+     ops=("ctc_loss_k",), grad=(0,), family="reduce")
+
+
+
+def _sampling(P, x, grid, theta):
+    f = F(P)
+    out = [f.grid_sample(x, grid, m, pad, a)
+           for m in ("bilinear", "nearest")
+           for pad in ("zeros", "border", "reflection")
+           for a in (True, False)]
+    shape = [x.shape[0], x.shape[1], 5, 7]
+    return out + [f.affine_grid(theta, shape), f.affine_grid(
+        theta, shape, align_corners=False)]
+
+
+case("nn_grid_sample", _sampling,
+     [Spec("n", _CHW), U(-1.2, 1.2, lambda S: (_CHW(S)[0], 5, 7, 2)),
+      Spec("n", lambda S: (_CHW(S)[0], 2, 3))],
+     ops=("grid_sample_k", "affine_grid_k"), grad=(0, 1, 2),
+     family="matmul")
+case("nn_rearrange", lambda P, x, seq: (
+    F(P).pixel_shuffle(x, 2), F(P).pixel_unshuffle(x, 2),
+    F(P).channel_shuffle(x, 2), F(P).temporal_shift(x, 2, 0.25),
+    F(P).maxout(x, 2), F(P).zeropad2d(x, [1, 2, 0, 1]),
+    F(P).dropout2d(x, training=False), F(P).alpha_dropout(x, 0.5, False)),
+     [Spec("n", _CHW), Spec("n", _CHW)],
+     ops=("pixel_shuffle_k", "pixel_unshuffle_k", "channel_shuffle_k",
+          "temporal_shift_k", "maxout_k", "pad_"), grad=(0,),
+     family="exact")
+case("nn_gather_tree", lambda P, ids, parents: F(P).gather_tree(
+    ids, parents),
+     [I(0, 9, _by((5, 3, 4), (64, 256, 8))),
+      I(0, 4, _by((5, 3, 4), (64, 256, 8)))], ops=("gather_tree",),
+     family="exact")
+
 # ---- empty and 0-d tensors
 _GROUP[0] = "edge"
 case("empty", lambda P, x, i: (

@@ -101,14 +101,12 @@ def test_flash_attention_trains_through_the_kernels():
 
 @pytest.mark.parametrize("entry,what", [
     (e, w) for e in ("flash_attention", "qkvpacked", "unpadded")
-    for w in ("dropout", "return_softmax")] + [("sdpa", "dropout")])
+    for w in ("dropout", "return_softmax")])
 def test_not_yet_ported_options_raise(entry, what):
     q = torch.zeros(1, 8, 2, 32)
     cu = torch.tensor([0, 8], dtype=torch.int32)
     kw = {"dropout": 0.1} if what == "dropout" else {"return_softmax": True}
-    if entry == "sdpa":
-        call = lambda: F.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
-    elif entry == "flash_attention":
+    if entry == "flash_attention":
         call = lambda: F.flash_attention(q, q, q, **kw)
     elif entry == "qkvpacked":
         call = lambda: F.flash_attn_qkvpacked(torch.stack([q] * 3, 2), **kw)
@@ -117,6 +115,34 @@ def test_not_yet_ported_options_raise(entry, what):
                                              0.2, **kw)
     with pytest.raises(NotImplementedError):
         call()
+
+
+def test_sdpa_dropout_keeps_its_rate_and_scale():
+    """The dense SDPA's training dropout, held by its law (the reference
+    draws from jax.random, the port from the device's generator): with v
+    the identity, each output row is the kept probabilities times
+    1 / (1 - p); the kept share is 1 - p within five standard errors,
+    every kept value is the plain probability scaled, and the mean output
+    equals the plain one within five standard errors. No mask outside
+    training."""
+    p, sq, sk = 0.3, 64, 64
+    rng = np.random.RandomState(5)
+    q = torch.from_numpy(rng.randn(4, sq, 2, sk).astype(np.float32))
+    k = torch.from_numpy(rng.randn(4, sk, 2, sk).astype(np.float32))
+    v = torch.eye(sk).expand(4, 2, sk, sk).transpose(1, 2).contiguous()
+    plain = F.scaled_dot_product_attention(q, k, v, training=False)
+    assert torch.equal(plain, F.scaled_dot_product_attention(
+        q, k, v, dropout_p=p, training=False))
+    out = F.scaled_dot_product_attention(q, k, v, dropout_p=p)
+    kept = out != 0
+    n = kept.numel()
+    share = kept.float().mean().item()
+    assert abs(share - (1 - p)) < 5 * np.sqrt(p * (1 - p) / n), share
+    torch.testing.assert_close(out[kept], plain[kept] / (1 - p),
+                               rtol=1e-6, atol=1e-7)
+    # each element of out is plain/(1-p) with probability 1-p, else 0
+    var = (plain ** 2 * p / (1 - p)).sum()
+    assert abs((out - plain).sum().item()) < 5 * var.sqrt().item()
 
 
 def test_dropout_is_a_no_op_outside_training():

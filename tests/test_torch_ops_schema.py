@@ -29,7 +29,6 @@ from paddle_tpu_torch.testing import op_cases as oc
 
 ROOT = Path(__file__).resolve().parents[1]
 
-_NN = "ROADMAP §1 item 1: the nn.functional schema entries"
 _KERNEL_OPS = ("ROADMAP §1 item 1: the earlier slices' kernel, MoE and "
                "attention ops registered by name")
 _VISION = "ROADMAP §1 item 1: vision.ops"
@@ -37,24 +36,7 @@ _INCUBATE = "ROADMAP §1 item 1: incubate's segment ops"
 _FFT = "ROADMAP §1 item 10: fft and signal"
 
 LATER = dict(
-    [(n, _NN) for n in (
-        "log_sigmoid one_hot_k gather_tree margin_cross_entropy celu elu "
-        "glu_k hardshrink hardtanh leaky_relu log_softmax prelu_k selu "
-        "softplus softshrink thresholded_relu sdpa bilinear_k "
-        "cosine_similarity_k interpolate_k normalize_k unfold_k conv2d "
-        "conv2d_transpose affine_grid_k channel_shuffle_k "
-        "conv3d_transpose_k ctc_loss_k dice_loss_k fold_k "
-        "gaussian_nll_loss_k grid_sample_k hinge_loss_k hsigmoid_loss_k "
-        "huber_loss_k log_loss_k max_unpool2d_k maxout_k "
-        "multi_label_soft_margin_loss_k npair_loss_k pairwise_distance_k "
-        "pixel_shuffle_k pixel_unshuffle_k poisson_nll_loss_k "
-        "soft_margin_loss_k square_error_cost_k temporal_shift_k "
-        "triplet_margin_loss_k bce_k bce_logits_k kl_div_k l1_loss_k "
-        "mse_loss_k nll_loss_k sigmoid_focal_k smooth_l1_k softmax_ce "
-        "bn_apply bn_stats group_norm layer_norm local_response_norm_k "
-        "rms_norm adaptive_avg_pool2d adaptive_max_pool2d avg_pool_nd "
-        "max_pool_nd max_pool_nd_index max_unpool2d conv3d").split()]
-    + [(n, _KERNEL_OPS) for n in (
+    [(n, _KERNEL_OPS) for n in (
         "fused_moe moe_combine moe_dispatch moe_gate_top1 moe_gate_top2 "
         "flash_attention flash_attn_varlen flashmask_attention "
         "fused_rms_norm fused_swiglu fused_rope").split()]
@@ -77,8 +59,6 @@ LATER_NAMES = {
     "load": _FRAMEWORK, "Model": _FRAMEWORK, "summary": _FRAMEWORK,
     "flops": _FRAMEWORK, "DataParallel": _FRAMEWORK,
     "TPUPlace": _FRAMEWORK, "CustomPlace": _FRAMEWORK,
-    # Tensor attributes
-    "register_hook": "ROADMAP §1 item 1: Tensor.register_hook",
 }
 _INTERNAL = ("the JAX package's lazy-executor internals, which the port's "
              "torch payload has no counterpart of")
