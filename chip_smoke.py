@@ -159,7 +159,28 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    global-norm clip 5), each 1 warm-up and 5 timed steps with ms/step,
    tokens/s, MFU, peak memory and one profiled step's idle share; no port
    kernel may launch;
-15. prints the head_dim 256 and 512 and fp16 (64, 256 and 512) timings,
+15. drives the input pipeline, the vision leftovers and the remaining
+   optimizers: (a) phase 5's compiled gpt2-medium trainer fed by
+   ``io.NativeTokenLoader`` through ``io.DevicePrefetcher(depth=2)`` from
+   a 2^24-token Zipf file (the first batch on the card bit-equal to the
+   loader's CPU read, 48/24/24 launches of #1/#2/#3 a step, losses finite
+   and falling; ms/step beside phase 5's and beside the same trainer's
+   fixed batch right after, the host wait on the loader, the idle share,
+   the batch's copies on the prefetcher's stream); (b) phase 11's
+   ResNet-50 step fed by ``DataLoader(num_workers=min(8, cores),
+   shuffle=True, drop_last=True)`` over 1024 seeded uint8 256² images
+   with ``RandomResizedCrop``, ``RandomHorizontalFlip``, ``ToTensor`` and
+   ``Normalize`` (a deterministic pipeline's batches bit-equal with W
+   workers and 0; images/s beside phase 11's and a fixed batch's, the
+   idle share; the loader alone with W workers and 0); (c) the five extra
+   vision families, one step on the card against the CPU path in float64
+   and fp32, then b64 224² O1 bf16 steps; (d) ``vision.ops`` at Mask
+   R-CNN's, Fast R-CNN's, the RPN's, YOLOv3's and SSD300's shapes against
+   the CPU path, timed; (e) every new optimizer's three steps against the
+   CPU path, ``LBFGS`` on least squares, then one step of each over
+   gpt2-medium's 354.9 M fp32 parameters beside its byte bound and under
+   ``set_sync_debug_mode("error")``; no port kernel may launch in (b)-(e);
+16. prints the head_dim 256 and 512 and fp16 (64, 256 and 512) timings,
    the ``kernels`` JSON line, the card line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. It never falls back
@@ -184,6 +205,7 @@ import time
 import numpy as np
 import torch
 
+_HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
@@ -3768,6 +3790,805 @@ def nn_layers_path(smi):
     return dt
 
 
+# ------------------------------------------------------------ phase 15
+
+TOKEN_FILE_TOKENS = 1 << 24   # 64 MB of int32 tokens
+ZIPF_A = 1.2                  # the token law, folded into the vocabulary
+FED_DEPTH = 2                 # DevicePrefetcher depth on the token path
+IMAGES, IMAGE_SIDE = 1024, 256  # the worker-fed ResNet's uint8 dataset
+LOADER_WORKERS = min(8, os.cpu_count() or 1)
+IMAGENET_MEAN = [0.485, 0.456, 0.406]
+IMAGENET_STD = [0.229, 0.224, 0.225]
+EXTRA_FAMILIES = ("alexnet", "squeezenet1_1", "densenet121",
+                  "shufflenet_v2_x1_0", "googlenet")
+EXTRA_BATCH, EXTRA_STEPS = 64, 3
+# Momentum's rate by family: 0.1 (bench_suite.py's ResNet rate) where the
+# family has batch norm; AlexNet, SqueezeNet and GoogLeNet have none and
+# diverge to NaN within three steps at 0.1 (SqueezeNet on the card, the
+# others in a CPU rehearsal at 64²), so SqueezeNet and GoogLeNet take
+# 0.01 and AlexNet 0.001 (at 0.01 its loss still grew 16 -> 1e9 in three
+# steps)
+EXTRA_LR = {"alexnet": 0.001, "googlenet": 0.01, "squeezenet1_1": 0.01}
+DETECTION_ITERS = 10
+
+
+def _trace_copies(step):
+    """One call of ``step`` under ``torch.profiler``, its trace read back:
+    prints every memory copy the profiler recorded as (kind, bytes,
+    stream): count and the operators around the first one (outermost
+    first), and the kernels by stream. A record of what the profiler
+    sees; the copies' stream is checked by ``_copy_stream_check``."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    cpu = [e for e in events if e.get("cat") == "cpu_op"]
+    by_id = {(e.get("args") or {}).get("External id"): e for e in cpu}
+
+    def around(op):  # the operators that enclose ``op``, outermost first
+        if op is None:
+            return "no operator recorded"
+        t0, t1 = op["ts"], op["ts"] + op.get("dur", 0)
+        outer = sorted((e for e in cpu if e.get("tid") == op.get("tid")
+                        and e["ts"] <= t0 and e["ts"] + e.get("dur", 0) >= t1),
+                       key=lambda e: (e["ts"], -e.get("dur", 0)))
+        return " > ".join(e["name"] for e in outer[-4:])
+    copies, kernels = {}, {}
+    for e in events:
+        args = e.get("args") or {}
+        if e.get("cat") == "gpu_memcpy":
+            key = (e.get("name"), args.get("bytes"), args.get("stream"))
+            if key not in copies:
+                copies[key] = [0, around(by_id.get(args.get("External id")))]
+            copies[key][0] += 1
+        elif e.get("cat") == "kernel":
+            s = args.get("stream")
+            kernels[s] = kernels.get(s, 0) + 1
+    print(f"traced copies (kind, bytes, stream): [count, operators]: "
+          f"{dict(sorted(copies.items(), key=str))}; kernels by stream "
+          f"{kernels}")
+
+
+SPIN_CYCLES = 1 << 30  # a spin kernel of ~0.5 s: far longer than a placement
+
+
+def _copy_stream_check(fed, it, placed):
+    """Which stream the prefetcher ``fed``'s host-to-device copies run on,
+    from CUDA events in the main path's own run. ``it`` iterates ``fed``;
+    ``placed`` grows by (the host tokens, ``fed._put``'s result) each time
+    ``fed`` places a batch. A spin kernel holds one stream while the
+    consumer takes a batch, so that the staging thread places one more:
+    with the prefetcher's stream held, that batch's tokens (read on a
+    third stream) are not on the card before the spin ends, and are after
+    it; with the consumer's stream held, its copies complete while the
+    spin still runs. Returns whether both held."""
+    reader = torch.cuda.Stream()
+
+    def next_placed(n):
+        t0 = time.monotonic()
+        while len(placed) <= n:
+            check(time.monotonic() - t0 < 30, "the prefetcher placed no "
+                  "batch within 30 s")
+            time.sleep(0.001)
+        return placed[-1]
+
+    def tokens_on_card(tree, host):
+        with torch.cuda.stream(reader):
+            seen = tree[0]._t.cpu()  # synchronises the reader stream alone
+        return torch.equal(seen, torch.from_numpy(host))
+
+    results = []
+    for name, held in (("prefetcher", fed.stream),
+                       ("consumer", torch.cuda.current_stream())):
+        torch.cuda.synchronize()
+        n = len(placed)
+        with torch.cuda.stream(held):
+            torch.cuda._sleep(SPIN_CYCLES)
+        spun = torch.cuda.Event()
+        spun.record(held)
+        next(it)
+        host, (tree, _, event) = next_placed(n)
+        if name == "prefetcher":
+            early = tokens_on_card(tree, host)
+            spinning = not spun.query()
+            event.synchronize()
+            after = tokens_on_card(tree, host)
+            results.append(spinning and not early and after)
+            print(f"prefetcher's stream held by a spin: the next batch's "
+                  f"tokens on the card before the spin ended: {early} (spin "
+                  f"still running when read: {spinning}); after it: {after}")
+        else:
+            event.synchronize()
+            spinning = not spun.query()
+            results.append(spinning and tokens_on_card(tree, host))
+            print(f"step's stream held by a spin: the next batch's copies "
+                  f"complete while the spin still runs: {spinning}")
+        torch.cuda.synchronize()
+    return all(results)
+
+
+def _write_tokens(path, vocab):
+    """``TOKEN_FILE_TOKENS`` int32 tokens from seed 0: a Zipf law of
+    exponent ``ZIPF_A`` folded into the vocabulary (frequent tokens that a
+    model can learn, so the loss falls)."""
+    rng = np.random.default_rng(0)
+    toks = ((rng.zipf(ZIPF_A, TOKEN_FILE_TOKENS) - 1) % vocab)
+    toks.astype(np.int32).tofile(path)
+
+
+def token_fed_gpt(smi, compiled_ms):
+    """(a) Phase 5's compiled gpt2-medium trainer (b8 s1024, bf16, fp32
+    master, remat, AdamW) fed by ``io.NativeTokenLoader`` through
+    ``io.DevicePrefetcher(depth=2)`` from a 2^24-token file. The first
+    batch on the card must equal the same loader's CPU read bit for bit;
+    every step launches 48/24/24 kernels #1/#2/#3; the losses are finite
+    and fall. Prints ms/step beside phase 5's fixed-batch median, the host
+    ms waiting on the loader a step, one profiled step's idle share, and
+    which stream carried the batch's host-to-device copies."""
+    import tempfile
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    cfg = gpt.GPT_CONFIGS["gpt2-medium"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tokens.bin")
+        tick = time.perf_counter()
+        _write_tokens(path, cfg.vocab_size)
+        print(f"token file: {TOKEN_FILE_TOKENS} int32 tokens "
+              f"({os.path.getsize(path) / 2**20:.0f} MiB), Zipf a={ZIPF_A} "
+              f"over {cfg.vocab_size}, written in "
+              f"{time.perf_counter() - tick:.1f} s")
+        cpu_tokens, cpu_labels = io.NativeTokenLoader(path, SEQ, BATCH,
+                                                      seed=0).next()
+        loader = io.NativeTokenLoader(path, SEQ, BATCH, seed=0)
+        print(f"NativeTokenLoader: {loader.num_windows} windows of "
+              f"{SEQ + 1}, batch {BATCH}")
+        fed = io.DevicePrefetcher(loader, depth=FED_DEPTH)
+        placed, put = [], fed._put
+
+        def put_and_keep(batch):  # for _copy_stream_check
+            staged = put(batch)
+            placed.append((np.array(batch[0]), staged))
+            return staged
+        fed._put = put_and_keep
+        it = iter(fed)
+        init_fn, step = gpt.build_train_step(cfg, lr=1e-4, remat=True,
+                                             device="cuda")
+        state = init_fn(0)
+        first = next(it)
+        check(first[0]._t.is_cuda and first[0]._t.dtype == torch.int32,
+              f"fed batch {first[0]._t.device} {first[0]._t.dtype}")
+        same = torch.equal(first[0]._t.cpu(), torch.from_numpy(cpu_tokens)) \
+            and torch.equal(first[1]._t.cpu(), torch.from_numpy(cpu_labels))
+        print(f"first fed batch on the card bit-equal to the CPU read: "
+              f"{same}")
+        check(same, "the first fed token batch differs from the CPU read")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        losses, step_ms, wait_ms = [], [], []
+        batch = first
+        for i in range(1 + TIMED_STEPS):
+            t0 = time.perf_counter()
+            if i:
+                tw = time.perf_counter()
+                batch = next(it)
+                wait_ms.append((time.perf_counter() - tw) * 1e3)
+            state, loss = step(state, batch[0]._t, batch[1]._t)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
+            losses.append(loss.item())
+            if i:
+                step_ms.append(dt)
+            print(f"fed step {i}{' (warm-up)' if not i else ''}: loss "
+                  f"{losses[-1]:.5f} {dt:.1f} ms")
+        launches = dict(fa.LAUNCHES)
+        n_steps = 1 + TIMED_STEPS
+        for name, n in (("flash_fwd", 2 * cfg.num_layers),
+                        ("flash_bwd_dkv", cfg.num_layers),
+                        ("flash_bwd_dq", cfg.num_layers)):
+            check(launches[name] == n * n_steps,
+                  f"fed path: {name} launched {launches[name]}, want "
+                  f"{n * n_steps}")
+        print(f"fed path launches over {n_steps} steps: {launches}")
+        check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+        check(losses[-1] < losses[0], f"fed loss did not fall: {losses}")
+        med = float(np.median(step_ms))
+
+        def fixed_step():
+            nonlocal state
+            state, _ = step(state, first[0]._t, first[1]._t)
+        again = _fixed_median(fixed_step)
+        print(f"token-fed gpt2-medium b{BATCH} s{SEQ}: median {med:.2f} "
+              f"ms/step ({BATCH * SEQ / (med / 1e3):.1f} tokens/s) against "
+              f"phase 5's fixed batch {compiled_ms:.2f} ms "
+              f"({med / compiled_ms:.3f}x) and the same trainer's fixed "
+              f"batch right after {again:.2f} ms ({med / again:.3f}x); host "
+              f"wait on the loader "
+              f"{float(np.median(wait_ms)):.3f} ms a step (median; max "
+              f"{max(wait_ms):.3f}); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
+
+        def fed_step(*_):
+            nonlocal state
+            tokens, labels = next(it)
+            state, _ = step(state, tokens._t, labels._t)
+        prof = profile_step(fed_step, None, None, None, med)
+        check(prof is not None, "the profiler saw no device time")
+        feed = io.NativeTokenLoader(path, SEQ, BATCH, seed=0)
+        feed_ms = []
+        for _ in range(20):
+            tw = time.perf_counter()
+            feed.next()
+            feed_ms.append((time.perf_counter() - tw) * 1e3)
+        feed.close()
+        print(f"of the wait, the token feed's next() alone: "
+              f"{float(np.median(feed_ms)):.3f} ms (median of 20)")
+        _trace_copies(fed_step)
+        on_side = _copy_stream_check(fed, it, placed)
+        print(f"the batch's host-to-device copies ran on the prefetcher's "
+              f"stream: {on_side} (CUDA events in this run: they queue "
+              f"behind that stream, not behind the step's)")
+        check(on_side, "the fed batch's copies did not run on the "
+              "prefetcher's stream alone")
+        it.close()
+        loader.close()
+    return med
+
+
+def _fixed_median(step):
+    """Median ms of ``TIMED_STEPS`` calls of ``step`` on the host clock,
+    each ending in a synchronize: the same model on one batch, timed in
+    turn with the fed steps."""
+    ms = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
+
+
+def _images_dataset(paddle, transform):
+    """``IMAGES`` uint8 ``IMAGE_SIDE``^2 x 3 images and labels from seed 0,
+    each sample ``(transform(image), label)``."""
+    rng = np.random.RandomState(0)
+    imgs = rng.randint(0, 256, (IMAGES, IMAGE_SIDE, IMAGE_SIDE, 3),
+                       dtype=np.uint8)
+    labels = rng.randint(0, 1000, (IMAGES,)).astype(np.int64)
+
+    class Images(paddle.io.Dataset):
+        def __len__(self):
+            return IMAGES
+
+        def __getitem__(self, i):
+            return transform(imgs[i]), int(labels[i])
+    return Images()
+
+
+def _loader_rate(loader, batches):
+    """Batches/s of ``loader`` alone (each batch placed on the card, no
+    step): one batch to start, then ``batches`` timed."""
+    batches = min(batches, len(loader) - 1)
+    it = iter(loader)
+    next(it)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(it)
+    torch.cuda.synchronize()
+    rate = batches / (time.perf_counter() - t0)
+    it.close()
+    return rate
+
+
+def worker_fed_resnet(smi, fixed_ms):
+    """(b) Phase 11's ResNet-50 step (b64 224², O1 bf16, Momentum 0.1) fed
+    by ``DataLoader(num_workers=W, shuffle=True, drop_last=True)`` and
+    ``DevicePrefetcher`` over a seeded uint8 dataset with
+    ``RandomResizedCrop(224)``, ``RandomHorizontalFlip``, ``ToTensor`` and
+    ``Normalize``: first a deterministic pipeline's batches on the card
+    bit-equal with W workers and with 0, then 1 + 5 steps (images/s beside
+    phase 11's fixed batch, idle share), then the loader alone with W
+    workers and with 0 (batches/s)."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.vision import transforms as T
+    from paddle_tpu_torch.vision.models import resnet50
+    paddle.set_device("gpu")
+    norm = T.Normalize(IMAGENET_MEAN, IMAGENET_STD, data_format="CHW")
+    fixed = _images_dataset(paddle, T.Compose([
+        T.CenterCrop(RESNET_SIZE), T.ToTensor(), norm]))
+    runs = {}
+    for w in (LOADER_WORKERS, 0):
+        it = iter(io.DataLoader(fixed, batch_size=RESNET_BATCH,
+                                num_workers=w, timeout=120))
+        runs[w] = [next(it) for _ in range(3)]
+        it.close()
+    pairs = [(a[k]._t, b[k]._t) for a, b in zip(runs[LOADER_WORKERS],
+                                                 runs[0]) for k in (0, 1)]
+    equal = all(torch.equal(a, b) for a, b in pairs)
+    print(f"deterministic pipeline (CenterCrop + Normalize, no shuffle): "
+          f"3 batches on the card bit-equal with {LOADER_WORKERS} workers "
+          f"and with 0: {equal}")
+    check(equal, "worker batches differ from the single-process ones")
+    check(all(a.is_cuda and b.is_cuda for a, b in pairs),
+          "a loader batch is not on the card")
+    del runs
+    ds = _images_dataset(paddle, T.Compose([
+        T.RandomResizedCrop(RESNET_SIZE), T.RandomHorizontalFlip(),
+        T.ToTensor(), norm]))
+    loader = io.DataLoader(ds, batch_size=RESNET_BATCH, shuffle=True,
+                           drop_last=True, num_workers=LOADER_WORKERS,
+                           timeout=120)
+    paddle.seed(0)
+    model = resnet50()
+    opt = paddle.optimizer.Momentum(0.1, parameters=model.parameters())
+    it = iter(io.DevicePrefetcher(loader))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, wait_ms = [], [], []
+    for i in range(1 + TIMED_STEPS):
+        t0 = time.perf_counter()
+        x, y = next(it)
+        wait_ms.append((time.perf_counter() - t0) * 1e3)
+        loss = _resnet_step(paddle, F, model, opt, x, y)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        losses.append(float(loss))
+        if i:
+            step_ms.append(dt)
+        print(f"worker-fed resnet step {i}{' (warm-up)' if not i else ''}: "
+              f"loss {losses[-1]:.5f} {dt:.1f} ms (waited "
+              f"{wait_ms[-1]:.1f} ms)")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    med = float(np.median(step_ms))
+    again = _fixed_median(lambda: _resnet_step(paddle, F, model, opt, x, y))
+    print(f"worker-fed resnet50 b{RESNET_BATCH} {RESNET_SIZE}^2 bf16 O1 "
+          f"({LOADER_WORKERS} workers): median {med:.2f} ms/step, "
+          f"{RESNET_BATCH / (med / 1e3):.1f} images/s against phase 11's "
+          f"fixed batch {fixed_ms:.2f} ms "
+          f"({RESNET_BATCH / (fixed_ms / 1e3):.1f} images/s) and the same "
+          f"model's fixed batch right after, the workers still filling their "
+          f"in-flight batches, {again:.2f} ms "
+          f"({RESNET_BATCH / (again / 1e3):.1f} images/s); host wait on "
+          f"the loader {float(np.median(wait_ms[1:])):.1f} ms a step "
+          f"(median), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
+
+    def fed_step(*_):
+        bx, by = next(it)
+        _resnet_step(paddle, F, model, opt, bx, by)
+    profile_step(fed_step, None, None, None, med, group=_vision_group)
+    it.close()
+    del model, opt
+    torch.cuda.empty_cache()
+    rates = {w: _loader_rate(io.DataLoader(
+        ds, batch_size=RESNET_BATCH, shuffle=True, drop_last=True,
+        num_workers=w, timeout=120), 8 if w else 2)
+        for w in (LOADER_WORKERS, 0)}
+    print(f"loader alone (augment, collate, to the card): "
+          f"{rates[LOADER_WORKERS]:.2f} batches/s with {LOADER_WORKERS} "
+          f"workers ({rates[LOADER_WORKERS] * RESNET_BATCH:.1f} images/s), "
+          f"{rates[0]:.2f} with 0 ({rates[0] * RESNET_BATCH:.1f} images/s), "
+          f"host cores {os.cpu_count()}")
+    return med
+
+
+def _state_err(got, want):
+    worst = 0.0
+    for k in want:
+        w = want[k].astype(np.float64)
+        scale = max(1.0, float(np.abs(w).max()))
+        worst = max(worst, float(np.abs(got[k].astype(np.float64) - w)
+                                 .max()) / scale)
+    return worst
+
+
+def _update_err(init, got, want):
+    """The worst difference of two steps' updates (state after minus
+    ``init``), each tensor's over its own largest update (at least 1e-3
+    of the largest update of all)."""
+    ups = {k: (got[k].astype(np.float64) - init[k],
+               want[k].astype(np.float64) - init[k]) for k in want}
+    top = max(float(np.abs(w).max()) for _, w in ups.values())
+    worst = 0.0
+    for g, w in ups.values():
+        scale = max(float(np.abs(w).max()), 1e-3 * top, 1e-30)
+        worst = max(worst, float(np.abs(g - w).max()) / scale)
+    return worst
+
+
+def extra_families(smi):
+    """(c) Each of the five extra families: one Momentum step on the card
+    against the port's CPU path (batch 2, 224², eval mode: dropout off and
+    batch norm on its running statistics, so both devices compute one
+    function), in float64 (each tensor's update to 1e-9 of its scale,
+    ``_update_err``) and in fp32 (the parameters to 1e-4 of their scale
+    and the loss, as phase 11's resnet18); then batch 64 x
+    224², O1 bf16, ``Momentum`` (``EXTRA_LR``), 1 warm-up and 3 timed
+    steps, the losses finite."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.vision import models as M
+    rng = np.random.RandomState(5)
+    x2 = rng.randn(2, 3, RESNET_SIZE, RESNET_SIZE).astype(np.float32)
+    y2 = rng.randint(0, 1000, (2,)).astype(np.int64)
+    xb = paddle.to_tensor(rng.randn(EXTRA_BATCH, 3, RESNET_SIZE, RESNET_SIZE)
+                          .astype(np.float32), place="gpu")
+    yb = paddle.to_tensor(rng.randint(0, 1000, (EXTRA_BATCH,))
+                          .astype(np.int64), place="gpu")
+    out = {}
+    for name in EXTRA_FAMILIES:
+        paddle.set_device("cpu")
+        paddle.seed(0)
+        init = {k: v.numpy() for k, v in getattr(M, name)()
+                .state_dict().items()}
+        lr = EXTRA_LR.get(name, 0.1)
+        for dtype in ("float64", "float32"):
+            runs = {}
+            for dev in ("gpu", "cpu"):
+                paddle.set_device(dev)
+                model = getattr(M, name)()
+                model.set_state_dict(init)
+                model.astype(dtype)
+                model.eval()
+                opt = paddle.optimizer.Momentum(
+                    lr, parameters=model.parameters())
+                loss = F.cross_entropy(
+                    model(paddle.to_tensor(x2.astype(dtype), dtype=dtype)),
+                    paddle.to_tensor(y2))
+                loss.backward()
+                opt.step()
+                runs[dev] = (float(loss), {k: v.numpy() for k, v in
+                                           model.state_dict().items()})
+            upd = _update_err(init, runs["gpu"][1], runs["cpu"][1])
+            par = _state_err(runs["gpu"][1], runs["cpu"][1])
+            loss_err = abs(runs["gpu"][0] - runs["cpu"][0]) / max(
+                1.0, abs(runs["cpu"][0]))
+            # float64: the updates themselves; fp32: the parameters over
+            # their scale and the loss, as phase 11's resnet18 (a tensor
+            # whose gradient sums terms that nearly cancel differs by up
+            # to 0.5% of its own update in fp32, 1e-14 in float64)
+            err, lim = (upd, 1e-9) if dtype == "float64" else (par, 1e-4)
+            print(f"{name} {dtype} step (Momentum {lr}), card against CPU: "
+                  f"updates {upd:.3g} of their scale, parameters {par:.3g} "
+                  f"of theirs, loss {loss_err:.3g} (limit {lim:g} on the "
+                  f"{'updates' if dtype == 'float64' else 'parameters'} "
+                  f"and the loss)")
+            check(err <= lim and loss_err <= lim,
+                  f"{name} {dtype} card step: {err}, {loss_err}")
+        paddle.set_device("gpu")
+        paddle.seed(0)
+        model = getattr(M, name)()
+        opt = paddle.optimizer.Momentum(lr, parameters=model.parameters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for i in range(1 + EXTRA_STEPS):
+            t0 = time.perf_counter()
+            loss = _resnet_step(paddle, F, model, opt, xb, yb)
+            torch.cuda.synchronize()
+            if i:
+                ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        check(all(math.isfinite(v) for v in losses), f"{name} {losses}")
+        med = float(np.median(ms))
+        n_params = sum(p.size for p in model.parameters())
+        print(f"{name} ({n_params} parameters) b{EXTRA_BATCH} "
+              f"{RESNET_SIZE}^2 bf16 O1 momentum {lr}: median {med:.2f} "
+              f"ms/step "
+              f"of {EXTRA_STEPS} ({[round(v, 2) for v in ms]}), "
+              f"{EXTRA_BATCH / (med / 1e3):.1f} images/s, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, losses "
+              f"{[round(v, 4) for v in losses]} on {smi}")
+        out[name] = med
+        del model, opt
+        torch.cuda.empty_cache()
+    return out
+
+
+def _boxes(rng, n, width, height, least=8.0):
+    """``n`` boxes inside a ``width`` x ``height`` image: a corner in the
+    first 60%, sides from ``least`` to 35% of the image."""
+    corner = rng.uniform(0, 0.6, (n, 2)) * [width, height]
+    most = np.array([0.35 * width, 0.35 * height])
+    side = least + rng.uniform(0, 1, (n, 2)) * (most - least)
+    return np.concatenate([corner, corner + side], 1).astype(np.float32)
+
+
+def _detection_hold(label, run, args, grad_of=None, terms=None,
+                    floor=None, dtype="float32", timed=True):
+    """``run(*tensors)`` on the card and on the port's CPU path (float
+    inputs in ``dtype``), the outputs (and the gradient of sum(out * r)
+    wrt input ``grad_of``) held to ``op_cases.limit`` (fp32 1e-5 of each
+    element and of the output's largest, float64 1e-11, growing past 1024
+    terms with the square root of ``terms[k]``, the values output k sums)
+    plus ``floor[k]`` (an absolute error the inputs' own rounding allows);
+    integer outputs equal. Then the card's time by CUDA events."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.testing import op_cases as oc
+
+    def cast(a):
+        return a.astype(dtype) if a.dtype.kind == "f" else a
+    results = {}
+    for dev in ("gpu", "cpu"):
+        ts = [paddle.to_tensor(cast(a), dtype=str(cast(a).dtype),
+                               place=dev, stop_gradient=(k != grad_of))
+              if isinstance(a, np.ndarray) else a
+              for k, a in enumerate(args)]
+        outs = run(*ts)
+        outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+        grads = []
+        if grad_of is not None:
+            r = paddle.to_tensor(np.random.RandomState(1).uniform(
+                -1, 1, outs[0].shape).astype(dtype), dtype=dtype, place=dev)
+            (outs[0] * r).sum().backward()
+            grads = [ts[grad_of].grad]
+        results[dev] = [t._t.detach().double().cpu() for t in outs + grads]
+    worst = 0.0
+    for k, (g, c) in enumerate(zip(results["gpu"], results["cpu"])):
+        check(g.shape == c.shape, f"{label}: shapes {g.shape} {c.shape}")
+        if not g.is_floating_point():
+            check(torch.equal(g, c), f"{label}: output {k} differs")
+            continue
+        if c.numel() == 0:
+            continue
+        lim = oc.limit("elementwise", dtype, c.abs(),
+                       (terms or {}).get(k, 1)) + (floor or {}).get(k, 0.0)
+        worst = max(worst, float(((g - c).abs() / lim.clamp(min=1e-300))
+                                 .max()))
+    check(worst <= 1.0, f"{label} {dtype}: {worst} of the limit")
+    if not timed:
+        print(f"{label} {dtype}: worst |card - cpu| {worst:.3g} of the "
+              f"limit")
+        return
+    ts = [paddle.to_tensor(a, place="gpu") if isinstance(a, np.ndarray)
+          else a for a in args]
+    fwd = cuda_ms(lambda: run(*ts), DETECTION_ITERS)
+    line = f"{label}: card {fwd:.4f} ms forward"
+    if grad_of is not None:
+        tg = list(ts)
+
+        def fwd_bwd():
+            tg[grad_of] = paddle.to_tensor(args[grad_of], place="gpu",
+                                           stop_gradient=False)
+            o = run(*tg)
+            o = o[0] if isinstance(o, (list, tuple)) else o
+            o.sum().backward()
+        line += f", {cuda_ms(fwd_bwd, DETECTION_ITERS):.4f} ms fwd+bwd"
+    print(f"{line}; worst |card - cpu| {worst:.3g} of the limit")
+
+
+def _roi_align_terms(x, boxes, num, *attrs):
+    """The most samples (of all RoIs, each bilinear corner one) that land
+    on one pixel: the terms ``roi_align``'s gradient sums there."""
+    from paddle_tpu_torch.vision.ops import _roi_samples
+    corners, _, _ = _roi_samples(torch.from_numpy(boxes),
+                                 torch.from_numpy(num), x.shape, *attrs)
+    return int(torch.bincount(torch.cat([c.reshape(-1) for c in corners]))
+               .max())
+
+
+def detection_ops(smi):
+    """(d) ``vision.ops`` at detection shapes, each held against the port's
+    CPU path and timed: ``roi_align`` at Mask R-CNN R50-FPN's box head
+    (P2 [2, 256, 200, 336], 512 RoIs an image, 7 x 7, scale 0.25,
+    sampling 2, aligned; forward and the gradient for x), ``roi_pool`` at
+    Fast R-CNN VGG16's conv5 ([2, 512, 38, 50], 128 RoIs an image, 7 x 7,
+    scale 1/16), ``nms`` over 2000 RPN proposals at IoU 0.7 with and
+    without categories (indices exact), ``yolo_box`` over YOLOv3's three
+    heads at 608² (batch 8, 80 classes), ``prior_box`` and ``box_coder``
+    at SSD300's 38 x 38 map."""
+    from paddle_tpu_torch.vision import ops as V
+    rng = np.random.RandomState(7)
+    feat = rng.randn(2, 256, 200, 336).astype(np.float32)
+    boxes = _boxes(rng, 1024, 1344, 800)
+    num = np.array([512, 512], np.int32)
+    terms = _roi_align_terms(feat, boxes, num, 7, 7, 0.25, 2, True)
+    # fp32 sample coordinates carry one unit of their last place (3.05e-5
+    # at 336 feature pixels); moving wy or wx by it moves an interpolated
+    # value by up to 2 max|x| each, and a pixel's gradient by 1/4 of it
+    # for each of its samples (|r| <= 1, 4 samples a bin): the two devices
+    # round them differently, and float64 shows the formulas agree
+    ulp = float(np.spacing(np.float32(boxes.max() * 0.25)))
+    floor = {0: 4 * float(np.abs(feat).max()) * ulp, 1: terms * ulp / 2}
+    print(f"roi_align: at most {terms} samples land on one pixel; "
+          f"coordinate ulp {ulp:.3g}, allowed |card - cpu| from it "
+          f"{floor[0]:.3g} (out), {floor[1]:.3g} (grad)")
+    roi = (lambda x, b, n: V.roi_align(x, b, n, 7, 0.25, 2, True))
+    _detection_hold("roi_align [2, 256, 200, 336], 1024 RoIs", roi,
+                    [feat, boxes, num], grad_of=0, dtype="float64",
+                    timed=False)
+    _detection_hold("roi_align [2, 256, 200, 336], 1024 RoIs", roi,
+                    [feat, boxes, num], grad_of=0,
+                    terms={0: 16, 1: terms}, floor=floor)
+    conv5 = rng.randn(2, 512, 38, 50).astype(np.float32)
+    _detection_hold("roi_pool [2, 512, 38, 50], 256 RoIs",
+                    lambda x, b, n: V.roi_pool(x, b, n, 7, 1 / 16),
+                    [conv5, _boxes(rng, 256, 800, 600),
+                     np.array([128, 128], np.int32)], grad_of=0)
+    props = _boxes(rng, 2000, 1344, 800)
+    scores = rng.uniform(0, 1, 2000).astype(np.float32)
+    cats = rng.randint(0, 80, 2000).astype(np.int64)
+    _detection_hold("nms 2000 proposals, IoU 0.7",
+                    lambda b, s: V.nms(b, s, 0.7), [props, scores])
+    _detection_hold("nms 2000 proposals, IoU 0.7, 80 categories",
+                    lambda b, s, c: V.nms(b, s, 0.7, category_idxs=c,
+                                          categories=list(range(80))),
+                    [props, scores, cats])
+    anchors = ([116, 90, 156, 198, 373, 326], [30, 61, 62, 45, 59, 119],
+               [10, 13, 16, 30, 33, 23])
+    size = np.full((8, 2), 608, np.int32)
+    for side, anc, ratio in zip((19, 38, 76), anchors, (32, 16, 8)):
+        head = rng.randn(8, 255, side, side).astype(np.float32)
+        _detection_hold(f"yolo_box [8, 255, {side}, {side}]",
+                        lambda x, s, a=anc, d=ratio: V.yolo_box(
+                            x, s, a, 80, 0.005, d), [head, size])
+    fmap = rng.randn(8, 512, 38, 38).astype(np.float32)
+    image = rng.randn(8, 3, 300, 300).astype(np.float32)
+    _detection_hold("prior_box 38 x 38 (SSD300 conv4_3)",
+                    lambda f, i: V.prior_box(f, i, [30.0], [60.0],
+                                             aspect_ratios=(2.0,),
+                                             flip=True, clip=True),
+                    [fmap, image])
+    priors = _boxes(rng, 5776, 1, 1, least=0.01)
+    _detection_hold("box_coder encode 5776 priors",
+                    lambda p, v, t: V.box_coder(p, v, t,
+                                                "encode_center_size"),
+                    [priors, np.full((5776, 4), 0.1, np.float32),
+                     _boxes(rng, 5776, 1, 1, least=0.01)])
+    _detection_hold("box_coder decode 5776 priors",
+                    lambda p, v, t: V.box_coder(p, v, t,
+                                                "decode_center_size"),
+                    [priors, np.full((5776, 4), 0.1, np.float32),
+                     rng.randn(5776, 4).astype(np.float32)])
+
+
+# (name, make(paddle, params), bytes a parameter of one fp32 step: each
+# input read once and each output written once)
+OPTIMIZERS = (
+    ("Adagrad", lambda P, ps: P.optimizer.Adagrad(0.01, parameters=ps), 20),
+    ("RMSProp", lambda P, ps: P.optimizer.RMSProp(0.01, parameters=ps), 28),
+    ("RMSProp centered momentum", lambda P, ps: P.optimizer.RMSProp(
+        0.01, momentum=0.9, centered=True, parameters=ps), 36),
+    ("Adadelta", lambda P, ps: P.optimizer.Adadelta(1.0, parameters=ps), 28),
+    ("Adamax", lambda P, ps: P.optimizer.Adamax(0.01, parameters=ps), 28),
+    ("Lamb", lambda P, ps: P.optimizer.Lamb(0.01, parameters=ps), 28),
+    ("Adam amsgrad", lambda P, ps: P.optimizer.Adam(
+        1e-3, parameters=ps, amsgrad=True), 36),
+    ("AdamW lr_ratio", lambda P, ps: P.optimizer.AdamW(
+        1e-3, parameters=ps, lr_ratio=lambda q: 0.5 if len(q.shape) == 1
+        else 1.0), 28),
+)
+
+
+def optimizer_steps(smi):
+    """(e) Three steps of each new optimizer on a small MLP on the card
+    against the port's CPU path (held to 1e-5 of the scale), ``LBFGS`` on a
+    least-squares problem; then one step of each ``_foreach`` optimizer
+    over gpt2-medium's 354.9 M fp32 parameters with random gradients,
+    timed beside its byte bound, and one more under
+    ``torch.cuda.set_sync_debug_mode("error")``: no step may
+    synchronise."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import gpt
+    rng = np.random.RandomState(11)
+    xs = [rng.randn(6, 8).astype(np.float32) for _ in range(3)]
+
+    def mlp():
+        return paddle.nn.Sequential(paddle.nn.Linear(8, 16),
+                                    paddle.nn.LayerNorm(16),
+                                    paddle.nn.Linear(16, 4))
+    paddle.set_device("cpu")
+    paddle.seed(0)
+    init = {k: v.numpy() for k, v in mlp().state_dict().items()}
+    for name, make, _ in OPTIMIZERS:
+        states = {}
+        for dev in ("gpu", "cpu"):
+            paddle.set_device(dev)
+            m = mlp()
+            m.set_state_dict(init)
+            opt = make(paddle, m.parameters())
+            for x in xs:
+                out = m(paddle.to_tensor(x))
+                (paddle.mean(out * out) + paddle.mean(out)).backward()
+                opt.step()
+                opt.clear_grad()
+            states[dev] = {k: v.numpy() for k, v in m.state_dict().items()}
+        err = _state_err(states["gpu"], states["cpu"])
+        print(f"{name}: 3 steps, card against CPU {err:.3g} of the scale "
+              f"(limit 1e-5)")
+        check(err <= 1e-5, f"{name} card steps: {err}")
+    a = rng.randn(64, 16).astype(np.float32)
+    b = rng.randn(64, 1).astype(np.float32)
+    sols = {}
+    for dev in ("gpu", "cpu"):
+        paddle.set_device(dev)
+        paddle.seed(0)
+        layer = paddle.nn.Linear(16, 1, bias_attr=False)
+        layer.weight.set_value(np.zeros((16, 1), np.float32))
+        opt = paddle.optimizer.LBFGS(parameters=layer.parameters(),
+                                     history_size=10)
+        ta, tb = paddle.to_tensor(a), paddle.to_tensor(b)
+
+        def closure():
+            opt.clear_grad()
+            loss = paddle.mean((layer(ta) - tb) ** 2)
+            loss.backward()
+            return loss
+        opt.step(closure)
+        sols[dev] = layer.weight.numpy()
+    best = np.linalg.lstsq(a.astype(np.float64), b.astype(np.float64),
+                           rcond=None)[0]
+    err = float(np.abs(sols["gpu"] - sols["cpu"]).max())
+    err_best = float(np.abs(sols["gpu"] - best).max())
+    print(f"LBFGS least squares 64 x 16: card against CPU {err:.3g}, "
+          f"against lstsq {err_best:.3g} (limits 1e-5, 1e-3)")
+    check(err <= 1e-5 and err_best <= 1e-3, f"LBFGS {err} {err_best}")
+
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    model = gpt.GPTForPretraining(gpt.GPT_CONFIGS["gpt2-medium"])
+    params = model.parameters()
+    n = sum(p.size for p in params)
+    dev = params[0]._t.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for p in params:
+        p._t.grad = torch.randn(p._t.shape, device=dev, generator=gen) * 1e-3
+    for name, make, per_param in OPTIMIZERS:
+        opt = make(paddle, params)
+        ms = cuda_ms(opt.step, 3, warmup=1)
+        bound = n * per_param / PEAK_BYTES * 1e3
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            opt.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        print(f"{name} step over {n} fp32 parameters: {ms:.3f} ms, byte "
+              f"bound {bound:.3f} ms ({per_param} B a parameter), "
+              f"{bound / ms:.1%} of it; no sync under sync-debug 'error' "
+              f"on {smi}")
+        del opt
+        torch.cuda.empty_cache()
+    del model, params
+    torch.cuda.empty_cache()
+
+
+def input_pipeline_path(smi, compiled_ms, resnet_ms):
+    """Phase 15: the input pipeline that feeds the card, the vision
+    leftovers and the remaining optimizers (a)-(e). Only (a) runs TPU
+    kernels (#1-#3, checked there); no port kernel may launch on (b)-(e).
+    """
+    phase("15 input pipeline, vision extras, detection ops, optimizers")
+    t0 = time.perf_counter()
+    token_fed_gpt(smi, compiled_ms)
+    torch.cuda.empty_cache()
+    _reset_all_launches()
+    worker_fed_resnet(smi, resnet_ms)
+    torch.cuda.empty_cache()
+    extra_families(smi)
+    detection_ops(smi)
+    torch.cuda.empty_cache()
+    optimizer_steps(smi)
+    launches = _all_launches()
+    check(not any(launches.values()), f"a port kernel launched on (b)-(e) "
+          f"(they run no TPU kernel): {launches}")
+    dt = time.perf_counter() - t0
+    print(f"input pipeline phase: {dt:.1f} s on {smi}", flush=True)
+    return dt
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3809,14 +4630,17 @@ def main() -> int:
     eager_path(smi, compiled_ms)
     torch.cuda.empty_cache()
     with watchdog("phase 11 (resnet path)", 400):
-        resnet_path(smi)
+        resnet_ms = resnet_path(smi)
     torch.cuda.empty_cache()
     with watchdog("phase 12 (op surface)", 600):
         op_surface_path(smi)
     torch.cuda.empty_cache()
     with watchdog("phase 14 (nn layers)", 400):
         nn_layers_path(smi)
-    phase("15 results")
+    torch.cuda.empty_cache()
+    with watchdog("phase 15 (input pipeline)", 400):
+        input_pipeline_path(smi, compiled_ms, resnet_ms)
+    phase("16 results")
     for label, (d_ms, d_plain, d_lib, d_bnd) in (
             ("head_dim 256", d256), ("head_dim 512", d512),
             ("fp16 head_dim 64", fp16), ("fp16 head_dim 256", fp16_d256),

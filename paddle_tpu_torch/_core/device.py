@@ -7,6 +7,8 @@ falls back to the CPU quietly.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional, Union
 
 import torch
@@ -66,6 +68,20 @@ class CPUPlace(Place):
 
 
 _current: Optional[str] = None  # set_device's choice; None: the card
+_local = threading.local()      # ``on_host``'s override, per thread
+
+
+@contextlib.contextmanager
+def on_host():
+    """The eager API creates tensors on the CPU in this thread while the
+    block runs (the data loader's prefetch thread and its worker processes
+    build samples and batches under it), whatever ``set_device`` chose."""
+    before = getattr(_local, "cpu", False)
+    _local.cpu = True
+    try:
+        yield
+    finally:
+        _local.cpu = before
 
 
 def set_device(device: str) -> Place:
@@ -80,6 +96,8 @@ def set_device(device: str) -> Place:
 def get_device() -> str:
     """The device tensors are created on, as ``set_device`` names it; with
     no ``set_device`` the card (raises without one)."""
+    if getattr(_local, "cpu", False):
+        return "cpu"
     if _current is not None:
         return _current
     return f"gpu:{resolve_device(None).index}"
@@ -87,6 +105,8 @@ def get_device() -> str:
 
 def default_device() -> torch.device:
     """The torch device the eager API creates tensors on."""
+    if getattr(_local, "cpu", False):
+        return torch.device("cpu")
     return resolve_device(_current)
 
 

@@ -109,3 +109,6 @@ def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
         o._multi_precision = True
     return (models if single else model_list), \
         (optimizers if opt_single else opt_list)
+
+
+amp_guard = auto_cast

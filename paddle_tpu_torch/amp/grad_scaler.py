@@ -100,3 +100,6 @@ class GradScaler:
         self._good_steps = state.get("good_steps", 0)
         self._bad_steps = state.get("bad_steps", 0)
 
+
+
+AmpScaler = GradScaler

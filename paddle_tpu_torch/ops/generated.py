@@ -101,6 +101,11 @@ def margin_cross_entropy(logits, label, *, margin1=1.0, margin2=0.5, margin3=0.0
     return call('margin_cross_entropy', logits, label, margin1=margin1, margin2=margin2, margin3=margin3, scale=scale)
 
 
+def roi_align(x, boxes, boxes_num, *, pooled_height, pooled_width, spatial_scale=1.0, sampling_ratio=-1, aligned=True, name=None):
+    """Generated from ops.yaml (op: roi_align)."""
+    return call('roi_align', x, boxes, boxes_num, pooled_height=pooled_height, pooled_width=pooled_width, spatial_scale=spatial_scale, sampling_ratio=sampling_ratio, aligned=aligned)
+
+
 def gammainc_(a, x, name=None):
     """Generated from ops.yaml (op: gammainc_)."""
     return call('gammainc_', a, x)
@@ -1516,6 +1521,26 @@ def take_along_axis_(x, idx, *, axis, name=None):
 def where_(c, x, y, name=None):
     """Generated from ops.yaml (op: where_)."""
     return call('where_', c, x, y)
+
+
+def box_coder(prior_box, prior_var, target_box, *, code_type, box_normalized, name=None):
+    """Generated from ops.yaml (op: box_coder)."""
+    return call('box_coder', prior_box, prior_var, target_box, code_type=code_type, box_normalized=box_normalized)
+
+
+def nms_mask(boxes, scores, *, iou_threshold, name=None):
+    """Generated from ops.yaml (op: nms_mask)."""
+    return call('nms_mask', boxes, scores, iou_threshold=iou_threshold)
+
+
+def roi_pool(x, boxes, boxes_num, *, pooled_height, pooled_width, spatial_scale, name=None):
+    """Generated from ops.yaml (op: roi_pool)."""
+    return call('roi_pool', x, boxes, boxes_num, pooled_height=pooled_height, pooled_width=pooled_width, spatial_scale=spatial_scale)
+
+
+def yolo_box(x, img_size, *, anchors, class_num, conf_thresh, downsample_ratio, clip_bbox, scale_x_y, name=None):
+    """Generated from ops.yaml (op: yolo_box)."""
+    return call('yolo_box', x, img_size, anchors=anchors, class_num=class_num, conf_thresh=conf_thresh, downsample_ratio=downsample_ratio, clip_bbox=clip_bbox, scale_x_y=scale_x_y)
 
 
 def conv3d(x, w, b=None, *, stride, padding, dilation, groups, name=None):

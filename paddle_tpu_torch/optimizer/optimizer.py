@@ -1,17 +1,24 @@
 """Optimizers: the counterpart of ``paddle_tpu/optimizer/optimizer.py``
-(``Optimizer``, ``SGD``, ``Momentum``, ``Adam``, ``AdamW``).
+(``Optimizer``, ``SGD``, ``Momentum``, ``Adam``, ``AdamW``, ``Adagrad``,
+``RMSProp``, ``Adadelta``, ``Adamax``, ``Lamb``).
 
 Plain PyTorch, as the reference's update is plain XLA: one ``step`` runs
 ``torch._foreach_*`` ops over each (parameter group, type) bucket and
 updates the parameters in place. The arithmetic is the reference's
 ``_update_one``: the bias corrections are computed in float32 and cast to
 the parameter's type, AdamW's decay sits inside the learning-rate product
-(``p - lr * (upd + wd * p)``), Momentum adds L2 decay into the gradient
-before ``v = mu v + g``, and the learning rate is a float32 scalar: a
+(``p - lr * (upd + wd * p)``), the others add L2 decay into the gradient
+first, and the learning rate is a float32 scalar: a
 float, or an ``LRScheduler`` read at every step. A ``grad_clip``
 (``nn/clip.py``) rewrites the gradients first. With ``multi_precision`` a
 bf16 or fp16 parameter is updated through a float32 master copy and
-float32 state.
+float32 state. ``Lamb``'s per-parameter norms and trust ratios stay on
+the device: no step reads anything back.
+
+Two options the reference accepts and ignores are applied here, as Paddle
+defines them: AdamW's ``lr_ratio(param)`` multiplies that parameter's
+learning rate, and Lamb's ``exclude_from_weight_decay_fn(param)`` exempts
+a parameter from the decay (each by splitting the parameter groups).
 """
 from __future__ import annotations
 
@@ -24,7 +31,8 @@ import torch
 from .._core.tensor import Tensor
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adagrad",
+           "RMSProp", "Adadelta", "Adamax", "Lamb"]
 
 _LOW = (torch.bfloat16, torch.float16)
 
@@ -80,6 +88,27 @@ class Optimizer:
 
     def _init_state(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {}
+
+    def _split_groups(self, key, value_of):
+        """Splits every parameter group by ``value_of(param)`` (None: the
+        group as it is), setting ``key`` of each new group from it."""
+        groups = []
+        for grp in self._param_groups:
+            parts = collections.OrderedDict()
+            for p in grp["params"]:
+                parts.setdefault(value_of(grp, p), []).append(p)
+            for v, ps in parts.items():
+                g = dict(grp, params=ps)
+                if v is not None:
+                    g[key] = v
+                groups.append(g)
+        self._param_groups = groups
+
+    def _bias_correction(self, beta) -> float:
+        """``1 - beta ** t`` in float32, as the reference (t a float32
+        scalar)."""
+        t = np.float32(self._step_count)
+        return float(np.float32(1) - np.float32(beta) ** t)
 
     def _update(self, ps, gs, states, lr, wd) -> None:
         raise NotImplementedError
@@ -198,21 +227,25 @@ class Momentum(Optimizer):
 
 
 class Adam(Optimizer):
+    """Adam; with ``amsgrad`` the second moment's running maximum
+    (state ``vmax``) divides the update."""
     _decoupled = False
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
                  grad_clip=None, lazy_mode=False, multi_precision=False,
                  amsgrad=False, name=None):
-        if amsgrad:
-            raise NotImplementedError("amsgrad is not ported yet")
         self._b1, self._b2, self._eps = float(beta1), float(beta2), \
             float(epsilon)
+        self._amsgrad = bool(amsgrad)
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          multi_precision, name)
 
     def _init_state(self, p):
-        return {"m": torch.zeros_like(p), "v": torch.zeros_like(p)}
+        s = {"m": torch.zeros_like(p), "v": torch.zeros_like(p)}
+        if self._amsgrad:
+            s["vmax"] = torch.zeros_like(p)
+        return s
 
     def _update(self, ps, gs, states, lr, wd):
         b1, b2, eps = self._b1, self._b2, self._eps
@@ -224,14 +257,13 @@ class Adam(Optimizer):
         torch._foreach_add_(ms, gs, alpha=1 - b1)
         torch._foreach_mul_(vs, b2)
         torch._foreach_addcmul_(vs, gs, gs, value=1 - b2)
-        # 1 - beta ** t in float32, as the reference (t a float32 scalar)
-        t = np.float32(self._step_count)
-        bc1 = float(np.float32(1) - np.float32(b1) ** t)
-        bc2 = float(np.float32(1) - np.float32(b2) ** t)
-        denom = torch._foreach_div(vs, bc2)
+        if self._amsgrad:
+            vs = [s["vmax"] for s in states]
+            torch._foreach_maximum_(vs, [s["v"] for s in states])
+        denom = torch._foreach_div(vs, self._bias_correction(b2))
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, eps)
-        upd = torch._foreach_div(ms, bc1)
+        upd = torch._foreach_div(ms, self._bias_correction(b1))
         torch._foreach_div_(upd, denom)
         if wd and self._decoupled:
             torch._foreach_add_(upd, ps, alpha=wd)
@@ -248,8 +280,6 @@ class AdamW(Adam):
                  lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
                  lazy_mode=False, multi_precision=False, amsgrad=False,
                  name=None):
-        if lr_ratio is not None:
-            raise NotImplementedError("lr_ratio is not ported yet")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          weight_decay, grad_clip, lazy_mode, multi_precision,
                          amsgrad, name)
@@ -266,3 +296,189 @@ class AdamW(Adam):
                         "learning_rate": grp["learning_rate"]})
                 elif drop:
                     grp["weight_decay"] = 0.0
+        if lr_ratio is not None:
+            self._split_groups("learning_rate", lambda grp, p: float(
+                np.float32(grp["learning_rate"])
+                * np.float32(lr_ratio(p))))
+
+
+class Adagrad(Optimizer):
+    """``acc += g^2``, ``p -= lr g / (sqrt(acc) + eps)``; state ``acc``
+    from ``initial_accumulator_value``."""
+
+    def __init__(self, learning_rate, epsilon=1e-6, parameters=None,
+                 weight_decay=None, grad_clip=None, multi_precision=False,
+                 initial_accumulator_value=0.0, name=None):
+        self._eps = float(epsilon)
+        self._init_acc = float(initial_accumulator_value)
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision, name)
+
+    def _init_state(self, p):
+        return {"acc": torch.full_like(p, self._init_acc)}
+
+    def _update(self, ps, gs, states, lr, wd):
+        if wd:
+            gs = torch._foreach_add(gs, ps, alpha=wd)
+        accs = [s["acc"] for s in states]
+        torch._foreach_addcmul_(accs, gs, gs)
+        denom = torch._foreach_sqrt(accs)
+        torch._foreach_add_(denom, self._eps)
+        upd = torch._foreach_mul(gs, lr)
+        torch._foreach_div_(upd, denom)
+        torch._foreach_sub_(ps, upd)
+
+
+class RMSProp(Optimizer):
+    """``ms = rho ms + (1 - rho) g^2``; centered: ``mg = rho mg + (1 -
+    rho) g`` and the denominator ``sqrt(ms - mg^2 + eps)``, else ``sqrt(ms
+    + eps)``; ``mom = momentum mom + lr g / denom``, ``p -= mom``."""
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, multi_precision=False, name=None):
+        self._rho, self._eps = float(rho), float(epsilon)
+        self._momentum, self._centered = float(momentum), bool(centered)
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision, name)
+
+    def _init_state(self, p):
+        s = {"ms": torch.zeros_like(p), "mom": torch.zeros_like(p)}
+        if self._centered:
+            s["mg"] = torch.zeros_like(p)
+        return s
+
+    def _update(self, ps, gs, states, lr, wd):
+        rho = self._rho
+        if wd:
+            gs = torch._foreach_add(gs, ps, alpha=wd)
+        mss = [s["ms"] for s in states]
+        torch._foreach_mul_(mss, rho)
+        torch._foreach_add_(mss, torch._foreach_mul(
+            torch._foreach_mul(gs, 1 - rho), gs))
+        if self._centered:
+            mgs = [s["mg"] for s in states]
+            torch._foreach_mul_(mgs, rho)
+            torch._foreach_add_(mgs, torch._foreach_mul(gs, 1 - rho))
+            denom = torch._foreach_sub(mss, torch._foreach_mul(mgs, mgs))
+            torch._foreach_add_(denom, self._eps)
+        else:
+            denom = torch._foreach_add(mss, self._eps)
+        torch._foreach_sqrt_(denom)
+        moms = [s["mom"] for s in states]
+        torch._foreach_mul_(moms, self._momentum)
+        upd = torch._foreach_mul(gs, lr)
+        torch._foreach_div_(upd, denom)
+        torch._foreach_add_(moms, upd)
+        torch._foreach_sub_(ps, moms)
+
+
+class Adadelta(Optimizer):
+    """``avg_sq = rho avg_sq + (1 - rho) g^2``, ``dx = sqrt((avg_dx + eps)
+    / (avg_sq + eps)) g``, ``avg_dx = rho avg_dx + (1 - rho) dx^2``, ``p -=
+    lr dx``."""
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 multi_precision=False, name=None):
+        self._rho, self._eps = float(rho), float(epsilon)
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision, name)
+
+    def _init_state(self, p):
+        return {"avg_sq": torch.zeros_like(p), "avg_dx": torch.zeros_like(p)}
+
+    def _update(self, ps, gs, states, lr, wd):
+        rho, eps = self._rho, self._eps
+        if wd:
+            gs = torch._foreach_add(gs, ps, alpha=wd)
+        sqs = [s["avg_sq"] for s in states]
+        dxs = [s["avg_dx"] for s in states]
+        torch._foreach_mul_(sqs, rho)
+        torch._foreach_add_(sqs, torch._foreach_mul(
+            torch._foreach_mul(gs, 1 - rho), gs))
+        dx = torch._foreach_add(dxs, eps)
+        torch._foreach_div_(dx, torch._foreach_add(sqs, eps))
+        torch._foreach_sqrt_(dx)
+        torch._foreach_mul_(dx, gs)
+        torch._foreach_mul_(dxs, rho)
+        torch._foreach_add_(dxs, torch._foreach_mul(
+            torch._foreach_mul(dx, 1 - rho), dx))
+        torch._foreach_mul_(dx, lr)
+        torch._foreach_sub_(ps, dx)
+
+
+class Adamax(Optimizer):
+    """``m = b1 m + (1 - b1) g``, ``u = max(b2 u, |g|)``, ``p -= lr m /
+    ((1 - b1^t) (u + eps))``."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, multi_precision=False, name=None):
+        self._b1, self._b2, self._eps = float(beta1), float(beta2), \
+            float(epsilon)
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision, name)
+
+    def _init_state(self, p):
+        return {"m": torch.zeros_like(p), "u": torch.zeros_like(p)}
+
+    def _update(self, ps, gs, states, lr, wd):
+        b1 = self._b1
+        if wd:
+            gs = torch._foreach_add(gs, ps, alpha=wd)
+        ms = [s["m"] for s in states]
+        us = [s["u"] for s in states]
+        torch._foreach_mul_(ms, b1)
+        torch._foreach_add_(ms, torch._foreach_mul(gs, 1 - b1))
+        torch._foreach_mul_(us, self._b2)
+        torch._foreach_maximum_(us, torch._foreach_abs(gs))
+        denom = torch._foreach_add(us, self._eps)
+        torch._foreach_mul_(denom, self._bias_correction(b1))
+        upd = torch._foreach_div(ms, denom)
+        torch._foreach_mul_(upd, lr)
+        torch._foreach_sub_(ps, upd)
+
+
+class Lamb(Optimizer):
+    """Adam's direction ``r = m_hat / (sqrt(v_hat) + eps) + wd p``, scaled
+    per parameter by the trust ratio ``|p| / |r|`` (1 where either norm is
+    0): ``p -= (lr trust) r``. The norms (``torch._foreach_norm``) and the
+    ratios stay on the device."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None,
+                 multi_precision=False, name=None):
+        self._b1, self._b2, self._eps = float(beta1), float(beta2), \
+            float(epsilon)
+        super().__init__(learning_rate, parameters, lamb_weight_decay,
+                         grad_clip, multi_precision, name)
+        if exclude_from_weight_decay_fn is not None:
+            self._split_groups("weight_decay", lambda grp, p: 0.0 if
+                               exclude_from_weight_decay_fn(p) else None)
+
+    def _init_state(self, p):
+        return {"m": torch.zeros_like(p), "v": torch.zeros_like(p)}
+
+    def _update(self, ps, gs, states, lr, wd):
+        b1, b2 = self._b1, self._b2
+        ms = [s["m"] for s in states]
+        vs = [s["v"] for s in states]
+        torch._foreach_mul_(ms, b1)
+        torch._foreach_add_(ms, gs, alpha=1 - b1)
+        torch._foreach_mul_(vs, b2)
+        torch._foreach_addcmul_(vs, gs, gs, value=1 - b2)
+        denom = torch._foreach_div(vs, self._bias_correction(b2))
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self._eps)
+        r = torch._foreach_div(ms, self._bias_correction(b1))
+        torch._foreach_div_(r, denom)
+        if wd:
+            torch._foreach_add_(r, ps, alpha=wd)
+        w_norm = torch.stack(torch._foreach_norm(ps))
+        r_norm = torch.stack(torch._foreach_norm(r))
+        trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
+                            torch.ones_like(w_norm))
+        torch._foreach_mul_(r, list((trust * lr).to(ps[0].dtype).unbind(0)))
+        torch._foreach_sub_(ps, r)

@@ -71,7 +71,10 @@ class Spec:
     conditioned upper triangular, svdm / eigm: a matrix / a symmetric one
     with singular values / eigenvalues spread from 100 to 1, dd:
     diagonally dominant, sorted: sorted row, idx: indices with
-    duplicates, perm: a permutation) over ``shape`` in [lo, hi)."""
+    duplicates, perm: a permutation, box: shape[0] boxes [x1, y1, x2, y2]
+    in an image of side shape[1], split: counts of shape[0] parts summing
+    to shape[1]) over
+    ``shape`` in [lo, hi)."""
     kind: str
     shape: object = "x"
     lo: float = -1.0
@@ -128,6 +131,19 @@ class Spec:
             a = np.sort(rng.uniform(self.lo, self.hi, shape), -1)
         elif k == "perm":
             a = rng.permutation(int(self.hi))[:shape[0]]
+        elif k == "box":
+            # shape (R, side): [R, 4] boxes (x1, y1, x2, y2) in an image of
+            # that side, the corner in its first 60%, the sides from 1 to
+            # 35% of it (a side under 4: normalised boxes, from 0.01)
+            side = shape[1]
+            low = 1.0 if side >= 4 else 0.01
+            corner = rng.uniform(0, 0.6 * side, (shape[0], 2))
+            a = np.concatenate([corner, corner + rng.uniform(
+                low, 0.35 * side, (shape[0], 2))], 1)
+        elif k == "split":
+            # shape (n, total): n counts summing to total
+            cuts = np.sort(rng.randint(0, shape[1] + 1, shape[0] - 1))
+            a = np.diff(np.concatenate([[0], cuts, [shape[1]]]))
         else:
             raise ValueError(k)
         return np.asarray(a).astype(self.dtype)
@@ -1226,6 +1242,84 @@ case("zero_d", lambda P, x: (
           "median_", "unsqueeze", "reshape", "clip", "scale", "isnan",
           "p_norm_", "logsumexp", "sign", "abs", "where_", "prod",
           "quantile_", "tanh", "sin"), grad=(0,), low=True)
+
+# ---- vision.ops: the detection operators
+_GROUP[0] = "vision"
+# (images, channels, height, width, RoIs) of the RoI ops; boxes in the
+# input image's pixels, four times the feature map's side (scale 0.25)
+_ROI = _by((2, 3, 12, 16, 7), (2, 64, 100, 168, 256))
+
+
+def _roi(P, x, boxes, num):
+    V = importlib.import_module(P.__name__ + ".vision.ops")
+    return (V.roi_align(x, boxes, num, 3, spatial_scale=0.25,
+                        sampling_ratio=2, aligned=True),
+            V.roi_align(x, boxes, num, (2, 3), spatial_scale=0.25,
+                        sampling_ratio=-1, aligned=False),
+            V.roi_pool(x, boxes, num, 3, spatial_scale=0.25))
+
+
+case("vision_roi", _roi,
+     [Spec("n", lambda S: _ROI(S)[:4]),
+      Spec("box", lambda S: (_ROI(S)[4], 4 * _ROI(S)[2])),
+      Spec("split", lambda S: (_ROI(S)[0], _ROI(S)[4]), dtype="int32")],
+     ops=("roi_align", "roi_pool"), grad=(0,))
+_NMS = _by(12, 1000)
+case("vision_nms_mask", lambda P, b, sc: gen(P).nms_mask(
+    b, sc, iou_threshold=0.3),
+     [Spec("box", lambda S: (_NMS(S), 64)),
+      U(0.0, 1.0, lambda S: (_NMS(S),))], ops=("nms_mask",),
+     family="exact")
+
+
+def _nms(P, b, sc, cat):
+    V = importlib.import_module(P.__name__ + ".vision.ops")
+    return (V.nms(b, sc, 0.5), V.nms(b, sc, 0.7, top_k=5),
+            V.nms(b, sc, 0.5, category_idxs=cat, categories=[0, 1, 2]),
+            V.nms(b, None, 0.4))
+
+
+case("vision_nms", _nms,
+     [Spec("box", lambda S: (_NMS(S), 64)),
+      U(0.0, 1.0, lambda S: (_NMS(S),)), I(0, 3, lambda S: (_NMS(S),))],
+     ops=("nms_mask",), family="exact", sync=True)
+_PRIOR = _by((2, 3, 5, 6, 40, 48), (8, 512, 38, 38, 300, 300))
+
+
+def _boxes(P, prior, var, target, deltas, feat, image):
+    V = importlib.import_module(P.__name__ + ".vision.ops")
+    boxes, variances = V.prior_box(feat, image, [30.0], [60.0],
+                                   aspect_ratios=(2.0,), flip=True,
+                                   clip=True)
+    return (V.box_coder(prior, var, target, "encode_center_size"),
+            V.box_coder(prior, var, deltas, "decode_center_size",
+                        box_normalized=False),
+            V.box_coder(prior, None, target, "encode_center_size",
+                        box_normalized=False), boxes, variances)
+
+
+_NB = _by(9, 8732)  # SSD300's prior boxes
+case("vision_box_coder", _boxes,
+     [Spec("box", lambda S: (_NB(S), 1)),
+      U(0.1, 0.3, lambda S: (_NB(S), 4)), Spec("box", lambda S: (_NB(S), 1)),
+      Spec("n", lambda S: (_NB(S), 4)), Spec("n", lambda S: _PRIOR(S)[:4]),
+      Spec("n", lambda S: _PRIOR(S)[:2] + _PRIOR(S)[4:])],
+     ops=("box_coder",), grad=(2, 3))
+_YOLO = _by((2, 3, 5, 7), (8, 80, 19, 19))  # N, classes, H, W (608 / 32)
+
+
+def _yolo(P, x, size):
+    V = importlib.import_module(P.__name__ + ".vision.ops")
+    anchors = [116, 90, 156, 198, 373, 326]
+    return (V.yolo_box(x, size, anchors, x.shape[1] // 3 - 5, 0.5, 32),
+            V.yolo_box(x, size, anchors, x.shape[1] // 3 - 5, 0.01, 32,
+                       clip_bbox=False, scale_x_y=1.05))
+
+
+case("vision_yolo_box", _yolo,
+     [Spec("n", lambda S: (_YOLO(S)[0], 3 * (5 + _YOLO(S)[1])) + _YOLO(S)[2:]),
+      I(300, 700, lambda S: (_YOLO(S)[0], 2), dtype="int32")],
+     ops=("yolo_box",), grad=(0,))
 
 # ops whose numbers are random: held by their statistics (random cases)
 RANDOM_OPS = ("dropout_k", "uniform_k", "gaussian_k", "randint_k",

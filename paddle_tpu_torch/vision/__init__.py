@@ -1,4 +1,6 @@
-"""Counterpart of ``paddle_tpu/vision``: the datasets and the models
-(``transforms`` and ``ops`` are not ported yet)."""
+"""Counterpart of ``paddle_tpu/vision``: the datasets, the models, the
+transforms and the detection ops."""
 from . import datasets  # noqa: F401
 from . import models  # noqa: F401
+from . import ops  # noqa: F401
+from . import transforms  # noqa: F401

@@ -31,7 +31,6 @@ ROOT = Path(__file__).resolve().parents[1]
 
 _KERNEL_OPS = ("ROADMAP §1 item 1: the earlier slices' kernel, MoE and "
                "attention ops registered by name")
-_VISION = "ROADMAP §1 item 1: vision.ops"
 _INCUBATE = "ROADMAP §1 item 1: incubate's segment ops"
 _FFT = "ROADMAP §1 item 10: fft and signal"
 
@@ -40,8 +39,6 @@ LATER = dict(
         "fused_moe moe_combine moe_dispatch moe_gate_top1 moe_gate_top2 "
         "flash_attention flash_attn_varlen flashmask_attention "
         "fused_rms_norm fused_swiglu fused_rope").split()]
-    + [(n, _VISION) for n in "roi_align box_coder nms_mask roi_pool "
-       "yolo_box".split()]
     + [(n, _INCUBATE) for n in "segment_max segment_min segment_sum "
        "segment_mean".split()]
     + [(n, _FFT) for n in (
@@ -88,6 +85,13 @@ HOST_READS = {
     ("extra.py", "bincount"): "the output's length, max(x) + 1",
     ("parity.py", "sequence_mask"): "maxlen None: the longest length",
     ("__init__.py", "<module>"): "Tensor.cpu itself",
+}
+# beside them, outside ``ops/``: the calls whose output length depends on
+# the data (a sync with no host-read call in the source), by (file under
+# paddle_tpu_torch, function)
+DATA_DEPENDENT_SYNCS = {
+    ("vision/ops.py", "nms"): "the kept boxes' count (torch.nonzero), "
+                              "which also says whether the sweep settled",
 }
 
 
@@ -335,6 +339,20 @@ def test_op_bodies_read_no_data_on_the_host():
             if (path.name, fn) not in HOST_READS:
                 bad.append(f"{path.name}:{line} in {fn}")
     assert not bad, bad
+
+
+def test_vision_ops_sync_only_where_listed():
+    """``vision/ops.py`` makes no host-read call, and its one
+    data-dependent call (``nonzero``) sits where
+    ``DATA_DEPENDENT_SYNCS`` says."""
+    path = ROOT / "paddle_tpu_torch" / "vision" / "ops.py"
+    assert _host_reads(path) == []
+    tree = ast.parse(path.read_text())
+    found = {("vision/ops.py", fn.name) for fn in ast.walk(tree)
+             if isinstance(fn, ast.FunctionDef)
+             for node in ast.walk(fn) if isinstance(node, ast.Attribute)
+             and node.attr in ("nonzero", "masked_select", "unique")}
+    assert found == set(DATA_DEPENDENT_SYNCS), found
 
 
 def test_host_read_rule_catches_a_read(tmp_path):

@@ -10,7 +10,7 @@ package's, on the CPU.
   ``test_torch_vision_families.py``: the reference's first eager steps
   compile for tens of seconds);
 - the synthetic datasets bit for bit, and ``DataLoader`` batches
-  (``shuffle=False``) value for value;
+  (``shuffle=False``) value for value, with two worker processes too;
 - LeNet trains on the synthetic MNIST as ``tests/test_lenet_e2e.py``
   asserts for the reference.
 
@@ -35,7 +35,7 @@ from paddle_tpu.nn import initializer as rinit
 from paddle_tpu.vision import datasets as rds
 from paddle_tpu.vision import models as rmodels
 from paddle_tpu_torch._core import device as pt_device
-from paddle_tpu_torch.io import DataLoader, TensorDataset
+from paddle_tpu_torch.io import DataLoader, Subset, TensorDataset
 from paddle_tpu_torch.models.convert import optimizer_state_renamed
 from paddle_tpu_torch.vision import datasets as pds
 from paddle_tpu_torch.vision import models as pmodels
@@ -253,9 +253,21 @@ def test_tensor_dataset_subset_concat_and_split_match_reference():
                                   np.sort(pds.MNIST(mode="test").labels))
 
 
+@pytest.mark.timeout(60)
 def test_dataloader_refuses_worker_processes():
-    with pytest.raises(NotImplementedError, match="num_workers"):
-        DataLoader(pds.MNIST(mode="test"), batch_size=4, num_workers=2)
+    """Named when worker processes were refused; now that they are
+    ported: two workers give the single-process batches of the synthetic
+    MNIST bit for bit, in order (``test_torch_io_workers.py`` holds the
+    rest of the worker loader)."""
+    ds = Subset(pds.MNIST(mode="test"), list(range(40)))
+    single = [(x.numpy(), y.numpy()) for x, y in DataLoader(ds,
+                                                            batch_size=6)]
+    workers = [(x.numpy(), y.numpy()) for x, y in DataLoader(
+        ds, batch_size=6, num_workers=2, timeout=30)]
+    assert len(workers) == len(single) == 7
+    for (wx, wy), (sx, sy) in zip(workers, single):
+        np.testing.assert_array_equal(wx, sx)
+        np.testing.assert_array_equal(wy, sy)
 
 
 def test_lenet_trains_on_synthetic_mnist():
