@@ -147,7 +147,13 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    ("error")`` only the data-dependent cases and ``LIBRARY_SYNCS`` may
    synchronise; each forward timed (CUDA events, median of 10) beside
    its byte bound, with the ten largest ratios; the random ops held by
-   their statistics on the card; prints its time;
+   their statistics on the card; prints its time. Its ``kernel`` group
+   calls the kernel, MoE and attention ops by their registered names
+   (``flash_attention``, ``flash_attn_varlen`` and
+   ``flashmask_attention`` at ``[8, 1024, 16, 64]``, 8192 packed tokens,
+   fp32 and bf16, launching kernels #1-#11; ``fused_rms_norm``,
+   ``fused_swiglu``, ``fused_rope``, the MoE gates, dispatch, combine
+   and ``fused_moe``) and the four segment reductions;
 14. drives the ``nn`` layers: a small Transformer step (2 + 2 layers,
    d_model 64), a bidirectional 2-layer GRU and SimpleRNN (hidden 64) and
    a ``PyLayer`` with a ``register_hook`` on the card against the port's
@@ -180,6 +186,23 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    CPU path, ``LBFGS`` on least squares, then one step of each over
    gpt2-medium's 354.9 M fp32 parameters beside its byte bound and under
    ``set_sync_debug_mode("error")``; no port kernel may launch in (b)-(e);
+17. (run before 16) drives BERT and the fused layers, under a watchdog
+   of 300 s: (a) a bert-tiny fp32 step on the card against the port's
+   CPU path, then ``models.bert.build_train_step`` at ``bench_suite.py``'s
+   ``bench_bert`` shape (bert-base, batch 16 x seq 512, bf16, remat,
+   AdamW lr 1e-4, weights from seed 0, tokens and labels drawn as
+   ``bench_bert`` draws them), 1 warm-up and 5 timed steps: losses finite
+   and falling, no port kernel launched, ms/step, tokens/s, MFU (FLOPs
+   as ``bench.py`` counts them), peak memory and one profiled step; the
+   same for ERNIE-3.0-base (vocab 40000) while the phase has run under
+   150 s; (b) 12 ``incubate.nn.FusedTransformerEncoderLayer(768, 12,
+   3072, activation="gelu")`` eagerly, O1 bf16, ``AdamW``, batch 16 x
+   512, a padding mask hiding the last quarter of the keys from half the
+   rows: 12 bf16 SDPAs a forward (checked), falling loss, ms/step, MFU,
+   idle share; (c) the four segment reductions over [2^20, 128] fp32 in
+   2^16 sorted segments (one empty) against the CPU path, fwd+bwd timed
+   through the eager API and through the registered body beside the byte
+   bound;
 16. prints the head_dim 256 and 512 and fp16 (64, 256 and 512) timings,
    the ``kernels`` JSON line, the card line, and last ``{"ok": true, "device": {...}}``.
 
@@ -3282,6 +3305,7 @@ def op_surface_path(smi):
     n_runs = 0
     spent = {"inputs": 0.0, "card": 0.0, "cpu": 0.0, "compare": 0.0,
              "timing": 0.0}
+    _reset_all_launches()
     for case in oc.CASES:
         tick = time.perf_counter()
         arrays = _op_inputs(oc, case, cache)
@@ -3362,6 +3386,14 @@ def op_surface_path(smi):
         print(f"miss: {m}")
     print("op surface wall time by part: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in spent.items()))
+    # the kernel group calls the ops by their registered names: every
+    # kernel of the port must have run under them
+    by_name = _all_launches()
+    print(f"port kernel launches of the op surface (its by-name calls): "
+          f"{by_name}")
+    if any(c.group == "kernel" for c in oc.CASES):
+        check(all(by_name[k] for k in KERNELS), f"a kernel was not "
+              f"launched by the op surface's by-name calls: {by_name}")
     random_checks(paddle, oc.FULL.x)
     dt = time.perf_counter() - t0
     print(f"op surface: {n_runs} runs of {len(oc.CASES)} cases, "
@@ -4589,6 +4621,281 @@ def input_pipeline_path(smi, compiled_ms, resnet_ms):
     return dt
 
 
+# ------------------------------------------------------------ phase 17
+
+# bench_suite.py's bench_bert row: bert-base, batch 16 x seq 512, bf16,
+# the compiled trainer, lr 1e-4; then ERNIE-3.0-base (vocab 40000) the
+# same way while the phase has time left
+BERT_BATCH, BERT_SEQ = 16, 512
+BERT_ERNIE_BEFORE_S = 150.0
+# the eager fused encoder: bert-base's widths in 12 FusedTransformerEncoder
+# layers (post-norm, gelu), the same batch
+FUSED_ENCODER = dict(d_model=768, nhead=12, dim_feedforward=3072,
+                     layers=12)
+# graph pooling: 2^20 node rows of 128 features into 2^16 graphs
+SEG_ROWS, SEG_WIDTH, SEG_COUNT = 1 << 20, 128, 1 << 16
+SEG_EMPTY = 1000  # the graph left empty
+SEGMENT_OPS = ("segment_sum", "segment_mean", "segment_max", "segment_min")
+
+
+def bert_flops_per_token(cfg, seq) -> float:
+    """6 N + 12 L s h with N = 12 L h^2 + V h + P h, as ``bench.py``
+    counts a step."""
+    h, L = cfg.hidden_size, cfg.num_layers
+    n = 12 * L * h * h + cfg.vocab_size * h \
+        + cfg.max_position_embeddings * h
+    return 6 * n + 12 * L * seq * h
+
+
+def small_bert_check():
+    """The CUDA BERT step against the port's CPU path on bert-tiny in
+    fp32 (seq 128, 85% of the labels ignored, as masked-LM batches are):
+    two steps from the same state, held as ``small_step_check`` holds the
+    GPT (losses 1e-5 relative, masters 1e-4)."""
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.models.trainer import tree_leaves, tree_map
+    cfg = dataclasses.replace(bert.BERT_CONFIGS["bert-tiny"],
+                              dtype="float32")
+    init_fn, cuda_step = bert.build_train_step(cfg, device="cuda")
+    _, cpu_step = bert.build_train_step(cfg, device="cpu")
+    state = init_fn(0)
+    cpu_state = tree_map(lambda t: t.cpu(), state)
+    rng = np.random.RandomState(1)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 128)))
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 128)))
+    labels[torch.from_numpy(rng.uniform(0, 1, (2, 128)) < 0.85)] = -100
+    for i in range(2):
+        state, loss = cuda_step(state, tokens.cuda(), labels.cuda())
+        cpu_state, cpu_loss = cpu_step(cpu_state, tokens, labels)
+        print(f"small bert step {i}: cuda loss {loss.item():.6f} "
+              f"cpu loss {cpu_loss.item():.6f}")
+        check(abs(loss.item() - cpu_loss.item())
+              <= 1e-5 * abs(cpu_loss.item()), "small bert step loss")
+    err = max(_err(a.cpu(), b) for a, b in zip(
+        tree_leaves(state["master"]), tree_leaves(cpu_state["master"])))
+    print(f"small bert step master max abs err {err:.3g} (limit 1e-4)")
+    check(err <= 1e-4, f"small bert step master err {err}")
+
+
+def bert_step_path(name, smi):
+    """``name`` from ``BERT_CONFIGS`` through ``build_train_step``: bf16
+    params, fp32 master, remat per block, AdamW lr 1e-4, batch
+    ``BERT_BATCH`` x seq ``BERT_SEQ``, tokens and labels drawn as
+    ``bench_bert`` draws them; 1 warm-up and 5 timed steps, one profiled.
+    No port kernel may launch (the reference's BERT calls none)."""
+    from paddle_tpu_torch.models import bert
+    cfg = bert.BERT_CONFIGS[name]
+    b, s = BERT_BATCH, BERT_SEQ
+    init_fn, step = bert.build_train_step(cfg, lr=1e-4, remat=True,
+                                          device="cuda")
+    state = init_fn(0)
+    rng = np.random.RandomState(0)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).cuda()
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_launches()
+    losses, step_ms = [], []
+    for i in range(1 + TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, tokens, labels)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        losses.append(loss.item())
+        if i:
+            step_ms.append(dt)
+        print(f"{name} step {i}{' (warm-up)' if not i else ''}: loss "
+              f"{losses[-1]:.5f} {dt:.1f} ms")
+    launches = _all_launches()
+    check(not any(launches.values()), f"the BERT path launched a port "
+          f"kernel; its reference calls none: {launches}")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"{name} loss did not fall: {losses}")
+    med = float(np.median(step_ms))
+    tok_s = b * s / (med / 1e3)
+    fpt = bert_flops_per_token(cfg, s)
+    mfu = fpt * tok_s / PEAK_BF16_FLOPS
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{name} b{b} s{s} bf16 remat adamw ({fpt / 1e6:.1f} MFLOP a "
+          f"token, {fpt * b * s / 1e12:.3f} TFLOP a step): median "
+          f"{med:.2f} ms/step of {TIMED_STEPS} (steps "
+          f"{[round(x, 2) for x in step_ms]}), {tok_s:.1f} tokens/s, MFU "
+          f"{mfu:.4f} of 989 TFLOP/s, peak memory {peak / 2**30:.2f} GiB on "
+          f"{smi}")
+    check(peak < DEVICE_BYTES, f"peak memory {peak}")
+    profile_step(step, state, tokens, labels, med)
+    return med
+
+
+def fused_encoder_path(smi):
+    """12 ``incubate.nn.FusedTransformerEncoderLayer(768, 12, 3072,
+    activation="gelu")`` (post-norm, dropout 0.1) eagerly: fp32
+    parameters, O1 bf16, ``AdamW(1e-4)``, batch ``BERT_BATCH`` x
+    ``BERT_SEQ`` of seeded inputs, a bool padding mask that hides the last
+    quarter of the keys from half the rows, MSE to a seeded target. Checks
+    that O1 ran its 12 dense SDPAs a forward in bf16, that the loss is
+    finite and falls, and that no port kernel launched."""
+    import paddle_tpu_torch as paddle
+    from torch.profiler import record_function
+    F = paddle.nn.functional
+    c = FUSED_ENCODER
+    b, s, h, f = BERT_BATCH, BERT_SEQ, c["d_model"], c["dim_feedforward"]
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    layers = paddle.nn.LayerList([
+        paddle.incubate.nn.FusedTransformerEncoderLayer(
+            h, c["nhead"], f, activation="gelu")
+        for _ in range(c["layers"])])
+    opt = paddle.optimizer.AdamW(1e-4, parameters=layers.parameters())
+    rng = np.random.RandomState(0)
+    x = paddle.to_tensor(rng.randn(b, s, h).astype(np.float32))
+    target = paddle.to_tensor(rng.randn(b, s, h).astype(np.float32))
+    keep = np.ones((b, 1, 1, s), bool)
+    keep[::2, ..., -s // 4:] = False
+    mask = paddle.to_tensor(keep)
+    layers.train()
+
+    def step():
+        with record_function("forward"):
+            with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+                y = x
+                for layer in layers:
+                    y = layer(y, mask)
+            loss = F.mse_loss(y.astype("float32"), target)
+        loss.backward()
+        with record_function("optimizer"):
+            opt.step()
+            opt.clear_grad()
+        return loss
+
+    counts = {}
+    _reset_all_launches()
+    undo = _count_sdpa(counts)
+    try:
+        step()
+    finally:
+        undo()
+    print(f"fused encoder sdpa calls in one O1 step by io type: {counts}")
+    check(counts == {"bfloat16": c["layers"]}, f"O1 did not run the "
+          f"{c['layers']} SDPAs of a forward in bf16: {counts}")
+    # a forward: 4 h^2 + 2 h f multiply-adds a token in the products, and
+    # 2 s h in the attention; a training step 3 forwards
+    flops_step = 3 * b * s * c["layers"] * 2 * (4 * h * h + 2 * h * f
+                                                + 2 * s * h)
+    losses, med, prof = _train_steps(
+        f"fused encoder {c['layers']} x ({h}, {c['nhead']}, {f}) b{b} s{s} "
+        f"bf16 O1 AdamW", step, b * s, flops_step, smi)
+    check(losses[-1] < losses[0], f"fused encoder loss did not fall: "
+          f"{losses}")
+    launches = _all_launches()
+    check(not any(launches.values()), f"the fused encoder launched a port "
+          f"kernel (it runs none): {launches}")
+    return med, prof
+
+
+def segment_inputs(seed=0):
+    """``SEG_ROWS`` rows of ``SEG_WIDTH`` fp32 features, sorted ids of
+    ``SEG_COUNT`` graphs (sizes drawn at random), graph ``SEG_EMPTY`` empty
+    and the last graph present."""
+    rng = np.random.RandomState(seed)
+    ids = np.sort(rng.randint(0, SEG_COUNT, SEG_ROWS))
+    ids[ids == SEG_EMPTY] = SEG_EMPTY + 1
+    ids[-1] = SEG_COUNT - 1
+    data = rng.randn(SEG_ROWS, SEG_WIDTH).astype(np.float32)
+    return data, ids
+
+
+def segment_checks(smi):
+    """The four segment reductions at a graph-pooling size on the card
+    against the port's CPU path (forward and the gradient of sum(out * r),
+    at ``op_cases.limit``), then fwd+bwd timed (CUDA events, mean of 10)
+    through the eager API (which reads the segment count on the host each
+    call) and through the registered body alone, beside the byte bound
+    (data, ids and the output's gradient read once, the output and the
+    data's gradient written once)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch._core import op_registry
+    from paddle_tpu_torch.testing import op_cases as oc
+    data, ids = segment_inputs()
+    out_shape = (SEG_COUNT, SEG_WIDTH)
+    r = np.random.RandomState(1).uniform(-1, 1, out_shape).astype(
+        np.float32)
+    nbytes = data.nbytes + ids.nbytes + 2 * r.nbytes + data.nbytes
+    bound = nbytes / PEAK_BYTES * 1e3
+    terms = SEG_ROWS // SEG_COUNT
+    _reset_all_launches()
+    for name in SEGMENT_OPS:
+        res = {}
+        for dev in ("gpu", "cpu"):
+            paddle.set_device(dev)
+            d = paddle.to_tensor(data, stop_gradient=False)
+            out = getattr(paddle.incubate, name)(d, paddle.to_tensor(ids))
+            (out * paddle.to_tensor(r)).sum().backward()
+            res[dev] = (out._t.detach(), d.grad._t)
+        worst = 0.0
+        for k, what in enumerate(("out", "grad")):
+            ratio, bad = _op_compare(oc, f"{name} {what}", res["gpu"][k],
+                                     res["cpu"][k].cuda(), "reduce", terms,
+                                     grad=k == 1)
+            check(bad is None, f"{name} {what}: {bad}")
+            worst = max(worst, ratio)
+        empty = res["gpu"][0][SEG_EMPTY]
+        check(not bool(empty.any()), f"{name}: the empty graph is not 0")
+        paddle.set_device("gpu")
+        d = paddle.to_tensor(data, stop_gradient=False)
+        i = paddle.to_tensor(ids)
+        rt = torch.from_numpy(r).cuda()
+        body = op_registry.get_op(name).fn
+        dt, it = d._t, i._t
+
+        def eager():
+            out = getattr(paddle.incubate, name)(d, i)
+            torch.autograd.grad((out._t * rt).sum(), dt)
+
+        def alone():
+            out = body(dt, it, SEG_COUNT)
+            torch.autograd.grad((out * rt).sum(), dt)
+
+        ms_eager = cuda_ms(eager, 10)
+        ms_body = cuda_ms(alone, 10)
+        print(f"{name} [{SEG_ROWS}, {SEG_WIDTH}] fp32 into {SEG_COUNT} "
+              f"sorted segments (one empty): fwd+bwd {ms_eager:.4f} ms "
+              f"through the eager API, {ms_body:.4f} ms the body alone; "
+              f"byte bound {bound:.4f} ms ({bound / ms_body:.1%} of it "
+              f"alone); worst {worst:.3g} of its limit against the CPU "
+              f"path; on {smi}", flush=True)
+        del res, d, i, dt, it
+        torch.cuda.empty_cache()
+    launches = _all_launches()
+    check(not any(launches.values()), f"the segment ops launched a port "
+          f"kernel (they run none): {launches}")
+
+
+def bert_fused_path(smi):
+    """Phase 17: (a) the BERT trainer at bench_bert's shape (after a
+    bert-tiny step against the CPU path), then ERNIE-3.0-base while time
+    is left; (b) the eager fused encoder; (c) the segment reductions at a
+    graph-pooling size."""
+    phase("17 bert and the fused layers")
+    t0 = time.perf_counter()
+    small_bert_check()
+    torch.cuda.empty_cache()
+    bert_step_path("bert-base", smi)
+    torch.cuda.empty_cache()
+    if time.perf_counter() - t0 < BERT_ERNIE_BEFORE_S:
+        bert_step_path("ernie-3.0-base", smi)
+    else:
+        print(f"ernie-3.0-base skipped: the phase had run "
+              f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    fused_encoder_path(smi)
+    torch.cuda.empty_cache()
+    segment_checks(smi)
+    dt = time.perf_counter() - t0
+    print(f"bert and fused layers phase: {dt:.1f} s on {smi}", flush=True)
+    return dt
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4640,6 +4947,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with watchdog("phase 15 (input pipeline)", 400):
         input_pipeline_path(smi, compiled_ms, resnet_ms)
+    torch.cuda.empty_cache()
+    with watchdog("phase 17 (bert and the fused layers)", 300):
+        bert_fused_path(smi)
     phase("16 results")
     for label, (d_ms, d_plain, d_lib, d_bnd) in (
             ("head_dim 256", d256), ("head_dim 512", d512),

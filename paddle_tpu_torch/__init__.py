@@ -8,8 +8,8 @@ This package never imports JAX or ``paddle_tpu``.
 ``import paddle_tpu_torch as paddle`` gives the eager (dygraph) API:
 ``Tensor``, ``to_tensor``, the ops (registered by name in
 ``_core/op_registry.py`` against the schema ``ops/yaml/ops.yaml``),
-``linalg``, ``nn``, ``autograd``, ``optimizer``, ``amp``, ``io`` and
-``vision``.
+``linalg``, ``nn``, ``autograd``, ``optimizer``, ``amp``, ``io``,
+``vision``, ``incubate`` and ``base``.
 Tensors are created on the card unless ``set_device('cpu')`` was called;
 with no card and no ``set_device('cpu')`` creation raises (see
 :func:`resolve_device`). Nothing imported here needs a card or ``nvcc``.
@@ -27,6 +27,7 @@ from ._core.random import get_seed, seed  # noqa: F401
 from ._core.tensor import Tensor, to_tensor  # noqa: F401
 from .ops import *  # noqa: F401,F403
 from . import amp, autograd, io, nn, optimizer, vision  # noqa: F401,E402
+from . import base, incubate  # noqa: F401,E402
 # "from . import linalg" would find the ops.linalg module that the star
 # import above bound to this name
 import importlib as _importlib  # noqa: E402

@@ -3,14 +3,19 @@
 
 ``fused_rms_norm`` runs the port's RMSNorm kernel and ``swiglu`` its SwiGLU
 kernel (``ops/cuda/fused.py``, ``csrc/fused.cu``); RoPE, LayerNorm and MoE
-are plain PyTorch, as they are plain jnp in the reference.
+are plain PyTorch, as they are plain jnp in the reference. Each takes the
+eager API's ``Tensor``s or torch tensors: RMSNorm and SwiGLU are called
+as the registered ops ``fused_rms_norm`` and ``fused_swiglu``, RoPE and
+MoE through the dispatch under the names ``fused_rope`` and
+``fused_moe``, as the reference calls them.
 """
 from __future__ import annotations
 
+from ...._core.dispatch import apply
+from ...._core.op_registry import call
 from ....nn.functional.norm import layer_norm as _layer_norm
 from ....ops import moe as _moe
-from ....ops.cuda.fused import fused_rotary_position_embedding, swiglu
-from ....ops.cuda.fused import rms_norm as _rms_norm
+from ....ops.cuda import fused as _fused
 
 
 def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon=1e-6,
@@ -26,7 +31,7 @@ def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon=1e-6,
     arguments; the port raises ``NotImplementedError`` for a
     ``begin_norm_axis`` other than the last axis and for
     ``quant_scale > 0``."""
-    if begin_norm_axis not in (-1, x.dim() - 1):
+    if begin_norm_axis not in (-1, len(x.shape) - 1):
         raise NotImplementedError(
             f"fused_rms_norm: begin_norm_axis={begin_norm_axis} is not "
             f"ported (only the last axis; the reference ignores it)")
@@ -38,7 +43,7 @@ def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon=1e-6,
         h = h + bias
     if residual is not None:
         h = h + residual
-    out = _rms_norm(h, norm_weight, epsilon)
+    out = call("fused_rms_norm", h, norm_weight, eps=float(epsilon))
     if norm_bias is not None:
         out = out + norm_bias
     return out, (h if residual is not None else None)
@@ -59,6 +64,22 @@ def fused_layer_norm(x, norm_weight, norm_bias, epsilon=1e-5,
     return out, (h if residual is not None else None)
 
 
+def swiglu(x, gate=None):
+    """``silu(x) * gate``; with ``gate=None`` x's last axis is split in
+    half (the op ``fused_swiglu``)."""
+    return call("fused_swiglu", x, gate)
+
+
+def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
+                                    position_ids=None,
+                                    use_neox_rotary_style=True):
+    """``ops/cuda/fused.py`` ``fused_rotary_position_embedding`` through
+    the dispatch: ``(q, k, v)`` rotated (k None stays None)."""
+    return apply("fused_rope", _fused.fused_rotary_position_embedding, q, k,
+                 v, sin, cos, position_ids,
+                 use_neox_rotary_style=use_neox_rotary_style)
+
+
 def fused_moe(x, gate_weight, ffn1_weight, ffn2_weight, ffn1_bias=None,
               ffn1_scale=None, ffn2_bias=None, ffn2_scale=None,
               quant_method="None", moe_topk=2, norm_topk_prob=True):
@@ -73,6 +94,12 @@ def fused_moe(x, gate_weight, ffn1_weight, ffn2_weight, ffn1_bias=None,
     raises ``NotImplementedError``."""
     if quant_method not in ("None", "none", None):
         raise NotImplementedError("quantized fused_moe not supported yet")
+    return apply("fused_moe", _fused_moe, x, gate_weight, ffn1_weight,
+                 ffn2_weight, ffn1_bias, ffn2_bias, k=int(moe_topk))
+
+
+def _fused_moe(x, gate_weight, ffn1_weight, ffn2_weight, ffn1_bias,
+               ffn2_bias, k):
     m = x.shape[-1]
     x2 = x.reshape(-1, m)
     e = gate_weight.shape[-1]
@@ -83,7 +110,7 @@ def fused_moe(x, gate_weight, ffn1_weight, ffn2_weight, ffn1_bias=None,
         ffn2_bias = x.new_zeros((e, m))
     out, _ = _moe.moe_ffn(x2, gate_weight, ffn1_weight,
                           ffn1_bias.reshape(e, h), ffn2_weight,
-                          ffn2_bias.reshape(e, m), k=int(moe_topk))
+                          ffn2_bias.reshape(e, m), k=k)
     return out.reshape(x.shape)
 
 

@@ -17,8 +17,9 @@ functional                     goes to
 =============================  ==========================================
 
 ``flash_attention`` and ``flash_attn_qkvpacked`` take the eager API's
-``Tensor``s through the dispatch (op ``flash_attention``, on no AMP list:
-q, k and v keep the type they come in). Unlike the reference, nothing here
+``Tensor``s through the registered op ``flash_attention``, called by name
+as the reference calls it (on no AMP list: q, k and v keep the type they
+come in). Unlike the reference, nothing here
 falls back: the kernels mask ragged
 edges themselves, so any sequence length runs on them, and a kernel error
 raises instead of switching to the dense path. Dropout,
@@ -30,8 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from ..._core.dispatch import apply
-from ...ops.cuda.flash_attention import mha_forward
+from ..._core.op_registry import call
 from ...ops.cuda.flash_varlen import (flash_attn_varlen,
                                       flashmask_attention_kernel)
 from .attention import scaled_dot_product_attention
@@ -45,11 +45,6 @@ def _not_ported(dropout: float, return_softmax: bool,
         raise NotImplementedError("return_softmax=True is not ported yet")
 
 
-def _flash_attention(q, k, v, causal):
-    return mha_forward(q.transpose(1, 2), k.transpose(1, 2),
-                       v.transpose(1, 2), causal).transpose(1, 2)
-
-
 def flash_attention(query, key, value, dropout=0.0, causal=False,
                     return_softmax=False, fixed_seed_offset=None,
                     rng_name="", training=True, name=None):
@@ -57,8 +52,8 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     tensors); returns ``(out, None)`` like the reference. Any sequence
     length goes to the kernels."""
     _not_ported(dropout, return_softmax, training)
-    return apply("flash_attention", _flash_attention, query, key, value,
-                 causal=bool(causal)), None
+    return call("flash_attention", query, key, value, causal=bool(causal),
+                scale=None), None
 
 
 def flash_attn_qkvpacked(qkv, dropout=0.0, causal=False,

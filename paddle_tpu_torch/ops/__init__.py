@@ -8,7 +8,7 @@ import torch
 
 from .._core.dispatch import unwrap
 from .._core.tensor import Tensor, to_tensor
-from . import moe  # noqa: F401
+from . import moe, segment  # noqa: F401
 from . import _helper, creation, extra, indexing, linalg, manipulation, \
     math, math_ext, parity, reduction, search  # noqa: F401
 from .creation import *  # noqa: F401,F403

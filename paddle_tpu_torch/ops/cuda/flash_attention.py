@@ -46,6 +46,11 @@ kernel as a fresh contiguous copy, :func:`_tma_inputs`); the FMA one
 (float32 io) runs fp32 FMAs.
 ``LAUNCHES`` counts kernel launches per wrapper; the plain versions do not
 count.
+
+The op ``flash_attention(q, k, v, causal, scale)`` (paddle layout
+``[B, S, H, D]``) is registered at import, as the reference registers its
+``_fa_kernel_body``; unlike the reference's, it takes any sequence
+length.
 """
 from __future__ import annotations
 
@@ -55,6 +60,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..._core.op_registry import register_op
 from ._build import function
 
 NEG_INF = -1e30
@@ -453,6 +459,12 @@ def flash_attention(query, key, value, causal: bool = False,
     if sq % 128 or sk % 128:
         raise ValueError(f"flash_attention kernel needs seq % 128 == 0 "
                          f"(got q={sq}, k={sk})")
-    out = mha_forward(query.transpose(1, 2), key.transpose(1, 2),
-                      value.transpose(1, 2), causal, scale)
-    return out.transpose(1, 2)
+    return _fa_body(query, key, value, causal, scale)
+
+
+@register_op("flash_attention")
+def _fa_body(q, k, v, causal=False, scale=None):
+    """The registered op: ``[B, S, H, D]`` in and out, any sequence length,
+    through :func:`mha_forward` (kernels #1-#3)."""
+    return mha_forward(q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), causal, scale).transpose(1, 2)

@@ -66,6 +66,11 @@ launch the heads in slices of at most 65535 either way. What a launch refuses
 at all: a tensor map the driver will not encode (a row stride that is not
 a multiple of 16 bytes after the wrappers' copies, or a dimension past
 2^32), or no memory for the launch.
+
+The ops ``flash_attn_varlen(q, k, v, cu_seqlens_q, cu_seqlens_k, scale,
+causal)`` and ``flashmask_attention(q, k, v, startend, scale, causal)``
+are registered at import, as the reference registers ``_varlen_body``
+and ``_flashmask_body``.
 """
 from __future__ import annotations
 
@@ -76,6 +81,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..._core.op_registry import register_op
 from . import flash_attention as fa
 from ._build import function
 from .flash_attention import (NEG_INF, _check_cuda, _dispatch, _pad_head_dim,
@@ -743,3 +749,7 @@ def flashmask_attention_kernel(query, key, value, startend,
                for x in (query, key, value))
     out = _FlashMask.apply(q, k, v, plan, float(scale))
     return out.view(b, h, sq, d).transpose(1, 2)
+
+
+register_op("flash_attn_varlen", flash_attn_varlen)
+register_op("flashmask_attention", flashmask_attention_kernel)

@@ -28,6 +28,10 @@ passes are the reference's closed forms (``_rms_bwd``, ``_swiglu_bwd``),
 which the reference leaves to XLA, written here in plain PyTorch on
 whatever device the tensors are on. They are the counterpart of that jnp
 code, not a fallback.
+
+The ops ``fused_rms_norm(x, weight, eps)``, ``fused_swiglu(x, gate)`` and
+``fused_rope(q, k, cos, sin)`` (two outputs) are registered at import, as
+the reference registers them on its entries' first call.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..._core.op_registry import register_op
 from ._build import function
 
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -327,3 +332,23 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
     qo = _rope_half(q, cosv, sinv)
     ko = _rope_half(k, cosv, sinv) if k is not None else None
     return qo, ko, v
+
+
+# ---------------------------------------------------------- registered ops
+
+@register_op("fused_rms_norm")
+def _rms_body(x, weight, eps):
+    """RMSNorm over the last axis (kernel #4)."""
+    return rms_norm(x, weight, eps)
+
+
+register_op("fused_swiglu", swiglu)
+
+
+@register_op("fused_rope", multi_output=True)
+def _rope_body(q, k, cos, sin):
+    """q and k ``[B, S, H, D]`` rotated by cos and sin ``[S, D]`` (or
+    ``[1, S, 1, D]``); the reference's ``_rope_body`` with its k."""
+    if cos.dim() == 2:
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    return _rope_half(q, cos, sin), _rope_half(k, cos, sin)

@@ -141,6 +141,21 @@ def solve_(a, b, name=None):
     return call('solve_', a, b)
 
 
+def segment_max(data, ids, *, num_segments, name=None):
+    """Generated from ops.yaml (op: segment_max)."""
+    return call('segment_max', data, ids, num_segments=num_segments)
+
+
+def segment_min(data, ids, *, num_segments, name=None):
+    """Generated from ops.yaml (op: segment_min)."""
+    return call('segment_min', data, ids, num_segments=num_segments)
+
+
+def segment_sum(data, ids, *, num_segments, name=None):
+    """Generated from ops.yaml (op: segment_sum)."""
+    return call('segment_sum', data, ids, num_segments=num_segments)
+
+
 def linalg_cond(x, *, p=None, name=None):
     """Generated from ops.yaml (op: linalg_cond)."""
     return call('linalg_cond', x, p=p)
@@ -1358,6 +1373,31 @@ def svdvals_(x, name=None):
     return call('svdvals_', x)
 
 
+def fused_moe(x, gate_w, w0, b0, w1, b1, *, k=2, capacity_factor=1.25, capacity=None, activation='gelu', name=None):
+    """Generated from ops.yaml (op: fused_moe)."""
+    return call('fused_moe', x, gate_w, w0, b0, w1, b1, k=k, capacity_factor=capacity_factor, capacity=capacity, activation=activation)
+
+
+def moe_combine(expert_out, combine, name=None):
+    """Generated from ops.yaml (op: moe_combine)."""
+    return call('moe_combine', expert_out, combine)
+
+
+def moe_dispatch(x, dispatch, name=None):
+    """Generated from ops.yaml (op: moe_dispatch)."""
+    return call('moe_dispatch', x, dispatch)
+
+
+def moe_gate_top1(logits, *, capacity_factor=1.25, capacity=None, name=None):
+    """Generated from ops.yaml (op: moe_gate_top1)."""
+    return call('moe_gate_top1', logits, capacity_factor=capacity_factor, capacity=capacity)
+
+
+def moe_gate_top2(logits, *, capacity_factor=1.25, capacity=None, name=None):
+    """Generated from ops.yaml (op: moe_gate_top2)."""
+    return call('moe_gate_top2', logits, capacity_factor=capacity_factor, capacity=capacity)
+
+
 def all(x, *, axis, keepdim, name=None):
     """Generated from ops.yaml (op: all)."""
     return call('all', x, axis=axis, keepdim=keepdim)
@@ -1546,6 +1586,41 @@ def yolo_box(x, img_size, *, anchors, class_num, conf_thresh, downsample_ratio, 
 def conv3d(x, w, b=None, *, stride, padding, dilation, groups, name=None):
     """Generated from ops.yaml (op: conv3d)."""
     return call('conv3d', x, w, b, stride=stride, padding=padding, dilation=dilation, groups=groups)
+
+
+def flash_attention(q, k, v, *, causal, scale, name=None):
+    """Generated from ops.yaml (op: flash_attention)."""
+    return call('flash_attention', q, k, v, causal=causal, scale=scale)
+
+
+def flash_attn_varlen(q, k, v, cu_seqlens_q, cu_seqlens_k, *, scale, causal, name=None):
+    """Generated from ops.yaml (op: flash_attn_varlen)."""
+    return call('flash_attn_varlen', q, k, v, cu_seqlens_q, cu_seqlens_k, scale=scale, causal=causal)
+
+
+def flashmask_attention(q, k, v, startend, *, scale, causal, name=None):
+    """Generated from ops.yaml (op: flashmask_attention)."""
+    return call('flashmask_attention', q, k, v, startend, scale=scale, causal=causal)
+
+
+def fused_rms_norm(x, weight, *, eps, name=None):
+    """Generated from ops.yaml (op: fused_rms_norm)."""
+    return call('fused_rms_norm', x, weight, eps=eps)
+
+
+def fused_swiglu(x, gate, name=None):
+    """Generated from ops.yaml (op: fused_swiglu)."""
+    return call('fused_swiglu', x, gate)
+
+
+def fused_rope(q, k, cos, sin, name=None):
+    """Generated from ops.yaml (op: fused_rope)."""
+    return call('fused_rope', q, k, cos, sin)
+
+
+def segment_mean(data, ids, *, num_segments, name=None):
+    """Generated from ops.yaml (op: segment_mean)."""
+    return call('segment_mean', data, ids, num_segments=num_segments)
 
 
 def accuracy_k(pred_idx, label, name=None):

@@ -11,6 +11,10 @@ Where the reference reads ``FLAGS_moe_capacity_factor`` (default 1.25) for
 top-2 gating, the port, which has no flags, takes 1.25. Argmax ties go to
 the first index, as ``jnp.argmax`` gives them. ``jax.nn.gelu`` is the tanh
 approximation by default, and so is ``moe_ffn``'s "gelu" here.
+
+Registered at import under the schema's names, as the reference registers
+them: ``moe_gate_top1``, ``moe_gate_top2``, ``moe_dispatch``,
+``moe_combine`` and ``fused_moe`` (``moe_ffn``: ``(out, aux)``).
 """
 from __future__ import annotations
 
@@ -149,3 +153,23 @@ def moe_ffn(x, gate_w, w0, b0, w1, b1, *, k: int = 2,
         + b1[:, None, :].to(x.dtype)
     out = moe_combine(ye, combine.to(x.dtype))
     return out, aux.float()
+
+
+# -------------------------------------------------- eager op registration
+# the reference registers the same five at import (``ops/moe.py``
+# ``_register``), with these bodies and the schema's attrs
+
+def _register():
+    from .._core.op_registry import register_op
+
+    register_op("moe_gate_top2", top2_gating, multi_output=True)
+    register_op("moe_gate_top1",
+                lambda logits, capacity_factor=1.25, capacity=None:
+                top1_gating(logits, capacity_factor, capacity),
+                multi_output=True)
+    register_op("moe_dispatch", moe_dispatch)
+    register_op("moe_combine", moe_combine)
+    register_op("fused_moe", moe_ffn, multi_output=True)
+
+
+_register()

@@ -73,7 +73,9 @@ class Spec:
     diagonally dominant, sorted: sorted row, idx: indices with
     duplicates, perm: a permutation, box: shape[0] boxes [x1, y1, x2, y2]
     in an image of side shape[1], split: counts of shape[0] parts summing
-    to shape[1]) over
+    to shape[1], cu: their offsets, seg: shape[0] segment ids below
+    shape[1] with an empty one, start: flashmask start rows of shape
+    [B, 1, S, 1]) over
     ``shape`` in [lo, hi)."""
     kind: str
     shape: object = "x"
@@ -140,10 +142,27 @@ class Spec:
             corner = rng.uniform(0, 0.6 * side, (shape[0], 2))
             a = np.concatenate([corner, corner + rng.uniform(
                 low, 0.35 * side, (shape[0], 2))], 1)
-        elif k == "split":
-            # shape (n, total): n counts summing to total
+        elif k in ("split", "cu"):
+            # shape (n, total): n counts summing to total (cu: their
+            # offsets, n + 1 of them from 0 to total)
             cuts = np.sort(rng.randint(0, shape[1] + 1, shape[0] - 1))
             a = np.diff(np.concatenate([[0], cuts, [shape[1]]]))
+            if k == "cu":
+                a = np.concatenate([[0], np.cumsum(a)])
+        elif k == "seg":
+            # shape (N, n): N segment ids in [0, n), unsorted, the last
+            # id present and the middle one left empty
+            a = rng.randint(0, shape[1], shape[0])
+            a[a == shape[1] // 2] = 0
+            a[-1] = shape[1] - 1
+        elif k == "start":
+            # shape (B, 1, S, 1): flashmask start rows, key column j
+            # hidden from the query rows from a random row after j on, so
+            # that every causal row still sees its own key
+            s = shape[2]
+            a = rng.randint(np.arange(1, s + 1), s + 1,
+                            (shape[0], shape[1], shape[3], s))
+            a = np.swapaxes(a, 2, 3)
         else:
             raise ValueError(k)
         return np.asarray(a).astype(self.dtype)
@@ -1320,6 +1339,102 @@ case("vision_yolo_box", _yolo,
      [Spec("n", lambda S: (_YOLO(S)[0], 3 * (5 + _YOLO(S)[1])) + _YOLO(S)[2:]),
       I(300, 700, lambda S: (_YOLO(S)[0], 2), dtype="int32")],
      ops=("yolo_box",), grad=(0,))
+
+# ---- the kernel, MoE and attention ops and the segment reductions,
+# called by their registered names (the flash ones reach kernels #1-#11 on
+# the card; at FULL they run at the main path's attention shape)
+_GROUP[0] = "kernel"
+_FA = _by((1, 128, 2, 16), (8, 1024, 16, 64))       # [B, S, H, D]
+_PACK = _by((256, 2, 16), (8192, 16, 64))           # [T, H, D]
+_DOCS = _by(3, 8)                                   # packed documents
+_MOE = _by((16, 6, 4, 8), (4096, 1024, 8, 1024))    # S, M, E, H
+_SEG = _by((12, 5, 4), (8192, 1024, 1024))          # N, D, segments
+
+
+def _flash(P, q, k, v):
+    s = q.shape[-1] ** -0.5
+    return (gen(P).flash_attention(q, k, v, causal=True, scale=s),
+            gen(P).flash_attention(q, k, v, causal=False, scale=s))
+
+
+case("kernel_flash_attention", _flash, [Spec("n", _FA)] * 3,
+     ops=("flash_attention",), grad=(0, 1, 2), family="matmul", low=True)
+case("kernel_flash_attn_varlen", lambda P, q, k, v, cu: gen(
+    P).flash_attn_varlen(q, k, v, cu, cu, scale=q.shape[-1] ** -0.5,
+                         causal=True),
+     [Spec("n", _PACK)] * 3 + [Spec("cu", lambda S: (
+         _DOCS(S), _PACK(S)[0]), dtype="int32")],
+     ops=("flash_attn_varlen",), grad=(0, 1, 2), family="matmul", low=True)
+case("kernel_flashmask_attention", lambda P, q, k, v, st: gen(
+    P).flashmask_attention(q, k, v, st, scale=q.shape[-1] ** -0.5,
+                           causal=True),
+     [Spec("n", _FA)] * 3 + [Spec("start", lambda S: (
+         _FA(S)[0], 1, _FA(S)[1], 1), dtype="int32")],
+     ops=("flashmask_attention",), grad=(0, 1, 2), family="matmul",
+     low=True)
+case("kernel_fused_rms_norm", lambda P, x, w: gen(P).fused_rms_norm(
+    x, w, eps=1e-6), [N, U(0.5, 1.5, "vec")], ops=("fused_rms_norm",),
+     grad=(0, 1), family="reduce", low=True)
+case("kernel_fused_swiglu", lambda P, x, g: (
+    gen(P).fused_swiglu(x, g), gen(P).fused_swiglu(x, None)),
+     [N, N], ops=("fused_swiglu",), grad=(0, 1), family="composite",
+     low=True)
+case("kernel_fused_rope", lambda P, q, k, c, s: gen(P).fused_rope(
+    q, k, c, s),
+     [Spec("n", _FA), Spec("n", _FA),
+      U(-1, 1, lambda S: _FA(S)[1:2] + _FA(S)[3:]),
+      U(-1, 1, lambda S: _FA(S)[1:2] + _FA(S)[3:])],
+     ops=("fused_rope",), grad=(0, 1, 2, 3), family="composite", low=True)
+case("kernel_moe_gates", lambda P, lg: (
+    gen(P).moe_gate_top1(lg, capacity_factor=1.25),
+    gen(P).moe_gate_top2(lg, capacity_factor=1.25)),
+     [Spec("n", lambda S: (_MOE(S)[0], _MOE(S)[2]))],
+     ops=("moe_gate_top1", "moe_gate_top2"), grad=(0,), family="reduce")
+
+
+def _moe_route(P, x, lg, w):
+    # each expert scales its tokens by its own w, so that the combined
+    # output depends on the gates (a token sent to two experts and
+    # combined unchanged would come back whole, whatever its gates)
+    combine, dispatch, _ = gen(P).moe_gate_top2(lg, capacity_factor=1.25)
+    xe = gen(P).moe_dispatch(x, dispatch)
+    return xe, gen(P).moe_combine(xe * w, combine)
+
+
+case("kernel_moe_dispatch_combine", _moe_route,
+     [Spec("n", lambda S: _MOE(S)[:2]),
+      Spec("n", lambda S: (_MOE(S)[0], _MOE(S)[2])),
+      Spec("n", lambda S: (_MOE(S)[2], 1, _MOE(S)[1]))],
+     ops=("moe_gate_top2", "moe_dispatch", "moe_combine"),
+     grad=(0, 1, 2), family="matmul")
+
+
+def _fused_moe(P, x, gw, w0, b0, w1, b1):
+    return (gen(P).fused_moe(x, gw, w0, b0, w1, b1, k=2),
+            gen(P).fused_moe(x, gw, w0, b0, w1, b1, k=1))
+
+
+case("kernel_fused_moe", _fused_moe,
+     [Spec("n", lambda S: _MOE(S)[:2]),
+      U(-0.2, 0.2, lambda S: (_MOE(S)[1], _MOE(S)[2])),
+      U(-0.1, 0.1, lambda S: (_MOE(S)[2], _MOE(S)[1], _MOE(S)[3])),
+      U(-0.1, 0.1, lambda S: (_MOE(S)[2], _MOE(S)[3])),
+      U(-0.1, 0.1, lambda S: (_MOE(S)[2], _MOE(S)[3], _MOE(S)[1])),
+      U(-0.1, 0.1, lambda S: (_MOE(S)[2], _MOE(S)[1]))],
+     ops=("fused_moe",), grad=(0, 1, 2, 3, 4, 5), family="matmul")
+
+
+def _segments(P, d, ids):
+    inc = P.incubate
+    return (inc.segment_sum(d, ids), inc.segment_mean(d, ids),
+            inc.segment_max(d, ids), inc.segment_min(d, ids))
+
+
+case("kernel_segments", _segments,
+     [Spec("n", lambda S: _SEG(S)[:2]),
+      Spec("seg", lambda S: (_SEG(S)[0], _SEG(S)[2]), dtype="int64")],
+     ops=("segment_sum", "segment_mean", "segment_max", "segment_min"),
+     grad=(0,), family="reduce", sync=True)
 
 # ops whose numbers are random: held by their statistics (random cases)
 RANDOM_OPS = ("dropout_k", "uniform_k", "gaussian_k", "randint_k",

@@ -4,13 +4,18 @@
   and ``paddle_tpu.autograd`` exists in the port's module of the same
   path, except the re-exports of ``Tensor`` and the op machinery
   (``apply``, ``def_unary``, ``register_op``) and the ``typing`` names
-  the reference imports.
+  the reference imports. ``models``, ``models.bert``, ``incubate``,
+  ``incubate.nn``, ``base`` and ``base.core`` are compared name for name
+  (submodules and tables too), except the names ``NOT_YET`` gives to a
+  later roadmap item.
 - The activation, loss and common layers this slice adds, ``nn.utils``
   (``weight_norm``, ``remove_weight_norm``, ``spectral_norm``, the vector
   round trip) and ``functional_call``: forward and gradients against the
   reference with its weights crossed by ``set_state_dict``, fp32, 1e-5
   relative and absolute (1e-6 for the elementwise activation layers).
 """
+import __future__
+import types
 import typing
 
 import numpy as np
@@ -41,12 +46,48 @@ def _public(module):
     return out
 
 
-@pytest.mark.parametrize("path", ["nn", "nn.functional", "autograd"])
+def _names(module):
+    """Every public name of a package (submodules and tables too); of a
+    plain module, the names it defines (not what it imports)."""
+    out = set()
+    for n in dir(module):
+        obj = getattr(module, n)
+        if n.startswith("_") or isinstance(obj, __future__._Feature):
+            continue
+        if not hasattr(module, "__path__"):
+            if isinstance(obj, types.ModuleType) or (
+                    callable(obj) and getattr(obj, "__module__", None)
+                    != module.__name__):
+                continue
+        out.add(n)
+    return out
+
+
+_ITEM4 = "ROADMAP §1 item 4: the multi-device trainers"
+_ITEM10 = "ROADMAP §1 item 10: the long tail"
+# the namespaces compared name for name, with the names each still lacks
+# (a list that may only shrink)
+NOT_YET = {
+    "models": {},
+    "models.bert": {"param_specs": _ITEM4},
+    "incubate": {"asp": _ITEM10, "distributed": _ITEM10},
+    "incubate.nn": {},
+    "base": {},
+    "base.core": {},
+}
+
+
+@pytest.mark.parametrize("path", ["nn", "nn.functional", "autograd"]
+                         + sorted(NOT_YET))
 def test_every_public_callable_exists_in_the_port(path):
     import importlib
     theirs = importlib.import_module(f"paddle_tpu.{path}")
     mine = importlib.import_module(f"paddle_tpu_torch.{path}")
     missing = sorted(_public(theirs) - _public(mine))
+    if path in NOT_YET:
+        missing = sorted(_names(theirs) - _names(mine) - set(NOT_YET[path]))
+        stale = sorted(n for n in NOT_YET[path] if hasattr(mine, n))
+        assert not stale, stale
     assert not missing, missing
 
 

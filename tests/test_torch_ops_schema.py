@@ -29,19 +29,10 @@ from paddle_tpu_torch.testing import op_cases as oc
 
 ROOT = Path(__file__).resolve().parents[1]
 
-_KERNEL_OPS = ("ROADMAP §1 item 1: the earlier slices' kernel, MoE and "
-               "attention ops registered by name")
-_INCUBATE = "ROADMAP §1 item 1: incubate's segment ops"
 _FFT = "ROADMAP §1 item 10: fft and signal"
 
 LATER = dict(
-    [(n, _KERNEL_OPS) for n in (
-        "fused_moe moe_combine moe_dispatch moe_gate_top1 moe_gate_top2 "
-        "flash_attention flash_attn_varlen flashmask_attention "
-        "fused_rms_norm fused_swiglu fused_rope").split()]
-    + [(n, _INCUBATE) for n in "segment_max segment_min segment_sum "
-       "segment_mean".split()]
-    + [(n, _FFT) for n in (
+    [(n, _FFT) for n in (
         "fft_fft fft_fft2 fft_fftn fft_fftshift fft_hfft fft_ifft "
         "fft_ifft2 fft_ifftn fft_ifftshift fft_ihfft fft_irfft fft_irfft2 "
         "fft_irfftn fft_rfft fft_rfft2 fft_rfftn signal_frame "
@@ -83,6 +74,8 @@ HOST_READS = {
     ("search.py", "gather"): "an axis given as a Tensor",
     ("search.py", "topk"): "k given as a Tensor",
     ("extra.py", "bincount"): "the output's length, max(x) + 1",
+    ("segment.py", "_num_segments"):
+        "the output's length, max(segment_ids) + 1",
     ("parity.py", "sequence_mask"): "maxlen None: the longest length",
     ("__init__.py", "<module>"): "Tensor.cpu itself",
 }
