@@ -203,6 +203,20 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    2^16 sorted segments (one empty) against the CPU path, fwd+bwd timed
    through the eager API and through the registered body beside the byte
    bound;
+18. (run before 16) drives the main path across ranks, under a watchdog
+   of 180 s: (a) ``entry.dryrun_multichip(n)`` over the machine's n cards
+   through NCCL (a spawned process a rank; the tiny fp32 GPT on a dp x pp
+   x mp mesh, seq 128); (b) phase 5's gpt2-medium step through
+   ``models.gpt.build_train_step(mesh=ProcessMesh([[[0]]], ["dp", "pp",
+   "mp"]), seq_shard=True, zero1=True, remat=True)`` at world size 1 over
+   NCCL, every collective called on its one-rank group: three steps'
+   losses, params and master weights bit-equal to the single-device
+   trainer's from the same seed and batch, 48 / 24 / 24 launches of #1 /
+   #2 / #3 a step; then both trainers timed in turns (1 warm-up and 5
+   steps each way), the collectives a step, peak memory and one profiled
+   step (its idle share and its NCCL kernels and device copies). One
+   card runs one NCCL rank: meshes of more ranks are held by the CPU
+   tests over gloo;
 16. prints the head_dim 256 and 512 and fp16 (64, 256 and 512) timings,
    the ``kernels`` JSON line, the card line, and last ``{"ok": true, "device": {...}}``.
 
@@ -4896,6 +4910,151 @@ def bert_fused_path(smi):
     return dt
 
 
+# ------------------------------------------------- phase 18: the mesh path
+
+MESH_STEPS = 3  # steps held bit for bit against the single-device trainer
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh_group(name: str) -> str:
+    low = name.lower()
+    if "nccl" in low:
+        return "NCCL collectives"
+    if "memcpy" in low:
+        return "device copies (memcpy)"
+    return _kernel_group(name)
+
+
+def _turns(step, state, tokens, labels, n):
+    """Host ms of ``n`` steps, each ended by a synchronize."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step(state, tokens, labels)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def mesh_path(smi, phase5_ms, cfg_name="gpt2-medium", device="cuda"):
+    """Phase 18: (a) ``entry.dryrun_multichip`` over every card through
+    NCCL; (b) phase 5's gpt2-medium step through the mesh trainer at world
+    size 1 (NCCL; every collective called on its one-rank group): three
+    steps' losses and the final params and master weights bit for bit
+    against the single-device trainer from the same seed and batch, 48 /
+    24 / 24 launches of #1 / #2 / #3 a step, then both trainers timed in
+    turns (1 warm-up and 5 steps each way), the collectives a step, peak
+    memory and one profiled step."""
+    from paddle_tpu_torch import entry
+    from paddle_tpu_torch.distributed import _collectives as C
+    from paddle_tpu_torch.distributed import (ProcessMesh,
+                                              destroy_process_group,
+                                              init_parallel_env)
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.models.trainer import tree_leaves
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    phase("18 the main path on a mesh (torch.distributed)")
+    t_phase = time.perf_counter()
+    # one host: NCCL's bootstrap over the loopback (the ranks, spawned
+    # ones included, inherit it)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    n = torch.cuda.device_count()
+    print(f"{n} card(s): NCCL takes one rank a card, so the card runs the "
+          f"mesh at world size {n}; runs of more ranks are the CPU tests' "
+          f"(gloo ranks, tests/test_torch_*mesh*, *mp_ops, *pipeline*, "
+          f"*flash_sharded) until a machine has several cards")
+    t0 = time.perf_counter()
+    dry = entry.dryrun_multichip(n, device=None if device == "cuda"
+                                 else device)
+    check(math.isfinite(dry), f"dryrun loss {dry}")
+    print(f"dryrun_multichip({n}): {time.perf_counter() - t0:.1f} s "
+          f"(a process a rank: start, kernels loaded from the build, one "
+          f"step)")
+
+    init_parallel_env(f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                      world_size=1, device=device)
+    try:
+        cfg = gpt.GPT_CONFIGS[cfg_name]
+        mesh = ProcessMesh([[[0]]], ["dp", "pp", "mp"])
+        init_s, step_s = gpt.build_train_step(cfg, lr=1e-4, remat=True,
+                                              device=device)
+        init_m, step_m = gpt.build_train_step(
+            cfg, mesh=mesh, lr=1e-4, seq_shard=True, zero1=True,
+            remat=True, device=device)
+        rng = np.random.RandomState(0)  # phase 5's batch
+        tokens = torch.from_numpy(
+            rng.randint(0, cfg.vocab_size, (BATCH, SEQ))).to(device)
+        labels = torch.from_numpy(
+            rng.randint(0, cfg.vocab_size, (BATCH, SEQ))).to(device)
+        state_s = init_s(0)
+        losses_s = [step_s(state_s, tokens, labels)[1].item()
+                    for _ in range(MESH_STEPS)]
+        state_m = init_m(0)
+        per_step = {"flash_fwd": 2 * cfg.num_layers,
+                    "flash_bwd_dkv": cfg.num_layers,
+                    "flash_bwd_dq": cfg.num_layers}
+        losses_m, calls = [], {}
+        for i in range(MESH_STEPS):
+            fa.reset_launches()
+            C.reset_calls()
+            _, loss = step_m(state_m, tokens, labels)
+            losses_m.append(loss.item())
+            launches = {k: fa.LAUNCHES[k] for k in per_step}
+            calls = dict(C.CALLS)
+            print(f"mesh step {i}: loss {losses_m[-1]!r} (single-device "
+                  f"{losses_s[i]!r}); launches {launches}")
+            check(launches == per_step,
+                  f"mesh step {i} launched {launches}, want {per_step}")
+        check(losses_m == losses_s,
+              f"mesh losses {losses_m} != single-device {losses_s}")
+        for key in ("params", "master"):
+            equal = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(state_m[key]), tree_leaves(state_s[key])))
+            print(f"{key} after {MESH_STEPS} steps bit-equal to the "
+                  f"single-device trainer's: {equal}")
+            check(equal, f"mesh {key} differ from the single-device run")
+        print(f"collectives a mesh step: {sum(calls.values())} "
+              f"({dict(sorted(calls.items()))})")
+
+        single = _turns(step_s, state_s, tokens, labels, 1 + TIMED_STEPS)
+        meshed = _turns(step_m, state_m, tokens, labels, 1 + TIMED_STEPS)
+        meshed += _turns(step_m, state_m, tokens, labels, TIMED_STEPS)
+        single += _turns(step_s, state_s, tokens, labels, TIMED_STEPS)
+        med_s = float(np.median(single[1:]))
+        med_m = float(np.median(meshed[1:]))
+        del state_s
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _turns(step_m, state_m, tokens, labels, 1)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"{cfg_name} b{BATCH} s{SEQ} bf16 remat adamw on the mesh "
+              f"(dp1 x pp1 x mp1, seq_shard, ZeRO-1): median {med_m:.2f} "
+              f"ms/step of {2 * TIMED_STEPS} against the single-device "
+              f"trainer's {med_s:.2f} in turns ({med_m / med_s:.4f}x) and "
+              f"phase 5's {phase5_ms:.2f} ({med_m / phase5_ms:.4f}x); "
+              f"steps {[round(x, 2) for x in meshed[1:]]}, single "
+              f"{[round(x, 2) for x in single[1:]]}; peak memory "
+              f"{peak / 2**30:.2f} GiB on {smi}")
+        prof = profile_step(step_m, state_m, tokens, labels, med_m,
+                            group=_mesh_group)
+        if prof is not None:
+            comm = sum(t for g, t in prof["groups"].items()
+                       if g in ("NCCL collectives", "device copies (memcpy)"))
+            print(f"mesh step: {comm:.3f} ms of NCCL kernels and device "
+                  f"copies in one step; idle share {prof['idle']:.3f}")
+    finally:
+        destroy_process_group()
+    print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s on {smi}",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4950,6 +5109,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with watchdog("phase 17 (bert and the fused layers)", 300):
         bert_fused_path(smi)
+    torch.cuda.empty_cache()
+    with watchdog("phase 18 (the mesh path)", 180):
+        mesh_path(smi, compiled_ms)
     phase("16 results")
     for label, (d_ms, d_plain, d_lib, d_bnd) in (
             ("head_dim 256", d256), ("head_dim 512", d512),

@@ -20,10 +20,11 @@ working type before ``* g + b``, as the reference's does.
 
 Differences in form, not in function: a Python loop over layers (the
 stacked leaves unbound once) instead of the reference's ``lax.scan``, each
-block wrapped in ``torch.utils.checkpoint`` when ``remat`` is set. There
-is no mesh code here: ``build_train_step`` raises ``NotImplementedError``
-when given one (the reference's ``param_specs`` comes with the
-multi-device trainers).
+block wrapped in ``torch.utils.checkpoint`` when ``remat`` is set. On a
+mesh, where the reference lets GSPMD place its collectives, each rank
+runs shard-local code with explicit ones (``distributed/fleet/mp_ops.py``):
+the Megatron layout over mp, the vocab-parallel embedding and head (where
+the reference's GSPMD runs the dense head on the split weight).
 """
 from __future__ import annotations
 
@@ -37,7 +38,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .._core.device import DeviceLike, resolve_device
-from .trainer import build_adamw_train_step
+from ..distributed import _collectives as C
+from ..distributed.fleet.mp_ops import (
+    embed_tokens, head_logits, mp_group, tp_enter, tp_leave,
+    vocab_parallel_softmax_cross_entropy)
+from ..distributed.mesh import PartitionSpec as P
+from .trainer import axis_size, build_adamw_train_step, check_mp
 
 
 @dataclasses.dataclass
@@ -143,37 +149,68 @@ def _ln(x, g, b, eps):
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * g + b
 
 
+def param_specs(config: BertConfig) -> Dict[str, Any]:
+    """The reference's Megatron TP layout: qkv and fc column-split over mp,
+    proj and fo row-split, the word embedding vocab-split."""
+    blocks = {
+        "qkv_w": P(None, None, "mp"), "qkv_b": P(None, "mp"),
+        "proj_w": P(None, "mp", None), "proj_b": P(None, None),
+        "ln1_g": P(None, None), "ln1_b": P(None, None),
+        "fc_w": P(None, None, "mp"), "fc_b": P(None, "mp"),
+        "fo_w": P(None, "mp", None), "fo_b": P(None, None),
+        "ln2_g": P(None, None), "ln2_b": P(None, None),
+    }
+    return {
+        "wte": P("mp", None), "wpe": P(None, None), "wtype": P(None, None),
+        "emb_ln_g": P(None), "emb_ln_b": P(None),
+        "blocks": blocks,
+        "mlm_w": P(None, None), "mlm_b": P(None),
+        "mlm_ln_g": P(None), "mlm_ln_b": P(None),
+    }
+
+
+# the fused qkv weight's last dim is [q | k | v]: an mp shard takes its
+# heads' columns of each of the three (convert.shard_index)
+SPLIT_GROUPS = {"blocks": {"qkv_w": 3, "qkv_b": 3}}
+
+
 def _block(x, blk: Dict[str, torch.Tensor], config: BertConfig,
-           attn_mask=None):
+           attn_mask=None, mesh=None):
     """One post-norm encoder block. x ``[B, S, H]``; blk: one layer's
-    slice of ``params["blocks"]``; attn_mask ``[B, 1, 1, S]`` fp32
-    additive, or None."""
+    slice of ``params["blocks"]`` (with a mesh, this rank's shards: its
+    heads' columns of qkv and fc, their rows of proj and fo); attn_mask
+    ``[B, 1, 1, S]`` fp32 additive, or None."""
     c = config
-    b, s, h = x.shape
-    qkv = x @ blk["qkv_w"] + blk["qkv_b"]
-    qkv = qkv.reshape(b, s, 3, c.num_heads, c.head_dim)
+    group = mp_group(mesh)
+    b, s, _ = x.shape
+    nh = blk["qkv_w"].shape[-1] // (3 * c.head_dim)  # this rank's heads
+    qkv = tp_enter(x, group, False) @ blk["qkv_w"] + blk["qkv_b"]
+    qkv = qkv.reshape(b, s, 3, nh, c.head_dim)
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # B,H,S,D
     logits = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(c.head_dim)
     if attn_mask is not None:
         logits = logits + attn_mask          # promotes to fp32
     probs = torch.softmax(logits.float(), -1).to(x.dtype)
     attn = torch.einsum("bhqk,bhkd->bhqd", probs, v)
-    attn = attn.transpose(1, 2).reshape(b, s, h)
-    attn = attn @ blk["proj_w"] + blk["proj_b"]
+    attn = attn.transpose(1, 2).reshape(b, s, nh * c.head_dim)
+    attn = tp_leave(attn @ blk["proj_w"], group, False) + blk["proj_b"]
     x = _ln(x + attn, blk["ln1_g"], blk["ln1_b"], c.layer_norm_eps)
-    y = x @ blk["fc_w"] + blk["fc_b"]
+    y = tp_enter(x, group, False) @ blk["fc_w"] + blk["fc_b"]
     y = F.gelu(y, approximate="tanh")
-    y = y @ blk["fo_w"] + blk["fo_b"]
+    y = tp_leave(y @ blk["fo_w"], group, False) + blk["fo_b"]
     return _ln(x + y, blk["ln2_g"], blk["ln2_b"], c.layer_norm_eps)
 
 
 def bert_encode(params, tokens, token_type_ids=None, attention_mask=None,
-                config: BertConfig = None, remat: bool = True):
+                config: BertConfig = None, remat: bool = True, *,
+                mesh=None):
     """tokens ``[B, S]`` int -> hidden states ``[B, S, H]``;
-    ``attention_mask`` ``[B, S]`` (1 keep, 0 pad) or None."""
+    ``attention_mask`` ``[B, S]`` (1 keep, 0 pad) or None. With a
+    ``mesh``, params are this rank's shards and tokens its rows."""
     s = tokens.shape[1]
     c = config
-    x = params["wte"][tokens] + params["wpe"][:s]
+    x = embed_tokens(params["wte"], tokens, c.vocab_size, mesh) \
+        + params["wpe"][:s]
     if token_type_ids is not None:
         x = x + params["wtype"][token_type_ids]
     else:
@@ -190,54 +227,74 @@ def bert_encode(params, tokens, token_type_ids=None, attention_mask=None,
     for leaves in zip(*(blocks[k].unbind(0) for k in BLOCK_KEYS)):
         blk = dict(zip(BLOCK_KEYS, leaves))
         if remat:
-            x = checkpoint(_block, x, blk, c, add_mask, use_reentrant=False)
+            x = checkpoint(_block, x, blk, c, add_mask, mesh,
+                           use_reentrant=False)
         else:
-            x = _block(x, blk, c, add_mask)
+            x = _block(x, blk, c, add_mask, mesh)
     return x
 
 
-def bert_mlm_logits(params, tokens, config: BertConfig, remat: bool = True,
-                    attention_mask=None):
-    """MLM logits ``[B, S, V]`` in the working type: the transform (dense,
-    tanh GELU, LayerNorm) and the head tied to ``wte``."""
-    x = bert_encode(params, tokens, None, attention_mask, config, remat)
+def _mlm_hidden(params, tokens, config, remat, attention_mask, mesh):
+    x = bert_encode(params, tokens, None, attention_mask, config, remat,
+                    mesh=mesh)
     x = x @ params["mlm_w"] + params["mlm_b"]
     x = F.gelu(x, approximate="tanh")
-    x = _ln(x, params["mlm_ln_g"], params["mlm_ln_b"],
-            config.layer_norm_eps)
-    return x @ params["wte"].t()
+    return _ln(x, params["mlm_ln_g"], params["mlm_ln_b"],
+               config.layer_norm_eps)
+
+
+def bert_mlm_logits(params, tokens, config: BertConfig, remat: bool = True,
+                    attention_mask=None, *, mesh=None):
+    """MLM logits ``[B, S, V]`` in the working type: the transform (dense,
+    tanh GELU, LayerNorm) and the head tied to ``wte``."""
+    x = _mlm_hidden(params, tokens, config, remat, attention_mask, mesh)
+    return head_logits(x, params["wte"], config.vocab_size, mesh)
 
 
 def bert_mlm_loss(params, tokens, labels, config: BertConfig,
-                  remat: bool = True):
+                  remat: bool = True, *, mesh=None):
     """Mean masked-LM loss over the positions whose label is >= 0 (the
     others, -100 by convention, are ignored), divided by ``max(count, 1)``:
-    logits cast to fp32, log-softmax, negative log-likelihood."""
-    logits = bert_mlm_logits(params, tokens, config, remat)
-    logp = torch.log_softmax(logits.float(), -1)
+    logits cast to fp32, log-softmax, negative log-likelihood. On a mesh:
+    this rank's share, its rows' sum over the count of all dp ranks' rows,
+    and the vocab-parallel head at mp > 1 (a vocabulary it divides)."""
     safe = torch.clamp(labels.long(), min=0)
-    picked = torch.gather(logp, -1, safe[..., None])[..., 0]
     mask = (labels >= 0).float()
-    return -(picked * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    mp = axis_size(mesh, "mp")
+    if mp > 1 and config.vocab_size % mp == 0:
+        x = _mlm_hidden(params, tokens, config, remat, None, mesh)
+        picked = -vocab_parallel_softmax_cross_entropy(
+            x, params["wte"], safe, mesh, axis="mp")
+    else:
+        logits = bert_mlm_logits(params, tokens, config, remat, mesh=mesh)
+        logp = torch.log_softmax(logits.float(), -1)
+        picked = torch.gather(logp, -1, safe[..., None])[..., 0]
+    count = mask.sum()
+    if mesh is not None and "dp" in mesh.dim_names:
+        count = C.all_reduce(count, mesh.get_group("dp"))
+    return -(picked * mask).sum() / torch.clamp(count, min=1.0)
 
 
 def build_train_step(config: BertConfig, mesh=None, lr: float = 1e-4,
                      remat: bool = True, device: DeviceLike = None,
                      **adamw):
-    """``(init_fn, step_fn)`` for single-device masked-LM training:
-    forward, backward (remat per block) and the AdamW update of
-    ``models/trainer.py`` (``adamw``: wd, b1, b2, eps; the trainer's
-    defaults are the reference's). ``step_fn(state, tokens, labels)``
-    returns ``(state, loss)`` and updates ``state`` in place. A mesh raises
-    ``NotImplementedError``."""
-    if mesh is not None:
-        raise NotImplementedError("BERT build_train_step: meshes are not "
-                                  "ported (one device)")
+    """``(init_fn, step_fn)`` for masked-LM training: forward, backward
+    (remat per block) and the AdamW update of ``models/trainer.py``
+    (``adamw``: wd, b1, b2, eps, zero1; the trainer's defaults are the
+    reference's). ``step_fn(state, tokens, labels)`` returns ``(state,
+    loss)`` and updates ``state`` in place. With a ``mesh`` (axes ``dp``
+    and ``mp``), as GPT's: each rank holds its shards and mp runs the
+    Megatron layout."""
+    check_mp(mesh, (("num_heads", config.num_heads),
+                    ("the MLP width", config.intermediate_size)))
     dev = resolve_device(device)
 
     def loss_fn(params, tokens, labels):
-        return bert_mlm_loss(params, tokens, labels, config, remat=remat)
+        return bert_mlm_loss(params, tokens, labels, config, remat=remat,
+                             mesh=mesh)
 
     return build_adamw_train_step(
         loss_fn, functools.partial(init_bert_params, config, device=dev),
-        wd_mask(config), lr=lr, device=dev, **adamw)
+        wd_mask(config), lr=lr, device=dev, mesh=mesh,
+        specs=param_specs(config),
+        split_groups=SPLIT_GROUPS, **adamw)

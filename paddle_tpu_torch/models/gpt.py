@@ -23,9 +23,15 @@ Differences in form, not in function:
   ``jax.checkpoint`` per block);
 - attention goes through the port's flash-attention kernels
   (``ops/cuda/flash_attention.py``) when the config asks for it and the
-  sequence tiles by 128, else through the dense masked softmax.
-
-There is no mesh, pipeline, sequence-parallel or vocab-parallel code here.
+  sequence tiles by 128, else through the dense masked softmax;
+- on a mesh, where the reference lets GSPMD place its collectives, each
+  rank runs shard-local code with explicit ones over
+  ``torch.distributed`` (``distributed/fleet/mp_ops.py``): the Megatron
+  layout over mp (qkv and fc split by heads, proj and fo by rows, their
+  partial sums completed), Megatron-SP's sequence split of the residual
+  stream, the vocab-parallel embedding and head, the flash kernels on each
+  rank's heads (``mha_spmd``), and the pipeline over pp
+  (``distributed/pipeline_compiled.py``).
 """
 from __future__ import annotations
 
@@ -43,11 +49,18 @@ from .._core.device import DeviceLike, resolve_device
 from ..distributed.fleet.mp_layers import (ColumnParallelLinear,
                                            RowParallelLinear,
                                            VocabParallelEmbedding)
+from ..distributed import _collectives as C
+from ..distributed.fleet.mp_ops import (
+    embed_tokens, head_logits, mp_group, tp_enter, tp_leave,
+    vocab_parallel_softmax_cross_entropy)
+from ..distributed.mesh import PartitionSpec as P
+from ..distributed.pipeline_compiled import pipelined_trunk
 from ..nn import functional as PF
 from ..ops.creation import arange
 from ..ops.cuda.flash_attention import mha_forward
 from ..ops.linalg import matmul
 from ..ops.reduction import mean as pmean, sum as psum
+from .trainer import axis_size, check_mp, share_of_mean, tree_map
 
 
 @dataclasses.dataclass
@@ -244,6 +257,41 @@ WD_MASK = {
     "blocks": {k: (k in _DECAY_KEYS) for k in BLOCK_KEYS},
     "lnf_g": False, "lnf_b": False,
 }
+# the fused qkv weight's last dim is [q | k | v]: an mp shard takes its
+# heads' columns of each of the three (convert.shard_index)
+SPLIT_GROUPS = {"blocks": {"qkv_w": 3, "qkv_b": 3}}
+# the block leaves applied to the sequence-split residual stream under
+# Megatron-SP: each mp rank's gradient covers its rows only
+SP_LEAVES = ("ln1_g", "ln1_b", "proj_b", "ln2_g", "ln2_b", "fo_b")
+
+
+def param_specs(config: GPTConfig, dp: str = "dp", mp: str = "mp",
+                zero_axis: Optional[str] = None,
+                pp: Optional[str] = None) -> Dict[str, Any]:
+    """The reference's PartitionSpecs per param (Megatron TP layout): qkv
+    and fc column-split over mp, proj and fo row-split, wte vocab-split;
+    ``pp``, when set, splits the stacked layer dim of the blocks.
+    (``dp`` and ``zero_axis`` are accepted and unused, as in the
+    reference.)"""
+    blocks = {
+        "ln1_g": P(pp, None), "ln1_b": P(pp, None),
+        "qkv_w": P(pp, None, mp), "qkv_b": P(pp, mp),
+        "proj_w": P(pp, mp, None), "proj_b": P(pp, None),
+        "ln2_g": P(pp, None), "ln2_b": P(pp, None),
+        "fc_w": P(pp, None, mp), "fc_b": P(pp, mp),
+        "fo_w": P(pp, mp, None), "fo_b": P(pp, None),
+    }
+    return {
+        "wte": P(mp, None),
+        "wpe": P(None, None),
+        "blocks": blocks,
+        "lnf_g": P(None), "lnf_b": P(None),
+    }
+
+
+def _mp_dims(config: GPTConfig):
+    """The dims the Megatron layout splits over mp."""
+    return (("num_heads", config.num_heads), ("the MLP width", config.ffn))
 
 
 def _use_flash_kernel(config: GPTConfig, seq: int) -> bool:
@@ -262,17 +310,27 @@ def _ln(x, g, b, eps):
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * g + b
 
 
-def _block(x, blk: Dict[str, torch.Tensor], config: GPTConfig):
-    """One decoder block. x: ``[B, S, H]``; blk: one layer's slice of
-    ``params["blocks"]``."""
+def _block(x, blk: Dict[str, torch.Tensor], config: GPTConfig, mesh=None,
+           sp: bool = False, flash: Optional[bool] = None):
+    """One decoder block. x: ``[B, S, H]`` (under ``sp``, this mp rank's
+    ``[B, S/mp, H]``); blk: one layer's slice of ``params["blocks"]``
+    (with a mesh, this rank's shards: its heads' columns of qkv and fc,
+    their rows of proj and fo). ``flash`` None: the kernels where
+    :func:`_use_flash_kernel` says so."""
     c = config
-    b, s, h = x.shape
+    group = mp_group(mesh)
+    b = x.shape[0]
     y = _ln(x, blk["ln1_g"], blk["ln1_b"], c.layer_norm_eps)
+    y = tp_enter(y, group, sp)
+    s = y.shape[1]
+    nh = blk["qkv_w"].shape[-1] // (3 * c.head_dim)  # this rank's heads
     qkv = y @ blk["qkv_w"] + blk["qkv_b"]
-    qkv = qkv.reshape(b, s, 3, c.num_heads, c.head_dim)
+    qkv = qkv.reshape(b, s, 3, nh, c.head_dim)
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # B,H,S,D
     scale = 1.0 / math.sqrt(c.head_dim)
-    if _use_flash_kernel(c, s):
+    if _use_flash_kernel(c, s) if flash is None else flash:
+        # on a mesh, the kernels on this rank's heads (the reference's
+        # mha_spmd)
         attn = mha_forward(q, k, v, causal=True, scale=scale)
     else:
         logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
@@ -281,54 +339,122 @@ def _block(x, blk: Dict[str, torch.Tensor], config: GPTConfig):
         logits = logits.masked_fill(~mask, -1e30)
         probs = torch.softmax(logits.float(), -1).to(x.dtype)
         attn = torch.einsum("bhqk,bhkd->bhqd", probs, v)
-    attn = attn.transpose(1, 2).reshape(b, s, h)
-    x = x + (attn @ blk["proj_w"] + blk["proj_b"])
+    attn = attn.transpose(1, 2).reshape(b, s, nh * c.head_dim)
+    x = x + (tp_leave(attn @ blk["proj_w"], group, sp) + blk["proj_b"])
     y = _ln(x, blk["ln2_g"], blk["ln2_b"], c.layer_norm_eps)
+    y = tp_enter(y, group, sp)
     y = y @ blk["fc_w"] + blk["fc_b"]
     y = F.gelu(y, approximate="tanh")
-    y = y @ blk["fo_w"] + blk["fo_b"]
+    y = tp_leave(y @ blk["fo_w"], group, sp) + blk["fo_b"]
     return x + y
 
 
-def gpt_forward(params, tokens, config: GPTConfig, remat: bool = True):
-    """tokens ``[B, S]`` int → logits ``[B, S, V]`` in the param type."""
+def gpt_forward(params, tokens, config: GPTConfig, remat: bool = True, *,
+                mesh=None, sp: bool = False, pp_trunk=None,
+                return_hidden: bool = False):
+    """tokens ``[B, S]`` int → logits ``[B, S, V]`` in the param type (the
+    final hidden states ``[B, S, H]`` with ``return_hidden``).
+
+    With a ``mesh``, ``params`` are this rank's shards and ``tokens`` its
+    rows; ``sp`` splits the residual stream's sequence over mp between the
+    blocks (Megatron-SP); ``pp_trunk`` (:func:`distributed.pipelined_trunk`)
+    runs the blocks as the pipeline over pp."""
     s = tokens.shape[1]
-    x = params["wte"][tokens] + params["wpe"][:s]
+    x = embed_tokens(params["wte"], tokens, config.vocab_size, mesh) \
+        + params["wpe"][:s]
     x = x.to(config.torch_dtype)
-    blocks = params["blocks"]
-    for i in range(config.num_layers):
-        blk = {k: t[i] for k, t in blocks.items()}
-        if remat:
-            x = checkpoint(_block, x, blk, config, use_reentrant=False)
-        else:
-            x = _block(x, blk, config)
+    if pp_trunk is not None:
+        x = pp_trunk(params["blocks"], x)
+    else:
+        group = mp_group(mesh) if sp else None
+        if group is not None:
+            x = C.split(x, 1, group)
+        flash = _use_flash_kernel(config, s)
+        blocks = params["blocks"]
+        for i in range(config.num_layers):
+            blk = {k: t[i] for k, t in blocks.items()}
+            if remat:
+                x = checkpoint(_block, x, blk, config, mesh, group is not None,
+                               flash, use_reentrant=False)
+            else:
+                x = _block(x, blk, config, mesh, group is not None, flash)
+        if group is not None:
+            x = C.gather(x, 1, group)
     x = _ln(x, params["lnf_g"], params["lnf_b"], config.layer_norm_eps)
-    return x @ params["wte"].t()
+    if return_hidden:
+        return x
+    return head_logits(x, params["wte"], config.vocab_size, mesh)
 
 
-def gpt_loss(params, tokens, labels, config: GPTConfig, remat: bool = True):
+def gpt_loss(params, tokens, labels, config: GPTConfig, remat: bool = True,
+             *, mesh=None, sp: bool = False, pp_trunk=None):
     """Mean LM loss: tied ``wte`` head, logits cast to fp32, log-softmax,
-    mean negative log-likelihood of ``labels``."""
-    logits = gpt_forward(params, tokens, config, remat).float()
+    mean negative log-likelihood of ``labels``. On a mesh with mp > 1 (and
+    a vocabulary it divides) the head is vocab-parallel: each mp rank
+    computes its ``[B, S, V/mp]`` logits and the full logits never exist."""
+    kw = dict(mesh=mesh, sp=sp, pp_trunk=pp_trunk)
+    mp = axis_size(mesh, "mp")
+    if mp > 1 and config.vocab_size % mp == 0:
+        hidden = gpt_forward(params, tokens, config, remat,
+                             return_hidden=True, **kw)
+        loss = vocab_parallel_softmax_cross_entropy(
+            hidden, params["wte"], labels, mesh, axis="mp")
+        return loss.mean()
+    logits = gpt_forward(params, tokens, config, remat, **kw).float()
     logp = torch.log_softmax(logits, -1)
     picked = torch.gather(logp, -1, labels[..., None].long())[..., 0]
     return -picked.mean()
 
 
-def build_train_step(config: GPTConfig, lr: float = 3e-4, wd: float = 0.1,
-                     b1: float = 0.9, b2: float = 0.95, remat: bool = True,
+def build_train_step(config: GPTConfig, mesh=None, lr: float = 3e-4,
+                     wd: float = 0.1, b1: float = 0.9, b2: float = 0.95,
+                     zero1: bool = True, seq_shard: bool = False,
+                     remat: bool = True,
+                     pp_microbatches: Optional[int] = None,
+                     unroll_layers: bool = False,
                      device: DeviceLike = None):
-    """``(init_fn, step_fn)`` for single-device GPT training: forward,
-    backward (remat per block) and the AdamW update of
-    ``models/trainer.py``. ``step_fn(state, tokens, labels)`` returns
-    ``(state, loss)`` and updates ``state`` in place."""
+    """``(init_fn, step_fn)`` for GPT training: forward, backward (remat
+    per block) and the AdamW update of ``models/trainer.py``.
+    ``step_fn(state, tokens, labels)`` returns ``(state, loss)`` and
+    updates ``state`` in place.
+
+    With a ``mesh`` (a ``distributed.ProcessMesh`` with any of the axes
+    ``dp``, ``pp``, ``mp``, over ``torch.distributed``'s default group),
+    each rank holds its shards (``param_specs``) and its ZeRO-1 share of
+    the optimizer state (``zero1``); the step takes the global batch and
+    keeps its dp rows. ``mp`` runs the Megatron layout (heads split),
+    ``seq_shard`` adds Megatron-SP where the mesh has both ``dp`` and
+    ``mp`` and no pipeline, as in the reference; ``pp`` above 1 runs the
+    blocks as the pipeline over ``pp_microbatches`` micro-batches of each
+    rank's rows (default 2 pp). ``unroll_layers`` (the reference's way
+    around an XLA:CPU fault in its layer scan) is accepted and unused: the
+    layers always run as a Python loop."""
     from .trainer import build_adamw_train_step
 
+    pp = axis_size(mesh, "pp")
+    if pp > 1 and config.num_layers % pp:
+        raise ValueError(f"num_layers {config.num_layers} not divisible "
+                         f"by pp {pp}")
+    check_mp(mesh, _mp_dims(config))
     dev = resolve_device(device)
+    pp_trunk = None
+    if pp > 1:
+        pp_trunk = pipelined_trunk(
+            functools.partial(_block, config=config, mesh=mesh), mesh,
+            pp_microbatches or 2 * pp, axis_name="pp", remat=remat)
+    sp = bool(seq_shard and pp == 1 and mesh is not None
+              and {"dp", "mp"} <= set(mesh.dim_names))
+    grad_sum = tree_map(lambda _: None, WD_MASK)
+    if sp:
+        grad_sum["blocks"].update({k: ("mp",) for k in SP_LEAVES})
 
     def loss_fn(params, tokens, labels):
-        return gpt_loss(params, tokens, labels, config, remat=remat)
+        return share_of_mean(gpt_loss(
+            params, tokens, labels, config, remat=remat, mesh=mesh, sp=sp,
+            pp_trunk=pp_trunk), mesh)
 
     return build_adamw_train_step(
         loss_fn, functools.partial(init_gpt_params, config, device=dev),
-        WD_MASK, lr=lr, wd=wd, b1=b1, b2=b2, device=dev)
+        WD_MASK, lr=lr, wd=wd, b1=b1, b2=b2, device=dev,
+        specs=param_specs(config, pp="pp" if pp > 1 else None), mesh=mesh,
+        zero1=zero1, split_groups=SPLIT_GROUPS, grad_sum=grad_sum)

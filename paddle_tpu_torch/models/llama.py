@@ -16,9 +16,12 @@ kernels round elsewhere (once, after the weight) and are not used here.
 
 Differences in form, not in function: a Python loop over layers instead of
 the reference's ``lax.scan``, each block wrapped in
-``torch.utils.checkpoint`` when ``remat`` is set. There is no mesh or
-pipeline code here: ``build_train_step`` raises ``NotImplementedError``
-when asked for one.
+``torch.utils.checkpoint`` when ``remat`` is set. On a mesh, where the
+reference lets GSPMD place its collectives, each rank runs shard-local
+code with explicit ones (``distributed/fleet/mp_ops.py``): the Megatron
+layout over mp, the vocab-parallel embedding and head (where the
+reference's GSPMD runs the dense head on the split weight), and the
+pipeline over pp (``distributed/pipeline_compiled.py``).
 """
 from __future__ import annotations
 
@@ -31,6 +34,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .._core.device import DeviceLike, resolve_device
+from ..distributed.fleet.mp_ops import (
+    embed_tokens, head_logits, mp_group, tp_enter, tp_leave,
+    vocab_parallel_softmax_cross_entropy)
+from ..distributed.mesh import PartitionSpec as P
+from ..distributed.pipeline_compiled import pipelined_trunk
+from .trainer import axis_size, check_mp, share_of_mean
 
 
 @dataclasses.dataclass
@@ -164,15 +173,44 @@ def _rms(x: torch.Tensor, g: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * scale).to(x.dtype) * g
 
 
-def _block(x: torch.Tensor, blk: Dict[str, torch.Tensor],
-           config: LlamaConfig) -> torch.Tensor:
-    """One decoder block. x: ``[B, S, H]``; blk: one layer's slice of
-    ``params["blocks"]``."""
-    c = config
-    b, s, h = x.shape
-    nh, nkv, d = c.num_heads, c.kv_heads, c.head_dim
+def param_specs(config: LlamaConfig, pp: Optional[str] = None) -> Dict:
+    """The reference's Megatron TP layout: q/k/v/gate/up column-split,
+    o/down row-split, the embeddings vocab-split; ``pp`` splits the stacked
+    layer dim of the blocks."""
+    blocks = {
+        "ln1_g": P(pp, None),
+        "q_w": P(pp, None, "mp"), "k_w": P(pp, None, "mp"),
+        "v_w": P(pp, None, "mp"), "o_w": P(pp, "mp", None),
+        "ln2_g": P(pp, None),
+        "gate_w": P(pp, None, "mp"), "up_w": P(pp, None, "mp"),
+        "down_w": P(pp, "mp", None),
+    }
+    specs = {"wte": P("mp", None), "blocks": blocks, "lnf_g": P(None)}
+    if not config.tie_embeddings:
+        specs["lm_head"] = P("mp", None)
+    return specs
 
-    y = _rms(x, blk["ln1_g"], c.rms_norm_eps)
+
+def _mp_dims(config: LlamaConfig):
+    """The dims the Megatron layout splits over mp (GQA: the kv heads as
+    the query heads)."""
+    return (("num_heads", config.num_heads), ("kv heads", config.kv_heads),
+            ("the MLP width", config.intermediate_size))
+
+
+def _block(x: torch.Tensor, blk: Dict[str, torch.Tensor],
+           config: LlamaConfig, mesh=None) -> torch.Tensor:
+    """One decoder block. x: ``[B, S, H]``; blk: one layer's slice of
+    ``params["blocks"]`` (with a mesh, this rank's shards: its query and
+    kv heads' columns of q/k/v, its columns of gate/up, the matching rows
+    of o and down)."""
+    c = config
+    group = mp_group(mesh)
+    b, s, _ = x.shape
+    d = c.head_dim
+    nh, nkv = blk["q_w"].shape[-1] // d, blk["k_w"].shape[-1] // d
+
+    y = tp_enter(_rms(x, blk["ln1_g"], c.rms_norm_eps), group, False)
     q = (y @ blk["q_w"]).reshape(b, s, nh, d)
     k = (y @ blk["k_w"]).reshape(b, s, nkv, d)
     v = (y @ blk["v_w"]).reshape(b, s, nkv, d)
@@ -187,41 +225,63 @@ def _block(x: torch.Tensor, blk: Dict[str, torch.Tensor],
     mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=x.device))
     logits = logits.masked_fill(~mask, -1e30)
     probs = torch.softmax(logits.float(), -1).to(x.dtype)
-    attn = (probs @ vt).transpose(1, 2).reshape(b, s, h)
-    x = x + attn @ blk["o_w"]
+    attn = (probs @ vt).transpose(1, 2).reshape(b, s, nh * d)
+    x = x + tp_leave(attn @ blk["o_w"], group, False)
 
-    y = _rms(x, blk["ln2_g"], c.rms_norm_eps)
+    y = tp_enter(_rms(x, blk["ln2_g"], c.rms_norm_eps), group, False)
     gate = y @ blk["gate_w"]
     up = y @ blk["up_w"]
     act = torch.nn.functional.silu(gate) * up          # SwiGLU
-    return x + act @ blk["down_w"]
+    return x + tp_leave(act @ blk["down_w"], group, False)
 
 
-def llama_forward(params, tokens, config: LlamaConfig,
-                  remat: bool = True) -> torch.Tensor:
-    """tokens ``[B, S]`` int -> logits ``[B, S, V]`` in the param type."""
-    x = params["wte"][tokens].to(config.torch_dtype)
-    blocks = params["blocks"]
-    # one unbind per stacked leaf: its backward stacks the layers'
-    # gradients once, where indexing would add a full-size zero-padded
-    # gradient per layer
-    layers = zip(*(blocks[k].unbind(0) for k in BLOCK_KEYS))
-    for leaves in layers:
-        blk = dict(zip(BLOCK_KEYS, leaves))
-        if remat:
-            x = checkpoint(_block, x, blk, config, use_reentrant=False)
-        else:
-            x = _block(x, blk, config)
+def llama_forward(params, tokens, config: LlamaConfig, remat: bool = True,
+                  *, mesh=None, pp_trunk=None,
+                  return_hidden: bool = False) -> torch.Tensor:
+    """tokens ``[B, S]`` int -> logits ``[B, S, V]`` in the param type (the
+    final hidden states with ``return_hidden``). With a ``mesh``, params
+    are this rank's shards and tokens its rows; ``pp_trunk`` runs the
+    blocks as the pipeline over pp."""
+    x = embed_tokens(params["wte"], tokens, config.vocab_size, mesh)
+    x = x.to(config.torch_dtype)
+    if pp_trunk is not None:
+        x = pp_trunk(params["blocks"], x)
+    else:
+        blocks = params["blocks"]
+        # one unbind per stacked leaf: its backward stacks the layers'
+        # gradients once, where indexing would add a full-size zero-padded
+        # gradient per layer
+        layers = zip(*(blocks[k].unbind(0) for k in BLOCK_KEYS))
+        for leaves in layers:
+            blk = dict(zip(BLOCK_KEYS, leaves))
+            if remat:
+                x = checkpoint(_block, x, blk, config, mesh,
+                               use_reentrant=False)
+            else:
+                x = _block(x, blk, config, mesh)
     x = _rms(x, params["lnf_g"], config.rms_norm_eps)
+    if return_hidden:
+        return x
     head = params["wte"] if config.tie_embeddings else params["lm_head"]
-    return x @ head.t()
+    return head_logits(x, head, config.vocab_size, mesh)
 
 
 def llama_loss(params, tokens, labels, config: LlamaConfig,
-               remat: bool = True) -> torch.Tensor:
+               remat: bool = True, *, mesh=None,
+               pp_trunk=None) -> torch.Tensor:
     """Mean LM loss: logits cast to fp32, log-softmax, mean negative
-    log-likelihood of ``labels``."""
-    logits = llama_forward(params, tokens, config, remat).float()
+    log-likelihood of ``labels``; on a mesh with mp > 1 (and a vocabulary
+    it divides), the vocab-parallel head."""
+    kw = dict(mesh=mesh, pp_trunk=pp_trunk)
+    mp = axis_size(mesh, "mp")
+    if mp > 1 and config.vocab_size % mp == 0:
+        hidden = llama_forward(params, tokens, config, remat,
+                               return_hidden=True, **kw)
+        head = params["wte"] if config.tie_embeddings \
+            else params["lm_head"]
+        return vocab_parallel_softmax_cross_entropy(
+            hidden, head, labels, mesh, axis="mp").mean()
+    logits = llama_forward(params, tokens, config, remat, **kw).float()
     logp = torch.log_softmax(logits, -1)
     picked = torch.gather(logp, -1, labels[..., None].long())[..., 0]
     return -picked.mean()
@@ -231,21 +291,34 @@ def build_train_step(config: LlamaConfig, mesh=None, lr: float = 3e-4,
                      remat: bool = True,
                      pp_microbatches: Optional[int] = None,
                      device: DeviceLike = None, **adamw):
-    """``(init_fn, step_fn)`` for single-device LLaMA training: forward,
-    backward (remat per block) and the AdamW update of
-    ``models/trainer.py`` (``adamw``: wd, b1, b2, eps). ``step_fn(state,
-    tokens, labels)`` returns ``(state, loss)`` and updates ``state`` in
-    place. A mesh or a pipeline raises ``NotImplementedError``."""
-    if mesh is not None or pp_microbatches is not None:
-        raise NotImplementedError("LLaMA build_train_step: meshes and "
-                                  "pipelines are not ported (one device)")
+    """``(init_fn, step_fn)`` for LLaMA training: forward, backward (remat
+    per block) and the AdamW update of ``models/trainer.py`` (``adamw``:
+    wd, b1, b2, eps, zero1). ``step_fn(state, tokens, labels)`` returns
+    ``(state, loss)`` and updates ``state`` in place. With a ``mesh``, as
+    GPT's: each rank holds its shards, mp runs the Megatron layout (the
+    kv heads must divide by mp, as the query heads), and pp above 1 runs
+    the blocks as the pipeline over ``pp_microbatches`` micro-batches
+    (default 2 pp)."""
     from .trainer import build_adamw_train_step
 
+    pp = axis_size(mesh, "pp")
+    if pp > 1 and config.num_layers % pp:
+        raise ValueError("num_layers not divisible by pp degree")
+    check_mp(mesh, _mp_dims(config))
     dev = resolve_device(device)
+    init = functools.partial(init_llama_params, config, device=dev)
+    pp_trunk = None
+    if pp > 1:
+        pp_trunk = pipelined_trunk(
+            functools.partial(_block, config=config, mesh=mesh), mesh,
+            pp_microbatches or 2 * pp, axis_name="pp", remat=remat)
 
     def loss_fn(params, tokens, labels):
-        return llama_loss(params, tokens, labels, config, remat=remat)
+        return share_of_mean(llama_loss(
+            params, tokens, labels, config, remat=remat, mesh=mesh,
+            pp_trunk=pp_trunk), mesh)
 
     return build_adamw_train_step(
-        loss_fn, functools.partial(init_llama_params, config, device=dev),
-        wd_mask(config), lr=lr, device=dev, **adamw)
+        loss_fn, init, wd_mask(config), lr=lr, device=dev,
+        specs=param_specs(config, pp="pp" if pp > 1 else None), mesh=mesh,
+        **adamw)

@@ -451,6 +451,46 @@ def mha_forward(q, k, v, causal: bool = False,
     return out.reshape(b, h, sq, d) if four else out
 
 
+# Flash attention on this rank's shard of sharded ``[B, H, S, D]`` arrays:
+# its ``[B/dp, H/mp, S, D]``, sequence and head_dim whole (the reference's
+# partitioning rule keeps batch and heads split and gathers the rest).
+# Attention never mixes batch rows or heads, so the shard's kernels need no
+# collective, forward or backward: the reference's ``mha_spmd`` lowers to
+# its kernel on each device's block, and the port's is mha_forward itself.
+mha_spmd = mha_forward
+
+
+def manual_axes(batch: int, heads: int, mesh) -> Tuple[str, ...]:
+    """The axes the reference's ``mha_manual`` splits ``[batch, heads, S,
+    D]`` over: ``dp`` for the batch and ``mp`` for the heads, each where
+    the mesh has it above size 1 and it divides the dim."""
+    return tuple(a for a, dim in (("dp", batch), ("mp", heads))
+                 if mesh.axis_size(a) > 1 and dim % mesh.axis_size(a) == 0)
+
+
+def mha_manual(q, k, v, mesh, causal: bool = False,
+               scale: Optional[float] = None) -> Optional[torch.Tensor]:
+    """Flash attention on ``[B, H, S, D]`` arrays that every rank of the
+    mesh holds whole: each rank runs the kernels on its block (batch over
+    ``dp``, heads over ``mp``, as :func:`manual_axes` picks) and the
+    blocks are gathered back, so the result and the gradients are whole on
+    every rank. None where no axis splits (the reference's
+    ``mha_manual`` returns None there too and its caller takes the dense
+    path)."""
+    axes = manual_axes(q.shape[0], q.shape[1], mesh)
+    if not axes:
+        return None
+    from ...distributed import _collectives as C
+    dims = {"dp": 0, "mp": 1}
+    for a in axes:
+        g = mesh.get_group(a)
+        q, k, v = (C.split(t, dims[a], g) for t in (q, k, v))
+    out = mha_forward(q, k, v, causal, scale)
+    for a in reversed(axes):
+        out = C.gather(out, dims[a], mesh.get_group(a))
+    return out
+
+
 def flash_attention(query, key, value, causal: bool = False,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Paddle layout ``[batch, seq, heads, head_dim]``; sequence lengths

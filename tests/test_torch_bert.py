@@ -288,9 +288,14 @@ def test_three_train_steps_match_fp32():
 
 
 def test_build_train_step_refuses_a_mesh():
+    """A mesh whose mp does not divide the heads raises: the shard-local
+    layout splits them. The mesh trainer itself is held against the
+    reference in tests/test_torch_gpt_mesh.py."""
+    from paddle_tpu_torch.distributed import ProcessMesh
     _, pcfg = _configs()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        pt_bert.build_train_step(pcfg, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="num_heads 2 not divisible by mp 4"):
+        pt_bert.build_train_step(
+            pcfg, mesh=ProcessMesh(np.arange(4), ["mp"]), device="cpu")
 
 
 def test_entry_points_raise_without_card():

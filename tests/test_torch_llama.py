@@ -250,11 +250,21 @@ def test_three_train_steps_match_bf16():
 
 
 def test_build_train_step_refuses_a_mesh_or_pipeline():
+    """A mesh the layout cannot split raises (a pipeline over more stages
+    than divide the layers, with the reference's message; kv heads that
+    mp does not divide). Without a mesh, pp_microbatches is ignored, as
+    in the reference. The mesh trainer itself is held against the
+    reference in tests/test_torch_gpt_mesh.py."""
+    from paddle_tpu_torch.distributed import ProcessMesh
     _, pcfg = _configs()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        pt_llama.build_train_step(pcfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        pt_llama.build_train_step(pcfg, pp_microbatches=2, device="cpu")
+    with pytest.raises(ValueError,
+                       match="num_layers not divisible by pp degree"):
+        pt_llama.build_train_step(
+            pcfg, mesh=ProcessMesh(np.arange(3), ["pp"]), device="cpu")
+    with pytest.raises(ValueError, match="kv heads 2 not divisible by mp 4"):
+        pt_llama.build_train_step(
+            pcfg, mesh=ProcessMesh(np.arange(4), ["mp"]), device="cpu")
+    pt_llama.build_train_step(pcfg, pp_microbatches=2, device="cpu")
 
 
 def test_entry_points_raise_without_card():

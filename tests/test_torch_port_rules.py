@@ -1,8 +1,9 @@
 """Rules of the PyTorch port, as tests.
 
-- ``paddle_tpu_torch/``, ``chip_smoke.py``, ``chip_fwd_wide.py`` and
-  ``chip_profiler_probe.py`` import neither JAX nor the JAX package
-  (``paddle_tpu``), not even a module of it that does not import JAX:
+- ``paddle_tpu_torch/`` (``entry.py`` and ``testing/dist.py`` among
+  it), ``chip_smoke.py``, ``chip_fwd_wide.py``, ``chip_profiler_probe.py``,
+  ``chip_nccl_probe.py`` and ``chip_bert_turns.py`` import neither JAX
+  nor the JAX package (``paddle_tpu``), not even a module of it that does not import JAX:
   the port keeps its own copy of what it needs.
 - The port's entry points run on the card unless the caller asks for the
   CPU; with no card they raise instead of carrying on on the CPU.
@@ -25,7 +26,8 @@ from paddle_tpu_torch.models.convert import params_from_numpy
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "chip_fwd_wide.py",
-    ROOT / "chip_profiler_probe.py"]
+    ROOT / "chip_profiler_probe.py", ROOT / "chip_nccl_probe.py",
+    ROOT / "chip_bert_turns.py"]
 
 
 def _imported_modules(path: Path):
@@ -60,6 +62,16 @@ def test_port_imports_no_jax_and_no_reference(path):
     assert path.exists(), path
     bad = sorted({m for m in _imported_modules(path) if _forbidden(m)})
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_import_rule_covers_the_entry_points_and_the_rank_harness():
+    """``entry.py`` (the counterpart of ``__graft_entry__.py``) and
+    ``testing/dist.py`` (whose spawned ranks must never import JAX) are
+    among the files the rule walks."""
+    for rel in ("paddle_tpu_torch/entry.py",
+                "paddle_tpu_torch/testing/dist.py", "chip_nccl_probe.py",
+                "chip_bert_turns.py"):
+        assert ROOT / rel in PORT_FILES, rel
 
 
 def test_import_rule_catches_a_reference_import():
