@@ -138,7 +138,9 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    statistics, pooling, elementwise and casts, optimizer);
 12. holds the op surface at full width: every case of
    ``paddle_tpu_torch/testing/op_cases.py`` (every registered op) on the
-   card at ``FULL`` ([8, 1024, 1024]; batched products of two such;
+   card at ``FULL`` ([4, 1024, 1024]: the eager gpt2-medium's activation
+   width at batch 4, not 8, since the compile path's phase 19 came;
+   batched products of two such;
    decompositions at 1024 x 1024), in fp32 and, where the reference
    takes it, bf16, forward and the gradient of sum(out * r), against the
    port's CPU path on the same inputs at ``op_cases.limit`` (the special
@@ -150,8 +152,10 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    their statistics on the card; prints its time. Its ``kernel`` group
    calls the kernel, MoE and attention ops by their registered names
    (``flash_attention``, ``flash_attn_varlen`` and
-   ``flashmask_attention`` at ``[8, 1024, 16, 64]``, 8192 packed tokens,
-   fp32 and bf16, launching kernels #1-#11; ``fused_rms_norm``,
+   ``flashmask_attention`` at ``[2, 1024, 16, 64]``, 2048 packed tokens,
+   fp32 and bf16, launching kernels #1-#11 (batch 2, not the main path's
+   8, since the compile path's phase 19 came: their plain versions on the
+   CPU took a third of the phase); ``fused_rms_norm``,
    ``fused_swiglu``, ``fused_rope``, the MoE gates, dispatch, combine
    and ``fused_moe``) and the four segment reductions;
 14. drives the ``nn`` layers: a small Transformer step (2 + 2 layers,
@@ -217,6 +221,24 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    step (its idle share and its NCCL kernels and device copies). One
    card runs one NCCL rank: meshes of more ranks are held by the CPU
    tests over gloo;
+19. (run before 16) the compile path, under a watchdog of 720 s, with
+   inductor's cache in a fresh directory removed after: (e)
+   ``torch.library.opcheck`` of the 11 kernel ops on CUDA inputs; (a)
+   phase 10's eager gpt2-medium through ``paddle.jit.to_static``
+   (inductor): the first step's seconds, step 1's gradients leaf by leaf
+   and three losses against the eager model's from the same seed, 24 /
+   24 / 24 launches of #1 / #2 / #3 a step, one trace and one forward
+   and one backward graph, no library attention in a profiled step,
+   ms/step, tokens/s and idle share beside the eager step in turns, peak
+   memory; (b) ResNet-50 ``@to_static`` (O1, ``Momentum(0.1)``, b64
+   224^2) against phase 11's model, three steps each from the eager
+   model's state (each step's loss and BN statistics), then in fp32 cut
+   to one block a stage (each step's loss, BN statistics, gradients and
+   update), then timed the same way; (c) ``jit.save`` with a None batch, ``jit.load`` and
+   ``inference.create_predictor`` of ResNet-50 (b64, b7) and a 2-layer
+   GPT at gpt2-medium's width (b2, b3; #1 inside the loaded program)
+   against the eager layers; (d) a ``static.nn.fc`` MLP through
+   ``Executor`` with the default passes;
 16. prints the head_dim 256 and 512 and fp16 (64, 256 and 512) timings,
    the ``kernels`` JSON line, the card line, and last ``{"ok": true, "device": {...}}``.
 
@@ -332,8 +354,11 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 @contextlib.contextmanager
@@ -2541,7 +2566,8 @@ def profile_step(step, state, tokens, labels, step_ms, group=None):
     for e in top:
         print(f"  top: {e.self_device_time_total / 1e3:8.2f} ms "
               f"x{e.count:<5d} {e.key[:110]}")
-    return {"busy": total_ms, "idle": idle, "groups": groups}
+    return {"busy": total_ms, "idle": idle, "groups": groups,
+            "names": {e.key for e in events}}
 
 
 def _all_launches():
@@ -2964,12 +2990,12 @@ def small_resnet_check():
     paddle.set_device("gpu")
 
 
-def _resnet_step(paddle, F, model, opt, x, y):
-    """One eager ResNet step under bf16 O1, in the profiler ranges
-    (forward, backward, optimizer)."""
+def _resnet_step(paddle, F, model, opt, x, y, amp=True):
+    """One eager ResNet step under bf16 O1 (fp32 with ``amp=False``), in
+    the profiler ranges (forward, backward, optimizer)."""
     from torch.profiler import record_function
     with record_function("forward"):
-        with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+        with paddle.amp.auto_cast(enable=amp, level="O1", dtype="bfloat16"):
             loss = F.cross_entropy(model(x), y)
     loss.backward()
     with record_function("optimizer"):
@@ -3299,9 +3325,10 @@ def random_checks(paddle, shape):
 def op_surface_path(smi):
     """Phase 12: every case of ``paddle_tpu_torch/testing/op_cases.py``
     (every registered op of the op surface) at full width: the eager
-    gpt2-medium's activation shape [8, 1024, 1024] for the elementwise,
-    reduction, cumulative, manipulation, search, sort and indexing ops,
-    [8, 1024, 1024] @ [8, 1024, 1024] for the batched products, 1024 x 1024
+    gpt2-medium's activation width at batch 4, [4, 1024, 1024], for the
+    elementwise, reduction, cumulative, manipulation, search, sort and
+    indexing ops, [4, 1024, 1024] @ [4, 1024, 1024] for the batched
+    products, 1024 x 1024
     for the decompositions and solves. Each runs on the card in fp32 and,
     where the reference takes bf16, in bf16, forward and the gradient of
     sum(out * r), and on the port's CPU path on the same inputs; outputs
@@ -5055,6 +5082,589 @@ def mesh_path(smi, phase5_ms, cfg_name="gpt2-medium", device="cuda"):
           flush=True)
 
 
+# ------------------------------------------------------------ phase 19
+
+# the compiled step's losses against the eager step's (the same weights,
+# batch and seed): 2.4e-5 relative in every run on the H100 (limit 1e-3)
+COMPILE_LOSS_REL = 1e-3
+# step 1's gradients, leaf by leaf, ||compiled - eager|| / ||eager||: the
+# same weights and batch, so only the rounding points differ (inductor
+# rounds each fused group of O1 elementwise ops to bf16 once, eager after
+# each op); 0.0077 at the worst leaf, 0.0053 at the median on the H100;
+# a lost or wrong dQ or dK/dV reads ~1 on the attention leaves
+COMPILE_GRAD_REL = 2.0 ** -5
+# ResNet-50 against the eager model, three steps, each from the eager
+# model's parameters and BN statistics (left to run free, any two models
+# drift apart step by step: Momentum(0.1) from scratch compounds any
+# rounding difference, as it does one of summation order alone,
+# ``chip_compile_witness.py``). Under O1: each step's loss and the BN
+# running statistics it leaves (the worst buffer's ||c - e|| / ||e||, and
+# its worst element over the buffer's scale); 0.0027 and 0.0055 at worst
+# on the H100, an eager twin fed the batch in another order 0.0020 and
+# 0.0056
+RESNET_LOSS_REL = 2.0 ** -6
+# Under O1 the gradients at this initialisation are mostly rounding noise
+# (over all leaves at once, the compiled model and the reordered twin both
+# read 0.89-1.07 against eager), so the backward is held in fp32 (TF32
+# off) on the model cut to one block a stage: each step's loss and BN
+# statistics (0 and 4.4e-7 at worst, the twin 8.6e-8 and 3.7e-7) ...
+RESNET_FP32_REL = 1e-5
+# ... its gradients and update over all leaves at once (0.0024 at worst,
+# the twin 0.0025) ...
+RESNET_FP32_GRAD_REL = 2.0 ** -6
+# ... and at the worst leaf (0.0069, the twin 0.0056); a lost or wrong
+# term of the backward reads 0.1-1
+RESNET_FP32_LEAF_REL = 2.0 ** -4
+# fp32 forwards, TF32 off: inductor's fused kernels sum in another order
+LOADED_REL = 1e-4
+COMPILED_STEPS = 5
+
+
+def _graph_counts(layer):
+    """The compiled forward's cache: one entry, its traces and graphs."""
+    cache = layer.forward._fwd_cache
+    check(len(cache) == 1, f"{len(cache)} cache entries, want 1")
+    entry = next(iter(cache.values()))
+    return entry.traces, entry.counts
+
+
+def _no_library_attention(names):
+    """No PyTorch or cuDNN attention among a profile's op and kernel
+    names."""
+    bad = sorted(n for n in names if "scaled_dot_product" in n
+                 or "fmha" in n.lower() or "pytorch_flash" in n
+                 or ("cudnn" in n.lower() and ("attn" in n.lower()
+                                               or "mha" in n.lower())))
+    check(not bad, f"library attention in the compiled step: {bad[:5]}")
+
+
+def _step_grads(opt, params, run):
+    """Runs ``run()``, one training step ending in ``opt.step()``; returns
+    its loss and copies (fp32) of the gradients that step read."""
+    grads = []
+    step = opt.step
+
+    def capture():
+        grads.extend(torch.zeros_like(p._t, dtype=torch.float32)
+                     if p.grad is None else
+                     p.grad._t.detach().float().clone() for p in params)
+        step()
+    opt.step = capture
+    try:
+        loss = run()
+    finally:
+        del opt.step
+    return loss, grads
+
+
+def _divergence(got, want):
+    """Leaf by leaf ||got - want|| / ||want|| (float64; leaves whose
+    ``want`` is all zeros left out): the worst, the median and the worst
+    leaf's index, and the same ratio over all leaves at once
+    ("global")."""
+    rels, num, den = {}, 0.0, 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        d = float(w.double().norm())
+        n = float((g.double() - w.double()).norm())
+        num, den = num + n * n, den + d * d
+        if d > 0:
+            rels[i] = n / d
+    at = max(rels, key=rels.get)
+    return {"worst": rels[at], "median": float(np.median(list(rels.values()))),
+            "at": at, "global": (num / den) ** 0.5}
+
+
+def _worst_elem(got, want):
+    """The worst element's |got - want| over its buffer's largest
+    magnitude (at least 1), over all buffers."""
+    return max(float((g.double() - w.double()).abs().max())
+               / max(1.0, float(w.double().abs().max()))
+               for g, w in zip(got, want))
+
+
+def _in_turns(step, n=3):
+    """Host ms of ``n`` steps of each model in turns (eager, compiled,
+    compiled, eager), each turn after one warm-up step."""
+    ms = {"eager": [], "compiled": []}
+    for name in ("eager", "compiled", "compiled", "eager"):
+        step(name)
+        torch.cuda.synchronize()
+        ms[name] += _turns(lambda *_: step(name), None, None, None, n)
+    return ms
+
+
+def compiled_gpt(smi, cfg_name="gpt2-medium", batch=BATCH, seq=SEQ):
+    """(a) phase 10's eager gpt2-medium (fp32 parameters, O1 bf16, AdamW
+    1e-4, seed 0) through ``paddle.jit.to_static`` (inductor): the first
+    step's seconds (trace + inductor's cold compile of the forward and
+    backward graphs, with its cache in a fresh directory), step 1's
+    gradients leaf by leaf and three losses against the eager model's
+    from the same seed, 24 / 24 / 24 launches of #1 / #2 / #3 a step, one
+    forward and one backward graph and one trace over all steps, no
+    library attention in a profiled step, ms/step, tokens/s and idle
+    share beside the eager step in turns, peak memory."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    cfg = gpt.GPT_CONFIGS[cfg_name] if isinstance(cfg_name, str) \
+        else cfg_name
+    rng = np.random.RandomState(0)
+    x = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (batch, seq)))
+    y = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (batch, seq)))
+    models = {}
+    for name in ("eager", "compiled"):
+        paddle.seed(0)
+        model = gpt.GPTForPretraining(cfg)
+        if name == "compiled":
+            model = paddle.jit.to_static(model)
+        models[name] = (model, gpt.GPTPretrainingCriterion(),
+                        paddle.optimizer.AdamW(
+                            1e-4, parameters=model.parameters()))
+
+    def step(name):
+        return _eager_step(paddle, *models[name], x, y, "bfloat16")
+
+    losses = {"eager": [], "compiled": []}
+    grads = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for name in ("compiled", "eager"):  # the compiled model compiles first
+        model, _, opt = models[name]
+        loss, grads[name] = _step_grads(opt, list(model.parameters()),
+                                        lambda: step(name))
+        losses[name].append(float(loss))
+        if name == "compiled":
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+    div = _divergence(grads["compiled"], grads["eager"])
+    names = [n for n, _ in models["eager"][0].named_parameters()]
+    del grads
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        for name in ("compiled", "eager"):
+            losses[name].append(float(step(name)))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["compiled"],
+                                                  losses["eager"]))
+    print(f"compiled {cfg_name}: first step (trace + inductor's cold "
+          f"compile of both graphs + run) {first_s:.1f} s on {smi}")
+    print(f"step 1's gradients against eager, leaf by leaf ||c - e|| / "
+          f"||e||: worst {div['worst']:.3g} ({names[div['at']]}), median "
+          f"{div['median']:.3g} over {len(names)} leaves (limit "
+          f"{COMPILE_GRAD_REL:.3g}); all leaves at once {div['global']:.3g}")
+    print(f"losses compiled {[round(v, 5) for v in losses['compiled']]} "
+          f"eager {[round(v, 5) for v in losses['eager']]}: worst relative "
+          f"{rel:.3g} (limit {COMPILE_LOSS_REL:.3g})")
+    check(all(math.isfinite(v) for v in losses["compiled"]),
+          f"compiled losses {losses['compiled']}")
+    check(div["worst"] <= COMPILE_GRAD_REL, f"compiled gradients off by "
+          f"{div['worst']} at {names[div['at']]}")
+    check(rel <= COMPILE_LOSS_REL, f"compiled losses off by {rel}")
+
+    _reset_all_launches()
+    step("compiled")
+    torch.cuda.synchronize()
+    launches = _all_launches()
+    want = {n: (cfg.num_layers if n in fa.LAUNCHES else 0) for n in launches}
+    print(f"port kernel launches in one compiled step: {launches}")
+    check(launches == want, f"compiled step launches {launches}, want "
+          f"{want}")
+    for _ in range(COMPILED_STEPS - 4):
+        step("compiled")
+    traces, counts = _graph_counts(models["compiled"][0])
+    print(f"after {COMPILED_STEPS} steps: {traces} trace, graphs {counts}")
+    check(traces == 1 and counts == {"forward": 1, "backward": 1},
+          f"traces {traces}, graphs {counts}")
+    peak = torch.cuda.max_memory_allocated()
+
+    ms = _in_turns(step)
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    prof = {}
+    for name in ("eager", "compiled"):
+        prof[name] = profile_step(lambda *_: step(name), None, None, None,
+                                  med[name])
+    if prof["compiled"] is not None:
+        _no_library_attention(prof["compiled"]["names"])
+    for name in ("eager", "compiled"):
+        idle = "not measured" if prof[name] is None else \
+            f"{prof[name]['idle']:.3f}"
+        print(f"{name} {cfg_name} O1 step in turns: median {med[name]:.2f} "
+              f"ms/step of {len(ms[name])} ({[round(v, 2) for v in ms[name]]}"
+              f"), {batch * seq / (med[name] / 1e3):.1f} tokens/s, idle "
+              f"share {idle}")
+    print(f"compiled / eager: {med['compiled'] / med['eager']:.3f}x; peak "
+          f"memory of the compiled run after step 1 {peak / 2**30:.2f} GiB "
+          f"(both models resident) on {smi}")
+    return med
+
+
+def resnet_divergence(smi, amp=True, twins=("permuted",), forced=True,
+                      factory="resnet50", batch=RESNET_BATCH,
+                      size=RESNET_SIZE, classes=1000, steps=3, blocks=None):
+    """``bench_suite.py``'s ResNet-50 workload (``Momentum(0.1)``, batch 64
+    x 224^2; O1 bf16, or fp32 with ``amp=False``) trained ``steps`` steps
+    on one batch from seed 0, several ways: eager; ``@to_static``
+    ("compiled", stepped first: its first step holds the trace and
+    inductor's cold compile); and each eager twin in ``twins``, built from
+    the same seed: "same" on the same batch, "permuted" on the batch's
+    samples in another order (the same step in exact arithmetic: only the
+    summation orders of the BN statistics, the loss's mean and the weight
+    gradients change). With ``forced``, every way starts each step from
+    the eager model's parameters and BN statistics (copied in place), so
+    each step's comparison holds one step's rounding; without it the ways
+    run free and any difference compounds from step to step. ``blocks``
+    keeps that many blocks of each stage (the first holds the stage's
+    downsample). Each way against eager, step by step: the loss
+    (relative), the gradients and the update (p_after - p_before)
+    (``_divergence``), the BN running statistics after the step (the
+    worst buffer's ``_divergence`` and the worst element over its
+    buffer's largest magnitude). Prints the readings; returns the
+    models (model, optimizer, step) by way, the readings by way and the
+    compiled first step's seconds."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.vision import models as vm
+    rng = np.random.RandomState(0)
+    x_np = rng.randn(batch, 3, size, size).astype("float32")
+    y_np = rng.randint(0, classes, (batch,)).astype("int64")
+    perm = np.random.RandomState(1).permutation(batch)
+    ways = ("compiled", "eager") + tuple(twins)
+    models = {}
+    for name in ways:
+        paddle.seed(0)
+        model = getattr(vm, factory)(num_classes=classes)
+        for stage in ("layer1", "layer2", "layer3", "layer4")[
+                :4 if blocks else 0]:
+            setattr(model, stage, paddle.nn.Sequential(
+                *list(getattr(model, stage))[:blocks]))
+        if name == "compiled":
+            model = paddle.jit.to_static(model)
+        order = perm if name == "permuted" else slice(None)
+        models[name] = (model, paddle.optimizer.Momentum(
+            0.1, parameters=model.parameters()),
+            paddle.to_tensor(x_np[order]), paddle.to_tensor(y_np[order]))
+
+    def step(name):
+        model, opt, x, y = models[name]
+        return _resnet_step(paddle, F, model, opt, x, y, amp=amp)
+
+    def params(name):
+        return [p._t for p in models[name][0].parameters()]
+
+    def bufs(name):
+        return [b._t for _, b in models[name][0].named_buffers()]
+
+    r = {n: {"losses": [], "loss": [], "grad": [], "update": [], "bn": []}
+         for n in ways}
+    t0 = time.perf_counter()
+    for i in range(steps):
+        if forced and i:
+            with torch.no_grad():
+                for name in ways:
+                    for get in (params, bufs):
+                        for t, e in zip(get(name), get("eager")):
+                            t.copy_(e)
+        before = {n: [t.detach().clone() for t in params(n)] for n in ways}
+        grads = {}
+        for name in ways:
+            model, opt = models[name][:2]
+            loss, grads[name] = _step_grads(
+                opt, list(model.parameters()), lambda: step(name))
+            r[name]["losses"].append(float(loss))
+            if i == 0 and name == "compiled":
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+        upd = {n: [a.detach() - b for a, b in zip(params(n), before[n])]
+               for n in ways}
+        for name in ways:
+            w = r[name]
+            w["loss"].append(abs(w["losses"][-1] - r["eager"]["losses"][-1])
+                             / abs(r["eager"]["losses"][-1]))
+            w["grad"].append(_divergence(grads[name], grads["eager"]))
+            w["update"].append(_divergence(upd[name], upd["eager"]))
+            w["bn"].append((_divergence(bufs(name), bufs("eager"))["worst"],
+                            _worst_elem(bufs(name), bufs("eager"))))
+        del grads, upd, before
+    kind = "O1 bf16" if amp else "fp32"
+    mode = "each step from eager's state" if forced else "running free"
+    cut = f" cut to {blocks} block(s) a stage" if blocks else ""
+    print(f"{factory}{cut} b{batch} {size}^2 {kind} momentum 0.1, {steps} "
+          f"steps from seed 0, {mode}; each way against eager step by step "
+          f"(compiled's first step, trace + cold compile + run: "
+          f"{first_s:.1f} s on {smi}):")
+
+    def fmt(vals):
+        return "[" + ", ".join(f"{v:.3g}" for v in vals) + "]"
+
+    def fmt_div(divs):
+        return "[" + ", ".join(f"{d['worst']:.3g}/{d['median']:.3g}/"
+                               f"{d['global']:.3g}" for d in divs) + "]"
+    for name in ways:
+        w = r[name]
+        print(f"  {name}: losses {[round(v, 5) for v in w['losses']]}" + (
+            "" if name == "eager" else
+            f", relative {fmt(w['loss'])}; gradients worst/median leaf/all "
+            f"leaves {fmt_div(w['grad'])}; update {fmt_div(w['update'])}; "
+            f"BN statistics worst buffer {fmt([b for b, _ in w['bn']])}, "
+            f"worst element over its buffer's scale "
+            f"{fmt([e for _, e in w['bn']])}"))
+    return {n: models[n][:2] + (lambda n=n: step(n),) for n in ways}, r, \
+        first_s
+
+
+def compiled_resnet(smi, factory="resnet50", batch=RESNET_BATCH,
+                    size=RESNET_SIZE, classes=1000, fp32_blocks=1):
+    """(b) ``bench_suite.py``'s ResNet-50 workload with ``@to_static``:
+    O1 bf16, ``Momentum(0.1)``, batch 64 x 224^2, three steps against
+    phase 11's eager model, each from the eager model's state, with an
+    eager twin fed the batch in another order beside it
+    (``resnet_divergence``): every step's loss and BN statistics held to
+    rounding; its gradients and updates are printed beside the twin's
+    (under O1 both are mostly rounding noise, ``RESNET_FP32_REL``). Then
+    the same three steps in fp32 on the model cut to ``fp32_blocks``
+    block(s) a stage: every step's loss, BN statistics, gradients and
+    update held to fp32 rounding. Then one trace and one forward and one
+    backward graph, ms/step and images/s beside the eager O1 step in
+    turns, idle share."""
+    models, r, _ = resnet_divergence(smi, True, ("permuted",), True,
+                                     factory, batch, size, classes)
+    c = r["compiled"]
+    check(all(math.isfinite(v) for v in c["losses"]),
+          f"compiled resnet losses {c['losses']}")
+    worst = {"loss": max(c["loss"]), "BN": max(max(b) for b in c["bn"])}
+    print("O1 over the three steps: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in worst.items())
+        + f" (limit {RESNET_LOSS_REL:.3g})")
+    check(max(worst.values()) <= RESNET_LOSS_REL,
+          f"compiled resnet against eager: {worst}")
+    traces, counts = _graph_counts(models["compiled"][0])
+    check(traces == 1 and counts == {"forward": 1, "backward": 1},
+          f"traces {traces}, graphs {counts}")
+    del models["permuted"]
+
+    _, r, _ = resnet_divergence(smi, False, ("permuted",), True, factory,
+                                batch, size, classes, blocks=fp32_blocks)
+    c = r["compiled"]
+    worst = {"loss": (max(c["loss"]), RESNET_FP32_REL),
+             "BN": (max(max(b) for b in c["bn"]), RESNET_FP32_REL)}
+    for key in ("grad", "update"):
+        worst[f"{key} (all leaves)"] = (max(d["global"] for d in c[key]),
+                                        RESNET_FP32_GRAD_REL)
+        worst[f"{key} (worst leaf)"] = (max(d["worst"] for d in c[key]),
+                                        RESNET_FP32_LEAF_REL)
+    print("fp32 over the three steps: " + ", ".join(
+        f"{k} {v:.3g} (limit {lim:.3g})" for k, (v, lim) in worst.items()))
+    check(all(v <= lim for v, lim in worst.values()),
+          f"fp32 compiled resnet against eager: {worst}")
+
+    def step(name):
+        return models[name][2]()
+
+    ms = _in_turns(step)
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    for name in ("eager", "compiled"):
+        prof = profile_step(lambda *_: step(name), None, None, None,
+                            med[name], group=_vision_group)
+        idle = "not measured" if prof is None else f"{prof['idle']:.3f}"
+        print(f"{name} {factory} b{batch} {size}^2 O1 momentum in turns: "
+              f"median {med[name]:.2f} ms/step of {len(ms[name])} "
+              f"({[round(v, 2) for v in ms[name]]}), "
+              f"{batch / (med[name] / 1e3):.1f} images/s, idle share {idle}")
+    print(f"compiled / eager: {med['compiled'] / med['eager']:.3f}x on {smi}")
+    return med
+
+
+def _predictor_check(label, layer, spec, batches, make_input, tmp):
+    """``jit.save`` with ``spec`` (a None batch), ``jit.load``, then
+    ``inference.create_predictor`` on the card; each batch's outputs
+    against the eager layer's. Returns the port kernel launches of one
+    predictor run at the last batch."""
+    import paddle_tpu_torch as paddle
+    path = os.path.join(tmp, label)
+    t0 = time.perf_counter()
+    paddle.jit.save(layer, path, input_spec=[spec])
+    loaded = paddle.jit.load(path)
+    pred = paddle.inference.create_predictor(paddle.inference.Config(path))
+    print(f"{label}: jit.save + jit.load + create_predictor "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches = None
+    for b in batches:
+        x = make_input(b)
+        with paddle.no_grad():
+            want = layer(paddle.to_tensor(x)).numpy()
+        t0 = time.perf_counter()
+        _reset_all_launches()
+        got = pred.run([x])[0]
+        torch.cuda.synchronize()
+        launches = _all_launches()
+        compile_s = time.perf_counter() - t0
+        with paddle.no_grad():
+            via_load = loaded(paddle.to_tensor(x)).numpy()
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got - want).max()) / scale
+        err_load = float(np.abs(via_load - want).max()) / scale
+        print(f"{label} batch {b}: predictor (first run, compile included "
+              f"{compile_s:.1f} s) worst abs err over the output's scale "
+              f"{err:.3g}, jit.load's layer {err_load:.3g} (limit "
+              f"{LOADED_REL:g})")
+        check(err <= LOADED_REL and err_load <= LOADED_REL,
+              f"{label} batch {b}: {err}, {err_load}")
+    return launches
+
+
+def saved_programs(smi, resnet="resnet50", size=RESNET_SIZE,
+                   gpt_cfg="gpt2-medium", seq=SEQ):
+    """(c) ``jit.save`` with a None batch, ``jit.load`` and
+    ``inference.create_predictor`` on the card, fp32, eval mode: ResNet-50
+    at batch 64 and 7, and a 2-layer GPT at gpt2-medium's width (its
+    attention through kernel #1 inside the loaded program: two launches a
+    run) at batch 2 and 3 (its logits, [b, 1024, 50304] in fp32, are read
+    back to the host)."""
+    import tempfile
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.vision import models as vm
+    tmp = tempfile.mkdtemp(prefix="phase19_")
+    try:
+        paddle.seed(0)
+        net = getattr(vm, resnet)()
+        net.eval()
+        _predictor_check(
+            resnet, net, paddle.static.InputSpec([None, 3, size, size]),
+            (RESNET_BATCH, 7), lambda b: np.random.RandomState(b).randn(
+                b, 3, size, size).astype("float32"), tmp)
+        base = gpt.GPT_CONFIGS[gpt_cfg] if isinstance(gpt_cfg, str) \
+            else gpt_cfg
+        cfg = dataclasses.replace(base, num_layers=2, dtype="float32")
+        paddle.seed(0)
+        model = gpt.GPTForPretraining(cfg)
+        model.eval()
+        launches = _predictor_check(
+            f"gpt 2 layers at {cfg.hidden_size} wide", model,
+            paddle.static.InputSpec([None, seq], "int64"), (2, 3),
+            lambda b: np.random.RandomState(b).randint(
+                0, cfg.vocab_size, (b, seq)), tmp)
+        print(f"port kernel launches in one loaded GPT run: {launches}")
+        check(launches["flash_fwd"] == cfg.num_layers
+              and sum(launches.values()) == cfg.num_layers,
+              f"loaded GPT launches {launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def static_program(smi):
+    """(d) a ``static.nn.fc`` MLP recorded under ``enable_static`` and run
+    by ``Executor`` on the card with the default passes, against the eager
+    formula on the captured parameters (fp32, TF32 off)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    paddle.seed(0)
+    paddle.enable_static()
+    try:
+        prog = static.Program()
+        with static.program_guard(prog):
+            x = static.data("x", [None, 256], "float32")
+            h = static.nn.fc(x, 1024, activation="relu")
+            out = static.nn.fc(h, 10)
+    finally:
+        paddle.disable_static()
+    params = [t for n in prog.ops for t in n.inputs
+              if isinstance(t, paddle.Tensor)
+              and not isinstance(t, static.Variable)]
+    xs = np.random.RandomState(0).randn(64, 256).astype("float32")
+    exe = static.Executor()
+    got, = exe.run(prog, feed={"x": xs}, fetch_list=[out])
+    w1, b1, w2, b2 = (p.numpy().astype(np.float64) for p in params)
+    want = np.maximum(xs @ w1 + b1, 0) @ w2 + b2
+    err = float(np.abs(got - want).max()) / float(np.abs(want).max())
+    print(f"static fc MLP ({len(prog.ops)} recorded ops) through Executor "
+          f"with the default passes: worst abs err over the output's scale "
+          f"{err:.3g} against the float64 formula (limit {LOADED_REL:g})")
+    check(err <= LOADED_REL, f"static program err {err}")
+
+
+def op_checks():
+    """(e) ``torch.library.opcheck`` of every kernel op on CUDA inputs at
+    a small shape: schema, autograd registration, fake implementation
+    against the CUDA one, AOTAutograd with dynamic shapes."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import flash_varlen as fv
+    from paddle_tpu_torch.ops.cuda import library
+    ops = library.ops()
+    dev = "cuda"
+
+    def r(*shape, seed=0, grad=False, dtype=torch.bfloat16):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(*shape, generator=g, device=dev,
+                           dtype=dtype).requires_grad_(grad)
+
+    def qkv(grad, shape=(4, 128, 64)):
+        return tuple(r(*shape, seed=i, grad=grad) for i in range(3))
+
+    cu = torch.tensor([0, 100, 256, 300], dtype=torch.int32, device=dev)
+    vplan = fv._plan_args(fv.varlen_plan(cu, cu, 300, 300, True))
+    st = torch.randint(0, 128, (1, 1, 128, 1), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(3))
+    fp = fv.flashmask_plan(st, 4, True)
+    fplan = (fp.st, fp.en, fp.st_max, fp.en_min, fp.heads, fp.col_heads,
+             fp.causal)
+    fwd_args = {"flash_fwd": qkv(True) + (True, 0.125, 128, 0),
+                "varlen_fwd": qkv(True, (300, 4, 64)) + vplan + (0.125,),
+                "flashmask_fwd": qkv(True) + fplan + (0.125,)}
+    cases = dict(fwd_args)
+    for fwd, delta in (("flash_fwd", fa.attention_delta),
+                       ("varlen_fwd", fv.varlen_delta),
+                       ("flashmask_fwd", fa.attention_delta)):
+        args = fwd_args[fwd]
+        q, k, v = (t.detach() for t in args[:3])
+        out, lse = ops[fwd](q, k, v, *args[3:])
+        do = r(*out.shape, seed=7)
+        bwd = (q, k, v, do, lse, delta(do, out)) + tuple(args[3:])
+        prefix = fwd[:-len("fwd")]
+        cases[prefix + "bwd_dkv"] = bwd
+        cases[prefix + "bwd_dq"] = bwd
+    cases["rms_norm"] = (r(64, 1024, grad=True), r(1024, seed=1, grad=True),
+                         1e-6)
+    cases["swiglu"] = (r(64, 2048, grad=True), None)
+    for name in library.OP_NAMES:
+        result = torch.library.opcheck(ops[name], cases[name])
+        print(f"opcheck {name} (cuda, bf16): {result}")
+
+
+def compile_path(smi):
+    """Phase 19: the compile path on the card. Inductor's cache goes to a
+    fresh directory for the phase (its first compile is cold) and is
+    removed after."""
+    import tempfile
+    phase("19 the compile path")
+    cache = tempfile.mkdtemp(prefix="inductor_")
+    saved = {k: os.environ.get(k) for k in ("TORCHINDUCTOR_CACHE_DIR",
+                                            "TRITON_CACHE_DIR")}
+    os.environ["TORCHINDUCTOR_CACHE_DIR"] = cache
+    os.environ["TRITON_CACHE_DIR"] = os.path.join(cache, "triton")
+    times = {}
+    try:
+        for label, run in (("(e) opcheck", op_checks),
+                           ("(a) compiled gpt", compiled_gpt),
+                           ("(b) compiled resnet", compiled_resnet),
+                           ("(c) saved programs", saved_programs),
+                           ("(d) static program", static_program)):
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            print(f"-- 19 {label}", flush=True)
+            run() if run is op_checks else run(smi)
+            times[label] = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(cache, ignore_errors=True)
+    print("phase 19 seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in times.items()) + f" on {smi}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5112,6 +5722,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with watchdog("phase 18 (the mesh path)", 180):
         mesh_path(smi, compiled_ms)
+    torch.cuda.empty_cache()
+    with watchdog("phase 19 (the compile path)", 720):
+        compile_path(smi)
     phase("16 results")
     for label, (d_ms, d_plain, d_lib, d_bnd) in (
             ("head_dim 256", d256), ("head_dim 512", d512),

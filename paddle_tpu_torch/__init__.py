@@ -9,11 +9,15 @@ This package never imports JAX or ``paddle_tpu``.
 ``Tensor``, ``to_tensor``, the ops (registered by name in
 ``_core/op_registry.py`` against the schema ``ops/yaml/ops.yaml``),
 ``linalg``, ``nn``, ``autograd``, ``optimizer``, ``amp``, ``io``,
-``vision``, ``incubate`` and ``base``.
+``vision``, ``incubate`` and ``base``; and the compile path: ``jit``
+(``to_static``, ``save``, ``load``), ``static`` with the passes of ``ir``,
+``inference``, ``onnx`` and ``framework`` (``save``, ``load``).
 Tensors are created on the card unless ``set_device('cpu')`` was called;
 with no card and no ``set_device('cpu')`` creation raises (see
 :func:`resolve_device`). Nothing imported here needs a card or ``nvcc``.
 """
+__version__ = "0.1.0"
+
 from ._core.autograd import (enable_grad, grad, is_grad_enabled,  # noqa: F401
                              no_grad, set_grad_enabled)
 from ._core.device import (CPUPlace, CUDAPlace, device_count,  # noqa: F401
@@ -28,6 +32,10 @@ from ._core.tensor import Tensor, to_tensor  # noqa: F401
 from .ops import *  # noqa: F401,F403
 from . import amp, autograd, io, nn, optimizer, vision  # noqa: F401,E402
 from . import base, incubate  # noqa: F401,E402
+from . import framework, inference, ir, jit, onnx, static  # noqa: F401,E402
+from ._core.flags import get_flags, set_flags  # noqa: F401,E402
+from .framework import load, save  # noqa: F401,E402
+from .static import disable_static, enable_static  # noqa: F401,E402
 # "from . import linalg" would find the ops.linalg module that the star
 # import above bound to this name
 import importlib as _importlib  # noqa: E402

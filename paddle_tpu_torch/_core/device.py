@@ -142,4 +142,6 @@ def is_compiled_with_xpu() -> bool:
 
 
 def in_dynamic_mode() -> bool:
-    return True  # the port has no static mode
+    """False while ``static.enable_static()`` records programs."""
+    from ..static import in_static_mode
+    return not in_static_mode()

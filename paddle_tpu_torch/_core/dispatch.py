@@ -19,6 +19,10 @@ import torch
 # (op name, list of inputs) -> list of inputs; set by amp.auto_cast while
 # a scope is live, None otherwise (no per-op cost outside AMP)
 AMP_HOOK: Optional[Callable] = None
+# (op name, body, inputs, attrs) -> output placeholders; set by
+# static.enable_static (the reference's set_static_recorder): the op is
+# recorded into the current Program instead of running
+STATIC_HOOK: Optional[Callable] = None
 
 
 def unwrap(x):
@@ -40,6 +44,8 @@ def wrap(out):
 def apply(name: str, fn: Callable, *inputs, **attrs):
     """Runs op ``name`` as ``fn(*payloads, **attrs)``."""
     from .tensor import Tensor
+    if STATIC_HOOK is not None:
+        return STATIC_HOOK(name, fn, list(inputs), attrs)
     eager = any(isinstance(x, Tensor) for x in inputs)
     args = [x._t if isinstance(x, Tensor) else x for x in inputs]
     if AMP_HOOK is not None:

@@ -60,6 +60,16 @@ def _cast(name, args):
     return args
 
 
+def state_key():
+    """The live scope's casting rule as a hashable value (None outside a
+    scope): what a trace taken under it bakes in."""
+    state = getattr(_STATE, "amp", None)
+    if state is None or state[0] == "O0":
+        return None
+    level, low, white, black = state
+    return level, low, frozenset(white), frozenset(black)
+
+
 class auto_cast:
     """``with paddle.amp.auto_cast(level='O1', dtype='bfloat16'):``"""
 

@@ -47,6 +47,10 @@ kernel as a fresh contiguous copy, :func:`_tma_inputs`); the FMA one
 ``LAUNCHES`` counts kernel launches per wrapper; the plain versions do not
 count.
 
+Each wrapper is also the op ``paddle_tpu_torch::<wrapper>`` (registered
+through ``library.py`` below the wrappers), which the public functions
+call, so that a traced graph holds each kernel as one node.
+
 The op ``flash_attention(q, k, v, causal, scale)`` (paddle layout
 ``[B, S, H, D]``) is registered at import, as the reference registers its
 ``_fa_kernel_body``; unlike the reference's, it takes any sequence
@@ -62,6 +66,7 @@ import torch
 
 from ..._core.op_registry import register_op
 from ._build import function
+from .library import define
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)  # the head_dims the kernels are built for
@@ -404,40 +409,61 @@ def reference_keyless_rows(out: torch.Tensor, v: torch.Tensor) -> None:
 
 # --------------------------------------------------------------- public
 
-class _MHA(torch.autograd.Function):
-    """The TPU package's ``_mha`` custom VJP: the forward launches the
-    forward kernel, gives rows that see no key the reference's output
-    (:func:`reference_keyless_rows`) and saves ``(q, k, v, out, lse)``; the
-    backward launches dK/dV, then dQ."""
+def _lse_like(q):
+    return q.new_empty((q.shape[0], q.shape[1], 1), dtype=torch.float32)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
-        sq, sk = q.shape[1], k.shape[1]
-        out, lse = flash_fwd(q, k, v, causal, scale, kv_len=sk,
-                             q_offset=sk - sq)
-        if causal and sq > sk:
-            reference_keyless_rows(out, v)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return out
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        sq, sk = q.shape[1], k.shape[1]
-        do = do.contiguous()
-        delta = attention_delta(do, out)
-        args = (ctx.causal, ctx.scale, sk, sk - sq)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, *args)
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, *args)
-        return dq, dk, dv, None, None
+def _save_attention(ctx, inputs, output):
+    """What the TPU package's ``_mha`` custom VJP keeps: ``(q, k, v, out,
+    lse)`` and the arguments after them."""
+    ctx.save_for_backward(*inputs[:3], *output)
+    ctx.args = inputs[3:]
+
+
+def _attention_backward(ctx, do, _dlse):
+    """``attention_delta``, then dK/dV, then dQ, each a kernel launch."""
+    q, k, v, out, lse = ctx.saved_tensors
+    do = do.contiguous()
+    delta = attention_delta(do, out)
+    dk, dv = flash_bwd_dkv_op(q, k, v, do, lse, delta, *ctx.args)
+    dq = flash_bwd_dq_op(q, k, v, do, lse, delta, *ctx.args)
+    return (dq, dk, dv) + (None,) * len(ctx.args)
+
+
+_ARGS = "bool causal, float scale, int kv_len, int q_offset"
+flash_bwd_dkv_op = define(
+    "flash_bwd_dkv", "(Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, "
+    f"Tensor delta, {_ARGS}) -> (Tensor, Tensor)",
+    lambda *args: flash_bwd_dkv(*args),
+    lambda q, k, v, *_: (torch.empty_like(k), torch.empty_like(v)))
+flash_bwd_dq_op = define(
+    "flash_bwd_dq", "(Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, "
+    f"Tensor delta, {_ARGS}) -> Tensor", lambda *args: flash_bwd_dq(*args),
+    lambda q, *_: torch.empty_like(q))
+flash_fwd_op = define(
+    "flash_fwd", f"(Tensor q, Tensor k, Tensor v, {_ARGS}) -> "
+    "(Tensor, Tensor)", lambda *args: flash_fwd(*args),
+    lambda q, *_: (torch.empty_like(q), _lse_like(q)),
+    _attention_backward, _save_attention)
+
+
+def _with_keyless_rows(out, v):
+    """``out`` with the rows that see no key given the reference's values
+    (:func:`reference_keyless_rows`) and its gradient passed through as it
+    is: the kernels' backward gives those rows nothing, as the reference's
+    does."""
+    fixed = out.detach().clone()
+    reference_keyless_rows(fixed, v.detach())
+    return out + (fixed - out).detach()
 
 
 def mha_forward(q, k, v, causal: bool = False,
                 scale: Optional[float] = None) -> torch.Tensor:
-    """Differentiable flash attention on ``[B, H, S, D]`` or ``[BH, S, D]``;
-    returns the rank it was given. Inputs that are not contiguous (the
-    transposed heads of a GPT block) are copied to a contiguous layout."""
+    """Differentiable flash attention on ``[B, H, S, D]`` or ``[BH, S, D]``
+    through the op ``flash_fwd`` (its backward the ops ``flash_bwd_dkv``
+    and ``flash_bwd_dq``); returns the rank it was given. Inputs that are
+    not contiguous (the transposed heads of a GPT block) are copied to a
+    contiguous layout."""
     four = q.dim() == 4
     if four:
         b, h, sq, d = q.shape
@@ -446,8 +472,11 @@ def mha_forward(q, k, v, causal: bool = False,
         v = v.reshape(b * h, v.shape[2], d)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    out = _MHA.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                     bool(causal), float(scale))
+    sq, sk = q.shape[1], k.shape[1]
+    out, _ = flash_fwd_op(q.contiguous(), k.contiguous(), v.contiguous(),
+                          bool(causal), float(scale), sk, sk - sq)
+    if causal and sq > sk:
+        out = _with_keyless_rows(out, v)
     return out.reshape(b, h, sq, d) if four else out
 
 

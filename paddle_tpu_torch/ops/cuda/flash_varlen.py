@@ -37,7 +37,9 @@ kernel path. Wrappers dispatch on the device of their tensors as in
 ``flash_attention.py``: CUDA launches the kernel or raises, CPU runs the
 plain version, which builds the dense ``[Tq, Tk]`` mask from the same
 segment and position arrays and repeats the kernel's rounding points.
-``LAUNCHES`` counts kernel launches per wrapper.
+``LAUNCHES`` counts kernel launches per wrapper. Each wrapper is also the
+op ``paddle_tpu_torch::<wrapper>`` (``library.py``), taking the plan's
+arrays in place of the plan, which the public functions call.
 
 Flashmask semantics, as on the TPU: ``startend`` ``[B, 1 or H, Sk, 1 or
 2]`` gives each key column ``j`` the query rows ``[start_j, end_j)`` it is
@@ -84,6 +86,7 @@ import torch
 from ..._core.op_registry import register_op
 from . import flash_attention as fa
 from ._build import function
+from .library import define
 from .flash_attention import (NEG_INF, _check_cuda, _dispatch, _pad_head_dim,
                               _tma_inputs)
 
@@ -424,26 +427,63 @@ def varlen_bwd_dq(q, k, v, do, lse, delta, plan: VarlenPlan, scale: float):
 
 # --------------------------------------------------------------- public
 
-class _Varlen(torch.autograd.Function):
-    """The TPU package's ``_varlen`` custom VJP: the forward saves
-    ``(q, k, v, out, lse)`` and the plan; the backward launches dK/dV, then
-    dQ."""
+_VARLEN_PLAN = ("Tensor seg_q, Tensor pos_q, Tensor seg_k, Tensor pos_k, "
+                "Tensor qlo, Tensor qhi, Tensor klo, Tensor khi, bool causal, "
+                "float scale")
 
-    @staticmethod
-    def forward(ctx, q, k, v, plan: VarlenPlan, scale: float):
-        out, lse = varlen_fwd(q, k, v, plan, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.plan, ctx.scale = plan, scale
-        return out
 
-    @staticmethod
-    def backward(ctx, do):
+def _varlen_op(wrapper_name, n_in):
+    """A varlen entry taking the plan's arrays and causal flag in place of
+    a ``VarlenPlan``: the wrapper of that name, looked up at each call."""
+    def impl(*args):
+        *tensors, causal, scale = args
+        return globals()[wrapper_name](
+            *tensors[:n_in], VarlenPlan(*tensors[n_in:], causal), scale)
+    return impl
+
+
+def _save_packed(ctx, inputs, output):
+    """What the TPU package's ``_varlen`` and ``_fmask`` custom VJPs keep:
+    ``(q, k, v, out, lse)``, then the plan and the scale."""
+    ctx.save_for_backward(*inputs[:3], *output)
+    ctx.plan = inputs[3:]
+
+
+def _packed_backward(delta_of, dkv_op, dq_op):
+    def backward(ctx, do, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
         do = do.contiguous()
-        delta = varlen_delta(do, out)
-        dk, dv = varlen_bwd_dkv(q, k, v, do, lse, delta, ctx.plan, ctx.scale)
-        dq = varlen_bwd_dq(q, k, v, do, lse, delta, ctx.plan, ctx.scale)
-        return dq, dk, dv, None, None
+        delta = delta_of(do, out)
+        dk, dv = dkv_op(q, k, v, do, lse, delta, *ctx.plan)
+        dq = dq_op(q, k, v, do, lse, delta, *ctx.plan)
+        return (dq, dk, dv) + (None,) * len(ctx.plan)
+    return backward
+
+
+def _lse_packed(q):
+    return q.new_empty((q.shape[1], q.shape[0], 1), dtype=torch.float32)
+
+
+_BWD_IN = "Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, Tensor delta"
+varlen_bwd_dkv_op = define(
+    "varlen_bwd_dkv", f"({_BWD_IN}, {_VARLEN_PLAN}) -> (Tensor, Tensor)",
+    _varlen_op("varlen_bwd_dkv", 6),
+    lambda q, k, v, *_: (torch.empty_like(k), torch.empty_like(v)))
+varlen_bwd_dq_op = define(
+    "varlen_bwd_dq", f"({_BWD_IN}, {_VARLEN_PLAN}) -> Tensor",
+    _varlen_op("varlen_bwd_dq", 6),
+    lambda q, *_: torch.empty_like(q))
+varlen_fwd_op = define(
+    "varlen_fwd", f"(Tensor q, Tensor k, Tensor v, {_VARLEN_PLAN}) -> "
+    "(Tensor, Tensor)", _varlen_op("varlen_fwd", 3),
+    lambda q, *_: (torch.empty_like(q), _lse_packed(q)),
+    _packed_backward(varlen_delta, varlen_bwd_dkv_op, varlen_bwd_dq_op),
+    _save_packed)
+
+
+def _plan_args(plan: VarlenPlan):
+    return (plan.seg_q, plan.pos_q, plan.seg_k, plan.pos_k, plan.qlo,
+            plan.qhi, plan.klo, plan.khi, plan.causal)
 
 
 def flash_attn_varlen(query, key, value, cu_seqlens_q, cu_seqlens_k,
@@ -469,8 +509,10 @@ def flash_attn_varlen(query, key, value, cu_seqlens_q, cu_seqlens_k,
         scale = 1.0 / math.sqrt(query.shape[-1])
     plan = varlen_plan(cu_seqlens_q, cu_seqlens_k, query.shape[0],
                        key.shape[0], causal)
-    return _Varlen.apply(query.contiguous(), key.contiguous(),
-                         value.contiguous(), plan, float(scale))
+    out, _ = varlen_fwd_op(query.contiguous(), key.contiguous(),
+                           value.contiguous(), *_plan_args(plan),
+                           float(scale))
+    return out
 
 
 # ============================================================== flashmask
@@ -702,27 +744,36 @@ def flashmask_bwd_dq(q, k, v, do, lse, delta, plan: FlashmaskPlan,
     return _pad_head_dim(run, q, k, v, do)
 
 
-class _FlashMask(torch.autograd.Function):
-    """The TPU package's ``_fmask`` custom VJP: the forward saves
-    ``(q, k, v, out, lse)`` and the plan; the backward launches dK/dV, then
-    dQ."""
+_FM_PLAN = ("Tensor st, Tensor en, Tensor st_max, Tensor en_min, int heads, "
+            "int col_heads, bool causal, float scale")
 
-    @staticmethod
-    def forward(ctx, q, k, v, plan: FlashmaskPlan, scale: float):
-        out, lse = flashmask_fwd(q, k, v, plan, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.plan, ctx.scale = plan, scale
-        return out
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        do = do.contiguous()
-        delta = fa.attention_delta(do, out)
-        dk, dv = flashmask_bwd_dkv(q, k, v, do, lse, delta, ctx.plan,
-                                   ctx.scale)
-        dq = flashmask_bwd_dq(q, k, v, do, lse, delta, ctx.plan, ctx.scale)
-        return dq, dk, dv, None, None
+def _flashmask_op(wrapper_name, n_in):
+    """A flashmask entry taking the plan's arrays, heads and causal flag in
+    place of a ``FlashmaskPlan``: the wrapper of that name, looked up at
+    each call."""
+    def impl(*args):
+        *rest, scale = args
+        return globals()[wrapper_name](*rest[:n_in],
+                                       FlashmaskPlan(*rest[n_in:]), scale)
+    return impl
+
+
+flashmask_bwd_dkv_op = define(
+    "flashmask_bwd_dkv", f"({_BWD_IN}, {_FM_PLAN}) -> (Tensor, Tensor)",
+    _flashmask_op("flashmask_bwd_dkv", 6),
+    lambda q, k, v, *_: (torch.empty_like(k), torch.empty_like(v)))
+flashmask_bwd_dq_op = define(
+    "flashmask_bwd_dq", f"({_BWD_IN}, {_FM_PLAN}) -> Tensor",
+    _flashmask_op("flashmask_bwd_dq", 6),
+    lambda q, *_: torch.empty_like(q))
+flashmask_fwd_op = define(
+    "flashmask_fwd", f"(Tensor q, Tensor k, Tensor v, {_FM_PLAN}) -> "
+    "(Tensor, Tensor)", _flashmask_op("flashmask_fwd", 3),
+    lambda q, *_: (torch.empty_like(q), fa._lse_like(q)),
+    _packed_backward(fa.attention_delta, flashmask_bwd_dkv_op,
+                     flashmask_bwd_dq_op),
+    _save_packed)
 
 
 def flashmask_attention_kernel(query, key, value, startend,
@@ -747,7 +798,9 @@ def flashmask_attention_kernel(query, key, value, startend,
     plan = flashmask_plan(startend, h, causal)
     q, k, v = (x.transpose(1, 2).reshape(b * h, x.shape[1], d).contiguous()
                for x in (query, key, value))
-    out = _FlashMask.apply(q, k, v, plan, float(scale))
+    out, _ = flashmask_fwd_op(q, k, v, plan.st, plan.en, plan.st_max,
+                              plan.en_min, plan.heads, plan.col_heads,
+                              plan.causal, float(scale))
     return out.view(b, h, sq, d).transpose(1, 2)
 
 

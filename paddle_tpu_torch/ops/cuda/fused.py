@@ -20,8 +20,10 @@ Each wrapper dispatches on the device of its tensors: a CUDA tensor
 launches the kernel (or raises on a type, shape or layout the kernel does
 not take), a CPU tensor runs the plain PyTorch version beside it, which
 repeats the kernel's arithmetic. There is no fallback from one to the
-other. ``LAUNCHES`` counts kernel launches per wrapper; the plain versions
-do not count.
+other. The ops ``paddle_tpu_torch::rms_norm`` and ``::swiglu``
+(``library.py``) are the wrappers with their backward, and the public
+functions call them. ``LAUNCHES`` counts kernel launches per wrapper; the
+plain versions do not count.
 
 As in the reference, only the forward passes are kernels: the backward
 passes are the reference's closed forms (``_rms_bwd``, ``_swiglu_bwd``),
@@ -42,6 +44,7 @@ import torch
 
 from ..._core.op_registry import register_op
 from ._build import function
+from .library import define
 
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -204,41 +207,48 @@ def swiglu_fwd(x2: torch.Tensor, g2: torch.Tensor) -> torch.Tensor:
 
 # --------------------------------------------------------------- public
 
-class _RMSNorm(torch.autograd.Function):
-    """The reference's ``_rms`` custom VJP: the kernel forward saves
-    ``(x2, w)``; the backward is ``rms_norm_bwd``."""
-
-    @staticmethod
-    def forward(ctx, x2, w, eps: float):
-        ctx.save_for_backward(x2, w)
-        ctx.eps = eps
-        return rms_norm_fwd(x2, w, eps)
-
-    @staticmethod
-    def backward(ctx, dy):
-        x2, w = ctx.saved_tensors
-        dx, dw = rms_norm_bwd(x2, w, dy, ctx.eps)
-        return dx, dw, None
+def _save_rms(ctx, inputs, output):
+    """The reference's ``_rms`` custom VJP keeps ``(x2, w)``."""
+    ctx.save_for_backward(*inputs[:2])
+    ctx.eps = inputs[2]
 
 
-class _SwiGLU(torch.autograd.Function):
-    """The reference's ``_swiglu`` custom VJP. With ``g=None`` the input
-    ``x`` is ``[N, 2F]`` and its halves are x and g, read in place; the
-    gradient then comes back as one ``[N, 2F]`` tensor."""
+def _rms_backward(ctx, dy):
+    x2, w = ctx.saved_tensors
+    dx, dw = rms_norm_bwd(x2, w, dy, ctx.eps)
+    return dx, dw, None
 
-    @staticmethod
-    def forward(ctx, x, g: Optional[torch.Tensor]):
-        ctx.split = g is None
-        ctx.save_for_backward(x, g)
-        return swiglu_fwd(*_halves(x, g))
 
-    @staticmethod
-    def backward(ctx, dout):
-        x, g = ctx.saved_tensors
-        dx, dg = swiglu_bwd(*_halves(x, g), dout)
-        if ctx.split:
-            return torch.cat([dx, dg], -1), None
-        return dx, dg
+rms_norm_op = define(
+    "rms_norm", "(Tensor x2, Tensor w, float eps) -> Tensor",
+    lambda *args: rms_norm_fwd(*args),
+    lambda x2, w, eps: torch.empty_like(x2), _rms_backward, _save_rms)
+
+
+def _save_swiglu(ctx, inputs, output):
+    """The reference's ``_swiglu`` custom VJP keeps ``(x, g)``."""
+    ctx.save_for_backward(*inputs)
+
+
+def _swiglu_backward(ctx, dout):
+    """With ``g`` None, ``x`` is ``[N, 2F]`` and its halves are x and g:
+    the gradient then comes back as one ``[N, 2F]`` tensor."""
+    x, g = ctx.saved_tensors
+    dx, dg = swiglu_bwd(*_halves(x, g), dout)
+    if g is None:
+        return torch.cat([dx, dg], -1), None
+    return dx, dg
+
+
+def _swiglu_fake(x, g):
+    f = x.shape[1] if g is not None else x.shape[1] // 2
+    return x.new_empty((x.shape[0], f))
+
+
+swiglu_op = define(
+    "swiglu", "(Tensor x, Tensor? g) -> Tensor",
+    lambda x, g: swiglu_fwd(*_halves(x, g)), _swiglu_fake,
+    _swiglu_backward, _save_swiglu)
 
 
 def _halves(x, g):
@@ -254,8 +264,8 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     The reference's ``ops.pallas.rms_norm``."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1]).contiguous()
-    return _RMSNorm.apply(x2, weight.contiguous(),
-                          float(epsilon)).reshape(shape)
+    return rms_norm_op(x2, weight.contiguous(),
+                       float(epsilon)).reshape(shape)
 
 
 def swiglu(x: torch.Tensor, gate: Optional[torch.Tensor] = None
@@ -271,12 +281,12 @@ def swiglu(x: torch.Tensor, gate: Optional[torch.Tensor] = None
         x2 = x.reshape(-1, f2)
         if f2 > 1 and x2.stride(1) != 1:
             x2 = x2.contiguous()
-        return _SwiGLU.apply(x2, None).reshape(*x.shape[:-1], f2 // 2)
+        return swiglu_op(x2, None).reshape(*x.shape[:-1], f2 // 2)
     if gate.shape != x.shape:
         raise ValueError(f"swiglu: x {tuple(x.shape)} and gate "
                          f"{tuple(gate.shape)} differ in shape")
     f = x.shape[-1]
-    return _SwiGLU.apply(x.reshape(-1, f), gate.reshape(-1, f)
+    return swiglu_op(x.reshape(-1, f), gate.reshape(-1, f)
                          ).reshape(x.shape)
 
 

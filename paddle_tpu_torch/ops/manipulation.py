@@ -21,12 +21,18 @@ from .._core.tensor import Tensor
 from ._helper import tensor_method
 
 
+def _int(s):
+    """An int, or a symbolic size as it is (a traced program with a
+    dynamic dim keeps the dim symbolic)."""
+    return s if isinstance(s, torch.SymInt) else int(s)
+
+
 def _ints(shape):
     if isinstance(shape, Tensor):
         shape = shape.tolist()
-    if isinstance(shape, numbers.Integral):
-        return (int(shape),)
-    return tuple(int(s) for s in shape)
+    if isinstance(shape, (numbers.Integral, torch.SymInt)):
+        return (_int(shape),)
+    return tuple(_int(s) for s in shape)
 
 
 def _ndim(x):
@@ -56,7 +62,12 @@ def _cast(x, dtype):
 
 @tensor_method("cast")
 def cast(x, dtype):
-    return apply("cast", _cast, x, dtype=dtypes.to_dtype(dtype).name)
+    """``x`` in ``dtype``; ``x`` itself where it has that type already, as
+    in the reference (no op runs, and none is recorded)."""
+    d = dtypes.to_dtype(dtype)
+    if getattr(x, "_t", x).dtype == d.torch_dtype:
+        return x
+    return apply("cast", _cast, x, dtype=d.name)
 
 
 astype = tensor_method("astype")(cast)

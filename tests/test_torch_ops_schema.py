@@ -39,12 +39,12 @@ LATER = dict(
         "signal_overlap_add signal_stft signal_stft_nowin signal_istft "
         "signal_istft_nowin").split()])
 
-_FRAMEWORK = "ROADMAP §1 items 6-8: framework names that are not ops"
+_FRAMEWORK = ("ROADMAP §1 items 8 and 10: framework names that are not ops "
+              "(hapi's Model, summary and flops; DataParallel; the extra "
+              "places)")
 LATER_NAMES = {
     # top-level callables
-    "enable_static": _FRAMEWORK, "disable_static": _FRAMEWORK,
-    "set_flags": _FRAMEWORK, "get_flags": _FRAMEWORK, "save": _FRAMEWORK,
-    "load": _FRAMEWORK, "Model": _FRAMEWORK, "summary": _FRAMEWORK,
+    "Model": _FRAMEWORK, "summary": _FRAMEWORK,
     "flops": _FRAMEWORK, "DataParallel": _FRAMEWORK,
     "TPUPlace": _FRAMEWORK, "CustomPlace": _FRAMEWORK,
 }

@@ -2,7 +2,8 @@
 
 - ``paddle_tpu_torch/`` (``entry.py`` and ``testing/dist.py`` among
   it), ``chip_smoke.py``, ``chip_fwd_wide.py``, ``chip_profiler_probe.py``,
-  ``chip_nccl_probe.py`` and ``chip_bert_turns.py`` import neither JAX
+  ``chip_nccl_probe.py``, ``chip_bert_turns.py`` and
+  ``chip_compile_witness.py`` import neither JAX
   nor the JAX package (``paddle_tpu``), not even a module of it that does not import JAX:
   the port keeps its own copy of what it needs.
 - The port's entry points run on the card unless the caller asks for the
@@ -27,7 +28,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "chip_fwd_wide.py",
     ROOT / "chip_profiler_probe.py", ROOT / "chip_nccl_probe.py",
-    ROOT / "chip_bert_turns.py"]
+    ROOT / "chip_bert_turns.py", ROOT / "chip_compile_witness.py"]
 
 
 def _imported_modules(path: Path):
@@ -70,7 +71,7 @@ def test_import_rule_covers_the_entry_points_and_the_rank_harness():
     among the files the rule walks."""
     for rel in ("paddle_tpu_torch/entry.py",
                 "paddle_tpu_torch/testing/dist.py", "chip_nccl_probe.py",
-                "chip_bert_turns.py"):
+                "chip_bert_turns.py", "chip_compile_witness.py"):
         assert ROOT / rel in PORT_FILES, rel
 
 
