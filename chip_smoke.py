@@ -224,10 +224,11 @@ toolkit (``nvcc``). Phases, each printed as it runs:
 19. (run before 16) the compile path, under a watchdog of 720 s, with
    inductor's cache in a fresh directory removed after: (e)
    ``torch.library.opcheck`` of the 11 kernel ops on CUDA inputs; (a)
-   phase 10's eager gpt2-medium through ``paddle.jit.to_static``
+   phase 10's eager gpt2-medium with its depth cut to 12 layers
+   (``COMPILED_GPT_LAYERS``) through ``paddle.jit.to_static``
    (inductor): the first step's seconds, step 1's gradients leaf by leaf
-   and three losses against the eager model's from the same seed, 24 /
-   24 / 24 launches of #1 / #2 / #3 a step, one trace and one forward
+   and three losses against the eager model's from the same seed, 12 /
+   12 / 12 launches of #1 / #2 / #3 a step, one trace and one forward
    and one backward graph, no library attention in a profiled step,
    ms/step, tokens/s and idle share beside the eager step in turns, peak
    memory; (b) ResNet-50 ``@to_static`` (O1, ``Momentum(0.1)``, b64
@@ -239,6 +240,25 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    GPT at gpt2-medium's width (b2, b3; #1 inside the loaded program)
    against the eager layers; (d) a ``static.nn.fc`` MLP through
    ``Executor`` with the default passes;
+20. (run before 16) the steady-state runtime, under a watchdog of 300 s:
+   (a) phase 10's eager gpt2-medium step (b8 s1024, O1 bf16, AdamW) under
+   the ambient lazy window (``framework.enable_eager_fusion(True)``, the
+   segment cap raised to ``RT_CAP`` so the step is one segment) and with
+   it off, each on its own model from seed 0: three losses and step 1's
+   gradients leaf by leaf, on against off (bit-equal), a steady step's
+   executions under the window (the fused forward and backward and the
+   update: at most 2, plus the loss read), its segments and breaks, 24 /
+   24 / 24 launches of #1 / #2 / #3, the runner caches flat over 5 steady
+   steps, the kernels a profiled step launches both ways (equal), and
+   ms/step of each in turns (on, off, off, on), tokens/s, idle share and
+   peak memory; (b) phase 14's Transformer-base and PTB LSTM under the
+   window and off in turns: executions and segments a step, ms/step,
+   idle share; (c) ``jit.to_static(full_graph=False)`` (SOT) of a 2-layer
+   GPT at gpt2-medium's width (bf16, b2 s1024, no grad): a loss function
+   that captures clean (its fast path compiled by inductor with #1
+   inside the graph: the capture's and the compile's seconds, the fast
+   path's ms, launches) and one with a ``print`` inside (two segments),
+   each against eager;
 16. prints the head_dim 256 and 512 and fp16 (64, 256 and 512) timings,
    the ``kernels`` JSON line, the card line, and last ``{"ok": true, "device": {...}}``.
 
@@ -3700,15 +3720,9 @@ def _train_steps(label, step, n_tokens, flops_step, smi,
     return losses, med, prof
 
 
-def transformer_base(smi):
-    """``nn.Transformer()`` at its defaults (d_model 512, 8 heads, 6 + 6
-    layers, FFN 2048, dropout 0.1, relu, post-norm) in ``seq2seq``, vocab
-    37000, batch 32 x 128 + 128 tokens, the causal target mask from
-    ``generate_square_subsequent_mask``; fp32 parameters, bf16 O1,
-    ``cross_entropy(label_smoothing=0.1)``, AdamW (0.9 / 0.98, eps 1e-9,
-    fixed lr) on one fixed batch. Checks finite losses that fall, and that
-    O1 ran every dense SDPA (18 a forward) in bf16."""
-    import paddle_tpu_torch as paddle
+def _tb_build(paddle):
+    """Transformer-base of ``transformer_base`` on the card from seed 0:
+    the model, its training step and its batch (src, tgt, mask)."""
     from torch.profiler import record_function
     F = paddle.nn.functional
     paddle.set_device("gpu")
@@ -3719,6 +3733,30 @@ def transformer_base(smi):
                                  parameters=model.parameters())
     src, tgt, lbl, mask = _seq2seq_batch(paddle, TB_VOCAB, TB_BATCH, TB_SEQ,
                                          0)
+
+    def step():
+        with record_function("forward"):
+            with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+                logits = model(src, tgt, mask)
+            loss = F.cross_entropy(logits, lbl, label_smoothing=0.1)
+        loss.backward()
+        with record_function("optimizer"):
+            opt.step()
+            opt.clear_grad()
+        return loss
+    return model, step, (src, tgt, mask)
+
+
+def transformer_base(smi):
+    """``nn.Transformer()`` at its defaults (d_model 512, 8 heads, 6 + 6
+    layers, FFN 2048, dropout 0.1, relu, post-norm) in ``seq2seq``, vocab
+    37000, batch 32 x 128 + 128 tokens, the causal target mask from
+    ``generate_square_subsequent_mask``; fp32 parameters, bf16 O1,
+    ``cross_entropy(label_smoothing=0.1)``, AdamW (0.9 / 0.98, eps 1e-9,
+    fixed lr) on one fixed batch. Checks finite losses that fall, and that
+    O1 ran every dense SDPA (18 a forward) in bf16."""
+    import paddle_tpu_torch as paddle
+    model, step, (src, tgt, mask) = _tb_build(paddle)
     n_params = sum(p.size for p in model.parameters())
     model.eval()
     macs = _linear_macs(paddle, model, src, tgt, mask)
@@ -3733,18 +3771,6 @@ def transformer_base(smi):
           f"{2 * macs:.4e} FLOP in Linear layers + {attn_flops:.4e} in "
           f"attention; training {flops_step:.4e} FLOP a step (3 x "
           f"forward)")
-
-    def step():
-        with record_function("forward"):
-            with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
-                logits = model(src, tgt, mask)
-            loss = F.cross_entropy(logits, lbl, label_smoothing=0.1)
-        loss.backward()
-        with record_function("optimizer"):
-            opt.step()
-            opt.clear_grad()
-        return loss
-
     counts = {}
     undo = _count_sdpa(counts)
     try:
@@ -3772,6 +3798,34 @@ def ptb_lstm(smi):
     the states carried from step to step (detached). The time loop is
     the reference's: 35 cell calls a layer, each a few kernels."""
     import paddle_tpu_torch as paddle
+    model, step, (ids, state) = _ptb_build(paddle)
+    n_params = sum(p.size for p in model.parameters())
+    model.eval()
+    macs = _linear_macs(paddle, model, ids, state[0])
+    model.train()
+    # the cells' products are matmuls, not Linear layers: 4H x (in + H)
+    # a token and layer
+    macs += PTB_BATCH * PTB_STEPS * PTB_LAYERS * 4 * PTB_HIDDEN * 2 \
+        * PTB_HIDDEN
+    flops_step = 3 * 2 * macs
+    print(f"ptb large LSTM ({n_params} parameters): training "
+          f"{flops_step:.4e} FLOP a step (3 x 2 x MACs)")
+    losses, med, prof = _train_steps(
+        f"ptb large LSTM b{PTB_BATCH} x {PTB_STEPS} fp32 SGD", step,
+        PTB_BATCH * PTB_STEPS, flops_step, smi, PEAK_FP32_FLOPS)
+    check(min(losses[1:]) < losses[0],
+          f"ptb LSTM loss never fell below the first step's: {losses}")
+    if prof is not None:
+        print(f"ptb large LSTM: the host holds the card idle "
+              f"{prof['idle']:.3f} of each step: "
+              f"{PTB_LAYERS * PTB_STEPS} cell calls a forward, each a few "
+              f"small kernels launched from Python")
+    return med, prof
+
+
+def _ptb_build(paddle):
+    """The PTB LSTM of ``ptb_lstm`` on the card from seed 0: the model, its
+    training step and (ids, the carried state's one-element list)."""
     from torch.profiler import record_function
     nn = paddle.nn
     F = nn.functional
@@ -3803,17 +3857,6 @@ def ptb_lstm(smi):
         PTB_BATCH, PTB_STEPS)).astype("int64"))
     zeros = paddle.zeros([PTB_LAYERS, PTB_BATCH, PTB_HIDDEN])
     state = [(zeros, zeros)]
-    n_params = sum(p.size for p in model.parameters())
-    model.eval()
-    macs = _linear_macs(paddle, model, ids, state[0])
-    model.train()
-    # the cells' products are matmuls, not Linear layers: 4H x (in + H)
-    # a token and layer
-    macs += PTB_BATCH * PTB_STEPS * PTB_LAYERS * 4 * PTB_HIDDEN * 2 \
-        * PTB_HIDDEN
-    flops_step = 3 * 2 * macs
-    print(f"ptb large LSTM ({n_params} parameters): training "
-          f"{flops_step:.4e} FLOP a step (3 x 2 x MACs)")
 
     def step():
         with record_function("forward"):
@@ -3825,18 +3868,7 @@ def ptb_lstm(smi):
             opt.clear_grad()
         state[0] = (h.detach(), c.detach())
         return loss
-
-    losses, med, prof = _train_steps(
-        f"ptb large LSTM b{PTB_BATCH} x {PTB_STEPS} fp32 SGD", step,
-        PTB_BATCH * PTB_STEPS, flops_step, smi, PEAK_FP32_FLOPS)
-    check(min(losses[1:]) < losses[0],
-          f"ptb LSTM loss never fell below the first step's: {losses}")
-    if prof is not None:
-        print(f"ptb large LSTM: the host holds the card idle "
-              f"{prof['idle']:.3f} of each step: "
-              f"{PTB_LAYERS * PTB_STEPS} cell calls a forward, each a few "
-              f"small kernels launched from Python")
-    return med, prof
+    return model, step, (ids, state)
 
 
 def nn_layers_path(smi):
@@ -5193,9 +5225,11 @@ def _in_turns(step, n=3):
     return ms
 
 
-def compiled_gpt(smi, cfg_name="gpt2-medium", batch=BATCH, seq=SEQ):
+def compiled_gpt(smi, cfg_name="gpt2-medium", batch=BATCH, seq=SEQ,
+                 layers=None):
     """(a) phase 10's eager gpt2-medium (fp32 parameters, O1 bf16, AdamW
-    1e-4, seed 0) through ``paddle.jit.to_static`` (inductor): the first
+    1e-4, seed 0; its depth cut to ``layers`` where given) through
+    ``paddle.jit.to_static`` (inductor): the first
     step's seconds (trace + inductor's cold compile of the forward and
     backward graphs, with its cache in a fresh directory), step 1's
     gradients leaf by leaf and three losses against the eager model's
@@ -5208,6 +5242,9 @@ def compiled_gpt(smi, cfg_name="gpt2-medium", batch=BATCH, seq=SEQ):
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     cfg = gpt.GPT_CONFIGS[cfg_name] if isinstance(cfg_name, str) \
         else cfg_name
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+        cfg_name = f"{cfg_name} at {layers} layers"
     rng = np.random.RandomState(0)
     x = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (batch, seq)))
     y = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (batch, seq)))
@@ -5645,7 +5682,8 @@ def compile_path(smi):
     times = {}
     try:
         for label, run in (("(e) opcheck", op_checks),
-                           ("(a) compiled gpt", compiled_gpt),
+                           ("(a) compiled gpt", lambda smi: compiled_gpt(
+                               smi, layers=COMPILED_GPT_LAYERS)),
                            ("(b) compiled resnet", compiled_resnet),
                            ("(c) saved programs", saved_programs),
                            ("(d) static program", static_program)):
@@ -5662,6 +5700,415 @@ def compile_path(smi):
                 os.environ[k] = v
         shutil.rmtree(cache, ignore_errors=True)
     print("phase 19 seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in times.items()) + f" on {smi}")
+
+
+# ------------------------------------------------------------ phase 20
+
+# phase 19 (a)'s depth: inductor's cold compile of the 24-layer step took
+# 108-259 s, and phase 20 came after it in the same 1200 s
+COMPILED_GPT_LAYERS = 12
+
+# phase 20 (a): the segment cap for the run. A gpt2-medium step records
+# ~340 ops (14 a layer); the default cap (256, the reference's) would seal
+# the forward twice, so the root's segment would take inputs from the
+# first one and backward would leave the fused path
+RT_CAP = 1024
+RT_TURN_STEPS = 3       # timed steps a turn (after one warm-up a mode)
+RT_SOT_LAYERS, RT_SOT_BATCH = 2, 2
+
+
+def _rt_counts():
+    """(executions, the thread's ambient context) now."""
+    from paddle_tpu_torch._core import dispatch, lazy
+    return dispatch.exec_count(), lazy.current_context()
+
+
+def _rt_profile(step):
+    """One step under ``torch.profiler``: (device busy ms, kernels
+    launched, wall ms); None if the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    cuda_type = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.key_averages() if e.device_type == cuda_type
+               and e.key not in PHASES]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy <= 0:
+        return None
+    return busy, sum(e.count for e in kernels), wall
+
+
+def _rt_turns(label, steps, smi, turn_steps=RT_TURN_STEPS):
+    """Times ``steps`` ({"on": step, "off": step}, fusion switched by the
+    caller's step) in turns on, off, off, on, each turn ``turn_steps``
+    synchronized steps after a warm-up of each mode; prints each turn's
+    median and returns {mode: median of all its steps}."""
+    from paddle_tpu_torch.framework import enable_eager_fusion
+    for mode in ("on", "off"):
+        enable_eager_fusion(mode == "on")
+        steps[mode]()
+        torch.cuda.synchronize()
+    times = {"on": [], "off": []}
+    for mode in ("on", "off", "off", "on"):
+        enable_eager_fusion(mode == "on")
+        turn = []
+        for _ in range(turn_steps):
+            t0 = time.perf_counter()
+            float(steps[mode]())
+            torch.cuda.synchronize()
+            turn.append((time.perf_counter() - t0) * 1e3)
+        times[mode] += turn
+        print(f"{label} turn fusion {mode}: {[round(v, 2) for v in turn]} "
+              f"ms")
+    enable_eager_fusion(False)
+    med = {m: float(np.median(v)) for m, v in times.items()}
+    print(f"{label}: fusion on {med['on']:.2f} ms/step, off "
+          f"{med['off']:.2f} ms/step ({med['on'] / med['off']:.3f}x) in "
+          f"turns on {smi}")
+    return med
+
+
+def _rt_gpt_pair(paddle, gpt, cfg):
+    """Two eager gpt2-medium models from seed 0 with their AdamW (lr 1e-4)
+    and phase 10's fixed batch: one for each mode, so each trains only
+    under its own."""
+    pair = []
+    for _ in range(2):
+        paddle.seed(0)
+        model = gpt.GPTForPretraining(cfg)
+        pair.append((model, paddle.optimizer.AdamW(
+            1e-4, parameters=model.parameters())))
+    rng = np.random.RandomState(0)
+    x = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (BATCH, SEQ)))
+    y = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (BATCH, SEQ)))
+    return pair, x, y
+
+
+def runtime_gpt(smi):
+    """Phase 20 (a): phase 10's eager gpt2-medium bf16 O1 step under the
+    ambient window (``enable_eager_fusion(True)``) and with it off, each
+    mode on its own copy of the model from seed 0: three losses and step
+    1's gradients leaf by leaf, on against off (bit-equal: the same ops run
+    in the same order); then a steady step's executions (the fused forward
+    and backward, the update: at most 2, plus the loss read), segments,
+    breaks and #1/#2/#3 launches (24 each) under the window; the runner
+    caches flat over 5 steady steps; kernel launches a profiled step both
+    ways (equal); ms/step in turns, tokens/s, idle share and peak memory
+    of each mode."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch._core import lazy
+    from paddle_tpu_torch.framework import enable_eager_fusion
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    cfg = gpt.GPT_CONFIGS["gpt2-medium"]
+    paddle.set_device("gpu")
+    crit = gpt.GPTPretrainingCriterion()
+    pair, x, y = _rt_gpt_pair(paddle, gpt, cfg)
+    (m_on, o_on), (m_off, o_off) = pair
+    del pair
+
+    def run(model, opt, grads=None):
+        with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = crit(model(x), y)
+        loss.backward()
+        if grads is not None:
+            grads.extend(p._t.grad.detach().clone()
+                         for p in model.parameters())
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    def step(mode, grads=None):
+        enable_eager_fusion(mode == "on")
+        return run(*((m_on, o_on) if mode == "on" else (m_off, o_off)),
+                   grads)
+
+    old_cap = paddle.get_flags("FLAGS_lazy_max_segment_ops")
+    paddle.set_flags({"FLAGS_lazy_max_segment_ops": RT_CAP})
+    try:
+        losses = {"on": [], "off": []}
+        grads = {"on": [], "off": []}
+        for i in range(3):
+            for mode in ("on", "off"):
+                loss = step(mode, grads[mode] if i == 0 else None)
+                losses[mode].append(float(loss))
+        enable_eager_fusion(False)
+        names = [n for n, _ in m_on.named_parameters()]
+        diffs = [(float((a.float() - b.float()).abs().max()), n)
+                 for n, a, b in zip(names, grads["on"], grads["off"])]
+        equal = all(torch.equal(a, b)
+                    for a, b in zip(grads["on"], grads["off"]))
+        worst = max(diffs)
+        print(f"runtime gpt: losses fusion on {losses['on']}, off "
+              f"{losses['off']}; step 1's gradients bit-equal over "
+              f"{len(names)} leaves: {equal} (worst |on - off| "
+              f"{worst[0]:.3g} at {worst[1]})")
+        check(losses["on"] == losses["off"],
+              f"fusion-on losses {losses['on']} != off {losses['off']}")
+        check(equal, f"fusion-on gradients differ from off: worst "
+              f"{worst}")
+        del grads
+
+        # a steady step's counts under the window
+        enable_eager_fusion(True)
+        ctx = lazy.current_context()
+        caches0 = (len(lazy._SEG_CACHE), len(lazy._FUSED_CACHE),
+                   len(lazy._AVAL_CACHE))
+        fa.reset_launches()
+        n0, _ = _rt_counts()
+        s0, b0, r0 = ctx.segments_run, len(ctx.breaks), ctx.ops_recorded
+        float(run(m_on, o_on))
+        n1, _ = _rt_counts()
+        launches = dict(fa.LAUNCHES)
+        execs, segs = n1 - n0, ctx.segments_run - s0
+        print(f"runtime gpt: a steady step under the window: {execs} "
+              f"executions (segments {segs}: {ctx.breaks[b0:]}, the update "
+              f"1, the loss read {'0' if execs <= 2 else 'the rest'}), "
+              f"{ctx.ops_recorded - r0} ops recorded, launches {launches}")
+        check(execs <= 3, f"{execs} executions a steady step (want <= 2 "
+              f"plus the loss read)")
+        check(ctx.breaks[b0:] == ["backward_fused"],
+              f"breaks of a steady step {ctx.breaks[b0:]}")
+        for name in fa.LAUNCHES:
+            check(launches[name] == cfg.num_layers,
+                  f"{name} launched {launches[name]} times a windowed "
+                  f"step, want {cfg.num_layers}")
+        for _ in range(5):
+            float(run(m_on, o_on))
+        caches1 = (len(lazy._SEG_CACHE), len(lazy._FUSED_CACHE),
+                   len(lazy._AVAL_CACHE))
+        print(f"runtime gpt: runner caches (segment, fused step, "
+              f"metadata) {caches0} before 5 steady steps, {caches1} "
+              f"after; fast-path ops {lazy.FAST_OPS}, step plans "
+              f"{lazy.REPLAY_STEPS}")
+        check(caches1 == caches0, f"caches grew {caches0} -> {caches1}")
+
+        # kernel launches of a profiled step, both ways; the better of two
+        # reads each (a trace can lose early records)
+        counts, prof = {}, {}
+        for mode in ("on", "off", "on", "off"):
+            got = _rt_profile(lambda: float(step(mode)))
+            if got is not None and got[1] >= counts.get(mode, 0):
+                counts[mode], prof[mode] = got[1], got
+        enable_eager_fusion(False)
+        print(f"runtime gpt: kernels launched in a profiled step: fusion "
+              f"on {counts.get('on')}, off {counts.get('off')}")
+        if counts:
+            check(counts.get("on") == counts.get("off"),
+                  f"kernel launches a step differ: {counts}")
+
+        med = _rt_turns("runtime gpt2-medium b8 s1024 bf16 O1 AdamW",
+                        {"on": lambda: run(m_on, o_on),
+                         "off": lambda: run(m_off, o_off)}, smi)
+        peak = {}
+        for mode in ("on", "off"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            float(step(mode))
+            torch.cuda.synchronize()
+            peak[mode] = torch.cuda.max_memory_allocated()
+        enable_eager_fusion(False)
+        for mode in ("on", "off"):
+            busy = prof[mode][0] if mode in prof else float("nan")
+            print(f"runtime gpt fusion {mode}: {med[mode]:.2f} ms/step, "
+                  f"{BATCH * SEQ / (med[mode] / 1e3):.1f} tokens/s, device "
+                  f"busy {busy:.1f} ms, idle share "
+                  f"{max(0.0, 1 - busy / med[mode]):.3f}, peak memory "
+                  f"{peak[mode] / 2**30:.2f} GiB on {smi}")
+        check(all(math.isfinite(v) for v in losses["on"]), "losses")
+
+        # phase 10's fp16 step with a GradScaler under the window: its
+        # unscale_ reads one value a parameter to the host (292 reads)
+        scaler = paddle.amp.GradScaler()
+        enable_eager_fusion(True)
+        n0, ctx = _rt_counts()
+        s0, b0 = ctx.segments_run, len(ctx.breaks)
+        with paddle.amp.auto_cast(level="O1", dtype="float16"):
+            loss = crit(m_on(x), y)
+        scaler.scale(loss).backward()
+        scaler.step(o_on)
+        scaler.update()
+        o_on.clear_grad()
+        fp16_loss = float(loss)
+        n1, _ = _rt_counts()
+        enable_eager_fusion(False)
+        print(f"runtime gpt fp16 O1 with a GradScaler under the window: "
+              f"loss {fp16_loss:.5f}, {n1 - n0} executions, "
+              f"{ctx.segments_run - s0} segments ({ctx.breaks[b0:]}); "
+              f"unscale_ reads its {len(names)} gradients to the host "
+              f"outside any segment")
+        check(math.isfinite(fp16_loss) and n1 - n0 <= 3,
+              f"fp16 windowed step: loss {fp16_loss}, {n1 - n0} executions")
+    finally:
+        enable_eager_fusion(False)
+        paddle.set_flags({"FLAGS_lazy_max_segment_ops": old_cap[
+            "FLAGS_lazy_max_segment_ops"]})
+    return med
+
+
+def runtime_host_bound(smi):
+    """Phase 20 (b): phase 14's Transformer-base and PTB LSTM under the
+    window and off, in turns (one model each, trained by both modes):
+    ms/step, idle share of a profiled step, and the window's executions
+    and segments a step (the recording cost the CUDA-graph PR must
+    recover)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import enable_eager_fusion
+    out = {}
+    for label, build in (("transformer-base", _tb_build),
+                         ("ptb large LSTM", _ptb_build)):
+        torch.cuda.empty_cache()
+        _, step, _ = build(paddle)
+        enable_eager_fusion(True)
+        float(step())
+        n0, ctx = _rt_counts()
+        s0 = ctx.segments_run
+        float(step())
+        n1, _ = _rt_counts()
+        reasons = {}
+        for r in ctx.breaks[-(ctx.segments_run - s0):] \
+                if ctx.segments_run > s0 else []:
+            reasons[r] = reasons.get(r, 0) + 1
+        print(f"{label} under the window: {n1 - n0} executions a step, "
+              f"{ctx.segments_run - s0} segments ({reasons})")
+        med = _rt_turns(label, {"on": step, "off": step}, smi,
+                        turn_steps=2)
+        for mode in ("on", "off"):
+            enable_eager_fusion(mode == "on")
+            got = _rt_profile(lambda: float(step()))
+            if got is not None:
+                print(f"{label} fusion {mode}: device busy {got[0]:.1f} ms "
+                      f"of {med[mode]:.2f} ms/step, idle share "
+                      f"{max(0.0, 1 - got[0] / med[mode]):.3f}, "
+                      f"{got[1]} kernels")
+        enable_eager_fusion(False)
+        out[label] = med
+    return out
+
+
+def runtime_sot(smi):
+    """Phase 20 (c): ``to_static(full_graph=False)`` (SOT) of a 2-layer GPT
+    at gpt2-medium's width, bf16 parameters, b2 s1024, no grad: a loss
+    function that captures clean (its second call takes the guarded fast
+    path, the segment compiled by inductor with #1 inside the graph) and
+    one with a ``print`` of a value inside (two segments, no fast path),
+    each against the eager function."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit.sot import sot_stats
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    cfg = dataclasses.replace(gpt.GPT_CONFIGS["gpt2-medium"],
+                              num_layers=RT_SOT_LAYERS)
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    model = gpt.GPTForPretraining(cfg)
+    model.astype("bfloat16")
+    model.eval()
+    crit = gpt.GPTPretrainingCriterion()
+    rng = np.random.RandomState(2)
+    x = paddle.to_tensor(rng.randint(0, cfg.vocab_size,
+                                     (RT_SOT_BATCH, SEQ)))
+    y = paddle.to_tensor(rng.randint(0, cfg.vocab_size,
+                                     (RT_SOT_BATCH, SEQ)))
+    # the positions come in as an argument: a tensor the function made
+    # itself from host values would be a constant the fast path cannot
+    # re-fetch, and the capture would install no entry
+    pos = paddle.arange(SEQ, dtype="int64")
+
+    def clean(m, a, p, b):
+        return crit(m(a, p), b)
+
+    def broken(m, a, p, b):
+        logits = m(a, p)
+        print(f"runtime sot: mean logit inside the function "
+              f"{float(logits.astype('float32').mean()):.6f}")
+        return crit(logits, b)
+
+    with paddle.no_grad():
+        want = float(clean(model, x, pos, y))
+        sfn = paddle.jit.to_static(clean, full_graph=False)
+        t0 = time.perf_counter()
+        first = float(sfn(model, x, pos, y))
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        compiled = float(sfn(model, x, pos, y))
+        compile_s = time.perf_counter() - t0
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        fast = float(sfn(model, x, pos, y))
+        torch.cuda.synchronize()
+        fast_s = time.perf_counter() - t0
+        launched = fa.LAUNCHES["flash_fwd"]
+        st = sot_stats(sfn)
+        entry = sfn._entries[0] if sfn._entries else None
+        graphs = entry.segment.graphs if entry is not None else []
+        in_graph = sum(
+            1 for _, gm in graphs for node in gm.graph.nodes
+            if "flash_fwd" in str(node.target))
+        print(f"runtime sot clean: eager loss {want:.6f}, first call "
+              f"{first:.6f} ({first_s:.2f} s: the bytecode capture), "
+              f"second {compiled:.6f} ({compile_s:.1f} s: the fast path's "
+              f"trace and inductor's compile), third {fast:.6f} "
+              f"({fast_s * 1e3:.1f} ms); stats {st}; #1 nodes in the "
+              f"compiled graphs {in_graph}, #1 launched by the third call "
+              f"{launched}")
+        check(st["captures"] == 1 and st["fast_hits"] == 2,
+              f"sot clean capture stats {st}")
+        check(in_graph >= RT_SOT_LAYERS and launched == RT_SOT_LAYERS,
+              f"#1 not inside the compiled graph: {in_graph} nodes, "
+              f"{launched} launches")
+        for got in (first, compiled, fast):
+            check(abs(got - want) <= 1e-2 * abs(want),
+                  f"sot clean loss {got} against eager {want}")
+        bfn = paddle.jit.to_static(broken, full_graph=False)
+        got = float(bfn(model, x, pos, y))
+        want_b = float(broken(model, x, pos, y))
+        st = sot_stats(bfn)
+        print(f"runtime sot with a print: loss {got:.6f} against eager "
+              f"{want_b:.6f}; breaks {st['breaks']} on {smi}")
+        check(any(len(b) >= 2 for b in st["breaks"]),
+              f"the print did not break the capture: {st['breaks']}")
+        check(abs(got - want_b) <= 1e-2 * abs(want_b),
+              f"sot broken loss {got} against eager {want_b}")
+    return first_s + compile_s
+
+
+def steady_state_path(smi):
+    """Phase 20: the steady-state runtime on the card: (a) the eager
+    gpt2-medium step under the window against off, (b) the host-bound
+    models of phase 14 both ways, (c) SOT's ``to_static(full_graph=
+    False)``. Inductor's cache for (c) goes to a fresh directory."""
+    import tempfile
+    phase("20 the steady-state runtime")
+    cache = tempfile.mkdtemp(prefix="inductor_")
+    saved = {k: os.environ.get(k) for k in ("TORCHINDUCTOR_CACHE_DIR",
+                                            "TRITON_CACHE_DIR")}
+    os.environ["TORCHINDUCTOR_CACHE_DIR"] = cache
+    os.environ["TRITON_CACHE_DIR"] = os.path.join(cache, "triton")
+    times = {}
+    try:
+        for label, run in (("(a) runtime gpt", runtime_gpt),
+                           ("(b) host-bound models", runtime_host_bound),
+                           ("(c) sot", runtime_sot)):
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            print(f"-- 20 {label}", flush=True)
+            run(smi)
+            times[label] = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(cache, ignore_errors=True)
+    print("phase 20 seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in times.items()) + f" on {smi}")
 
 
@@ -5725,6 +6172,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with watchdog("phase 19 (the compile path)", 720):
         compile_path(smi)
+    torch.cuda.empty_cache()
+    with watchdog("phase 20 (the steady-state runtime)", 300):
+        steady_state_path(smi)
     phase("16 results")
     for label, (d_ms, d_plain, d_lib, d_bnd) in (
             ("head_dim 256", d256), ("head_dim 512", d512),

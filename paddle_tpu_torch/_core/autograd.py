@@ -4,7 +4,8 @@ torch's autograd.
 
 The engine is torch's: a ``Tensor``'s payload carries its graph, and
 ``.grad`` of a leaf accumulates across ``backward`` calls until
-``clear_grad``, as the reference's does.
+``clear_grad``, as the reference's does. ``backward`` tries the lazy
+window's fused forward+backward first (``lazy.try_fused_backward``).
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from . import lazy
 from .dispatch import unwrap, wrap
 
 
@@ -47,8 +49,16 @@ def _seeds(tensors, grad_tensors):
 
 def backward(tensors, grad_tensors=None, retain_graph: bool = False) -> None:
     """``paddle.autograd.backward``: gradients of ``tensors`` into the
-    ``.grad`` of the leaves they depend on."""
-    roots, grads = _seeds(_as_list(tensors), grad_tensors)
+    ``.grad`` of the leaves they depend on. A scalar root still pending in
+    the lazy window takes the fused path first (``lazy.try_fused_backward``:
+    the segment's forward and this backward as one runner call), as the
+    reference's engine does."""
+    tensors = _as_list(tensors)
+    if not retain_graph and lazy.try_fused_backward(
+            tensors, None if grad_tensors is None
+            else _as_list(grad_tensors)):
+        return
+    roots, grads = _seeds(tensors, grad_tensors)
     torch.autograd.backward(roots, grads, retain_graph=retain_graph)
 
 

@@ -9,6 +9,19 @@ torch's: the payloads carry it. Inputs that are ``torch.Tensor``s already
 pass through, and a call that got no ``Tensor`` returns torch tensors, so
 the functional trainers (``models/gpt.py``, ``models/llama.py``) call the
 same functionals at no cost.
+
+The hooks run in the reference's order: ``STATIC_HOOK`` first (the op goes
+into the current static Program), then the lazy window (``_core/lazy.py``:
+while a capture context is active on this thread and the call has eager
+``Tensor`` inputs, the op is recorded, not run), then ``AMP_HOOK``. Calls
+that carry only raw ``torch.Tensor``s never record: the compiled trainers,
+``make_fx`` tracing inside ``to_static`` and ``static``'s recorder stay
+out of any window.
+
+``exec_count()`` counts executions: one for each eager op run outside a
+window and one for each segment run (a fused forward+backward is one, an
+optimizer step is one); not kernel launches, of which one segment run
+makes many.
 """
 from __future__ import annotations
 
@@ -23,17 +36,55 @@ AMP_HOOK: Optional[Callable] = None
 # static.enable_static (the reference's set_static_recorder): the op is
 # recorded into the current Program instead of running
 STATIC_HOOK: Optional[Callable] = None
+# whether a lazy window may be open in some thread, and the function that
+# answers the calling thread's context (both kept by _core/lazy.py)
+LAZY_GATE = False
+LAZY_CONTEXT: Optional[Callable] = None
+
+_EXECS = [0]
+_Tensor = None
+
+
+class _NotRecorded:
+    """A window's answer when it could not record an op (run it eagerly)."""
+
+
+NOT_RECORDED = _NotRecorded()
+
+
+def exec_count() -> int:
+    """Executions so far (see the module docstring)."""
+    return _EXECS[0]
+
+
+def bump_exec(n: int = 1) -> None:
+    _EXECS[0] += n
+
+
+def _tensor_cls():
+    global _Tensor
+    from .tensor import Tensor
+    _Tensor = Tensor
+    return Tensor
 
 
 def unwrap(x):
     """A ``Tensor``'s payload; anything else as it is."""
-    from .tensor import Tensor
+    Tensor = _Tensor or _tensor_cls()
     return x._t if isinstance(x, Tensor) else x
+
+
+def meta(x):
+    """What metadata is read from: a ``Tensor``'s payload as it stands (a
+    pending value of the lazy window answers shape, dtype and device
+    without landing), anything else as it is."""
+    Tensor = _Tensor or _tensor_cls()
+    return x._payload if isinstance(x, Tensor) else x
 
 
 def wrap(out):
     """torch tensors (alone, in a tuple or a list) as ``Tensor``s."""
-    from .tensor import Tensor
+    Tensor = _Tensor or _tensor_cls()
     if isinstance(out, torch.Tensor):
         return Tensor(out)
     if isinstance(out, (tuple, list)):
@@ -43,10 +94,23 @@ def wrap(out):
 
 def apply(name: str, fn: Callable, *inputs, **attrs):
     """Runs op ``name`` as ``fn(*payloads, **attrs)``."""
-    from .tensor import Tensor
+    Tensor = _Tensor or _tensor_cls()
     if STATIC_HOOK is not None:
         return STATIC_HOOK(name, fn, list(inputs), attrs)
-    eager = any(isinstance(x, Tensor) for x in inputs)
+    eager = False
+    for x in inputs:
+        if isinstance(x, Tensor):
+            eager = True
+            break
+    if eager:
+        if LAZY_GATE:
+            ctx = LAZY_CONTEXT()
+            if ctx is not None:
+                out = ctx.record(name, fn, inputs, attrs)
+                if out is not NOT_RECORDED:
+                    ctx.maybe_cap_flush()
+                    return out
+        _EXECS[0] += 1
     args = [x._t if isinstance(x, Tensor) else x for x in inputs]
     if AMP_HOOK is not None:
         args = AMP_HOOK(name, args)

@@ -6,8 +6,11 @@ of the flag's name overrides the default when the flag is defined.
 (``paddle.get_flags`` / ``paddle.set_flags``), and ``watch_flag`` lets a
 module keep a cached copy in step with ``set_flags``. The flags defined
 here are those the compile path reads (``jit``, ``static``, ``ir``,
-``inference``, ``onnx``); the runtime's own flags come with
-``_core/lazy.py``.
+``inference``, ``onnx``) and those of the steady-state runtime
+(``_core/lazy.py``, ``_core/cache.py``, ``_core/async_flush.py``,
+``jit/sot``), with the reference's names and defaults except one:
+``FLAGS_eager_fusion`` is off by default here (the card's stream already
+runs ahead of the host; ``ROADMAP.md`` §3).
 """
 from __future__ import annotations
 
@@ -114,3 +117,48 @@ define_flag("FLAGS_inference_donate_inputs", False,
 define_flag("FLAGS_onnx_opset", 13,
             "Minimum default-domain opset version for ONNX export "
             "(raised per-op when an emitted op needs newer).")
+
+# ---- the steady-state runtime (the reference's flags.py:168-252)
+define_flag("FLAGS_lazy_max_segment_ops", 256,
+            "Lazy fusion window: pending ops per segment before a forced "
+            "flush (caps a segment's size and its peak trace memory).")
+define_flag("FLAGS_lazy_enable", True,
+            "Kill-switch for the lazy fusion window: when false, "
+            "lazy_guard() becomes a no-op and ops dispatch eagerly.")
+define_flag("FLAGS_eager_fusion", False,
+            "Ambient fusion window: plain dygraph code (no lazy_guard) "
+            "records into a segment that runs at the next sync point. Off "
+            "by default in the port (the reference's default is on): the "
+            "card's stream already gives the run-ahead the window gives "
+            "the reference.")
+define_flag("FLAGS_executable_cache_capacity", 1024,
+            "LRU capacity for each runner cache (lazy segment, fused "
+            "step, record-time metadata); 0 = unbounded.")
+define_flag("FLAGS_record_fast_path", True,
+            "Trace-stable record fast path: after a sealed segment's "
+            "signature memo proves the op stream repeats, later "
+            "iterations replay the retained op skeleton position by "
+            "position, reusing its cached output metadata. Any mismatch "
+            "falls back to the full record path for the rest of the "
+            "segment.")
+define_flag("FLAGS_step_replay_after", 3,
+            "Whole-step promotion threshold: after this many consecutive "
+            "clean skeleton replays of a sealed segment, its seal skips "
+            "signature reconstruction (a step plan). 0 disables "
+            "promotion.")
+define_flag("FLAGS_async_flush", False,
+            "Hand sealed lazy segments to a single-worker flush executor; "
+            "results materialize through pending-value placeholders and "
+            "worker errors re-raise at the next sync point.")
+define_flag("FLAGS_sot_cache_entries", 8,
+            "Max guarded fast-path entries kept per SotFunction.")
+define_flag("FLAGS_sot_inline_depth", 8,
+            "Max recursive bytecode-inline depth in the SOT executor.")
+define_flag("FLAGS_sot_step_budget", 2_000_000,
+            "Max interpreted bytecode steps per SOT frame before the "
+            "frame falls back to native execution.")
+define_flag("FLAGS_sot_guard_size_cap", 64,
+            "Largest container/array value-guarded by SOT; larger "
+            "inputs refuse the fast path instead.")
+define_flag("FLAGS_guard_log", False,
+            "Print each SOT guard miss (the failing guards).")

@@ -18,6 +18,7 @@ DEFAULT_SEED = 0  # the reference's FLAGS_seed
 _LOCK = threading.Lock()
 _seed: Optional[int] = None
 _generators: Dict[torch.device, torch.Generator] = {}
+_META_GEN = torch.Generator()
 
 
 def seed(s: int) -> int:
@@ -38,6 +39,10 @@ def generator(device: torch.device) -> torch.Generator:
     """The generator of ``device``, seeded with the last ``seed`` (or the
     default seed) when first made."""
     device = torch.device(device)
+    if device.type == "meta":
+        # the lazy window's record-time run on meta tensors: a throwaway
+        # generator, so recording draws nothing from the real ones
+        return _META_GEN
     with _LOCK:
         gen = _generators.get(device)
         if gen is None:

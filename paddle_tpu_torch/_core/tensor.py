@@ -1,12 +1,18 @@
 """The eager Tensor: the counterpart of ``paddle_tpu/_core/tensor.py``.
 
-A ``Tensor`` wraps a ``torch.Tensor`` payload (``_t``) on an explicit
-device. It is a wrapper and not a ``torch.Tensor`` subclass: paddle's
-methods (``transpose(perm)``, ``sum(axis=)``, ``shape`` as a list,
-``stop_gradient``) clash with torch's of the same names. Autograd is
-torch's: ``stop_gradient`` is the payload's ``requires_grad`` turned
-round, ``grad`` the payload's ``.grad`` (accumulating across ``backward``
-calls until ``clear_grad``). Operator methods are attached by
+A ``Tensor`` wraps a ``torch.Tensor`` payload on an explicit device. ``_t``
+is the materializing accessor: while the payload is still a pending value
+of the lazy window (``_core/lazy.py`` ``LazyRef``, or an async flush's
+``PendingValue``) reading ``_t`` lands it first; ``shape``, ``ndim``,
+``dtype``, ``place``, ``len()`` and ``stop_gradient`` answer from the
+recorded metadata (``_payload``) without landing anything. Writing ``_t``
+swaps the payload and evicts the tensor from every open capture context
+(``lazy.note_inplace``). It is a wrapper and not a ``torch.Tensor``
+subclass: paddle's methods (``transpose(perm)``, ``sum(axis=)``, ``shape``
+as a list, ``stop_gradient``) clash with torch's of the same names.
+Autograd is torch's: ``stop_gradient`` is the payload's ``requires_grad``
+turned round, ``grad`` the payload's ``.grad`` (accumulating across
+``backward`` calls until ``clear_grad``). Operator methods are attached by
 ``paddle_tpu_torch.ops``.
 """
 from __future__ import annotations
@@ -17,70 +23,99 @@ import numpy as np
 import torch
 
 from . import dtype as dtypes
+from . import lazy as _lazy
 from .device import place_of, to_device
 
 
+# classes of the deferred payloads (lazy.LazyRef, async_flush.PendingValue):
+# each has the metadata of a torch.Tensor and materialize(tensor)
+DEFERRED = _lazy.DEFERRED
+
+
 class Tensor:
-    __slots__ = ("_t", "name", "persistable", "__weakref__")
+    __slots__ = ("_payload", "name", "persistable", "__weakref__")
 
     def __init__(self, value, stop_gradient: Optional[bool] = None,
                  name: Optional[str] = None):
         if isinstance(value, Tensor):
-            value = value._t
-        if not isinstance(value, torch.Tensor):
+            value = value._payload
+        if value.__class__ in DEFERRED:
+            value.add_tref(self)
+        elif not isinstance(value, torch.Tensor):
             raise TypeError(f"Tensor wraps a torch.Tensor, got "
                             f"{type(value).__name__}; use paddle.to_tensor")
-        self._t = value
+        self._payload = value
         self.name = name
         self.persistable = False
         if stop_gradient is not None:
             self.stop_gradient = stop_gradient
 
+    @property
+    def _t(self) -> torch.Tensor:
+        p = self._payload
+        if p.__class__ in DEFERRED:
+            p = p.materialize(self)
+        return p
+
+    @_t.setter
+    def _t(self, value) -> None:
+        if value.__class__ in DEFERRED:
+            value.add_tref(self)
+        if _lazy._ALL_CTXS:
+            _lazy.note_inplace(self)
+        self._payload = value
+
     # ------------------------------------------------------------ metadata
     @property
     def shape(self):
-        return list(self._t.shape)
+        return list(self._payload.shape)
 
     @property
     def ndim(self) -> int:
-        return self._t.dim()
+        return self._payload.dim()
 
     @property
     def size(self) -> int:
-        return self._t.numel()
+        return self._payload.numel()
 
     @property
     def dtype(self) -> dtypes.DType:
-        return dtypes.from_torch(self._t.dtype)
+        return dtypes.from_torch(self._payload.dtype)
 
     @property
     def place(self):
-        return place_of(self._t.device)
+        return place_of(self._payload.device)
 
     @property
     def rank(self) -> int:
-        return self._t.dim()
+        return self._payload.dim()
 
     @property
     def is_leaf(self) -> bool:
-        return self._t.grad_fn is None
+        return self._payload.grad_fn is None
 
     # ------------------------------------------------------------ autograd
     @property
     def stop_gradient(self) -> bool:
-        return not self._t.requires_grad
+        return not self._payload.requires_grad
 
     @stop_gradient.setter
     def stop_gradient(self, value: bool) -> None:
-        if bool(value) == (not self._t.requires_grad):
+        p = self._payload
+        if bool(value) == (not p.requires_grad):
             return
-        if self._t.grad_fn is not None:  # an op's output: cut it off
+        if p.__class__ in DEFERRED and value:
+            self._t = self.detach()._payload   # recorded in the window
+        elif p.grad_fn is not None:  # an op's output: cut it off
             self._t = self._t.detach()
         else:
             self._t.requires_grad_(not value)
 
     @property
     def grad(self) -> Optional["Tensor"]:
+        p = self._payload
+        if p.__class__ in DEFERRED and p.grad_fn is not None:
+            return None  # a pending op output: no leaf, no .grad
         g = self._t.grad
         return None if g is None else Tensor(g)
 
@@ -90,7 +125,7 @@ class Tensor:
             (g._t if isinstance(g, Tensor) else g)
 
     def backward(self, grad_tensor=None, retain_graph: bool = False) -> None:
-        if not self._t.requires_grad:
+        if not self._payload.requires_grad:
             raise RuntimeError("backward() on a tensor with "
                                "stop_gradient=True: nothing to differentiate")
         from .autograd import backward
@@ -101,6 +136,11 @@ class Tensor:
         self._t.grad = None
 
     def detach(self) -> "Tensor":
+        if self._payload.__class__ in DEFERRED:
+            from .dispatch import apply
+            out = apply("detach", _detach, self)
+            out.name = self.name
+            return out
         return Tensor(self._t.detach(), name=self.name)
 
     def detach_(self) -> "Tensor":
@@ -189,9 +229,10 @@ class Tensor:
 
     # ------------------------------------------------------------ misc
     def __len__(self):
-        if self._t.dim() == 0:
+        p = self._payload
+        if p.dim() == 0:
             raise TypeError("len() of a 0-d tensor")
-        return self._t.shape[0]
+        return p.shape[0]
 
     def __bool__(self):
         return bool(self._t.detach())
@@ -213,6 +254,10 @@ class Tensor:
 
     def __hash__(self):
         return id(self)
+
+
+def _detach(t: torch.Tensor) -> torch.Tensor:
+    return t.detach()
 
 
 def to_tensor(data, dtype=None, place=None, stop_gradient: bool = True) \

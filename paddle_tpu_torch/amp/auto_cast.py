@@ -46,7 +46,13 @@ _LOCK = threading.Lock()
 
 
 def _cast(name, args):
-    state = getattr(_STATE, "amp", None)
+    return cast_with(getattr(_STATE, "amp", None), name, args)
+
+
+def cast_with(state, name, args):
+    """``args`` cast by the rule of the scope ``state`` (what ``_STATE.amp``
+    holds) for op ``name``: the lazy window records each op's state and
+    casts by it when the segment runs, on whatever thread runs it."""
     if state is None or state[0] == "O0":
         return args
     _, low, white, black = state
@@ -66,8 +72,12 @@ def state_key():
     state = getattr(_STATE, "amp", None)
     if state is None or state[0] == "O0":
         return None
-    level, low, white, black = state
-    return level, low, frozenset(white), frozenset(black)
+    key = getattr(_STATE, "key", None)
+    if key is None or key[0] is not state:
+        level, low, white, black = state
+        key = _STATE.key = (state, (level, low, frozenset(white),
+                                    frozenset(black)))
+    return key[1]
 
 
 class auto_cast:

@@ -5,7 +5,7 @@ state dicts with tensors materialized to numpy, in the reference's format
 (each tensor a ``{"__tensor__": True, "data": array, "stop_gradient":
 bool}`` dict; bfloat16 as ml_dtypes' bfloat16), so either package loads
 the other's files. ``lazy_guard``, ``enable_eager_fusion`` and
-``eager_fusion_enabled`` come with the lazy runtime (``_core/lazy.py``).
+``eager_fusion_enabled`` are the lazy runtime's (``_core/lazy.py``).
 """
 from __future__ import annotations
 
@@ -14,9 +14,12 @@ import pickle
 
 import numpy as np
 
+from .._core.lazy import (eager_fusion_enabled, enable_eager_fusion,  # noqa
+                          lazy_guard)
 from .._core.tensor import Tensor, to_tensor
 
-__all__ = ["save", "load", "seed"]
+__all__ = ["save", "load", "seed", "lazy_guard", "enable_eager_fusion",
+           "eager_fusion_enabled"]
 
 
 def _to_saveable(obj):

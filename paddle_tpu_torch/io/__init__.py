@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from .._core import device as _device
+from .._core import lazy as _lazy
 from .._core import random as rnd
 from .._core.tensor import Tensor, to_tensor
 
@@ -728,6 +729,9 @@ class DevicePrefetcher:
     def _put(self, batch):
         made = []
         tree = _tree_map(lambda x: self._stage(x, made), batch)
+        # batches cross threads landed: a consumer never reads a value
+        # pending in this thread's lazy window
+        _lazy.flush_active("loader")
         event = None
         if made:
             event = torch.cuda.Event()

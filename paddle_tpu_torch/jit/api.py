@@ -35,6 +35,7 @@ from torch.fx.experimental.proxy_tensor import make_fx
 from torch.utils import _pytree as pytree
 
 from .._core import dtype as dtypes
+from .._core import lazy
 from .._core.flags import flag_value
 from .._core.tensor import Tensor
 from ..nn.layer import Layer, Parameter, functional_call
@@ -167,8 +168,9 @@ def compile_traced(fn: Callable, example_args, backend: Optional[str],
     ``_recording_backend``), the result's ``graph_module`` is the traced
     graph. The trace raises where ``fn`` reads a traced value on the host
     (see ``to_static``)."""
-    gm = make_fx(fn, tracing_mode="fake", _allow_non_fake_inputs=True)(
-        *example_args)
+    with lazy.suspended():   # the eager calls inside reach the tracer
+        gm = make_fx(fn, tracing_mode="fake", _allow_non_fake_inputs=True)(
+            *example_args)
     if device is None:
         device = next((t.device for t in pytree.tree_leaves(example_args)
                        if isinstance(t, torch.Tensor)), torch.device("cpu"))
@@ -356,14 +358,19 @@ def to_static(function=None, input_spec=None, build_strategy=None,
     bool/int/str leaves and the AMP state) and input signature. Usable
     standalone or inside training loops. Tensor control flow must be
     convertible (dy2static) or the trace raises, as in the reference's
-    AST path; nothing runs eagerly in its place. ``full_graph=False``
-    (the reference's SOT bytecode capture with graph-break fallback) is
-    not ported yet: it raises."""
+    AST path; nothing runs eagerly in its place. ``full_graph=False`` is
+    the reference's SOT path (``jit.sot.symbolic_translate``): bytecode
+    capture into the lazy window with graph-break fallback, a clean
+    capture replayed through a guarded compiled fast path."""
     if not full_graph:
-        raise NotImplementedError(
-            "to_static(full_graph=False): SOT bytecode capture with "
-            "graph-break fallback is not ported yet (ROADMAP.md §1 item 7, "
-            "with jit.sot and the lazy runtime it records into)")
+        from .sot import symbolic_translate
+
+        def _build_sot(fn):
+            if isinstance(fn, Layer):
+                fn.forward = symbolic_translate(fn.forward)
+                return fn
+            return symbolic_translate(fn)
+        return _build_sot(function) if function is not None else _build_sot
 
     def _build(fn):
         if isinstance(fn, Layer):

@@ -30,6 +30,7 @@ from typing import Optional, Sequence, Union
 
 import torch
 
+from ..._core import lazy
 from ..._core.dispatch import apply
 from ..._core.op_registry import register_op
 
@@ -115,6 +116,9 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     if training and not use_global_stats:
         mean, var = apply("bn_stats", _bn_stats, x, fmt=data_format)
         m = float(momentum)
+        # the running statistics are written in place: a pending segment
+        # that reads them runs first (this lands the batch's statistics)
+        lazy.flush_active("inplace_write")
         with torch.no_grad():
             for run, stat in ((running_mean, mean), (running_var, var)):
                 run_t = run._t if hasattr(run, "_t") else run

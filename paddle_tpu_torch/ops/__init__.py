@@ -66,7 +66,7 @@ def _reflected(fn):
     def op(self, other):
         if isinstance(other, float):  # a fill on the device, no copy
             other = torch.full((), other, dtype=torch.float32,
-                               device=self._t.device)
+                               device=self._payload.device)
         return fn(other, self)
     return op
 
@@ -75,7 +75,7 @@ def _bitwise_or_logical(logical, bitwise, reflected=False):
     """``&``, ``|``, ``^``: logical on bool tensors, bitwise otherwise
     (the reference's operators); ``reflected``: ``other op self``."""
     def op(self, other):
-        fn = logical if self._t.dtype == torch.bool else bitwise
+        fn = logical if self._payload.dtype == torch.bool else bitwise
         return fn(other, self) if reflected else fn(self, other)
     return op
 
@@ -102,7 +102,7 @@ for _dunder, _fn in (("eq", equal), ("ne", not_equal), ("lt", less_than),
     setattr(Tensor, f"__{_dunder}__", _fn)
 Tensor.__neg__ = neg
 Tensor.__abs__ = abs
-Tensor.__invert__ = lambda s: (logical_not if s._t.dtype == torch.bool
+Tensor.__invert__ = lambda s: (logical_not if s._payload.dtype == torch.bool
                                else bitwise_not)(s)
 Tensor.__hash__ = lambda s: id(s)
 

@@ -21,7 +21,7 @@ import torch
 from .._core import dtype as dtypes
 from .._core import random as rnd
 from .._core.device import default_device
-from .._core.dispatch import apply, unwrap
+from .._core.dispatch import apply, meta, unwrap
 from .._core.op_registry import register_op
 from .._core.tensor import Tensor, to_tensor  # noqa: F401 (re-export)
 from ._helper import tensor_method
@@ -377,7 +377,7 @@ def _bernoulli(x, key):
 
 
 def bernoulli(x, name=None):
-    return apply("bernoulli_k", _bernoulli, x, _gen(unwrap(x).device))
+    return apply("bernoulli_k", _bernoulli, x, _gen(meta(x).device))
 
 
 @register_op("multinomial_k")
@@ -387,7 +387,7 @@ def _multinomial(x, key, num, replacement):
 
 
 def multinomial(x, num_samples=1, replacement=False, name=None):
-    return apply("multinomial_k", _multinomial, x, _gen(unwrap(x).device),
+    return apply("multinomial_k", _multinomial, x, _gen(meta(x).device),
                  num=int(num_samples), replacement=bool(replacement))
 
 

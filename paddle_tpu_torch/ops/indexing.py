@@ -115,12 +115,12 @@ def _setitem(x, v, *tvals, spec):
 
 
 def getitem(x: Tensor, idx):
-    spec, tensors = _decompose(idx, x._t.device)
+    spec, tensors = _decompose(idx, x._payload.device)
     return apply("getitem_", _getitem, x, *tensors, spec=spec)
 
 
 def setitem(x: Tensor, idx, value):
-    spec, tensors = _decompose(idx, x._t.device)
+    spec, tensors = _decompose(idx, x._payload.device)
     if isinstance(value, (list, np.ndarray)):
         value = torch.as_tensor(np.asarray(value), device=x._t.device)
     x._adopt(apply("setitem_", _setitem, x, value, *tensors, spec=spec))

@@ -16,7 +16,7 @@ import builtins
 
 import torch
 
-from .._core.dispatch import apply, unwrap
+from .._core.dispatch import apply, meta, unwrap
 from .._core.op_registry import register_op
 from .._core.tensor import Tensor
 from ._helper import def_binary, def_unary, inexact, promoted, \
@@ -285,7 +285,7 @@ def slice(input, axes, starts, ends, name=None):
 
 
 def strided_slice(x, axes, starts, ends, strides, name=None):
-    spec = [(None, None, None)] * unwrap(x).dim()
+    spec = [(None, None, None)] * meta(x).dim()
     for ax, st, en, sd in zip(axes, starts, ends, strides):
         spec[ax] = (int(st), int(en), int(sd))
     return apply("strided_slice_", _strided_slice, x, spec=tuple(spec))
@@ -297,7 +297,7 @@ def _crop(x, offsets, shape):
 
 
 def crop(x, shape=None, offsets=None, name=None):
-    xs = unwrap(x).shape
+    xs = meta(x).shape
     offsets = list(offsets) if offsets is not None else [0] * len(xs)
     shape = list(shape) if shape is not None else [-1] * len(xs)
     # -1 or None: to the end from the offset
@@ -345,7 +345,7 @@ def _reduce_as(x, tshape):
 def reduce_as(x, target, name=None):
     """``x`` summed down to ``target``'s shape."""
     return apply("reduce_as_", _reduce_as, x,
-                 tshape=tuple(unwrap(target).shape))
+                 tshape=tuple(meta(target).shape))
 
 
 @register_op("clip_by_norm_")

@@ -23,7 +23,7 @@ import torch.nn.functional as tF
 
 from .._core import dtype as dtypes
 from .._core import random as rnd
-from .._core.dispatch import apply, unwrap
+from .._core.dispatch import apply, meta, unwrap
 from .._core.op_registry import register_op
 from ._helper import promoted
 from .linalg import promote
@@ -41,7 +41,7 @@ _ACTS = {
 
 
 def _gen_of(x):
-    return rnd.generator(unwrap(x).device)
+    return rnd.generator(meta(x).device)
 
 
 @register_op("fused_bias_act")
@@ -740,8 +740,8 @@ def _prior_box(fh, fw, ih, iw, min_sizes, max_sizes, aspect_ratios):
 def prior_box(input, image, min_sizes, max_sizes=(), aspect_ratios=(1.0,),
               name=None, **kwargs):
     """SSD anchors [fh, fw, boxes, 4], float64."""
-    fh, fw = unwrap(input).shape[-2:]
-    ih, iw = unwrap(image).shape[-2:]
+    fh, fw = meta(input).shape[-2:]
+    ih, iw = meta(image).shape[-2:]
     from .._core.tensor import Tensor
     return Tensor(apply("prior_box_k", _prior_box, fh=int(fh), fw=int(fw),
                         ih=int(ih), iw=int(iw),

@@ -30,7 +30,7 @@ import torch
 
 from .._core import dtype as dtypes
 from .._core import random as rnd
-from .._core.dispatch import apply, unwrap
+from .._core.dispatch import apply, meta, unwrap
 from .._core.op_registry import register_op
 from .._core.tensor import Tensor
 from ._helper import argsort_nan_last, promoted, tensor_method
@@ -38,7 +38,7 @@ from .manipulation import flatten, moveaxis
 
 
 def _ndim(x):
-    return unwrap(x).dim()
+    return meta(x).dim()
 
 
 # ------------------------------------------------------ argmax / argmin
@@ -150,7 +150,7 @@ def _gather(x, idx, axis):
 
 @tensor_method("gather")
 def gather(x, index, axis=0, name=None):
-    if _ndim(index) == 2 and unwrap(index).shape[1] == 1:
+    if _ndim(index) == 2 and meta(index).shape[1] == 1:
         index = flatten(index)
     if isinstance(axis, Tensor):
         axis = int(axis.item())

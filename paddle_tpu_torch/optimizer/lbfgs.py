@@ -14,6 +14,7 @@ from typing import Callable, List, Optional
 
 import torch
 
+from .._core import lazy
 from .optimizer import Optimizer
 
 
@@ -48,6 +49,8 @@ class LBFGS(Optimizer):
 
     @torch.no_grad()
     def _scatter(self, flat):
+        # written in place: a pending segment that reads them runs first
+        lazy.flush_active("optimizer")
         ofs = 0
         for p in self._all_params():
             n = p._t.numel()

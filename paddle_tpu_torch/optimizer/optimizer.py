@@ -4,16 +4,19 @@
 
 Plain PyTorch, as the reference's update is plain XLA: one ``step`` runs
 ``torch._foreach_*`` ops over each (parameter group, type) bucket and
-updates the parameters in place. The arithmetic is the reference's
-``_update_one``: the bias corrections are computed in float32 and cast to
-the parameter's type, AdamW's decay sits inside the learning-rate product
-(``p - lr * (upd + wd * p)``), the others add L2 decay into the gradient
-first, and the learning rate is a float32 scalar: a
-float, or an ``LRScheduler`` read at every step. A ``grad_clip``
+updates the parameters in place. It lands the lazy window first and counts
+as one execution (``dispatch.exec_count``); as the reference donates the
+old buffers, no step copies a parameter (each ``data_ptr()`` stays) and a
+buffer tied into two places is updated once. The arithmetic is the
+reference's ``_update_one``: the bias corrections are computed in float32
+and cast to the parameter's type, AdamW's decay sits inside the
+learning-rate product (``p - lr * (upd + wd * p)``), the others add L2
+decay into the gradient first, and the learning rate is a float32 scalar:
+a float, or an ``LRScheduler`` read at every step. A ``grad_clip``
 (``nn/clip.py``) rewrites the gradients first. With ``multi_precision`` a
 bf16 or fp16 parameter is updated through a float32 master copy and
-float32 state. ``Lamb``'s per-parameter norms and trust ratios stay on
-the device: no step reads anything back.
+float32 state. ``Lamb``'s per-parameter norms and trust ratios stay on the
+device: no step reads anything back.
 
 Two options the reference accepts and ignores are applied here, as Paddle
 defines them: AdamW's ``lr_ratio(param)`` multiplies that parameter's
@@ -28,6 +31,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from .._core import dispatch, lazy
 from .._core.tensor import Tensor
 from .lr import LRScheduler
 
@@ -115,15 +119,23 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> None:
-        pairs, groups = [], []
+        # the update writes parameter and state payloads in place: a pending
+        # segment that reads them runs first (and in-flight async ones)
+        lazy.flush_active("optimizer")
+        lazy._drain_async()
+        pairs, groups, seen = [], [], set()
         for gi, g in enumerate(self._param_groups):
             for p in g["params"]:
                 if p.stop_gradient or p._t.grad is None:
                     continue
+                if id(p._t) in seen:  # a tied buffer is written once
+                    continue
+                seen.add(id(p._t))
                 pairs.append((p, p._t.grad))
                 groups.append(gi)
         if not pairs:
             return
+        dispatch.bump_exec()  # the whole update is one execution
         if self._grad_clip is not None:
             pairs = self._grad_clip(pairs)
         buckets = collections.defaultdict(list)

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from .._core.dispatch import apply, unwrap
+from .._core.dispatch import apply, meta, unwrap
 from .._core.op_registry import register_op
 from .._core.tensor import Tensor
 
@@ -295,7 +295,7 @@ def prior_box(input, image, min_sizes, max_sizes=None,
               name=None):
     """SSD prior boxes: (boxes [H, W, P, 4], variances [H, W, P, 4]) for
     P anchors a cell of ``input``'s map over ``image``, normalised."""
-    dev = unwrap(input).device
+    dev = meta(input).device
     fh, fw = int(input.shape[2]), int(input.shape[3])
     ih, iw = int(image.shape[2]), int(image.shape[3])
     step_h = steps[1] or ih / fh

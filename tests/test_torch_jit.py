@@ -147,8 +147,15 @@ def test_amp_state_joins_the_cache_key():
 
 
 def test_full_graph_false_raises():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pt.jit.to_static(lambda x: x, full_graph=False)
+    """``full_graph=False`` raised until SOT was ported; it now wraps the
+    function in ``jit.sot``'s bytecode capture, which raises nothing on a
+    graph break (tests/test_torch_sot.py holds it against the
+    reference)."""
+    from paddle_tpu_torch.jit.sot import SotFunction
+    sfn = pt.jit.to_static(lambda x: x * 2.0, full_graph=False)
+    assert isinstance(sfn, SotFunction)
+    x = pt.to_tensor(np.arange(3, dtype="float32"))
+    np.testing.assert_array_equal(sfn(x).numpy(), [0.0, 2.0, 4.0])
 
 
 def test_graph_break_raises_and_does_not_run_eagerly():

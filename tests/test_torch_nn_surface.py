@@ -64,8 +64,8 @@ def _names(module):
     return out
 
 
-_ITEM7 = ("ROADMAP §1 item 7: the steady-state runtime (jit.sot records "
-          "into its lazy graph; framework's lazy names)")
+_ITEM7 = ("ROADMAP §1 item 7's rest: the persistent executable cache "
+          "(persist) and the native record and step-driver prongs")
 _ITEM8 = "ROADMAP §1 item 8: eager distributed"
 _ITEM10 = "ROADMAP §1 item 10: the long tail"
 _ITEM11 = ("ROADMAP §1 item 11: the compiled 1F1B, VPP and ZeroBubble "
@@ -116,11 +116,10 @@ NOT_YET = {
     "incubate.nn": {},
     "base": {},
     "base.core": {},
-    "jit": {"sot": _ITEM7},
+    "jit": {},
     "static": {},
     "inference": {},
-    "framework": dict.fromkeys(("lazy_guard", "enable_eager_fusion",
-                                "eager_fusion_enabled"), _ITEM7),
+    "framework": {},
     "ir": {},
     "onnx": {},
 }
@@ -142,6 +141,27 @@ def test_every_public_callable_exists_in_the_port(path):
         stale = sorted(n for n in NOT_YET[path] if hasattr(mine, n))
         assert not stale, stale
     assert not missing, missing
+
+
+def test_eager_fusion_default_is_off_in_the_port_only():
+    """The one flag whose default the port changes on purpose (ROADMAP §3):
+    the reference records plain eager code into its ambient window by
+    default, the port runs it op by op unless asked (lazy_guard,
+    enable_eager_fusion(True), to_static(full_graph=False)). What stays
+    of the runtime's item is _ITEM7."""
+    from paddle_tpu._core import flags as ref_flags
+    from paddle_tpu_torch._core import flags as pt_flags
+    assert ref_flags._REGISTRY["FLAGS_eager_fusion"].default is True
+    assert pt_flags._REGISTRY["FLAGS_eager_fusion"].default is False
+    assert pt.framework.eager_fusion_enabled() is False
+    for name in ("FLAGS_lazy_max_segment_ops", "FLAGS_lazy_enable",
+                 "FLAGS_executable_cache_capacity", "FLAGS_record_fast_path",
+                 "FLAGS_step_replay_after", "FLAGS_async_flush",
+                 "FLAGS_sot_cache_entries", "FLAGS_sot_inline_depth",
+                 "FLAGS_sot_step_budget", "FLAGS_sot_guard_size_cap"):
+        assert pt_flags._REGISTRY[name].default \
+            == ref_flags._REGISTRY[name].default, name
+    assert "persist" in _ITEM7 and "native" in _ITEM7
 
 
 def test_the_port_imports_as_paddle_autograd():
