@@ -224,7 +224,7 @@ toolkit (``nvcc``). Phases, each printed as it runs:
 19. (run before 16) the compile path, under a watchdog of 720 s, with
    inductor's cache in a fresh directory removed after: (e)
    ``torch.library.opcheck`` of the 11 kernel ops on CUDA inputs; (a)
-   phase 10's eager gpt2-medium with its depth cut to 12 layers
+   phase 10's eager gpt2-medium with its depth cut to 6 layers
    (``COMPILED_GPT_LAYERS``) through ``paddle.jit.to_static``
    (inductor): the first step's seconds, step 1's gradients leaf by leaf
    and three losses against the eager model's from the same seed, 12 /
@@ -232,13 +232,14 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    and one backward graph, no library attention in a profiled step,
    ms/step, tokens/s and idle share beside the eager step in turns, peak
    memory; (b) ResNet-50 ``@to_static`` (O1, ``Momentum(0.1)``, b64
-   224^2) against phase 11's model, three steps each from the eager
+   224^2; cut to ``RESNET_COMPILED_BLOCKS`` bottleneck blocks a stage)
+   against phase 11's model, three steps each from the eager
    model's state (each step's loss and BN statistics), then in fp32 cut
    to one block a stage (each step's loss, BN statistics, gradients and
-   update), then timed the same way; (c) ``jit.save`` with a None batch, ``jit.load`` and
-   ``inference.create_predictor`` of ResNet-50 (b64, b7) and a 2-layer
-   GPT at gpt2-medium's width (b2, b3; #1 inside the loaded program)
-   against the eager layers; (d) a ``static.nn.fc`` MLP through
+   update), then timed the same way; (c) ``jit.save`` with a None batch,
+   ``jit.load`` and ``inference.create_predictor`` of ResNet-50 cut as (b)
+   (b64, b7) and a 2-layer GPT at gpt2-medium's width (b2, b3; #1 inside
+   the loaded program) against the eager layers; (d) a ``static.nn.fc`` MLP through
    ``Executor`` with the default passes;
 20. (run before 16) the steady-state runtime, under a watchdog of 300 s:
    (a) phase 10's eager gpt2-medium step (b8 s1024, O1 bf16, AdamW) under
@@ -259,6 +260,28 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    inside the graph: the capture's and the compile's seconds, the fast
    path's ms, launches) and one with a ``print`` inside (two segments),
    each against eager;
+21. (run before 16) the native runtime and the eager communication API,
+   under a watchdog of ``NATIVE_WATCHDOG_S``: (a) phase 20 (a)'s step
+   under the window with the lazy window's native record core and
+   whole-step driver (``csrc/eager_core.cc``, built by g++ at first use)
+   against its Python prong, each on its own model from seed 0: losses
+   and step 1's gradients (bit-equal), a steady step's executions (2
+   each), ops the driver recorded, ``FAST_OPS`` and ``REPLAY_STEPS``,
+   kernels of a profiled step (equal), ms/step in turns (native, python,
+   python, native), the host time spent recording a step and the idle
+   share of each; then phase 14's Transformer-base and PTB LSTM both ways;
+   (b) the persistent compile cache: phase 19 (a)'s compiled GPT ran with
+   ``FLAGS_executable_cache_dir`` set to a fresh directory; a child
+   process (``chip_smoke.py --persist-child <dir>``) warm-starts the same
+   model from it: first-step seconds cold and warm, the child's
+   ``cache.persist.*`` and inductor's cache counts, its three losses
+   against the cold ones; then the child corrupts the entry and runs the
+   model again (a reject, a new trace, the same losses); (c)
+   ``DataParallel`` of
+   phase 10's model on a one-rank NCCL group (the reducer summing its
+   buckets): three losses and step 1's gradients bit-equal to phase 10's
+   step, the buckets and collectives a step, ms/step in turns, and each
+   communication entry once on a CUDA tensor against its value;
 16. prints the head_dim 256 and 512 and fp16 (64, 256 and 512) timings,
    the ``kernels`` JSON line, the card line, and last ``{"ok": true, "device": {...}}``.
 
@@ -5226,7 +5249,7 @@ def _in_turns(step, n=3):
 
 
 def compiled_gpt(smi, cfg_name="gpt2-medium", batch=BATCH, seq=SEQ,
-                 layers=None):
+                 layers=None, persist_dir=None):
     """(a) phase 10's eager gpt2-medium (fp32 parameters, O1 bf16, AdamW
     1e-4, seed 0; its depth cut to ``layers`` where given) through
     ``paddle.jit.to_static`` (inductor): the first
@@ -5236,10 +5259,21 @@ def compiled_gpt(smi, cfg_name="gpt2-medium", batch=BATCH, seq=SEQ,
     from the same seed, 24 / 24 / 24 launches of #1 / #2 / #3 a step, one
     forward and one backward graph and one trace over all steps, no
     library attention in a profiled step, ms/step, tokens/s and idle
-    share beside the eager step in turns, peak memory."""
+    share beside the eager step in turns, peak memory. With
+    ``persist_dir`` the model compiles with ``FLAGS_executable_cache_dir``
+    set to it (phase 21 (b) warm-starts a child from it): its first step's
+    seconds, three losses and the cache's counts go to ``PERSIST``."""
     import paddle_tpu_torch as paddle
+    from paddle_tpu_torch._core import persist
     from paddle_tpu_torch.models import gpt
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    if persist_dir is not None:
+        paddle.set_flags({"FLAGS_executable_cache_dir": persist_dir})
+        try:
+            return compiled_gpt(smi, cfg_name, batch, seq, layers)
+        finally:
+            paddle.set_flags({"FLAGS_executable_cache_dir": ""})
+            PERSIST.update(persist.counters(), dir=persist_dir)
     cfg = gpt.GPT_CONFIGS[cfg_name] if isinstance(cfg_name, str) \
         else cfg_name
     if layers is not None:
@@ -5297,6 +5331,7 @@ def compiled_gpt(smi, cfg_name="gpt2-medium", batch=BATCH, seq=SEQ,
     check(div["worst"] <= COMPILE_GRAD_REL, f"compiled gradients off by "
           f"{div['worst']} at {names[div['at']]}")
     check(rel <= COMPILE_LOSS_REL, f"compiled losses off by {rel}")
+    PERSIST.update(first_s=first_s, losses=losses["compiled"][:3])
 
     _reset_all_launches()
     step("compiled")
@@ -5335,6 +5370,17 @@ def compiled_gpt(smi, cfg_name="gpt2-medium", batch=BATCH, seq=SEQ,
     return med
 
 
+def _cut_resnet(paddle, model, blocks):
+    """``model`` with each of its four stages cut to its first ``blocks``
+    blocks (the first holds the stage's stride and width change, so the
+    widths are kept); unchanged for None."""
+    for stage in ("layer1", "layer2", "layer3", "layer4")[
+            :4 if blocks else 0]:
+        setattr(model, stage, paddle.nn.Sequential(
+            *list(getattr(model, stage))[:blocks]))
+    return model
+
+
 def resnet_divergence(smi, amp=True, twins=("permuted",), forced=True,
                       factory="resnet50", batch=RESNET_BATCH,
                       size=RESNET_SIZE, classes=1000, steps=3, blocks=None):
@@ -5369,11 +5415,8 @@ def resnet_divergence(smi, amp=True, twins=("permuted",), forced=True,
     models = {}
     for name in ways:
         paddle.seed(0)
-        model = getattr(vm, factory)(num_classes=classes)
-        for stage in ("layer1", "layer2", "layer3", "layer4")[
-                :4 if blocks else 0]:
-            setattr(model, stage, paddle.nn.Sequential(
-                *list(getattr(model, stage))[:blocks]))
+        model = _cut_resnet(paddle, getattr(vm, factory)(
+            num_classes=classes), blocks)
         if name == "compiled":
             model = paddle.jit.to_static(model)
         order = perm if name == "permuted" else slice(None)
@@ -5449,9 +5492,18 @@ def resnet_divergence(smi, amp=True, twins=("permuted",), forced=True,
         first_s
 
 
+# phase 19 (b)'s depth: ResNet-50's O1 model cut to 1 bottleneck block a
+# stage (its widths kept): inductor's cold compile of the whole model took
+# 150-260 s (133 s at 2 blocks a stage), and phase 21 came after it in the
+# same 1200 s
+RESNET_COMPILED_BLOCKS = 1
+
+
 def compiled_resnet(smi, factory="resnet50", batch=RESNET_BATCH,
-                    size=RESNET_SIZE, classes=1000, fp32_blocks=1):
-    """(b) ``bench_suite.py``'s ResNet-50 workload with ``@to_static``:
+                    size=RESNET_SIZE, classes=1000, fp32_blocks=1,
+                    blocks=RESNET_COMPILED_BLOCKS):
+    """(b) ``bench_suite.py``'s ResNet-50 workload with ``@to_static``
+    (cut to ``blocks`` block(s) a stage, None for all):
     O1 bf16, ``Momentum(0.1)``, batch 64 x 224^2, three steps against
     phase 11's eager model, each from the eager model's state, with an
     eager twin fed the batch in another order beside it
@@ -5464,7 +5516,8 @@ def compiled_resnet(smi, factory="resnet50", batch=RESNET_BATCH,
     backward graph, ms/step and images/s beside the eager O1 step in
     turns, idle share."""
     models, r, _ = resnet_divergence(smi, True, ("permuted",), True,
-                                     factory, batch, size, classes)
+                                     factory, batch, size, classes,
+                                     blocks=blocks)
     c = r["compiled"]
     check(all(math.isfinite(v) for v in c["losses"]),
           f"compiled resnet losses {c['losses']}")
@@ -5503,7 +5556,9 @@ def compiled_resnet(smi, factory="resnet50", batch=RESNET_BATCH,
         prof = profile_step(lambda *_: step(name), None, None, None,
                             med[name], group=_vision_group)
         idle = "not measured" if prof is None else f"{prof['idle']:.3f}"
-        print(f"{name} {factory} b{batch} {size}^2 O1 momentum in turns: "
+        cut = f" cut to {blocks} blocks a stage" if blocks else ""
+        print(f"{name} {factory}{cut} b{batch} {size}^2 O1 momentum in "
+              f"turns: "
               f"median {med[name]:.2f} ms/step of {len(ms[name])} "
               f"({[round(v, 2) for v in ms[name]]}), "
               f"{batch / (med[name] / 1e3):.1f} images/s, idle share {idle}")
@@ -5550,9 +5605,11 @@ def _predictor_check(label, layer, spec, batches, make_input, tmp):
 
 
 def saved_programs(smi, resnet="resnet50", size=RESNET_SIZE,
-                   gpt_cfg="gpt2-medium", seq=SEQ):
+                   gpt_cfg="gpt2-medium", seq=SEQ,
+                   blocks=RESNET_COMPILED_BLOCKS):
     """(c) ``jit.save`` with a None batch, ``jit.load`` and
     ``inference.create_predictor`` on the card, fp32, eval mode: ResNet-50
+    cut to ``blocks`` bottleneck blocks a stage (as (b))
     at batch 64 and 7, and a 2-layer GPT at gpt2-medium's width (its
     attention through kernel #1 inside the loaded program: two launches a
     run) at batch 2 and 3 (its logits, [b, 1024, 50304] in fp32, are read
@@ -5564,10 +5621,10 @@ def saved_programs(smi, resnet="resnet50", size=RESNET_SIZE,
     tmp = tempfile.mkdtemp(prefix="phase19_")
     try:
         paddle.seed(0)
-        net = getattr(vm, resnet)()
+        net = _cut_resnet(paddle, getattr(vm, resnet)(), blocks)
         net.eval()
         _predictor_check(
-            resnet, net, paddle.static.InputSpec([None, 3, size, size]),
+            f"{resnet} cut to {blocks} blocks a stage", net, paddle.static.InputSpec([None, 3, size, size]),
             (RESNET_BATCH, 7), lambda b: np.random.RandomState(b).randn(
                 b, 3, size, size).astype("float32"), tmp)
         base = gpt.GPT_CONFIGS[gpt_cfg] if isinstance(gpt_cfg, str) \
@@ -5683,7 +5740,8 @@ def compile_path(smi):
     try:
         for label, run in (("(e) opcheck", op_checks),
                            ("(a) compiled gpt", lambda smi: compiled_gpt(
-                               smi, layers=COMPILED_GPT_LAYERS)),
+                               smi, layers=COMPILED_GPT_LAYERS,
+                               persist_dir=PERSIST_DIR[0])),
                            ("(b) compiled resnet", compiled_resnet),
                            ("(c) saved programs", saved_programs),
                            ("(d) static program", static_program)):
@@ -5706,8 +5764,9 @@ def compile_path(smi):
 # ------------------------------------------------------------ phase 20
 
 # phase 19 (a)'s depth: inductor's cold compile of the 24-layer step took
-# 108-259 s, and phase 20 came after it in the same 1200 s
-COMPILED_GPT_LAYERS = 12
+# 108-259 s (63-77 s at 12 layers), and phases 20 and 21 came after it in
+# the same 1200 s
+COMPILED_GPT_LAYERS = 6
 
 # phase 20 (a): the segment cap for the run. A gpt2-medium step records
 # ~340 ops (14 a layer); the default cap (256, the reference's) would seal
@@ -5725,23 +5784,35 @@ def _rt_counts():
 
 
 def _rt_profile(step):
-    """One step under ``torch.profiler``: (device busy ms, kernels
-    launched, wall ms); None if the profiler saw no device time."""
-    from torch.profiler import ProfilerActivity, profile
+    """One step under ``torch.profiler``, after one warm-up step in the same
+    trace (a late trace can lose its first device records; the warm-up
+    step takes that loss): (device busy ms, kernels launched, wall ms) of
+    the second step, whose records are the ones that start after a 5 ms
+    pause between the two; None if the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    cuda_type = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.key_averages() if e.device_type == cuda_type
-               and e.key not in PHASES]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        time.sleep(0.005)
+        with record_function("profiled step"):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    window = next(e for e in events if e.name == "profiled step"
+                  and e.device_type == torch.autograd.DeviceType.CPU)
+    since = window.time_range.start - 2500   # us: inside the pause
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.time_range.start >= since
+               and e.name not in PHASES + ("profiled step",)]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     if busy <= 0:
         return None
-    return busy, sum(e.count for e in kernels), wall
+    return busy, len(kernels), wall
 
 
 def _rt_turns(label, steps, smi, turn_steps=RT_TURN_STEPS):
@@ -5889,12 +5960,11 @@ def runtime_gpt(smi):
               f"{lazy.REPLAY_STEPS}")
         check(caches1 == caches0, f"caches grew {caches0} -> {caches1}")
 
-        # kernel launches of a profiled step, both ways; the better of two
-        # reads each (a trace can lose early records)
+        # kernel launches of a profiled step, both ways (one read each)
         counts, prof = {}, {}
-        for mode in ("on", "off", "on", "off"):
+        for mode in ("on", "off"):
             got = _rt_profile(lambda: float(step(mode)))
-            if got is not None and got[1] >= counts.get(mode, 0):
+            if got is not None:
                 counts[mode], prof[mode] = got[1], got
         enable_eager_fusion(False)
         print(f"runtime gpt: kernels launched in a profiled step: fusion "
@@ -6112,12 +6182,526 @@ def steady_state_path(smi):
         f"{k} {v:.1f}" for k, v in times.items()) + f" on {smi}")
 
 
+# ------------------------------------------------------------ phase 21
+
+NATIVE_WATCHDOG_S = 420
+NATIVE_TURN_STEPS = 3
+PERSIST_STEPS = 3
+# phase 19 (a) stores its traced graph here (made by main, removed after
+# phase 21 (b)); phase 19 (a)'s first step's seconds, losses and counts
+PERSIST_DIR = [None]
+PERSIST = {}
+
+
+def _use_prong(native_on, core):
+    """The lazy window's native prong (``core``) or its Python prong."""
+    from paddle_tpu_torch._core import lazy
+    lazy._drive_retire()
+    lazy._NC, lazy._NC_TRIED = (core if native_on else None), True
+    lazy._DRIVE_OK = native_on
+
+
+class _RecordClock:
+    """Host time from a step's start to its ``backward()`` call: under the
+    window, the forward only records (``ms``, per step)."""
+
+    def __enter__(self):
+        from paddle_tpu_torch._core import autograd
+        self._mod, self._inner = autograd, autograd.backward
+        self.entered = None
+        inner = self._inner
+
+        def timed(*a, **k):
+            if self.entered is None:
+                self.entered = time.perf_counter()
+            return inner(*a, **k)
+        autograd.backward = timed
+        return self
+
+    def step(self, fn):
+        """Runs ``fn()`` to a synchronize: (its result, wall ms, record
+        ms)."""
+        self.entered = None
+        t0 = time.perf_counter()
+        out = fn()
+        float(out)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rec = (self.entered or t1) - t0
+        return out, (t1 - t0) * 1e3, rec * 1e3
+
+    def __exit__(self, *exc):
+        self._mod.backward = self._inner
+
+
+class _DrivenOps:
+    """Ops the whole-step driver recorded inside the block."""
+
+    def __enter__(self):
+        from paddle_tpu_torch._core import dispatch
+        self.n, self._d, self._inner = 0, dispatch, dispatch.NC_DRIVE
+        inner = self._inner
+
+        def counted(*a):
+            out = inner(*a)
+            self.n += out is not None
+            return out
+        dispatch.NC_DRIVE = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._d.NC_DRIVE = self._inner
+
+
+def _prong_turns(label, steps, smi, turn_steps=NATIVE_TURN_STEPS):
+    """``steps`` ({"native": step, "python": step}) in turns native,
+    python, python, native after a warm-up of each: each turn's ms, and
+    {mode: (median ms/step, median record ms)}."""
+    ms = {"native": [], "python": []}
+    rec = {"native": [], "python": []}
+    with _RecordClock() as clock:
+        for mode in ("native", "python"):
+            clock.step(steps[mode])
+        for mode in ("native", "python", "python", "native"):
+            turn = []
+            for _ in range(turn_steps):
+                _, dt, r = clock.step(steps[mode])
+                turn.append(dt)
+                rec[mode].append(r)
+            ms[mode] += turn
+            print(f"{label} turn {mode}: {[round(v, 2) for v in turn]} ms")
+    med = {m: (float(np.median(ms[m])), float(np.median(rec[m])))
+           for m in ms}
+    print(f"{label}: native {med['native'][0]:.2f} ms/step (recording "
+          f"{med['native'][1]:.2f} ms of host time), python "
+          f"{med['python'][0]:.2f} ms/step (recording "
+          f"{med['python'][1]:.2f} ms); native / python "
+          f"{med['native'][0] / med['python'][0]:.3f}x in turns on {smi}")
+    return med
+
+
+def _steady_counts(label, step):
+    """One steady step's executions, driven ops, FAST_OPS, REPLAY_STEPS
+    and recorded ops."""
+    from paddle_tpu_torch._core import dispatch, lazy
+    ctx = lazy.current_context()
+    n0, f0, r0 = dispatch.exec_count(), lazy.FAST_OPS, lazy.REPLAY_STEPS
+    o0 = ctx.ops_recorded
+    with _DrivenOps() as driven:
+        float(step())
+    got = dict(execs=dispatch.exec_count() - n0, driven=driven.n,
+               fast=lazy.FAST_OPS - f0, replay=lazy.REPLAY_STEPS - r0,
+               recorded=ctx.ops_recorded - o0)
+    print(f"{label}: a steady step: {got['execs']} executions, "
+          f"{got['recorded']} ops recorded, {got['fast']} of them on the "
+          f"fast path ({got['driven']} by the whole-step driver), "
+          f"REPLAY_STEPS +{got['replay']}")
+    return got
+
+
+def native_gpt(smi, core):
+    """Phase 21 (a): phase 20 (a)'s step under the window, native prong
+    against Python prong, each on its own model from seed 0."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import enable_eager_fusion
+    from paddle_tpu_torch.models import gpt
+    cfg = gpt.GPT_CONFIGS["gpt2-medium"]
+    paddle.set_device("gpu")
+    crit = gpt.GPTPretrainingCriterion()
+    pair, x, y = _rt_gpt_pair(paddle, gpt, cfg)
+    models = {"native": pair[0], "python": pair[1]}
+    del pair
+
+    def run(model, opt, grads=None):
+        with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = crit(model(x), y)
+        loss.backward()
+        if grads is not None:
+            grads.extend(p._t.grad.detach().clone()
+                         for p in model.parameters())
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    def step(mode, grads=None):
+        _use_prong(mode == "native", core)
+        return run(*models[mode], grads)
+
+    old_cap = paddle.get_flags("FLAGS_lazy_max_segment_ops")
+    paddle.set_flags({"FLAGS_lazy_max_segment_ops": RT_CAP})
+    enable_eager_fusion(True)
+    try:
+        losses = {"native": [], "python": []}
+        grads = {"native": [], "python": []}
+        for i in range(6):   # 3 compared, then to the step plan
+            for mode in ("native", "python"):
+                loss = step(mode, grads[mode] if i == 0 else None)
+                if i < 3:
+                    losses[mode].append(float(loss))
+        equal = all(torch.equal(a, b) for a, b in
+                    zip(grads["native"], grads["python"]))
+        print(f"native gpt: losses native {losses['native']}, python "
+              f"{losses['python']}; step 1's gradients bit-equal over "
+              f"{len(grads['native'])} leaves: {equal}")
+        check(losses["native"] == losses["python"],
+              f"native losses {losses['native']} != python "
+              f"{losses['python']}")
+        check(equal, "native gradients differ from python's")
+        del grads
+        counts = {m: _steady_counts(f"native gpt {m}",
+                                    lambda m=m: step(m))
+                  for m in ("native", "python")}
+        for key in ("execs", "fast", "replay", "recorded"):
+            check(counts["native"][key] == counts["python"][key],
+                  f"{key} differ: {counts}")
+        check(counts["native"]["execs"] == 2, f"executions {counts}")
+        check(counts["native"]["driven"] > 0
+              and counts["python"]["driven"] == 0,
+              f"driven ops {counts}")
+        check(counts["native"]["replay"] == 1, f"step plans {counts}")
+        kernels, prof = {}, {}
+        for mode in ("native", "python"):
+            got = _rt_profile(lambda: float(step(mode)))
+            if got is not None:
+                kernels[mode], prof[mode] = got[1], got
+        print(f"native gpt: kernels launched in a profiled step: native "
+              f"{kernels.get('native')}, python {kernels.get('python')}")
+        if kernels:
+            check(kernels.get("native") == kernels.get("python"),
+                  f"kernel launches a step differ: {kernels}")
+        med = _prong_turns("native gpt2-medium b8 s1024 bf16 O1 AdamW",
+                           {m: (lambda m=m: step(m))
+                            for m in ("native", "python")}, smi)
+        for mode in ("native", "python"):
+            idle = "not measured" if mode not in prof else \
+                f"{max(0.0, 1 - prof[mode][0] / med[mode][0]):.3f}"
+            busy = "not measured" if mode not in prof else \
+                f"{prof[mode][0]:.1f} ms"
+            print(f"native gpt {mode}: {med[mode][0]:.2f} ms/step, "
+                  f"recording {med[mode][1]:.2f} ms, device busy {busy}, "
+                  f"idle share {idle} on {smi}")
+    finally:
+        enable_eager_fusion(False)
+        _use_prong(True, core)
+        paddle.set_flags({"FLAGS_lazy_max_segment_ops": old_cap[
+            "FLAGS_lazy_max_segment_ops"]})
+
+
+def native_host_bound(smi, core):
+    """Phase 21 (a), continued: phase 14's Transformer-base and PTB LSTM
+    under the window, one model each trained by both prongs in turns."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import enable_eager_fusion
+    for label, build in (("transformer-base", _tb_build),
+                         ("ptb large LSTM", _ptb_build)):
+        torch.cuda.empty_cache()
+        _, step, _ = build(paddle)
+        enable_eager_fusion(True)
+        try:
+            for mode in ("native", "python") * 3:
+                _use_prong(mode == "native", core)
+                float(step())
+            counts = {}
+            for mode in ("native", "python"):
+                _use_prong(mode == "native", core)
+                counts[mode] = _steady_counts(f"{label} {mode}", step)
+            check(counts["native"]["execs"] == counts["python"]["execs"]
+                  and counts["native"]["fast"] == counts["python"]["fast"],
+                  f"{label} counts differ: {counts}")
+
+            def prong_step(mode):
+                _use_prong(mode == "native", core)
+                return step()
+            med = _prong_turns(label, {m: (lambda m=m: prong_step(m))
+                                       for m in ("native", "python")}, smi,
+                               turn_steps=2)
+            for mode in ("native", "python"):
+                got = _rt_profile(lambda: float(prong_step(mode)))
+                if got is not None:
+                    print(f"{label} {mode}: device busy {got[0]:.1f} ms of "
+                          f"{med[mode][0]:.2f} ms/step, idle share "
+                          f"{max(0.0, 1 - got[0] / med[mode][0]):.3f}, "
+                          f"{got[1]} kernels, recording "
+                          f"{med[mode][1]:.2f} ms")
+        finally:
+            enable_eager_fusion(False)
+            _use_prong(True, core)
+
+
+def _persist_run(paddle, gpt, cfg, x, y):
+    """Phase 19 (a)'s compiled GPT from seed 0, ``PERSIST_STEPS`` steps:
+    its first step's seconds, the losses, and its forward's cache entry."""
+    paddle.seed(0)
+    model = paddle.jit.to_static(gpt.GPTForPretraining(cfg))
+    crit = gpt.GPTPretrainingCriterion()
+    opt = paddle.optimizer.AdamW(1e-4, parameters=model.parameters())
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(PERSIST_STEPS):
+        losses.append(float(_eager_step(paddle, model, crit, opt, x, y,
+                                         "bfloat16")))
+        if i == 0:
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+    return first_s, losses, next(iter(model.forward._fwd_cache.values()))
+
+
+def persist_child(cache):
+    """``chip_smoke.py --persist-child <dir>``: phase 19 (a)'s compiled
+    GPT warm-started from ``<dir>``; then the stored entry corrupted and
+    the same model built and run again in this process (the load rejects
+    it and traces). Prints one JSON line: for each run its first step's
+    seconds, losses, traces, loads and the cache's counts, and inductor's
+    cache counts."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch._core import persist
+    from paddle_tpu_torch.models import gpt
+    from torch._dynamo.utils import counters
+    torch.backends.cuda.matmul.allow_tf32 = False   # as card() sets it
+    torch.backends.cudnn.allow_tf32 = False
+    paddle.set_flags({"FLAGS_executable_cache_dir": cache})
+    cfg = dataclasses.replace(gpt.GPT_CONFIGS["gpt2-medium"],
+                              num_layers=COMPILED_GPT_LAYERS)
+    rng = np.random.RandomState(0)
+    x = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (BATCH, SEQ)))
+    y = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (BATCH, SEQ)))
+    out = {}
+    for run in ("warm", "corrupt"):
+        if run == "corrupt":
+            entries = [f for f in os.listdir(cache) if f.endswith(".ptxc")]
+            path = os.path.join(cache, entries[0])
+            with open(path, "rb") as f:
+                body = bytearray(f.read())
+            body[len(body) // 2] ^= 0xFF
+            with open(path, "wb") as f:
+                f.write(body)
+        before = persist.counters()
+        first_s, losses, entry = _persist_run(paddle, gpt, cfg, x, y)
+        out[run] = {"first_s": first_s, "losses": losses,
+                    "traces": entry.traces, "loads": entry.loads,
+                    "persist": {k: v - before[k] for k, v in
+                                persist.counters().items()},
+                    "inductor": {k: v for k, v in {
+                        **counters["inductor"],
+                        **counters["aot_autograd"]}.items()
+                        if "cache" in k}}
+    print(json.dumps(out))
+    return 0
+
+
+def persist_path(smi):
+    """Phase 21 (b): a child process warm-starts phase 19 (a)'s compiled
+    GPT from the directory phase 19 (a) stored into, then corrupts the
+    entry and runs the model again (a reject and a new trace)."""
+    cache = PERSIST.get("dir")
+    check(cache is not None and "first_s" in PERSIST,
+          "phase 19 (a) stored nothing to warm-start from")
+    entries = sorted(f for f in os.listdir(cache) if f.endswith(".ptxc"))
+    print(f"persist: phase 19 (a) (cold, {COMPILED_GPT_LAYERS} layers): "
+          f"first step {PERSIST['first_s']:.1f} s, losses "
+          f"{PERSIST['losses']}, counts {PERSIST.get('cache.persist.store')}"
+          f" stored, {PERSIST.get('cache.persist.miss')} missed; entries "
+          f"{entries}")
+    check(len(entries) == 1, f"entries {entries}")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--persist-child", cache], capture_output=True,
+                          text=True, timeout=NATIVE_WATCHDOG_S)
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:])
+        print(proc.stderr[-3000:])
+    check(proc.returncode == 0, f"the child exited {proc.returncode}")
+    got = json.loads([ln for ln in proc.stdout.splitlines()
+                      if ln.startswith("{")][-1])
+    warm, bad = got["warm"], got["corrupt"]
+    print(f"persist warm child: first step {warm['first_s']:.1f} s "
+          f"against {PERSIST['first_s']:.1f} s cold, traces "
+          f"{warm['traces']}, loads {warm['loads']}, counts "
+          f"{warm['persist']}, inductor {warm['inductor']}, losses "
+          f"{warm['losses']} (cold {PERSIST['losses']}, bit-equal: "
+          f"{warm['losses'] == PERSIST['losses']})")
+    check(warm["persist"]["cache.persist.hit"] == 1 and warm["traces"] == 0,
+          f"the warm child did not load: {warm}")
+    if warm["losses"] != PERSIST["losses"]:
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(warm["losses"], PERSIST["losses"]))
+        print(f"persist: warm losses {rel:.3g} relative from cold")
+        check(rel <= COMPILE_LOSS_REL, f"warm losses off by {rel}")
+    print(f"persist, the same child after corrupting its entry: first step "
+          f"{bad['first_s']:.1f} s, traces {bad['traces']}, counts "
+          f"{bad['persist']}, losses {bad['losses']} (bit-equal to the "
+          f"warm run: {bad['losses'] == warm['losses']}) on {smi}")
+    check(bad["persist"]["cache.persist.reject"] == 1
+          and bad["persist"]["cache.persist.store"] == 1
+          and bad["traces"] == 1, f"the corrupt entry was not rejected: "
+          f"{bad}")
+    check(bad["losses"] == warm["losses"] or max(
+        abs(a - b) / abs(b) for a, b in zip(bad["losses"], warm["losses"]))
+        <= COMPILE_LOSS_REL, f"losses after the reject {bad['losses']}")
+
+
+def _comm_entries(paddle, D):
+    """Each communication entry once on a CUDA tensor of the one-rank
+    group, against its value there (the identity, as the reference's)."""
+    def t(v):
+        return paddle.to_tensor(np.asarray(v, "float32"))
+    base = np.arange(6, dtype="float32").reshape(2, 3) + 1
+    out = {}
+    for op in ("sum", "max", "min", "prod", "avg"):
+        x = t(base)
+        D.all_reduce(x, op=op)
+        out[f"all_reduce {op}"] = (x, base)
+    x = t(base)
+    D.broadcast(x, src=0)
+    out["broadcast"] = (x, base)
+    x = t(base)
+    D.reduce(x, dst=0)
+    out["reduce"] = (x, base)
+    x = t(np.zeros(3))
+    D.reduce_scatter(x, [t([4, 5, 6])])
+    out["reduce_scatter"] = (x, np.array([4, 5, 6], "float32"))
+    x = t(np.zeros(3))
+    D.scatter(x, [t([7, 8, 9])], src=0)
+    out["scatter"] = (x, np.array([7, 8, 9], "float32"))
+    got = D.all_gather([], t(base))
+    out["all_gather"] = (got[0], base)
+    got = D.gather(t(base), [], dst=0)
+    out["gather"] = (got[0], base)
+    got = D.alltoall([], [t(base)])
+    out["alltoall"] = (got[0], base)
+    x = t(base)
+    D.stream.all_reduce(x)
+    D.wait(x)
+    out["stream.all_reduce + wait"] = (x, base)
+    ok = {}
+    for name, (got, want) in out.items():
+        ok[name] = got._t.is_cuda and bool(np.array_equal(got.numpy(), want))
+    ok["all_gather_object"] = D.all_gather_object([], {"a": 1}) == [{"a": 1}]
+    ok["broadcast_object_list"] = D.broadcast_object_list([3, "b"]) \
+        == [3, "b"]
+    D.barrier()
+    ok["barrier"] = True
+    for fn in (D.send, D.recv, D.isend, D.irecv):
+        try:
+            fn(t(base), 0)
+            ok[fn.__name__ + " raises"] = False
+        except RuntimeError:
+            ok[fn.__name__ + " raises"] = True
+    ok["get_backend NCCL"] = D.get_backend() == "NCCL"
+    return ok
+
+
+def data_parallel_path(smi):
+    """Phase 21 (c): phase 10's eager step through ``DataParallel`` on a
+    one-rank NCCL group against the step itself."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.models import gpt
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    D.init_parallel_env(f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                        world_size=1)
+    try:
+        cfg = gpt.GPT_CONFIGS["gpt2-medium"]
+        paddle.set_device("gpu")
+        rng = np.random.RandomState(0)
+        x = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (BATCH, SEQ)))
+        y = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (BATCH, SEQ)))
+        crit = gpt.GPTPretrainingCriterion()
+        runs = {}
+        for name in ("plain", "dp"):
+            paddle.seed(0)
+            model = gpt.GPTForPretraining(cfg)
+            wrapped = D.DataParallel(model) if name == "dp" else model
+            runs[name] = (wrapped, model, paddle.optimizer.AdamW(
+                1e-4, parameters=model.parameters()))
+
+        def step(name):
+            wrapped, _, opt = runs[name]
+            return _eager_step(paddle, wrapped, crit, opt, x, y, "bfloat16")
+
+        losses, grads = {"plain": [], "dp": []}, {}
+        for name in ("plain", "dp"):
+            _, model, opt = runs[name]
+            loss, grads[name] = _step_grads(opt, list(model.parameters()),
+                                            lambda: step(name))
+            losses[name].append(float(loss))
+        equal = all(torch.equal(a, b) for a, b in
+                    zip(grads["plain"], grads["dp"]))
+        del grads
+        for _ in range(2):
+            for name in ("plain", "dp"):
+                losses[name].append(float(step(name)))
+        dp = runs["dp"][0]
+        print(f"data parallel (one-rank NCCL group): losses {losses['dp']} "
+              f"against phase 10's step {losses['plain']}; step 1's "
+              f"gradients bit-equal: {equal}; a step's reducer: "
+              f"{dp.last_buckets} buckets of {dp._bucket_bytes / 2**20:.0f} "
+              f"MB, {dp.last_collectives} collectives (1 gloo over host "
+              f"flags, {dp.last_buckets} NCCL all_reduce)")
+        check(losses["dp"] == losses["plain"], f"losses {losses}")
+        check(equal, "DataParallel gradients differ from phase 10's")
+        check(dp.last_buckets > 1 and dp.last_collectives
+              == dp.last_buckets + 1, f"buckets {dp.last_buckets}")
+        ms = {"plain": [], "dp": []}
+        for name in ("plain", "dp", "dp", "plain"):
+            float(step(name))
+            torch.cuda.synchronize()
+            ms[name] += _turns(lambda *_: step(name), None, None, None,
+                               NATIVE_TURN_STEPS)
+        med = {k: float(np.median(v)) for k, v in ms.items()}
+        print(f"data parallel: {med['dp']:.2f} ms/step against phase 10's "
+              f"step {med['plain']:.2f} ({med['dp'] / med['plain']:.3f}x) "
+              f"in turns on {smi}")
+        del runs, dp
+        torch.cuda.empty_cache()
+        ok = _comm_entries(paddle, D)
+        print(f"communication entries on a CUDA tensor at world size 1: "
+              f"{ok}")
+        check(all(ok.values()), f"communication entries {ok}")
+    finally:
+        D.destroy_process_group()
+
+
+def native_runtime_path(smi):
+    """Phase 21: the native record core and driver (a), the persistent
+    compile cache (b), DataParallel and the communication API (c)."""
+    from paddle_tpu_torch._core import lazy, native
+    phase("21 the native runtime and eager communication")
+    times = {}
+    try:
+        t0 = time.perf_counter()
+        core = lazy._NC if lazy._NC_TRIED else lazy._native_core()
+        check(core is not None and lazy._DRIVE_OK,
+              f"native record core: {native.EAGER_CORE_ERROR}")
+        print(f"native record core: {core.__file__} ({native.RUNTIME_SO} "
+              f"beside it) in {time.perf_counter() - t0:.1f} s")
+        for label, run in (("(a) native gpt", lambda: native_gpt(smi, core)),
+                           ("(a) host-bound models",
+                            lambda: native_host_bound(smi, core)),
+                           ("(b) persist", lambda: persist_path(smi)),
+                           ("(c) data parallel",
+                            lambda: data_parallel_path(smi))):
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            print(f"-- 21 {label}", flush=True)
+            run()
+            times[label] = time.perf_counter() - t0
+    finally:
+        if PERSIST_DIR[0] is not None:
+            shutil.rmtree(PERSIST_DIR[0], ignore_errors=True)
+    print("phase 21 seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in times.items()) + f" on {smi}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--persist-child"]:
+        return persist_child(sys.argv[2])
     name, count, smi = card()
     build()
+    import tempfile
+    PERSIST_DIR[0] = tempfile.mkdtemp(prefix="persist_")
     with watchdog("phase 3 (kernel checks)", 300):
         errs, varlen_results, flashmask_expected, fused_expected = \
             kernel_checks()
@@ -6175,6 +6759,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with watchdog("phase 20 (the steady-state runtime)", 300):
         steady_state_path(smi)
+    torch.cuda.empty_cache()
+    with watchdog("phase 21 (the native runtime)", NATIVE_WATCHDOG_S):
+        native_runtime_path(smi)
     phase("16 results")
     for label, (d_ms, d_plain, d_lib, d_bnd) in (
             ("head_dim 256", d256), ("head_dim 512", d512),

@@ -42,6 +42,7 @@ import importlib as _importlib  # noqa: E402
 linalg = _importlib.import_module(".linalg", __name__)
 from ._core.op_registry import call as apply, register_op  # noqa: F401,E402
 from .nn.layer import create_parameter  # noqa: F401,E402
+from .distributed.parallel import DataParallel  # noqa: F401,E402
 from .ops import _helper as _ops_helper  # noqa: E402
 
 _ops_helper.attach_tensor_methods()  # with the activations nn registered

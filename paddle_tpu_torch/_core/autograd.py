@@ -5,7 +5,10 @@ torch's autograd.
 The engine is torch's: a ``Tensor``'s payload carries its graph, and
 ``.grad`` of a leaf accumulates across ``backward`` calls until
 ``clear_grad``, as the reference's does. ``backward`` tries the lazy
-window's fused forward+backward first (``lazy.try_fused_backward``).
+window's fused forward+backward first (``lazy.try_fused_backward``); after
+either, the callbacks of ``register_post_backward_callback`` run (the
+``DataParallel`` reducer). The reference's in-degree walk (its engine's
+``discover``) has no counterpart: torch's engine orders the backward.
 """
 from __future__ import annotations
 
@@ -47,6 +50,23 @@ def _seeds(tensors, grad_tensors):
                    for r, g in zip(roots, grads)]
 
 
+_post_backward_callbacks = []
+
+
+def register_post_backward_callback(fn):
+    """Runs ``fn()`` after every completed ``backward()``, fused or not: the
+    hook the ``DataParallel`` reducer averages gradients from. Returns a
+    function that removes it."""
+    _post_backward_callbacks.append(fn)
+
+    def _remove():
+        try:
+            _post_backward_callbacks.remove(fn)
+        except ValueError:
+            pass
+    return _remove
+
+
 def backward(tensors, grad_tensors=None, retain_graph: bool = False) -> None:
     """``paddle.autograd.backward``: gradients of ``tensors`` into the
     ``.grad`` of the leaves they depend on. A scalar root still pending in
@@ -54,12 +74,13 @@ def backward(tensors, grad_tensors=None, retain_graph: bool = False) -> None:
     the segment's forward and this backward as one runner call), as the
     reference's engine does."""
     tensors = _as_list(tensors)
-    if not retain_graph and lazy.try_fused_backward(
+    if retain_graph or not lazy.try_fused_backward(
             tensors, None if grad_tensors is None
             else _as_list(grad_tensors)):
-        return
-    roots, grads = _seeds(tensors, grad_tensors)
-    torch.autograd.backward(roots, grads, retain_graph=retain_graph)
+        roots, grads = _seeds(tensors, grad_tensors)
+        torch.autograd.backward(roots, grads, retain_graph=retain_graph)
+    for cb in list(_post_backward_callbacks):
+        cb()
 
 
 def grad(outputs, inputs, grad_outputs=None,

@@ -18,6 +18,9 @@ that carry only raw ``torch.Tensor``s never record: the compiled trainers,
 ``make_fx`` tracing inside ``to_static`` and ``static``'s recorder stay
 out of any window.
 
+While the lazy window's whole-step driver is armed (``DRIVE_CELL``), one
+native call records each op before any of the above.
+
 ``exec_count()`` counts executions: one for each eager op run outside a
 window and one for each segment run (a fused forward+backward is one, an
 optimizer step is one); not kernel launches, of which one segment run
@@ -40,6 +43,11 @@ STATIC_HOOK: Optional[Callable] = None
 # answers the calling thread's context (both kept by _core/lazy.py)
 LAZY_GATE = False
 LAZY_CONTEXT: Optional[Callable] = None
+
+# the whole-step driver of the lazy window (_core/lazy.py): the armed
+# _DriveState or None, and the native call that records one op of it
+DRIVE_CELL: list = [None]
+NC_DRIVE: Optional[Callable] = None
 
 _EXECS = [0]
 _Tensor = None
@@ -94,6 +102,13 @@ def wrap(out):
 
 def apply(name: str, fn: Callable, *inputs, **attrs):
     """Runs op ``name`` as ``fn(*payloads, **attrs)``."""
+    d = DRIVE_CELL[0]
+    if d is not None:
+        # an armed step plan: one native call records the op, or retires
+        # the driver (None) and the op takes the path below
+        out = NC_DRIVE(d, name, fn, inputs, attrs)
+        if out is not None:
+            return out
     Tensor = _Tensor or _tensor_cls()
     if STATIC_HOOK is not None:
         return STATIC_HOOK(name, fn, list(inputs), attrs)

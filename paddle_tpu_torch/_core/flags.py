@@ -6,9 +6,11 @@ of the flag's name overrides the default when the flag is defined.
 (``paddle.get_flags`` / ``paddle.set_flags``), and ``watch_flag`` lets a
 module keep a cached copy in step with ``set_flags``. The flags defined
 here are those the compile path reads (``jit``, ``static``, ``ir``,
-``inference``, ``onnx``) and those of the steady-state runtime
+``inference``, ``onnx``), those of the steady-state runtime
 (``_core/lazy.py``, ``_core/cache.py``, ``_core/async_flush.py``,
-``jit/sot``), with the reference's names and defaults except one:
+``jit/sot``, ``_core/persist.py``) and those of the native runtime and the
+eager communication API (``_core/native.py``, ``distributed/store.py``,
+``distributed/parallel.py``), with the reference's names and defaults except one:
 ``FLAGS_eager_fusion`` is off by default here (the card's stream already
 runs ahead of the host; ``ROADMAP.md`` §3).
 """
@@ -162,3 +164,27 @@ define_flag("FLAGS_sot_guard_size_cap", 64,
             "inputs refuse the fast path instead.")
 define_flag("FLAGS_guard_log", False,
             "Print each SOT guard miss (the failing guards).")
+define_flag("FLAGS_executable_cache_dir", "",
+            "Persistent compile cache directory ('' = off): the traced "
+            "graphs of to_static and of SOT's fast path are stored under a "
+            "digest of their cache key, with a checksum and the torch, CUDA "
+            "and device stamps, and a later process loads them instead of "
+            "tracing again; inductor's FX-graph and AOTAutograd caches go "
+            "to its 'inductor' subdirectory while it is set.")
+define_flag("FLAGS_executable_cache_disk_max_mb", 512,
+            "Persistent compile cache disk budget in MB: after each store, "
+            "the oldest entries are pruned until the directory fits (0 = "
+            "unbounded).")
+
+# ---- the native runtime and the eager communication API
+define_flag("FLAGS_host_alloc_chunk_kb", 256,
+            "Native host allocator pool chunk size in KB "
+            "(csrc/allocator.cc pt_alloc_create).")
+define_flag("FLAGS_tcp_store_timeout_s", 300.0,
+            "TCPStore client connect/get timeout in seconds.")
+define_flag("FLAGS_fuse_buffer_size_mb", 25,
+            "DataParallel gradient-fusion bucket size in MB "
+            "(reducer comm_buffer_size default).")
+define_flag("FLAGS_dp_broadcast_params", True,
+            "DataParallel broadcasts parameters from rank 0 at wrap "
+            "time so replicas start identical.")

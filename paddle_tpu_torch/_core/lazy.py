@@ -37,6 +37,20 @@ the next sync point: a value read (``Tensor._t``, ``numpy()``,
   the signature rebuild (a step plan, ``REPLAY_STEPS``). Shape drift,
   ``set_flags`` of a watched flag, an in-place swap mid-segment and a
   grad-mode flip demote it.
+- Two prongs do that work. The Python prong (``_record_fast``, the
+  ``_SIG_ENTRY_INTERN`` pool, ``_AVAL_CACHE``) stands alone. The native
+  prong (``_native_core()``: ``paddle_tpu_torch/csrc/eager_core.cc``, built
+  at first use by ``_core/native.py``) replays a skeleton record in one C
+  call (``skel_record``), keeps the metadata cache and the attrs keys in C
+  and interns signature entries into the same pool; once a shape has a step
+  plan, the whole-step driver (``_DriveState`` in ``_DRIVE_CELL``) takes
+  each later op of the segment in one C call from ``dispatch.apply``
+  (``drive_record``) and retires itself at the plan's end, the segment cap,
+  a generation bump (``_FAST_GEN_CELL``: a watched ``set_flags``), an
+  in-place swap, a grad-mode flip, shape drift or any other mismatch. Both
+  prongs give the same op list, the same ``FAST_OPS`` and ``REPLAY_STEPS``
+  and the same executions; tests force one by setting ``_NC`` and
+  ``_NC_TRIED`` (and ``_DRIVE_OK``).
 
 ``FLAGS_eager_fusion`` is off by default in the port (``ROADMAP.md`` §3):
 on the card the stream already runs ahead of the host, and a window whose
@@ -46,14 +60,14 @@ replay as CUDA graphs.
 Left out, each waiting for its plane: the reference's observability
 spans, metrics and ``PERF_OBSERVER`` (``ROADMAP.md`` §1 item 9), the
 sanitizer's checks and NaN scan, memory telemetry and OOM conversion,
-``MESH_EPOCH`` / ``SPMD`` (items 8 and 9), donation of dead inputs (torch
-frees them by reference count), the persistent executable cache
-(``persist.py``) and the native record core and whole-step driver
-(``native.py``), both queued as the next ``bring_up`` (item 7's rest).
+``MESH_EPOCH`` / ``SPMD`` (items 8 and 9) and donation of dead inputs
+(torch frees them by reference count). A segment compiles nothing here, so
+the persistent cache (``persist.py``) has nothing of the window's to store.
 """
 from __future__ import annotations
 
 import struct
+import sys
 import threading
 import weakref
 from typing import Any, Dict, List, Optional, Tuple
@@ -78,13 +92,24 @@ _FAST_PATH = True
 _FAST_GEN = 0
 _STEP_REPLAY_AFTER = 3
 
+# ---- the native prong (see the module docstring): the extension once
+# resolved (None: the Python prong), the C mirror of _FAST_GEN, and the
+# whole-step driver's cell (shared with dispatch.apply, which reads it
+# first for every op)
+_NC = None
+_NC_TRIED = False
+_DRIVE_OK = False
+_FAST_GEN_CELL: list = [0]
+_DRIVE_CELL: list = dispatch.DRIVE_CELL
+
 
 def invalidate_skeletons(_value=None) -> int:
     """Bump the skeleton generation: every context drops its armed record
     skeleton at its next fast record (re-armed at the next memo-proven
-    seal)."""
+    seal), and an armed whole-step drive retires at its next op."""
     global _FAST_GEN
     _FAST_GEN += 1
+    _FAST_GEN_CELL[0] = _FAST_GEN
     return _FAST_GEN
 
 
@@ -117,12 +142,14 @@ def _sync_gate():
 def _set_lazy_enable(v):
     global _LAZY_ENABLE
     _LAZY_ENABLE = bool(v)
+    _drive_retire()
     _sync_gate()
 
 
 def _set_eager_fusion(v):
     global _EAGER_FUSION
     _EAGER_FUSION = bool(v)
+    _drive_retire()
     _sync_gate()
     if not _EAGER_FUSION:
         # land the calling thread's ambient segment now and retire it:
@@ -211,11 +238,48 @@ def _sig_const(v):
 _SIG_ENTRY_INTERN: Dict[Tuple, Tuple] = {}
 
 
+def _native_core():
+    """The native prong, resolved once (``_NC``; None: the Python prong):
+    the extension's classes, pools and the driver's cells are bound here."""
+    global _NC, _NC_TRIED, _DRIVE_OK
+    _NC_TRIED = True
+    from . import native
+    ec = native.get_eager_core()
+    if ec is None:
+        return None
+    from ..amp.auto_cast import _STATE, state_key
+    from .tensor import Tensor
+    ec.bind_types(LazyRef, Tensor, _PendingOp, torch.Tensor, torch.dtype,
+                  torch.is_grad_enabled, _SIG_ENTRY_INTERN, dispatch,
+                  _STATE, state_key, sys.modules[__name__])
+    _DRIVE_OK = bool(ec.bind_drive(_DriveState, _FAST_GEN_CELL, _DRIVE_CELL))
+    if _DRIVE_OK:
+        dispatch.NC_DRIVE = ec.drive_record
+    _NC = ec
+    return ec
+
+
 def _intern_sig_entry(entry: Tuple) -> Tuple:
+    nc = _NC if _NC_TRIED else _native_core()
+    if nc is not None:
+        return nc.sig_entry(entry)
     e = _SIG_ENTRY_INTERN.setdefault(entry, entry)
     if len(_SIG_ENTRY_INTERN) > 65536:
         _SIG_ENTRY_INTERN.clear()
     return e
+
+
+def _attrs_key(attrs):
+    """The sorted (name, constant key) tuple of an op's attrs, or None."""
+    nc = _NC if _NC_TRIED else _native_core()
+    if nc is not None:
+        akey = nc.attrs_key(attrs)
+        if akey is not None:
+            return akey
+    try:
+        return tuple(sorted((k, _const_key(v)) for k, v in attrs.items()))
+    except TypeError:
+        return None
 
 
 def _meta_of(v) -> Tuple:
@@ -488,7 +552,7 @@ class _Skeleton:
     (live tuple, signature) that lets the seal skip the signature
     rebuild."""
 
-    __slots__ = ("ops", "in_sig", "gen", "streak", "plan")
+    __slots__ = ("ops", "ctups", "in_sig", "gen", "streak", "plan")
 
 
 def _consts_equal(a, b) -> bool:
@@ -513,6 +577,55 @@ def _consts_equal(a, b) -> bool:
             if kx is None or kx != _const_key(y):
                 return False
     return True
+
+
+# --------------------------------------------------------------- driver
+
+class _DriveState:
+    """What ``drive_record`` reads and moves for each op of an armed step
+    plan: the plan's skeleton ops (``ctups``) and sealed input metadata,
+    the context's current segment lists (the objects the context holds; the
+    driver appends to them), the skeleton generation, the segment cap, the
+    owning thread and the cursor. Each driven op also advances the
+    context's ``_skel_pos``, ``_fast_ops`` and ``ops_recorded`` and
+    ``FAST_OPS``, as a fast record does: none of them is stale while the
+    driver is armed."""
+
+    __slots__ = ("ctx", "ctups", "in_sig", "in_ids", "in_tensors",
+                 "in_vals", "in_pins", "pending", "sig_ops", "pinned",
+                 "pos", "gen", "cap", "tid")
+
+
+def _arm_drive(ctx, sk):
+    """Hand the rest of ``ctx``'s segment to the native driver: called
+    after a native fast record of a skeleton that has a step plan."""
+    d = _DriveState()
+    d.ctx = ctx
+    d.ctups = sk.ctups
+    d.in_sig = sk.in_sig
+    d.in_ids = ctx._in_ids
+    d.in_tensors = ctx._in_tensors
+    d.in_vals = ctx._in_vals
+    d.in_pins = ctx._in_pins
+    d.pending = ctx.pending
+    d.sig_ops = ctx._sig_ops
+    d.pinned = ctx.on_flush is not None
+    d.pos = ctx._skel_pos
+    d.gen = sk.gen
+    cap = ctx._max_override
+    d.cap = _MAX_SEG_OPS if cap is None else cap
+    d.tid = threading.get_ident()
+    _DRIVE_CELL[0] = d
+
+
+def _drive_retire(ctx=None):
+    """Retire an armed drive (``ctx``'s, or any): where the context
+    replaces the lists the driver appends to or drops its skeleton (seal,
+    reset, an in-place swap), and where what an op does changes (a guard
+    opens or closes, the window is switched, tracing suspends it)."""
+    d = _DRIVE_CELL[0]
+    if d is not None and (ctx is None or d.ctx is ctx):
+        _DRIVE_CELL[0] = None
 
 
 # --------------------------------------------------------------- context
@@ -565,6 +678,7 @@ class CaptureContext:
         the registered snapshot (eager ordering); later records register
         the fresh payload. A swap mid-segment also drops the record
         skeleton: the input stream is re-keyed under the replay."""
+        _drive_retire(self)
         self._in_ids.pop(id(tensor), None)
         if self.pending:
             sk = self._skeleton
@@ -731,6 +845,25 @@ class CaptureContext:
         FAST_OPS += 1
         return outs[0] if s.multi is None else s.multi(outs)
 
+    def _record_native(self, name, fn, inputs, attrs):
+        """``_record_fast`` in one call of the native core; where C cannot
+        judge an op (``NotImplemented``) the Python fast path does."""
+        sk = self._skeleton
+        if sk is None:
+            sk = self._select_skel(name)
+        if sk is None or sk.gen != _FAST_GEN or self._skel_pos >= len(sk.ops):
+            self._skel_live = False
+            if sk is not None and sk.gen != _FAST_GEN:
+                self._skeleton = None
+            return None
+        outs = _NC.skel_record(self, sk.ctups, sk.in_sig, name, fn, inputs,
+                               attrs)
+        if outs is NotImplemented:
+            return self._record_fast(name, fn, inputs, attrs)
+        if outs is None:
+            self._skel_live = False
+        return outs
+
     def _build_skeleton(self, in_sig):
         ops = []
         for pop, entry in zip(self.pending, self._sig_ops):
@@ -750,6 +883,9 @@ class CaptureContext:
             ops.append(s)
         sk = _Skeleton()
         sk.ops = ops
+        sk.ctups = [(s.name, s.fn, s.attrs, tuple(s.kvals), s.wiring,
+                     s.out_metas, s.multi, s.grad, s.amp_key, s.req, s.entry)
+                    for s in ops]
         sk.in_sig = in_sig
         sk.gen = _FAST_GEN
         sk.streak = 0
@@ -772,12 +908,19 @@ class CaptureContext:
         ``dispatch.NOT_RECORDED`` when the op cannot be recorded (the
         window was flushed; the caller runs it eagerly)."""
         if self._skel_live and _FAST_PATH:
-            outs = self._record_fast(name, fn, inputs, attrs)
+            nc = _NC if _NC_TRIED else _native_core()
+            fast = self._record_fast if nc is None else self._record_native
+            outs = fast(name, fn, inputs, attrs)
             if outs is None and self._skeleton is not None \
                     and self._switch_skel(name) is not None:
                 self._skel_live = True
-                outs = self._record_fast(name, fn, inputs, attrs)
+                outs = fast(name, fn, inputs, attrs)
             if outs is not None:
+                sk = self._skeleton
+                if nc is not None and _DRIVE_OK and sk.plan is not None \
+                        and _DRIVE_CELL[0] is None \
+                        and self._skel_pos < len(sk.ops):
+                    _arm_drive(self, sk)
                 return outs
         from .tensor import Tensor
         grad = torch.is_grad_enabled()
@@ -817,10 +960,7 @@ class CaptureContext:
             kvals.append(None)
             ckeys.append(None)
             req = req or m[3]
-        try:
-            akey = tuple(sorted((k, _const_key(v)) for k, v in attrs.items()))
-        except TypeError:
-            akey = None
+        akey = _attrs_key(attrs)
         try:
             out_metas, multi = _out_metas(name, fn, attrs, akey, kvals,
                                           ckeys, metas, grad, amp, amp_key)
@@ -863,6 +1003,7 @@ class CaptureContext:
             self.flush("segment_cap")
 
     def _reset_segment(self):
+        _drive_retire(self)
         self.pending = []
         self._in_ids = {}
         self._in_tensors = []
@@ -943,6 +1084,7 @@ class CaptureContext:
     def _seal(self):
         """(pending, in_vals, in_tensors, live, live_refs, sig) of the
         current segment."""
+        _drive_retire(self)
         pending = self.pending
         in_vals = self._in_vals
         in_tensors = [r() for r in self._in_tensors]
@@ -1056,15 +1198,22 @@ def _out_metas(name, fn, attrs, akey, kvals, ckeys, metas, grad, amp,
     holds ``fn`` by id and the entry a weak reference to it (checked on a
     hit), so a cached closure never keeps what it captured alive."""
     key = None
+    nc = _NC if _NC_TRIED else _native_core()
     if akey is not None and all(c is not None for c, m in zip(ckeys, metas)
                                 if m is None):
         try:
             key = (name, id(fn), akey, tuple(ckeys), tuple(metas), grad,
                    amp_key)
-            hash(key)
+            if nc is not None:
+                hit = nc.meta_get(name, fn, akey, key[3], key[4], grad,
+                                  amp_key)
+                if hit is not None:
+                    return hit
+            else:
+                hash(key)
         except TypeError:
             key = None
-    if key is not None:
+    if key is not None and nc is None:
         hit = _AVAL_CACHE.get(key)
         if hit is not None and (hit[0] is None or hit[0]() is fn):
             return hit[1]
@@ -1103,7 +1252,10 @@ def _out_metas(name, fn, attrs, akey, kvals, ckeys, metas, grad, amp,
                           dev if dev is not None else torch.device("cpu"),
                           bool(o.requires_grad)))
     res = (tuple(metas_out), multi)
-    if key is not None:
+    if key is not None and nc is not None:
+        nc.meta_put(name, fn, akey, key[3], key[4], grad, amp_key, res,
+                    _flags.flag_value("FLAGS_executable_cache_capacity"))
+    elif key is not None:
         try:
             fn_ref = weakref.ref(fn)
         except TypeError:   # a method descriptor: as long-lived as torch
@@ -1118,7 +1270,8 @@ class ReplayableSegment:
     """A captured segment that runs directly on fresh input tensors: the
     compiled body of SOT's guarded fast path. Its ops are traced once with
     ``make_fx`` and compiled by ``jit.api.compile_traced`` (inductor on the
-    card, ``aot_eager`` on the CPU), so a kernel op stays one
+    card, ``aot_eager`` on the CPU; the traced graph persists under
+    ``FLAGS_executable_cache_dir``), so a kernel op stays one
     ``torch.library`` node of the graph; replay skips recording."""
 
     def __init__(self, pending, live, in_vals):
@@ -1137,9 +1290,18 @@ class ReplayableSegment:
 
             def body(*vals):
                 return tuple(runner(pending, list(vals)))
-            self._compiled = compile_traced(body, list(in_vals), None,
-                                            self.graphs)
+            self._compiled = compile_traced(
+                body, list(in_vals), None, self.graphs,
+                persist_key=self._persist_key())
         return self._compiled
+
+    def _persist_key(self):
+        """The segment's ops and live outputs: what names its trace across
+        processes (``_core/persist.py`` refuses one holding a value its
+        repr does not show, such as an array an op body closes over)."""
+        return ("sot", tuple((p.name, p.fn, p.attrs, tuple(p.kvals),
+                              p.wiring, p.multi, p.grad, p.amp_key)
+                             for p in self.pending), tuple(self.live))
 
     def run(self, in_tensors):
         from .tensor import Tensor
@@ -1206,6 +1368,7 @@ class suspended:
     tensors, and those calls must reach the tracer, not a segment."""
 
     def __enter__(self):
+        _drive_retire()
         _TLS.suspend += 1
 
     def __exit__(self, *exc):
@@ -1320,6 +1483,7 @@ class lazy_guard:
 
     def __enter__(self) -> CaptureContext:
         global _GUARDS_OPEN
+        _drive_retire()
         self.ctx = CaptureContext(self._max)
         if _flags.flag_value("FLAGS_lazy_enable"):
             _TLS.active.append(self.ctx)
@@ -1334,6 +1498,7 @@ class lazy_guard:
         global _GUARDS_OPEN
         if not self._active:
             return False
+        _drive_retire()
         _TLS.active.pop()
         with _GATE_LOCK:
             _GUARDS_OPEN -= 1
@@ -1355,10 +1520,19 @@ def segment_cache_size() -> int:
     return len(_SEG_CACHE)
 
 
+def metadata_cache_size() -> int:
+    """Entries of the record-time metadata cache of the prong in use."""
+    if _NC is not None:
+        return _NC.intern_sizes()["meta_cache"]
+    return len(_AVAL_CACHE)
+
+
 def clear_segment_cache():
     _SEG_CACHE.clear()
     _FUSED_CACHE.clear()
     _AVAL_CACHE.clear()
+    if _NC is not None:
+        _NC.meta_clear()
 
 
 _flags.watch_flag("FLAGS_lazy_enable", _set_lazy_enable)

@@ -3,8 +3,9 @@
 
 One process per rank. ``init_parallel_env`` joins this process to the
 job's default process group over ``torch.distributed``: NCCL, one rank per
-card, unless the caller asks for the CPU (``device="cpu"``), which takes
-gloo. The rendezvous is ``init_method`` when given (``file://...`` or
+card (with gloo beside it for CPU tensors), unless the caller asks for the
+CPU (``device="cpu"``), which takes gloo alone. The rendezvous is
+``init_method`` when given (``file://...`` or
 ``tcp://host:port``), else the environment (``MASTER_ADDR`` and
 ``MASTER_PORT``, as ``torchrun`` sets them). Rank and world size come from
 the arguments, else from ``RANK``/``WORLD_SIZE``, else from the
@@ -75,8 +76,9 @@ def init_parallel_env(init_method: Optional[str] = None,
                       world_size: Optional[int] = None,
                       device: DeviceLike = None) -> ParallelEnv:
     """Join the default process group (once; later calls return the
-    environment). ``device`` None or CUDA: NCCL, and this process's card
-    becomes ``cuda:<local rank>``; ``"cpu"``: gloo."""
+    environment). ``device`` None or CUDA: NCCL for CUDA tensors and gloo
+    for CPU ones, and this process's card becomes ``cuda:<local rank>``;
+    ``"cpu"``: gloo."""
     if dist.is_initialized():
         return ParallelEnv()
     env = ParallelEnv()
@@ -90,7 +92,10 @@ def init_parallel_env(init_method: Optional[str] = None,
         # (``chip_nccl_probe.py``); the mesh trainers call ~300 a step.
         # Set the variable to keep it.
         os.environ.setdefault("TORCH_NCCL_TRACE_BUFFER_SIZE", "0")
-        backend = "nccl"
+        # NCCL for CUDA tensors, gloo for CPU ones (the eager
+        # communication API takes both; DataParallel's reducer agrees on
+        # its buckets over the host)
+        backend = "cpu:gloo,cuda:nccl"
     else:
         backend = "gloo"
     if init_method is None and "MASTER_ADDR" not in os.environ:

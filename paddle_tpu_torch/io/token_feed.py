@@ -5,76 +5,29 @@ A C++ thread ``mmap``s a flat int32 token file and keeps a ring of
 ``prefetch_depth`` batches of ``[batch, seq_len + 1]`` windows (shuffled
 by ``std::mt19937_64(seed)`` when ``shuffle``); ``next()`` returns
 ``(tokens, labels)``, int32 ``[batch, seq_len]`` numpy arrays, the labels
-the tokens shifted by one. The port binds the library itself through
-``ctypes``: ``csrc/data_feed.cc`` and ``csrc/pt_error.cc`` (read as they
-are) are compiled with ``g++`` into
-``paddle_tpu_torch/csrc/build/libpt_token_feed-<hash>.so`` at first use,
-the hash covering the sources, the header and the flags.
+the tokens shifted by one. The feed is in the runtime library that
+``_core/native.py`` builds from the repo's C++ sources (``csrc/data_feed.cc``
+among them, read as they are) with ``g++`` into
+``paddle_tpu_torch/csrc/build/`` at first use.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
 from pathlib import Path
 
 import numpy as np
 
-REPO = Path(__file__).resolve().parents[2]
-CSRC = REPO / "csrc"
-BUILD_DIR = REPO / "paddle_tpu_torch" / "csrc" / "build"
-SOURCES = ("data_feed.cc", "pt_error.cc")
-HEADERS = ("pt_common.h",)
-FLAGS = ["-std=c++17", "-O2", "-fPIC", "-shared", "-pthread"]
-
-_lib = None
-_lock = threading.Lock()
-
-
-def _target() -> Path:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
-    for f in SOURCES + HEADERS:
-        h.update((CSRC / f).read_bytes())
-    return BUILD_DIR / f"libpt_token_feed-{h.hexdigest()[:16]}.so"
+from .._core import native
 
 
 def build() -> Path:
-    """The library, compiled first if no build of these sources exists;
-    raises with the compiler's output if it fails."""
-    target = _target()
-    if target.exists():
-        return target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = ["g++", *FLAGS, f"-I{CSRC}", "-o", str(tmp),
-           *(str(CSRC / f) for f in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"token feed build failed ({' '.join(cmd)}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, target)  # atomic: a concurrent build sees all or none
-    return target
+    """The runtime library the feed is in, compiled first if it is missing
+    or stale; raises with the compiler's output if it fails."""
+    return native.build_runtime()
 
 
 def library() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            c = ctypes
-            lib.pt_last_error.restype = c.c_char_p
-            lib.pt_feed_create.restype = c.c_void_p
-            lib.pt_feed_create.argtypes = [c.c_char_p, c.c_int64, c.c_int64,
-                                           c.c_int, c.c_uint64, c.c_int]
-            lib.pt_feed_num_windows.restype = c.c_int64
-            lib.pt_feed_num_windows.argtypes = [c.c_void_p]
-            lib.pt_feed_next.restype = c.c_int
-            lib.pt_feed_next.argtypes = [c.c_void_p, c.c_void_p]
-            lib.pt_feed_destroy.argtypes = [c.c_void_p]
-            _lib = lib
-        return _lib
+    return native.get_lib(required=True)
 
 
 class NativeTokenLoader:

@@ -35,7 +35,7 @@ from torch.fx.experimental.proxy_tensor import make_fx
 from torch.utils import _pytree as pytree
 
 from .._core import dtype as dtypes
-from .._core import lazy
+from .._core import lazy, persist
 from .._core.flags import flag_value
 from .._core.tensor import Tensor
 from ..nn.layer import Layer, Parameter, functional_call
@@ -158,28 +158,69 @@ def _reads_a_traced_value(e: Exception) -> bool:
         and "not supported for tensor subclasses" in str(e))
 
 
+def _args_signature(example_args):
+    return tuple(_signature([t for t in pytree.tree_leaves(example_args)
+                             if isinstance(t, torch.Tensor)]))
+
+
 def compile_traced(fn: Callable, example_args, backend: Optional[str],
                    graphs: Optional[List] = None,
-                   device: Optional[torch.device] = None) -> Callable:
+                   device: Optional[torch.device] = None,
+                   persist_key=None, extra: Optional[Dict] = None) -> Callable:
     """Traces ``fn(*example_args)`` (torch tensors in, a tree of torch
     tensors out) over fake tensors with ``make_fx`` and compiles the graph
     with ``torch.compile(fullgraph=True, dynamic=False)``; ``graphs``
     receives the forward and backward graphs compiled (see
     ``_recording_backend``), the result's ``graph_module`` is the traced
     graph. The trace raises where ``fn`` reads a traced value on the host
-    (see ``to_static``)."""
-    with lazy.suspended():   # the eager calls inside reach the tracer
-        gm = make_fx(fn, tracing_mode="fake", _allow_non_fake_inputs=True)(
-            *example_args)
+    (see ``to_static``).
+
+    With ``FLAGS_executable_cache_dir`` set and a ``persist_key`` (what
+    names ``fn`` across processes, ``_core/persist.py``), the traced graph
+    is stored with ``extra`` (what the trace recorded beside it) and a later
+    call with the same key and input signature loads both instead of
+    tracing; the result's ``persisted`` says which happened."""
     if device is None:
         device = next((t.device for t in pytree.tree_leaves(example_args)
                        if isinstance(t, torch.Tensor)), torch.device("cpu"))
     name = backend or default_backend(device)
+    norm = None
+    if persist_key is not None and persist.ACTIVE:
+        norm = persist.persist_key(
+            (persist_key, _args_signature(example_args), name))
+    payload = persist.load("traced", norm) if norm is not None else None
+    if payload is not None:
+        gm = payload["module"]
+        if extra is not None:
+            extra.update(payload["extra"])
+    else:
+        with lazy.suspended():   # the eager calls inside reach the tracer
+            gm = make_fx(fn, tracing_mode="fake",
+                         _allow_non_fake_inputs=True)(*example_args)
+        if norm is not None:
+            persist.store("traced", norm, gm, extra)
     compiled = torch.compile(gm, backend=_recording_backend(
         name, graphs if graphs is not None else []), fullgraph=True,
         dynamic=False)
     compiled.graph_module = gm
+    compiled.persisted = payload is not None
     return compiled
+
+
+def _layer_config(layer: Layer) -> List:
+    """Every sublayer's name, class and the values it holds besides its
+    parameters, buffers and sublayers (its config, head counts, dropout
+    rates, flags, hooks): what a trace reads as Python values and bakes
+    into the graph. Two models of the same parameter shapes but another
+    config differ here."""
+    out = []
+    for name, sub in layer.named_sublayers(include_self=True):
+        held = set(sub._parameters) | set(sub._buffers) | \
+            set(sub._sub_layers) | {"_parameters", "_buffers", "_sub_layers"}
+        attrs = {k: v for k, v in vars(sub).items()
+                 if k not in held and not isinstance(v, StaticFunction)}
+        out.append((name, type(sub), attrs))
+    return out
 
 
 def _amp_state():
@@ -197,6 +238,7 @@ class _Entry:
         self.programs: Dict[Any, Any] = {}
         self.graphs: List = []
         self.traces = 0
+        self.loads = 0   # graphs loaded from the persistent cache
         # the state names are part of the key: where each buffer written
         # back sits in the state list
         self.index = {n: i for i, n in enumerate(names)}
@@ -220,6 +262,7 @@ class StaticFunction:
     def __init__(self, fn, layer: Optional[Layer] = None, input_spec=None,
                  build_strategy=None, backend=None, full_graph=True):
         self._fn = fn
+        self._src_fn = fn   # before dy2static: what the persist key names
         self._layer = layer
         self._input_spec = input_spec
         self._backend = backend
@@ -319,8 +362,9 @@ class StaticFunction:
             pure = self._make_pure(names, buffers, (a_def, a_static),
                                    (k_def, k_static), shapes)
             try:
-                compiled = compile_traced(pure, (svals, dyn), self._backend,
-                                          entry.graphs, device)
+                compiled = compile_traced(
+                    pure, (svals, dyn), self._backend, entry.graphs, device,
+                    persist_key=self._persist_key(key), extra=shapes)
             except Exception as e:
                 if not _reads_a_traced_value(e):
                     raise
@@ -333,7 +377,10 @@ class StaticFunction:
                     "transformer can convert (plain if/while assigning "
                     "local variables), use paddle.where / torch.cond style "
                     f"ops, or run the model eagerly.{note}") from e
-            entry.traces += 1
+            if compiled.persisted:
+                entry.loads += 1
+            else:
+                entry.traces += 1
             program = entry.programs[sig] = (compiled, shapes)
         compiled, shapes = program
         outs, bufs = compiled(svals, dyn)
@@ -346,6 +393,19 @@ class StaticFunction:
                   else Tensor(next(it))
                   for i in range(shapes["tree"].num_leaves)]
         return pytree.tree_unflatten(leaves, shapes["tree"])
+
+    def _persist_key(self, key):
+        """What names this function's trace across processes: the function
+        (normalized: module, qualified name, a digest of its code and of
+        its module's file), the cache key, and every sublayer's class and
+        held values (``_layer_config``); None when the persistent cache is
+        off. (``_core/persist.py`` adds the port's source stamp.)"""
+        if not persist.ACTIVE:
+            return None
+        fn = getattr(self._src_fn, "__func__", self._src_fn)
+        layers = _layer_config(self._layer) if self._layer is not None \
+            else None
+        return ("to_static", fn, layers, key)
 
     def concrete_program(self):
         return None

@@ -340,11 +340,15 @@ def test_native_token_loader_matches_reference(tmp_path, shuffle):
 
 
 def test_native_token_loader_builds_its_own_library():
+    """The port builds the library the feed is in (the runtime library of
+    ``_core/native.py``) from the repo's sources, into its own build
+    directory, and binds it without the reference."""
+    from paddle_tpu_torch._core import native
     from paddle_tpu_torch.io import token_feed
     path = token_feed.build()
-    assert path.parent == token_feed.REPO / "paddle_tpu_torch" / "csrc" \
-        / "build"
-    assert path.name.startswith("libpt_token_feed-") and path.exists()
+    assert path.parent == native.REPO / "paddle_tpu_torch" / "csrc" / "build"
+    assert path.name == "libpt_runtime.so" and path.exists()
+    assert token_feed.library() is native.get_lib()
     with open(token_feed.__file__) as f:
         assert "paddle_tpu._core" not in f.read()
 

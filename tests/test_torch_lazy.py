@@ -464,7 +464,7 @@ def test_metadata_cache_holds_no_closure_alive():
     with pt_lazy.lazy_guard():
         y = pt._core.dispatch.apply(
             "add_held", lambda t: t + float(held.sum()), x)
-    assert len(pt_lazy._AVAL_CACHE) == 1
+    assert pt_lazy.metadata_cache_size() == 1
     del held
     gc.collect()
     assert ref_held() is None

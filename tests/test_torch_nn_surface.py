@@ -64,32 +64,25 @@ def _names(module):
     return out
 
 
-_ITEM7 = ("ROADMAP §1 item 7's rest: the persistent executable cache "
-          "(persist) and the native record and step-driver prongs")
 _ITEM8 = "ROADMAP §1 item 8: eager distributed"
 _ITEM10 = "ROADMAP §1 item 10: the long tail"
 _ITEM11 = ("ROADMAP §1 item 11: the compiled 1F1B, VPP and ZeroBubble "
            "schedules")
 _DIST_LATER = (
-    "CommTaskManager DataParallel DistAttr DistPipelineRuntime "
-    "DistPipelineRuntimeVPP DistPipelineRuntimeZB DygraphShardingOptimizer "
-    "DygraphShardingStage3 ElasticStep Engine FaultPlan Group LayerDesc "
-    "Partial PipelineLayer PipelineParallel PipelineParallelWithInterleave "
-    "Placement ReduceOp Replicate RetryPolicy Shard SharedLayerDesc Strategy "
-    "TCPStore all_gather all_gather_object all_reduce all_to_all alltoall "
-    "api auto_parallel auto_tuner barrier broadcast broadcast_object_list "
-    "build_pipeline_runtime checkpoint comm_context communication "
-    "context_parallel "
-    "create_or_get_global_tcp_store dtensor_from_local dtensor_to_local "
-    "gather get_backend get_comm_task_manager get_group "
-    "group_sharded_parallel irecv isend launch load_state_dict new_group "
-    "parallel passes pipeline placements placements_to_spec process_group ps "
-    "recompute_sequential recv reduce reduce_scatter reshard resilience "
-    "ring_attention ring_attention_global rpc save_group_sharded_model "
-    "save_state_dict scatter send shard_batch shard_layer shard_tensor "
-    "sharding shrink_world spawn spmd store stream suggest_mesh_degree "
+    "CommTaskManager DistAttr DistPipelineRuntime DistPipelineRuntimeVPP "
+    "DistPipelineRuntimeZB DygraphShardingOptimizer DygraphShardingStage3 "
+    "ElasticStep Engine FaultPlan LayerDesc Partial PipelineLayer "
+    "PipelineParallel PipelineParallelWithInterleave Placement Replicate "
+    "RetryPolicy Shard SharedLayerDesc Strategy api auto_parallel auto_tuner "
+    "build_pipeline_runtime checkpoint comm_context context_parallel "
+    "dtensor_from_local dtensor_to_local get_comm_task_manager "
+    "group_sharded_parallel launch load_state_dict passes pipeline "
+    "placements placements_to_spec ps recompute_sequential reshard "
+    "resilience ring_attention ring_attention_global rpc "
+    "save_group_sharded_model save_state_dict shard_batch shard_layer "
+    "shard_tensor sharding shrink_world spawn spmd suggest_mesh_degree "
     "to_static ulysses_attention ulysses_attention_global unshard_dtensor "
-    "utils wait watchdog").split()
+    "utils watchdog").split()
 _FLEET_LATER = (
     "ColumnSequenceParallelLinear CommunicateTopology DistributedStrategy "
     "HybridCommunicateGroup ParallelCrossEntropy RowSequenceParallelLinear "
@@ -147,8 +140,7 @@ def test_eager_fusion_default_is_off_in_the_port_only():
     """The one flag whose default the port changes on purpose (ROADMAP §3):
     the reference records plain eager code into its ambient window by
     default, the port runs it op by op unless asked (lazy_guard,
-    enable_eager_fusion(True), to_static(full_graph=False)). What stays
-    of the runtime's item is _ITEM7."""
+    enable_eager_fusion(True), to_static(full_graph=False))."""
     from paddle_tpu._core import flags as ref_flags
     from paddle_tpu_torch._core import flags as pt_flags
     assert ref_flags._REGISTRY["FLAGS_eager_fusion"].default is True
@@ -161,7 +153,6 @@ def test_eager_fusion_default_is_off_in_the_port_only():
                  "FLAGS_sot_step_budget", "FLAGS_sot_guard_size_cap"):
         assert pt_flags._REGISTRY[name].default \
             == ref_flags._REGISTRY[name].default, name
-    assert "persist" in _ITEM7 and "native" in _ITEM7
 
 
 def test_the_port_imports_as_paddle_autograd():

@@ -45,7 +45,7 @@ _FRAMEWORK = ("ROADMAP §1 items 8 and 10: framework names that are not ops "
 LATER_NAMES = {
     # top-level callables
     "Model": _FRAMEWORK, "summary": _FRAMEWORK,
-    "flops": _FRAMEWORK, "DataParallel": _FRAMEWORK,
+    "flops": _FRAMEWORK,
     "TPUPlace": _FRAMEWORK, "CustomPlace": _FRAMEWORK,
 }
 _INTERNAL = ("the JAX package's lazy-executor internals, which the port's "

@@ -12,17 +12,17 @@ rebuild (``REPLAY_STEPS``). Shape drift, ``set_flags`` of a watched flag,
 an in-place swap mid-segment and a grad-mode flip demote it; the stream
 re-proves and re-arms. The reference runs with its sanitizer off (its
 fast path turns itself off under ``FLAGS_static_checks``) and its native
-core unbound (``_NC = None``: its Python prong, the one the port has);
-the port with its ambient window on (off by default, ROADMAP.md §3).
+core unbound (``_NC = None``: its Python prong); the port with its
+ambient window on (off by default, ROADMAP.md §3) and its Python prong
+forced the same way. ``tests/test_torch_native_core.py`` holds the port's
+native prong to these cases.
 ``FAST_OPS`` and ``REPLAY_STEPS`` deltas are compared exactly: both
 packages record ``y * 1.01 + 0.001`` as two ops. Values: bit-equal to the
 same run with the fast path or promotion off, and 1e-5 relative to the
 reference (its compiled segments may contract a multiply-add).
 
-No counterpart yet: the native record core and whole-step C driver
-(``eager_core``: its engagement, intern pools and metadata cache, and the
-interceptor-install drill) and ``bump_mesh_epoch`` wait for item 7's rest
-and items 8–9 (ROADMAP.md §1); ``budget --static-diff``, ``PERF_SRC``
+No counterpart yet: ``bump_mesh_epoch`` waits for items 8–9 (ROADMAP.md
+§1); ``budget --static-diff``, ``PERF_SRC``
 provenance and the ``record.fast_ops`` metric wait for the observability
 and analysis planes (item 9).
 """
@@ -44,9 +44,12 @@ SIDES = [(ref, ref_lazy), (pt, pt_lazy)]
 
 @pytest.fixture(autouse=True)
 def _setup(monkeypatch):
-    """The port on the CPU with its window on; the reference with its
-    sanitizer off and its Python prong forced."""
+    """The port on the CPU with its window on; both packages with their
+    Python prong forced, the reference with its sanitizer off."""
     monkeypatch.setattr(pt_device, "_current", "cpu")
+    monkeypatch.setattr(pt_lazy, "_NC", None)
+    monkeypatch.setattr(pt_lazy, "_NC_TRIED", True)
+    monkeypatch.setattr(pt_lazy, "_DRIVE_OK", False)
     old = ref.get_flags(["FLAGS_static_checks"])
     ref.set_flags({"FLAGS_static_checks": "off"})
     monkeypatch.setattr(ref_lazy, "_NC", None)
