@@ -282,6 +282,27 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    buckets): three losses and step 1's gradients bit-equal to phase 10's
    step, the buckets and collectives a step, ms/step in turns, and each
    communication entry once on a CUDA tensor against its value;
+22. (run before 16) fleet's hybrid-parallel eager API and eager ZeRO,
+   under a watchdog of ``FLEET_WATCHDOG_S``, on a one-rank NCCL group:
+   ``fleet.init`` with every degree 1 (mode ``single``, the five mesh
+   axes, each axis's group on NCCL); then phase 10's step (gpt2-medium
+   b8 s1024, O1 bf16, AdamW, seed 0) through each wrapper against the
+   plain step on its own model from the same seed: (a)
+   ``distributed_model`` and ``distributed_optimizer`` (with
+   ``ClipGradByGlobalNorm(1.0)``, the plain step too), (b)
+   ``DygraphShardingOptimizer``, (c) the same with ``offload``, (d)
+   ``DygraphShardingStage3`` with ``step_and_release``, (e)
+   ``group_sharded_parallel`` at ``os_g`` and ``p_g_os``: three losses and
+   step 1's gradients bit-equal (a sum over one rank divided by 1), the
+   collectives of a step, the state and parameter bytes against the plain
+   optimizer's, #1-#3 launched 24 times each a step, ms/step in turns;
+   (f) the mp collectives on CUDA tensors over the one-rank mp group at
+   gpt2-medium's widths against their plain versions, forward and
+   backward (``mp_identity``, ``mp_allreduce``, ``mp_concat``,
+   ``mp_split``; ``mp_lookup_table`` against ``F.embedding`` on the
+   ``[50304, 1024]`` table; ``mp_softmax_cross_entropy`` against
+   ``F.cross_entropy`` on b8 s1024 logits), ``HybridParallelGradScaler``
+   against ``GradScaler`` on the fp16 step, and ``fleet.metrics``;
 16. prints the head_dim 256 and 512 and fp16 (64, 256 and 512) timings,
    the ``kernels`` JSON line, the card line, and last ``{"ok": true, "device": {...}}``.
 
@@ -6692,6 +6713,373 @@ def native_runtime_path(smi):
         f"{k} {v:.1f}" for k, v in times.items()) + f" on {smi}")
 
 
+FLEET_WATCHDOG_S = 300
+FLEET_TURN_STEPS = 4   # timed steps a turn (after one warm-up)
+
+
+def _collectives_now():
+    """Collectives issued so far by the port's distributed wrappers."""
+    from paddle_tpu_torch.distributed import _collectives as C
+    return sum(C.CALLS.values())
+
+
+class _Stepper:
+    """What ``_eager_step`` steps: ``step`` and ``clear_grad``."""
+
+    def __init__(self, step, clear_grad):
+        self.step, self.clear_grad = step, clear_grad
+
+
+def _state_bytes(opt):
+    return sum(v.numel() * v.element_size() for st in opt._states.values()
+               for v in st.values())
+
+
+def _param_bytes(model):
+    return sum(p._t.numel() * p._t.element_size()
+               for p in model.parameters())
+
+
+def _fleet_wrappers(paddle, fleet, sharding, hcg):
+    """Label -> (clip, make): ``make(model, opt)`` wraps phase 10's model
+    and its AdamW and returns what the step calls (net, stepper) and what
+    to read (state bytes, parameter bytes, a description)."""
+    from paddle_tpu_torch.distributed.fleet.hybrid_optimizer import \
+        HybridParallelOptimizer
+    group = hcg.get_sharding_parallel_group()
+
+    def fleet_api(model, opt):
+        net = fleet.distributed_model(model)
+        hopt = fleet.distributed_optimizer(opt)
+        check(net is model and isinstance(hopt, HybridParallelOptimizer)
+              and isinstance(opt._grad_clip, paddle.nn.ClipGradByGlobalNorm),
+              f"single mode wrapped {type(net).__name__}, "
+              f"{type(hopt).__name__}, clip {type(opt._grad_clip).__name__}")
+        return net, hopt, lambda: _state_bytes(opt), \
+            lambda: _param_bytes(model), "HybridParallelOptimizer"
+
+    def zero2(offload):
+        def make(model, opt):
+            z = sharding.DygraphShardingOptimizer(opt, group,
+                                                  offload=offload)
+            return model, z, z.state_bytes, lambda: _param_bytes(model), \
+                f"DygraphShardingOptimizer(offload={offload})"
+        return make
+
+    def zero3(model, opt):
+        z3 = sharding.DygraphShardingStage3(model, opt, group)
+        return z3, _Stepper(z3.step_and_release, opt.clear_grad), \
+            z3.sharded_optimizer.state_bytes, z3.param_bytes, \
+            "DygraphShardingStage3"
+
+    def grouped(level):
+        def make(model, opt):
+            net, opt2, _ = sharding.group_sharded_parallel(model, opt, level)
+            eager = getattr(opt2, "_zero", None) is not None \
+                or getattr(net, "_group", None) is not None
+            check(not eager, f"{level} at one rank ran the eager classes")
+            return net, opt2, lambda: _state_bytes(opt), \
+                lambda: _param_bytes(model), \
+                f"{type(net).__name__} + {type(opt2).__name__} (pass-through)"
+        return make
+
+    return {"(a) fleet": (True, fleet_api),
+            "(b) zero os_g": (False, zero2(False)),
+            "(c) zero offload": (False, zero2(True)),
+            "(d) zero stage3": (False, zero3),
+            "(e) group_sharded os_g": (False, grouped("os_g")),
+            "(e) group_sharded p_g_os": (False, grouped("p_g_os"))}
+
+
+def fleet_pair(smi, label, clip, make, x, y, crit):
+    """Phase 10's step through one wrapper of phase 22 against the plain
+    step, each on its own model from seed 0."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    cfg = gpt.GPT_CONFIGS["gpt2-medium"]
+    runs = {}
+    for name in ("plain", label):
+        paddle.seed(0)
+        model = gpt.GPTForPretraining(cfg)
+        opt = paddle.optimizer.AdamW(
+            1e-4, parameters=model.parameters(),
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0) if clip else None)
+        if name == "plain":
+            runs[name] = (model, opt, lambda o=opt: _state_bytes(o),
+                          lambda m=model: _param_bytes(m), "AdamW",
+                          model, opt)
+        else:
+            runs[name] = make(model, opt) + (model, opt)
+
+    def step(name):
+        net, stepper = runs[name][:2]
+        return _eager_step(paddle, net, crit, stepper, x, y, "bfloat16")
+
+    losses, grads, colls, launches = {}, {}, {}, {}
+    for name in runs:
+        model, opt = runs[name][5:]
+        _reset_all_launches()
+        before = _collectives_now()
+        loss, grads[name] = _step_grads(opt, list(model.parameters()),
+                                        lambda: step(name))
+        losses[name] = [float(loss)]
+        colls[name] = _collectives_now() - before
+        launches[name] = _all_launches()
+    equal = all(torch.equal(a, b) for a, b in
+                zip(grads["plain"], grads[label]))
+    n_leaves = len(grads[label])
+    del grads
+    for _ in range(2):
+        for name in runs:
+            losses[name].append(float(step(name)))
+    nbytes = {name: (r[2](), r[3]()) for name, r in runs.items()}
+    print(f"fleet {label} ({runs[label][4]}): losses {losses[label]} "
+          f"against the plain step's {losses['plain']}; step 1's gradients "
+          f"bit-equal over {n_leaves} leaves: {equal}; collectives a step "
+          f"{colls[label]} (plain {colls['plain']}); state bytes "
+          f"{nbytes[label][0]} against {nbytes['plain'][0]}, parameter "
+          f"bytes {nbytes[label][1]} against {nbytes['plain'][1]}; "
+          f"launches a step {launches[label]}")
+    check(losses[label] == losses["plain"], f"{label} losses {losses}")
+    check(equal, f"{label}: step 1's gradients differ from the plain step's")
+    want = {k: cfg.num_layers if k in fa.LAUNCHES else 0
+            for k in launches["plain"]}
+    for name in runs:
+        check(launches[name] == want, f"{label} {name} launches "
+              f"{launches[name]}, want {want}")
+    model, opt = runs[label][5:]
+    if "offload" in label:
+        devs = {v.device.type for st in opt._states.values()
+                for v in st.values()}
+        check(devs == {"cpu"} and all(p._t.is_cuda
+                                      for p in model.parameters()),
+              f"offloaded states on {devs}")
+    ms = {name: [] for name in runs}
+    for name in ("plain", label, label, "plain"):
+        float(step(name))
+        torch.cuda.synchronize()
+        ms[name] += _turns(lambda *_: step(name), None, None, None,
+                           FLEET_TURN_STEPS)
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    print(f"fleet {label}: {med[label]:.2f} ms/step against the plain "
+          f"step's {med['plain']:.2f} ({med[label] / med['plain']:.3f}x) "
+          f"in turns on {smi}")
+    return {"collectives": colls[label], "leaves": n_leaves,
+            "ms": med[label],
+            "plain_ms": med["plain"], "bytes": nbytes[label],
+            "plain_bytes": nbytes["plain"]}
+
+
+def _hold_exact(label, got, want):
+    ok = got.shape == want.shape and torch.equal(got, want)
+    check(ok, f"{label}: not bit-equal to the plain version")
+    return ok
+
+
+def _scale_err(got, want) -> float:
+    """max |got - want| over the largest |want| (at least 1e-30)."""
+    return float((got.double() - want.double()).abs().max()
+                 / max(float(want.double().abs().max()), 1e-30))
+
+
+def mp_collective_checks(paddle, hcg, cfg):
+    """Phase 22 (f): each mp collective on CUDA tensors over the one-rank
+    mp group (NCCL) against its plain version, forward and backward."""
+    import torch.nn.functional as TF
+    from paddle_tpu_torch._core.tensor import Tensor
+    from paddle_tpu_torch.distributed import _collectives as C
+    from paddle_tpu_torch.distributed.fleet import mp_ops
+    group = hcg.get_model_parallel_group()
+    check(group.pg is not None and group.nranks == 1,
+          f"mp group {group} has no process group")
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    h, v = cfg.hidden_size, cfg.vocab_size
+    base = torch.randn(BATCH, SEQ, h, device="cuda", generator=gen)
+    dy = torch.randn(BATCH, SEQ, h, device="cuda", generator=gen)
+    results = {}
+    C.reset_calls()
+    for name, fn in (
+            ("mp_identity", lambda t: mp_ops.mp_identity(t, group)),
+            ("mp_allreduce", lambda t: mp_ops.mp_allreduce(t, group)),
+            ("mp_concat", lambda t: mp_ops.mp_concat(t, group, 0, 1)),
+            ("mp_split", lambda t: mp_ops.mp_split(t, group, 0, 1))):
+        leaf = base.clone().requires_grad_()
+        out = fn(Tensor(leaf))
+        torch.autograd.backward(out._t, dy)
+        results[name] = (_hold_exact(f"{name} forward", out._t, base)
+                         and _hold_exact(f"{name} backward", leaf.grad, dy))
+    calls = dict(C.CALLS)
+    ids = torch.randint(0, v, (BATCH, SEQ), device="cuda", generator=gen)
+    table = torch.randn(v, h, device="cuda", generator=gen) * 0.02
+    w_port = table.clone().requires_grad_()
+    w_plain = table.clone().requires_grad_()
+    out = mp_ops.mp_lookup_table(Tensor(w_port), Tensor(ids), 0, group)
+    want = TF.embedding(ids, w_plain)
+    torch.autograd.backward(out._t, dy)
+    torch.autograd.backward(want, dy)
+    emb_err = _scale_err(w_port.grad, w_plain.grad)
+    results["mp_lookup_table"] = _hold_exact(
+        "mp_lookup_table forward", out._t, want) and emb_err <= 1e-6
+    check(emb_err <= 1e-6, f"mp_lookup_table backward {emb_err}")
+    del w_port, w_plain, table, out, want
+    logits = torch.randn(BATCH, SEQ, v, device="cuda", generator=gen) * 2
+    labels = torch.randint(0, v, (BATCH, SEQ, 1), device="cuda",
+                           generator=gen)
+    labels[0, :7] = -100
+    lp = logits.clone().requires_grad_()
+    lq = logits.clone().requires_grad_()
+    del logits
+    loss = mp_ops.mp_softmax_cross_entropy(Tensor(lp), Tensor(labels), 0,
+                                           group)._t
+    want = TF.cross_entropy(lq.view(-1, v), labels.view(-1),
+                            reduction="none", ignore_index=-100
+                            ).view(BATCH, SEQ)
+    loss.mean().backward()
+    want.mean().backward()
+    ce_err = (_scale_err(loss.detach(), want.detach()),
+              _scale_err(lp.grad, lq.grad))
+    results["mp_softmax_cross_entropy"] = max(ce_err) <= 1e-5
+    check(max(ce_err) <= 1e-5, f"mp_softmax_cross_entropy {ce_err}")
+    del lp, lq, loss, want
+    calls_all = dict(C.CALLS)
+    print(f"mp collectives on CUDA tensors over the one-rank NCCL mp group "
+          f"at gpt2-medium's widths (b{BATCH} s{SEQ} h{h}, vocab {v}): "
+          f"{results}; mp_lookup_table's table gradient off by {emb_err:.3g} "
+          f"of its scale; mp_softmax_cross_entropy's loss and logits "
+          f"gradient off by {ce_err[0]:.3g} and {ce_err[1]:.3g} of their "
+          f"scale (the plain: F.cross_entropy); collectives {calls} for the "
+          f"four, {calls_all} with the two after")
+    torch.cuda.empty_cache()
+    return results
+
+
+def scaler_pair(smi, hcg, x, y, crit):
+    """Phase 22 (f): phase 10's fp16 step with
+    ``HybridParallelGradScaler`` against ``GradScaler``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed.fleet.hybrid_optimizer import \
+        HybridParallelGradScaler
+    from paddle_tpu_torch.models import gpt
+    cfg = gpt.GPT_CONFIGS["gpt2-medium"]
+    runs = {}
+    for name in ("GradScaler", "HybridParallelGradScaler"):
+        paddle.seed(0)
+        model = gpt.GPTForPretraining(cfg)
+        opt = paddle.optimizer.AdamW(1e-4, parameters=model.parameters())
+        scaler = paddle.amp.GradScaler()
+        if name != "GradScaler":
+            scaler = HybridParallelGradScaler(scaler, hcg)
+        runs[name] = (model, opt, scaler)
+    losses, grads = {}, {}
+    for name, (model, opt, scaler) in runs.items():
+        loss, grads[name] = _step_grads(
+            opt, list(model.parameters()),
+            lambda: _eager_step(paddle, model, crit, opt, x, y, "float16",
+                                scaler))
+        losses[name] = [float(loss)]
+        losses[name].append(float(_eager_step(paddle, model, crit, opt, x,
+                                              y, "float16", scaler)))
+    equal = all(torch.equal(a, b) for a, b in
+                zip(*grads.values()))
+    scales = {k: r[2]._scale for k, r in runs.items()}
+    print(f"HybridParallelGradScaler (fp16 O1, one rank) against "
+          f"GradScaler: losses {losses}, step 1's gradients bit-equal: "
+          f"{equal}, scales {scales}")
+    check(len(set(map(tuple, losses.values()))) == 1,
+          f"scaler losses {losses}")
+    check(equal and len(set(scales.values())) == 1, "scaler steps differ")
+    del runs, grads
+    torch.cuda.empty_cache()
+    return equal
+
+
+def metrics_checks():
+    """Phase 22 (f): ``fleet.metrics`` on one rank, on CUDA tensors and
+    host values, against their values."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed.fleet import metrics as M
+    t = paddle.to_tensor(np.asarray([1.5, -2.0], "float32"))
+    pos, neg = np.zeros(10), np.zeros(10)
+    pos[9], neg[0] = 5, 5
+    got = {"sum": M.sum(t).tolist(), "max": M.max(t).tolist(),
+           "min": M.min(np.asarray([3.0])).tolist(),
+           "mean": M.mean(t).tolist(), "acc": M.acc(80, 100),
+           "auc": M.auc(pos, neg)}
+    want = {"sum": [1.5, -2.0], "max": [1.5, -2.0], "min": [3.0],
+            "mean": [1.5, -2.0], "acc": 0.8, "auc": 1.0}
+    print(f"fleet.metrics on one rank: {got}")
+    check(got == want, f"metrics {got}, want {want}")
+
+
+def dist_backend(group):
+    """The backend of a fleet ``Group``'s process group, or "none"."""
+    import torch.distributed as dist
+    return "none" if group.pg is None else dist.get_backend(group.pg)
+
+
+def fleet_path(smi):
+    """Phase 22: fleet's hybrid-parallel eager API and eager ZeRO on a
+    one-rank NCCL group (see the module docstring)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import fleet, sharding
+    from paddle_tpu_torch.models import gpt
+    phase("22 fleet and ZeRO")
+    t_phase = time.perf_counter()
+    times = {}
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    D.init_parallel_env(f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                        world_size=1)
+    try:
+        fleet.init(is_collective=True, strategy=fleet.DistributedStrategy())
+        hcg = fleet.get_hybrid_communicate_group()
+        axes = {a: (hcg.mesh.get_dim_size(a), str(dist_backend(g)))
+                for a, g in zip(hcg.mesh.dim_names, (
+                    hcg.get_pipe_parallel_group(),
+                    hcg.get_data_parallel_group(),
+                    hcg.get_sharding_parallel_group(),
+                    hcg.get_sep_parallel_group(),
+                    hcg.get_model_parallel_group()))}
+        print(f"fleet.init: mode {hcg.get_parallel_mode()}, mesh "
+              f"{hcg.mesh}, axes (size, backend) {axes}")
+        check(hcg.get_parallel_mode() == "single"
+              and hcg.mesh.dim_names == ["pp", "dp", "sharding", "sep", "mp"]
+              and all("nccl" in b for _, b in axes.values()),
+              f"fleet.init {hcg.get_parallel_mode()} {axes}")
+        cfg = gpt.GPT_CONFIGS["gpt2-medium"]
+        paddle.set_device("gpu")
+        rng = np.random.RandomState(0)
+        x = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (BATCH, SEQ)))
+        y = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (BATCH, SEQ)))
+        crit = gpt.GPTPretrainingCriterion()
+        out = {}
+        for label, (clip, make) in _fleet_wrappers(
+                paddle, fleet, sharding, hcg).items():
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            print(f"-- 22 {label}", flush=True)
+            out[label] = fleet_pair(smi, label, clip, make, x, y, crit)
+            times[label] = time.perf_counter() - t0
+        for label, r in out.items():
+            # ZeRO: the flags, then a reduce and a broadcast a parameter
+            want = 1 + 2 * r["leaves"] if "zero" in label else 0
+            check(r["collectives"] == want, f"{label}: {r['collectives']} "
+                  f"collectives a step, want {want}")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        print("-- 22 (f) mp collectives, scaler, metrics", flush=True)
+        mp_collective_checks(paddle, hcg, cfg)
+        scaler_pair(smi, hcg, x, y, crit)
+        metrics_checks()
+        times["(f)"] = time.perf_counter() - t0
+    finally:
+        D.destroy_process_group()
+    print("phase 22 seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in times.items())
+        + f"; {time.perf_counter() - t_phase:.1f} in all on {smi}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6762,6 +7150,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with watchdog("phase 21 (the native runtime)", NATIVE_WATCHDOG_S):
         native_runtime_path(smi)
+    torch.cuda.empty_cache()
+    with watchdog("phase 22 (fleet and ZeRO)", FLEET_WATCHDOG_S):
+        fleet_path(smi)
     phase("16 results")
     for label, (d_ms, d_plain, d_lib, d_bnd) in (
             ("head_dim 256", d256), ("head_dim 512", d512),

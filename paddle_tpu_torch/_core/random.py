@@ -19,6 +19,9 @@ _LOCK = threading.Lock()
 _seed: Optional[int] = None
 _generators: Dict[torch.device, torch.Generator] = {}
 _META_GEN = torch.Generator()
+# generators handed out for a real device: a call whose result may be a
+# draw shows as a change of this count (SOT's scalar binding reads it)
+_handed_out = 0
 
 
 def seed(s: int) -> int:
@@ -29,6 +32,11 @@ def seed(s: int) -> int:
         for dev, gen in _generators.items():
             gen.manual_seed(_seed)
     return s
+
+
+def handed_out() -> int:
+    """How many times a real device's generator was handed out."""
+    return _handed_out
 
 
 def get_seed() -> Optional[int]:
@@ -43,7 +51,9 @@ def generator(device: torch.device) -> torch.Generator:
         # the lazy window's record-time run on meta tensors: a throwaway
         # generator, so recording draws nothing from the real ones
         return _META_GEN
+    global _handed_out
     with _LOCK:
+        _handed_out += 1
         gen = _generators.get(device)
         if gen is None:
             gen = torch.Generator(device=device)

@@ -26,3 +26,7 @@ from .communication import (ReduceOp, Group, new_group,  # noqa: F401,E402
 from . import parallel  # noqa: F401,E402
 from .parallel import DataParallel  # noqa: F401,E402
 from .store import TCPStore, create_or_get_global_tcp_store  # noqa: F401,E402
+from . import sharding  # noqa: F401,E402
+from .sharding import (DygraphShardingOptimizer,  # noqa: F401,E402
+                       DygraphShardingStage3, group_sharded_parallel,
+                       save_group_sharded_model)

@@ -11,11 +11,15 @@ backward of a copy into a split computation is a sum. Megatron-LM's
 its sequence-parallel pair is :func:`gather_seq` and :func:`scatter_seq`.
 
 Each collective is called on every group, one rank or many, and adds one
-to ``CALLS[kind]`` when it is called, forward or backward.
+to ``CALLS[kind]`` when it is called, forward or backward. The in-place
+forms (``all_reduce_``, ``reduce_``, ``broadcast_``, ``average_``) serve
+the optimizers and wrappers of ``fleet``, ``sharding`` and
+``DataParallel``, and count there too.
 """
 from __future__ import annotations
 
 from collections import Counter
+from typing import List
 
 import torch
 import torch.distributed as dist
@@ -43,12 +47,42 @@ def _rank(group) -> int:
 
 # ------------------------------------------------------ raw collectives
 
+def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``t`` replaced in place by its sum (or ``op``) over the group."""
+    CALLS["all_reduce"] += 1
+    dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def reduce_(t: torch.Tensor, dst: int, group) -> torch.Tensor:
+    """The sum of ``t`` over the group, in place on global rank ``dst``."""
+    CALLS["reduce"] += 1
+    dist.reduce(t, dst=dst, group=group)
+    return t
+
+
+def broadcast_(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """``t`` overwritten in place by global rank ``src``'s."""
+    CALLS["broadcast"] += 1
+    dist.broadcast(t, src=src, group=group)
+    return t
+
+
+def average_(tensors: List[torch.Tensor], group, nranks: int) -> None:
+    """``tensors`` (of one type) averaged over the group in place, through
+    one flat buffer and one collective."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    all_reduce_(flat, group)
+    flat.div_(nranks)
+    parts = flat.split([t.numel() for t in tensors])
+    torch._foreach_copy_(tensors, [part.view(t.shape)
+                                   for part, t in zip(parts, tensors)])
+
+
 def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """A new tensor: the sum (or ``op``) of ``x`` over the group."""
-    out = x.clone(memory_format=torch.contiguous_format)
-    CALLS["all_reduce"] += 1
-    dist.all_reduce(out, op=op, group=group)
-    return out
+    return all_reduce_(x.clone(memory_format=torch.contiguous_format),
+                       group, op)
 
 
 def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:

@@ -36,6 +36,7 @@ import torch.distributed as dist
 from .._core.autograd import register_post_backward_callback
 from .._core.flags import flag_value
 from ..nn.layer import Layer
+from ._collectives import average_
 from .process_group import Group, default_group
 
 
@@ -127,14 +128,9 @@ class DataParallel(Layer):
                     if g is None:   # taking part, unused here: zeros
                         t.grad = torch.zeros_like(t)
                 grads = [t.grad for t in payloads]
-                flat = torch.cat([g.reshape(-1) for g in grads])
-                dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=pg)
-                flat.div_(n)
+                average_(grads, pg, n)
                 self.last_buckets += 1
                 self.last_collectives += 1
-                parts = flat.split([g.numel() for g in grads])
-                torch._foreach_copy_(grads, [part.view(g.shape) for part, g
-                                             in zip(parts, grads)])
                 for (p, _), g in zip(bucket, grads):
                     self._synced[id(p)] = (id(g), g._version)
 

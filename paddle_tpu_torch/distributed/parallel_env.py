@@ -124,11 +124,15 @@ def is_initialized() -> bool:
 
 
 def destroy_process_group(group=None) -> None:
-    """Leave the default group (``group`` None: every group, and the
-    meshes' cached groups with them) or one group."""
+    """Leave the default group (``group`` None: every group, and with
+    them the meshes' cached groups, the global mesh, the communication
+    API's ``Group``s and what ``fleet.init`` set) or one group."""
     if not dist.is_initialized():
         return
     if group is None:
-        from .mesh import _forget_groups
-        _forget_groups()
+        from . import fleet, mesh, process_group
+        mesh._forget_groups()
+        mesh.set_mesh(None)
+        process_group._forget_groups()
+        fleet._forget()
     dist.destroy_process_group(group)

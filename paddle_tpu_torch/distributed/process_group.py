@@ -86,6 +86,14 @@ def default_group() -> Group:
     return _default_group
 
 
+def _forget_groups() -> None:
+    """Drops the default group and every ``Group`` made so far (their
+    process groups are gone with the world's)."""
+    global _default_group
+    _default_group = None
+    _groups.clear()
+
+
 def new_group(ranks=None, backend=None, timeout=None) -> Group:
     """A group of ``ranks`` (all ranks when None). Every rank of the world
     calls it, in the same order."""

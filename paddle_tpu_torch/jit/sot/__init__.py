@@ -27,7 +27,8 @@ steady-state cost is one cache lookup + one runner call per segment):
 the interpreter IS the resume mechanism. This trades peak Python speed
 on broken functions for a drastically simpler and fully sound runtime.
 """
-from .opcode_executor import (SotFallback, SotFunction, symbolic_translate,
+from .opcode_executor import (SotFallback, SotFunction,  # noqa: F401
+                              SotSideEffectError, symbolic_translate,
                               sot_stats)
 
 __all__ = ["symbolic_translate", "SotFunction", "SotFallback", "sot_stats"]

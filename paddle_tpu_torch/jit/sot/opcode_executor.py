@@ -18,7 +18,13 @@ tracked values:
 - unsupported constructs found by a static prescan (generators,
   try/except, ``with``, closures that create cells) raise ``SotFallback``
   before any side effect, and the caller runs the frame natively under
-  the same capture.
+  the same capture. A fallback met while running (the step budget, an
+  unsupported operator) is taken only while the session has written
+  nothing outside the frame (an attribute, a global or an item of an
+  outside container): the native run would write it again. The step
+  budget is not enforced after such a write (the frame runs on in the
+  interpreter, as it would natively), and any other fallback after it
+  raises ``SotSideEffectError``.
 
 The session's product: a ``GuardSet`` and the capture's segment
 structure, from which ``SotFunction`` builds a guarded fast path when the
@@ -44,12 +50,15 @@ import sys
 import types
 from typing import Any, Dict, List, Optional, Tuple
 
+import torch
 from torch.utils import _pytree as pytree
 
 # the one bytecode dialect interpreted (see the module docstring)
 _PY312 = sys.version_info[:2] == (3, 12)
 
 from ..._core import lazy
+from ..._core import random as _rng
+from ..._core.dtype import DType
 from ..._core.tensor import Tensor
 from ...amp.auto_cast import state_key as amp_state_key
 from .guards import Guard, GuardSet, Source, is_guardable_value
@@ -57,6 +66,11 @@ from .guards import Guard, GuardSet, Source, is_guardable_value
 
 class SotFallback(Exception):
     """Frame cannot be symbolically executed; run it natively."""
+
+
+class SotSideEffectError(RuntimeError):
+    """A frame fell back after writing outside state: running it natively
+    would repeat the write."""
 
 
 class _ReplayMismatch(Exception):
@@ -269,12 +283,61 @@ class SotSession:
         self.tensor_sources: Dict[int, Source] = {}
         self.tensor_refs: Dict[int, Any] = {}   # id -> Tensor (strong)
         self.tensor_branch = False
-        self.mutated = False
+        self.writes = 0     # writes to state outside the frames
         self.unguardable: Optional[str] = None
         self.fallback: Optional[str] = None
         self.created_ids = set()
+        # one-element tensors built by a call into the port from guarded
+        # values only, with no draw: the fast path may bind them as
+        # constants
+        self.guarded_scalars: Dict[int, Tensor] = {}
+        # immutable values pushed by LOAD_CONST, and the values that came
+        # out of a native call or were computed from one (these win where
+        # an interned small int or a bool is both), by id; kept alive
+        self.consts: Dict[int, Any] = {}
+        self.opaque: Dict[int, Any] = {}
         self.flushes: List[Tuple] = []
         self.inlined = 0
+
+    @property
+    def mutated(self) -> bool:
+        return self.writes > 0
+
+    def guarded(self, x) -> bool:
+        """Whether a stack value follows from the entry's guards and the
+        frames' constants alone."""
+        if id(x) in self.opaque:
+            return False
+        if isinstance(x, Tracked) or x is None:
+            return True
+        if isinstance(x, TrackedObj):
+            if isinstance(x.value, _DTYPES):
+                self.guards.add(x.source, "id", id(x.value))
+                return True
+            return False
+        if isinstance(x, Tensor):
+            return id(x) in self.guarded_scalars
+        if isinstance(x, (list, tuple)):
+            return all(self.guarded(v) for v in x)
+        if isinstance(x, dict):
+            return all(self.guarded(v) for v in x.values())
+        return isinstance(x, _DTYPES) or id(x) in self.consts
+
+    def taint(self, result, *operands):
+        """Marks ``result`` opaque when an operand is."""
+        if any(id(o) in self.opaque for o in operands):
+            self.opaque[id(result)] = result
+        return result
+
+    def fallback_after_writes(self, since: int, err: SotFallback):
+        """Raises ``SotSideEffectError`` if the session wrote outside
+        state after its ``since``-th write: a native rerun of the frame
+        would write again."""
+        if self.writes > since:
+            raise SotSideEffectError(
+                f"SOT fell back ({err}) after the frame wrote outside "
+                f"state; running it natively would repeat the write") \
+                from err
 
     # lazy.CaptureContext on_flush observer. Accepts PENDING out
     # tensors: with FLAGS_async_flush on, guard-exit (and cap) seals
@@ -411,7 +474,9 @@ class OpcodeExecutor:
 
         while True:
             steps += 1
-            if steps > step_budget:
+            # after a write outside the frame, a fallback would run the
+            # write again natively: the frame then runs to its end here
+            if steps > step_budget and not s.writes:
                 raise SotFallback("step budget exceeded")
             ins = f.instructions[idx]
             op = ins.opname
@@ -422,7 +487,10 @@ class OpcodeExecutor:
                 continue
 
             elif op == "LOAD_CONST":
-                push(ins.argval)
+                v = ins.argval
+                if isinstance(v, _CONST_TYPES):
+                    s.consts[id(v)] = v
+                push(v)
             elif op == "RETURN_CONST":
                 return ins.argval
             elif op == "RETURN_VALUE":
@@ -450,7 +518,7 @@ class OpcodeExecutor:
                 push(self._load_global(ins.argval))
             elif op == "STORE_GLOBAL":
                 self.fn.__globals__[ins.argval] = uv(pop())
-                s.mutated = True
+                s.writes += 1
             elif op == "LOAD_DEREF":
                 name = ins.argval
                 if name in f.locals:
@@ -478,7 +546,7 @@ class OpcodeExecutor:
                 real = uv(obj)
                 setattr(real, ins.argval, s.deep_unwrap(val))
                 if id(real) not in s.created_ids:
-                    s.mutated = True
+                    s.writes += 1
 
             elif op == "BINARY_OP":
                 b = pop()
@@ -506,7 +574,7 @@ class OpcodeExecutor:
                             s.guards.add(src, "none", t.value is None)
                     elif isinstance(t, TrackedObj):
                         s.guards.add(t.source, "id", id(t.value))
-                push(r)
+                push(s.taint(r, a, b))
             elif op == "CONTAINS_OP":
                 b = pop()
                 a = pop()
@@ -542,7 +610,7 @@ class OpcodeExecutor:
                 real = uv(c)
                 real[slice(uv(start), uv(end))] = s.deep_unwrap(v)
                 if id(real) not in s.created_ids:
-                    s.mutated = True
+                    s.writes += 1
             elif op == "STORE_SUBSCR":
                 k = pop()
                 c = pop()
@@ -552,14 +620,14 @@ class OpcodeExecutor:
                     real[uv(k)] = v       # frame-local container: keep
                 else:                     # wrappers inside
                     real[uv(k)] = s.deep_unwrap(v)
-                    s.mutated = True
+                    s.writes += 1
             elif op == "DELETE_SUBSCR":
                 k = pop()
                 c = pop()
                 real = uv(c)
                 del real[uv(k)]
                 if id(real) not in s.created_ids:
-                    s.mutated = True
+                    s.writes += 1
 
             elif op == "BUILD_SLICE":
                 if ins.arg == 3:
@@ -757,8 +825,8 @@ class OpcodeExecutor:
         if is_guardable_value(result):
             lv = _leaves(*operands)
             if lv:
-                return Tracked(result, lv)
-        return result
+                result = Tracked(result, lv)
+        return self.session.taint(result, *operands)
 
     def _subscr(self, c, k):
         s = self.session
@@ -872,6 +940,7 @@ class OpcodeExecutor:
             target = real.__func__
             self_arg = real.__self__
 
+        writes = s.writes
         if isinstance(target, types.FunctionType) \
                 and self.depth < _flag("FLAGS_sot_inline_depth") \
                 and not str(getattr(target, "__module__", "") or "") \
@@ -892,12 +961,28 @@ class OpcodeExecutor:
                                    src)
                 s.inlined += 1
                 return sub.run()
-            except SotFallback:
-                pass          # fall through to a native call
+            except SotFallback as e:
+                s.fallback_after_writes(writes, e)
+                # fall through to a native call
 
         a = [s.deep_unwrap(x) for x in args]
         kw = {k: s.deep_unwrap(v) for k, v in kwargs.items()}
-        return real(*a, **kw)
+        handed_out = _rng.handed_out()
+        out = real(*a, **kw)
+        if isinstance(out, _CONST_TYPES + _DTYPES):
+            s.opaque[id(out)] = out
+        elif isinstance(out, Tensor) and _is_scalar_const(out) \
+                and _rng.handed_out() == handed_out \
+                and str(getattr(target, "__module__", None) or "") \
+                .startswith("paddle_tpu_torch"):
+            operands = [*args, *kwargs.values()]
+            if self_arg is not None:
+                operands.append(self_arg)
+            if operands and all(s.guarded(x) for x in operands):
+                # the port built it from guarded values alone, drawing
+                # nothing: a constant under the entry's guards
+                s.guarded_scalars[id(out)] = out
+        return out
 
 
 _COMPARES = {
@@ -1025,6 +1110,7 @@ class SotFunction:
                                         session)
                 out = ex.run()
             except SotFallback as e:
+                session.fallback_after_writes(0, e)
                 session.fallback = str(e)
                 out = fn(*args, **kwargs)
             else:
@@ -1097,11 +1183,11 @@ class SotFunction:
             src = session.tensor_sources.get(id(t))
             if src is not None:
                 bindings.append(("source", src))
-            elif t.persistable or _is_scalar_const(t):
+            elif t.persistable or id(t) in session.guarded_scalars:
                 # long-lived state (params / persistable buffers) is
                 # bound by object — .step() updates stay visible; tiny
-                # scalar temps (coerced python numbers) are constants
-                # under the entry's value guards
+                # scalar temps built from guarded values only are
+                # constants under the entry's value guards
                 bindings.append(("tensor", t))
             else:
                 # an unsourced, non-persistent tensor (e.g. built from
@@ -1114,6 +1200,11 @@ class SotFunction:
         return _CacheEntry(session.guards, segment, bindings,
                            tuple(t.stop_gradient for t in in_tensors),
                            tree, specs, is_grad_enabled(), amp_state_key())
+
+
+# immutable constants whose value the code itself fixes
+_CONST_TYPES = (bool, int, float, complex, str, bytes, tuple)
+_DTYPES = (DType, torch.dtype)
 
 
 def _is_scalar_const(t) -> bool:

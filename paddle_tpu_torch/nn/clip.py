@@ -22,9 +22,26 @@ def _payload(g):
     return g._t if isinstance(g, Tensor) else g
 
 
+def _sum_squares(grads) -> torch.Tensor:
+    """The sum over every gradient of its float32 squares."""
+    return sum(torch.sum(torch.square(g.float())) for g in grads)
+
+
 def _global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum over every gradient of its float32 squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+    return torch.sqrt(_sum_squares(grads))
+
+
+def _scaled(params_grads, scale: torch.Tensor):
+    """Each gradient times ``scale`` in float32, back in its own type; a
+    parameter with ``need_clip`` False keeps its gradient."""
+    out = []
+    for p, g in params_grads:
+        if g is None or not getattr(p, "need_clip", True):
+            out.append((p, g))
+            continue
+        t = _payload(g)
+        out.append((p, Tensor((t.float() * scale).to(t.dtype))))
+    return out
 
 
 def _scale(clip_norm: float, norm: torch.Tensor) -> torch.Tensor:
@@ -85,15 +102,8 @@ class ClipGradByGlobalNorm(ClipGradBase):
         grads = [_payload(g) for _, g in params_grads if g is not None]
         if not grads:
             return params_grads
-        scale = _scale(self.clip_norm, _global_norm(grads))
-        out = []
-        for p, g in params_grads:
-            if g is None or not getattr(p, "need_clip", True):
-                out.append((p, g))
-                continue
-            t = _payload(g)
-            out.append((p, Tensor((t.float() * scale).to(t.dtype))))
-        return out
+        return _scaled(params_grads,
+                       _scale(self.clip_norm, _global_norm(grads)))
 
 
 @torch.no_grad()

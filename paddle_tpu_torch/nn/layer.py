@@ -23,7 +23,7 @@ class Parameter(Tensor):
     """A trainable tensor (the reference's ``EagerParamBase``)."""
 
     __slots__ = ("trainable", "optimize_attr", "regularizer", "need_clip",
-                 "is_distributed")
+                 "is_distributed", "sequence_parallel")
 
     def __init__(self, value: torch.Tensor, trainable: bool = True,
                  name: Optional[str] = None):
@@ -36,6 +36,7 @@ class Parameter(Tensor):
         self.regularizer = None
         self.need_clip = True
         self.is_distributed = False
+        self.sequence_parallel = False
 
 
 _param_counter = [0]

@@ -183,9 +183,11 @@ def test_recompute_gives_the_same_loss_and_grads():
 
 
 def test_mp_group_above_degree_one_raises():
+    """An mp group of two ranks without a process group: the layer would
+    run un-sharded, so it raises (as the reference's)."""
     class Group:
         nranks = 2
 
     from paddle_tpu_torch.distributed.fleet import ColumnParallelLinear
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="un-sharded"):
         ColumnParallelLinear(8, 8, mp_group=Group())

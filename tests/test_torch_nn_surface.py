@@ -70,31 +70,21 @@ _ITEM11 = ("ROADMAP §1 item 11: the compiled 1F1B, VPP and ZeroBubble "
            "schedules")
 _DIST_LATER = (
     "CommTaskManager DistAttr DistPipelineRuntime DistPipelineRuntimeVPP "
-    "DistPipelineRuntimeZB DygraphShardingOptimizer DygraphShardingStage3 "
+    "DistPipelineRuntimeZB "
     "ElasticStep Engine FaultPlan LayerDesc Partial PipelineLayer "
     "PipelineParallel PipelineParallelWithInterleave Placement Replicate "
     "RetryPolicy Shard SharedLayerDesc Strategy api auto_parallel auto_tuner "
     "build_pipeline_runtime checkpoint comm_context context_parallel "
     "dtensor_from_local dtensor_to_local get_comm_task_manager "
-    "group_sharded_parallel launch load_state_dict passes pipeline "
+    "launch load_state_dict passes pipeline "
     "placements placements_to_spec ps recompute_sequential reshard "
     "resilience ring_attention ring_attention_global rpc "
-    "save_group_sharded_model save_state_dict shard_batch shard_layer "
-    "shard_tensor sharding shrink_world spawn spmd suggest_mesh_degree "
+    "save_state_dict shard_batch shard_layer "
+    "shard_tensor shrink_world spawn spmd suggest_mesh_degree "
     "to_static ulysses_attention ulysses_attention_global unshard_dtensor "
     "utils watchdog").split()
-_FLEET_LATER = (
-    "ColumnSequenceParallelLinear CommunicateTopology DistributedStrategy "
-    "HybridCommunicateGroup ParallelCrossEntropy RowSequenceParallelLinear "
-    "SegmentParallel barrier_worker distributed_model distributed_optimizer "
-    "elastic get_hybrid_communicate_group get_hybrid_communicate_group_ "
-    "hybrid_optimizer "
-    "get_rng_state_tracker init init_server init_worker is_first_worker "
-    "is_initialized mark_as_sequence_parallel_parameter meta_parallel "
-    "metrics model_parallel_random_seed ps_client random_ "
-    "register_sequence_parallel_allreduce_hooks run_server "
-    "sequence_parallel_utils set_hybrid_communicate_group stop_worker "
-    "strategy topology utils worker_index worker_num").split()
+# fleet's parameter-server functions
+_FLEET_PS = "init_server init_worker ps_client run_server stop_worker".split()
 # the namespaces compared name for name, with the names each still lacks
 # (a list that may only shrink; a package's submodules are among its names
 # once any test has imported them, so each one not ported is listed)
@@ -104,7 +94,8 @@ NOT_YET = {
     "distributed": {**dict.fromkeys(_DIST_LATER, _ITEM8),
                     **dict.fromkeys(("OneFOneB", "VPP", "ZeroBubble"),
                                     _ITEM11)},
-    "distributed.fleet": dict.fromkeys(_FLEET_LATER, _ITEM8),
+    "distributed.fleet": {"elastic": _ITEM8,
+                          **dict.fromkeys(_FLEET_PS, _ITEM10)},
     "incubate": {"asp": _ITEM10, "distributed": _ITEM10},
     "incubate.nn": {},
     "base": {},

@@ -5,7 +5,9 @@
   ``chip_nccl_probe.py``, ``chip_bert_turns.py``,
   ``chip_compile_witness.py`` and ``chip_runtime_probe.py`` import neither
   JAX nor the JAX package (``paddle_tpu``), not even a module of it that
-  does not import JAX: the port keeps its own copy of what it needs.
+  does not import JAX: the port keeps its own copy of what it needs. Nor
+  do the tests' rank-function modules (``tests/torch_*_ranks.py``,
+  ``tests/torch_fleet_workers.py``), which the spawned ranks import.
 - The port's entry points run on the card unless the caller asks for the
   CPU; with no card they raise instead of carrying on on the CPU.
 - The port's parameter tree and weight-decay mask are the reference's, key
@@ -29,7 +31,10 @@ PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "chip_fwd_wide.py",
     ROOT / "chip_profiler_probe.py", ROOT / "chip_nccl_probe.py",
     ROOT / "chip_bert_turns.py", ROOT / "chip_compile_witness.py",
-    ROOT / "chip_runtime_probe.py"]
+    ROOT / "chip_runtime_probe.py"] + [
+    ROOT / "tests" / name for name in (
+        "torch_comm_ranks.py", "torch_dist_ranks.py",
+        "torch_fleet_workers.py")]
 
 
 def _imported_modules(path: Path):

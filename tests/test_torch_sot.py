@@ -465,3 +465,134 @@ def test_amp_rule_not_baked_into_fast_path():
             _close(full.numpy(), want.numpy())
         got.append(np.asarray(low2.astype("float32").numpy()))
     np.testing.assert_allclose(got[1], got[0], rtol=2 ** -7, atol=1e-2)
+
+
+def test_side_effect_before_the_step_budget_runs_once():
+    """A frame that writes outside state and then runs past
+    ``FLAGS_sot_step_budget`` finishes in the interpreter: falling back
+    there would call the function natively and run the write a second
+    time. The port departs from the reference here (ROADMAP §3), whose
+    fallback repeats it: the port alone is held."""
+    from paddle_tpu_torch._core.flags import flag_value, set_flags
+
+    class Counter:
+        def __init__(self):
+            self.n = 0
+
+        def step(self, x):
+            self.n += 1
+            for _ in range(40):
+                x = x + 1.0
+            return x
+
+    old = flag_value("FLAGS_sot_step_budget")
+    set_flags({"FLAGS_sot_step_budget": 60})
+    try:
+        c = Counter()
+        sfn = pt_sot.symbolic_translate(c.step)
+        out = sfn(pt.to_tensor(_np()))
+    finally:
+        set_flags({"FLAGS_sot_step_budget": old})
+    assert c.n == 1
+    _close(out.numpy(), _np() + 40.0)
+
+
+def test_scalar_built_inside_the_call_is_not_frozen():
+    """A one-element tensor built inside the call from host data (no
+    guarded source traces it) is not bound into the fast path as a
+    constant: two calls draw two numbers, as eagerly. The reference
+    freezes the first draw (ROADMAP §3): the port alone is held."""
+    def f(x):
+        s = pt.to_tensor(np.random.rand(), dtype="float32")
+        return x * s
+
+    sfn = pt_sot.symbolic_translate(f)
+    x = pt.to_tensor(_np())
+    np.random.seed(7)
+    a = sfn(x).numpy()
+    b = sfn(x).numpy()
+    np.random.seed(7)
+    want_a = f(x).numpy()
+    want_b = f(x).numpy()
+    _close(a, want_a)
+    _close(b, want_b)
+    assert not np.allclose(a, b)
+
+
+def test_fallback_after_a_write_raises(monkeypatch):
+    """Any other fallback met after a write outside the frame raises
+    ``SotSideEffectError`` instead of running the frame natively (which
+    would write again): here the interpreter is made to refuse a
+    subtraction."""
+    import dis
+    from paddle_tpu_torch.jit.sot import opcode_executor as oe
+
+    sub = [i for i, (name, _) in enumerate(dis._nb_ops)
+           if name == "NB_SUBTRACT"][0]
+    table = list(oe._NB_TABLE)
+    table[sub] = None
+    monkeypatch.setattr(oe, "_NB_TABLE", table)
+
+    class Counter:
+        def __init__(self):
+            self.n = 0
+
+        def step(self, x):
+            self.n += 1
+            return x - 1.0
+
+    c = Counter()
+    with pytest.raises(pt_sot.SotSideEffectError, match="repeat the write"):
+        pt_sot.symbolic_translate(c.step)(pt.to_tensor(_np()))
+    assert c.n == 1
+
+
+@pytest.mark.parametrize("make", [
+    lambda: pt.to_tensor(2.0),
+    lambda: pt.full([1], 0.5),
+    lambda: pt.to_tensor(2.0, dtype=pt.float32),
+], ids=["to_tensor", "full", "to_tensor_dtype"])
+def test_constant_scalar_built_inside_the_call_takes_the_fast_path(make):
+    """A one-element tensor the port builds from the code's own constants
+    is bound into the fast path as a constant: the second call hits it
+    and gives the eager value."""
+    def f(x):
+        return x * make()
+
+    sfn = pt_sot.symbolic_translate(f)
+    x = pt.to_tensor(_np())
+    want = f(x).numpy()
+    for _ in range(2):
+        _close(sfn(x).numpy(), want)
+    st = pt_sot.sot_stats(sfn)
+    assert st["captures"] == 1 and st["fast_hits"] == 1
+
+
+@pytest.mark.parametrize("kind", ["counter", "draw"])
+def test_zero_argument_scalar_factory_is_not_frozen(kind):
+    """A call with no arguments that builds a one-element tensor from
+    hidden state (here a counter, behind a try block so that it runs
+    natively), and a draw from the port's generator, are not bound as
+    constants: each call gives what the eager call gives."""
+    import itertools
+    counter = [itertools.count(1)]
+
+    def tick():
+        try:
+            return pt.to_tensor(float(next(counter[0])))
+        except StopIteration:
+            raise
+
+    def f(x):
+        return x * (tick() if kind == "counter" else pt.rand([1]))
+
+    sfn = pt_sot.symbolic_translate(f)
+    x = pt.to_tensor(_np())
+    pt.seed(3)
+    got = [sfn(x).numpy() for _ in range(3)]
+    counter[0] = itertools.count(1)
+    pt.seed(3)
+    want = [f(x).numpy() for _ in range(3)]
+    for g, w in zip(got, want):
+        _close(g, w)
+    assert not np.allclose(got[0], got[1])
