@@ -303,6 +303,31 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    ``[50304, 1024]`` table; ``mp_softmax_cross_entropy`` against
    ``F.cross_entropy`` on b8 s1024 logits), ``HybridParallelGradScaler``
    against ``GradScaler`` on the fp16 step, and ``fleet.metrics``;
+23. (run before 16) the eager pipeline, the semi-auto API and the
+   checkpoint, under a watchdog of ``PIPELINE_WATCHDOG_S``, on a one-rank
+   NCCL group, with phase 10's gpt2-medium built as a ``PipelineLayer``
+   (the embeddings, 24 decoder layers, the final norm, the head tied to
+   the word embeddings through a ``SharedLayerDesc``'s ``forward_func``;
+   b8 s1024, O1 bf16, AdamW, seed 0): (a) ``PipelineParallel.train_batch``
+   at 4 micro-batches of 2 against a hand-written four-micro-batch
+   accumulation on a twin from the same seed: three losses and step 1's
+   gradients bit-equal, #1-#3 launched 96 times each a step; then
+   against phase 10's plain b8 step in turns: ms/step, peak memory and
+   the step's rise above what was allocated before it; (b)
+   ``build_pipeline_runtime`` for 1F1B, FThenB, VPP (two chunks of 12
+   blocks) and ZeroBubble, three steps each: losses and gradients
+   bit-equal to (a)'s hand-written accumulation (VPP: all but the tied
+   word embeddings, whose two chunks' parts add in another order, within
+   ``PP_VPP_WTE_REL``), ZeroBubble's F = B = W = 4 a step,
+   ``max_inflight``, ``max_stash_bytes``, the NCCL barriers, ms/step; (c)
+   ``shard_tensor`` and ``reshard`` through every pair of a 1-D mesh,
+   multi-axis moves on a 2-D one, ``p_to_p`` and a cross-mesh move,
+   ``dtensor_from_local`` / ``to_local`` / ``unshard_dtensor``, on ``wte``
+   ``[50304, 1024]``, forward and backward: bit-equal, every registered
+   function chosen, the collectives issued; (d) ``save_state_dict`` /
+   ``load_state_dict`` of the model's 1.42 GB of fp32 parameters: the
+   round trip bit-equal, a flipped byte of ``data_rank0.pkl`` refused,
+   seconds and GB/s each way;
 16. prints the head_dim 256 and 512 and fp16 (64, 256 and 512) timings,
    the ``kernels`` JSON line, the card line, and last ``{"ok": true, "device": {...}}``.
 
@@ -7080,6 +7105,454 @@ def fleet_path(smi):
         + f"; {time.perf_counter() - t_phase:.1f} in all on {smi}")
 
 
+PIPELINE_WATCHDOG_S = 180
+PP_MICRO = 4          # phase 23's accumulate_steps: micro-batches of 2
+PP_STEPS = 3          # steps held against each other
+PP_TURN_STEPS = 2     # timed steps a turn (after one warm-up)
+# VPP at one stage: only the tied word embeddings' gradient sums its two
+# chunks' parts in another order than one backward does (a relative
+# rounding of fp32's), and what the steps after it compute moves with it
+PP_VPP_WTE_REL = 1e-6
+PP_VPP_LOSS_REL = 1e-4
+
+
+def _gpt_pipeline(paddle, cfg):
+    """Phase 10's gpt2-medium as a ``PipelineLayer``: the embeddings (a
+    shared layer), the decoder layers, the final norm, and the head tied
+    to the word embeddings through the shared layer's ``forward_func``;
+    ``GPTPretrainingCriterion`` the loss. Its parameters are made in
+    ``GPTForPretraining``'s order, so one seed gives both the same
+    weights."""
+    from paddle_tpu_torch.distributed import (LayerDesc, PipelineLayer,
+                                              SharedLayerDesc)
+    from paddle_tpu_torch.models import gpt
+
+    def head(emb, h):
+        return paddle.matmul(h, emb.word_embeddings.weight, transpose_y=True)
+
+    key = "word_embeddings.weight"
+    return PipelineLayer(
+        [SharedLayerDesc("embed", gpt.GPTEmbeddings, None, key, cfg)]
+        + [LayerDesc(gpt.GPTDecoderLayer, cfg)
+           for _ in range(cfg.num_layers)]
+        + [LayerDesc(paddle.nn.LayerNorm, cfg.hidden_size,
+                     cfg.layer_norm_eps),
+           SharedLayerDesc("embed", gpt.GPTEmbeddings, head, key, cfg)],
+        num_stages=1, loss_fn=gpt.GPTPretrainingCriterion())
+
+
+def _hand_step(paddle, model, opt, x, y, m, floats):
+    """The hand-written accumulation of ``PipelineParallel.train_batch``:
+    m micro-batches, each loss / m and its backward, one optimizer step,
+    all under O1 bf16. Appends the sum of the m micro losses as Python
+    floats (what the runtimes return) to ``floats``; returns the fp32
+    sum."""
+    mb = x.shape[0] // m
+    total, parts = None, []
+    with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+        for i in range(m):
+            loss = model._loss_fn(model(x[i * mb:(i + 1) * mb]),
+                                  y[i * mb:(i + 1) * mb]) / m
+            loss.backward()
+            parts.append(float(loss))
+            total = loss.detach() if total is None else \
+                total + loss.detach()
+        opt.step()
+        opt.clear_grad()
+    floats.append(sum(parts))
+    return total
+
+
+def _step_memory(step):
+    """Runs ``step()``; the peak device memory it reached and its rise
+    over what was allocated before it, in bytes."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return peak, peak - base
+
+
+def pipeline_parallel_pair(smi, paddle, cfg, x, y):
+    """Phase 23 (a): ``PipelineParallel.train_batch`` (accumulate_steps
+    ``PP_MICRO``) against the hand-written accumulation on a twin from
+    seed 0, in turns; then against phase 10's plain b8 step in turns,
+    ms/step and memory."""
+    from paddle_tpu_torch.distributed import PipelineParallel
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    strategy = DistributedStrategy()
+    strategy.pipeline_configs = {"accumulate_steps": PP_MICRO,
+                                 "micro_batch_size": BATCH // PP_MICRO,
+                                 "schedule_mode": "1F1B"}
+    models, opts = {}, {}
+    for name in ("pipeline", "hand"):
+        paddle.seed(0)
+        models[name] = _gpt_pipeline(paddle, cfg)
+        opts[name] = paddle.optimizer.AdamW(
+            1e-4, parameters=models[name].parameters())
+    pp = PipelineParallel(models["pipeline"], None, strategy)
+    floats = []
+
+    def step(name):
+        if name == "hand":
+            return _hand_step(paddle, models["hand"], opts["hand"], x, y,
+                              PP_MICRO, floats)
+        with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+            return pp.train_batch([x, y], opts["pipeline"])
+
+    losses, grads, launches = {"pipeline": [], "hand": []}, {}, {}
+    for i in range(PP_STEPS):
+        for name in ("pipeline", "hand"):
+            _reset_all_launches()
+            if i == 0:
+                loss, grads[name] = _step_grads(
+                    opts[name], list(models[name].parameters()),
+                    lambda: step(name))
+            else:
+                loss = step(name)
+            losses[name].append(float(loss))
+            launches[name] = _all_launches()
+    equal = all(torch.equal(a, b) for a, b in
+                zip(grads["pipeline"], grads["hand"]))
+    n_leaves = len(grads["hand"])
+    want = {k: PP_MICRO * cfg.num_layers if k in fa.LAUNCHES else 0
+            for k in launches["hand"]}
+    print(f"pipeline (a) PipelineParallel.train_batch, {PP_MICRO} "
+          f"micro-batches of {BATCH // PP_MICRO}: losses "
+          f"{losses['pipeline']} against the hand-written accumulation's "
+          f"{losses['hand']}; step 1's gradients bit-equal over {n_leaves} "
+          f"leaves: {equal}; launches a step {launches['pipeline']} "
+          f"(hand {launches['hand']})")
+    check(losses["pipeline"] == losses["hand"],
+          f"PipelineParallel losses {losses}")
+    check(equal, "PipelineParallel's step 1 gradients differ from the "
+          "hand-written accumulation's")
+    for name in launches:
+        check(launches[name] == want, f"(a) {name} launches "
+              f"{launches[name]}, want {want}")
+    del models["hand"], opts["hand"]
+    torch.cuda.empty_cache()
+    paddle.seed(0)
+    plain = gpt.GPTForPretraining(cfg)
+    plain_opt = paddle.optimizer.AdamW(1e-4, parameters=plain.parameters())
+    crit = gpt.GPTPretrainingCriterion()
+    runs = {"plain": lambda: _eager_step(paddle, plain, crit, plain_opt, x,
+                                         y, "bfloat16"),
+            "pipeline": lambda: step("pipeline")}
+    ms, mem = {k: [] for k in runs}, {}
+    for name in ("plain", "pipeline", "pipeline", "plain"):
+        mem[name] = _step_memory(runs[name])
+        ms[name] += _turns(lambda *_: runs[name](), None, None, None,
+                           PP_TURN_STEPS)
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    gib = {k: (v[0] / 2**30, v[1] / 2**30) for k, v in mem.items()}
+    print(f"pipeline (a): {med['pipeline']:.2f} ms/step against phase 10's "
+          f"plain b{BATCH} step's {med['plain']:.2f} "
+          f"({med['pipeline'] / med['plain']:.3f}x) in turns; peak memory "
+          f"{gib['pipeline'][0]:.2f} GiB against {gib['plain'][0]:.2f} "
+          f"({mem['pipeline'][0] / mem['plain'][0]:.3f}x), the step's rise "
+          f"{gib['pipeline'][1]:.2f} GiB against {gib['plain'][1]:.2f} "
+          f"({mem['pipeline'][1] / mem['plain'][1]:.3f}x; both models and "
+          f"their states resident) on {smi}")
+    del plain, plain_opt, runs
+    torch.cuda.empty_cache()
+    return {"model": models["pipeline"], "grads": grads["hand"],
+            "floats": floats[:PP_STEPS], "ms": med, "mem": mem}
+
+
+def pipeline_runtimes(smi, paddle, cfg, x, y, a):
+    """Phase 23 (b): ``build_pipeline_runtime`` over a one-rank NCCL group
+    for each schedule, ``PP_STEPS`` steps from seed 0, against (a)'s
+    hand-written accumulation."""
+    import torch.distributed as dist
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import (
+        PipelineParallelWithInterleave, build_pipeline_runtime)
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    group = D.new_group([0])
+    check(group.pg is not None and "nccl" in str(dist.get_backend(group.pg)),
+          f"pipeline group {group} is not on NCCL")
+    mb = BATCH // PP_MICRO
+    xs = [x[i * mb:(i + 1) * mb] for i in range(PP_MICRO)]
+    ys = [y[i * mb:(i + 1) * mb] for i in range(PP_MICRO)]
+    barriers = [0]
+    barrier = dist.barrier
+
+    def counted_barrier(*args, **kwargs):
+        barriers[0] += 1
+        return barrier(*args, **kwargs)
+
+    out = {}
+    for schedule in ("1F1B", "FThenB", "VPP", "ZeroBubble"):
+        paddle.seed(0)
+        model = _gpt_pipeline(paddle, cfg)
+        opt = paddle.optimizer.AdamW(1e-4, parameters=model.parameters())
+        if schedule == "VPP":
+            strategy = DistributedStrategy()
+            strategy.pipeline_configs = {"accumulate_steps": PP_MICRO}
+            vpp = PipelineParallelWithInterleave(
+                model, None, strategy, num_virtual_pipeline_stages=2)
+            stage = [model._segment(lo, hi) for lo, hi in vpp._virtual_bounds]
+        else:
+            stage = model._segment(0, len(model.run_functions))
+        rt = build_pipeline_runtime(stage, group, model._loss_fn, PP_MICRO,
+                                    schedule)
+        losses, ms, launches, counts = [], [], [], []
+
+        def step():
+            with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+                loss = rt.train_batch(xs, ys)
+                opt.step()
+                opt.clear_grad()
+            return loss
+
+        dist.barrier = counted_barrier
+        try:
+            for i in range(PP_STEPS):
+                _reset_all_launches()
+                before = dict(getattr(rt, "counts", {}))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if i == 0:
+                    loss, grads = _step_grads(opt, list(model.parameters()),
+                                              step)
+                else:
+                    loss = step()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(loss)
+                launches.append(_all_launches())
+                counts.append({k: v - before.get(k, 0)
+                               for k, v in getattr(rt, "counts", {}).items()})
+        finally:
+            dist.barrier = barrier
+        names = [n for n, _ in model.named_parameters()]
+        wte = [i for i, n in enumerate(names)
+               if n.endswith("word_embeddings.weight")]
+        differ = [names[i] for i, (g, w) in enumerate(zip(grads, a["grads"]))
+                  if not torch.equal(g, w)]
+        wte_rel = _divergence([grads[i] for i in wte],
+                              [a["grads"][i] for i in wte])["worst"]
+        loss_rel = max(abs(l - w) / abs(w)
+                       for l, w in zip(losses, a["floats"]))
+        want = {k: PP_MICRO * cfg.num_layers if k in fa.LAUNCHES else 0
+                for k in launches[0]}
+        print(f"pipeline (b) {schedule} ({type(rt).__name__}, one-rank NCCL "
+              f"group): losses {losses} against (a)'s hand-written "
+              f"{a['floats']} (worst {loss_rel:.3g} relative); step 1's "
+              f"gradients differing from (a)'s: {differ} (tied "
+              f"word embeddings {wte_rel:.3g} relative); max_inflight "
+              f"{rt.max_inflight}, max_stash_bytes {rt.max_stash_bytes}; "
+              f"counts a step {counts}; P2P sends {rt._p2p.sends}, NCCL "
+              f"barriers {barriers[0]} over {PP_STEPS} steps; ms/step "
+              f"{[round(v, 2) for v in ms]} (median of the last "
+              f"{PP_STEPS - 1} {float(np.median(ms[1:])):.2f}) on {smi}")
+        barriers[0] = 0
+        for got in launches:
+            check(got == want, f"(b) {schedule} launches {got}, want {want}")
+        if schedule == "VPP":
+            check(differ in ([], [names[i] for i in wte])
+                  and wte_rel <= PP_VPP_WTE_REL,
+                  f"VPP gradients {differ}, wte {wte_rel}")
+            check(losses[0] == a["floats"][0]
+                  and loss_rel <= PP_VPP_LOSS_REL, f"VPP losses {losses}")
+        else:
+            check(not differ, f"{schedule} gradients differ: {differ}")
+            check(losses == a["floats"], f"{schedule} losses {losses}")
+        if schedule == "ZeroBubble":
+            check(all(c == {"F": PP_MICRO, "B": PP_MICRO, "W": PP_MICRO}
+                      for c in counts), f"ZeroBubble counts {counts}")
+        check(rt._p2p.sends == 0 and not rt._p2p._local,
+              f"{schedule} at one rank sent {rt._p2p.sends}")
+        out[schedule] = {"ms": float(np.median(ms[1:])),
+                         "max_inflight": rt.max_inflight,
+                         "max_stash_bytes": rt.max_stash_bytes}
+        del model, opt, rt, stage, grads
+        torch.cuda.empty_cache()
+    return out
+
+
+RESHARD_PAIRS = [(s, d) for s in ("R", "S0", "S1", "P")
+                 for d in ("R", "S0", "S1", "P")]
+RESHARD_ND = [("S0 R", "R S1"), ("P R", "R S0"), ("S0 S1", "R R"),
+              ("R P", "S1 S0")]
+
+
+def _placements(spec):
+    """Placement words, one per mesh axis: R, S<dim>, P (a sum), Pmax."""
+    from paddle_tpu_torch.distributed import Partial, Replicate, Shard
+    return [Replicate() if w == "R" else Partial() if w == "P"
+            else Partial("max") if w == "Pmax" else Shard(int(w[1:]))
+            for w in spec.split()]
+
+
+def reshard_pairs(smi, paddle, weight):
+    """Phase 23 (c): ``shard_tensor``, ``reshard`` through every pair that
+    ``choose_reshard_function`` knows on a one-rank NCCL mesh (the 16
+    pairs of a 1-D mesh, multi-axis moves on a 2-D one, a cross-mesh
+    move), ``dtensor_from_local`` / ``dtensor_to_local`` and
+    ``unshard_dtensor``, on ``weight`` (the word embeddings), forward and
+    backward: each piece bit-equal to the weight (one rank holds it all),
+    each layout move's gradient bit-equal to its cotangent, no gradient
+    through Partial."""
+    from paddle_tpu_torch.distributed import (ProcessMesh, dtensor_from_local,
+                                              dtensor_to_local, reshard,
+                                              shard_tensor, unshard_dtensor)
+    from paddle_tpu_torch.distributed import _collectives as C
+    from paddle_tpu_torch.distributed.auto_parallel import \
+        reshard_functions as rf
+    w = weight._t.detach().clone()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    cot = torch.randn(w.shape, device="cuda", generator=gen)
+    meshes = {1: ProcessMesh(np.array([0]), ["x"]),
+              2: ProcessMesh(np.array([[0]]), ["x", "y"])}
+    other = ProcessMesh(np.array([0]), ["x"])
+    cases = [(1, s, d, meshes[1]) for s, d in RESHARD_PAIRS] \
+        + [(2, s, d, meshes[2]) for s, d in RESHARD_ND] \
+        + [(1, "P", "Pmax", meshes[1]), (1, "S0", "S1", other)]
+    C.reset_calls()
+    chosen, results = {}, {}
+    t0 = time.perf_counter()
+    for n, src, dst, dst_mesh in cases:
+        mesh = meshes[n]
+        leaf = paddle.to_tensor(w, stop_gradient=False)
+        t = reshard(shard_tensor(leaf, mesh, _placements(" ".join("R" * n))),
+                    mesh, _placements(src))
+        fn = rf.choose_reshard_function(
+            rf.DistAttrLite(mesh, t._dist_attr.placements),
+            rf.DistAttrLite(dst_mesh, _placements(dst))).name
+        out = reshard(t, dst_mesh, _placements(dst))
+        layout = "P" not in src + dst
+        ok = torch.equal(out._t, w) and out._dist_attr.global_shape \
+            == list(w.shape) and out.stop_gradient is False
+        if layout:
+            torch.autograd.backward(out._t, cot)
+            ok = ok and torch.equal(leaf._t.grad, cot)
+        else:
+            ok = ok and out._t.grad_fn is None
+        chosen[fn] = chosen.get(fn, 0) + 1
+        results[f"{src}->{dst}" + (" (cross)" if dst_mesh is other
+                                    else "")] = ok
+    local = paddle.to_tensor(w, stop_gradient=False)
+    d = dtensor_from_local(local, meshes[1], _placements("S0"))
+    whole = unshard_dtensor(d)
+    torch.autograd.backward(whole._t, cot)
+    results["from_local/unshard/to_local"] = (
+        torch.equal(whole._t, w) and torch.equal(local._t.grad, cot)
+        and torch.equal(dtensor_to_local(d)._t, w)
+        and d._dist_attr.global_shape == list(w.shape))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    calls = dict(C.CALLS)
+    print(f"pipeline (c) reshard on the word embeddings {list(w.shape)} "
+          f"over a one-rank NCCL mesh, forward and backward: bit-equal "
+          f"{sum(results.values())} of {len(results)}: {results}; functions "
+          f"chosen {chosen}; collectives issued {calls} in {seconds:.2f} s "
+          f"on {smi}")
+    check(all(results.values()), f"reshard cases not bit-equal: "
+          f"{[k for k, v in results.items() if not v]}")
+    check(set(chosen) == {f.name for f in rf.all_reshard_functions()},
+          f"reshard functions chosen {sorted(chosen)}")
+    return calls
+
+
+def checkpoint_round_trip(smi, paddle, model):
+    """Phase 23 (d): ``save_state_dict`` / ``load_state_dict`` of the
+    pipeline model's fp32 parameters: the round trip bit-equal, a flipped
+    byte of ``data_rank0.pkl`` refused; seconds and GB/s each way (the
+    file's bytes; the read after the write is warm in the file cache)."""
+    import tempfile
+    from paddle_tpu_torch.base.core import EnforceNotMet
+    from paddle_tpu_torch.distributed import load_state_dict, save_state_dict
+    state = model.state_dict()
+    nbytes = sum(v._t.numel() * v._t.element_size() for v in state.values())
+    root = tempfile.mkdtemp(prefix="pt_ckpt_")
+    try:
+        path = os.path.join(root, "ckpt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_state_dict(state, path)
+        save_s = time.perf_counter() - t0
+        data = os.path.join(path, "data_rank0.pkl")
+        size = os.path.getsize(data)
+        target = {k: paddle.zeros_like(v) for k, v in state.items()}
+        t0 = time.perf_counter()
+        load_state_dict(target, path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        equal = all(torch.equal(target[k]._t, v._t) and
+                    target[k]._t.is_cuda for k, v in state.items())
+        del target
+        with open(data, "r+b") as f:
+            f.seek(size // 2)
+            byte = f.read(1)
+            f.seek(size // 2)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        try:
+            load_state_dict({k: paddle.zeros_like(v)
+                             for k, v in state.items()}, path)
+            refused = "loaded"
+        except EnforceNotMet as e:
+            refused = str(e).splitlines()[0]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"pipeline (d) checkpoint of {len(state)} fp32 parameters "
+          f"({nbytes} bytes, data_rank0.pkl {size} bytes): save "
+          f"{save_s:.2f} s ({size / save_s / 1e9:.2f} GB/s), load "
+          f"{load_s:.2f} s ({size / load_s / 1e9:.2f} GB/s, warm read); "
+          f"round trip bit-equal: {equal}; a flipped byte: "
+          f"{refused.replace(root, '<tmp>')!r} on {smi}")
+    check(equal, "the checkpoint round trip is not bit-equal")
+    check("corrupted" in refused, f"a flipped byte was not refused: "
+          f"{refused}")
+    return save_s, load_s, size
+
+
+def pipeline_path(smi):
+    """Phase 23: the eager pipeline and the semi-auto API at gpt2-medium on
+    a one-rank NCCL group (see the module docstring)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.models import gpt
+    phase("23 the eager pipeline, the semi-auto API, the checkpoint")
+    t_phase = time.perf_counter()
+    times = {}
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    D.init_parallel_env(f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                        world_size=1)
+    try:
+        cfg = gpt.GPT_CONFIGS["gpt2-medium"]
+        paddle.set_device("gpu")
+        rng = np.random.RandomState(0)
+        x = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (BATCH, SEQ)))
+        y = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (BATCH, SEQ)))
+        t0 = time.perf_counter()
+        a = pipeline_parallel_pair(smi, paddle, cfg, x, y)
+        times["(a)"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pipeline_runtimes(smi, paddle, cfg, x, y, a)
+        times["(b)"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wte = a["model"].run_functions[0].word_embeddings.weight
+        reshard_pairs(smi, paddle, wte)
+        times["(c)"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        checkpoint_round_trip(smi, paddle, a["model"])
+        times["(d)"] = time.perf_counter() - t0
+        del a
+        torch.cuda.empty_cache()
+    finally:
+        D.destroy_process_group()
+    print("phase 23 seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in times.items())
+        + f"; {time.perf_counter() - t_phase:.1f} in all on {smi}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7153,6 +7626,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     with watchdog("phase 22 (fleet and ZeRO)", FLEET_WATCHDOG_S):
         fleet_path(smi)
+    torch.cuda.empty_cache()
+    with watchdog("phase 23 (the eager pipeline and the semi-auto API)",
+                  PIPELINE_WATCHDOG_S):
+        pipeline_path(smi)
     phase("16 results")
     for label, (d_ms, d_plain, d_lib, d_bnd) in (
             ("head_dim 256", d256), ("head_dim 512", d512),

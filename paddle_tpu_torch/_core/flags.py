@@ -10,7 +10,11 @@ here are those the compile path reads (``jit``, ``static``, ``ir``,
 (``_core/lazy.py``, ``_core/cache.py``, ``_core/async_flush.py``,
 ``jit/sot``, ``_core/persist.py``) and those of the native runtime and the
 eager communication API (``_core/native.py``, ``distributed/store.py``,
-``distributed/parallel.py``), with the reference's names and defaults except one:
+``distributed/parallel.py``), those of the eager pipeline, the fault
+injection, the retry policies and the distributed checkpoint
+(``distributed/pipeline.py``, ``distributed/resilience``,
+``distributed/checkpoint.py``), with the reference's names and defaults
+except one:
 ``FLAGS_eager_fusion`` is off by default here (the card's stream already
 runs ahead of the host; ``ROADMAP.md`` §3).
 """
@@ -188,3 +192,36 @@ define_flag("FLAGS_fuse_buffer_size_mb", 25,
 define_flag("FLAGS_dp_broadcast_params", True,
             "DataParallel broadcasts parameters from rank 0 at wrap "
             "time so replicas start identical.")
+
+# ---- the eager pipeline (the reference's flags.py:430-436, :667)
+define_flag("FLAGS_pipeline_stash_warn_mb", 0,
+            "Warn when a pipeline runtime's activation stash exceeds "
+            "this many MB (0 = off).")
+define_flag("FLAGS_pipeline_max_inflight", 0,
+            "Hard cap on stashed in-flight micro-batches per pipeline "
+            "rank (0 = unlimited; exceeding raises).")
+define_flag("FLAGS_zb_w_extra_delay", 0,
+            "Extra micro-batches of weight-grad (W) deferral in the "
+            "ZeroBubble schedule beyond the warmup depth.")
+
+# ---- fault injection, retries and the checkpoint (:354-378, :678)
+define_flag("FLAGS_fault_inject", "",
+            "Deterministic fault-injection plan ('' = off): "
+            "'seed=N;site[@occ]=kind[(arg)][:prob];...' where site is a "
+            "named injection point (ckpt::save, ckpt::load; trailing * "
+            "wildcards match) and kind is fail | die | delay(s) | "
+            "stuck(s) | oom. See distributed/resilience/faults.py.")
+define_flag("FLAGS_retry_max_attempts", 3,
+            "RetryPolicy default attempt budget for transient failures "
+            "(checkpoint I/O).")
+define_flag("FLAGS_retry_backoff_s", 0.05,
+            "RetryPolicy base backoff delay in seconds (exponential "
+            "with deterministic jitter).")
+define_flag("FLAGS_checkpoint_keep", 3,
+            "CheckpointManager: verified checkpoint generations kept on "
+            "disk (older generations pruned after each save; load "
+            "falls back to the newest verified older generation when "
+            "the latest fails its checksum).")
+define_flag("FLAGS_ckpt_strict_load", True,
+            "Distributed checkpoint load fails on missing/unexpected "
+            "keys instead of loading the intersection.")

@@ -33,7 +33,9 @@ DEFERRED = _lazy.DEFERRED
 
 
 class Tensor:
-    __slots__ = ("_payload", "name", "persistable", "__weakref__")
+    # _dist: the DistAttr of a DistTensor (distributed/api.py), unset on
+    # every other tensor (read through _dist_attr)
+    __slots__ = ("_payload", "name", "persistable", "_dist", "__weakref__")
 
     def __init__(self, value, stop_gradient: Optional[bool] = None,
                  name: Optional[str] = None):
@@ -89,6 +91,19 @@ class Tensor:
     @property
     def rank(self) -> int:
         return self._payload.dim()
+
+    @property
+    def _dist_attr(self):
+        """The ``DistAttr`` of a DistTensor (``distributed.api``): its mesh,
+        placements and global shape; None for any other tensor."""
+        try:
+            return self._dist
+        except AttributeError:
+            return None
+
+    @_dist_attr.setter
+    def _dist_attr(self, attr) -> None:
+        self._dist = attr
 
     @property
     def is_leaf(self) -> bool:

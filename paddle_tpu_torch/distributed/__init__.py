@@ -3,8 +3,11 @@ mesh (``init_parallel_env``, ``ProcessMesh``) over ``torch.distributed``,
 the eager communication API (``communication``: ``all_reduce`` and the
 other collectives, ``Group``, ``new_group``), ``DataParallel``, the
 ``TCPStore``, the compiled pipeline over a pp axis, ``fleet`` (the
-tensor-parallel functions of the mesh trainers, the fleet layers at degree
-1, ``recompute``)."""
+hybrid-parallel API, ``recompute``), ``sharding`` (eager ZeRO), the eager
+pipeline (``pipeline``), the semi-auto API (``placements``, ``api``,
+``auto_parallel.reshard_functions``), the distributed checkpoint
+(``checkpoint``) and the fault injection and retry policies
+(``resilience``)."""
 from .mesh import (ProcessMesh, auto_mesh, get_mesh,  # noqa: F401
                    init_device_mesh, set_mesh)
 from .parallel_env import (ParallelEnv, destroy_process_group,  # noqa: F401
@@ -30,3 +33,19 @@ from . import sharding  # noqa: F401,E402
 from .sharding import (DygraphShardingOptimizer,  # noqa: F401,E402
                        DygraphShardingStage3, group_sharded_parallel,
                        save_group_sharded_model)
+from .placements import (Placement, Replicate, Shard,  # noqa: F401,E402
+                         Partial)
+from .api import (DistAttr, shard_tensor, reshard,  # noqa: F401,E402
+                  dtensor_from_local, dtensor_to_local, unshard_dtensor,
+                  shard_layer, placements_to_spec)
+from . import checkpoint  # noqa: F401,E402
+from .checkpoint import save_state_dict, load_state_dict  # noqa: F401,E402
+from .pipeline import (PipelineLayer, PipelineParallel,  # noqa: F401,E402
+                       LayerDesc, SharedLayerDesc,
+                       PipelineParallelWithInterleave, DistPipelineRuntime,
+                       DistPipelineRuntimeVPP, DistPipelineRuntimeZB,
+                       build_pipeline_runtime)
+from .fleet.recompute import recompute_sequential  # noqa: F401,E402
+from . import resilience  # noqa: F401,E402
+from .resilience import FaultPlan, RetryPolicy  # noqa: F401,E402
+from . import auto_parallel  # noqa: F401,E402

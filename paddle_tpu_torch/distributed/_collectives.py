@@ -111,6 +111,25 @@ def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return out.movedim(0, dim).contiguous() if moved else out
 
 
+def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
+               group) -> torch.Tensor:
+    """``x`` cut into the group's blocks along ``split_dim``, block r sent
+    to rank r, and the blocks received joined along ``concat_dim`` in rank
+    order: a value split along ``concat_dim`` becomes split along
+    ``split_dim``."""
+    n = _size(group)
+    if x.shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} of size {x.shape[split_dim]} does "
+                         f"not split over {n} ranks")
+    parts = [p.contiguous() for p in x.chunk(n, split_dim)]
+    flat_in = torch.cat([p.reshape(-1) for p in parts])
+    flat_out = torch.empty_like(flat_in)
+    CALLS["all_to_all"] += 1
+    dist.all_to_all_single(flat_out, flat_in, group=group)
+    return torch.cat([o.view(parts[0].shape) for o in flat_out.chunk(n)],
+                     concat_dim)
+
+
 def chunk(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """This rank's block of ``x`` along ``dim`` (no communication)."""
     n = _size(group)
@@ -189,6 +208,19 @@ class _Gather(torch.autograd.Function):
         return chunk(g, ctx.dim, ctx.group), None, None
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return all_to_all(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return all_to_all(g, concat_dim, split_dim, ctx.group), None, None, \
+            None
+
+
 def copy_to(x, group):
     """Replicated ``x`` entering a computation split over the group:
     identity forward, sum of the ranks' partial cotangents backward."""
@@ -225,3 +257,9 @@ def gather(x, dim, group):
     """A split value made whole for a replicated computation: all-gather
     forward, this rank's block of the cotangent backward."""
     return _Gather.apply(x, dim, group)
+
+
+def resplit(x, split_dim, concat_dim, group):
+    """A value split along ``concat_dim`` made split along ``split_dim``:
+    an all-to-all forward, the reverse all-to-all backward."""
+    return _AllToAll.apply(x, split_dim, concat_dim, group)

@@ -6,15 +6,17 @@
 fills the data-parallel degree as the reference does and builds the
 ``HybridCommunicateGroup`` over ``pp``, ``dp``, ``sharding``, ``sep`` and
 ``mp``; ``distributed_model`` wraps a model by the parallel mode
-(``DataParallel`` for data parallelism, ``TensorParallel`` for model
-parallelism, the model itself alone or for sharding) and
+(the pipeline runtime for a ``PipelineLayer``, ``DataParallel`` for data
+parallelism, ``TensorParallel`` for model parallelism, the model itself
+alone or for sharding) and
 ``distributed_optimizer`` wraps the optimizer in
 ``HybridParallelOptimizer``. Beside them: the tensor-parallel layers and
 their eager collectives (``mp_layers``, ``mp_ops``), sequence parallelism
 (``sequence_parallel_utils``), the RNG tracker (``random_``), the metrics
-and ``recompute``. The pipeline (``distributed_model`` in pipeline mode),
-the parameter server (``init_server`` and the rest) and ``elastic`` are
-not ported yet (``ROADMAP.md`` §1 items 8.3, 10 and 8.7).
+and ``recompute``; in pipeline mode ``distributed_model`` builds the eager
+pipeline (``distributed/pipeline.py``). The parameter server
+(``init_server`` and the rest) and ``elastic`` are not ported yet
+(``ROADMAP.md`` §1 items 10 and 8.7).
 """
 from __future__ import annotations
 
@@ -132,19 +134,32 @@ def get_hybrid_communicate_group_():
 
 
 def distributed_model(model):
-    """``model`` wrapped by the parallel mode: ``DataParallel`` over the
-    dp group, ``TensorParallel`` over mp (with a process group), else the
-    model itself. Pipeline mode raises until the eager pipeline is
-    ported."""
+    """``model`` wrapped by the parallel mode (fleet/model.py:144-170). In
+    pipeline mode a ``PipelineLayer`` becomes, in a world of more than one
+    rank, the runtime of ``pipeline_configs``' ``schedule_mode`` over this
+    rank's stage and the pp group (``accumulate_steps`` micro-batches),
+    else ``PipelineParallel``; ``DataParallel`` over the dp group,
+    ``TensorParallel`` over mp (with a process group), else the model
+    itself."""
     hcg = get_hybrid_communicate_group()
     if hcg is None:
         return model
     mode = hcg.get_parallel_mode()
     if mode == "pipeline":
-        raise NotImplementedError(
-            "distributed_model in pipeline mode needs the eager pipeline "
-            "(PipelineLayer, PipelineParallel), not ported yet: ROADMAP.md "
-            "§1 item 8.3")
+        from ..pipeline import (PipelineLayer, PipelineParallel,
+                                build_pipeline_runtime)
+        if not isinstance(model, PipelineLayer):
+            return model
+        if _pg_initialized() and get_world_size() > 1:
+            # this rank keeps its stage; the strategy's schedule_mode picks
+            # the runtime (the pipeline_scheduler_pass role)
+            cfg = _strategy.pipeline_configs if _strategy else {}
+            stage = model._segment(*model._stage_bounds[hcg.get_stage_id()])
+            return build_pipeline_runtime(
+                stage, hcg.get_pipe_parallel_group(), model._loss_fn,
+                cfg.get("accumulate_steps", 1),
+                schedule=cfg.get("schedule_mode", "1F1B"))
+        return PipelineParallel(model, hcg, _strategy)
     if mode == "data_parallel":
         from ..parallel import DataParallel
         return DataParallel(model, group=hcg.get_data_parallel_group())

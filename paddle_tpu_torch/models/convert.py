@@ -88,27 +88,46 @@ def _path_groups(split_groups, path):
     return node if isinstance(node, int) else 1
 
 
+def _axes(entry):
+    """The mesh axes of one ``PartitionSpec`` entry: a name, a tuple of
+    names (the first the major one) or None."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def _ranks_along(mesh, entry) -> int:
+    n = 1
+    for a in _axes(entry):
+        n *= mesh.get_dim_size(a)
+    return n
+
+
 def shard_index(shape, spec, mesh, coords, groups: int = 1):
     """The index of one rank's block in a whole array of ``shape`` split by
-    ``spec`` (per dim an axis name or None) over ``mesh``, the rank given
-    by its ``coords`` (axis name -> index). With ``groups`` > 1 the last
-    dim is that many equal groups, and its split over ``mp`` takes the
-    rank's part of every group (a fused ``[q | k | v]`` weight split by
-    heads); a split over another axis (ZeRO-1's over dp) stays
-    contiguous."""
+    ``spec`` (per dim an axis name, a tuple of names or None) over
+    ``mesh``, the rank given by its ``coords`` (axis name -> index). A dim
+    split over several axes is cut into as many blocks as they have ranks
+    together, numbered with the first axis the major one (the order of
+    ``jax.sharding.PartitionSpec``). With ``groups`` > 1 the last dim is
+    that many equal groups, and its split over ``mp`` takes the rank's part
+    of every group (a fused ``[q | k | v]`` weight split by heads); a split
+    over another axis (ZeRO-1's over dp) stays contiguous."""
     idx = []
     for dim, size in enumerate(shape):
         axis = spec[dim] if dim < len(spec) else None
         if axis is None:
             idx.append(slice(None))
             continue
-        n = mesh.get_dim_size(axis)
+        n = _ranks_along(mesh, axis)
         g = groups if dim == len(shape) - 1 and axis == "mp" else 1
         if size % (n * g):
             raise ValueError(f"dim {dim} of size {size} does not split into "
                              f"{g} groups over {n} ranks of {axis}")
         step = size // (n * g)
-        i = coords[axis]
+        i = 0
+        for a in _axes(axis):
+            i = i * mesh.get_dim_size(a) + coords[a]
         if g == 1:
             idx.append(slice(i * step, (i + 1) * step))
         else:
@@ -155,7 +174,7 @@ def gather_shards(shards, specs, mesh, split_groups=None):
         g = _path_groups(split_groups, path)
         local = np.asarray(parts[0]).shape
         whole_shape = tuple(
-            d * (mesh.get_dim_size(sp[i]) if i < len(sp) and sp[i] else 1)
+            d * (_ranks_along(mesh, sp[i]) if i < len(sp) else 1)
             for i, d in enumerate(local))
         out = np.zeros(whole_shape, np.asarray(parts[0]).dtype)
         seen = {}

@@ -180,12 +180,22 @@ def test_single_mode_wrappers_change_nothing(fresh):
 
 
 def test_distributed_model_in_pipeline_mode_raises(fresh):
-    hcg = pt_topo.HybridCommunicateGroup(
-        pt_topo.CommunicateTopology(dims=[2, 1, 1, 1, 1]))
-    assert hcg.get_parallel_mode() == "pipeline"
-    pt_topo.set_hybrid_communicate_group(hcg)
-    with pytest.raises(NotImplementedError, match="item 8.3"):
-        pt_fleet.distributed_model(pt.nn.Linear(2, 2))
+    """Pipeline mode with no process group, as in the reference: a
+    ``PipelineLayer`` comes back as ``PipelineParallel``, any other model
+    as itself; nothing raises."""
+    got = []
+    for P, topo, fleet in ((ref, ref_topo, ref_fleet),
+                           (pt, pt_topo, pt_fleet)):
+        hcg = topo.HybridCommunicateGroup(
+            topo.CommunicateTopology(dims=[2, 1, 1, 1, 1]))
+        assert hcg.get_parallel_mode() == "pipeline"
+        topo.set_hybrid_communicate_group(hcg)
+        plain = P.nn.Linear(2, 2)
+        layers = P.distributed.PipelineLayer(
+            [P.nn.Linear(2, 2), P.nn.Linear(2, 2)], num_stages=2)
+        assert fleet.distributed_model(plain) is plain
+        got.append(type(fleet.distributed_model(layers)).__name__)
+    assert got == ["PipelineParallel"] * 2
 
 
 # ------------------------------------------------ tensor parallel, degree 1

@@ -68,21 +68,14 @@ _ITEM8 = "ROADMAP §1 item 8: eager distributed"
 _ITEM10 = "ROADMAP §1 item 10: the long tail"
 _ITEM11 = ("ROADMAP §1 item 11: the compiled 1F1B, VPP and ZeroBubble "
            "schedules")
+_ITEM86 = "ROADMAP §1 item 8.6: the auto-parallel engine"
+_ITEM87 = "ROADMAP §1 item 8.7: elastic resilience"
+_ITEM91 = "ROADMAP §1 item 9.1: spmd.py and _constraint.py"
 _DIST_LATER = (
-    "CommTaskManager DistAttr DistPipelineRuntime DistPipelineRuntimeVPP "
-    "DistPipelineRuntimeZB "
-    "ElasticStep Engine FaultPlan LayerDesc Partial PipelineLayer "
-    "PipelineParallel PipelineParallelWithInterleave Placement Replicate "
-    "RetryPolicy Shard SharedLayerDesc Strategy api auto_parallel auto_tuner "
-    "build_pipeline_runtime checkpoint comm_context context_parallel "
-    "dtensor_from_local dtensor_to_local get_comm_task_manager "
-    "launch load_state_dict passes pipeline "
-    "placements placements_to_spec ps recompute_sequential reshard "
-    "resilience ring_attention ring_attention_global rpc "
-    "save_state_dict shard_batch shard_layer "
-    "shard_tensor shrink_world spawn spmd suggest_mesh_degree "
-    "to_static ulysses_attention ulysses_attention_global unshard_dtensor "
-    "utils watchdog").split()
+    "CommTaskManager auto_tuner comm_context context_parallel "
+    "get_comm_task_manager launch passes ps ring_attention "
+    "ring_attention_global rpc spawn ulysses_attention "
+    "ulysses_attention_global utils watchdog").split()
 # fleet's parameter-server functions
 _FLEET_PS = "init_server init_worker ps_client run_server stop_worker".split()
 # the namespaces compared name for name, with the names each still lacks
@@ -92,6 +85,12 @@ NOT_YET = {
     "models": {},
     "models.bert": {},
     "distributed": {**dict.fromkeys(_DIST_LATER, _ITEM8),
+                    **dict.fromkeys(("Engine", "Strategy", "to_static"),
+                                    _ITEM86),
+                    **dict.fromkeys(("ElasticStep", "shrink_world"),
+                                    _ITEM87),
+                    **dict.fromkeys(("spmd", "shard_batch",
+                                     "suggest_mesh_degree"), _ITEM91),
                     **dict.fromkeys(("OneFOneB", "VPP", "ZeroBubble"),
                                     _ITEM11)},
     "distributed.fleet": {"elastic": _ITEM8,
