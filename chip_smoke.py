@@ -328,6 +328,40 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    ``load_state_dict`` of the model's 1.42 GB of fp32 parameters: the
    round trip bit-equal, a flipped byte of ``data_rank0.pkl`` refused,
    seconds and GB/s each way;
+24. (run before 16) context parallelism and the distributed tooling,
+   under a watchdog of ``TOOLING_WATCHDOG_S``, on a one-rank NCCL group:
+   (a) ``ring_attention_global`` and ``ulysses_attention_global`` on a
+   [1] ``sep`` mesh, forward and backward, at gpt2-medium's attention
+   shape (b8 s1024 h16 d64; fp32 and bf16, causal and not) and at a long
+   context (b1 s16384 h16 d64, bf16, causal), against the port's plain
+   ``_full_attention`` on the card (fp32 at ``CP_FP32_TOL``, bf16 within
+   ``CP_BF16_REL`` of the plain result's largest magnitude), ms and peak
+   memory of each; ``ulysses_attention`` with ``attn_fn`` the port's
+   flash entry against the entry alone, bit-equal, #1-#3 once each; (b)
+   ``dist.to_static`` of phase 10's gpt2-medium (O1 bf16, gradient merge
+   over 2 steps, AdamW, seed 0): ``Engine.fit`` over 4 batches against a
+   hand-written loop on a twin, losses and both merged steps' gradients
+   bit-equal,
+   #1-#3 96 times each; ms per batch against phase 10's plain step in
+   turns; ``evaluate``, ``predict``, the ``save``/``load`` round trip
+   bit-equal; ``Engine.cost()`` beside the measured step; (c)
+   ``Engine.tune(world_size=1, run_trials=True, max_trials=1)`` at phase
+   5's configuration: one trial of the compiled trainer in a child
+   process, finite, beside phase 5's ms/step; a config of 2 ranks gives
+   +inf with no job started; (d) a static program of one gpt2-medium MLP
+   block (x [8192, 1024], W1, GELU, W2) and its mean through
+   ``Engine.build_rank_programs`` on a [2, 2] dp x mp mesh and on a [2]
+   pp mesh cut by the planner, each run by ``run_partitioned`` on the card
+   against ``static.Executor``'s unpartitioned run (the output within 1e-5
+   of its largest magnitude; the mean dp times the Executor's on the dp
+   mesh, as the reference's rules give it), with its all-reduces and
+   send/recv pairs; (e) ``python -m
+   paddle_tpu_torch.distributed.launch --max_restarts 1`` over a worker
+   that fails in epoch 0 and all-reduces a CUDA tensor over NCCL in epoch
+   1 (one restart, exit 0, both logs), ``spawn(nprocs=1)`` in this
+   process, the watchdog (a task beaten each (b) batch never fires, a
+   stalled one fires within 1 s with the host stacks) and ``CommContext``
+   on a one-rank gloo group;
 16. prints the head_dim 256 and 512 and fp16 (64, 256 and 512) timings,
    the ``kernels`` JSON line, the card line, and last ``{"ok": true, "device": {...}}``.
 
@@ -7553,6 +7587,543 @@ def pipeline_path(smi):
         + f"; {time.perf_counter() - t_phase:.1f} in all on {smi}")
 
 
+TOOLING_WATCHDOG_S = 300
+# (label, batch, seq, heads, head_dim, causal, io types)
+# (the long context first: its 16 GiB buffers meet an empty cache)
+CP_CASES = [("long", 1, 16384, HEADS, HEAD_DIM, True, (torch.bfloat16,)),
+            ("gpt2-medium", BATCH, SEQ, HEADS, HEAD_DIM, False,
+             (torch.float32, torch.bfloat16)),
+            ("gpt2-medium", BATCH, SEQ, HEADS, HEAD_DIM, True,
+             (torch.float32, torch.bfloat16))]
+CP_FP32_TOL = 2e-5     # the reference's tolerance (tests/test_context_parallel)
+CP_BF16_REL = 2.0 ** -6  # bf16: worst |got - plain| over max |plain|
+CP_ITERS = 3
+ENGINE_BATCHES = 4     # Engine.fit's batches (2 merged steps of 2)
+ENGINE_MERGE = 2
+ENGINE_TURN_STEPS = 4  # timed batches a turn (after one warm-up)
+MLP_TOKENS = 8192      # phase 24 (d): a gpt2-medium MLP block's rows
+PARTITION_REL = 1e-5
+
+
+def _fwd_bwd(fn, q, k, v, cot):
+    """``fn(q, k, v)`` forward and backward under cotangent ``cot``: the
+    output and d q, d k, d v."""
+    ts = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fn(*ts)
+    out.backward(cot)
+    return [out.detach()] + [t.grad for t in ts]
+
+
+def _cp_err(got, want, io):
+    """(worst error, within the limit) over the outputs and gradients: in
+    fp32 the worst |got - want| and ``assert_allclose``'s rule at
+    ``CP_FP32_TOL`` (atol and rtol); in bf16 the worst |got - want| over
+    each buffer's largest magnitude, against ``CP_BF16_REL``."""
+    if io == torch.float32:
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        ok = all(bool(((g - w).abs() <= CP_FP32_TOL * (1 + w.abs())).all())
+                 for g, w in zip(got, want))
+        return err, ok
+    err = max(float((g.float() - w.float()).abs().max())
+              / float(w.float().abs().max()) for g, w in zip(got, want))
+    return err, err <= CP_BF16_REL
+
+
+def context_parallel_checks(smi):
+    """Phase 24 (a): ring and Ulysses attention on a [1] sep mesh against
+    the plain attention on the card; Ulysses over the flash entry."""
+    import functools
+    from paddle_tpu_torch.distributed import _collectives as C
+    from paddle_tpu_torch.distributed import context_parallel as cp
+    from paddle_tpu_torch.distributed.mesh import ProcessMesh, set_mesh
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on for the fp32 products")
+    mesh = ProcessMesh(np.array([0]), ["sep"])
+    mesh.groups()
+    out = {}
+    for label, b, s, h, d, causal, ios in CP_CASES:
+        # the long context's 16 GiB buffers and their 8 GiB bf16 copies
+        # split the cache's blocks: at s16384 the plain backward found 16.2
+        # GiB free in pieces and none of 16 GiB whole. Expandable segments
+        # map more memory onto one segment instead, for these cases only.
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings(
+            f"expandable_segments:{s > SEQ}")
+        for io in ios:
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            q, k, v, cot = (torch.randn(b, s, h, d, generator=gen,
+                                        device="cuda", dtype=io)
+                            for _ in range(4))
+            runs = {
+                "plain": lambda *t: cp._full_attention(*t, causal, None),
+                "ring": lambda *t: cp.ring_attention_global(
+                    *t, mesh, causal=causal)._t,
+                "ulysses": lambda *t: cp.ulysses_attention_global(
+                    *t, mesh, causal=causal)._t}
+            res, mem, calls = {}, {}, {}
+            ms = {name: [] for name in runs}
+            for name, fn in runs.items():
+                torch.cuda.empty_cache()
+                C.reset_calls()
+                got = []
+                _, mem[name] = _step_memory(
+                    lambda: got.append(_fwd_bwd(fn, q, k, v, cot)))
+                res[name], calls[name] = got[0], dict(C.CALLS)
+            # in turns, each a warm-up and CP_ITERS calls (the first heavy
+            # run of a process read ~3x slow at s16384)
+            for name in list(runs) + list(runs)[::-1]:
+                ms[name].append(cuda_ms(
+                    lambda: _fwd_bwd(runs[name], q, k, v, cot), CP_ITERS,
+                    warmup=1))
+            ms = {name: min(t) for name, t in ms.items()}
+            errs = {n: _cp_err(res[n], res["plain"], io)
+                    for n in ("ring", "ulysses")}
+            del res
+            tag = (f"{label} b{b} s{s} h{h} d{d} "
+                   f"{str(io).split('.')[-1]} causal {causal}")
+            limit = (f"absolute; limit {CP_FP32_TOL:g} abs and rel"
+                     if io == torch.float32 else
+                     f"of the largest magnitude; limit {CP_BF16_REL:.4g}")
+            print(f"cp (a) {tag}: worst |ring - plain| "
+                  f"{errs['ring'][0]:.3g}, |ulysses - plain| "
+                  f"{errs['ulysses'][0]:.3g} ({limit}), out and d q, k, v; "
+                  f"fwd+bwd ms (the better of two turns) plain "
+                  f"{ms['plain']:.3f}, ring "
+                  f"{ms['ring']:.3f} ({ms['ring'] / ms['plain']:.3f}x), "
+                  f"ulysses {ms['ulysses']:.3f} "
+                  f"({ms['ulysses'] / ms['plain']:.3f}x); peak rise GiB "
+                  f"plain {mem['plain'] / 2**30:.2f}, ring "
+                  f"{mem['ring'] / 2**30:.2f}, ulysses "
+                  f"{mem['ulysses'] / 2**30:.2f}; collectives of one "
+                  f"fwd+bwd {calls} on {smi}")
+            for name, (err, ok) in errs.items():
+                check(ok, f"cp {name} {tag}: {err}")
+            out[tag] = (ms, mem, errs)
+            if io == torch.bfloat16 and causal:
+                # Ulysses over the flash entry, against the entry alone
+                set_mesh(mesh)
+                try:
+                    fa.reset_launches()
+                    uly = _fwd_bwd(lambda *t: cp.ulysses_attention(
+                        *t, "sep", attn_fn=functools.partial(
+                            fa.flash_attention, causal=True)), q, k, v, cot)
+                    launches = dict(fa.LAUNCHES)
+                    direct = _fwd_bwd(functools.partial(
+                        fa.flash_attention, causal=True), q, k, v, cot)
+                finally:
+                    set_mesh(None)
+                equal = all(torch.equal(a, b_) for a, b_ in zip(uly, direct))
+                print(f"cp (a) {tag}: ulysses over the flash entry against "
+                      f"the entry alone, out and d q, k, v bit-equal: "
+                      f"{equal}; launches {launches}")
+                check(equal, f"ulysses over flash {tag} differs")
+                check(launches == {"flash_fwd": 1, "flash_bwd_dkv": 1,
+                                   "flash_bwd_dq": 1},
+                      f"ulysses over flash launches {launches}")
+                del uly, direct
+            del q, k, v, cot
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    return out
+
+
+def engine_pair(smi, paddle, cfg, x, y, wd):
+    """Phase 24 (b): ``dist.to_static`` of phase 10's gpt2-medium with
+    O1 bf16 and gradient merge against a hand-written loop on a twin from
+    seed 0; then ms per batch in turns, evaluate, predict, save/load and
+    ``Engine.cost()``. Each batch beats the watchdog task "engine"."""
+    import tempfile
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed.auto_parallel import Strategy
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    crit = gpt.GPTPretrainingCriterion()
+
+    def beaten(out, labels):
+        wd.heartbeat("engine")
+        return crit(out, labels)
+
+    models, opts = {}, {}
+    for name in ("engine", "hand"):
+        paddle.seed(0)
+        models[name] = gpt.GPTForPretraining(cfg)
+        opts[name] = paddle.optimizer.AdamW(
+            1e-4, parameters=models[name].parameters())
+    strategy = Strategy({
+        "amp": {"enable": True, "level": "O1", "dtype": "bfloat16"},
+        "gradient_merge": {"enable": True, "k_steps": ENGINE_MERGE}})
+    batches = [(x, y)] * ENGINE_BATCHES
+    engine = D.to_static(models["engine"], batches, beaten, opts["engine"],
+                         strategy)
+    hand = []
+
+    def hand_loop():
+        for i in range(ENGINE_BATCHES):
+            with paddle.amp.auto_cast(enable=True, level="O1",
+                                      dtype="bfloat16"):
+                loss = crit(models["hand"](x), y)
+            (loss / ENGINE_MERGE).backward()
+            if (i + 1) % ENGINE_MERGE == 0:
+                opts["hand"].step()
+                opts["hand"].clear_grad()
+            hand.append(float(loss.numpy()))
+
+    wd.register("engine", timeout=60.0)
+    grads, launches = {}, {}
+    for name, run in (("engine", lambda: engine.fit(batches)),
+                      ("hand", hand_loop)):
+        _reset_all_launches()
+        hist, grads[name] = _step_grads(
+            opts[name], list(models[name].parameters()), run)
+        launches[name] = _all_launches()
+    hist = engine.history
+    # the gradients each merged step read, both steps
+    equal = len(grads["engine"]) == len(grads["hand"]) and all(
+        torch.equal(a, b) for a, b in zip(grads["engine"], grads["hand"]))
+    want = {kname: ENGINE_BATCHES * cfg.num_layers if kname in fa.LAUNCHES
+            else 0 for kname in launches["hand"]}
+    print(f"engine (b) Engine.fit, {ENGINE_BATCHES} batches of {BATCH}, O1 "
+          f"bf16, gradient merge over {ENGINE_MERGE}: losses {hist['loss']} "
+          f"against the hand-written loop's {hand}; both merged steps' "
+          f"gradients bit-equal over {len(grads['hand'])} leaves (2 x "
+          f"{len(grads['hand']) // 2}): {equal}; launches "
+          f"{launches['engine']} (hand {launches['hand']})")
+    check(hist["loss"] == hand, f"Engine.fit losses {hist['loss']} {hand}")
+    check(equal, "Engine.fit's gradients differ from the loop's")
+    for name in launches:
+        check(launches[name] == want,
+              f"(b) {name} launches {launches[name]}, want {want}")
+    del models["hand"], opts["hand"], grads
+    torch.cuda.empty_cache()
+    paddle.seed(0)
+    plain = gpt.GPTForPretraining(cfg)
+    plain_opt = paddle.optimizer.AdamW(1e-4, parameters=plain.parameters())
+    runs = {"plain": lambda: _eager_step(paddle, plain, crit, plain_opt, x,
+                                         y, "bfloat16"),
+            "engine": lambda: engine.fit([(x, y)] * ENGINE_MERGE)}
+    per = {"plain": 1, "engine": ENGINE_MERGE}
+    ms = {k: [] for k in runs}
+    for name in ("plain", "engine", "engine", "plain"):
+        runs[name]()
+        torch.cuda.synchronize()
+        for _ in range(ENGINE_TURN_STEPS // per[name]):
+            t0 = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3 / per[name])
+    wd.deregister("engine")
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    cost = engine.cost()
+    print(f"engine (b): {med['engine']:.2f} ms a batch (Engine.fit, merged "
+          f"steps of {ENGINE_MERGE}) against phase 10's plain b{BATCH} "
+          f"step's {med['plain']:.2f} ({med['engine'] / med['plain']:.3f}x) "
+          f"in turns; Engine.cost() predicts {cost['step_time'] * 1e3:.2f} "
+          f"ms a step ({cost['step_time'] * 1e3 / med['engine']:.3f} of the "
+          f"measured batch; H100 data-sheet defaults, MFU 0.4) and "
+          f"{cost['memory'] / 2**30:.2f} GiB on {smi}")
+    del plain, plain_opt, runs
+    torch.cuda.empty_cache()
+    ev = engine.evaluate([(x, y)], steps=1)
+    preds = engine.predict([(x,)], steps=1)
+    shape = list(preds[0].shape)
+    finite = bool(torch.isfinite(preds[0]._t).all())
+    del preds
+    print(f"engine (b): evaluate loss {ev['loss']}, predict logits {shape} "
+          f"finite: {finite}")
+    check(math.isfinite(ev["loss"][0]), f"evaluate {ev}")
+    check(shape == [BATCH, SEQ, cfg.vocab_size] and finite,
+          f"predict {shape} finite {finite}")
+    model = models["engine"]
+    before = {k: v._t.detach().clone() for k, v in
+              model.state_dict().items()}
+    root = tempfile.mkdtemp(prefix="pt_engine_")
+    try:
+        t0 = time.perf_counter()
+        engine.save(os.path.join(root, "m"))
+        save_s = time.perf_counter() - t0
+        for p in model.parameters():
+            p._t.data.zero_()
+        t0 = time.perf_counter()
+        engine.load(os.path.join(root, "m"))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    after = model.state_dict()
+    round_trip = all(torch.equal(after[k]._t, v) for k, v in before.items())
+    print(f"engine (b): save {save_s:.2f} s, load {load_s:.2f} s of "
+          f"{len(before)} leaves; round trip bit-equal: {round_trip}")
+    check(round_trip, "Engine save/load round trip is not bit-equal")
+    del before, after
+    return engine, med
+
+
+def tuner_checks(smi, engine, compiled_ms):
+    """Phase 24 (c): ``Engine.tune`` with one measured trial of the
+    compiled trainer at phase 5's configuration; a config of more ranks
+    than cards gives +inf without a job."""
+    from paddle_tpu_torch.distributed import auto_tuner
+    from paddle_tpu_torch.distributed.auto_tuner import trial_runner
+    measured = []
+    measure = auto_tuner.measure_step_time
+
+    def recorded(config, *a, **kw):
+        measured.append(measure(config, *a, **kw))
+        return measured[-1]
+    space = {"dp_degree": [1], "mp_degree": [1], "pp_degree": [1],
+             "hidden_size": [1024], "num_layers": [24], "num_heads": [16],
+             "vocab_size": [50304], "seq_len": [SEQ],
+             "global_batch_size": [BATCH]}
+    torch.cuda.empty_cache()
+    auto_tuner.measure_step_time = recorded
+    try:
+        t0 = time.perf_counter()
+        best = engine.tune(world_size=1, tune_space=space, run_trials=True,
+                           max_trials=1)
+        wall = time.perf_counter() - t0
+    finally:
+        auto_tuner.measure_step_time = measure
+    popen, started = trial_runner.subprocess.Popen, []
+
+    def counted(*a, **kw):
+        started.append(a)
+        return popen(*a, **kw)
+    trial_runner.subprocess.Popen = counted
+    try:
+        inf = trial_runner.measure_step_time(dict(dp_degree=2))
+    finally:
+        trial_runner.subprocess.Popen = popen
+    sec = measured[0] if measured else float("inf")
+    print(f"tuner (c) Engine.tune(world_size=1, run_trials=True, "
+          f"max_trials=1): pick dp {best['dp_degree']} mp "
+          f"{best['mp_degree']} pp {best['pp_degree']}; the trial "
+          f"(24 layers, b{BATCH} s{SEQ}, bf16, remat, a child process) "
+          f"{sec * 1e3:.2f} ms/step against phase 5's {compiled_ms:.2f} "
+          f"({sec * 1e3 / compiled_ms:.3f}x), {wall:.1f} s of wall; 2 "
+          f"ranks on one card: {inf} with {len(started)} jobs started on "
+          f"{smi}")
+    check(len(measured) == 1 and math.isfinite(sec) and sec > 0,
+          f"trial {measured}")
+    check(inf == float("inf") and not started,
+          f"2-rank trial {inf}, jobs {len(started)}")
+    return sec
+
+
+def partition_checks(smi, paddle):
+    """Phase 24 (d): one gpt2-medium MLP block and its mean, recorded as a
+    static program, through ``Engine.build_rank_programs`` on [2, 2] dp x
+    mp and on [2] pp, each run by ``run_partitioned`` on the card against
+    the Executor's unpartitioned run. The block's output is held at
+    ``PARTITION_REL`` of its largest magnitude. The mean is held as the
+    rules give it: the reference's ``mean`` rule marks a mean over a
+    dp-sharded dim Partial(sum), so on the dp mesh the partitioned mean is
+    the sum of the dp shards' means, dp times the mean."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.distributed import ProcessMesh, Replicate, Shard
+    from paddle_tpu_torch.distributed.auto_parallel import Engine
+    from paddle_tpu_torch.distributed.auto_parallel.partitioner import \
+        run_partitioned
+    rng = np.random.RandomState(0)
+    w1 = paddle.to_tensor((rng.randn(1024, 4096) * 0.02).astype(np.float32))
+    w2 = paddle.to_tensor((rng.randn(4096, 1024) * 0.02).astype(np.float32))
+    x_np = rng.randn(MLP_TOKENS, 1024).astype(np.float32)
+    paddle.enable_static()
+    try:
+        prog = static.Program()
+        with static.program_guard(prog):
+            x = static.data("x", [MLP_TOKENS, 1024], "float32")
+            out = paddle.matmul(paddle.nn.functional.gelu(
+                paddle.matmul(x, w1)), w2)
+            loss = paddle.mean(out)
+        t0 = time.perf_counter()
+        want_out, want_loss = static.Executor().run(
+            prog, feed={"x": x_np}, fetch_list=[out, loss])
+        exe_s = time.perf_counter() - t0
+    finally:
+        paddle.disable_static()
+    want_loss = float(want_loss)
+    feeds = {"x": torch.from_numpy(x_np).cuda()}
+    rows = []
+    for label, shape, names, seeds, factor in (
+            ("[2, 2] dp x mp", (2, 2), ["dp", "mp"],
+             {x: [Shard(0), Replicate()], w1: [Replicate(), Shard(1)],
+              w2: [Replicate(), Shard(0)]}, 2),
+            ("[2] pp, planned cut", (2,), ["pp"], {}, 1)):
+        mesh = ProcessMesh(np.arange(int(np.prod(shape))).reshape(shape),
+                           names)
+        t0 = time.perf_counter()
+        parts, ws, ctx = Engine().build_rank_programs(
+            prog, loss, mesh=mesh, seed_placements=seeds)
+        got_out = run_partitioned(parts, ws, mesh, feeds, out, ctx)
+        got_loss = float(run_partitioned(parts, ws, mesh, feeds, loss, ctx))
+        secs = time.perf_counter() - t0
+        kinds = [o.kind for rp in parts for o in rp.ops]
+        rel = float(np.abs(got_out - want_out).max()
+                    / np.abs(want_out).max())
+        ratio = got_loss / want_loss
+        rows.append((label, rel, ratio, kinds.count("allreduce"),
+                     kinds.count("send"), kinds.count("recv"), secs))
+        print(f"partition (d) {label}: {len(parts)} rank programs, "
+              f"c_allreduce_sum {kinds.count('allreduce')}, send/recv "
+              f"{kinds.count('send')}/{kinds.count('recv')}; the block's "
+              f"[{MLP_TOKENS}, 1024] output against the Executor's "
+              f"unpartitioned run: worst difference {rel:.3g} of its "
+              f"largest magnitude (limit {PARTITION_REL:g}); the mean "
+              f"{got_loss!r} against {want_loss!r} ({ratio:.6f}, the "
+              f"rules give {factor}); {secs:.2f} s (the Executor "
+              f"{exe_s:.1f} s with its compile) on {smi}")
+        check(rel <= PARTITION_REL, f"partitioned {label}: {rel}")
+        check(abs(ratio - factor) <= PARTITION_REL * factor,
+              f"partitioned mean {label}: {ratio}")
+        check(kinds.count("send") == kinds.count("recv"),
+              f"{label} sends and receives differ")
+    check(rows[0][3] > 0 and rows[1][4] > 0,
+          f"no all-reduce or no send: {rows}")
+    return rows
+
+
+_LAUNCH_WORKER = """
+import os, sys
+epoch = int(os.environ["PADDLE_RESTART_COUNT"])
+print("epoch", epoch, "rank", os.environ["PADDLE_TRAINER_ID"], flush=True)
+if epoch == 0:
+    sys.exit(1)
+import torch
+import torch.distributed as dist
+from paddle_tpu_torch.distributed import (destroy_process_group,
+                                          init_parallel_env)
+init_parallel_env()
+t = torch.full((4,), 3.0, device="cuda")
+dist.all_reduce(t)
+torch.cuda.synchronize()
+print("all_reduce", t.tolist(), dist.get_backend(), flush=True)
+destroy_process_group()
+"""
+
+
+def launch_checks(smi, wd):
+    """Phase 24 (e): the launcher's restart, ``spawn`` at one process, the
+    watchdog's stalled task, ``CommContext`` on one gloo rank."""
+    import tempfile
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed.comm_context import CommContext
+    from paddle_tpu_torch.distributed.store import TCPStore
+    root = tempfile.mkdtemp(prefix="pt_launch_")
+    try:
+        script = os.path.join(root, "worker.py")
+        with open(script, "w") as f:
+            f.write(_LAUNCH_WORKER)
+        env = dict(os.environ)
+        here = os.path.dirname(os.path.abspath(__file__))
+        env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+        logs = os.path.join(root, "log")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--nproc_per_node", "1", "--max_restarts", "1", "--master",
+             f"127.0.0.1:{_free_port()}", "--log_dir", logs, script],
+            env=env, cwd=root, capture_output=True, text=True, timeout=180)
+        secs = time.perf_counter() - t0
+        texts = {}
+        for e in (0, 1):
+            path = os.path.join(logs, f"workerlog.0.0.e{e}")
+            texts[e] = open(path).read().strip() if os.path.exists(path) \
+                else None
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"launch (e): rc {proc.returncode} in {secs:.1f} s; launcher "
+          f"stderr {proc.stderr.strip().splitlines()[-1:]}; worker logs "
+          f"{texts}")
+    check(proc.returncode == 0, f"launcher rc {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    check("restart 1/1" in proc.stderr, "the launcher did not restart")
+    check(texts[0] == "epoch 0 rank 0" and texts[1] is not None
+          and "all_reduce [3.0, 3.0, 3.0, 3.0]" in texts[1]
+          and "nccl" in texts[1], f"worker logs {texts}")
+    seen = []
+    D.spawn(lambda: seen.append(os.getpid()), nprocs=1)
+    print(f"launch (e): spawn(nprocs=1) ran func in this process: "
+          f"{seen == [os.getpid()]}")
+    check(seen == [os.getpid()], f"spawn ran in {seen}")
+    t0 = time.monotonic()
+    wd.register("stalled", timeout=0.5)
+    while not wd.timed_out("stalled") and time.monotonic() - t0 < 3.0:
+        time.sleep(0.01)
+    fired_s = time.monotonic() - t0
+    fired = [(name, round(at - t0, 3), "--- thread" in stacks)
+             for name, at, stacks in wd.fired]
+    wd.deregister("stalled")
+    print(f"launch (e): watchdog fired {fired} (the engine task, beaten "
+          f"each (b) batch, never); the stalled task after {fired_s:.3f} s "
+          f"(timeout 0.5, interval 0.1)")
+    check([f[0] for f in fired] == ["stalled"] and fired[0][2]
+          and fired_s <= 1.0, f"watchdog fired {fired} after {fired_s}")
+    store = TCPStore("127.0.0.1", 0, is_master=True, world_size=1)
+    try:
+        cc = CommContext.create_negotiated(store, 0, 1, "smoke/cc")
+        a = np.arange(6, dtype=np.float32).reshape(2, 3)
+        same = (np.array_equal(cc.all_reduce(a), a)
+                and len(cc.all_gather(a)) == 1
+                and np.array_equal(cc.all_gather(a)[0], a)
+                and cc.broadcast_bytes(b"card", 0, 4) == b"card")
+        cc.barrier()
+    finally:
+        store.close()
+    print(f"launch (e): CommContext on one gloo rank: all_reduce, "
+          f"all_gather, broadcast_bytes the identity: {same}")
+    check(same, "CommContext at one rank is not the identity")
+
+
+def tooling_path(smi, compiled_ms):
+    """Phase 24: context parallelism and the distributed tooling on a
+    one-rank NCCL group (see the module docstring)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.models import gpt
+    phase("24 context parallelism and the distributed tooling")
+    t_phase = time.perf_counter()
+    times = {}
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    D.init_parallel_env(f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                        world_size=1)
+    fired = []
+    wd = D.CommTaskManager(check_interval=0.1, on_timeout=lambda t: fired
+                           .append((t.name, time.monotonic(), t.stacks)))
+    wd.fired = fired
+    try:
+        t0 = time.perf_counter()
+        context_parallel_checks(smi)
+        times["(a)"] = time.perf_counter() - t0
+        cfg = gpt.GPT_CONFIGS["gpt2-medium"]
+        paddle.set_device("gpu")
+        rng = np.random.RandomState(0)
+        x = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (BATCH, SEQ)))
+        y = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (BATCH, SEQ)))
+        t0 = time.perf_counter()
+        engine, _ = engine_pair(smi, paddle, cfg, x, y, wd)
+        times["(b)"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tuner_checks(smi, engine, compiled_ms)
+        times["(c)"] = time.perf_counter() - t0
+        del engine
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        partition_checks(smi, paddle)
+        times["(d)"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        launch_checks(smi, wd)
+        times["(e)"] = time.perf_counter() - t0
+    finally:
+        wd.shutdown()
+        D.set_mesh(None)
+        D.destroy_process_group()
+        torch.cuda.empty_cache()
+    print("phase 24 seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in times.items())
+        + f"; {time.perf_counter() - t_phase:.1f} in all on {smi}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7630,6 +8201,10 @@ def main() -> int:
     with watchdog("phase 23 (the eager pipeline and the semi-auto API)",
                   PIPELINE_WATCHDOG_S):
         pipeline_path(smi)
+    torch.cuda.empty_cache()
+    with watchdog("phase 24 (context parallelism and the tooling)",
+                  TOOLING_WATCHDOG_S):
+        tooling_path(smi, compiled_ms)
     phase("16 results")
     for label, (d_ms, d_plain, d_lib, d_bnd) in (
             ("head_dim 256", d256), ("head_dim 512", d512),

@@ -225,3 +225,29 @@ define_flag("FLAGS_checkpoint_keep", 3,
 define_flag("FLAGS_ckpt_strict_load", True,
             "Distributed checkpoint load fails on missing/unexpected "
             "keys instead of loading the intersection.")
+
+# ---- context parallelism and the distributed tooling (:156-173, :427,
+# :447-449, :662). The reference's alias FLAGS_pg_timeout needs an alias
+# table, which this registry does not have: use FLAGS_comm_task_timeout_s.
+define_flag("FLAGS_comm_task_timeout_s", 1800.0,
+            "CommTaskManager watchdog timeout per collective (the "
+            "reference's FLAGS_pg_timeout role).")
+define_flag("FLAGS_comm_idle_poll_limit", 10,
+            "CommContext: consecutive 60s zero-progress polls before a "
+            "transfer is declared dead (its gloo group's timeout is this "
+            "many minutes).")
+define_flag("FLAGS_launch_max_restarts", 0,
+            "Launcher: restarts-with-rerank before giving up "
+            "(elastic manager behavior).")
+define_flag("FLAGS_recompute_segments", 2,
+            "Default segment count for the recompute program pass.")
+define_flag("FLAGS_pg_native_transport", True,
+            "Allow CommContext's transport (a gloo group); false makes "
+            "CommContext.create_negotiated return None on every rank.")
+define_flag("FLAGS_watchdog_check_interval_s", 1.0,
+            "CommTaskManager watchdog poll interval in seconds.")
+define_flag("FLAGS_auto_tuner_max_trials", 0,
+            "Auto-tuner default measured-trial count (0 = cost-model "
+            "ranking only).")
+define_flag("FLAGS_launch_log_dir", "log",
+            "Default --log_dir for paddle.distributed.launch.")

@@ -9,6 +9,9 @@ already, so the backward of a sum over the group is the identity, and the
 backward of a copy into a split computation is a sum. Megatron-LM's
 ``f`` and ``g`` operators are :func:`copy_to` and :func:`reduce_from`;
 its sequence-parallel pair is :func:`gather_seq` and :func:`scatter_seq`.
+:func:`ring_shift` is one step of a ring (context parallelism's
+``ppermute``): each rank's value to the next, its send and receive issued
+together.
 
 Each collective is called on every group, one rank or many, and adds one
 to ``CALLS[kind]`` when it is called, forward or backward. The in-place
@@ -130,6 +133,28 @@ def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
                      concat_dim)
 
 
+def shift(x: torch.Tensor, step: int, group) -> torch.Tensor:
+    """The tensor of the rank ``step`` places back in the group, while
+    ``x`` goes to the rank ``step`` places on (group ranks taken modulo its
+    size). The send and its paired receive are issued together
+    (``batch_isend_irecv``): on a ring every rank sends before it
+    receives, so a send that waited for its receiver would deadlock."""
+    n = _size(group)
+    src = x.contiguous()
+    if n == 1:
+        return src.clone()
+    me = _rank(group)
+    dst = dist.get_global_rank(group, (me + step) % n)
+    frm = dist.get_global_rank(group, (me - step) % n)
+    out = torch.empty_like(src)
+    CALLS["ring_shift"] += 1
+    for work in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, src, dst, group=group),
+            dist.P2POp(dist.irecv, out, frm, group=group)]):
+        work.wait()
+    return out
+
+
 def chunk(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """This rank's block of ``x`` along ``dim`` (no communication)."""
     n = _size(group)
@@ -221,6 +246,17 @@ class _AllToAll(torch.autograd.Function):
             None
 
 
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return shift(x, 1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return shift(g, -1, ctx.group), None
+
+
 def copy_to(x, group):
     """Replicated ``x`` entering a computation split over the group:
     identity forward, sum of the ranks' partial cotangents backward."""
@@ -263,3 +299,10 @@ def resplit(x, split_dim, concat_dim, group):
     """A value split along ``concat_dim`` made split along ``split_dim``:
     an all-to-all forward, the reverse all-to-all backward."""
     return _AllToAll.apply(x, split_dim, concat_dim, group)
+
+
+def ring_shift(x, group):
+    """One step of a ring: this rank's ``x`` to the next rank of the group,
+    the previous rank's received (the reference's ``ppermute`` with the
+    permutation i -> i + 1); backward, the cotangent shifted back."""
+    return _RingShift.apply(x, group)

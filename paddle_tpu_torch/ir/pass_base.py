@@ -39,6 +39,9 @@ class Workspace:
         self.feed_vars = list(program.feed_vars)
         self.aliases: Dict[int, Any] = {}
         self.const_env: Dict[int, Any] = {}
+        # id(Variable) -> PartitionSpec decided by the auto-parallel
+        # completion pass (distributed/passes)
+        self.shardings: Dict[int, Any] = {}
 
     # ------------------------------------------------------------ helpers
     def resolve(self, var):

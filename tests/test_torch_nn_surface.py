@@ -68,14 +68,9 @@ _ITEM8 = "ROADMAP §1 item 8: eager distributed"
 _ITEM10 = "ROADMAP §1 item 10: the long tail"
 _ITEM11 = ("ROADMAP §1 item 11: the compiled 1F1B, VPP and ZeroBubble "
            "schedules")
-_ITEM86 = "ROADMAP §1 item 8.6: the auto-parallel engine"
 _ITEM87 = "ROADMAP §1 item 8.7: elastic resilience"
 _ITEM91 = "ROADMAP §1 item 9.1: spmd.py and _constraint.py"
-_DIST_LATER = (
-    "CommTaskManager auto_tuner comm_context context_parallel "
-    "get_comm_task_manager launch passes ps ring_attention "
-    "ring_attention_global rpc spawn ulysses_attention "
-    "ulysses_attention_global utils watchdog").split()
+_DIST_LATER = ("ps", "rpc")
 # fleet's parameter-server functions
 _FLEET_PS = "init_server init_worker ps_client run_server stop_worker".split()
 # the namespaces compared name for name, with the names each still lacks
@@ -84,9 +79,7 @@ _FLEET_PS = "init_server init_worker ps_client run_server stop_worker".split()
 NOT_YET = {
     "models": {},
     "models.bert": {},
-    "distributed": {**dict.fromkeys(_DIST_LATER, _ITEM8),
-                    **dict.fromkeys(("Engine", "Strategy", "to_static"),
-                                    _ITEM86),
+    "distributed": {**dict.fromkeys(_DIST_LATER, _ITEM10),
                     **dict.fromkeys(("ElasticStep", "shrink_world"),
                                     _ITEM87),
                     **dict.fromkeys(("spmd", "shard_batch",

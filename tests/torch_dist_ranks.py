@@ -503,3 +503,172 @@ def checkpoint_load(path, shape, names, like, specs, extra):
     checkpoint.load_state_dict(state, path)
     return ({k: _np(state[k]._t.float()) for k in like},
             {k: state[k] for k in extra})
+
+
+def context_parallel(kind, shape, names, q, k, v, causal, batch_axis=None,
+                     grad=False):
+    """``ring_attention_global`` or ``ulysses_attention_global`` (``kind``
+    "ring" / "ulysses") of the global q, k, v on a mesh: this rank's
+    output piece, its placements and global shape, the unsharded value
+    and, with ``grad``, d q, d k, d v of the sum over ranks of
+    sum(piece ** 2) (the global sum(out ** 2))."""
+    _cpu()
+    from paddle_tpu_torch.distributed import api, context_parallel as cp
+    mesh = _mesh(shape, names)
+    if mesh is None:
+        return None
+    fn = {"ring": cp.ring_attention_global,
+          "ulysses": cp.ulysses_attention_global}[kind]
+    ts = [torch.from_numpy(a).requires_grad_(grad) for a in (q, k, v)]
+    out = fn(*ts, mesh, seq_axis="sep", causal=causal,
+             batch_axis=batch_axis)
+    res = {"piece": _np(out._t), "full": _np(api.unshard_dtensor(out)._t),
+           "placements": [repr(p) for p in out._dist_attr.placements],
+           "global_shape": list(out._dist_attr.global_shape)}
+    if grad:
+        (out._t ** 2).sum().backward()
+        res["grads"] = [_np(t.grad) for t in ts]
+    return res
+
+
+def ulysses_heads_error(shape, names, q):
+    """``ulysses_attention`` on pieces whose head count the sep axis does
+    not divide: the ValueError's message."""
+    _cpu()
+    from paddle_tpu_torch.distributed import context_parallel as cp
+    from paddle_tpu_torch.distributed.mesh import set_mesh
+    mesh = _mesh(shape, names)
+    if mesh is None:
+        return None
+    set_mesh(mesh)
+    try:
+        t = torch.from_numpy(q)
+        cp.ulysses_attention(t, t, t, "sep")
+        return "no error"
+    except ValueError as e:
+        return str(e)
+    finally:
+        set_mesh(None)
+
+
+def ulysses_flash(shape, names, q, k, v, cot):
+    """``ulysses_attention`` on this rank's sequence pieces with
+    ``attn_fn`` the port's flash entry (causal), and the entry alone on the
+    global values: this rank's output piece, the entry's piece, and the
+    gradients of sum(out * cot) both ways (the global inputs' gradients
+    gathered over the sep axis)."""
+    import functools
+    _cpu()
+    from paddle_tpu_torch.distributed import _collectives as C
+    from paddle_tpu_torch.distributed import context_parallel as cp
+    from paddle_tpu_torch.distributed.mesh import set_mesh
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    mesh = _mesh(shape, names)
+    if mesh is None:
+        return None
+    group = mesh.get_group("sep")
+    set_mesh(mesh)
+    try:
+        got = []
+        for way in ("ulysses", "entry"):
+            ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+            c = torch.from_numpy(cot)
+            if way == "ulysses":
+                pieces = [C.split(t, 1, group) for t in ts]
+                out = cp.ulysses_attention(
+                    *pieces, "sep", attn_fn=functools.partial(
+                        fa.flash_attention, causal=True))
+                (out * C.chunk(c, 1, group)).sum().backward()
+            else:
+                full = fa.flash_attention(*ts, causal=True)
+                out = C.chunk(full, 1, group)
+                (full * c).sum().backward()
+            got.append([_np(out)] + [_np(t.grad) for t in ts])
+        return got
+    finally:
+        set_mesh(None)
+
+
+def ring_shift_pair(n, x):
+    """``_collectives.ring_shift`` over the first n ranks: this rank's
+    received value (x + rank sent on) and the gradient that comes back
+    for a cotangent of (rank + 1)."""
+    from paddle_tpu_torch.distributed import _collectives as C
+    mesh = _mesh((n,), ("sep",))
+    if mesh is None:
+        return None
+    r = dist.get_rank()
+    t = torch.from_numpy(x + r).requires_grad_()
+    got = C.ring_shift(t, mesh.get_group("sep"))
+    (got * float(r + 1)).sum().backward()
+    return _np(got), _np(t.grad)
+
+
+def comm_context_ops(port, n):
+    """Every ``CommContext`` operation over the first n ranks, the store's
+    server on rank 0 at ``port``: the results by name (numpy), and what
+    ``create_negotiated`` gives with FLAGS_pg_native_transport off."""
+    from paddle_tpu_torch._core.flags import set_flags
+    from paddle_tpu_torch.distributed.comm_context import CommContext
+    from paddle_tpu_torch.distributed.store import TCPStore
+    rank = dist.get_rank()
+    if rank >= n:
+        return None
+    store = TCPStore("127.0.0.1", port, is_master=rank == 0, world_size=n)
+    try:
+        cc = CommContext.create_negotiated(store, rank, n, "__cc_test/0")
+        out = {"big": cc.all_reduce(np.full(1 << 16, float(rank + 1),
+                                            np.float32), "sum")}
+        v = np.arange(10, dtype=np.int64) + rank
+        out["max"] = cc.all_reduce(v, "max")
+        out["min"] = cc.all_reduce(v, "min")
+        out["avg"] = cc.all_reduce(np.full(4, float(rank), np.float64),
+                                   "avg")
+        half = cc.all_reduce(np.full(8, 0.5, np.float16) * (rank + 1),
+                             "sum")
+        out["f16"] = (half.dtype.name, half.astype(np.float32))
+        out["rs"] = cc.reduce_scatter(
+            np.arange(n * 6, dtype=np.float32).reshape(n * 3, 2)
+            + 100 * rank, "sum")
+        out["gather"] = cc.all_gather(np.full((2, 2), rank, np.int32))
+        out["bcast"] = cc.broadcast_bytes(
+            b"hello-from-1" if rank == 1 else None, 1, 12)
+        nxt, prv = (rank + 1) % n, (rank - 1) % n
+        msg = np.array([rank * 11.0], np.float64)
+        if rank % 2 == 0:
+            cc.send(msg, nxt)
+            out["p2p"] = cc.recv_into(np.empty(1, np.float64), prv)
+        else:
+            out["p2p"] = cc.recv_into(np.empty(1, np.float64), prv)
+            cc.send(msg, nxt)
+        for _ in range(3):
+            cc.barrier()
+        set_flags({"FLAGS_pg_native_transport": False})
+        try:
+            out["off"] = CommContext.create_negotiated(store, rank, n,
+                                                       "__cc_test/1")
+        finally:
+            set_flags({"FLAGS_pg_native_transport": True})
+        return out
+    finally:
+        # rank 0 serves the store: the others leave it first
+        if rank:
+            store.close()
+        dist.barrier(group=_mesh((n,), ("cc",)).get_group("cc"))
+        if not rank:
+            store.close()
+
+
+def spawned_all_reduce(out_dir):
+    """A ``distributed.spawn`` worker: joins the job from the environment
+    the spawner set (gloo), all-reduces its rank + 1 and writes what it
+    saw to ``out_dir``."""
+    from paddle_tpu_torch.distributed import parallel_env
+    parallel_env.init_parallel_env(device="cpu")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    t = torch.tensor([float(rank + 1)])
+    dist.all_reduce(t)
+    with open(os.path.join(out_dir, f"rank{rank}"), "w") as f:
+        f.write(f"{world} {t.item()} {os.environ['PADDLE_TRAINER_ID']} "
+                f"{os.environ['PADDLE_CURRENT_ENDPOINT']}")
+    parallel_env.destroy_process_group()
