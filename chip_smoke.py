@@ -224,7 +224,7 @@ toolkit (``nvcc``). Phases, each printed as it runs:
 19. (run before 16) the compile path, under a watchdog of 720 s, with
    inductor's cache in a fresh directory removed after: (e)
    ``torch.library.opcheck`` of the 11 kernel ops on CUDA inputs; (a)
-   phase 10's eager gpt2-medium with its depth cut to 6 layers
+   phase 10's eager gpt2-medium with its depth cut to 3 layers
    (``COMPILED_GPT_LAYERS``) through ``paddle.jit.to_static``
    (inductor): the first step's seconds, step 1's gradients leaf by leaf
    and three losses against the eager model's from the same seed, 12 /
@@ -362,6 +362,31 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    process, the watchdog (a task beaten each (b) batch never fires, a
    stalled one fires within 1 s with the host stacks) and ``CommContext``
    on a one-rank gloo group;
+25. (run before 16) elastic resilience, under a watchdog of
+   ``ELASTIC_WATCHDOG_S``, on a one-rank NCCL group (``cpu:gloo,cuda:nccl``)
+   beside the port's TCPStore: (a) phase 10's gpt2-medium (24 layers, O1
+   bf16, AdamW, seed 0) for ``ELASTIC_STEPS`` steps under ``ElasticStep``
+   with ``FLAGS_fault_inject="step::3=fail"`` against a twin's plain
+   steps: losses and all 292 parameters bit-equal, one rollback and one
+   step failure counted, #1-#3 launched 5 x 24 = 120 times each (the
+   fault fires before the step), the snapshot's ms and bytes, the peak
+   memory each run rose by, and ms/step against the plain step in turns;
+   (b) ``DataParallel``'s step (phase 21) with ``comm::all_reduce@1=fail``
+   retried once by the comm policy, then with failures past the retry
+   budget rolled back by ``ElasticStep``, each bit-equal to an uninjected
+   twin's; (c) ``rebuild_world`` of the one-rank world under epoch 1 with
+   ``pg::init@1=fail`` (the bring-up policy retries once), then a
+   ``DataParallel`` step on the new world bit-equal to a twin's plain
+   step, the rebuild's seconds and the device memory the old
+   communicator leaves behind; (d) an ``AdaptiveTrainer`` at
+   ``ELASTIC_CKPT_LAYERS`` layers (widths kept) with
+   ``checkpoint_every=2``, ``max_retries=0`` and ``step::3=fail``: the
+   rollback budget is spent, the trainer reloads generation 1 (saved after
+   step 2), bit-equal to the state saved, save and load seconds and GB/s;
+   (e) ``growth.publish_state`` / ``receive_state`` of that trainer's
+   full state through the port's TCPStore, bit-equal, GB/s each way and
+   the chunk count, then a flipped byte of one chunk refused with
+   ``StoreOpError`` and counted in ``resilience.grow_bcast_rejects``;
 16. prints the head_dim 256 and 512 and fp16 (64, 256 and 512) timings,
    the ``kernels`` JSON line, the card line, and last ``{"ok": true, "device": {...}}``.
 
@@ -5844,9 +5869,10 @@ def compile_path(smi):
 # ------------------------------------------------------------ phase 20
 
 # phase 19 (a)'s depth: inductor's cold compile of the 24-layer step took
-# 108-259 s (63-77 s at 12 layers), and phases 20 and 21 came after it in
-# the same 1200 s
-COMPILED_GPT_LAYERS = 6
+# 108-259 s (63-77 s at 12 layers, 35-48 s at 6), and phases 20 to 25 come
+# after it in the same 1200 s (the whole smoke read 1286.6 s at 6 layers on
+# a slow host)
+COMPILED_GPT_LAYERS = 3
 
 # phase 20 (a): the segment cap for the run. A gpt2-medium step records
 # ~340 ops (14 a layer); the default cap (256, the reference's) would seal
@@ -8051,6 +8077,10 @@ def launch_checks(smi, wd):
     while not wd.timed_out("stalled") and time.monotonic() - t0 < 3.0:
         time.sleep(0.01)
     fired_s = time.monotonic() - t0
+    # the handler runs on the watchdog's thread just after the task is
+    # marked timed out: wait for its record too
+    while not wd.fired and time.monotonic() - t0 < 3.0:
+        time.sleep(0.01)
     fired = [(name, round(at - t0, 3), "--- thread" in stacks)
              for name, at, stacks in wd.fired]
     wd.deregister("stalled")
@@ -8120,6 +8150,390 @@ def tooling_path(smi, compiled_ms):
         D.destroy_process_group()
         torch.cuda.empty_cache()
     print("phase 24 seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in times.items())
+        + f"; {time.perf_counter() - t_phase:.1f} in all on {smi}")
+
+
+ELASTIC_WATCHDOG_S = 300
+ELASTIC_STEPS = 5           # phase 25 (a)'s steps under ElasticStep
+ELASTIC_TURN_STEPS = 3      # timed steps a turn (after one warm-up)
+ELASTIC_CKPT_LAYERS = 2     # phase 25 (d) and (e): gpt2-medium's widths
+
+
+@contextlib.contextmanager
+def _faults(spec):
+    """``FLAGS_fault_inject`` set to ``spec`` inside the block."""
+    from paddle_tpu_torch._core import flags as pt_flags
+    pt_flags.set_flags({"FLAGS_fault_inject": spec})
+    try:
+        yield
+    finally:
+        pt_flags.set_flags({"FLAGS_fault_inject": ""})
+
+
+def _counts(*names):
+    from paddle_tpu_torch.observability import metrics
+    return {n: metrics.counter(n).value for n in names}
+
+
+def _grew(before):
+    """Each counter of ``before`` (a ``_counts``), less its value then."""
+    now = _counts(*before)
+    return {n.split(".", 1)[1]: now[n] - v for n, v in before.items()}
+
+
+def _seeded_gpt(paddle, gpt, cfg):
+    paddle.seed(0)
+    model = gpt.GPTForPretraining(cfg)
+    return model, paddle.optimizer.AdamW(1e-4,
+                                         parameters=model.parameters())
+
+
+def _same_params(a, b):
+    pa, pb = list(a.parameters()), list(b.parameters())
+    return len(pa), all(torch.equal(x._t, y._t) for x, y in zip(pa, pb))
+
+
+def _synced_ms(fn, n=3):
+    """Median host ms of ``fn()`` between two synchronizes, ``n`` runs."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def elastic_rollback(smi, paddle, gpt, cfg, x, y, crit):
+    """Phase 25 (a): the rollback at full width."""
+    from paddle_tpu_torch.distributed.resilience import ElasticStep
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    runs = {}
+    for name in ("plain", "elastic"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model, opt = _seeded_gpt(paddle, gpt, cfg)
+
+        def step(model=model, opt=opt):
+            return float(_eager_step(paddle, model, crit, opt, x, y))
+
+        el = ElasticStep(optimizer=opt) if name == "elastic" else None
+        before = _counts("resilience.rollbacks", "resilience.step_failures")
+        _reset_all_launches()
+        with _faults("step::3=fail" if el else ""):
+            losses = [el.run(step) if el else step()
+                      for _ in range(ELASTIC_STEPS)]
+        torch.cuda.synchronize()
+        runs[name] = {"model": model, "opt": opt, "el": el, "step": step,
+                      "losses": losses, "launches": _all_launches(),
+                      "rise": torch.cuda.max_memory_allocated() - base,
+                      "counted": _grew(before)}
+    plain, elastic = runs["plain"], runs["elastic"]
+    n_leaves, equal = _same_params(plain["model"], elastic["model"])
+    el = elastic["el"]
+    snap_ms = _synced_ms(el._snapshot)
+    snap = el._snapshot()
+    restore_ms = _synced_ms(lambda: el._restore(snap))
+    del snap
+    print(f"elastic (a) gpt2-medium O1 bf16 under ElasticStep, "
+          f"step::3=fail: losses {elastic['losses']} against the plain "
+          f"twin's {plain['losses']}; all {n_leaves} parameters bit-equal: "
+          f"{equal}; counted {elastic['counted']}; launches over "
+          f"{ELASTIC_STEPS} steps {elastic['launches']}")
+    check(elastic["losses"] == plain["losses"],
+          f"rolled-back losses {elastic['losses']} != {plain['losses']}")
+    check(equal and n_leaves == 292, f"{n_leaves} parameters, bit-equal "
+          f"{equal}")
+    check(elastic["counted"] == {"rollbacks": 1, "step_failures": 1},
+          f"counters {elastic['counted']}")
+    for name, n in elastic["launches"].items():
+        want = cfg.num_layers * ELASTIC_STEPS if name in fa.LAUNCHES else 0
+        check(n == want, f"{name} launched {n} times under ElasticStep, "
+              f"want {want}")
+    ms = {"plain": [], "elastic": []}
+    for name in ("plain", "elastic", "elastic", "plain"):
+        run = runs[name]
+        one = (lambda r=run: r["el"].run(r["step"])) if run["el"] \
+            else run["step"]
+        one()
+        ms[name] += _turns(lambda *_: one(), None, None, None,
+                           ELASTIC_TURN_STEPS)
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    print(f"elastic (a) ElasticStep {med['elastic']:.2f} ms/step against "
+          f"the plain step {med['plain']:.2f} "
+          f"({med['elastic'] / med['plain']:.3f}x) in turns; the snapshot "
+          f"{snap_ms:.2f} ms for {el.last_snapshot_bytes} bytes "
+          f"({2 * el.last_snapshot_bytes / snap_ms / 1e6:.1f} GB/s read and "
+          f"written), a restore {restore_ms:.2f} ms; peak memory rose by "
+          f"{plain['rise'] / 2**30:.2f} GiB for the plain run and "
+          f"{elastic['rise'] / 2**30:.2f} GiB under ElasticStep "
+          f"(+{(elastic['rise'] - plain['rise']) / 2**30:.2f} GiB) on {smi}")
+    return {"ms": med, "snapshot_ms": snap_ms, "restore_ms": restore_ms,
+            "snapshot_bytes": el.last_snapshot_bytes,
+            "rise": (plain["rise"], elastic["rise"])}
+
+
+def elastic_collectives(smi, paddle, gpt, cfg, x, y, crit, D):
+    """Phase 25 (b): collective faults on NCCL through DataParallel's
+    reducer. Returns the two wrapped models for (c)."""
+    from paddle_tpu_torch._core import flags as pt_flags
+    from paddle_tpu_torch.distributed.resilience import ElasticStep
+    pairs = {}
+    for name in ("twin", "dp"):
+        model, opt = _seeded_gpt(paddle, gpt, cfg)
+        pairs[name] = (D.DataParallel(model), model, opt)
+
+    def step(name):
+        wrapped, _, opt = pairs[name]
+        return float(_eager_step(paddle, wrapped, crit, opt, x, y))
+
+    twin = [step("twin")]
+    before = _counts("resilience.retries", "resilience.gave_up")
+    with _faults("comm::all_reduce@1=fail"):
+        dp = [step("dp")]
+    retried = _grew(before)
+    _, equal1 = _same_params(pairs["twin"][1], pairs["dp"][1])
+    budget = int(pt_flags.flag_value("FLAGS_retry_max_attempts"))
+    spec = ";".join(f"comm::all_reduce@{i}=fail"
+                    for i in range(1, budget + 1))
+    el = ElasticStep(optimizer=pairs["dp"][2])
+    twin.append(step("twin"))
+    before = _counts("resilience.retries", "resilience.gave_up",
+                     "resilience.rollbacks")
+    with _faults(spec):
+        dp.append(el.run(lambda: step("dp")))
+    rolled = _grew(before)
+    _, equal2 = _same_params(pairs["twin"][1], pairs["dp"][1])
+    dpw = pairs["dp"][0]
+    print(f"elastic (b) DataParallel on a one-rank NCCL group "
+          f"({dpw.last_buckets} buckets a step): comm::all_reduce@1=fail "
+          f"counted {retried}, losses {dp[:1]} against the uninjected "
+          f"twin's {twin[:1]}, parameters bit-equal: {equal1}; {spec} "
+          f"(past the {budget}-attempt budget) under ElasticStep counted "
+          f"{rolled}, losses {dp[1:]} against {twin[1:]}, parameters "
+          f"bit-equal: {equal2} on {smi}")
+    check(retried == {"retries": 1, "gave_up": 0}, f"retry {retried}")
+    check(equal1 and dp[:1] == twin[:1], "a retried collective changed the "
+          "step")
+    check(rolled == {"retries": budget - 1, "gave_up": 1, "rollbacks": 1},
+          f"rollback past the budget {rolled}")
+    check(equal2 and dp[1:] == twin[1:], "the rolled-back step differs")
+    return pairs
+
+
+def elastic_rebuild(smi, paddle, D, store, pairs, x, y, crit):
+    """Phase 25 (c): the world formed again under epoch 1."""
+    from paddle_tpu_torch.distributed import parallel_env
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    reserved0 = torch.cuda.memory_reserved()
+    before = _counts("resilience.retries")
+    with _faults("pg::init@1=fail"):
+        t0 = time.perf_counter()
+        D.rebuild_world([0], 1, store=store)
+        rebuild_s = time.perf_counter() - t0
+    retried = _grew(before)
+    backend = str(torch.distributed.get_backend())
+    # the old world's reducers held its groups: the models get new ones
+    for wrapped, _, _ in pairs.values():
+        wrapped._unregister()
+    (_, twin, twin_opt), (_, model, opt) = pairs["twin"], pairs["dp"]
+    dp = D.DataParallel(model)
+    losses = [float(_eager_step(paddle, twin, crit, twin_opt, x, y)),
+              float(_eager_step(paddle, dp, crit, opt, x, y))]
+    torch.cuda.synchronize()
+    _, equal = _same_params(twin, model)
+    left = (free0 - torch.cuda.mem_get_info()[0]) \
+        - (torch.cuda.memory_reserved() - reserved0)
+    print(f"elastic (c) rebuild_world([0], epoch 1) with pg::init@1=fail: "
+          f"{rebuild_s:.3f} s, counted {retried}, backend {backend}, "
+          f"process {parallel_env.process_id()} rank "
+          f"{torch.distributed.get_rank()} of "
+          f"{torch.distributed.get_world_size()}; a DataParallel step on "
+          f"the new world ({dp.last_buckets} NCCL buckets) loss "
+          f"{losses[1]} against the twin's plain step {losses[0]}, "
+          f"parameters bit-equal: {equal}; device memory the old "
+          f"communicator left behind (free memory lost beyond the "
+          f"allocator's growth) {left / 2**20:.1f} MiB on {smi}")
+    check(retried == {"retries": 1}, f"bring-up retries {retried}")
+    check("nccl" in backend, f"backend {backend}")
+    check(equal and losses[0] == losses[1], "the step on the rebuilt world "
+          "differs")
+    return {"rebuild_s": rebuild_s, "left": left}
+
+
+def elastic_fallback(smi, paddle, gpt, cfg, x, y, crit, D):
+    """Phase 25 (d): the checkpoint fallback. Returns the trainer for
+    (e)."""
+    import tempfile
+    model, opt = _seeded_gpt(paddle, gpt, cfg)
+    root = tempfile.mkdtemp(prefix="pt_elastic_")
+    trainer = D.AdaptiveTrainer(optimizer=opt, checkpoint_dir=root,
+                                checkpoint_every=2, max_retries=0)
+    params = list(model.parameters())
+
+    def state():
+        return [p._t.detach().clone() for p in params] + [
+            v.detach().clone() for p in params
+            for _, v in sorted(opt._states[id(p)].items())]
+
+    seen = {}
+    save, restore = trainer.save_checkpoint, trainer.restore_from_checkpoint
+
+    def timed_save():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen = save()
+        seen["save_s"] = time.perf_counter() - t0
+        seen["saved"] = state()
+        return gen
+
+    def timed_restore(generation=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen = restore(generation)
+        torch.cuda.synchronize()
+        seen["load_s"] = time.perf_counter() - t0
+        seen["restored"] = state()
+        seen["gen"] = gen
+        return gen
+
+    trainer.save_checkpoint = timed_save
+    trainer.restore_from_checkpoint = timed_restore
+
+    def step():
+        return float(_eager_step(paddle, model, crit, opt, x, y))
+
+    before = _counts("resilience.gave_up", "resilience.ckpt_restores",
+                     "resilience.rollbacks")
+    try:
+        with _faults("step::3=fail"):
+            losses = [trainer.run(step) for _ in range(3)]
+        size = os.path.getsize(os.path.join(root, "gen_00000001",
+                                            "data_rank0.pkl"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    counted = _grew(before)
+    equal = len(seen["saved"]) == len(seen["restored"]) and all(
+        torch.equal(a, b) for a, b in zip(seen["saved"], seen["restored"]))
+    n_params = sum(p._t.numel() for p in params)
+    print(f"elastic (d) AdaptiveTrainer at {cfg.num_layers} layers "
+          f"({n_params} parameters, fp32, AdamW), checkpoint_every=2, "
+          f"max_retries=0, step::3=fail: counted {counted}, reloaded "
+          f"generation {seen['gen']}; its {len(seen['saved'])} leaves "
+          f"bit-equal to the state saved: {equal}; losses {losses}; save "
+          f"{seen['save_s']:.2f} s ({size / seen['save_s'] / 1e9:.2f} GB/s), "
+          f"load {seen['load_s']:.2f} s "
+          f"({size / seen['load_s'] / 1e9:.2f} GB/s, warm read) of "
+          f"data_rank0.pkl {size} bytes on {smi}")
+    check(counted == {"gave_up": 1, "ckpt_restores": 1, "rollbacks": 0},
+          f"fallback counters {counted}")
+    check(seen["gen"] == 1 and equal, "the restored state differs from the "
+          "saved generation")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    return trainer
+
+
+def _same_tree(a, b) -> bool:
+    """Dicts of numpy arrays and plain values, equal bit for bit."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(
+            _same_tree(v, b[k]) for k, v in a.items())
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.dtype == b.dtype \
+            and np.array_equal(a, b)
+    return a == b
+
+
+def elastic_broadcast(smi, trainer, store):
+    """Phase 25 (e): the growth broadcast through the TCPStore."""
+    from paddle_tpu_torch.distributed.resilience import growth, retry
+    host = trainer._host_state()
+    before = _counts("resilience.grow_bcast_bytes")
+    t0 = time.perf_counter()
+    chunks = growth.publish_state(store, host, epoch=7)
+    publish_s = time.perf_counter() - t0
+    nbytes = _grew(before)["grow_bcast_bytes"]
+    t0 = time.perf_counter()
+    got = growth.receive_state(store, 7, timeout=120)
+    receive_s = time.perf_counter() - t0
+    equal = _same_tree(host, got)
+    del got
+    key = "__elastic/grow/7/chunk/1"
+    raw = store.get(key)
+    store.set(key, bytes([raw[0] ^ 0xFF]) + raw[1:])
+    before = _counts("resilience.grow_bcast_rejects")
+    try:
+        growth.receive_state(store, 7, timeout=30)
+        refused = "received"
+    except retry.StoreOpError as e:
+        refused = str(e).splitlines()[0]
+    rejects = _grew(before)["grow_bcast_rejects"]
+    print(f"elastic (e) the full state ({len(host)} entries) through the "
+          f"TCPStore: {nbytes} bytes in {chunks} chunks, publish "
+          f"{publish_s:.2f} s ({nbytes / publish_s / 1e9:.3f} GB/s), "
+          f"receive {receive_s:.2f} s ({nbytes / receive_s / 1e9:.3f} GB/s); "
+          f"bit-equal: {equal}; a flipped byte of chunk 1: {refused!r}, "
+          f"rejects counted {rejects} on {smi}")
+    check(equal, "the received state differs from the published one")
+    check("checksum" in refused and rejects == 1, f"a flipped byte was not "
+          f"refused: {refused}")
+    return {"publish_s": publish_s, "receive_s": receive_s,
+            "bytes": nbytes, "chunks": chunks}
+
+
+def elastic_path(smi, cfg_name="gpt2-medium", ckpt_layers=ELASTIC_CKPT_LAYERS):
+    """Phase 25: elastic resilience on a one-rank NCCL group (see the
+    module docstring)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.models import gpt
+    phase("25 elastic resilience")
+    t_phase = time.perf_counter()
+    times = {}
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    D.init_parallel_env(f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                        world_size=1)
+    store = D.TCPStore("127.0.0.1", 0, is_master=True, world_size=1,
+                       timeout=120)
+    try:
+        cfg = gpt.GPT_CONFIGS[cfg_name]
+        paddle.set_device("gpu")
+        rng = np.random.RandomState(0)
+        x = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (BATCH, SEQ)))
+        y = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (BATCH, SEQ)))
+        crit = gpt.GPTPretrainingCriterion()
+        t0 = time.perf_counter()
+        elastic_rollback(smi, paddle, gpt, cfg, x, y, crit)
+        times["(a)"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        pairs = elastic_collectives(smi, paddle, gpt, cfg, x, y, crit, D)
+        times["(b)"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        elastic_rebuild(smi, paddle, D, store, pairs, x, y, crit)
+        times["(c)"] = time.perf_counter() - t0
+        del pairs
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        small = dataclasses.replace(cfg, num_layers=ckpt_layers)
+        trainer = elastic_fallback(smi, paddle, gpt, small, x, y, crit, D)
+        times["(d)"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        elastic_broadcast(smi, trainer, store)
+        times["(e)"] = time.perf_counter() - t0
+        del trainer
+    finally:
+        D.set_mesh(None)
+        D.destroy_process_group()
+        store.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("phase 25 seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in times.items())
         + f"; {time.perf_counter() - t_phase:.1f} in all on {smi}")
 
@@ -8205,6 +8619,9 @@ def main() -> int:
     with watchdog("phase 24 (context parallelism and the tooling)",
                   TOOLING_WATCHDOG_S):
         tooling_path(smi, compiled_ms)
+    torch.cuda.empty_cache()
+    with watchdog("phase 25 (elastic resilience)", ELASTIC_WATCHDOG_S):
+        elastic_path(smi)
     phase("16 results")
     for label, (d_ms, d_plain, d_lib, d_bnd) in (
             ("head_dim 256", d256), ("head_dim 512", d512),

@@ -21,10 +21,15 @@ recorded metadata and materializes at the next read.
 - Backpressure: ``submit`` blocks while ``max_inflight`` segments are
   queued or running. Shutdown drains and joins the worker, at exit too.
 
+A worker's error keeps its own type through the latch, so an injected
+``FaultError`` (``segment::compile``, ``exec::oom``) or a
+``StaticCheckError`` reaches ``ElasticStep`` as what it is; the elastic
+step drains the executor before its snapshot and discards the failed
+step's latched errors before its restore (``drain(raise_latched=False)``).
+
 Left out: the reference's ``EnforceNotMet`` wrapping of foreign errors and
 its flight-recorder post-mortem (the port re-raises the original error;
-the observability plane is ``ROADMAP.md`` §1 item 9), and the elastic
-rollback and sanitizer drills, which wait for those planes.
+the observability plane is ``ROADMAP.md`` §1 item 9).
 """
 from __future__ import annotations
 

@@ -208,12 +208,16 @@ define_flag("FLAGS_zb_w_extra_delay", 0,
 define_flag("FLAGS_fault_inject", "",
             "Deterministic fault-injection plan ('' = off): "
             "'seed=N;site[@occ]=kind[(arg)][:prob];...' where site is a "
-            "named injection point (ckpt::save, ckpt::load; trailing * "
-            "wildcards match) and kind is fail | die | delay(s) | "
-            "stuck(s) | oom. See distributed/resilience/faults.py.")
+            "named injection point (store::get/set/add/wait, pg::init, "
+            "comm::<op>, segment::compile, exec::oom, step::N, "
+            "ckpt::save, ckpt::load, member::leave, member::join, "
+            "preempt::notice; trailing * wildcards match) and kind is "
+            "fail | die | delay(s) | stuck(s) | oom. See "
+            "distributed/resilience/faults.py.")
 define_flag("FLAGS_retry_max_attempts", 3,
             "RetryPolicy default attempt budget for transient failures "
-            "(checkpoint I/O).")
+            "(TCPStore ops, process-group bring-up, host collectives, "
+            "checkpoint I/O).")
 define_flag("FLAGS_retry_backoff_s", 0.05,
             "RetryPolicy base backoff delay in seconds (exponential "
             "with deterministic jitter).")
@@ -225,6 +229,40 @@ define_flag("FLAGS_checkpoint_keep", 3,
 define_flag("FLAGS_ckpt_strict_load", True,
             "Distributed checkpoint load fails on missing/unexpected "
             "keys instead of loading the intersection.")
+
+# ---- elastic resilience (:370, :378, :384, :390-403, :439-441)
+define_flag("FLAGS_elastic_max_retries", 2,
+            "ElasticStep: rollback-and-rerun attempts per training step "
+            "before the failure propagates.")
+define_flag("FLAGS_checkpoint_interval_steps", 0,
+            "AdaptiveTrainer: auto-checkpoint every N step boundaries "
+            "through the retention manager (0 = off); a trainer built "
+            "with an explicit checkpoint_every overrides the flag.")
+define_flag("FLAGS_elastic_grow_chunk_kb", 512,
+            "grow_world state broadcast: TCPStore chunk size in KiB for "
+            "the survivor->joiner state transfer (each chunk is "
+            "sha256-checksummed; the whole payload is verified before "
+            "unpickling).")
+define_flag("FLAGS_elastic_heartbeat_interval_s", 0.5,
+            "ElasticManager heartbeat/watch interval in seconds.")
+define_flag("FLAGS_elastic_eviction_debounce", 3,
+            "ElasticManager: consecutive missed/stale heartbeat probes "
+            "before a node is evicted from membership (one slow scan must "
+            "not publish a member::leave epoch; 1 evicts on the first "
+            "miss).")
+
+# True while FLAGS_fault_inject names a plan: the gate the runtime's hot
+# paths (the lazy window's compile and execute sites, the elastic step,
+# the trainer's boundary poll) read without importing ``resilience``
+FAULT_INJECT_ACTIVE = False
+
+
+def _sync_fault_inject_gate(value):
+    global FAULT_INJECT_ACTIVE
+    FAULT_INJECT_ACTIVE = bool(str(value).strip())
+
+
+watch_flag("FLAGS_fault_inject", _sync_fault_inject_gate)
 
 # ---- context parallelism and the distributed tooling (:156-173, :427,
 # :447-449, :662). The reference's alias FLAGS_pg_timeout needs an alias

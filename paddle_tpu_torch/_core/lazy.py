@@ -57,11 +57,21 @@ on the card the stream already runs ahead of the host, and a window whose
 segments run their ops in order only adds host time until steady segments
 replay as CUDA graphs.
 
+- ``MESH_EPOCH`` salts every segment and fused-step signature;
+  ``bump_mesh_epoch`` (the adaptive trainer's, after a re-plan) re-keys
+  them, so a window records anew on the new world and never replays a
+  runner built around the old one.
+- Fault sites, behind ``flags.FAULT_INJECT_ACTIVE``: ``segment::compile``
+  where a segment's (or the fused step's) runner is built, ``exec::oom``
+  before a runner executes, on each of the three execute paths (a
+  synchronous flush, the async worker, the fused backward).
+
 Left out, each waiting for its plane: the reference's observability
 spans, metrics and ``PERF_OBSERVER`` (``ROADMAP.md`` §1 item 9), the
-sanitizer's checks and NaN scan, memory telemetry and OOM conversion,
-``MESH_EPOCH`` / ``SPMD`` (items 8 and 9) and donation of dead inputs
-(torch frees them by reference count). A segment compiles nothing here, so
+sanitizer's checks and NaN scan, memory telemetry and the OOM conversion
+of ``exec::oom`` (the port raises the fault's ``ResourceExhausted`` as
+it is), ``SPMD`` (item 9.1) and donation of dead inputs (torch frees them
+by reference count). A segment compiles nothing here, so
 the persistent cache (``persist.py``) has nothing of the window's to store.
 """
 from __future__ import annotations
@@ -101,6 +111,39 @@ _NC_TRIED = False
 _DRIVE_OK = False
 _FAST_GEN_CELL: list = [0]
 _DRIVE_CELL: list = dispatch.DRIVE_CELL
+
+
+# a salt of every segment and fused-step signature; bump_mesh_epoch re-keys
+MESH_EPOCH = 0
+
+
+def bump_mesh_epoch() -> int:
+    """Re-key the segment and fused-step caches (the old entries age out
+    of the LRU) and invalidate the armed record skeletons: after a
+    re-plan the next window records anew."""
+    global MESH_EPOCH
+    MESH_EPOCH += 1
+    invalidate_skeletons()
+    return MESH_EPOCH
+
+
+def _inject(site: str) -> None:
+    """A runtime fault site; callers gate on ``_flags.FAULT_INJECT_ACTIVE``
+    (the resilience package is imported only while a plan is armed)."""
+    from ..distributed.resilience import faults
+    faults.inject(site)
+
+
+def _build(cache, key, build):
+    """The cached runner of ``key``, built (after the ``segment::compile``
+    site) on a miss."""
+    runner = cache.get(key)
+    if runner is None:
+        if _flags.FAULT_INJECT_ACTIVE:
+            _inject("segment::compile")
+        runner = build()
+        cache[key] = runner
+    return runner
 
 
 def invalidate_skeletons(_value=None) -> int:
@@ -1036,7 +1079,7 @@ class CaptureContext:
         key0 = (self._sig_ops[0], len(self._sig_ops), self._sig_ops[-1])
         memo = self._sig_memos.get(key0)
         if memo is not None and memo[0] == ops_key and memo[1] == in_sig \
-                and memo[2] == live_t:
+                and memo[2] == live_t and memo[3][3] == MESH_EPOCH:
             # the memo just proved this segment shape repeats: arm (or
             # refresh) its skeleton, unless the segment fully replayed it;
             # a full clean replay advances the promotion streak
@@ -1056,7 +1099,7 @@ class CaptureContext:
             if not bucket:
                 del self._skels[self.pending[0].name]
         self._skeleton = None
-        key = (ops_key, in_sig, live_t)
+        key = (ops_key, in_sig, live_t, MESH_EPOCH)
         if len(self._sig_memos) > 8:
             self._sig_memos.clear()
         memo = (ops_key, in_sig, live_t, key)
@@ -1108,10 +1151,10 @@ class CaptureContext:
         dispatch.bump_exec()
         try:
             run_vals = _resolve(in_vals) if _ASYNC_SEEN else in_vals
-            runner = _SEG_CACHE.get(sig)
-            if runner is None:
-                runner = _build_segment_fn(pending, live)
-                _SEG_CACHE[sig] = runner
+            runner = _build(_SEG_CACHE, sig,
+                            lambda: _build_segment_fn(pending, live))
+            if _flags.FAULT_INJECT_ACTIVE:
+                _inject("exec::oom")
             out_vals = runner(pending, run_vals)
         except BaseException:
             # a failed run must not pin inputs or poison later records:
@@ -1171,10 +1214,9 @@ class CaptureContext:
 
 def _run_job(pending, live, sig, in_vals):
     run_vals = _resolve(in_vals)
-    runner = _SEG_CACHE.get(sig)
-    if runner is None:
-        runner = _build_segment_fn(pending, live)
-        _SEG_CACHE[sig] = runner
+    runner = _build(_SEG_CACHE, sig, lambda: _build_segment_fn(pending, live))
+    if _flags.FAULT_INJECT_ACTIVE:
+        _inject("exec::oom")
     return runner(pending, run_vals)
 
 
@@ -1453,10 +1495,10 @@ def try_fused_backward(tensors, grad_tensors) -> bool:
     dispatch.bump_exec()
     try:
         run_vals = _resolve(in_vals) if _ASYNC_SEEN else in_vals
-        runner = _FUSED_CACHE.get(key)
-        if runner is None:
-            runner = _build_fused_fn(pending, live, root_k)
-            _FUSED_CACHE[key] = runner
+        runner = _build(_FUSED_CACHE, key,
+                        lambda: _build_fused_fn(pending, live, root_k))
+        if _flags.FAULT_INJECT_ACTIVE:
+            _inject("exec::oom")
         out_vals = runner(pending, run_vals)
     except BaseException:
         ctx._reset_segment()

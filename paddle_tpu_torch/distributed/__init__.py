@@ -6,8 +6,10 @@ other collectives, ``Group``, ``new_group``), ``DataParallel``, the
 hybrid-parallel API, ``recompute``), ``sharding`` (eager ZeRO), the eager
 pipeline (``pipeline``), the semi-auto API (``placements``, ``api``,
 ``auto_parallel.reshard_functions``), the distributed checkpoint
-(``checkpoint``), the fault injection and retry policies
-(``resilience``), context parallelism (``context_parallel``: ring and
+(``checkpoint``), the elastic resilience runtime (``resilience``: fault
+injection, retry policies, ``ElasticStep``, ``shrink_world`` /
+``grow_world`` over a world formed again with ``rebuild_world``,
+``AdaptiveTrainer``), context parallelism (``context_parallel``: ring and
 Ulysses attention), the auto-parallel ``Engine`` with its spmd rules,
 partitioner, planner and passes (``auto_parallel``, ``passes``), the
 ``auto_tuner``, the launcher (``launch``, ``spawn``), the watchdog
@@ -51,7 +53,11 @@ from .pipeline import (PipelineLayer, PipelineParallel,  # noqa: F401,E402
                        build_pipeline_runtime)
 from .fleet.recompute import recompute_sequential  # noqa: F401,E402
 from . import resilience  # noqa: F401,E402
-from .resilience import FaultPlan, RetryPolicy  # noqa: F401,E402
+from .resilience import (AdaptiveTrainer, ElasticStep,  # noqa: F401,E402
+                         FaultPlan, MembershipEvent, Replanner, RetryPolicy,
+                         grow_world, join_world, mesh_for_plan, plan_grow,
+                         plan_shrink, shrink_world, stage_rank_map)
+from .parallel_env import rebuild_world  # noqa: F401,E402
 from . import auto_parallel  # noqa: F401,E402
 from . import context_parallel, utils  # noqa: F401,E402
 from .context_parallel import (ring_attention, ulysses_attention,  # noqa: F401,E402

@@ -106,7 +106,8 @@ def in_mesh(mesh: ProcessMesh) -> bool:
     """Whether this process holds a piece on ``mesh``."""
     if not dist.is_initialized():
         return True
-    return dist.get_rank() in mesh.process_ids
+    from ..parallel_env import process_id
+    return process_id() in mesh.process_ids
 
 
 def coords(mesh: ProcessMesh):
@@ -359,7 +360,8 @@ def _hand_over(val, src: DistAttrLite, dst: DistAttrLite):
     this rank's copy, or an empty piece outside ``dst``."""
     if not dist.is_initialized():
         return val
-    me = dist.get_rank()
+    from ..parallel_env import process_id, rank_of
+    me = process_id()
     have = src.mesh.process_ids
     need = [r for r in dst.mesh.process_ids if r not in have]
     works = []
@@ -367,14 +369,15 @@ def _hand_over(val, src: DistAttrLite, dst: DistAttrLite):
         buf = val.new_empty(src.global_shape).requires_grad_(
             val.requires_grad)
         C.CALLS["p2p"] += 1
-        works.append(dist.irecv(buf.detach(),
-                                have[need.index(me) % len(have)]))
+        works.append(dist.irecv(
+            buf.detach(), rank_of(have[need.index(me) % len(have)])))
         val = buf
     elif me in have:
         for k, r in enumerate(need):
             if have[k % len(have)] == me:
                 C.CALLS["p2p"] += 1
-                works.append(dist.isend(val.detach().contiguous(), r))
+                works.append(dist.isend(val.detach().contiguous(),
+                                        rank_of(r)))
     for w in works:
         w.wait()
     return val if me in dst.mesh.process_ids else _empty_piece(val)

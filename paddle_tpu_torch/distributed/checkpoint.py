@@ -31,10 +31,10 @@ casts to the target's dtype, so the port's checkpoints load without
 ``ml_dtypes`` can be imported, and refuses it with the unpickler's
 ``ModuleNotFoundError`` where it cannot.
 
-The reference's ``ckpt::save`` / ``ckpt::load`` spans and its
-``resilience.ckpt_fallbacks`` counter wait for the measurement plane
-(``ROADMAP.md`` §1 item 9); the fault sites ``ckpt::save`` and
-``ckpt::load`` are armed by ``FLAGS_fault_inject``.
+A generation fallback counts ``resilience.ckpt_fallbacks``; the fault
+sites ``ckpt::save`` and ``ckpt::load`` are armed by
+``FLAGS_fault_inject``. The reference's ``ckpt::save`` / ``ckpt::load``
+spans wait for the span plane (``ROADMAP.md`` §1 item 9).
 """
 from __future__ import annotations
 
@@ -325,6 +325,8 @@ class CheckpointManager:
                             added.append(k)
                 load_state_dict(state_dict, self._gen_path(gen))
                 if last_err is not None:
+                    from ..observability import metrics
+                    metrics.inc("resilience.ckpt_fallbacks")
                     _LOG.warning(
                         "checkpoint generation fallback: loaded gen %d "
                         "after newer generation(s) failed verification "

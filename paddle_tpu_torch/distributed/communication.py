@@ -21,6 +21,12 @@ reference gives:
 ``isend`` and ``irecv`` complete before they return, as the reference's
 do, and give a finished task. The ``stream`` namespace holds the same
 functions.
+
+Each collective over more than one rank is one attempt under
+``retry.comm_policy()`` that fires the ``comm::<name>`` fault site before
+the torch call (``_resilient``). An error that torch raises from inside
+the call is not retried: a half-done collective needs the step's rollback
+(``ElasticStep``), not a second call.
 """
 from __future__ import annotations
 
@@ -33,6 +39,31 @@ from .._core.tensor import Tensor
 from .process_group import (TORCH_OPS, Group, ReduceOp,  # noqa: F401
                             default_group, get_backend, get_group,
                             new_group)
+from .resilience import faults as _faults
+from .resilience import retry as _retry
+
+
+class _CallFailed(Exception):
+    """Carries an error raised by the torch call past the retry policy."""
+
+
+def _resilient(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, one collective, as one attempt under the comm
+    retry policy that fires ``comm::<name>`` first; what ``fn`` raises
+    goes to the caller unretried."""
+    def attempt():
+        if _faults.ACTIVE:
+            _faults.inject("comm::" + name)
+        try:
+            return fn(*args, **kw)
+        except Exception as e:
+            raise _CallFailed(e) from None
+
+    try:
+        return _retry.comm_policy().run(attempt, what="comm::" + name)
+    except _CallFailed as wrapped:
+        err = wrapped.args[0]
+        raise err.with_traceback(err.__traceback__) from None
 
 
 def _group(group) -> Group:
@@ -125,7 +156,8 @@ def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True):
     pg = _pg(group)
     buf = _buffer(tensor)
     with torch.no_grad():
-        dist.all_reduce(buf, op=TORCH_OPS[op], group=pg)
+        _resilient("all_reduce", dist.all_reduce, buf,
+                   op=TORCH_OPS[op], group=pg)
         _reduce_into(buf, op, _group(group).nranks)
     _adopt(tensor, buf)
     return tensor
@@ -139,7 +171,7 @@ def all_gather(tensor_list: List, tensor, group=None, sync_op=True):
     pg = _pg(group)
     src = _payload(tensor).detach().contiguous()
     outs = [torch.empty_like(src) for _ in range(_group(group).nranks)]
-    dist.all_gather(outs, src, group=pg)
+    _resilient("all_gather", dist.all_gather, outs, src, group=pg)
     tensor_list.extend(_wrap_like(o, tensor) for o in outs)
     return tensor_list
 
@@ -149,7 +181,8 @@ def all_gather_object(object_list, obj, group=None):
         object_list.append(obj)
         return object_list
     out = [None] * _group(group).nranks
-    dist.all_gather_object(out, obj, group=_pg(group))
+    _resilient("all_gather_object", dist.all_gather_object, out, obj,
+               group=_pg(group))
     object_list.extend(out)
     return object_list
 
@@ -161,7 +194,8 @@ def broadcast(tensor, src=0, group=None, sync_op=True):
     pg = _pg(group)
     buf = _buffer(tensor)
     with torch.no_grad():
-        dist.broadcast(buf, src=_member(group, src, "src"), group=pg)
+        _resilient("broadcast", dist.broadcast, buf,
+                   src=_member(group, src, "src"), group=pg)
     _adopt(tensor, buf)
     return tensor
 
@@ -169,8 +203,9 @@ def broadcast(tensor, src=0, group=None, sync_op=True):
 def broadcast_object_list(object_list, src=0, group=None):
     if _single(group):
         return object_list
-    dist.broadcast_object_list(object_list, src=_member(group, src, "src"),
-                               group=_pg(group))
+    _resilient("broadcast_object_list", dist.broadcast_object_list,
+               object_list, src=_member(group, src, "src"),
+               group=_pg(group))
     return object_list
 
 
@@ -184,7 +219,8 @@ def reduce(tensor, dst=0, op=ReduceOp.SUM, group=None, sync_op=True):
     buf = _payload(tensor).detach().clone(
         memory_format=torch.contiguous_format)
     with torch.no_grad():
-        dist.reduce(buf, dst=dst, op=TORCH_OPS[op], group=pg)
+        _resilient("reduce", dist.reduce, buf, dst=dst, op=TORCH_OPS[op],
+                   group=pg)
     if dist.get_rank() == dst:
         _reduce_into(buf, op, _group(group).nranks)
         _adopt(tensor, buf)
@@ -201,14 +237,19 @@ def reduce_scatter(tensor, tensor_list, op=ReduceOp.SUM, group=None,
         return tensor
     pg = _pg(group)
     g = _group(group)
-    mine = None
-    with torch.no_grad():
+
+    def reduces():
+        mine = None
         for r, part in zip(g.ranks, tensor_list):
             buf = _payload(part).detach().clone(
                 memory_format=torch.contiguous_format)
             dist.reduce(buf, dst=r, op=TORCH_OPS[op], group=pg)
             if r == dist.get_rank():
                 mine = buf
+        return mine
+
+    with torch.no_grad():
+        mine = _resilient("reduce_scatter", reduces)
         _reduce_into(mine, op, g.nranks)
     _adopt(tensor, mine)
     return tensor
@@ -227,7 +268,8 @@ def scatter(tensor, tensor_list=None, src=0, group=None, sync_op=True):
     if dist.get_rank() == src:
         parts = [_payload(t).detach().contiguous() for t in tensor_list]
     with torch.no_grad():
-        dist.scatter(buf, scatter_list=parts, src=src, group=pg)
+        _resilient("scatter", dist.scatter, buf, scatter_list=parts,
+                   src=src, group=pg)
     _adopt(tensor, buf)
     return tensor
 
@@ -244,7 +286,8 @@ def gather(tensor, gather_list=None, dst=0, group=None, sync_op=True):
     outs = None
     if dist.get_rank() == dst:
         outs = [torch.empty_like(src) for _ in range(_group(group).nranks)]
-    dist.gather(src, gather_list=outs, dst=dst, group=pg)
+    _resilient("gather", dist.gather, src, gather_list=outs, dst=dst,
+               group=pg)
     if outs is not None and gather_list is not None:
         gather_list.extend(_wrap_like(o, tensor) for o in outs)
     return gather_list
@@ -270,9 +313,9 @@ def alltoall(out_tensor_list, in_tensor_list, group=None, sync_op=True):
     flat_in = torch.cat([t.reshape(-1) for t in ins])
     sizes_out = [int(torch.Size(s).numel()) for s in got_shapes]
     flat_out = flat_in.new_empty(sum(sizes_out))
-    dist.all_to_all_single(flat_out, flat_in, output_split_sizes=sizes_out,
-                           input_split_sizes=[t.numel() for t in ins],
-                           group=pg)
+    _resilient("all_to_all", dist.all_to_all_single, flat_out, flat_in,
+               output_split_sizes=sizes_out,
+               input_split_sizes=[t.numel() for t in ins], group=pg)
     like = in_tensor_list[0]
     for part, s in zip(flat_out.split(sizes_out), got_shapes):
         out_tensor_list.append(_wrap_like(part.reshape(s), like))
@@ -286,8 +329,8 @@ def send(tensor, dst=0, group=None, sync_op=True):
     if _group(group).nranks <= 1:
         raise RuntimeError("send needs a multi-process group")
     pg = _pg(group)
-    dist.send(_payload(tensor).detach().contiguous(),
-              dst=_member(group, dst, "dst"), group=pg)
+    _resilient("send", dist.send, _payload(tensor).detach().contiguous(),
+               dst=_member(group, dst, "dst"), group=pg)
 
 
 def recv(tensor, src=0, group=None, sync_op=True):
@@ -297,7 +340,8 @@ def recv(tensor, src=0, group=None, sync_op=True):
     pg = _pg(group)
     buf = _buffer(tensor)
     with torch.no_grad():
-        dist.recv(buf, src=_member(group, src, "src"), group=pg)
+        _resilient("recv", dist.recv, buf, src=_member(group, src, "src"),
+                   group=pg)
     _adopt(tensor, buf)
     return tensor
 
@@ -325,7 +369,7 @@ def irecv(tensor, src=0, group=None):
 def barrier(group=None):
     if _single(group):
         return
-    dist.barrier(group=_pg(group))
+    _resilient("barrier", dist.barrier, group=_pg(group))
 
 
 def wait(tensor, group=None, use_calc_stream=True):

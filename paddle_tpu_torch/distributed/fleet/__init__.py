@@ -14,9 +14,10 @@ alone or for sharding) and
 their eager collectives (``mp_layers``, ``mp_ops``), sequence parallelism
 (``sequence_parallel_utils``), the RNG tracker (``random_``), the metrics
 and ``recompute``; in pipeline mode ``distributed_model`` builds the eager
-pipeline (``distributed/pipeline.py``). The parameter server
-(``init_server`` and the rest) and ``elastic`` are not ported yet
-(``ROADMAP.md`` §1 items 10 and 8.7).
+pipeline (``distributed/pipeline.py``). ``elastic`` holds the elastic
+manager (heartbeats, membership epochs, preemption notices over the
+TCPStore). The parameter server (``init_server`` and the rest) is not
+ported yet (``ROADMAP.md`` §1 item 10).
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ from .strategy import DistributedStrategy
 from .topology import (CommunicateTopology,  # noqa: F401
                        HybridCommunicateGroup, get_hybrid_communicate_group,
                        set_hybrid_communicate_group)
-from . import hybrid_optimizer, metrics  # noqa: F401
+from . import elastic, hybrid_optimizer, metrics  # noqa: F401
 from . import sequence_parallel_utils  # noqa: F401
 from .sequence_parallel_utils import (  # noqa: F401
     ColumnSequenceParallelLinear, RowSequenceParallelLinear,

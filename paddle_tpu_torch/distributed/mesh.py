@@ -6,8 +6,12 @@ coordinates. ``ProcessMesh(np.arange(8).reshape(2, 2, 2), ["dp", "pp",
 "mp"])`` puts rank r where the reference's ``np.reshape(devices, (dp, pp,
 mp))`` puts device r: the last axis varies fastest. Each axis has one
 process group per line of the mesh along it; ``get_group(name)`` is the
-one through this rank. ``torch.distributed.new_group`` is collective over
-the whole world, so the first ``groups()`` or ``get_group`` of a mesh
+one through this rank. A mesh names processes by their ids, which are
+their torch ranks until ``parallel_env.rebuild_world`` forms a world again
+after a membership change (then ``parallel_env.rank_of`` maps an id to
+its rank, in the same order). ``torch.distributed.new_group`` is
+collective over the whole world, so the first ``groups()`` or
+``get_group`` of a mesh
 makes every line's group of every axis at once, and every rank of the
 world, in the mesh or not, makes that call at the same point of its
 program (the mesh trainers do so when they are built).
@@ -47,15 +51,18 @@ def _forget_groups() -> None:
     _GROUPS.clear()
 
 
-def _group(ranks: Sequence[int]):
-    key = tuple(int(r) for r in ranks)
+def _group(ids: Sequence[int]):
+    """The process group of the processes ``ids`` (their ranks follow the
+    ids' order)."""
+    from .parallel_env import rank_of
+    key = tuple(int(r) for r in ids)
     if list(key) != sorted(key):
         # a group numbers its ranks in increasing order; the shard-local
         # code takes that number for the axis index
         raise ValueError(f"a line of a mesh is not in increasing rank "
                          f"order: {list(key)}")
     if key not in _GROUPS:
-        _GROUPS[key] = dist.new_group(list(key))
+        _GROUPS[key] = dist.new_group([rank_of(i) for i in key])
     return _GROUPS[key]
 
 
@@ -118,7 +125,8 @@ class ProcessMesh:
         """Axis name -> index of ``rank`` (default: this process's)."""
         if rank is None:
             if "coords" not in self._mine:
-                self._mine["coords"] = self.coords(dist.get_rank())
+                from .parallel_env import process_id
+                self._mine["coords"] = self.coords(process_id())
             return self._mine["coords"]
         idx = np.argwhere(self._mesh_arr == rank)
         if idx.size == 0:
@@ -151,9 +159,13 @@ class ProcessMesh:
         """Every axis's group through this rank (empty on a rank outside
         the mesh). The first call makes the groups of every line of every
         axis, in axis order: every rank of the world calls it."""
+        from .parallel_env import process_id, world_generation
+        if self._mine.get("world") != world_generation():
+            self._mine.pop("groups", None)
+            self._mine["world"] = world_generation()
         if "groups" not in self._mine:
             made = {}
-            rank = dist.get_rank()
+            rank = process_id()
             for i, name in enumerate(self._dim_names):
                 lines = np.moveaxis(self._mesh_arr, i, -1).reshape(
                     -1, self._mesh_arr.shape[i])

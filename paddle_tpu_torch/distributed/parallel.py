@@ -24,6 +24,11 @@ included (the reference's runs from two ranks up): on one card its buckets
 are summed by NCCL over one rank and divided by 1, which leaves every
 gradient bit for bit as it was. ``state_dict`` is the wrapped layer's,
 under its own keys.
+
+Each bucket's reduction is one attempt under the communication API's
+retry policy that fires ``comm::all_reduce`` first (``communication.
+_resilient``), so the collective fault drills reach the reducer; the
+reference's reducer calls its process group directly, with no site.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from .._core.autograd import register_post_backward_callback
 from .._core.flags import flag_value
 from ..nn.layer import Layer
 from ._collectives import average_
+from .communication import _resilient
 from .process_group import Group, default_group
 
 
@@ -128,7 +134,7 @@ class DataParallel(Layer):
                     if g is None:   # taking part, unused here: zeros
                         t.grad = torch.zeros_like(t)
                 grads = [t.grad for t in payloads]
-                average_(grads, pg, n)
+                _resilient("all_reduce", average_, grads, pg, n)
                 self.last_buckets += 1
                 self.last_collectives += 1
                 for (p, _), g in zip(bucket, grads):

@@ -44,6 +44,20 @@ def stream_tick_count(num_micro: int, n: int) -> int:
     return num_micro + n - 1
 
 
+def fb_permutations(n: int):
+    """The compiled 1F1B train step's per-tick pair (the reference's
+    lowering, ``ROADMAP.md`` §1 item 11): activations flow down the ring,
+    cotangents flow up it. The pipeline checker
+    (``analysis/distributed_checks.py``) simulates it."""
+    down = [(i, (i + 1) % n) for i in range(n)]
+    up = [((i + 1) % n, i) for i in range(n)]
+    return down, up
+
+
+def fb_tick_count(num_micro: int, n: int) -> int:
+    return num_micro + 2 * (n - 1)
+
+
 def _send(t: torch.Tensor, dst: int) -> None:
     _collectives.CALLS["send"] += 1
     dist.send(t.contiguous(), dst=dst)
@@ -117,7 +131,8 @@ def spmd_pipeline(stage_fn: Callable, x_mb: torch.Tensor,
     ``[mb, ...]``. x_mb: ``[M, mb, ...]``, the same on every stage.
     Returns ``[M, mb, ...]``, the same on every stage; differentiable in
     ``x_mb`` and ``params``."""
-    line = mesh.line(axis_name)
+    from .parallel_env import rank_of
+    line = [rank_of(r) for r in mesh.line(axis_name)]  # torch ranks
     return _Pipeline.apply(stage_fn, line, mesh.get_group(axis_name),
                            x_mb, *params)
 

@@ -1,13 +1,21 @@
 """Deterministic fault injection (``FLAGS_fault_inject``): the counterpart
 of ``paddle_tpu/distributed/resilience/faults.py``.
 
-A ``FaultPlan`` injects failures at *named sites*. The port's sites so far
-are the checkpoint's, ``ckpt::save`` and ``ckpt::load``
-(``distributed/checkpoint.py``); the store, process-group, collective,
-compile and elastic-step sites of the reference come with
-``ElasticStep`` and the store's retry policy (``ROADMAP.md`` §1 item
-8.7). ``inject(site)`` is the hook a site calls; ``ACTIVE`` says whether a
-plan is armed, kept in step with the flag by a watcher.
+A ``FaultPlan`` injects failures at *named sites* threaded through the
+stack, so the retry, rollback and world-shrink reactions can be drilled
+deterministically: ``store::get``, ``store::set``, ``store::add``,
+``store::wait`` (``distributed/store.py``), ``pg::init`` (each bring-up of
+a process group, ``distributed/parallel_env.py``), ``comm::<op>`` (the
+communication API's collectives and ``DataParallel``'s bucket reduction),
+``segment::compile`` and ``exec::oom`` (the lazy window's runner builds
+and executions, ``_core/lazy.py``), ``step::N`` (``ElasticStep``'s N-th
+step), ``ckpt::save`` and ``ckpt::load`` (``distributed/checkpoint.py``),
+and ``member::leave``, ``member::join`` and ``preempt::notice``, polled by
+``AdaptiveTrainer`` at every step boundary (any kind raised there is taken
+as the event). ``inject(site)`` is the hook a site calls; the sites gate
+on ``flags.FAULT_INJECT_ACTIVE`` (or this module's ``ACTIVE``), kept in
+step with the flag by watchers, so with the flag empty the hot paths never
+import this module.
 
 Plan grammar (semicolon- or comma-separated entries), the reference's::
 
@@ -28,9 +36,10 @@ Plan grammar (semicolon- or comma-separated entries), the reference's::
   the same call sequence give the same injection schedule as the
   reference's.
 
-The reference also counts each injected fault (``resilience.*``) and
-notes it in its flight recorder; both wait for the measurement plane
-(``ROADMAP.md`` §1 item 9).
+Each injected fault is counted (``resilience.faults_injected`` and
+``resilience.faults.<kind>``). The reference also notes it in its flight
+recorder, behind ``_OBS.FLIGHT``; the flight recorder is ``ROADMAP.md`` §1
+item 9.
 """
 from __future__ import annotations
 
@@ -173,6 +182,10 @@ class FaultPlan:
                 self.fired.append((site, occurrence, act.kind))
         if act is None:
             return
+        # counted BEFORE acting, so a raising fault still leaves its trace
+        from ...observability import metrics
+        metrics.inc("resilience.faults_injected")
+        metrics.inc("resilience.faults." + act.kind)
         if act.kind in _DELAY_KINDS and act.arg:
             self._sleep(act.arg)
         exc = _RAISE.get(act.kind)
@@ -211,7 +224,7 @@ def plan() -> Optional[FaultPlan]:
 
 def inject(site: str) -> None:
     """The site hook: no-op unless a plan is armed. Callers pre-gate on
-    this module's ``ACTIVE``."""
+    ``flags.FAULT_INJECT_ACTIVE`` (or this module's ``ACTIVE``)."""
     p = _PLAN
     if p is not None:
         p.fire(site)

@@ -4,14 +4,17 @@ counterpart of ``paddle_tpu/distributed/resilience/retry.py``.
 A ``RetryPolicy`` re-attempts an operation on *retryable* errors with
 exponential backoff and deterministic jitter (derived from the rank, the
 policy name and the attempt number, not a global RNG: two runs of the same
-failing sequence sleep the same schedule). The port applies it to
-checkpoint I/O (``ckpt_policy``, ``distributed/checkpoint.py``); the
-store, bring-up and collective presets are defined as in the reference and
-are wired with the store's retry policy (``ROADMAP.md`` §1 item 8.7).
+failing sequence sleep the same schedule). Applied to the host-side
+control plane: TCPStore ops (``store_policy``, ``distributed/store.py``),
+process-group bring-up (``bringup_policy``, ``parallel_env.py``), the
+eager collectives (``comm_policy``, ``communication.py``), checkpoint I/O
+(``ckpt_policy``, ``checkpoint.py``) and the growth broadcast
+(``grow_policy``, ``resilience/growth.py``).
 
-The reference counts retries and give-ups (``resilience.retries``,
-``resilience.gave_up``) and notes each attempt in its flight recorder;
-both wait for the measurement plane (``ROADMAP.md`` §1 item 9).
+Every re-attempt counts ``resilience.retries`` and an exhausted budget
+``resilience.gave_up``; a first-attempt success does no registry work. The
+reference also notes each attempt in its flight recorder, behind
+``_OBS.FLIGHT`` (``ROADMAP.md`` §1 item 9).
 """
 from __future__ import annotations
 
@@ -31,9 +34,9 @@ DEFAULT_RETRYABLE: Tuple[Type[BaseException], ...] = (
 
 class StoreOpError(RuntimeError):
     """A TCPStore set/get/wait failed (socket hiccup, busy server, wait
-    deadline): the class the store and bring-up policies retry. The
-    reference's store raises it; the port's store is wired to it with the
-    store's retry policy (``ROADMAP.md`` §1 item 8.7)."""
+    deadline): the class the store and bring-up policies retry. Raised by
+    ``distributed/store.py``, which re-exports it; defined here because
+    the store imports this module."""
 
 
 class RetryPolicy:
@@ -95,8 +98,13 @@ class RetryPolicy:
             except BaseException as e:
                 attempt += 1
                 if not self._is_retryable(e) or attempt >= budget:
+                    if self._is_retryable(e):
+                        from ...observability import metrics
+                        metrics.inc("resilience.gave_up")
                     raise
                 wait = self.delay(attempt)
+                from ...observability import metrics
+                metrics.inc("resilience.retries")
                 if wait > 0:
                     self.sleep(wait)
 

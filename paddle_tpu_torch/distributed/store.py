@@ -6,9 +6,15 @@ Rank 0 hosts the server; every rank connects a client. ``set``, ``get``
 (which waits for the key), ``add``, ``wait``, ``delete`` and a reusable
 ``barrier`` by key serve rendezvous and coordination outside the
 collectives, which run over ``torch.distributed`` (``communication.py``).
-``FLAGS_tcp_store_timeout_s`` bounds every wait. The reference's retry
-policy and fault sites come with its resilience plane (``ROADMAP.md`` §1
-item 8).
+``FLAGS_tcp_store_timeout_s`` bounds every wait.
+
+``set``, ``get`` and ``wait`` are each one attempt under
+``retry.store_policy()`` that fires its fault site (``store::set``,
+``store::get``, ``store::wait``) first and raises ``StoreOpError`` on a
+native failure, the class that policy retries. ``add`` fires
+``store::add`` but is not retried: an increment applied and then
+re-sent would count twice. ``try_get`` is a probe: one short attempt,
+never a fault site, None when the key is missing or slow.
 """
 from __future__ import annotations
 
@@ -17,6 +23,12 @@ import os
 from typing import Optional
 
 from .._core import native
+from .resilience import faults as _faults
+from .resilience import retry as _retry
+
+# the store's error (defined in resilience.retry, which this module
+# imports; the reverse import would cycle)
+StoreOpError = _retry.StoreOpError
 
 
 class TCPStore:
@@ -54,29 +66,62 @@ class TCPStore:
 
     def set(self, key: str, value) -> None:
         data = value.encode() if isinstance(value, str) else bytes(value)
+        _retry.store_policy().run(self._set_once, key, data,
+                                  what=f"store::set({key})")
+
+    def _set_once(self, key: str, data: bytes) -> None:
+        if _faults.ACTIVE:
+            _faults.inject("store::set")
         if self._lib.pt_store_set(self._client, key.encode(), data,
                                   len(data)) != 0:
-            raise RuntimeError(f"TCPStore.set('{key}') failed: "
+            raise StoreOpError(f"TCPStore.set('{key}') failed: "
                                f"{native.last_error()}")
 
     def get(self, key: str) -> bytes:
-        """The key's value, waiting for it up to the store's timeout. The
-        value may grow between the size read and the copy: read again."""
-        n = self._lib.pt_store_get(self._client, key.encode(), None, 0,
-                                   self._timeout_ms)
+        """The key's value, waiting for it up to the store's timeout."""
+        return _retry.store_policy().run(self._get_once, key,
+                                         what=f"store::get({key})")
+
+    def _get_once(self, key: str) -> bytes:
+        if _faults.ACTIVE:
+            _faults.inject("store::get")
+        out = self._sized_read(key, self._timeout_ms)
+        if isinstance(out, int):
+            reason = native.last_error() or "value kept changing size"
+            raise StoreOpError(f"TCPStore.get('{key}') failed: {reason}")
+        return out
+
+    def try_get(self, key: str, timeout: float = 0.25):
+        """The key's value now, or None when it is missing or slow: one
+        attempt with its own short deadline, never retried and never a
+        fault site (heartbeat scans and membership polls call it, and a
+        probe must neither block for the store's timeout nor use up a
+        drill's ``store::get`` occurrences)."""
+        out = self._sized_read(key, max(int(timeout * 1000), 1))
+        return None if isinstance(out, int) else out
+
+    def _sized_read(self, key: str, ms: int):
+        """The native get's size, then the copy; the value may grow
+        between the two calls (the copy is then skipped and the new
+        length returned): read again. The bytes, or the failing native
+        code (an int < 0; -1 for a value that would not hold still)."""
+        n = self._lib.pt_store_get(self._client, key.encode(), None, 0, ms)
+        if n < 0:
+            return int(n)
         for _ in range(3):
-            if n < 0:
-                break
             buf = ctypes.create_string_buffer(int(n))
             n2 = self._lib.pt_store_get(self._client, key.encode(), buf, n,
-                                        self._timeout_ms)
-            if 0 <= n2 <= n:
+                                        ms)
+            if n2 < 0:
+                return int(n2)
+            if n2 <= n:
                 return buf.raw[:n2]
             n = n2
-        raise RuntimeError(f"TCPStore.get('{key}') failed: "
-                           f"{native.last_error() or 'value kept changing'}")
+        return -1
 
     def add(self, key: str, amount: int = 1) -> int:
+        if _faults.ACTIVE:
+            _faults.inject("store::add")
         r = self._lib.pt_store_add(self._client, key.encode(), amount)
         if r < 0 and native.last_error():
             raise RuntimeError(f"TCPStore.add('{key}') failed: "
@@ -84,9 +129,15 @@ class TCPStore:
         return int(r)
 
     def wait(self, key: str, timeout: Optional[float] = None) -> None:
+        _retry.store_policy().run(self._wait_once, key, timeout,
+                                  what=f"store::wait({key})")
+
+    def _wait_once(self, key: str, timeout: Optional[float]) -> None:
+        if _faults.ACTIVE:
+            _faults.inject("store::wait")
         ms = self._timeout_ms if timeout is None else int(timeout * 1000)
         if self._lib.pt_store_wait(self._client, key.encode(), ms) != 0:
-            raise RuntimeError(f"TCPStore.wait('{key}') timed out")
+            raise StoreOpError(f"TCPStore.wait('{key}') timed out")
 
     def delete(self, key: str) -> None:
         if self._lib.pt_store_del(self._client, key.encode()) != 0:

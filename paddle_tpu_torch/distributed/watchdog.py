@@ -9,8 +9,9 @@ and NCCL's); the watchdog guards the unit above them, the training step
 on timeout the checker thread captures every thread's stack and fires the
 task's handler (default: the stacks to stderr), and the waiting thread
 raises on its next ``check``. The thread is a daemon; ``shutdown()`` stops
-and joins it. The reference also counts each firing and writes it to its
-flight recorder; those come with the observability plane (``ROADMAP.md``
+and joins it. Each firing counts ``resilience.watchdog_fired`` before it
+is visible to ``check`` and before the handler runs. The reference also
+writes it to its flight recorder, behind ``_OBS.FLIGHT`` (``ROADMAP.md``
 §1 item 9).
 """
 from __future__ import annotations
@@ -20,6 +21,8 @@ import threading
 import time
 import traceback
 from typing import Callable, Dict, Optional
+
+from ..observability import metrics
 
 
 class CommTask:
@@ -125,8 +128,10 @@ class CommTaskManager:
                     if not t.timed_out and now - t.last_beat > t.timeout:
                         # the stacks before timed_out becomes visible: a
                         # waiting thread's check() must not raise without
-                        # them
+                        # them; the count too (a raising handler must not
+                        # lose it)
                         t.stacks = _dump_stacks()
+                        metrics.inc("resilience.watchdog_fired")
                         t.timed_out = True
                         fired.append(t)
             for t in fired:

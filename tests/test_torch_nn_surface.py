@@ -64,11 +64,9 @@ def _names(module):
     return out
 
 
-_ITEM8 = "ROADMAP §1 item 8: eager distributed"
 _ITEM10 = "ROADMAP §1 item 10: the long tail"
 _ITEM11 = ("ROADMAP §1 item 11: the compiled 1F1B, VPP and ZeroBubble "
            "schedules")
-_ITEM87 = "ROADMAP §1 item 8.7: elastic resilience"
 _ITEM91 = "ROADMAP §1 item 9.1: spmd.py and _constraint.py"
 _DIST_LATER = ("ps", "rpc")
 # fleet's parameter-server functions
@@ -80,14 +78,11 @@ NOT_YET = {
     "models": {},
     "models.bert": {},
     "distributed": {**dict.fromkeys(_DIST_LATER, _ITEM10),
-                    **dict.fromkeys(("ElasticStep", "shrink_world"),
-                                    _ITEM87),
                     **dict.fromkeys(("spmd", "shard_batch",
                                      "suggest_mesh_degree"), _ITEM91),
                     **dict.fromkeys(("OneFOneB", "VPP", "ZeroBubble"),
                                     _ITEM11)},
-    "distributed.fleet": {"elastic": _ITEM8,
-                          **dict.fromkeys(_FLEET_PS, _ITEM10)},
+    "distributed.fleet": dict.fromkeys(_FLEET_PS, _ITEM10),
     "incubate": {"asp": _ITEM10, "distributed": _ITEM10},
     "incubate.nn": {},
     "base": {},

@@ -672,3 +672,158 @@ def spawned_all_reduce(out_dir):
         f.write(f"{world} {t.item()} {os.environ['PADDLE_TRAINER_ID']} "
                 f"{os.environ['PADDLE_CURRENT_ENDPOINT']}")
     parallel_env.destroy_process_group()
+
+
+# ------------------------------------- elastic resilience
+# (tests/test_torch_resilience_ranks.py). A task that changes the world
+# leaves every rank, the "lost" one included, in a world of all four again
+# (``_whole_world``), so the next task starts from the same world.
+
+_JOB_STORE = []
+
+
+def _job_store():
+    """The job's TCPStore (rank 0 serves it; its port goes round over the
+    current world once) and the rendezvous store of every world formed
+    after."""
+    from paddle_tpu_torch.distributed import parallel_env
+    from paddle_tpu_torch.distributed.store import TCPStore
+    if not _JOB_STORE:
+        rank = dist.get_rank()
+        store = TCPStore("127.0.0.1", 0, is_master=rank == 0,
+                         world_size=dist.get_world_size(), timeout=60) \
+            if rank == 0 else None
+        port = [store.port if store is not None else None]
+        dist.broadcast_object_list(port, src=0)
+        if store is None:
+            store = TCPStore("127.0.0.1", port[0], world_size=4, timeout=60)
+        _JOB_STORE.append(store)
+        parallel_env.rendezvous_store(store)
+    return _JOB_STORE[0]
+
+
+def _whole_world(epoch):
+    from paddle_tpu_torch.distributed import parallel_env
+    parallel_env.rebuild_world(range(4), epoch, pid=_my_id())
+
+
+def _my_id():
+    from paddle_tpu_torch.distributed import parallel_env
+    return parallel_env.process_id()
+
+
+def _sharded_param(pt, mesh, x, spec):
+    """A parameter holding ``x`` sharded by ``spec``, in an Adam whose
+    moments are set to 2 x and 3 x (cut the same way)."""
+    from paddle_tpu_torch.distributed import api
+    p = pt.create_parameter(list(x.shape), "float32")
+    p.set_value(pt.to_tensor(x))
+    api.shard_tensor(p, mesh, _placements(spec))
+    opt = pt.optimizer.Adam(1e-3, parameters=[p])
+    opt._states[id(p)] = {"m": p._t.detach() * 2, "v": p._t.detach() * 3}
+    return p, opt
+
+
+def _words(placements):
+    return " ".join(("S%d" % p.get_dim()) if p.is_shard() else
+                    "P" if p.is_partial() else "R" for p in placements)
+
+
+def _leaves(p, opt):
+    st = opt._states[id(p)]
+    return _np(p._t), _np(st["m"]), _np(st["v"])
+
+
+def elastic_shrink(shape, names, x, spec, lost, epoch):
+    """Every survivor runs ``shrink_world`` of ``x`` (sharded by ``spec``
+    on the mesh of ``shape``) after losing ``lost``; the lost ranks do
+    nothing. Each survivor returns its id, its new piece and moments, the
+    new mesh and placements (or the error); then all four form one world
+    again."""
+    pt = _cpu()
+    from paddle_tpu_torch.base.core import EnforceNotMet
+    from paddle_tpu_torch.distributed.resilience import shrink_world
+    store = _job_store()
+    mesh = _dmesh(shape, names)
+    mesh.groups()
+    p, opt = _sharded_param(pt, mesh, x, spec)
+    me = _my_id()
+    out = None
+    if me not in lost:
+        try:
+            new = shrink_world(mesh, lost, {"w": p}, optimizer=opt,
+                               set_global=False, world_epoch=epoch,
+                               store=store)
+            out = (me, *_leaves(p, opt), new.shape, new.dim_names,
+                   [int(i) for i in new.process_ids],
+                   _words(p._dist_attr.placements), dist.get_rank(),
+                   dist.get_world_size())
+        except EnforceNotMet as e:
+            out = (me, "EnforceNotMet", str(e), tuple(p._t.shape))
+    _whole_world(epoch + 1)
+    return out
+
+
+def elastic_grow(shape, names, x, spec, joined, epoch):
+    """The ranks of the mesh of ``shape`` run ``grow_world`` with
+    ``joined``; each joiner forms the grown world and cuts its piece of
+    ``x`` by its own layout on the grown mesh (what a received broadcast
+    gives it). Every rank returns its id, piece and moments, the mesh and
+    the placements."""
+    pt = _cpu()
+    from paddle_tpu_torch.distributed import api, parallel_env
+    from paddle_tpu_torch.distributed.resilience import grow_world, plan_grow
+    store = _job_store()
+    mesh = _dmesh(shape, names)
+    mesh.groups()
+    me = _my_id()
+    if me in mesh.process_ids:
+        p, opt = _sharded_param(pt, mesh, x, spec)
+        new = grow_world(mesh, joined, {"w": p}, optimizer=opt,
+                         set_global=False, world_epoch=epoch, store=store)
+        out = (me, *_leaves(p, opt), new.shape, new.dim_names,
+               _words(p._dist_attr.placements))
+    else:
+        parallel_env.rebuild_world(range(4), epoch, store=store)
+        new = plan_grow(mesh, joined)
+        from paddle_tpu_torch.distributed.resilience.elastic import \
+            _shrunk_placements
+        attr = api.DistAttr(new, _shrunk_placements(
+            _placements(spec), mesh, new, x.shape), x.shape)
+        piece = api.local_piece(torch.from_numpy(x), attr)
+        out = (me, _np(piece), _np(piece * 2), _np(piece * 3), new.shape,
+               new.dim_names, _words(attr.placements))
+    _whole_world(epoch + 1)
+    return out
+
+
+def elastic_fallback(shape, names, x, spec, lost, epoch, root):
+    """An ``AdaptiveTrainer`` over a parameter sharded by ``spec`` saves a
+    checkpoint, then every survivor takes a manager epoch that loses
+    ``lost``: where the move cannot be made, the trainer adopts the
+    planned layout and reloads the checkpoint. Each survivor returns its
+    id, piece and moments, the trainer's mesh and placements, and the
+    ``resilience.ckpt_restores`` it counted."""
+    pt = _cpu()
+    from paddle_tpu_torch.distributed.resilience import (AdaptiveTrainer,
+                                                         MembershipEvent)
+    from paddle_tpu_torch.observability import metrics
+    _job_store()
+    mesh = _dmesh(shape, names)
+    mesh.groups()
+    p, opt = _sharded_param(pt, mesh, x, spec)
+    trainer = AdaptiveTrainer(optimizer=opt, mesh=mesh, checkpoint_dir=root)
+    trainer.save_checkpoint()
+    me = _my_id()
+    out = None
+    if me not in lost:
+        before = metrics.counter("resilience.ckpt_restores").value
+        members = [str(i) for i in mesh.process_ids if i not in lost]
+        trainer._membership_event(MembershipEvent(
+            epoch, members, lost=list(lost), source="manager"))
+        out = (me, *_leaves(p, opt), trainer.mesh.shape,
+               trainer.mesh.dim_names, _words(p._dist_attr.placements),
+               metrics.counter("resilience.ckpt_restores").value - before)
+    trainer.shutdown()
+    _whole_world(epoch + 1)
+    return out
