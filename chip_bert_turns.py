@@ -1,9 +1,10 @@
 """A training step timed for several checkouts of the repo in turns on one
-CUDA card: bert-base's, as ``chip_smoke.py`` phase 17 builds it, or
-gpt2-medium's eager step, as phase 10 runs it.
+CUDA card: bert-base's, as ``chip_smoke.py`` phase 17 builds it,
+gpt2-medium's eager step, as phase 10 runs it, or that step under the
+lazy window, as phase 20 (a) runs it.
 
     python3 chip_bert_turns.py DIR [DIR ...] [--rounds 2] [--steps 10]
-        [--model bert-base|gpt2-medium-eager]
+        [--model bert-base|gpt2-medium-eager|gpt2-medium-window]
 
 Each DIR is the root of a checkout (its ``paddle_tpu_torch`` is the one
 imported). A round runs the checkouts in the order given and then in the
@@ -13,7 +14,9 @@ builds ``models.bert.build_train_step(BERT_CONFIGS["bert-base"], lr=1e-4,
 remat=True)`` on the card and draws tokens and labels as phase 17 does
 (b16 s512, seed 0); for gpt2-medium-eager it builds phase 10's
 ``GPTForPretraining`` from seed 0 (fp32 parameters, O1 bf16 ``auto_cast``,
-``AdamW(1e-4)``, b8 s1024). It times 1 warm-up and ``--steps`` steps (host
+``AdamW(1e-4)``, b8 s1024); gpt2-medium-window runs that step with the
+ambient window on (``enable_eager_fusion(True)``, a segment cap of 1024
+ops, every telemetry plane off). It times 1 warm-up and ``--steps`` steps (host
 clock, each ended by a synchronize), then one step under
 ``torch.profiler`` for the device's busy time and idle share of the
 median. Prints every child's median and steps, and each checkout's median
@@ -28,7 +31,8 @@ import subprocess
 import sys
 import time
 
-SHAPES = {"bert-base": (16, 512), "gpt2-medium-eager": (8, 1024)}
+SHAPES = {"bert-base": (16, 512), "gpt2-medium-eager": (8, 1024),
+          "gpt2-medium-window": (8, 1024)}
 
 
 def bert_step():
@@ -79,13 +83,23 @@ def gpt_eager_step():
     return run
 
 
+def gpt_window_step():
+    """Phase 20 (a)'s step: phase 10's under the ambient window."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import enable_eager_fusion
+    paddle.set_flags({"FLAGS_lazy_max_segment_ops": 1024})
+    enable_eager_fusion(True)
+    return gpt_eager_step()
+
+
 def child(root: str, steps: int, model: str) -> None:
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     sys.path.insert(0, root)
     step = {"bert-base": bert_step,
-            "gpt2-medium-eager": gpt_eager_step}[model]()
+            "gpt2-medium-eager": gpt_eager_step,
+            "gpt2-medium-window": gpt_window_step}[model]()
     ms = []
     for i in range(1 + steps):
         torch.cuda.synchronize()
@@ -132,7 +146,9 @@ def main() -> int:
     roots = [os.path.abspath(r) for r in args.roots]
     batch, seq = SHAPES[args.model]
     what = {"bert-base": "bf16 remat adamw",
-            "gpt2-medium-eager": "eager, O1 bf16, adamw"}[args.model]
+            "gpt2-medium-eager": "eager, O1 bf16, adamw",
+            "gpt2-medium-window": "eager under the window, O1 bf16, "
+                                  "adamw"}[args.model]
     print(f"{args.model} b{batch} s{seq} {what}, {args.steps} steps after 1 "
           f"warm-up, on {smi}", flush=True)
     medians = {r: [] for r in roots}

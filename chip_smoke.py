@@ -227,8 +227,8 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    phase 10's eager gpt2-medium with its depth cut to 3 layers
    (``COMPILED_GPT_LAYERS``) through ``paddle.jit.to_static``
    (inductor): the first step's seconds, step 1's gradients leaf by leaf
-   and three losses against the eager model's from the same seed, 12 /
-   12 / 12 launches of #1 / #2 / #3 a step, one trace and one forward
+   and three losses against the eager model's from the same seed, one
+   launch of each of #1 / #2 / #3 a layer a step, one trace and one forward
    and one backward graph, no library attention in a profiled step,
    ms/step, tokens/s and idle share beside the eager step in turns, peak
    memory; (b) ResNet-50 ``@to_static`` (O1, ``Momentum(0.1)``, b64
@@ -387,6 +387,43 @@ toolkit (``nvcc``). Phases, each printed as it runs:
    full state through the port's TCPStore, bit-equal, GB/s each way and
    the chunk count, then a flipped byte of one chunk refused with
    ``StoreOpError`` and counted in ``resilience.grow_bcast_rejects``;
+26. (run before 16) the measurement plane, under a watchdog of
+   ``OBS_WATCHDOG_S``: (a) phase 10's gpt2-medium (24 layers, O1 bf16,
+   AdamW, seed 0) under the window for ``OBS_STEPS`` steps with every plane
+   off, then a twin's with ``FLAGS_observability``,
+   ``FLAGS_compute_telemetry``, ``FLAGS_memory_telemetry``,
+   ``FLAGS_goodput`` and ``FLAGS_flight_recorder`` on: losses and all 292
+   parameters bit-equal, zero registry mutations with the planes off,
+   #1-#3 24 a step each way, ms a step of each and in turns off, on, on,
+   off; (b) over steady steps with the planes on: no runner built,
+   ``step_cache_hit_rate``, the executed FLOPs a step against the analytic
+   T (6 (12 L h^2 + v h) + 12 L s h) within ``OBS_FLOPS_REL`` and the MFU
+   beside phase 10's hand count, the census's live bytes and peak against
+   ``memory_allocated`` and ``max_memory_allocated``, the goodput buckets
+   additive within 5% and the goodput fraction; (c) at
+   ``OBS_SMALL_LAYERS`` layers (widths kept) ``Profiler(targets=[CPU,
+   GPU], fused_runtime=True, scheduler=(1, 4))`` over 5 steps: the host
+   trace's ``segment::flush[...]`` with its children and
+   ``optimizer::fused_step``, #1-#3 in the device trace, every traced
+   flash launch inside a ``segment::execute``/``replay_step``/``compile``
+   span after the clock rebase (the ratio printed), ``device_summary``'s
+   top 5, an ``op@file:line`` for a flash kernel, the chrome export read
+   back; (d) a tile larger than the card's free memory recorded in the
+   window raises ``ResourceExhaustedError`` over ``OutOfMemoryError`` with
+   a postmortem listing the census, ``memory_allocated`` comes back within
+   1 MiB, and the next step of (a)'s pair is bit-equal; (e) an
+   ``EnforceNotMet`` raised in a step dumps the flight ring with the
+   step's flush; (f) ``FLAGS_monitor`` on a free port: ``/metrics``
+   parses as Prometheus text with the step-time series, ``/healthz`` 200,
+   three steps slowed on purpose fire the regression watchdog once with
+   its flight note and a deep-capture trace, and the port closes with the
+   flag; (g) ``DataParallel``'s step on a one-rank NCCL group with
+   ``FLAGS_distributed_telemetry``: a frame a step on the port's TCPStore,
+   a one-rank step table, ``comm::all_reduce`` spans carrying the buckets'
+   bytes, ``comm.bytes`` the gradients' bytes once a step; (h) ``python -m
+   paddle_tpu_torch.observability stats --model gpt2 --steps 3 --json``
+   in a child on the card, rc 0 and well-formed JSON (the child starts
+   before phase 2's build, beside nvcc, and is waited for after it);
 16. prints the head_dim 256 and 512 and fp16 (64, 256 and 512) timings,
    the ``kernels`` JSON line, the card line, and last ``{"ok": true, "device": {...}}``.
 
@@ -396,6 +433,7 @@ doing anything.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -5869,9 +5907,10 @@ def compile_path(smi):
 # ------------------------------------------------------------ phase 20
 
 # phase 19 (a)'s depth: inductor's cold compile of the 24-layer step took
-# 108-259 s (63-77 s at 12 layers, 35-48 s at 6), and phases 20 to 25 come
-# after it in the same 1200 s (the whole smoke read 1286.6 s at 6 layers on
-# a slow host)
+# 108-259 s (63-77 s at 12 layers, 35-48 s at 6, 32.5-37.9 s at 3 and 2 on
+# a slow host), and phases 20 to 26 come after it in the same 1200 s (the
+# whole smoke read 1286.6 s at 6 layers on a slow host, 1127.0 s at 3 and
+# 1128.7 s at 2 with phase 26)
 COMPILED_GPT_LAYERS = 3
 
 # phase 20 (a): the segment cap for the run. A gpt2-medium step records
@@ -8538,6 +8577,585 @@ def elastic_path(smi, cfg_name="gpt2-medium", ckpt_layers=ELASTIC_CKPT_LAYERS):
         + f"; {time.perf_counter() - t_phase:.1f} in all on {smi}")
 
 
+OBS_WATCHDOG_S = 300
+OBS_STEPS = 5               # phase 26 (a): steps a run
+OBS_TURN_STEPS = 3          # timed steps a turn (after one warm-up)
+OBS_SMALL_LAYERS = 2        # phase 26 (c)-(g): gpt2-medium's widths
+OBS_PLANES = ("FLAGS_observability", "FLAGS_compute_telemetry",
+              "FLAGS_memory_telemetry", "FLAGS_goodput",
+              "FLAGS_flight_recorder")
+OBS_FLOPS_REL = 0.01        # executed FLOPs a step against the analytic
+FLASH_KERNELS = {"flash_fwd": "flash_fwd", "flash_bwd_dkv": "flash_bwd_dkv",
+                 "flash_bwd_dq": "flash_bwd_dq"}
+OBS_EXEC_SPANS = ("segment::execute", "segment::replay_step",
+                  "segment::compile")
+OBS_CLI_ARGS = ("stats", "--model", "gpt2", "--steps", "3", "--json")
+# phase 26 (h)'s child: started before the kernels build, so its start-up
+# (16-24 s on a slow host) overlaps nvcc's minute, and read in phase 26
+OBS_CLI = {}
+
+
+def _planes(paddle, on: bool) -> None:
+    paddle.set_flags({k: bool(on) for k in OBS_PLANES})
+
+
+def gpt_model_flops(cfg, tokens: int) -> float:
+    """T (6 (12 L h^2 + v h) + 12 L s h): the FLOPs of a step that the
+    compute plane counts (the matmuls and the attention products; the
+    position table is a lookup)."""
+    h, L, v = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
+    return tokens * (6 * (12 * L * h * h + v * h) + 12 * L * SEQ * h)
+
+
+def _flash_of(name: str):
+    """Which of #1-#3 a device kernel's name is, or None."""
+    for key in ("flash_bwd_dkv", "flash_bwd_dq", "flash_fwd"):
+        if key in name:
+            return key
+    return None
+
+
+def _obs_steps(paddle, model, opt, crit, x, y, n, on, fa):
+    """``n`` windowed steps: their losses, ms (each ended by a
+    synchronize) and #1-#3 launches, and the registry mutations made."""
+    from paddle_tpu_torch.observability import goodput, metrics
+    losses, ms, launches = [], [], []
+    m0 = metrics.MUTATIONS
+    for _ in range(n):
+        fa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if on:
+            goodput.step_begin()
+        losses.append(float(_eager_step(paddle, model, crit, opt, x, y)))
+        if on:
+            goodput.step_end()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(dict(fa.LAUNCHES))
+    return losses, ms, launches, metrics.MUTATIONS - m0
+
+
+def obs_planes_pair(smi, paddle, gpt, cfg, x, y, crit, fa):
+    """Phase 26 (a) and (b): phase 10's step under the window with every
+    plane off and with the five on, bit-equal, and what the planes read."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.observability import compute as comptel
+    from paddle_tpu_torch.observability import goodput
+    from paddle_tpu_torch.observability import memory as memtel
+    from paddle_tpu_torch.observability import metrics
+    _planes(paddle, False)
+    model_off, opt_off = _seeded_gpt(paddle, gpt, cfg)
+    off = _obs_steps(paddle, model_off, opt_off, crit, x, y, OBS_STEPS,
+                     False, fa)
+    torch.cuda.synchronize()
+    base_alloc = torch.cuda.memory_allocated()
+    _planes(paddle, True)
+    obs.reset()
+    memtel.reset()
+    comptel.reset()
+    model_on, opt_on = _seeded_gpt(paddle, gpt, cfg)   # in the census
+    on = _obs_steps(paddle, model_on, opt_on, crit, x, y, OBS_STEPS, True,
+                    fa)
+    n_leaves, equal = _same_params(model_off, model_on)
+    print(f"obs (a) gpt2-medium O1 bf16 windowed: losses planes off "
+          f"{off[0]} on {on[0]}; all {n_leaves} parameters bit-equal: "
+          f"{equal}; registry mutations over the off run {off[3]}; "
+          f"launches a step off {off[2][-1]} on {on[2][-1]}")
+    print(f"obs (a) ms a step: planes off {[round(v, 2) for v in off[1]]}, "
+          f"on {[round(v, 2) for v in on[1]]} (the first of each builds "
+          f"its runners; the on run's first also counts them)")
+    check(off[0] == on[0], f"losses off {off[0]} != on {on[0]}")
+    check(equal and n_leaves == 292, f"{n_leaves} leaves, bit-equal {equal}")
+    check(off[3] == 0, f"{off[3]} registry mutations with every plane off")
+    for run in (off, on):
+        for step in run[2]:
+            for name in fa.LAUNCHES:
+                check(step[name] == cfg.num_layers,
+                      f"{name} launched {step[name]} times a step")
+    # (b): steady-state steps under the planes
+    snap0 = obs.stats()
+    builds0 = sum(v for k, v in snap0["counters"].items()
+                  if k in ("compiles.segment", "compiles.fused_step"))
+    f0, calls0 = comptel.executed_flops(), comptel.COST_CALLS
+    steady = _obs_steps(paddle, model_on, opt_on, crit, x, y, 3, True, fa)
+    snap1 = obs.stats()
+    builds1 = sum(v for k, v in snap1["counters"].items()
+                  if k in ("compiles.segment", "compiles.fused_step"))
+    flops = (comptel.executed_flops() - f0) / 3
+    want = gpt_model_flops(cfg, BATCH * SEQ)
+    bench_want = gpt_flops_per_token(cfg) * BATCH * SEQ
+    step_ms = float(np.median(steady[1]))
+    peak = comptel.peak_flops()
+    print(f"obs (b) stats over 3 steady steps: runner builds "
+          f"{builds1 - builds0}, counts {comptel.COST_CALLS - calls0}, "
+          f"step_cache_hit_rate {snap1['step_cache_hit_rate']}, "
+          f"cache_hit_rate {snap1['cache_hit_rate']}, window breaks "
+          f"{snap1['fusion_window_breaks']}")
+    print(f"obs (b) compute: executed {flops:.6g} FLOPs a step against the "
+          f"analytic {want:.6g} ({flops / want:.6f}x; bench.py's count with "
+          f"the position table {bench_want:.6g}); MFU {flops / (step_ms / 1e3) / peak:.4f} "
+          f"of {peak / 1e12:.0f} TFLOP/s at {step_ms:.2f} ms/step, phase 10's "
+          f"hand count {bench_want / (step_ms / 1e3) / PEAK_BF16_FLOPS:.4f}")
+    check(builds1 == builds0, f"steady steps built {builds1 - builds0} "
+          f"runners")
+    check(abs(flops / want - 1) <= OBS_FLOPS_REL,
+          f"executed FLOPs {flops} against {want}")
+    torch.cuda.synchronize()
+    live, alloc = memtel.live_bytes(), torch.cuda.memory_allocated()
+    share = alloc - base_alloc
+    mpeak, apeak = memtel.peak_bytes(), torch.cuda.max_memory_allocated()
+    print(f"obs (b) memory: census live {live / 2**30:.3f} GiB "
+          f"({memtel.census_size()} storages) against memory_allocated "
+          f"{alloc / 2**30:.3f} GiB ({live / alloc:.3f}) and the planes-on "
+          f"model's share of it {share / 2**30:.3f} GiB "
+          f"({live / max(share, 1):.3f}); census peak {mpeak / 2**30:.3f} "
+          f"GiB against max_memory_allocated {apeak / 2**30:.3f} GiB "
+          f"({mpeak / apeak:.3f}); top {memtel.census(3)}")
+    check(0 < live <= alloc, f"census live {live} against {alloc}")
+    g = goodput.snapshot()
+    frac = goodput.goodput_fraction(g)
+    print(f"obs (b) goodput: buckets {dict((k, round(v / 1e3, 1)) for k, v in g['buckets'].items())} ms "
+          f"over {g['wall_us'] / 1e3:.1f} ms of wall, additive within 5%: "
+          f"{goodput.check_additivity(g)}; goodput fraction {frac:.4f}, "
+          f"{g['steps']} steps")
+    check(goodput.check_additivity(g), f"goodput buckets {g}")
+    # the twin takes the same 3 steps, planes off
+    _planes(paddle, False)
+    _obs_steps(paddle, model_off, opt_off, crit, x, y, 3, False, fa)
+    # turns: off, on, on, off
+    ms = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off"):
+        on_ = mode == "on"
+        _planes(paddle, on_)
+        m, o = (model_on, opt_on) if on_ else (model_off, opt_off)
+        _obs_steps(paddle, m, o, crit, x, y, 1, on_, fa)
+        ms[mode] += _obs_steps(paddle, m, o, crit, x, y, OBS_TURN_STEPS,
+                               on_, fa)[1]
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    print(f"obs (a) turns: planes off {med['off']:.2f} ms/step, on "
+          f"{med['on']:.2f} ({med['on'] / med['off']:.3f}x) on {smi}")
+    _planes(paddle, False)
+    return (model_off, opt_off), (model_on, opt_on), med
+
+
+def obs_oom(smi, paddle, pair_off, pair_on, crit, x, y, fa, tmp):
+    """Phase 26 (d): a real out-of-memory error inside the window."""
+    from paddle_tpu_torch.base.core import ResourceExhaustedError
+    from paddle_tpu_torch.framework import lazy_guard
+    _planes(paddle, True)
+    paddle.set_flags({"FLAGS_flight_recorder_dir": tmp})
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    # past the whole card: the caching allocator's reserved blocks are
+    # free to torch though not to mem_get_info
+    free, total = torch.cuda.mem_get_info()
+    rows = (total + 2**30) // (1024 * 4) + 1
+    err = None
+    try:
+        with lazy_guard():
+            small = paddle.to_tensor(np.ones((1, 1024), "float32"))
+            big = small.tile([int(rows), 1])
+            big.numpy()
+    except ResourceExhaustedError as e:
+        err = e
+    del small
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    body = open(err.postmortem_path).read() if err is not None \
+        and err.postmortem_path else ""
+    print(f"obs (d) a {rows * 4096 / 2**30:.1f} GiB tile against "
+          f"{free / 2**30:.1f} GiB free of {total / 2**30:.1f}: "
+          f"{type(err).__name__} "
+          f"(cause {type(err.__cause__).__name__ if err else None}); "
+          f"postmortem {len(body.splitlines())} lines, "
+          f"{body.count(' B  ')} census rows; memory_allocated "
+          f"{before} -> {after} ({after - before:+d} B)")
+    check(err is not None, "no ResourceExhaustedError from the tile")
+    check(isinstance(err.__cause__, torch.cuda.OutOfMemoryError),
+          f"cause {err.__cause__!r}")
+    check(" B  " in body and "optimizer.state" in body,
+          "the postmortem lists no census rows")
+    check(abs(after - before) <= 2**20, f"allocated {before} -> {after}")
+    # the next step, planes on, against the twin's with them off
+    l_on = _obs_steps(paddle, *pair_on, crit, x, y, 1, True, fa)[0]
+    _planes(paddle, False)
+    l_off = _obs_steps(paddle, *pair_off, crit, x, y, 1, False, fa)[0]
+    n_leaves, equal = _same_params(pair_off[0], pair_on[0])
+    print(f"obs (d) the next step: loss {l_on} against the twin's {l_off}; "
+          f"all {n_leaves} parameters bit-equal: {equal}")
+    check(l_on == l_off and equal, "the step after the OOM differs")
+
+
+def obs_profiler(smi, paddle, model, opt, crit, x, y, tmp):
+    """Phase 26 (c): ``Profiler(targets=[CPU, GPU], fused_runtime=True,
+    scheduler=(1, 4))`` over 5 windowed steps of a 6-layer model."""
+    from paddle_tpu_torch.profiler import (Profiler, ProfilerTarget,
+                                           load_profiler_result)
+    paddle.set_flags({"FLAGS_compute_telemetry": True,
+                      "FLAGS_observability": True})
+    step = lambda: float(_eager_step(paddle, model, crit, opt, x, y))  # noqa
+    step()              # the runners built under the compute plane
+    torch.cuda.synchronize()
+    times = []
+    p = Profiler(targets=[ProfilerTarget.CPU, ProfilerTarget.GPU],
+                 fused_runtime=True, scheduler=(1, 4))
+    p.start()
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        p.step()
+    p.stop()
+    host = p.events()
+    devs = p.device_events()
+    names = [e["name"] for e in host]
+    flush = [n for n in names if n.startswith("segment::flush[")]
+    kids = [n for n in names if n in ("segment::execute",
+                                      "segment::replay_step",
+                                      "segment::compile")]
+    flash = {}
+    for e in devs:
+        k = _flash_of(e["name"])
+        if k is not None:
+            flash.setdefault(k, []).append(e)
+    # the spans a runner executes in: every flash launch that reached the
+    # trace with its launch record must fall inside one after the rebase
+    # (records the trace dropped, F4, are left out of the count)
+    spans = [e for e in host if e["name"] in OBS_EXEC_SPANS and "dur" in e]
+    n_flash = sum(len(v) for v in flash.values())
+    traced = [e["launch_ts"] for v in flash.values() for e in v
+              if e.get("launch_ts") is not None]
+    inside = sum(1 for lt in traced
+                 if any(s["ts"] <= lt <= s["ts"] + s["dur"] for s in spans))
+    srcs = sorted({e["src"] for v in flash.values() for e in v
+                   if e.get("src")})
+    print(f"obs (c) profiled {len(times)} steps (recording 3): ms "
+          f"{[round(t, 2) for t in times]}; host events {len(host)} "
+          f"({sorted(set(flush))}, children {sorted(set(kids))}, "
+          f"optimizer::fused_step {names.count('optimizer::fused_step')}); "
+          f"device events {len(devs)}, flash kernels "
+          f"{ {k: len(v) for k, v in flash.items()} }, launched inside a "
+          f"{'/'.join(OBS_EXEC_SPANS)} span {inside} of the {len(traced)} "
+          f"with a launch record ({inside / max(len(traced), 1):.3f}; "
+          f"{n_flash - len(traced)} without one); sources {srcs[:3]}")
+    top = list(p.device_summary().items())[:5]
+    print("obs (c) device_summary top 5: " + "; ".join(
+        f"{n[:70]} {a['calls']} calls {a['total_us'] / 1e3:.3f} ms"
+        for n, a in top))
+    table = p.source_summary()
+    path = p.export(os.path.join(tmp, "obs_trace.json"))
+    loaded = load_profiler_result(path)["traceEvents"]
+    n_exp = len([e for e in loaded if e.get("ph") != "M"])
+    print(f"obs (c) exported {path}: {n_exp} events read back against "
+          f"{len(host) + len(devs)} recorded; source_summary rows with "
+          f"op@file:line: {sum(1 for ln in table.splitlines() if '@' in ln.split(' ')[0])}")
+    check(devs, "the device tracer recorded no device event")
+    check(flush and kids, f"no segment::flush / execute spans: {names[:20]}")
+    check("optimizer::fused_step" in names, "no optimizer::fused_step span")
+    check(set(flash) == set(FLASH_KERNELS), f"flash kernels seen {set(flash)}")
+    check(traced and inside == len(traced),
+          f"{len(traced) - inside} of {len(traced)} flash launches fall "
+          f"outside every {'/'.join(OBS_EXEC_SPANS)} span")
+    check(any("@" in s and ".py:" in s for s in srcs),
+          f"no op@file:line for a flash kernel: {srcs}")
+    check(n_exp == len(host) + len(devs), f"exported {n_exp} events")
+    paddle.set_flags({"FLAGS_compute_telemetry": False,
+                      "FLAGS_observability": False})
+    return float(np.median(times))
+
+
+def obs_flight(smi, paddle, model, opt, crit, x, y, tmp):
+    """Phase 26 (e): an ``EnforceNotMet`` raised in a step dumps the ring
+    with that step's flush events."""
+    from paddle_tpu_torch.base.core import InvalidArgumentError
+    from paddle_tpu_torch.observability import flight
+    paddle.set_flags({"FLAGS_flight_recorder": True,
+                      "FLAGS_flight_recorder_dir": tmp})
+    flight.reset()
+    before = set(os.listdir(tmp))
+    try:
+        _eager_step(paddle, model, crit, opt, x, y)
+        raise InvalidArgumentError("seeded enforce in a step", "phase 26")
+    except InvalidArgumentError:
+        pass
+    dumps = sorted(set(os.listdir(tmp)) - before)
+    body = open(os.path.join(tmp, dumps[0])).read() if dumps else ""
+    print(f"obs (e) EnforceNotMet in a step: dumps {dumps}; the dump holds "
+          f"segment::flush[backward_fused] "
+          f"{'segment::flush[backward_fused]' in body}, optimizer::fused_step "
+          f"{'optimizer::fused_step' in body}, {len(body.splitlines())} lines")
+    check(len(dumps) == 1, f"dumps {dumps}")
+    check("segment::flush[backward_fused]" in body and "seeded enforce"
+          in body, "the dump lacks the step's flush")
+    paddle.set_flags({"FLAGS_flight_recorder": False})
+    flight.reset()
+
+
+def obs_monitor(smi, paddle, model, opt, crit, x, y, step_ms, tmp):
+    """Phase 26 (f): the live monitor and its exporter on the card."""
+    import urllib.request
+    from paddle_tpu_torch.distributed.resilience import ElasticStep
+    from paddle_tpu_torch.observability import exporter, flight, timeseries
+    port = _free_port()
+    timeseries.reset()
+    paddle.set_flags({"FLAGS_monitor_interval_s": 3600.0,
+                      "FLAGS_monitor_port": port,
+                      "FLAGS_monitor_regression_steps": 3,
+                      "FLAGS_monitor_deep_capture_steps": 1,
+                      "FLAGS_flight_recorder": True,
+                      "FLAGS_flight_recorder_dir": tmp,
+                      "FLAGS_monitor": True})
+    el = ElasticStep(optimizer=opt)
+    slow = [0.0]
+
+    def step():
+        loss = float(_eager_step(paddle, model, crit, opt, x, y))
+        time.sleep(slow[0])
+        return loss
+
+    prev = {}
+    try:
+        for _ in range(4):
+            el.run(step)
+            timeseries.sample_once(prev)
+
+        def get(path):
+            try:
+                r = urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                           timeout=10)
+                return r.status, r.read().decode()
+            except urllib.error.HTTPError as e:
+                return e.code, e.read().decode()
+
+        code, body = get("/metrics")
+        lines = [ln for ln in body.splitlines() if ln and ln[0] != "#"]
+        bad = [ln for ln in lines if not re.match(
+            r'^[a-zA-Z_:][a-zA-Z0-9_:]*\{[^}]*\} -?[0-9.e+\-]+$', ln)]
+        st = [ln for ln in lines if ln.startswith(
+            "paddle_tpu_monitor_step_time_ms")]
+        hcode, hbody = get("/healthz")
+        print(f"obs (f) /metrics {code}: {len(lines)} samples, malformed "
+              f"{len(bad)}, step time {st}; /healthz {hcode} {hbody[:120]}")
+        check(code == 200 and not bad and st, "/metrics")
+        check(hcode == 200, f"/healthz {hcode}")
+        for _ in range(6):                    # the baseline
+            el.run(step)
+            timeseries.sample_once(prev)
+        slow[0] = 3.0 * step_ms / 1e3
+        for _ in range(3):                    # slowed on purpose
+            el.run(step)
+            timeseries.sample_once(prev)
+        slow[0] = 0.0
+        for _ in range(2):                    # the armed deep capture
+            el.run(step)
+        regs = list(timeseries.REGRESSIONS)
+        traces = [n for n in os.listdir(tmp) if n.startswith("flight_trace_")]
+        notes = [e for e in flight.entries()
+                 if e[1] == "monitor" and e[2] == "regression"]
+        print(f"obs (f) regressions {regs}; flight notes {len(notes)}; "
+              f"deep-capture traces {traces}")
+        check(len(regs) == 1 and regs[0]["series"] == "step_time_ms",
+              f"regressions {regs}")
+        check(len(notes) == 1 and len(traces) == 1, "no flight evidence")
+    finally:
+        el.shutdown()
+        paddle.set_flags({"FLAGS_monitor": False})
+    closed = False
+    try:
+        urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=2)
+    except OSError:
+        closed = True
+    print(f"obs (f) FLAGS_monitor off: port {port} closed {closed}, bound "
+          f"{exporter.bound_port()}")
+    check(closed and exporter.bound_port() is None, "the port stayed open")
+    paddle.set_flags({"FLAGS_flight_recorder": False,
+                      "FLAGS_monitor_port": 0})
+    timeseries.reset()
+
+
+def obs_distributed(smi, paddle, gpt, cfg, x, y, crit):
+    """Phase 26 (g): ``DataParallel``'s step (phase 21) at world size 1 on
+    NCCL with the cross-rank telemetry on."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.observability import distributed as dtel
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.distributed.resilience import ElasticStep
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    D.init_parallel_env(f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                        world_size=1)
+    store = D.TCPStore("127.0.0.1", 0, is_master=True, world_size=1,
+                       timeout=60)
+    paddle.set_flags({"FLAGS_distributed_telemetry": True,
+                      "FLAGS_observability": True})
+    try:
+        model, opt = _seeded_gpt(paddle, gpt, cfg)
+        dp = D.DataParallel(model)
+        pub = dtel.init(store, rank=0, world_size=1)
+        el = ElasticStep(optimizer=opt)
+        dtel._drain_events()
+        c0 = dict(metrics.snapshot()["counters"])
+        steps = 3
+        for _ in range(steps):
+            el.run(lambda: float(_eager_step(paddle, dp, crit, opt, x, y)))
+        pub.flush()
+        c1 = metrics.snapshot()["counters"]
+        calls = c1.get("comm.calls.all_reduce", 0) - c0.get(
+            "comm.calls.all_reduce", 0)
+        nbytes = c1.get("comm.bytes.all_reduce", 0) - c0.get(
+            "comm.bytes.all_reduce", 0)
+        grad_bytes = sum(p._t.numel() * 4 for p in model.parameters())
+        agg = dtel.TelemetryAggregator()
+        agg.poll_store(store, [0])
+        table = agg.step_table()
+        spans = [e for f in agg.frames(0) for e in f["spans"]
+                 if e[0] == "comm::all_reduce"]
+        print(f"obs (g) DataParallel on one NCCL rank with the telemetry "
+              f"on: {len(agg.frames(0))} frames on the store, step table "
+              f"rows {[(r['step'], sorted(r['ranks'])) for r in table['steps']]}; "
+              f"comm::all_reduce spans {len(spans)} carrying "
+              f"{sum(e[3] for e in spans)} B; comm.calls {calls}, comm.bytes "
+              f"{nbytes} over {steps} steps ({dp.last_buckets} buckets a "
+              f"step, the gradients {grad_bytes} B a step)")
+        check(len(agg.frames(0)) == steps, "frames on the store")
+        check(table["steps"] and all(sorted(r["ranks"]) == ["0"]
+                                     for r in table["steps"]), "step table")
+        check(calls == steps * dp.last_buckets, f"comm.calls {calls}")
+        check(nbytes == steps * grad_bytes, f"comm.bytes {nbytes}")
+        check(len(spans) == calls and sum(e[3] for e in spans) == nbytes,
+              "the spans' bytes")
+        el.shutdown()
+    finally:
+        paddle.set_flags({"FLAGS_distributed_telemetry": False,
+                          "FLAGS_observability": False})
+        dtel.shutdown()
+        D.destroy_process_group()
+        store.close()
+
+
+def obs_cli_start():
+    """Start phase 26 (h)'s child on the card: ``python -m
+    paddle_tpu_torch.observability stats --model gpt2 --steps 3 --json``,
+    its output to files. ``obs_cli_wait`` ends it."""
+    import tempfile
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    OBS_CLI.update(
+        proc=subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.observability",
+             *OBS_CLI_ARGS], stdout=out, stderr=err, cwd=_HERE),
+        out=out, err=err, t0=time.perf_counter(),
+        at=time.perf_counter() - _T0)
+    atexit.register(_obs_cli_kill)
+
+
+def _obs_cli_kill():
+    proc = OBS_CLI.get("proc")
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def obs_cli_wait():
+    """Wait for phase 26 (h)'s child (the phases after the build time the
+    card alone) and keep its exit code and output for phase 26."""
+    if "rc" in OBS_CLI:
+        return
+    t0 = time.perf_counter()
+    rc = OBS_CLI["proc"].wait(timeout=240)
+    OBS_CLI["waited"] = time.perf_counter() - t0
+    OBS_CLI["ended"] = time.perf_counter() - OBS_CLI["t0"]
+    for k in ("out", "err"):
+        OBS_CLI[k].seek(0)
+        OBS_CLI[k] = OBS_CLI[k].read()
+    OBS_CLI["rc"] = rc
+
+
+def obs_cli(smi):
+    """Phase 26 (h): the CLI on the card, in the child ``obs_cli_start``
+    started before the kernels built."""
+    obs_cli_wait()
+    rc, out = OBS_CLI["rc"], OBS_CLI["out"].strip().splitlines()
+    snap = json.loads(out[-1]) if rc == 0 and out else None
+    print(f"obs (h) python -m paddle_tpu_torch.observability "
+          f"{' '.join(OBS_CLI_ARGS)}: rc {rc}, started at "
+          f"{OBS_CLI['at']:.1f} s beside the build, over within "
+          f"{OBS_CLI['ended']:.1f} s (waited {OBS_CLI['waited']:.1f} s after "
+          f"the build); counters "
+          f"{ {k: v for k, v in (snap or {}).get('counters', {}).items() if k.startswith(('segment.', 'compiles.'))} }")
+    check(rc == 0 and snap is not None and
+          snap["counters"].get("segment.flushes", 0) >= 3,
+          f"CLI rc {rc}: {OBS_CLI['err'][-2000:]}")
+
+
+def obs_path(smi, cfg_name="gpt2-medium"):
+    """Phase 26: the measurement plane on the card (see the module
+    docstring)."""
+    import tempfile
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import enable_eager_fusion
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    phase("26 the measurement plane")
+    t_phase = time.perf_counter()
+    times = {}
+    tmp = tempfile.mkdtemp(prefix="obs_")
+    cfg = gpt.GPT_CONFIGS[cfg_name]
+    paddle.set_device("gpu")
+    rng = np.random.RandomState(0)
+    x = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (BATCH, SEQ)))
+    y = paddle.to_tensor(rng.randint(0, cfg.vocab_size, (BATCH, SEQ)))
+    crit = gpt.GPTPretrainingCriterion()
+    old_cap = paddle.get_flags("FLAGS_lazy_max_segment_ops")
+    paddle.set_flags({"FLAGS_lazy_max_segment_ops": RT_CAP})
+    enable_eager_fusion(True)
+    try:
+        t0 = time.perf_counter()
+        pair_off, pair_on, med = obs_planes_pair(smi, paddle, gpt, cfg, x,
+                                                 y, crit, fa)
+        times["(a)(b)"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        obs_oom(smi, paddle, pair_off, pair_on, crit, x, y, fa, tmp)
+        times["(d)"] = time.perf_counter() - t0
+        del pair_off, pair_on
+        gc.collect()
+        torch.cuda.empty_cache()
+        small = dataclasses.replace(cfg, num_layers=OBS_SMALL_LAYERS)
+        model, opt = _seeded_gpt(paddle, gpt, small)
+        t0 = time.perf_counter()
+        step_ms = obs_profiler(smi, paddle, model, opt, crit, x, y, tmp)
+        times["(c)"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        obs_flight(smi, paddle, model, opt, crit, x, y, tmp)
+        times["(e)"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        obs_monitor(smi, paddle, model, opt, crit, x, y, step_ms, tmp)
+        times["(f)"] = time.perf_counter() - t0
+        del model, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        obs_distributed(smi, paddle, gpt, small, x, y, crit)
+        times["(g)"] = time.perf_counter() - t0
+    finally:
+        enable_eager_fusion(False)
+        _planes(paddle, False)
+        paddle.set_flags({"FLAGS_lazy_max_segment_ops": old_cap[
+            "FLAGS_lazy_max_segment_ops"], "FLAGS_flight_recorder_dir": ""})
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    obs_cli(smi)
+    times["(h)"] = time.perf_counter() - t0
+    shutil.rmtree(tmp, ignore_errors=True)
+    print("phase 26 seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in times.items())
+        + f"; {time.perf_counter() - t_phase:.1f} in all on {smi}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8545,7 +9163,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--persist-child"]:
         return persist_child(sys.argv[2])
     name, count, smi = card()
+    obs_cli_start()
     build()
+    obs_cli_wait()
     import tempfile
     PERSIST_DIR[0] = tempfile.mkdtemp(prefix="persist_")
     with watchdog("phase 3 (kernel checks)", 300):
@@ -8622,6 +9242,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with watchdog("phase 25 (elastic resilience)", ELASTIC_WATCHDOG_S):
         elastic_path(smi)
+    torch.cuda.empty_cache()
+    with watchdog("phase 26 (the measurement plane)", OBS_WATCHDOG_S):
+        obs_path(smi)
     phase("16 results")
     for label, (d_ms, d_plain, d_lib, d_bnd) in (
             ("head_dim 256", d256), ("head_dim 512", d512),

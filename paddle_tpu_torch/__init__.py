@@ -33,6 +33,7 @@ from .ops import *  # noqa: F401,F403
 from . import amp, autograd, io, nn, optimizer, vision  # noqa: F401,E402
 from . import base, incubate  # noqa: F401,E402
 from . import framework, inference, ir, jit, onnx, static  # noqa: F401,E402
+from . import profiler, observability  # noqa: F401,E402
 from ._core.flags import get_flags, set_flags  # noqa: F401,E402
 from .framework import load, save  # noqa: F401,E402
 from .static import disable_static, enable_static  # noqa: F401,E402

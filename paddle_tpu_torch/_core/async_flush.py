@@ -27,9 +27,11 @@ A worker's error keeps its own type through the latch, so an injected
 step drains the executor before its snapshot and discards the failed
 step's latched errors before its restore (``drain(raise_latched=False)``).
 
-Left out: the reference's ``EnforceNotMet`` wrapping of foreign errors and
-its flight-recorder post-mortem (the port re-raises the original error;
-the observability plane is ``ROADMAP.md`` §1 item 9).
+A latched error triggers the distributed telemetry's postmortem while
+``FLAGS_distributed_telemetry`` is on; an out-of-memory error arrives
+already typed (``ResourceExhaustedError``: the lazy window's worker job
+converts it). Left out: the reference's ``EnforceNotMet`` wrapping of other
+foreign errors (the port re-raises the original error).
 """
 from __future__ import annotations
 
@@ -126,6 +128,14 @@ class FlushExecutor:
             except BaseException as e:   # latched, surfaced at sync
                 with self._lock:
                     self._latched.append(e)
+                from ..observability import _state as _OBS
+                if _OBS.DIST:
+                    # a latched worker error triggers the distributed
+                    # postmortem now, before the ring wraps past the
+                    # failing flush (never raises)
+                    from ..observability import distributed as _dtel
+                    _dtel.trigger_postmortem(
+                        f"async_flush worker error: {e!r}")
             finally:
                 with self._idle:
                     self._inflight -= 1

@@ -9,6 +9,8 @@ window's fused forward+backward first (``lazy.try_fused_backward``); after
 either, the callbacks of ``register_post_backward_callback`` run (the
 ``DataParallel`` reducer). The reference's in-degree walk (its engine's
 ``discover``) has no counterpart: torch's engine orders the backward.
+With ``FLAGS_observability`` on, each ``backward`` counts
+``autograd.fused_steps`` or ``autograd.engine_runs``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Optional, Sequence
 import torch
 
 from . import lazy
+from ..observability import _state as _OBS
 from .dispatch import unwrap, wrap
 
 
@@ -74,9 +77,18 @@ def backward(tensors, grad_tensors=None, retain_graph: bool = False) -> None:
     the segment's forward and this backward as one runner call), as the
     reference's engine does."""
     tensors = _as_list(tensors)
-    if retain_graph or not lazy.try_fused_backward(
+    if not retain_graph and lazy.try_fused_backward(
             tensors, None if grad_tensors is None
             else _as_list(grad_tensors)):
+        if _OBS.METRICS:
+            from ..observability import metrics
+            metrics.inc("autograd.fused_steps")
+    else:
+        # the engine's walk (a rising engine_runs/fused_steps ratio says a
+        # loop fell off the fused path)
+        if _OBS.METRICS:
+            from ..observability import metrics
+            metrics.inc("autograd.engine_runs")
         roots, grads = _seeds(tensors, grad_tensors)
         torch.autograd.backward(roots, grads, retain_graph=retain_graph)
     for cb in list(_post_backward_callbacks):

@@ -13,8 +13,9 @@ eager communication API (``_core/native.py``, ``distributed/store.py``,
 ``distributed/parallel.py``), those of the eager pipeline, the fault
 injection, the retry policies and the distributed checkpoint
 (``distributed/pipeline.py``, ``distributed/resilience``,
-``distributed/checkpoint.py``), with the reference's names and defaults
-except one:
+``distributed/checkpoint.py``), and those of the measurement plane (the
+NaN/Inf scan of ``_core/dispatch.py``, ``profiler`` and the planes of
+``observability``), with the reference's names and defaults except one:
 ``FLAGS_eager_fusion`` is off by default here (the card's stream already
 runs ahead of the host; ``ROADMAP.md`` §3).
 """
@@ -289,3 +290,189 @@ define_flag("FLAGS_auto_tuner_max_trials", 0,
             "ranking only).")
 define_flag("FLAGS_launch_log_dir", "log",
             "Default --log_dir for paddle.distributed.launch.")
+
+# ---- the measurement plane (the reference's flags.py:123-138, :187, :277,
+# :465-628): the NaN/Inf scan, the profiler and the observability planes
+define_flag("FLAGS_check_nan_inf", False,
+            "Scan op outputs for NaN/Inf after each eager op (debug).")
+
+# Watcher-kept gate: dispatch.apply reads it (with the profiler's per-op
+# hook) to take each op out of the fusion window while the scan is armed.
+NAN_CHECK_ACTIVE = False
+
+
+def _sync_nan_check_gate(value):
+    global NAN_CHECK_ACTIVE
+    NAN_CHECK_ACTIVE = bool(value)
+
+
+watch_flag("FLAGS_check_nan_inf", _sync_nan_check_gate)
+define_flag("FLAGS_check_nan_inf_level", 0,
+            "NaN/Inf scan action: 0 raise, 1 warn and continue.")
+define_flag("FLAGS_profiler_dir", "",
+            "Directory for chrome-trace exports ('' = cwd).")
+define_flag("FLAGS_host_tracer_level", 1,
+            "Host tracer detail: 0 off, 1 ops, 2 ops+python ranges.")
+define_flag("FLAGS_profiler_max_events", 1_000_000,
+            "Host tracer event-buffer cap (oldest dropped beyond it).")
+define_flag("FLAGS_profiler_fused_runtime", False,
+            "Profiler keeps the fusion window ON while recording: no "
+            "per-op host events (op::*), the trace instead carries the "
+            "fused-runtime spans (segment flush/compile/execute, fused "
+            "step, optimizer) the steady-state hot path actually runs.")
+
+define_flag("FLAGS_distributed_telemetry", False,
+            "Cross-rank telemetry plane: each rank periodically "
+            "publishes a compact frame (metrics/span-histogram deltas, "
+            "step index, mesh epoch, recent span events) through the "
+            "TCPStore under __telem/ keys, and rank 0 merges them into "
+            "a cluster step table (per-rank skew, straggler flags), a "
+            "comm-overlap report, and a merged per-rank chrome trace. "
+            "Off = one module-level check per step, zero registry and "
+            "zero store work.")
+define_flag("FLAGS_distributed_telemetry_interval", 1,
+            "Telemetry plane: steps between frame publications (1 = "
+            "every step boundary).")
+define_flag("FLAGS_distributed_telemetry_events", 4096,
+            "Telemetry plane: span events buffered per rank between "
+            "frame publications (oldest dropped beyond it).")
+define_flag("FLAGS_telemetry_straggler_factor", 1.25,
+            "Step-table straggler flag: a rank is flagged when its "
+            "per-step time exceeds the step's cross-rank median by "
+            "this factor (and by FLAGS_telemetry_straggler_min_us).")
+define_flag("FLAGS_telemetry_straggler_min_us", 1000.0,
+            "Step-table straggler flag: minimum absolute skew "
+            "(slowest minus median, us) before a rank is flagged — "
+            "filters factor-trips on micro-second steps.")
+define_flag("FLAGS_telemetry_postmortem_grace_s", 3.0,
+            "Distributed flight postmortem: how long rank 0 polls the "
+            "store for survivor rings before writing the aggregated "
+            "report with whatever arrived.")
+define_flag("FLAGS_observability", False,
+            "Collect runtime metrics (counters/gauges/histograms) at "
+            "the fused-runtime instrumentation points; off = the hot "
+            "paths pay one module-level check and zero registry work.")
+define_flag("FLAGS_memory_telemetry", False,
+            "Byte-domain telemetry plane (observability/memory.py): "
+            "live-buffer census with birth-site provenance at the "
+            "Tensor-creation and lazy bind choke points, per-runner "
+            "argument/output/temp bytes cached on the runner-cache entry, "
+            "donation savings accounting, and OOM postmortems at the "
+            "execute sites. Off = one module-level check per choke "
+            "point, zero census and zero registry work.")
+define_flag("FLAGS_compute_telemetry", False,
+            "Compute-efficiency telemetry plane (observability/"
+            "compute.py): each runner's FLOPs (torch's FlopCounterMode "
+            "over its first execution, with the port's formulas for its "
+            "attention ops) and bytes, counted once per runner build and "
+            "cached on the runner-cache entry, per-execution FLOP counters "
+            "(compute.flops.{segment,fused_step,optimizer}), MFU/roofline "
+            "columns in the budget tool, and source-attributed device "
+            "profiles (each recorded op runs under a record_function "
+            "carrying its file:line). Off = one module-level check per "
+            "site, zero registry and zero counting work.")
+define_flag("FLAGS_device_peak_flops", 0.0,
+            "Per-device peak FLOP/s the MFU column divides by. 0 = "
+            "autodetect: a CUDA card from its name (published dense bf16 "
+            "peaks: H100 SXM 989T, H100 PCIe 756T, A100 312T), the CPU "
+            "from a nominal cores x 2.5 GHz x 16 fp32-FLOPs/cycle "
+            "AVX2-FMA envelope (CPU MFU is a relative meter, not an "
+            "absolute one).")
+define_flag("FLAGS_device_peak_membw", 0.0,
+            "Per-device peak memory bandwidth in bytes/s for the "
+            "roofline ridge point (peak_flops / peak_membw). 0 = "
+            "autodetect: a CUDA card from its name (H100 SXM 3.35TB/s, "
+            "H100 PCIe 2TB/s, A100 1.555-2.039TB/s), the CPU from a "
+            "nominal 25.6 GB/s two-channel DDR4 envelope.")
+define_flag("FLAGS_memory_budget_bytes", 0,
+            "Per-device memory budget in bytes for the cross-rank memory "
+            "column: budget --distributed flags the rank whose peak is "
+            "nearest this budget (0 = unknown; the highest absolute "
+            "peak is flagged instead).")
+define_flag("FLAGS_goodput", False,
+            "Goodput plane (observability/goodput.py): per-process "
+            "wall-clock attribution ledger partitioning the job "
+            "timeline into exclusive states (productive execute, "
+            "compile, input wait, comm wait, host gap, checkpoint "
+            "I/O, recovery, idle) with bucket additivity asserted, a "
+            "bounded step-time ring feeding anomaly detection, and a "
+            "hang watchdog that captures stacks + dumps the flight "
+            "ring when no step progress happens within "
+            "FLAGS_goodput_hang_factor x the median step time. Off = "
+            "one module-level check per probe, zero ring mutations.")
+define_flag("FLAGS_goodput_hang_factor", 8.0,
+            "Goodput hang watchdog: the job is declared hung when no "
+            "probe-visible progress happens within this factor x the "
+            "rolling median step time (floored by "
+            "FLAGS_goodput_hang_min_s).")
+define_flag("FLAGS_goodput_hang_min_s", 1.0,
+            "Goodput hang watchdog: floor on the dynamic timeout so "
+            "micro-second steps cannot arm a hair-trigger deadline "
+            "over a legitimate recompile.")
+define_flag("FLAGS_goodput_hang_poll_s", 0.25,
+            "Goodput hang watchdog: watchdog-thread poll interval in "
+            "seconds (bounds detection latency beyond the timeout).")
+define_flag("FLAGS_goodput_spike_factor", 3.0,
+            "Goodput anomaly detection: a step slower than this "
+            "factor x the rolling median counts "
+            "goodput.anomalies.step_spike (same factor watches loss "
+            "divergence via note_loss).")
+define_flag("FLAGS_goodput_ring", 128,
+            "Goodput step-time ring capacity (rolling median window "
+            "for the spike and hang thresholds).")
+define_flag("FLAGS_flight_max_dumps", 32,
+            "Flight-recorder dump retention: per-rank cap on "
+            "flight_*.txt files kept in FLAGS_flight_recorder_dir "
+            "(oldest pruned first after each dump; rank-aware so one "
+            "rank's churn cannot evict another rank's postmortem; "
+            "0 = unlimited).")
+define_flag("FLAGS_flight_recorder", False,
+            "Keep a bounded ring buffer of recent runtime events "
+            "(spans, flushes, cache decisions) and dump a readable "
+            "report on enforce errors, failed flushes, and sanitizer "
+            "error-mode trips.")
+define_flag("FLAGS_flight_recorder_capacity", 512,
+            "Flight-recorder ring size (events kept).")
+define_flag("FLAGS_flight_recorder_dir", "",
+            "Directory for flight-record dumps ('' = FLAGS_profiler_dir "
+            "or cwd).")
+define_flag("FLAGS_monitor", False,
+            "Live monitoring plane (observability/timeseries.py): a "
+            "daemon sampler records counter rates (steps/s, tokens/s, "
+            "compiles, cache hit rate), byte/census gauges, goodput "
+            "fractions and per-step MFU into bounded per-series rings "
+            "every FLAGS_monitor_interval_s, feeding the /metrics "
+            "exporter and the online regression watchdog. Off = one "
+            "module-level check per step hook, zero registry work, no "
+            "sampler thread, no bound port.")
+define_flag("FLAGS_monitor_interval_s", 1.0,
+            "Monitor sampler period in seconds (each tick appends one "
+            "timestamped sample per series).")
+define_flag("FLAGS_monitor_port", 0,
+            "Monitor HTTP exporter port serving /metrics (Prometheus "
+            "text exposition), /healthz, /snapshot and "
+            "/timeseries?name=. 0 = no HTTP endpoint (sampler rings "
+            "still record for in-process readers).")
+define_flag("FLAGS_monitor_host", "127.0.0.1",
+            "Monitor exporter bind address. Loopback by default — "
+            "bind a routable interface explicitly to let an external "
+            "Prometheus scrape the job.")
+define_flag("FLAGS_monitor_ring", 512,
+            "Monitor per-series ring capacity (samples kept per "
+            "series; at the default 1 s interval ~8.5 min of trend).")
+define_flag("FLAGS_monitor_regression_factor", 1.5,
+            "Online regression watchdog: a headline series (step "
+            "duration, tokens/s, goodput fraction) deviating past "
+            "this factor from its EWMA baseline, sustained for "
+            "FLAGS_monitor_regression_steps consecutive samples, "
+            "counts monitor.regressions and leaves a flight note "
+            "with baseline-vs-current evidence.")
+define_flag("FLAGS_monitor_regression_steps", 5,
+            "Consecutive deviating samples required before the "
+            "regression watchdog fires (debounce against one-off "
+            "recompiles or input stalls).")
+define_flag("FLAGS_monitor_deep_capture_steps", 0,
+            "When > 0, a fired regression arms a one-shot deep "
+            "capture: the profiler (fused_runtime) traces the next K "
+            "steps and the trace is dumped beside the flight ring "
+            "(subject to the same rank-aware retention).")

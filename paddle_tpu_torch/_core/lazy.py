@@ -65,14 +65,31 @@ replay as CUDA graphs.
   where a segment's (or the fused step's) runner is built, ``exec::oom``
   before a runner executes, on each of the three execute paths (a
   synchronous flush, the async worker, the fused backward).
+- The measurement plane, behind ``_OBS`` (``observability/_state.py``):
+  the reference's counters (``segment.flushes``, ``segment.flush_reason.*``,
+  ``fusion.window_breaks``, ``segment.ops``, ``record.fast_ops``,
+  ``compiles.{segment,fused_step}``, ``segment.replay_steps``), spans
+  (``segment::flush[<reason>]`` with a ``segment::compile`` (a runner
+  build and its first execution), ``segment::execute`` or
+  ``segment::replay_step`` child), the flight recorder's note of a failed
+  flush, the compute plane's count of each runner built under it (at its
+  first execution; ``COST_STALE`` marks runners built without one) and
+  its ``<op>[<file>:<line>]`` op scopes (while it is on, every
+  record names its call site, and the native prong is passed over:
+  it records none), the memory plane's runner notes
+  and census of segment outputs. An out-of-memory error on any execute
+  path (a card's ``OutOfMemoryError`` or the ``exec::oom`` drill's
+  ``ResourceExhausted``) becomes ``ResourceExhaustedError`` with the
+  memory postmortem; the async path raises it at the sync point.
+  ``FLAGS_check_nan_inf`` scans every live output of a flushed segment
+  (and the fused step's gradients), naming the producing op and, where the
+  compute plane captured it, its record-time ``file:line``.
 
-Left out, each waiting for its plane: the reference's observability
-spans, metrics and ``PERF_OBSERVER`` (``ROADMAP.md`` §1 item 9), the
-sanitizer's checks and NaN scan, memory telemetry and the OOM conversion
-of ``exec::oom`` (the port raises the fault's ``ResourceExhausted`` as
-it is), ``SPMD`` (item 9.1) and donation of dead inputs (torch frees them
-by reference count). A segment compiles nothing here, so
-the persistent cache (``persist.py``) has nothing of the window's to store.
+Left out: ``PERF_OBSERVER`` and the sanitizer's checks (the analysis
+plane, ``ROADMAP.md`` §1 item 9), ``SPMD`` (item 9.1) and donation of dead
+inputs (torch frees them by reference count). A segment compiles nothing
+here, so the persistent cache (``persist.py``) has nothing of the window's
+to store.
 """
 from __future__ import annotations
 
@@ -87,6 +104,7 @@ import torch
 
 from . import dispatch
 from . import flags as _flags
+from ..observability import _state as _OBS
 from .cache import ExecCache
 from .dtype import DType
 
@@ -116,6 +134,16 @@ _DRIVE_CELL: list = dispatch.DRIVE_CELL
 # a salt of every segment and fused-step signature; bump_mesh_epoch re-keys
 MESH_EPOCH = 0
 
+# True when some runner was cached without the compute plane's count
+# (built while FLAGS_compute_telemetry was off): entering the plane bumps
+# MESH_EPOCH only while this is set
+COST_STALE = False
+
+
+def mark_cost_stale():
+    global COST_STALE
+    COST_STALE = True
+
 
 def bump_mesh_epoch() -> int:
     """Re-key the segment and fused-step caches (the old entries age out
@@ -134,16 +162,135 @@ def _inject(site: str) -> None:
     faults.inject(site)
 
 
-def _build(cache, key, build):
-    """The cached runner of ``key``, built (after the ``segment::compile``
-    site) on a miss."""
+def _build(cache, key, build, fspan=None, n_ops=0, driven=False):
+    """``(runner, exec span)``: the cached runner of ``key``, built (after
+    the ``segment::compile`` site) on a miss. A runner built while the
+    compute or memory plane is on is counted at its first execution
+    (``_execute``); the span (under the flush span ``fspan``) is
+    ``segment::compile`` for a build, else ``segment::execute`` or, for a
+    whole-step replay, ``segment::replay_step``."""
     runner = cache.get(key)
-    if runner is None:
-        if _flags.FAULT_INJECT_ACTIVE:
-            _inject("segment::compile")
-        runner = build()
-        cache[key] = runner
-    return runner
+    if runner is not None:
+        return runner, (_obs_exec_span(False, n_ops, driven)
+                        if fspan is not None else None)
+    if _flags.FAULT_INJECT_ACTIVE:
+        _inject("segment::compile")
+    xspan = _obs_exec_span(True, n_ops) if fspan is not None else None
+    if _OBS.METRICS:
+        from ..observability import metrics
+        metrics.inc("compiles." + cache.stat)
+    if not _OBS.COMPUTE:
+        mark_cost_stale()
+    runner = build()
+    if _OBS.MEM or _OBS.COMPUTE:
+        runner.todo = (_OBS.MEM, _OBS.COMPUTE)
+    cache[key] = runner
+    return runner, xspan
+
+
+def _execute(cache, key, runner, pending, run_vals):
+    """One execution of a cached runner; the first one of a runner built
+    under the compute or memory plane is counted (``compute.analyze``,
+    ``memory.analyze``) and the counts noted on the cache entry. Every
+    execution under the compute plane is priced from the entry's count."""
+    todo = runner.todo
+    if todo is None:
+        out = runner(pending, run_vals)
+    else:
+        runner.todo = None
+        mem, comp = todo
+        run = lambda: runner(pending, run_vals)  # noqa: E731
+        if comp:
+            from ..observability import compute as _comptel
+            run0 = run
+
+            def run():
+                out, info = _comptel.analyze(run0)
+                _comptel.note_executable(cache.stat, key, info)
+                cache.note_cost(key, info)
+                return out
+        if mem:
+            from ..observability import memory as _memtel
+            out, minfo = _memtel.analyze(run, run_vals)
+            _memtel.note_executable(cache.stat, key, minfo)
+            cache.note_memory(key, minfo)
+        else:
+            out = run()
+    if _OBS.COMPUTE:
+        from ..observability import compute as _comptel
+        _comptel.count_cached(cache, key, cache.stat)
+    return out
+
+
+# flush reasons that break the fusion window (each forfeits the step cache)
+_WINDOW_BREAK_REASONS = frozenset(
+    ("record_fallback", "segment_cap", "ambient_disable", "guard_error"))
+
+
+def _obs_flush_span(reason: str, n_ops: int, n_inputs: int, n_live: int,
+                    n_fast: int = 0):
+    """Counters and the begun flush span (``donated`` stays 0: the port
+    donates no input). Callers gate on ``_OBS.ACTIVE``."""
+    if _OBS.METRICS:
+        from ..observability import metrics
+        metrics.inc("segment.flushes")
+        # record_fallback:<op> collapses to one reason bucket
+        head = reason.split(":", 1)[0]
+        metrics.inc("segment.flush_reason." + head)
+        if head in _WINDOW_BREAK_REASONS:
+            metrics.inc("fusion.window_breaks")
+            metrics.inc("fusion.window_breaks." + head)
+        metrics.inc("segment.ops", n_ops)
+        if n_fast:
+            metrics.inc("record.fast_ops", n_fast)
+    from ..observability.spans import span
+    return span(f"segment::flush[{reason}]", hist="segment.flush_us",
+                reason=reason, ops=n_ops, inputs=n_inputs,
+                live=n_live, donated=0).begin()
+
+
+def _obs_exec_span(compiled: bool, n_ops: int, driven: bool = False):
+    """The build-vs-cached-execute split under a flush span; a whole-step
+    replay takes its own ``segment::replay_step`` name (goodput prices it
+    in the execute bucket)."""
+    from ..observability.spans import span
+    if driven and not compiled:
+        return span("segment::replay_step",
+                    hist="segment.replay_step_us", ops=n_ops).begin()
+    return span("segment::compile" if compiled else "segment::execute",
+                hist=("segment.compile_us" if compiled
+                      else "segment.execute_us"), ops=n_ops).begin()
+
+
+def _obs_flush_failed(reason: str, err: BaseException):
+    """A failed flush: the flight recorder's post-mortem trigger."""
+    if _OBS.FLIGHT:
+        from ..observability import flight
+        flight.on_error("flush_failed", f"reason={reason}: {err!r}")
+
+
+def _oom_convert(e: BaseException, where: str, mem_info=None):
+    """An out-of-memory error at an execute site becomes the typed
+    ``base.core.ResourceExhaustedError`` carrying the memory postmortem;
+    anything else passes through (the error path only)."""
+    from ..observability import memory as _memtel
+    if not _memtel.is_oom(e):
+        return e
+    return _memtel.on_oom(e, where, mem_info)
+
+
+def _nan_scan_segment(pending, live, out_vals, kind, extra=None):
+    """``FLAGS_check_nan_inf`` over a flushed segment's live outputs,
+    naming the producing op with its record-time ``file:line``; ``extra``
+    is an optional (label, values) pair swept after them (the fused step's
+    gradients)."""
+    for (j, _s), val in zip(live, out_vals):
+        p = pending[j]
+        src = getattr(p, "src", None)
+        dispatch._check_nan_inf(
+            f"{p.name} ({kind}" + (f" @ {src})" if src else ")"), (val,))
+    if extra is not None:
+        dispatch._check_nan_inf(extra[0], tuple(extra[1]))
 
 
 def invalidate_skeletons(_value=None) -> int:
@@ -435,11 +582,13 @@ def _lazy_tensor(ref: LazyRef):
 
 
 class _PendingOp:
+    # src: the record-time call site, captured while the compute plane is
+    # on (unset on ops the native prong records)
     __slots__ = ("name", "fn", "attrs", "kvals", "wiring", "out_refs",
-                 "n_outs", "multi", "grad", "amp", "amp_key", "req")
+                 "n_outs", "multi", "grad", "amp", "amp_key", "req", "src")
 
     def __init__(self, name, fn, attrs, kvals, wiring, out_refs, multi,
-                 grad, amp, amp_key, req):
+                 grad, amp, amp_key, req, src=None):
         self.name = name
         self.fn = fn
         self.attrs = attrs
@@ -453,6 +602,36 @@ class _PendingOp:
         self.amp = amp                # AMP state at record time (or None)
         self.amp_key = amp_key
         self.req = req                # an input required grad, grad on
+        self.src = src
+
+
+def _record_src():
+    """The call site of the op being recorded: the compute plane's op
+    scope, and a NaN trip's message at the flush. Callers gate on
+    ``_OBS.COMPUTE``. While the NaN scan is armed no op is recorded: each
+    one dispatches alone (``dispatch.PER_OP_MODE``)."""
+    from ..analysis.hooks import call_site
+    return call_site()
+
+
+class _ScopedOp:
+    """A recorded op whose call runs inside its op scope, the compute
+    plane's ``<op>[<file>:<line>]`` profiler range: what a runner built
+    under the plane executes in place of the ``_PendingOp``."""
+
+    __slots__ = ("name", "kvals", "amp", "grad", "attrs", "multi",
+                 "n_outs", "fn")
+
+    def __init__(self, pop, scope):
+        self.name, self.kvals, self.amp = pop.name, pop.kvals, pop.amp
+        self.grad, self.attrs = pop.grad, pop.attrs
+        self.multi, self.n_outs = pop.multi, pop.n_outs
+        fn = pop.fn
+
+        def scoped(*args, **attrs):
+            with torch.profiler.record_function(scope):
+                return fn(*args, **attrs)
+        self.fn = scoped
 
 
 def _amp_now():
@@ -475,7 +654,9 @@ class _SegmentRunner:
     constants) in order and returns the live outputs. Each intermediate is
     dropped after its last use, as eager code drops it."""
 
-    __slots__ = ("steps", "n_slots", "live_slots")
+    # todo: (memory, compute) counts owed at the first execution, or None;
+    # scopes: the op scopes of a runner built under the compute plane
+    __slots__ = ("steps", "n_slots", "live_slots", "todo", "scopes")
 
     def __init__(self, pending, live):
         base, n = [], 0
@@ -507,9 +688,19 @@ class _SegmentRunner:
         self.steps = tuple(steps)
         self.n_slots = n
         self.live_slots = live_slots
+        self.todo = None
+        self.scopes = None
+        if _OBS.COMPUTE:
+            from ..observability.compute import scope_name
+            self.scopes = tuple(scope_name(pop.name, getattr(pop, "src",
+                                                             None))
+                                for pop in pending)
 
     def __call__(self, pending, in_vals):
         from ..amp.auto_cast import cast_with
+        if self.scopes is not None and _OBS.COMPUTE:
+            pending = [_ScopedOp(pop, scope)
+                       for pop, scope in zip(pending, self.scopes)]
         vals: List[Any] = [None] * self.n_slots
         prev = torch.is_grad_enabled()
         cur = prev
@@ -546,11 +737,12 @@ class _FusedRunner:
     """Forward of the segment and ``torch.autograd.backward`` of its
     scalar root, as one runner call (the reference's step cache)."""
 
-    __slots__ = ("fwd", "root_k")
+    __slots__ = ("fwd", "root_k", "todo")
 
     def __init__(self, pending, live, root_k):
         self.fwd = _build_segment_fn(pending, live)
         self.root_k = root_k
+        self.todo = None
 
     def __call__(self, pending, in_vals):
         outs = self.fwd(pending, in_vals)
@@ -701,6 +893,7 @@ class CaptureContext:
         self.segments_run = 0
         self.ops_recorded = 0
         self.breaks: List[str] = []
+        self._driven = False
 
     # ---------------------------------------------------------- recording
     def _input_index(self, tensor, payload) -> int:
@@ -880,7 +1073,7 @@ class CaptureContext:
         outs = [_lazy_tensor(r) for r in out_refs]
         self.pending.append(_PendingOp(
             name, fn, attrs, kvals, s.wiring, out_refs, s.multi, grad, amp,
-            amp_key, s.req))
+            amp_key, s.req, _record_src() if _OBS.COMPUTE else None))
         self._sig_ops.append(s.entry)
         self._skel_pos = pos + 1
         self.ops_recorded += 1
@@ -952,6 +1145,10 @@ class CaptureContext:
         window was flushed; the caller runs it eagerly)."""
         if self._skel_live and _FAST_PATH:
             nc = _NC if _NC_TRIED else _native_core()
+            if _OBS.COMPUTE:
+                # a call site is demanded for each op: the native prong
+                # records none, so the Python one takes the fast path
+                nc = None
             fast = self._record_fast if nc is None else self._record_native
             outs = fast(name, fn, inputs, attrs)
             if outs is None and self._skeleton is not None \
@@ -1027,7 +1224,9 @@ class CaptureContext:
         outs = [_lazy_tensor(r) for r in out_refs]
         self.pending.append(_PendingOp(name, fn, dict(attrs), kvals, wiring,
                                        out_refs, multi, grad, amp, amp_key,
-                                       req and grad))
+                                       req and grad,
+                                       _record_src() if _OBS.COMPUTE
+                                       else None))
         entry = _intern_sig_entry((
             name, akey if akey is not None else ("obj",),
             wiring, tuple(None if w is not None else
@@ -1122,17 +1321,22 @@ class CaptureContext:
             sk.plan = None
             return None
         REPLAY_STEPS += 1
+        if _OBS.METRICS:
+            from ..observability import metrics
+            metrics.inc("segment.replay_steps")
         return plan_key
 
     def _seal(self):
         """(pending, in_vals, in_tensors, live, live_refs, sig) of the
-        current segment."""
+        current segment; ``_driven`` says whether a step plan gave the
+        signature."""
         _drive_retire(self)
         pending = self.pending
         in_vals = self._in_vals
         in_tensors = [r() for r in self._in_tensors]
         live, live_refs = self._live_outputs(pending)
         sig = self._step_plan_sig(live)
+        self._driven = sig is not None
         if sig is None:
             sig = self._signature(in_vals, live)
         return pending, in_vals, in_tensors, live, live_refs, sig
@@ -1142,33 +1346,65 @@ class CaptureContext:
         if not self.pending:
             self._reset_segment()
             return
+        n_fast = self._fast_ops
         pending, in_vals, in_tensors, live, live_refs, sig = self._seal()
         if ASYNC_FLUSH_ACTIVE and reason in _ASYNC_REASONS:
             self._flush_async(reason, pending, in_vals, in_tensors, live,
                               live_refs, sig)
             return
         _drain_async()
+        fspan = _obs_flush_span(reason, len(pending), len(in_vals),
+                                len(live), n_fast) \
+            if _OBS.ACTIVE else None
         dispatch.bump_exec()
+        xspan = None
         try:
             run_vals = _resolve(in_vals) if _ASYNC_SEEN else in_vals
-            runner = _build(_SEG_CACHE, sig,
-                            lambda: _build_segment_fn(pending, live))
+            runner, xspan = _build(
+                _SEG_CACHE, sig, lambda: _build_segment_fn(pending, live),
+                fspan, len(pending), self._driven)
             if _flags.FAULT_INJECT_ACTIVE:
                 _inject("exec::oom")
-            out_vals = runner(pending, run_vals)
-        except BaseException:
+            out_vals = _execute(_SEG_CACHE, sig, runner, pending, run_vals)
+            if xspan is not None:
+                xspan.end()
+        except BaseException as e:
             # a failed run must not pin inputs or poison later records:
             # drop the trace and surface the error (the outputs re-raise
-            # on read)
+            # on read). Spans end before the flight dump, so the report
+            # holds the failing flush.
             self._reset_segment()
+            if xspan is not None:
+                xspan.end(error=e)
+            if fspan is not None:
+                fspan.end(error=e)
+            _obs_flush_failed(reason, e)
+            oe = _oom_convert(e, f"segment::flush[{reason}]",
+                              _SEG_CACHE.memory_info(sig))
+            if oe is not e:
+                raise oe from e
             raise
         self._reset_segment()
         self.breaks.append(reason)
         self.segments_run += 1
-        out_tensors = _bind(live_refs, out_vals)
-        if self.on_flush is not None:
-            self.on_flush(self, reason, pending, live, live_refs,
-                          in_tensors, in_vals, sig, out_tensors)
+        try:
+            out_tensors = _bind(live_refs, out_vals)
+            if _OBS.MEM:
+                from ..observability import memory as _memtel
+                _memtel.note_segment_outputs(pending, live, out_vals, sig)
+            if _flags.NAN_CHECK_ACTIVE:
+                _nan_scan_segment(pending, live, out_vals,
+                                  "lazy segment output")
+            if self.on_flush is not None:
+                self.on_flush(self, reason, pending, live, live_refs,
+                              in_tensors, in_vals, sig, out_tensors)
+        except Exception as e:
+            if fspan is not None:
+                fspan.end(error=e)
+            _obs_flush_failed(reason, e)
+            raise
+        if fspan is not None:
+            fspan.end()
 
     def _flush_async(self, reason, pending, in_vals, in_tensors, live,
                      live_refs, sig):
@@ -1191,15 +1427,19 @@ class CaptureContext:
                 if stream is not None:
                     with torch.cuda.device(stream.device), \
                             torch.cuda.stream(stream):
-                        out_vals = _run_job(pending, live, sig, in_vals)
+                        out_vals = _run_job(pending, live, sig, in_vals,
+                                            reason)
                 else:
-                    out_vals = _run_job(pending, live, sig, in_vals)
+                    out_vals = _run_job(pending, live, sig, in_vals, reason)
             except BaseException as e:
                 for pv in pvs:
                     pv._fail(e)
                 raise
             for pv, val in zip(pvs, out_vals):
                 pv._fill(val)
+            if _OBS.MEM:
+                from ..observability import memory as _memtel
+                _memtel.note_segment_outputs(pending, live, out_vals, sig)
 
         dispatch.bump_exec()
         get_executor().submit(job)
@@ -1212,12 +1452,38 @@ class CaptureContext:
                           in_tensors, in_vals, sig, out_tensors)
 
 
-def _run_job(pending, live, sig, in_vals):
-    run_vals = _resolve(in_vals)
-    runner = _build(_SEG_CACHE, sig, lambda: _build_segment_fn(pending, live))
-    if _flags.FAULT_INJECT_ACTIVE:
-        _inject("exec::oom")
-    return runner(pending, run_vals)
+def _run_job(pending, live, sig, in_vals, reason="segment_cap"):
+    """The async worker's flush: its spans land on the worker's lane (the
+    goodput ledger keeps them off the partition) and an out-of-memory
+    error is latched typed, so the sync point raises
+    ``ResourceExhaustedError``."""
+    fspan = _obs_flush_span(reason, len(pending), len(in_vals), len(live)) \
+        if _OBS.ACTIVE else None
+    xspan = None
+    try:
+        run_vals = _resolve(in_vals)
+        runner, xspan = _build(
+            _SEG_CACHE, sig, lambda: _build_segment_fn(pending, live),
+            fspan, len(pending))
+        if _flags.FAULT_INJECT_ACTIVE:
+            _inject("exec::oom")
+        out_vals = _execute(_SEG_CACHE, sig, runner, pending, run_vals)
+    except BaseException as e:
+        if xspan is not None:
+            xspan.end(error=e)
+        if fspan is not None:
+            fspan.end(error=e)
+        _obs_flush_failed(reason, e)
+        oe = _oom_convert(e, f"segment::flush[{reason}] (async)",
+                          _SEG_CACHE.memory_info(sig))
+        if oe is not e:
+            raise oe from e
+        raise
+    if xspan is not None:
+        xspan.end()
+    if fspan is not None:
+        fspan.end()
+    return out_vals
 
 
 def _bind(live_refs, out_vals):
@@ -1351,9 +1617,28 @@ class ReplayableSegment:
         got = tuple((tuple(v.shape), v.dtype, v.device) for v in in_vals)
         if got != self.in_metas:
             raise _ReplayMismatch("input metadata changed")
+        built = self._compiled is None
+        if built and _OBS.METRICS:
+            from ..observability import metrics
+            metrics.inc("compiles.segment")
         compiled = self._runner(in_vals)
         dispatch.bump_exec()
-        out_vals = compiled(*in_vals)
+        xspan = _obs_exec_span(built, len(self.pending)) \
+            if _OBS.ACTIVE else None
+        try:
+            out_vals = compiled(*in_vals)
+        except Exception as e:
+            if xspan is not None:
+                xspan.end(error=e)
+            raise
+        if xspan is not None:
+            xspan.end()
+        if _flags.NAN_CHECK_ACTIVE:
+            _nan_scan_segment(self.pending, self.live, out_vals,
+                              "replayed segment output")
+        if _OBS.MEM:
+            from ..observability import memory as _memtel
+            _memtel.note_segment_outputs(self.pending, self.live, out_vals)
         return [Tensor(v) for v in out_vals]
 
 
@@ -1489,24 +1774,54 @@ def try_fused_backward(tensors, grad_tensors) -> bool:
         any_leaf = True
     if not any_leaf:
         return False
+    n_fast = ctx._fast_ops
     pending, in_vals, _, live, live_refs, sig = ctx._seal()
     key = (sig, root_k)
     _drain_async()
+    fspan = _obs_flush_span("backward_fused", len(pending), len(in_vals),
+                            len(live), n_fast) \
+        if _OBS.ACTIVE else None
     dispatch.bump_exec()
+    xspan = None
     try:
         run_vals = _resolve(in_vals) if _ASYNC_SEEN else in_vals
-        runner = _build(_FUSED_CACHE, key,
-                        lambda: _build_fused_fn(pending, live, root_k))
+        runner, xspan = _build(
+            _FUSED_CACHE, key, lambda: _build_fused_fn(pending, live, root_k),
+            fspan, len(pending), ctx._driven)
         if _flags.FAULT_INJECT_ACTIVE:
             _inject("exec::oom")
-        out_vals = runner(pending, run_vals)
-    except BaseException:
+        out_vals = _execute(_FUSED_CACHE, key, runner, pending, run_vals)
+        if xspan is not None:
+            xspan.end()
+        if _flags.NAN_CHECK_ACTIVE:
+            _nan_scan_segment(
+                pending, live, out_vals, "fused-step output",
+                extra=("fused-step gradients",
+                       [v.grad for v in in_vals
+                        if v.requires_grad and v.grad is not None]))
+    except BaseException as e:
         ctx._reset_segment()
+        if xspan is not None:
+            xspan.end(error=e)
+        if fspan is not None:
+            fspan.end(error=e)
+        _obs_flush_failed("backward_fused", e)
+        oe = _oom_convert(e, "backward_fused", _FUSED_CACHE.memory_info(key))
+        if oe is not e:
+            raise oe from e
         raise
     ctx._reset_segment()
     ctx.breaks.append("backward_fused")
     ctx.segments_run += 1
     _bind(live_refs, out_vals)
+    if _OBS.MEM:
+        from ..observability import memory as _memtel
+        _memtel.note_segment_outputs(pending, live, out_vals, sig)
+        for v in in_vals:
+            if v.requires_grad and v.grad is not None:
+                _memtel.note_buffer(v.grad, "fused_step.grad")
+    if fspan is not None:
+        fspan.end()
     return True
 
 

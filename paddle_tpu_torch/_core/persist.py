@@ -41,7 +41,11 @@ trusts the pickle, so a truncated, corrupted or stale entry is a clean
 recompile that counts ``cache.persist.reject`` and logs why, never a crash.
 After each store the oldest entries go until the directory fits
 ``FLAGS_executable_cache_disk_max_mb``. With no directory set the module
-does nothing. ``COUNTS`` holds ``cache.persist.{hit,miss,store,reject}``.
+does nothing. ``COUNTS`` holds ``cache.persist.{hit,miss,store,reject}``;
+with ``FLAGS_observability`` on they are counted into the registry too,
+and with the flight recorder on a reject leaves a note. The reference's
+sidecar notes (a persisted executable's memory and cost analyses) have no
+counterpart: what is stored is a traced graph, not a counted runner.
 """
 from __future__ import annotations
 
@@ -62,6 +66,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from . import flags as _flags
+from ..observability import _state as _OBS
 from .dtype import DType
 
 _LOG = logging.getLogger(__name__)
@@ -102,8 +107,14 @@ def _sync_dir_gate(value):
 
 def _count(stat: str, reason: Optional[str] = None) -> None:
     COUNTS["cache.persist." + stat] += 1
+    if _OBS.METRICS:
+        from ..observability import metrics
+        metrics.inc("cache.persist." + stat)
     if reason is not None:
         _LOG.warning("persistent compile cache: %s", reason)
+        if _OBS.FLIGHT:
+            from ..observability import flight
+            flight.note("cache.persist", stat, reason=reason)
 
 
 def counters() -> Dict[str, int]:

@@ -24,6 +24,7 @@ import torch
 
 from . import dtype as dtypes
 from . import lazy as _lazy
+from ..observability import _state as _OBS
 from .device import place_of, to_device
 
 
@@ -51,6 +52,11 @@ class Tensor:
         self.persistable = False
         if stop_gradient is not None:
             self.stop_gradient = stop_gradient
+        if _OBS.MEM:
+            # the memory plane's census: the birth site is the thread's
+            # hint (eager:<op>, io:h2d) or tensor.create
+            from ..observability import memory as _memtel
+            _memtel.note_buffer(value)
 
     @property
     def _t(self) -> torch.Tensor:
@@ -66,6 +72,10 @@ class Tensor:
         if _lazy._ALL_CTXS:
             _lazy.note_inplace(self)
         self._payload = value
+        if _OBS.MEM:
+            # a swapped-in payload is a buffer born here
+            from ..observability import memory as _memtel
+            _memtel.note_buffer(value)
 
     # ------------------------------------------------------------ metadata
     @property

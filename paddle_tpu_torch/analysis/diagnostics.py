@@ -5,9 +5,9 @@ Every checker reports through a ``CheckReport`` of ``Diagnostic``s
 carrying (checker, severity, op index, op name, provenance, message, fix
 hint), machine-readable, so ``error`` mode raises with the full finding
 set and tests can assert exact diagnostics. The port's one caller so far
-is the world-shrink sweep (``hooks.on_world_shrink``); the reference's
-flight-recorder dump on an error-mode trip waits for the flight recorder
-(``ROADMAP.md`` §1 item 9), behind its gate.
+is the world-shrink sweep (``hooks.on_world_shrink``). With the flight
+recorder armed, an error-severity finding is noted in its ring and an
+error-mode trip dumps it, as the reference's does.
 """
 from __future__ import annotations
 
@@ -36,6 +36,11 @@ class StaticCheckError(RuntimeError):
     def __init__(self, report: "CheckReport"):
         self.report = report
         super().__init__(report.render())
+        from ..observability import _state as _obs
+        if _obs.FLIGHT:
+            # the runtime events that led to the bad plan survive it
+            from ..observability import flight
+            flight.on_error("static_check", report.render())
 
 
 class Diagnostic:
@@ -126,12 +131,18 @@ class CheckReport:
     def account(self):
         """Fold the findings into the observability registry: one
         `sanitizer.diagnostics.<checker>` counter bump per diagnostic
-        (unconditional: this path only runs in warn/error/fix mode)."""
+        (unconditional: this path only runs in warn/error/fix mode), and
+        a flight-recorder note of each error-severity finding."""
         if not self.diagnostics:
             return
+        from ..observability import _state as _obs
         from ..observability import metrics
         for d in self.diagnostics:
             metrics.inc("sanitizer.diagnostics." + d.checker)
+            if d.severity == SEVERITY_ERROR and _obs.FLIGHT:
+                from ..observability import flight
+                flight.note("sanitz", d.checker,
+                            op=d.op_name, message=d.message[:160])
 
     def emit(self, mode: str, stacklevel: int = 3):
         """Surface the findings per FLAGS_static_checks semantics:

@@ -6,8 +6,9 @@ The names and the hierarchy are the reference's, so that code catching
 Python error of its kind (``InvalidArgumentError`` is a ``ValueError``,
 ``NotFoundError`` a ``KeyError``, ...). The message carries the hint
 (``context``) and the innermost frame outside this package, the
-``call_stack_level=1`` summary. The reference also hands the error to its
-flight recorder when that is armed; the port has no flight recorder yet.
+``call_stack_level=1`` summary. With the flight recorder armed
+(``FLAGS_flight_recorder``) constructing one dumps the recent runtime
+events beside the message, as the reference does.
 """
 from __future__ import annotations
 
@@ -39,6 +40,10 @@ class EnforceNotMet(RuntimeError):
         super().__init__("\n".join(parts))
         self.message = message
         self.context = context
+        from ..observability import _state as _obs
+        if _obs.FLIGHT:
+            from ..observability import flight
+            flight.on_error("enforce", message)
 
 
 class InvalidArgumentError(EnforceNotMet, ValueError):

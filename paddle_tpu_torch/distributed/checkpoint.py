@@ -33,8 +33,10 @@ casts to the target's dtype, so the port's checkpoints load without
 
 A generation fallback counts ``resilience.ckpt_fallbacks``; the fault
 sites ``ckpt::save`` and ``ckpt::load`` are armed by
-``FLAGS_fault_inject``. The reference's ``ckpt::save`` / ``ckpt::load``
-spans wait for the span plane (``ROADMAP.md`` §1 item 9).
+``FLAGS_fault_inject``. While a telemetry plane is on, a save runs in a
+``ckpt::save`` span and a load in a ``ckpt::load`` span, each carrying the
+data file's bytes (the goodput plane's checkpoint bucket), and a
+generation fallback leaves a flight-recorder note.
 """
 from __future__ import annotations
 
@@ -108,10 +110,37 @@ def _rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
+def _ckpt_span(name: str):
+    """``ckpt::<name>`` begun (its bytes filled in once known), or None
+    while every telemetry plane is off."""
+    from ..observability import _state as _OBS
+    if not _OBS.ACTIVE:
+        return None
+    from ..observability.spans import span
+    return span("ckpt::" + name, hist=f"ckpt.{name}_us", bytes=0).begin()
+
+
+def _spanned(name: str, body, *args):
+    sp = _ckpt_span(name)
+    try:
+        out = body(*args, sp)
+    except BaseException as e:
+        if sp is not None:
+            sp.end(error=e)
+        raise
+    if sp is not None:
+        sp.end()
+    return out
+
+
 def save_state_dict(state_dict: Dict[str, Tensor], path: str,
                     process_group=None, coordinator_rank=0):
     if _faults.ACTIVE:
         _faults.inject("ckpt::save")
+    _spanned("save", _save, state_dict, path, coordinator_rank)
+
+
+def _save(state_dict, path, coordinator_rank, sp):
     meta = {}
     data = {}
     for name, t in state_dict.items():
@@ -140,6 +169,8 @@ def save_state_dict(state_dict: Dict[str, Tensor], path: str,
             "version": 2,
             "checksums": {"data_rank0.pkl": _checksum(data_blob)},
         }
+        if sp is not None:
+            sp.args["bytes"] = len(data_blob)
         ckpt = _retry.ckpt_policy()
         ckpt.run(_atomic_write, os.path.join(path, "data_rank0.pkl"),
                  data_blob, what="ckpt::write(data)")
@@ -156,7 +187,10 @@ def load_state_dict(state_dict: Dict[str, Tensor], path: str,
     are cut to whatever mesh and placements the target uses now)."""
     if _faults.ACTIVE:
         _faults.inject("ckpt::load")
+    return _spanned("load", _load, state_dict, path)
 
+
+def _load(state_dict, path, sp):
     def _read(p):
         with open(p, "rb") as f:
             return f.read()
@@ -164,6 +198,8 @@ def load_state_dict(state_dict: Dict[str, Tensor], path: str,
     ckpt = _retry.ckpt_policy()
     data_blob = ckpt.run(_read, os.path.join(path, "data_rank0.pkl"),
                          what="ckpt::read(data)")
+    if sp is not None:
+        sp.args["bytes"] = len(data_blob)
     # verify the per-file checksum BEFORE unpickling: a torn or
     # bit-rotted data file fails with a clear framework error instead
     # of loading garbage (or executing a corrupt pickle stream).
@@ -331,6 +367,11 @@ class CheckpointManager:
                         "checkpoint generation fallback: loaded gen %d "
                         "after newer generation(s) failed verification "
                         "(%s)", gen, last_err)
+                    from ..observability import _state as _OBS
+                    if _OBS.FLIGHT:
+                        from ..observability import flight
+                        flight.note("ckpt", "fallback", loaded=gen,
+                                    error=repr(last_err)[:160])
                 return gen
             except (EnforceNotMet, OSError, pickle.UnpicklingError,
                     KeyError) as e:

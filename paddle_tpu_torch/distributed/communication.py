@@ -26,7 +26,10 @@ Each collective over more than one rank is one attempt under
 ``retry.comm_policy()`` that fires the ``comm::<name>`` fault site before
 the torch call (``_resilient``). An error that torch raises from inside
 the call is not retried: a half-done collective needs the step's rollback
-(``ElasticStep``), not a second call.
+(``ElasticStep``), not a second call. While a telemetry plane is on, each
+such collective runs in a ``comm::<name>`` span carrying its payload bytes
+(``_obs_comm``), counted once per call as ``comm.calls.<name>`` and
+``comm.bytes.<name>``, outside the retries.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from .._core.tensor import Tensor
+from ..observability import _state as _OBS
 from .process_group import (TORCH_OPS, Group, ReduceOp,  # noqa: F401
                             default_group, get_backend, get_group,
                             new_group)
@@ -47,10 +51,41 @@ class _CallFailed(Exception):
     """Carries an error raised by the torch call past the retry policy."""
 
 
-def _resilient(name: str, fn, *args, **kw):
+def _obs_comm(name: str, of=()):
+    """Span and call/byte counters for one collective (callers gate on
+    ``_OBS.ACTIVE``). The payload is the bytes of the tensors ``of``,
+    priced once per call (not per attempt); the span carries it so the
+    cross-rank overlap report can turn comm time into achieved
+    bandwidth."""
+    nbytes = _nbytes(of)
+    if _OBS.METRICS:
+        from ..observability import metrics
+        metrics.inc("comm.calls." + name)
+        if nbytes:
+            metrics.inc("comm.bytes." + name, nbytes)
+    from ..observability.spans import span
+    return span("comm::" + name, hist=f"comm.{name}_us", bytes=nbytes)
+
+
+def _nbytes(ts) -> int:
+    return sum(p.numel() * p.element_size()
+               for p in (_payload(t) for t in ts)
+               if isinstance(p, torch.Tensor))
+
+
+def _resilient(name: str, fn, *args, _of=(), **kw):
     """``fn(*args, **kw)``, one collective, as one attempt under the comm
     retry policy that fires ``comm::<name>`` first; what ``fn`` raises
-    goes to the caller unretried."""
+    goes to the caller unretried. ``_of`` holds the payload's tensors,
+    whose bytes the span carries; they are summed only while a telemetry
+    plane is on."""
+    if not _OBS.ACTIVE:
+        return _attempts(name, fn, *args, **kw)
+    with _obs_comm(name, _of):
+        return _attempts(name, fn, *args, **kw)
+
+
+def _attempts(name: str, fn, *args, **kw):
     def attempt():
         if _faults.ACTIVE:
             _faults.inject("comm::" + name)
@@ -157,7 +192,7 @@ def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True):
     buf = _buffer(tensor)
     with torch.no_grad():
         _resilient("all_reduce", dist.all_reduce, buf,
-                   op=TORCH_OPS[op], group=pg)
+                   op=TORCH_OPS[op], group=pg, _of=(buf,))
         _reduce_into(buf, op, _group(group).nranks)
     _adopt(tensor, buf)
     return tensor
@@ -171,7 +206,8 @@ def all_gather(tensor_list: List, tensor, group=None, sync_op=True):
     pg = _pg(group)
     src = _payload(tensor).detach().contiguous()
     outs = [torch.empty_like(src) for _ in range(_group(group).nranks)]
-    _resilient("all_gather", dist.all_gather, outs, src, group=pg)
+    _resilient("all_gather", dist.all_gather, outs, src, group=pg,
+               _of=(src,))
     tensor_list.extend(_wrap_like(o, tensor) for o in outs)
     return tensor_list
 
@@ -195,7 +231,8 @@ def broadcast(tensor, src=0, group=None, sync_op=True):
     buf = _buffer(tensor)
     with torch.no_grad():
         _resilient("broadcast", dist.broadcast, buf,
-                   src=_member(group, src, "src"), group=pg)
+                   src=_member(group, src, "src"), group=pg,
+                   _of=(buf,))
     _adopt(tensor, buf)
     return tensor
 
@@ -220,7 +257,7 @@ def reduce(tensor, dst=0, op=ReduceOp.SUM, group=None, sync_op=True):
         memory_format=torch.contiguous_format)
     with torch.no_grad():
         _resilient("reduce", dist.reduce, buf, dst=dst, op=TORCH_OPS[op],
-                   group=pg)
+                   group=pg, _of=(buf,))
     if dist.get_rank() == dst:
         _reduce_into(buf, op, _group(group).nranks)
         _adopt(tensor, buf)
@@ -249,7 +286,7 @@ def reduce_scatter(tensor, tensor_list, op=ReduceOp.SUM, group=None,
         return mine
 
     with torch.no_grad():
-        mine = _resilient("reduce_scatter", reduces)
+        mine = _resilient("reduce_scatter", reduces, _of=tensor_list)
         _reduce_into(mine, op, g.nranks)
     _adopt(tensor, mine)
     return tensor
@@ -269,7 +306,7 @@ def scatter(tensor, tensor_list=None, src=0, group=None, sync_op=True):
         parts = [_payload(t).detach().contiguous() for t in tensor_list]
     with torch.no_grad():
         _resilient("scatter", dist.scatter, buf, scatter_list=parts,
-                   src=src, group=pg)
+                   src=src, group=pg, _of=parts or (buf,))
     _adopt(tensor, buf)
     return tensor
 
@@ -287,7 +324,7 @@ def gather(tensor, gather_list=None, dst=0, group=None, sync_op=True):
     if dist.get_rank() == dst:
         outs = [torch.empty_like(src) for _ in range(_group(group).nranks)]
     _resilient("gather", dist.gather, src, gather_list=outs, dst=dst,
-               group=pg)
+               group=pg, _of=(src,))
     if outs is not None and gather_list is not None:
         gather_list.extend(_wrap_like(o, tensor) for o in outs)
     return gather_list
@@ -315,7 +352,8 @@ def alltoall(out_tensor_list, in_tensor_list, group=None, sync_op=True):
     flat_out = flat_in.new_empty(sum(sizes_out))
     _resilient("all_to_all", dist.all_to_all_single, flat_out, flat_in,
                output_split_sizes=sizes_out,
-               input_split_sizes=[t.numel() for t in ins], group=pg)
+               input_split_sizes=[t.numel() for t in ins], group=pg,
+               _of=ins)
     like = in_tensor_list[0]
     for part, s in zip(flat_out.split(sizes_out), got_shapes):
         out_tensor_list.append(_wrap_like(part.reshape(s), like))
@@ -329,8 +367,9 @@ def send(tensor, dst=0, group=None, sync_op=True):
     if _group(group).nranks <= 1:
         raise RuntimeError("send needs a multi-process group")
     pg = _pg(group)
-    _resilient("send", dist.send, _payload(tensor).detach().contiguous(),
-               dst=_member(group, dst, "dst"), group=pg)
+    buf = _payload(tensor).detach().contiguous()
+    _resilient("send", dist.send, buf, dst=_member(group, dst, "dst"),
+               group=pg, _of=(buf,))
 
 
 def recv(tensor, src=0, group=None, sync_op=True):
@@ -341,7 +380,7 @@ def recv(tensor, src=0, group=None, sync_op=True):
     buf = _buffer(tensor)
     with torch.no_grad():
         _resilient("recv", dist.recv, buf, src=_member(group, src, "src"),
-                   group=pg)
+                   group=pg, _of=(buf,))
     _adopt(tensor, buf)
     return tensor
 

@@ -134,7 +134,7 @@ class DataParallel(Layer):
                     if g is None:   # taking part, unused here: zeros
                         t.grad = torch.zeros_like(t)
                 grads = [t.grad for t in payloads]
-                _resilient("all_reduce", average_, grads, pg, n)
+                _resilient("all_reduce", average_, grads, pg, n, _of=grads)
                 self.last_buckets += 1
                 self.last_collectives += 1
                 for (p, _), g in zip(bucket, grads):

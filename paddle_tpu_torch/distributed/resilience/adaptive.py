@@ -35,17 +35,21 @@ Not ported: the static planner tier (``Replanner(program_view=...)``
 needs ``analysis/planner.py``, ``ROADMAP.md`` §1 item 9, and raises
 ``NotImplementedError``); the rebuild of an ambient ``auto_mesh`` after a
 re-plan (``spmd.rebuild_ambient``: the port has no ambient mesh, item
-9.1, so there is nothing to rebuild); the count of persistent-cache hits
-across a re-plan (the compile counters are item 9); and, behind their
-gates, the ``resilience::replan`` / ``resilience::grow`` spans
+9.1, so there is nothing to rebuild); and the count of persistent-cache
+hits across a re-plan (the port persists no runner of the window: a
+re-plan rebuilds runners, it loads none). Behind their gates, as in the
+reference: the ``resilience::replan`` / ``resilience::grow`` spans
 (``_OBS.ACTIVE``), the flight-recorder notes (``_OBS.FLIGHT``), the
-distributed post-mortem (``_OBS.DIST``) and the goodput ledger's recovery
-window (``_OBS.GOODPUT``), all item 9.
+distributed post-mortem of a lost rank (``_OBS.DIST``) and the goodput
+ledger's recovery window around a checkpoint fallback
+(``_OBS.GOODPUT``).
 """
 from __future__ import annotations
 
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Union
+
+from ...observability import _state as _OBS
 
 import numpy as np
 import torch
@@ -385,6 +389,8 @@ class AdaptiveTrainer:
         self._last_epoch = ev.epoch
         self._members = list(ev.members)
         self.last_event = ev
+        _note("membership", epoch=ev.epoch, lost=list(ev.lost),
+              joined=list(ev.joined), source=ev.source)
         if ev.joined and not ev.lost:
             # join-driven growth: resolve the joining node ids to process
             # ids and re-plan the bigger world. A join whose ranks cannot
@@ -409,6 +415,14 @@ class AdaptiveTrainer:
         lost = [r for r in ev.lost
                 if self.mesh is None
                 or r in set(self.mesh.process_ids)]
+        if ev.lost and _OBS.DIST:
+            # the distributed postmortem before the re-plan mutates state:
+            # survivors publish their flight rings, rank 0 writes the
+            # interleaved report (never raises)
+            from ...observability import distributed as _dtel
+            _dtel.trigger_postmortem(
+                f"{ev.source}: lost ranks {sorted(ev.lost)} "
+                f"(epoch {ev.epoch})")
         if not lost or self.mesh is None:
             self._replan_t0 = None
             return
@@ -430,6 +444,11 @@ class AdaptiveTrainer:
 
     def _replan_and_apply(self, lost: List[int], ev: MembershipEvent,
                           drop_inflight: bool = False):
+        _spanned("resilience::replan", "resilience.replan_apply_us",
+                 self._replan, lost, ev, drop_inflight,
+                 lost=list(lost), source=ev.source)
+
+    def _replan(self, lost, ev, drop_inflight):
         from ...observability import metrics
         self._quiesce(drop=drop_inflight)
         survivors = [pid for pid in self.mesh.process_ids
@@ -478,6 +497,9 @@ class AdaptiveTrainer:
         metrics.inc("resilience.replans")
         from ..._core import lazy
         lazy.bump_mesh_epoch()
+        _note("replan", survivors=len(survivors),
+              dp=plan.get("dp_degree", 1), mp=plan.get("mp_degree", 1),
+              pp=plan.get("pp_degree", 1))
 
     # --------------------------------------------------------- the grow
     def _joined_to_ranks(self, ev: MembershipEvent) -> List[int]:
@@ -502,6 +524,11 @@ class AdaptiveTrainer:
         sweep, form the grown world and lay the survivors' state out over
         it (``grow_world``), publish the state broadcast for the joiner,
         re-key the lazy window."""
+        _spanned("resilience::grow", "resilience.grow_apply_us",
+                 self._grow, joined, ev, drop_inflight,
+                 joined=list(joined), source=ev.source)
+
+    def _grow(self, joined, ev, drop_inflight):
         from ...observability import metrics
         self._quiesce(drop=drop_inflight)
         everyone = sorted(
@@ -544,6 +571,9 @@ class AdaptiveTrainer:
         self._broadcast_state(host, ev.epoch)
         from ..._core import lazy
         lazy.bump_mesh_epoch()
+        _note("grow", world=len(everyone), joined=list(joined),
+              dp=plan.get("dp_degree", 1), mp=plan.get("mp_degree", 1),
+              pp=plan.get("pp_degree", 1))
 
     def _broadcast_state(self, host: Optional[Dict], epoch: int):
         """Best-effort publication of ``host`` (``_host_state()``, taken
@@ -584,11 +614,14 @@ class AdaptiveTrainer:
         replacement's lost work to the notice-to-kill window."""
         from ...observability import metrics
         metrics.inc("resilience.preempt_notices")
+        _note("preempt_notice", source=source,
+              step=self._elastic.step_index)
         if self.ckpt is None:
             return
-        self.save_checkpoint()
+        gen = self.save_checkpoint()
         self.preempt_checkpoints += 1
         metrics.inc("resilience.preempt_ckpts")
+        _note("preempt_ckpt", generation=gen, step=self._elastic.step_index)
 
     def _adopt_layout(self, new_mesh):
         """Point every mesh-resident parameter at its planned placement on
@@ -678,6 +711,7 @@ class AdaptiveTrainer:
         self._apply_aux_state(st)
         from ...observability import metrics
         metrics.inc("resilience.ckpt_restores")
+        _note("ckpt_restore", generation=gen)
         return gen
 
     def restore_from_broadcast(self, store, epoch: int, *,
@@ -705,6 +739,7 @@ class AdaptiveTrainer:
         self._apply_aux_state(st)
         from ...observability import metrics
         metrics.inc("resilience.bcast_restores")
+        _note("bcast_restore", epoch=int(epoch))
         return st
 
     def _apply_aux_state(self, st: Dict):
@@ -775,9 +810,19 @@ class AdaptiveTrainer:
         except _RETRYABLE_STEP:
             if self.ckpt is None or self.ckpt.latest() is None:
                 raise
-            self._quiesce(drop=True)
-            self.restore_from_checkpoint()
-            out = self._elastic.run(step_fn, *args, **kw)
+            # the whole quiesce -> reload -> re-run window is badput: the
+            # goodput ledger prices it under recovery
+            _goodput = None
+            if _OBS.GOODPUT:
+                from ...observability import goodput as _goodput
+                _goodput.recovery_begin()
+            try:
+                self._quiesce(drop=True)
+                self.restore_from_checkpoint()
+                out = self._elastic.run(step_fn, *args, **kw)
+            finally:
+                if _goodput is not None:
+                    _goodput.recovery_end()
         if self._replan_t0 is not None:
             self.last_replan_latency_s = \
                 time.perf_counter() - self._replan_t0
@@ -788,6 +833,8 @@ class AdaptiveTrainer:
             if self._latency_hist == "resilience.grow_us":
                 self.last_grow_latency_s = self.last_replan_latency_s
             self._latency_hist = "resilience.replan_us"
+            _note("replan_done",
+                  latency_us=int(self.last_replan_latency_s * 1e6))
         # periodic cadence: the ctor's checkpoint_every wins; 0 falls
         # through to FLAGS_checkpoint_interval_steps (0 = off)
         every = self._ckpt_every or int(
@@ -796,3 +843,25 @@ class AdaptiveTrainer:
                 and self._elastic.step_index % every == 0:
             self.save_checkpoint()
         return out
+
+
+def _note(event: str, **detail):
+    """A flight-recorder note of the trainer (one check when off)."""
+    if _OBS.FLIGHT:
+        from ...observability import flight
+        flight.note("adaptive", event, **detail)
+
+
+def _spanned(name: str, hist: str, body, *args, **span_args):
+    """``body(*args)`` inside span ``name`` while a plane is on."""
+    if not _OBS.ACTIVE:
+        return body(*args)
+    from ...observability.spans import span
+    sp = span(name, hist=hist, **span_args).begin()
+    try:
+        out = body(*args)
+    except BaseException as e:
+        sp.end(error=e)
+        raise
+    sp.end()
+    return out

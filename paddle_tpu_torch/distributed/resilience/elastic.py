@@ -31,11 +31,11 @@ their parameter. ``grow_world`` moves pieces between survivors only: a
 joiner takes its state from the survivors' broadcast (``growth.py``), so
 no move waits for a rank that has not received it yet.
 
-Left out, each behind its gate in the reference: the goodput ledger's
-step boundaries and recovery windows (``_OBS.GOODPUT``), the cross-rank
-telemetry's step stamp (``_OBS.DIST``), the live monitor's step feed
-(``_OBS.MONITOR``) and the flight recorder's notes (``_OBS.FLIGHT``), all
-``ROADMAP.md`` §1 item 9.
+Behind their gates, as in the reference: the goodput ledger's step
+boundaries and recovery windows (``_OBS.GOODPUT``), the cross-rank
+telemetry's step stamp and frame (``_OBS.DIST``), the live monitor's step
+feed (``_OBS.MONITOR``) and the flight recorder's notes of failures,
+rollbacks, shrinks and grows (``_OBS.FLIGHT``).
 """
 from __future__ import annotations
 
@@ -48,6 +48,7 @@ import torch
 import torch.distributed as dist
 
 from ..._core import flags as _flags
+from ...observability import _state as _OBS
 from ..watchdog import get_comm_task_manager
 from .faults import RankDeath, TransientFault
 
@@ -249,58 +250,104 @@ class ElasticStep:
         attempt = 0
         deaths = 0
         detect_t: Optional[float] = None
-        while True:
-            try:
-                if _flags.FAULT_INJECT_ACTIVE:
-                    from . import faults
-                    faults.inject(site)
-                out = step_fn(*args, **kw)
-                self._check_watchdog()
-                if detect_t is not None:
-                    self.last_recovery_s = time.perf_counter() - detect_t
-                    from ...observability import metrics
-                    metrics.observe("resilience.recovery_us",
-                                    self.last_recovery_s * 1e6)
-                return out
-            except RankDeath as e:
-                detect_t = time.perf_counter()
-                deaths += 1
-                self._note_failure()
-                # bounded like the transient path: a death that recurs on
-                # every re-run (or a handler that fails to evict the dead
-                # rank) must not spin restore->shrink->re-run forever
-                if self._on_rank_death is None or deaths > budget:
-                    if self._on_rank_death is not None:
+        # the goodput ledger's step boundary and recovery window: off =
+        # one module-attribute read. The window opens at the first failure
+        # of this step and closes with the recovery_us observation, so the
+        # ledger's recovery bucket and the histogram measure the same wall.
+        _goodput = None
+        if _OBS.GOODPUT:
+            from ...observability import goodput as _goodput
+            _goodput.step_begin(self.step_index)
+        recovering = False
+        try:
+            while True:
+                try:
+                    if _flags.FAULT_INJECT_ACTIVE:
+                        from . import faults
+                        faults.inject(site)
+                    out = step_fn(*args, **kw)
+                    self._check_watchdog()
+                    if _OBS.DIST:
+                        # cross-rank telemetry: stamp the step boundary
+                        # and (per the interval flag) publish the frame
+                        from ...observability import distributed as _dtel
+                        _dtel.on_step(self.step_index)
+                    if _OBS.MONITOR:
+                        # the live monitor's steps/s ring and its armed
+                        # deep capture (AdaptiveTrainer rides through an
+                        # inner ElasticStep: one site covers both)
+                        from ...observability import timeseries as _mon
+                        _mon.on_step(self.step_index)
+                    if detect_t is not None:
+                        self.last_recovery_s = \
+                            time.perf_counter() - detect_t
+                        from ...observability import metrics
+                        metrics.observe("resilience.recovery_us",
+                                        self.last_recovery_s * 1e6)
+                        if _goodput is not None and recovering:
+                            _goodput.recovery_end()
+                            recovering = False
+                    if _goodput is not None:
+                        _goodput.step_end(self.step_index)
+                    return out
+                except RankDeath as e:
+                    detect_t = time.perf_counter()
+                    if _goodput is not None and not recovering:
+                        _goodput.recovery_begin()
+                        recovering = True
+                    deaths += 1
+                    self._note_failure(site, e, kind="rank_death")
+                    # bounded like the transient path: a death that recurs
+                    # on every re-run (or a handler that fails to evict the
+                    # dead rank) must not spin restore->shrink->re-run
+                    if self._on_rank_death is None or deaths > budget:
+                        if self._on_rank_death is not None:
+                            from ...observability import metrics
+                            metrics.inc("resilience.gave_up")
+                        raise
+                    # confirmed rank loss: restore the pre-step state, let
+                    # the handler rebuild the world, then re-run on the
+                    # survivors
+                    self._restore(snap)
+                    self._on_rank_death(e)
+                    self._count_rollback(site)
+                except _RETRYABLE_STEP as e:
+                    detect_t = time.perf_counter()
+                    if _goodput is not None and not recovering:
+                        _goodput.recovery_begin()
+                        recovering = True
+                    self._heartbeat()  # the stall is over; stop the clock
+                    attempt += 1
+                    self._note_failure(site, e, kind="step_failure")
+                    if attempt > budget:
                         from ...observability import metrics
                         metrics.inc("resilience.gave_up")
-                    raise
-                # confirmed rank loss: restore the pre-step state, let the
-                # handler rebuild the world, then re-run on the survivors
-                self._restore(snap)
-                self._on_rank_death(e)
-                self._count_rollback()
-            except _RETRYABLE_STEP:
-                detect_t = time.perf_counter()
-                self._heartbeat()  # the stall is over; stop the clock
-                attempt += 1
-                self._note_failure()
-                if attempt > budget:
-                    from ...observability import metrics
-                    metrics.inc("resilience.gave_up")
-                    raise
-                self._restore(snap)
-                self._count_rollback()
+                        raise
+                    self._restore(snap)
+                    self._count_rollback(site)
+        except BaseException:
+            # a step that gives up must not leak its in-step or recovery
+            # ledger state into the caller's timeline
+            if _goodput is not None:
+                _goodput.step_abort()
+            raise
 
     # ------------------------------------------------------ accounting
     @staticmethod
-    def _note_failure():
+    def _note_failure(site: str, e: BaseException, kind: str):
         from ...observability import metrics
         metrics.inc("resilience.step_failures")
+        if _OBS.FLIGHT:
+            from ...observability import flight
+            flight.note("elastic", site, event=kind, error=repr(e)[:160])
 
     @staticmethod
-    def _count_rollback():
+    def _count_rollback(site: str):
         from ...observability import metrics
         metrics.inc("resilience.rollbacks")
+        if _OBS.FLIGHT:
+            from ...observability import flight
+            flight.note("elastic", site, event="rollback")
 
 
 # ------------------------------------------------------- world shrink
@@ -606,6 +653,10 @@ def shrink_world(mesh, lost_process_ids: Sequence[int],
     metrics.inc("resilience.world_shrinks")
     metrics.observe("resilience.shrink_us",
                     (time.perf_counter() - t0) * 1e6)
+    if _OBS.FLIGHT:
+        from ...observability import flight
+        flight.note("shrink", "world", old=mesh.size, new=new_mesh.size,
+                    lost=list(lost_process_ids))
     return new_mesh
 
 
@@ -672,4 +723,8 @@ def grow_world(mesh, joined_process_ids: Sequence[int],
     metrics.inc("resilience.world_grows")
     metrics.observe("resilience.grow_reshard_us",
                     (time.perf_counter() - t0) * 1e6)
+    if _OBS.FLIGHT:
+        from ...observability import flight
+        flight.note("grow", "world", old=mesh.size, new=new_mesh.size,
+                    joined=sorted(joined))
     return new_mesh

@@ -37,9 +37,8 @@ Plan grammar (semicolon- or comma-separated entries), the reference's::
   reference's.
 
 Each injected fault is counted (``resilience.faults_injected`` and
-``resilience.faults.<kind>``). The reference also notes it in its flight
-recorder, behind ``_OBS.FLIGHT``; the flight recorder is ``ROADMAP.md`` §1
-item 9.
+``resilience.faults.<kind>``) and, with the flight recorder armed, noted
+in its ring.
 """
 from __future__ import annotations
 
@@ -186,6 +185,12 @@ class FaultPlan:
         from ...observability import metrics
         metrics.inc("resilience.faults_injected")
         metrics.inc("resilience.faults." + act.kind)
+        from ...observability import _state as _OBS
+        if _OBS.FLIGHT:
+            from ...observability import flight
+            # the detail key must not be 'kind' (note()'s first argument)
+            flight.note("fault", site, fault=act.kind,
+                        occurrence=occurrence, arg=act.arg)
         if act.kind in _DELAY_KINDS and act.arg:
             self._sleep(act.arg)
         exc = _RAISE.get(act.kind)

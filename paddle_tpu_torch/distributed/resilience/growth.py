@@ -26,8 +26,8 @@ already published.
 Counters: ``resilience.grow_bcast_chunks`` / ``grow_bcast_bytes`` on the
 publishing side, ``resilience.grow_state_received`` /
 ``grow_bcast_rejects`` on the receiving side, ``resilience.grow_joins``
-on admission. The reference's flight-recorder notes sit behind
-``_OBS.FLIGHT`` (``ROADMAP.md`` §1 item 9).
+on admission; each also a flight-recorder note while it is armed
+(``_note``).
 """
 from __future__ import annotations
 
@@ -79,7 +79,16 @@ def publish_state(store, state: Dict, epoch: int) -> int:
     from ...observability import metrics
     metrics.inc("resilience.grow_bcast_chunks", len(chunks))
     metrics.inc("resilience.grow_bcast_bytes", len(blob))
+    _note("publish_state", epoch=int(epoch), chunks=len(chunks),
+          bytes=len(blob))
     return len(chunks)
+
+
+def _note(event: str, **detail):
+    from ...observability import _state as _OBS
+    if _OBS.FLIGHT:
+        from ...observability import flight
+        flight.note("grow", event, **detail)
 
 
 def receive_state(store, epoch: int, *,
@@ -119,6 +128,7 @@ def receive_state(store, epoch: int, *,
     except Exception as e:
         from ...observability import metrics
         metrics.inc("resilience.grow_bcast_rejects")
+        _note("receive_reject", epoch=int(epoch), error=repr(e)[:160])
         if isinstance(e, _retry.StoreOpError):
             raise
         raise _retry.StoreOpError(
@@ -127,6 +137,7 @@ def receive_state(store, epoch: int, *,
     state = pickle.loads(blob)
     from ...observability import metrics
     metrics.inc("resilience.grow_state_received")
+    _note("receive_state", epoch=int(epoch), bytes=len(blob))
     return state
 
 
@@ -164,4 +175,6 @@ def join_world(manager, *, announce: bool = True,
             f"{manager.node_id!r} not admitted (membership {m})")
     from ...observability import metrics
     metrics.inc("resilience.grow_joins")
+    _note("join", epoch=int(m.get("epoch", 0)),
+          members=len(m.get("members", [])))
     return m

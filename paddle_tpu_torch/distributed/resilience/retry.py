@@ -12,9 +12,8 @@ eager collectives (``comm_policy``, ``communication.py``), checkpoint I/O
 (``grow_policy``, ``resilience/growth.py``).
 
 Every re-attempt counts ``resilience.retries`` and an exhausted budget
-``resilience.gave_up``; a first-attempt success does no registry work. The
-reference also notes each attempt in its flight recorder, behind
-``_OBS.FLIGHT`` (``ROADMAP.md`` §1 item 9).
+``resilience.gave_up``, each noted in the flight recorder while it is
+armed; a first-attempt success does no registry work.
 """
 from __future__ import annotations
 
@@ -91,6 +90,7 @@ class RetryPolicy:
         budget = self.max_attempts if self.max_attempts is not None \
             else int(_flags.flag_value("FLAGS_retry_max_attempts"))
         budget = max(budget, 1)
+        label = what or self.name
         attempt = 0
         while True:
             try:
@@ -101,12 +101,26 @@ class RetryPolicy:
                     if self._is_retryable(e):
                         from ...observability import metrics
                         metrics.inc("resilience.gave_up")
+                        self._flight("gave_up", label, attempt, e)
                     raise
                 wait = self.delay(attempt)
                 from ...observability import metrics
                 metrics.inc("resilience.retries")
+                self._flight("retry", label, attempt, e, wait=wait)
                 if wait > 0:
                     self.sleep(wait)
+
+    @staticmethod
+    def _flight(kind: str, label: str, attempt: int, e: BaseException,
+                wait: float = None):
+        from ...observability import _state as _OBS
+        if not _OBS.FLIGHT:
+            return
+        from ...observability import flight
+        detail = {"attempt": attempt, "error": repr(e)[:160]}
+        if wait is not None:
+            detail["backoff_s"] = round(wait, 4)
+        flight.note(kind, label, **detail)
 
 
 # ------------------------------------------------------------- presets

@@ -10,9 +10,9 @@ on timeout the checker thread captures every thread's stack and fires the
 task's handler (default: the stacks to stderr), and the waiting thread
 raises on its next ``check``. The thread is a daemon; ``shutdown()`` stops
 and joins it. Each firing counts ``resilience.watchdog_fired`` before it
-is visible to ``check`` and before the handler runs. The reference also
-writes it to its flight recorder, behind ``_OBS.FLIGHT`` (``ROADMAP.md``
-§1 item 9).
+is visible to ``check`` and before the handler runs; with the flight
+recorder armed (``FLAGS_flight_recorder``) it also notes the firing and
+dumps the ring with the stacks, as the reference does.
 """
 from __future__ import annotations
 
@@ -135,12 +135,24 @@ class CommTaskManager:
                         t.timed_out = True
                         fired.append(t)
             for t in fired:
+                self._flight_dump(t)
                 try:
                     self._on_timeout(t)
                 except Exception:
                     # a raising handler cannot kill the watchdog loop; the
                     # waiting thread raises on its next check()
                     pass
+
+    @staticmethod
+    def _flight_dump(t: CommTask):
+        """The stacks land in the flight record file itself: a post-mortem
+        must not depend on stderr capture."""
+        from ..observability import _state as _OBS
+        if _OBS.FLIGHT:
+            from ..observability import flight
+            flight.note("watchdg", t.name, timeout_s=t.timeout)
+            flight.dump(reason=f"watchdog: task '{t.name}' exceeded "
+                               f"{t.timeout}s; host stacks:\n{t.stacks}")
 
     def shutdown(self):
         self._stop.set()

@@ -51,6 +51,7 @@ from .._core import device as _device
 from .._core import lazy as _lazy
 from .._core import random as rnd
 from .._core.tensor import Tensor, to_tensor
+from ..observability import _state as _OBS
 
 __all__ = ["Dataset", "IterableDataset", "TensorDataset", "Subset",
            "ConcatDataset", "random_split", "DataLoader", "BatchSampler",
@@ -695,7 +696,14 @@ class DevicePrefetcher:
     numpy leaves become ``Tensor``s (copies) and ``Tensor``s pass. Every
     leaf keeps its type, as in the reference (float64 stays float64). A
     generator ``source`` (or a loader's workers) is closed when iteration
-    ends; an exception ``source`` raises is raised to the consumer."""
+    ends; an exception ``source`` raises is raised to the consumer.
+
+    While a telemetry plane is on, each placed leaf runs in an ``io::h2d``
+    span carrying its bytes (the copy is asynchronous on the card: the
+    span times its dispatch; the memory plane's census marks it
+    ``io:h2d``), and a pull that finds no batch ready blocks the consumer
+    inside an ``io::input_wait`` span (the goodput plane's input-wait
+    bucket)."""
 
     def __init__(self, source, depth: int = None):
         self._source = iter(source)
@@ -703,6 +711,24 @@ class DevicePrefetcher:
         self.device = self.stream = None  # set when iteration starts
 
     def _stage(self, x, made):
+        if _OBS.ACTIVE and isinstance(x, (torch.Tensor, Tensor, np.ndarray)):
+            from ..observability.spans import span
+            _memtel = None
+            if _OBS.MEM:
+                from ..observability import memory as _memtel
+                _memtel.set_site("io:h2d")
+            nb = int(x.nbytes) if isinstance(x, np.ndarray) else int(
+                x.numel() * x.element_size()) if isinstance(
+                x, torch.Tensor) else 0
+            try:
+                with span("io::h2d", hist="io.h2d_us", bytes=nb):
+                    return self._stage_leaf(x, made)
+            finally:
+                if _memtel is not None:
+                    _memtel.clear_site()
+        return self._stage_leaf(x, made)
+
+    def _stage_leaf(self, x, made):
         if isinstance(x, torch.Tensor):
             x = Tensor(x)
         if isinstance(x, Tensor):
@@ -747,6 +773,19 @@ class DevicePrefetcher:
                 t.record_stream(cur)
         return tree
 
+    @staticmethod
+    def _pull(source):
+        """The next item of ``source`` (an iterator, or the staging queue)
+        where the consumer waits for it: an ``io::input_wait`` span while a
+        telemetry plane is on."""
+        get = source.get if isinstance(source, queue.Queue) \
+            else lambda: next(source)
+        if not _OBS.ACTIVE:
+            return get()
+        from ..observability.spans import span
+        with span("io::input_wait", hist="io.input_wait_us"):
+            return get()
+
     def _close_source(self):
         # a loader's generator or workers stop now, not when collected
         if isinstance(self._source, (types.GeneratorType, _WorkerBatches)):
@@ -758,11 +797,14 @@ class DevicePrefetcher:
         self.stream = torch.cuda.Stream(self.device) if cuda else None
         if self._depth < 1:
             try:
-                for batch in self._source:
+                while True:
+                    try:
+                        batch = self._pull(self._source)
+                    except StopIteration:
+                        return
                     yield self._take(self._put(batch))
             finally:
                 self._close_source()
-            return
         # the staging thread's current stream is the consumer's: a nested
         # prefetcher's batches (a DataLoader's) wait on the right stream
         consumer = torch.cuda.current_stream(self.device) if cuda else None
@@ -794,7 +836,10 @@ class DevicePrefetcher:
         th.start()
         try:
             while True:
-                kind, item = q.get()
+                if _OBS.ACTIVE and q.empty():
+                    kind, item = self._pull(q)
+                else:
+                    kind, item = q.get()
                 if kind == "done":
                     return
                 if kind == "error":

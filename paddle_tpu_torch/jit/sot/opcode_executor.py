@@ -37,8 +37,11 @@ Only the 3.12 dialect is ported (the card's machine and the CPU tests
 both run 3.12): on another Python version every frame falls back to
 native execution under the capture. The reference's 3.10 dialect
 (``CALL_FUNCTION*``, ``LOAD_METHOD``, per-op ``BINARY_*``, ``ROT_*``) is
-left out, as are its observability spans and metrics (``ROADMAP.md`` §1
-item 9) and its sanitizer sweep of installed entries.
+left out, as is its sanitizer sweep of installed entries. While a
+telemetry plane is on, the guard evaluation runs in a ``sot::guard_eval``
+span, and ``sot.fast_hits``, ``sot.replay_mismatches``,
+``sot.guard_misses`` and ``sot.captures`` are counted, as the reference
+counts them.
 """
 from __future__ import annotations
 
@@ -61,6 +64,7 @@ from ..._core import random as _rng
 from ..._core.dtype import DType
 from ..._core.tensor import Tensor
 from ...amp.auto_cast import state_key as amp_state_key
+from ...observability import _state as _OBS
 from .guards import Guard, GuardSet, Source, is_guardable_value
 
 
@@ -1065,6 +1069,13 @@ class SotFunction:
         grad_now = is_grad_enabled()
         amp_now = amp_state_key()
         log = _flag("FLAGS_guard_log")
+        gspan = None
+        if _OBS.ACTIVE:
+            from ...observability.spans import span
+            gspan = span("sot::guard_eval", hist="sot.guard_eval_us",
+                         fn=getattr(fn, "__name__", "?"),
+                         entries=len(self._entries)).begin()
+        guards_matched = False
         for entry in self._entries:
             if log:
                 failed = [g for g in entry.guards
@@ -1074,12 +1085,29 @@ class SotFunction:
                           f"guard miss {failed[:3]}")
             if entry.grad_mode == grad_now and entry.amp == amp_now \
                     and entry.guards.check_all(fn, eval_args, kwargs):
+                guards_matched = True
+                if gspan is not None:
+                    gspan.end()
                 try:
                     out = entry.run(fn, eval_args, kwargs)
                     self.stats["fast_hits"] += 1
+                    if _OBS.METRICS:
+                        from ...observability import metrics
+                        metrics.inc("sot.fast_hits")
                     return out
                 except (lazy._ReplayMismatch, _ReplayMismatch):
+                    if _OBS.METRICS:
+                        from ...observability import metrics
+                        metrics.inc("sot.replay_mismatches")
                     continue
+        if gspan is not None:
+            gspan.end()
+            if _OBS.METRICS:
+                from ...observability import metrics
+                # a replay mismatch after a guard pass is no guard miss
+                if self._entries and not guards_matched:
+                    metrics.inc("sot.guard_misses")
+                metrics.inc("sot.captures")
         return self._capture(args, kwargs)
 
     # ------------------------------------------------------------ capture

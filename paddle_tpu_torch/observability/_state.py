@@ -1,16 +1,13 @@
 """Module-level gates of the observability layer: the counterpart of
 ``paddle_tpu/observability/_state.py``.
 
-An instrumented path pays one module-attribute read when its gate is off.
-In the port every gate stays ``False``: the planes behind them (the
-``FLAGS_observability`` collection at hot sites, spans in the profiler's
-trace, the flight recorder, the cross-rank telemetry, memory, compute,
-goodput and the live monitor) and the flags that open them are
-``ROADMAP.md`` §1 item 9. The resilience runtime reads ``FLIGHT``,
-``GOODPUT``, ``DIST``, ``MONITOR`` and ``ACTIVE`` where the reference
-reads them, and so skips what sits behind them.
+Every instrumented hot path (segment flush, cache lookup, collective, SOT
+guard eval) pays exactly ONE module-attribute read when everything here
+is off. The gates are kept coherent with their flags by flag watchers
+(registered in ``observability/__init__``) and with the profiler's
+recording state by its start/stop/step.
 
-Stdlib only: the runtime's core modules may import it.
+Stdlib only: the runtime's core modules import it at load.
 """
 from __future__ import annotations
 

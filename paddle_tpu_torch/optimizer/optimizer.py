@@ -22,6 +22,13 @@ Two options the reference accepts and ignores are applied here, as Paddle
 defines them: AdamW's ``lr_ratio(param)`` multiplies that parameter's
 learning rate, and Lamb's ``exclude_from_weight_decay_fn(param)`` exempts
 a parameter from the decay (each by splitting the parameter groups).
+
+While a telemetry plane is on, the update runs in an
+``optimizer::fused_step`` span (``optimizer.step_us``) and counts
+``optimizer.steps`` and ``optimizer.donated_steps`` (the update writes in
+place, as the reference's donated update does); with the memory plane on,
+a master weight made at the first step enters the census as
+``optimizer.master``.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ import torch
 
 from .._core import dispatch, lazy
 from .._core.tensor import Tensor
+from ..observability import _state as _OBS
 from .lr import LRScheduler
 
 __all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adagrad",
@@ -135,6 +143,18 @@ class Optimizer:
                 groups.append(gi)
         if not pairs:
             return
+        if not _OBS.ACTIVE:
+            return self._step(pairs, groups)
+        if _OBS.METRICS:
+            from ..observability import metrics
+            metrics.inc("optimizer.steps")
+            metrics.inc("optimizer.donated_steps")
+        from ..observability.spans import span
+        with span("optimizer::fused_step", hist="optimizer.step_us",
+                  params=len(pairs), donated=True):
+            self._step(pairs, groups)
+
+    def _step(self, pairs, groups) -> None:
         dispatch.bump_exec()  # the whole update is one execution
         if self._grad_clip is not None:
             pairs = self._grad_clip(pairs)
@@ -156,6 +176,8 @@ class Optimizer:
                         self._master[pid] = p._t.detach().float()
                     self._states[pid] = self._init_state(
                         self._master.get(pid, p._t))
+                    if _OBS.MEM:
+                        self._note_state(pid)
                 ps.append(self._master.get(pid, p._t))
                 gs.append(g if g.dtype == ps[-1].dtype else g.to(ps[-1].dtype))
                 states.append(self._states[pid])
@@ -164,6 +186,15 @@ class Optimizer:
             if master:
                 for p, m in zip(params, ps):
                     p._t.copy_(m)
+
+    def _note_state(self, pid) -> None:
+        """The memory plane's census of a parameter's new optimizer state
+        (and master weight): raw torch tensors no ``Tensor`` wraps."""
+        from ..observability import memory as _memtel
+        for v in self._states[pid].values():
+            _memtel.note_buffer(v, "optimizer.state")
+        if pid in self._master:
+            _memtel.note_buffer(self._master[pid], "optimizer.master")
 
     @torch.no_grad()
     def clear_grad(self, set_to_zero=True) -> None:

@@ -93,6 +93,11 @@ NOT_YET = {
     "framework": {},
     "ir": {},
     "onnx": {},
+    "observability": {},
+    "observability.budget": dict.fromkeys(
+        ("static_diff", "render_static_diff"),
+        "ROADMAP §1 item 9: the analysis plane's perf checker"),
+    "profiler": {},
 }
 # names a reference package binds to the JAX modules it imports: never
 # ported (the port imports no JAX)
@@ -105,6 +110,15 @@ def test_every_public_callable_exists_in_the_port(path):
     import importlib
     theirs = importlib.import_module(f"paddle_tpu.{path}")
     mine = importlib.import_module(f"paddle_tpu_torch.{path}")
+    # a package lists the submodules some test has imported: import the
+    # port's of the same names, so the comparison does not depend on order
+    for n, obj in vars(theirs).items():
+        if isinstance(obj, types.ModuleType) and not n.startswith("_") \
+                and obj.__name__ == f"{theirs.__name__}.{n}":
+            try:
+                importlib.import_module(f"paddle_tpu_torch.{path}.{n}")
+            except ImportError:
+                pass
     missing = sorted(_public(theirs) - _public(mine))
     if path in NOT_YET:
         missing = sorted(_names(theirs) - _names(mine) - set(NOT_YET[path])

@@ -223,11 +223,16 @@ def test_segment_compile_fault_rolls_back():
     assert losses == want_losses and _equal(params, want_params)
 
 
-def test_exec_oom_site_is_not_rolled_back():
+def test_exec_oom_site_is_not_rolled_back(tmp_path):
     """``exec::oom`` raises the synthetic out-of-memory error before a
-    runner executes; it is not a transient fault, so the step fails."""
-    with pytest.raises(ResourceExhausted):
-        _train(1, "exec::oom=oom", guard=True)
+    runner executes; the execute site turns it into the typed
+    ``ResourceExhaustedError`` (with its postmortem), which is not a
+    transient fault, so the step fails."""
+    from paddle_tpu_torch.base.core import ResourceExhaustedError
+    with flag("FLAGS_flight_recorder_dir", str(tmp_path)):
+        with pytest.raises(ResourceExhaustedError) as ei:
+            _train(1, "exec::oom=oom", guard=True)
+    assert isinstance(ei.value.__cause__, ResourceExhausted)
 
 
 def test_rank_death_without_handler_propagates():

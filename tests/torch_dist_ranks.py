@@ -827,3 +827,113 @@ def elastic_fallback(shape, names, x, spec, lost, epoch, root):
     trainer.shutdown()
     _whole_world(epoch + 1)
     return out
+
+
+# ------------------------------------------------ cross-rank telemetry
+
+def _telemetry_store():
+    """A TCPStore hosted by rank 0 on a free port, its port broadcast over
+    the world."""
+    from paddle_tpu_torch.distributed.store import TCPStore
+    rank, n = dist.get_rank(), dist.get_world_size()
+    store = TCPStore("127.0.0.1", 0, is_master=rank == 0, world_size=n,
+                     timeout=30) if rank == 0 else None
+    port = [store.port if store is not None else None]
+    dist.broadcast_object_list(port, src=0)
+    if store is None:
+        store = TCPStore("127.0.0.1", port[0], world_size=n, timeout=30)
+    return store
+
+
+def telemetry_publish(steps):
+    """Every rank publishes a frame a step (a compute chain and a gloo
+    all-reduce under ElasticStep, the telemetry plane on); rank 0 polls
+    the store. Rank 0 returns the step table, the overlap report, the raw
+    frame blobs it read and the port's decode of each; the others None."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed.communication import all_reduce
+    from paddle_tpu_torch.distributed.resilience import ElasticStep
+    from paddle_tpu_torch.observability import distributed as dtel
+    pt.set_device("cpu")
+    rank, n = dist.get_rank(), dist.get_world_size()
+    store = _telemetry_store()
+    pt.set_flags({"FLAGS_distributed_telemetry": True})
+    try:
+        pub = dtel.init(store, rank=rank, world_size=n)
+        x = pt.to_tensor(np.ones((16, 16), "float32"))
+        grad = pt.to_tensor(np.ones((64, 64), "float32"))
+        w = pt.create_parameter([4, 4], "float32")
+        elastic = ElasticStep(optimizer=pt.optimizer.SGD(0.0,
+                                                         parameters=[w]))
+
+        def step():
+            with pt.framework.lazy_guard():
+                y = x
+                for _ in range(4):
+                    y = y * 1.001 + 0.1
+            y.numpy()
+            all_reduce(grad)
+
+        for _ in range(steps):
+            elastic.run(step)
+        pub.flush()
+        dist.barrier()
+        out = None
+        if rank == 0:
+            agg = dtel.TelemetryAggregator()
+            agg.poll_store(store, list(range(n)))
+            blobs = [store.try_get(f"__telem/frame/{r}/1", timeout=1.0)
+                     for r in range(n)]
+            out = {"table": agg.step_table(),
+                   "overlap": agg.overlap_report(),
+                   "blobs": blobs,
+                   "decoded": [dtel.decode_frame(b) for b in blobs]}
+        dist.barrier()
+        elastic.shutdown()
+        return out
+    finally:
+        pt.set_flags({"FLAGS_distributed_telemetry": False})
+        dtel.shutdown()
+        dist.barrier()
+        store.close()
+
+
+def telemetry_postmortem(tmp):
+    """Rank 1 publishes its flight ring as a postmortem; rank 0 aggregates
+    over ranks [0, 1, 2] (rank 2 never existed) into ``tmp``, then once
+    more with no new publication (the first pass consumed the keys).
+    Rank 0 returns both reports' bodies."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.observability import distributed as dtel
+    from paddle_tpu_torch.observability import flight
+    rank, n = dist.get_rank(), dist.get_world_size()
+    store = _telemetry_store()
+    pt.set_flags({"FLAGS_distributed_telemetry": True,
+                  "FLAGS_flight_recorder": True})
+    try:
+        flight.reset()
+        flight.note("span", f"rank{rank}::work", dur_us=5.0)
+        pub = dtel.init(store, rank=rank, world_size=n)
+        if rank == 1:
+            pub.publish_postmortem("drill: rank 2 lost")
+        dist.barrier()
+        out = None
+        if rank == 0:
+            pub.publish_postmortem("drill: rank 2 lost")
+            agg = dtel.TelemetryAggregator()
+            p1 = os.path.join(tmp, "post1.txt")
+            agg.aggregate_postmortem(store, [0, 1, 2], reason="one",
+                                     grace_s=0.3, path=p1)
+            p2 = os.path.join(tmp, "post2.txt")
+            got = dtel.TelemetryAggregator().aggregate_postmortem(
+                store, [1], reason="two", grace_s=0.2, path=p2)
+            out = {"first": open(p1).read(), "second": got}
+        dist.barrier()
+        return out
+    finally:
+        pt.set_flags({"FLAGS_distributed_telemetry": False,
+                      "FLAGS_flight_recorder": False})
+        flight.reset()
+        dtel.shutdown()
+        dist.barrier()
+        store.close()
